@@ -1,0 +1,120 @@
+"""Fully-connected ISTA / FISTA sparse inference: counterpart of
+``run`` and ``_solve`` (vtc_tpu/analysis_transforms/fully_connected/
+ista_fista.py:34-152), with the same arguments and formulations:
+
+* 'gram' (the default, as in JAX): G = D D^T and c = X D^T once, then one
+  (b,s)x(s,s) product per iteration with the stepsize folded in,
+  z + z @ (-eta G) + eta c: ``ops/fused_fista.fused_fista_plain``, the
+  kernel's plain version;
+* 'direct': the reference's literal two-product iteration;
+* 'pallas': keeps its JAX spelling so callers' parameters carry over, and
+  selects the hand-written CUDA kernel (``ops/fused_fista``; the plain
+  PyTorch version for CPU tensors).  The kernel has no batch-global stop
+  test yet: on a CUDA device 'pallas' with ``early_stopping_epsilon``
+  raises NotImplementedError (ROADMAP.md §1 item 3), and the caller picks
+  'gram'.  CPU tensors run the plain version, stop test included.
+
+Only ``mxu_precision='highest'`` exists: the reduced-precision tiers
+wait (ROADMAP.md §1).
+"""
+from typing import Optional
+
+import torch
+
+from vtc_tpu_torch.ops import fused_fista
+from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
+from vtc_tpu_torch.ops import thresholds
+from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.solver import proximal_gradient_loop
+
+
+def _solve_direct(images, dictionary, sparsity_weight, num_iters, stepsize,
+                  initial_codes, variant, nonnegative_only, hard_threshold,
+                  early_stopping_epsilon):
+  threshold_fn = thresholds.select(nonnegative_only, hard_threshold)
+
+  def grad_fn(z):
+    return (z @ dictionary - images) @ dictionary.T
+
+  def prox_fn(x, ss):
+    return threshold_fn(x, sparsity_weight * ss)
+
+  with matmul_precision():
+    return proximal_gradient_loop(
+        grad_fn, prox_fn, initial_codes, stepsize, num_iters,
+        variant=variant, early_stopping_epsilon=early_stopping_epsilon)
+
+
+def run(images, dictionary, sparsity_weight, num_iters, variant="fista",
+        initial_codes=None, early_stopping_epsilon=None,
+        nonnegative_only=False, hard_threshold=False, *,
+        stepsize: Optional[torch.Tensor] = None,
+        lipschitz_method: str = "eigvalsh",
+        formulation: str = "gram",
+        mxu_precision: str = "highest"):
+  """Infer sparse codes for a batch of images.
+
+  Args:
+    images: (b, n) batch of flattened patches (tensor or array).
+    dictionary: (s, n) dictionary, rows are basis elements.  The solve
+      runs on the dictionary's device; arrays land on the CPU.
+    sparsity_weight: lambda weighting the sparsity penalty.
+    num_iters: max number of ISTA/FISTA steps.
+    variant: 'ista' or 'fista'.
+    initial_codes: optional (b, s) warm start (not mutated).
+    early_stopping_epsilon: optional float; stop when the mean absolute
+      code change per component, over the stepsize, drops below this
+      (after the first iteration).
+    nonnegative_only, hard_threshold: threshold variants.
+    stepsize: optional precomputed 1/L; skips the eigenvalue solve.
+    lipschitz_method: 'eigvalsh' (exact) or 'power'.
+    formulation: 'gram' | 'direct' | 'pallas' (the CUDA kernel; with
+      ``early_stopping_epsilon`` it runs on CPU tensors only).
+    mxu_precision: 'highest' only.
+
+  Returns:
+    (b, s) float32 codes on the dictionary's device.
+  """
+  if variant not in ("ista", "fista"):
+    raise ValueError("variant must be 'ista' or 'fista'")
+  if formulation not in ("gram", "direct", "pallas"):
+    raise ValueError("formulation must be 'gram', 'direct' or 'pallas'")
+  if mxu_precision != "highest":
+    raise NotImplementedError(
+        "mxu_precision=%r: the reduced-precision tiers (tf32x3, the "
+        "card's bf16x3) wait, ROADMAP.md §1 item 3" % (mxu_precision,))
+  dictionary = torch.as_tensor(dictionary, dtype=torch.float32)
+  device = dictionary.device
+  images = torch.as_tensor(images, dtype=torch.float32, device=device)
+  if initial_codes is not None:
+    initial_codes = torch.as_tensor(
+        initial_codes, dtype=torch.float32, device=device).contiguous()
+  if early_stopping_epsilon is not None:
+    early_stopping_epsilon = float(early_stopping_epsilon)
+    if formulation == "pallas" and device.type != "cpu":
+      raise NotImplementedError(
+          "formulation='pallas' with early_stopping_epsilon: the CUDA "
+          "kernel has no batch-global stop test yet, ROADMAP.md §1 item 3; "
+          "use formulation='gram'")
+  if stepsize is None:
+    stepsize = lipschitz_ops.fista_stepsize(dictionary, lipschitz_method)
+  flags = dict(initial_codes=initial_codes, variant=variant,
+               nonneg=bool(nonnegative_only), hard=bool(hard_threshold))
+  if formulation == "pallas" and early_stopping_epsilon is None:
+    return fused_fista.fused_fista_solve(
+        images, dictionary, float(sparsity_weight), num_iters, stepsize,
+        **flags)
+  if formulation != "direct":
+    # 'gram', or 'pallas' stopping early on CPU tensors: the plain version
+    return fused_fista.fused_fista_plain(
+        images, dictionary, float(sparsity_weight), num_iters, stepsize,
+        early_stopping_epsilon=early_stopping_epsilon, **flags)
+  if initial_codes is None:
+    initial_codes = torch.zeros(
+        (images.shape[0], dictionary.shape[0]), dtype=torch.float32,
+        device=device)
+  stepsize = torch.as_tensor(stepsize, dtype=torch.float32, device=device)
+  return _solve_direct(images, dictionary, float(sparsity_weight),
+                       num_iters, stepsize, initial_codes, variant,
+                       bool(nonnegative_only), bool(hard_threshold),
+                       early_stopping_epsilon)

@@ -1,0 +1,197 @@
+"""High-throughput dataset encoding (the serving path): counterpart of the
+fully-connected branch of ``encode_dataset`` (vtc_tpu/encode.py:96-249).
+
+* The stepsize (top Gram eigenvalue) is computed once per dictionary on
+  the device and handed to every batch solve as a device tensor.
+* The dataset is cut into ``batch_size`` batches, the tail padded with
+  zero rows (zero codes, dropped at the end; vtc_tpu/encode.py:216-224),
+  and walked in chunks of ``chunk_batches`` batches.
+* On a CUDA device each batch solve is the fused FISTA kernel
+  (``formulation=None`` resolves to 'pallas' there and to 'gram' on the
+  CPU, as JAX resolves it to 'pallas' on the TPU, encode.py:143-145).
+  The next chunk's host->device copy runs on a side stream from pinned
+  memory while the current chunk computes, with an event before each
+  use; results are drained one chunk behind (encode.py:226-246), their
+  device->host copy overlapping the next chunk's compute.
+
+  codes = encode_dataset(patches, dictionary, 0.008, 100, device="cuda")
+
+Subspace (``group_assignments``), convolutional mode and
+``data_parallel`` raise NotImplementedError until their slices land.
+"""
+import numpy as np
+import torch
+
+from vtc_tpu_torch.analysis_transforms.fully_connected import ista_fista
+from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
+
+
+class _HostChunks:
+  """CPU tensors: a chunk is a view of the host array, nothing overlaps."""
+
+  def stage(self, slot, chunk):
+    return torch.from_numpy(chunk)
+
+  def compute(self, slot, staged, solve):
+    return [solve(batch) for batch in staged]
+
+  def drain(self, slot, codes, dest):
+    for j, c in enumerate(codes):
+      dest[j] = c.numpy()
+
+
+class _CudaChunks:
+  """Two slots of pinned host and device buffers.  Copies run on side
+  streams and are ordered against the compute stream by events:
+
+    copied[slot]   H2D into dev_in[slot] done  (compute waits; the host
+                   waits before refilling pinned_in[slot])
+    computed[slot] the solves that read dev_in[slot] done  (the next H2D
+                   into that slot and the D2H of its codes wait)
+  """
+
+  def __init__(self, device, chunk_shape, code_shape):
+    self.compute_stream = torch.cuda.current_stream(device)
+    self.h2d_stream = torch.cuda.Stream(device)
+    self.d2h_stream = torch.cuda.Stream(device)
+    self.pinned_in = [torch.empty(chunk_shape, pin_memory=True)
+                      for _ in range(2)]
+    self.dev_in = [torch.empty(chunk_shape, device=device)
+                   for _ in range(2)]
+    self.pinned_out = [torch.empty(code_shape, pin_memory=True)
+                       for _ in range(2)]
+    self.copied = [torch.cuda.Event() for _ in range(2)]
+    self.computed = [torch.cuda.Event() for _ in range(2)]
+    self.drained = torch.cuda.Event()
+
+  def stage(self, slot, chunk):
+    k = len(chunk)
+    self.copied[slot].synchronize()  # never refill a buffer mid-copy
+    self.pinned_in[slot][:k].numpy()[...] = chunk
+    self.h2d_stream.wait_event(self.computed[slot])
+    with torch.cuda.stream(self.h2d_stream):
+      self.dev_in[slot][:k].copy_(self.pinned_in[slot][:k],
+                                  non_blocking=True)
+    self.copied[slot].record(self.h2d_stream)
+    return self.dev_in[slot][:k]
+
+  def compute(self, slot, staged, solve):
+    self.compute_stream.wait_event(self.copied[slot])
+    codes = [solve(batch) for batch in staged]
+    self.computed[slot].record(self.compute_stream)
+    return codes
+
+  def drain(self, slot, codes, dest):
+    self.d2h_stream.wait_event(self.computed[slot])
+    with torch.cuda.stream(self.d2h_stream):
+      for j, c in enumerate(codes):
+        self.pinned_out[slot][j].copy_(c, non_blocking=True)
+    self.drained.record(self.d2h_stream)
+    self.drained.synchronize()
+    dest[...] = self.pinned_out[slot][:len(codes)].numpy()
+
+
+def _check_scope(mode, group_assignments, data_parallel, mxu_precision):
+  if mode == "convolutional":
+    raise NotImplementedError(
+        "mode='convolutional' waits for the conv slice, ROADMAP.md §1 "
+        "item 7")
+  if mode != "fully-connected":
+    raise ValueError("mode must be 'fully-connected' or 'convolutional'")
+  if group_assignments is not None:
+    raise NotImplementedError(
+        "group_assignments (subspace encoding) waits for the subspace "
+        "slice, ROADMAP.md §1 item 5")
+  if data_parallel is not None:
+    raise NotImplementedError(
+        "data_parallel waits for the multi-device slice, ROADMAP.md §1 "
+        "item 9")
+  if mxu_precision != "highest":
+    raise NotImplementedError(
+        "mxu_precision=%r: the reduced-precision tiers wait, ROADMAP.md "
+        "§1 item 3" % (mxu_precision,))
+
+
+def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
+                   mode="fully-connected", batch_size=1024,
+                   chunk_batches=8, variant="fista",
+                   group_assignments=None, kernel_stride=None,
+                   padding=None, nonnegative_only=False,
+                   hard_threshold=False, formulation=None,
+                   lipschitz_method="eigvalsh", data_parallel=None,
+                   mxu_precision="highest", device=None):
+  """Encode a full dataset into codes, batched and streamed.
+
+  Args:
+    data: host array, (D, n) flattened patches.
+    dictionary: (s, n) trained dictionary (tensor or array).
+    sparsity_weight, num_iters, variant: solver parameters.
+    mode: 'fully-connected' ('convolutional' is not ported yet).
+    batch_size: rows per solver call.
+    chunk_batches: batches per host->device transfer unit; the device
+      holds two input chunks (double buffering).
+    group_assignments, kernel_stride, padding, data_parallel: the
+      subspace, conv and multi-device options of the JAX function; not
+      ported yet (kernel_stride and padding are conv-only and unused).
+    nonnegative_only, hard_threshold: threshold variants.
+    formulation: None -> 'pallas' (the CUDA kernel) on a CUDA device,
+      'gram' on the CPU; or force 'gram' / 'direct' / 'pallas'.
+    lipschitz_method: 'eigvalsh' (exact, default) or 'power'.
+    mxu_precision: 'highest' only.
+    device: where to solve; defaults to the dictionary's device when it
+      is a tensor, else the CPU.
+
+  Returns:
+    (D, s) float32 numpy codes.
+  """
+  _check_scope(mode, group_assignments, data_parallel, mxu_precision)
+  if device is None:
+    device = (dictionary.device if isinstance(dictionary, torch.Tensor)
+              else "cpu")
+  device = torch.device(device)
+  data = np.ascontiguousarray(data, dtype=np.float32)
+  total = data.shape[0]
+  if total == 0:
+    raise ValueError("encode_dataset: empty dataset")
+  batch_size, chunk_batches = int(batch_size), int(chunk_batches)
+  dictionary = torch.as_tensor(dictionary, dtype=torch.float32,
+                               device=device).contiguous()
+  if formulation is None:
+    formulation = "pallas" if device.type == "cuda" else "gram"
+  eta = lipschitz_ops.fista_stepsize(dictionary, lipschitz_method)
+
+  def solve(batch):
+    return ista_fista.run(
+        batch, dictionary, sparsity_weight, num_iters, variant=variant,
+        nonnegative_only=nonnegative_only, hard_threshold=hard_threshold,
+        stepsize=eta, formulation=formulation, mxu_precision=mxu_precision)
+
+  num_batches = -(-total // batch_size)
+  padded = num_batches * batch_size
+  if padded != total:
+    data = np.concatenate(
+        [data, np.zeros((padded - total,) + data.shape[1:], np.float32)])
+  batches = data.reshape((num_batches, batch_size) + data.shape[1:])
+  codes = np.empty((num_batches, batch_size, dictionary.shape[0]),
+                   np.float32)
+  if device.type == "cuda":
+    chunks = _CudaChunks(device, (chunk_batches,) + batches.shape[1:],
+                         (chunk_batches,) + codes.shape[1:])
+  else:
+    chunks = _HostChunks()
+
+  staged = chunks.stage(0, batches[:chunk_batches])
+  pending = None  # (slot, device codes, destination) of the last chunk
+  for p, pos in enumerate(range(0, num_batches, chunk_batches)):
+    slot = p % 2
+    nxt = pos + chunk_batches
+    out = chunks.compute(slot, staged, solve)
+    if nxt < num_batches:
+      # the next chunk's host->device copy overlaps this chunk's compute
+      staged = chunks.stage(1 - slot, batches[nxt:nxt + chunk_batches])
+    if pending is not None:
+      # drain the previous chunk while this one computes
+      chunks.drain(*pending)
+    pending = (slot, out, codes[pos:nxt])
+  chunks.drain(*pending)
+  return codes.reshape(padded, -1)[:total]

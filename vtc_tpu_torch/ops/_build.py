@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels (vtc_tpu_torch/csrc/*.cu).
+
+At first use ``nvcc`` compiles every source in ``csrc/`` for ``sm_90a``
+into one shared library with a plain C interface, which is loaded with
+``ctypes``.  The library lands in ``vtc_tpu_torch/_build/`` (listed in
+.gitignore), named by a hash of the sources and flags, so a changed
+source rebuilds and an unchanged one loads at once.  A missing ``nvcc``
+or a failed compile raises with the compiler's output: there is no
+fallback.
+"""
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = _PACKAGE / "csrc"
+BUILD_DIR = _PACKAGE / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+class BuildError(RuntimeError):
+  """The CUDA kernels could not be compiled."""
+
+
+def find_nvcc():
+  """Path of nvcc under $CUDA_HOME (default /usr/local/cuda) or on PATH,
+  or None."""
+  cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+  search = os.pathsep.join(
+      [os.path.join(cuda_home, "bin"), os.environ.get("PATH", "")])
+  return shutil.which("nvcc", path=search)
+
+
+def _sources():
+  return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path(build_dir=None):
+  """Where the library for the current sources and flags lives."""
+  digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+  for src in _sources():
+    digest.update(src.name.encode())
+    digest.update(src.read_bytes())
+  return Path(build_dir or BUILD_DIR) / (
+      "libvtc_kernels_%s.so" % digest.hexdigest()[:16])
+
+
+def build(build_dir=None, verbose=False):
+  """Compile csrc/*.cu unless the library for these sources exists.
+
+  Returns the library's path.  Raises BuildError when nvcc is missing or
+  the compile fails, with the compiler's output in the message.
+  """
+  lib = library_path(build_dir)
+  if lib.exists():
+    return lib
+  nvcc = find_nvcc()
+  if nvcc is None:
+    raise BuildError(
+        "nvcc not found under $CUDA_HOME/bin or on PATH; the CUDA kernels "
+        "of vtc_tpu_torch are compiled at first use and have no fallback")
+  lib.parent.mkdir(parents=True, exist_ok=True)
+  cu_files = [str(p) for p in _sources() if p.suffix == ".cu"]
+  fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+  os.close(fd)
+  cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+         "-o", tmp, *cu_files]
+  try:
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+      raise BuildError("nvcc failed (exit %d): %s\n%s%s" % (
+          proc.returncode, " ".join(cmd), proc.stdout, proc.stderr))
+    if verbose:
+      print(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+  finally:
+    if os.path.exists(tmp):
+      os.remove(tmp)
+  return lib
+
+
+@functools.cache
+def load_library():
+  """Build if needed, load, and declare the C entry points."""
+  lib = ctypes.CDLL(str(build()))
+  ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+  for name in ("vtc_fista_rows", "vtc_fista_chunk", "vtc_fista_col_block",
+               "vtc_fista_slice_bytes"):
+    getattr(lib, name).argtypes = []
+    getattr(lib, name).restype = i32
+  lib.vtc_fused_fista.argtypes = [
+      ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32,
+      ptr, ptr, ptr, ptr]
+  lib.vtc_fused_fista.restype = i32
+  return lib

@@ -1,0 +1,185 @@
+"""Fused fc ISTA/FISTA solve: the port of TPU kernel K1,
+``fista_solve_pallas`` (vtc_tpu/ops/pallas_fista.py:156-241).
+
+``fused_fista_solve`` keeps that function's contract.  It computes
+G = D D^T and c = X D^T with ``torch.matmul`` under the precision pins,
+outside the kernel, exactly where the JAX package computes them outside
+its kernel (pallas_fista.py:196-198).  Then:
+
+* a CUDA tensor launches the hand-written kernel in
+  ``vtc_tpu_torch/csrc/fused_fista.cu`` (built at first use by
+  ``ops/_build.py``) on the current stream, or raises;
+* a CPU tensor runs ``fused_fista_plain``, the plain PyTorch version of
+  the same iteration, which the CPU tests use and which ``chip_smoke.py``
+  holds the kernel against on the card.  It is also the 'gram'
+  formulation of ``ista_fista.run``: one loop serves both.
+
+Scope: no in-kernel early stop and only the 'highest' (IEEE fp32) tier;
+both wait in ROADMAP.md §1 item 3, and the wrapper raises when asked for
+an early stop.  ``launches`` counts kernel launches.
+"""
+import ctypes
+
+import torch
+
+from vtc_tpu_torch.ops import thresholds
+from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.solver import proximal_gradient_loop
+
+launches = 0
+
+# shared memory a block may opt into on Hopper (sm_90): 227 KB
+_SMEM_PER_BLOCK = 232448
+# the kernel's shrink modes, indexed by (nonneg, hard)
+_MODES = {(False, False): 0, (True, False): 1, (False, True): 2,
+          (True, True): 3}
+
+
+def fused_fista_plain(images, dictionary, sparsity_weight, num_iters,
+                      stepsize, *, initial_codes=None, variant="fista",
+                      nonneg=False, hard=False, early_stopping_epsilon=None,
+                      precision=None):
+  """The plain PyTorch version of the fused solve, on any device and in
+  the inputs' own float type (float64 inputs give the float64 oracle).
+
+  The gram loop of ``ops/solver.proximal_gradient_loop`` with the
+  stepsize folded in, the association of the kernel and
+  pallas_fista.py:94-105:
+  codes = shrink((z + z @ (-eta G)) + eta c, lam * eta).
+  ``early_stopping_epsilon`` is the loop's batch-global stop test.
+  ``precision`` is the matmul precision of ``ops/precision`` (default
+  'highest'); 'tensorfloat32' shows what TF32 products would cost.
+  """
+  if variant not in ("ista", "fista"):
+    raise ValueError("variant must be 'ista' or 'fista'")
+  dtype, device = images.dtype, images.device
+  shrink = thresholds.select(bool(nonneg), bool(hard))
+  eta = torch.as_tensor(stepsize, dtype=dtype, device=device)
+  if initial_codes is None:
+    z = torch.zeros((images.shape[0], dictionary.shape[0]), dtype=dtype,
+                    device=device)
+  else:
+    z = torch.as_tensor(initial_codes, dtype=dtype, device=device)
+  with matmul_precision(precision):
+    neg_eta_gram = -eta * (dictionary @ dictionary.T)
+    corr_eta = eta * (images @ dictionary.T)
+
+    def prestep_fn(z):
+      return z + z @ neg_eta_gram + corr_eta
+
+    def prox_fn(x, ss):
+      return shrink(x, sparsity_weight * ss)
+
+    return proximal_gradient_loop(
+        None, prox_fn, z, eta, num_iters, variant=variant,
+        early_stopping_epsilon=early_stopping_epsilon,
+        prestep_fn=prestep_fn)
+
+
+def _require(cond, message):
+  if not cond:
+    raise ValueError("fused_fista_solve: " + message)
+
+
+def fused_fista_solve(images, dictionary, sparsity_weight, num_iters,
+                      stepsize, *, initial_codes=None, variant="fista",
+                      nonneg=False, hard=False, early_stopping_epsilon=None):
+  """Solve the LASSO codes of a batch with the fused kernel.
+
+  Args:
+    images: (b, n) float32 tensor.
+    dictionary: (s, n) float32 tensor on the same device.
+    sparsity_weight: lambda, a Python float.
+    num_iters: iterations, a Python int (a runtime argument of the
+      kernel: changing it rebuilds nothing).
+    stepsize: 1/L, a float or a one-element tensor; a device tensor is
+      read by the kernel itself, so the host never waits for it.
+    initial_codes: optional (b, s) warm start (seeds z and old).
+    variant / nonneg / hard: 'ista' | 'fista', threshold flags.
+    early_stopping_epsilon: must be None (not in the kernel yet).
+
+  Returns:
+    (b, s) codes on the inputs' device.
+  """
+  if variant not in ("ista", "fista"):
+    raise ValueError("variant must be 'ista' or 'fista'")
+  if early_stopping_epsilon is not None:
+    raise NotImplementedError(
+        "the fused kernel has no early stop yet (a batch-global reduction "
+        "per iteration, ROADMAP.md §1 item 3); use formulation='gram'")
+  if images.device.type == "cpu":
+    return fused_fista_plain(
+        images, dictionary, sparsity_weight, num_iters, stepsize,
+        initial_codes=initial_codes, variant=variant, nonneg=nonneg,
+        hard=hard)
+  _require(images.device.type == "cuda",
+           "tensors must be on the CPU or a CUDA device, got "
+           + str(images.device))
+  device = images.device
+  _require(dictionary.device == device, "dictionary on another device")
+  _require(images.dtype == torch.float32
+           and dictionary.dtype == torch.float32, "inputs must be float32")
+  _require(images.dim() == 2 and dictionary.dim() == 2
+           and images.shape[1] == dictionary.shape[1],
+           "shapes must be (b, n) and (s, n), got %s and %s"
+           % (tuple(images.shape), tuple(dictionary.shape)))
+  b, s = images.shape[0], dictionary.shape[0]
+  _require(s > 0, "dictionary has no rows")
+  if initial_codes is not None:
+    _require(initial_codes.device == device
+             and initial_codes.dtype == torch.float32
+             and tuple(initial_codes.shape) == (b, s)
+             and initial_codes.is_contiguous(),
+             "initial_codes must be a contiguous float32 (b, s) tensor on "
+             "the inputs' device")
+  num_iters = int(num_iters)
+  _require(num_iters >= 0, "num_iters must be >= 0")
+  eta = torch.as_tensor(stepsize, dtype=torch.float32, device=device)
+  _require(eta.numel() == 1, "stepsize must be a scalar")
+  eta = eta.reshape(1).contiguous()
+  if b == 0:
+    return torch.empty((0, s), dtype=torch.float32, device=device)
+
+  with matmul_precision():
+    gram = (dictionary @ dictionary.T).contiguous()
+    corr = (images @ dictionary.T).contiguous()
+  return _launch(gram, corr, initial_codes, eta, float(sparsity_weight),
+                 num_iters, variant == "fista",
+                 _MODES[(bool(nonneg), bool(hard))])
+
+
+def _launch(gram, corr, init, eta, lam, num_iters, fista, mode):
+  """Allocate the kernel's scratch and launch it on the current stream."""
+  global launches
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  rows, chunk, col_block = (lib.vtc_fista_rows(), lib.vtc_fista_chunk(),
+                            lib.vtc_fista_col_block())
+  b, s = corr.shape
+  device = corr.device
+  sk = -(-s // chunk) * chunk            # padded depth of G
+  sc = -(-s // col_block) * col_block    # padded width of G
+  blocks = -(-b // rows)
+  state_bytes = 4 * rows * sk * 4        # z (x2), old, eta*c per block
+  state_in_smem = (lib.vtc_fista_slice_bytes() + state_bytes
+                   <= _SMEM_PER_BLOCK)
+  gn = torch.empty((sk, sc), dtype=torch.float32, device=device)
+  state = (None if state_in_smem else
+           torch.empty((blocks, 4, rows, sk), dtype=torch.float32,
+                       device=device))
+  out = torch.empty((b, s), dtype=torch.float32, device=device)
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.vtc_fused_fista(
+        gram.data_ptr(), corr.data_ptr(),
+        None if init is None else init.data_ptr(), eta.data_ptr(),
+        ctypes.c_float(lam), num_iters, b, s, sk, sc, int(fista), mode,
+        gn.data_ptr(), None if state is None else state.data_ptr(),
+        out.data_ptr(), stream)
+  if err != 0:
+    raise RuntimeError(
+        "fused FISTA kernel launch failed with CUDA error %d "
+        "(b=%d, s=%d, state in %s)" % (
+            err, b, s, "shared memory" if state_in_smem else "global"))
+  launches += 1
+  return out
