@@ -2,7 +2,7 @@
 
   python3 chip_smoke.py
 
-Drives the port's two paths through their public entry points, in the
+Drives the port's paths through their public entry points, in the
 phases below.  Any failure ends the run with a non-zero exit; nothing is
 caught.
 
@@ -14,6 +14,14 @@ caught.
   at stepsize 0.1, warm power refresh of 2 iterations per step, one
   1,000-step segment; bench.py:10-23, examples/train_sparse_coding.py:
   53-61), then SparseCoder.fit; kernels K2 (fused train step) and K1.
+* Subspace serving: group-sparse encoding at the flagship width with 64
+  contiguous groups of 4 (batch 2048, 100 FISTA iterations, lambda
+  0.008); kernel K4 (fused group FISTA).
+* Subspace training: the scanned trainer with the same groups at
+  bench.py's subspace configuration (bench.py:478-538: batch 250,
+  FISTA-25, lambda 0.008, cheap-quadratic update at stepsize 0.05, warm
+  power refresh of 2 iterations, one 1,000-step segment); kernel K6
+  (fused group train step, K4's kernel as its solve).
 
 1. Device and build: requires CUDA (there is no CPU path), prints the
    card's name and power limit, builds the kernels from
@@ -58,11 +66,34 @@ caught.
    SparseCoder(formulation='pallas').fit, 8 steps: K1 must count 8.
 7. Timing: fused step and plain step ms at the flagship, and trainer
    patches/s through train_dictionary_scanned.
+8. K4 against plain, in float32 and float64, at the limit of phase 2:
+   the flagship (64 x 4 groups, cold and warm), batch 250 at 25
+   iterations (FISTA and ISTA), ragged overlapping groups with M = 26
+   (s = 32, n = 24; soft and hard, which runs at this size only), and
+   128 overlapping groups of 8 (G*M = 1024, the state in global
+   memory).  A TF32 control of the plain version must fail the limit.
+9. The subspace slice: encode_dataset with the 64 x 4 groups over 16
+   batches of 2048 group-sparse patches; K4 must count 16 launches, the
+   codes must be finite and one batch must match the plain version.
+10. K6 against plain, one step: the flagship (the identity selection),
+   ragged overlapping groups, G*M = 64 > n = 24 (the n-side power Gram),
+   the anti-alignment penalty 0.4 with both update rules, steepest
+   descent with ISTA at the flagship; then a 50-step steepest segment.
+   Dictionary, Hessian EMA, eigenvector, codes and stepsize are held to
+   the limit, and a TF32 control must fail it.
+11. The subspace trainer: train_dictionary_scanned over 250,000
+   group-sparse patches, one 1,000-step segment; K6 must count 1,000
+   launches, the rows stay unit norm within 1e-4, everything finite, and
+   the held-out group-LASSO loss (compute_metrics, is_subspace) must
+   fall.
+12. Timing: K4 and plain ms per flagship batch, subspace encode
+   patches/s, K6 and plain step ms, subspace trainer patches/s.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
-whitened 16x16 image patches; the generating dictionary (seed 0)
-stands in for a trained one.  The script imports nothing of the JAX
+whitened 16x16 image patches (for the subspace phases, mixtures of
+whole groups of its atoms); the generating dictionary (seed 0) stands
+in for a trained one.  The script imports nothing of the JAX
 package, vtc_tpu, directly or through the port.
 
 The line before the last is the card's name and power limit as
@@ -294,6 +325,226 @@ def train_params(steps):
   }
 
 
+# ---------------------------------------------------------------------------
+# the subspace (group-sparse) path
+# ---------------------------------------------------------------------------
+GROUP_SIZE = 4
+SUB_STEP = 0.05  # bench.py's update stepsize for the subspace row
+
+
+def contiguous_groups(s, m):
+  """s atoms in s / m contiguous groups of m: the flagship's 64 x 4."""
+  return [list(range(i, i + m)) for i in range(0, s, m)]
+
+
+def group_patches(num, n=256, atoms=256, group=GROUP_SIZE, seed=0):
+  """(num, n) group-sparse mixtures: 5% of the contiguous groups of a
+  random unit-norm dictionary active per patch (as many atoms, 5%, as
+  synthetic_patches), N(0, 0.05^2) amplitudes, N(0, 0.003^2) noise."""
+  rng = np.random.RandomState(seed)
+  gen = unit_rows(rng, atoms, n)
+  active = np.repeat(rng.rand(num, atoms // group) < 0.05, group, axis=1)
+  amps = rng.randn(num, atoms) * 0.05 * active
+  return (amps @ gen + 0.003 * rng.randn(num, n)).astype(np.float32)
+
+
+def group_kernel_cases(torch, fused_group_fista, sub, lipschitz, patches,
+                       dev):
+  """K4 against its fp32 and fp64 plain versions, packed codes."""
+  rng = np.random.RandomState(4)
+  flag_d = unit_rows(np.random.RandomState(0), 256, 256)
+  flag_g = contiguous_groups(256, GROUP_SIZE)
+  rag_d = unit_rows(rng, 32, 24)
+  rag_x = rng.randn(13, 24).astype(np.float32)
+  rag_g = [[0, 2, 5], [1], [2, 3, 4, 5], list(range(6, 32))]
+  # 128 overlapping groups of 8: G*M = 1024, state in global memory
+  big_g = [[(i + m) % 256 for m in range(8)] for i in range(0, 256, 2)]
+  # (name, images, dictionary, groups, lambda, iters, variant, hard, warm)
+  cases = [
+      ("flagship 64x4 fista soft", patches[:BATCH], flag_d, flag_g, LAM,
+       ITERS, "fista", False, False),
+      ("flagship 64x4 fista soft warm", patches[:BATCH], flag_d, flag_g,
+       LAM, ITERS, "fista", False, True),
+      ("b250 64x4 fista soft", patches[:250], flag_d, flag_g, LAM, 25,
+       "fista", False, False),
+      ("b250 64x4 ista soft", patches[:250], flag_d, flag_g, LAM, 25,
+       "ista", False, False),
+      ("b250 64x4 ista soft warm", patches[:250], flag_d, flag_g, LAM, 25,
+       "ista", False, True),
+      ("ragged M26 fista soft warm", rag_x, rag_d, rag_g, 0.08, 20,
+       "fista", False, True),
+      ("ragged M26 fista hard", rag_x, rag_d, rag_g, 0.08, 20, "fista",
+       True, False),
+      ("ragged M26 ista hard warm", rag_x, rag_d, rag_g, 0.08, 20, "ista",
+       True, True),
+      ("overlap 128x8 GM1024 fista soft", patches[:64], flag_d, big_g, LAM,
+       25, "fista", False, False),
+      ("overlap 128x8 GM1024 ista soft warm", patches[:64], flag_d, big_g,
+       LAM, 25, "ista", False, True),
+  ]
+  worst = 0.0
+  for name, x, d, groups, lam, iters, variant, hard, warm in cases:
+    x = torch.tensor(x, device=dev)
+    d = torch.tensor(d, device=dev)
+    gather, mask, _ = sub.group_layout(groups, d.shape[0], dev)
+    gd = sub.build_grouped_dictionary(d, gather, mask)
+    m = gather.shape[1]
+    eta = lipschitz.fista_stepsize(gd)
+    flags = dict(variant=variant, hard=hard)
+    init = None
+    if warm:
+      init = fused_group_fista.fused_group_fista_plain(
+          x, gd, m, lam, 10, eta, **flags).contiguous()
+    got = fused_group_fista.fused_group_fista_solve(
+        x, gd, m, lam, iters, eta, initial_grouped=init, **flags)
+    want32 = fused_group_fista.fused_group_fista_plain(
+        x, gd, m, lam, iters, eta, initial_grouped=init, **flags)
+    want64 = fused_group_fista.fused_group_fista_plain(
+        x.double(), gd.double(), m, lam, iters, eta.double(),
+        initial_grouped=None if init is None else init.double(), **flags)
+    torch.cuda.synchronize()
+    err32 = float((got - want32).abs().max())
+    err64 = float((got.double() - want64).abs().max())
+    lim = limit(want64)
+    print("K4 vs plain  %-38s max|d| fp32 %.3e  fp64 %.3e  limit %.3e "
+          "(max|code| %.3f)" % (name, err32, err64, lim,
+                                float(want64.abs().max())))
+    check(bool(torch.isfinite(got).all()), name + ": non-finite codes")
+    check(err32 <= lim and err64 <= lim,
+          "%s: K4 differs from plain by %.3e / %.3e, limit %.3e" % (
+              name, err32, err64, lim))
+    worst = max(worst, err32)
+
+  # control: TF32 products at the flagship must fail the limit
+  x = torch.tensor(patches[:BATCH], device=dev)
+  d = torch.tensor(flag_d, device=dev)
+  gather, mask, _ = sub.group_layout(flag_g, 256, dev)
+  gd = sub.build_grouped_dictionary(d, gather, mask)
+  eta = lipschitz.fista_stepsize(gd)
+  want64 = fused_group_fista.fused_group_fista_plain(
+      x.double(), gd.double(), GROUP_SIZE, LAM, ITERS, eta.double())
+  tf32 = fused_group_fista.fused_group_fista_plain(
+      x, gd, GROUP_SIZE, LAM, ITERS, eta, precision="tensorfloat32")
+  err = float((tf32.double() - want64).abs().max())
+  lim = limit(want64)
+  print("control: group plain with TF32 products, flagship: max|d| fp64 "
+        "%.3e, limit %.3e (must fail it)" % (err, lim))
+  check(err > lim, "the limit does not tell TF32 products from fp32")
+  return worst
+
+
+def group_train_kernel_cases(torch, fused_group_train_step, sub, lipschitz,
+                             train_patches, dev):
+  """K6: one fused subspace step against its fp32 and fp64 plain versions,
+  then a 50-step steepest segment; returns the largest fp32 difference."""
+  rng = np.random.RandomState(5)
+  flag_d = unit_rows(np.random.RandomState(2), 256, 256)
+  flag_g = contiguous_groups(256, GROUP_SIZE)
+  flag_x = train_patches[:TRAIN_BATCH][None]
+  rag_g = [[0, 1, 2, 3], [4, 5], [6, 7, 8], [9, 10, 11, 12], [13, 0]]
+  rag_d, rag_x = unit_rows(rng, 14, 24), rng.randn(1, 10, 24)
+  wide_g = [[(i + m) % 32 for m in range(8)] for i in range(0, 32, 4)]
+  wide_d, wide_x = unit_rows(rng, 32, 24), rng.randn(1, 20, 24)  # GM 64 > n
+  pen_g = rag_g + [[0, 1]]
+  pen_d, pen_x = unit_rows(rng, 14, 16), rng.randn(1, 10, 16)
+  # (name, batches, dictionary, groups, lambda, iters, upd step, flags)
+  cases = [
+      ("flagship 64x4 cheap-quad", flag_x, flag_d, flag_g, LAM, TRAIN_ITERS,
+       SUB_STEP, {}),
+      ("ragged overlapping s14 n24", rag_x, rag_d, rag_g, 0.05, 10, 0.1, {}),
+      ("overlap 8x8 GM64 > n24", wide_x, wide_d, wide_g, 0.05, 10, 0.1, {}),
+      ("penalty 0.4 cheap-quad s14 n16", pen_x, pen_d, pen_g, 0.05, 10, 0.1,
+       {"alignment_penalty": 0.4}),
+      ("penalty 0.4 steepest s14 n16", pen_x, pen_d, pen_g, 0.05, 10, 0.1,
+       {"alignment_penalty": 0.4,
+        "update_alg": "subspace_sc_steepest_descent"}),
+      ("flagship steepest ista", flag_x, flag_d, flag_g, LAM, TRAIN_ITERS,
+       0.1, {"update_alg": "subspace_sc_steepest_descent",
+             "variant": "ista"}),
+      ("flagship steepest, 50 steps",
+       train_patches[:50 * TRAIN_BATCH].reshape(50, TRAIN_BATCH, 256),
+       flag_d, flag_g, LAM, TRAIN_ITERS, 0.1,
+       {"update_alg": "subspace_sc_steepest_descent"}),
+  ]
+  names = ("dictionary", "hessian", "eigvec", "codes", "stepsize")
+  worst = 0.0
+  for name, x, d, groups, lam, iters, step, flags in cases:
+    x = torch.tensor(np.asarray(x, np.float32), device=dev)
+    d = torch.tensor(d, device=dev)
+    h = torch.zeros(d.shape[0], device=dev)
+    gather, mask, _ = sub.group_layout(groups, d.shape[0], dev)
+    v = lipschitz.top_gram_eigenpair(
+        sub.build_grouped_dictionary(d, gather, mask))[1].contiguous()
+    args = (lam, iters, step)
+    flags = dict(flags, group_assignments=groups, power_iters=2,
+                 return_stepsize=True)
+    got = fused_group_train_step.fused_group_train_segment(d, h, v, x, *args,
+                                                           **flags)
+    want32 = fused_group_train_step.fused_group_train_segment_plain(
+        d, h, v, x, *args, **flags)
+    want64 = fused_group_train_step.fused_group_train_segment_plain(
+        d.double(), h.double(), v.double(), x.double(), *args, **flags)
+    torch.cuda.synchronize()
+    for what, g, w32, w64 in zip(names, got, want32, want64):
+      err32 = float((g - w32).abs().max())
+      err64 = float((g.double() - w64).abs().max())
+      lim = limit(w64) if float(w64.abs().max()) > 0 else TOL
+      print("K6 vs plain  %-32s %-10s max|d| fp32 %.3e  fp64 %.3e  "
+            "limit %.3e" % (name, what, err32, err64, lim))
+      check(bool(torch.isfinite(g).all()), "%s: non-finite %s" % (name,
+                                                                  what))
+      check(err32 <= lim and err64 <= lim,
+            "%s: %s differs from plain by %.3e / %.3e, limit %.3e" % (
+                name, what, err32, err64, lim))
+      worst = max(worst, err32)
+
+  # control: TF32 products in the plain step must fail the one-step limit
+  x = torch.tensor(flag_x, device=dev)
+  d = torch.tensor(flag_d, device=dev)
+  h = torch.zeros(256, device=dev)
+  v = lipschitz.top_gram_eigenpair(d)[1].contiguous()  # 64 x 4: Dg is D
+  args = (LAM, TRAIN_ITERS, SUB_STEP)
+  kw = dict(group_assignments=flag_g, power_iters=2)
+  want64 = fused_group_train_step.fused_group_train_segment_plain(
+      d.double(), h.double(), v.double(), x.double(), *args, **kw)
+  tf32 = fused_group_train_step.fused_group_train_segment_plain(
+      d, h, v, x, *args, precision="tensorfloat32", **kw)
+  ratios = []
+  for what, t, w in zip(names, tf32, want64):
+    if float(w.abs().max()) > 0:
+      err = float((t.double() - w).abs().max())
+      ratios.append(err / limit(w))
+      print("control: group plain step with TF32 products, %-10s max|d| "
+            "fp64 %.3e, limit %.3e" % (what, err, limit(w)))
+  check(max(ratios) > 1.0, "the limit does not tell TF32 products from fp32")
+  return worst
+
+
+def held_out_group_loss(torch, sub, sparse_coding, x, dictionary, groups):
+  """Average group-LASSO loss of the held-out batch under ``dictionary``."""
+  codes = sub.run(x, dictionary, groups, LAM, TRAIN_ITERS,
+                  formulation="pallas")
+  return sparse_coding.compute_metrics(
+      x, codes, dictionary, dictionary, mode="fully-connected",
+      sparsity_weight=LAM, group_assignments=groups,
+      is_subspace=True)["Average LASSO Loss"]
+
+
+def subspace_train_params(steps, stepsize):
+  return {
+      "mode": "fully-connected",
+      "num_epochs": 1,
+      "code_inference_algorithm": "subspace_fista",
+      "group_assignments": contiguous_groups(256, GROUP_SIZE),
+      "inference_param_schedule": {
+          0: {"sparsity_weight": LAM, "num_iters": TRAIN_ITERS}},
+      "dictionary_update_algorithm": "subspace_sc_cheap_quadratic_descent",
+      "dict_update_param_schedule": {
+          0: {"stepsize": stepsize, "num_iters": 1}},
+      "stdout_print_interval": steps,
+  }
+
+
 def time_ms(torch, fn, reps):
   start, stop = (torch.cuda.Event(enable_timing=True),
                  torch.cuda.Event(enable_timing=True))
@@ -484,6 +735,137 @@ def main():
         "patches/s [%s]" % (TRAIN_STEPS, TRAIN_BATCH, dt,
                             TRAIN_STEPS * TRAIN_BATCH / dt, card))
 
+  # phase 8: K4 against plain on the card
+  from vtc_tpu_torch.analysis_transforms.fully_connected import (
+      subspace_ista_fista as sub)
+  from vtc_tpu_torch.ops import fused_group_fista, fused_group_train_step
+  t0 = time.perf_counter()
+  gpatches = group_patches(BATCH * NUM_BATCHES)
+  print("group data: %d group-sparse patches in %.1f s" % (
+      gpatches.shape[0], time.perf_counter() - t0))
+  group_err = group_kernel_cases(torch, fused_group_fista, sub, lipschitz,
+                                 gpatches, dev)
+
+  # phase 9: the subspace encode slice through encode_dataset
+  groups = contiguous_groups(256, GROUP_SIZE)
+  fused_group_fista.launches = 0
+  gcodes = encode_dataset(gpatches, dictionary, LAM, ITERS,
+                          batch_size=BATCH, chunk_batches=4,
+                          group_assignments=groups)
+  group_launches = fused_group_fista.launches
+  print("subspace slice: %d K4 launches for %d batches" % (group_launches,
+                                                           NUM_BATCHES))
+  check(group_launches == NUM_BATCHES, "expected %d K4 launches, counted "
+        "%d" % (NUM_BATCHES, group_launches))
+  check(gcodes.shape == (gpatches.shape[0], 256), "group codes shape "
+        + str(gcodes.shape))
+  check(bool(np.isfinite(gcodes).all()), "non-finite group codes")
+  gather, mask, _ = sub.group_layout(groups, 256, dev)
+  gdict = sub.build_grouped_dictionary(dictionary, gather, mask)
+  geta = lipschitz.fista_stepsize(gdict)
+  x5 = torch.tensor(gpatches[k * BATCH:(k + 1) * BATCH], device=dev)
+  plain5 = fused_group_fista.fused_group_fista_plain(
+      x5, gdict, GROUP_SIZE, LAM, ITERS, geta)  # contiguous: packed == s
+  err5 = float(np.abs(gcodes[k * BATCH:(k + 1) * BATCH]
+                      - plain5.cpu().numpy()).max())
+  lim = limit(plain5)
+  gdensity = float((gcodes != 0).mean())
+  print("subspace slice: batch %d vs plain max|d| %.3e, limit %.3e; code "
+        "density %.4f" % (k, err5, lim, gdensity))
+  check(err5 <= lim, "group-encoded batch differs from plain by %.3e"
+        % err5)
+  check(0.0 < gdensity < 1.0, "group codes all zero or all dense")
+
+  # phase 10: K6 against plain on the card
+  t0 = time.perf_counter()
+  gtrain = group_patches(TRAIN_STEPS * TRAIN_BATCH + TRAIN_BATCH, seed=1)
+  gheld = torch.tensor(gtrain[-TRAIN_BATCH:], device=dev)
+  gtrain = gtrain[:-TRAIN_BATCH]
+  print("group train data: %d patches in %.1f s" % (
+      gtrain.shape[0], time.perf_counter() - t0))
+  group_train_err = group_train_kernel_cases(
+      torch, fused_group_train_step, sub, lipschitz, gtrain, dev)
+
+  # phase 11: the subspace trainer through train_dictionary_scanned
+  gbatches = torch.tensor(gtrain.reshape(TRAIN_STEPS, TRAIN_BATCH, 256),
+                          device=dev)
+  gparams = subspace_train_params(TRAIN_STEPS, SUB_STEP)
+  fused_group_train_step.launches = 0
+  gtrained = compiled_epoch.train_dictionary_scanned(
+      gbatches, gheld[None], d0, gparams)
+  torch.cuda.synchronize()
+  group_train_launches = fused_group_train_step.launches
+  print("subspace trainer: %d fused group train steps" %
+        group_train_launches)
+  check(group_train_launches == TRAIN_STEPS, "expected %d fused group "
+        "train steps, counted %d" % (TRAIN_STEPS, group_train_launches))
+  check(bool(torch.isfinite(gtrained).all()), "non-finite dictionary")
+  norm_err = float((torch.linalg.vector_norm(gtrained, dim=1)
+                    - 1).abs().max())
+  gloss0 = held_out_group_loss(torch, sub, sparse_coding, gheld, d0, groups)
+  gloss1 = held_out_group_loss(torch, sub, sparse_coding, gheld, gtrained,
+                               groups)
+  print("subspace trainer: rows unit norm within %.2e; held-out group-LASSO "
+        "loss %.6f -> %.6f (stepsize %g)" % (norm_err, gloss0, gloss1,
+                                             SUB_STEP))
+  check(norm_err <= 1e-4, "rows not unit norm: %.3e" % norm_err)
+  check(np.isfinite(gloss1) and gloss1 < gloss0,
+        "held-out group-LASSO loss did not fall: %.6f -> %.6f" % (
+            gloss0, gloss1))
+
+  # phase 12: subspace timing (warm)
+  xg = torch.tensor(gpatches[:BATCH], device=dev)
+  gsolve = lambda: fused_group_fista.fused_group_fista_solve(
+      xg, gdict, GROUP_SIZE, LAM, ITERS, geta)
+  gplain = lambda: fused_group_fista.fused_group_fista_plain(
+      xg, gdict, GROUP_SIZE, LAM, ITERS, geta)
+  with torch.no_grad():
+    gplain_ms = [time_ms(torch, gplain, 5)]
+    gkernel_ms = [time_ms(torch, gsolve, 20), time_ms(torch, gsolve, 20)]
+    gplain_ms.append(time_ms(torch, gplain, 5))
+  g_ms, gp_ms = sum(gkernel_ms) / 2, sum(gplain_ms) / 2
+  print("K4 ms per flagship batch (b=2048 64x4 groups, n=256, 100 it): "
+        "%.4f (runs %.4f, %.4f) [%s]" % (g_ms, *gkernel_ms, card))
+  print("group plain ms per flagship batch (b=2048 64x4 groups, n=256, "
+        "100 it): %.4f (runs %.4f, %.4f) [%s]" % (gp_ms, *gplain_ms, card))
+  for formulation in ("pallas", "gram"):
+    t0 = time.perf_counter()
+    encode_dataset(gpatches, dictionary, LAM, ITERS, batch_size=BATCH,
+                   chunk_batches=4, formulation=formulation,
+                   group_assignments=groups)
+    dt = time.perf_counter() - t0
+    print("subspace encode %-6s %d patches in %.4f s: %.1f patches/s [%s]"
+          % (formulation, gpatches.shape[0], dt, gpatches.shape[0] / dt,
+             card))
+  gv0 = lipschitz.top_gram_eigenpair(d0)[1].contiguous()  # 64 x 4: Dg = D
+  gseg = gbatches[:100]
+  gstep_args = (d0, h0, gv0, gseg, LAM, TRAIN_ITERS, SUB_STEP)
+  gfused = lambda: fused_group_train_step.fused_group_train_segment(
+      *gstep_args, group_assignments=groups, power_iters=2)
+  gplain_step = lambda: (
+      fused_group_train_step.fused_group_train_segment_plain(
+          *gstep_args, group_assignments=groups, power_iters=2))
+  with torch.no_grad():
+    gfused()
+    gp_step = [time_ms(torch, gplain_step, 1) / 100]
+    gf_step = [time_ms(torch, gfused, 3) / 100,
+               time_ms(torch, gfused, 3) / 100]
+    gp_step.append(time_ms(torch, gplain_step, 1) / 100)
+  gstep_ms, gplain_step_ms = sum(gf_step) / 2, sum(gp_step) / 2
+  print("K6 fused group train step ms (b=250 64x4 groups, n=256, 25 it, "
+        "cheap-quad): %.4f (runs %.4f, %.4f) [%s]" % (gstep_ms, *gf_step,
+                                                       card))
+  print("plain group train step ms (b=250 64x4 groups, n=256, 25 it, "
+        "cheap-quad): %.4f (runs %.4f, %.4f) [%s]" % (gplain_step_ms,
+                                                       *gp_step, card))
+  t0 = time.perf_counter()
+  compiled_epoch.train_dictionary_scanned(gbatches, gheld[None], d0, gparams)
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  print("subspace train_dictionary_scanned %d steps of %d in %.4f s: %.1f "
+        "patches/s [%s]" % (TRAIN_STEPS, TRAIN_BATCH, dt,
+                            TRAIN_STEPS * TRAIN_BATCH / dt, card))
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -505,6 +887,24 @@ def main():
       "max_abs_err": train_err,
       "ms": step_ms,
       "plain_ms": plain_step_ms,
+  }, {
+      "name": "fused_group_fista",
+      "route": "cuda",
+      "source": "vtc_tpu_torch/csrc/fused_group_fista.cu",
+      "replaces": "vtc_tpu/ops/pallas_group_fista.py:54",
+      "launches": group_launches,
+      "max_abs_err": group_err,
+      "ms": g_ms,
+      "plain_ms": gp_ms,
+  }, {
+      "name": "fused_group_train_step",
+      "route": "cuda",
+      "source": "vtc_tpu_torch/csrc/fused_group_train_step.cu",
+      "replaces": "vtc_tpu/ops/pallas_train_step.py:539",
+      "launches": group_train_launches,
+      "max_abs_err": group_train_err,
+      "ms": gstep_ms,
+      "plain_ms": gplain_step_ms,
   }]}))
   print(card)
   print(json.dumps({"ok": True, "device": {

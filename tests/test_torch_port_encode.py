@@ -142,8 +142,7 @@ def test_encode_dataset_options_match_jax(problem):
 
 def test_encode_dataset_rejects_unported_options(problem):
   x, d = problem
-  for kw in (dict(group_assignments=[[0, 1], [2, 3]]),
-             dict(mode="convolutional", kernel_stride=(1, 1)),
+  for kw in (dict(mode="convolutional", kernel_stride=(1, 1)),
              dict(data_parallel=object()), dict(mxu_precision="bf16")):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
       encode_dataset(x, d, LAM, 5, **kw)

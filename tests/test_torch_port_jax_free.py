@@ -70,6 +70,28 @@ for trainer in (sparse_coding.train_dictionary,
 coder = SparseCoder(16, sparsity_weight=0.05, inference_iters=5,
                     formulation="pallas").fit(rng.randn(64, 12), 2, 16)
 assert coder.dictionary.shape == (16, 12)
+
+# the subspace slice: group encoding, the K4 and K6 wrappers' plain
+# versions, and both trainers with groups and the alignment penalty
+from vtc_tpu_torch.analysis_transforms.fully_connected import (
+    subspace_ista_fista)
+from vtc_tpu_torch.dict_update_rules.fully_connected import (
+    _subspace_common, subspace_sc_cheap_quadratic_descent,
+    subspace_sc_steepest_descent)
+from vtc_tpu_torch.ops import fused_group_fista, fused_group_train_step
+groups = [[0, 1, 2, 3], [4, 5], [5, 6, 7], list(range(8, 16))]
+codes = encode.encode_dataset(rng.randn(40, 12), d, 0.01, 5, batch_size=16,
+                              chunk_batches=2, formulation="pallas",
+                              group_assignments=groups)
+assert codes.shape == (40, 16)
+sub_params = dict(params, code_inference_algorithm="subspace_fista",
+                  dictionary_update_algorithm=(
+                      "subspace_sc_cheap_quadratic_descent"),
+                  group_assignments=groups, subspace_alignment_penalty=0.2)
+for trainer in (sparse_coding.train_dictionary,
+                compiled_epoch.train_dictionary_scanned):
+  trained = trainer(batches, batches[:1], d, sub_params)
+  assert trained.shape == (16, 12) and bool(trained.isfinite().all())
 assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
 # nor anything of the JAX package itself (the smoke run on the card
 # imports the port alone)

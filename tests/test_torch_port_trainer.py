@@ -309,18 +309,25 @@ def test_train_state_from_numpy(rng):
     convert.train_state_from_numpy(d, np.zeros(24), np.ones(24), "cpu")
 
 
+# a subspace configuration: the refusals hold for it too
+_SUBSPACE = {"code_inference_algorithm": "subspace_fista",
+             "dictionary_update_algorithm":
+                 "subspace_sc_cheap_quadratic_descent",
+             "group_assignments": [[i, i + 1] for i in range(0, 24, 2)]}
+
+
 @pytest.mark.parametrize("trainer,change,item", [
     (trainer, change, item)
     for trainer in ("per_batch", "scanned")
     for change, item in (({"mode": "convolutional"}, "item 7"),
-                         ({"code_inference_algorithm": "subspace_fista"},
-                          "item 5"),
-                         ({"group_assignments": [[0, 1]]}, "item 5"),
-                         ({"data_parallel": True}, "item 9"))
+                         ({"data_parallel": True}, "item 9"),
+                         (dict(_SUBSPACE, data_parallel=True), "item 9"))
 ] + [
     ("per_batch", {"profile_dir": "trace"}, "item 8"),
+    ("per_batch", dict(_SUBSPACE, profile_dir="trace"), "item 8"),
     ("scanned", {"hbm_chunk_steps": 2}, "item 8"),
     ("scanned", {"train_precision": "bf16x3"}, "item 3"),
+    ("scanned", dict(_SUBSPACE, train_precision="bf16x3"), "item 3"),
 ])
 def test_trainers_refuse_what_waits(rng, trainer, change, item):
   data, d0 = _data(rng, k=2)

@@ -1,10 +1,13 @@
-"""Where the time of the port's fc encode goes, on one CUDA device.
+"""Where the time of the port's encode goes, on one CUDA device.
 
-  python3 tools/profile_encode.py [--out report.txt]
+  python3 tools/profile_encode.py [--subspace] [--out report.txt]
 
-The workload is chip_smoke.py's: 32,768 synthetic 16x16 patches, a
-unit-norm 256-atom dictionary, batch 2048, 100 FISTA iterations,
-lambda 0.008.  With CUDA events after a warm-up call it times
+The workload is chip_smoke.py's fc encode: 32,768 synthetic 16x16
+patches, a unit-norm 256-atom dictionary, batch 2048, 100 FISTA
+iterations, lambda 0.008.  With --subspace it is chip_smoke.py's
+subspace encode: group-sparse patches and 64 contiguous groups of 4,
+through the fused group FISTA kernel (K4).  With CUDA events after a
+warm-up call it times
 
 * the fused kernel alone (G and c precomputed) at 0, 1, 25 and 100
   iterations, at batch 2048 and at the trainer's batch 250;
@@ -60,6 +63,8 @@ def busy_ms(intervals):
 
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument("--subspace", action="store_true",
+                      help="profile the subspace encode (kernel K4)")
   parser.add_argument("--out", help="also write the report here")
   args = parser.parse_args()
   import torch
@@ -69,7 +74,7 @@ def main():
   from torch.profiler import ProfilerActivity, profile
 
   from vtc_tpu_torch.encode import encode_dataset
-  from vtc_tpu_torch.ops import fused_fista, lipschitz
+  from vtc_tpu_torch.ops import fused_fista, fused_group_fista, lipschitz
   from vtc_tpu_torch.ops.precision import matmul_precision
 
   dev = torch.device("cuda", 0)
@@ -83,9 +88,24 @@ def main():
   report("card: %s | torch %s cuda %s" % (card, torch.__version__,
                                           torch.version.cuda))
   lam, iters, batch = chip_smoke.LAM, chip_smoke.ITERS, chip_smoke.BATCH
-  patches = chip_smoke.synthetic_patches(batch * chip_smoke.NUM_BATCHES)
   d = torch.tensor(chip_smoke.unit_rows(np.random.RandomState(0), 256, 256),
                    device=dev)
+  if args.subspace:
+    # contiguous groups of 4: the grouped dictionary is the dictionary
+    patches = chip_smoke.group_patches(batch * chip_smoke.NUM_BATCHES)
+    groups = chip_smoke.contiguous_groups(256, chip_smoke.GROUP_SIZE)
+    m = chip_smoke.GROUP_SIZE
+    launch = lambda gram, corr, eta1, k: fused_group_fista._launch(
+        gram, corr, None, eta1, lam, k, m, True, False)
+    solve = lambda x: fused_group_fista.fused_group_fista_solve(
+        x, d, m, lam, iters, eta)
+  else:
+    patches = chip_smoke.synthetic_patches(batch * chip_smoke.NUM_BATCHES)
+    groups = None
+    launch = lambda gram, corr, eta1, k: fused_fista._launch(
+        gram, corr, None, eta1, lam, k, True, 0)
+    solve = lambda x: fused_fista.fused_fista_solve(x, d, lam, iters, eta)
+  report("workload: %s encode" % ("subspace" if groups else "fc"))
   eta = lipschitz.fista_stepsize(d)
 
   for b in (batch, 250):
@@ -95,11 +115,9 @@ def main():
       corr = (x @ d.T).contiguous()
     eta1 = eta.reshape(1).contiguous()
     for k in (0, 1, 25, 100):
-      ms = time_ms(torch, lambda: fused_fista._launch(
-          gram, corr, None, eta1, lam, k, True, 0), 20)
+      ms = time_ms(torch, lambda: launch(gram, corr, eta1, k), 20)
       report("kernel alone b=%d s=n=256 %3d it: %.4f ms" % (b, k, ms))
-    ms = time_ms(torch, lambda: fused_fista.fused_fista_solve(
-        x, d, lam, iters, eta), 20)
+    ms = time_ms(torch, lambda: solve(x), 20)
     report("wrapper (G, c + kernel) b=%d 100 it: %.4f ms" % (b, ms))
 
   x = torch.tensor(patches[:batch], device=dev)
@@ -117,7 +135,7 @@ def main():
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     encode_dataset(patches, d, lam, iters, batch_size=batch,
-                   chunk_batches=chunk_batches)
+                   chunk_batches=chunk_batches, group_assignments=groups)
     return (time.perf_counter() - t0) * 1e3
 
   encode(4)  # warm-up

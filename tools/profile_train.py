@@ -1,11 +1,15 @@
-"""Where the time of the port's scanned fc trainer goes, on one CUDA device.
+"""Where the time of the port's scanned trainer goes, on one CUDA device.
 
-  python3 tools/profile_train.py [--out report.txt]
+  python3 tools/profile_train.py [--subspace] [--out report.txt]
 
-The workload is chip_smoke.py's trainer: 250,000 synthetic 16x16
+The workload is chip_smoke.py's fc trainer: 250,000 synthetic 16x16
 patches in 1,000 batches of 250, a random unit-norm 256-atom dictionary,
 25 FISTA iterations at lambda 0.008, the cheap-quadratic update at
-stepsize 0.1, two warm power iterations per step.  It reports
+stepsize 0.1, two warm power iterations per step.  With --subspace it is
+chip_smoke.py's subspace trainer instead: group-sparse patches, 64
+contiguous groups of 4, the subspace cheap-quadratic update at stepsize
+0.05, through the fused group train step (ops/fused_group_train_step,
+kernel K6).  It reports
 
 * with CUDA events after a warm-up call: the fused train step
   (ops/fused_train_step, kernel K2) per step over 100- and 1,000-step
@@ -19,7 +23,9 @@ stepsize 0.1, two warm power iterations per step.  It reports
   intervals, its idle share, and device time by kernel, grouped into
   the products (gemm_kernel), the power refresh (power_kernel), the
   FISTA solve (fista_kernel, fold_gram_kernel), the epilogue
-  (hessian_ema_kernel, update_rows_kernel) and everything else.
+  (hessian_ema_kernel, update_rows_kernel), the group passes
+  (gather_rows_kernel, sum_slots_kernel, sign_mask_kernel) and
+  everything else.
 
 Every line of the report is printed, and written to --out when given.
 Needs a CUDA device; imports nothing of the JAX package.
@@ -43,7 +49,9 @@ GROUPS = (("products (gemm_kernel)", ("gemm_kernel",)),
           ("FISTA (fista_kernel, fold_gram_kernel)",
            ("fista_kernel", "fold_gram_kernel")),
           ("epilogue (hessian_ema_kernel, update_rows_kernel)",
-           ("hessian_ema_kernel", "update_rows_kernel")))
+           ("hessian_ema_kernel", "update_rows_kernel")),
+          ("group passes (gather_rows, sum_slots, sign_mask)",
+           ("gather_rows_kernel", "sum_slots_kernel", "sign_mask_kernel")))
 
 
 def group_of(name):
@@ -55,6 +63,8 @@ def group_of(name):
 
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument("--subspace", action="store_true",
+                      help="profile the subspace trainer (kernel K6)")
   parser.add_argument("--out", help="also write the report here")
   args = parser.parse_args()
   import torch
@@ -63,7 +73,8 @@ def main():
     return 1
   from torch.profiler import ProfilerActivity, profile
 
-  from vtc_tpu_torch.ops import fused_train_step, lipschitz
+  from vtc_tpu_torch.ops import (fused_group_train_step, fused_train_step,
+                                 lipschitz)
   from vtc_tpu_torch.training import compiled_epoch
 
   dev = torch.device("cuda", 0)
@@ -77,24 +88,41 @@ def main():
   report("card: %s | torch %s cuda %s" % (card, torch.__version__,
                                           torch.version.cuda))
   steps, batch = chip_smoke.TRAIN_STEPS, chip_smoke.TRAIN_BATCH
-  patches = chip_smoke.synthetic_patches(steps * batch, seed=1)
+  if args.subspace:
+    patches = chip_smoke.group_patches(steps * batch, seed=1)
+    params = chip_smoke.subspace_train_params(steps, chip_smoke.SUB_STEP)
+    step = chip_smoke.SUB_STEP
+    # contiguous groups of 4: the grouped dictionary is the dictionary
+    kernels = fused_group_train_step
+    fused_segment = fused_group_train_step.fused_group_train_segment
+    plain_segment = fused_group_train_step.fused_group_train_segment_plain
+    extra = dict(group_assignments=params["group_assignments"])
+  else:
+    patches = chip_smoke.synthetic_patches(steps * batch, seed=1)
+    params = chip_smoke.train_params(steps)
+    step = chip_smoke.TRAIN_STEP
+    kernels = fused_train_step
+    fused_segment = fused_train_step.fused_train_segment
+    plain_segment = fused_train_step.fused_train_segment_plain
+    extra = {}
+  report("workload: %s trainer" % ("subspace" if args.subspace else "fc"))
   batches = torch.tensor(patches.reshape(steps, batch, 256), device=dev)
   d0 = torch.tensor(chip_smoke.unit_rows(np.random.RandomState(2), 256, 256),
                     device=dev)
   h0 = torch.zeros(256, device=dev)
   v0 = lipschitz.top_gram_eigenpair(d0)[1].contiguous()
-  scalars = (chip_smoke.LAM, chip_smoke.TRAIN_ITERS, chip_smoke.TRAIN_STEP)
+  scalars = (chip_smoke.LAM, chip_smoke.TRAIN_ITERS, step)
 
   def fused(k):
-    return lambda: fused_train_step.fused_train_segment(
-        d0, h0, v0, batches[:k], *scalars, power_iters=2)
+    return lambda: fused_segment(d0, h0, v0, batches[:k], *scalars,
+                                 power_iters=2, **extra)
 
   for k in (100, steps):
     ms = time_ms(torch, fused(k), 3)
     report("fused train step, %4d-step segment: %.4f ms per step" % (
         k, ms / k))
-  plain = lambda: fused_train_step.fused_train_segment_plain(
-      d0, h0, v0, batches[:100], *scalars, power_iters=2)
+  plain = lambda: plain_segment(d0, h0, v0, batches[:100], *scalars,
+                                power_iters=2, **extra)
   report("plain train step, 100-step segment: %.4f ms per step" % (
       time_ms(torch, plain, 1) / 100))
 
@@ -111,8 +139,6 @@ def main():
            "device done %.2f us per step" % (
                k, (t1 - t0) / k * 1e6, (t2 - t0) / k * 1e6))
 
-  params = chip_smoke.train_params(steps)
-
   def segment():
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -122,6 +148,7 @@ def main():
     return (time.perf_counter() - start) * 1e3
 
   segment()  # warm-up
+  kernels.launches = 0
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
     wall = segment()
@@ -130,11 +157,12 @@ def main():
   intervals = [(e.time_range.start, e.time_range.end)
                for e in device_events]
   busy = busy_ms(intervals)
-  report("traced train_dictionary_scanned, %d steps of %d: wall %.2f ms "
-         "(%.1f patches/s), device busy %.2f ms (idle %.1f%% of wall), "
-         "%.4f ms busy per step" % (
-             steps, batch, wall, steps * batch / wall * 1e3, busy,
-             100 * (1 - busy / wall), busy / steps))
+  report("traced train_dictionary_scanned, %d steps of %d (%d fused "
+         "steps): wall %.2f ms (%.1f patches/s), device busy %.2f ms (idle "
+         "%.1f%% of wall), %.4f ms busy per step" % (
+             steps, batch, kernels.launches, wall,
+             steps * batch / wall * 1e3, busy, 100 * (1 - busy / wall),
+             busy / steps))
   per_group, per_name = {}, {}
   for e in device_events:
     t = (e.time_range.end - e.time_range.start) / 1e3

@@ -10,11 +10,14 @@ shared, not copied, and imported only where they are used.
 Layout (mirrors vtc_tpu):
   ops/                 precision pins, thresholds, solver loop,
                        Lipschitz stepsize, the wrappers of the fused
-                       FISTA and fused train step CUDA kernels
+                       FISTA, fused train step, fused group FISTA and
+                       fused group train step CUDA kernels
   csrc/                hand-written CUDA C++ kernels (built at first use)
-  analysis_transforms/ code inference (fully-connected ISTA/FISTA)
-  dict_update_rules/   fully-connected dictionary updates
-  training/            the per-batch and the scanned fc trainers
+  analysis_transforms/ code inference (fully-connected and subspace
+                       ISTA/FISTA)
+  dict_update_rules/   fully-connected and subspace dictionary updates
+  training/            the per-batch and the scanned fc and subspace
+                       trainers
   data/                BatchIterator for SparseCoder.fit
   encode.py            chunked, stream-overlapped dataset encoding
   api.py               SparseCoder.fit / encode / decode

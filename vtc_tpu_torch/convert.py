@@ -5,7 +5,8 @@ arrays, or the framework-agnostic pickled checkpoints of
 vtc_tpu/utils/checkpoint.py (which imports neither framework and is
 shared, not copied).  The encode path needs the (s, n) dictionary; the
 trainer also carries the Hessian-diagonal EMA (s,) and the warm Lipschitz
-eigenvector (min(s, n),), and resumes from the train-state sidecar that
+eigenvector -- (min(s, n),), or (min(G*M, n),) of the grouped Gram for
+the subspace trainer -- and resumes from the train-state sidecar that
 vtc_tpu's trainers write beside each dictionary checkpoint.
 """
 import numpy as np
@@ -28,11 +29,19 @@ def load_dictionary(path, device):
   return dictionary_from_numpy(load_dictionary_checkpoint(path), device)
 
 
-def train_state_from_numpy(dictionary, hessian, eigvec, device):
+def train_state_from_numpy(dictionary, hessian, eigvec, device,
+                          group_assignments=None):
   """(dictionary, hessian, eigvec) as float32 tensors on ``device``: the
-  state ``ops.fused_train_step.fused_train_segment`` carries."""
+  state ``ops.fused_train_step.fused_train_segment`` carries, or with
+  ``group_assignments`` the state of
+  ``ops.fused_group_train_step.fused_group_train_segment``, whose
+  eigenvector has min(G*M, n) entries (G groups, M the largest;
+  vtc_tpu pallas_train_step.py:1328-1329)."""
   s, n = np.shape(dictionary)
-  shapes = ((s, n), (s,), (min(s, n),))
+  dim = s
+  if group_assignments is not None:
+    dim = len(group_assignments) * max(len(g) for g in group_assignments)
+  shapes = ((s, n), (s,), (min(dim, n),))
   out = []
   for name, array, shape in zip(("dictionary", "hessian", "eigvec"),
                                 (dictionary, hessian, eigvec), shapes):

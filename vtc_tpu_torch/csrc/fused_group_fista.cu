@@ -1,0 +1,62 @@
+// Fused subspace (group) ISTA/FISTA solve for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the TPU kernel K4: vtc_tpu/ops/pallas_group_fista.py,
+// group_fista_solve_pallas (:168) / _make_kernel (:54), with the group
+// prox K5 (pallas_train_step.py, _make_group_prox :248 and
+// roll_prox_window :227) inside.  Same contract: with G = Dg Dg^T
+// (GM, GM) and c = X Dg^T (b, GM) of the grouped dictionary Dg computed
+// outside the kernel (pallas_group_fista.py:214-216), every row of the
+// packed (b, G*M) codes runs num_iters iterations of
+//
+//   codes = group_prox(z + z @ (-eta G) + eta c, lam * eta)
+//
+// with FISTA or ISTA momentum and an optional packed warm start.  Group g
+// is the window of slots [g*M, (g+1)*M); the slots a short group pads are
+// zero rows of Dg, so they stay exactly zero and add nothing to a norm,
+// and the TPU kernel's 0/1 membership operand has no counterpart.  One
+// prox serves every M, with the semantics of thresholds.group_shrink
+// (IEEE sqrtf and division, norm 0 -> 1; hard: norm < t -> 0): the TPU's
+// two forms (rsqrt on power-of-two windows, membership matmuls
+// otherwise) agree with it to 1e-6.
+//
+// The kernel is K1's (fista_core.cuh: the G ring in shared memory, the
+// 4 x 4 register tiles, the state in shared or global memory) with the
+// group prox as its epilogue: the pre-prox rows go to the block's state,
+// the block synchronises, and one pass over (row, group) pairs scales
+// each group.  That pass costs kRows * G*M reads and writes of the state
+// per iteration against the product's kRows * (G*M)^2 FMAs, so the
+// kernel stays bound as K1 is (fista_core.cuh).  A thread-local prox for
+// M in {1, 2, 4} would spare the extra synchronisation: later speed work.
+#include "fista_core.cuh"
+
+extern "C" {
+
+// gram (gm, gm), corr (b, gm), init (b, gm) or null, eta (1,) on the
+// device, gm = groups * group_size.  gn_scratch (sk, sc); state_scratch
+// (ceil(b / rows), 4, rows, sk) or null to keep the state in shared
+// memory (the sizes of vtc_fused_fista); out (b, gm).  hard: 0 soft,
+// 1 hard group thresholding.  Returns the CUDA error code (0 on success).
+int vtc_fused_group_fista(const float* gram, const float* corr,
+                          const float* init, const float* eta, float lam,
+                          int num_iters, int b, int gm, int group_size,
+                          int sk, int sc, int fista, int hard,
+                          float* gn_scratch, float* state_scratch, float* out,
+                          void* stream_ptr) {
+  if (!solve_args_ok(b, gm, num_iters, sk, sc) || group_size < 1 ||
+      gm % group_size != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err;
+#define VTC_LAUNCH(F, M)                                                    \
+  launch_solve<F, M, true>(gram, corr, init, eta, lam, num_iters, b, gm, sk, \
+                           sc, group_size, gn_scratch, state_scratch, out,  \
+                           stream)
+  if (fista)
+    err = hard ? VTC_LAUNCH(true, kHard) : VTC_LAUNCH(true, kSoft);
+  else
+    err = hard ? VTC_LAUNCH(false, kHard) : VTC_LAUNCH(false, kSoft);
+#undef VTC_LAUNCH
+  return static_cast<int>(err);
+}
+
+}  // extern "C"

@@ -1,0 +1,225 @@
+// Fused subspace (group-sparse) train steps for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the TPU kernel K6: vtc_tpu/ops/pallas_train_step.py,
+// fused_group_train_segment_pallas (:1283) with its kernel
+// _make_group_kernel (:539), the group prox K5 inside.  Same contract:
+// for each of the k batches X (b, n) of a segment, with the dictionary
+// D (s, n), the Hessian-diagonal EMA h (s,) and the warm eigenvector v
+// (min(GM, n),) carried from step to step, and the groups packed into
+// G windows of M slots (GM = G * M),
+//
+//   Dg = gsel D                 (GM, n): member rows, zero rows for padding
+//   Gg = Dg Dg^T                power Gram: Dg^T Dg when GM > n
+//   v = v / |v|; power_iters times v = v P / |v P|;  eta = 1 / ((v P) . v)
+//   c = X Dg^T
+//   gcodes = group FISTA / ISTA, num_iters iterations (K4's kernel)
+//   codes = gcodes gsel         (b, s): duplicated memberships summed
+//   h = 0.99 h + (sum_b codes^2 * (1/b)) / 100          (cheap quadratic)
+//   upd_num_iters times:
+//     resid = codes D - X ; grad = codes^T resid * (1/b)
+//     [+ penalty (S D - rowsum(S o C) D), C = D D^T, S = comem o sign(C)]
+//     [/ (h + lowest)] ; D = D - step * grad ; rows renormalized
+//
+// Layout: K2's (fused_train_step.cu).  Per-step kernels that one C loop
+// per segment enqueues on one stream; D, h, v and eta stay in device
+// memory and the host never waits inside a segment.  The products are
+// K2's fp32 SIMT product kernel, the refresh is K2's one-block power
+// kernel, the solve is K4's kernel through vtc_fused_group_fista, and the
+// Hessian EMA and row update are K2's (train_core.cuh).
+//
+// The group structure.  The TPU kernel makes every ragged operation an
+// MXU product against 0/1 matrices (gsel (GM, s), expand (GM, G)).  Here
+// they are index lists built on the host once per segment:
+//  * the grouped build is a row gather, sel[r] the member of slot r or
+//    -1 for padding (a zero row); skipped when the groups tile range(s)
+//    in order, where Dg is D (the TPU kernel's gsel_identity);
+//  * the unpack is a fixed-order gather-sum: code j adds its slots in
+//    ascending order, sum_idx (s, R) padded with GM; no atomics, so the
+//    result does not depend on scheduling; skipped with the build;
+//  * expand has no counterpart: K4's prox takes the window M.
+//
+// The anti-alignment regularizer (alignment_penalty != 0, unit-norm
+// form): per update iteration C = D D^T and S D are two more products on
+// K2's kernel, S = comem o sign(C) an elementwise pass over the static
+// co-membership counts, and rowsum(S o C) is taken inside the row update.
+// Every product is fp32 on the CUDA cores, in every tier; sign(C) of
+// near-orthogonal atoms can flip between fp32 and fp64, so the
+// regularized step is held to its plain version at small sizes.
+//
+// What bounds it on this card: as K2, the group solve on ceil(b / 16)
+// blocks (16 of 132 SMs at the flagship's b = 250); the build, unpack
+// and regularizer passes are bound by launch latency.
+#include "train_core.cuh"
+
+extern "C" int vtc_fused_group_fista(const float* gram, const float* corr,
+                                     const float* init, const float* eta,
+                                     float lam, int num_iters, int b, int gm,
+                                     int group_size, int sk, int sc,
+                                     int fista, int hard, float* gn_scratch,
+                                     float* state_scratch, float* out,
+                                     void* stream_ptr);
+
+namespace {
+
+constexpr int kPassThreads = 256;
+
+unsigned pass_grid(int64_t total) {
+  const int64_t blocks = (total + kPassThreads - 1) / kPassThreads;
+  return static_cast<unsigned>(blocks < 4096 ? blocks : 4096);
+}
+
+// dg (rows, n): row r is d's row sel[r], or zeros where sel[r] < 0.
+__global__ void gather_rows_kernel(const float* __restrict__ d,
+                                   const int* __restrict__ sel,
+                                   float* __restrict__ dg, int rows, int n) {
+  const int64_t total = static_cast<int64_t>(rows) * n;
+  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                     threadIdx.x;
+       idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int r = static_cast<int>(idx / n);
+    const int src = sel[r];
+    dg[idx] = src >= 0 ? d[static_cast<int64_t>(src) * n + (idx - r * n)]
+                       : 0.0f;
+  }
+}
+
+// codes (b, s): code j of each row sums that row's slots sum_idx[j, :]
+// of gcodes (b, gm), in order, up to the first index >= gm.
+__global__ void sum_slots_kernel(const float* __restrict__ gcodes,
+                                 const int* __restrict__ sum_idx,
+                                 float* __restrict__ codes, int b, int s,
+                                 int gm, int width) {
+  const int64_t total = static_cast<int64_t>(b) * s;
+  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                     threadIdx.x;
+       idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t row = idx / s;
+    const int j = static_cast<int>(idx - row * s);
+    const float* g = gcodes + row * gm;
+    float acc = 0.0f;
+    for (int r = 0; r < width; ++r) {
+      const int slot = sum_idx[j * width + r];
+      if (slot >= gm) break;
+      acc += g[slot];
+    }
+    codes[idx] = acc;
+  }
+}
+
+// smat = comem o sign(cmat), elementwise over count entries.
+__global__ void sign_mask_kernel(const float* __restrict__ comem,
+                                 const float* __restrict__ cmat,
+                                 float* __restrict__ smat, int64_t count) {
+  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                     threadIdx.x;
+       idx < count; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float c = cmat[idx];
+    smat[idx] = c > 0.0f ? comem[idx] : (c < 0.0f ? -comem[idx] : 0.0f);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// k subspace train steps on one stream, every launch enqueued before
+// returning.
+//
+// In place: d (s, n), h (s,), v (dim,) with dim = min(gm, n).  x (k, b, n).
+// Group structure: gm = G * group_size packed slots; sel (gm,) and
+// sum_idx (s, sum_width) int32 on the device, both null when the groups
+// tile range(s) in order (then gm == s and Dg = D).  comem (s, s) the
+// zero-diagonal co-membership counts, or null for no regularizer.
+// Scratch: dg (gm, n) unless sel is null; gram (gm, gm); pgram (n, n)
+// when gm > n; corr (b, gm); gcodes (b, gm); codes (b, s) unless sum_idx
+// is null; resid (b, n); grad (s, n); cmat, smat (s, s) and sd (s, n)
+// with comem; eta (1,); K4's gn (sk, sc) and state (see
+// vtc_fused_group_fista).  The last step's summed codes are in codes, or
+// in gcodes when sum_idx is null.  update: 0 steepest, 1 cheap
+// quadratic.  Returns the first CUDA error code (0 on success).
+int vtc_group_train_segment(
+    float* d, float* h, float* v, const float* x, int k, int b, int s,
+    int n, int gm, int group_size, const int* sel, const int* sum_idx,
+    int sum_width, const float* comem, float penalty, float lam,
+    int num_iters, float upd_step, int upd_num_iters, float lowest,
+    int fista, int hard, int update, int renorm, int power_iters,
+    float inv_b, float* dg, float* gram, float* pgram, float* corr,
+    float* gcodes, float* codes, float* resid, float* grad, float* cmat,
+    float* smat, float* sd, float* eta, int sk, int sc, float* gn_scratch,
+    float* state_scratch, void* stream_ptr) {
+  const bool identity = sel == nullptr;
+  if (k < 0 || b <= 0 || s <= 0 || n <= 0 || gm <= 0 || num_iters < 0 ||
+      upd_num_iters < 0 || power_iters < 0 ||
+      (identity != (sum_idx == nullptr)) || (identity && gm != s) ||
+      (!identity && (dg == nullptr || codes == nullptr || sum_width < 1)) ||
+      (gm > n && pgram == nullptr) ||
+      (comem != nullptr &&
+       (cmat == nullptr || smat == nullptr || sd == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int dim = gm > n ? n : gm;
+  const float* grouped = identity ? d : dg;
+  const float* power_gram = gm > n ? pgram : gram;
+  float* step_codes = identity ? gcodes : codes;
+  cudaError_t err = power_setup(dim);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define VTC_CHECK(...)                                    \
+  do {                                                    \
+    err = (__VA_ARGS__);                                  \
+    if (err != cudaSuccess) return static_cast<int>(err); \
+  } while (0)
+  for (int step = 0; step < k; ++step) {
+    const float* xs = x + static_cast<int64_t>(step) * b * n;
+    if (!identity) {
+      gather_rows_kernel<<<pass_grid(static_cast<int64_t>(gm) * n),
+                           kPassThreads, 0, stream>>>(d, sel, dg, gm, n);
+      VTC_CHECK(cudaGetLastError());
+    }
+    VTC_CHECK(gemm<false, true>(grouped, grouped, nullptr, gram, gm, gm, n,
+                                stream));
+    if (gm > n)
+      VTC_CHECK(gemm<true, false>(grouped, grouped, nullptr, pgram, n, n, gm,
+                                  stream));
+    VTC_CHECK(power_refresh(power_gram, v, eta, dim, power_iters, stream));
+    VTC_CHECK(gemm<false, true>(xs, grouped, nullptr, corr, b, gm, n,
+                                stream));
+    const int solve_err = vtc_fused_group_fista(
+        gram, corr, nullptr, eta, lam, num_iters, b, gm, group_size, sk, sc,
+        fista, hard, gn_scratch, state_scratch, gcodes, stream_ptr);
+    if (solve_err != 0) return solve_err;
+    if (!identity) {
+      sum_slots_kernel<<<pass_grid(static_cast<int64_t>(b) * s),
+                         kPassThreads, 0, stream>>>(gcodes, sum_idx, codes,
+                                                    b, s, gm, sum_width);
+      VTC_CHECK(cudaGetLastError());
+    }
+    if (update == 1)
+      VTC_CHECK(hessian_ema(step_codes, h, b, s, inv_b, stream));
+    for (int u = 0; u < upd_num_iters; ++u) {
+      VTC_CHECK(gemm<false, false>(step_codes, d, xs, resid, b, n, s,
+                                   stream));
+      VTC_CHECK(gemm<true, false>(step_codes, resid, nullptr, grad, s, n, b,
+                                  stream));
+      if (comem == nullptr) {
+        VTC_CHECK(update_rows<false>(d, grad, h, AlignmentReg{}, s, n, inv_b,
+                                     upd_step, lowest, update == 1,
+                                     renorm != 0, stream));
+        continue;
+      }
+      VTC_CHECK(gemm<false, true>(d, d, nullptr, cmat, s, s, n, stream));
+      sign_mask_kernel<<<pass_grid(static_cast<int64_t>(s) * s),
+                         kPassThreads, 0, stream>>>(
+          comem, cmat, smat, static_cast<int64_t>(s) * s);
+      VTC_CHECK(cudaGetLastError());
+      VTC_CHECK(gemm<false, false>(smat, d, nullptr, sd, s, n, s, stream));
+      VTC_CHECK(update_rows<true>(d, grad, h,
+                                  AlignmentReg{sd, smat, cmat, penalty}, s,
+                                  n, inv_b, upd_step, lowest, update == 1,
+                                  renorm != 0, stream));
+    }
+  }
+#undef VTC_CHECK
+  return 0;
+}
+
+}  // extern "C"

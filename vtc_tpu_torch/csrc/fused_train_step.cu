@@ -42,14 +42,10 @@
 // kernel, splitting the solve over more SMs at small batch) is later
 // work (ROADMAP.md).
 //
-// Precision.  Every product is IEEE fp32 FMA on the CUDA cores: no TF32,
-// no tensor cores, no library call.  The update gradient is a small
-// difference of large products, so it stays full fp32, as it does in
-// every tier of the TPU kernel (pallas_train_step.py:400-409).  Square
-// roots and divisions are IEEE sqrtf and '/', no rsqrt intrinsics.
-// Ragged b, s and n are masked inside every kernel.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// The kernels (the fp32 SIMT product, the power refresh, the Hessian EMA
+// and the row update) live in train_core.cuh, which K6 shares, and the
+// solve in fista_core.cuh.
+#include "train_core.cuh"
 
 extern "C" int vtc_fused_fista(const float* gram, const float* corr,
                                const float* init, const float* eta,
@@ -58,223 +54,11 @@ extern "C" int vtc_fused_fista(const float* gram, const float* corr,
                                float* gn_scratch, float* state_scratch,
                                float* out, void* stream_ptr);
 
-namespace {
-
-constexpr int kTile = 32;        // output tile edge and depth of a k-slice
-constexpr int kGemmThreads = 256;  // 32 columns x 8 row groups of 4
-constexpr int kPowerThreads = 1024;
-constexpr int kRowThreads = 256;
-
-// C (M, N) = op(A) (M, K) @ op(B) (K, N), minus X (M, N) when X is given.
-// TA: A is stored (K, M); otherwise (M, K).  TB: B is stored (N, K);
-// otherwise (K, N).  All row-major and contiguous.  The sum over k runs
-// in order, one FMA per term.
-template <bool TA, bool TB>
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                const float* __restrict__ X, float* __restrict__ C, int M,
-                int N, int K) {
-  __shared__ float As[kTile][kTile + 1];  // As[k][i]
-  __shared__ float Bs[kTile][kTile + 1];  // Bs[k][j]
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;   // output column within the tile
-  const int ty = tid >> 5;   // owns output rows ty*4 .. ty*4+3
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-
-  for (int k0 = 0; k0 < K; k0 += kTile) {
-    // neighbouring threads read neighbouring addresses in both layouts
-    for (int idx = tid; idx < kTile * kTile; idx += kGemmThreads) {
-      const int hi = idx >> 5;
-      const int lo = idx & 31;
-      {
-        const int ii = TA ? lo : hi;
-        const int kk = TA ? hi : lo;
-        const int i = i0 + ii;
-        const int k = k0 + kk;
-        float a = 0.0f;
-        if (i < M && k < K)
-          a = TA ? A[static_cast<int64_t>(k) * M + i]
-                 : A[static_cast<int64_t>(i) * K + k];
-        As[kk][ii] = a;
-      }
-      {
-        const int jj = TB ? hi : lo;
-        const int kk = TB ? lo : hi;
-        const int j = j0 + jj;
-        const int k = k0 + kk;
-        float bv = 0.0f;
-        if (j < N && k < K)
-          bv = TB ? B[static_cast<int64_t>(j) * K + k]
-                  : B[static_cast<int64_t>(k) * N + j];
-        Bs[kk][jj] = bv;
-      }
-    }
-    __syncthreads();
-    const int kn = K - k0 < kTile ? K - k0 : kTile;
-    for (int kk = 0; kk < kn; ++kk) {
-      const float bv = Bs[kk][tx];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[r] = fmaf(As[kk][ty * 4 + r], bv, acc[r]);
-    }
-    __syncthreads();
-  }
-
-  const int j = j0 + tx;
-  if (j >= N) return;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty * 4 + r;
-    if (i < M) {
-      const int64_t at = static_cast<int64_t>(i) * N + j;
-      C[at] = X != nullptr ? acc[r] - X[at] : acc[r];
-    }
-  }
-}
-
-template <bool TA, bool TB>
-cudaError_t gemm(const float* A, const float* B, const float* X, float* C,
-                 int M, int N, int K, cudaStream_t stream) {
-  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  gemm_kernel<TA, TB><<<grid, kGemmThreads, 0, stream>>>(A, B, X, C, M, N,
-                                                         K);
-  return cudaGetLastError();
-}
-
-// Sum of x over the block; every thread gets the total.  scratch holds
-// one float per warp plus one for the result.
-__device__ float block_sum(float x, float* scratch) {
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_down_sync(0xffffffffu, x, off);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  __syncthreads();  // scratch may still be read from the previous call
-  if (lane == 0) scratch[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    float y = lane < warps ? scratch[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1)
-      y += __shfl_down_sync(0xffffffffu, y, off);
-    if (lane == 0) scratch[32] = y;
-  }
-  __syncthreads();
-  return scratch[32];
-}
-
-// w = P v for the symmetric (dim, dim) Gram P: one warp per row.
-__device__ void gram_matvec(const float* __restrict__ P, const float* v,
-                            float* w, int dim) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  for (int j = warp; j < dim; j += warps) {
-    const float* row = P + static_cast<int64_t>(j) * dim;
-    float acc = 0.0f;
-    for (int i = lane; i < dim; i += 32) acc = fmaf(row[i], v[i], acc);
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_down_sync(0xffffffffu, acc, off);
-    if (lane == 0) w[j] = acc;
-  }
-  __syncthreads();
-}
-
-// The warm Lipschitz refresh, one block: v = v / |v|, then iters times
-// v = P v / |P v|; eta = 1 / ((P v) . v).  v is read and written in
-// place; eta[0] receives the stepsize.
-__global__ void __launch_bounds__(kPowerThreads)
-    power_kernel(const float* __restrict__ P, float* __restrict__ v_io,
-                 float* __restrict__ eta, int dim, int iters) {
-  extern __shared__ float smem[];
-  float* v = smem;
-  float* w = smem + dim;
-  float* scratch = smem + 2 * dim;  // 33 floats
-  float part = 0.0f;
-  for (int j = threadIdx.x; j < dim; j += blockDim.x) {
-    const float x = v_io[j];
-    v[j] = x;
-    part = fmaf(x, x, part);
-  }
-  float norm = sqrtf(block_sum(part, scratch));
-  for (int j = threadIdx.x; j < dim; j += blockDim.x) v[j] = v[j] / norm;
-  __syncthreads();
-  for (int it = 0; it < iters; ++it) {
-    gram_matvec(P, v, w, dim);
-    part = 0.0f;
-    for (int j = threadIdx.x; j < dim; j += blockDim.x)
-      part = fmaf(w[j], w[j], part);
-    norm = sqrtf(block_sum(part, scratch));
-    for (int j = threadIdx.x; j < dim; j += blockDim.x) v[j] = w[j] / norm;
-    __syncthreads();
-  }
-  gram_matvec(P, v, w, dim);
-  part = 0.0f;
-  for (int j = threadIdx.x; j < dim; j += blockDim.x) {
-    part = fmaf(w[j], v[j], part);
-    v_io[j] = v[j];
-  }
-  const float eig = block_sum(part, scratch);
-  if (threadIdx.x == 0) eta[0] = 1.0f / eig;
-}
-
-// h = 0.99 h + (sum_b codes^2 * inv_b) / 100, one thread per column.
-__global__ void hessian_ema_kernel(const float* __restrict__ codes,
-                                   float* __restrict__ h, int b, int s,
-                                   float inv_b) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= s) return;
-  float acc = 0.0f;
-  for (int r = 0; r < b; ++r) {
-    const float c = codes[static_cast<int64_t>(r) * s + j];
-    acc = fmaf(c, c, acc);
-  }
-  h[j] = 0.99f * h[j] + (acc * inv_b) / 100.0f;
-}
-
-// One block per dictionary row i: D_i -= step * grad_i * inv_b
-// [/ (h_i + lowest)], then D_i / max(|D_i|, 1e-30) when renormalizing.
-template <bool CHEAP_QUAD, bool RENORM>
-__global__ void __launch_bounds__(kRowThreads)
-    update_rows_kernel(float* __restrict__ d, const float* __restrict__ grad,
-                       const float* __restrict__ h, int n, float inv_b,
-                       float step, float lowest) {
-  __shared__ float scratch[33];
-  float* row = d + static_cast<int64_t>(blockIdx.x) * n;
-  const float* g_row = grad + static_cast<int64_t>(blockIdx.x) * n;
-  const float scale = CHEAP_QUAD ? h[blockIdx.x] + lowest : 1.0f;
-  float part = 0.0f;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    float g = g_row[j] * inv_b;
-    if (CHEAP_QUAD) g = g / scale;
-    const float x = row[j] - step * g;
-    row[j] = x;
-    part = fmaf(x, x, part);
-  }
-  if (!RENORM) return;
-  const float norm = fmaxf(sqrtf(block_sum(part, scratch)), 1e-30f);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) row[j] = row[j] / norm;
-}
-
-template <bool CHEAP_QUAD, bool RENORM>
-cudaError_t update_rows(float* d, const float* grad, const float* h, int s,
-                        int n, float inv_b, float step, float lowest,
-                        cudaStream_t stream) {
-  update_rows_kernel<CHEAP_QUAD, RENORM><<<s, kRowThreads, 0, stream>>>(
-      d, grad, h, n, inv_b, step, lowest);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" {
 
 // Bytes of dynamic shared memory the power refresh takes for a Gram of
 // size dim (the wrapper checks it against the block's budget).
-int vtc_power_smem_bytes(int dim) {
-  return static_cast<int>((2 * static_cast<int64_t>(dim) + 33) *
-                          sizeof(float));
-}
+int vtc_power_smem_bytes(int dim) { return power_smem_bytes(dim); }
 
 // k train steps on one stream, every launch enqueued before returning.
 //
@@ -299,9 +83,7 @@ int vtc_train_segment(float* d, float* h, float* v, const float* x, int k,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int dim = s > n ? n : s;
   const float* power_gram = s > n ? pgram : gram;
-  const int power_smem = vtc_power_smem_bytes(dim);
-  cudaError_t err = cudaFuncSetAttribute(
-      power_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, power_smem);
+  cudaError_t err = power_setup(dim);
   if (err != cudaSuccess) return static_cast<int>(err);
 #define VTC_CHECK(...)                                    \
   do {                                                    \
@@ -313,37 +95,21 @@ int vtc_train_segment(float* d, float* h, float* v, const float* x, int k,
     VTC_CHECK(gemm<false, true>(d, d, nullptr, gram, s, s, n, stream));
     if (s > n)
       VTC_CHECK(gemm<true, false>(d, d, nullptr, pgram, n, n, s, stream));
-    power_kernel<<<1, kPowerThreads, power_smem, stream>>>(power_gram, v,
-                                                           eta, dim,
-                                                           power_iters);
-    VTC_CHECK(cudaGetLastError());
+    VTC_CHECK(power_refresh(power_gram, v, eta, dim, power_iters, stream));
     VTC_CHECK(gemm<false, true>(xs, d, nullptr, corr, b, s, n, stream));
     const int fista_err =
         vtc_fused_fista(gram, corr, nullptr, eta, lam, num_iters, b, s, sk,
                         sc, fista, mode, gn_scratch, state_scratch, codes,
                         stream_ptr);
     if (fista_err != 0) return fista_err;
-    if (update == 1) {
-      hessian_ema_kernel<<<(s + 255) / 256, 256, 0, stream>>>(codes, h, b, s,
-                                                              inv_b);
-      VTC_CHECK(cudaGetLastError());
-    }
+    if (update == 1) VTC_CHECK(hessian_ema(codes, h, b, s, inv_b, stream));
     for (int u = 0; u < upd_num_iters; ++u) {
       VTC_CHECK(gemm<false, false>(codes, d, xs, resid, b, n, s, stream));
       VTC_CHECK(gemm<true, false>(codes, resid, nullptr, grad, s, n, b,
                                    stream));
-      if (update == 1 && renorm)
-        VTC_CHECK(update_rows<true, true>(d, grad, h, s, n, inv_b, upd_step,
-                                          lowest, stream));
-      else if (update == 1)
-        VTC_CHECK(update_rows<true, false>(d, grad, h, s, n, inv_b, upd_step,
-                                           lowest, stream));
-      else if (renorm)
-        VTC_CHECK(update_rows<false, true>(d, grad, h, s, n, inv_b, upd_step,
-                                           lowest, stream));
-      else
-        VTC_CHECK(update_rows<false, false>(d, grad, h, s, n, inv_b,
-                                            upd_step, lowest, stream));
+      VTC_CHECK(update_rows<false>(d, grad, h, AlignmentReg{}, s, n, inv_b,
+                                   upd_step, lowest, update == 1,
+                                   renorm != 0, stream));
     }
   }
 #undef VTC_CHECK

@@ -1,0 +1,282 @@
+// The per-step kernels shared by K2 (fused_train_step.cu, fc train
+// segments) and K6 (fused_group_train_step.cu, subspace train segments),
+// for Hopper (sm_90a).  Included by each: everything here has internal
+// linkage.
+//
+// Precision.  Every product is IEEE fp32 FMA on the CUDA cores: no TF32,
+// no tensor cores, no library call.  The update gradient is a small
+// difference of large products, so it stays full fp32, as it does in
+// every tier of the TPU kernels (pallas_train_step.py:400-409).  Square
+// roots and divisions are IEEE sqrtf and '/', no rsqrt intrinsics.
+// Ragged shapes are masked inside every kernel.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 32;        // output tile edge and depth of a k-slice
+constexpr int kGemmThreads = 256;  // 32 columns x 8 row groups of 4
+constexpr int kPowerThreads = 1024;
+constexpr int kRowThreads = 256;
+
+// C (M, N) = op(A) (M, K) @ op(B) (K, N), minus X (M, N) when X is given.
+// TA: A is stored (K, M); otherwise (M, K).  TB: B is stored (N, K);
+// otherwise (K, N).  All row-major and contiguous.  The sum over k runs
+// in order, one FMA per term.
+template <bool TA, bool TB>
+__global__ void __launch_bounds__(kGemmThreads)
+    gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                const float* __restrict__ X, float* __restrict__ C, int M,
+                int N, int K) {
+  __shared__ float As[kTile][kTile + 1];  // As[k][i]
+  __shared__ float Bs[kTile][kTile + 1];  // Bs[k][j]
+  const int tid = threadIdx.x;
+  const int tx = tid & 31;   // output column within the tile
+  const int ty = tid >> 5;   // owns output rows ty*4 .. ty*4+3
+  const int i0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.x * kTile;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+
+  for (int k0 = 0; k0 < K; k0 += kTile) {
+    // neighbouring threads read neighbouring addresses in both layouts
+    for (int idx = tid; idx < kTile * kTile; idx += kGemmThreads) {
+      const int hi = idx >> 5;
+      const int lo = idx & 31;
+      {
+        const int ii = TA ? lo : hi;
+        const int kk = TA ? hi : lo;
+        const int i = i0 + ii;
+        const int k = k0 + kk;
+        float a = 0.0f;
+        if (i < M && k < K)
+          a = TA ? A[static_cast<int64_t>(k) * M + i]
+                 : A[static_cast<int64_t>(i) * K + k];
+        As[kk][ii] = a;
+      }
+      {
+        const int jj = TB ? hi : lo;
+        const int kk = TB ? lo : hi;
+        const int j = j0 + jj;
+        const int k = k0 + kk;
+        float bv = 0.0f;
+        if (j < N && k < K)
+          bv = TB ? B[static_cast<int64_t>(j) * K + k]
+                  : B[static_cast<int64_t>(k) * N + j];
+        Bs[kk][jj] = bv;
+      }
+    }
+    __syncthreads();
+    const int kn = K - k0 < kTile ? K - k0 : kTile;
+    for (int kk = 0; kk < kn; ++kk) {
+      const float bv = Bs[kk][tx];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[r] = fmaf(As[kk][ty * 4 + r], bv, acc[r]);
+    }
+    __syncthreads();
+  }
+
+  const int j = j0 + tx;
+  if (j >= N) return;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + ty * 4 + r;
+    if (i < M) {
+      const int64_t at = static_cast<int64_t>(i) * N + j;
+      C[at] = X != nullptr ? acc[r] - X[at] : acc[r];
+    }
+  }
+}
+
+template <bool TA, bool TB>
+cudaError_t gemm(const float* A, const float* B, const float* X, float* C,
+                 int M, int N, int K, cudaStream_t stream) {
+  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  gemm_kernel<TA, TB><<<grid, kGemmThreads, 0, stream>>>(A, B, X, C, M, N,
+                                                         K);
+  return cudaGetLastError();
+}
+
+// Sum of x over the block; every thread gets the total.  scratch holds
+// one float per warp plus one for the result.
+__device__ float block_sum(float x, float* scratch) {
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_down_sync(0xffffffffu, x, off);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  __syncthreads();  // scratch may still be read from the previous call
+  if (lane == 0) scratch[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    float y = lane < warps ? scratch[lane] : 0.0f;
+    for (int off = 16; off > 0; off >>= 1)
+      y += __shfl_down_sync(0xffffffffu, y, off);
+    if (lane == 0) scratch[32] = y;
+  }
+  __syncthreads();
+  return scratch[32];
+}
+
+// w = P v for the symmetric (dim, dim) Gram P: one warp per row.
+__device__ void gram_matvec(const float* __restrict__ P, const float* v,
+                            float* w, int dim) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  for (int j = warp; j < dim; j += warps) {
+    const float* row = P + static_cast<int64_t>(j) * dim;
+    float acc = 0.0f;
+    for (int i = lane; i < dim; i += 32) acc = fmaf(row[i], v[i], acc);
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (lane == 0) w[j] = acc;
+  }
+  __syncthreads();
+}
+
+// Bytes of dynamic shared memory the power refresh takes for a Gram of
+// size dim.
+inline int power_smem_bytes(int dim) {
+  return static_cast<int>((2 * static_cast<int64_t>(dim) + 33) *
+                          sizeof(float));
+}
+
+// The warm Lipschitz refresh, one block: v = v / |v|, then iters times
+// v = P v / |P v|; eta = 1 / ((P v) . v).  v is read and written in
+// place; eta[0] receives the stepsize.
+__global__ void __launch_bounds__(kPowerThreads)
+    power_kernel(const float* __restrict__ P, float* __restrict__ v_io,
+                 float* __restrict__ eta, int dim, int iters) {
+  extern __shared__ float smem[];
+  float* v = smem;
+  float* w = smem + dim;
+  float* scratch = smem + 2 * dim;  // 33 floats
+  float part = 0.0f;
+  for (int j = threadIdx.x; j < dim; j += blockDim.x) {
+    const float x = v_io[j];
+    v[j] = x;
+    part = fmaf(x, x, part);
+  }
+  float norm = sqrtf(block_sum(part, scratch));
+  for (int j = threadIdx.x; j < dim; j += blockDim.x) v[j] = v[j] / norm;
+  __syncthreads();
+  for (int it = 0; it < iters; ++it) {
+    gram_matvec(P, v, w, dim);
+    part = 0.0f;
+    for (int j = threadIdx.x; j < dim; j += blockDim.x)
+      part = fmaf(w[j], w[j], part);
+    norm = sqrtf(block_sum(part, scratch));
+    for (int j = threadIdx.x; j < dim; j += blockDim.x) v[j] = w[j] / norm;
+    __syncthreads();
+  }
+  gram_matvec(P, v, w, dim);
+  part = 0.0f;
+  for (int j = threadIdx.x; j < dim; j += blockDim.x) {
+    part = fmaf(w[j], v[j], part);
+    v_io[j] = v[j];
+  }
+  const float eig = block_sum(part, scratch);
+  if (threadIdx.x == 0) eta[0] = 1.0f / eig;
+}
+
+// Opt the power kernel into the dynamic shared memory of dim, once per
+// segment.
+cudaError_t power_setup(int dim) {
+  return cudaFuncSetAttribute(power_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              power_smem_bytes(dim));
+}
+
+cudaError_t power_refresh(const float* P, float* v, float* eta, int dim,
+                          int iters, cudaStream_t stream) {
+  power_kernel<<<1, kPowerThreads, power_smem_bytes(dim), stream>>>(
+      P, v, eta, dim, iters);
+  return cudaGetLastError();
+}
+
+// h = 0.99 h + (sum_b codes^2 * inv_b) / 100, one thread per column.
+__global__ void hessian_ema_kernel(const float* __restrict__ codes,
+                                   float* __restrict__ h, int b, int s,
+                                   float inv_b) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= s) return;
+  float acc = 0.0f;
+  for (int r = 0; r < b; ++r) {
+    const float c = codes[static_cast<int64_t>(r) * s + j];
+    acc = fmaf(c, c, acc);
+  }
+  h[j] = 0.99f * h[j] + (acc * inv_b) / 100.0f;
+}
+
+cudaError_t hessian_ema(const float* codes, float* h, int b, int s,
+                        float inv_b, cudaStream_t stream) {
+  hessian_ema_kernel<<<(s + 255) / 256, 256, 0, stream>>>(codes, h, b, s,
+                                                          inv_b);
+  return cudaGetLastError();
+}
+
+// The anti-alignment regularizer's operands of one update iteration
+// (K6 only): sd = S D (s, n), smat = S = comem o sign(C) (s, s) and
+// cmat = C = D D^T (s, s).
+struct AlignmentReg {
+  const float* sd;
+  const float* smat;
+  const float* cmat;
+  float penalty;
+};
+
+// One block per dictionary row i:
+//   g = grad_i * inv_b  [+ penalty (sd_i - rowsum(S o C)_i D_i)]
+//       [/ (h_i + lowest)]
+//   D_i -= step * g;  then D_i / max(|D_i|, 1e-30) when renormalizing,
+// the order of operations of pallas_train_step.py:522-531 and :702-720.
+template <bool CHEAP_QUAD, bool RENORM, bool REG>
+__global__ void __launch_bounds__(kRowThreads)
+    update_rows_kernel(float* __restrict__ d, const float* __restrict__ grad,
+                       const float* __restrict__ h, AlignmentReg reg, int s,
+                       int n, float inv_b, float step, float lowest) {
+  __shared__ float scratch[33];
+  const int64_t i = blockIdx.x;
+  float* row = d + i * n;
+  const float* g_row = grad + i * n;
+  const float scale = CHEAP_QUAD ? h[i] + lowest : 1.0f;
+  float row_sc = 0.0f;
+  if (REG) {
+    float part = 0.0f;
+    for (int j = threadIdx.x; j < s; j += blockDim.x)
+      part = fmaf(reg.smat[i * s + j], reg.cmat[i * s + j], part);
+    row_sc = block_sum(part, scratch);
+  }
+  float part = 0.0f;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    float g = g_row[j] * inv_b;
+    if (REG) g = g + reg.penalty * (reg.sd[i * n + j] - row_sc * row[j]);
+    if (CHEAP_QUAD) g = g / scale;
+    const float x = row[j] - step * g;
+    row[j] = x;
+    part = fmaf(x, x, part);
+  }
+  if (!RENORM) return;
+  const float norm = fmaxf(sqrtf(block_sum(part, scratch)), 1e-30f);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) row[j] = row[j] / norm;
+}
+
+template <bool REG>
+cudaError_t update_rows(float* d, const float* grad, const float* h,
+                        AlignmentReg reg, int s, int n, float inv_b,
+                        float step, float lowest, bool cheap_quad,
+                        bool renorm, cudaStream_t stream) {
+#define VTC_UPDATE(C, R)                                                   \
+  update_rows_kernel<C, R, REG><<<s, kRowThreads, 0, stream>>>(            \
+      d, grad, h, reg, s, n, inv_b, step, lowest)
+  if (cheap_quad && renorm) VTC_UPDATE(true, true);
+  else if (cheap_quad) VTC_UPDATE(true, false);
+  else if (renorm) VTC_UPDATE(false, true);
+  else VTC_UPDATE(false, false);
+#undef VTC_UPDATE
+  return cudaGetLastError();
+}
+
+}  // namespace

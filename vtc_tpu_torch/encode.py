@@ -1,12 +1,15 @@
 """High-throughput dataset encoding (the serving path): counterpart of the
-fully-connected branch of ``encode_dataset`` (vtc_tpu/encode.py:96-249).
+fully-connected and subspace branches of ``encode_dataset``
+(vtc_tpu/encode.py:96-249).
 
-* The stepsize (top Gram eigenvalue) is computed once per dictionary on
-  the device and handed to every batch solve as a device tensor.
+* The stepsize (top Gram eigenvalue; of the grouped dictionary's Gram
+  with ``group_assignments``) is computed once per dictionary on the
+  device and handed to every batch solve as a device tensor.
 * The dataset is cut into ``batch_size`` batches, the tail padded with
   zero rows (zero codes, dropped at the end; vtc_tpu/encode.py:216-224),
   and walked in chunks of ``chunk_batches`` batches.
-* On a CUDA device each batch solve is the fused FISTA kernel
+* On a CUDA device each batch solve is the fused FISTA kernel K1, or
+  with ``group_assignments`` the fused group FISTA kernel K4
   (``formulation=None`` resolves to 'pallas' there and to 'gram' on the
   CPU, as JAX resolves it to 'pallas' on the TPU, encode.py:143-145).
   The next chunk's host->device copy runs on a side stream from pinned
@@ -16,13 +19,14 @@ fully-connected branch of ``encode_dataset`` (vtc_tpu/encode.py:96-249).
 
   codes = encode_dataset(patches, dictionary, 0.008, 100, device="cuda")
 
-Subspace (``group_assignments``), convolutional mode and
-``data_parallel`` raise NotImplementedError until their slices land.
+Convolutional mode and ``data_parallel`` raise NotImplementedError until
+their slices land.
 """
 import numpy as np
 import torch
 
-from vtc_tpu_torch.analysis_transforms.fully_connected import ista_fista
+from vtc_tpu_torch.analysis_transforms.fully_connected import (
+    ista_fista, subspace_ista_fista)
 from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
 
 
@@ -91,17 +95,13 @@ class _CudaChunks:
     dest[...] = self.pinned_out[slot][:len(codes)].numpy()
 
 
-def _check_scope(mode, group_assignments, data_parallel, mxu_precision):
+def _check_scope(mode, data_parallel, mxu_precision):
   if mode == "convolutional":
     raise NotImplementedError(
         "mode='convolutional' waits for the conv slice, ROADMAP.md §1 "
         "item 7")
   if mode != "fully-connected":
     raise ValueError("mode must be 'fully-connected' or 'convolutional'")
-  if group_assignments is not None:
-    raise NotImplementedError(
-        "group_assignments (subspace encoding) waits for the subspace "
-        "slice, ROADMAP.md §1 item 5")
   if data_parallel is not None:
     raise NotImplementedError(
         "data_parallel waits for the multi-device slice, ROADMAP.md §1 "
@@ -130,10 +130,13 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
     batch_size: rows per solver call.
     chunk_batches: batches per host->device transfer unit; the device
       holds two input chunks (double buffering).
-    group_assignments, kernel_stride, padding, data_parallel: the
-      subspace, conv and multi-device options of the JAX function; not
-      ported yet (kernel_stride and padding are conv-only and unused).
-    nonnegative_only, hard_threshold: threshold variants.
+    group_assignments: list of index lists -> group-sparse inference
+      (``subspace_ista_fista.run``; K4 on a CUDA device).
+    kernel_stride, padding, data_parallel: the conv and multi-device
+      options of the JAX function; not ported yet (kernel_stride and
+      padding are conv-only and unused).
+    nonnegative_only, hard_threshold: threshold variants
+      (nonnegative_only is not defined for group-sparse inference).
     formulation: None -> 'pallas' (the CUDA kernel) on a CUDA device,
       'gram' on the CPU; or force 'gram' / 'direct' / 'pallas'.
     lipschitz_method: 'eigvalsh' (exact, default) or 'power'.
@@ -144,7 +147,11 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
   Returns:
     (D, s) float32 numpy codes.
   """
-  _check_scope(mode, group_assignments, data_parallel, mxu_precision)
+  _check_scope(mode, data_parallel, mxu_precision)
+  if nonnegative_only and group_assignments is not None:
+    raise ValueError(
+        "nonnegative_only is not defined for group-sparse inference "
+        "(the group prox shrinks norms, not signs)")
   if device is None:
     device = (dictionary.device if isinstance(dictionary, torch.Tensor)
               else "cpu")
@@ -158,13 +165,29 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
                                device=device).contiguous()
   if formulation is None:
     formulation = "pallas" if device.type == "cuda" else "gram"
-  eta = lipschitz_ops.fista_stepsize(dictionary, lipschitz_method)
+  if group_assignments is None:
+    eta = lipschitz_ops.fista_stepsize(dictionary, lipschitz_method)
 
-  def solve(batch):
-    return ista_fista.run(
-        batch, dictionary, sparsity_weight, num_iters, variant=variant,
-        nonnegative_only=nonnegative_only, hard_threshold=hard_threshold,
-        stepsize=eta, formulation=formulation, mxu_precision=mxu_precision)
+    def solve(batch):
+      return ista_fista.run(
+          batch, dictionary, sparsity_weight, num_iters, variant=variant,
+          nonnegative_only=nonnegative_only, hard_threshold=hard_threshold,
+          stepsize=eta, formulation=formulation,
+          mxu_precision=mxu_precision)
+  else:
+    groups = [[int(m) for m in g] for g in group_assignments]
+    gather, mask, _ = subspace_ista_fista.group_layout(
+        groups, dictionary.shape[0], device)
+    eta = lipschitz_ops.fista_stepsize(
+        subspace_ista_fista.build_grouped_dictionary(dictionary, gather,
+                                                     mask),
+        lipschitz_method)
+
+    def solve(batch):
+      return subspace_ista_fista.run(
+          batch, dictionary, groups, sparsity_weight, num_iters,
+          variant=variant, hard_threshold=hard_threshold, stepsize=eta,
+          formulation=formulation, mxu_precision=mxu_precision)
 
   num_batches = -(-total // batch_size)
   padded = num_batches * batch_size

@@ -1,3 +1,3 @@
 """Numerical core of the port: precision pins, thresholds, the solver
-loop, the Lipschitz stepsize and the wrappers of the fused FISTA and
-fused train step kernels."""
+loop, the Lipschitz stepsize and the wrappers of the fused FISTA, fused
+train step, fused group FISTA and fused group train step kernels."""

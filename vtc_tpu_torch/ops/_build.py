@@ -117,4 +117,14 @@ def load_library():
       i32, i32, i32, i32, i32, f32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
       i32, i32, ptr, ptr, ptr]
   lib.vtc_train_segment.restype = i32
+  lib.vtc_fused_group_fista.argtypes = [
+      ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32, i32,
+      ptr, ptr, ptr, ptr]
+  lib.vtc_fused_group_fista.restype = i32
+  lib.vtc_group_train_segment.argtypes = [
+      ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, i32, ptr,
+      f32, f32, i32, f32, i32, f32, i32, i32, i32, i32, i32, f32,
+      ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+      i32, i32, ptr, ptr, ptr]
+  lib.vtc_group_train_segment.restype = i32
   return lib

@@ -148,24 +148,30 @@ def fused_fista_solve(images, dictionary, sparsity_weight, num_iters,
                  _MODES[(bool(nonneg), bool(hard))])
 
 
+def solve_layout(lib, s):
+  """(sk, sc, state_in_smem) of the solve kernel for s codes: the padded
+  depth and width of G, and whether a block's state (z twice, old and
+  eta*c, kRows rows each) fits its shared memory beside the G ring."""
+  chunk, col_block = lib.vtc_fista_chunk(), lib.vtc_fista_col_block()
+  sk = -(-s // chunk) * chunk
+  sc = -(-s // col_block) * col_block
+  state_bytes = 4 * lib.vtc_fista_rows() * sk * 4
+  return sk, sc, (lib.vtc_fista_slice_bytes() + state_bytes
+                  <= _SMEM_PER_BLOCK)
+
+
 def _launch(gram, corr, init, eta, lam, num_iters, fista, mode):
   """Allocate the kernel's scratch and launch it on the current stream."""
   global launches
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
-  rows, chunk, col_block = (lib.vtc_fista_rows(), lib.vtc_fista_chunk(),
-                            lib.vtc_fista_col_block())
+  rows = lib.vtc_fista_rows()
   b, s = corr.shape
   device = corr.device
-  sk = -(-s // chunk) * chunk            # padded depth of G
-  sc = -(-s // col_block) * col_block    # padded width of G
-  blocks = -(-b // rows)
-  state_bytes = 4 * rows * sk * 4        # z (x2), old, eta*c per block
-  state_in_smem = (lib.vtc_fista_slice_bytes() + state_bytes
-                   <= _SMEM_PER_BLOCK)
+  sk, sc, state_in_smem = solve_layout(lib, s)
   gn = torch.empty((sk, sc), dtype=torch.float32, device=device)
   state = (None if state_in_smem else
-           torch.empty((blocks, 4, rows, sk), dtype=torch.float32,
+           torch.empty((-(-b // rows), 4, rows, sk), dtype=torch.float32,
                        device=device))
   out = torch.empty((b, s), dtype=torch.float32, device=device)
   with torch.cuda.device(device):

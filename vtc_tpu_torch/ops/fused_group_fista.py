@@ -1,0 +1,209 @@
+"""Fused subspace (group) ISTA/FISTA solve: the port of TPU kernel K4,
+``group_fista_solve_pallas`` (vtc_tpu/ops/pallas_group_fista.py:168-259),
+with its group prox K5 (``_make_group_prox``,
+vtc_tpu/ops/pallas_train_step.py:248-322) inside.
+
+The codes are the packed (b, G*M) grouped tensor of
+``subspace_ista_fista``: group g holds slots [g*M, (g+1)*M) against the
+rows of the grouped dictionary Dg (G*M, n), and the slots a short group
+pads hold exact zeros (zero rows of Dg give zero rows of G = Dg Dg^T and
+zero columns of c = X Dg^T).  So the group prox needs only M: the
+window of M slots is the group, and the JAX kernel's membership operand
+(``membership_matrix``) has no counterpart here.
+
+``fused_group_fista_solve`` computes G and c with ``torch.matmul`` under
+the precision pins, outside the kernel, as pallas_group_fista.py:214-216
+does.  Then:
+
+* a CUDA tensor launches the hand-written kernel in
+  ``vtc_tpu_torch/csrc/fused_group_fista.cu`` (K1's iteration with the
+  group prox as its epilogue; built at first use by ``ops/_build.py``)
+  on the current stream, or raises;
+* a CPU tensor runs ``fused_group_fista_plain``, which is also the 'gram'
+  formulation of ``subspace_ista_fista`` and what ``chip_smoke.py`` holds
+  the kernel against on the card.
+
+Scope: no in-kernel early stop and only the 'highest' (IEEE fp32) tier;
+both wait in ROADMAP.md §1 item 3.  ``launches`` counts kernel launches.
+"""
+import ctypes
+
+import torch
+
+from vtc_tpu_torch.ops import fused_fista, thresholds
+from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.solver import proximal_gradient_loop
+
+launches = 0
+
+
+def group_prox(x, group_size, t, hard):
+  """The group prox on packed (b, G*M) codes at threshold ``t``: soft
+  is ``thresholds.group_shrink`` over each window of ``group_size``
+  slots; hard zeroes the groups whose norm is below ``t``."""
+  grouped = x.reshape(x.shape[0], -1, group_size)
+  norms = torch.linalg.vector_norm(grouped, dim=2, keepdim=True)
+  if hard:
+    out = torch.where(norms < t, 0.0, grouped)
+  else:
+    out = thresholds.group_shrink(grouped, norms, t)
+  return out.reshape(x.shape)
+
+
+def fused_group_fista_plain(images, grouped_dictionary, group_size,
+                            sparsity_weight, num_iters, stepsize, *,
+                            initial_grouped=None, variant="fista",
+                            hard=False, early_stopping_epsilon=None,
+                            precision=None):
+  """The plain PyTorch version of the fused group solve, on any device
+  and in the inputs' own float type (float64 inputs give the oracle).
+
+  The gram loop of ``ops/solver.proximal_gradient_loop`` with the
+  stepsize folded in, as vtc_tpu subspace_ista_fista.py:95-119 and the
+  kernel associate it: codes = prox((z + z @ (-eta G)) + eta c,
+  lam * eta), the prox on the (b, G, M) view.  ``early_stopping_epsilon``
+  is the loop's batch-global stop test, its mean over the b*G*M entries.
+  ``precision``: the matmul precision of ``ops/precision`` (default
+  'highest'); 'tensorfloat32' shows what TF32 products would cost.
+
+  Returns:
+    (b, G*M) packed grouped codes.
+  """
+  if variant not in ("ista", "fista"):
+    raise ValueError("variant must be 'ista' or 'fista'")
+  dtype, device = images.dtype, images.device
+  eta = torch.as_tensor(stepsize, dtype=dtype, device=device)
+  if initial_grouped is None:
+    z = torch.zeros((images.shape[0], grouped_dictionary.shape[0]),
+                    dtype=dtype, device=device)
+  else:
+    z = torch.as_tensor(initial_grouped, dtype=dtype, device=device)
+  with matmul_precision(precision):
+    neg_eta_gram = -eta * (grouped_dictionary @ grouped_dictionary.T)
+    corr_eta = eta * (images @ grouped_dictionary.T)
+
+    def prestep_fn(z):
+      return z + z @ neg_eta_gram + corr_eta
+
+    def prox_fn(x, ss):
+      return group_prox(x, group_size, sparsity_weight * ss, hard)
+
+    return proximal_gradient_loop(
+        None, prox_fn, z, eta, num_iters, variant=variant,
+        early_stopping_epsilon=early_stopping_epsilon,
+        prestep_fn=prestep_fn)
+
+
+def _require(cond, message):
+  if not cond:
+    raise ValueError("fused_group_fista_solve: " + message)
+
+
+def fused_group_fista_solve(images, grouped_dictionary, group_size,
+                            sparsity_weight, num_iters, stepsize, *,
+                            initial_grouped=None, variant="fista",
+                            hard=False, early_stopping_epsilon=None):
+  """Solve the packed group-LASSO codes with the fused kernel.
+
+  Args:
+    images: (b, n) float32 tensor.
+    grouped_dictionary: (G*M, n) float32 grouped dictionary on the same
+      device (``subspace_ista_fista.build_grouped_dictionary``).
+    group_size: M, the packed window of one group.
+    sparsity_weight: lambda, a Python float.
+    num_iters: iterations, a Python int (a runtime argument of the
+      kernel).
+    stepsize: 1/L, a float or a one-element tensor; a device tensor is
+      read by the kernel itself.
+    initial_grouped: optional (b, G*M) packed warm start (seeds z and
+      old), zero in the padded slots.
+    variant / hard: 'ista' | 'fista', hard group thresholding.
+    early_stopping_epsilon: CPU tensors only (the plain version's stop
+      test); a CUDA tensor raises, ROADMAP.md §1 item 3.
+
+  Returns:
+    (b, G*M) packed grouped codes on the inputs' device.
+  """
+  if variant not in ("ista", "fista"):
+    raise ValueError("variant must be 'ista' or 'fista'")
+  group_size = int(group_size)
+  _require(group_size >= 1 and grouped_dictionary.dim() == 2
+           and grouped_dictionary.shape[0] % group_size == 0,
+           "the grouped dictionary's rows must be whole groups of %d"
+           % group_size)
+  if images.device.type == "cpu":
+    return fused_group_fista_plain(
+        images, grouped_dictionary, group_size, sparsity_weight, num_iters,
+        stepsize, initial_grouped=initial_grouped, variant=variant,
+        hard=hard, early_stopping_epsilon=early_stopping_epsilon)
+  _require(images.device.type == "cuda",
+           "tensors must be on the CPU or a CUDA device, got "
+           + str(images.device))
+  if early_stopping_epsilon is not None:
+    raise NotImplementedError(
+        "the fused group kernel has no early stop yet (a batch-global "
+        "reduction per iteration, ROADMAP.md §1 item 3); use "
+        "formulation='gram'")
+  device = images.device
+  _require(grouped_dictionary.device == device,
+           "grouped dictionary on another device")
+  _require(images.dtype == torch.float32
+           and grouped_dictionary.dtype == torch.float32,
+           "inputs must be float32")
+  _require(images.dim() == 2 and images.shape[1] == grouped_dictionary.shape[1],
+           "shapes must be (b, n) and (G*M, n), got %s and %s"
+           % (tuple(images.shape), tuple(grouped_dictionary.shape)))
+  b, gm = images.shape[0], grouped_dictionary.shape[0]
+  _require(gm > 0, "grouped dictionary has no rows")
+  if initial_grouped is not None:
+    _require(initial_grouped.device == device
+             and initial_grouped.dtype == torch.float32
+             and tuple(initial_grouped.shape) == (b, gm)
+             and initial_grouped.is_contiguous(),
+             "initial_grouped must be a contiguous float32 (b, G*M) tensor "
+             "on the inputs' device")
+  num_iters = int(num_iters)
+  _require(num_iters >= 0, "num_iters must be >= 0")
+  eta = torch.as_tensor(stepsize, dtype=torch.float32, device=device)
+  _require(eta.numel() == 1, "stepsize must be a scalar")
+  eta = eta.reshape(1).contiguous()
+  if b == 0:
+    return torch.empty((0, gm), dtype=torch.float32, device=device)
+
+  with matmul_precision():
+    gram = (grouped_dictionary @ grouped_dictionary.T).contiguous()
+    corr = (images @ grouped_dictionary.T).contiguous()
+  return _launch(gram, corr, initial_grouped, eta, float(sparsity_weight),
+                 num_iters, group_size, variant == "fista", bool(hard))
+
+
+def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard):
+  """Allocate the kernel's scratch and launch it on the current stream."""
+  global launches
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  b, gm = corr.shape
+  device = corr.device
+  sk, sc, state_in_smem = fused_fista.solve_layout(lib, gm)
+  rows = lib.vtc_fista_rows()
+  gn = torch.empty((sk, sc), dtype=torch.float32, device=device)
+  state = (None if state_in_smem else
+           torch.empty((-(-b // rows), 4, rows, sk), dtype=torch.float32,
+                       device=device))
+  out = torch.empty((b, gm), dtype=torch.float32, device=device)
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.vtc_fused_group_fista(
+        gram.data_ptr(), corr.data_ptr(),
+        None if init is None else init.data_ptr(), eta.data_ptr(),
+        ctypes.c_float(lam), num_iters, b, gm, group_size, sk, sc,
+        int(fista), int(hard), gn.data_ptr(),
+        None if state is None else state.data_ptr(), out.data_ptr(), stream)
+  if err != 0:
+    raise RuntimeError(
+        "fused group FISTA kernel launch failed with CUDA error %d "
+        "(b=%d, G*M=%d, M=%d, state in %s)" % (
+            err, b, gm, group_size,
+            "shared memory" if state_in_smem else "global"))
+  launches += 1
+  return out

@@ -1,0 +1,327 @@
+"""Fused subspace (group-sparse) train steps over a segment: the port of
+TPU kernel K6, ``fused_group_train_segment_pallas``
+(vtc_tpu/ops/pallas_train_step.py:1283-1433, kernel ``_make_group_kernel``
+:539), with the group prox K5 inside.
+
+``fused_group_train_segment`` keeps that function's contract and return
+value ``(dictionary, hessian, eigvec, last_codes)``; the eigenvector has
+min(G*M, n) entries, the grouped Gram's.  Per batch of the (k, b, n)
+segment: the grouped dictionary, the warm power refresh on its Gram, the
+group FISTA or ISTA solve at stepsize 1/eigval, the duplicate-summed
+codes, the Hessian-diagonal EMA (cheap quadratic only) and
+``upd_num_iters`` dictionary updates, with the within-group
+anti-alignment regularizer when ``alignment_penalty`` is not 0.
+
+* A CUDA tensor runs the hand-written kernels of
+  ``vtc_tpu_torch/csrc/fused_group_train_step.cu`` (built at first use by
+  ``ops/_build.py``), whose solve is K4's kernel, on the current stream;
+  or raises.
+* A CPU tensor runs ``fused_group_train_segment_plain``, the composition
+  the JAX tests hold K6 against (tests/test_pallas_train_step.py:164-184):
+  ``build_grouped_dictionary`` -> ``lipschitz.power_iterate`` -> the
+  'gram' group solve -> ``unpack_codes_summed`` ->
+  ``hessian_diagonal_ema`` -> the update rule.  ``chip_smoke.py`` holds
+  the kernels against it on the card.
+
+The group structure reaches the kernels as index lists built here on
+the host (``group_selection_index`` and ``unpack_index``), the
+counterparts of the TPU kernel's ``group_selection_matrix`` and its
+summed unpack; its ``group_expand_matrix`` has none, because K4's prox
+takes the window M.  ``fused_group_segment_supported`` is the gate of
+the scanned trainer.
+
+Left out: the TPU knob ``interpret``; the in-kernel early stop and the
+``mxu`` tiers other than 'highest' raise NotImplementedError (ROADMAP.md
+§1 item 3).  ``launches`` counts the train steps the kernels ran.
+"""
+import ctypes
+
+import numpy as np
+import torch
+
+from vtc_tpu_torch.analysis_transforms.fully_connected import (
+    subspace_ista_fista as sub)
+from vtc_tpu_torch.dict_update_rules.fully_connected import (
+    sc_cheap_quadratic_descent as cqd)
+from vtc_tpu_torch.dict_update_rules.fully_connected import (
+    sc_steepest_descent as sd)
+from vtc_tpu_torch.dict_update_rules.fully_connected import (
+    subspace_sc_cheap_quadratic_descent as sub_cqd)
+from vtc_tpu_torch.dict_update_rules.fully_connected import (
+    subspace_sc_steepest_descent as sub_sd)
+from vtc_tpu_torch.ops import fused_fista, fused_group_fista, lipschitz
+
+launches = 0
+
+INFERENCE_ALGS = ("subspace_ista", "subspace_fista")
+UPDATE_ALGS = ("subspace_sc_steepest_descent",
+               "subspace_sc_cheap_quadratic_descent")
+
+
+def _power_smem_bytes(dim):
+  """Shared memory of the one-block power refresh (train_core.cuh)."""
+  return (2 * dim + 33) * 4
+
+
+def fused_group_segment_supported(inference_alg, update_alg,
+                                  group_assignments, *,
+                                  alignment_penalty=0.0, batch_size=None,
+                                  code_size=None, input_size=None,
+                                  renormalize=True):
+  """True when ``fused_group_train_segment`` covers this configuration
+  (vtc_tpu pallas_train_step.py:1229-1254).  The TPU gate's VMEM budget
+  has no counterpart: the kernels keep their state in device memory and
+  only the one-block power refresh bounds the shapes."""
+  if group_assignments is None:
+    return False
+  if inference_alg not in INFERENCE_ALGS or update_alg not in UPDATE_ALGS:
+    return False
+  if alignment_penalty != 0.0 and not renormalize:
+    # the in-kernel regularizer uses the unit-norm gradient form
+    return False
+  if None in (batch_size, code_size, input_size):
+    return True
+  gm = len(group_assignments) * max(len(g) for g in group_assignments)
+  return (_power_smem_bytes(min(gm, input_size))
+          <= fused_fista._SMEM_PER_BLOCK)
+
+
+def group_selection_index(group_assignments):
+  """(G*M,) int32: slot g*M+m holds member m of group g, or -1 where the
+  group is padded -- the rows of vtc_tpu's ``group_selection_matrix``
+  (pallas_train_step.py:1257-1268) as indices."""
+  max_gs = max(len(g) for g in group_assignments)
+  sel = np.full((len(group_assignments), max_gs), -1, np.int32)
+  for g_idx, members in enumerate(group_assignments):
+    sel[g_idx, :len(members)] = list(members)
+  return sel.reshape(-1)
+
+
+def comembership_counts(group_assignments, code_size):
+  """(s, s) zero-diagonal co-membership counts: pairs that share several
+  groups count once per group (pallas_train_step.py:1360-1367)."""
+  comem = np.zeros((code_size, code_size), np.float32)
+  for g in group_assignments:
+    for i in g:
+      for j in g:
+        if i != j:
+          comem[i, j] += 1.0
+  return comem
+
+
+def fused_group_train_segment_plain(
+    dictionary, hessian, eigvec, batches, sparsity_weight, inf_num_iters,
+    upd_stepsize, *, group_assignments, variant="fista",
+    update_alg="subspace_sc_cheap_quadratic_descent", upd_num_iters=1,
+    hard=False, renormalize=True, power_iters=12, lowest_code_val=0.001,
+    alignment_penalty=0.0, early_stopping_epsilon=None, precision=None,
+    return_stepsize=False):
+  """The plain PyTorch version of the fused segment, on any device and in
+  the inputs' own float type (float64 inputs give the oracle).
+
+  ``precision`` is the matmul precision of the solve and the update
+  (default 'highest'); 'tensorfloat32' shows what TF32 products would
+  cost.  The power refresh always runs at 'highest', as in every tier of
+  the TPU kernel.
+  """
+  d, h, v = dictionary, hessian, eigvec
+  s = d.shape[0]
+  gather, mask, index = sub.group_layout(group_assignments, s, d.device)
+  m = gather.shape[1]
+  codes = eta = None
+  for batch in batches:
+    grouped = sub.build_grouped_dictionary(d, gather, mask)
+    eigval, v = lipschitz.power_iterate(grouped, v, int(power_iters))
+    eta = 1.0 / eigval
+    flat = fused_group_fista.fused_group_fista_plain(
+        batch, grouped, m, sparsity_weight, inf_num_iters, eta,
+        variant=variant, hard=hard,
+        early_stopping_epsilon=early_stopping_epsilon, precision=precision)
+    codes = sub.unpack_codes_summed(flat, gather, mask, s, index)
+    cheap = update_alg == "subspace_sc_cheap_quadratic_descent"
+    if cheap:
+      h = cqd.hessian_diagonal_ema(h, codes)
+    if alignment_penalty == 0:
+      d = (cqd._update(batch, d, codes, h, upd_stepsize, upd_num_iters,
+                       lowest_code_val, renormalize, precision=precision)
+           if cheap else
+           sd._update(batch, d, codes, upd_stepsize, upd_num_iters,
+                      renormalize, precision=precision))
+    elif cheap:
+      d = sub_cqd._update_with_reg(
+          batch, d, codes, gather, mask, h, alignment_penalty, upd_stepsize,
+          upd_num_iters, lowest_code_val, renormalize, precision=precision)
+    else:
+      d = sub_sd._update_with_reg(
+          batch, d, codes, gather, mask, alignment_penalty, upd_stepsize,
+          upd_num_iters, renormalize, precision=precision)
+  if return_stepsize:
+    return d, h, v, codes, eta.reshape(1)
+  return d, h, v, codes
+
+
+def _require(cond, message):
+  if not cond:
+    raise ValueError("fused_group_train_segment: " + message)
+
+
+def fused_group_train_segment(
+    dictionary, hessian, eigvec, batches, sparsity_weight, inf_num_iters,
+    upd_stepsize, *, group_assignments, variant="fista",
+    update_alg="subspace_sc_cheap_quadratic_descent", upd_num_iters=1,
+    hard=False, renormalize=True, power_iters=12, lowest_code_val=0.001,
+    alignment_penalty=0.0, mxu="highest", early_stopping_epsilon=None,
+    return_stepsize=False):
+  """Run ``batches.shape[0]`` fused subspace train steps.
+
+  Args:
+    dictionary: (s, n) float32 tensor.
+    hessian: (s,) Hessian-diagonal EMA (unchanged by steepest descent).
+    eigvec: (min(G*M, n),) warm Lipschitz eigenvector of the grouped
+      Gram (normalized here, as ``lipschitz.power_iterate`` does).
+    batches: (k, b, n) float32, each row a training batch, k >= 1.
+    sparsity_weight, inf_num_iters, upd_stepsize: Python scalars.
+    group_assignments: list of index lists (ragged, may overlap).
+    variant / update_alg / upd_num_iters / hard / renormalize /
+      power_iters / lowest_code_val / alignment_penalty: as in vtc_tpu;
+      a nonzero penalty needs renormalize (the unit-norm form).
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3).
+    early_stopping_epsilon: CPU tensors only (the plain version's stop
+      test); a CUDA tensor raises, ROADMAP.md §1 item 3.
+    return_stepsize: also return the final step's stepsize 1/eigval, a
+      one-element tensor.
+
+  Returns:
+    (dictionary, hessian, eigvec, last_codes[, stepsize]): new tensors;
+    the inputs are not modified.  last_codes is the (b, s) summed codes
+    of the final step.
+  """
+  if variant not in ("ista", "fista"):
+    raise ValueError("variant must be 'ista' or 'fista'")
+  if update_alg not in UPDATE_ALGS:
+    raise ValueError("update_alg must be one of %s" % (UPDATE_ALGS,))
+  if mxu != "highest":
+    raise NotImplementedError(
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3"
+        % (mxu,))
+  _require(float(alignment_penalty) == 0.0 or renormalize,
+           "the anti-alignment regularizer uses the unit-norm gradient "
+           "form: alignment_penalty needs renormalize=True")
+  _require(batches.dim() == 3 and batches.shape[0] >= 1,
+           "batches must be (k, b, n) with k >= 1, got %s"
+           % (tuple(batches.shape),))
+  groups = [[int(i) for i in g] for g in group_assignments]
+  flags = dict(variant=variant, update_alg=update_alg,
+               upd_num_iters=int(upd_num_iters), hard=bool(hard),
+               renormalize=bool(renormalize), power_iters=int(power_iters),
+               lowest_code_val=float(lowest_code_val),
+               alignment_penalty=float(alignment_penalty))
+  if batches.device.type == "cpu":
+    return fused_group_train_segment_plain(
+        dictionary, hessian, eigvec, batches, float(sparsity_weight),
+        int(inf_num_iters), float(upd_stepsize), group_assignments=groups,
+        early_stopping_epsilon=early_stopping_epsilon,
+        return_stepsize=return_stepsize, **flags)
+  _require(batches.device.type == "cuda",
+           "tensors must be on the CPU or a CUDA device, got "
+           + str(batches.device))
+  if early_stopping_epsilon is not None:
+    raise NotImplementedError(
+        "the fused group train kernels have no early stop yet (a "
+        "batch-global reduction per iteration, ROADMAP.md §1 item 3)")
+  device = batches.device
+  k, b, n = batches.shape
+  _require(dictionary.dim() == 2 and dictionary.shape[1] == n,
+           "dictionary must be (s, %d), got %s" % (n, tuple(dictionary.shape)))
+  s = dictionary.shape[0]
+  gm = len(groups) * max(len(g) for g in groups)
+  dim = min(gm, n)
+  for name, t, shape in (("dictionary", dictionary, (s, n)),
+                         ("hessian", hessian, (s,)),
+                         ("eigvec", eigvec, (dim,)),
+                         ("batches", batches, (k, b, n))):
+    _require(t.device == device and t.dtype == torch.float32
+             and tuple(t.shape) == shape,
+             "%s must be a float32 %s tensor on %s" % (name, shape, device))
+  _require(b > 0 and s > 0 and n > 0, "empty batch or dictionary")
+  _require(all(0 <= i < s for g in groups for i in g),
+           "group members must index the %d dictionary rows" % s)
+  _require(int(inf_num_iters) >= 0 and int(upd_num_iters) >= 0
+           and int(power_iters) >= 0, "iteration counts must be >= 0")
+  _require(_power_smem_bytes(dim) <= fused_fista._SMEM_PER_BLOCK,
+           "min(G*M, n) = %d is too large for the one-block power refresh"
+           % dim)
+  out = _launch(dictionary, hessian, eigvec, batches.contiguous(), groups,
+                float(sparsity_weight), int(inf_num_iters),
+                float(upd_stepsize), **flags)
+  return out if return_stepsize else out[:4]
+
+
+def _launch(dictionary, hessian, eigvec, batches, groups, lam, num_iters,
+            upd_step, *, variant, update_alg, upd_num_iters, hard,
+            renormalize, power_iters, lowest_code_val, alignment_penalty):
+  """Allocate state and scratch, copy the group index lists to the
+  device, and enqueue the k steps on the current stream."""
+  global launches
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  k, b, n = batches.shape
+  s = dictionary.shape[0]
+  device = batches.device
+  m = max(len(g) for g in groups)
+  sel_np = group_selection_index(groups)
+  gm = sel_np.size
+  identity = gm == s and np.array_equal(sel_np, np.arange(s))
+  rows = lib.vtc_fista_rows()
+  sk, sc, state_in_smem = fused_fista.solve_layout(lib, gm)
+  use_reg = alignment_penalty != 0.0
+
+  def empty(*shape):
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+  def on_device(array):
+    return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+
+  d = dictionary.contiguous().clone()
+  h = hessian.contiguous().clone()
+  v = eigvec.contiguous().clone()
+  sel = sum_idx = dg = codes = None
+  sum_width = 0
+  if not identity:
+    gather, mask = sub.pack_group_indices(groups, s)
+    index = sub.unpack_index(gather, mask, s).numpy().astype(np.int32)
+    sel, sum_idx, sum_width = on_device(sel_np), on_device(index), \
+        index.shape[1]
+    dg, codes = empty(gm, n), empty(b, s)
+  comem = cmat = smat = sdm = None
+  if use_reg:
+    comem = on_device(comembership_counts(groups, s))
+    cmat, smat, sdm = empty(s, s), empty(s, s), empty(s, n)
+  gram, corr, gcodes = empty(gm, gm), empty(b, gm), empty(b, gm)
+  pgram = empty(n, n) if gm > n else None
+  resid, grad, eta = empty(b, n), empty(s, n), empty(1)
+  gn = empty(sk, sc)
+  state = None if state_in_smem else empty(-(-b // rows), 4, rows, sk)
+
+  def ptr(t):
+    return None if t is None else t.data_ptr()
+
+  f32 = ctypes.c_float
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.vtc_group_train_segment(
+        d.data_ptr(), h.data_ptr(), v.data_ptr(), batches.data_ptr(), k, b,
+        s, n, gm, m, ptr(sel), ptr(sum_idx), sum_width, ptr(comem),
+        f32(alignment_penalty), f32(lam), num_iters, f32(upd_step),
+        upd_num_iters, f32(lowest_code_val), int(variant == "fista"),
+        int(hard), int(update_alg == "subspace_sc_cheap_quadratic_descent"),
+        int(renormalize), power_iters, f32(1.0 / b), ptr(dg),
+        gram.data_ptr(), ptr(pgram), corr.data_ptr(), gcodes.data_ptr(),
+        ptr(codes), resid.data_ptr(), grad.data_ptr(), ptr(cmat), ptr(smat),
+        ptr(sdm), eta.data_ptr(), sk, sc, gn.data_ptr(), ptr(state), stream)
+  if err != 0:
+    raise RuntimeError(
+        "fused group train step launch failed with CUDA error %d (k=%d, "
+        "b=%d, s=%d, n=%d, G*M=%d)" % (err, k, b, s, n, gm))
+  launches += k
+  return d, h, v, gcodes if identity else codes, eta

@@ -177,13 +177,8 @@ def _launch(dictionary, hessian, eigvec, batches, lam, num_iters, upd_step,
   k, b, n = batches.shape
   s = dictionary.shape[0]
   device = batches.device
-  chunk, col_block, rows = (lib.vtc_fista_chunk(), lib.vtc_fista_col_block(),
-                            lib.vtc_fista_rows())
-  sk = -(-s // chunk) * chunk
-  sc = -(-s // col_block) * col_block
-  state_bytes = 4 * rows * sk * 4
-  state_in_smem = (lib.vtc_fista_slice_bytes() + state_bytes
-                   <= fused_fista._SMEM_PER_BLOCK)
+  rows = lib.vtc_fista_rows()
+  sk, sc, state_in_smem = fused_fista.solve_layout(lib, s)
   _require(lib.vtc_power_smem_bytes(min(s, n)) <= fused_fista._SMEM_PER_BLOCK,
            "min(s, n) = %d is too large for the one-block power refresh"
            % min(s, n))

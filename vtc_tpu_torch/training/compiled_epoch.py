@@ -1,6 +1,6 @@
 """Whole training segments: counterpart of ``train_dictionary_scanned``
-(vtc_tpu/training/compiled_epoch.py:427-1297), fully-connected and
-single-device.
+(vtc_tpu/training/compiled_epoch.py:427-1297), fully-connected (with the
+subspace, group-sparse, variants) and single-device.
 
 Same ``all_params`` schema and semantics as ``sparse_coding.
 train_dictionary``: the epochs are split into segments at every
@@ -18,45 +18,51 @@ Runners, chosen per segment:
   on a CUDA device when the Lipschitz eigenvector is tracked warm
   ('power_warm', the default) with fc_formulation 'pallas' (the default
   on CUDA), as the JAX package runs K2 on a TPU.
+* ``_fused_group_segment_runner`` (:155-173): the same for the subspace
+  solvers with ``group_assignments``, through the fused group train
+  kernels (ops/fused_group_train_step, the port of K6), where
+  ``fused_group_segment_supported`` admits the configuration (:845-857).
 * ``_segment_runner`` (:72-101): the per-step loop of the raw step, for
   CPU tensors and for the configurations the JAX package routes there;
   an explicit ``lipschitz_method`` computes the stepsize in the step, and
-  on a CUDA device with 'pallas' its solves run K1's kernel.
+  on a CUDA device with 'pallas' its fc solves run K1's kernel.
 
-The warm eigenvector is seeded with an exact eigenpair (``seed_eigvec``
-:932-937) and re-seeded after every dictionary jump (:977): two power
-iterations per step track the stepsize only from such a seed.
+The warm eigenvector, of the grouped dictionary's Gram for the subspace
+solvers (``lip_matrix`` :920-930), is seeded with an exact eigenpair
+(``seed_eigvec`` :932-937) and re-seeded after every dictionary jump
+(:977): two power iterations per step track the stepsize only from such
+a seed.  A prune remaps the groups and rebuilds the step (:978-985).
 ``shuffle_each_epoch`` permutes the samples on the training device with a
 ``torch.Generator`` seeded by 'shuffle_seed': the same property as the
 JAX package's ``jax.random.permutation``, not the same order.
 
 Raise NotImplementedError, each naming its ROADMAP.md §1 item:
-data_parallel (item 9), conv (item 7), subspace or group (item 5),
-'hbm_chunk_steps' streaming (item 8), 'train_precision' other than
-'highest' (item 3), and 'early_stopping_epsilon' where the kernels would
-run it on a CUDA device (item 3).
+data_parallel (item 9), conv (item 7), 'hbm_chunk_steps' streaming
+(item 8), 'train_precision' other than 'highest' (item 3), and
+'early_stopping_epsilon' where the kernels would run it on a CUDA device
+(item 3).
 """
 import time
 
 import numpy as np
 import torch
 
-from vtc_tpu_torch.ops import fused_train_step
+from vtc_tpu_torch.ops import fused_group_train_step, fused_train_step
 from vtc_tpu_torch.ops import lipschitz as lip
 from vtc_tpu_torch.training import sparse_coding as sc
 
 
-def _segment_runner(raw_step, upd_num_iters, warm_power):
+def _segment_runner(raw_step, upd_num_iters, warm_power, lip_matrix_fn):
   """The raw step over every batch of the segment; with ``warm_power``
-  the eigenvector is refreshed by 2 power iterations per batch and sets
-  the stepsize."""
+  the eigenvector is refreshed by 2 power iterations per batch on the
+  Gram of ``lip_matrix_fn(dictionary)`` and sets the stepsize."""
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
     d, h, v = dictionary, hessian, eigvec
     for batch in batches:
       inf_step = None
       if warm_power:
-        eigval, v = lip.power_iterate(d, v, num_iters=2)
+        eigval, v = lip.power_iterate(lip_matrix_fn(d), v, num_iters=2)
         inf_step = 1.0 / eigval
       d, h, _ = raw_step(d, h, batch, sw, n_it, upd_step, upd_num_iters,
                          inf_step)
@@ -75,6 +81,26 @@ def _fused_segment_runner(variant, update_alg, upd_niters, nonneg, hard,
         dictionary, hessian, eigvec, batches, sw, n_it, upd_step,
         variant=variant, update_alg=update_alg, upd_num_iters=upd_niters,
         nonneg=nonneg, hard=hard, renormalize=renormalize, power_iters=2)
+    return dictionary, hessian, eigvec
+
+  return run
+
+
+def _fused_group_segment_runner(variant, update_alg, upd_niters, hard,
+                                renormalize, group_assignments,
+                                alignment_penalty):
+  """The subspace counterpart of ``_fused_segment_runner``: the whole
+  segment through the fused group train kernels (the anti-alignment
+  regularizer runs in them too), warm tracking at power_iters=2."""
+
+  def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
+    dictionary, hessian, eigvec, _ = (
+        fused_group_train_step.fused_group_train_segment(
+            dictionary, hessian, eigvec, batches, sw, n_it, upd_step,
+            group_assignments=group_assignments, variant=variant,
+            update_alg=update_alg, upd_num_iters=upd_niters, hard=hard,
+            renormalize=renormalize, power_iters=2,
+            alignment_penalty=alignment_penalty))
     return dictionary, hessian, eigvec
 
   return run
@@ -99,7 +125,8 @@ def train_dictionary_scanned(training_batches, validation_batches,
   update_alg = all_params["dictionary_update_algorithm"]
   inf_sched = all_params["inference_param_schedule"]
   upd_sched = all_params["dict_update_param_schedule"]
-  group_assignments = all_params.get("group_assignments")
+  group_assignments = sc.normalize_groups(
+      all_params.get("group_assignments"))
   sc.check_supported(mode, inference_alg, update_alg, group_assignments,
                      all_params.get("data_parallel", False))
   if all_params.get("train_precision", "highest") != "highest":
@@ -116,7 +143,10 @@ def train_dictionary_scanned(training_batches, validation_batches,
   nonneg = bool(all_params.get("nonnegative_only", False))
   hard = bool(all_params.get("hard_threshold", False))
   renormalize = bool(all_params.get("renormalize_dictionary", True))
-  logging_path, tb_writer = sc.open_logging(all_params)
+  alignment_penalty = float(
+      all_params.get("subspace_alignment_penalty", 0.0))
+  is_subspace = inference_alg.startswith("subspace")
+  logging_path, tb_writer = sc.open_logging(all_params, group_assignments)
 
   device = sc.resolve_device(device, training_batches, init_dictionary)
   training_batches = sc.as_tensor(training_batches, device)
@@ -151,12 +181,35 @@ def train_dictionary_scanned(training_batches, validation_batches,
   use_fused = (device.type == "cuda" and warm_power
                and resolved_formulation == "pallas")
 
-  raw_step = sc.build_raw_step_fn(
-      mode, inference_alg, update_alg, nonneg=nonneg, hard_threshold=hard,
-      renormalize=renormalize, fc_formulation=resolved_formulation,
-      lipschitz_method="power" if warm_power else lipschitz_method,
-      compute_stepsize_in_step=not warm_power,
-      early_stopping_epsilon=early_eps)
+  def make_step():
+    return sc.build_raw_step_fn(
+        mode, inference_alg, update_alg, nonneg=nonneg,
+        hard_threshold=hard, group_assignments=group_assignments,
+        alignment_penalty=alignment_penalty, renormalize=renormalize,
+        fc_formulation=resolved_formulation,
+        lipschitz_method="power" if warm_power else lipschitz_method,
+        compute_stepsize_in_step=not warm_power,
+        early_stopping_epsilon=early_eps)
+
+  def lip_matrix(d):
+    return sc.lipschitz_matrix(d, inference_alg, group_assignments)
+
+  def make_runner():
+    if use_fused and group_assignments is None:
+      return _fused_segment_runner(inference_alg, update_alg, upd_niters,
+                                   nonneg, hard, renormalize)
+    if use_fused and fused_group_train_step.fused_group_segment_supported(
+        inference_alg, update_alg, group_assignments,
+        alignment_penalty=alignment_penalty,
+        batch_size=training_batches.shape[1],
+        code_size=dictionary.shape[0],
+        input_size=training_batches.shape[-1], renormalize=renormalize):
+      return _fused_group_segment_runner(
+          inference_alg[9:], update_alg, upd_niters, hard, renormalize,
+          group_assignments, alignment_penalty)
+    return _segment_runner(raw_step, upd_niters, warm_power, lip_matrix)
+
+  raw_step = make_step()
 
   dictionary = sc.as_tensor(init_dictionary, device)
   hessian = torch.zeros(dictionary.shape[0], dtype=torch.float32,
@@ -168,19 +221,19 @@ def train_dictionary_scanned(training_batches, validation_batches,
 
   def seed_eigvec(d):
     # exact eigenpair seed: no cold-start transient
-    return lip.top_gram_eigenpair(d)[1].contiguous()
+    return lip.top_gram_eigenpair(lip_matrix(d))[1].contiguous()
 
   def _infer(batch):
     # host-boundary inference (validation / reset-prune): cold stepsize
-    inf_step = (lip.fista_stepsize(dictionary, "power") if warm_power
-                else None)
+    inf_step = (lip.fista_stepsize(lip_matrix(dictionary), "power")
+                if warm_power else None)
     _, _, codes = raw_step(dictionary, hessian, sc.as_tensor(batch, device),
                            sw, n_it, 0.0, 1, inf_step)
     return codes
 
   def handle_events(it):
     nonlocal dictionary, hessian, previous_dictionary, eigvec
-    nonlocal sw, n_it, upd_step, upd_niters
+    nonlocal sw, n_it, upd_step, upd_niters, group_assignments, raw_step
     if it in inf_sched:
       sw = float(inf_sched[it]["sparsity_weight"])
       n_it = int(inf_sched[it]["num_iters"])
@@ -190,17 +243,21 @@ def train_dictionary_scanned(training_batches, validation_batches,
     if it in rp_sched:
       v_codes = np.concatenate([
           sc._numpy(_infer(vb)) for vb in validation_batches], axis=0)
-      dictionary, hessian, _ = sc.reset_or_prune(
+      dictionary, hessian, groups = sc.reset_or_prune(
           rp_sched[it], dictionary, hessian, v_codes, group_assignments,
           True)
       eigvec = None  # the dictionary jumped: re-seed the eigenvector
+      if groups is not group_assignments:  # pruned: rows and groups moved
+        group_assignments = groups
+        raw_step = make_step()
       previous_dictionary = dictionary
     if it in ckpt_sched:
       sc.save_checkpoint(logging_path, it, dictionary, hessian)
     if it in vis_sched:
       metrics = [sc.compute_metrics(
           vb, _infer(vb), dictionary, previous_dictionary, mode=mode,
-          sparsity_weight=sw) for vb in validation_batches]
+          sparsity_weight=sw, group_assignments=group_assignments,
+          is_subspace=is_subspace) for vb in validation_batches]
       for name in metrics[0]:
         tb_writer.add_scalar(
             name, float(np.mean([m[name] for m in metrics])), it)
@@ -221,10 +278,7 @@ def train_dictionary_scanned(training_batches, validation_batches,
     if eigvec is None:
       eigvec = (seed_eigvec(dictionary) if warm_power
                 else torch.zeros(1, device=device))
-    run = (_fused_segment_runner(inference_alg, update_alg, upd_niters,
-                                 nonneg, hard, renormalize) if use_fused
-           else _segment_runner(raw_step, upd_niters, warm_power))
-    dictionary, hessian, eigvec = run(
+    dictionary, hessian, eigvec = make_runner()(
         dictionary, hessian, eigvec, training_batches[lo:hi], sw, n_it,
         upd_step)
   handle_events(total_iters)  # trailing checkpoint / vis events

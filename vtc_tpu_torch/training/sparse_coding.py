@@ -1,5 +1,6 @@
-"""Sparse-coding dictionary learning, fully-connected and single-device:
-counterpart of vtc_tpu/training/sparse_coding.py:89-696.
+"""Sparse-coding dictionary learning, fully-connected (with its subspace,
+group-sparse, variants) and single-device: counterpart of
+vtc_tpu/training/sparse_coding.py:89-696.
 
 ``train_dictionary(training_image_dataset, validation_image_dataset,
 init_dictionary, all_params)`` keeps vtc_tpu's ``all_params`` schema:
@@ -11,7 +12,8 @@ train-state sidecar, and the extras 'stepsize_update_interval',
 'early_stopping_epsilon'.  Each batch runs ``build_raw_step_fn``'s step
 eagerly: the stepsize, the solve, the Hessian-diagonal EMA and the
 dictionary update.  With ``fc_formulation='pallas'`` a CUDA device runs
-every solve through K1's kernel (ops/fused_fista).
+every fc solve through K1's kernel (ops/fused_fista); the subspace solve
+runs the 'gram' loop there, as vtc_tpu's does (sparse_coding.py:173-186).
 
 The tensors live on ``device`` (the keyword argument, else the initial
 dictionary's device when it is a tensor, else the CPU).  Checkpoints,
@@ -20,10 +22,9 @@ modules (utils/checkpoint, training/reset_prune, utils/debug,
 utils/plotting), imported only when their schedule is set.
 
 Raise NotImplementedError, each naming its ROADMAP.md §1 item:
-mode='convolutional' (item 7), subspace algorithms or group_assignments
-(item 5), data_parallel (item 9), profile_dir (item 8), and
-fc_formulation='pallas' with early_stopping_epsilon on a CUDA device
-(item 3).
+mode='convolutional' (item 7), data_parallel (item 9), profile_dir
+(item 8), and fc_formulation='pallas' with early_stopping_epsilon for an
+fc solve on a CUDA device (item 3).
 """
 import time
 from pathlib import Path
@@ -32,14 +33,23 @@ import numpy as np
 import torch
 
 from vtc_tpu_torch.analysis_transforms.fully_connected import ista_fista
+from vtc_tpu_torch.analysis_transforms.fully_connected import (
+    subspace_ista_fista)
 from vtc_tpu_torch.dict_update_rules.fully_connected import (
     sc_cheap_quadratic_descent as fc_cqd)
 from vtc_tpu_torch.dict_update_rules.fully_connected import (
     sc_steepest_descent as fc_sd)
+from vtc_tpu_torch.dict_update_rules.fully_connected import (
+    subspace_sc_cheap_quadratic_descent as fc_sub_cqd)
+from vtc_tpu_torch.dict_update_rules.fully_connected import (
+    subspace_sc_steepest_descent as fc_sub_sd)
+from vtc_tpu_torch.ops import fused_group_train_step, fused_train_step
 from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
-from vtc_tpu_torch.ops.fused_train_step import UPDATE_ALGS
 
-INFERENCE_ALGS = ("ista", "fista")
+INFERENCE_ALGS = ("ista", "fista") + fused_group_train_step.INFERENCE_ALGS
+UPDATE_ALGS = fused_train_step.UPDATE_ALGS + fused_group_train_step.UPDATE_ALGS
+CHEAP_QUAD_ALGS = ("sc_cheap_quadratic_descent",
+                   "subspace_sc_cheap_quadratic_descent")
 
 
 def check_supported(mode, inference_alg, update_alg, group_assignments=None,
@@ -51,20 +61,38 @@ def check_supported(mode, inference_alg, update_alg, group_assignments=None,
         "item 7")
   if mode != "fully-connected":
     raise ValueError("unknown mode %r" % (mode,))
-  if (group_assignments is not None
-      or inference_alg.startswith("subspace")
-      or update_alg.startswith("subspace")):
-    raise NotImplementedError(
-        "subspace algorithms and group_assignments wait for the subspace "
-        "slice, ROADMAP.md §1 item 5")
   if inference_alg not in INFERENCE_ALGS:
     raise ValueError("unknown inference algorithm %r" % (inference_alg,))
   if update_alg not in UPDATE_ALGS:
     raise ValueError("unknown update algorithm %r" % (update_alg,))
+  if group_assignments is None and (inference_alg.startswith("subspace")
+                                    or update_alg.startswith("subspace")):
+    raise ValueError("the subspace algorithms need group_assignments")
   if data_parallel:
     raise NotImplementedError(
         "data_parallel waits for the multi-device slice, ROADMAP.md §1 "
         "item 9")
+
+
+def normalize_groups(group_assignments):
+  """Groups as lists of ints, each without repeated members (vtc_tpu
+  sparse_coding.py:420-424), or None."""
+  if group_assignments is None:
+    return None
+  if not all(len(set(g)) == len(g) for g in group_assignments):
+    raise ValueError("a group repeats a member: %r" % (group_assignments,))
+  return [[int(i) for i in g] for g in group_assignments]
+
+
+def lipschitz_matrix(dictionary, inference_alg, group_assignments):
+  """The matrix whose Gram sets the stepsize: the grouped dictionary for
+  the subspace solves, else the dictionary."""
+  if not inference_alg.startswith("subspace"):
+    return dictionary
+  gather_inds, valid_mask, _ = subspace_ista_fista.group_layout(
+      group_assignments, dictionary.shape[0], dictionary.device)
+  return subspace_ista_fista.build_grouped_dictionary(dictionary,
+                                                      gather_inds, valid_mask)
 
 
 def resolve_device(device, *candidates):
@@ -113,7 +141,7 @@ def build_raw_step_fn(mode, inference_alg, update_alg, *, nonneg=False,
                       lowest_code_val=0.001,
                       early_stopping_epsilon=None):
   """Build the train step for a static algorithm config (vtc_tpu
-  sparse_coding.py:122-311, fully-connected branch).
+  sparse_coding.py:122-311, fully-connected and subspace branches).
 
   Returns ``step(dictionary, hessian, batch, sparsity_weight,
   inf_num_iters, upd_stepsize, upd_num_iters, inf_stepsize) ->
@@ -123,27 +151,65 @@ def build_raw_step_fn(mode, inference_alg, update_alg, *, nonneg=False,
   'direct' | 'pallas' (K1's kernel on a CUDA device, which has no early
   stop yet: with ``early_stopping_epsilon`` a CUDA device raises
   NotImplementedError, ROADMAP.md §1 item 3; CPU tensors run the plain
-  version, stop test included).  ``kernel_stride``, ``padding``,
-  ``conv_formulation`` and ``alignment_penalty`` belong to branches that
-  wait (see ``check_supported``).
+  version, stop test included).  The subspace solve ('subspace_ista',
+  'subspace_fista') runs the 'gram' loop for 'pallas', as vtc_tpu's
+  does, with hard thresholding off (vtc_tpu :173-186).
+  ``alignment_penalty``: the subspace updates' anti-alignment weight (0
+  takes the fc rule).  ``kernel_stride``, ``padding`` and
+  ``conv_formulation`` belong to the conv branch, which waits (see
+  ``check_supported``).
   """
-  del kernel_stride, padding, conv_formulation, alignment_penalty
+  del kernel_stride, padding, conv_formulation
   check_supported(mode, inference_alg, update_alg, group_assignments)
   if fc_formulation not in ("gram", "direct", "pallas"):
     raise ValueError("fc_formulation must be 'gram', 'direct' or 'pallas'")
-  uses_hessian = update_alg == "sc_cheap_quadratic_descent"
+  is_subspace_inf = inference_alg.startswith("subspace")
+  variant = inference_alg[9:] if is_subspace_inf else inference_alg
+  uses_hessian = update_alg in CHEAP_QUAD_ALGS
+  alignment_penalty = float(alignment_penalty)
+  groups = normalize_groups(group_assignments)
+
+  def layout(dictionary):
+    return subspace_ista_fista.group_layout(groups, dictionary.shape[0],
+                                            dictionary.device)
 
   def infer(dictionary, batch, sparsity_weight, num_iters, stepsize):
+    if not is_subspace_inf:
+      if compute_stepsize_in_step:
+        stepsize = lipschitz_ops.fista_stepsize(dictionary,
+                                                lipschitz_method)
+      return ista_fista.run(
+          batch, dictionary, sparsity_weight, num_iters, variant=variant,
+          early_stopping_epsilon=early_stopping_epsilon,
+          nonnegative_only=nonneg, hard_threshold=hard_threshold,
+          stepsize=stepsize, formulation=fc_formulation)
+    gather_inds, valid_mask, index = layout(dictionary)
+    grouped = subspace_ista_fista.build_grouped_dictionary(
+        dictionary, gather_inds, valid_mask)
     if compute_stepsize_in_step:
-      stepsize = lipschitz_ops.fista_stepsize(dictionary, lipschitz_method)
-    return ista_fista.run(
-        batch, dictionary, sparsity_weight, num_iters,
-        variant=inference_alg, early_stopping_epsilon=early_stopping_epsilon,
-        nonnegative_only=nonneg, hard_threshold=hard_threshold,
-        stepsize=stepsize, formulation=fc_formulation)
+      stepsize = lipschitz_ops.fista_stepsize(grouped, lipschitz_method)
+    init = torch.zeros((batch.shape[0],) + tuple(gather_inds.shape),
+                       dtype=batch.dtype, device=batch.device)
+    return subspace_ista_fista._solve(
+        batch, grouped, gather_inds, valid_mask, sparsity_weight,
+        num_iters, torch.as_tensor(stepsize, dtype=batch.dtype,
+                                   device=batch.device),
+        init, variant, False, early_stopping_epsilon,
+        "direct" if fc_formulation == "direct" else "gram",
+        dictionary.shape[0], True, index)
 
   def update(dictionary, hessian, batch, codes, upd_stepsize,
              upd_num_iters):
+    if update_alg.startswith("subspace") and alignment_penalty != 0:
+      gather_inds, valid_mask, _ = layout(dictionary)
+      if uses_hessian:
+        return fc_sub_cqd._update_with_reg(
+            batch, dictionary, codes, gather_inds, valid_mask, hessian,
+            alignment_penalty, upd_stepsize, upd_num_iters, lowest_code_val,
+            renormalize)
+      return fc_sub_sd._update_with_reg(
+          batch, dictionary, codes, gather_inds, valid_mask,
+          alignment_penalty, upd_stepsize, upd_num_iters, renormalize)
     if uses_hessian:
       return fc_cqd._update(batch, dictionary, codes, hessian, upd_stepsize,
                             upd_num_iters, lowest_code_val, renormalize)
@@ -192,13 +258,14 @@ def compute_metrics(batch, codes, dictionary, previous_dictionary, *,
                     mode, sparsity_weight, group_assignments=None,
                     kernel_stride=None, padding=None, is_subspace=False):
   """Validation metrics (vtc_tpu sparse_coding.py:328-384, fc branch):
-  LASSO l2 term, l1 term, their total, normalized L0, mean pSNR with the
-  range taken from the batch, and the mean absolute dictionary change."""
-  del kernel_stride, padding, group_assignments
-  if mode != "fully-connected" or is_subspace:
+  LASSO l2 term, sparsity term (l1, or with ``is_subspace`` the sum of
+  the group norms over ``group_assignments``), their total, normalized
+  L0, mean pSNR with the range taken from the batch, and the mean
+  absolute dictionary change."""
+  del kernel_stride, padding
+  if mode != "fully-connected":
     raise NotImplementedError(
-        "compute_metrics: the conv and subspace branches wait, ROADMAP.md "
-        "§1 items 5 and 7")
+        "compute_metrics: the conv branch waits, ROADMAP.md §1 item 7")
   images = _numpy(batch)
   codes_np = _numpy(codes)
   dict_np = _numpy(dictionary)
@@ -207,8 +274,16 @@ def compute_metrics(batch, codes, dictionary, previous_dictionary, *,
   metrics = {}
   metrics["Average LASSO L2 component"] = float(np.mean(
       0.5 * np.sum(np.square(recons - images), axis=1)))
-  metrics["Average LASSO lagrange component"] = float(np.mean(
-      sparsity_weight * np.sum(np.abs(codes_np), axis=1)))
+  if is_subspace:
+    group_norm_sum = np.zeros(codes_np.shape[0])
+    for members in group_assignments:
+      group_norm_sum += np.linalg.norm(
+          codes_np[:, np.asarray(list(members), int)], axis=1)
+    metrics["Average LASSO lagrange component"] = float(
+        np.mean(sparsity_weight * group_norm_sum))
+  else:
+    metrics["Average LASSO lagrange component"] = float(np.mean(
+        sparsity_weight * np.sum(np.abs(codes_np), axis=1)))
   metrics["Average LASSO Loss"] = (
       metrics["Average LASSO L2 component"] +
       metrics["Average LASSO lagrange component"])
@@ -275,21 +350,25 @@ def save_checkpoint(logging_path, iteration, dictionary, hessian):
 def reset_or_prune(event, dictionary, hessian, v_codes, group_assignments,
                    uses_hessian):
   """Apply one reset/prune event through vtc_tpu's numpy-only
-  training/reset_prune.  Returns (dictionary, hessian, pruned)."""
+  training/reset_prune.  Returns (dictionary, hessian, groups); after a
+  prune that removed rows, ``groups`` is a new list of the groups
+  remapped to the remaining rows (vtc_tpu sparse_coding.py:620-633), or
+  None without groups; else it is ``group_assignments`` itself."""
   from vtc_tpu.training import reset_prune
   f_params = dict(event["filter_params"])
   f_params["group_assignments"] = group_assignments
-  new_dict, affected, _ = reset_prune.reset_or_prune_dict_elements(
+  new_dict, affected, new_groups = reset_prune.reset_or_prune_dict_elements(
       _numpy(dictionary), v_codes, event["filter_type"], f_params,
       event["action"])
   device = dictionary.device
   dictionary = as_tensor(new_dict, device)
-  pruned = event["action"] == "prune" and len(affected) > 0
-  if pruned and uses_hessian:
+  if not (event["action"] == "prune" and len(affected) > 0):
+    return dictionary, hessian, group_assignments
+  if uses_hessian:
     keep = np.ones(hessian.shape[0], bool)
     keep[np.asarray(affected, int)] = False
     hessian = hessian[torch.from_numpy(keep).to(device)]
-  return dictionary, hessian, pruned
+  return dictionary, hessian, normalize_groups(new_groups)
 
 
 def _dictionary_viz_to_tb(tb_writer, dictionary, reshaping, groupings,
@@ -336,7 +415,7 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
   inf_schedule = all_params["inference_param_schedule"]
   update_alg = all_params["dictionary_update_algorithm"]
   upd_schedule = all_params["dict_update_param_schedule"]
-  group_assignments = all_params.get("group_assignments")
+  group_assignments = normalize_groups(all_params.get("group_assignments"))
   check_supported(mode, inference_alg, update_alg, group_assignments,
                   all_params.get("data_parallel", False))
   if all_params.get("profile_dir") is not None:
@@ -346,6 +425,8 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
 
   nonneg = bool(all_params.get("nonnegative_only", False))
   hard_threshold = bool(all_params.get("hard_threshold", False))
+  alignment_penalty = float(
+      all_params.get("subspace_alignment_penalty", 0.0))
   renormalize = bool(all_params.get("renormalize_dictionary", True))
   device = resolve_device(device, init_dictionary)
   dictionary = as_tensor(init_dictionary, device)
@@ -368,17 +449,29 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
   early_eps = all_params.get("early_stopping_epsilon")
   if early_eps is not None:
     early_eps = float(early_eps)
-  uses_hessian = update_alg == "sc_cheap_quadratic_descent"
+  uses_hessian = update_alg in CHEAP_QUAD_ALGS
+  is_subspace = inference_alg.startswith("subspace")
 
-  step_fn = build_raw_step_fn(
-      mode, inference_alg, update_alg, nonneg=nonneg,
-      hard_threshold=hard_threshold, renormalize=renormalize,
-      fc_formulation=fc_formulation, lipschitz_method=lipschitz_method,
-      compute_stepsize_in_step=in_step_stepsize,
-      early_stopping_epsilon=early_eps)
+  def make_step():
+    return build_raw_step_fn(
+        mode, inference_alg, update_alg, nonneg=nonneg,
+        hard_threshold=hard_threshold, group_assignments=group_assignments,
+        alignment_penalty=alignment_penalty, renormalize=renormalize,
+        fc_formulation=fc_formulation, lipschitz_method=lipschitz_method,
+        compute_stepsize_in_step=in_step_stepsize,
+        early_stopping_epsilon=early_eps)
+
+  step_fn = make_step()
 
   def infer_only(d, batch, sw, n_it):
     """Inference for validation / reset-prune (the public run())."""
+    if is_subspace:
+      return subspace_ista_fista.run(
+          batch, d, group_assignments, sw, n_it,
+          variant=inference_alg[9:], early_stopping_epsilon=early_eps,
+          formulation=("gram" if fc_formulation == "pallas"
+                       else fc_formulation),
+          lipschitz_method=lipschitz_method)
     return ista_fista.run(
         batch, d, sw, n_it, variant=inference_alg,
         nonnegative_only=nonneg, hard_threshold=hard_threshold,
@@ -444,9 +537,12 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
                               inf_num_iters))
             for vb in iterate_batches(validation_image_dataset, device)],
                                  axis=0)
-        dictionary, hessian, _ = reset_or_prune(
+        dictionary, hessian, groups = reset_or_prune(
             rp_schedule[total_iter], dictionary, hessian, v_codes,
             group_assignments, uses_hessian)
+        if groups is not group_assignments:  # pruned: rows and groups moved
+          group_assignments = groups
+          step_fn = make_step()
         previous_dictionary = dictionary
 
       # ---- checkpointing ----
@@ -461,7 +557,8 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
                                inf_num_iters)
           all_metrics.append(compute_metrics(
               vb, v_codes, dictionary, previous_dictionary, mode=mode,
-              sparsity_weight=sparsity_weight))
+              sparsity_weight=sparsity_weight,
+              group_assignments=group_assignments, is_subspace=is_subspace))
         assert all_metrics, (
             "validation dataset yielded no batches (check batch size vs "
             "dataset size / drop_last)")
@@ -476,7 +573,8 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
       # ---- stepsize cache (when not computed in the step) ----
       if not in_step_stepsize and total_iter % stepsize_interval == 0:
         cached_inf_stepsize = lipschitz_ops.fista_stepsize(
-            dictionary, lipschitz_method)
+            lipschitz_matrix(dictionary, inference_alg, group_assignments),
+            lipschitz_method)
 
       previous_dictionary = dictionary
       dictionary, hessian, _ = step_fn(
