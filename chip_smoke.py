@@ -22,6 +22,15 @@ caught.
   FISTA-25, lambda 0.008, cheap-quadratic update at stepsize 0.05, warm
   power refresh of 2 iterations, one 1,000-step segment); kernel K6
   (fused group train step, K4's kernel as its solve).
+* Conv serving: encode_dataset(mode='convolutional') at the reference
+  conv width (examples/train_convolutional_sparse_coding.py:26-33: 64
+  kernels of 16x16 at stride 8 on 256x256 images padded by 8 to 272x272;
+  batch 40 as bench.py's measure_conv, FISTA 100, lambda 0.05); kernel
+  K10 (direct conv FISTA), and K11 (gram-form conv FISTA) for a geometry
+  K10's gate turns away.
+* Conv training: the per-batch train_dictionary at the example's
+  parameters (:57-69: batch 5, ISTA 25, lambda 0.05, cheap-quadratic
+  update at stepsize 0.001), 200 steps; kernel K10 as its solve.
 
 1. Device and build: requires CUDA (there is no CPU path), prints the
    card's name and power limit, builds the kernels from
@@ -88,12 +97,41 @@ caught.
    fall.
 12. Timing: K4 and plain ms per flagship batch, subspace encode
    patches/s, K6 and plain step ms, subspace trainer patches/s.
+13. K10 against plain, in float32 and float64, at the limit of phase 2:
+   the flagship (b 40, FISTA 100, cold and warm), the trainer's batch of
+   5 with ISTA 25 and its random initial kernels, 12x12 kernels at
+   stride 8 (zero-extended to 16; padded 268x268) at full width, and
+   c = 3 with hard and nonnegative thresholds at a small size.  A TF32
+   control of the plain version must fail the limit.
+14. K11 against plain and against K10 at the flagship geometry (the
+   wrapper called directly), at a small geometry with kernel % stride
+   != 0 and asymmetric padding, and, as a serving path, encode_dataset
+   (formulation='pallas') over 3x256x256 images padded to 288x288 with 64
+   kernels of 3x32x32 at stride 16: c*sv*sh = 768 > 512, so K10's gate
+   sends 'pallas' to K11 (2 launches, none of K10).  A TF32 control must
+   fail the limit.
+15. The conv serving slice: encode_dataset(mode='convolutional') over
+   320 images in batches of 40; K10 must count 8 launches, the codes
+   must be finite and one batch must match the plain version.
+16. The conv trainer: train_dictionary(mode='convolutional') for 200
+   steps of 5 images from random unit-norm kernels; K10 must count 200
+   launches, the kernels stay unit norm within 1e-4, everything finite,
+   and the held-out batch's conv LASSO loss (compute_metrics) must fall.
+17. Timing: K10, K11 and plain ms per flagship batch, K10 at the
+   trainer's batch, conv encode images/s, conv trainer images/s and the
+   stepsize's eigvalsh ms.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
 whitened 16x16 image patches (for the subspace phases, mixtures of
 whole groups of its atoms); the generating dictionary (seed 0) stands
-in for a trained one.  The script imports nothing of the JAX
+in for a trained one.  The conv images are conv-sparse maps (2% of code
+positions active) of random unit-norm kernels under a Gaussian window
+(sigma 3 pixels), localized as trained image kernels are, plus noise,
+with the padded border zeroed.  The window matters: the conv stepsize is
+1/L of the flattened kernels' Gram (vtc_tpu and the reference), which
+for unwindowed random 16x16 kernels at stride 8 is about twice the conv
+operator's 1/L, and FISTA then diverges in both packages.  The script imports nothing of the JAX
 package, vtc_tpu, directly or through the port.
 
 The line before the last is the card's name and power limit as
@@ -545,6 +583,286 @@ def subspace_train_params(steps, stepsize):
   }
 
 
+# ---------------------------------------------------------------------------
+# the convolutional path
+# ---------------------------------------------------------------------------
+CONV_LAM = 0.05          # the example's sparsity weight
+CONV_ITERS = 100
+CONV_BATCH = 40          # bench.py's measure_conv batch
+CONV_IMAGES = 320        # 8 serving batches
+CONV_S, CONV_K, CONV_STRIDE, CONV_IMG = 64, 16, 8, 256
+CONV_TRAIN_BATCH = 5     # the example's per-batch trainer
+CONV_TRAIN_ITERS = 25
+CONV_TRAIN_STEP = 0.001
+CONV_TRAIN_STEPS = 200
+FP32_PEAK = 67e12        # H100 SXM fp32 (SIMT), FLOP/s, at 700 W
+HBM_RATE = 3.35e12       # H100 SXM HBM3, bytes/s
+
+
+def bound(flops, nbytes):
+  """(bound_ms, bound_by): the least time for the work on the card."""
+  t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+  return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+
+def solve_bound(b, s, n, iters):
+  """K1 / K4: iters x (b, s) @ (s, s), reading G and c, writing codes."""
+  return bound(2.0 * b * s * s * iters, 4.0 * (s * s + 2 * b * s))
+
+
+def train_step_bound(b, s, n, iters, power_iters=2):
+  """K2 / K6, one step: G = D D^T, c = X D^T, the solve, the update's
+  two products and the power refresh; reading X and D, writing D."""
+  flops = (2.0 * s * s * n + 2.0 * b * s * n + 2.0 * b * s * s * iters
+           + 4.0 * b * s * n + 2.0 * power_iters * s * s)
+  return bound(flops, 4.0 * (b * n + 2 * s * n))
+
+
+def conv_direct_bound(geo, b, iters):
+  """K10: per iteration the synthesis over the image blocks and the
+  analysis over the code positions, 2 * s * R * cpx each, plus corr once;
+  reading the images and kernels, writing the codes."""
+  depth = 2.0 * geo["s"] * geo["r"] * geo["cpx"]
+  blocks, codes = geo["bh"] * geo["bw"], geo["code_h"] * geo["code_w"]
+  flops = b * (iters * depth * (blocks + codes) + depth * codes)
+  nbytes = 4.0 * (b * geo["cpx"] * blocks + geo["s"] * geo["r"] * geo["cpx"]
+                  + b * geo["s"] * codes)
+  return bound(flops, nbytes)
+
+
+def conv_gram_bound(op, b, iters):
+  """K11: per iteration the interior operator over every code position
+  and the corrections over the special rows, columns and corners, 2 * O
+  * s^2 each; reading corr and G, writing the codes."""
+  n_off, s = op["g_int"].shape[0], op["g_int"].shape[1]
+  code_h, code_w = op["code_hw"]
+  p, q = len(op["spec_py"]), len(op["spec_px"])
+  positions = code_h * code_w + p * code_w + q * code_h + p * q
+  flops = 2.0 * n_off * s * s * positions * b * iters
+  nbytes = 4.0 * (2 * b * s * code_h * code_w
+                  + (1 + p + q + p * q) * n_off * s * s)
+  return bound(flops, nbytes)
+
+
+def windowed_kernels(rng, s, c, k, sigma=3.0):
+  """Random unit-norm kernels under a Gaussian window: localized, as
+  kernels trained on images are (see the module docstring)."""
+  yy = np.arange(k) - (k - 1) / 2.0
+  window = np.exp(-(yy[:, None] ** 2 + yy[None, :] ** 2) / (2 * sigma ** 2))
+  d = rng.randn(s, c, k, k) * window
+  return (d / np.sqrt((d ** 2).sum(axis=(1, 2, 3), keepdims=True))).astype(
+      np.float32)
+
+
+def unit_kernels(rng, s, c, k):
+  d = rng.randn(s, c, k, k)
+  return (d / np.sqrt((d ** 2).sum(axis=(1, 2, 3), keepdims=True))).astype(
+      np.float32)
+
+
+def conv_padding(img, k, stride):
+  """get_padding_amt, plus the trailing rows that make the padded size
+  stride-exact for kernels that are not stride multiples (bench.py's
+  measure_conv)."""
+  from vtc_tpu_torch.ops.conv_shapes import get_padding_amt
+  lead, trail = get_padding_amt(img, k, stride)
+  trail += (-(img + lead + trail - k)) % stride
+  return ((lead, trail), (lead, trail))
+
+
+def conv_images(torch, conv_ops, dev, num, gen, stride, img, seed):
+  """(num, c, H, W) float32 numpy images: conv-sparse maps of ``gen``
+  (2% of code positions active, N(0, 1) amplitudes) plus N(0, 0.01^2)
+  noise, the padded border zeroed -- a pixel spread near 0.14, that of
+  whitened images.  Synthesized on the card, 40 at a time."""
+  rng = np.random.RandomState(seed)
+  s, c, k, _ = gen.shape
+  padding = conv_padding(img, k, stride)
+  hh = img + sum(padding[0])
+  ch = 1 + (hh - k) // stride
+  lead, trail = padding[0]
+  mask = np.zeros((hh, hh), np.float32)
+  mask[lead:hh - trail, lead:hh - trail] = 1.0
+  gen_t = torch.tensor(gen, device=dev)
+  out = np.empty((num, c, hh, hh), np.float32)
+  for i in range(0, num, 40):
+    m = min(40, num - i)
+    z = (rng.randn(m, s, ch, ch) * (rng.rand(m, s, ch, ch) < 0.02)).astype(
+        np.float32)
+    x = conv_ops.synthesize(torch.tensor(z, device=dev), gen_t,
+                            (stride, stride)).cpu().numpy()
+    out[i:i + m] = (x + 0.01 * rng.randn(*x.shape)) * mask
+  return out, padding
+
+
+def conv_compare(torch, name, solve, plain, x, d, lam, iters, eta, **kw):
+  """One kernel call against its fp32 and fp64 plain versions; returns
+  (codes, fp32 error)."""
+  got = solve(x, d, lam, iters, eta, **kw)
+  want32 = plain(x, d, lam, iters, eta, **kw)
+  kw64 = {k: (v.double() if torch.is_tensor(v) else v)
+          for k, v in kw.items()}
+  want64 = plain(x.double(), d.double(), lam, iters,
+                 torch.as_tensor(eta).double(), **kw64)
+  torch.cuda.synchronize()
+  err32 = float((got - want32).abs().max())
+  err64 = float((got.double() - want64).abs().max())
+  lim = limit(want64)
+  print("%-44s max|d| fp32 %.3e  fp64 %.3e  limit %.3e (max|code| %.3f, "
+        "density %.4f)" % (name, err32, err64, lim,
+                           float(want64.abs().max()),
+                           float((got != 0).float().mean())))
+  check(bool(torch.isfinite(got).all()), name + ": non-finite codes")
+  check(err32 <= lim and err64 <= lim,
+        "%s: kernel differs from plain by %.3e / %.3e, limit %.3e" % (
+            name, err32, err64, lim))
+  return got, err32
+
+
+def conv_kernel_cases(torch, K10, conv_ops, lipschitz, x_flag, flag_d,
+                      padding, dev):
+  """Phase 13: K10 against its plain versions."""
+  stride = (CONV_STRIDE, CONV_STRIDE)
+  x = torch.tensor(x_flag[:CONV_BATCH], device=dev)
+  d = torch.tensor(flag_d, device=dev)
+  eta = lipschitz.fista_stepsize(d.reshape(CONV_S, -1))
+  kw = dict(kernel_stride=stride, padding=padding)
+  worst = 0.0
+  cold, err = conv_compare(torch, "K10 flagship b40 fista100",
+                           K10.fused_conv_direct_solve,
+                           K10.fused_conv_direct_plain, x, d, CONV_LAM,
+                           CONV_ITERS, eta, **kw)
+  worst = max(worst, err)
+  init = K10.fused_conv_direct_plain(x, d, CONV_LAM, 10, eta, **kw)
+  _, err = conv_compare(torch, "K10 flagship b40 fista100 warm",
+                        K10.fused_conv_direct_solve,
+                        K10.fused_conv_direct_plain, x, d, CONV_LAM,
+                        CONV_ITERS, eta, initial_codes=init.contiguous(), **kw)
+  worst = max(worst, err)
+  d_init = torch.tensor(unit_kernels(np.random.RandomState(2), CONV_S, 1,
+                                     CONV_K), device=dev)
+  eta_init = lipschitz.fista_stepsize(d_init.reshape(CONV_S, -1))
+  _, err = conv_compare(torch, "K10 trainer b5 ista25 random kernels",
+                        K10.fused_conv_direct_solve,
+                        K10.fused_conv_direct_plain, x[:CONV_TRAIN_BATCH],
+                        d_init, CONV_LAM, CONV_TRAIN_ITERS, eta_init,
+                        variant="ista", **kw)
+  worst = max(worst, err)
+  # 12x12 kernels at stride 8: zero-extended to 16, padded 268x268
+  gen12 = windowed_kernels(np.random.RandomState(0), CONV_S, 1, 12)
+  x12, pad12 = conv_images(torch, conv_ops, dev, CONV_BATCH, gen12,
+                           CONV_STRIDE, CONV_IMG, seed=3)
+  geo = K10.geometry(x12.shape, gen12.shape, stride)
+  check(x12.shape[2] == 268 and geo["ekh"] == 4 and geo["code_h"] == 33,
+        "zero-extension geometry %s" % (x12.shape,))
+  d12 = torch.tensor(gen12, device=dev)
+  _, err = conv_compare(torch, "K10 12x12/8 zero-extended b40 fista100",
+                        K10.fused_conv_direct_solve,
+                        K10.fused_conv_direct_plain,
+                        torch.tensor(x12, device=dev), d12, CONV_LAM,
+                        CONV_ITERS, lipschitz.fista_stepsize(
+                            d12.reshape(CONV_S, -1)),
+                        kernel_stride=stride, padding=pad12)
+  worst = max(worst, err)
+  # c = 3, small, hard and nonnegative (thresholds are discontinuous:
+  # small sizes only); half the flat stepsize keeps these random 4x4
+  # kernels' FISTA stable
+  rng = np.random.RandomState(5)
+  x3 = torch.tensor(np.pad(rng.randn(3, 3, 16, 16),
+                           ((0, 0), (0, 0), (2, 2), (2, 2))).astype(
+                               np.float32), device=dev)
+  d3 = torch.tensor(unit_kernels(rng, 6, 3, 4), device=dev)
+  eta3 = 0.5 * lipschitz.fista_stepsize(d3.reshape(6, -1))
+  for variant, nonneg, hard in (("fista", True, False), ("ista", False, True),
+                                ("fista", True, True)):
+    _, err = conv_compare(
+        torch, "K10 c3 4x4/2 %s nonneg=%s hard=%s" % (variant, nonneg, hard),
+        K10.fused_conv_direct_solve, K10.fused_conv_direct_plain, x3, d3,
+        0.05, 20, eta3, kernel_stride=(2, 2), padding=((2, 2), (2, 2)),
+        variant=variant, nonneg=nonneg, hard=hard)
+    worst = max(worst, err)
+  # control: TF32 products at the flagship must fail the limit
+  want64 = K10.fused_conv_direct_plain(x.double(), d.double(), CONV_LAM,
+                                       CONV_ITERS, eta.double(), **kw)
+  tf32 = K10.fused_conv_direct_plain(x, d, CONV_LAM, CONV_ITERS, eta,
+                                     precision="tensorfloat32", **kw)
+  err = float((tf32.double() - want64).abs().max())
+  print("control: K10 plain with TF32 products, flagship: max|d| fp64 %.3e, "
+        "limit %.3e (must fail it)" % (err, limit(want64)))
+  check(err > limit(want64), "the limit does not tell TF32 products from fp32")
+  return worst, cold
+
+
+def conv_gram_cases(torch, K11, lipschitz, x_flag, flag_d, padding,
+                    k10_codes, dev):
+  """Phase 14 (kernel checks): K11 against its plain versions and K10."""
+  stride = (CONV_STRIDE, CONV_STRIDE)
+  x = torch.tensor(x_flag[:CONV_BATCH], device=dev)
+  d = torch.tensor(flag_d, device=dev)
+  eta = lipschitz.fista_stepsize(d.reshape(CONV_S, -1))
+  kw = dict(kernel_stride=stride, padding=padding)
+  got, worst = conv_compare(torch, "K11 flagship b40 fista100",
+                            K11.fused_conv_fista_solve,
+                            K11.fused_conv_fista_plain, x, d, CONV_LAM,
+                            CONV_ITERS, eta, **kw)
+  err = float((got - k10_codes).abs().max())
+  print("K11 vs K10 at the flagship: max|d| %.3e, limit %.3e" % (
+      err, limit(k10_codes)))
+  check(err <= limit(k10_codes), "K11 and K10 disagree by %.3e" % err)
+  rng = np.random.RandomState(9)
+  x5 = torch.tensor(rng.randn(3, 2, 17, 22).astype(np.float32), device=dev)
+  d5 = rng.randn(6, 2, 5, 7)
+  d5 = torch.tensor((d5 / np.sqrt((d5 ** 2).sum(axis=(1, 2, 3),
+                                                keepdims=True))).astype(
+                                                    np.float32), device=dev)
+  eta5 = 0.5 * lipschitz.fista_stepsize(d5.reshape(6, -1))
+  for variant, hard in (("fista", False), ("ista", True)):
+    _, err = conv_compare(
+        torch, "K11 5x7/(2,3) asymmetric pad %s hard=%s" % (variant, hard),
+        K11.fused_conv_fista_solve, K11.fused_conv_fista_plain, x5, d5, 0.03,
+        15, eta5, kernel_stride=(2, 3), padding=((3, 2), (4, 4)),
+        variant=variant, hard=hard)
+    worst = max(worst, err)
+  want64 = K11.fused_conv_fista_plain(x.double(), d.double(), CONV_LAM,
+                                      CONV_ITERS, eta.double(), **kw)
+  tf32 = K11.fused_conv_fista_plain(x, d, CONV_LAM, CONV_ITERS, eta,
+                                    precision="tensorfloat32", **kw)
+  err = float((tf32.double() - want64).abs().max())
+  print("control: K11 plain with TF32 products, flagship: max|d| fp64 %.3e, "
+        "limit %.3e (must fail it)" % (err, limit(want64)))
+  check(err > limit(want64), "the limit does not tell TF32 products from fp32")
+  return worst
+
+
+def conv_train_params(steps):
+  return {
+      "mode": "convolutional",
+      "num_epochs": 1,
+      "code_inference_algorithm": "ista",
+      "inference_param_schedule": {
+          0: {"sparsity_weight": CONV_LAM, "num_iters": CONV_TRAIN_ITERS}},
+      "dictionary_update_algorithm": "sc_cheap_quadratic_descent",
+      "dict_update_param_schedule": {
+          0: {"stepsize": CONV_TRAIN_STEP, "num_iters": 1}},
+      "strides": (CONV_STRIDE, CONV_STRIDE),
+      "padding": ((8, 8), (8, 8)),
+      "stdout_print_interval": steps,
+  }
+
+
+def held_out_conv_loss(conv_ista_fista, sparse_coding, x, kernels):
+  """Average conv LASSO loss of the held-out batch under ``kernels``."""
+  stride, padding = (CONV_STRIDE, CONV_STRIDE), ((8, 8), (8, 8))
+  codes = conv_ista_fista.run(x, kernels, stride, padding, CONV_LAM,
+                              CONV_TRAIN_ITERS, variant="ista",
+                              formulation="pallas")
+  return sparse_coding.compute_metrics(
+      x, codes, kernels, kernels, mode="convolutional",
+      sparsity_weight=CONV_LAM, kernel_stride=stride,
+      padding=padding)["Average LASSO Loss"]
+
+
 def time_ms(torch, fn, reps):
   start, stop = (torch.cuda.Event(enable_timing=True),
                  torch.cuda.Event(enable_timing=True))
@@ -866,46 +1184,232 @@ def main():
         "patches/s [%s]" % (TRAIN_STEPS, TRAIN_BATCH, dt,
                             TRAIN_STEPS * TRAIN_BATCH / dt, card))
 
+
+  # phase 13: K10 against plain on the card
+  from vtc_tpu_torch.analysis_transforms.convolutional import (
+      ista_fista as conv_ista_fista)
+  from vtc_tpu_torch.ops import fused_conv_direct as K10
+  from vtc_tpu_torch.ops import fused_conv_fista as K11
+  from vtc_tpu_torch.ops import convolutions as conv_ops
+  t0 = time.perf_counter()
+  conv_gen = windowed_kernels(np.random.RandomState(0), CONV_S, 1, CONV_K)
+  cimages, cpad = conv_images(torch, conv_ops, dev, CONV_IMAGES, conv_gen,
+                              CONV_STRIDE, CONV_IMG, seed=0)
+  print("conv data: %d synthetic %s images (pixel std %.4f) in %.1f s" % (
+      cimages.shape[0], "x".join(map(str, cimages.shape[1:])),
+      float(cimages.std()), time.perf_counter() - t0))
+  check(cimages.shape[1:] == (1, 272, 272) and cpad == ((8, 8), (8, 8)),
+        "conv geometry %s %s" % (cimages.shape, cpad))
+  conv_err, k10_codes = conv_kernel_cases(torch, K10, conv_ops, lipschitz,
+                                          cimages, conv_gen, cpad, dev)
+
+  # phase 14: K11 against plain and K10, and the serving path K10's gate
+  # turns away
+  conv_err_gram = conv_gram_cases(torch, K11, lipschitz, cimages, conv_gen,
+                                  cpad, k10_codes, dev)
+  gen3 = windowed_kernels(np.random.RandomState(7), CONV_S, 3, 32)
+  x3, pad3 = conv_images(torch, conv_ops, dev, 16, gen3, 16, CONV_IMG,
+                         seed=7)
+  check(x3.shape[1:] == (3, 288, 288), "K11 serving geometry %s" % (
+      x3.shape,))
+  check(not K10.supported(x3[:8].shape, gen3.shape, (16, 16)),
+        "K10's gate should turn 3x32x32 / 16 away")
+  d3 = convert.dictionary_from_numpy(gen3, dev)
+  K10.launches = K11.launches = 0
+  codes3 = encode_dataset(x3, d3, CONV_LAM, CONV_ITERS, mode="convolutional",
+                          kernel_stride=(16, 16), padding=pad3, batch_size=8,
+                          formulation="pallas")
+  k11_launches = K11.launches
+  print("K11 serving path: %d K11 and %d K10 launches for 2 batches of 8 "
+        "3x288x288 images" % (k11_launches, K10.launches))
+  check(k11_launches == 2 and K10.launches == 0,
+        "expected 2 K11 launches and no K10, counted %d and %d" % (
+            k11_launches, K10.launches))
+  eta3 = lipschitz.fista_stepsize(d3.reshape(CONV_S, -1))
+  plain3 = K11.fused_conv_fista_plain(
+      torch.tensor(x3[8:], device=dev), d3, CONV_LAM, CONV_ITERS, eta3,
+      kernel_stride=(16, 16), padding=pad3)
+  err3 = float(np.abs(codes3[8:] - plain3.cpu().numpy()).max())
+  print("K11 serving path: batch 1 vs plain max|d| %.3e, limit %.3e; code "
+        "density %.4f" % (err3, limit(plain3), float((codes3 != 0).mean())))
+  check(bool(np.isfinite(codes3).all()) and err3 <= limit(plain3),
+        "K11-encoded batch differs from plain by %.3e" % err3)
+  conv_err_gram = max(conv_err_gram, err3)
+
+  # phase 15: the conv serving slice through encode_dataset
+  conv_d = convert.dictionary_from_numpy(conv_gen, dev)
+  conv_kw = dict(mode="convolutional", kernel_stride=(CONV_STRIDE,
+                                                      CONV_STRIDE),
+                 padding=cpad, batch_size=CONV_BATCH, chunk_batches=4)
+  K10.launches = K11.launches = 0
+  ccodes = encode_dataset(cimages, conv_d, CONV_LAM, CONV_ITERS, **conv_kw)
+  conv_launches = K10.launches
+  n_conv_batches = CONV_IMAGES // CONV_BATCH
+  print("conv slice: %d K10 launches (%d K11) for %d batches" % (
+      conv_launches, K11.launches, n_conv_batches))
+  check(conv_launches == n_conv_batches and K11.launches == 0,
+        "expected %d K10 launches, counted %d" % (n_conv_batches,
+                                                 conv_launches))
+  check(ccodes.shape == (CONV_IMAGES, CONV_S, 33, 33),
+        "conv codes shape " + str(ccodes.shape))
+  check(bool(np.isfinite(ccodes).all()), "non-finite conv codes")
+  ceta = lipschitz.fista_stepsize(conv_d.reshape(CONV_S, -1))
+  xk = torch.tensor(cimages[k * CONV_BATCH:(k + 1) * CONV_BATCH], device=dev)
+  cplain = K10.fused_conv_direct_plain(
+      xk, conv_d, CONV_LAM, CONV_ITERS, ceta,
+      kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=cpad)
+  cerr = float(np.abs(ccodes[k * CONV_BATCH:(k + 1) * CONV_BATCH]
+                      - cplain.cpu().numpy()).max())
+  cdensity = float((ccodes != 0).mean())
+  print("conv slice: batch %d vs plain max|d| %.3e, limit %.3e; code "
+        "density %.4f" % (k, cerr, limit(cplain), cdensity))
+  check(cerr <= limit(cplain), "conv-encoded batch differs from plain by "
+        "%.3e" % cerr)
+  check(0.0 < cdensity < 1.0, "conv codes all zero or all dense")
+
+  # phase 16: the per-batch conv trainer through train_dictionary
+  t0 = time.perf_counter()
+  ctrain, _ = conv_images(torch, conv_ops, dev,
+                          CONV_TRAIN_STEPS * CONV_TRAIN_BATCH
+                          + CONV_TRAIN_BATCH, conv_gen, CONV_STRIDE,
+                          CONV_IMG, seed=1)
+  cheld = torch.tensor(ctrain[-CONV_TRAIN_BATCH:], device=dev)
+  cbatches = torch.tensor(ctrain[:-CONV_TRAIN_BATCH].reshape(
+      (CONV_TRAIN_STEPS, CONV_TRAIN_BATCH) + ctrain.shape[1:]), device=dev)
+  print("conv train data: %d images in %.1f s" % (
+      CONV_TRAIN_STEPS * CONV_TRAIN_BATCH, time.perf_counter() - t0))
+  cd0 = convert.dictionary_from_numpy(
+      unit_kernels(np.random.RandomState(2), CONV_S, 1, CONV_K), dev)
+  cparams = conv_train_params(CONV_TRAIN_STEPS)
+  K10.launches = K11.launches = 0
+  t0 = time.perf_counter()
+  ctrained = sparse_coding.train_dictionary(cbatches, cheld[None], cd0,
+                                            cparams)
+  torch.cuda.synchronize()
+  ctrain_s = time.perf_counter() - t0
+  conv_train_launches = K10.launches
+  print("conv trainer: %d K10 launches (%d K11) for %d steps" % (
+      conv_train_launches, K11.launches, CONV_TRAIN_STEPS))
+  check(conv_train_launches == CONV_TRAIN_STEPS and K11.launches == 0,
+        "expected %d K10 launches in the conv trainer, counted %d" % (
+            CONV_TRAIN_STEPS, conv_train_launches))
+  check(bool(torch.isfinite(ctrained).all()), "non-finite conv kernels")
+  cnorm_err = float((torch.linalg.vector_norm(
+      ctrained.reshape(CONV_S, -1), dim=1) - 1).abs().max())
+  closs0 = held_out_conv_loss(conv_ista_fista, sparse_coding, cheld, cd0)
+  closs1 = held_out_conv_loss(conv_ista_fista, sparse_coding, cheld,
+                              ctrained)
+  print("conv trainer: kernels unit norm within %.2e; held-out conv LASSO "
+        "loss %.6f -> %.6f (stepsize %g, %d steps)" % (
+            cnorm_err, closs0, closs1, CONV_TRAIN_STEP, CONV_TRAIN_STEPS))
+  check(cnorm_err <= 1e-4, "kernels not unit norm: %.3e" % cnorm_err)
+  check(np.isfinite(closs1) and closs1 < closs0,
+        "held-out conv LASSO loss did not fall: %.6f -> %.6f" % (
+            closs0, closs1))
+
+  # phase 17: conv timing (warm)
+  xc = torch.tensor(cimages[:CONV_BATCH], device=dev)
+  ckw = dict(kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=cpad)
+  k10_run = lambda: K10.fused_conv_direct_solve(xc, conv_d, CONV_LAM,
+                                                CONV_ITERS, ceta, **ckw)
+  k10_plain = lambda: K10.fused_conv_direct_plain(xc, conv_d, CONV_LAM,
+                                                  CONV_ITERS, ceta, **ckw)
+  k11_run = lambda: K11.fused_conv_fista_solve(xc, conv_d, CONV_LAM,
+                                               CONV_ITERS, ceta, **ckw)
+  k11_plain = lambda: K11.fused_conv_fista_plain(xc, conv_d, CONV_LAM,
+                                                 CONV_ITERS, ceta, **ckw)
+  xt5 = cbatches[0]
+  eta5 = lipschitz.fista_stepsize(cd0.reshape(CONV_S, -1))
+  k10_b5 = lambda: K10.fused_conv_direct_solve(
+      xt5, cd0, CONV_LAM, CONV_TRAIN_ITERS, eta5, variant="ista", **ckw)
+  k10_b5_plain = lambda: K10.fused_conv_direct_plain(
+      xt5, cd0, CONV_LAM, CONV_TRAIN_ITERS, eta5, variant="ista", **ckw)
+  with torch.no_grad():
+    for fn in (k10_run, k11_run, k10_b5):
+      fn()
+    k10_plain_ms = [time_ms(torch, k10_plain, 2)]
+    k10_ms_runs = [time_ms(torch, k10_run, 3), time_ms(torch, k10_run, 3)]
+    k10_plain_ms.append(time_ms(torch, k10_plain, 2))
+    k11_plain_ms = [time_ms(torch, k11_plain, 2)]
+    k11_ms_runs = [time_ms(torch, k11_run, 3), time_ms(torch, k11_run, 3)]
+    k11_plain_ms.append(time_ms(torch, k11_plain, 2))
+    b5_plain_ms = [time_ms(torch, k10_b5_plain, 5)]
+    b5_ms_runs = [time_ms(torch, k10_b5, 10), time_ms(torch, k10_b5, 10)]
+    b5_plain_ms.append(time_ms(torch, k10_b5_plain, 5))
+    eig_ms = time_ms(torch, lambda: lipschitz.fista_stepsize(
+        conv_d.reshape(CONV_S, -1)), 20)
+  k10_ms, k10_p_ms = sum(k10_ms_runs) / 2, sum(k10_plain_ms) / 2
+  k11_ms, k11_p_ms = sum(k11_ms_runs) / 2, sum(k11_plain_ms) / 2
+  b5_ms, b5_p_ms = sum(b5_ms_runs) / 2, sum(b5_plain_ms) / 2
+  geo = K10.geometry(xc.shape, conv_d.shape, (CONV_STRIDE, CONV_STRIDE))
+  k10_bound, k10_by = conv_direct_bound(geo, CONV_BATCH, CONV_ITERS)
+  b5_bound, _ = conv_direct_bound(geo, CONV_TRAIN_BATCH, CONV_TRAIN_ITERS)
+  op, _ = K11.operator_and_corr(xc, conv_d, (CONV_STRIDE, CONV_STRIDE), cpad)
+  k11_bound, k11_by = conv_gram_bound(op, CONV_BATCH, CONV_ITERS)
+  print("K10 ms per flagship batch (b=40 1x272x272, 64 16x16/8, fista 100): "
+        "%.4f (runs %.4f, %.4f); plain %.4f (runs %.4f, %.4f); bound %.4f "
+        "(%s) [%s]" % (k10_ms, *k10_ms_runs, k10_p_ms, *k10_plain_ms,
+                       k10_bound, k10_by, card))
+  print("K11 ms per flagship batch (b=40 1x272x272, 64 16x16/8, fista 100): "
+        "%.4f (runs %.4f, %.4f); plain %.4f (runs %.4f, %.4f); bound %.4f "
+        "(%s) [%s]" % (k11_ms, *k11_ms_runs, k11_p_ms, *k11_plain_ms,
+                       k11_bound, k11_by, card))
+  print("K10 ms per trainer batch (b=5, ista 25): %.4f (runs %.4f, %.4f); "
+        "plain %.4f (runs %.4f, %.4f); bound %.4f [%s]" % (
+            b5_ms, *b5_ms_runs, b5_p_ms, *b5_plain_ms, b5_bound, card))
+  print("stepsize eigvalsh ms (64 x 256 flattened kernels): %.4f [%s]" % (
+      eig_ms, card))
+  for formulation in ("pallas", "gram"):
+    t0 = time.perf_counter()
+    encode_dataset(cimages, conv_d, CONV_LAM, CONV_ITERS,
+                   formulation=formulation, **conv_kw)
+    dt = time.perf_counter() - t0
+    print("conv encode %-6s %d images in %.4f s: %.2f images/s [%s]" % (
+        formulation, CONV_IMAGES, dt, CONV_IMAGES / dt, card))
+  print("conv train_dictionary %d steps of %d in %.4f s: %.2f images/s "
+        "(first run, build excluded) [%s]" % (
+            CONV_TRAIN_STEPS, CONV_TRAIN_BATCH, ctrain_s,
+            CONV_TRAIN_STEPS * CONV_TRAIN_BATCH / ctrain_s, card))
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
+  # bounds at each kernel's timed shape (fp32 SIMT peak, HBM rate)
+  k1_bound = solve_bound(BATCH, 256, 256, ITERS)
+  k2_bound = train_step_bound(TRAIN_BATCH, 256, 256, TRAIN_ITERS)
+  kernels = [
+      ("fused_fista", "fused_fista.cu", "vtc_tpu/ops/pallas_fista.py:220",
+       launches + fit_launches, max_err, ms, p_ms, k1_bound),
+      ("fused_train_step", "fused_train_step.cu",
+       "vtc_tpu/ops/pallas_train_step.py:1589", train_launches, train_err,
+       step_ms, plain_step_ms, k2_bound),
+      ("fused_group_fista", "fused_group_fista.cu",
+       "vtc_tpu/ops/pallas_group_fista.py:238", group_launches, group_err,
+       g_ms, gp_ms, k1_bound),
+      ("fused_group_train_step", "fused_group_train_step.cu",
+       "vtc_tpu/ops/pallas_train_step.py:1402", group_train_launches,
+       group_train_err, gstep_ms, gplain_step_ms, k2_bound),
+      ("fused_conv_direct", "fused_conv_direct.cu",
+       "vtc_tpu/ops/pallas_conv_direct.py:416",
+       conv_launches + conv_train_launches, conv_err, k10_ms, k10_p_ms,
+       (k10_bound, k10_by)),
+      ("fused_conv_fista", "fused_conv_fista.cu",
+       "vtc_tpu/ops/pallas_conv_fista.py:329", k11_launches, conv_err_gram,
+       k11_ms, k11_p_ms, (k11_bound, k11_by)),
+  ]
   print(json.dumps({"kernels": [{
-      "name": "fused_fista",
+      "name": name,
       "route": "cuda",
-      "source": "vtc_tpu_torch/csrc/fused_fista.cu",
-      "replaces": "vtc_tpu/ops/pallas_fista.py:44",
-      "launches": launches + fit_launches,
-      "max_abs_err": max_err,
-      "ms": ms,
-      "plain_ms": p_ms,
-  }, {
-      "name": "fused_train_step",
-      "route": "cuda",
-      "source": "vtc_tpu_torch/csrc/fused_train_step.cu",
-      "replaces": "vtc_tpu/ops/pallas_train_step.py:396",
-      "launches": train_launches,
-      "max_abs_err": train_err,
-      "ms": step_ms,
-      "plain_ms": plain_step_ms,
-  }, {
-      "name": "fused_group_fista",
-      "route": "cuda",
-      "source": "vtc_tpu_torch/csrc/fused_group_fista.cu",
-      "replaces": "vtc_tpu/ops/pallas_group_fista.py:54",
-      "launches": group_launches,
-      "max_abs_err": group_err,
-      "ms": g_ms,
-      "plain_ms": gp_ms,
-  }, {
-      "name": "fused_group_train_step",
-      "route": "cuda",
-      "source": "vtc_tpu_torch/csrc/fused_group_train_step.cu",
-      "replaces": "vtc_tpu/ops/pallas_train_step.py:539",
-      "launches": group_train_launches,
-      "max_abs_err": group_train_err,
-      "ms": gstep_ms,
-      "plain_ms": gplain_step_ms,
-  }]}))
+      "source": "vtc_tpu_torch/csrc/" + source,
+      "replaces": replaces,
+      "launches": n,
+      "max_abs_err": err,
+      "ms": t,
+      "plain_ms": t_plain,
+      "bound_ms": bnd[0],
+      "bound_by": bnd[1],
+      "library_ms": None,  # no single PyTorch call computes these solves
+  } for name, source, replaces, n, err, t, t_plain, bnd in kernels]}))
   print(card)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": kind,

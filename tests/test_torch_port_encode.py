@@ -126,7 +126,8 @@ def test_encode_dataset_matches_jax(problem, formulation):
   want = jax_encode_dataset(x, d, LAM, ITERS, batch_size=BATCH,
                             chunk_batches=CHUNK)
   got = encode_dataset(x, d, LAM, ITERS, batch_size=BATCH,
-                       chunk_batches=CHUNK, formulation=formulation)
+                       chunk_batches=CHUNK, formulation=formulation,
+                       device="cpu")
   assert isinstance(got, np.ndarray) and got.shape == (D, S)
   assert_close(got, want, "encode_dataset formulation=%s" % formulation)
 
@@ -142,10 +143,10 @@ def test_encode_dataset_options_match_jax(problem):
 
 def test_encode_dataset_rejects_unported_options(problem):
   x, d = problem
-  for kw in (dict(mode="convolutional", kernel_stride=(1, 1)),
-             dict(data_parallel=object()), dict(mxu_precision="bf16")):
+  # mode='convolutional' is ported (tests/test_torch_port_conv.py)
+  for kw in (dict(data_parallel=object()), dict(mxu_precision="bf16")):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-      encode_dataset(x, d, LAM, 5, **kw)
+      encode_dataset(x, d, LAM, 5, device="cpu", **kw)
 
 
 def test_sparse_coder_matches_jax(problem, tmp_path):

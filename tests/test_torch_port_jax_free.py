@@ -1,7 +1,8 @@
-"""vtc_tpu_torch never imports jax -- it encodes and trains with jax
+"""vtc_tpu_torch never imports jax nor the JAX package vtc_tpu -- it
+encodes and trains, with checkpoints and a reset/prune schedule, with both
 blocked -- and chip_smoke.py has no CPU path.
 
-The jax blocker implements ``find_spec``: Python 3.12 ignores a meta-path
+The blocker implements ``find_spec``: Python 3.12 ignores a meta-path
 finder that only has ``find_module``, so such a finder blocks nothing.
 """
 import json
@@ -19,17 +20,19 @@ import sys
 
 class JaxBlocker:
   def find_spec(self, name, path=None, target=None):
-    if name == "jax" or name.startswith(("jax.", "jaxlib")):
-      raise ImportError("jax blocked: " + name)
+    if (name in ("jax", "vtc_tpu")
+        or name.startswith(("jax.", "jaxlib", "vtc_tpu."))):
+      raise ImportError("blocked: " + name)
     return None
 
 sys.meta_path.insert(0, JaxBlocker())
-try:
-  import jax
-except ImportError:
-  pass
-else:
-  raise SystemExit("the blocker let jax through")
+for blocked in ("jax", "vtc_tpu", "vtc_tpu.utils.checkpoint"):
+  try:
+    __import__(blocked)
+  except ImportError:
+    pass
+  else:
+    raise SystemExit("the blocker let %s through" % blocked)
 
 import numpy as np
 import vtc_tpu_torch
@@ -41,7 +44,8 @@ rng = np.random.RandomState(0)
 d = rng.randn(16, 12).astype(np.float32)
 d /= np.linalg.norm(d, axis=1, keepdims=True)
 codes = encode.encode_dataset(rng.randn(40, 12), d, 0.01, 5, batch_size=16,
-                              chunk_batches=2, formulation="pallas")
+                              chunk_batches=2, formulation="pallas",
+                              device="cpu")
 assert codes.shape == (40, 16)
 
 # the trainer slice: both trainers and SparseCoder.fit, a few steps each
@@ -63,12 +67,25 @@ params = {
 }
 for trainer in (sparse_coding.train_dictionary,
                 compiled_epoch.train_dictionary_scanned):
-  trained = trainer(batches, batches[:1], d, params)
+  trained = trainer(batches, batches[:1], d, params, device="cpu")
   assert trained.shape == (16, 12) and bool(trained.isfinite().all())
   assert float((trained - vtc_tpu_torch.convert.dictionary_from_numpy(
       d, "cpu")).abs().max()) > 0
+# checkpoints and a reset/prune schedule: the port's own host modules
+import pathlib, tempfile
+logdir = pathlib.Path(tempfile.mkdtemp())
+events = dict(params, checkpoint_schedule={2, 4}, logging_folder_fullpath=(
+    str(logdir)), dict_element_rp_schedule={3: {
+        "filter_type": "random", "filter_params": {"num_to_modify": 2},
+        "action": "prune"}})
+trained = sparse_coding.train_dictionary(batches, batches[:1], d, events,
+                                         device="cpu")
+assert trained.shape == (14, 12)
+resumed, state, it = convert.load_train_state(logdir, "cpu")
+assert it == 4 and state["train_iteration"] == 4 and resumed.shape == (14, 12)
 coder = SparseCoder(16, sparsity_weight=0.05, inference_iters=5,
-                    formulation="pallas").fit(rng.randn(64, 12), 2, 16)
+                    formulation="pallas", device="cpu").fit(
+                        rng.randn(64, 12), 2, 16)
 assert coder.dictionary.shape == (16, 12)
 
 # the subspace slice: group encoding, the K4 and K6 wrappers' plain
@@ -82,7 +99,7 @@ from vtc_tpu_torch.ops import fused_group_fista, fused_group_train_step
 groups = [[0, 1, 2, 3], [4, 5], [5, 6, 7], list(range(8, 16))]
 codes = encode.encode_dataset(rng.randn(40, 12), d, 0.01, 5, batch_size=16,
                               chunk_batches=2, formulation="pallas",
-                              group_assignments=groups)
+                              group_assignments=groups, device="cpu")
 assert codes.shape == (40, 16)
 sub_params = dict(params, code_inference_algorithm="subspace_fista",
                   dictionary_update_algorithm=(
@@ -90,8 +107,33 @@ sub_params = dict(params, code_inference_algorithm="subspace_fista",
                   group_assignments=groups, subspace_alignment_penalty=0.2)
 for trainer in (sparse_coding.train_dictionary,
                 compiled_epoch.train_dictionary_scanned):
-  trained = trainer(batches, batches[:1], d, sub_params)
+  trained = trainer(batches, batches[:1], d, sub_params, device="cpu")
   assert trained.shape == (16, 12) and bool(trained.isfinite().all())
+
+# the conv slice: one conv encode (K10's plain version) and two steps of
+# the per-batch conv trainer
+from vtc_tpu_torch.analysis_transforms.convolutional import (
+    ista_fista as conv_ista_fista)
+from vtc_tpu_torch.dict_update_rules.convolutional import (
+    sc_cheap_quadratic_descent as conv_cqd, sc_steepest_descent as conv_sd)
+from vtc_tpu_torch.ops import (conv_dict_gram, conv_gram, conv_shapes,
+                               convolutions, fused_conv_direct,
+                               fused_conv_fista)
+kernels = rng.randn(6, 1, 4, 4).astype(np.float32)
+kernels /= np.sqrt((kernels ** 2).sum(axis=(1, 2, 3), keepdims=True))
+images = np.pad(rng.randn(2, 5, 1, 8, 8),
+                ((0, 0), (0, 0), (0, 0), (2, 2), (2, 2))).astype(np.float32)
+conv = dict(kernel_stride=(2, 2), padding=((2, 2), (2, 2)))
+codes = encode.encode_dataset(images[0], kernels, 0.05, 5, batch_size=3,
+                              mode="convolutional", formulation="pallas",
+                              device="cpu", **conv)
+assert codes.shape == (5, 6, 5, 5) and np.isfinite(codes).all()
+conv_params = dict(params, mode="convolutional", num_epochs=1,
+                   strides=(2, 2), padding=((2, 2), (2, 2)),
+                   conv_formulation="pallas")
+trained = sparse_coding.train_dictionary(images, images[:1], kernels,
+                                         conv_params, device="cpu")
+assert trained.shape == (6, 1, 4, 4) and bool(trained.isfinite().all())
 assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
 # nor anything of the JAX package itself (the smoke run on the card
 # imports the port alone)

@@ -230,7 +230,8 @@ def test_encode_dataset_groups_matches_jax(rng, formulation):
   x = (codes @ d + 0.05 * rng.randn(300, 32)).astype(np.float32)
   kw = dict(batch_size=64, chunk_batches=2, group_assignments=groups)
   want = jax_encode_dataset(x, d.astype(np.float32), 0.05, 30, **kw)
-  got = encode_dataset(x, d, 0.05, 30, formulation=formulation, **kw)
+  got = encode_dataset(x, d, 0.05, 30, formulation=formulation,
+                       device="cpu", **kw)
   assert isinstance(got, np.ndarray) and got.shape == (300, 48)
   assert_close(got, want, "encode_dataset groups formulation=%s"
                % formulation)

@@ -45,6 +45,7 @@ from vtc_tpu_torch.dict_update_rules.fully_connected import (
     subspace_sc_steepest_descent)
 from vtc_tpu_torch.ops import fused_group_train_step as fgts
 from vtc_tpu_torch.training import compiled_epoch
+from vtc_tpu_torch.training import reset_prune as port_reset_prune
 from vtc_tpu_torch.training import sparse_coding as sc
 
 ATOL = 2e-5
@@ -279,15 +280,16 @@ def test_raw_step_matches_jax(rng, formulation, update_alg, penalty):
 
 @pytest.fixture
 def seeded_reset_prune(monkeypatch):
-  """Both trainers call the shared reset_prune module; give every call
-  the same seeded generator."""
-  original = reset_prune.reset_or_prune_dict_elements
+  """Each trainer calls its own package's reset_prune module (the port's
+  is a copy of vtc_tpu's); give every call the same seeded generator."""
+  for module in (reset_prune, port_reset_prune):
+    original = module.reset_or_prune_dict_elements
 
-  def seeded(*args, **kwargs):
-    kwargs.setdefault("rng", np.random.default_rng(7))
-    return original(*args, **kwargs)
+    def seeded(*args, _original=original, **kwargs):
+      kwargs.setdefault("rng", np.random.default_rng(7))
+      return _original(*args, **kwargs)
 
-  monkeypatch.setattr(reset_prune, "reset_or_prune_dict_elements", seeded)
+    monkeypatch.setattr(module, "reset_or_prune_dict_elements", seeded)
 
 
 def test_train_dictionary_matches_jax(rng, seeded_reset_prune):
@@ -298,7 +300,7 @@ def test_train_dictionary_matches_jax(rng, seeded_reset_prune):
       5: {"filter_type": "random", "filter_params": {"num_to_modify": 3},
           "action": "prune"}})
   want = np.asarray(jax_sc.train_dictionary(data, data[:1], d0, params))
-  got = sc.train_dictionary(data, data[:1], d0, params)
+  got = sc.train_dictionary(data, data[:1], d0, params, device="cpu")
   assert got.shape == want.shape == (21, 16)
   assert_close(got, want, "subspace train_dictionary with a prune")
 
@@ -323,7 +325,8 @@ def test_scanned_matches_jax(rng, extra):
   data, d0 = _data(rng)
   params = _params(**extra)
   want, bound = _jax_scanned_and_floor(data, data[:1], d0, params)
-  got = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params)
+  got = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params,
+                                                device="cpu")
   assert got.dtype == torch.float32
   assert_close(got, want, "scanned %s" % extra, atol=bound)
   assert fgts.launches == 0  # CPU: the per-step runner
@@ -344,7 +347,7 @@ def test_scanned_prune_and_metrics_match_jax(rng, tmp_path,
                                / "jax")))
   got = compiled_epoch.train_dictionary_scanned(
       data, data[:2], d0, dict(params, logging_folder_fullpath=tmp_path
-                               / "port"))
+                               / "port"), device="cpu")
   assert got.shape == want.shape == (22, 16)
   assert_close(got, want, "scanned subspace with a prune")
   assert list((tmp_path / "port").glob("events.out.tfevents.*"))
@@ -438,5 +441,6 @@ def test_cuda_scanned_runs_the_fused_group_kernels(rng):
   got = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params,
                                                 device=dev)
   assert fgts.launches == 12
-  want = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params)
+  want = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params,
+                                                 device="cpu")
   assert_close(got.cpu(), want, "cuda scanned vs cpu", atol=1e-3)

@@ -38,6 +38,7 @@ from vtc_tpu_torch.api import SparseCoder
 from vtc_tpu_torch.data.dataset_generation import BatchIterator
 from vtc_tpu_torch.ops import fused_fista, fused_train_step
 from vtc_tpu_torch.training import compiled_epoch
+from vtc_tpu_torch.training import reset_prune as port_reset_prune
 from vtc_tpu_torch.training import sparse_coding as sc
 
 ATOL = 2e-5
@@ -92,15 +93,16 @@ def _jax_scanned_and_floor(data, val, d0, params):
 
 @pytest.fixture
 def seeded_reset_prune(monkeypatch):
-  """Both trainers call the shared reset_prune module; give every call
-  the same seeded generator."""
-  original = reset_prune.reset_or_prune_dict_elements
+  """Each trainer calls its own package's reset_prune module (the port's
+  is a copy of vtc_tpu's); give every call the same seeded generator."""
+  for module in (reset_prune, port_reset_prune):
+    original = module.reset_or_prune_dict_elements
 
-  def seeded(*args, **kwargs):
-    kwargs.setdefault("rng", np.random.default_rng(7))
-    return original(*args, **kwargs)
+    def seeded(*args, _original=original, **kwargs):
+      kwargs.setdefault("rng", np.random.default_rng(7))
+      return _original(*args, **kwargs)
 
-  monkeypatch.setattr(reset_prune, "reset_or_prune_dict_elements", seeded)
+    monkeypatch.setattr(module, "reset_or_prune_dict_elements", seeded)
 
 
 @pytest.mark.parametrize("formulation", ["gram", "direct", "pallas"])
@@ -141,7 +143,8 @@ def test_train_dictionary_matches_jax(rng, tmp_path, seeded_reset_prune):
   want = np.asarray(jax_sc.train_dictionary(
       data, data[:1], d0, dict(params, logging_folder_fullpath=jax_dir)))
   got = sc.train_dictionary(data, data[:1], d0,
-                            dict(params, logging_folder_fullpath=port_dir))
+                            dict(params, logging_folder_fullpath=port_dir),
+                            device="cpu")
   assert got.dtype == torch.float32 and got.shape == d0.shape
   assert_close(got, want, "train_dictionary")
   for it in (4, 8):
@@ -168,7 +171,8 @@ def test_train_dictionary_matches_jax(rng, tmp_path, seeded_reset_prune):
     d, state, it = convert.load_train_state(folder, "cpu")
     assert it == 8 and state["train_iteration"] == 8
     got = sc.train_dictionary(data, data[:1], d,
-                              dict(resume, resume_state=state))
+                              dict(resume, resume_state=state),
+                              device="cpu")
     assert_close(got, want, "resume from %s" % folder.name, atol=1e-4)
 
 
@@ -181,7 +185,7 @@ def test_train_dictionary_prune_and_stepsize_interval(rng,
                            "filter_params": {"num_to_modify": 3},
                            "action": "prune"}})
   want = np.asarray(jax_sc.train_dictionary(data, data[:1], d0, params))
-  got = sc.train_dictionary(data, data[:1], d0, params)
+  got = sc.train_dictionary(data, data[:1], d0, params, device="cpu")
   assert got.shape == (21, 16)
   # the power stepsize starts from another vector in each framework
   # (ROADMAP.md §3): both converge to the top eigenvalue only to ~1e-3
@@ -199,7 +203,8 @@ def test_scanned_matches_jax(rng, extra):
   data, d0 = _data(rng)
   params = _params(**extra)
   want, bound = _jax_scanned_and_floor(data, data[:1], d0, params)
-  got = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params)
+  got = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params,
+                                                device="cpu")
   assert got.dtype == torch.float32
   assert_close(got, want, "scanned %s" % extra, atol=bound)
   assert fused_train_step.launches == 0  # CPU: the per-step runner
@@ -223,7 +228,7 @@ def test_scanned_events_match_jax(rng, tmp_path, seeded_reset_prune):
         dict(params, logging_folder_fullpath=tmp_path / name)))
   got = compiled_epoch.train_dictionary_scanned(
       data, data[:2], d0, dict(params, logging_folder_fullpath=tmp_path
-                               / "port"))
+                               / "port"), device="cpu")
 
   def floor(jax_value, nudged_value):
     return max(ATOL, 2.0 * float(np.abs(nudged_value - jax_value).max()))
@@ -244,14 +249,16 @@ def test_scanned_shuffling_changes_order_not_quality(rng):
   data, d0 = _data(rng, k=4)
   base = _params(num_epochs=3, dictionary_update_algorithm=(
       "sc_steepest_descent"))
-  plain = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, base)
+  cpu = dict(device="cpu")
+  plain = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, base,
+                                                  **cpu)
   shuffled = compiled_epoch.train_dictionary_scanned(
-      data, data[:1], d0, dict(base, shuffle_each_epoch=True))
+      data, data[:1], d0, dict(base, shuffle_each_epoch=True), **cpu)
   again = compiled_epoch.train_dictionary_scanned(
-      data, data[:1], d0, dict(base, shuffle_each_epoch=True))
+      data, data[:1], d0, dict(base, shuffle_each_epoch=True), **cpu)
   other = compiled_epoch.train_dictionary_scanned(
       data, data[:1], d0, dict(base, shuffle_each_epoch=True,
-                               shuffle_seed=1))
+                               shuffle_seed=1), **cpu)
   assert not torch.allclose(plain, shuffled)  # the order changed
   assert torch.equal(shuffled, again)         # ... reproducibly
   assert not torch.allclose(shuffled, other)  # ... by the seed
@@ -280,7 +287,7 @@ def test_sparse_coder_fit_matches_jax(rng):
   kw = dict(sparsity_weight=0.05, inference_iters=10, update_stepsize=0.05)
   want = jax_api.SparseCoder(24, **kw).fit(x, num_epochs=2, batch_size=50)
   before = fused_fista.launches
-  got = SparseCoder(24, formulation="pallas", **kw).fit(
+  got = SparseCoder(24, formulation="pallas", device="cpu", **kw).fit(
       x, num_epochs=2, batch_size=50)
   assert fused_fista.launches == before  # CPU: the plain version
   assert isinstance(got.dictionary, torch.Tensor)
@@ -333,8 +340,21 @@ def test_trainers_refuse_what_waits(rng, trainer, change, item):
   data, d0 = _data(rng, k=2)
   fn = (sc.train_dictionary if trainer == "per_batch"
         else compiled_epoch.train_dictionary_scanned)
+  if change.get("mode") == "convolutional":
+    # conv images and kernels; the per-batch conv trainer runs (held to
+    # vtc_tpu in tests/test_torch_port_conv_train.py), the scanned one
+    # waits for K12
+    data = rng.randn(2, 3, 1, 12, 12).astype(np.float32)
+    d0 = rng.randn(6, 1, 4, 4).astype(np.float32)
+    d0 /= np.sqrt((d0 ** 2).sum(axis=(1, 2, 3), keepdims=True))
+    change = dict(change, strides=(2, 2), padding=((2, 2), (2, 2)))
+    if trainer == "per_batch":
+      got = fn(data, data[:1], d0, _params(**change), device="cpu")
+      assert got.shape == d0.shape and bool(torch.isfinite(got).all())
+      return
+    item = item + "|K12"
   with pytest.raises(NotImplementedError, match=item):
-    fn(data, data[:1], d0, _params(**change))
+    fn(data, data[:1], d0, _params(**change), device="cpu")
 
 
 @pytest.mark.cuda
@@ -366,7 +386,8 @@ def test_cuda_scanned_runs_the_fused_kernels(rng):
   got = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params,
                                                 device="cuda")
   assert fused_train_step.launches == 12
-  want = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params)
+  want = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params,
+                                                 device="cpu")
   assert_close(got.cpu(), want, "cuda scanned vs cpu", atol=1e-3)
 
 

@@ -2,7 +2,7 @@
 (vtc_tpu/api.py:21-100): ``fit``, ``encode`` and ``decode``.
 
   coder = SparseCoder(num_atoms=256, sparsity_weight=0.008,
-                      formulation="pallas", device="cuda")
+                      formulation="pallas")             # on the card
   coder.fit(patches, num_epochs=5)                 # or set .dictionary,
   codes = coder.encode(patches, batch_size=2048)   # e.g. from convert
   recon = coder.decode(codes)                      # tensor (D, n)
@@ -10,10 +10,13 @@
 ``fit`` trains through the port's ``training.sparse_coding.
 train_dictionary``, one step per batch of a shuffling ``BatchIterator``;
 with formulation='pallas' on a CUDA device every solve runs K1's kernel.
+The coder runs on ``device``, by default the CUDA device (raising without
+one); ``device="cpu"`` runs it on the CPU.
 """
 import numpy as np
 import torch
 
+from vtc_tpu_torch.device import resolve_device
 from vtc_tpu_torch.ops.precision import matmul_precision
 
 
@@ -24,7 +27,7 @@ class SparseCoder:
                inference_algorithm="fista", inference_iters=50,
                update_algorithm="sc_cheap_quadratic_descent",
                update_stepsize=0.1, formulation="gram", seed=0,
-               device="cpu"):
+               device=None):
     self.num_atoms = int(num_atoms)
     self.sparsity_weight = float(sparsity_weight)
     self.inference_algorithm = inference_algorithm
@@ -33,7 +36,7 @@ class SparseCoder:
     self.update_stepsize = float(update_stepsize)
     self.formulation = formulation
     self.seed = seed
-    self.device = torch.device(device)
+    self.device = resolve_device(device)
     self.dictionary = None
 
   def fit(self, patches, num_epochs=5, batch_size=250, **extra_params):

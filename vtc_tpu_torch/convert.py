@@ -1,10 +1,11 @@
 """Bring the JAX package's parameters across to the port.
 
 vtc_tpu's dictionaries travel as numpy arrays: ``np.asarray`` of its jax
-arrays, or the framework-agnostic pickled checkpoints of
-vtc_tpu/utils/checkpoint.py (which imports neither framework and is
-shared, not copied).  The encode path needs the (s, n) dictionary; the
-trainer also carries the Hessian-diagonal EMA (s,) and the warm Lipschitz
+arrays, or the framework-agnostic pickled checkpoints, which the port
+reads and writes with its own copy of vtc_tpu/utils/checkpoint.py
+(``vtc_tpu_torch/utils/checkpoint.py``, the same on-disk format).  The
+encode path needs the (s, n) dictionary, or the (s, c, kh, kw) kernels of
+a convolutional one; the fc trainer also carries the Hessian-diagonal EMA (s,) and the warm Lipschitz
 eigenvector -- (min(s, n),), or (min(G*M, n),) of the grouped Gram for
 the subspace trainer -- and resumes from the train-state sidecar that
 vtc_tpu's trainers write beside each dictionary checkpoint.
@@ -14,18 +15,18 @@ import torch
 
 
 def dictionary_from_numpy(array, device):
-  """A float32 contiguous tensor on ``device`` from an (s, n) array."""
+  """A float32 contiguous tensor on ``device`` from an (s, n) dictionary
+  or (s, c, kh, kw) convolutional kernels."""
   array = np.ascontiguousarray(array, dtype=np.float32)
-  if array.ndim != 2:
-    raise ValueError("expected an (s, n) dictionary, got shape %s"
-                     % (array.shape,))
+  if array.ndim not in (2, 4):
+    raise ValueError("expected an (s, n) dictionary or (s, c, kh, kw) "
+                     "kernels, got shape %s" % (array.shape,))
   return torch.tensor(array, device=device)
 
 
 def load_dictionary(path, device):
   """Load a ``checkpoint_dictionary_iter_<N>`` file onto ``device``."""
-  # imported here: only reading a checkpoint loads anything of vtc_tpu
-  from vtc_tpu.utils.checkpoint import load_dictionary_checkpoint
+  from vtc_tpu_torch.utils.checkpoint import load_dictionary_checkpoint
   return dictionary_from_numpy(load_dictionary_checkpoint(path), device)
 
 
@@ -63,7 +64,7 @@ def load_train_state(checkpoint_dir, device):
   'train_iteration' (an int), or is None when the checkpoint has no
   sidecar.
   """
-  from vtc_tpu.utils.checkpoint import resume_training_state
+  from vtc_tpu_torch.utils.checkpoint import resume_training_state
   dictionary, state, iteration = resume_training_state(checkpoint_dir)
   if state is not None:
     state = {"hessian_diagonal": torch.tensor(

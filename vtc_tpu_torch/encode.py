@@ -1,6 +1,6 @@
-"""High-throughput dataset encoding (the serving path): counterpart of the
-fully-connected and subspace branches of ``encode_dataset``
-(vtc_tpu/encode.py:96-249).
+"""High-throughput dataset encoding (the serving path): counterpart of
+``encode_dataset`` (vtc_tpu/encode.py:96-249), fully-connected, subspace
+and convolutional.
 
 * The stepsize (top Gram eigenvalue; of the grouped dictionary's Gram
   with ``group_assignments``) is computed once per dictionary on the
@@ -8,25 +8,36 @@ fully-connected and subspace branches of ``encode_dataset``
 * The dataset is cut into ``batch_size`` batches, the tail padded with
   zero rows (zero codes, dropped at the end; vtc_tpu/encode.py:216-224),
   and walked in chunks of ``chunk_batches`` batches.
-* On a CUDA device each batch solve is the fused FISTA kernel K1, or
-  with ``group_assignments`` the fused group FISTA kernel K4
-  (``formulation=None`` resolves to 'pallas' there and to 'gram' on the
-  CPU, as JAX resolves it to 'pallas' on the TPU, encode.py:143-145).
+* On a CUDA device each batch solve is the fused FISTA kernel K1, with
+  ``group_assignments`` the fused group FISTA kernel K4, and with
+  ``mode='convolutional'`` the conv kernel K10 (``formulation=None``
+  resolves to 'pallas' there and to 'gram' on the CPU, as JAX resolves it
+  to 'pallas' on the TPU, encode.py:143-145; in conv mode only where
+  K10's gate holds, else to 'gram', as JAX's geometry-aware default does,
+  :146-159).
   The next chunk's host->device copy runs on a side stream from pinned
   memory while the current chunk computes, with an event before each
   use; results are drained one chunk behind (encode.py:226-246), their
   device->host copy overlapping the next chunk's compute.
 
-  codes = encode_dataset(patches, dictionary, 0.008, 100, device="cuda")
+  codes = encode_dataset(patches, dictionary, 0.008, 100)
+  codes = encode_dataset(images, kernels, 0.05, 100, batch_size=40,
+                         mode="convolutional", kernel_stride=(8, 8),
+                         padding=((8, 8), (8, 8)))
 
-Convolutional mode and ``data_parallel`` raise NotImplementedError until
-their slices land.
+The solves run on ``device``, by default the dictionary's device when it
+is a tensor, else the CUDA device (``device="cpu"`` runs on the CPU).
+``data_parallel`` raises NotImplementedError until its slice lands.
 """
 import numpy as np
 import torch
 
+from vtc_tpu_torch.analysis_transforms.convolutional import (
+    ista_fista as conv_ista_fista)
 from vtc_tpu_torch.analysis_transforms.fully_connected import (
     ista_fista, subspace_ista_fista)
+from vtc_tpu_torch.device import resolve_device
+from vtc_tpu_torch.ops import conv_shapes, fused_conv_direct
 from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
 
 
@@ -96,11 +107,7 @@ class _CudaChunks:
 
 
 def _check_scope(mode, data_parallel, mxu_precision):
-  if mode == "convolutional":
-    raise NotImplementedError(
-        "mode='convolutional' waits for the conv slice, ROADMAP.md §1 "
-        "item 7")
-  if mode != "fully-connected":
+  if mode not in ("fully-connected", "convolutional"):
     raise ValueError("mode must be 'fully-connected' or 'convolutional'")
   if data_parallel is not None:
     raise NotImplementedError(
@@ -123,39 +130,39 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
   """Encode a full dataset into codes, batched and streamed.
 
   Args:
-    data: host array, (D, n) flattened patches.
-    dictionary: (s, n) trained dictionary (tensor or array).
+    data: host array, (D, n) flattened patches, or (D, c, H, W) padded
+      images in convolutional mode.
+    dictionary: (s, n) trained dictionary or (s, c, kh, kw) kernels
+      (tensor or array).
     sparsity_weight, num_iters, variant: solver parameters.
-    mode: 'fully-connected' ('convolutional' is not ported yet).
-    batch_size: rows per solver call.
+    mode: 'fully-connected' or 'convolutional'.
+    batch_size: rows (images) per solver call.
     chunk_batches: batches per host->device transfer unit; the device
       holds two input chunks (double buffering).
     group_assignments: list of index lists -> group-sparse inference
       (``subspace_ista_fista.run``; K4 on a CUDA device).
-    kernel_stride, padding, data_parallel: the conv and multi-device
-      options of the JAX function; not ported yet (kernel_stride and
-      padding are conv-only and unused).
+    kernel_stride, padding: conv-mode geometry, as the conv trainer's.
+    data_parallel: the multi-device option of the JAX function; not
+      ported yet.
     nonnegative_only, hard_threshold: threshold variants
       (nonnegative_only is not defined for group-sparse inference).
-    formulation: None -> 'pallas' (the CUDA kernel) on a CUDA device,
-      'gram' on the CPU; or force 'gram' / 'direct' / 'pallas'.
+    formulation: None -> 'pallas' (the CUDA kernel) on a CUDA device
+      (conv: where K10's gate holds), 'gram' elsewhere; or force 'gram' /
+      'direct' / 'pallas'.
     lipschitz_method: 'eigvalsh' (exact, default) or 'power'.
     mxu_precision: 'highest' only.
     device: where to solve; defaults to the dictionary's device when it
-      is a tensor, else the CPU.
+      is a tensor, else the CUDA device (raising without one).
 
   Returns:
-    (D, s) float32 numpy codes.
+    (D, s) float32 numpy codes, or (D, s, sh, sw) in conv mode.
   """
   _check_scope(mode, data_parallel, mxu_precision)
   if nonnegative_only and group_assignments is not None:
     raise ValueError(
         "nonnegative_only is not defined for group-sparse inference "
         "(the group prox shrinks norms, not signs)")
-  if device is None:
-    device = (dictionary.device if isinstance(dictionary, torch.Tensor)
-              else "cpu")
-  device = torch.device(device)
+  device = resolve_device(device, dictionary)
   data = np.ascontiguousarray(data, dtype=np.float32)
   total = data.shape[0]
   if total == 0:
@@ -163,9 +170,31 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
   batch_size, chunk_batches = int(batch_size), int(chunk_batches)
   dictionary = torch.as_tensor(dictionary, dtype=torch.float32,
                                device=device).contiguous()
-  if formulation is None:
+  default_formulation = formulation is None
+  if default_formulation:
     formulation = "pallas" if device.type == "cuda" else "gram"
-  if group_assignments is None:
+  if mode == "convolutional":
+    if kernel_stride is None:
+      raise ValueError("mode='convolutional' needs kernel_stride")
+    kernel_stride = tuple(int(x) for x in kernel_stride)
+    padding = conv_shapes.normalize_padding(padding)
+    if default_formulation and not fused_conv_direct.supported(
+        (batch_size,) + data.shape[1:], dictionary.shape, kernel_stride):
+      # geometry-aware default: outside K10's gate, 'gram'
+      formulation = "gram"
+    eta = lipschitz_ops.fista_stepsize(
+        dictionary.reshape(dictionary.shape[0], -1), lipschitz_method)
+    code_hw = conv_ista_fista.code_spatial_dims(
+        data.shape, dictionary.shape, kernel_stride)
+
+    def solve(batch):
+      return conv_ista_fista.run(
+          batch, dictionary, kernel_stride, padding, sparsity_weight,
+          num_iters, variant=variant, nonnegative_only=nonnegative_only,
+          hard_threshold=hard_threshold, stepsize=eta,
+          formulation=formulation, mxu_precision=mxu_precision)
+  elif group_assignments is None:
+    code_hw = ()
     eta = lipschitz_ops.fista_stepsize(dictionary, lipschitz_method)
 
     def solve(batch):
@@ -175,6 +204,7 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
           stepsize=eta, formulation=formulation,
           mxu_precision=mxu_precision)
   else:
+    code_hw = ()
     groups = [[int(m) for m in g] for g in group_assignments]
     gather, mask, _ = subspace_ista_fista.group_layout(
         groups, dictionary.shape[0], device)
@@ -195,7 +225,7 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
     data = np.concatenate(
         [data, np.zeros((padded - total,) + data.shape[1:], np.float32)])
   batches = data.reshape((num_batches, batch_size) + data.shape[1:])
-  codes = np.empty((num_batches, batch_size, dictionary.shape[0]),
+  codes = np.empty((num_batches, batch_size, dictionary.shape[0]) + code_hw,
                    np.float32)
   if device.type == "cuda":
     chunks = _CudaChunks(device, (chunk_batches,) + batches.shape[1:],
@@ -217,4 +247,4 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
       chunks.drain(*pending)
     pending = (slot, out, codes[pos:nxt])
   chunks.drain(*pending)
-  return codes.reshape(padded, -1)[:total]
+  return codes.reshape((padded,) + codes.shape[2:])[:total]

@@ -127,4 +127,12 @@ def load_library():
       ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
       i32, i32, ptr, ptr, ptr]
   lib.vtc_group_train_segment.restype = i32
+  lib.vtc_conv_direct.argtypes = [
+      ptr, ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32, i32,
+      i32, i32, ptr, ptr, ptr, ptr, ptr]
+  lib.vtc_conv_direct.restype = i32
+  lib.vtc_conv_fista.argtypes = [
+      ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, f32, i32, i32,
+      i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
+  lib.vtc_conv_fista.restype = i32
   return lib

@@ -1,0 +1,328 @@
+"""Direct-formulation convolutional ISTA/FISTA solve: the port of TPU
+kernel K10, ``conv_direct_solve_pallas`` (vtc_tpu/ops/pallas_conv_direct.py:
+355-446), and the stride-block helpers of that file.
+
+In stride-block space the padded image splits into non-overlapping
+sv x sh blocks and a kernel whose dims are multiples of the stride covers
+R = (kh/sv)*(kw/sh) whole blocks, so
+
+  S(z)[block B] = sum_a Dpart[a]^T z[B - a]
+  A(y)[code c]  = sum_a Dpart[a]   y[c + a]
+
+with Dpart[a] the (s, c*sv*sh) kernel part a: one deep product each, and
+the padding mask applied elementwise to the image blocks.  Kernels that
+are not stride multiples are zero-extended, with matching trailing zero
+image rows and columns (``geometry``), which leaves the codes exact.
+
+``fused_conv_direct_solve`` keeps the JAX function's contract.  It packs
+the weights, blockifies mask * X and builds the block mask with torch ops,
+outside the kernel, as the JAX function does with XLA (:383-391).  Then:
+
+* a CUDA tensor launches the hand-written kernel in
+  ``vtc_tpu_torch/csrc/fused_conv_direct.cu`` (built at first use by
+  ``ops/_build.py``) on the current stream, or raises;
+* a CPU tensor runs ``fused_conv_direct_plain``, the plain PyTorch
+  version of the same block iteration, which the CPU tests hold to
+  vtc_tpu's kernel and ``chip_smoke.py`` holds the kernel against.
+
+``supported`` is the JAX gate (:98-112).  ``build_block_update_stats``
+and ``dictionary_gradient_from_block_stats`` (:212-252) are the conv
+trainer's 'block' dictionary gradient, as torch ops.
+
+Scope: no in-kernel early stop and only the 'highest' (IEEE fp32) tier;
+both wait in ROADMAP.md §1 item 3, and the wrapper raises when asked for
+an early stop.  ``launches`` counts solves launched on the card.
+"""
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from vtc_tpu_torch.ops import conv_shapes, thresholds
+from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.solver import proximal_gradient_loop
+
+launches = 0
+
+# the kernel's shrink modes, indexed by (nonneg, hard)
+_MODES = {(False, False): 0, (True, False): 1, (False, True): 2,
+          (True, True): 3}
+
+
+def geometry(img_shape, dict_shape, kernel_stride):
+  """Stride-block geometry (vtc_tpu pallas_conv_direct.py:67-95, without
+  the TPU canvas): kernels zero-extended to (khp, kwp), the padded image
+  to (H + ekh, W + ekw), bh x bw blocks, ay x ax kernel parts and
+  code_h x code_w codes."""
+  _, c, hh, ww = img_shape
+  s, _, kh, kw = dict_shape
+  sv, sh_ = kernel_stride
+  khp = -(-kh // sv) * sv
+  kwp = -(-kw // sh_) * sh_
+  ay, ax = khp // sv, kwp // sh_
+  bh, bw = (hh + khp - kh) // sv, (ww + kwp - kw) // sh_
+  return dict(s=s, c=c, cpx=c * sv * sh_, r=ay * ax, ay=ay, ax=ax, sv=sv,
+              sh=sh_, bh=bh, bw=bw, code_h=bh - (ay - 1),
+              code_w=bw - (ax - 1), kh=kh, kw=kw, khp=khp, kwp=kwp,
+              ekh=khp - kh, ekw=kwp - kw)
+
+
+def supported(img_shape, dict_shape, kernel_stride):
+  """The JAX gate: stride-exact padded dims and per-part weights of at
+  most 512 x 512 (vtc_tpu pallas_conv_direct.py:98-112)."""
+  _, c, hh, ww = img_shape
+  s, _, kh, kw = dict_shape
+  sv, sh_ = kernel_stride
+  if (hh - kh) % sv or (ww - kw) % sh_:
+    return False
+  if c * sv * sh_ > 512 or s > 512:
+    return False
+  geo = geometry(img_shape, dict_shape, kernel_stride)
+  return geo["code_h"] >= 1 and geo["code_w"] >= 1
+
+
+def pack_weights(dictionary, geo):
+  """(dstk, dall): synthesis (cpx, R*s) and analysis (s, R*cpx), with
+  parts[a, i, (ch, py, px)] = D[i, ch, a_y*sv + py, a_x*sh + px]."""
+  s, c = geo["s"], geo["c"]
+  d = F.pad(dictionary, (0, geo["ekw"], 0, geo["ekh"]))
+  parts = d.reshape(s, c, geo["ay"], geo["sv"], geo["ax"], geo["sh"])
+  parts = parts.permute(2, 4, 0, 1, 3, 5).reshape(geo["r"], s, geo["cpx"])
+  dstk = parts.permute(2, 0, 1).reshape(geo["cpx"], geo["r"] * s)
+  dall = parts.permute(1, 0, 2).reshape(s, geo["r"] * geo["cpx"])
+  return dstk.contiguous(), dall.contiguous()
+
+
+def unpack_dstk(grad_dstk, geo, kernel_shape):
+  """(cpx, R*s) dstk-layout gradient -> (s, c, kh, kw), the extension
+  rows and columns sliced away."""
+  s, c, kh, kw = kernel_shape
+  parts = grad_dstk.reshape(geo["cpx"], geo["r"], s).permute(1, 2, 0)
+  full = parts.reshape(geo["ay"], geo["ax"], s, c, geo["sv"],
+                       geo["sh"]).permute(2, 3, 0, 4, 1, 5).reshape(
+                           s, c, geo["khp"], geo["kwp"])
+  return full[:, :, :kh, :kw]
+
+
+def blockify(img, geo):
+  """(b, c, H, W) -> (b, cpx, bh, bw) stride blocks, pixel (c, py, px) in
+  the channel dim, after the kernel-extension zero rows and columns."""
+  b = img.shape[0]
+  img = F.pad(img, (0, geo["ekw"], 0, geo["ekh"]))
+  x = img.reshape(b, geo["c"], geo["bh"], geo["sv"], geo["bw"], geo["sh"])
+  return x.permute(0, 1, 3, 5, 2, 4).reshape(b, geo["cpx"], geo["bh"],
+                                             geo["bw"])
+
+
+def block_mask(images_shape, padding, geo, dtype, device):
+  """(mask_img (1, 1, H, W), mblk (cpx, bh, bw)): the padding mask in
+  image and in block space."""
+  mask_img = conv_shapes.create_mask(images_shape, padding, dtype, device)
+  full = mask_img.expand((1, geo["c"]) + tuple(images_shape[2:]))
+  return mask_img, blockify(full, geo)[0].contiguous()
+
+
+def code_stack(z, geo):
+  """(b, R*s, bh, bw): z[b, j, B - a] stacked over the parts a (zero
+  outside the codes), the synthesis product's right operand."""
+  ay, ax, bh, bw = geo["ay"], geo["ax"], geo["bh"], geo["bw"]
+  zp = F.pad(z, (ax - 1, ax - 1, ay - 1, ay - 1))
+  return torch.cat([
+      zp[:, :, ay - 1 - a_y:ay - 1 - a_y + bh, ax - 1 - a_x:ax - 1 - a_x + bw]
+      for a_y in range(ay) for a_x in range(ax)], dim=1)
+
+
+def block_stack(img, geo):
+  """(b, R*cpx, code_h, code_w): y[b, p, c + a] stacked over the parts
+  a, the analysis product's right operand."""
+  ch, cw = geo["code_h"], geo["code_w"]
+  return torch.cat([img[:, :, a_y:a_y + ch, a_x:a_x + cw]
+                    for a_y in range(geo["ay"]) for a_x in range(geo["ax"])],
+                   dim=1)
+
+
+def _product(weights, stack):
+  """(m, K) x (b, K, h, w) -> (b, m, h, w)."""
+  b, k, h, w = stack.shape
+  return (weights @ stack.reshape(b, k, h * w)).reshape(b, -1, h, w)
+
+
+def fused_conv_direct_plain(images, dictionary, sparsity_weight, num_iters,
+                            stepsize, *, kernel_stride, padding,
+                            initial_codes=None, variant="fista",
+                            nonneg=False, hard=False,
+                            early_stopping_epsilon=None, precision=None):
+  """The plain PyTorch version of K10, on any device and in the inputs'
+  own float type (float64 inputs give the float64 oracle): the same
+  block-space products, mask and update as the kernel.
+  ``early_stopping_epsilon`` is the loop's batch-global stop test;
+  ``precision`` the matmul precision of ``ops/precision`` (default
+  'highest'), 'tensorfloat32' showing what TF32 products would cost."""
+  if variant not in ("ista", "fista"):
+    raise ValueError("variant must be 'ista' or 'fista'")
+  dtype, device = images.dtype, images.device
+  geo = geometry(images.shape, dictionary.shape, tuple(kernel_stride))
+  shrink = thresholds.select(bool(nonneg), bool(hard))
+  eta = torch.as_tensor(stepsize, dtype=dtype, device=device)
+  if initial_codes is None:
+    z = torch.zeros((images.shape[0], geo["s"], geo["code_h"],
+                     geo["code_w"]), dtype=dtype, device=device)
+  else:
+    z = torch.as_tensor(initial_codes, dtype=dtype, device=device)
+  with matmul_precision(precision):
+    dstk, dall = pack_weights(dictionary, geo)
+    mask_img, mblk = block_mask(images.shape, padding, geo, dtype, device)
+    corr = _product(dall, block_stack(blockify(mask_img * images, geo), geo))
+
+    def grad_fn(z):
+      img = _product(dstk, code_stack(z, geo)) * mblk
+      return _product(dall, block_stack(img, geo)) - corr
+
+    def prox_fn(x, ss):
+      return shrink(x, sparsity_weight * ss)
+
+    return proximal_gradient_loop(
+        grad_fn, prox_fn, z, eta, num_iters, variant=variant,
+        early_stopping_epsilon=early_stopping_epsilon)
+
+
+def build_block_update_stats(images_padded, codes, dict_shape,
+                             kernel_stride, padding):
+  """The dictionary-independent part of the block-space kernel gradient
+  (vtc_tpu pallas_conv_direct.py:212-237): the masked image blocks, the
+  code stack and the block mask.  Requires ``supported()``."""
+  geo = geometry(images_padded.shape, dict_shape, tuple(kernel_stride))
+  dtype, device = images_padded.dtype, images_padded.device
+  with matmul_precision():
+    mask_img, mblk = block_mask(images_padded.shape, padding, geo, dtype,
+                                device)
+    xblk = blockify(mask_img * images_padded, geo)
+    zstack = code_stack(codes, geo)
+  return dict(geo=geo, batch=images_padded.shape[0], xblk=xblk,
+              zstack=zstack, mblk=mblk, kernel_shape=tuple(dict_shape))
+
+
+def dictionary_gradient_from_block_stats(stats, dictionary):
+  """(s, c, kh, kw) batch-averaged masked-residual kernel gradient,
+  equal to ops/convolutions.dictionary_gradient, as two block products
+  (vtc_tpu pallas_conv_direct.py:240-252)."""
+  geo = stats["geo"]
+  zstack = stats["zstack"]
+  b, k = zstack.shape[:2]
+  with matmul_precision():
+    dstk, _ = pack_weights(dictionary, geo)
+    resid = _product(dstk, zstack) * stats["mblk"] - stats["xblk"]
+    grad = torch.einsum("bpn,bkn->pk", resid.reshape(b, geo["cpx"], -1),
+                        zstack.reshape(b, k, -1)) / stats["batch"]
+  return unpack_dstk(grad, geo, stats["kernel_shape"])
+
+
+def _require(cond, message):
+  if not cond:
+    raise ValueError("fused_conv_direct_solve: " + message)
+
+
+def fused_conv_direct_solve(images, dictionary, sparsity_weight, num_iters,
+                            stepsize, *, kernel_stride, padding,
+                            initial_codes=None, variant="fista",
+                            nonneg=False, hard=False,
+                            early_stopping_epsilon=None):
+  """Conv LASSO codes through the K10 kernel.
+
+  Args:
+    images: (b, c, H, W) float32 padded images.
+    dictionary: (s, c, kh, kw) float32 kernels on the same device.
+    sparsity_weight: lambda, a Python float.
+    num_iters: iterations, a Python int.
+    stepsize: 1/L, a float or a one-element tensor (a device tensor is
+      read by the kernel, so the host never waits for it).
+    kernel_stride: (sv, sh); padding: ((lv, tv), (lh, th)) or None.
+    initial_codes: optional (b, s, code_h, code_w) warm start.
+    variant / nonneg / hard: 'ista' | 'fista', threshold flags.
+    early_stopping_epsilon: must be None (not in the kernel yet).
+
+  Returns:
+    (b, s, code_h, code_w) codes on the inputs' device.
+  """
+  if variant not in ("ista", "fista"):
+    raise ValueError("variant must be 'ista' or 'fista'")
+  if early_stopping_epsilon is not None:
+    raise NotImplementedError(
+        "the conv kernels have no early stop yet (a batch-global reduction "
+        "per iteration, ROADMAP.md §1 item 3); use formulation='gram'")
+  kernel_stride = tuple(int(x) for x in kernel_stride)
+  padding = conv_shapes.normalize_padding(padding)
+  if images.device.type == "cpu":
+    return fused_conv_direct_plain(
+        images, dictionary, sparsity_weight, num_iters, stepsize,
+        kernel_stride=kernel_stride, padding=padding,
+        initial_codes=initial_codes, variant=variant, nonneg=nonneg,
+        hard=hard)
+  _require(images.device.type == "cuda",
+           "tensors must be on the CPU or a CUDA device, got "
+           + str(images.device))
+  device = images.device
+  _require(dictionary.device == device, "dictionary on another device")
+  _require(images.dtype == torch.float32
+           and dictionary.dtype == torch.float32, "inputs must be float32")
+  _require(images.dim() == 4 and dictionary.dim() == 4
+           and images.shape[1] == dictionary.shape[1],
+           "shapes must be (b, c, H, W) and (s, c, kh, kw), got %s and %s"
+           % (tuple(images.shape), tuple(dictionary.shape)))
+  _require(supported(images.shape, dictionary.shape, kernel_stride),
+           "geometry outside the kernel's gate (supported())")
+  geo = geometry(images.shape, dictionary.shape, kernel_stride)
+  b, s = images.shape[0], geo["s"]
+  code_shape = (b, s, geo["code_h"], geo["code_w"])
+  if initial_codes is None:
+    z = torch.zeros(code_shape, dtype=torch.float32, device=device)
+  else:
+    _require(initial_codes.device == device
+             and initial_codes.dtype == torch.float32
+             and tuple(initial_codes.shape) == code_shape,
+             "initial_codes must be a float32 %s tensor on the inputs' "
+             "device" % (code_shape,))
+    z = initial_codes.clone(memory_format=torch.contiguous_format)
+  num_iters = int(num_iters)
+  _require(num_iters >= 0, "num_iters must be >= 0")
+  eta = torch.as_tensor(stepsize, dtype=torch.float32, device=device)
+  _require(eta.numel() == 1, "stepsize must be a scalar")
+  eta = eta.reshape(1).contiguous()
+  if b == 0:
+    return z
+  with matmul_precision():
+    dstk, dall = pack_weights(dictionary, geo)
+    mask_img, mblk = block_mask(images.shape, padding, geo, torch.float32,
+                                device)
+    xblk = blockify(mask_img * images, geo).contiguous()
+  return _launch(dstk, dall, mblk, xblk, eta, float(sparsity_weight),
+                 num_iters, variant == "fista",
+                 _MODES[(bool(nonneg), bool(hard))], geo, z)
+
+
+def _launch(dstk, dall, mblk, xblk, eta, lam, num_iters, fista, mode, geo,
+            z):
+  """Allocate the kernel's scratch and enqueue the solve on the current
+  stream."""
+  global launches
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  device = z.device
+  b = z.shape[0]
+  img = torch.empty_like(xblk)
+  corr = torch.empty_like(z)
+  old = z.clone()
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.vtc_conv_direct(
+        dstk.data_ptr(), dall.data_ptr(), mblk.data_ptr(), xblk.data_ptr(),
+        eta.data_ptr(), ctypes.c_float(lam), num_iters, b, geo["s"],
+        geo["cpx"], geo["ay"], geo["ax"], geo["bh"], geo["bw"], int(fista),
+        mode, img.data_ptr(), corr.data_ptr(), z.data_ptr(), old.data_ptr(),
+        stream)
+  if err != 0:
+    raise RuntimeError(
+        "conv direct kernel launch failed with CUDA error %d (b=%d, s=%d, "
+        "cpx=%d, R=%d)" % (err, b, geo["s"], geo["cpx"], geo["r"]))
+  launches += 1
+  return old

@@ -37,7 +37,7 @@ a seed.  A prune remaps the groups and rebuilds the step (:978-985).
 JAX package's ``jax.random.permutation``, not the same order.
 
 Raise NotImplementedError, each naming its ROADMAP.md §1 item:
-data_parallel (item 9), conv (item 7), 'hbm_chunk_steps' streaming
+data_parallel (item 9), conv (K12, item 7), 'hbm_chunk_steps' streaming
 (item 8), 'train_precision' other than 'highest' (item 3), and
 'early_stopping_epsilon' where the kernels would run it on a CUDA device
 (item 3).
@@ -111,7 +111,8 @@ def train_dictionary_scanned(training_batches, validation_batches,
   """Train with whole segments.  ``training_batches``: a (k, b, n) array
   or tensor; each epoch runs over axis 0.  The training device is
   ``device``, else that of ``training_batches`` or ``init_dictionary``
-  when it is a tensor, else the CPU; the batches are moved there once.
+  when it is a tensor, else the CUDA device (raising without one); the
+  batches are moved there once.
   Returns the final dictionary, a float32 tensor on that device.
 
   'fc_formulation' defaults to 'pallas' on a CUDA device and 'gram' on
@@ -125,6 +126,12 @@ def train_dictionary_scanned(training_batches, validation_batches,
   update_alg = all_params["dictionary_update_algorithm"]
   inf_sched = all_params["inference_param_schedule"]
   upd_sched = all_params["dict_update_param_schedule"]
+  if mode == "convolutional":
+    raise NotImplementedError(
+        "mode='convolutional' in the scanned trainer needs K12, the fused "
+        "conv train segment (vtc_tpu/ops/pallas_conv_train.py), ROADMAP.md "
+        "§1 item 7; sparse_coding.train_dictionary runs the per-batch conv "
+        "trainer")
   group_assignments = sc.normalize_groups(
       all_params.get("group_assignments"))
   sc.check_supported(mode, inference_alg, update_alg, group_assignments,

@@ -1,5 +1,5 @@
 """Sparse-coding dictionary learning, fully-connected (with its subspace,
-group-sparse, variants) and single-device: counterpart of
+group-sparse, variants) and convolutional, single-device: counterpart of
 vtc_tpu/training/sparse_coding.py:89-696.
 
 ``train_dictionary(training_image_dataset, validation_image_dataset,
@@ -9,22 +9,28 @@ checkpoint / visualization / reset-prune schedules, the YAML config dump,
 TensorBoard logging, pickled NumPy dictionary checkpoints with the
 train-state sidecar, and the extras 'stepsize_update_interval',
 'lipschitz_method', 'fc_formulation', 'resume_state' and
-'early_stopping_epsilon'.  Each batch runs ``build_raw_step_fn``'s step
-eagerly: the stepsize, the solve, the Hessian-diagonal EMA and the
+'early_stopping_epsilon', and for mode='convolutional' 'strides',
+'padding' and 'conv_formulation'.  Each batch runs ``build_raw_step_fn``'s
+step eagerly: the stepsize, the solve, the Hessian-diagonal EMA and the
 dictionary update.  With ``fc_formulation='pallas'`` a CUDA device runs
 every fc solve through K1's kernel (ops/fused_fista); the subspace solve
 runs the 'gram' loop there, as vtc_tpu's does (sparse_coding.py:173-186).
+In conv mode ``conv_formulation='auto'`` runs the solve through K10's
+kernel (ops/fused_conv_direct) on a CUDA device where its gate holds, as
+vtc_tpu does on the TPU (:214-231), and the update through the
+stride-block gradient.
 
-The tensors live on ``device`` (the keyword argument, else the initial
-dictionary's device when it is a tensor, else the CPU).  Checkpoints,
-reset/prune and the dictionary figures use vtc_tpu's numpy-only host
-modules (utils/checkpoint, training/reset_prune, utils/debug,
-utils/plotting), imported only when their schedule is set.
+The tensors live on ``device``: the keyword argument, else the initial
+dictionary's device when it is a tensor, else the CUDA device (raising
+without one; ``device="cpu"`` runs on the CPU).  Checkpoints, reset/prune
+and the dictionary figures use the port's own copies of vtc_tpu's
+numpy-only host modules (utils/checkpoint, training/reset_prune,
+utils/debug, utils/plotting).
 
 Raise NotImplementedError, each naming its ROADMAP.md §1 item:
-mode='convolutional' (item 7), data_parallel (item 9), profile_dir
-(item 8), and fc_formulation='pallas' with early_stopping_epsilon for an
-fc solve on a CUDA device (item 3).
+data_parallel (item 9), profile_dir (item 8), and an early stop where a
+CUDA kernel would run the solve (fc_formulation='pallas', or a conv solve
+on the card through K10; item 3).
 """
 import time
 from pathlib import Path
@@ -32,9 +38,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from vtc_tpu_torch.analysis_transforms.convolutional import (
+    ista_fista as conv_ista_fista)
 from vtc_tpu_torch.analysis_transforms.fully_connected import ista_fista
 from vtc_tpu_torch.analysis_transforms.fully_connected import (
     subspace_ista_fista)
+from vtc_tpu_torch.device import resolve_device
+from vtc_tpu_torch.dict_update_rules.convolutional import (
+    sc_cheap_quadratic_descent as conv_cqd)
+from vtc_tpu_torch.dict_update_rules.convolutional import (
+    sc_steepest_descent as conv_sd)
 from vtc_tpu_torch.dict_update_rules.fully_connected import (
     sc_cheap_quadratic_descent as fc_cqd)
 from vtc_tpu_torch.dict_update_rules.fully_connected import (
@@ -43,8 +56,13 @@ from vtc_tpu_torch.dict_update_rules.fully_connected import (
     subspace_sc_cheap_quadratic_descent as fc_sub_cqd)
 from vtc_tpu_torch.dict_update_rules.fully_connected import (
     subspace_sc_steepest_descent as fc_sub_sd)
+from vtc_tpu_torch.ops import conv_shapes, fused_conv_direct, fused_conv_fista
 from vtc_tpu_torch.ops import fused_group_train_step, fused_train_step
+from vtc_tpu_torch.ops import convolutions as conv_ops
 from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
+from vtc_tpu_torch.training import reset_prune
+from vtc_tpu_torch.utils import checkpoint as ckpt_util
+from vtc_tpu_torch.utils.debug import assert_dictionary_healthy
 
 INFERENCE_ALGS = ("ista", "fista") + fused_group_train_step.INFERENCE_ALGS
 UPDATE_ALGS = fused_train_step.UPDATE_ALGS + fused_group_train_step.UPDATE_ALGS
@@ -55,12 +73,13 @@ CHEAP_QUAD_ALGS = ("sc_cheap_quadratic_descent",
 def check_supported(mode, inference_alg, update_alg, group_assignments=None,
                     data_parallel=False):
   """Raise NotImplementedError for what the port does not run yet."""
-  if mode == "convolutional":
-    raise NotImplementedError(
-        "mode='convolutional' waits for the conv slice, ROADMAP.md §1 "
-        "item 7")
-  if mode != "fully-connected":
+  if mode not in ("fully-connected", "convolutional"):
     raise ValueError("unknown mode %r" % (mode,))
+  if mode == "convolutional" and (inference_alg.startswith("subspace")
+                                  or update_alg.startswith("subspace")):
+    raise NotImplementedError(
+        "the subspace algorithms are fully-connected only (as in vtc_tpu, "
+        "sparse_coding.py:294-296 and :480-482)")
   if inference_alg not in INFERENCE_ALGS:
     raise ValueError("unknown inference algorithm %r" % (inference_alg,))
   if update_alg not in UPDATE_ALGS:
@@ -86,24 +105,16 @@ def normalize_groups(group_assignments):
 
 def lipschitz_matrix(dictionary, inference_alg, group_assignments):
   """The matrix whose Gram sets the stepsize: the grouped dictionary for
-  the subspace solves, else the dictionary."""
+  the subspace solves, the flattened (s, c*kh*kw) kernels of a conv
+  dictionary, else the dictionary."""
+  if dictionary.dim() == 4:
+    return dictionary.reshape(dictionary.shape[0], -1)
   if not inference_alg.startswith("subspace"):
     return dictionary
   gather_inds, valid_mask, _ = subspace_ista_fista.group_layout(
       group_assignments, dictionary.shape[0], dictionary.device)
   return subspace_ista_fista.build_grouped_dictionary(dictionary,
                                                       gather_inds, valid_mask)
-
-
-def resolve_device(device, *candidates):
-  """``device`` if given, else the device of the first tensor among
-  ``candidates``, else the CPU."""
-  if device is not None:
-    return torch.device(device)
-  for x in candidates:
-    if isinstance(x, torch.Tensor):
-      return x.device
-  return torch.device("cpu")
 
 
 def as_tensor(x, device):
@@ -156,11 +167,19 @@ def build_raw_step_fn(mode, inference_alg, update_alg, *, nonneg=False,
   does, with hard thresholding off (vtc_tpu :173-186).
   ``alignment_penalty``: the subspace updates' anti-alignment weight (0
   takes the fc rule).  ``kernel_stride``, ``padding`` and
-  ``conv_formulation`` belong to the conv branch, which waits (see
-  ``check_supported``).
+  ``conv_formulation`` belong to the conv branch (``_build_conv_step``).
   """
-  del kernel_stride, padding, conv_formulation
   check_supported(mode, inference_alg, update_alg, group_assignments)
+  if mode == "convolutional":
+    return _build_conv_step(
+        inference_alg, update_alg, nonneg=nonneg,
+        hard_threshold=hard_threshold, kernel_stride=kernel_stride,
+        padding=padding, renormalize=renormalize,
+        conv_formulation=conv_formulation,
+        lipschitz_method=lipschitz_method,
+        compute_stepsize_in_step=compute_stepsize_in_step,
+        lowest_code_val=lowest_code_val,
+        early_stopping_epsilon=early_stopping_epsilon)
   if fc_formulation not in ("gram", "direct", "pallas"):
     raise ValueError("fc_formulation must be 'gram', 'direct' or 'pallas'")
   is_subspace_inf = inference_alg.startswith("subspace")
@@ -229,6 +248,81 @@ def build_raw_step_fn(mode, inference_alg, update_alg, *, nonneg=False,
   return step
 
 
+def _build_conv_step(inference_alg, update_alg, *, nonneg, hard_threshold,
+                     kernel_stride, padding, renormalize, conv_formulation,
+                     lipschitz_method, compute_stepsize_in_step,
+                     lowest_code_val, early_stopping_epsilon):
+  """The conv train step (vtc_tpu sparse_coding.py:208-240 and :269-296).
+
+  The solve: ``conv_formulation`` 'auto' takes K10 (ops/fused_conv_direct)
+  on a CUDA device where its gate holds, 'pallas' takes K10 (or its plain
+  version on the CPU) where the gate holds, and everything else runs the
+  'gram' loop.  The update: the stride-block gradient where K10's gate
+  holds, else the code-space one, else the image-space one.
+  """
+  if kernel_stride is None:
+    raise ValueError("mode='convolutional' needs kernel_stride")
+  if conv_formulation not in ("auto", "pallas", "gram"):
+    raise ValueError("conv_formulation must be 'auto', 'pallas' or 'gram'")
+  stride = tuple(int(x) for x in kernel_stride)
+  padding = conv_shapes.normalize_padding(padding)
+  uses_hessian = update_alg in CHEAP_QUAD_ALGS
+  flags = dict(kernel_stride=stride, padding=padding, variant=inference_alg,
+               nonneg=nonneg, hard=hard_threshold)
+
+  def infer(dictionary, batch, sparsity_weight, num_iters, stepsize):
+    if compute_stepsize_in_step:
+      stepsize = lipschitz_ops.fista_stepsize(
+          dictionary.reshape(dictionary.shape[0], -1), lipschitz_method)
+    on_card = batch.device.type == "cuda"
+    if (conv_formulation != "gram"
+        and (conv_formulation == "pallas" or on_card)
+        and fused_conv_direct.supported(batch.shape, dictionary.shape,
+                                        stride)):
+      if early_stopping_epsilon is None:
+        return fused_conv_direct.fused_conv_direct_solve(
+            batch, dictionary, sparsity_weight, num_iters, stepsize,
+            **flags)
+      if on_card:
+        raise NotImplementedError(
+            "early_stopping_epsilon with the conv CUDA kernel: it has no "
+            "early stop yet, ROADMAP.md §1 item 3; use "
+            "conv_formulation='gram'")
+      return fused_conv_direct.fused_conv_direct_plain(
+          batch, dictionary, sparsity_weight, num_iters, stepsize,
+          early_stopping_epsilon=early_stopping_epsilon, **flags)
+    return fused_conv_fista.fused_conv_fista_plain(
+        batch, dictionary, sparsity_weight, num_iters, stepsize,
+        early_stopping_epsilon=early_stopping_epsilon, **flags)
+
+  def update(dictionary, hessian, batch, codes, upd_stepsize,
+             upd_num_iters):
+    mask = conv_shapes.create_mask(batch.shape, padding, batch.dtype,
+                                   batch.device)
+    formulation = conv_sd.resolve_formulation(batch.shape, dictionary.shape,
+                                              stride)
+    if uses_hessian:
+      return conv_cqd._update(batch, dictionary, codes, hessian, mask,
+                              stride, upd_stepsize, upd_num_iters,
+                              lowest_code_val, renormalize, padding,
+                              formulation)
+    return conv_sd._update(batch, dictionary, codes, mask, stride,
+                           upd_stepsize, upd_num_iters, renormalize,
+                           padding, formulation)
+
+  def step(dictionary, hessian, batch, sparsity_weight, inf_num_iters,
+           upd_stepsize, upd_num_iters, inf_stepsize):
+    codes = infer(dictionary, batch, float(sparsity_weight),
+                  int(inf_num_iters), inf_stepsize)
+    if uses_hessian:
+      hessian = conv_cqd.hessian_diagonal_ema(hessian, codes)
+    new_dict = update(dictionary, hessian, batch, codes,
+                      float(upd_stepsize), int(upd_num_iters))
+    return new_dict, hessian, codes
+
+  return step
+
+
 # ---------------------------------------------------------------------------
 # metrics (host dict)
 # ---------------------------------------------------------------------------
@@ -257,23 +351,31 @@ def _numpy(x):
 def compute_metrics(batch, codes, dictionary, previous_dictionary, *,
                     mode, sparsity_weight, group_assignments=None,
                     kernel_stride=None, padding=None, is_subspace=False):
-  """Validation metrics (vtc_tpu sparse_coding.py:328-384, fc branch):
-  LASSO l2 term, sparsity term (l1, or with ``is_subspace`` the sum of
-  the group norms over ``group_assignments``), their total, normalized
-  L0, mean pSNR with the range taken from the batch, and the mean
-  absolute dictionary change."""
-  del kernel_stride, padding
-  if mode != "fully-connected":
-    raise NotImplementedError(
-        "compute_metrics: the conv branch waits, ROADMAP.md §1 item 7")
+  """Validation metrics (vtc_tpu sparse_coding.py:328-384): LASSO l2
+  term, sparsity term (l1, or with ``is_subspace`` the sum of the group
+  norms over ``group_assignments``), their total, normalized L0, mean pSNR
+  with the range taken from the batch (padding stripped in conv mode),
+  and the mean absolute dictionary change."""
   images = _numpy(batch)
   codes_np = _numpy(codes)
   dict_np = _numpy(dictionary)
   prev_np = _numpy(previous_dictionary)
-  recons = codes_np @ dict_np
+  if mode == "fully-connected":
+    recons = codes_np @ dict_np
+    sum_axes = 1
+  else:
+    recons = _numpy(conv_ops.synthesize(
+        torch.from_numpy(codes_np), torch.from_numpy(dict_np),
+        kernel_stride))
+    if padding is not None:
+      (lv, tv), (lh, th) = padding
+      h, w = images.shape[2], images.shape[3]
+      recons = recons[:, :, lv:h - tv, lh:w - th]
+      images = images[:, :, lv:h - tv, lh:w - th]
+    sum_axes = (1, 2, 3)
   metrics = {}
   metrics["Average LASSO L2 component"] = float(np.mean(
-      0.5 * np.sum(np.square(recons - images), axis=1)))
+      0.5 * np.sum(np.square(recons - images), axis=sum_axes)))
   if is_subspace:
     group_norm_sum = np.zeros(codes_np.shape[0])
     for members in group_assignments:
@@ -283,12 +385,13 @@ def compute_metrics(batch, codes, dictionary, previous_dictionary, *,
         np.mean(sparsity_weight * group_norm_sum))
   else:
     metrics["Average LASSO lagrange component"] = float(np.mean(
-        sparsity_weight * np.sum(np.abs(codes_np), axis=1)))
+        sparsity_weight * np.sum(np.abs(codes_np), axis=sum_axes)))
   metrics["Average LASSO Loss"] = (
       metrics["Average LASSO L2 component"] +
       metrics["Average LASSO lagrange component"])
   metrics["Average Normalized L0"] = float(
-      np.mean(np.count_nonzero(codes_np, axis=1) / codes_np.shape[1]))
+      np.mean(np.count_nonzero(codes_np.reshape(codes_np.shape[0], -1),
+                               axis=1) / np.prod(codes_np.shape[1:])))
   sig_mag = np.max(images) - np.min(images)
   psnrs = [compute_pSNR(images[i], recons[i], manual_sig_mag=sig_mag)
            for i in range(recons.shape[0])]
@@ -335,10 +438,8 @@ def open_logging(all_params, group_assignments=None):
 
 
 def save_checkpoint(logging_path, iteration, dictionary, hessian):
-  """Dictionary checkpoint plus the train-state sidecar, through vtc_tpu's
-  numpy-only utils/checkpoint (the on-disk contract is shared)."""
-  from vtc_tpu.utils import checkpoint as ckpt_util
-  from vtc_tpu.utils.debug import assert_dictionary_healthy
+  """Dictionary checkpoint plus the train-state sidecar, in vtc_tpu's
+  on-disk format (utils/checkpoint, the port's copy)."""
   dict_np = _numpy(dictionary)
   assert_dictionary_healthy(dict_np, "iteration " + str(iteration))
   ckpt_util.save_dictionary_checkpoint(logging_path, iteration, dict_np)
@@ -349,12 +450,11 @@ def save_checkpoint(logging_path, iteration, dictionary, hessian):
 
 def reset_or_prune(event, dictionary, hessian, v_codes, group_assignments,
                    uses_hessian):
-  """Apply one reset/prune event through vtc_tpu's numpy-only
-  training/reset_prune.  Returns (dictionary, hessian, groups); after a
+  """Apply one reset/prune event (training/reset_prune, the port's copy
+  of vtc_tpu's numpy-only module).  Returns (dictionary, hessian, groups); after a
   prune that removed rows, ``groups`` is a new list of the groups
   remapped to the remaining rows (vtc_tpu sparse_coding.py:620-633), or
   None without groups; else it is ``group_assignments`` itself."""
-  from vtc_tpu.training import reset_prune
   f_params = dict(event["filter_params"])
   f_params["group_assignments"] = group_assignments
   new_dict, affected, new_groups = reset_prune.reset_or_prune_dict_elements(
@@ -380,7 +480,7 @@ def _dictionary_viz_to_tb(tb_writer, dictionary, reshaping, groupings,
   from matplotlib import pyplot as plt
   from PIL import Image
 
-  from vtc_tpu.utils import plotting as plot_utils
+  from vtc_tpu_torch.utils import plotting as plot_utils
 
   for renorm, tag in ((True, "renormalized"), (False, "no renorm")):
     figs = plot_utils.display_dictionary(
@@ -428,10 +528,15 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
   alignment_penalty = float(
       all_params.get("subspace_alignment_penalty", 0.0))
   renormalize = bool(all_params.get("renormalize_dictionary", True))
+  kernel_stride = padding = None
+  if mode == "convolutional":
+    kernel_stride = tuple(int(x) for x in all_params["strides"])
+    padding = conv_shapes.normalize_padding(all_params["padding"])
   device = resolve_device(device, init_dictionary)
   dictionary = as_tensor(init_dictionary, device)
   if renormalize:
-    norms = torch.linalg.vector_norm(dictionary, dim=1)
+    norms = torch.linalg.vector_norm(
+        dictionary.reshape(dictionary.shape[0], -1), dim=1)
     assert np.allclose(_numpy(norms), 1.0, atol=1e-4), (
         "initial dictionary must be row/kernel normalized")
 
@@ -455,16 +560,26 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
   def make_step():
     return build_raw_step_fn(
         mode, inference_alg, update_alg, nonneg=nonneg,
-        hard_threshold=hard_threshold, group_assignments=group_assignments,
+        hard_threshold=hard_threshold, kernel_stride=kernel_stride,
+        padding=padding, group_assignments=group_assignments,
         alignment_penalty=alignment_penalty, renormalize=renormalize,
-        fc_formulation=fc_formulation, lipschitz_method=lipschitz_method,
+        fc_formulation=fc_formulation,
+        conv_formulation=all_params.get("conv_formulation", "auto"),
+        lipschitz_method=lipschitz_method,
         compute_stepsize_in_step=in_step_stepsize,
         early_stopping_epsilon=early_eps)
 
   step_fn = make_step()
 
   def infer_only(d, batch, sw, n_it):
-    """Inference for validation / reset-prune (the public run())."""
+    """Inference for validation / reset-prune (the public run(); conv
+    takes its default 'gram', as vtc_tpu does, :541-545)."""
+    if mode == "convolutional":
+      return conv_ista_fista.run(
+          batch, d, kernel_stride, padding, sw, n_it,
+          variant=inference_alg, nonnegative_only=nonneg,
+          hard_threshold=hard_threshold, early_stopping_epsilon=early_eps,
+          lipschitz_method=lipschitz_method)
     if is_subspace:
       return subspace_ista_fista.run(
           batch, d, group_assignments, sw, n_it,
@@ -558,7 +673,9 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
           all_metrics.append(compute_metrics(
               vb, v_codes, dictionary, previous_dictionary, mode=mode,
               sparsity_weight=sparsity_weight,
-              group_assignments=group_assignments, is_subspace=is_subspace))
+              group_assignments=group_assignments,
+              kernel_stride=kernel_stride, padding=padding,
+              is_subspace=is_subspace))
         assert all_metrics, (
             "validation dataset yielded no batches (check batch size vs "
             "dataset size / drop_last)")
