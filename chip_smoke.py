@@ -31,6 +31,16 @@ caught.
 * Conv training: the per-batch train_dictionary at the example's
   parameters (:57-69: batch 5, ISTA 25, lambda 0.05, cheap-quadratic
   update at stepsize 0.001), 200 steps; kernel K10 as its solve.
+* Scanned conv training: train_dictionary_scanned(mode='convolutional')
+  at bench.py's measure_conv(40, 25) (bench.py:627-705: batch 40, FISTA
+  25, lambda 0.05, cheap-quadratic update at stepsize 0.05, two warm power
+  iterations per step from an exact seed), one 200-step segment; kernel
+  K12 (fused conv train step, K10's solve inside).
+* ICA and PCA: the scanned ICA trainer at bench.py's measure_ica(250,
+  2000) (bench.py:206-258: n = 256, batch 250, 2,000 steps, stepsize
+  0.001, three Newton-Schulz refreshes per step from an exact-inverse
+  seed), then the per-batch trainer, ICACoder and PCACoder; kernel K8
+  (fused ICA train step).
 
 1. Device and build: requires CUDA (there is no CPU path), prints the
    card's name and power limit, builds the kernels from
@@ -120,6 +130,38 @@ caught.
 17. Timing: K10, K11 and plain ms per flagship batch, K10 at the
    trainer's batch, conv encode images/s, conv trainer images/s and the
    stepsize's eigvalsh ms.
+18. K12 against plain, in float32 and float64: one step at the flagship
+   (b 40, FISTA 25, windowed kernels, exact eigenvector seed), b 5 with
+   ISTA 25, 12x12 kernels at stride 8 (zero-extended, 268x268), steepest
+   descent with three update iterations, c = 3 hard and nonnegative at a
+   small size, then a 20-step steepest segment; the dictionary, Hessian,
+   eigenvector, codes and stepsize are held to phase 2's limit, and a
+   TF32 control of the plain step must fail it.
+19. The scanned conv trainer: one 200-step segment of 40 images (8,000
+   images, 2.4 GB, made on the card) from windowed random kernels; K12
+   must count 200 steps and K10 no solve of its own, the kernels stay
+   unit norm within 1e-4, everything finite, and the held-out conv LASSO
+   loss (compute_metrics) must fall at bench.py's stepsize 0.05.
+20. K8 against plain, in float32 and float64, at n 256 and b 250: one
+   step and a 50-step segment with one and three update iterations, a
+   stale-seed (1.35 X) boost case; D and X at the limit, the residual at
+   1e-5 (it compares entries of D X with those of I).  The codes must
+   stay clear of sign()'s discontinuity at 0 for a segment to be
+   comparable, so these cases start from their (orthogonal) mixing matrix
+   with sources at least 0.05 from zero.  At stepsize 40 the residual of
+   both must be NaN or above the guard tolerance; a TF32 control must
+   fail the limit.
+21. The ICA trainers: train_dictionary_scanned over 2,000 batches of 250
+   Laplace mixtures (n 256, 512 MB, made on the card, a seeded random
+   mixing matrix of condition at most e^2) from a random orthogonal
+   dictionary; K8 must count 2,000 steps with no guard rollback, D stay
+   finite and the held-out Laplace negative log-likelihood (mean sum |c|
+   + log |det D|, c = x D^-1) fall.  Then stepsize 40 through the trainer,
+   which must roll back; ICACoder.fit for 4 steps (encode/decode inverts);
+   PCACoder.fit on 20,000 patches, rows orthonormal within 1e-4.
+22. Timing: K12 and plain ms per full-width step with the bound, conv
+   scanned trainer images/s, K8 and plain ms per step with the bound, ICA
+   scanned trainer patches/s, per-batch ICA trainer patches/s.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -131,8 +173,9 @@ positions active) of random unit-norm kernels under a Gaussian window
 with the padded border zeroed.  The window matters: the conv stepsize is
 1/L of the flattened kernels' Gram (vtc_tpu and the reference), which
 for unwindowed random 16x16 kernels at stride 8 is about twice the conv
-operator's 1/L, and FISTA then diverges in both packages.  The script imports nothing of the JAX
-package, vtc_tpu, directly or through the port.
+operator's 1/L, and FISTA then diverges in both packages.  The script
+imports nothing of the JAX package, vtc_tpu, directly or through the
+port.
 
 The line before the last is the card's name and power limit as
 nvidia-smi reports them; the last line is the JSON result.
@@ -863,6 +906,309 @@ def held_out_conv_loss(conv_ista_fista, sparse_coding, x, kernels):
       padding=padding)["Average LASSO Loss"]
 
 
+# ---------------------------------------------------------------------------
+# the scanned conv trainer (K12) and the ICA / PCA family (K8)
+# ---------------------------------------------------------------------------
+SEG_BATCH = 40           # bench.py's measure_conv(40, 25)
+SEG_ITERS = 25
+SEG_STEP = 0.05          # bench.py's conv update stepsize
+SEG_STEPS = 200
+ICA_N, ICA_BATCH, ICA_STEPS = 256, 250, 2000   # bench.py's measure_ica
+ICA_STEP = 0.001
+ICA_REFINE = 3
+ICA_GUARD_TOL = 1e-3     # training/ica.py's guard at the 'highest' tier
+ICA_BOOST_TOL = 1e-6
+ICA_LIMIT = REL_TOL      # the residual compares entries of D X with I (1)
+
+
+def conv_train_bound(geo, b, iters, upd_iters=1, power_iters=2):
+  """K12, one step: the flat-kernel Gram and its power refresh, corr,
+  iters x (synthesis + analysis), and per update iteration the residual's
+  synthesis and the gradient product, each 2 * s * R * cpx per position;
+  reading the images and the kernels, writing the kernels and codes."""
+  depth = 2.0 * geo["s"] * geo["r"] * geo["cpx"]
+  blocks, codes = geo["bh"] * geo["bw"], geo["code_h"] * geo["code_w"]
+  flops = (depth * geo["s"] + 2.0 * power_iters * geo["s"] ** 2
+           + b * depth * (codes + iters * (blocks + codes)
+                          + 2 * upd_iters * blocks))
+  kernel = geo["c"] * geo["kh"] * geo["kw"]
+  nbytes = 4.0 * (b * geo["c"] * geo["sv"] * geo["sh"] * blocks
+                  + 2 * geo["s"] * kernel + b * geo["s"] * codes)
+  return bound(flops, nbytes)
+
+
+def ica_step_bound(n, b, refine=ICA_REFINE, upd_iters=1):
+  """K8, one step: refine x 2 n^3 products, the residual, upd_iters
+  updates, codes and the statistic (bench.py:196-203); reading the batch,
+  D and X, writing D and X."""
+  flops = (4.0 * refine + 2 + 2 * upd_iters) * n ** 3 + 4.0 * b * n * n
+  return bound(flops, 4.0 * (b * n + 4 * n * n))
+
+
+def compare_outputs(torch, label, names, got, want32, want64, limits=None):
+  """Each output against the fp32 and fp64 plain versions at its limit
+  (1e-5 of its largest value, never above 1e-4; ``limits`` overrides by
+  name); returns the largest fp32 difference."""
+  worst = 0.0
+  for what, g, w32, w64 in zip(names, got, want32, want64):
+    err32 = float((g - w32).abs().max())
+    err64 = float((g.double() - w64).abs().max())
+    largest = float(w64.abs().max())
+    lim = (limits or {}).get(what, limit(w64) if largest > 0 else TOL)
+    print("%-40s %-10s max|d| fp32 %.3e  fp64 %.3e  limit %.3e" % (
+        label, what, err32, err64, lim))
+    check(bool(torch.isfinite(g).all()), "%s: non-finite %s" % (label, what))
+    check(err32 <= lim and err64 <= lim,
+          "%s: %s differs from plain by %.3e / %.3e, limit %.3e" % (
+              label, what, err32, err64, lim))
+    worst = max(worst, err32)
+  return worst
+
+
+def conv_train_kernel_cases(torch, K12, conv_ops, lipschitz, x_flag, flag_d,
+                            padding, dev):
+  """Phase 18: one K12 step against its fp32 and fp64 plain versions, then
+  a 20-step steepest segment; a TF32 control of the plain step."""
+  stride = (CONV_STRIDE, CONV_STRIDE)
+  x = torch.tensor(x_flag[:SEG_BATCH], device=dev)
+  d = torch.tensor(flag_d, device=dev)
+  gen12 = windowed_kernels(np.random.RandomState(0), CONV_S, 1, 12)
+  x12, pad12 = conv_images(torch, conv_ops, dev, SEG_BATCH, gen12,
+                           CONV_STRIDE, CONV_IMG, seed=3)
+  # c = 3, small, hard and nonnegative (discontinuous thresholds: small
+  # sizes only), stride 4 = kernel: the flat-kernel stepsize is exact
+  rng = np.random.RandomState(6)
+  x3 = np.pad(rng.randn(1, 3, 3, 16, 16),
+              ((0, 0), (0, 0), (0, 0), (2, 2), (2, 2))).astype(np.float32)
+  d3 = unit_kernels(rng, 6, 3, 4)
+  pad3 = ((2, 2), (2, 2))
+  cq, sd = "sc_cheap_quadratic_descent", "sc_steepest_descent"
+  # (name, batches, kernels, stride, padding, lambda, iters, upd step, flags)
+  cases = [
+      ("flagship b40 fista25 cheap-quad", x[None], d, stride, padding,
+       CONV_LAM, SEG_ITERS, SEG_STEP, {}),
+      ("b5 ista25 cheap-quad", x[None, :CONV_TRAIN_BATCH], d, stride,
+       padding, CONV_LAM, CONV_TRAIN_ITERS, SEG_STEP, {"variant": "ista"}),
+      ("12x12/8 zero-extended 268 b40", torch.tensor(x12, device=dev)[None],
+       torch.tensor(gen12, device=dev), stride, pad12, CONV_LAM, SEG_ITERS,
+       SEG_STEP, {}),
+      ("flagship steepest upd 3", x[None], d, stride, padding, CONV_LAM,
+       SEG_ITERS, SEG_STEP, {"update_alg": sd, "upd_num_iters": 3}),
+      ("c3 4x4/4 ista hard", torch.tensor(x3, device=dev),
+       torch.tensor(d3, device=dev), (4, 4), pad3, 0.05, 20, 0.05,
+       {"variant": "ista", "hard": True}),
+      ("c3 4x4/4 fista nonneg steepest", torch.tensor(x3, device=dev),
+       torch.tensor(d3, device=dev), (4, 4), pad3, 0.05, 20, 0.05,
+       {"nonneg": True, "update_alg": sd}),
+      ("steepest, 20 steps of 16",
+       torch.tensor(x_flag[:320], device=dev).reshape(
+           (20, 16) + x_flag.shape[1:]), d, stride, padding, CONV_LAM,
+       SEG_ITERS, SEG_STEP, {"update_alg": sd}),
+  ]
+  names = ("dictionary", "hessian", "eigvec", "codes", "stepsize")
+  worst = 0.0
+  for name, xb, dk, strd, pad, lam, iters, step, flags in cases:
+    s = dk.shape[0]
+    h = torch.zeros(s, device=dev)
+    v = lipschitz.top_gram_eigenpair(dk.reshape(s, -1))[1].contiguous()
+    kw = dict(flags, kernel_stride=strd, padding=pad, power_iters=2,
+              return_stepsize=True)
+    args = (lam, iters, step)
+    got = K12.fused_conv_train_segment(dk, h, v, xb, *args, **kw)
+    want32 = K12.fused_conv_train_plain(dk, h, v, xb, *args, **kw)
+    want64 = K12.fused_conv_train_plain(dk.double(), h.double(), v.double(),
+                                        xb.double(), *args, **kw)
+    torch.cuda.synchronize()
+    worst = max(worst, compare_outputs(torch, "K12 " + name, names, got,
+                                       want32, want64))
+  # control: TF32 products in the plain step must fail the one-step limit
+  h = torch.zeros(CONV_S, device=dev)
+  v = lipschitz.top_gram_eigenpair(d.reshape(CONV_S, -1))[1].contiguous()
+  kw = dict(kernel_stride=stride, padding=padding, power_iters=2)
+  args = (CONV_LAM, SEG_ITERS, SEG_STEP)
+  want64 = K12.fused_conv_train_plain(d.double(), h.double(), v.double(),
+                                      x[None].double(), *args, **kw)
+  tf32 = K12.fused_conv_train_plain(d, h, v, x[None], *args,
+                                    precision="tensorfloat32", **kw)
+  ratios = []
+  for what, t, w in zip(names, tf32, want64):
+    if float(w.abs().max()) > 0:
+      err = float((t.double() - w).abs().max())
+      ratios.append(err / limit(w))
+      print("control: K12 plain step with TF32 products, %-10s max|d| fp64 "
+            "%.3e, limit %.3e" % (what, err, limit(w)))
+  check(max(ratios) > 1.0, "the limit does not tell TF32 products from fp32")
+  return worst
+
+
+def conv_segment_images(torch, conv_ops, dev, steps, gen, seed):
+  """(steps, SEG_BATCH, 1, 272, 272) images made on the card from a
+  torch.Generator: conv_images' distribution (2% of code positions
+  active, N(0, 1) amplitudes, N(0, 0.01^2) noise, border zeroed)."""
+  g = torch.Generator(device=dev).manual_seed(seed)
+  padding = conv_padding(CONV_IMG, CONV_K, CONV_STRIDE)
+  hh = CONV_IMG + sum(padding[0])
+  ch = 1 + (hh - CONV_K) // CONV_STRIDE
+  lead, trail = padding[0]
+  mask = torch.zeros((hh, hh), device=dev)
+  mask[lead:hh - trail, lead:hh - trail] = 1.0
+  gen_t = torch.tensor(gen, device=dev)
+  out = torch.empty((steps, SEG_BATCH, 1, hh, hh), device=dev)
+  for i in range(steps):
+    shape = (SEG_BATCH, CONV_S, ch, ch)
+    z = torch.randn(shape, generator=g, device=dev) * (
+        torch.rand(shape, generator=g, device=dev) < 0.02)
+    x = conv_ops.synthesize(z, gen_t, (CONV_STRIDE, CONV_STRIDE))
+    out[i] = (x + 0.01 * torch.randn(x.shape, generator=g, device=dev)) * mask
+  return out
+
+
+def conv_segment_params(steps, stepsize):
+  return {
+      "mode": "convolutional",
+      "num_epochs": 1,
+      "code_inference_algorithm": "fista",
+      "inference_param_schedule": {
+          0: {"sparsity_weight": CONV_LAM, "num_iters": SEG_ITERS}},
+      "dictionary_update_algorithm": "sc_cheap_quadratic_descent",
+      "dict_update_param_schedule": {
+          0: {"stepsize": stepsize, "num_iters": 1}},
+      "strides": (CONV_STRIDE, CONV_STRIDE),
+      "padding": ((8, 8), (8, 8)),
+      "stdout_print_interval": steps,
+  }
+
+
+def held_out_fista_conv_loss(conv_ista_fista, sparse_coding, x, kernels):
+  """Average conv LASSO loss of the held-out batch under ``kernels``,
+  FISTA 25 as the segment trains."""
+  stride, padding = (CONV_STRIDE, CONV_STRIDE), ((8, 8), (8, 8))
+  codes = conv_ista_fista.run(x, kernels, stride, padding, CONV_LAM,
+                              SEG_ITERS, formulation="pallas")
+  return sparse_coding.compute_metrics(
+      x, codes, kernels, kernels, mode="convolutional",
+      sparsity_weight=CONV_LAM, kernel_stride=stride,
+      padding=padding)["Average LASSO Loss"]
+
+
+def laplace_mixtures(torch, dev, num, mixing, g):
+  """(num, n) Laplace(0, 1) sources mixed by ``mixing``: x = s A."""
+  u = torch.rand((2, num, mixing.shape[0]), generator=g, device=dev,
+                 dtype=torch.float64)
+  src = torch.log1p(-u[0]) - torch.log1p(-u[1])  # difference of exponentials
+  return (src @ mixing.double()).float()
+
+
+def ica_nll(torch, x, dictionary):
+  """Held-out Laplace negative log-likelihood of x = c D, per sample:
+  mean sum |c| + log |det D|, with c = x D^-1 (in float64)."""
+  d = dictionary.double()
+  codes = torch.linalg.solve(d.T, x.double().T).T
+  return float(codes.abs().sum(dim=1).mean() + torch.linalg.slogdet(d)[1])
+
+
+def random_orthogonal(n, seed):
+  return np.linalg.qr(np.random.RandomState(seed).randn(n, n))[0].astype(
+      np.float32)
+
+
+def random_mixing(n, seed):
+  """A seeded random mixing matrix Q1 diag(e^u) Q2, u uniform in [-1, 1]:
+  condition number at most e^2."""
+  rng = np.random.RandomState(seed)
+  q1, q2 = (np.linalg.qr(rng.randn(n, n))[0] for _ in range(2))
+  return ((q1 * np.exp(rng.uniform(-1, 1, n))) @ q2).astype(np.float32)
+
+
+def gapped_mixtures(torch, dev, num, mixing, g, gap=0.05):
+  """(num, n) sources of magnitude gap + Exp(1) and random sign, mixed by
+  ``mixing``: with D = mixing their codes keep clear of zero."""
+  shape = (num, mixing.shape[0])
+  mag = gap - torch.log1p(-torch.rand(shape, generator=g, device=dev,
+                                      dtype=torch.float64))
+  sign = torch.where(torch.rand(shape, generator=g, device=dev) < 0.5,
+                     -1.0, 1.0).double()
+  return ((sign * mag) @ mixing.double()).float()
+
+
+def ica_kernel_cases(torch, K8, invertible_linear, dev):
+  """Phase 20: K8 against its fp32 and fp64 plain versions over one step
+  and a 50-step segment with one and three update iterations, a stale-seed
+  boost case, the stepsize-40 divergence and a TF32 control.
+
+  sign() is discontinuous at 0: a code that rounding moves across zero
+  changes a column of the statistic by 2 |c| / b and D by about 1e-5 per
+  step, above the limit (measured: 4.9e-5 after 50 steps with three
+  update iterations on Laplace mixtures from a random start).  So the
+  kernel cases start from the mixing matrix itself, with sources at least
+  0.05 from zero: the codes stay clear of 0 for the whole segment, and
+  the comparison is well posed.  Phase 21 judges the trainer on Laplace
+  mixtures from a random start by its quality checks instead.  The
+  mixing matrix is a random orthogonal one: a badly conditioned D would
+  put the fp32 inverse itself, not the kernel, outside the limit."""
+  mixing = torch.tensor(random_orthogonal(ICA_N, 11), device=dev)
+  g = torch.Generator(device=dev).manual_seed(200)
+  seg = gapped_mixtures(torch, dev, 50 * ICA_BATCH, mixing, g).reshape(
+      50, ICA_BATCH, ICA_N)
+  d0 = mixing.contiguous()
+  x0 = invertible_linear.exact_inverse(d0)
+  names = ("dictionary", "inverse", "residual")
+  limits = {"residual": ICA_LIMIT}
+  worst = 0.0
+  cases = [
+      ("one step upd 1", seg[:1], x0, 1),
+      ("one step upd 3", seg[:1], x0, 3),
+      ("50 steps upd 1", seg, x0, 1),
+      ("50 steps upd 3", seg, x0, 3),
+      ("stale seed (1.35 X) boost", seg[:3], 1.35 * x0, 1),
+  ]
+  for name, xb, xi, upd in cases:
+    kw = dict(refine_iters=ICA_REFINE, upd_num_iters=upd,
+              boost_tol=ICA_BOOST_TOL)
+    got = K8.fused_ica_train_segment(d0, xi.contiguous(), xb, ICA_STEP, **kw)
+    want32 = K8.fused_ica_train_plain(d0, xi, xb, ICA_STEP, **kw)
+    want64 = K8.fused_ica_train_plain(d0.double(), xi.double(), xb.double(),
+                                      ICA_STEP, **kw)
+    torch.cuda.synchronize()
+    worst = max(worst, compare_outputs(torch, "K8 " + name, names, got,
+                                       want32, want64, limits))
+  # stepsize 40: the residual must show the divergence in both
+  kw = dict(refine_iters=ICA_REFINE, boost_tol=ICA_BOOST_TOL)
+  got = K8.fused_ica_train_segment(d0, x0, seg[:3], 40.0, **kw)
+  want = K8.fused_ica_train_plain(d0, x0, seg[:3], 40.0, **kw)
+  res_k, res_p = float(got[2]), float(want[2])
+  print("K8 stepsize 40: segment residual kernel %r, plain %r (guard %g)" % (
+      res_k, res_p, ICA_GUARD_TOL))
+  check(not res_k < ICA_GUARD_TOL and not res_p < ICA_GUARD_TOL,
+        "stepsize 40 did not show in the residual: %r / %r" % (res_k, res_p))
+  # control: TF32 refreshes and codes in the plain step must fail
+  kw = dict(refine_iters=ICA_REFINE, boost_tol=ICA_BOOST_TOL)
+  want64 = K8.fused_ica_train_plain(d0.double(), x0.double(),
+                                    seg[:1].double(), ICA_STEP, **kw)
+  tf32 = K8.fused_ica_train_plain(d0, x0, seg[:1], ICA_STEP,
+                                  precision="tensorfloat32", **kw)
+  ratios = []
+  for what, t, w in zip(names, tf32, want64):
+    lim = limits.get(what, limit(w))
+    err = float((t.double() - w).abs().max())
+    ratios.append(err / lim)
+    print("control: K8 plain step with TF32 products, %-10s max|d| fp64 "
+          "%.3e, limit %.3e" % (what, err, lim))
+  check(max(ratios) > 1.0, "the limit does not tell TF32 products from fp32")
+  return worst
+
+
+def ica_params(steps, stepsize):
+  return {
+      "num_epochs": 1,
+      "dictionary_update_algorithm": "ica_natural_gradient",
+      "dict_update_param_schedule": {0: {"stepsize": stepsize,
+                                         "num_iters": 1}},
+      "refine_iters": ICA_REFINE,
+      "stdout_print_interval": steps,
+  }
+
+
 def time_ms(torch, fn, reps):
   start, stop = (torch.cuda.Event(enable_timing=True),
                  torch.cuda.Event(enable_timing=True))
@@ -1371,6 +1717,171 @@ def main():
             CONV_TRAIN_STEPS, CONV_TRAIN_BATCH, ctrain_s,
             CONV_TRAIN_STEPS * CONV_TRAIN_BATCH / ctrain_s, card))
 
+  # phase 18: K12 against plain on the card
+  from vtc_tpu_torch.analysis_transforms.fully_connected import (
+      invertible_linear)
+  from vtc_tpu_torch.api import ICACoder, PCACoder
+  from vtc_tpu_torch.ops import fused_conv_train as K12
+  from vtc_tpu_torch.ops import fused_ica_train as K8
+  from vtc_tpu_torch.training import ica
+  k12_err = conv_train_kernel_cases(torch, K12, conv_ops, lipschitz, cimages,
+                                    conv_gen, cpad, dev)
+
+  # phase 19: the scanned conv trainer, one 200-step segment of 40 images
+  t0 = time.perf_counter()
+  seg_images = conv_segment_images(torch, conv_ops, dev, SEG_STEPS + 1,
+                                   conv_gen, seed=19)
+  seg_held = seg_images[SEG_STEPS]
+  seg_batches = seg_images[:SEG_STEPS]
+  torch.cuda.synchronize()
+  print("conv segment data: %d images (%.2f GB) made on the card in %.1f s"
+        % (SEG_STEPS * SEG_BATCH, seg_batches.numel() * 4 / 1e9,
+           time.perf_counter() - t0))
+  sd0 = convert.dictionary_from_numpy(
+      windowed_kernels(np.random.RandomState(2), CONV_S, 1, CONV_K), dev)
+  K12.launches = K10.launches = K11.launches = 0
+  t0 = time.perf_counter()
+  strained = compiled_epoch.train_dictionary_scanned(
+      seg_batches, seg_held[None], sd0,
+      conv_segment_params(SEG_STEPS, SEG_STEP))
+  torch.cuda.synchronize()
+  seg_s = time.perf_counter() - t0
+  k12_launches, k10_in_segment = K12.launches, K10.launches + K11.launches
+  print("conv scanned trainer: %d K12 steps, %d separate K10/K11 solves" % (
+      k12_launches, k10_in_segment))
+  check(k12_launches == SEG_STEPS and k10_in_segment == 0,
+        "expected %d K12 steps and no K10 solve, counted %d and %d" % (
+            SEG_STEPS, k12_launches, k10_in_segment))
+  check(bool(torch.isfinite(strained).all()), "non-finite conv kernels")
+  snorm_err = float((torch.linalg.vector_norm(
+      strained.reshape(CONV_S, -1), dim=1) - 1).abs().max())
+  sloss0 = held_out_fista_conv_loss(conv_ista_fista, sparse_coding,
+                                    seg_held, sd0)
+  sloss1 = held_out_fista_conv_loss(conv_ista_fista, sparse_coding,
+                                    seg_held, strained)
+  print("conv scanned trainer: kernels unit norm within %.2e; held-out conv "
+        "LASSO loss %.6f -> %.6f (stepsize %g, %d steps)" % (
+            snorm_err, sloss0, sloss1, SEG_STEP, SEG_STEPS))
+  check(snorm_err <= 1e-4, "kernels not unit norm: %.3e" % snorm_err)
+  check(np.isfinite(sloss1) and sloss1 < sloss0,
+        "held-out conv LASSO loss did not fall: %.6f -> %.6f" % (sloss0,
+                                                                 sloss1))
+  del seg_images, seg_batches
+
+  # phase 20: K8 against plain on the card
+  g = torch.Generator(device=dev).manual_seed(20)
+  mixing = torch.tensor(random_mixing(ICA_N, 21), device=dev)
+  t0 = time.perf_counter()
+  ica_x = laplace_mixtures(torch, dev, (ICA_STEPS + 4) * ICA_BATCH, mixing, g)
+  torch.cuda.synchronize()
+  print("ICA data: %d Laplace mixtures (n %d, %.0f MB) made on the card in "
+        "%.1f s" % (ica_x.shape[0], ICA_N, ica_x.numel() * 4 / 2**20,
+                    time.perf_counter() - t0))
+  k8_err = ica_kernel_cases(torch, K8, invertible_linear, dev)
+
+  # phase 21: the ICA trainers, PCA and the coders
+  ica_held = ica_x[ICA_STEPS * ICA_BATCH:]
+  ica_batches = ica_x[:ICA_STEPS * ICA_BATCH].reshape(ICA_STEPS, ICA_BATCH,
+                                                      ICA_N)
+  id0 = convert.dictionary_from_numpy(random_orthogonal(ICA_N, 12), dev)
+  K8.launches = 0
+  rollbacks0 = ica.rollbacks
+  t0 = time.perf_counter()
+  itrained = ica.train_dictionary_scanned(ica_batches, id0,
+                                          ica_params(ICA_STEPS, ICA_STEP))
+  torch.cuda.synchronize()
+  ica_s = time.perf_counter() - t0
+  k8_launches, ica_rollbacks = K8.launches, ica.rollbacks - rollbacks0
+  nll0, nll1 = ica_nll(torch, ica_held, id0), ica_nll(torch, ica_held,
+                                                      itrained)
+  print("ICA scanned trainer: %d K8 steps, %d guard rollbacks; held-out "
+        "Laplace NLL %.4f -> %.4f (stepsize %g)" % (
+            k8_launches, ica_rollbacks, nll0, nll1, ICA_STEP))
+  check(k8_launches == ICA_STEPS and ica_rollbacks == 0,
+        "expected %d K8 steps and no rollback, counted %d and %d" % (
+            ICA_STEPS, k8_launches, ica_rollbacks))
+  check(bool(torch.isfinite(itrained).all()), "non-finite ICA dictionary")
+  check(np.isfinite(nll1) and nll1 < nll0,
+        "held-out Laplace NLL did not fall: %.4f -> %.4f" % (nll0, nll1))
+  rollbacks0 = ica.rollbacks
+  wrecked = ica.train_dictionary_scanned(ica_batches[:3], id0,
+                                         ica_params(3, 40.0))
+  print("ICA scanned trainer at stepsize 40: %d guard rollbacks, dictionary "
+        "finite: %s" % (ica.rollbacks - rollbacks0,
+                        bool(torch.isfinite(wrecked).all())))
+  check(ica.rollbacks - rollbacks0 >= 1, "stepsize 40 took no rollback")
+  ica_fit_patches = ica_x[:4 * ICA_BATCH].cpu().numpy()
+  icoder = ICACoder(stepsize=ICA_STEP, device=dev).fit(
+      ica_fit_patches, num_epochs=1, batch_size=ICA_BATCH)
+  icodes = icoder.encode(ica_fit_patches[:ICA_BATCH])
+  irecon = float((icoder.decode(icodes) - torch.tensor(
+      ica_fit_patches[:ICA_BATCH], device=dev)).abs().max())
+  print("ICACoder.fit: 4 steps; encode/decode max|x - x'| %.3e" % irecon)
+  check(bool(torch.isfinite(icoder.dictionary).all()) and irecon < 1e-3,
+        "ICACoder did not fit or invert")
+  pcoder = PCACoder(device=dev).fit(ica_x[:20000].cpu().numpy())
+  rows = pcoder.dictionary
+  orth = float((rows @ rows.T - torch.eye(ICA_N, device=dev)).abs().max())
+  print("PCACoder.fit: %d x %d rows orthonormal within %.2e" % (
+      rows.shape[0], rows.shape[1], orth))
+  check(orth <= 1e-4, "PCA rows not orthonormal: %.3e" % orth)
+
+  # phase 22: timing (warm)
+  seg10 = conv_segment_images(torch, conv_ops, dev, 10, conv_gen, seed=22)
+  sh0 = torch.zeros(CONV_S, device=dev)
+  sv0 = lipschitz.top_gram_eigenpair(sd0.reshape(CONV_S, -1))[1].contiguous()
+  k12_args = (sd0, sh0, sv0, seg10, CONV_LAM, SEG_ITERS, SEG_STEP)
+  k12_kw = dict(kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=cpad,
+                power_iters=2)
+  k12_run = lambda: K12.fused_conv_train_segment(*k12_args, **k12_kw)
+  k12_plain = lambda: K12.fused_conv_train_plain(*k12_args, **k12_kw)
+  ih0 = ica_batches[:100]
+  ix0 = invertible_linear.exact_inverse(id0)
+  k8_kw = dict(refine_iters=ICA_REFINE, boost_tol=ICA_BOOST_TOL)
+  k8_run = lambda: K8.fused_ica_train_segment(id0, ix0, ih0, ICA_STEP,
+                                              **k8_kw)
+  k8_plain = lambda: K8.fused_ica_train_plain(id0, ix0, ih0, ICA_STEP,
+                                              **k8_kw)
+  with torch.no_grad():
+    k12_run()
+    k8_run()
+    k12_plain_ms = [time_ms(torch, k12_plain, 1) / 10]
+    k12_ms_runs = [time_ms(torch, k12_run, 1) / 10,
+                   time_ms(torch, k12_run, 1) / 10]
+    k12_plain_ms.append(time_ms(torch, k12_plain, 1) / 10)
+    k8_plain_ms = [time_ms(torch, k8_plain, 1) / 100]
+    k8_ms_runs = [time_ms(torch, k8_run, 3) / 100,
+                  time_ms(torch, k8_run, 3) / 100]
+    k8_plain_ms.append(time_ms(torch, k8_plain, 1) / 100)
+  k12_ms, k12_p_ms = sum(k12_ms_runs) / 2, sum(k12_plain_ms) / 2
+  k8_ms, k8_p_ms = sum(k8_ms_runs) / 2, sum(k8_plain_ms) / 2
+  seg_geo = K10.geometry(seg10.shape[1:], sd0.shape,
+                         (CONV_STRIDE, CONV_STRIDE))
+  k12_bound = conv_train_bound(seg_geo, SEG_BATCH, SEG_ITERS)
+  k8_bound = ica_step_bound(ICA_N, ICA_BATCH)
+  print("K12 ms per step (b=40 1x272x272, 64 16x16/8, fista 25, cheap-quad): "
+        "%.4f (runs %.4f, %.4f); plain %.4f (runs %.4f, %.4f); bound %.4f "
+        "(%s) [%s]" % (k12_ms, *k12_ms_runs, k12_p_ms, *k12_plain_ms,
+                       k12_bound[0], k12_bound[1], card))
+  print("conv train_dictionary_scanned %d steps of %d in %.4f s: %.2f "
+        "images/s (phase 19's run) [%s]" % (
+            SEG_STEPS, SEG_BATCH, seg_s, SEG_STEPS * SEG_BATCH / seg_s, card))
+  print("K8 ms per step (n=256, b=250, refine 3, boost): %.4f (runs %.4f, "
+        "%.4f); plain %.4f (runs %.4f, %.4f); bound %.4f (%s) [%s]" % (
+            k8_ms, *k8_ms_runs, k8_p_ms, *k8_plain_ms, k8_bound[0],
+            k8_bound[1], card))
+  print("ICA train_dictionary_scanned %d steps of %d in %.4f s: %.1f "
+        "patches/s (phase 21's run) [%s]" % (
+            ICA_STEPS, ICA_BATCH, ica_s, ICA_STEPS * ICA_BATCH / ica_s, card))
+  per_batch = ica_batches[:200]
+  t0 = time.perf_counter()
+  ica.train_dictionary(per_batch, id0, ica_params(200, ICA_STEP))
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  print("ICA train_dictionary (per batch, LU solve) 200 steps of %d in %.4f "
+        "s: %.1f patches/s [%s]" % (ICA_BATCH, dt, 200 * ICA_BATCH / dt,
+                                    card))
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -1396,6 +1907,12 @@ def main():
       ("fused_conv_fista", "fused_conv_fista.cu",
        "vtc_tpu/ops/pallas_conv_fista.py:329", k11_launches, conv_err_gram,
        k11_ms, k11_p_ms, (k11_bound, k11_by)),
+      ("fused_conv_train", "fused_conv_train_step.cu",
+       "vtc_tpu/ops/pallas_conv_train.py:692", k12_launches, k12_err,
+       k12_ms, k12_p_ms, k12_bound),
+      ("fused_ica_train", "fused_ica_train_step.cu",
+       "vtc_tpu/ops/pallas_ica_train.py:311", k8_launches, k8_err, k8_ms,
+       k8_p_ms, k8_bound),
   ]
   print(json.dumps({"kernels": [{
       "name": name,
@@ -1408,7 +1925,7 @@ def main():
       "plain_ms": t_plain,
       "bound_ms": bnd[0],
       "bound_by": bnd[1],
-      "library_ms": None,  # no single PyTorch call computes these solves
+      "library_ms": None,  # no single PyTorch call computes a solve or step
   } for name, source, replaces, n, err, t, t_plain, bnd in kernels]}))
   print(card)
   print(json.dumps({"ok": True, "device": {

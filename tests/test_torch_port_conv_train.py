@@ -3,8 +3,8 @@ code-space kernel gradient (conv_dict_gram), both conv update rules in
 every formulation, the conv Hessian EMA, the conv raw step, the conv
 metrics, and a few steps of ``train_dictionary(mode='convolutional')``
 with conv_formulation 'pallas' (vtc_tpu's K10 in interpret mode, the
-port's plain version) and 'gram'.  The scanned trainer refuses conv until
-K12 lands.
+port's plain version) and 'gram'.  The scanned conv trainer (K12) has its
+own file, tests/test_torch_port_conv_scanned.py.
 
 The same numpy inputs (from a seed) go through both packages at small
 sizes.  Tolerances: 2e-5 relative to the largest value for one update or
@@ -266,10 +266,15 @@ def test_train_dictionary_conv_validation_and_checkpoint(rng, tmp_path):
 
 
 def test_scanned_trainer_refuses_conv_naming_k12(rng):
+  """The scanned trainer refused conv until K12 was ported; it now runs
+  conv, on the CPU through the per-step path, and refuses only the early
+  stop that K12 lacks on the card (ROADMAP.md §1 item 3)."""
   data, d0 = conv_data(rng)
-  with pytest.raises(NotImplementedError, match="K12"):
-    compiled_epoch.train_dictionary_scanned(data, data[:1], d0, _params(),
-                                            device="cpu")
+  got = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, _params(),
+                                                device="cpu")
+  assert got.shape == d0.shape and bool(torch.isfinite(got).all())
+  np.testing.assert_allclose(
+      np.sqrt((got.numpy() ** 2).sum(axis=(1, 2, 3))), 1.0, atol=1e-4)
 
 
 def test_conv_trainer_refuses_subspace(rng):

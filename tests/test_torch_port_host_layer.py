@@ -2,8 +2,9 @@
 every module and of chip_smoke.py), its own copies of vtc_tpu's host
 modules behave as the originals (checkpoints round-trip in both
 directions, byte for byte; reset/prune and the dictionary figures match),
-and its entry points run on the CUDA device unless the caller asks for
-the CPU: without a card the default raises instead of running here.
+and its entry points (the conv and ICA trainers, PCA and the ICA and PCA
+coders included) run on the CUDA device unless the caller asks for the
+CPU: without a card the default raises instead of running here.
 """
 import ast
 import pathlib
@@ -153,6 +154,14 @@ def test_entry_points_default_to_the_card(rng, monkeypatch):
   }
   kernels = rng.randn(4, 1, 4, 4).astype(np.float32)
   images = rng.randn(2, 1, 12, 12).astype(np.float32)
+  from vtc_tpu_torch.training import ica, pca
+  ica_params = {"num_epochs": 1,
+                "dictionary_update_algorithm": "ica_natural_gradient",
+                "dict_update_param_schedule": {0: {"stepsize": 0.01,
+                                                   "num_iters": 1}}}
+  square = np.linalg.qr(rng.randn(12, 12))[0].astype(np.float32)
+  conv_params = dict(params, mode="convolutional", strides=(2, 2),
+                     padding=((2, 2), (2, 2)))
   calls = [
       lambda: encode.encode_dataset(x[0], d, 0.05, 5),
       lambda: encode.encode_dataset(images, kernels, 0.05, 5,
@@ -161,6 +170,13 @@ def test_entry_points_default_to_the_card(rng, monkeypatch):
       lambda: sc.train_dictionary(x, x[:1], d, params),
       lambda: compiled_epoch.train_dictionary_scanned(x, x[:1], d, params),
       lambda: api.SparseCoder(16),
+      lambda: compiled_epoch.train_dictionary_scanned(
+          images[None], images[None], kernels, conv_params),
+      lambda: ica.train_dictionary(x, square, ica_params),
+      lambda: ica.train_dictionary_scanned(x, square, ica_params),
+      lambda: pca.train_dictionary(x[0] - x[0].mean(axis=0)),
+      lambda: api.ICACoder(),
+      lambda: api.PCACoder(),
   ]
   for call in calls:
     with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
@@ -170,3 +186,5 @@ def test_entry_points_default_to_the_card(rng, monkeypatch):
   assert device.resolve_device("cpu").type == "cpu"
   assert device.resolve_device(None, torch.zeros(1)).type == "cpu"
   assert api.SparseCoder(16, device="cpu").device.type == "cpu"
+  assert api.ICACoder(device="cpu").device.type == "cpu"
+  assert api.PCACoder(device="cpu").device.type == "cpu"

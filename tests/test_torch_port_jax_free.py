@@ -1,6 +1,7 @@
 """vtc_tpu_torch never imports jax nor the JAX package vtc_tpu -- it
-encodes and trains, with checkpoints and a reset/prune schedule, with both
-blocked -- and chip_smoke.py has no CPU path.
+encodes and trains (fc, subspace, conv with both conv trainers, ICA and
+PCA), with checkpoints and a reset/prune schedule, with both blocked --
+and chip_smoke.py has no CPU path.
 
 The blocker implements ``find_spec``: Python 3.12 ignores a meta-path
 finder that only has ``find_module``, so such a finder blocks nothing.
@@ -134,6 +135,43 @@ conv_params = dict(params, mode="convolutional", num_epochs=1,
 trained = sparse_coding.train_dictionary(images, images[:1], kernels,
                                          conv_params, device="cpu")
 assert trained.shape == (6, 1, 4, 4) and bool(trained.isfinite().all())
+# the scanned conv trainer: the per-step path and K12's plain version
+from vtc_tpu_torch.ops import fused_conv_train
+trained = compiled_epoch.train_dictionary_scanned(
+    images, images[:1], kernels, conv_params, device="cpu")
+assert trained.shape == (6, 1, 4, 4) and bool(trained.isfinite().all())
+import torch
+h0 = torch.zeros(6)
+v0 = lipschitz.top_gram_eigenpair(torch.from_numpy(kernels).reshape(6, -1))[1]
+out = fused_conv_train.fused_conv_train_segment(
+    torch.from_numpy(kernels), h0, v0.contiguous(), torch.from_numpy(images),
+    0.05, 5, 0.01, power_iters=2, **conv)
+assert out[0].shape == (6, 1, 4, 4) and out[3].shape == (5, 6, 5, 5)
+
+# the ICA and PCA family: both ICA trainers (the fused path's plain
+# version), PCA and the coders
+from vtc_tpu_torch.analysis_transforms.fully_connected import (
+    invertible_linear)
+from vtc_tpu_torch.dict_update_rules.fully_connected import (
+    ica_natural_gradient)
+from vtc_tpu_torch.ops import fused_ica_train
+from vtc_tpu_torch.training import ica, pca
+square = np.linalg.qr(rng.randn(12, 12))[0].astype(np.float32)
+ica_params = {"num_epochs": 1,
+              "dictionary_update_algorithm": "ica_natural_gradient",
+              "dict_update_param_schedule": {0: {"stepsize": 0.01,
+                                                 "num_iters": 1}},
+              "use_fused": True, "stdout_print_interval": 10**9}
+for trainer in (ica.train_dictionary, ica.train_dictionary_scanned):
+  trained = trainer(batches, square, ica_params, device="cpu")
+  assert trained.shape == (12, 12) and bool(trained.isfinite().all())
+mixed = rng.laplace(size=(200, 12)).astype(np.float32)
+assert pca.train_dictionary(mixed - mixed.mean(0), device="cpu").shape == (
+    12, 12)
+assert api.ICACoder(device="cpu").fit(mixed, 1, 50).encode(mixed).shape == (
+    200, 12)
+assert api.PCACoder(4, device="cpu").fit(mixed).encode(mixed).shape == (
+    200, 4)
 assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
 # nor anything of the JAX package itself (the smoke run on the card
 # imports the port alone)

@@ -341,18 +341,16 @@ def test_trainers_refuse_what_waits(rng, trainer, change, item):
   fn = (sc.train_dictionary if trainer == "per_batch"
         else compiled_epoch.train_dictionary_scanned)
   if change.get("mode") == "convolutional":
-    # conv images and kernels; the per-batch conv trainer runs (held to
-    # vtc_tpu in tests/test_torch_port_conv_train.py), the scanned one
-    # waits for K12
+    # conv images and kernels: item 7 is done and both conv trainers run
+    # (held to vtc_tpu in tests/test_torch_port_conv_train.py and
+    # tests/test_torch_port_conv_scanned.py)
     data = rng.randn(2, 3, 1, 12, 12).astype(np.float32)
     d0 = rng.randn(6, 1, 4, 4).astype(np.float32)
     d0 /= np.sqrt((d0 ** 2).sum(axis=(1, 2, 3), keepdims=True))
     change = dict(change, strides=(2, 2), padding=((2, 2), (2, 2)))
-    if trainer == "per_batch":
-      got = fn(data, data[:1], d0, _params(**change), device="cpu")
-      assert got.shape == d0.shape and bool(torch.isfinite(got).all())
-      return
-    item = item + "|K12"
+    got = fn(data, data[:1], d0, _params(**change), device="cpu")
+    assert got.shape == d0.shape and bool(torch.isfinite(got).all())
+    return
   with pytest.raises(NotImplementedError, match=item):
     fn(data, data[:1], d0, _params(**change), device="cpu")
 

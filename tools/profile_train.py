@@ -1,6 +1,6 @@
 """Where the time of the port's scanned trainer goes, on one CUDA device.
 
-  python3 tools/profile_train.py [--subspace] [--out report.txt]
+  python3 tools/profile_train.py [--subspace | --conv | --ica] [--out FILE]
 
 The workload is chip_smoke.py's fc trainer: 250,000 synthetic 16x16
 patches in 1,000 batches of 250, a random unit-norm 256-atom dictionary,
@@ -9,23 +9,34 @@ stepsize 0.1, two warm power iterations per step.  With --subspace it is
 chip_smoke.py's subspace trainer instead: group-sparse patches, 64
 contiguous groups of 4, the subspace cheap-quadratic update at stepsize
 0.05, through the fused group train step (ops/fused_group_train_step,
-kernel K6).  It reports
+kernel K6).  With --conv it is chip_smoke.py's scanned conv trainer
+(phase 19: one 200-step segment of 40 images of 272x272, 64 windowed
+16x16 kernels at stride 8, FISTA 25, lambda 0.05, cheap-quadratic update
+at stepsize 0.05) through the fused conv train step (ops/fused_conv_train,
+kernel K12); with --ica chip_smoke.py's scanned ICA trainer (phase 21:
+2,000 batches of 250 Laplace mixtures, n = 256, stepsize 0.001, three
+Newton-Schulz refreshes) through the fused ICA step (ops/fused_ica_train,
+kernel K8).  It reports
 
-* with CUDA events after a warm-up call: the fused train step
-  (ops/fused_train_step, kernel K2) per step over 100- and 1,000-step
-  segments, and the plain PyTorch step over 100 steps;
-* the host time per step: how long fused_train_segment takes to enqueue
+* with CUDA events after a warm-up call: the fused train step (fc:
+  ops/fused_train_step, kernel K2) per step over a short segment and the
+  whole one, and the plain PyTorch step over a short segment;
+* the host time per step: how long the fused segment takes to enqueue
   a 20-step segment (under the launch queue's depth, so the host's own
-  cost) and a 1,000-step one (which fills the queue, so the host waits
+  cost) and the whole one (which may fill the queue, so the host waits
   on the device), and the wall time until the device is done;
-* a torch.profiler trace of one 1,000-step segment through
+* a torch.profiler trace of one whole segment through
   train_dictionary_scanned: wall time, the union of the device's busy
   intervals, its idle share, and device time by kernel, grouped into
   the products (gemm_kernel), the power refresh (power_kernel), the
   FISTA solve (fista_kernel, fold_gram_kernel), the epilogue
   (hessian_ema_kernel, update_rows_kernel), the group passes
-  (gather_rows_kernel, sum_slots_kernel, sign_mask_kernel) and
-  everything else.
+  (gather_rows_kernel, sum_slots_kernel, sign_mask_kernel), the conv
+  GEMMs (gather_gemm), the conv gradient (block_grad_partial_kernel,
+  grad_reduce_kernel), the conv update (conv_update_kernel,
+  conv_hessian_ema_kernel, dall_from_dstk_kernel), the ICA passes
+  (residual_kernel, sign_kernel, natural_gradient_kernel, axpy_kernel)
+  and everything else.
 
 Every line of the report is printed, and written to --out when given.
 Needs a CUDA device; imports nothing of the JAX package.
@@ -48,10 +59,21 @@ GROUPS = (("products (gemm_kernel)", ("gemm_kernel",)),
           ("power refresh (power_kernel)", ("power_kernel",)),
           ("FISTA (fista_kernel, fold_gram_kernel)",
            ("fista_kernel", "fold_gram_kernel")),
+          # before the epilogue: conv_hessian_ema_kernel contains its name
+          ("conv update (conv_update, conv_hessian_ema, dall_from_dstk)",
+           ("conv_update_kernel", "conv_hessian_ema_kernel",
+            "dall_from_dstk_kernel")),
           ("epilogue (hessian_ema_kernel, update_rows_kernel)",
            ("hessian_ema_kernel", "update_rows_kernel")),
           ("group passes (gather_rows, sum_slots, sign_mask)",
-           ("gather_rows_kernel", "sum_slots_kernel", "sign_mask_kernel")))
+           ("gather_rows_kernel", "sum_slots_kernel", "sign_mask_kernel")),
+          ("conv GEMMs: corr, synthesis, analysis (gather_gemm)",
+           ("gather_gemm",)),
+          ("conv gradient (block_grad_partial, grad_reduce)",
+           ("block_grad_partial_kernel", "grad_reduce_kernel")),
+          ("ICA passes (residual, sign, natural_gradient, axpy)",
+           ("residual_kernel", "sign_kernel", "natural_gradient_kernel",
+            "axpy_kernel")))
 
 
 def group_of(name):
@@ -61,10 +83,105 @@ def group_of(name):
   return "other"
 
 
+def workload(args, torch, dev):
+  """The segment, its runners and its trainer for the chosen family."""
+  from vtc_tpu_torch.ops import (fused_conv_train, fused_group_train_step,
+                                 fused_ica_train, fused_train_step,
+                                 lipschitz)
+  from vtc_tpu_torch.training import compiled_epoch, ica
+  cs = chip_smoke
+  if args.conv:
+    from vtc_tpu_torch.ops import convolutions as conv_ops
+    steps, batch = cs.SEG_STEPS, cs.SEG_BATCH
+    gen = cs.windowed_kernels(np.random.RandomState(0), cs.CONV_S, 1,
+                              cs.CONV_K)
+    batches = cs.conv_segment_images(torch, conv_ops, dev, steps, gen,
+                                     seed=19)
+    d0 = torch.tensor(cs.windowed_kernels(np.random.RandomState(2),
+                                          cs.CONV_S, 1, cs.CONV_K),
+                      device=dev)
+    h0 = torch.zeros(cs.CONV_S, device=dev)
+    v0 = lipschitz.top_gram_eigenpair(
+        d0.reshape(cs.CONV_S, -1))[1].contiguous()
+    params = cs.conv_segment_params(steps, cs.SEG_STEP)
+    kw = dict(kernel_stride=(cs.CONV_STRIDE, cs.CONV_STRIDE),
+              padding=params["padding"], power_iters=2)
+    scalars = (cs.CONV_LAM, cs.SEG_ITERS, cs.SEG_STEP)
+    return dict(
+        name="conv", units="images", steps=steps, batch=batch, short=20,
+        plain_steps=5, kernels=fused_conv_train,
+        fused=lambda k: lambda: fused_conv_train.fused_conv_train_segment(
+            d0, h0, v0, batches[:k], *scalars, **kw),
+        plain=lambda k: lambda: fused_conv_train.fused_conv_train_plain(
+            d0, h0, v0, batches[:k], *scalars, **kw),
+        trainer=lambda: compiled_epoch.train_dictionary_scanned(
+            batches, batches[:1], d0, params))
+  if args.ica:
+    from vtc_tpu_torch.analysis_transforms.fully_connected import (
+        invertible_linear)
+    steps, batch, n = cs.ICA_STEPS, cs.ICA_BATCH, cs.ICA_N
+    g = torch.Generator(device=dev).manual_seed(20)
+    mixing = torch.tensor(cs.random_mixing(n, 21), device=dev)
+    batches = cs.laplace_mixtures(torch, dev, steps * batch, mixing,
+                                  g).reshape(steps, batch, n)
+    d0 = torch.tensor(cs.random_orthogonal(n, 12), device=dev)
+    x0 = invertible_linear.exact_inverse(d0)
+    params = cs.ica_params(steps, cs.ICA_STEP)
+    kw = dict(refine_iters=cs.ICA_REFINE, boost_tol=cs.ICA_BOOST_TOL)
+    return dict(
+        name="ICA", units="patches", steps=steps, batch=batch, short=100,
+        plain_steps=100, kernels=fused_ica_train,
+        fused=lambda k: lambda: fused_ica_train.fused_ica_train_segment(
+            d0, x0, batches[:k], cs.ICA_STEP, **kw),
+        plain=lambda k: lambda: fused_ica_train.fused_ica_train_plain(
+            d0, x0, batches[:k], cs.ICA_STEP, **kw),
+        trainer=lambda: ica.train_dictionary_scanned(batches, d0, params))
+  steps, batch = cs.TRAIN_STEPS, cs.TRAIN_BATCH
+  if args.subspace:
+    patches = cs.group_patches(steps * batch, seed=1)
+    params = cs.subspace_train_params(steps, cs.SUB_STEP)
+    step = cs.SUB_STEP
+    # contiguous groups of 4: the grouped dictionary is the dictionary
+    kernels = fused_group_train_step
+    fused_segment = fused_group_train_step.fused_group_train_segment
+    plain_segment = fused_group_train_step.fused_group_train_segment_plain
+    extra = dict(group_assignments=params["group_assignments"])
+  else:
+    patches = cs.synthetic_patches(steps * batch, seed=1)
+    params = cs.train_params(steps)
+    step = cs.TRAIN_STEP
+    kernels = fused_train_step
+    fused_segment = fused_train_step.fused_train_segment
+    plain_segment = fused_train_step.fused_train_segment_plain
+    extra = {}
+  batches = torch.tensor(patches.reshape(steps, batch, 256), device=dev)
+  d0 = torch.tensor(cs.unit_rows(np.random.RandomState(2), 256, 256),
+                    device=dev)
+  h0 = torch.zeros(256, device=dev)
+  v0 = lipschitz.top_gram_eigenpair(d0)[1].contiguous()
+  scalars = (cs.LAM, cs.TRAIN_ITERS, step)
+  return dict(
+      name="subspace" if args.subspace else "fc", units="patches",
+      steps=steps, batch=batch, short=100, plain_steps=100, kernels=kernels,
+      fused=lambda k: lambda: fused_segment(d0, h0, v0, batches[:k],
+                                            *scalars, power_iters=2,
+                                            **extra),
+      plain=lambda k: lambda: plain_segment(d0, h0, v0, batches[:k],
+                                            *scalars, power_iters=2,
+                                            **extra),
+      trainer=lambda: compiled_epoch.train_dictionary_scanned(
+          batches, batches[:1], d0, params))
+
+
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  parser.add_argument("--subspace", action="store_true",
+  family = parser.add_mutually_exclusive_group()
+  family.add_argument("--subspace", action="store_true",
                       help="profile the subspace trainer (kernel K6)")
+  family.add_argument("--conv", action="store_true",
+                      help="profile the scanned conv trainer (kernel K12)")
+  family.add_argument("--ica", action="store_true",
+                      help="profile the scanned ICA trainer (kernel K8)")
   parser.add_argument("--out", help="also write the report here")
   args = parser.parse_args()
   import torch
@@ -72,10 +189,6 @@ def main():
     print("profile_train: no CUDA device", file=sys.stderr)
     return 1
   from torch.profiler import ProfilerActivity, profile
-
-  from vtc_tpu_torch.ops import (fused_group_train_step, fused_train_step,
-                                 lipschitz)
-  from vtc_tpu_torch.training import compiled_epoch
 
   dev = torch.device("cuda", 0)
   card = chip_smoke.card_line()
@@ -87,51 +200,23 @@ def main():
 
   report("card: %s | torch %s cuda %s" % (card, torch.__version__,
                                           torch.version.cuda))
-  steps, batch = chip_smoke.TRAIN_STEPS, chip_smoke.TRAIN_BATCH
-  if args.subspace:
-    patches = chip_smoke.group_patches(steps * batch, seed=1)
-    params = chip_smoke.subspace_train_params(steps, chip_smoke.SUB_STEP)
-    step = chip_smoke.SUB_STEP
-    # contiguous groups of 4: the grouped dictionary is the dictionary
-    kernels = fused_group_train_step
-    fused_segment = fused_group_train_step.fused_group_train_segment
-    plain_segment = fused_group_train_step.fused_group_train_segment_plain
-    extra = dict(group_assignments=params["group_assignments"])
-  else:
-    patches = chip_smoke.synthetic_patches(steps * batch, seed=1)
-    params = chip_smoke.train_params(steps)
-    step = chip_smoke.TRAIN_STEP
-    kernels = fused_train_step
-    fused_segment = fused_train_step.fused_train_segment
-    plain_segment = fused_train_step.fused_train_segment_plain
-    extra = {}
-  report("workload: %s trainer" % ("subspace" if args.subspace else "fc"))
-  batches = torch.tensor(patches.reshape(steps, batch, 256), device=dev)
-  d0 = torch.tensor(chip_smoke.unit_rows(np.random.RandomState(2), 256, 256),
-                    device=dev)
-  h0 = torch.zeros(256, device=dev)
-  v0 = lipschitz.top_gram_eigenpair(d0)[1].contiguous()
-  scalars = (chip_smoke.LAM, chip_smoke.TRAIN_ITERS, step)
-
-  def fused(k):
-    return lambda: fused_segment(d0, h0, v0, batches[:k], *scalars,
-                                 power_iters=2, **extra)
-
-  for k in (100, steps):
-    ms = time_ms(torch, fused(k), 3)
+  w = workload(args, torch, dev)
+  steps, batch = w["steps"], w["batch"]
+  report("workload: %s trainer, %d steps of %d" % (w["name"], steps, batch))
+  for k in (w["short"], steps):
+    ms = time_ms(torch, w["fused"](k), 3)
     report("fused train step, %4d-step segment: %.4f ms per step" % (
         k, ms / k))
-  plain = lambda: plain_segment(d0, h0, v0, batches[:100], *scalars,
-                                power_iters=2, **extra)
-  report("plain train step, 100-step segment: %.4f ms per step" % (
-      time_ms(torch, plain, 1) / 100))
+  k = w["plain_steps"]
+  report("plain train step, %d-step segment: %.4f ms per step" % (
+      k, time_ms(torch, w["plain"](k), 1) / k))
 
   # a short segment enqueues without filling the launch queue (about a
   # thousand launches), so its enqueue time is the host's own cost
   for k in (20, steps):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fused(k)()
+    w["fused"](k)()
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -142,13 +227,12 @@ def main():
   def segment():
     torch.cuda.synchronize()
     start = time.perf_counter()
-    compiled_epoch.train_dictionary_scanned(batches, batches[:1], d0,
-                                            params)
+    w["trainer"]()
     torch.cuda.synchronize()
     return (time.perf_counter() - start) * 1e3
 
   segment()  # warm-up
-  kernels.launches = 0
+  w["kernels"].launches = 0
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
     wall = segment()
@@ -158,11 +242,11 @@ def main():
                for e in device_events]
   busy = busy_ms(intervals)
   report("traced train_dictionary_scanned, %d steps of %d (%d fused "
-         "steps): wall %.2f ms (%.1f patches/s), device busy %.2f ms (idle "
+         "steps): wall %.2f ms (%.1f %s/s), device busy %.2f ms (idle "
          "%.1f%% of wall), %.4f ms busy per step" % (
-             steps, batch, kernels.launches, wall,
-             steps * batch / wall * 1e3, busy, 100 * (1 - busy / wall),
-             busy / steps))
+             steps, batch, w["kernels"].launches, wall,
+             steps * batch / wall * 1e3, w["units"], busy,
+             100 * (1 - busy / wall), busy / steps))
   per_group, per_name = {}, {}
   for e in device_events:
     t = (e.time_range.end - e.time_range.start) / 1e3
@@ -170,7 +254,7 @@ def main():
     per_name[e.name] = (n + 1, total + t)
     per_group[group_of(e.name)] = per_group.get(group_of(e.name), 0.0) + t
   for group, t in sorted(per_group.items(), key=lambda kv: -kv[1]):
-    report("  %-52s %9.3f ms %5.1f%% of busy, %.4f ms per step" % (
+    report("  %-60s %9.3f ms %5.1f%% of busy, %.4f ms per step" % (
         group, t, 100 * t / busy, t / steps))
   for name, (n, t) in sorted(per_name.items(), key=lambda kv: -kv[1][1]):
     report("    device %9.3f ms %5.1f%%  %5d x  %s" % (

@@ -13,22 +13,28 @@ another device (``device="cpu"``) or passes tensors that live elsewhere.
 Layout (mirrors vtc_tpu):
   ops/                 precision pins, thresholds, solver loop,
                        Lipschitz stepsize, conv shapes, operators and
-                       Gram forms, the wrappers of the fused FISTA, fused
-                       train step, fused group FISTA, fused group train
-                       step and the two conv solve CUDA kernels
+                       Gram forms, and the wrappers of the CUDA kernels:
+                       fused FISTA (K1), fused train step (K2), fused
+                       group FISTA (K4), fused group train step (K6), the
+                       fused ICA train step (K8), the two conv solves
+                       (K10, K11) and the fused conv train step (K12)
   csrc/                hand-written CUDA C++ kernels (built at first use)
   analysis_transforms/ code inference (fully-connected, subspace and
-                       convolutional ISTA/FISTA)
-  dict_update_rules/   fully-connected, subspace and conv updates
+                       convolutional ISTA/FISTA; the exact inverse of a
+                       square dictionary, invertible_linear)
+  dict_update_rules/   fully-connected, subspace, ICA natural-gradient and
+                       conv updates
   training/            the per-batch trainer (fc, subspace, conv), the
-                       scanned fc and subspace trainer, reset/prune
+                       scanned trainer (fc, subspace, conv), the ICA
+                       trainers (per batch and scanned), PCA, reset/prune
   utils/               checkpoints, the health check, dictionary figures
-  data/                BatchIterator for SparseCoder.fit
+  data/                BatchIterator for the coders' fit
   encode.py            chunked, stream-overlapped dataset encoding
   device.py            the entry points' default device (the card)
-  api.py               SparseCoder.fit / encode / decode
+  api.py               SparseCoder, ICACoder and PCACoder: fit / encode /
+                       decode
   convert.py           vtc_tpu parameters, checkpoints and train state
-                       -> tensors
+                       (sparse-coding, ICA, PCA) -> tensors
 
 Importing the package pins IEEE float32 matmuls (``ops/precision.py``).
 """

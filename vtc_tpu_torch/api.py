@@ -1,5 +1,6 @@
-"""Estimator-style convenience API: counterpart of ``SparseCoder``
-(vtc_tpu/api.py:21-100): ``fit``, ``encode`` and ``decode``.
+"""Estimator-style convenience API: counterpart of ``SparseCoder``,
+``ICACoder`` and ``PCACoder`` (vtc_tpu/api.py:21-167): ``fit``, ``encode``
+and ``decode``.
 
   coder = SparseCoder(num_atoms=256, sparsity_weight=0.008,
                       formulation="pallas")             # on the card
@@ -10,8 +11,11 @@
 ``fit`` trains through the port's ``training.sparse_coding.
 train_dictionary``, one step per batch of a shuffling ``BatchIterator``;
 with formulation='pallas' on a CUDA device every solve runs K1's kernel.
-The coder runs on ``device``, by default the CUDA device (raising without
-one); ``device="cpu"`` runs it on the CPU.
+``ICACoder.fit`` runs the per-batch ICA trainer (training/ica) and
+encodes with the exact linear solve; ``PCACoder.fit`` centres the patches
+and takes the principal directions of training/pca.  Each coder runs on
+``device``, by default the CUDA device (raising without one);
+``device="cpu"`` runs it on the CPU.
 """
 import numpy as np
 import torch
@@ -114,3 +118,94 @@ class SparseCoder:
     codes = torch.as_tensor(codes, dtype=torch.float32, device=self.device)
     with matmul_precision():
       return codes @ dictionary
+
+
+class ICACoder:
+  """Square ICA dictionary: fit by natural gradient, exact codes."""
+
+  def __init__(self, stepsize=0.01, seed=0, device=None):
+    self.stepsize = float(stepsize)
+    self.seed = seed
+    self.device = resolve_device(device)
+    self.dictionary = None
+
+  def fit(self, patches, num_epochs=5, batch_size=250, **extra_params):
+    """Learn the (n, n) dictionary from (D, n) patches, starting from
+    vtc_tpu's initial dictionary: the Q of RandomState(seed)'s Gaussian
+    (n, n) matrix."""
+    from vtc_tpu_torch.data.dataset_generation import BatchIterator
+    from vtc_tpu_torch.training.ica import train_dictionary
+
+    patches = np.asarray(patches, np.float32)
+    n = patches.shape[1]
+    if self.dictionary is None:
+      rng = np.random.RandomState(self.seed)
+      d0 = np.linalg.qr(rng.standard_normal((n, n)))[0].astype(np.float32)
+    else:
+      d0 = self.dictionary
+    params = {
+        "num_epochs": int(num_epochs),
+        "dictionary_update_algorithm": "ica_natural_gradient",
+        "dict_update_param_schedule": {
+            0: {"stepsize": self.stepsize, "num_iters": 1}},
+        "stdout_print_interval": 10**9,
+    }
+    params.update(extra_params)
+    self.dictionary = train_dictionary(
+        BatchIterator(patches, batch_size, seed=self.seed), d0, params,
+        device=self.device)
+    return self
+
+  def encode(self, patches):
+    """(D, n) patches -> (D, n) codes, a tensor on the device."""
+    from vtc_tpu_torch.analysis_transforms.fully_connected import (
+        invertible_linear)
+    return invertible_linear.run(
+        torch.as_tensor(np.asarray(patches, np.float32), device=self.device),
+        torch.as_tensor(self.dictionary, dtype=torch.float32,
+                        device=self.device))
+
+  def decode(self, codes):
+    """(D, n) codes -> (D, n) reconstructions, a tensor on the device."""
+    dictionary = torch.as_tensor(self.dictionary, dtype=torch.float32,
+                                 device=self.device)
+    codes = torch.as_tensor(codes, dtype=torch.float32, device=self.device)
+    with matmul_precision():
+      return codes @ dictionary
+
+
+class PCACoder:
+  """PCA dictionary with optional dimensionality truncation."""
+
+  def __init__(self, num_components=None, device=None):
+    self.num_components = num_components
+    self.device = resolve_device(device)
+    self.dictionary = None
+    self.component_means = None
+
+  def fit(self, patches):
+    """Centre (D, n) patches and keep the first ``num_components``
+    principal directions (all n by default) as the rows of
+    ``dictionary``; ``component_means`` is an (n,) tensor."""
+    from vtc_tpu_torch.training.pca import train_dictionary
+
+    patches = torch.as_tensor(np.asarray(patches, np.float32),
+                              device=self.device)
+    self.component_means = patches.mean(dim=0)
+    full = train_dictionary(patches - self.component_means,
+                            device=self.device)
+    self.dictionary = full[:self.num_components or full.shape[0]]
+    return self
+
+  def encode(self, patches):
+    """(D, n) patches -> (D, k) coefficients, a tensor on the device."""
+    centered = torch.as_tensor(np.asarray(patches, np.float32),
+                               device=self.device) - self.component_means
+    with matmul_precision():
+      return centered @ self.dictionary.T
+
+  def decode(self, codes):
+    """(D, k) coefficients -> (D, n) reconstructions, on the device."""
+    codes = torch.as_tensor(codes, dtype=torch.float32, device=self.device)
+    with matmul_precision():
+      return codes @ self.dictionary + self.component_means

@@ -8,7 +8,10 @@ encode path needs the (s, n) dictionary, or the (s, c, kh, kw) kernels of
 a convolutional one; the fc trainer also carries the Hessian-diagonal EMA (s,) and the warm Lipschitz
 eigenvector -- (min(s, n),), or (min(G*M, n),) of the grouped Gram for
 the subspace trainer -- and resumes from the train-state sidecar that
-vtc_tpu's trainers write beside each dictionary checkpoint.
+vtc_tpu's trainers write beside each dictionary checkpoint.  The ICA
+trainers take a square (n, n) dictionary and its tracked inverse
+(``ica_state_from_numpy``); a fitted ``PCACoder`` is its (k, n)
+principal directions and its (n,) component means (``pca_from_numpy``).
 """
 import numpy as np
 import torch
@@ -72,3 +75,33 @@ def load_train_state(checkpoint_dir, device):
                  device=device),
              "train_iteration": int(state["train_iteration"])}
   return dictionary_from_numpy(dictionary, device), state, iteration
+
+
+def _tensor(name, array, shape, device):
+  array = np.ascontiguousarray(array, dtype=np.float32)
+  if array.shape != shape:
+    raise ValueError("expected %s of shape %s, got %s"
+                     % (name, shape, array.shape))
+  return torch.tensor(array, device=device)
+
+
+def ica_state_from_numpy(dictionary, inverse, device):
+  """(dictionary, inverse) as float32 (n, n) tensors on ``device``: the
+  state ``ops.fused_ica_train.fused_ica_train_segment`` carries.  With
+  ``inverse`` None it is the exact inverse of the dictionary, the seed
+  vtc_tpu's scanned ICA trainer starts from."""
+  n = np.shape(dictionary)[0]
+  d = _tensor("dictionary", dictionary, (n, n), device)
+  if inverse is None:
+    from vtc_tpu_torch.analysis_transforms.fully_connected import (
+        invertible_linear)
+    return d, invertible_linear.exact_inverse(d)
+  return d, _tensor("inverse", inverse, (n, n), device)
+
+
+def pca_from_numpy(dictionary, component_means, device):
+  """A fitted PCACoder's (k, n) principal directions and (n,) component
+  means as float32 tensors on ``device``."""
+  k, n = np.shape(dictionary)
+  return (_tensor("dictionary", dictionary, (k, n), device),
+          _tensor("component_means", component_means, (n,), device))

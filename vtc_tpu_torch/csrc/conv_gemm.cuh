@@ -1,5 +1,5 @@
-// Gathered fp32 GEMM for the convolutional solves (K10 and K11), CUDA C++
-// for Hopper (sm_90a).
+// Gathered fp32 GEMM for the convolutional solves (K10 and K11) and the
+// conv train step (K12), CUDA C++ for Hopper (sm_90a).
 //
 // Every product of the conv iteration is one shape:
 //
@@ -40,6 +40,7 @@ enum Epilogue {
   kNegStoreKeepRows = 3,  // out = (row_flag[Y] ? out : 0) - acc
   kAdd = 4,            // out += acc
   kProx = 5,           // the ISTA/FISTA update, see below
+  kMaskResid = 6,      // out = acc * mask[m, Y, X] - extra[idx] (K12)
 };
 
 // which output positions a grid z index runs over
@@ -76,7 +77,7 @@ struct GemmArgs {
   // codes = shrink(z_cur - eta * g, lam * eta), written to old
   const float* z_cur;
   const float* corr;
-  const float* extra;   // or null
+  const float* extra;   // or null; kMaskResid: the subtrahend
   float* old;
   const float* eta;
   float lam, beta;
@@ -236,6 +237,12 @@ __global__ void __launch_bounds__(kThreads) gather_gemm(GemmArgs p) {
           p.out[idx] = __fsub_rn(p.row_flag[y] ? p.out[idx] : 0.f, v);
           break;
         case kAdd: p.out[idx] = __fadd_rn(p.out[idx], v); break;
+        case kMaskResid:
+          p.out[idx] = __fsub_rn(
+              __fmul_rn(v, p.mask[(static_cast<long long>(m) * p.out_h + y) *
+                                      p.out_w + x]),
+              p.extra[idx]);
+          break;
         default: {
           float g = p.extra ? __fadd_rn(v, p.extra[idx]) : v;
           g = __fsub_rn(g, p.corr[idx]);

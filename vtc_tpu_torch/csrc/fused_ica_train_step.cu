@@ -1,0 +1,183 @@
+// Fused ICA train steps for Hopper (sm_90a), CUDA C++.
+//
+// Replaces the TPU kernel K8: vtc_tpu/ops/pallas_ica_train.py,
+// fused_ica_train_segment_pallas (:280) with its kernel _make_ica_kernel
+// (:101).  Same contract: for each of the k batches (b, n) of a segment,
+// with the square dictionary D (n, n) and the tracked inverse X carried
+// from step to step,
+//
+//   refine_iters times   X = X (2I - D X)          (Newton-Schulz)
+//   r = max |D X - I|
+//   if r > boost_tol:    two more refreshes, r recomputed
+//   r_max = max(r_max, r)                          (NaN propagates)
+//   codes = batch X;  S = codes^T sign(codes);  M = S / b - I
+//   upd_num_iters times  D = D + eta M D
+//
+// r_max, the largest post-refinement residual of the segment, is what the
+// trainer's divergence guard reads (training/ica.py): a step whose
+// refinement diverged must show, so both maxima propagate NaN as
+// jnp.maximum does (CUDA's fmaxf drops it), and the boost test is
+// NaN > tol, false, as in the TPU kernel.  The boost is decided on the
+// device: the two extra refreshes and the second residual are launched
+// every step and do nothing unless the flag the first residual wrote is
+// set, so the host never waits.  sign(0) is 0.
+//
+// Layout.  D and X (256 KB each at n = 256) with the products' operands
+// exceed one block's 227 KB, and Hopper blocks run in no order, so the
+// TPU kernel's VMEM residency across grid steps becomes per-step kernels
+// enqueued by one C loop per segment on one stream (K2's layout); D, X,
+// the flag and r_max stay in device memory.  X ping-pongs between two
+// buffers; the boost's two refreshes leave it where it was.
+//
+// What bounds it on this card.  At n = 256, b = 250, refine_iters 3, a
+// step is (4*3 + 2 + 2) n^3 + 4 b n^2 = 0.34 GFLOP, 5 us at the fp32 SIMT
+// peak; every operand fits the 50 MB L2.  Each product is train_core.cuh's
+// fp32 SIMT tile kernel (64 blocks at n = 256), so the step is bound by
+// the latency of about 20 dependent launches, not by FMA throughput.
+// Every product is IEEE fp32 FMA (no TF32, no library).
+#include "train_core.cuh"
+
+namespace {
+
+constexpr int kReduceThreads = 1024;
+
+// max that keeps NaN, as jnp.maximum / torch.maximum do
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// One block: r = max |c| over count entries, NaN kept.  With boost given
+// (the first residual of a step), *boost = r > boost_tol and r enters
+// r_max unless the boost fires; the second residual (run_if = boost)
+// enters r_max.
+__global__ void __launch_bounds__(kReduceThreads)
+    residual_kernel(const float* __restrict__ c, int count,
+                    float* __restrict__ r_max, int* __restrict__ boost,
+                    float boost_tol, const int* __restrict__ run_if) {
+  if (run_if != nullptr && *run_if == 0) return;
+  __shared__ float part[kReduceThreads];
+  float m = 0.0f;
+  for (int i = threadIdx.x; i < count; i += blockDim.x)
+    m = nan_max(m, fabsf(c[i]));
+  part[threadIdx.x] = m;
+  __syncthreads();
+  for (int off = blockDim.x / 2; off > 0; off >>= 1) {
+    if (threadIdx.x < off)
+      part[threadIdx.x] = nan_max(part[threadIdx.x], part[threadIdx.x + off]);
+    __syncthreads();
+  }
+  if (threadIdx.x != 0) return;
+  const float r = part[0];
+  const bool boosted = boost != nullptr && r > boost_tol;
+  if (boost != nullptr) *boost = boosted ? 1 : 0;
+  if (!boosted) *r_max = nan_max(*r_max, r);
+}
+
+// sgn = sign(c): -1, 0 or 1 (NaN stays NaN)
+__global__ void sign_kernel(const float* __restrict__ c,
+                            float* __restrict__ sgn, int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const float x = c[i];
+  sgn[i] = x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : (x == 0.0f ? 0.0f : x));
+}
+
+// m = stat / b - I
+__global__ void natural_gradient_kernel(const float* __restrict__ stat,
+                                        float* __restrict__ m, int n,
+                                        float b) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n * n) return;
+  m[e] = __fsub_rn(stat[e] / b, (e / n == e % n) ? 1.0f : 0.0f);
+}
+
+// d = d + eta * p
+__global__ void axpy_kernel(float* __restrict__ d,
+                            const float* __restrict__ p, float eta,
+                            int count) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= count) return;
+  d[e] = __fadd_rn(d[e], __fmul_rn(eta, p[e]));
+}
+
+}  // namespace
+
+extern "C" {
+
+// k ICA train steps on one stream, every launch enqueued before returning.
+//
+// In place: d (n, n), x (n, n) the tracked inverse, r_max (1,) the running
+// residual maximum (the caller zeroes it).  batches (k, b, n); eye and
+// eye2 (n, n) hold I and 2I.  Scratch: x_alt and e (n, n), codes and sgn
+// (b, n), stat, m and p (n, n), boost (1,) int.  has_boost: run the
+// residual-adaptive boost at boost_tol.  Returns the first CUDA error code
+// (0 on success).
+int vtc_ica_train_segment(float* d, float* x, float* r_max,
+                          const float* batches, const float* eye,
+                          const float* eye2, int k, int b, int n,
+                          float stepsize, int refine_iters, int upd_num_iters,
+                          int has_boost, float boost_tol, float* x_alt,
+                          float* e, float* codes, float* sgn, float* stat,
+                          float* m, float* p, int* boost, void* stream_ptr) {
+  if (k < 0 || b < 1 || n < 1 || refine_iters < 0 || upd_num_iters < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int nn = n * n;
+  const float fb = static_cast<float>(b);
+  float* xc = x;      // the current inverse
+  float* xo = x_alt;  // the other buffer
+  cudaError_t err;
+#define VTC_CHECK(...)                                    \
+  do {                                                    \
+    err = (__VA_ARGS__);                                  \
+    if (err != cudaSuccess) return static_cast<int>(err); \
+  } while (0)
+  // one Newton-Schulz refresh, X <- X (2I - D X), optionally conditional
+  auto refresh = [&](const int* run_if) -> cudaError_t {
+    cudaError_t e1 =
+        gemm<false, false, true>(d, xc, eye2, e, n, n, n, stream, run_if);
+    if (e1 != cudaSuccess) return e1;
+    e1 = gemm<false, false>(xc, e, nullptr, xo, n, n, n, stream, run_if);
+    float* t = xc;
+    xc = xo;
+    xo = t;
+    return e1;
+  };
+  for (int step = 0; step < k; ++step) {
+    const float* xs = batches + static_cast<int64_t>(step) * b * n;
+    for (int it = 0; it < refine_iters; ++it) VTC_CHECK(refresh(nullptr));
+    VTC_CHECK(gemm<false, false>(d, xc, eye, e, n, n, n, stream));
+    residual_kernel<<<1, kReduceThreads, 0, stream>>>(
+        e, nn, r_max, has_boost ? boost : nullptr, boost_tol, nullptr);
+    VTC_CHECK(cudaGetLastError());
+    if (has_boost) {
+      // two refreshes: X is back in the buffer it started in, boosted or
+      // not
+      VTC_CHECK(refresh(boost));
+      VTC_CHECK(refresh(boost));
+      VTC_CHECK(gemm<false, false>(d, xc, eye, e, n, n, n, stream, boost));
+      residual_kernel<<<1, kReduceThreads, 0, stream>>>(e, nn, r_max, nullptr,
+                                                        0.0f, boost);
+      VTC_CHECK(cudaGetLastError());
+    }
+    VTC_CHECK(gemm<false, false>(xs, xc, nullptr, codes, b, n, n, stream));
+    sign_kernel<<<(b * n + 255) / 256, 256, 0, stream>>>(codes, sgn, b * n);
+    VTC_CHECK(cudaGetLastError());
+    VTC_CHECK(gemm<true, false>(codes, sgn, nullptr, stat, n, n, b, stream));
+    natural_gradient_kernel<<<(nn + 255) / 256, 256, 0, stream>>>(stat, m, n,
+                                                                  fb);
+    VTC_CHECK(cudaGetLastError());
+    for (int u = 0; u < upd_num_iters; ++u) {
+      VTC_CHECK(gemm<false, false>(m, d, nullptr, p, n, n, n, stream));
+      axpy_kernel<<<(nn + 255) / 256, 256, 0, stream>>>(d, p, stepsize, nn);
+      VTC_CHECK(cudaGetLastError());
+    }
+  }
+  if (xc != x)
+    VTC_CHECK(cudaMemcpyAsync(x, xc, sizeof(float) * nn,
+                              cudaMemcpyDeviceToDevice, stream));
+#undef VTC_CHECK
+  return 0;
+}
+
+}  // extern "C"

@@ -1,7 +1,9 @@
 // The per-step kernels shared by K2 (fused_train_step.cu, fc train
-// segments) and K6 (fused_group_train_step.cu, subspace train segments),
-// for Hopper (sm_90a).  Included by each: everything here has internal
-// linkage.
+// segments), K6 (fused_group_train_step.cu, subspace train segments), K8
+// (fused_ica_train_step.cu, ICA segments; the product only) and K12
+// (fused_conv_train_step.cu, conv segments; the product and the power
+// refresh), for Hopper (sm_90a).  Included by each: everything here has
+// internal linkage.
 //
 // Precision.  Every product is IEEE fp32 FMA on the CUDA cores: no TF32,
 // no tensor cores, no library call.  The update gradient is a small
@@ -21,15 +23,18 @@ constexpr int kGemmThreads = 256;  // 32 columns x 8 row groups of 4
 constexpr int kPowerThreads = 1024;
 constexpr int kRowThreads = 256;
 
-// C (M, N) = op(A) (M, K) @ op(B) (K, N), minus X (M, N) when X is given.
-// TA: A is stored (K, M); otherwise (M, K).  TB: B is stored (N, K);
-// otherwise (K, N).  All row-major and contiguous.  The sum over k runs
-// in order, one FMA per term.
-template <bool TA, bool TB>
+// C (M, N) = op(A) (M, K) @ op(B) (K, N), minus X (M, N) when X is given
+// (NEG: X minus the product).  TA: A is stored (K, M); otherwise (M, K).
+// TB: B is stored (N, K); otherwise (K, N).  All row-major and
+// contiguous.  The sum over k runs in order, one FMA per term.  With
+// run_if given, the launch does nothing unless *run_if is nonzero (a
+// branch decided on the device, K8's boost).
+template <bool TA, bool TB, bool NEG = false>
 __global__ void __launch_bounds__(kGemmThreads)
     gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
                 const float* __restrict__ X, float* __restrict__ C, int M,
-                int N, int K) {
+                int N, int K, const int* __restrict__ run_if) {
+  if (run_if != nullptr && *run_if == 0) return;
   __shared__ float As[kTile][kTile + 1];  // As[k][i]
   __shared__ float Bs[kTile][kTile + 1];  // Bs[k][j]
   const int tid = threadIdx.x;
@@ -84,17 +89,19 @@ __global__ void __launch_bounds__(kGemmThreads)
     const int i = i0 + ty * 4 + r;
     if (i < M) {
       const int64_t at = static_cast<int64_t>(i) * N + j;
-      C[at] = X != nullptr ? acc[r] - X[at] : acc[r];
+      if (X == nullptr) C[at] = acc[r];
+      else C[at] = NEG ? X[at] - acc[r] : acc[r] - X[at];
     }
   }
 }
 
-template <bool TA, bool TB>
+template <bool TA, bool TB, bool NEG = false>
 cudaError_t gemm(const float* A, const float* B, const float* X, float* C,
-                 int M, int N, int K, cudaStream_t stream) {
+                 int M, int N, int K, cudaStream_t stream,
+                 const int* run_if = nullptr) {
   const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  gemm_kernel<TA, TB><<<grid, kGemmThreads, 0, stream>>>(A, B, X, C, M, N,
-                                                         K);
+  gemm_kernel<TA, TB, NEG><<<grid, kGemmThreads, 0, stream>>>(
+      A, B, X, C, M, N, K, run_if);
   return cudaGetLastError();
 }
 

@@ -19,10 +19,12 @@ from vtc_tpu_torch.ops.precision import matmul_precision
 
 def _update(images_padded, dictionary, codes, hessian_diagonal, mask,
             kernel_stride, stepsize, num_iters, lowest_code_val,
-            normalize_dictionary, padding=None, formulation="direct"):
+            normalize_dictionary, padding=None, formulation="direct",
+            precision=None):
   scale = (hessian_diagonal + lowest_code_val)[:, None, None, None]
   grad_fn = conv_sd.gradient_fn(images_padded, codes, dictionary.shape,
-                                mask, kernel_stride, padding, formulation)
+                                mask, kernel_stride, padding, formulation,
+                                precision)
   d = dictionary
   with matmul_precision():
     for _ in range(int(num_iters)):

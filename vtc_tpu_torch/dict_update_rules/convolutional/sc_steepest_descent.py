@@ -36,13 +36,14 @@ def resolve_formulation(images_shape, dictionary_shape, kernel_stride):
 
 
 def gradient_fn(images_padded, codes, dictionary_shape, mask, kernel_stride,
-                padding, formulation):
-  """d -> the batch-averaged kernel gradient at fixed codes."""
+                padding, formulation, precision=None):
+  """d -> the batch-averaged kernel gradient at fixed codes; ``precision``
+  (the block formulation's products, default 'highest')."""
   if formulation == "block":
     stats = fused_conv_direct.build_block_update_stats(
         images_padded, codes, dictionary_shape, kernel_stride, padding)
     return lambda d: fused_conv_direct.dictionary_gradient_from_block_stats(
-        stats, d)
+        stats, d, precision)
   if formulation == "gram":
     stats = conv_dict_gram.build_dict_gradient_stats(
         images_padded, codes, dictionary_shape, kernel_stride, padding)
@@ -62,9 +63,9 @@ def renormalize_kernels(dictionary):
 
 def _update(images_padded, dictionary, codes, mask, kernel_stride, stepsize,
             num_iters, normalize_dictionary, padding=None,
-            formulation="direct"):
+            formulation="direct", precision=None):
   grad_fn = gradient_fn(images_padded, codes, dictionary.shape, mask,
-                        kernel_stride, padding, formulation)
+                        kernel_stride, padding, formulation, precision)
   d = dictionary
   with matmul_precision():
     for _ in range(int(num_iters)):

@@ -135,4 +135,14 @@ def load_library():
       ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, f32, i32, i32,
       i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
   lib.vtc_conv_fista.restype = i32
+  lib.vtc_conv_train_chunk.argtypes = []
+  lib.vtc_conv_train_chunk.restype = i32
+  lib.vtc_conv_train_segment.argtypes = (
+      [ptr] * 6 + [i32] * 8 + [f32, i32, f32, i32, f32] + [i32] * 5
+      + [ptr] * 9 + [ptr])
+  lib.vtc_conv_train_segment.restype = i32
+  lib.vtc_ica_train_segment.argtypes = (
+      [ptr] * 6 + [i32, i32, i32, f32, i32, i32, i32, f32] + [ptr] * 8
+      + [ptr])
+  lib.vtc_ica_train_segment.restype = i32
   return lib

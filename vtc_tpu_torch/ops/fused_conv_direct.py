@@ -202,14 +202,15 @@ def build_block_update_stats(images_padded, codes, dict_shape,
               zstack=zstack, mblk=mblk, kernel_shape=tuple(dict_shape))
 
 
-def dictionary_gradient_from_block_stats(stats, dictionary):
+def dictionary_gradient_from_block_stats(stats, dictionary, precision=None):
   """(s, c, kh, kw) batch-averaged masked-residual kernel gradient,
   equal to ops/convolutions.dictionary_gradient, as two block products
-  (vtc_tpu pallas_conv_direct.py:240-252)."""
+  (vtc_tpu pallas_conv_direct.py:240-252), at ``precision`` (default
+  'highest')."""
   geo = stats["geo"]
   zstack = stats["zstack"]
   b, k = zstack.shape[:2]
-  with matmul_precision():
+  with matmul_precision(precision):
     dstk, _ = pack_weights(dictionary, geo)
     resid = _product(dstk, zstack) * stats["mblk"] - stats["xblk"]
     grad = torch.einsum("bpn,bkn->pk", resid.reshape(b, geo["cpx"], -1),

@@ -1,0 +1,292 @@
+"""Fused conv train steps over a segment: the port of TPU kernel K12,
+``fused_conv_train_segment_pallas`` (vtc_tpu/ops/pallas_conv_train.py:
+547-755, kernel ``_make_segment_kernel`` :374).
+
+``fused_conv_train_segment`` keeps that function's contract and return
+value ``(kernels, hessian, eigvec, last_codes)``.  Per batch of the
+(k, b, c, H, W) segment: the warm power refresh of the flat-kernel Gram's
+eigenvector, K10's conv FISTA or ISTA solve at stepsize 1/eigval, the conv
+Hessian-diagonal EMA (cheap quadratic only) and ``upd_num_iters``
+stride-block updates at the current kernels, each projected onto the real
+kernel support, Hessian-scaled, rescaled to the Frobenius norm, stepped
+and renormalized per kernel.
+
+* A CUDA tensor runs the hand-written kernels of
+  ``vtc_tpu_torch/csrc/fused_conv_train_step.cu`` (built at first use by
+  ``ops/_build.py``), whose solve is K10's, on the current stream; or
+  raises.  The weights are packed, and the masked images cut into stride
+  blocks, with torch ops outside the kernels, as vtc_tpu does with XLA
+  outside the ``pallas_call`` (:643-671).
+* A CPU tensor runs ``fused_conv_train_plain``, the composition the JAX
+  tests use as K12's reference (tests/test_pallas_conv_train.py:18-35):
+  ``lipschitz.power_iterate`` on the flat kernels ->
+  ``fused_conv_direct_plain`` -> ``hessian_diagonal_ema`` -> the conv
+  update rule's block ``_update``.  ``chip_smoke.py`` holds the kernels
+  against it on the card.
+
+The card has no batch tiles: every batch runs as one tile, the single-tile
+semantics.  So the gate keeps vtc_tpu's math (K10's geometry, s <= R*cpx,
+ista/fista, the two update rules, no groups) and drops the TPU's VMEM
+tile fit (``_fits``, ``_pick_tile`` :115-139); the gram-form tile
+accumulators (:501-516), which only tiled batches use, have no
+counterpart.  Left out: the TPU knobs ``batch_tile`` and ``interpret``;
+the in-kernel early stop and the ``mxu`` tiers other than 'highest' raise
+NotImplementedError on a CUDA tensor (ROADMAP.md §1 item 3).
+``launches`` counts the train steps the kernels ran.
+"""
+import ctypes
+
+import torch
+
+from vtc_tpu_torch.dict_update_rules.convolutional import (
+    sc_cheap_quadratic_descent as conv_cqd)
+from vtc_tpu_torch.dict_update_rules.convolutional import (
+    sc_steepest_descent as conv_sd)
+from vtc_tpu_torch.ops import conv_shapes, fused_conv_direct, lipschitz
+from vtc_tpu_torch.ops.precision import matmul_precision
+
+launches = 0
+
+UPDATE_ALGS = ("sc_steepest_descent", "sc_cheap_quadratic_descent")
+
+
+def gram_stats_supported(img_shape, dict_shape, kernel_stride, padding):
+  """vtc_tpu's gate for exact gram-form update statistics
+  (pallas_conv_train.py:155-165): each padding amount a multiple of its
+  stride and the kernels stride multiples, so the block mask factors per
+  stride block.  The port's segment runs single-tile and never needs
+  them; the gate stays for callers that ask."""
+  del img_shape
+  if padding is not None:
+    (pv0, pv1), (ph0, ph1) = padding
+    sv, sh_ = kernel_stride
+    if pv0 % sv or pv1 % sv or ph0 % sh_ or ph1 % sh_:
+      return False
+  _, _, kh, kw = dict_shape
+  return kh % kernel_stride[0] == 0 and kw % kernel_stride[1] == 0
+
+
+def fused_conv_segment_supported(img_shape, dict_shape, kernel_stride,
+                                 inference_alg, update_alg, *,
+                                 group_assignments=None, upd_num_iters=1,
+                                 padding=None, early_stopping_epsilon=None):
+  """True when ``fused_conv_train_segment`` covers this configuration
+  (vtc_tpu pallas_conv_train.py:168-208 without the VMEM tile rule, so
+  ``upd_num_iters``, ``padding`` and ``early_stopping_epsilon`` decide
+  nothing here: the whole batch is one tile)."""
+  del upd_num_iters, padding, early_stopping_epsilon
+  if group_assignments is not None:
+    return False
+  if inference_alg not in ("ista", "fista") or update_alg not in UPDATE_ALGS:
+    return False
+  kernel_stride = tuple(int(x) for x in kernel_stride)
+  if not fused_conv_direct.supported(img_shape, dict_shape, kernel_stride):
+    return False
+  geo = fused_conv_direct.geometry(img_shape, dict_shape, kernel_stride)
+  return geo["s"] <= geo["r"] * geo["cpx"]  # the (s, s) flat-kernel Gram
+
+
+def fused_conv_train_plain(dictionary, hessian, eigvec, batches,
+                           sparsity_weight, inf_num_iters, upd_stepsize, *,
+                           kernel_stride, padding, variant="fista",
+                           update_alg="sc_cheap_quadratic_descent",
+                           upd_num_iters=1, nonneg=False, hard=False,
+                           renormalize=True, power_iters=12,
+                           lowest_code_val=0.001,
+                           early_stopping_epsilon=None, precision=None,
+                           return_stepsize=False):
+  """The plain PyTorch version of the fused conv segment, on any device
+  and in the inputs' own float type (float64 inputs give the oracle).
+
+  ``precision`` is the matmul precision of the solve and the update
+  (default 'highest'); 'tensorfloat32' shows what TF32 products would
+  cost.  The power refresh always runs at 'highest', as in every tier of
+  the TPU kernel.
+  """
+  kernel_stride = tuple(int(x) for x in kernel_stride)
+  padding = conv_shapes.normalize_padding(padding)
+  d, h, v = dictionary, hessian, eigvec
+  s = d.shape[0]
+  codes = eta = None
+  for batch in batches:
+    eigval, v = lipschitz.power_iterate(d.reshape(s, -1), v,
+                                        int(power_iters))
+    eta = 1.0 / eigval
+    codes = fused_conv_direct.fused_conv_direct_plain(
+        batch, d, sparsity_weight, inf_num_iters, eta,
+        kernel_stride=kernel_stride, padding=padding, variant=variant,
+        nonneg=nonneg, hard=hard,
+        early_stopping_epsilon=early_stopping_epsilon, precision=precision)
+    mask = conv_shapes.create_mask(batch.shape, padding, batch.dtype,
+                                   batch.device)
+    if update_alg == "sc_cheap_quadratic_descent":
+      h = conv_cqd.hessian_diagonal_ema(h, codes)
+      d = conv_cqd._update(batch, d, codes, h, mask, kernel_stride,
+                           upd_stepsize, upd_num_iters, lowest_code_val,
+                           renormalize, padding, "block", precision)
+    else:
+      d = conv_sd._update(batch, d, codes, mask, kernel_stride, upd_stepsize,
+                          upd_num_iters, renormalize, padding, "block",
+                          precision)
+  if return_stepsize:
+    return d, h, v, codes, eta.reshape(1)
+  return d, h, v, codes
+
+
+def _require(cond, message):
+  if not cond:
+    raise ValueError("fused_conv_train_segment: " + message)
+
+
+def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
+                             sparsity_weight, inf_num_iters, upd_stepsize, *,
+                             kernel_stride, padding, variant="fista",
+                             update_alg="sc_cheap_quadratic_descent",
+                             upd_num_iters=1, nonneg=False, hard=False,
+                             renormalize=True, power_iters=12,
+                             lowest_code_val=0.001, mxu="highest",
+                             early_stopping_epsilon=None,
+                             return_stepsize=False):
+  """Run ``batches.shape[0]`` fused conv train steps.
+
+  Args:
+    dictionary: (s, c, kh, kw) float32 kernels.
+    hessian: (s,) conv Hessian-diagonal EMA (unchanged by steepest
+      descent).
+    eigvec: (s,) warm eigenvector of the flat-kernel Gram (normalized
+      here); seed it with ``lipschitz.top_gram_eigenpair`` of the
+      flattened kernels.
+    batches: (k, b, c, H, W) float32 padded images, k >= 1.
+    sparsity_weight, inf_num_iters, upd_stepsize: Python scalars.
+    kernel_stride: (sv, sh); padding: ((lv, tv), (lh, th)) or None; the
+      geometry must pass ``fused_conv_segment_supported``.
+    variant / update_alg / upd_num_iters / nonneg / hard / renormalize /
+      power_iters / lowest_code_val: as in vtc_tpu (power_iters 12 is the
+      robust default; the trainer passes 2 from an exact seed).
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3).
+    early_stopping_epsilon: CPU tensors only (the plain version's stop
+      test); a CUDA tensor raises, ROADMAP.md §1 item 3.
+    return_stepsize: also return the final step's stepsize 1/eigval, a
+      one-element tensor.
+
+  Returns:
+    (kernels, hessian, eigvec, last_codes[, stepsize]): new tensors; the
+    inputs are not modified.  last_codes is the (b, s, code_h, code_w)
+    codes of the final step.
+  """
+  if variant not in ("ista", "fista"):
+    raise ValueError("variant must be 'ista' or 'fista'")
+  if update_alg not in UPDATE_ALGS:
+    raise ValueError("update_alg must be one of %s" % (UPDATE_ALGS,))
+  if mxu != "highest":
+    raise NotImplementedError(
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3"
+        % (mxu,))
+  _require(batches.dim() == 5 and batches.shape[0] >= 1,
+           "batches must be (k, b, c, H, W) with k >= 1, got %s"
+           % (tuple(batches.shape),))
+  kernel_stride = tuple(int(x) for x in kernel_stride)
+  padding = conv_shapes.normalize_padding(padding)
+  flags = dict(kernel_stride=kernel_stride, padding=padding, variant=variant,
+               update_alg=update_alg, upd_num_iters=int(upd_num_iters),
+               nonneg=bool(nonneg), hard=bool(hard),
+               renormalize=bool(renormalize), power_iters=int(power_iters),
+               lowest_code_val=float(lowest_code_val))
+  if batches.device.type == "cpu":
+    return fused_conv_train_plain(
+        dictionary, hessian, eigvec, batches, float(sparsity_weight),
+        int(inf_num_iters), float(upd_stepsize),
+        early_stopping_epsilon=early_stopping_epsilon,
+        return_stepsize=return_stepsize, **flags)
+  _require(batches.device.type == "cuda",
+           "tensors must be on the CPU or a CUDA device, got "
+           + str(batches.device))
+  if early_stopping_epsilon is not None:
+    raise NotImplementedError(
+        "the fused conv train kernels have no early stop yet (a "
+        "batch-global reduction per iteration, ROADMAP.md §1 item 3)")
+  device = batches.device
+  k = batches.shape[0]
+  img_shape = tuple(batches.shape[1:])
+  _require(dictionary.dim() == 4 and dictionary.shape[1] == img_shape[1],
+           "dictionary must be (s, %d, kh, kw), got %s"
+           % (img_shape[1], tuple(dictionary.shape)))
+  s = dictionary.shape[0]
+  for name, t, shape in (("dictionary", dictionary, tuple(dictionary.shape)),
+                         ("hessian", hessian, (s,)),
+                         ("eigvec", eigvec, (s,))):
+    _require(t.device == device and t.dtype == torch.float32
+             and tuple(t.shape) == shape,
+             "%s must be a float32 %s tensor on %s" % (name, shape, device))
+  _require(batches.dtype == torch.float32, "batches must be float32")
+  _require(img_shape[0] > 0, "empty batch")
+  _require(fused_conv_segment_supported(img_shape, dictionary.shape,
+                                        kernel_stride, variant, update_alg),
+           "geometry outside the kernels' gate "
+           "(fused_conv_segment_supported())")
+  _require(int(inf_num_iters) >= 0 and int(upd_num_iters) >= 0
+           and int(power_iters) >= 0, "iteration counts must be >= 0")
+  geo = fused_conv_direct.geometry(img_shape, dictionary.shape,
+                                   kernel_stride)
+  with matmul_precision():
+    dstk, _ = fused_conv_direct.pack_weights(dictionary, geo)
+    mask_img, mblk = fused_conv_direct.block_mask(img_shape, padding, geo,
+                                                  torch.float32, device)
+    xblk = fused_conv_direct.blockify(
+        mask_img * batches.reshape((-1,) + img_shape[1:]), geo).contiguous()
+    supp = None
+    if geo["ekh"] or geo["ekw"]:  # zero-extended: the real-support mask
+      supp = fused_conv_direct.pack_weights(torch.ones_like(dictionary),
+                                            geo)[0]
+  d, h, v, codes, eta = _launch(
+      dstk.clone(), hessian.contiguous().clone(),
+      eigvec.contiguous().clone(), xblk, mblk, supp, geo, k,
+      float(sparsity_weight), int(inf_num_iters), float(upd_stepsize),
+      **{key: flags[key] for key in (
+          "variant", "update_alg", "upd_num_iters", "nonneg", "hard",
+          "renormalize", "power_iters", "lowest_code_val")})
+  kernels = fused_conv_direct.unpack_dstk(d, geo, dictionary.shape)
+  out = (kernels.contiguous(), h, v, codes)
+  return out + (eta,) if return_stepsize else out
+
+
+def _launch(dstk, h, v, xblk, mblk, supp, geo, k, lam, num_iters, upd_step,
+            *, variant, update_alg, upd_num_iters, nonneg, hard, renormalize,
+            power_iters, lowest_code_val):
+  """Allocate the scratch and enqueue the k steps on the current stream."""
+  global launches
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  device = dstk.device
+  b = xblk.shape[0] // k
+  s, cpx, r = geo["s"], geo["cpx"], geo["r"]
+  bh, bw, ch, cw = geo["bh"], geo["bw"], geo["code_h"], geo["code_w"]
+  splits = -(-(b * bh * bw) // lib.vtc_conv_train_chunk())
+
+  def empty(*shape):
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+  dall, gram, eta = empty(s, r * cpx), empty(s, s), empty(1)
+  img, corr = empty(b, cpx, bh, bw), empty(b, s, ch, cw)
+  z, old = empty(b, s, ch, cw), empty(b, s, ch, cw)
+  partial, grad = empty(splits, cpx, r * s), empty(cpx, r * s)
+  f32 = ctypes.c_float
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.vtc_conv_train_segment(
+        dstk.data_ptr(), h.data_ptr(), v.data_ptr(), xblk.data_ptr(),
+        mblk.data_ptr(), None if supp is None else supp.data_ptr(), k, b, s,
+        cpx, geo["ay"], geo["ax"], bh, bw, f32(lam), num_iters,
+        f32(upd_step), upd_num_iters, f32(lowest_code_val),
+        int(variant == "fista"),
+        fused_conv_direct._MODES[(nonneg, hard)],
+        int(update_alg == "sc_cheap_quadratic_descent"), int(renormalize),
+        power_iters, dall.data_ptr(), gram.data_ptr(), eta.data_ptr(),
+        img.data_ptr(), corr.data_ptr(), z.data_ptr(), old.data_ptr(),
+        partial.data_ptr(), grad.data_ptr(), stream)
+  if err != 0:
+    raise RuntimeError(
+        "fused conv train step launch failed with CUDA error %d (k=%d, "
+        "b=%d, s=%d, cpx=%d, R=%d)" % (err, k, b, s, cpx, r))
+  launches += k
+  return dstk, h, v, old, eta

@@ -1,0 +1,169 @@
+"""Fused ICA train steps over a segment: the port of TPU kernel K8,
+``fused_ica_train_segment_pallas`` (vtc_tpu/ops/pallas_ica_train.py:
+280-339, kernel ``_make_ica_kernel`` :101).
+
+``fused_ica_train_segment`` keeps that function's contract and return
+value ``(dictionary, inverse, max_residual)``.  Per batch of the (k, b, n)
+segment: ``refine_iters`` Newton-Schulz refreshes of the tracked inverse
+X, the residual max|D X - I| (with ``boost_tol``, two more refreshes when
+it exceeds the tolerance), codes = batch X and ``upd_num_iters``
+natural-gradient ascent steps D <- D + eta (codes^T sign(codes) / b - I) D.
+``max_residual`` is the largest post-refinement residual of the segment,
+NaN when a step's refinement diverged: the trainer's divergence guard
+reads it (training/ica.py).
+
+* A CUDA tensor runs the hand-written kernels of
+  ``vtc_tpu_torch/csrc/fused_ica_train_step.cu`` (built at first use by
+  ``ops/_build.py``) on the current stream, or raises.
+* A CPU tensor runs ``fused_ica_train_plain``, the composition the JAX
+  tests use as K8's reference (tests/test_pallas_ica_train.py:27-40):
+  ``newton_refine_inverse`` -> the residual -> codes ->
+  ``ica_natural_gradient._update``.  ``chip_smoke.py`` holds the kernels
+  against it on the card.
+
+``fused_ica_segment_supported`` keeps vtc_tpu's "square" and drops its
+TPU rules, the 128-lane alignment of n and the VMEM budget (:86-98): the
+card's kernels take any n and batch.  Left out: the ``mxu`` tiers other
+than 'highest' raise NotImplementedError (ROADMAP.md §1 item 3), and the
+TPU's ``interpret`` has no counterpart.  ``launches`` counts the train
+steps the kernels ran.
+"""
+import ctypes
+
+import torch
+
+from vtc_tpu_torch.analysis_transforms.fully_connected import (
+    invertible_linear)
+from vtc_tpu_torch.dict_update_rules.fully_connected import (
+    ica_natural_gradient)
+from vtc_tpu_torch.ops.precision import matmul_precision
+
+launches = 0
+
+
+def fused_ica_segment_supported(n, batch_size, num_atoms=None):
+  """True when the fused ICA kernels take this geometry: a square
+  dictionary (``num_atoms`` rows, n when not given) and a batch."""
+  return (int(n) >= 1 and int(batch_size) >= 1
+          and (num_atoms is None or int(num_atoms) == int(n)))
+
+
+def fused_ica_train_plain(dictionary, inverse_estimate, batches, stepsize, *,
+                          refine_iters=5, upd_num_iters=1, boost_tol=None,
+                          precision=None):
+  """The plain PyTorch version of the fused ICA segment, on any device and
+  in the inputs' own float type.  ``precision`` is the matmul precision of
+  the refreshes and the codes product (default 'highest'), as vtc_tpu's
+  tiers; the residual, the statistic and the update stay at 'highest'.
+  The boost is selected with ``torch.where``, so the host never waits."""
+  d, x = dictionary, inverse_estimate
+  r_max = torch.zeros((), dtype=d.dtype, device=d.device)
+  for batch in batches:
+    x = invertible_linear.newton_refine_inverse(d, x, refine_iters,
+                                                precision=precision)
+    res = invertible_linear.inverse_residual(d, x)
+    if boost_tol is not None:
+      x_b = invertible_linear.newton_refine_inverse(d, x, 2,
+                                                    precision=precision)
+      res_b = invertible_linear.inverse_residual(d, x_b)
+      boosted = res > boost_tol  # NaN > tol is False: no boost
+      x = torch.where(boosted, x_b, x)
+      res = torch.where(boosted, res_b, res)
+    r_max = torch.maximum(r_max, res)  # keeps NaN
+    with matmul_precision(precision):
+      codes = batch @ x
+    d = ica_natural_gradient._update(d, codes, stepsize, upd_num_iters)
+  return d, x, r_max
+
+
+def _require(cond, message):
+  if not cond:
+    raise ValueError("fused_ica_train_segment: " + message)
+
+
+def fused_ica_train_segment(dictionary, inverse_estimate, batches, stepsize,
+                            *, refine_iters=5, upd_num_iters=1,
+                            mxu="highest", boost_tol=None):
+  """Run ``batches.shape[0]`` fused ICA train steps.
+
+  Args:
+    dictionary, inverse_estimate: (n, n) float32 tensors.
+    batches: (k, b, n) float32, k >= 1.
+    stepsize: the ascent stepsize, a Python float.
+    refine_iters / upd_num_iters / boost_tol: as in vtc_tpu.
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3).
+
+  Returns:
+    (dictionary, inverse, max_residual): new tensors, the inputs are not
+    modified; max_residual is 0-d.
+  """
+  if mxu != "highest":
+    raise NotImplementedError(
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3"
+        % (mxu,))
+  _require(batches.dim() == 3 and batches.shape[0] >= 1,
+           "batches must be (k, b, n) with k >= 1, got %s"
+           % (tuple(batches.shape),))
+  k, b, n = batches.shape
+  _require(fused_ica_segment_supported(n, b, dictionary.shape[0])
+           and tuple(dictionary.shape) == (n, n),
+           "dictionary must be square (%d, %d), got %s"
+           % (n, n, tuple(dictionary.shape)))
+  if batches.device.type == "cpu":
+    return fused_ica_train_plain(
+        dictionary, inverse_estimate, batches, float(stepsize),
+        refine_iters=int(refine_iters), upd_num_iters=int(upd_num_iters),
+        boost_tol=None if boost_tol is None else float(boost_tol))
+  _require(batches.device.type == "cuda",
+           "tensors must be on the CPU or a CUDA device, got "
+           + str(batches.device))
+  device = batches.device
+  for name, t in (("dictionary", dictionary),
+                  ("inverse_estimate", inverse_estimate)):
+    _require(t.device == device and t.dtype == torch.float32
+             and tuple(t.shape) == (n, n),
+             "%s must be a float32 (%d, %d) tensor on %s"
+             % (name, n, n, device))
+  _require(batches.dtype == torch.float32, "batches must be float32")
+  _require(int(refine_iters) >= 0 and int(upd_num_iters) >= 0,
+           "iteration counts must be >= 0")
+  return _launch(dictionary.contiguous().clone(),
+                 inverse_estimate.contiguous().clone(), batches.contiguous(),
+                 float(stepsize), int(refine_iters), int(upd_num_iters),
+                 boost_tol)
+
+
+def _launch(d, x, batches, stepsize, refine_iters, upd_num_iters,
+            boost_tol):
+  """Allocate the scratch and enqueue the k steps on the current stream."""
+  global launches
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  k, b, n = batches.shape
+  device = batches.device
+
+  def empty(*shape):
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+  eye = torch.eye(n, dtype=torch.float32, device=device)
+  eye2 = 2.0 * eye
+  r_max = torch.zeros((), dtype=torch.float32, device=device)
+  x_alt, e, stat, m, p = (empty(n, n) for _ in range(5))
+  codes, sgn = empty(b, n), empty(b, n)
+  boost = torch.zeros(1, dtype=torch.int32, device=device)
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.vtc_ica_train_segment(
+        d.data_ptr(), x.data_ptr(), r_max.data_ptr(), batches.data_ptr(),
+        eye.data_ptr(), eye2.data_ptr(), k, b, n, ctypes.c_float(stepsize),
+        refine_iters, upd_num_iters, int(boost_tol is not None),
+        ctypes.c_float(0.0 if boost_tol is None else boost_tol),
+        x_alt.data_ptr(), e.data_ptr(), codes.data_ptr(), sgn.data_ptr(),
+        stat.data_ptr(), m.data_ptr(), p.data_ptr(), boost.data_ptr(),
+        stream)
+  if err != 0:
+    raise RuntimeError(
+        "fused ICA train step launch failed with CUDA error %d (k=%d, b=%d, "
+        "n=%d)" % (err, k, b, n))
+  launches += k
+  return d, x, r_max

@@ -1,6 +1,6 @@
 """Whole training segments: counterpart of ``train_dictionary_scanned``
 (vtc_tpu/training/compiled_epoch.py:427-1297), fully-connected (with the
-subspace, group-sparse, variants) and single-device.
+subspace, group-sparse, variants) and convolutional, single-device.
 
 Same ``all_params`` schema and semantics as ``sparse_coding.
 train_dictionary``: the epochs are split into segments at every
@@ -36,9 +36,17 @@ a seed.  A prune remaps the groups and rebuilds the step (:978-985).
 ``torch.Generator`` seeded by 'shuffle_seed': the same property as the
 JAX package's ``jax.random.permutation``, not the same order.
 
+* ``_fused_conv_segment_runner`` (:130-152): for mode='convolutional',
+  the whole segment through the fused conv train kernels
+  (ops/fused_conv_train, the port of K12, with K10's solve) where
+  'conv_formulation' is 'auto' or 'pallas' and
+  ``fused_conv_segment_supported`` admits the geometry (:825-841).  The
+  Lipschitz matrix is the flattened kernels (:922-923), and 'strides' and
+  'padding' reach the raw step and the metrics (:488-490, :995-999).
+
 Raise NotImplementedError, each naming its ROADMAP.md §1 item:
-data_parallel (item 9), conv (K12, item 7), 'hbm_chunk_steps' streaming
-(item 8), 'train_precision' other than 'highest' (item 3), and
+data_parallel (item 9), 'hbm_chunk_steps' streaming (item 8),
+'train_precision' other than 'highest' (item 3), and
 'early_stopping_epsilon' where the kernels would run it on a CUDA device
 (item 3).
 """
@@ -47,6 +55,7 @@ import time
 import numpy as np
 import torch
 
+from vtc_tpu_torch.ops import conv_shapes, fused_conv_train
 from vtc_tpu_torch.ops import fused_group_train_step, fused_train_step
 from vtc_tpu_torch.ops import lipschitz as lip
 from vtc_tpu_torch.training import sparse_coding as sc
@@ -106,6 +115,23 @@ def _fused_group_segment_runner(variant, update_alg, upd_niters, hard,
   return run
 
 
+def _fused_conv_segment_runner(variant, update_alg, upd_niters, nonneg,
+                               hard, renormalize, kernel_stride, padding):
+  """The conv counterpart of ``_fused_segment_runner``: the whole segment
+  through the fused conv train kernels in stride-block space, warm
+  tracking at power_iters=2."""
+
+  def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
+    dictionary, hessian, eigvec, _ = fused_conv_train.fused_conv_train_segment(
+        dictionary, hessian, eigvec, batches, sw, n_it, upd_step,
+        kernel_stride=kernel_stride, padding=padding, variant=variant,
+        update_alg=update_alg, upd_num_iters=upd_niters, nonneg=nonneg,
+        hard=hard, renormalize=renormalize, power_iters=2)
+    return dictionary, hessian, eigvec
+
+  return run
+
+
 def train_dictionary_scanned(training_batches, validation_batches,
                              init_dictionary, all_params, *, device=None):
   """Train with whole segments.  ``training_batches``: a (k, b, n) array
@@ -126,12 +152,11 @@ def train_dictionary_scanned(training_batches, validation_batches,
   update_alg = all_params["dictionary_update_algorithm"]
   inf_sched = all_params["inference_param_schedule"]
   upd_sched = all_params["dict_update_param_schedule"]
+  kernel_stride = padding = None
   if mode == "convolutional":
-    raise NotImplementedError(
-        "mode='convolutional' in the scanned trainer needs K12, the fused "
-        "conv train segment (vtc_tpu/ops/pallas_conv_train.py), ROADMAP.md "
-        "§1 item 7; sparse_coding.train_dictionary runs the per-batch conv "
-        "trainer")
+    kernel_stride = tuple(int(x) for x in all_params["strides"])
+    padding = conv_shapes.normalize_padding(all_params.get("padding"))
+  conv_formulation = all_params.get("conv_formulation", "auto")
   group_assignments = sc.normalize_groups(
       all_params.get("group_assignments"))
   sc.check_supported(mode, inference_alg, update_alg, group_assignments,
@@ -180,20 +205,24 @@ def train_dictionary_scanned(training_batches, validation_batches,
     early_eps = float(early_eps)
   resolved_formulation = all_params.get(
       "fc_formulation", "pallas" if device.type == "cuda" else "gram")
-  if (early_eps is not None and device.type == "cuda"
-      and resolved_formulation == "pallas"):
+  kernels_route = (conv_formulation in ("auto", "pallas")
+                   if mode == "convolutional"
+                   else resolved_formulation == "pallas")
+  if early_eps is not None and device.type == "cuda" and kernels_route:
     raise NotImplementedError(
         "early_stopping_epsilon with the fused CUDA kernels: they have no "
-        "early stop yet, ROADMAP.md §1 item 3; use fc_formulation='gram'")
-  use_fused = (device.type == "cuda" and warm_power
-               and resolved_formulation == "pallas")
+        "early stop yet, ROADMAP.md §1 item 3; use fc_formulation='gram' "
+        "(conv_formulation='gram' in conv mode)")
+  use_fused = device.type == "cuda" and warm_power and kernels_route
 
   def make_step():
     return sc.build_raw_step_fn(
         mode, inference_alg, update_alg, nonneg=nonneg,
-        hard_threshold=hard, group_assignments=group_assignments,
+        hard_threshold=hard, kernel_stride=kernel_stride, padding=padding,
+        group_assignments=group_assignments,
         alignment_penalty=alignment_penalty, renormalize=renormalize,
         fc_formulation=resolved_formulation,
+        conv_formulation=conv_formulation,
         lipschitz_method="power" if warm_power else lipschitz_method,
         compute_stepsize_in_step=not warm_power,
         early_stopping_epsilon=early_eps)
@@ -202,6 +231,16 @@ def train_dictionary_scanned(training_batches, validation_batches,
     return sc.lipschitz_matrix(d, inference_alg, group_assignments)
 
   def make_runner():
+    if mode == "convolutional":
+      if use_fused and fused_conv_train.fused_conv_segment_supported(
+          training_batches.shape[1:], dictionary.shape, kernel_stride,
+          inference_alg, update_alg, group_assignments=group_assignments,
+          upd_num_iters=upd_niters, padding=padding):
+        return _fused_conv_segment_runner(inference_alg, update_alg,
+                                          upd_niters, nonneg, hard,
+                                          renormalize, kernel_stride,
+                                          padding)
+      return _segment_runner(raw_step, upd_niters, warm_power, lip_matrix)
     if use_fused and group_assignments is None:
       return _fused_segment_runner(inference_alg, update_alg, upd_niters,
                                    nonneg, hard, renormalize)
@@ -264,6 +303,7 @@ def train_dictionary_scanned(training_batches, validation_batches,
       metrics = [sc.compute_metrics(
           vb, _infer(vb), dictionary, previous_dictionary, mode=mode,
           sparsity_weight=sw, group_assignments=group_assignments,
+          kernel_stride=kernel_stride, padding=padding,
           is_subspace=is_subspace) for vb in validation_batches]
       for name in metrics[0]:
         tb_writer.add_scalar(

@@ -1,0 +1,336 @@
+"""ICA dictionary learning, single-device: counterpart of
+vtc_tpu/training/ica.py:1-633.
+
+Fully-connected only, a square (critically sampled) dictionary,
+``ica_natural_gradient`` updates, an iteration-indexed update schedule
+with a mandatory 0 entry, optional checkpoint and visualization schedules
+with pSNR logging.  ``all_params`` is never mutated.
+
+* ``train_dictionary`` (:38-106): per batch, the exact linear solve of the
+  current dictionary and the natural-gradient update.
+* ``train_dictionary_scanned`` (:336-600): whole segments between the
+  scheduled events.  With ``warm_inverse`` (default) the inverse is seeded
+  exactly once and tracked by ``refine_iters`` Newton-Schulz refreshes per
+  step.  Where ``use_fused`` allows, each segment runs the fused ICA
+  kernels (ops/fused_ica_train, the port of K8), whose per-step divergence
+  guard is kept optimistically, as vtc_tpu keeps it: the segment's largest
+  residual is checked at the host-sync points (checkpoints, visualization,
+  the end), and a segment that failed it rolls back to its input state and
+  reruns, with everything after it, on the per-step guarded path (LU
+  fallback and all).  That rollback is vtc_tpu's numerical guard, not a
+  way around the kernels; ``rollbacks`` counts them.  The port cuts no
+  power-of-two chunks, so a rollback takes a whole segment; the result is
+  the same.
+
+The tensors live on ``device``: the keyword argument, else that of the
+first tensor among the data and the initial dictionary, else the CUDA
+device (raising without one).  Raise NotImplementedError, each naming its
+ROADMAP.md §1 item: data_parallel (item 9) and 'train_precision' other
+than 'highest' (item 3).
+"""
+import time
+import warnings
+from pathlib import Path
+
+import numpy as np
+
+from vtc_tpu_torch.analysis_transforms.fully_connected import (
+    invertible_linear)
+from vtc_tpu_torch.device import resolve_device
+from vtc_tpu_torch.dict_update_rules.fully_connected import (
+    ica_natural_gradient)
+from vtc_tpu_torch.ops import fused_ica_train
+from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.training import sparse_coding as sc
+from vtc_tpu_torch.utils import checkpoint as ckpt_util
+
+rollbacks = 0
+
+# training tier -> (matmul precision of the refreshes and the codes, the
+# guard's residual tolerance, the boost tolerance), vtc_tpu :143-153; the
+# port runs the parity tier only (the others wait, ROADMAP.md §1 item 3)
+_TIERS = {"highest": ("highest", 1e-3, 1e-6)}
+
+
+def _check_common(init_dictionary, all_params):
+  assert 0 in all_params["dict_update_param_schedule"]
+  assert all_params["dictionary_update_algorithm"] == "ica_natural_gradient"
+  assert np.shape(init_dictionary)[0] == np.shape(init_dictionary)[1], (
+      "ICA requires a square (critically sampled) dictionary")
+  if all_params.get("data_parallel"):
+    raise NotImplementedError(
+        "data_parallel waits for the multi-device slice, ROADMAP.md §1 "
+        "item 9")
+  tier = str(all_params.get("train_precision", "highest"))
+  if tier != "highest":
+    raise NotImplementedError(
+        "train_precision=%r: the reduced-precision tiers wait, ROADMAP.md "
+        "§1 item 3" % (tier,))
+
+
+def _open_logging(all_params, dump_params):
+  """Logging folder, training_params.yaml (per-batch trainer only) and
+  TensorBoard, as vtc_tpu's ICA trainers open them."""
+  logging_path = all_params.get("logging_folder_fullpath")
+  ckpt_sched = all_params.get("checkpoint_schedule")
+  vis_sched = all_params.get("training_visualization_schedule")
+  tb_writer = None
+  if ckpt_sched or vis_sched:
+    assert logging_path is not None
+    logging_path = Path(logging_path)
+    logging_path.mkdir(parents=True, exist_ok=True)
+    if dump_params:
+      import yaml
+      with open(logging_path / "training_params.yaml", "w") as f:
+        yaml.dump({k: (sorted(v) if isinstance(v, set) else v)
+                   for k, v in all_params.items()
+                   if k not in ("checkpoint_schedule",
+                                "training_visualization_schedule")}, f)
+  if vis_sched:
+    from torch.utils.tensorboard import SummaryWriter
+    tb_writer = SummaryWriter(str(logging_path))
+  return logging_path, tb_writer
+
+
+def _fused_step(dictionary, batch, stepsize, num_iters):
+  codes = invertible_linear._solve_nonortho(batch, dictionary)
+  return ica_natural_gradient._update(dictionary, codes, stepsize, num_iters)
+
+
+def train_dictionary(image_dataset, init_dictionary, all_params, *,
+                     device=None):
+  """Train an ICA dictionary one batch at a time; returns the final
+  dictionary, a float32 tensor on the training device.
+
+  all_params: 'num_epochs', 'dictionary_update_algorithm'
+  ('ica_natural_gradient'), 'dict_update_param_schedule' (0 mandatory,
+  values {'stepsize', 'num_iters'}), optional 'checkpoint_schedule',
+  'training_visualization_schedule', 'logging_folder_fullpath',
+  'stdout_print_interval', 'reshaped_kernel_size'.
+  """
+  _check_common(init_dictionary, all_params)
+  device = resolve_device(device, init_dictionary)
+  dictionary = sc.as_tensor(init_dictionary, device)
+  schedule = all_params["dict_update_param_schedule"]
+  ckpt_sched = all_params.get("checkpoint_schedule")
+  vis_sched = all_params.get("training_visualization_schedule")
+  print_interval = all_params.get("stdout_print_interval", 1000)
+  logging_path, tb_writer = _open_logging(all_params, dump_params=True)
+
+  stepsize = num_iters = None
+  start_time = time.time()
+  total_iter = 0
+  for epoch_idx in range(all_params["num_epochs"]):
+    for batch in sc.iterate_batches(image_dataset, device):
+      if total_iter % print_interval == 0:
+        print("Iteration", total_iter, "complete")
+        print("Time elapsed: {:.1f} seconds".format(time.time() - start_time))
+        print("-----")
+      if total_iter in schedule:
+        stepsize = float(schedule[total_iter]["stepsize"])
+        num_iters = int(schedule[total_iter]["num_iters"])
+      if ckpt_sched is not None and total_iter in ckpt_sched:
+        ckpt_util.save_dictionary_checkpoint(logging_path, total_iter,
+                                             sc._numpy(dictionary))
+      if vis_sched is not None and total_iter in vis_sched:
+        _log_progress(tb_writer, batch,
+                      invertible_linear.run(batch, dictionary), dictionary,
+                      all_params.get("reshaped_kernel_size"), total_iter)
+      dictionary = _fused_step(dictionary, batch, stepsize, num_iters)
+      total_iter += 1
+    print("Epoch", epoch_idx, "finished")
+  if tb_writer is not None:
+    tb_writer.flush()
+  return dictionary
+
+
+def _segment_runner(upd_num_iters):
+  """The per-batch solve and update over a segment (warm_inverse off)."""
+
+  def run(dictionary, batches, stepsize):
+    for batch in batches:
+      dictionary = _fused_step(dictionary, batch, stepsize, upd_num_iters)
+    return dictionary
+
+  return run
+
+
+def _segment_runner_tracked(upd_num_iters, refine_iters=3, mxu="highest"):
+  """Warm Newton-Schulz inverse tracking under the per-step guard
+  (invertible_linear.refine_inverse_guarded: boost, then the LU fallback),
+  then codes = batch X and the update (vtc_tpu :156-192)."""
+  precision, guard_tol, boost_tol = _TIERS[mxu]
+
+  def run(dictionary, dinv, batches, stepsize):
+    d, x = dictionary, dinv
+    for batch in batches:
+      x = invertible_linear.refine_inverse_guarded(
+          d, x, refine_iters, residual_tol=guard_tol, precision=precision,
+          boost_tol=boost_tol)
+      with matmul_precision(precision):
+        codes = batch @ x
+      d = ica_natural_gradient._update(d, codes, stepsize, upd_num_iters)
+    return d, x
+
+  return run
+
+
+def _fused_segment_runner(upd_num_iters, refine_iters=3, mxu="highest"):
+  """The whole segment through the fused ICA kernels (the plain version
+  on CPU tensors); returns (dictionary, dinv, max_residual) for the
+  caller's lazy guard (vtc_tpu :195-215)."""
+  boost_tol = _TIERS[mxu][2]
+
+  def run(dictionary, dinv, batches, stepsize):
+    return fused_ica_train.fused_ica_train_segment(
+        dictionary, dinv, batches, stepsize, refine_iters=refine_iters,
+        upd_num_iters=upd_num_iters, mxu=mxu, boost_tol=boost_tol)
+
+  return run
+
+
+def train_dictionary_scanned(training_batches, init_dictionary, all_params,
+                             *, device=None):
+  """Train with whole segments (see the module docstring); same
+  ``all_params`` schema as ``train_dictionary``, plus 'warm_inverse'
+  (default True), 'refine_iters' (Newton-Schulz refreshes per step,
+  default 3) and 'use_fused': None (default) runs the fused kernels on a
+  CUDA device, True runs the fused path on any device (the plain version
+  on CPU tensors), False the per-step path.  ``training_batches`` is a
+  stacked (k, b, n) array or tensor.  Returns the final dictionary, a
+  float32 tensor on the training device."""
+  _check_common(init_dictionary, all_params)
+  schedule = all_params["dict_update_param_schedule"]
+  ckpt_sched = all_params.get("checkpoint_schedule") or set()
+  vis_sched = all_params.get("training_visualization_schedule") or set()
+  kernel_reshaping = all_params.get("reshaped_kernel_size")
+  logging_path, tb_writer = _open_logging(all_params, dump_params=False)
+
+  device = resolve_device(device, training_batches, init_dictionary)
+  training_batches = sc.as_tensor(training_batches, device)
+  dictionary = sc.as_tensor(init_dictionary, device)
+  k = training_batches.shape[0]
+  total_iters = all_params["num_epochs"] * k
+  boundaries = sorted({0, total_iters} | set(schedule) | set(ckpt_sched)
+                      | set(vis_sched)
+                      | {e * k for e in range(all_params["num_epochs"] + 1)})
+  boundaries = [x for x in boundaries if 0 <= x <= total_iters]
+
+  warm_inverse = bool(all_params.get("warm_inverse", True))
+  dinv = invertible_linear.exact_inverse(dictionary) if warm_inverse else None
+  mxu = "highest"
+  guard_tol = _TIERS[mxu][1]
+  refine = int(all_params.get("refine_iters", 3))
+  use_fused = all_params.get("use_fused")
+  geom_ok = fused_ica_train.fused_ica_segment_supported(
+      dictionary.shape[1], training_batches.shape[1], dictionary.shape[0])
+  if use_fused is True and not (warm_inverse and geom_ok):
+    warnings.warn(
+        "use_fused=True but the fused ICA kernels do not take this "
+        "configuration (they need warm_inverse and a square dictionary) -- "
+        "running the per-step path instead", stacklevel=2)
+  fused_on = (warm_inverse and geom_ok
+              and (use_fused is True
+                   or (use_fused is None and device.type == "cuda")))
+  pending = []  # fused segments awaiting their guard check
+
+  def drain_guard():
+    global rollbacks
+    nonlocal dictionary, dinv
+    bad = None
+    for i, ent in enumerate(pending):
+      if not bool(ent["res"] < guard_tol):  # NaN counts as diverged
+        bad = i
+        break
+    if bad is not None:
+      rollbacks += 1
+      dictionary, dinv = pending[bad]["d_in"], pending[bad]["dinv_in"]
+      for ent in pending[bad:]:  # everything after it is stale too
+        dictionary, dinv = _segment_runner_tracked(
+            ent["upd_niters"], refine_iters=refine, mxu=mxu)(
+                dictionary, dinv, ent["batches"], ent["stepsize"])
+    pending.clear()
+
+  rollbacks_before = rollbacks
+  stepsize = upd_niters = None
+  start = time.time()
+  for seg_start, seg_end in zip(boundaries[:-1], boundaries[1:]):
+    if seg_start in schedule:
+      stepsize = float(schedule[seg_start]["stepsize"])
+      upd_niters = int(schedule[seg_start]["num_iters"])
+    if seg_start in ckpt_sched:
+      drain_guard()
+      ckpt_util.save_dictionary_checkpoint(logging_path, seg_start,
+                                           sc._numpy(dictionary))
+    if seg_start in vis_sched:
+      drain_guard()
+      batch = training_batches[seg_start - (seg_start // k) * k]
+      _log_progress(tb_writer, batch, invertible_linear.run(batch, dictionary),
+                    dictionary, kernel_reshaping, seg_start)
+    if seg_end == seg_start:
+      continue
+    epoch = seg_start // k
+    lo, hi = seg_start - epoch * k, seg_end - epoch * k
+    assert 0 <= lo < hi <= k
+    batches = training_batches[lo:hi]
+    if fused_on:
+      ent = {"batches": batches, "d_in": dictionary, "dinv_in": dinv,
+             "stepsize": stepsize, "upd_niters": upd_niters}
+      dictionary, dinv, ent["res"] = _fused_segment_runner(
+          upd_niters, refine_iters=refine, mxu=mxu)(
+              dictionary, dinv, batches, stepsize)
+      pending.append(ent)
+    elif warm_inverse:
+      dictionary, dinv = _segment_runner_tracked(
+          upd_niters, refine_iters=refine, mxu=mxu)(
+              dictionary, dinv, batches, stepsize)
+    else:
+      dictionary = _segment_runner(upd_niters)(dictionary, batches, stepsize)
+  drain_guard()
+  if total_iters in ckpt_sched:
+    ckpt_util.save_dictionary_checkpoint(logging_path, total_iters,
+                                         sc._numpy(dictionary))
+  if total_iters in vis_sched:
+    batch = training_batches[k - 1]
+    _log_progress(tb_writer, batch, invertible_linear.run(batch, dictionary),
+                  dictionary, kernel_reshaping, total_iters)
+  if tb_writer is not None:
+    tb_writer.flush()
+  print("scanned ICA training done in {:.2f}s ({} iterations, {} guard "
+        "rollbacks)".format(time.time() - start, total_iters,
+                            rollbacks - rollbacks_before))
+  return dictionary
+
+
+def _log_progress(tb_writer, batch, codes, dictionary, reshaping, step):
+  """pSNR scalar and dictionary tile images (vtc_tpu :603-633)."""
+  import io
+
+  from matplotlib import pyplot as plt
+  from PIL import Image
+
+  from vtc_tpu_torch.utils import plotting as plot_utils
+
+  batch_np = sc._numpy(batch)
+  dict_np = sc._numpy(dictionary)
+  recons = sc._numpy(codes) @ dict_np
+  sig_mag = np.max(batch_np) - np.min(batch_np)
+  psnrs = [sc.compute_pSNR(batch_np[i], recons[i], manual_sig_mag=sig_mag)
+           for i in range(recons.shape[0])]
+  psnrs = [p for p in psnrs if p != np.inf]
+  tb_writer.add_scalar("Average pSNR of reconstructions",
+                       float(np.mean(psnrs)), step)
+  for renorm, tag in ((True, "renormalized"), (False, "no renorm")):
+    figs = plot_utils.display_dictionary(
+        dict_np, renormalize=renorm, reshaping=reshaping,
+        plot_title="Current dictionary ({}), iter {}".format(tag, step))
+    for fig_idx, fig in enumerate(figs):
+      buf = io.BytesIO()
+      fig.savefig(buf, format="png")
+      plt.close(fig)
+      buf.seek(0)
+      tb_writer.add_image(
+          "Current dictionary ({}), fig {} of {}".format(
+              tag, fig_idx + 1, len(figs)),
+          np.array(Image.open(buf))[:, :, :3], global_step=step,
+          dataformats="HWC")
