@@ -41,6 +41,18 @@ caught.
   0.001, three Newton-Schulz refreshes per step from an exact-inverse
   seed), then the per-batch trainer, ICACoder and PCACoder; kernel K8
   (fused ICA train step).
+* Big-dictionary training: the residual-form segment at bench.py's
+  measure_bigdict rows (bench.py:541-624, :831-846: s = 2048 atoms, n =
+  256, batch 128, FISTA 25, lambda 0.008, cheap-quadratic update at
+  stepsize 0.1, two warm power iterations per step on the n x n Gram, one
+  200-step segment; fc, and 512 contiguous groups of 4) through
+  training/compiled_epoch._code_shard_segment_runner; kernel K19
+  (residual-form train step).
+
+The phases that check a refusal (an early stop or a tier the kernels do
+not have yet) require NotImplementedError naming its ROADMAP.md item and
+no launch of the kernel.  CUDA_TESTS below maps each test marked cuda to
+the phases that make its check here.
 
 1. Device and build: requires CUDA (there is no CPU path), prints the
    card's name and power limit, builds the kernels from
@@ -162,6 +174,28 @@ caught.
 22. Timing: K12 and plain ms per full-width step with the bound, conv
    scanned trainer images/s, K8 and plain ms per step with the bound, ICA
    scanned trainer patches/s, per-batch ICA trainer patches/s.
+   Phases 5, 6, 8, 10, 11, 13, 14 and 16 also check the refusals of
+   their kernels and entry points on the card (early stop, tiers).
+23. K19 against plain, in float32 and float64, one step: fc at bench's
+   width (s 2048, b 128, FISTA 25, cheap-quad 0.1), 512 contiguous groups
+   of 4 at bench's width (the in-warp group prox), contiguous groups of 4
+   with the anti-alignment penalty 0.15 and a ragged partition (groups of
+   1 to 6, the member-table prox) at s = 512 (the regularizer's s x s
+   matrices), and ISTA hard nonnegative at a small size.  Dictionary,
+   Hessian EMA, eigenvector, codes and stepsize are held to phase 2's
+   limit, a TF32 control of the plain step must fail it, and the early
+   stop, the bf16x3 tier and a code axis of 2 must be refused.
+24. The big-dictionary slice: _code_shard_segment_runner over one 200-step
+   segment of 128 sparse mixtures of a 2048-atom generator (26 MB, made
+   on the card), fc and with 512 groups of 4; K19 must count 200 steps
+   each, the state stay finite, the rows unit norm within 1e-4, and the
+   held-out LASSO (group-LASSO) loss fall at bench's stepsize 0.1.
+25. Timing at bench.py's exact configuration (its seeded randn patches and
+   dictionary; whether that run stays finite is printed, not required):
+   K19 ms per step over the 200-step segment, fc and grouped, two runs
+   each; the plain version's, K2's and K6's ms per step at the same shape
+   (the gram-form A/B); the plain gram-form _segment_runner (bench's xla
+   row: 200 fc steps, 50 grouped); patches/s for each, and the bound.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -198,6 +232,34 @@ TRAIN_STEPS = 1000
 FIT_STEPS = 8
 TOL = 1e-4  # max |codes - plain|: the repo's parity contract (CLAUDE.md)
 REL_TOL = 1e-5  # ... and at most this share of the largest code
+
+# The tests marked ``cuda`` in tests/test_torch_port_*.py, and the phases
+# below that make their checks on the card.  The card's machine has no jax
+# and those files import vtc_tpu, so they cannot run there; this run is
+# where their checks happen.  tests/test_torch_port_cuda_coverage.py fails
+# when a cuda test is missing here or a phase named here does not exist.
+CUDA_TESTS = {
+    "test_torch_port_code_shard.py::test_cuda_kernel_matches_plain": (23,),
+    "test_torch_port_conv.py::test_cuda_wrappers_raise_and_match_plain": (
+        13, 14),
+    "test_torch_port_conv_scanned.py::test_cuda_k12_matches_plain": (18,),
+    "test_torch_port_conv_train.py::test_cuda_conv_trainer_runs_k10": (16,),
+    "test_torch_port_ica.py::test_cuda_k8_matches_plain": (20,),
+    "test_torch_port_subspace.py::"
+    "test_cuda_early_stop_raises_and_launches_nothing": (8,),
+    "test_torch_port_subspace.py::test_cuda_kernel_matches_plain": (8, 9),
+    "test_torch_port_subspace_train.py::test_cuda_early_stop_raises": (
+        10, 11),
+    "test_torch_port_subspace_train.py::test_cuda_kernels_match_plain": (
+        10,),
+    "test_torch_port_subspace_train.py::"
+    "test_cuda_scanned_runs_the_fused_group_kernels": (11,),
+    "test_torch_port_train_step.py::test_cuda_early_stop_raises": (5,),
+    "test_torch_port_train_step.py::test_cuda_kernels_match_plain": (5,),
+    "test_torch_port_trainer.py::test_cuda_scanned_early_stop_raises": (6,),
+    "test_torch_port_trainer.py::test_cuda_scanned_runs_the_fused_kernels": (
+        6,),
+}
 
 
 def limit(codes):
@@ -1209,6 +1271,160 @@ def ica_params(steps, stepsize):
   }
 
 
+# ---------------------------------------------------------------------------
+# the big-dictionary residual form (K19 at a code axis of size 1)
+# ---------------------------------------------------------------------------
+BIG_S, BIG_B = 2048, 128  # bench.py's measure_bigdict rows (:541-591, :831-846)
+BIG_STEP = 0.1            # bench's cheap-quadratic stepsize
+BIG_STEPS = 200           # bench's one segment (25,600 patches)
+BIG_HELD = 512            # held-out patches for the quality check
+BIG_SMALL_S = 512         # the regularizer's s x s cases
+
+
+def code_shard_step_bound(b, s, n, iters, power_iters=2, upd_iters=1):
+  """K19, one step in residual form: per FISTA iteration z D and
+  (z D - X) D^T, 2 b s n FLOPs each; (power_iters + 1) applications of
+  D^T D as two matvecs through D; per update iteration codes D and
+  codes^T resid; reading X and D, writing D."""
+  flops = (4.0 * b * s * n * (iters + upd_iters)
+           + 4.0 * (power_iters + 1) * s * n)
+  return bound(flops, 4.0 * (b * n + 2 * s * n))
+
+
+def bigdict_mixtures(torch, dev, num, gen, group, seed):
+  """(num, n) mixtures of the generating dictionary gen (s, n), made on
+  the card: 12.8 of the s atoms active per patch on average (5% of 256,
+  as synthetic_patches), whole contiguous groups of ``group`` atoms
+  active together, N(0, 0.05^2) amplitudes, N(0, 0.003^2) noise."""
+  g = torch.Generator(device=dev).manual_seed(seed)
+  s, n = gen.shape
+  active = torch.rand(num, s // group, generator=g, device=dev) < 12.8 / s
+  amps = torch.randn(num, s, generator=g, device=dev) * 0.05 * \
+      active.repeat_interleave(group, dim=1)
+  return amps @ gen + 0.003 * torch.randn(num, n, generator=g, device=dev)
+
+
+def ragged_partition(s, seed):
+  """A seeded disjoint partition of range(s) into shuffled groups of 1 to
+  6 rows: a layout that takes the member-table prox."""
+  rng = np.random.RandomState(seed)
+  perm, groups, at = rng.permutation(s), [], 0
+  while at < s:
+    size = int(rng.randint(1, 7))
+    groups.append(sorted(int(i) for i in perm[at:at + size]))
+    at += size
+  return groups
+
+
+def refusal_problem(torch, dev):
+  """A tiny fc problem on the card for the refusal checks: D (24, 16),
+  h, v (16,) and two batches of 10."""
+  rng = np.random.RandomState(9)
+  d = torch.tensor(unit_rows(rng, 24, 16), device=dev)
+  v = torch.tensor(rng.randn(16).astype(np.float32), device=dev)
+  x = torch.tensor(rng.randn(2, 10, 16).astype(np.float32), device=dev)
+  return d, torch.zeros(24, device=dev), v, x
+
+
+def check_refuses(label, fn, item, counter=None):
+  """fn must raise NotImplementedError naming ROADMAP.md §1 item ``item``
+  and launch no kernel of ``counter``'s module."""
+  before = None if counter is None else counter.launches
+  try:
+    fn()
+  except NotImplementedError as err:
+    check("item %s" % item in str(err),
+          "%s: the refusal names no item %s: %s" % (label, item, err))
+  else:
+    raise RuntimeError("chip_smoke: %s was not refused" % label)
+  check(counter is None or counter.launches == before,
+        "%s launched a kernel before refusing" % label)
+  print("refused on the card: %s (ROADMAP.md §1 item %s)" % (label, item))
+
+
+def code_shard_kernel_cases(torch, cs, lipschitz, gen, dev):
+  """Phase 23: one K19 step against its fp32 and fp64 plain versions at
+  bench's width and at s = 512; a TF32 control; the refusals."""
+  names = ("dictionary", "hessian", "eigvec", "codes", "stepsize")
+  sub_cq = "subspace_sc_cheap_quadratic_descent"
+  d = torch.tensor(unit_rows(np.random.RandomState(2), BIG_S, 256),
+                   device=dev)
+  small_d = d[:BIG_SMALL_S].contiguous()
+  small_gen = gen[:BIG_SMALL_S].contiguous()
+  x_fc = bigdict_mixtures(torch, dev, BIG_B, gen, 1, seed=230)[None]
+  x_g = bigdict_mixtures(torch, dev, BIG_B, gen, 4, seed=231)[None]
+  x_small = bigdict_mixtures(torch, dev, BIG_B, small_gen, 4, seed=232)[None]
+  bench_g = cs.code_shard_group_arrays(contiguous_groups(BIG_S, 4), BIG_S, 1)
+  pen_g = cs.code_shard_group_arrays(contiguous_groups(BIG_SMALL_S, 4),
+                                     BIG_SMALL_S, 1)
+  rag_g = cs.code_shard_group_arrays(ragged_partition(BIG_SMALL_S, 23),
+                                     BIG_SMALL_S, 1)
+  # hard thresholds are discontinuous: a small size only (phase 2)
+  rng = np.random.RandomState(23)
+  tiny_d = torch.tensor(unit_rows(rng, 96, 24), device=dev)
+  tiny_x = torch.tensor(rng.randn(1, 13, 24).astype(np.float32) * 0.05,
+                        device=dev)
+  # (name, batches, dictionary, flags)
+  cases = [
+      ("bench fc fista cheap-quad", x_fc, d, {}),
+      ("bench 512x4 groups cheap-quad", x_g, d,
+       {"expand_local": bench_g[0][0], "update_alg": sub_cq}),
+      ("s512 4s penalty 0.15 cheap-quad", x_small, small_d,
+       {"expand_local": pen_g[0][0], "comem_local": pen_g[1][0],
+        "alignment_penalty": 0.15, "update_alg": sub_cq}),
+      ("s512 ragged 1-6 steepest upd 2", x_small, small_d,
+       {"expand_local": rag_g[0][0], "upd_num_iters": 2,
+        "update_alg": "subspace_sc_steepest_descent"}),
+      ("s96 n24 ista hard nonneg upd 2", tiny_x, tiny_d,
+       {"variant": "ista", "hard": True, "nonneg": True,
+        "upd_num_iters": 2, "update_alg": "sc_steepest_descent"}),
+  ]
+  worst = 0.0
+  for name, x, dk, flags in cases:
+    h = torch.zeros(dk.shape[0], device=dev)
+    v = lipschitz.top_gram_eigenpair(dk)[1].contiguous()
+    kw = dict(flags, power_iters=2, return_stepsize=True)
+    args = (LAM, TRAIN_ITERS, BIG_STEP)
+    before = cs.launches
+    got = cs.fused_code_sharded_train_segment(dk, h, v, x, *args, **kw)
+    check(cs.launches == before + 1, name + ": K19 did not count its step")
+    want32 = cs.fused_code_sharded_train_segment_plain(dk, h, v, x, *args,
+                                                       **kw)
+    want64 = cs.fused_code_sharded_train_segment_plain(
+        dk.double(), h.double(), v.double(), x.double(), *args, **kw)
+    torch.cuda.synchronize()
+    worst = max(worst, compare_outputs(torch, "K19 " + name, names, got,
+                                       want32, want64))
+  # control: TF32 products in the plain step must fail the one-step limit
+  h = torch.zeros(BIG_S, device=dev)
+  v = lipschitz.top_gram_eigenpair(d)[1].contiguous()
+  args = (LAM, TRAIN_ITERS, BIG_STEP)
+  want64 = cs.fused_code_sharded_train_segment_plain(
+      d.double(), h.double(), v.double(), x_fc.double(), *args,
+      power_iters=2)
+  tf32 = cs.fused_code_sharded_train_segment_plain(
+      d, h, v, x_fc, *args, power_iters=2, precision="tensorfloat32")
+  ratios = []
+  for what, t, w in zip(names, tf32, want64):
+    if float(w.abs().max()) > 0:
+      err = float((t.double() - w).abs().max())
+      ratios.append(err / limit(w))
+      print("control: K19 plain step with TF32 products, %-10s max|d| fp64 "
+            "%.3e, limit %.3e" % (what, err, limit(w)))
+  check(max(ratios) > 1.0, "the limit does not tell TF32 products from fp32")
+  # the refusals on a CUDA tensor
+  step = (d, h, v, x_fc) + args
+  check_refuses("K19 early_stopping_epsilon", lambda: (
+      cs.fused_code_sharded_train_segment(*step,
+                                          early_stopping_epsilon=1e-3)),
+                "3a", cs)
+  check_refuses("K19 mxu='bf16x3'", lambda: (
+      cs.fused_code_sharded_train_segment(*step, mxu="bf16x3")), "3a", cs)
+  check_refuses("K19 axis_size=2", lambda: (
+      cs.fused_code_sharded_train_segment(*step, axis_size=2)), "9", cs)
+  return worst
+
+
 def time_ms(torch, fn, reps):
   start, stop = (torch.cuda.Event(enable_timing=True),
                  torch.cuda.Event(enable_timing=True))
@@ -1327,6 +1543,11 @@ def main():
       train_patches.shape[0], time.perf_counter() - t0))
   train_err = train_kernel_cases(torch, fused_train_step, lipschitz,
                                  train_patches, dev)
+  rd, rh, rv, rx = refusal_problem(torch, dev)
+  check_refuses("K2 early_stopping_epsilon", lambda: (
+      fused_train_step.fused_train_segment(rd, rh, rv, rx, 0.05, 5, 0.1,
+                                           early_stopping_epsilon=1e-3)),
+                "3", fused_train_step)
 
   # phase 6: the trainer through its public entry points
   batches = torch.tensor(train_patches.reshape(TRAIN_STEPS, TRAIN_BATCH,
@@ -1354,6 +1575,16 @@ def main():
   check(norm_err <= 1e-4, "rows not unit norm: %.3e" % norm_err)
   check(np.isfinite(loss1) and loss1 < loss0,
         "held-out LASSO loss did not fall: %.6f -> %.6f" % (loss0, loss1))
+  check_refuses("train_dictionary_scanned early_stopping_epsilon", lambda: (
+      compiled_epoch.train_dictionary_scanned(
+          rx, rx[:1], rd, dict(train_params(2), early_stopping_epsilon=1e-3))),
+                "3", fused_train_step)
+  check_refuses("the raw step's K1 solve with early_stopping_epsilon",
+                lambda: sparse_coding.build_raw_step_fn(
+                    "fully-connected", "fista", "sc_steepest_descent",
+                    fc_formulation="pallas", early_stopping_epsilon=1e-3)(
+                        rd, rh, rx[0], 0.05, 10, 0.05, 1, None),
+                "3", fused_fista)
 
   fit_patches = train_patches[:FIT_STEPS * TRAIN_BATCH]
   fitter = SparseCoder(256, sparsity_weight=LAM, inference_iters=TRAIN_ITERS,
@@ -1409,6 +1640,14 @@ def main():
       gpatches.shape[0], time.perf_counter() - t0))
   group_err = group_kernel_cases(torch, fused_group_fista, sub, lipschitz,
                                  gpatches, dev)
+  check_refuses("K4 early_stopping_epsilon", lambda: (
+      fused_group_fista.fused_group_fista_solve(
+          rx[0], rd, GROUP_SIZE, 0.1, 20, 0.05, early_stopping_epsilon=1e-3)),
+                "3", fused_group_fista)
+  check_refuses("subspace run('pallas') early_stopping_epsilon", lambda: (
+      sub.run(rx[0], rd, contiguous_groups(24, GROUP_SIZE), 0.1, 20,
+              formulation="pallas", early_stopping_epsilon=1e-2)),
+                "3", fused_group_fista)
 
   # phase 9: the subspace encode slice through encode_dataset
   groups = contiguous_groups(256, GROUP_SIZE)
@@ -1449,6 +1688,11 @@ def main():
       gtrain.shape[0], time.perf_counter() - t0))
   group_train_err = group_train_kernel_cases(
       torch, fused_group_train_step, sub, lipschitz, gtrain, dev)
+  check_refuses("K6 early_stopping_epsilon", lambda: (
+      fused_group_train_step.fused_group_train_segment(
+          rd, rh, rv, rx, 0.05, 5, 0.1,
+          group_assignments=contiguous_groups(24, GROUP_SIZE),
+          early_stopping_epsilon=1e-3)), "3", fused_group_train_step)
 
   # phase 11: the subspace trainer through train_dictionary_scanned
   gbatches = torch.tensor(gtrain.reshape(TRAIN_STEPS, TRAIN_BATCH, 256),
@@ -1476,6 +1720,13 @@ def main():
   check(np.isfinite(gloss1) and gloss1 < gloss0,
         "held-out group-LASSO loss did not fall: %.6f -> %.6f" % (
             gloss0, gloss1))
+  check_refuses("subspace train_dictionary_scanned early_stopping_epsilon",
+                lambda: compiled_epoch.train_dictionary_scanned(
+                    rx, rx[:1], rd, dict(
+                        subspace_train_params(2, SUB_STEP),
+                        group_assignments=contiguous_groups(24, GROUP_SIZE),
+                        early_stopping_epsilon=1e-3)),
+                "3", fused_group_train_step)
 
   # phase 12: subspace timing (warm)
   xg = torch.tensor(gpatches[:BATCH], device=dev)
@@ -1548,11 +1799,26 @@ def main():
         "conv geometry %s %s" % (cimages.shape, cpad))
   conv_err, k10_codes = conv_kernel_cases(torch, K10, conv_ops, lipschitz,
                                           cimages, conv_gen, cpad, dev)
+  rcx = torch.tensor(cimages[:2], device=dev)
+  rck = torch.tensor(conv_gen, device=dev)
+  rckw = dict(kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=cpad)
+  check_refuses("K10 early_stopping_epsilon", lambda: (
+      K10.fused_conv_direct_solve(rcx, rck, CONV_LAM, 5, 0.1,
+                                  early_stopping_epsilon=1e-3, **rckw)),
+                "3", K10)
+  check_refuses("conv run('pallas') mxu_precision='bf16'", lambda: (
+      conv_ista_fista.run(rcx, rck, (CONV_STRIDE, CONV_STRIDE), cpad,
+                          CONV_LAM, 5, formulation="pallas",
+                          mxu_precision="bf16")), "3", K10)
 
   # phase 14: K11 against plain and K10, and the serving path K10's gate
   # turns away
   conv_err_gram = conv_gram_cases(torch, K11, lipschitz, cimages, conv_gen,
                                   cpad, k10_codes, dev)
+  check_refuses("K11 early_stopping_epsilon", lambda: (
+      K11.fused_conv_fista_solve(rcx, rck, CONV_LAM, 5, 0.1,
+                                 early_stopping_epsilon=1e-3, **rckw)),
+                "3", K11)
   gen3 = windowed_kernels(np.random.RandomState(7), CONV_S, 3, 32)
   x3, pad3 = conv_images(torch, conv_ops, dev, 16, gen3, 16, CONV_IMG,
                          seed=7)
@@ -1652,6 +1918,10 @@ def main():
   check(np.isfinite(closs1) and closs1 < closs0,
         "held-out conv LASSO loss did not fall: %.6f -> %.6f" % (
             closs0, closs1))
+  check_refuses("conv train_dictionary early_stopping_epsilon", lambda: (
+      sparse_coding.train_dictionary(
+          cbatches[:2], cheld[None], cd0,
+          dict(conv_train_params(2), early_stopping_epsilon=1e-3))), "3", K10)
 
   # phase 17: conv timing (warm)
   xc = torch.tensor(cimages[:CONV_BATCH], device=dev)
@@ -1882,6 +2152,168 @@ def main():
         "s: %.1f patches/s [%s]" % (ICA_BATCH, dt, 200 * ICA_BATCH / dt,
                                     card))
 
+  # phase 23: K19 against its plain version on the card
+  from vtc_tpu_torch.analysis_transforms.fully_connected import (
+      ista_fista as fc_solve)
+  from vtc_tpu_torch.ops import fused_code_shard_train as K19
+  big_gen = torch.tensor(unit_rows(np.random.RandomState(0), BIG_S, 256),
+                         device=dev)
+  k19_err = code_shard_kernel_cases(torch, K19, lipschitz, big_gen, dev)
+
+  # phase 24: the slice through _code_shard_segment_runner, fc and grouped
+  big_groups = contiguous_groups(BIG_S, 4)
+  big_arrays = K19.code_shard_group_arrays(big_groups, BIG_S, 1)
+  bd0 = convert.dictionary_from_numpy(
+      unit_rows(np.random.RandomState(2), BIG_S, 256), dev)
+  bv0 = lipschitz.top_gram_eigenpair(bd0)[1].contiguous()
+  k19_launches = 0
+  for grouped in (False, True):
+    label = "grouped 512x4" if grouped else "fc"
+    t0 = time.perf_counter()
+    bx = bigdict_mixtures(torch, dev, BIG_STEPS * BIG_B + BIG_HELD, big_gen,
+                          4 if grouped else 1, seed=24 + grouped)
+    bheld, bbatches = bx[-BIG_HELD:], bx[:-BIG_HELD].reshape(BIG_STEPS,
+                                                             BIG_B, 256)
+    torch.cuda.synchronize()
+    print("big-dictionary %s data: %d patches (%.1f MB) made on the card in "
+          "%.1f s" % (label, bx.shape[0], bbatches.numel() * 4 / 1e6,
+                      time.perf_counter() - t0))
+    runner = compiled_epoch._code_shard_segment_runner(
+        1, 1, "fista", ("subspace_sc_cheap_quadratic_descent" if grouped
+                        else "sc_cheap_quadratic_descent"), 1, False, False,
+        True, group_arrays=big_arrays if grouped else None)
+    K19.launches = 0
+    btrained, bh, bv = runner(bd0, torch.zeros(BIG_S, device=dev), bv0,
+                              bbatches, LAM, TRAIN_ITERS, BIG_STEP)
+    torch.cuda.synchronize()
+    seg_launches = K19.launches
+    k19_launches += seg_launches
+    check(seg_launches == BIG_STEPS, "%s: expected %d K19 steps, counted "
+          "%d" % (label, BIG_STEPS, seg_launches))
+    check(all(bool(torch.isfinite(t).all()) for t in (btrained, bh, bv)),
+          label + ": non-finite state")
+    bnorm = float((torch.linalg.vector_norm(btrained, dim=1) - 1).abs().max())
+    groups_kw = dict(group_assignments=big_groups if grouped else None,
+                     is_subspace=grouped)
+
+    def big_loss(d):
+      if grouped:
+        codes = sub.run(bheld, d, big_groups, LAM, TRAIN_ITERS,
+                        formulation="gram")
+      else:
+        codes = fc_solve.run(bheld, d, LAM, TRAIN_ITERS, formulation="gram")
+      return sparse_coding.compute_metrics(
+          bheld, codes, d, d, mode="fully-connected", sparsity_weight=LAM,
+          **groups_kw)["Average LASSO Loss"]
+
+    bloss0, bloss1 = big_loss(bd0), big_loss(btrained)
+    print("big-dictionary %s segment: %d K19 steps; rows unit norm within "
+          "%.2e; held-out %sLASSO loss %.6f -> %.6f (stepsize %g)" % (
+              label, seg_launches, bnorm, "group-" if grouped else "",
+              bloss0, bloss1, BIG_STEP))
+    check(bnorm <= 1e-4, "%s: rows not unit norm: %.3e" % (label, bnorm))
+    check(np.isfinite(bloss1) and bloss1 < bloss0,
+          "%s: held-out loss did not fall: %.6f -> %.6f" % (label, bloss0,
+                                                            bloss1))
+    del bx, bheld, bbatches
+
+  # phase 25: timing at bench's exact configuration (warm)
+  brng = np.random.RandomState(0)  # bench.py:570-576: d0, then the data
+  bench_d = unit_rows(brng, BIG_S, 256)
+  bench_x = torch.tensor(brng.randn(BIG_STEPS, BIG_B, 256).astype(
+      np.float32), device=dev)
+  bench_d = convert.dictionary_from_numpy(bench_d, dev)
+  bench_h = torch.zeros(BIG_S, device=dev)
+  bench_v = lipschitz.top_gram_eigenpair(bench_d)[1].contiguous()
+  bench_args = (bench_d, bench_h, bench_v)
+  seg_args = (LAM, TRAIN_ITERS, BIG_STEP)
+  rates = {}
+  for grouped in (False, True):
+    label = "grouped 512x4" if grouped else "fc"
+    runner = compiled_epoch._code_shard_segment_runner(
+        1, 1, "fista", ("subspace_sc_cheap_quadratic_descent" if grouped
+                        else "sc_cheap_quadratic_descent"), 1, False, False,
+        True, group_arrays=big_arrays if grouped else None)
+    out = runner(*bench_args, bench_x, *seg_args)  # warm-up, and the check
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(t).all()) for t in out)
+    bnorm = float((torch.linalg.vector_norm(out[0], dim=1) - 1).abs().max())
+    print("bench.py's %s configuration (randn patches, cheap-quad %g, %d "
+          "steps): state finite %s, rows unit norm within %.2e, Hessian EMA "
+          "max %.4g" % (label, BIG_STEP, BIG_STEPS, finite, bnorm,
+                        float(out[1].max())))
+    with torch.no_grad():
+      runs = [time_ms(torch, lambda: runner(*bench_args, bench_x, *seg_args),
+                      1) / BIG_STEPS for _ in range(2)]
+    rates[label] = runs
+    print("K19 %s ms per step (b=%d s=%d n=256, fista 25, cheap-quad, %d-"
+          "step segment through _code_shard_segment_runner): %.4f (runs "
+          "%.4f, %.4f); %.1f patches/s [%s]" % (
+              label, BIG_B, BIG_S, BIG_STEPS, sum(runs) / 2, *runs,
+              BIG_B / (sum(runs) / 2) * 1e3, card))
+  k19_ms = sum(rates["fc"]) / 2
+  k19_g_ms = sum(rates["grouped 512x4"]) / 2
+  short = bench_x[:20]
+  plain_fc = lambda: K19.fused_code_sharded_train_segment_plain(
+      *bench_args, short, *seg_args, power_iters=2)
+  plain_g = lambda: K19.fused_code_sharded_train_segment_plain(
+      *bench_args, short, *seg_args, power_iters=2,
+      expand_local=big_arrays[0][0],
+      update_alg="subspace_sc_cheap_quadratic_descent")
+  ab = bench_x[:10]
+  k2_big = lambda: fused_train_step.fused_train_segment(
+      *bench_args, ab, *seg_args, power_iters=2)
+  k6_big = lambda: fused_group_train_step.fused_group_train_segment(
+      *bench_args, ab, *seg_args, group_assignments=big_groups,
+      power_iters=2)
+  with torch.no_grad():
+    plain_fc(), plain_g(), k2_big(), k6_big()
+    k19_p = [time_ms(torch, plain_fc, 1) / 20 for _ in range(2)]
+    k19_gp = [time_ms(torch, plain_g, 1) / 20 for _ in range(2)]
+    k2_runs = [time_ms(torch, k2_big, 1) / 10 for _ in range(2)]
+    k6_runs = [time_ms(torch, k6_big, 1) / 10 for _ in range(2)]
+  k19_p_ms = sum(k19_p) / 2
+  k19_bound = code_shard_step_bound(BIG_B, BIG_S, 256, TRAIN_ITERS)
+  for label, runs in (("K19 plain fc", k19_p),
+                      ("K19 plain grouped 512x4", k19_gp),
+                      ("K2 (gram form, s x s Gram) fc", k2_runs),
+                      ("K6 (gram form) grouped 512x4", k6_runs)):
+    print("%s ms per step (b=%d s=%d n=256, fista 25, cheap-quad): %.4f "
+          "(runs %.4f, %.4f); %.1f patches/s [%s]" % (
+              label, BIG_B, BIG_S, sum(runs) / 2, *runs,
+              BIG_B / (sum(runs) / 2) * 1e3, card))
+  print("K19 bound per step (b=%d s=%d n=256, fista 25): %.4f ms (%s); fc "
+        "%.1fx and grouped %.1fx the bound [%s]" % (
+            BIG_B, BIG_S, k19_bound[0], k19_bound[1], k19_ms / k19_bound[0],
+            k19_g_ms / k19_bound[0], card))
+  # bench.py's 'xla' fallback rows: the plain gram-form scan (200 fc steps,
+  # 50 grouped, as bench runs them)
+  for grouped, steps in ((False, BIG_STEPS), (True, 50)):
+    raw = sparse_coding.build_raw_step_fn(
+        "fully-connected", "subspace_fista" if grouped else "fista",
+        ("subspace_sc_cheap_quadratic_descent" if grouped
+         else "sc_cheap_quadratic_descent"),
+        group_assignments=big_groups if grouped else None,
+        fc_formulation="gram", compute_stepsize_in_step=False)
+    if grouped:
+      gather, mask, _ = sub.group_layout(big_groups, BIG_S, dev)
+      lip_matrix = lambda dd: sub.build_grouped_dictionary(dd, gather, mask)
+    else:
+      lip_matrix = lambda dd: dd
+    scan = compiled_epoch._segment_runner(raw, 1, True, lip_matrix)
+    with torch.no_grad():
+      scan(*bench_args, bench_x[:2], *seg_args)
+      runs = [time_ms(torch, lambda: scan(*bench_args, bench_x[:steps],
+                                          *seg_args), 1) / steps
+              for _ in range(2)]
+    print("plain gram-form _segment_runner %s (bench's xla row, %d steps) ms "
+          "per step: %.4f (runs %.4f, %.4f); %.1f patches/s; K19 %.2fx its "
+          "rate [%s]" % (
+              "grouped 512x4" if grouped else "fc", steps, sum(runs) / 2,
+              *runs, BIG_B / (sum(runs) / 2) * 1e3,
+              (sum(runs) / 2) / (k19_g_ms if grouped else k19_ms), card))
+  del bench_x
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -1913,6 +2345,9 @@ def main():
       ("fused_ica_train", "fused_ica_train_step.cu",
        "vtc_tpu/ops/pallas_ica_train.py:311", k8_launches, k8_err, k8_ms,
        k8_p_ms, k8_bound),
+      ("fused_code_shard_train", "fused_code_shard_train_step.cu",
+       "vtc_tpu/ops/pallas_code_shard_train.py:616", k19_launches, k19_err,
+       k19_ms, k19_p_ms, k19_bound),
   ]
   print(json.dumps({"kernels": [{
       "name": name,

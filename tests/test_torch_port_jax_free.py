@@ -1,6 +1,7 @@
 """vtc_tpu_torch never imports jax nor the JAX package vtc_tpu -- it
 encodes and trains (fc, subspace, conv with both conv trainers, ICA and
-PCA), with checkpoints and a reset/prune schedule, with both blocked --
+PCA, the big-dictionary residual form), with checkpoints and a
+reset/prune schedule, with both blocked --
 and chip_smoke.py has no CPU path.
 
 The blocker implements ``find_spec``: Python 3.12 ignores a meta-path
@@ -172,6 +173,22 @@ assert api.ICACoder(device="cpu").fit(mixed, 1, 50).encode(mixed).shape == (
     200, 12)
 assert api.PCACoder(4, device="cpu").fit(mixed).encode(mixed).shape == (
     200, 4)
+
+# the big-dictionary slice: the residual-form runner (K19's plain
+# version), fc and with groups
+from vtc_tpu_torch.ops import fused_code_shard_train
+big = torch.from_numpy(rng.randn(40, 12).astype(np.float32))
+big = big / big.norm(dim=1, keepdim=True)
+arrays = fused_code_shard_train.code_shard_group_arrays(
+    [list(range(i, i + 4)) for i in range(0, 40, 4)], 40, 1)
+v12 = lipschitz.top_gram_eigenpair(big)[1].contiguous()
+for alg, group_arrays in (("sc_cheap_quadratic_descent", None),
+                          ("subspace_sc_cheap_quadratic_descent", arrays)):
+  out = compiled_epoch._code_shard_segment_runner(
+      1, 1, "fista", alg, 1, False, False, True, group_arrays=group_arrays)(
+          big, torch.zeros(40), v12, torch.from_numpy(batches), 0.05, 5,
+          0.01)
+  assert out[0].shape == (40, 12) and bool(out[0].isfinite().all())
 assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
 # nor anything of the JAX package itself (the smoke run on the card
 # imports the port alone)

@@ -1,6 +1,7 @@
 """Where the time of the port's scanned trainer goes, on one CUDA device.
 
-  python3 tools/profile_train.py [--subspace | --conv | --ica] [--out FILE]
+  python3 tools/profile_train.py [--subspace | --conv | --ica | --bigdict |
+                                  --bigdict-groups] [--out FILE]
 
 The workload is chip_smoke.py's fc trainer: 250,000 synthetic 16x16
 patches in 1,000 batches of 250, a random unit-norm 256-atom dictionary,
@@ -16,7 +17,12 @@ at stepsize 0.05) through the fused conv train step (ops/fused_conv_train,
 kernel K12); with --ica chip_smoke.py's scanned ICA trainer (phase 21:
 2,000 batches of 250 Laplace mixtures, n = 256, stepsize 0.001, three
 Newton-Schulz refreshes) through the fused ICA step (ops/fused_ica_train,
-kernel K8).  It reports
+kernel K8).  With --bigdict it is chip_smoke.py phase 25's timed run,
+bench.py's measure_bigdict row (its seeded randn patches and dictionary:
+s = 2048, n = 256, 200 steps of 128, FISTA 25, cheap-quadratic update at
+stepsize 0.1) through training/compiled_epoch._code_shard_segment_runner
+and the residual-form step (ops/fused_code_shard_train, kernel K19);
+--bigdict-groups the same with 512 contiguous groups of 4.  It reports
 
 * with CUDA events after a warm-up call: the fused train step (fc:
   ops/fused_train_step, kernel K2) per step over a short segment and the
@@ -26,8 +32,9 @@ kernel K8).  It reports
   cost) and the whole one (which may fill the queue, so the host waits
   on the device), and the wall time until the device is done;
 * a torch.profiler trace of one whole segment through
-  train_dictionary_scanned: wall time, the union of the device's busy
-  intervals, its idle share, and device time by kernel, grouped into
+  train_dictionary_scanned (for the big dictionaries: the runner): wall
+  time, the union of the device's busy intervals, its idle share, and
+  device time by kernel, grouped into
   the products (gemm_kernel), the power refresh (power_kernel), the
   FISTA solve (fista_kernel, fold_gram_kernel), the epilogue
   (hessian_ema_kernel, update_rows_kernel), the group passes
@@ -35,8 +42,13 @@ kernel K8).  It reports
   GEMMs (gather_gemm), the conv gradient (block_grad_partial_kernel,
   grad_reduce_kernel), the conv update (conv_update_kernel,
   conv_hessian_ema_kernel, dall_from_dstk_kernel), the ICA passes
-  (residual_kernel, sign_kernel, natural_gradient_kernel, axpy_kernel)
-  and everything else.
+  (residual_kernel, sign_kernel, natural_gradient_kernel, axpy_kernel),
+  K19's reconstruction (recon_partial_kernel, recon_sum_kernel), its
+  gradient with the prox (grad_prox_kernel, group_prox_kernel) and its
+  update residual (resid_partial_kernel, resid_sum_kernel), and everything
+  else; for K19 also the step's split between the reconstruction, the
+  gradient, the power refresh (with the n x n Gram's pgram_partial_kernel
+  and pgram_sum_kernel) and the update.
 
 Every line of the report is printed, and written to --out when given.
 Needs a CUDA device; imports nothing of the JAX package.
@@ -55,17 +67,27 @@ sys.path.insert(0, os.path.join(_ROOT, "tools"))
 import chip_smoke  # noqa: E402  (the workload and the card's line)
 from profile_encode import busy_ms, time_ms  # noqa: E402
 
-GROUPS = (("products (gemm_kernel)", ("gemm_kernel",)),
-          ("power refresh (power_kernel)", ("power_kernel",)),
+RECON = "K19 reconstruction z D - X (recon_partial, recon_sum)"
+GRAD = "K19 gradient, prox, momentum (grad_prox, group_prox)"
+POWER = "power refresh (power_kernel; K19: pgram_partial, pgram_sum)"
+RESID = "K19 update residual codes D - X (resid_partial, resid_sum)"
+PRODUCTS = "products (gemm_kernel)"
+EPILOGUE = "epilogue (hessian_ema_kernel, update_rows_kernel)"
+GROUP_PASSES = "group passes (gather_rows, sum_slots, sign_mask)"
+GROUPS = ((RECON, ("recon_partial_kernel", "recon_sum_kernel")),
+          (GRAD, ("grad_prox_kernel", "group_prox_kernel")),
+          (RESID, ("resid_partial_kernel", "resid_sum_kernel")),
+          (PRODUCTS, ("gemm_kernel",)),
+          (POWER, ("power_kernel", "pgram_partial_kernel",
+                   "pgram_sum_kernel")),
           ("FISTA (fista_kernel, fold_gram_kernel)",
            ("fista_kernel", "fold_gram_kernel")),
           # before the epilogue: conv_hessian_ema_kernel contains its name
           ("conv update (conv_update, conv_hessian_ema, dall_from_dstk)",
            ("conv_update_kernel", "conv_hessian_ema_kernel",
             "dall_from_dstk_kernel")),
-          ("epilogue (hessian_ema_kernel, update_rows_kernel)",
-           ("hessian_ema_kernel", "update_rows_kernel")),
-          ("group passes (gather_rows, sum_slots, sign_mask)",
+          (EPILOGUE, ("hessian_ema_kernel", "update_rows_kernel")),
+          (GROUP_PASSES,
            ("gather_rows_kernel", "sum_slots_kernel", "sign_mask_kernel")),
           ("conv GEMMs: corr, synthesis, analysis (gather_gemm)",
            ("gather_gemm",)),
@@ -85,11 +107,43 @@ def group_of(name):
 
 def workload(args, torch, dev):
   """The segment, its runners and its trainer for the chosen family."""
-  from vtc_tpu_torch.ops import (fused_conv_train, fused_group_train_step,
-                                 fused_ica_train, fused_train_step,
-                                 lipschitz)
+  from vtc_tpu_torch.ops import (fused_code_shard_train, fused_conv_train,
+                                 fused_group_train_step, fused_ica_train,
+                                 fused_train_step, lipschitz)
   from vtc_tpu_torch.training import compiled_epoch, ica
   cs = chip_smoke
+  if args.bigdict or args.bigdict_groups:
+    k19 = fused_code_shard_train
+    steps, batch, s = cs.BIG_STEPS, cs.BIG_B, cs.BIG_S
+    rng = np.random.RandomState(0)  # bench.py:570-576: d0, then the data
+    d0 = torch.tensor(cs.unit_rows(rng, s, 256), device=dev)
+    batches = torch.tensor(rng.randn(steps, batch, 256).astype(np.float32),
+                           device=dev)
+    h0 = torch.zeros(s, device=dev)
+    v0 = lipschitz.top_gram_eigenpair(d0)[1].contiguous()
+    arrays, kw = None, {}
+    alg = "sc_cheap_quadratic_descent"
+    if args.bigdict_groups:
+      arrays = k19.code_shard_group_arrays(cs.contiguous_groups(s, 4), s, 1)
+      alg = "subspace_sc_cheap_quadratic_descent"
+      kw = dict(expand_local=arrays[0][0], update_alg=alg)
+    runner = compiled_epoch._code_shard_segment_runner(
+        1, 1, "fista", alg, 1, False, False, True, group_arrays=arrays)
+    scalars = (cs.LAM, cs.TRAIN_ITERS, cs.BIG_STEP)
+    return dict(
+        name="big-dictionary %s" % ("grouped 512x4" if arrays else "fc"),
+        units="patches", steps=steps, batch=batch, short=20, plain_steps=20,
+        kernels=k19, entry="_code_shard_segment_runner",
+        fused=lambda k: lambda: k19.fused_code_sharded_train_segment(
+            d0, h0, v0, batches[:k], *scalars, power_iters=2, **kw),
+        plain=lambda k: lambda: k19.fused_code_sharded_train_segment_plain(
+            d0, h0, v0, batches[:k], *scalars, power_iters=2, **kw),
+        trainer=lambda: runner(d0, h0, v0, batches, *scalars),
+        split=(("reconstruction r = z D - X", (RECON,)),
+               ("gradient r D^T with prox and momentum", (GRAD,)),
+               ("power refresh (D^T D and the power kernel)", (POWER,)),
+               ("update (Hessian EMA, residual, codes^T resid, rows)",
+                (RESID, PRODUCTS, EPILOGUE, GROUP_PASSES))))
   if args.conv:
     from vtc_tpu_torch.ops import convolutions as conv_ops
     steps, batch = cs.SEG_STEPS, cs.SEG_BATCH
@@ -182,6 +236,12 @@ def main():
                       help="profile the scanned conv trainer (kernel K12)")
   family.add_argument("--ica", action="store_true",
                       help="profile the scanned ICA trainer (kernel K8)")
+  family.add_argument("--bigdict", action="store_true",
+                      help="profile bench.py's big-dictionary fc row "
+                      "(kernel K19)")
+  family.add_argument("--bigdict-groups", action="store_true",
+                      help="profile bench.py's big-dictionary grouped row "
+                      "(kernel K19)")
   parser.add_argument("--out", help="also write the report here")
   args = parser.parse_args()
   import torch
@@ -241,10 +301,11 @@ def main():
   intervals = [(e.time_range.start, e.time_range.end)
                for e in device_events]
   busy = busy_ms(intervals)
-  report("traced train_dictionary_scanned, %d steps of %d (%d fused "
+  report("traced %s, %d steps of %d (%d fused "
          "steps): wall %.2f ms (%.1f %s/s), device busy %.2f ms (idle "
          "%.1f%% of wall), %.4f ms busy per step" % (
-             steps, batch, w["kernels"].launches, wall,
+             w.get("entry", "train_dictionary_scanned"), steps, batch,
+             w["kernels"].launches, wall,
              steps * batch / wall * 1e3, w["units"], busy,
              100 * (1 - busy / wall), busy / steps))
   per_group, per_name = {}, {}
@@ -259,6 +320,10 @@ def main():
   for name, (n, t) in sorted(per_name.items(), key=lambda kv: -kv[1][1]):
     report("    device %9.3f ms %5.1f%%  %5d x  %s" % (
         t, 100 * t / busy, n, name[:80]))
+  for label, groups in w.get("split", ()):
+    t = sum(per_group.get(g, 0.0) for g in groups)
+    report("  step split: %-55s %9.3f ms %5.1f%% of busy, %.4f ms per step"
+           % (label, t, 100 * t / busy, t / steps))
   report(card)
 
   if args.out:

@@ -1,0 +1,408 @@
+// Residual-form train steps for big dictionaries, Hopper (sm_90a), CUDA C++.
+//
+// Replaces the TPU kernel K19 at a code axis of size 1:
+// vtc_tpu/ops/pallas_code_shard_train.py, fused_code_sharded_train_segment_
+// pallas (:484) with its kernel _make_cs_kernel (:233).  Same contract: for
+// each of the k batches X (b, n) of a segment, with the dictionary D (s, n),
+// s > n, the Hessian-diagonal EMA h (s,) and the eigenvector v (n,) of the
+// n x n Gram carried from step to step,
+//
+//   P = D^T D                                  (n, n), never D D^T
+//   v = v / |v|; power_iters times v = v P / |v P|;  eta = 1 / ((v P) . v)
+//   z = old = 0; num_iters times:
+//     r = z D - X                              (b, n)
+//     codes = prox(z - eta (r D^T), lam eta)   (b, s)
+//     fista: t' = (1 + sqrt(1 + 4 t^2)) / 2;
+//            z = codes + ((t-1)/t') (codes - old)
+//     ista:  z = codes
+//     old = codes
+//   h = 0.99 h + (sum_b codes^2 * (1/b)) / 100          (cheap quadratic)
+//   upd_num_iters times:
+//     resid = codes D - X ; grad = codes^T resid * (1/b)
+//     [+ penalty (S D - rowsum(S o C) D), C = D D^T, S = comem o sign(C)]
+//     [/ (h + lowest)] ; D = D - step * grad ; rows renormalized
+//
+// The prox: the elementwise shrinkage (soft, nonnegative, hard), or the
+// group-norm shrinkage over a disjoint partition of the s rows, each group
+// scaled by max(1 - t / |g|, 0) (hard: zeroed when |g| < t).
+//
+// Layout: K2's (fused_train_step.cu).  Per-step kernels that one C loop per
+// segment enqueues on one stream; D (2 MB at s 2048, n 256), z and old
+// (1 MB each at b 128) and r (128 KB) stay in device memory, which L2
+// (50 MB) holds, and the host never waits inside a segment.
+//
+// What bounds it on this card.  A FISTA iteration is two products of
+// 2 b s n FLOPs each (134 MFLOP at b 128, s 2048, n 256), 6.7 GFLOP per
+// step at 25 iterations against 0.1 GFLOP of update: operations bound,
+// about 0.1 ms per step at the fp32 SIMT peak.  What the design does:
+//  * r = z D has a long K (s) and a small output (b x n): the shared 32 x 32
+//    tile would run only 32 blocks on 132 SMs.  So it is split over s in
+//    fixed chunks of kSplitK into partial sums (b x n each), and a second
+//    pass adds them in order and subtracts X -- deterministic, no atomics,
+//    as K12's gradient product (fused_conv_train_step.cu).  The update's
+//    residual and the power Gram D^T D (K = s again) take the same split.
+//  * codes = prox(z - eta r D^T) is one product kernel (b x s output, K = n)
+//    with the prox and the momentum in its epilogue: each thread owns its
+//    entries of z and old, so both update in place.
+//  * The group prox does not port the TPU kernel's membership products
+//    (2 b s g FLOPs, as much as a main product at 512 groups).  Where the
+//    groups are contiguous blocks of M rows, M a power of two up to 32,
+//    a group's entries sit on M neighbouring lanes of one warp in the
+//    product tile, so its norm is an xor-shuffle sum in the epilogue.
+//    Any other partition takes a member table: the epilogue writes the
+//    pre-prox values, and one pass over (row, group) pairs takes each
+//    group's norm in member order, scales its entries and moves them.
+//  * Every product is IEEE fp32 FMA on the CUDA cores (train_core.cuh's
+//    tile): no TF32, no tensor cores, no library call.  The epilogue's
+//    arithmetic is explicitly rounded (__fmul_rn, __fsub_rn, ...), so no
+//    FMA contraction changes it against the plain version.
+#include "train_core.cuh"
+
+namespace {
+
+constexpr int kSplitK = 256;  // K values per split of a long-K product
+
+enum Shrink { kSoft = 0, kSoftNonneg = 1, kHard = 2, kHardNonneg = 3 };
+
+template <int MODE>
+__device__ __forceinline__ float threshold(float x, float t) {
+  if (MODE == kSoft) return x - fminf(fmaxf(x, -t), t);
+  if (MODE == kSoftNonneg) return fmaxf(x - t, 0.0f);
+  if (MODE == kHard) return fabsf(x) < t ? 0.0f : x;
+  return x < t ? 0.0f : x;
+}
+
+// The group scale of a group of norm |g| at threshold t.
+template <int MODE>
+__device__ __forceinline__ float group_scale(float norm, float t) {
+  if (MODE == kHard) return norm < t ? 0.0f : 1.0f;
+  return norm > 0.0f ? fmaxf(__fsub_rn(1.0f, t / norm), 0.0f) : 0.0f;
+}
+
+// partial[blockIdx.z] (M, N) = op(A) op(B) summed over the split's K values
+// [blockIdx.z * kSplitK, +kSplitK), train_core.cuh's layouts.
+template <bool TA, bool TB>
+__device__ __forceinline__ void split_product(const float* __restrict__ A,
+                                              const float* __restrict__ B,
+                                              float* __restrict__ partial,
+                                              int M, int N, int K) {
+  const int i0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.x * kTile;
+  const int k_begin = blockIdx.z * kSplitK;
+  const int k_end = K - k_begin < kSplitK ? K : k_begin + kSplitK;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  gemm_tile<TA, TB>(A, B, M, N, K, i0, j0, k_begin, k_end, acc);
+  const int j = j0 + (threadIdx.x & 31);
+  if (j >= N) return;
+  float* out = partial + static_cast<int64_t>(blockIdx.z) * M * N;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + (threadIdx.x >> 5) * 4 + r;
+    if (i < M) out[static_cast<int64_t>(i) * N + j] = acc[r];
+  }
+}
+
+// out[e] = (sum over the splits, in order, of partial[split, e]) - x[e]
+// (no subtraction when x is null), for e < count.
+__device__ __forceinline__ void split_sum(const float* __restrict__ partial,
+                                          const float* __restrict__ x,
+                                          float* __restrict__ out,
+                                          int splits, int64_t count) {
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       e < count; e += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float acc = partial[e];
+    for (int sp = 1; sp < splits; ++sp)
+      acc = __fadd_rn(acc, partial[static_cast<int64_t>(sp) * count + e]);
+    out[e] = x == nullptr ? acc : __fsub_rn(acc, x[e]);
+  }
+}
+
+// One kernel name per product, so that a trace splits the step's time:
+// the reconstruction z D, the update's residual codes D, the power Gram.
+__global__ void __launch_bounds__(kGemmThreads)
+    recon_partial_kernel(const float* z, const float* d, float* partial,
+                         int b, int s, int n) {
+  split_product<false, false>(z, d, partial, b, n, s);
+}
+
+__global__ void __launch_bounds__(kGemmThreads)
+    resid_partial_kernel(const float* codes, const float* d, float* partial,
+                         int b, int s, int n) {
+  split_product<false, false>(codes, d, partial, b, n, s);
+}
+
+__global__ void __launch_bounds__(kGemmThreads)
+    pgram_partial_kernel(const float* d, float* partial, int s, int n) {
+  split_product<true, false>(d, d, partial, n, n, s);
+}
+
+__global__ void recon_sum_kernel(const float* partial, const float* x,
+                                 float* out, int splits, int64_t count) {
+  split_sum(partial, x, out, splits, count);
+}
+
+__global__ void resid_sum_kernel(const float* partial, const float* x,
+                                 float* out, int splits, int64_t count) {
+  split_sum(partial, x, out, splits, count);
+}
+
+__global__ void pgram_sum_kernel(const float* partial, float* out,
+                                 int splits, int64_t count) {
+  split_sum(partial, nullptr, out, splits, count);
+}
+
+// The FISTA / ISTA iteration after r = z D - X.
+struct IterArgs {
+  const float* r;    // (b, n)
+  const float* d;    // (s, n)
+  float* z;          // (b, s): the iterate, replaced by the next one
+  float* old;        // (b, s): the previous codes, replaced by the codes
+  float* pre;        // (b, s): the pre-prox values (WINDOW < 0 only)
+  const float* eta;  // (1,)
+  float lam;
+  float beta;        // momentum (t - 1) / t' of this iteration
+  int fista;
+  int b, s, n;
+};
+
+__device__ __forceinline__ void momentum(const IterArgs& p, int64_t at,
+                                         float code) {
+  p.z[at] = p.fista ? __fadd_rn(code, __fmul_rn(p.beta,
+                                                __fsub_rn(code, p.old[at])))
+                    : code;
+  p.old[at] = code;
+}
+
+// u = z - eta (r D^T), a 32 x 32 tile of (b, s) per block, then
+//   WINDOW == 0: codes = threshold<MODE>(u, lam eta) and the momentum;
+//   WINDOW > 0:  the group prox of contiguous blocks of WINDOW columns
+//                (xor-shuffle norms over WINDOW lanes) and the momentum;
+//   WINDOW < 0:  pre = u, for group_prox_kernel.
+template <int MODE, int WINDOW>
+__global__ void __launch_bounds__(kGemmThreads) grad_prox_kernel(IterArgs p) {
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const int i0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.x * kTile;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  gemm_tile<false, true>(p.r, p.d, p.b, p.s, p.n, i0, j0, 0, p.n, acc);
+  const float eta = *p.eta;
+  const float lam_eta = __fmul_rn(p.lam, eta);
+  const int j = j0 + tx;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + ty * 4 + r;
+    const bool inside = i < p.b && j < p.s;
+    const int64_t at = static_cast<int64_t>(i) * p.s + j;
+    const float u =
+        inside ? __fsub_rn(p.z[at], __fmul_rn(eta, acc[r])) : 0.0f;
+    if (WINDOW < 0) {
+      if (inside) p.pre[at] = u;
+    } else if (WINDOW == 0) {
+      if (inside) momentum(p, at, threshold<MODE>(u, lam_eta));
+    } else {
+      // every lane takes part: outside entries add zeros
+      float sq = __fmul_rn(u, u);
+#pragma unroll
+      for (int off = 1; off < WINDOW; off <<= 1)
+        sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, off));
+      if (inside)
+        momentum(p, at, __fmul_rn(u, group_scale<MODE>(sqrtf(sq), lam_eta)));
+    }
+  }
+}
+
+// The group prox of any partition: one thread per (row, group); members
+// (groups, width) lists each group's rows ascending, padded with -1.
+template <int MODE>
+__global__ void group_prox_kernel(IterArgs p, const int* __restrict__ members,
+                                  int groups, int width) {
+  const float lam_eta = __fmul_rn(p.lam, *p.eta);
+  const int64_t total = static_cast<int64_t>(p.b) * groups;
+  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                     threadIdx.x;
+       idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t row = idx / groups;
+    const int* list = members + (idx - row * groups) * width;
+    const int64_t base = row * p.s;
+    float sq = 0.0f;
+    for (int m = 0; m < width && list[m] >= 0; ++m) {
+      const float u = p.pre[base + list[m]];
+      sq = __fadd_rn(sq, __fmul_rn(u, u));
+    }
+    const float scale = group_scale<MODE>(sqrtf(sq), lam_eta);
+    for (int m = 0; m < width && list[m] >= 0; ++m)
+      momentum(p, base + list[m], __fmul_rn(p.pre[base + list[m]], scale));
+  }
+}
+
+cudaError_t launch_iteration(const IterArgs& p, int mode, int window,
+                             const int* members, int groups, int width,
+                             cudaStream_t stream) {
+  const dim3 grid((p.s + kTile - 1) / kTile, (p.b + kTile - 1) / kTile);
+#define VTC_ITER(M, W) \
+  grad_prox_kernel<M, W><<<grid, kGemmThreads, 0, stream>>>(p)
+  const bool hard = mode == kHard;
+  if (members != nullptr) {
+    VTC_ITER(kSoft, -1);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const unsigned blocks = pass_grid(static_cast<int64_t>(p.b) * groups);
+    if (hard)
+      group_prox_kernel<kHard><<<blocks, kPassThreads, 0, stream>>>(
+          p, members, groups, width);
+    else
+      group_prox_kernel<kSoft><<<blocks, kPassThreads, 0, stream>>>(
+          p, members, groups, width);
+  } else if (window == 0) {
+    if (mode == kSoft) VTC_ITER(kSoft, 0);
+    else if (mode == kSoftNonneg) VTC_ITER(kSoftNonneg, 0);
+    else if (mode == kHard) VTC_ITER(kHard, 0);
+    else VTC_ITER(kHardNonneg, 0);
+  } else {
+#define VTC_WINDOW(W)                   \
+  if (window == W) {                    \
+    if (hard) VTC_ITER(kHard, W);       \
+    else VTC_ITER(kSoft, W);            \
+  }
+    VTC_WINDOW(1)
+    VTC_WINDOW(2)
+    VTC_WINDOW(4)
+    VTC_WINDOW(8)
+    VTC_WINDOW(16)
+    VTC_WINDOW(32)
+#undef VTC_WINDOW
+  }
+#undef VTC_ITER
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K values per split of the long-K products: the wrapper sizes its
+// partial-sum scratch with it.
+int vtc_code_shard_split_k() { return kSplitK; }
+
+// k residual-form train steps on one stream, every launch enqueued before
+// returning.
+//
+// In place: d (s, n) with s > n, h (s,), v (n,).  x (k, b, n).  The prox:
+// window > 0 (1, 2, 4, ..., 32) for groups that are contiguous blocks of
+// window rows; else members (groups, width) int32 on the device for any
+// other partition; else (both 0 / null) the elementwise shrinkage of mode
+// (0 soft, 1 nonnegative soft, 2 hard, 3 nonnegative hard; groups take 0
+// or 2).  comem (s, s) the co-membership counts, or null for no
+// regularizer.  Scratch: pgram (n, n); partial (ceil(s / kSplitK) *
+// max(b, n) * n); rbuf (b, n); z, old (b, s); pre (b, s) with members;
+// grad (s, n); cmat, smat (s, s) and sd (s, n) with comem; eta (1,).  The
+// last step's codes are in old on return.  update: 0 steepest, 1 cheap
+// quadratic.  Returns the first CUDA error code (0 on success).
+int vtc_code_shard_train_segment(
+    float* d, float* h, float* v, const float* x, int k, int b, int s, int n,
+    int window, const int* members, int groups, int width,
+    const float* comem, float penalty, float lam, int num_iters,
+    float upd_step, int upd_num_iters, float lowest, int fista, int mode,
+    int update, int renorm, int power_iters, float inv_b, float* pgram,
+    float* partial, float* rbuf, float* z, float* old, float* pre,
+    float* grad, float* cmat, float* smat, float* sd, float* eta,
+    void* stream_ptr) {
+  if (k < 0 || b <= 0 || s <= n || n <= 0 || num_iters < 0 ||
+      upd_num_iters < 0 || power_iters < 0 || mode < 0 || mode > 3 ||
+      window < 0 || window > 32 || (window & (window - 1)) != 0 ||
+      (window > 0 && (members != nullptr || s % window != 0)) ||
+      (members != nullptr && (pre == nullptr || groups < 1 || width < 1)) ||
+      (comem != nullptr &&
+       (cmat == nullptr || smat == nullptr || sd == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int splits = (s + kSplitK - 1) / kSplitK;
+  const int64_t codes_bytes = sizeof(float) * static_cast<int64_t>(b) * s;
+  const dim3 bn_grid((n + kTile - 1) / kTile, (b + kTile - 1) / kTile,
+                     splits);
+  const dim3 nn_grid((n + kTile - 1) / kTile, (n + kTile - 1) / kTile,
+                     splits);
+  const int64_t bn = static_cast<int64_t>(b) * n;
+  const int64_t nn = static_cast<int64_t>(n) * n;
+  cudaError_t err = power_setup(n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define VTC_CHECK(...)                                    \
+  do {                                                    \
+    err = (__VA_ARGS__);                                  \
+    if (err != cudaSuccess) return static_cast<int>(err); \
+  } while (0)
+#define VTC_LAUNCHED() VTC_CHECK(cudaGetLastError())
+  IterArgs it = {};
+  it.r = rbuf;
+  it.d = d;
+  it.z = z;
+  it.old = old;
+  it.pre = pre;
+  it.eta = eta;
+  it.lam = lam;
+  it.fista = fista;
+  it.b = b;
+  it.s = s;
+  it.n = n;
+  for (int step = 0; step < k; ++step) {
+    const float* xs = x + static_cast<int64_t>(step) * b * n;
+    // the stepsize: the n x n Gram and the warm power refresh
+    pgram_partial_kernel<<<nn_grid, kGemmThreads, 0, stream>>>(d, partial, s,
+                                                                n);
+    VTC_LAUNCHED();
+    pgram_sum_kernel<<<pass_grid(nn), kPassThreads, 0, stream>>>(
+        partial, pgram, splits, nn);
+    VTC_LAUNCHED();
+    VTC_CHECK(power_refresh(pgram, v, eta, n, power_iters, stream));
+    // the solve, from zero codes
+    VTC_CHECK(cudaMemsetAsync(z, 0, codes_bytes, stream));
+    VTC_CHECK(cudaMemsetAsync(old, 0, codes_bytes, stream));
+    float t = 1.0f;
+    for (int iter = 0; iter < num_iters; ++iter) {
+      const float t_next = (1.0f + sqrtf(1.0f + 4.0f * t * t)) / 2.0f;
+      it.beta = (t - 1.0f) / t_next;
+      t = t_next;
+      recon_partial_kernel<<<bn_grid, kGemmThreads, 0, stream>>>(
+          z, d, partial, b, s, n);
+      VTC_LAUNCHED();
+      recon_sum_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
+          partial, xs, rbuf, splits, bn);
+      VTC_LAUNCHED();
+      VTC_CHECK(launch_iteration(it, mode, window, members, groups, width,
+                                 stream));
+    }
+    if (update == 1) VTC_CHECK(hessian_ema(old, h, b, s, inv_b, stream));
+    for (int u = 0; u < upd_num_iters; ++u) {
+      resid_partial_kernel<<<bn_grid, kGemmThreads, 0, stream>>>(
+          old, d, partial, b, s, n);
+      VTC_LAUNCHED();
+      resid_sum_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
+          partial, xs, rbuf, splits, bn);
+      VTC_LAUNCHED();
+      VTC_CHECK(gemm<true, false>(old, rbuf, nullptr, grad, s, n, b, stream));
+      if (comem == nullptr) {
+        VTC_CHECK(update_rows<false>(d, grad, h, AlignmentReg{}, s, n, inv_b,
+                                     upd_step, lowest, update == 1,
+                                     renorm != 0, stream));
+        continue;
+      }
+      VTC_CHECK(gemm<false, true>(d, d, nullptr, cmat, s, s, n, stream));
+      sign_mask_kernel<<<pass_grid(static_cast<int64_t>(s) * s),
+                         kPassThreads, 0, stream>>>(
+          comem, cmat, smat, static_cast<int64_t>(s) * s);
+      VTC_LAUNCHED();
+      VTC_CHECK(gemm<false, false>(smat, d, nullptr, sd, s, n, s, stream));
+      VTC_CHECK(update_rows<true>(d, grad, h,
+                                  AlignmentReg{sd, smat, cmat, penalty}, s,
+                                  n, inv_b, upd_step, lowest, update == 1,
+                                  renorm != 0, stream));
+    }
+  }
+#undef VTC_LAUNCHED
+#undef VTC_CHECK
+  return 0;
+}
+
+}  // extern "C"

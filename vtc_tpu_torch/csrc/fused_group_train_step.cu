@@ -61,13 +61,6 @@ extern "C" int vtc_fused_group_fista(const float* gram, const float* corr,
 
 namespace {
 
-constexpr int kPassThreads = 256;
-
-unsigned pass_grid(int64_t total) {
-  const int64_t blocks = (total + kPassThreads - 1) / kPassThreads;
-  return static_cast<unsigned>(blocks < 4096 ? blocks : 4096);
-}
-
 // dg (rows, n): row r is d's row sel[r], or zeros where sel[r] < 0.
 __global__ void gather_rows_kernel(const float* __restrict__ d,
                                    const int* __restrict__ sel,
@@ -103,18 +96,6 @@ __global__ void sum_slots_kernel(const float* __restrict__ gcodes,
       acc += g[slot];
     }
     codes[idx] = acc;
-  }
-}
-
-// smat = comem o sign(cmat), elementwise over count entries.
-__global__ void sign_mask_kernel(const float* __restrict__ comem,
-                                 const float* __restrict__ cmat,
-                                 float* __restrict__ smat, int64_t count) {
-  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                     threadIdx.x;
-       idx < count; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const float c = cmat[idx];
-    smat[idx] = c > 0.0f ? comem[idx] : (c < 0.0f ? -comem[idx] : 0.0f);
   }
 }
 

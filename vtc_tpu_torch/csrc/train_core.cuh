@@ -1,9 +1,11 @@
 // The per-step kernels shared by K2 (fused_train_step.cu, fc train
 // segments), K6 (fused_group_train_step.cu, subspace train segments), K8
-// (fused_ica_train_step.cu, ICA segments; the product only) and K12
+// (fused_ica_train_step.cu, ICA segments; the product only), K12
 // (fused_conv_train_step.cu, conv segments; the product and the power
-// refresh), for Hopper (sm_90a).  Included by each: everything here has
-// internal linkage.
+// refresh) and K19 (fused_code_shard_train_step.cu, residual-form
+// segments; the product tile, the power refresh, the Hessian EMA, the row
+// update and the sign mask), for Hopper (sm_90a).  Included by each:
+// everything here has internal linkage.
 //
 // Precision.  Every product is IEEE fp32 FMA on the CUDA cores: no TF32,
 // no tensor cores, no library call.  The update gradient is a small
@@ -23,28 +25,25 @@ constexpr int kGemmThreads = 256;  // 32 columns x 8 row groups of 4
 constexpr int kPowerThreads = 1024;
 constexpr int kRowThreads = 256;
 
-// C (M, N) = op(A) (M, K) @ op(B) (K, N), minus X (M, N) when X is given
-// (NEG: X minus the product).  TA: A is stored (K, M); otherwise (M, K).
-// TB: B is stored (N, K); otherwise (K, N).  All row-major and
-// contiguous.  The sum over k runs in order, one FMA per term.  With
-// run_if given, the launch does nothing unless *run_if is nonzero (a
-// branch decided on the device, K8's boost).
-template <bool TA, bool TB, bool NEG = false>
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                const float* __restrict__ X, float* __restrict__ C, int M,
-                int N, int K, const int* __restrict__ run_if) {
-  if (run_if != nullptr && *run_if == 0) return;
+// acc[r] += the sum over k in [k_begin, k_end) of op(A)[i, k] op(B)[k, j]
+// for the thread's output column j = j0 + (tid & 31) and rows
+// i = i0 + (tid >> 5) * 4 + r: one 32 x 32 output tile of the fp32 SIMT
+// product, 256 threads of 4 outputs.  TA: A is stored (K, M); otherwise
+// (M, K).  TB: B is stored (N, K); otherwise (K, N).  All row-major and
+// contiguous.  The sum over k runs in order, one FMA per term; every
+// thread of the block must call it.
+template <bool TA, bool TB>
+__device__ __forceinline__ void gemm_tile(const float* __restrict__ A,
+                                          const float* __restrict__ B,
+                                          int M, int N, int K, int i0,
+                                          int j0, int k_begin, int k_end,
+                                          float acc[4]) {
   __shared__ float As[kTile][kTile + 1];  // As[k][i]
   __shared__ float Bs[kTile][kTile + 1];  // Bs[k][j]
   const int tid = threadIdx.x;
   const int tx = tid & 31;   // output column within the tile
   const int ty = tid >> 5;   // owns output rows ty*4 .. ty*4+3
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-
-  for (int k0 = 0; k0 < K; k0 += kTile) {
+  for (int k0 = k_begin; k0 < k_end; k0 += kTile) {
     // neighbouring threads read neighbouring addresses in both layouts
     for (int idx = tid; idx < kTile * kTile; idx += kGemmThreads) {
       const int hi = idx >> 5;
@@ -55,7 +54,7 @@ __global__ void __launch_bounds__(kGemmThreads)
         const int i = i0 + ii;
         const int k = k0 + kk;
         float a = 0.0f;
-        if (i < M && k < K)
+        if (i < M && k < k_end)
           a = TA ? A[static_cast<int64_t>(k) * M + i]
                  : A[static_cast<int64_t>(i) * K + k];
         As[kk][ii] = a;
@@ -66,14 +65,14 @@ __global__ void __launch_bounds__(kGemmThreads)
         const int j = j0 + jj;
         const int k = k0 + kk;
         float bv = 0.0f;
-        if (j < N && k < K)
+        if (j < N && k < k_end)
           bv = TB ? B[static_cast<int64_t>(j) * K + k]
                   : B[static_cast<int64_t>(k) * N + j];
         Bs[kk][jj] = bv;
       }
     }
     __syncthreads();
-    const int kn = K - k0 < kTile ? K - k0 : kTile;
+    const int kn = k_end - k0 < kTile ? k_end - k0 : kTile;
     for (int kk = 0; kk < kn; ++kk) {
       const float bv = Bs[kk][tx];
 #pragma unroll
@@ -81,6 +80,24 @@ __global__ void __launch_bounds__(kGemmThreads)
     }
     __syncthreads();
   }
+}
+
+// C (M, N) = op(A) (M, K) @ op(B) (K, N), minus X (M, N) when X is given
+// (NEG: X minus the product), with gemm_tile's layouts.  With run_if
+// given, the launch does nothing unless *run_if is nonzero (a branch
+// decided on the device, K8's boost).
+template <bool TA, bool TB, bool NEG = false>
+__global__ void __launch_bounds__(kGemmThreads)
+    gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                const float* __restrict__ X, float* __restrict__ C, int M,
+                int N, int K, const int* __restrict__ run_if) {
+  if (run_if != nullptr && *run_if == 0) return;
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  const int i0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.x * kTile;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  gemm_tile<TA, TB>(A, B, M, N, K, i0, j0, 0, K, acc);
 
   const int j = j0 + tx;
   if (j >= N) return;
@@ -284,6 +301,27 @@ cudaError_t update_rows(float* d, const float* grad, const float* h,
   else VTC_UPDATE(false, false);
 #undef VTC_UPDATE
   return cudaGetLastError();
+}
+
+// Grid of a grid-stride elementwise pass over total entries.
+constexpr int kPassThreads = 256;
+
+unsigned pass_grid(int64_t total) {
+  const int64_t blocks = (total + kPassThreads - 1) / kPassThreads;
+  return static_cast<unsigned>(blocks < 4096 ? blocks : 4096);
+}
+
+// smat = comem o sign(cmat), elementwise over count entries (the
+// anti-alignment regularizer's sign mask).
+__global__ void sign_mask_kernel(const float* __restrict__ comem,
+                                 const float* __restrict__ cmat,
+                                 float* __restrict__ smat, int64_t count) {
+  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                     threadIdx.x;
+       idx < count; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float c = cmat[idx];
+    smat[idx] = c > 0.0f ? comem[idx] : (c < 0.0f ? -comem[idx] : 0.0f);
+  }
 }
 
 }  // namespace

@@ -1,10 +1,9 @@
 """``BatchIterator``: counterpart of vtc_tpu/data/dataset_generation.py:35-63.
 
-Copied rather than shared, unlike the port's other host helpers:
-``SparseCoder.fit`` runs it, and the smoke run on the card
-(``chip_smoke.py``) imports nothing of vtc_tpu.  It draws the same
-shuffle order as vtc_tpu's from the same seed (numpy ``default_rng``),
-which tests/test_torch_port_trainer.py checks.
+A copy, as every host helper of the port is: the port imports nothing
+of vtc_tpu (``SparseCoder.fit`` runs it, and the card's machine has no
+jax).  It draws the same shuffle order as vtc_tpu's from the same seed
+(numpy ``default_rng``), which tests/test_torch_port_trainer.py checks.
 """
 import numpy as np
 

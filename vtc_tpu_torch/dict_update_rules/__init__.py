@@ -2,9 +2,9 @@
 __init__.py:1-13.
 
 Like the JAX package, every ``run`` RETURNS the new dictionary instead of
-mutating it in place.  The fully-connected sparse-coding and subspace
-rules and the convolutional sparse-coding rules are ported; the ICA rule
-waits (ROADMAP.md §1 item 6).
+mutating it in place.  Every rule is ported: the fully-connected
+sparse-coding, subspace and ICA (``ica_natural_gradient``) rules and the
+convolutional sparse-coding rules.
 """
 from vtc_tpu_torch.dict_update_rules import convolutional  # noqa: F401
 from vtc_tpu_torch.dict_update_rules.fully_connected import (  # noqa: F401

@@ -145,4 +145,11 @@ def load_library():
       [ptr] * 6 + [i32, i32, i32, f32, i32, i32, i32, f32] + [ptr] * 8
       + [ptr])
   lib.vtc_ica_train_segment.restype = i32
+  lib.vtc_code_shard_split_k.argtypes = []
+  lib.vtc_code_shard_split_k.restype = i32
+  lib.vtc_code_shard_train_segment.argtypes = (
+      [ptr] * 4 + [i32] * 5 + [ptr, i32, i32, ptr, f32, f32, i32, f32, i32,
+                                f32] + [i32] * 5 + [f32] + [ptr] * 11
+      + [ptr])
+  lib.vtc_code_shard_train_segment.restype = i32
   return lib

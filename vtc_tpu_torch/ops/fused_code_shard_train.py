@@ -1,0 +1,466 @@
+"""Residual-form train steps over a segment for big dictionaries: the port
+of TPU kernel K19, ``fused_code_sharded_train_segment_pallas``
+(vtc_tpu/ops/pallas_code_shard_train.py:484-629, kernel ``_make_cs_kernel``
+:233-481), at a code axis of size 1.
+
+At axis 1 that kernel is a single-device whole-segment solver for
+dictionaries whose s x s Gram is too large for the gram-form kernels
+(its docstring :53-56): it never builds that Gram.  Per batch X (b, n) of
+the (k, b, n) segment, with the dictionary D (s, n), the Hessian-diagonal
+EMA h (s,) and the eigenvector v (n,) of the n x n Gram D^T D carried:
+
+  v = v / |v|; power_iters times v = v D^T D / |v D^T D|
+  eta = 1 / ((v D^T D) . v)
+  z = old = 0; num_iters times:
+    codes = prox(z - eta (z D - X) D^T, lambda eta)
+    z = codes + beta (codes - old) (FISTA; ISTA: z = codes); old = codes
+  h = 0.99 h + (sum_b codes^2 * (1/b)) / 100          (cheap quadratic)
+  upd_num_iters times:
+    grad = codes^T (codes D - X) * (1/b)
+    [+ penalty (S D - rowsum(S o C) D), C = D D^T, S = comem o sign(C)]
+    [/ (h + lowest)];  D = D - step * grad;  rows renormalized
+
+The prox is the elementwise shrinkage (soft, hard, nonnegative), or with
+``expand_local`` the group-norm shrinkage over a disjoint partition of
+the rows (vtc_tpu's grouped variant; ``code_shard_group_arrays`` builds
+the partition's arrays).  The eigenvector is the n x n Gram's, so the
+dictionary must have more rows than columns (s > n), the rule vtc_tpu's
+caller applies (vtc_tpu/training/compiled_epoch.py:596).
+
+* A CUDA tensor runs the hand-written kernels of
+  ``vtc_tpu_torch/csrc/fused_code_shard_train_step.cu`` (built at first
+  use by ``ops/_build.py``) on the current stream; or raises.
+* A CPU tensor runs ``fused_code_sharded_train_segment_plain``, the same
+  steps in plain PyTorch.  ``chip_smoke.py`` holds the kernels against it
+  on the card; tests/test_torch_port_code_shard.py holds it against the
+  Pallas kernel.
+
+Refused, each naming its ROADMAP.md item: a code or data axis above 1
+(item 9), and on a CUDA tensor the in-kernel early stop, and on any device
+the ``mxu`` tiers other than 'highest' (item 3a).  ``interpret``,
+``code_stride`` and ``data_stride`` are TPU and mesh knobs, accepted at
+their axis-1 values only.  ``launches`` counts the train steps the kernels
+ran.
+"""
+import ctypes
+
+import numpy as np
+import torch
+
+from vtc_tpu_torch.ops import fused_fista, fused_group_train_step, lipschitz
+from vtc_tpu_torch.ops.precision import matmul_precision
+
+launches = 0
+
+UPDATE_ALGS = ("sc_steepest_descent", "sc_cheap_quadratic_descent",
+               "subspace_sc_steepest_descent",
+               "subspace_sc_cheap_quadratic_descent")
+_MAX_WINDOW = 32  # the kernel's in-warp group prox takes windows up to this
+
+
+def code_shard_segment_supported(batch_size, shard_code_size, input_size,
+                                 num_devices, data_devices=1,
+                                 local_group_max=0, use_reg=False):
+  """True when ``fused_code_sharded_train_segment`` runs this geometry on
+  the card (vtc_tpu pallas_code_shard_train.py:149-161).  The TPU gate's
+  VMEM budget has no counterpart: the state lives in device memory and
+  only the one-block power refresh on the n x n Gram bounds the shapes.
+  The port refuses what vtc_tpu's gate leaves to its caller: s <= n (the
+  eigenvector is the n x n Gram's) and any axis above 1 (ROADMAP.md §1
+  item 9)."""
+  del local_group_max, use_reg
+  if int(num_devices) != 1 or int(data_devices) != 1:
+    return False
+  b, s, n = int(batch_size), int(shard_code_size), int(input_size)
+  return (b > 0 and n > 0 and s > n
+          and fused_group_train_step._power_smem_bytes(n)
+          <= fused_fista._SMEM_PER_BLOCK)
+
+
+def code_shard_group_arrays(group_assignments, code_size, num_devices):
+  """Shard-local group matrices, or None when the layout is ineligible:
+  vtc_tpu pallas_code_shard_train.py:164-204, in numpy.
+
+  Eligible: the groups form a disjoint partition of range(code_size) and
+  no group straddles a row-shard boundary.  Returns (expand, comem):
+  expand (P, s_l, g_max) 0/1 membership of local rows in local groups,
+  comem (P, s_l, s_l) within-group co-membership counts."""
+  if code_size % num_devices != 0:
+    return None
+  s_l = code_size // num_devices
+  members_all = sorted(m for g in group_assignments for m in g)
+  if members_all != list(range(code_size)):
+    return None  # not a disjoint partition
+  per_shard = [[] for _ in range(num_devices)]
+  for g in group_assignments:
+    shards = {int(m) // s_l for m in g}
+    if len(shards) != 1:
+      return None  # group straddles a shard boundary
+    shard = shards.pop()
+    per_shard[shard].append([int(m) - shard * s_l for m in g])
+  g_max = max(len(pg) for pg in per_shard)
+  expand = np.zeros((num_devices, s_l, g_max), np.float32)
+  comem = np.zeros((num_devices, s_l, s_l), np.float32)
+  for shard, pgs in enumerate(per_shard):
+    for g_idx, members in enumerate(pgs):
+      for m in members:
+        expand[shard, m, g_idx] = 1.0
+      for a in members:
+        for b in members:
+          if a != b:
+            comem[shard, a, b] += 1.0
+  return expand, comem
+
+
+def roll_window_from_expand_arrays(expand_all):
+  """The window M when every shard's (s_l, g_max) membership block is the
+  contiguous pattern expand[j, j // M] == 1 with M a power of two, else
+  None: vtc_tpu pallas_code_shard_train.py:207-230, in numpy."""
+  e = np.asarray(expand_all)
+  if e.ndim != 3:
+    return None
+  _, sl, g = e.shape
+  if g == 0 or sl % g:
+    return None
+  m = sl // g
+  if m & (m - 1):
+    return None
+  want = np.zeros((sl, g), e.dtype)
+  want[np.arange(sl), np.arange(sl) // m] = 1.0
+  return m if all(np.array_equal(e[p], want) for p in range(e.shape[0])) \
+      else None
+
+
+def group_members(expand_local):
+  """(table, window) for a 0/1 partition matrix expand (s, g).
+
+  table (G, M) int64 lists each nonempty group's rows in ascending order,
+  padded with -1; window is M when the groups are the contiguous blocks
+  [i*M, (i+1)*M) with M a power of two up to 32 (in any column order),
+  else None.  Raises ValueError unless every row is in exactly one
+  group."""
+  e = (expand_local.detach().cpu().numpy()
+       if isinstance(expand_local, torch.Tensor)
+       else np.asarray(expand_local))
+  ones = e == 1
+  if e.ndim != 2 or not (ones | (e == 0)).all() or \
+      not (ones.sum(axis=1) == 1).all():
+    raise ValueError(
+        "fused_code_sharded_train_segment: expand_local must be an (s, g) "
+        "0/1 matrix with every row in exactly one group (a disjoint "
+        "partition, code_shard_group_arrays)")
+  # each row's group, numbered over the nonempty columns in column order
+  gid = np.unique(ones.argmax(axis=1), return_inverse=True)[1].reshape(-1)
+  order = np.argsort(gid, kind="stable")  # by group, then by row
+  counts = np.bincount(gid)
+  width = int(counts.max())
+  starts = np.cumsum(counts) - counts
+  table = np.full((counts.size, width), -1, np.int64)
+  table[gid[order], np.arange(order.size) - starts[gid[order]]] = order
+  window = None
+  if ((width & (width - 1)) == 0 and width <= _MAX_WINDOW
+      and (counts == width).all() and (table[:, 0] % width == 0).all()
+      and (table[:, -1] - table[:, 0] == width - 1).all()):
+    window = width
+  return table, window
+
+
+def _prox_fn(table, hard, nonneg):
+  """prox(u, t): the elementwise shrinkage, or the group-norm shrinkage of
+  the member table (norm 0 guarded as in vtc_tpu's prox)."""
+  if table is None:
+    def prox(u, t):
+      if hard:
+        return torch.where((u if nonneg else u.abs()) < t, 0.0, u)
+      if nonneg:
+        return torch.clamp(u - t, min=0.0)
+      return u - torch.clamp(u, -t, t)
+    return prox
+  valid = table >= 0
+  gid = np.empty(int(valid.sum()), np.int64)  # each row's group
+  gid[table[valid]] = np.nonzero(valid)[0]
+  gid = torch.from_numpy(gid)
+  index = torch.from_numpy(np.where(valid, table, gid.numel()))
+
+  def prox(u, t):
+    sq = torch.nn.functional.pad(u * u, (0, 1))  # column s: zero padding
+    norms = torch.sqrt(sq[:, index.to(u.device)].sum(dim=-1))
+    if hard:
+      scale = torch.where(norms < t, 0.0, 1.0)
+    else:
+      safe = torch.where(norms == 0.0, 1.0, norms)
+      scale = torch.clamp(1.0 - t / safe, min=0.0)
+    return u * scale.to(u.dtype)[:, gid.to(u.device)]
+  return prox
+
+
+def fused_code_sharded_train_segment_plain(
+    dictionary, hessian, eigvec, batches, sparsity_weight, inf_num_iters,
+    upd_stepsize, *, expand_local=None, comem_local=None,
+    alignment_penalty=0.0, variant="fista",
+    update_alg="sc_cheap_quadratic_descent", upd_num_iters=1, nonneg=False,
+    hard=False, renormalize=True, power_iters=12, lowest_code_val=0.001,
+    early_stopping_epsilon=None, stop_count=None, precision=None,
+    return_stepsize=False):
+  """The plain PyTorch version of the segment, on any device and in the
+  inputs' own float type (float64 inputs give the oracle).
+
+  ``precision`` is the matmul precision of the solve and the update
+  (default 'highest'); 'tensorfloat32' shows what TF32 products would
+  cost.  The power refresh always runs at 'highest', as in every tier of
+  the TPU kernel.
+  """
+  d, h, v = dictionary, hessian, eigvec
+  b = batches.shape[1]
+  s, n = d.shape
+  if s <= n:
+    raise ValueError("the residual form's eigenvector is the n x n Gram's: "
+                     "it needs s > n, got s=%d, n=%d" % (s, n))
+  table = None if expand_local is None else group_members(expand_local)[0]
+  prox = _prox_fn(table, hard, nonneg)
+  use_fista = variant == "fista"
+  cheap = update_alg.endswith("cheap_quadratic_descent")
+  penalty = float(alignment_penalty)
+  comem = (None if penalty == 0.0 else
+           torch.as_tensor(comem_local).to(d.device, d.dtype))
+  stop_elems = int(stop_count) if stop_count is not None else b * s
+  inv_b = 1.0 / b
+  codes = eta = None
+  for x in batches:
+    eigval, v = lipschitz.power_iterate(d, v, int(power_iters))
+    eta = 1.0 / eigval
+    lam_eta = sparsity_weight * eta
+    with matmul_precision(precision):
+      z = old = codes = torch.zeros(b, s, dtype=d.dtype, device=d.device)
+      t = np.float32(1.0)
+      for j in range(int(inf_num_iters)):
+        codes = prox(z - eta * ((z @ d - x) @ d.T), lam_eta)
+        if use_fista:
+          t_next = (np.float32(1.0) + np.sqrt(np.float32(1.0)
+                                              + np.float32(4.0) * t * t)
+                    ) / np.float32(2.0)
+          z = codes + float((t - np.float32(1.0)) / t_next) * (codes - old)
+          t = t_next
+        else:
+          z = codes
+        # vtc_tpu's stop rule: mean |codes - old| / eta, never at j = 0
+        stop = (early_stopping_epsilon is not None and j > 0 and float(
+            (codes - old).abs().sum() / stop_elems / eta)
+                < early_stopping_epsilon)
+        old = codes
+        if stop:
+          break
+      if cheap:
+        h = 0.99 * h + ((codes * codes).sum(dim=0) * inv_b) / 100.0
+        scale = (h + lowest_code_val)[:, None]
+      for _ in range(int(upd_num_iters)):
+        grad = codes.T @ (codes @ d - x) * inv_b
+        if comem is not None:
+          cos = d @ d.T
+          smat = comem * torch.sign(cos)
+          grad = grad + penalty * (
+              smat @ d - (smat * cos).sum(dim=1, keepdim=True) * d)
+        if cheap:
+          grad = grad / scale
+        d = d - upd_stepsize * grad
+        if renormalize:
+          d = d / torch.clamp(torch.linalg.vector_norm(d, dim=1,
+                                                       keepdim=True),
+                              min=1e-30)
+  if return_stepsize:
+    return d, h, v, codes, eta.reshape(1)
+  return d, h, v, codes
+
+
+def _require(cond, message):
+  if not cond:
+    raise ValueError("fused_code_sharded_train_segment: " + message)
+
+
+def fused_code_sharded_train_segment(
+    dict_shard, hessian_shard, eigvec, batches, sparsity_weight,
+    inf_num_iters, upd_stepsize, *, axis_name=None, axis_size=1,
+    data_axis_name=None, data_axis_size=1, code_stride=1, data_stride=0,
+    expand_local=None, comem_local=None, alignment_penalty=0.0,
+    variant="fista", update_alg="sc_cheap_quadratic_descent",
+    upd_num_iters=1, nonneg=False, hard=False, renormalize=True,
+    power_iters=12, lowest_code_val=0.001, interpret=False, mxu="highest",
+    early_stopping_epsilon=None, stop_count=None, roll_window=None,
+    return_stepsize=False):
+  """Run ``batches.shape[0]`` residual-form train steps.
+
+  Args:
+    dict_shard: (s, n) float32 tensor, s > n (the whole dictionary: the
+      code axis has size 1).
+    hessian_shard: (s,) Hessian-diagonal EMA (unchanged by steepest
+      descent).
+    eigvec: (n,) warm eigenvector of D^T D (normalized here).
+    batches: (k, b, n) float32, each row a training batch, k >= 1.
+    sparsity_weight, inf_num_iters, upd_stepsize: Python scalars.
+    axis_name, data_axis_name: ignored (no mesh); axis_size and
+      data_axis_size must be 1 (ROADMAP.md §1 item 9).
+    code_stride, data_stride, interpret: TPU and mesh knobs, accepted at
+      1, 0 or 1, and False only.
+    expand_local: (s, g) 0/1 partition of the rows into groups (from
+      ``code_shard_group_arrays(groups, s, 1)[0][0]``) for the grouped
+      variant, else None; comem_local: (s, s) co-membership counts, needed
+      when alignment_penalty is not 0 (which needs renormalize).
+    variant: 'ista' | 'fista' (vtc_tpu's caller strips the subspace
+      prefix, vtc_tpu/training/compiled_epoch.py:1126).
+    update_alg: the two fc update rules or their subspace names.
+    upd_num_iters / nonneg (fc only) / hard / renormalize / power_iters /
+      lowest_code_val: as in vtc_tpu.
+    mxu: 'highest' only (ROADMAP.md §1 item 3a).
+    early_stopping_epsilon, stop_count: CPU tensors only (the plain
+      version's stop test, mean over stop_count elements, default b * s);
+      a CUDA tensor raises, ROADMAP.md §1 item 3a.
+    roll_window: vtc_tpu's prox hint; None or the window of expand_local.
+    return_stepsize: also return the final step's stepsize 1/eigval.
+
+  Returns:
+    (dictionary, hessian, eigvec, last_codes[, stepsize]): new tensors;
+    the inputs are not modified.  last_codes is the (b, s) codes of the
+    final step.
+  """
+  if int(axis_size) != 1 or int(data_axis_size) != 1:
+    raise NotImplementedError(
+        "a code or data axis above 1 (axis_size=%d, data_axis_size=%d) "
+        "needs the multi-device layer, ROADMAP.md §1 item 9"
+        % (int(axis_size), int(data_axis_size)))
+  if mxu != "highest":
+    raise NotImplementedError(
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        % (mxu,))
+  _require(int(code_stride) == 1 and int(data_stride) in (0, 1)
+           and not interpret,
+           "code_stride, data_stride and interpret are TPU and mesh knobs "
+           "with no counterpart here; pass their axis-1 values (1, 0, "
+           "False)")
+  if variant not in ("ista", "fista"):
+    raise ValueError("variant must be 'ista' or 'fista'")
+  if update_alg not in UPDATE_ALGS:
+    raise ValueError("update_alg must be one of %s" % (UPDATE_ALGS,))
+  _require(batches.dim() == 3 and batches.shape[0] >= 1,
+           "batches must be (k, b, n) with k >= 1, got %s"
+           % (tuple(batches.shape),))
+  k, b, n = batches.shape
+  _require(dict_shard.dim() == 2 and dict_shard.shape[1] == n,
+           "dictionary must be (s, %d), got %s" % (n, tuple(dict_shard.shape)))
+  s = dict_shard.shape[0]
+  _require(s > n, "the eigenvector is the n x n Gram's: s > n is needed, "
+           "got s=%d, n=%d" % (s, n))
+  use_reg = float(alignment_penalty) != 0.0
+  table = window = None
+  if expand_local is not None:
+    _require(tuple(expand_local.shape)[0] == s,
+             "expand_local must have %d rows" % s)
+    table, window = group_members(expand_local)
+    _require(not nonneg, "nonneg applies to the fc variant only")
+    _require(roll_window is None or roll_window == window,
+             "roll_window=%r does not match expand_local's groups"
+             % (roll_window,))
+  _require(not use_reg or (table is not None and comem_local is not None),
+           "alignment_penalty needs expand_local and comem_local")
+  _require(not use_reg or renormalize,
+           "the anti-alignment regularizer uses the unit-norm gradient "
+           "form: alignment_penalty needs renormalize=True")
+  flags = dict(variant=variant, update_alg=update_alg,
+               upd_num_iters=int(upd_num_iters), nonneg=bool(nonneg),
+               hard=bool(hard), renormalize=bool(renormalize),
+               power_iters=int(power_iters),
+               lowest_code_val=float(lowest_code_val),
+               alignment_penalty=float(alignment_penalty))
+  if batches.device.type == "cpu":
+    return fused_code_sharded_train_segment_plain(
+        dict_shard, hessian_shard, eigvec, batches, float(sparsity_weight),
+        int(inf_num_iters), float(upd_stepsize), expand_local=expand_local,
+        comem_local=comem_local, early_stopping_epsilon=early_stopping_epsilon,
+        stop_count=stop_count, return_stepsize=return_stepsize, **flags)
+  _require(batches.device.type == "cuda",
+           "tensors must be on the CPU or a CUDA device, got "
+           + str(batches.device))
+  if early_stopping_epsilon is not None:
+    raise NotImplementedError(
+        "the residual-form train kernels have no early stop yet (a "
+        "batch-global reduction per iteration, ROADMAP.md §1 item 3a)")
+  device = batches.device
+  for name, t, shape in (("dictionary", dict_shard, (s, n)),
+                         ("hessian", hessian_shard, (s,)),
+                         ("eigvec", eigvec, (n,)),
+                         ("batches", batches, (k, b, n))):
+    _require(t.device == device and t.dtype == torch.float32
+             and tuple(t.shape) == shape,
+             "%s must be a float32 %s tensor on %s" % (name, shape, device))
+  _require(b > 0, "empty batch")
+  _require(int(inf_num_iters) >= 0 and int(upd_num_iters) >= 0
+           and int(power_iters) >= 0, "iteration counts must be >= 0")
+  _require(code_shard_segment_supported(b, s, n, 1),
+           "n = %d is too large for the one-block power refresh" % n)
+  if use_reg:
+    _require(tuple(comem_local.shape) == (s, s),
+             "comem_local must be (%d, %d)" % (s, s))
+  out = _launch(dict_shard, hessian_shard, eigvec, batches.contiguous(),
+                table, window, comem_local if use_reg else None,
+                float(sparsity_weight), int(inf_num_iters),
+                float(upd_stepsize), **flags)
+  return out if return_stepsize else out[:4]
+
+
+def _launch(dictionary, hessian, eigvec, batches, table, window, comem, lam,
+            num_iters, upd_step, *, variant, update_alg, upd_num_iters,
+            nonneg, hard, renormalize, power_iters, lowest_code_val,
+            alignment_penalty):
+  """Allocate state and scratch, copy the group table and co-membership
+  counts to the device, and enqueue the k steps on the current stream."""
+  global launches
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  k, b, n = batches.shape
+  s = dictionary.shape[0]
+  device = batches.device
+  splits = -(-s // lib.vtc_code_shard_split_k())
+
+  def empty(*shape):
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+  d = dictionary.contiguous().clone()
+  h = hessian.contiguous().clone()
+  v = eigvec.contiguous().clone()
+  members = pre = None
+  num_groups = width = 0
+  if table is not None and window is None:  # the general group prox
+    members = torch.from_numpy(table.astype(np.int32)).to(device)
+    num_groups, width = table.shape
+    pre = empty(b, s)
+  cm = cmat = smat = sd = None
+  if comem is not None:
+    cm = torch.as_tensor(comem, dtype=torch.float32).to(device).contiguous()
+    cmat, smat, sd = empty(s, s), empty(s, s), empty(s, n)
+  pgram, eta = empty(n, n), empty(1)
+  partial = empty(splits * max(b, n) * n)
+  rbuf, z, old, grad = empty(b, n), empty(b, s), empty(b, s), empty(s, n)
+  mode = (2 if hard else 0) if table is not None else \
+      fused_fista._MODES[(nonneg, hard)]
+
+  def ptr(t):
+    return None if t is None else t.data_ptr()
+
+  f32 = ctypes.c_float
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.vtc_code_shard_train_segment(
+        d.data_ptr(), h.data_ptr(), v.data_ptr(), batches.data_ptr(), k, b,
+        s, n, window or 0, ptr(members), num_groups, width, ptr(cm),
+        f32(alignment_penalty), f32(lam), num_iters, f32(upd_step),
+        upd_num_iters, f32(lowest_code_val), int(variant == "fista"),
+        mode, int(update_alg.endswith("cheap_quadratic_descent")),
+        int(renormalize), power_iters, f32(1.0 / b), pgram.data_ptr(),
+        partial.data_ptr(), rbuf.data_ptr(), z.data_ptr(), old.data_ptr(),
+        ptr(pre), grad.data_ptr(), ptr(cmat), ptr(smat), ptr(sd),
+        eta.data_ptr(), stream)
+  if err != 0:
+    raise RuntimeError(
+        "residual-form train step launch failed with CUDA error %d (k=%d, "
+        "b=%d, s=%d, n=%d)" % (err, k, b, s, n))
+  launches += k
+  return d, h, v, old, eta

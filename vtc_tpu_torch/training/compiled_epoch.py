@@ -43,6 +43,12 @@ JAX package's ``jax.random.permutation``, not the same order.
   ``fused_conv_segment_supported`` admits the geometry (:825-841).  The
   Lipschitz matrix is the flattened kernels (:922-923), and 'strides' and
   'padding' reach the raw step and the metrics (:488-490, :995-999).
+* ``_code_shard_segment_runner`` (:319-392): the residual-form segment
+  for dictionaries with s > n (ops/fused_code_shard_train, the port of
+  K19), fc and grouped.  Like vtc_tpu's ``train_dictionary_scanned``,
+  which picks it only on a code axis above 1 (:588-590), the port's
+  trainer never picks it; bench.py's big-dictionary rows call it
+  directly (bench.py:584-591), and so does chip_smoke.py.
 
 Raise NotImplementedError, each naming its ROADMAP.md §1 item:
 data_parallel (item 9), 'hbm_chunk_steps' streaming (item 8),
@@ -55,8 +61,9 @@ import time
 import numpy as np
 import torch
 
-from vtc_tpu_torch.ops import conv_shapes, fused_conv_train
-from vtc_tpu_torch.ops import fused_group_train_step, fused_train_step
+from vtc_tpu_torch.ops import conv_shapes, fused_code_shard_train
+from vtc_tpu_torch.ops import fused_conv_train, fused_group_train_step
+from vtc_tpu_torch.ops import fused_train_step
 from vtc_tpu_torch.ops import lipschitz as lip
 from vtc_tpu_torch.training import sparse_coding as sc
 
@@ -127,6 +134,42 @@ def _fused_conv_segment_runner(variant, update_alg, upd_niters, nonneg,
         kernel_stride=kernel_stride, padding=padding, variant=variant,
         update_alg=update_alg, upd_num_iters=upd_niters, nonneg=nonneg,
         hard=hard, renormalize=renormalize, power_iters=2)
+    return dictionary, hessian, eigvec
+
+  return run
+
+
+def _code_shard_segment_runner(cs_size, data_size, variant, update_alg,
+                               upd_niters, nonneg, hard, renormalize,
+                               group_arrays=None, alignment_penalty=0.0,
+                               mxu="highest", early_eps=None,
+                               stop_count=None):
+  """The residual-form segment for big dictionaries: the whole segment
+  through the residual-form train kernels (ops/fused_code_shard_train,
+  the port of K19), warm tracking of the n x n Gram's eigenvector at
+  power_iters=2.  vtc_tpu's runner takes a jax Mesh first; the port has
+  none and runs a code and data axis of size 1 only (larger ones raise,
+  ROADMAP.md §1 item 9).  ``group_arrays`` (from code_shard_group_arrays
+  with one shard) selects the grouped variant."""
+  if int(cs_size) != 1 or int(data_size) != 1:
+    raise NotImplementedError(
+        "the code-sharded runner at cs_size=%d, data_size=%d needs the "
+        "multi-device layer, ROADMAP.md §1 item 9" % (cs_size, data_size))
+  kw = {}
+  if group_arrays is not None:
+    kw["expand_local"] = group_arrays[0][0]
+    if alignment_penalty != 0.0:
+      kw["comem_local"] = group_arrays[1][0]
+    kw["alignment_penalty"] = alignment_penalty
+
+  def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
+    dictionary, hessian, eigvec, _ = (
+        fused_code_shard_train.fused_code_sharded_train_segment(
+            dictionary, hessian, eigvec, batches, sw, n_it, upd_step,
+            variant=variant, update_alg=update_alg, upd_num_iters=upd_niters,
+            nonneg=nonneg, hard=hard, renormalize=renormalize, power_iters=2,
+            mxu=mxu, early_stopping_epsilon=early_eps, stop_count=stop_count,
+            **kw))
     return dictionary, hessian, eigvec
 
   return run
