@@ -48,6 +48,13 @@ caught.
   200-step segment; fc, and 512 contiguous groups of 4) through
   training/compiled_epoch._code_shard_segment_runner; kernel K19
   (residual-form train step).
+* Data-parallel training: the fc, subspace and ICA scanned trainers above
+  with all_params['data_parallel'] at their full widths, on a mesh of one
+  rank (no process group: the one card) for 1,000, 1,000 and 2,000 steps,
+  and at a world of 2 with two processes of this script sharing the card
+  over a gloo group (shards of 125); encode_dataset and PCA on a mesh of
+  one.  Kernels K3, K7 and K9, the per-shard solve+stats steps, with one
+  all-reduce of their statistics per step and the replicated update.
 
 The phases that check a refusal (an early stop or a tier the kernels do
 not have yet) require NotImplementedError naming its ROADMAP.md item and
@@ -196,6 +203,46 @@ the phases that make its check here.
    each; the plain version's, K2's and K6's ms per step at the same shape
    (the gram-form A/B); the plain gram-form _segment_runner (bench's xla
    row: 200 fc steps, 50 grouped); patches/s for each, and the bound.
+26. K3, K7 and K9 against plain, in float32 and float64, every output at
+   phase 2's limit: K3 at b 250 and at a shard of 125, ragged shapes with
+   s > n and s < n, ISTA hard nonnegative at a small size; K7 at 64 x 4
+   (b 250 and 125), ragged overlapping groups, G*M > n and the hard group
+   threshold; K9 (gapped sources, as phase 20) from an exact seed, at a
+   shard of 125, from a stale seed that fires the boost and one that does
+   not.  K9's statistic, a sum of 250 products of order 1, is held to 1e-5
+   of its largest entry without the 1e-4 cap.  A TF32 control of each
+   plain version must fail the limit.  One identity each: the replicated
+   update from K3's own statistics, (C D - B) / b, is K2's one-step
+   output; K7's is K6's (also with the anti-alignment penalty 0.4); K9's
+   is K8's.  The tiers, conv with data_parallel, a code axis of 2 and the
+   data-parallel early stop on the kernel route must be refused.
+27. A world of 1 through the normal entry points.  First a probe: whether
+   torch.distributed has NCCL and a one-rank NCCL group initialises and
+   reduces a device tensor (printed; with one, data_parallel=True inside
+   it must give bitwise the run without a group).  Then
+   train_dictionary_scanned(data_parallel=True), fc and subspace, 1,000
+   steps each: 1,000 K3 / K7 launches and no K2 / K6 launch, unit rows,
+   the held-out loss falls, and the final dictionary within the rounding
+   floor of ROADMAP.md §3 (twice 2.2e-4) of the single-device trainer's
+   from phases 6 and 11.  The scanned ICA trainer for 2,000 steps: 2,000
+   K9 launches, no K8, no rollback, the held-out NLL falls; stepsize 40
+   must roll back through the data-parallel fallback.  encode_dataset (fc
+   and subspace, 16 K1 / K4 launches) and PCA with a mesh of one must
+   equal their single-device results bitwise.
+28. A world of 2 on the one card: two processes of this script (the hidden
+   sub-command --dp-rank) share the GPU, join a gloo group over a file://
+   store in a temporary directory, stage the statistics through pinned host
+   buffers, and run 50 steepest and 50 cheap-quadratic steps fc and
+   subspace and 50 ICA steps on shards of 125 through the trainers.  Each
+   rank must count 100 K3, 100 K7 and 50 K9 launches and none of K2, K6 or
+   K8; both ranks must return bitwise the same state; and it must match
+   the single-process trainers (K2, K6, K8) on the global batch, the
+   steepest and ICA runs within phase 2's limit, the cheap-quadratic ones
+   within the rounding floor.  A rank's failure fails the run.
+29. Timing: K3, K7 and K9 ms per step at b 250 and at a shard of 125
+   against their plain versions and against K2, K6 and K8's whole steps;
+   the host's enqueue time per data-parallel step; the world-of-1
+   trainers' patches/s (phase 27's runs).
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -245,6 +292,10 @@ CUDA_TESTS = {
     "test_torch_port_conv_scanned.py::test_cuda_k12_matches_plain": (18,),
     "test_torch_port_conv_train.py::test_cuda_conv_trainer_runs_k10": (16,),
     "test_torch_port_ica.py::test_cuda_k8_matches_plain": (20,),
+    "test_torch_port_parallel.py::"
+    "test_cuda_solve_stats_kernels_match_plain": (26,),
+    "test_torch_port_parallel_train.py::"
+    "test_cuda_dp_trainers_run_the_stats_kernels": (27,),
     "test_torch_port_subspace.py::"
     "test_cuda_early_stop_raises_and_launches_nothing": (8,),
     "test_torch_port_subspace.py::test_cuda_kernel_matches_plain": (8, 9),
@@ -1425,6 +1476,374 @@ def code_shard_kernel_cases(torch, cs, lipschitz, gen, dev):
   return worst
 
 
+
+# ---------------------------------------------------------------------------
+# the data-parallel layer (K3, K7 and K9: the per-shard solve+stats steps)
+# ---------------------------------------------------------------------------
+DP_STEPS2 = 50            # steps of each world-of-2 run
+DP_CHILD_TIMEOUT = 600    # seconds a world-of-2 rank may take
+# how far a 1,000-step cheap-quadratic run may sit from the single-device
+# trainer's: FISTA with the cheap-quadratic update amplifies rounding
+# (ROADMAP.md §3 measures 8e-5 to 2.2e-4 on 12 CPU steps for a one-ulp
+# change); the data-parallel step forms the same gradient as C D - B
+DP_FLOOR = 2 * 2.2e-4
+
+
+def solve_stats_bound(b, s, n, iters, power_iters=2):
+  """K3 / K7, one shard's step: G = D D^T, c = X D^T, the solve, the
+  power refresh, C = codes^T codes and B = codes^T X; reading X, D and v,
+  writing the codes, C, B, stat and v."""
+  flops = (2.0 * s * s * n + 2.0 * b * s * n + 2.0 * b * s * s * iters
+           + 2.0 * power_iters * s * s + 2.0 * b * s * s + 2.0 * b * s * n)
+  return bound(flops, 4.0 * (b * n + s * n + b * s + s * s + s * n + 3 * s))
+
+
+def ica_stats_bound(n, b, refine=ICA_REFINE):
+  """K9, one shard's step: refine x 2 n^3 products, the residual, codes and
+  the statistic; reading the batch, D and X, writing X and the statistic."""
+  flops = (4.0 * refine + 2) * n ** 3 + 4.0 * b * n * n
+  return bound(flops, 4.0 * (b * n + 4 * n * n))
+
+
+def tf32_control(torch, label, names, tf32, want64):
+  """A plain version run with TF32 products must fail the limit on some
+  output."""
+  ratios = []
+  for what, t, w in zip(names, tf32, want64):
+    if float(w.abs().max()) > 0:
+      err = float((t.double() - w).abs().max())
+      ratios.append(err / limit(w))
+      print("control: %s with TF32 products, %-10s max|d| fp64 %.3e, limit "
+            "%.3e" % (label, what, err, limit(w)))
+  check(max(ratios) > 1.0, label + ": the limit does not tell TF32 products "
+        "from fp32")
+
+
+def dp_kernel_cases(torch, parallel, K2, K6, K8, ica, sub, lipschitz,
+                    invertible_linear, train_patches, gtrain, dev):
+  """Phase 26: K3, K7 and K9 against their fp32 and fp64 plain versions,
+  TF32 controls, and each kernel's replicated update held to the
+  single-device kernel's step.  Returns the largest fp32 difference of
+  each kernel."""
+  mesh1 = parallel.make_mesh()
+  names = ("codes", "cmat", "bmat", "stat", "eigvec", "stepsize")
+  step_names = ("dictionary", "hessian", "eigvec", "codes")
+  rng = np.random.RandomState(26)
+  flag_d = unit_rows(np.random.RandomState(2), 256, 256)
+  rag_d, rag_x = unit_rows(rng, 37, 24), rng.randn(13, 24)   # s > n, ragged
+  wide_d, wide_x = unit_rows(rng, 24, 37), rng.randn(13, 37)  # s < n
+  # (name, shard, dictionary, lambda, iters, flags)
+  cases = [
+      ("flagship b250 fista", train_patches[:TRAIN_BATCH], flag_d, LAM,
+       TRAIN_ITERS, {}),
+      ("flagship shard b125 fista", train_patches[:TRAIN_BATCH // 2], flag_d,
+       LAM, TRAIN_ITERS, {}),
+      ("ragged 13x37x24 (s > n)", rag_x, rag_d, 0.08, 20, {}),
+      ("ragged 13x24x37 (s < n) ista", wide_x, wide_d, 0.08, 20,
+       {"variant": "ista"}),
+      ("13x37x24 ista hard nonneg", rag_x, rag_d, 0.08, 20,
+       {"variant": "ista", "hard": True, "nonneg": True}),
+  ]
+  k3_err = 0.0
+  for name, x, d, lam, iters, flags in cases:
+    x = torch.tensor(np.asarray(x, np.float32), device=dev)
+    d = torch.tensor(d, device=dev)
+    v = lipschitz.top_gram_eigenpair(d)[1].contiguous()
+    flags = dict(flags, power_iters=2)
+    before = K2.stats_launches
+    got = K2.fused_solve_stats(d, v, x, lam, iters, **flags)
+    check(K2.stats_launches == before + 1, name + ": K3 did not count")
+    want32 = K2.fused_solve_stats_plain(d, v, x, lam, iters, **flags)
+    want64 = K2.fused_solve_stats_plain(d.double(), v.double(), x.double(),
+                                        lam, iters, **flags)
+    torch.cuda.synchronize()
+    k3_err = max(k3_err, compare_outputs(torch, "K3 " + name, names, got,
+                                         want32, want64))
+  x = torch.tensor(train_patches[:TRAIN_BATCH], device=dev)
+  d = torch.tensor(flag_d, device=dev)
+  h = torch.zeros(256, device=dev)
+  v = lipschitz.top_gram_eigenpair(d)[1].contiguous()
+  want64 = K2.fused_solve_stats_plain(d.double(), v.double(), x.double(), LAM,
+                                      TRAIN_ITERS, power_iters=2)
+  tf32_control(torch, "K3 plain", names, K2.fused_solve_stats_plain(
+      d, v, x, LAM, TRAIN_ITERS, power_iters=2, precision="tensorfloat32"),
+               want64)
+  # the replicated update from K3's own statistics is K2's step
+  for alg, upd in (("sc_cheap_quadratic_descent", 1),
+                   ("sc_steepest_descent", 2)):
+    k2 = K2.fused_train_segment(d, h, v, x[None], LAM, TRAIN_ITERS,
+                                TRAIN_STEP, update_alg=alg, upd_num_iters=upd,
+                                power_iters=2)
+    dp = parallel.build_dp_fused_local_step(
+        mesh1, "fista", alg, upd_num_iters=upd, power_iters=2)(
+            d, h, v, x, LAM, TRAIN_ITERS, TRAIN_STEP)
+    torch.cuda.synchronize()
+    k3_err = max(k3_err, compare_outputs(
+        torch, "K3 update == K2 step, %s upd %d" % (alg[3:], upd),
+        step_names, dp, k2, [t.double() for t in k2]))
+
+  # K7: the subspace counterpart
+  flag_g = contiguous_groups(256, GROUP_SIZE)
+  rag_g = [[0, 1, 2, 3], [4, 5], [6, 7, 8], [9, 10, 11, 12], [13, 0]]
+  rag_gd, rag_gx = unit_rows(rng, 14, 24), rng.randn(10, 24)
+  wide_g = [[(i + m) % 32 for m in range(8)] for i in range(0, 32, 4)]
+  wide_gd, wide_gx = unit_rows(rng, 32, 24), rng.randn(20, 24)  # GM 64 > n
+  gcases = [
+      ("flagship 64x4 b250", gtrain[:TRAIN_BATCH], flag_d, flag_g, LAM,
+       TRAIN_ITERS, {}),
+      ("flagship 64x4 shard b125", gtrain[:TRAIN_BATCH // 2], flag_d, flag_g,
+       LAM, TRAIN_ITERS, {}),
+      ("ragged overlapping s14 n24", rag_gx, rag_gd, rag_g, 0.05, 10, {}),
+      ("overlap 8x8 GM64 > n24 ista", wide_gx, wide_gd, wide_g, 0.05, 10,
+       {"variant": "ista"}),
+      ("ragged s14 n24 hard", rag_gx, rag_gd, rag_g, 0.05, 10,
+       {"hard": True}),
+  ]
+  k7_err = 0.0
+  for name, x, d, groups, lam, iters, flags in gcases:
+    x = torch.tensor(np.asarray(x, np.float32), device=dev)
+    d = torch.tensor(d, device=dev)
+    gather, mask, _ = sub.group_layout(groups, d.shape[0], dev)
+    v = lipschitz.top_gram_eigenpair(
+        sub.build_grouped_dictionary(d, gather, mask))[1].contiguous()
+    flags = dict(flags, group_assignments=groups, power_iters=2)
+    before = K6.stats_launches
+    got = K6.fused_group_solve_stats(d, v, x, lam, iters, **flags)
+    check(K6.stats_launches == before + 1, name + ": K7 did not count")
+    want32 = K6.fused_group_solve_stats_plain(d, v, x, lam, iters, **flags)
+    want64 = K6.fused_group_solve_stats_plain(
+        d.double(), v.double(), x.double(), lam, iters, **flags)
+    torch.cuda.synchronize()
+    k7_err = max(k7_err, compare_outputs(torch, "K7 " + name, names, got,
+                                         want32, want64))
+  x = torch.tensor(gtrain[:TRAIN_BATCH], device=dev)
+  d = torch.tensor(flag_d, device=dev)
+  v = lipschitz.top_gram_eigenpair(d)[1].contiguous()  # 64 x 4: Dg is D
+  gkw = dict(group_assignments=flag_g, power_iters=2)
+  want64 = K6.fused_group_solve_stats_plain(
+      d.double(), v.double(), x.double(), LAM, TRAIN_ITERS, **gkw)
+  tf32_control(torch, "K7 plain", names, K6.fused_group_solve_stats_plain(
+      d, v, x, LAM, TRAIN_ITERS, precision="tensorfloat32", **gkw), want64)
+  # the replicated update from K7's statistics is K6's step: the flagship,
+  # and the ragged groups with the anti-alignment penalty
+  pen_g = rag_g + [[0, 1]]
+  pen_d = torch.tensor(unit_rows(rng, 14, 16), device=dev)
+  pen_x = torch.tensor(rng.randn(10, 16).astype(np.float32), device=dev)
+  for label, dd, xx, groups, lam, iters, step, penalty in (
+      ("flagship 64x4", d, x, flag_g, LAM, TRAIN_ITERS, SUB_STEP, 0.0),
+      ("penalty 0.4 s14 n16", pen_d, pen_x, pen_g, 0.05, 10, 0.1, 0.4)):
+    hh = torch.zeros(dd.shape[0], device=dev)
+    gather, mask, _ = sub.group_layout(groups, dd.shape[0], dev)
+    vv = lipschitz.top_gram_eigenpair(
+        sub.build_grouped_dictionary(dd, gather, mask))[1].contiguous()
+    k6 = K6.fused_group_train_segment(
+        dd, hh, vv, xx[None], lam, iters, step, group_assignments=groups,
+        power_iters=2, alignment_penalty=penalty)
+    dp = parallel.build_dp_group_fused_local_step(
+        mesh1, "subspace_fista", "subspace_sc_cheap_quadratic_descent",
+        group_assignments=groups, alignment_penalty=penalty, power_iters=2)(
+            dd, hh, vv, xx, lam, iters, step)
+    torch.cuda.synchronize()
+    k7_err = max(k7_err, compare_outputs(
+        torch, "K7 update == K6 step, " + label, step_names, dp, k6,
+        [t.double() for t in k6]))
+
+  # K9: gapped sources from their orthogonal mixing matrix (phase 20: the
+  # codes must stay clear of sign()'s discontinuity at 0)
+  mixing = torch.tensor(random_orthogonal(ICA_N, 11), device=dev)
+  g = torch.Generator(device=dev).manual_seed(260)
+  xb = gapped_mixtures(torch, dev, ICA_BATCH, mixing, g)
+  d0 = mixing.contiguous()
+  x0 = invertible_linear.exact_inverse(d0)
+  inames = ("inverse", "statistic", "residual")
+  ilimits = {"residual": ICA_LIMIT}
+  # the statistic sums 250 products of order 1: it is held to 1e-5 of its
+  # largest entry without the 1e-4 cap, which is the codes' contract
+  stat_limit = lambda want: dict(
+      ilimits, statistic=REL_TOL * float(want[1].abs().max()))
+  k9_err = 0.0
+  # (name, shard, seed, boost tolerance): 1.35 X leaves 0.35^8 = 2e-4 after
+  # three refreshes, above 1e-6, so the boost fires; 1.02 X leaves 0.02^8,
+  # below 1e-3, so it does not
+  for name, shard, xi, tol in (
+      ("exact seed b250", xb, x0, ICA_BOOST_TOL),
+      ("shard b125, no boost asked", xb[:ICA_BATCH // 2], x0, None),
+      ("stale 1.35 X, boost fires", xb, 1.35 * x0, ICA_BOOST_TOL),
+      ("stale 1.02 X, tol 1e-3: no boost", xb, 1.02 * x0, 1e-3)):
+    kw = dict(refine_iters=ICA_REFINE, boost_tol=tol)
+    before = K8.stats_launches
+    got = K8.ica_solve_stats(d0, xi.contiguous(), shard, **kw)
+    check(K8.stats_launches == before + 1, name + ": K9 did not count")
+    want32 = K8.ica_solve_stats_plain(d0, xi, shard, **kw)
+    want64 = K8.ica_solve_stats_plain(d0.double(), xi.double(),
+                                      shard.double(), **kw)
+    torch.cuda.synchronize()
+    k9_err = max(k9_err, compare_outputs(torch, "K9 " + name, inames, got,
+                                         want32, want64, stat_limit(want64)))
+  kw = dict(refine_iters=ICA_REFINE, boost_tol=ICA_BOOST_TOL)
+  want64 = K8.ica_solve_stats_plain(d0.double(), x0.double(), xb.double(),
+                                    **kw)
+  tf32_control(torch, "K9 plain", inames[:2], K8.ica_solve_stats_plain(
+      d0, x0, xb, precision="tensorfloat32", **kw)[:2], want64[:2])
+  for upd in (1, 3):
+    k8 = K8.fused_ica_train_segment(d0, x0, xb[None], ICA_STEP,
+                                    upd_num_iters=upd, **kw)
+    dp = ica._segment_runner_dp(upd, mesh1, True, refine_iters=ICA_REFINE,
+                                fused=True)(d0, x0, xb[None], ICA_STEP)
+    torch.cuda.synchronize()
+    k9_err = max(k9_err, compare_outputs(
+        torch, "K9 update == K8 step, upd %d" % upd,
+        ("dictionary", "inverse", "residual"), dp, k8,
+        [t.double() for t in k8], ilimits))
+  # the refusals on a CUDA tensor
+  check_refuses("K3 mxu='bf16x3'", lambda: K2.fused_solve_stats(
+      d, v, x, LAM, 5, mxu="bf16x3"), "3a")
+  check_refuses("K7 mxu='bf16'", lambda: K6.fused_group_solve_stats(
+      d, v, x, LAM, 5, group_assignments=flag_g, mxu="bf16"), "3a")
+  check_refuses("K9 mxu='bf16x3'", lambda: K8.ica_solve_stats(
+      d0, x0, xb, mxu="bf16x3"), "3a")
+  return k3_err, k7_err, k9_err
+
+
+def nccl_probe(torch, dist, store):
+  """Whether NCCL is built in and a one-rank group initialises and reduces
+  a device tensor: (available, works, note).  A probe: its failure is an
+  answer, printed, not an error."""
+  if not dist.is_nccl_available():
+    return False, False, "torch.distributed has no NCCL backend"
+  try:
+    dist.init_process_group("nccl", init_method="file://" + store, rank=0,
+                            world_size=1)
+    t = torch.arange(4.0, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    same = bool((t == torch.arange(4.0, device="cuda")).all())
+    return True, same, ("one-rank all_reduce of a device tensor "
+                        + ("returned it unchanged" if same else "CHANGED it"))
+  except (RuntimeError, ValueError) as err:
+    return True, False, "%s: %s" % (type(err).__name__, err)
+  finally:
+    if dist.is_initialized():
+      dist.destroy_process_group()
+
+
+# the world-of-2 runs: (key, the family, the update rule or None for the
+# family's cheap-quadratic default)
+DP2_RUNS = (("fc steepest", "fc", "sc_steepest_descent"),
+            ("fc cheap-quad", "fc", None),
+            ("subspace steepest", "subspace", "subspace_sc_steepest_descent"),
+            ("subspace cheap-quad", "subspace", None),
+            ("ica", "ica", None))
+
+
+def dp2_run(torch, family, alg, data, data_parallel):
+  """One world-of-2 run, or its single-process twin on the global batch:
+  DP_STEPS2 steps through the trainers' entry points."""
+  from vtc_tpu_torch.training import compiled_epoch, ica
+  dev = torch.device("cuda", 0)
+  extra = {"data_parallel": True} if data_parallel else {}
+  if family == "ica":
+    return ica.train_dictionary_scanned(
+        data["ica_x"], data["ica_d0"],
+        dict(ica_params(DP_STEPS2, ICA_STEP), **extra), device=dev)
+  params = (train_params(DP_STEPS2) if family == "fc"
+            else subspace_train_params(DP_STEPS2, SUB_STEP))
+  if alg is not None:
+    params["dictionary_update_algorithm"] = alg
+  x = data[family + "_x"]
+  return compiled_epoch.train_dictionary_scanned(
+      x, x[:1], data["d0"], dict(params, **extra), device=dev)
+
+
+def dp_rank_main(rank, world, workdir):
+  """The hidden sub-command: one rank of the world-of-2 phase.  Joins the
+  gloo group over the file store in ``workdir``, runs every DP2_RUNS entry
+  with data_parallel=True on the shared card, and saves its results and
+  launch counts to ``workdir``."""
+  import os
+  import torch
+  import torch.distributed as dist
+  from vtc_tpu_torch.ops import fused_group_train_step as K6
+  from vtc_tpu_torch.ops import fused_ica_train as K8
+  from vtc_tpu_torch.ops import fused_train_step as K2
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device", file=sys.stderr)
+    return 1
+  data = dict(np.load(os.path.join(workdir, "inputs.npz")))
+  dist.init_process_group("gloo", init_method="file://" + os.path.join(
+      workdir, "store"), rank=rank, world_size=world)
+  try:
+    out = {}
+    for key, family, alg in DP2_RUNS:
+      out[key] = dp2_run(torch, family, alg, data, True).cpu().numpy()
+    torch.cuda.synchronize()
+    out["launches"] = np.array([K2.stats_launches, K6.stats_launches,
+                                K8.stats_launches, K2.launches, K6.launches,
+                                K8.launches])
+    np.savez(os.path.join(workdir, "rank%d.npz" % rank), **out)
+  finally:
+    dist.destroy_process_group()
+  return 0
+
+
+def dp_world_of_two(torch, fc_x, sub_x, d0, dev):
+  """Phase 28: two processes of this script share the card, join a gloo
+  group over a file store and run DP_STEPS2 fc, subspace and ICA steps on
+  shards of 125.  Both ranks must return bitwise the same state, which
+  must match the single-process trainers on the global batch."""
+  import os
+  import tempfile
+  world = 2
+  mixing = torch.tensor(random_orthogonal(ICA_N, 11), device=dev)
+  g = torch.Generator(device=dev).manual_seed(280)
+  ica_x = gapped_mixtures(torch, dev, DP_STEPS2 * ICA_BATCH, mixing,
+                          g).reshape(DP_STEPS2, ICA_BATCH, ICA_N)
+  data = {"fc_x": fc_x[:DP_STEPS2].cpu().numpy(),
+          "subspace_x": sub_x[:DP_STEPS2].cpu().numpy(),
+          "d0": d0.cpu().numpy(), "ica_x": ica_x.cpu().numpy(),
+          "ica_d0": mixing.cpu().numpy()}
+  with tempfile.TemporaryDirectory() as workdir:
+    np.savez(os.path.join(workdir, "inputs.npz"), **data)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(rank),
+         str(world), workdir]) for rank in range(world)]
+    try:
+      codes = [proc.wait(timeout=DP_CHILD_TIMEOUT) for proc in procs]
+    finally:
+      for proc in procs:
+        if proc.poll() is None:
+          proc.kill()
+          proc.wait()
+    dt = time.perf_counter() - t0
+    check(codes == [0] * world, "a world-of-2 rank failed: exit codes %s"
+          % codes)
+    ranks = [dict(np.load(os.path.join(workdir, "rank%d.npz" % rank)))
+             for rank in range(world)]
+  want_launches = [2 * DP_STEPS2, 2 * DP_STEPS2, DP_STEPS2, 0, 0, 0]
+  for rank, out in enumerate(ranks):
+    check(list(out["launches"]) == want_launches,
+          "rank %d launched %s, expected %s (K3, K7, K9, K2, K6, K8)" % (
+              rank, list(out["launches"]), want_launches))
+  print("world of 2 on the one card (gloo, file store, statistics staged "
+        "through pinned host buffers): both ranks done in %.1f s, each %d K3, "
+        "%d K7 and %d K9 launches and no K2, K6 or K8" % (
+            dt, *want_launches[:3]))
+  for key, family, alg in DP2_RUNS:
+    check(np.array_equal(ranks[0][key], ranks[1][key]),
+          key + ": the two ranks' replicated state is not bitwise equal")
+    single = dp2_run(torch, family, alg, data, False)
+    err = float(np.abs(ranks[0][key] - single.cpu().numpy()).max())
+    strict = "cheap-quad" not in key
+    lim = limit(single) if strict else DP_FLOOR
+    print("world of 2  %-20s ranks bitwise equal; vs the single-process "
+          "trainer on the global batch max|d| %.3e, %s %.3e" % (
+              key, err, "limit" if strict else "rounding floor", lim))
+    check(np.isfinite(ranks[0][key]).all() and err <= lim,
+          "%s: world of 2 differs from the single-process run by %.3e, "
+          "bound %.3e" % (key, err, lim))
+
+
 def time_ms(torch, fn, reps):
   start, stop = (torch.cuda.Event(enable_timing=True),
                  torch.cuda.Event(enable_timing=True))
@@ -2314,6 +2733,231 @@ def main():
               (sum(runs) / 2) / (k19_g_ms if grouped else k19_ms), card))
   del bench_x
 
+
+  # phase 26: K3, K7 and K9 against their plain versions on the card
+  import os
+  import tempfile
+  import torch.distributed as dist
+  from vtc_tpu_torch import parallel
+  from vtc_tpu_torch.training import pca
+  K2, K6 = fused_train_step, fused_group_train_step
+  k3_err, k7_err, k9_err = dp_kernel_cases(
+      torch, parallel, K2, K6, K8, ica, sub, lipschitz, invertible_linear,
+      train_patches, gtrain, dev)
+  check_refuses("conv train_dictionary_scanned data_parallel", lambda: (
+      compiled_epoch.train_dictionary_scanned(
+          cbatches[:2], cheld[None], cd0,
+          dict(conv_segment_params(2, SEG_STEP), data_parallel=True))), "9",
+                K12)
+  check_refuses("a mesh with a code axis of 2",
+                lambda: parallel.make_mesh(code=2), "9")
+  check_refuses("data-parallel train_dictionary_scanned "
+                "early_stopping_epsilon", lambda: (
+                    compiled_epoch.train_dictionary_scanned(
+                        rx, rx[:1], rd, dict(train_params(2),
+                                             data_parallel=True,
+                                             early_stopping_epsilon=1e-3))),
+                "3")
+
+  # phase 27: a world of 1 through the normal entry points.  First the
+  # collective backends the card has
+  check(dist.is_available() and dist.is_gloo_available(),
+        "torch.distributed has no gloo backend: the world-of-2 phase needs "
+        "it")
+  with tempfile.TemporaryDirectory() as tmp:
+    nccl_built, nccl_works, nccl_note = nccl_probe(
+        torch, dist, os.path.join(tmp, "store"))
+  print("NCCL probe: built in %s; a one-rank group initialises and reduces "
+        "%s (%s)" % (nccl_built, nccl_works, nccl_note))
+  if nccl_works:
+    # the default group's world is what data_parallel=True takes: with a
+    # one-rank NCCL group initialised the trainer must run as without one
+    with tempfile.TemporaryDirectory() as tmp:
+      dist.init_process_group("nccl", init_method="file://" + os.path.join(
+          tmp, "store"), rank=0, world_size=1)
+      try:
+        in_group = compiled_epoch.train_dictionary_scanned(
+            batches[:10], held_out[None], d0,
+            dict(train_params(10), data_parallel=True))
+      finally:
+        dist.destroy_process_group()
+    no_group = compiled_epoch.train_dictionary_scanned(
+        batches[:10], held_out[None], d0,
+        dict(train_params(10), data_parallel=True))
+    check(bool((in_group == no_group).all()),
+          "data_parallel=True differs inside a one-rank NCCL group")
+    print("data_parallel=True inside a one-rank NCCL group: 10 steps, "
+          "bitwise the run without a group")
+  dp_rates = {}
+  for label, x, held, params_, kmod, twin, want in (
+      ("fc", batches, held_out, params, K2, trained,
+       lambda dd: held_out_loss(torch, ista_fista, sparse_coding, held_out,
+                                dd)),
+      ("subspace", gbatches, gheld, gparams, K6, gtrained,
+       lambda dd: held_out_group_loss(torch, sub, sparse_coding, gheld, dd,
+                                      groups))):
+    kmod.stats_launches = kmod.launches = 0
+    t0 = time.perf_counter()
+    dp_trained = compiled_epoch.train_dictionary_scanned(
+        x, held[None], d0, dict(params_, data_parallel=True))
+    torch.cuda.synchronize()
+    dp_rates[label] = TRAIN_STEPS * TRAIN_BATCH / (time.perf_counter() - t0)
+    dp_rates[label + " launches"] = kmod.stats_launches
+    check(kmod.stats_launches == TRAIN_STEPS and kmod.launches == 0,
+          "%s data-parallel trainer: expected %d solve+stats steps and no "
+          "fused train step, counted %d and %d" % (
+              label, TRAIN_STEPS, kmod.stats_launches, kmod.launches))
+    check(bool(torch.isfinite(dp_trained).all()),
+          label + ": non-finite dictionary")
+    norm_err = float((torch.linalg.vector_norm(dp_trained, dim=1)
+                      - 1).abs().max())
+    l0, l1 = want(d0), want(dp_trained)
+    apart = float((dp_trained - twin).abs().max())
+    print("world of 1, %s train_dictionary_scanned(data_parallel=True): %d "
+          "solve+stats steps, no fused train step; rows unit norm within "
+          "%.2e; held-out loss %.6f -> %.6f; final dictionary max|d| %.3e "
+          "from the single-device trainer's (rounding floor %.1e)" % (
+              label, kmod.stats_launches, norm_err, l0, l1, apart, DP_FLOOR))
+    check(norm_err <= 1e-4, "%s: rows not unit norm: %.3e" % (label,
+                                                               norm_err))
+    check(np.isfinite(l1) and l1 < l0,
+          "%s: held-out loss did not fall: %.6f -> %.6f" % (label, l0, l1))
+    check(apart <= DP_FLOOR, "%s: the data-parallel trainer's dictionary "
+          "is %.3e from the single-device trainer's, floor %.1e" % (
+              label, apart, DP_FLOOR))
+  k3_launches = dp_rates["fc launches"]
+  k7_launches = dp_rates["subspace launches"]
+  K8.stats_launches = K8.launches = 0
+  rollbacks0 = ica.rollbacks
+  t0 = time.perf_counter()
+  dp_itrained = ica.train_dictionary_scanned(
+      ica_batches, id0, dict(ica_params(ICA_STEPS, ICA_STEP),
+                             data_parallel=True))
+  torch.cuda.synchronize()
+  dp_rates["ica"] = ICA_STEPS * ICA_BATCH / (time.perf_counter() - t0)
+  k9_launches = K8.stats_launches
+  dp_nll = ica_nll(torch, ica_held, dp_itrained)
+  print("world of 1, ICA train_dictionary_scanned(data_parallel=True): %d "
+        "K9 steps, %d K8 steps, %d guard rollbacks; held-out Laplace NLL "
+        "%.4f -> %.4f; max|d| %.3e from the single-device trainer's" % (
+            k9_launches, K8.launches, ica.rollbacks - rollbacks0, nll0,
+            dp_nll, float((dp_itrained - itrained).abs().max())))
+  check(k9_launches == ICA_STEPS and K8.launches == 0
+        and ica.rollbacks == rollbacks0,
+        "expected %d K9 steps, no K8 step and no rollback" % ICA_STEPS)
+  check(bool(torch.isfinite(dp_itrained).all()) and dp_nll < nll0,
+        "data-parallel ICA: held-out NLL did not fall: %.4f -> %.4f" % (
+            nll0, dp_nll))
+  rollbacks0 = ica.rollbacks
+  dp_wrecked = ica.train_dictionary_scanned(
+      ica_batches[:3], id0, dict(ica_params(3, 40.0), data_parallel=True))
+  print("data-parallel ICA at stepsize 40: %d guard rollbacks through the "
+        "data-parallel fallback, dictionary finite: %s" % (
+            ica.rollbacks - rollbacks0,
+            bool(torch.isfinite(dp_wrecked).all())))
+  check(ica.rollbacks - rollbacks0 >= 1,
+        "data-parallel ICA at stepsize 40 took no rollback")
+  mesh1 = parallel.make_mesh()
+  fused_fista.launches = fused_group_fista.launches = 0
+  dp_codes = encode_dataset(patches, dictionary, LAM, ITERS,
+                            batch_size=BATCH, chunk_batches=4,
+                            data_parallel=mesh1)
+  dp_gcodes = encode_dataset(gpatches, dictionary, LAM, ITERS,
+                             batch_size=BATCH, chunk_batches=4,
+                             group_assignments=groups, data_parallel=mesh1)
+  check(fused_fista.launches == NUM_BATCHES
+        and fused_group_fista.launches == NUM_BATCHES,
+        "data-parallel encode: expected %d K1 and %d K4 launches, counted "
+        "%d and %d" % (NUM_BATCHES, NUM_BATCHES, fused_fista.launches,
+                       fused_group_fista.launches))
+  check(np.array_equal(dp_codes, codes) and np.array_equal(dp_gcodes, gcodes),
+        "encode_dataset with a mesh of one differs from the plain call")
+  pca_x = ica_x[:20000] - ica_x[:20000].mean(dim=0)
+  pca_dp = pca.train_dictionary(pca_x, data_parallel=mesh1)
+  pca_one = pca.train_dictionary(pca_x)
+  check(bool((pca_dp == pca_one).all()),
+        "PCA with a mesh of one differs from the single-device result")
+  print("world of 1: encode_dataset (fc %d K1, subspace %d K4 launches) and "
+        "PCA with a mesh of one equal their single-device results bitwise"
+        % (NUM_BATCHES, NUM_BATCHES))
+
+  # phase 28: a world of 2 on the one card
+  dp_world_of_two(torch, batches, gbatches, d0, dev)
+
+  # phase 29: data-parallel timing (warm)
+  xs250 = batches[0]
+  gxs250 = gbatches[0]
+  ib250 = ica_batches[0]
+  stats_kw = dict(power_iters=2)
+  k3_run = lambda xx: (lambda: K2.fused_solve_stats(
+      d0, v0, xx, LAM, TRAIN_ITERS, **stats_kw))
+  k3_plain = lambda: K2.fused_solve_stats_plain(d0, v0, xs250, LAM,
+                                                TRAIN_ITERS, **stats_kw)
+  k7_run = lambda xx: (lambda: K6.fused_group_solve_stats(
+      d0, gv0, xx, LAM, TRAIN_ITERS, group_assignments=groups, **stats_kw))
+  k7_plain = lambda: K6.fused_group_solve_stats_plain(
+      d0, gv0, gxs250, LAM, TRAIN_ITERS, group_assignments=groups,
+      **stats_kw)
+  k9_kw = dict(refine_iters=ICA_REFINE, boost_tol=ICA_BOOST_TOL)
+  k9_run = lambda xx: (lambda: K8.ica_solve_stats(id0, ix0, xx, **k9_kw))
+  k9_plain = lambda: K8.ica_solve_stats_plain(id0, ix0, ib250, **k9_kw)
+  dp_times = {}
+  with torch.no_grad():
+    for name, run, plain_fn, full, reps in (
+        ("K3", k3_run, k3_plain, xs250, 100),
+        ("K7", k7_run, k7_plain, gxs250, 100),
+        ("K9", k9_run, k9_plain, ib250, 200)):
+      half = full[:TRAIN_BATCH // 2].contiguous()
+      run(full)(), run(half)(), plain_fn()
+      plain_runs = [time_ms(torch, plain_fn, 10)]
+      runs = [time_ms(torch, run(full), reps), time_ms(torch, run(full), reps)]
+      half_ms = time_ms(torch, run(half), reps)
+      plain_runs.append(time_ms(torch, plain_fn, 10))
+      dp_times[name] = (sum(runs) / 2, sum(plain_runs) / 2, half_ms)
+      print("%s ms per step (b=250, a shard of 125: %.4f): %.4f (runs %.4f, "
+            "%.4f); plain %.4f (runs %.4f, %.4f) [%s]" % (
+                name, half_ms, dp_times[name][0], *runs, dp_times[name][1],
+                *plain_runs, card))
+  k3_bound = solve_stats_bound(TRAIN_BATCH, 256, 256, TRAIN_ITERS)
+  k9_bound = ica_stats_bound(ICA_N, ICA_BATCH)
+  print("K3 %.4f ms against K2's whole step %.4f ms; K7 %.4f against K6's "
+        "%.4f; K9 %.4f against K8's %.4f (b=250; K2, K6 and K8 include the "
+        "update, from C loops of 100 steps); bounds K3/K7 %.4f ms (%s), K9 "
+        "%.4f ms (%s) [%s]" % (
+            dp_times["K3"][0], step_ms, dp_times["K7"][0], gstep_ms,
+            dp_times["K9"][0], k8_ms, k3_bound[0], k3_bound[1], k9_bound[0],
+            k9_bound[1], card))
+  # the host's share: a data-parallel step is one Python call per step,
+  # where K2 enqueues a whole segment from one C loop
+  for label, runner, state, seg, args in (
+      ("fc", compiled_epoch._dp_fused_segment_runner(
+          parallel.build_dp_fused_local_step(
+              mesh1, "fista", "sc_cheap_quadratic_descent", power_iters=2)),
+       (d0, h0, v0), batches[:200], (LAM, TRAIN_ITERS, TRAIN_STEP)),
+      ("subspace", compiled_epoch._dp_fused_segment_runner(
+          parallel.build_dp_group_fused_local_step(
+              mesh1, "subspace_fista", "subspace_sc_cheap_quadratic_descent",
+              group_assignments=groups, power_iters=2)),
+       (d0, h0, gv0), gbatches[:200], (LAM, TRAIN_ITERS, SUB_STEP)),
+      ("ica", ica._segment_runner_dp(1, mesh1, True, refine_iters=ICA_REFINE,
+                                     fused=True),
+       (id0, ix0), ica_batches[:200], (ICA_STEP,))):
+    with torch.no_grad():
+      runner(*state, seg[:5], *args)
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      runner(*state, seg, *args)
+      host = time.perf_counter() - t0
+      torch.cuda.synchronize()
+      total = time.perf_counter() - t0
+    print("data-parallel %s step at a world of 1 (200 steps): host enqueue "
+          "%.4f ms per step, device and host together %.4f ms per step "
+          "[%s]" % (label, 1e3 * host / 200, 1e3 * total / 200, card))
+  print("train_dictionary_scanned(data_parallel=True) at a world of 1, "
+        "phase 27's runs: fc %.1f patches/s, subspace %.1f patches/s, ICA "
+        "%.1f patches/s (single-device: phases 7, 12 and 22) [%s]" % (
+            dp_rates["fc"], dp_rates["subspace"], dp_rates["ica"], card))
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -2348,6 +2992,15 @@ def main():
       ("fused_code_shard_train", "fused_code_shard_train_step.cu",
        "vtc_tpu/ops/pallas_code_shard_train.py:616", k19_launches, k19_err,
        k19_ms, k19_p_ms, k19_bound),
+      ("fused_solve_stats", "fused_train_step.cu",
+       "vtc_tpu/ops/pallas_train_step.py:975", k3_launches, k3_err,
+       dp_times["K3"][0], dp_times["K3"][1], k3_bound),
+      ("fused_group_solve_stats", "fused_group_train_step.cu",
+       "vtc_tpu/ops/pallas_train_step.py:1175", k7_launches, k7_err,
+       dp_times["K7"][0], dp_times["K7"][1], k3_bound),
+      ("ica_solve_stats", "fused_ica_train_step.cu",
+       "vtc_tpu/ops/pallas_ica_train.py:250", k9_launches, k9_err,
+       dp_times["K9"][0], dp_times["K9"][1], k9_bound),
   ]
   print(json.dumps({"kernels": [{
       "name": name,
@@ -2370,4 +3023,7 @@ def main():
 
 
 if __name__ == "__main__":
+  if len(sys.argv) == 5 and sys.argv[1] == "--dp-rank":
+    # one rank of phase 28's world of 2, started by main()
+    sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
   sys.exit(main())

@@ -143,10 +143,22 @@ def test_encode_dataset_options_match_jax(problem):
 
 def test_encode_dataset_rejects_unported_options(problem):
   x, d = problem
-  # mode='convolutional' is ported (tests/test_torch_port_conv.py)
-  for kw in (dict(data_parallel=object()), dict(mxu_precision="bf16")):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-      encode_dataset(x, d, LAM, 5, device="cpu", **kw)
+  # mode='convolutional' is ported (tests/test_torch_port_conv.py), and so
+  # is data_parallel for fc and subspace (tests/
+  # test_torch_port_parallel_train.py); conv with data_parallel waits
+  images = np.zeros((4, 1, 12, 12), np.float32)
+  kernels = np.ones((3, 1, 4, 4), np.float32) / 4.0
+  with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9"):
+    encode_dataset(images, kernels, LAM, 5, device="cpu", data_parallel=True,
+                   mode="convolutional", kernel_stride=(2, 2))
+  with pytest.raises(NotImplementedError, match="ROADMAP"):
+    encode_dataset(x, d, LAM, 5, device="cpu", mxu_precision="bf16")
+  with pytest.raises(TypeError, match="data_parallel"):
+    encode_dataset(x, d, LAM, 5, device="cpu", data_parallel=object())
+  got = encode_dataset(x[:BATCH], d, LAM, 5, batch_size=BATCH, device="cpu",
+                       data_parallel=True)  # no process group: one rank
+  assert np.array_equal(got, encode_dataset(x[:BATCH], d, LAM, 5,
+                                            batch_size=BATCH, device="cpu"))
 
 
 def test_sparse_coder_matches_jax(problem, tmp_path):

@@ -3,8 +3,9 @@ every module and of chip_smoke.py), its own copies of vtc_tpu's host
 modules behave as the originals (checkpoints round-trip in both
 directions, byte for byte; reset/prune and the dictionary figures match),
 and its entry points (the conv and ICA trainers, PCA and the ICA and PCA
-coders included) run on the CUDA device unless the caller asks for the
-CPU: without a card the default raises instead of running here.
+coders included, with or without data_parallel) run on the CUDA device
+unless the caller asks for the CPU: without a card the default raises
+instead of running here.
 """
 import ast
 import pathlib
@@ -177,6 +178,16 @@ def test_entry_points_default_to_the_card(rng, monkeypatch):
       lambda: pca.train_dictionary(x[0] - x[0].mean(axis=0)),
       lambda: api.ICACoder(),
       lambda: api.PCACoder(),
+      # data_parallel changes nothing about where an entry point runs
+      lambda: encode.encode_dataset(x[0], d, 0.05, 5, data_parallel=True),
+      lambda: sc.train_dictionary(x, x[:1], d,
+                                  dict(params, data_parallel=True)),
+      lambda: compiled_epoch.train_dictionary_scanned(
+          x, x[:1], d, dict(params, data_parallel=True)),
+      lambda: ica.train_dictionary_scanned(
+          x, square, dict(ica_params, data_parallel=True)),
+      lambda: pca.train_dictionary(x[0] - x[0].mean(axis=0),
+                                   data_parallel=True),
   ]
   for call in calls:
     with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):

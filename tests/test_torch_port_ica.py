@@ -258,14 +258,29 @@ def test_per_batch_trainer_matches_jax(rng, tmp_path):
 
 
 def test_trainers_refuse_what_waits(rng):
-  d0, batches, stepsize = _problem(rng, k=1, n=16)
-  for extra, item in (({"data_parallel": True}, "item 9"),
-                      ({"train_precision": "bf16x3"}, "item 3")):
-    for trainer in (ica.train_dictionary, ica.train_dictionary_scanned):
-      with pytest.raises(NotImplementedError, match=item):
-        trainer(batches, d0, _params(stepsize, **extra), device="cpu")
-  with pytest.raises(NotImplementedError, match="item 9"):
-    pca.train_dictionary(batches[0] - batches[0].mean(0), data_parallel=True,
+  d0, batches, stepsize = _problem(rng, k=2, n=16)
+  for trainer in (ica.train_dictionary, ica.train_dictionary_scanned):
+    with pytest.raises(NotImplementedError, match="item 3"):
+      trainer(batches, d0, _params(stepsize, train_precision="bf16x3"),
+              device="cpu")
+  # data_parallel no longer waits (item 9's layer): the scanned trainer and
+  # PCA run it, True without a process group being a mesh of one rank
+  # (tests/test_torch_port_parallel_train.py holds worlds of 2 and 4)
+  for extra in ({}, {"use_fused": True}, {"warm_inverse": False}):
+    want = ica.train_dictionary_scanned(batches, d0,
+                                        _params(stepsize, **extra),
+                                        device="cpu")
+    got = ica.train_dictionary_scanned(
+        batches, d0, _params(stepsize, data_parallel=True, **extra),
+        device="cpu")
+    assert_close(got, want.numpy(), 1e-6, "ICA data_parallel=True %s" % extra)
+  x = batches[0] - batches[0].mean(0)
+  assert np.array_equal(
+      pca.train_dictionary(x, data_parallel=True, device="cpu").numpy(),
+      pca.train_dictionary(x, device="cpu").numpy())
+  # the per-batch trainer has no data-parallel mode, here or in vtc_tpu
+  with pytest.raises(ValueError, match="no data-parallel mode"):
+    ica.train_dictionary(batches, d0, _params(stepsize, data_parallel=True),
                          device="cpu")
   with pytest.raises(NotImplementedError, match="item 3"):
     fused_ica_train.fused_ica_train_segment(_t(d0), _t(d0), _t(batches), 0.1,

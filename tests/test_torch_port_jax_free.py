@@ -1,8 +1,8 @@
 """vtc_tpu_torch never imports jax nor the JAX package vtc_tpu -- it
 encodes and trains (fc, subspace, conv with both conv trainers, ICA and
-PCA, the big-dictionary residual form), with checkpoints and a
-reset/prune schedule, with both blocked --
-and chip_smoke.py has no CPU path.
+PCA, the big-dictionary residual form, and the data-parallel layer on a
+mesh of one rank), with checkpoints and a reset/prune schedule, with both
+blocked -- and chip_smoke.py has no CPU path.
 
 The blocker implements ``find_spec``: Python 3.12 ignores a meta-path
 finder that only has ``find_module``, so such a finder blocks nothing.
@@ -189,6 +189,28 @@ for alg, group_arrays in (("sc_cheap_quadratic_descent", None),
           big, torch.zeros(40), v12, torch.from_numpy(batches), 0.05, 5,
           0.01)
   assert out[0].shape == (40, 12) and bool(out[0].isfinite().all())
+
+# the data-parallel layer: the mesh, the steps, K3, K7 and K9's plain
+# versions, and every entry point with data_parallel on a mesh of one rank
+from vtc_tpu_torch import parallel
+from vtc_tpu_torch.parallel import data_parallel, mesh as mesh_module
+mesh = parallel.make_mesh()
+assert mesh.size == 1 and parallel.dp_axes(mesh) == ("data",)
+for dp_params in (dict(params, fc_formulation="pallas"),
+                  dict(sub_params, fc_formulation="pallas"), params):
+  for trainer in (sparse_coding.train_dictionary,
+                  compiled_epoch.train_dictionary_scanned):
+    trained = trainer(batches, batches[:1], d,
+                      dict(dp_params, data_parallel=True), device="cpu")
+    assert trained.shape == (16, 12) and bool(trained.isfinite().all())
+trained = ica.train_dictionary_scanned(
+    batches, square, dict(ica_params, data_parallel=mesh), device="cpu")
+assert trained.shape == (12, 12) and bool(trained.isfinite().all())
+assert pca.train_dictionary(mixed - mixed.mean(0), data_parallel=mesh,
+                            device="cpu").shape == (12, 12)
+codes = encode.encode_dataset(rng.randn(40, 12), d, 0.01, 5, batch_size=16,
+                              device="cpu", data_parallel=True)
+assert codes.shape == (40, 16)
 assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
 # nor anything of the JAX package itself (the smoke run on the card
 # imports the port alone)

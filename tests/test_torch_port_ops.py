@@ -129,10 +129,34 @@ def test_solver_loop_matches_jax(rng, variant, eps, fold):
     assert float((got - full).abs().max()) > 1e-5
 
 
-def test_solver_rejects_psum_axes_and_bad_variant():
-  z = torch.zeros(2, 3)
-  with pytest.raises(NotImplementedError, match="multi-device"):
-    solver.proximal_gradient_loop(None, None, z, 0.1, 3, psum_axes="data")
+def test_solver_rejects_psum_axes_and_bad_variant(rng):
+  """psum_axes no longer waits: it is the mesh the stop test averages
+  over, asked once per iteration after the first (worlds of 2 and 4 run in
+  tests/test_torch_port_parallel.py).  A bad variant is still rejected."""
+  x, d, step = _loop_problem(rng)
+  x, d, step = torch.from_numpy(x), torch.from_numpy(d), float(step)
+
+  class OneRank:
+    calls = 0
+
+    def mean(self, value):
+      OneRank.calls += 1
+      return value
+
+  def grad_fn(z):
+    return (z @ d - x) @ d.T
+
+  def prox_fn(z, ss):
+    return thresholds.select(False, False)(z, 0.1 * ss)
+
+  z = torch.zeros(x.shape[0], d.shape[0])
+  got = solver.proximal_gradient_loop(grad_fn, prox_fn, z, step, 60,
+                                      early_stopping_epsilon=3e-2,
+                                      psum_axes=OneRank())
+  want = solver.proximal_gradient_loop(grad_fn, prox_fn, z, step, 60,
+                                       early_stopping_epsilon=3e-2)
+  assert bool((got == want).all())
+  assert 1 <= OneRank.calls < 59  # it stopped early, asking each time
   with pytest.raises(ValueError):
     solver.proximal_gradient_loop(None, None, z, 0.1, 3, variant="adam")
 

@@ -350,6 +350,23 @@ def test_trainers_refuse_what_waits(rng, trainer, change, item):
     change = dict(change, strides=(2, 2), padding=((2, 2), (2, 2)))
     got = fn(data, data[:1], d0, _params(**change), device="cpu")
     assert got.shape == d0.shape and bool(torch.isfinite(got).all())
+    # ... but conv with data_parallel still waits, in item 9
+    with pytest.raises(NotImplementedError, match="item 9"):
+      fn(data, data[:1], d0, _params(data_parallel=True, **change),
+         device="cpu")
+    return
+  if change.get("data_parallel"):
+    # item 9's layer is done for fc and subspace: True without a process
+    # group is a mesh of one rank (tests/test_torch_port_parallel_train.py
+    # holds worlds of 2 and 4 to vtc_tpu), and lands on the single-device
+    # trainer with the same stepsize rule
+    change = dict(change, lipschitz_method="eigvalsh")
+    got = fn(data, data[:1], d0, _params(**change), device="cpu")
+    single = dict(change)
+    del single["data_parallel"]
+    want = fn(data, data[:1], d0, _params(**single), device="cpu")
+    assert_close(got, want, "data_parallel=True on one rank")
+    assert float((got - torch.from_numpy(d0)).abs().max()) > 1e-3
     return
   with pytest.raises(NotImplementedError, match=item):
     fn(data, data[:1], d0, _params(**change), device="cpu")

@@ -1,0 +1,228 @@
+"""Rank worker of the port's data-parallel CPU tests.
+
+``run_ranks(world, cases)`` spawns ``world`` CPU processes that join one
+``gloo`` group over a ``file://`` store in a temporary directory (no
+network), run every case of ``cases`` in turn through the port's entry
+points, exactly as a user's ranks would (the same global arrays on every
+rank), and hand back what each rank returned.  The cases take and return
+numpy arrays.
+
+This module imports torch and the port only: the spawned children import
+neither jax nor tests/conftest.py, so a rank starts in about a second.  The
+test files import it, make the inputs from a numpy seed, run vtc_tpu's side
+themselves and compare.
+"""
+import datetime
+import multiprocessing
+import os
+import queue as queue_module
+import tempfile
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from vtc_tpu_torch import parallel
+from vtc_tpu_torch.analysis_transforms.fully_connected import ista_fista
+from vtc_tpu_torch.encode import encode_dataset
+from vtc_tpu_torch.training import compiled_epoch, ica, pca
+from vtc_tpu_torch.training import sparse_coding as sc
+
+TIMEOUT_S = 240
+
+
+def _t(x):
+  return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+
+
+def _np(tensors):
+  return tuple(t.detach().cpu().numpy() for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# the cases: each runs on every rank with the same arguments
+# ---------------------------------------------------------------------------
+def case_mesh(dcn=1):
+  mesh = parallel.make_mesh(dcn=dcn)
+  x = np.arange(8 * mesh.size * 3, dtype=np.float32).reshape(8 * mesh.size, 3)
+  total = mesh.sum(_t(x[:2]) * (mesh.index + 1))
+  return {"axis_names": mesh.axis_names, "shape": dict(mesh.shape),
+          "size": mesh.size, "index": mesh.index,
+          "position": dict(mesh.position),
+          "dp_axes": parallel.dp_axes(mesh),
+          "shard": np.asarray(mesh.shard(x)),
+          "sum": total.numpy(), "mean": mesh.mean(_t(x[:2])).numpy(),
+          "gathered": mesh.all_gather(_t(mesh.shard(x))).numpy(),
+          "object": mesh.broadcast_object({"rank": mesh.index})}
+
+
+def case_shard_map_step(d, h, batch, sw, n_it, upd_step, mode, inference_alg,
+                        update_alg, config, dcn=1):
+  """``build_shard_map_train_step`` on the global batch."""
+  mesh = parallel.make_mesh(dcn=dcn)
+  step = parallel.build_shard_map_train_step(mesh, mode, inference_alg,
+                                             update_alg, **config)
+  return _np(step(_t(d), _t(h), batch, sw, n_it, upd_step))
+
+
+def case_fused_runner(d, h, v, batches, sw, n_it, upd_step, inference_alg,
+                      update_alg, config):
+  """``_dp_fused_segment_runner`` over this rank's shards, fc or (with
+  group_assignments in ``config``) subspace; ``steps`` of the state."""
+  mesh = parallel.make_mesh()
+  build = (parallel.build_dp_group_fused_local_step
+           if "group_assignments" in config
+           else parallel.build_dp_fused_local_step)
+  runner = compiled_epoch._dp_fused_segment_runner(
+      build(mesh, inference_alg, update_alg, **config))
+  shards = _t(mesh.shard(batches, dim=1))
+  return _np(runner(_t(d), _t(h), _t(v), shards, sw, n_it, upd_step))
+
+
+def case_cold_runner(d, h, batches, sw, n_it, upd_step, inference_alg,
+                     update_alg, config):
+  """``_dp_segment_runner`` (the psum-per-op step) over this rank's
+  shards."""
+  mesh = parallel.make_mesh()
+  runner = compiled_epoch._dp_segment_runner(parallel.build_dp_local_step(
+      mesh, "fully-connected", inference_alg, update_alg, **config))
+  shards = _t(mesh.shard(batches, dim=1))
+  d1, h1, _ = runner(_t(d), _t(h), torch.zeros(1), shards, sw, n_it,
+                     upd_step)
+  return _np((d1, h1))
+
+
+def case_early_stop(d, batch, sw, n_it, eps, formulation):
+  """The batch-global stop test: this rank's codes and how many times it
+  reduced the stop scalar (once per iteration after the first)."""
+  mesh = parallel.make_mesh()
+  reductions = []
+  original = mesh.mean
+
+  def counted(tensor):
+    reductions.append(1)
+    return original(tensor)
+
+  mesh.mean = counted
+  d = _t(d)
+  shard = _t(mesh.shard(batch))
+  eta = 1.0 / torch.linalg.eigvalsh(d @ d.T)[-1]
+  init = torch.zeros((shard.shape[0], d.shape[0]))
+  codes = ista_fista._solve(shard, d, sw, n_it, eta, init, "fista", False,
+                            False, eps, formulation, psum_axes=mesh)
+  return {"codes": mesh.all_gather(codes).numpy(),
+          "reductions": len(reductions)}
+
+
+def case_train(trainer, batches, val, d0, params):
+  """A sparse-coding trainer with params['data_parallel'] = True."""
+  fn = {"per_batch": sc.train_dictionary,
+        "scanned": compiled_epoch.train_dictionary_scanned}[trainer]
+  params = dict(params, data_parallel=True)
+  return fn(batches, val, d0, params, device="cpu").numpy()
+
+
+def case_visited(batches, d0, params):
+  """The batches this rank's scanned trainer visits, in order: a runner
+  that records its shards in place of the data-parallel one."""
+  seen = []
+
+  def recording_runner(local_step):
+    def run(dictionary, hessian, eigvec, shards, sw, n_it, upd_step):
+      seen.append(shards.numpy().copy())
+      return dictionary, hessian, eigvec
+    return run
+
+  original = compiled_epoch._dp_segment_runner
+  compiled_epoch._dp_segment_runner = recording_runner
+  try:
+    compiled_epoch.train_dictionary_scanned(
+        batches, batches[:1], d0, dict(params, data_parallel=True),
+        device="cpu")
+  finally:
+    compiled_epoch._dp_segment_runner = original
+  mesh = parallel.make_mesh()
+  return mesh.all_gather(_t(np.concatenate(seen)), dim=1).numpy()
+
+
+def case_ica(batches, d0, params):
+  before = ica.rollbacks
+  out = ica.train_dictionary_scanned(batches, d0,
+                                     dict(params, data_parallel=True),
+                                     device="cpu")
+  return {"dictionary": out.numpy(), "rollbacks": ica.rollbacks - before}
+
+
+def case_pca(data):
+  return pca.train_dictionary(data, data_parallel=True, device="cpu").numpy()
+
+
+def case_encode(data, d, sw, n_it, kw):
+  return encode_dataset(data, d, sw, n_it, device="cpu",
+                        data_parallel=parallel.make_mesh(), **kw)
+
+
+CASES = {name[5:]: fn for name, fn in list(globals().items())
+         if name.startswith("case_")}
+
+
+# ---------------------------------------------------------------------------
+# spawning
+# ---------------------------------------------------------------------------
+def _rank_main(rank, world, store, cases, out_queue):
+  torch.set_num_threads(1)
+  result, error = {}, None
+  try:
+    dist.init_process_group(
+        "gloo", init_method="file://" + store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=TIMEOUT_S // 2))
+    try:
+      for key, name, kwargs in cases:
+        result[key] = CASES[name](**kwargs)
+    finally:
+      dist.destroy_process_group()
+  except Exception:  # reported to the parent, which fails the test
+    error = traceback.format_exc()
+  out_queue.put((rank, result, error))
+
+
+def run_ranks(world, cases):
+  """Run ``cases`` -- (key, case name, keyword arguments) triples -- on
+  ``world`` spawned ranks; returns [per-rank {key: result}] in rank order.
+  A rank that raises, or does not answer in time, fails the caller."""
+  ctx = multiprocessing.get_context("spawn")
+  out_queue = ctx.Queue()
+  with tempfile.TemporaryDirectory() as tmp:
+    store = os.path.join(tmp, "store")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(rank, world, store, cases, out_queue))
+             for rank in range(world)]
+    for proc in procs:
+      proc.start()
+    results, errors = {}, []
+    deadline = time.monotonic() + TIMEOUT_S
+    try:
+      while len(results) < world and not errors:  # drain before joining
+        try:
+          rank, result, error = out_queue.get(timeout=1)
+        except queue_module.Empty:
+          died = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+          if died:
+            errors.append("a rank died with exit code %s" % died[0])
+          elif time.monotonic() > deadline:
+            errors.append("a rank did not answer within %d s" % TIMEOUT_S)
+          continue
+        results[rank] = result
+        if error is not None:
+          errors.append("rank %d:\n%s" % (rank, error))
+    finally:
+      for proc in procs:
+        proc.join(timeout=10 if not errors else 1)
+        if proc.is_alive():
+          proc.kill()
+          proc.join(timeout=10)
+          errors.append("a rank had to be killed")
+  assert not errors, "\n".join(errors)
+  return [results[rank] for rank in range(world)]

@@ -1,7 +1,7 @@
 """Where the time of the port's scanned trainer goes, on one CUDA device.
 
   python3 tools/profile_train.py [--subspace | --conv | --ica | --bigdict |
-                                  --bigdict-groups] [--out FILE]
+                                  --bigdict-groups] [--dp] [--out FILE]
 
 The workload is chip_smoke.py's fc trainer: 250,000 synthetic 16x16
 patches in 1,000 batches of 250, a random unit-norm 256-atom dictionary,
@@ -22,7 +22,15 @@ bench.py's measure_bigdict row (its seeded randn patches and dictionary:
 s = 2048, n = 256, 200 steps of 128, FISTA 25, cheap-quadratic update at
 stepsize 0.1) through training/compiled_epoch._code_shard_segment_runner
 and the residual-form step (ops/fused_code_shard_train, kernel K19);
---bigdict-groups the same with 512 contiguous groups of 4.  It reports
+--bigdict-groups the same with 512 contiguous groups of 4.  With --dp (fc,
+--subspace or --ica) the same workload runs data-parallel on a mesh of one
+rank, all_params['data_parallel'] = True with no process group: per step
+one solve+stats step (kernels K3, K7 or K9), no collective, and the
+replicated update in torch ops, driven from Python step by step
+(training/compiled_epoch._dp_fused_segment_runner, training/ica.
+_segment_runner_dp); the "fused" lines are that runner's, the "plain" line
+the solve+stats step's plain version, and the trace's "other" group holds
+the replicated update's torch kernels.  It reports
 
 * with CUDA events after a warm-up call: the fused train step (fc:
   ops/fused_train_step, kernel K2) per step over a short segment and the
@@ -72,7 +80,8 @@ GRAD = "K19 gradient, prox, momentum (grad_prox, group_prox)"
 POWER = "power refresh (power_kernel; K19: pgram_partial, pgram_sum)"
 RESID = "K19 update residual codes D - X (resid_partial, resid_sum)"
 PRODUCTS = "products (gemm_kernel)"
-EPILOGUE = "epilogue (hessian_ema_kernel, update_rows_kernel)"
+EPILOGUE = ("epilogue (hessian_ema_kernel, update_rows_kernel, "
+            "column_sumsq_kernel)")
 GROUP_PASSES = "group passes (gather_rows, sum_slots, sign_mask)"
 GROUPS = ((RECON, ("recon_partial_kernel", "recon_sum_kernel")),
           (GRAD, ("grad_prox_kernel", "group_prox_kernel")),
@@ -86,7 +95,8 @@ GROUPS = ((RECON, ("recon_partial_kernel", "recon_sum_kernel")),
           ("conv update (conv_update, conv_hessian_ema, dall_from_dstk)",
            ("conv_update_kernel", "conv_hessian_ema_kernel",
             "dall_from_dstk_kernel")),
-          (EPILOGUE, ("hessian_ema_kernel", "update_rows_kernel")),
+          (EPILOGUE, ("hessian_ema_kernel", "update_rows_kernel",
+                      "column_sumsq_kernel")),
           (GROUP_PASSES,
            ("gather_rows_kernel", "sum_slots_kernel", "sign_mask_kernel")),
           ("conv GEMMs: corr, synthesis, analysis (gather_gemm)",
@@ -110,6 +120,7 @@ def workload(args, torch, dev):
   from vtc_tpu_torch.ops import (fused_code_shard_train, fused_conv_train,
                                  fused_group_train_step, fused_ica_train,
                                  fused_train_step, lipschitz)
+  from vtc_tpu_torch import parallel
   from vtc_tpu_torch.training import compiled_epoch, ica
   cs = chip_smoke
   if args.bigdict or args.bigdict_groups:
@@ -182,6 +193,22 @@ def workload(args, torch, dev):
     x0 = invertible_linear.exact_inverse(d0)
     params = cs.ica_params(steps, cs.ICA_STEP)
     kw = dict(refine_iters=cs.ICA_REFINE, boost_tol=cs.ICA_BOOST_TOL)
+    if args.dp:
+      runner = ica._segment_runner_dp(1, parallel.make_mesh(), True,
+                                      refine_iters=cs.ICA_REFINE, fused=True)
+
+      def plain_stats(k):
+        for shard in batches[:k]:
+          fused_ica_train.ica_solve_stats_plain(d0, x0, shard, **kw)
+
+      return dict(
+          name="data-parallel ICA (a mesh of one rank)", units="patches",
+          steps=steps, batch=batch, short=100, plain_steps=100,
+          kernels=fused_ica_train, count="stats_launches",
+          fused=lambda k: lambda: runner(d0, x0, batches[:k], cs.ICA_STEP),
+          plain=lambda k: lambda: plain_stats(k),
+          trainer=lambda: ica.train_dictionary_scanned(
+              batches, d0, dict(params, data_parallel=True)))
     return dict(
         name="ICA", units="patches", steps=steps, batch=batch, short=100,
         plain_steps=100, kernels=fused_ica_train,
@@ -214,6 +241,33 @@ def workload(args, torch, dev):
   h0 = torch.zeros(256, device=dev)
   v0 = lipschitz.top_gram_eigenpair(d0)[1].contiguous()
   scalars = (cs.LAM, cs.TRAIN_ITERS, step)
+  if args.dp:
+    mesh = parallel.make_mesh()
+    if args.subspace:
+      local = parallel.build_dp_group_fused_local_step(
+          mesh, "subspace_fista", "subspace_sc_cheap_quadratic_descent",
+          power_iters=2, **extra)
+      plain_fn = fused_group_train_step.fused_group_solve_stats_plain
+    else:
+      local = parallel.build_dp_fused_local_step(
+          mesh, "fista", "sc_cheap_quadratic_descent", power_iters=2)
+      plain_fn = fused_train_step.fused_solve_stats_plain
+    runner = compiled_epoch._dp_fused_segment_runner(local)
+
+    def plain_stats(k):
+      for shard in batches[:k]:
+        plain_fn(d0, v0, shard, cs.LAM, cs.TRAIN_ITERS, power_iters=2,
+                 **extra)
+
+    return dict(
+        name="data-parallel %s (a mesh of one rank)" % (
+            "subspace" if args.subspace else "fc"), units="patches",
+        steps=steps, batch=batch, short=100, plain_steps=100, kernels=kernels,
+        count="stats_launches",
+        fused=lambda k: lambda: runner(d0, h0, v0, batches[:k], *scalars),
+        plain=lambda k: lambda: plain_stats(k),
+        trainer=lambda: compiled_epoch.train_dictionary_scanned(
+            batches, batches[:1], d0, dict(params, data_parallel=True)))
   return dict(
       name="subspace" if args.subspace else "fc", units="patches",
       steps=steps, batch=batch, short=100, plain_steps=100, kernels=kernels,
@@ -242,8 +296,14 @@ def main():
   family.add_argument("--bigdict-groups", action="store_true",
                       help="profile bench.py's big-dictionary grouped row "
                       "(kernel K19)")
+  parser.add_argument("--dp", action="store_true",
+                      help="run the fc, --subspace or --ica workload "
+                      "data-parallel on a mesh of one rank (kernels K3, K7, "
+                      "K9)")
   parser.add_argument("--out", help="also write the report here")
   args = parser.parse_args()
+  if args.dp and (args.conv or args.bigdict or args.bigdict_groups):
+    parser.error("--dp goes with the fc, --subspace or --ica workload")
   import torch
   if not torch.cuda.is_available():
     print("profile_train: no CUDA device", file=sys.stderr)
@@ -292,7 +352,8 @@ def main():
     return (time.perf_counter() - start) * 1e3
 
   segment()  # warm-up
-  w["kernels"].launches = 0
+  count = w.get("count", "launches")
+  setattr(w["kernels"], count, 0)
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
     wall = segment()
@@ -303,11 +364,11 @@ def main():
   busy = busy_ms(intervals)
   report("traced %s, %d steps of %d (%d fused "
          "steps): wall %.2f ms (%.1f %s/s), device busy %.2f ms (idle "
-         "%.1f%% of wall), %.4f ms busy per step" % (
+         "%.1f%% of wall), %.4f ms busy and %.4f ms wall per step" % (
              w.get("entry", "train_dictionary_scanned"), steps, batch,
-             w["kernels"].launches, wall,
+             getattr(w["kernels"], count), wall,
              steps * batch / wall * 1e3, w["units"], busy,
-             100 * (1 - busy / wall), busy / steps))
+             100 * (1 - busy / wall), busy / steps, wall / steps))
   per_group, per_name = {}, {}
   for e in device_events:
     t = (e.time_range.end - e.time_range.start) / 1e3

@@ -30,7 +30,7 @@ from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 def _solve_direct(images, dictionary, sparsity_weight, num_iters, stepsize,
                   initial_codes, variant, nonnegative_only, hard_threshold,
-                  early_stopping_epsilon):
+                  early_stopping_epsilon, psum_axes=None):
   threshold_fn = thresholds.select(nonnegative_only, hard_threshold)
 
   def grad_fn(z):
@@ -42,7 +42,28 @@ def _solve_direct(images, dictionary, sparsity_weight, num_iters, stepsize,
   with matmul_precision():
     return proximal_gradient_loop(
         grad_fn, prox_fn, initial_codes, stepsize, num_iters,
-        variant=variant, early_stopping_epsilon=early_stopping_epsilon)
+        variant=variant, early_stopping_epsilon=early_stopping_epsilon,
+        psum_axes=psum_axes)
+
+
+def _solve(images, dictionary, sparsity_weight, num_iters, stepsize,
+           initial_codes, variant, nonnegative_only, hard_threshold,
+           early_stopping_epsilon, formulation, psum_axes=None):
+  """vtc_tpu's ``_solve`` (:39-73): the 'gram' loop, or for any other
+  ``formulation`` the two-product iteration, on tensors of one device.
+  ``psum_axes``: the ``parallel.Mesh`` of the data-parallel stop test
+  (``ops/solver``), which the data-parallel step passes."""
+  if formulation == "gram":
+    return fused_fista.fused_fista_plain(
+        images, dictionary, sparsity_weight, num_iters, stepsize,
+        initial_codes=initial_codes, variant=variant, nonneg=nonnegative_only,
+        hard=hard_threshold, early_stopping_epsilon=early_stopping_epsilon,
+        psum_axes=psum_axes)
+  stepsize = torch.as_tensor(stepsize, dtype=images.dtype,
+                             device=images.device)
+  return _solve_direct(images, dictionary, sparsity_weight, num_iters,
+                       stepsize, initial_codes, variant, nonnegative_only,
+                       hard_threshold, early_stopping_epsilon, psum_axes)
 
 
 def run(images, dictionary, sparsity_weight, num_iters, variant="fista",

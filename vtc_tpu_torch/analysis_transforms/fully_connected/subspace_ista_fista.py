@@ -123,9 +123,11 @@ def unpack_codes_summed(grouped_codes, gather_inds, valid_mask, code_size,
 def _solve(images, grouped_dictionary, gather_inds, valid_mask,
            sparsity_weight, num_iters, stepsize, init_grouped, variant,
            hard_threshold, early_stopping_epsilon, formulation, code_size,
-           ret_summed, index=None):
-  """vtc_tpu subspace_ista_fista.py:86-128: the 'gram' or 'direct' solve
-  of packed codes; (b, s) summed codes, or the (b, G*M) packed ones."""
+           ret_summed, index=None, psum_axes=None):
+  """vtc_tpu subspace_ista_fista.py:86-128: the 'gram' solve of packed
+  codes, or for any other ``formulation`` the two-product iteration;
+  (b, s) summed codes, or the (b, G*M) packed ones.  ``psum_axes``: the
+  ``parallel.Mesh`` of the data-parallel stop test (``ops/solver``)."""
   b = images.shape[0]
   g, m = gather_inds.shape
   init = init_grouped.reshape(b, g * m)
@@ -133,7 +135,7 @@ def _solve(images, grouped_dictionary, gather_inds, valid_mask,
     flat = fused_group_fista.fused_group_fista_plain(
         images, grouped_dictionary, m, sparsity_weight, num_iters, stepsize,
         initial_grouped=init, variant=variant, hard=hard_threshold,
-        early_stopping_epsilon=early_stopping_epsilon)
+        early_stopping_epsilon=early_stopping_epsilon, psum_axes=psum_axes)
   else:
 
     def grad_fn(z):
@@ -146,7 +148,8 @@ def _solve(images, grouped_dictionary, gather_inds, valid_mask,
     with matmul_precision():
       flat = proximal_gradient_loop(
           grad_fn, prox_fn, init, stepsize, num_iters, variant=variant,
-          early_stopping_epsilon=early_stopping_epsilon)
+          early_stopping_epsilon=early_stopping_epsilon,
+          psum_axes=psum_axes)
   if ret_summed:
     return unpack_codes_summed(flat, gather_inds, valid_mask, code_size,
                                index)

@@ -49,6 +49,17 @@
 // What bounds it on this card: as K2, the group solve on ceil(b / 16)
 // blocks (16 of 132 SMs at the flagship's b = 250); the build, unpack
 // and regularizer passes are bound by launch latency.
+//
+// Also here, K7: the per-shard group solve+stats step of the data-parallel
+// composition.  Replaces vtc_tpu/ops/pallas_train_step.py,
+// fused_group_solve_stats_pallas (:1112, kernel
+// _make_group_solve_stats_kernel :1010): a K6 step's grouped refresh,
+// group solve and summed codes on one shard of the batch
+// (group_refresh_and_solve below, K6's own first half), then instead of
+// the update the shard's unaveraged C = codes^T codes, B = codes^T X and
+// stat = sum_b codes^2 over the summed (b, s) codes (train_core.cuh's
+// gram_form_stats, fixed order, no atomics).  The regularizer needs only
+// the replicated dictionary, so it stays with the caller's update.
 #include "train_core.cuh"
 
 extern "C" int vtc_fused_group_fista(const float* gram, const float* corr,
@@ -99,6 +110,71 @@ __global__ void sum_slots_kernel(const float* __restrict__ gcodes,
   }
 }
 
+#define VTC_CHECK(...)                                    \
+  do {                                                    \
+    err = (__VA_ARGS__);                                  \
+    if (err != cudaSuccess) return static_cast<int>(err); \
+  } while (0)
+
+// The first half of a step, which K6 and K7 share: the grouped dictionary
+// (a row gather unless the groups tile range(s) in order, sel == nullptr),
+// its Gram (and Dg^T Dg when gm > n), the warm power refresh into v and
+// eta, c = X Dg^T, the group solve into gcodes and the duplicate-summed
+// (b, s) codes.  Those land in codes, or stay in gcodes when sum_idx is
+// null.  Returns the first CUDA error code (0 on success).
+int group_refresh_and_solve(const float* d, float* v, const float* xs, int b,
+                            int s, int n, int gm, int group_size,
+                            const int* sel, const int* sum_idx, int sum_width,
+                            float lam, int num_iters, int fista, int hard,
+                            int power_iters, float* dg, float* gram,
+                            float* pgram, float* corr, float* gcodes,
+                            float* codes, float* eta, int sk, int sc,
+                            float* gn_scratch, float* state_scratch,
+                            void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool identity = sel == nullptr;
+  const int dim = gm > n ? n : gm;
+  const float* grouped = identity ? d : dg;
+  const float* power_gram = gm > n ? pgram : gram;
+  cudaError_t err;
+  if (!identity) {
+    gather_rows_kernel<<<pass_grid(static_cast<int64_t>(gm) * n),
+                         kPassThreads, 0, stream>>>(d, sel, dg, gm, n);
+    VTC_CHECK(cudaGetLastError());
+  }
+  VTC_CHECK(gemm<false, true>(grouped, grouped, nullptr, gram, gm, gm, n,
+                              stream));
+  if (gm > n)
+    VTC_CHECK(gemm<true, false>(grouped, grouped, nullptr, pgram, n, n, gm,
+                                stream));
+  VTC_CHECK(power_refresh(power_gram, v, eta, dim, power_iters, stream));
+  VTC_CHECK(gemm<false, true>(xs, grouped, nullptr, corr, b, gm, n, stream));
+  const int solve_err = vtc_fused_group_fista(
+      gram, corr, nullptr, eta, lam, num_iters, b, gm, group_size, sk, sc,
+      fista, hard, gn_scratch, state_scratch, gcodes, stream_ptr);
+  if (solve_err != 0) return solve_err;
+  if (!identity) {
+    sum_slots_kernel<<<pass_grid(static_cast<int64_t>(b) * s), kPassThreads,
+                       0, stream>>>(gcodes, sum_idx, codes, b, s, gm,
+                                    sum_width);
+    VTC_CHECK(cudaGetLastError());
+  }
+  return 0;
+}
+
+// The arguments the group structure must satisfy (both entries).
+bool group_args_ok(int b, int s, int n, int gm, int num_iters,
+                   int power_iters, const int* sel, const int* sum_idx,
+                   int sum_width, const float* dg, const float* pgram,
+                   const float* codes) {
+  const bool identity = sel == nullptr;
+  return b > 0 && s > 0 && n > 0 && gm > 0 && num_iters >= 0 &&
+         power_iters >= 0 && identity == (sum_idx == nullptr) &&
+         (!identity || gm == s) &&
+         (identity || (dg != nullptr && codes != nullptr && sum_width >= 1)) &&
+         (gm <= n || pgram != nullptr);
+}
+
 }  // namespace
 
 extern "C" {
@@ -128,52 +204,23 @@ int vtc_group_train_segment(
     float* gcodes, float* codes, float* resid, float* grad, float* cmat,
     float* smat, float* sd, float* eta, int sk, int sc, float* gn_scratch,
     float* state_scratch, void* stream_ptr) {
-  const bool identity = sel == nullptr;
-  if (k < 0 || b <= 0 || s <= 0 || n <= 0 || gm <= 0 || num_iters < 0 ||
-      upd_num_iters < 0 || power_iters < 0 ||
-      (identity != (sum_idx == nullptr)) || (identity && gm != s) ||
-      (!identity && (dg == nullptr || codes == nullptr || sum_width < 1)) ||
-      (gm > n && pgram == nullptr) ||
+  if (k < 0 || upd_num_iters < 0 ||
+      !group_args_ok(b, s, n, gm, num_iters, power_iters, sel, sum_idx,
+                     sum_width, dg, pgram, codes) ||
       (comem != nullptr &&
        (cmat == nullptr || smat == nullptr || sd == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int dim = gm > n ? n : gm;
-  const float* grouped = identity ? d : dg;
-  const float* power_gram = gm > n ? pgram : gram;
-  float* step_codes = identity ? gcodes : codes;
-  cudaError_t err = power_setup(dim);
+  float* step_codes = sel == nullptr ? gcodes : codes;
+  cudaError_t err = power_setup(gm > n ? n : gm);
   if (err != cudaSuccess) return static_cast<int>(err);
-#define VTC_CHECK(...)                                    \
-  do {                                                    \
-    err = (__VA_ARGS__);                                  \
-    if (err != cudaSuccess) return static_cast<int>(err); \
-  } while (0)
   for (int step = 0; step < k; ++step) {
     const float* xs = x + static_cast<int64_t>(step) * b * n;
-    if (!identity) {
-      gather_rows_kernel<<<pass_grid(static_cast<int64_t>(gm) * n),
-                           kPassThreads, 0, stream>>>(d, sel, dg, gm, n);
-      VTC_CHECK(cudaGetLastError());
-    }
-    VTC_CHECK(gemm<false, true>(grouped, grouped, nullptr, gram, gm, gm, n,
-                                stream));
-    if (gm > n)
-      VTC_CHECK(gemm<true, false>(grouped, grouped, nullptr, pgram, n, n, gm,
-                                  stream));
-    VTC_CHECK(power_refresh(power_gram, v, eta, dim, power_iters, stream));
-    VTC_CHECK(gemm<false, true>(xs, grouped, nullptr, corr, b, gm, n,
-                                stream));
-    const int solve_err = vtc_fused_group_fista(
-        gram, corr, nullptr, eta, lam, num_iters, b, gm, group_size, sk, sc,
-        fista, hard, gn_scratch, state_scratch, gcodes, stream_ptr);
+    const int solve_err = group_refresh_and_solve(
+        d, v, xs, b, s, n, gm, group_size, sel, sum_idx, sum_width, lam,
+        num_iters, fista, hard, power_iters, dg, gram, pgram, corr, gcodes,
+        codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr);
     if (solve_err != 0) return solve_err;
-    if (!identity) {
-      sum_slots_kernel<<<pass_grid(static_cast<int64_t>(b) * s),
-                         kPassThreads, 0, stream>>>(gcodes, sum_idx, codes,
-                                                    b, s, gm, sum_width);
-      VTC_CHECK(cudaGetLastError());
-    }
     if (update == 1)
       VTC_CHECK(hessian_ema(step_codes, h, b, s, inv_b, stream));
     for (int u = 0; u < upd_num_iters; ++u) {
@@ -199,8 +246,42 @@ int vtc_group_train_segment(
                                   renorm != 0, stream));
     }
   }
-#undef VTC_CHECK
   return 0;
 }
+
+// K7, one shard's subspace step: the grouped refresh and the group solve
+// of vtc_group_train_segment on the shard x (b, n), the codes summed back
+// to (b, s), then the shard's unaveraged update statistics over those
+// summed codes: cmat = codes^T codes (s, s), bmat = codes^T x (s, n),
+// stat = sum_b codes^2 (s,).  No update and no regularizer: both run on
+// the replicated dictionary after the caller has summed the statistics
+// over the shards.  d is read only; v (dim,) is refreshed in place and
+// eta (1,) receives the stepsize; the group structure and the scratch are
+// vtc_group_train_segment's.  The summed codes are in codes, or in gcodes
+// when sum_idx is null.  Returns the first CUDA error code.
+int vtc_group_solve_stats(
+    const float* d, float* v, const float* x, int b, int s, int n, int gm,
+    int group_size, const int* sel, const int* sum_idx, int sum_width,
+    float lam, int num_iters, int fista, int hard, int power_iters,
+    float* dg, float* gram, float* pgram, float* corr, float* gcodes,
+    float* codes, float* cmat, float* bmat, float* stat, float* eta, int sk,
+    int sc, float* gn_scratch, float* state_scratch, void* stream_ptr) {
+  if (!group_args_ok(b, s, n, gm, num_iters, power_iters, sel, sum_idx,
+                     sum_width, dg, pgram, codes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err = power_setup(gm > n ? n : gm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int solve_err = group_refresh_and_solve(
+      d, v, x, b, s, n, gm, group_size, sel, sum_idx, sum_width, lam,
+      num_iters, fista, hard, power_iters, dg, gram, pgram, corr, gcodes,
+      codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr);
+  if (solve_err != 0) return solve_err;
+  VTC_CHECK(gram_form_stats(sel == nullptr ? gcodes : codes, x, cmat, bmat,
+                            stat, b, s, n, stream));
+  return 0;
+}
+
+#undef VTC_CHECK
 
 }  // extern "C"

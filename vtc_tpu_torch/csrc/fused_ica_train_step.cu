@@ -35,6 +35,15 @@
 // fp32 SIMT tile kernel (64 blocks at n = 256), so the step is bound by
 // the latency of about 20 dependent launches, not by FMA throughput.
 // Every product is IEEE fp32 FMA (no TF32, no library).
+//
+// Also here, K9: the per-shard step of the data-parallel composition.
+// Replaces vtc_tpu/ops/pallas_ica_train.py, ica_solve_stats_pallas (:226,
+// kernel _make_ica_stats_kernel :189): a K8 step's refreshes, residual and
+// boost (refine_and_stat below, K8's own first half), the codes of one
+// shard of the batch and its unaveraged statistic codes^T sign(codes); no
+// update, which the caller runs replicated from the statistic summed over
+// the shards.  The residual stays on the device, as r_max does in K8.  It
+// is bound as K8 is, by the latency of its dependent launches.
 #include "train_core.cuh"
 
 namespace {
@@ -100,6 +109,63 @@ __global__ void axpy_kernel(float* __restrict__ d,
   d[e] = __fadd_rn(d[e], __fmul_rn(eta, p[e]));
 }
 
+#define VTC_CHECK(...)                                    \
+  do {                                                    \
+    err = (__VA_ARGS__);                                  \
+    if (err != cudaSuccess) return static_cast<int>(err); \
+  } while (0)
+
+// The tracked inverse ping-pongs between two (n, n) buffers: cur holds it.
+struct InverseBuffers {
+  float* cur;
+  float* other;
+};
+
+// The first half of a step, which K8 and K9 share: refine_iters
+// Newton-Schulz refreshes of X, the residual max |D X - I| into r_max
+// (with the device-decided boost of two more refreshes and a second
+// residual when has_boost), codes = batch X, sgn = sign(codes) and
+// stat = codes^T sgn, unaveraged.  The boost's two refreshes leave X in
+// the buffer it was in.  Returns the first CUDA error code (0 on success).
+int refine_and_stat(const float* d, InverseBuffers* x, float* r_max,
+                    const float* xs, const float* eye, const float* eye2,
+                    int b, int n, int refine_iters, int has_boost,
+                    float boost_tol, float* e, float* codes, float* sgn,
+                    float* stat, int* boost, cudaStream_t stream) {
+  const int nn = n * n;
+  cudaError_t err;
+  // one refresh, X <- X (2I - D X), optionally conditional on *run_if
+  auto refresh = [&](const int* run_if) -> cudaError_t {
+    cudaError_t e1 = gemm<false, false, true>(d, x->cur, eye2, e, n, n, n,
+                                              stream, run_if);
+    if (e1 != cudaSuccess) return e1;
+    e1 = gemm<false, false>(x->cur, e, nullptr, x->other, n, n, n, stream,
+                            run_if);
+    float* t = x->cur;
+    x->cur = x->other;
+    x->other = t;
+    return e1;
+  };
+  for (int it = 0; it < refine_iters; ++it) VTC_CHECK(refresh(nullptr));
+  VTC_CHECK(gemm<false, false>(d, x->cur, eye, e, n, n, n, stream));
+  residual_kernel<<<1, kReduceThreads, 0, stream>>>(
+      e, nn, r_max, has_boost ? boost : nullptr, boost_tol, nullptr);
+  VTC_CHECK(cudaGetLastError());
+  if (has_boost) {
+    VTC_CHECK(refresh(boost));
+    VTC_CHECK(refresh(boost));
+    VTC_CHECK(gemm<false, false>(d, x->cur, eye, e, n, n, n, stream, boost));
+    residual_kernel<<<1, kReduceThreads, 0, stream>>>(e, nn, r_max, nullptr,
+                                                      0.0f, boost);
+    VTC_CHECK(cudaGetLastError());
+  }
+  VTC_CHECK(gemm<false, false>(xs, x->cur, nullptr, codes, b, n, n, stream));
+  sign_kernel<<<(b * n + 255) / 256, 256, 0, stream>>>(codes, sgn, b * n);
+  VTC_CHECK(cudaGetLastError());
+  VTC_CHECK(gemm<true, false>(codes, sgn, nullptr, stat, n, n, b, stream));
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -124,46 +190,14 @@ int vtc_ica_train_segment(float* d, float* x, float* r_max,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int nn = n * n;
   const float fb = static_cast<float>(b);
-  float* xc = x;      // the current inverse
-  float* xo = x_alt;  // the other buffer
+  InverseBuffers inv{x, x_alt};
   cudaError_t err;
-#define VTC_CHECK(...)                                    \
-  do {                                                    \
-    err = (__VA_ARGS__);                                  \
-    if (err != cudaSuccess) return static_cast<int>(err); \
-  } while (0)
-  // one Newton-Schulz refresh, X <- X (2I - D X), optionally conditional
-  auto refresh = [&](const int* run_if) -> cudaError_t {
-    cudaError_t e1 =
-        gemm<false, false, true>(d, xc, eye2, e, n, n, n, stream, run_if);
-    if (e1 != cudaSuccess) return e1;
-    e1 = gemm<false, false>(xc, e, nullptr, xo, n, n, n, stream, run_if);
-    float* t = xc;
-    xc = xo;
-    xo = t;
-    return e1;
-  };
   for (int step = 0; step < k; ++step) {
     const float* xs = batches + static_cast<int64_t>(step) * b * n;
-    for (int it = 0; it < refine_iters; ++it) VTC_CHECK(refresh(nullptr));
-    VTC_CHECK(gemm<false, false>(d, xc, eye, e, n, n, n, stream));
-    residual_kernel<<<1, kReduceThreads, 0, stream>>>(
-        e, nn, r_max, has_boost ? boost : nullptr, boost_tol, nullptr);
-    VTC_CHECK(cudaGetLastError());
-    if (has_boost) {
-      // two refreshes: X is back in the buffer it started in, boosted or
-      // not
-      VTC_CHECK(refresh(boost));
-      VTC_CHECK(refresh(boost));
-      VTC_CHECK(gemm<false, false>(d, xc, eye, e, n, n, n, stream, boost));
-      residual_kernel<<<1, kReduceThreads, 0, stream>>>(e, nn, r_max, nullptr,
-                                                        0.0f, boost);
-      VTC_CHECK(cudaGetLastError());
-    }
-    VTC_CHECK(gemm<false, false>(xs, xc, nullptr, codes, b, n, n, stream));
-    sign_kernel<<<(b * n + 255) / 256, 256, 0, stream>>>(codes, sgn, b * n);
-    VTC_CHECK(cudaGetLastError());
-    VTC_CHECK(gemm<true, false>(codes, sgn, nullptr, stat, n, n, b, stream));
+    const int front_err = refine_and_stat(
+        d, &inv, r_max, xs, eye, eye2, b, n, refine_iters, has_boost,
+        boost_tol, e, codes, sgn, stat, boost, stream);
+    if (front_err != 0) return front_err;
     natural_gradient_kernel<<<(nn + 255) / 256, 256, 0, stream>>>(stat, m, n,
                                                                   fb);
     VTC_CHECK(cudaGetLastError());
@@ -173,11 +207,41 @@ int vtc_ica_train_segment(float* d, float* x, float* r_max,
       VTC_CHECK(cudaGetLastError());
     }
   }
-  if (xc != x)
-    VTC_CHECK(cudaMemcpyAsync(x, xc, sizeof(float) * nn,
+  if (inv.cur != x)
+    VTC_CHECK(cudaMemcpyAsync(x, inv.cur, sizeof(float) * nn,
                               cudaMemcpyDeviceToDevice, stream));
-#undef VTC_CHECK
   return 0;
 }
+
+// K9, one shard's ICA step: the refreshes, residual and boost of
+// vtc_ica_train_segment, then codes = batch X of the shard batch (b, n)
+// and its unaveraged statistic stat = codes^T sign(codes) (n, n).  No
+// update: the caller sums stat over the shards and updates the replicated
+// dictionary.  d is read only; x (n, n) is refreshed in place; res (1,),
+// zeroed by the caller, receives the post-refinement residual (NaN kept).
+// Scratch: x_alt and e (n, n), codes and sgn (b, n), boost (1,) int.
+// Returns the first CUDA error code.
+int vtc_ica_solve_stats(const float* d, float* x, float* res,
+                        const float* batch, const float* eye,
+                        const float* eye2, int b, int n, int refine_iters,
+                        int has_boost, float boost_tol, float* x_alt,
+                        float* e, float* codes, float* sgn, float* stat,
+                        int* boost, void* stream_ptr) {
+  if (b < 1 || n < 1 || refine_iters < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  InverseBuffers inv{x, x_alt};
+  cudaError_t err;
+  const int front_err = refine_and_stat(
+      d, &inv, res, batch, eye, eye2, b, n, refine_iters, has_boost,
+      boost_tol, e, codes, sgn, stat, boost, stream);
+  if (front_err != 0) return front_err;
+  if (inv.cur != x)
+    VTC_CHECK(cudaMemcpyAsync(x, inv.cur, sizeof(float) * n * n,
+                              cudaMemcpyDeviceToDevice, stream));
+  return 0;
+}
+
+#undef VTC_CHECK
 
 }  // extern "C"

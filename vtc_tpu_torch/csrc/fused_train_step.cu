@@ -45,6 +45,23 @@
 // The kernels (the fp32 SIMT product, the power refresh, the Hessian EMA
 // and the row update) live in train_core.cuh, which K6 shares, and the
 // solve in fista_core.cuh.
+//
+// Also here, K3: the per-shard solve+stats step of the data-parallel
+// composition.  Replaces vtc_tpu/ops/pallas_train_step.py,
+// fused_solve_stats_pallas (:940, kernel _make_solve_stats_kernel :854):
+// the same refresh and solve as a K2 step on one shard of the batch, then
+// instead of the update the shard's unaveraged statistics
+//
+//   C = codes^T codes (s, s);  B = codes^T X (s, n);  stat = sum_b codes^2
+//
+// which the caller sums over the shards (one all-reduce between launches,
+// where the TPU composition runs one psum) before the replicated update
+// (C D' - B) / global_b.  One C entry, vtc_solve_stats, enqueues the step;
+// its first half is K2's own (refresh_and_solve below), and C and B are
+// two more calls of the fp32 product, each entry one thread's sum over the
+// rows in order: no atomics, since C D' - B cancels.  It is bound as K2
+// is, by the solve on ceil(b / 16) blocks; a shard of half the batch runs
+// on half as many.
 #include "train_core.cuh"
 
 extern "C" int vtc_fused_fista(const float* gram, const float* corr,
@@ -53,6 +70,39 @@ extern "C" int vtc_fused_fista(const float* gram, const float* corr,
                                int sk, int sc, int fista, int mode,
                                float* gn_scratch, float* state_scratch,
                                float* out, void* stream_ptr);
+
+namespace {
+
+#define VTC_CHECK(...)                                    \
+  do {                                                    \
+    err = (__VA_ARGS__);                                  \
+    if (err != cudaSuccess) return static_cast<int>(err); \
+  } while (0)
+
+// The first half of a step, which K2 and K3 share: G = D D^T (and D^T D
+// when s > n), the warm power refresh into v and eta, c = X D^T and the
+// solve into codes.  Returns the first CUDA error code (0 on success).
+int refresh_and_solve(const float* d, float* v, const float* xs, int b, int s,
+                      int n, float lam, int num_iters, int fista, int mode,
+                      int power_iters, float* gram, float* pgram, float* corr,
+                      float* codes, float* eta, int sk, int sc,
+                      float* gn_scratch, float* state_scratch,
+                      void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int dim = s > n ? n : s;
+  const float* power_gram = s > n ? pgram : gram;
+  cudaError_t err;
+  VTC_CHECK(gemm<false, true>(d, d, nullptr, gram, s, s, n, stream));
+  if (s > n)
+    VTC_CHECK(gemm<true, false>(d, d, nullptr, pgram, n, n, s, stream));
+  VTC_CHECK(power_refresh(power_gram, v, eta, dim, power_iters, stream));
+  VTC_CHECK(gemm<false, true>(xs, d, nullptr, corr, b, s, n, stream));
+  return vtc_fused_fista(gram, corr, nullptr, eta, lam, num_iters, b, s, sk,
+                         sc, fista, mode, gn_scratch, state_scratch, codes,
+                         stream_ptr);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -81,27 +131,15 @@ int vtc_train_segment(float* d, float* h, float* v, const float* x, int k,
       upd_num_iters < 0 || power_iters < 0 || (s > n && pgram == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int dim = s > n ? n : s;
-  const float* power_gram = s > n ? pgram : gram;
-  cudaError_t err = power_setup(dim);
+  cudaError_t err = power_setup(s > n ? n : s);
   if (err != cudaSuccess) return static_cast<int>(err);
-#define VTC_CHECK(...)                                    \
-  do {                                                    \
-    err = (__VA_ARGS__);                                  \
-    if (err != cudaSuccess) return static_cast<int>(err); \
-  } while (0)
   for (int step = 0; step < k; ++step) {
     const float* xs = x + static_cast<int64_t>(step) * b * n;
-    VTC_CHECK(gemm<false, true>(d, d, nullptr, gram, s, s, n, stream));
-    if (s > n)
-      VTC_CHECK(gemm<true, false>(d, d, nullptr, pgram, n, n, s, stream));
-    VTC_CHECK(power_refresh(power_gram, v, eta, dim, power_iters, stream));
-    VTC_CHECK(gemm<false, true>(xs, d, nullptr, corr, b, s, n, stream));
-    const int fista_err =
-        vtc_fused_fista(gram, corr, nullptr, eta, lam, num_iters, b, s, sk,
-                        sc, fista, mode, gn_scratch, state_scratch, codes,
-                        stream_ptr);
-    if (fista_err != 0) return fista_err;
+    const int solve_err = refresh_and_solve(
+        d, v, xs, b, s, n, lam, num_iters, fista, mode, power_iters, gram,
+        pgram, corr, codes, eta, sk, sc, gn_scratch, state_scratch,
+        stream_ptr);
+    if (solve_err != 0) return solve_err;
     if (update == 1) VTC_CHECK(hessian_ema(codes, h, b, s, inv_b, stream));
     for (int u = 0; u < upd_num_iters; ++u) {
       VTC_CHECK(gemm<false, false>(codes, d, xs, resid, b, n, s, stream));
@@ -112,8 +150,36 @@ int vtc_train_segment(float* d, float* h, float* v, const float* x, int k,
                                    renorm != 0, stream));
     }
   }
-#undef VTC_CHECK
   return 0;
 }
+
+// K3, one shard's step: the refresh and the solve of vtc_train_segment on
+// the shard x (b, n), then the shard's unaveraged update statistics
+// cmat = codes^T codes (s, s), bmat = codes^T x (s, n) and
+// stat = sum_b codes^2 (s,).  No update: the caller sums the statistics
+// over the shards and updates the replicated dictionary.  d is read only;
+// v (dim,) is refreshed in place and eta (1,) receives the stepsize;
+// scratch as vtc_train_segment's.  Returns the first CUDA error code.
+int vtc_solve_stats(const float* d, float* v, const float* x, int b, int s,
+                    int n, float lam, int num_iters, int fista, int mode,
+                    int power_iters, float* gram, float* pgram, float* corr,
+                    float* codes, float* cmat, float* bmat, float* stat,
+                    float* eta, int sk, int sc, float* gn_scratch,
+                    float* state_scratch, void* stream_ptr) {
+  if (b <= 0 || s <= 0 || n <= 0 || num_iters < 0 || power_iters < 0 ||
+      (s > n && pgram == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err = power_setup(s > n ? n : s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int solve_err = refresh_and_solve(
+      d, v, x, b, s, n, lam, num_iters, fista, mode, power_iters, gram, pgram,
+      corr, codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr);
+  if (solve_err != 0) return solve_err;
+  VTC_CHECK(gram_form_stats(codes, x, cmat, bmat, stat, b, s, n, stream));
+  return 0;
+}
+
+#undef VTC_CHECK
 
 }  // extern "C"

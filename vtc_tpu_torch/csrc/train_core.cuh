@@ -4,8 +4,9 @@
 // (fused_conv_train_step.cu, conv segments; the product and the power
 // refresh) and K19 (fused_code_shard_train_step.cu, residual-form
 // segments; the product tile, the power refresh, the Hessian EMA, the row
-// update and the sign mask), for Hopper (sm_90a).  Included by each:
-// everything here has internal linkage.
+// update and the sign mask), and by the per-shard solve+stats steps K3, K7
+// and K9 beside K2, K6 and K8 (the gram-form statistics), for Hopper
+// (sm_90a).  Included by each: everything here has internal linkage.
 //
 // Precision.  Every product is IEEE fp32 FMA on the CUDA cores: no TF32,
 // no tensor cores, no library call.  The update gradient is a small
@@ -239,6 +240,43 @@ cudaError_t hessian_ema(const float* codes, float* h, int b, int s,
   hessian_ema_kernel<<<(s + 255) / 256, 256, 0, stream>>>(codes, h, b, s,
                                                           inv_b);
   return cudaGetLastError();
+}
+
+// stat[j] = sum_b codes[b, j]^2, unaveraged, one thread per column adding
+// the rows in order (the Hessian statistic of the per-shard solve+stats
+// kernels K3 and K7: summed over the shards before it enters the EMA).
+__global__ void column_sumsq_kernel(const float* __restrict__ codes,
+                                    float* __restrict__ stat, int b, int s) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= s) return;
+  float acc = 0.0f;
+  for (int r = 0; r < b; ++r) {
+    const float c = codes[static_cast<int64_t>(r) * s + j];
+    acc = fmaf(c, c, acc);
+  }
+  stat[j] = acc;
+}
+
+cudaError_t column_sumsq(const float* codes, float* stat, int b, int s,
+                         cudaStream_t stream) {
+  column_sumsq_kernel<<<(s + 255) / 256, 256, 0, stream>>>(codes, stat, b, s);
+  return cudaGetLastError();
+}
+
+// C = codes^T codes (s, s), B = codes^T X (s, n) and stat = sum_b codes^2
+// (s,) of one shard's (b, s) codes and (b, n) batch, unaveraged: the
+// gram-form update statistics of K3 and K7.  Each entry is one thread's
+// sum over the b rows in order, so the result does not depend on
+// scheduling: they feed the cancellation-prone C D' - B.
+cudaError_t gram_form_stats(const float* codes, const float* x, float* cmat,
+                            float* bmat, float* stat, int b, int s, int n,
+                            cudaStream_t stream) {
+  cudaError_t err =
+      gemm<true, false>(codes, codes, nullptr, cmat, s, s, b, stream);
+  if (err != cudaSuccess) return err;
+  err = gemm<true, false>(codes, x, nullptr, bmat, s, n, b, stream);
+  if (err != cudaSuccess) return err;
+  return column_sumsq(codes, stat, b, s, stream);
 }
 
 // The anti-alignment regularizer's operands of one update iteration

@@ -27,7 +27,14 @@ and convolutional.
 
 The solves run on ``device``, by default the dictionary's device when it
 is a tensor, else the CUDA device (``device="cpu"`` runs on the CPU).
-``data_parallel`` raises NotImplementedError until its slice lands.
+
+With ``data_parallel`` (a ``parallel.Mesh``, or True for the default
+process group's world), fc and subspace (vtc_tpu/encode.py:166-182): every
+rank calls with the same dataset, each batch is sharded over the mesh
+(``batch_size`` must divide by its size), every rank solves its shards
+through the same pipeline (K1 or K4 per shard on a CUDA device), and the
+codes are gathered, so every rank returns all of them.  Conv with
+``data_parallel`` raises NotImplementedError (ROADMAP.md §1 item 9).
 """
 import numpy as np
 import torch
@@ -36,6 +43,7 @@ from vtc_tpu_torch.analysis_transforms.convolutional import (
     ista_fista as conv_ista_fista)
 from vtc_tpu_torch.analysis_transforms.fully_connected import (
     ista_fista, subspace_ista_fista)
+from vtc_tpu_torch import parallel
 from vtc_tpu_torch.device import resolve_device
 from vtc_tpu_torch.ops import conv_shapes, fused_conv_direct
 from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
@@ -109,10 +117,10 @@ class _CudaChunks:
 def _check_scope(mode, data_parallel, mxu_precision):
   if mode not in ("fully-connected", "convolutional"):
     raise ValueError("mode must be 'fully-connected' or 'convolutional'")
-  if data_parallel is not None:
+  if data_parallel is not None and mode == "convolutional":
     raise NotImplementedError(
-        "data_parallel waits for the multi-device slice, ROADMAP.md §1 "
-        "item 9")
+        "data_parallel in conv mode waits for the conv data-parallel "
+        "slice, ROADMAP.md §1 item 9")
   if mxu_precision != "highest":
     raise NotImplementedError(
         "mxu_precision=%r: the reduced-precision tiers wait, ROADMAP.md "
@@ -142,8 +150,9 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
     group_assignments: list of index lists -> group-sparse inference
       (``subspace_ista_fista.run``; K4 on a CUDA device).
     kernel_stride, padding: conv-mode geometry, as the conv trainer's.
-    data_parallel: the multi-device option of the JAX function; not
-      ported yet.
+    data_parallel: optional ``parallel.Mesh`` (or True); each batch is
+      sharded over its data axes and the codes are gathered (fc and
+      subspace; batch_size must divide by the mesh's size).
     nonnegative_only, hard_threshold: threshold variants
       (nonnegative_only is not defined for group-sparse inference).
     formulation: None -> 'pallas' (the CUDA kernel) on a CUDA device
@@ -168,6 +177,12 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
   if total == 0:
     raise ValueError("encode_dataset: empty dataset")
   batch_size, chunk_batches = int(batch_size), int(chunk_batches)
+  mesh = None
+  if data_parallel is not None:
+    mesh = parallel.resolve_mesh(data_parallel)
+    if batch_size % mesh.size != 0:
+      raise ValueError("batch_size %d must divide by the DP size %d"
+                       % (batch_size, mesh.size))
   dictionary = torch.as_tensor(dictionary, dtype=torch.float32,
                                device=device).contiguous()
   default_formulation = formulation is None
@@ -225,6 +240,10 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
     data = np.concatenate(
         [data, np.zeros((padded - total,) + data.shape[1:], np.float32)])
   batches = data.reshape((num_batches, batch_size) + data.shape[1:])
+  if mesh is not None:
+    # this rank's shard of every batch goes through the pipeline below
+    batches = np.ascontiguousarray(mesh.shard(batches, dim=1))
+    batch_size = batches.shape[1]
   codes = np.empty((num_batches, batch_size, dictionary.shape[0]) + code_hw,
                    np.float32)
   if device.type == "cuda":
@@ -247,4 +266,7 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
       chunks.drain(*pending)
     pending = (slot, out, codes[pos:nxt])
   chunks.drain(*pending)
+  if mesh is not None:
+    # every rank returns all the codes, the shards back in batch order
+    codes = mesh.all_gather(torch.from_numpy(codes), dim=1).numpy()
   return codes.reshape((padded,) + codes.shape[2:])[:total]

@@ -38,7 +38,7 @@ _MODES = {(False, False): 0, (True, False): 1, (False, True): 2,
 def fused_fista_plain(images, dictionary, sparsity_weight, num_iters,
                       stepsize, *, initial_codes=None, variant="fista",
                       nonneg=False, hard=False, early_stopping_epsilon=None,
-                      precision=None):
+                      precision=None, psum_axes=None):
   """The plain PyTorch version of the fused solve, on any device and in
   the inputs' own float type (float64 inputs give the float64 oracle).
 
@@ -73,7 +73,7 @@ def fused_fista_plain(images, dictionary, sparsity_weight, num_iters,
     return proximal_gradient_loop(
         None, prox_fn, z, eta, num_iters, variant=variant,
         early_stopping_epsilon=early_stopping_epsilon,
-        prestep_fn=prestep_fn)
+        prestep_fn=prestep_fn, psum_axes=psum_axes)
 
 
 def _require(cond, message):

@@ -54,7 +54,7 @@ def fused_group_fista_plain(images, grouped_dictionary, group_size,
                             sparsity_weight, num_iters, stepsize, *,
                             initial_grouped=None, variant="fista",
                             hard=False, early_stopping_epsilon=None,
-                            precision=None):
+                            precision=None, psum_axes=None):
   """The plain PyTorch version of the fused group solve, on any device
   and in the inputs' own float type (float64 inputs give the oracle).
 
@@ -91,7 +91,7 @@ def fused_group_fista_plain(images, grouped_dictionary, group_size,
     return proximal_gradient_loop(
         None, prox_fn, z, eta, num_iters, variant=variant,
         early_stopping_epsilon=early_stopping_epsilon,
-        prestep_fn=prestep_fn)
+        prestep_fn=prestep_fn, psum_axes=psum_axes)
 
 
 def _require(cond, message):

@@ -33,8 +33,21 @@ the scanned trainer.
 Left out: the TPU knob ``interpret``; the in-kernel early stop and the
 ``mxu`` tiers other than 'highest' raise NotImplementedError (ROADMAP.md
 §1 item 3).  ``launches`` counts the train steps the kernels ran.
+
+Also here, the port of TPU kernel K7, ``fused_group_solve_stats_pallas``
+(vtc_tpu/ops/pallas_train_step.py:1112-1209, kernel
+``_make_group_solve_stats_kernel`` :1010): ``fused_group_solve_stats``,
+one shard's step of the subspace data-parallel composition -- a K6 step's
+grouped refresh, group solve and duplicate-summed codes on the shard,
+then the shard's unaveraged statistics C = codes^T codes, B = codes^T X
+and stat = sum_b codes^2 over the summed (b, s) codes instead of the
+update.  A CUDA tensor runs ``vtc_group_solve_stats`` of the same source
+or raises; a CPU tensor runs ``fused_group_solve_stats_plain``.
+``stats_launches`` counts the steps that kernel ran;
+``fused_group_solve_stats_supported`` is the gate of the scanned trainer.
 """
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -50,8 +63,10 @@ from vtc_tpu_torch.dict_update_rules.fully_connected import (
 from vtc_tpu_torch.dict_update_rules.fully_connected import (
     subspace_sc_steepest_descent as sub_sd)
 from vtc_tpu_torch.ops import fused_fista, fused_group_fista, lipschitz
+from vtc_tpu_torch.ops.precision import matmul_precision
 
 launches = 0
+stats_launches = 0
 
 INFERENCE_ALGS = ("subspace_ista", "subspace_fista")
 UPDATE_ALGS = ("subspace_sc_steepest_descent",
@@ -325,3 +340,169 @@ def _launch(dictionary, hessian, eigvec, batches, groups, lam, num_iters,
         "b=%d, s=%d, n=%d, G*M=%d)" % (err, k, b, s, n, gm))
   launches += k
   return d, h, v, gcodes if identity else codes, eta
+
+
+def fused_group_solve_stats_supported(batch_shard_size, code_size,
+                                      input_size, group_assignments):
+  """True when ``fused_group_solve_stats`` takes this shard geometry.
+  vtc_tpu's gate (pallas_train_step.py:1099-1109) is a VMEM budget, which
+  has no counterpart; as for ``fused_group_segment_supported`` only the
+  one-block power refresh bounds the shapes, to min(G*M, n) <= 29,039."""
+  gm = len(group_assignments) * max(len(g) for g in group_assignments)
+  dim = min(gm, int(input_size))
+  return (int(batch_shard_size) >= 1 and int(code_size) >= 1 and dim >= 1
+          and _power_smem_bytes(dim) <= fused_fista._SMEM_PER_BLOCK)
+
+
+def fused_group_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
+                                  inf_num_iters, *, group_assignments,
+                                  variant="fista", hard=False,
+                                  power_iters=12, precision=None):
+  """The plain PyTorch version of ``fused_group_solve_stats``, on any
+  device and in the inputs' own float type: ``build_grouped_dictionary``
+  -> ``lipschitz.power_iterate`` -> the 'gram' group solve ->
+  ``unpack_codes_summed`` -> the three statistics.  ``precision`` is the
+  matmul precision of the solve; the refresh and the statistics stay at
+  'highest' (pallas_train_step.py:1021-1024)."""
+  s = dictionary.shape[0]
+  gather, mask, index = sub.group_layout(group_assignments, s,
+                                         dictionary.device)
+  grouped = sub.build_grouped_dictionary(dictionary, gather, mask)
+  eigval, v = lipschitz.power_iterate(grouped, eigvec, int(power_iters))
+  eta = 1.0 / eigval
+  flat = fused_group_fista.fused_group_fista_plain(
+      batch, grouped, gather.shape[1], sparsity_weight, inf_num_iters, eta,
+      variant=variant, hard=hard, precision=precision)
+  codes = sub.unpack_codes_summed(flat, gather, mask, s, index)
+  with matmul_precision():
+    cmat = codes.T @ codes
+    bmat = codes.T @ batch
+  return codes, cmat, bmat, torch.sum(codes * codes, dim=0), v, eta
+
+
+@functools.lru_cache(maxsize=16)
+def _device_group_index(groups, code_size, device):
+  """(sel, sum_idx) int32 tensors on ``device`` for a group structure, or
+  (None, None) when the groups tile range(code_size) in order; built and
+  copied once per structure, so a step copies nothing to the device."""
+  sel_np = group_selection_index(groups)
+  if sel_np.size == code_size and np.array_equal(sel_np,
+                                                 np.arange(code_size)):
+    return None, None
+  gather, mask = sub.pack_group_indices(groups, code_size)
+  index = sub.unpack_index(gather, mask, code_size).numpy().astype(np.int32)
+  return (torch.from_numpy(sel_np).to(device),
+          torch.from_numpy(np.ascontiguousarray(index)).to(device))
+
+
+def fused_group_solve_stats(dictionary, eigvec, batch, sparsity_weight,
+                            inf_num_iters, *, group_assignments,
+                            variant="fista", hard=False, power_iters=12,
+                            mxu="highest"):
+  """One shard's subspace solve+stats step.
+
+  Args:
+    dictionary: (s, n) float32 tensor, the replicated dictionary.
+    eigvec: (min(G*M, n),) warm eigenvector of the grouped Gram.
+    batch: (b, n) float32, this shard of the batch.
+    sparsity_weight, inf_num_iters: Python scalars.
+    group_assignments: list of index lists (ragged, may overlap).
+    variant / hard / power_iters: as in vtc_tpu.
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a).
+
+  Returns:
+    (codes (b, s) summed, cmat (s, s), bmat (s, n), stat (s,), new_eigvec,
+    eta): new tensors; eta is 0-d.
+  """
+  if variant not in ("ista", "fista"):
+    raise ValueError("variant must be 'ista' or 'fista'")
+  if mxu != "highest":
+    raise NotImplementedError(
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        % (mxu,))
+  groups = tuple(tuple(int(i) for i in g) for g in group_assignments)
+  flags = dict(variant=variant, hard=bool(hard), power_iters=int(power_iters))
+  if batch.device.type == "cpu":
+    return fused_group_solve_stats_plain(
+        dictionary, eigvec, batch, float(sparsity_weight), int(inf_num_iters),
+        group_assignments=groups, **flags)
+
+  def require(cond, message):
+    if not cond:
+      raise ValueError("fused_group_solve_stats: " + message)
+
+  require(batch.device.type == "cuda",
+          "tensors must be on the CPU or a CUDA device, got "
+          + str(batch.device))
+  require(batch.dim() == 2 and dictionary.dim() == 2
+          and dictionary.shape[1] == batch.shape[1],
+          "shapes must be (s, n) and (b, n), got %s and %s"
+          % (tuple(dictionary.shape), tuple(batch.shape)))
+  device = batch.device
+  (b, n), s = batch.shape, dictionary.shape[0]
+  gm = len(groups) * max(len(g) for g in groups)
+  for name, t, shape in (("dictionary", dictionary, (s, n)),
+                         ("eigvec", eigvec, (min(gm, n),)),
+                         ("batch", batch, (b, n))):
+    require(t.device == device and t.dtype == torch.float32
+            and tuple(t.shape) == shape,
+            "%s must be a float32 %s tensor on %s" % (name, shape, device))
+  require(all(0 <= i < s for g in groups for i in g),
+          "group members must index the %d dictionary rows" % s)
+  require(int(inf_num_iters) >= 0 and int(power_iters) >= 0,
+          "iteration counts must be >= 0")
+  require(fused_group_solve_stats_supported(b, s, n, groups),
+          "min(G*M, n) = %d is too large for the one-block power refresh, "
+          "or the batch is empty" % min(gm, n))
+  return _launch_stats(dictionary.contiguous(), eigvec, batch.contiguous(),
+                       groups, float(sparsity_weight), int(inf_num_iters),
+                       **flags)
+
+
+def _launch_stats(dictionary, eigvec, batch, groups, lam, num_iters, *,
+                  variant, hard, power_iters):
+  """Allocate the outputs and scratch, enqueue the step on the current
+  stream."""
+  global stats_launches
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  (b, n), s = batch.shape, dictionary.shape[0]
+  device = batch.device
+  m = max(len(g) for g in groups)
+  gm = len(groups) * m
+  sel, sum_idx = _device_group_index(groups, s, device)
+  rows = lib.vtc_fista_rows()
+  sk, sc, state_in_smem = fused_fista.solve_layout(lib, gm)
+
+  def empty(*shape):
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+  def ptr(t):
+    return None if t is None else t.data_ptr()
+
+  v = eigvec.contiguous().clone()
+  dg = codes = None
+  if sel is not None:
+    dg, codes = empty(gm, n), empty(b, s)
+  gram, corr, gcodes = empty(gm, gm), empty(b, gm), empty(b, gm)
+  pgram = empty(n, n) if gm > n else None
+  cmat, bmat, stat, eta = empty(s, s), empty(s, n), empty(s), empty(1)
+  gn = empty(sk, sc)
+  state = None if state_in_smem else empty(-(-b // rows), 4, rows, sk)
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.vtc_group_solve_stats(
+        dictionary.data_ptr(), v.data_ptr(), batch.data_ptr(), b, s, n, gm,
+        m, ptr(sel), ptr(sum_idx),
+        0 if sum_idx is None else sum_idx.shape[1], ctypes.c_float(lam),
+        num_iters, int(variant == "fista"), int(hard), power_iters, ptr(dg),
+        gram.data_ptr(), ptr(pgram), corr.data_ptr(), gcodes.data_ptr(),
+        ptr(codes), cmat.data_ptr(), bmat.data_ptr(), stat.data_ptr(),
+        eta.data_ptr(), sk, sc, gn.data_ptr(), ptr(state), stream)
+  if err != 0:
+    raise RuntimeError(
+        "fused group solve+stats launch failed with CUDA error %d (b=%d, "
+        "s=%d, n=%d, G*M=%d)" % (err, b, s, n, gm))
+  stats_launches += 1
+  return (gcodes if sel is None else codes, cmat, bmat, stat, v,
+          eta.reshape(()))

@@ -27,8 +27,18 @@ card's kernels take any n and batch.  Left out: the ``mxu`` tiers other
 than 'highest' raise NotImplementedError (ROADMAP.md §1 item 3), and the
 TPU's ``interpret`` has no counterpart.  ``launches`` counts the train
 steps the kernels ran.
+
+Also here, the port of TPU kernel K9, ``ica_solve_stats_pallas``
+(vtc_tpu/ops/pallas_ica_train.py:226-274, kernel ``_make_ica_stats_kernel``
+:189): ``ica_solve_stats``, one shard's step of the data-parallel
+composition -- a K8 step's refreshes, residual and boost, the shard's
+codes and its unaveraged statistic codes^T sign(codes), and no update.  A
+CUDA tensor runs ``vtc_ica_solve_stats`` of the same source or raises; a
+CPU tensor runs ``ica_solve_stats_plain``.  ``stats_launches`` counts the
+steps that kernel ran.
 """
 import ctypes
+import functools
 
 import torch
 
@@ -39,6 +49,7 @@ from vtc_tpu_torch.dict_update_rules.fully_connected import (
 from vtc_tpu_torch.ops.precision import matmul_precision
 
 launches = 0
+stats_launches = 0
 
 
 def fused_ica_segment_supported(n, batch_size, num_atoms=None):
@@ -167,3 +178,125 @@ def _launch(d, x, batches, stepsize, refine_iters, upd_num_iters,
         "n=%d)" % (err, k, b, n))
   launches += k
   return d, x, r_max
+
+
+def ica_solve_stats_plain(dictionary, inverse_estimate, batch, *,
+                          refine_iters=5, boost_tol=None, precision=None):
+  """The plain PyTorch version of ``ica_solve_stats``, on any device and in
+  the inputs' own float type: ``newton_refine_inverse`` -> the residual
+  (the boost selected with ``torch.where``) -> codes -> the statistic.
+  ``precision`` is the matmul precision of the refreshes and the codes
+  product; the residual and the statistic stay at 'highest'."""
+  d = dictionary
+  x = invertible_linear.newton_refine_inverse(d, inverse_estimate,
+                                              refine_iters,
+                                              precision=precision)
+  res = invertible_linear.inverse_residual(d, x)
+  if boost_tol is not None:
+    x_b = invertible_linear.newton_refine_inverse(d, x, 2,
+                                                  precision=precision)
+    res_b = invertible_linear.inverse_residual(d, x_b)
+    boosted = res > boost_tol  # NaN > tol is False: no boost
+    x = torch.where(boosted, x_b, x)
+    res = torch.where(boosted, res_b, res)
+  with matmul_precision(precision):
+    codes = batch @ x
+  with matmul_precision():
+    stat = codes.T @ torch.sign(codes)
+  return x, stat, res
+
+
+def ica_solve_stats(dictionary, inverse_estimate, batch, *, refine_iters=5,
+                    mxu="highest", boost_tol=None):
+  """One shard's ICA step: the refreshed inverse, the shard's unaveraged
+  natural-gradient statistic and the post-refinement residual.
+
+  Args:
+    dictionary, inverse_estimate: (n, n) float32 tensors (replicated).
+    batch: (b, n) float32, this shard of the batch.
+    refine_iters / boost_tol: as in vtc_tpu.
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a).
+
+  Returns:
+    (new_inverse (n, n), stat_sum (n, n), residual 0-d): new tensors.  The
+    sum of stat_sum over the shards, over global_b, is the single-device
+    batch-mean statistic; the inverse and the residual depend on the
+    replicated dictionary alone and are the same on every shard.
+  """
+  if mxu != "highest":
+    raise NotImplementedError(
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        % (mxu,))
+
+  def require(cond, message):
+    if not cond:
+      raise ValueError("ica_solve_stats: " + message)
+
+  require(batch.dim() == 2, "batch must be (b, n), got %s"
+          % (tuple(batch.shape),))
+  b, n = batch.shape
+  require(fused_ica_segment_supported(n, b, dictionary.shape[0])
+          and tuple(dictionary.shape) == (n, n),
+          "dictionary must be square (%d, %d), got %s"
+          % (n, n, tuple(dictionary.shape)))
+  boost_tol = None if boost_tol is None else float(boost_tol)
+  if batch.device.type == "cpu":
+    return ica_solve_stats_plain(dictionary, inverse_estimate, batch,
+                                 refine_iters=int(refine_iters),
+                                 boost_tol=boost_tol)
+  require(batch.device.type == "cuda",
+          "tensors must be on the CPU or a CUDA device, got "
+          + str(batch.device))
+  device = batch.device
+  for name, t in (("dictionary", dictionary),
+                  ("inverse_estimate", inverse_estimate)):
+    require(t.device == device and t.dtype == torch.float32
+            and tuple(t.shape) == (n, n),
+            "%s must be a float32 (%d, %d) tensor on %s"
+            % (name, n, n, device))
+  require(batch.dtype == torch.float32, "batch must be float32")
+  require(int(refine_iters) >= 0, "refine_iters must be >= 0")
+  return _launch_stats(dictionary.contiguous(),
+                       inverse_estimate.contiguous().clone(),
+                       batch.contiguous(), int(refine_iters), boost_tol)
+
+
+@functools.lru_cache(maxsize=4)
+def _identities(n, device):
+  """(I, 2I) on ``device``, once per size: a step allocates neither."""
+  eye = torch.eye(n, dtype=torch.float32, device=device)
+  return eye, 2.0 * eye
+
+
+def _launch_stats(d, x, batch, refine_iters, boost_tol):
+  """Allocate the outputs and scratch, enqueue the step on the current
+  stream."""
+  global stats_launches
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  b, n = batch.shape
+  device = batch.device
+
+  def empty(*shape):
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+  eye, eye2 = _identities(n, device)
+  res = torch.zeros((), dtype=torch.float32, device=device)
+  x_alt, e, stat = empty(n, n), empty(n, n), empty(n, n)
+  codes, sgn = empty(b, n), empty(b, n)
+  boost = torch.zeros(1, dtype=torch.int32, device=device)
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.vtc_ica_solve_stats(
+        d.data_ptr(), x.data_ptr(), res.data_ptr(), batch.data_ptr(),
+        eye.data_ptr(), eye2.data_ptr(), b, n, refine_iters,
+        int(boost_tol is not None),
+        ctypes.c_float(0.0 if boost_tol is None else boost_tol),
+        x_alt.data_ptr(), e.data_ptr(), codes.data_ptr(), sgn.data_ptr(),
+        stat.data_ptr(), boost.data_ptr(), stream)
+  if err != 0:
+    raise RuntimeError(
+        "ICA solve+stats launch failed with CUDA error %d (b=%d, n=%d)"
+        % (err, b, n))
+  stats_launches += 1
+  return x, stat, res

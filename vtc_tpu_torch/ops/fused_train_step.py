@@ -25,6 +25,18 @@ semantics, which the tiled kernel reproduces); the in-kernel early stop
 and the ``mxu`` tiers other than 'highest' raise NotImplementedError
 (ROADMAP.md §1 item 3).  ``launches`` counts the train steps the kernels
 ran.
+
+Also here, the port of TPU kernel K3, ``fused_solve_stats_pallas``
+(vtc_tpu/ops/pallas_train_step.py:940-1007, kernel
+``_make_solve_stats_kernel`` :854): ``fused_solve_stats``, one shard's
+step of the data-parallel composition -- the warm refresh and the whole
+solve of a K2 step on the shard, then the shard's unaveraged update
+statistics C = codes^T codes, B = codes^T X and stat = sum_b codes^2
+instead of the update.  A CUDA tensor runs ``vtc_solve_stats`` of the
+same source (K2's refresh and solve, the fixed-order statistics) or
+raises; a CPU tensor runs ``fused_solve_stats_plain``.
+``stats_launches`` counts the steps that kernel ran.
+``fused_solve_stats_supported`` is the gate of the scanned trainer.
 """
 import ctypes
 
@@ -35,8 +47,10 @@ from vtc_tpu_torch.dict_update_rules.fully_connected import (
 from vtc_tpu_torch.dict_update_rules.fully_connected import (
     sc_steepest_descent as sd)
 from vtc_tpu_torch.ops import fused_fista, lipschitz
+from vtc_tpu_torch.ops.precision import matmul_precision
 
 launches = 0
+stats_launches = 0
 
 UPDATE_ALGS = ("sc_steepest_descent", "sc_cheap_quadratic_descent")
 
@@ -217,3 +231,132 @@ def _launch(dictionary, hessian, eigvec, batches, lam, num_iters, upd_step,
         "s=%d, n=%d)" % (err, k, b, s, n))
   launches += k
   return d, h, v, codes, eta
+
+
+def fused_solve_stats_supported(batch_shard_size, code_size, input_size):
+  """True when ``fused_solve_stats`` takes this shard geometry.  vtc_tpu's
+  gate (pallas_train_step.py:927-933) is a VMEM budget, which has no
+  counterpart: the kernels keep their state in device memory, and only
+  the one-block power refresh bounds the shapes, to min(s, n) <= 29,039
+  (two vectors of that length in a block's 227 KB of shared memory)."""
+  dim = min(int(code_size), int(input_size))
+  return (int(batch_shard_size) >= 1 and dim >= 1
+          and (2 * dim + 33) * 4 <= fused_fista._SMEM_PER_BLOCK)
+
+
+def fused_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
+                            inf_num_iters, *, variant="fista", nonneg=False,
+                            hard=False, power_iters=12, precision=None):
+  """The plain PyTorch version of ``fused_solve_stats``, on any device and
+  in the inputs' own float type: ``lipschitz.power_iterate`` ->
+  ``fused_fista_plain`` -> the three statistics.  ``precision`` is the
+  matmul precision of the solve ('tensorfloat32' shows what TF32 products
+  would cost); the refresh and the statistics stay at 'highest', as in
+  every tier of the TPU kernel (pallas_train_step.py:862-865)."""
+  eigval, v = lipschitz.power_iterate(dictionary, eigvec, int(power_iters))
+  eta = 1.0 / eigval
+  codes = fused_fista.fused_fista_plain(
+      batch, dictionary, sparsity_weight, inf_num_iters, eta,
+      variant=variant, nonneg=nonneg, hard=hard, precision=precision)
+  with matmul_precision():
+    cmat = codes.T @ codes
+    bmat = codes.T @ batch
+  return codes, cmat, bmat, torch.sum(codes * codes, dim=0), v, eta
+
+
+def fused_solve_stats(dictionary, eigvec, batch, sparsity_weight,
+                      inf_num_iters, *, variant="fista", nonneg=False,
+                      hard=False, power_iters=12, mxu="highest"):
+  """One shard's solve+stats step.
+
+  Args:
+    dictionary: (s, n) float32 tensor, the replicated dictionary.
+    eigvec: (min(s, n),) warm Lipschitz eigenvector (normalized here).
+    batch: (b, n) float32, this shard of the batch.
+    sparsity_weight, inf_num_iters: Python scalars.
+    variant / nonneg / hard / power_iters: as in vtc_tpu.
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a).
+
+  Returns:
+    (codes (b, s), cmat (s, s), bmat (s, n), stat (s,), new_eigvec, eta):
+    new tensors; eta is 0-d.  The full-batch dictionary gradient at any D'
+    is (sum over shards of cmat @ D' - sum of bmat) / global_b.
+  """
+  if variant not in ("ista", "fista"):
+    raise ValueError("variant must be 'ista' or 'fista'")
+  if mxu != "highest":
+    raise NotImplementedError(
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        % (mxu,))
+  flags = dict(variant=variant, nonneg=bool(nonneg), hard=bool(hard),
+               power_iters=int(power_iters))
+  if batch.device.type == "cpu":
+    return fused_solve_stats_plain(dictionary, eigvec, batch,
+                                   float(sparsity_weight), int(inf_num_iters),
+                                   **flags)
+
+  def require(cond, message):
+    if not cond:
+      raise ValueError("fused_solve_stats: " + message)
+
+  require(batch.device.type == "cuda",
+          "tensors must be on the CPU or a CUDA device, got "
+          + str(batch.device))
+  require(batch.dim() == 2 and dictionary.dim() == 2
+          and dictionary.shape[1] == batch.shape[1],
+          "shapes must be (s, n) and (b, n), got %s and %s"
+          % (tuple(dictionary.shape), tuple(batch.shape)))
+  device = batch.device
+  (b, n), s = batch.shape, dictionary.shape[0]
+  for name, t, shape in (("dictionary", dictionary, (s, n)),
+                         ("eigvec", eigvec, (min(s, n),)),
+                         ("batch", batch, (b, n))):
+    require(t.device == device and t.dtype == torch.float32
+            and tuple(t.shape) == shape,
+            "%s must be a float32 %s tensor on %s" % (name, shape, device))
+  require(int(inf_num_iters) >= 0 and int(power_iters) >= 0,
+          "iteration counts must be >= 0")
+  require(fused_solve_stats_supported(b, s, n),
+          "min(s, n) = %d is too large for the one-block power refresh, or "
+          "the batch is empty" % min(s, n))
+  return _launch_stats(dictionary.contiguous(), eigvec, batch.contiguous(),
+                       float(sparsity_weight), int(inf_num_iters), **flags)
+
+
+def _launch_stats(dictionary, eigvec, batch, lam, num_iters, *, variant,
+                  nonneg, hard, power_iters):
+  """Allocate the outputs and scratch, enqueue the step on the current
+  stream."""
+  global stats_launches
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  (b, n), s = batch.shape, dictionary.shape[0]
+  device = batch.device
+  rows = lib.vtc_fista_rows()
+  sk, sc, state_in_smem = fused_fista.solve_layout(lib, s)
+
+  def empty(*shape):
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+  v = eigvec.contiguous().clone()
+  gram, corr, codes = empty(s, s), empty(b, s), empty(b, s)
+  pgram = empty(n, n) if s > n else None
+  cmat, bmat, stat, eta = empty(s, s), empty(s, n), empty(s), empty(1)
+  gn = empty(sk, sc)
+  state = None if state_in_smem else empty(-(-b // rows), 4, rows, sk)
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.vtc_solve_stats(
+        dictionary.data_ptr(), v.data_ptr(), batch.data_ptr(), b, s, n,
+        ctypes.c_float(lam), num_iters, int(variant == "fista"),
+        fused_fista._MODES[(nonneg, hard)], power_iters, gram.data_ptr(),
+        None if pgram is None else pgram.data_ptr(), corr.data_ptr(),
+        codes.data_ptr(), cmat.data_ptr(), bmat.data_ptr(), stat.data_ptr(),
+        eta.data_ptr(), sk, sc, gn.data_ptr(),
+        None if state is None else state.data_ptr(), stream)
+  if err != 0:
+    raise RuntimeError(
+        "fused solve+stats launch failed with CUDA error %d (b=%d, s=%d, "
+        "n=%d)" % (err, b, s, n))
+  stats_launches += 1
+  return codes, cmat, bmat, stat, v, eta.reshape(())

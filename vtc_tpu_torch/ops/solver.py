@@ -14,8 +14,11 @@ The same state and the same ``prestep_fn`` fold, as a Python loop:
 The momentum scalars are computed on the host in the codes' own float
 type (numpy scalars), so float32 runs round exactly as the JAX loop's
 float32 scalars do.  Early stop reads the batch-global mean back to the
-host once per iteration.  ``psum_axes`` (the data-parallel stop test)
-waits for the multi-device slice.
+host once per iteration.  With ``psum_axes`` (the data-parallel stop
+test, vtc_tpu :105-110) that mean is first averaged over the mesh's
+ranks, one scalar all-reduce per iteration: every rank reads the same
+value and leaves the loop at the same iteration, and with equal shards
+the codes equal the single-device solve on the concatenated batch.
 """
 from typing import Callable, Optional
 
@@ -52,11 +55,10 @@ def proximal_gradient_loop(
   Args mirror vtc_tpu/ops/solver.py:55-81: ``grad_fn`` and ``prox_fn``
   are callables on tensors, ``stepsize`` a float or 0-d tensor,
   ``prestep_fn`` the fused replacement for the gradient step.
+  ``psum_axes`` is the ``parallel.Mesh`` whose data axes the stop test
+  averages over (where vtc_tpu names the axes of the enclosing shard_map),
+  or None.
   """
-  if psum_axes is not None:
-    raise NotImplementedError(
-        "psum_axes (data-parallel early stop) waits for the multi-device "
-        "slice, ROADMAP.md §1 item 9")
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
   use_fista = variant == "fista"
@@ -75,7 +77,10 @@ def proximal_gradient_loop(
       z = codes
     old_codes = codes
     if early_stopping_epsilon is not None and k > 0:
-      avg_delta = torch.mean(torch.abs(delta)) / stepsize
+      avg_delta = torch.mean(torch.abs(delta))
+      if psum_axes is not None:
+        avg_delta = psum_axes.mean(avg_delta)
+      avg_delta = avg_delta / stepsize
       if float(avg_delta) < early_stopping_epsilon:
         break
   return codes

@@ -1,0 +1,268 @@
+"""Data-parallel train steps on ``torch.distributed``: counterpart of
+vtc_tpu/parallel/data_parallel.py, fully-connected and subspace.
+
+The batch is sharded over the mesh's data axes, the dictionary, the
+Hessian EMA and the warm eigenvector are replicated, and what a step
+needs of the other shards is summed over the ranks between launches, where
+vtc_tpu ``psum``s inside a ``shard_map``.  Each ``build_*`` function takes
+the port's ``parallel.Mesh`` where vtc_tpu's takes the data-axis size and
+the axis names: the mesh is where the size and the collectives come from.
+On a mesh of one rank no collective is issued.
+
+* ``build_dp_local_step`` (:82-224): the psum-per-op step.  The solve runs
+  vtc_tpu's ``_solve`` on the shard ('gram', else the two-product
+  iteration), with ``early_stopping_epsilon`` the batch-global stop test
+  (one scalar all-reduce per iteration: all ranks leave at the same
+  iteration); the gradient codes^T (codes D - X) is summed per update
+  iteration and the Hessian statistic once.  vtc_tpu runs this through XLA
+  outside any Pallas kernel, so it is plain torch ops here.
+* ``build_dp_fused_local_step`` (:227-283): the fused-DP composition.  One
+  solve+stats kernel per shard per step (K3,
+  ``ops/fused_train_step.fused_solve_stats``), one all-reduce of (C, B,
+  stat), and the replicated update from the global statistics:
+  grad at D' = (sum C @ D' - sum B) / global_b, the single-device update
+  for any number of update iterations.
+* ``build_dp_group_fused_local_step`` (:286-355): the same for the
+  subspace family (K7, ``ops/fused_group_train_step.
+  fused_group_solve_stats``); the anti-alignment regularizer depends on
+  the replicated dictionary alone and runs after the reduction.
+* ``build_shard_map_train_step`` (:455-486; the name stays so a reader
+  finds it): the global-batch step of the per-batch trainer.  It takes
+  this rank's shard of the batch, runs ``build_dp_local_step``'s step and
+  gathers the codes, so every rank returns what vtc_tpu's caller sees.
+
+The replicated updates are XLA outside any Pallas kernel in vtc_tpu
+(:266-280, :334-352) and plain torch ops under the precision pins here.
+
+Raise NotImplementedError naming ROADMAP.md §1 item 9: mode
+'convolutional' (conv DP, K13 and K17), ``build_dp_conv_fused_local_step``
+and ``build_pjit_train_step`` (GSPMD with the 'code' axis).
+"""
+import torch
+
+from vtc_tpu_torch.analysis_transforms.fully_connected import ista_fista
+from vtc_tpu_torch.analysis_transforms.fully_connected import (
+    subspace_ista_fista)
+from vtc_tpu_torch.dict_update_rules.fully_connected._subspace_common import (
+    alignment_regularization_gradients)
+from vtc_tpu_torch.ops import fused_group_train_step, fused_train_step
+from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
+from vtc_tpu_torch.ops.precision import matmul_precision
+
+CHEAP_QUAD_ALGS = ("sc_cheap_quadratic_descent",
+                   "subspace_sc_cheap_quadratic_descent")
+
+
+def _refuse_conv(what):
+  raise NotImplementedError(
+      what + ": conv data parallelism (K13, the conv solve+stats kernel, "
+      "and K17) waits, ROADMAP.md §1 item 9")
+
+
+def build_pjit_train_step(mesh, mode, inference_alg, update_alg, **config):
+  """vtc_tpu's GSPMD step (:44-79) shards dictionary rows over the 'code'
+  axis; it waits with that axis."""
+  raise NotImplementedError(
+      "build_pjit_train_step (GSPMD, dictionary rows over the 'code' axis) "
+      "waits, ROADMAP.md §1 item 9; build_shard_map_train_step is the "
+      "data-parallel step")
+
+
+def build_dp_conv_fused_local_step(*args, **kwargs):
+  _refuse_conv("build_dp_conv_fused_local_step")
+
+
+def _replicated_update(dictionary, hessian, stat, upd_stepsize,
+                       upd_num_iters, global_b, uses_hessian, renormalize,
+                       lowest_code_val, grad_fn, reg_fn=None):
+  """The Hessian EMA from the reduced statistic and ``upd_num_iters``
+  update iterations on the replicated dictionary; ``grad_fn(d)`` is the
+  reduced gradient sum at d, ``reg_fn(d)`` the regularizer's gradient."""
+  with matmul_precision():
+    if uses_hessian:
+      hessian = 0.99 * hessian + (stat / global_b) / 100.0
+      scale = (hessian + lowest_code_val)[:, None]
+    d = dictionary
+    for _ in range(int(upd_num_iters)):
+      grad = grad_fn(d) / global_b
+      if reg_fn is not None:
+        grad = grad + reg_fn(d)
+      if uses_hessian:
+        grad = grad / scale
+      d = d - upd_stepsize * grad
+      if renormalize:
+        d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+  return d, hessian
+
+
+def build_dp_local_step(mesh, mode, inference_alg, update_alg, *,
+                        nonneg=False, hard_threshold=False,
+                        kernel_stride=None, padding=None,
+                        group_assignments=None, alignment_penalty=0.0,
+                        renormalize=True, fc_formulation="gram",
+                        lipschitz_method="eigvalsh", upd_num_iters=1,
+                        lowest_code_val=0.001, early_stopping_epsilon=None):
+  """This rank's body of the psum-per-op data-parallel step.
+
+  Signature: local_step(dictionary, hessian, batch_shard, sw,
+  inf_num_iters, upd_stepsize) -> (new_dictionary, new_hessian, codes),
+  codes being the shard's.  Every rank of ``mesh`` must call it in step:
+  it sums the dictionary gradient per update iteration, the Hessian
+  statistic once and, with ``early_stopping_epsilon``, the stop test's
+  scalar per solver iteration over the mesh.
+  """
+  if mode != "fully-connected":
+    _refuse_conv("build_dp_local_step(mode=%r)" % (mode,))
+  is_subspace_inf = inference_alg.startswith("subspace")
+  is_subspace_upd = update_alg.startswith("subspace")
+  variant = inference_alg[9:] if is_subspace_inf else inference_alg
+  uses_hessian = update_alg in CHEAP_QUAD_ALGS
+  stop_axes = mesh if early_stopping_epsilon is not None else None
+  early_eps = (None if early_stopping_epsilon is None
+               else float(early_stopping_epsilon))
+  alignment_penalty = float(alignment_penalty)
+  groups = None
+  if group_assignments is not None:
+    groups = [[int(m) for m in g] for g in group_assignments]
+
+  def layout(dictionary):
+    return subspace_ista_fista.group_layout(groups, dictionary.shape[0],
+                                            dictionary.device)
+
+  def infer(dictionary, batch_shard, sw, n_it):
+    b = batch_shard.shape[0]
+    if is_subspace_inf:
+      gather_inds, valid_mask, index = layout(dictionary)
+      grouped = subspace_ista_fista.build_grouped_dictionary(
+          dictionary, gather_inds, valid_mask)
+      stepsize = lipschitz_ops.fista_stepsize(grouped, lipschitz_method)
+      init = torch.zeros((b,) + tuple(gather_inds.shape),
+                         dtype=batch_shard.dtype, device=batch_shard.device)
+      return subspace_ista_fista._solve(
+          batch_shard, grouped, gather_inds, valid_mask, sw, n_it, stepsize,
+          init, variant, False, early_eps, fc_formulation,
+          dictionary.shape[0], True, index, psum_axes=stop_axes)
+    stepsize = lipschitz_ops.fista_stepsize(dictionary, lipschitz_method)
+    init = torch.zeros((b, dictionary.shape[0]), dtype=batch_shard.dtype,
+                       device=batch_shard.device)
+    return ista_fista._solve(
+        batch_shard, dictionary, sw, n_it, stepsize, init, variant, nonneg,
+        hard_threshold, early_eps, fc_formulation, psum_axes=stop_axes)
+
+  def local_step(dictionary, hessian, batch_shard, sw, n_it, upd_step):
+    codes = infer(dictionary, batch_shard, float(sw), int(n_it))
+    global_b = batch_shard.shape[0] * mesh.size
+    stat = None
+    if uses_hessian:
+      stat = mesh.sum(torch.sum(codes ** 2, dim=0))
+    reg_fn = None
+    if is_subspace_upd and alignment_penalty != 0:
+      gather_inds, valid_mask, _ = layout(dictionary)
+      reg_fn = lambda d: alignment_penalty * (
+          alignment_regularization_gradients(d, gather_inds, valid_mask,
+                                             renormalize))
+    new_dict, hessian = _replicated_update(
+        dictionary, hessian, stat, float(upd_step), upd_num_iters,
+        global_b, uses_hessian, renormalize, lowest_code_val,
+        lambda d: mesh.sum(codes.T @ (codes @ d - batch_shard)), reg_fn)
+    return new_dict, hessian, codes
+
+  return local_step
+
+
+def build_dp_fused_local_step(mesh, inference_alg, update_alg, *,
+                              nonneg=False, hard_threshold=False,
+                              renormalize=True, upd_num_iters=1,
+                              lowest_code_val=0.001, power_iters=12,
+                              mxu="highest"):
+  """This rank's body of the fused-DP composition, fc.
+
+  Signature: local_step(dictionary, hessian, eigvec, batch_shard, sw,
+  inf_num_iters, upd_stepsize) -> (dict, hessian, eigvec, codes).  The
+  eigenvector rides the caller's loop, replicated: the power refresh runs
+  on the replicated dictionary, so every rank computes the same stepsize.
+  """
+  uses_hessian = update_alg == "sc_cheap_quadratic_descent"
+
+  def local_step(dictionary, hessian, eigvec, batch_shard, sw, n_it,
+                 upd_step):
+    codes, cmat, bmat, stat, eigvec, _ = fused_train_step.fused_solve_stats(
+        dictionary, eigvec, batch_shard, sw, n_it, variant=inference_alg,
+        nonneg=nonneg, hard=hard_threshold, power_iters=power_iters, mxu=mxu)
+    global_b = batch_shard.shape[0] * mesh.size
+    cmat, bmat, stat = mesh.sum(cmat, bmat, stat)
+    new_dict, hessian = _replicated_update(
+        dictionary, hessian, stat, float(upd_step), upd_num_iters,
+        global_b, uses_hessian, renormalize, lowest_code_val,
+        lambda d: cmat @ d - bmat)
+    return new_dict, hessian, eigvec, codes
+
+  return local_step
+
+
+def build_dp_group_fused_local_step(mesh, inference_alg, update_alg, *,
+                                    group_assignments, alignment_penalty=0.0,
+                                    hard_threshold=False, renormalize=True,
+                                    upd_num_iters=1, lowest_code_val=0.001,
+                                    power_iters=12, mxu="highest"):
+  """The subspace counterpart of ``build_dp_fused_local_step``.
+
+  ``eigvec`` is the grouped Gram's warm eigenvector, (min(G*M, n),): seed
+  it with ``top_gram_eigenpair`` of the grouped dictionary.
+  """
+  variant = inference_alg[9:]  # subspace_ista / subspace_fista
+  uses_hessian = update_alg == "subspace_sc_cheap_quadratic_descent"
+  alignment_penalty = float(alignment_penalty)
+  groups = tuple(tuple(int(m) for m in g) for g in group_assignments)
+
+  def local_step(dictionary, hessian, eigvec, batch_shard, sw, n_it,
+                 upd_step):
+    codes, cmat, bmat, stat, eigvec, _ = (
+        fused_group_train_step.fused_group_solve_stats(
+            dictionary, eigvec, batch_shard, sw, n_it,
+            group_assignments=groups, variant=variant, hard=hard_threshold,
+            power_iters=power_iters, mxu=mxu))
+    global_b = batch_shard.shape[0] * mesh.size
+    cmat, bmat, stat = mesh.sum(cmat, bmat, stat)
+    reg_fn = None
+    if alignment_penalty != 0:
+      gather_inds, valid_mask, _ = subspace_ista_fista.group_layout(
+          groups, dictionary.shape[0], dictionary.device)
+      reg_fn = lambda d: alignment_penalty * (
+          alignment_regularization_gradients(d, gather_inds, valid_mask,
+                                             renormalize))
+    new_dict, hessian = _replicated_update(
+        dictionary, hessian, stat, float(upd_step), upd_num_iters,
+        global_b, uses_hessian, renormalize, lowest_code_val,
+        lambda d: cmat @ d - bmat, reg_fn)
+    return new_dict, hessian, eigvec, codes
+
+  return local_step
+
+
+def build_shard_map_train_step(mesh, mode, inference_alg, update_alg,
+                               **config):
+  """The data-parallel step on the GLOBAL batch.
+
+  Signature of the returned callable:
+    step(dictionary, hessian, batch, sparsity_weight, inf_num_iters,
+         upd_stepsize) -> (new_dictionary, new_hessian, codes)
+  ``batch`` is the global batch, the same on every rank (a tensor or an
+  array; its leading dimension must divide by the mesh's size); each rank
+  moves its own shard to the dictionary's device and solves it.  The
+  dictionary and the Hessian come back replicated, the codes gathered in
+  batch order.
+  """
+  local_step = build_dp_local_step(mesh, mode, inference_alg, update_alg,
+                                   **config)
+
+  def step(dictionary, hessian, batch, sparsity_weight, inf_num_iters,
+           upd_stepsize):
+    shard = torch.as_tensor(mesh.shard(batch), dtype=torch.float32,
+                            device=dictionary.device)
+    new_dict, hessian, codes = local_step(
+        dictionary, hessian, shard, sparsity_weight, inf_num_iters,
+        upd_stepsize)
+    return new_dict, hessian, mesh.all_gather(codes)
+
+  return step

@@ -1,6 +1,7 @@
 """Whole training segments: counterpart of ``train_dictionary_scanned``
 (vtc_tpu/training/compiled_epoch.py:427-1297), fully-connected (with the
-subspace, group-sparse, variants) and convolutional, single-device.
+subspace, group-sparse, variants) and convolutional, and data-parallel
+for the first two.
 
 Same ``all_params`` schema and semantics as ``sparse_coding.
 train_dictionary``: the epochs are split into segments at every
@@ -50,7 +51,34 @@ JAX package's ``jax.random.permutation``, not the same order.
   trainer never picks it; bench.py's big-dictionary rows call it
   directly (bench.py:584-591), and so does chip_smoke.py.
 
-Raise NotImplementedError, each naming its ROADMAP.md §1 item:
+With ``all_params['data_parallel']`` (True: the default process group's
+world, or one rank without a group; or a ``parallel.Mesh``), fc and
+subspace (:557-814): every rank calls the trainer with the same global
+batches, holds its own shard of the batch axis on the device for the whole
+run and returns the same dictionary.
+
+* ``_dp_fused_segment_runner`` (:178-211): the fused-DP composition, per
+  step one solve+stats kernel on the shard (K3, or K7 with groups), one
+  all-reduce of its statistics and the replicated update, the warm
+  eigenvector riding replicated.  Picked where vtc_tpu picks it ('pallas',
+  warm tracking, no early stop, the gates of ``fused_solve_stats_supported``
+  / ``fused_group_solve_stats_supported``), and also where vtc_tpu would
+  pick its whole-segment DP kernels K15 and K16 (``dp_rdma``,
+  ``dp_rdma_group``), which wait (ROADMAP.md §1 item 9): the same numbers,
+  one launch group and one all-reduce per step instead of one launch per
+  segment.  Its per-step Python between the kernels takes the place of
+  K2's one C loop per segment.
+* ``_dp_segment_runner`` (:395-424): the psum-per-op step
+  (``parallel.build_dp_local_step``) for every other configuration, with
+  the stepsize computed in the step: 'power_warm' is downgraded to 'power'
+  (:810-813), and a warm run's eigenvector is re-seeded after a segment
+  that took this runner (:1281-1285).
+* The shuffle permutes the global sample index with the seeded generator
+  every rank has, before the shard is taken: a data-parallel run visits
+  the samples of the single-device run.  Rank 0 writes checkpoints and
+  metrics; reset/prune takes rank 0's draw on every rank.
+
+Raise NotImplementedError, each naming its ROADMAP.md §1 item: conv with
 data_parallel (item 9), 'hbm_chunk_steps' streaming (item 8),
 'train_precision' other than 'highest' (item 3), and
 'early_stopping_epsilon' where the kernels would run it on a CUDA device
@@ -61,6 +89,7 @@ import time
 import numpy as np
 import torch
 
+from vtc_tpu_torch import parallel
 from vtc_tpu_torch.ops import conv_shapes, fused_code_shard_train
 from vtc_tpu_torch.ops import fused_conv_train, fused_group_train_step
 from vtc_tpu_torch.ops import fused_train_step
@@ -175,6 +204,34 @@ def _code_shard_segment_runner(cs_size, data_size, variant, update_alg,
   return run
 
 
+def _dp_fused_segment_runner(local_step):
+  """The fused-DP composition over this rank's shards of a segment:
+  ``local_step`` (``parallel.build_dp_fused_local_step`` or its group
+  counterpart) per batch, the warm eigenvector riding from step to step."""
+
+  def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
+    d, h, v = dictionary, hessian, eigvec
+    for batch_shard in batches:
+      d, h, v, _ = local_step(d, h, v, batch_shard, sw, n_it, upd_step)
+    return d, h, v
+
+  return run
+
+
+def _dp_segment_runner(local_step):
+  """The psum-per-op data-parallel step (``parallel.build_dp_local_step``)
+  over this rank's shards of a segment; the eigenvector passes through
+  untouched, for one signature with the other runners."""
+
+  def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
+    d, h = dictionary, hessian
+    for batch_shard in batches:
+      d, h, _ = local_step(d, h, batch_shard, sw, n_it, upd_step)
+    return d, h, eigvec
+
+  return run
+
+
 def train_dictionary_scanned(training_batches, validation_batches,
                              init_dictionary, all_params, *, device=None):
   """Train with whole segments.  ``training_batches``: a (k, b, n) array
@@ -221,11 +278,22 @@ def train_dictionary_scanned(training_batches, validation_batches,
   alignment_penalty = float(
       all_params.get("subspace_alignment_penalty", 0.0))
   is_subspace = inference_alg.startswith("subspace")
-  logging_path, tb_writer = sc.open_logging(all_params, group_assignments)
+  data_parallel = all_params.get("data_parallel", False)
+  dp_mesh = parallel.resolve_mesh(data_parallel) if data_parallel else None
+  writer = dp_mesh is None or dp_mesh.index == 0
+  logging_path, tb_writer = sc.open_logging(all_params, group_assignments,
+                                            writer)
 
   device = sc.resolve_device(device, training_batches, init_dictionary)
-  training_batches = sc.as_tensor(training_batches, device)
   k, b_per = training_batches.shape[0], training_batches.shape[1]
+  global_batches = None
+  if dp_mesh is not None and dp_mesh.size > 1:
+    # the global batches stay where the caller has them; this rank's shard
+    # of the batch axis goes to the device
+    global_batches = training_batches
+    shard_lo, shard_hi = dp_mesh.shard_bounds(b_per)
+    training_batches = training_batches[:, shard_lo:shard_hi]
+  training_batches = sc.as_tensor(training_batches, device)
   total_iters = num_epochs * k
   shuffle_each_epoch = bool(all_params.get("shuffle_each_epoch", False))
   shuffle_gen = torch.Generator().manual_seed(
@@ -257,6 +325,57 @@ def train_dictionary_scanned(training_batches, validation_batches,
         "early stop yet, ROADMAP.md §1 item 3; use fc_formulation='gram' "
         "(conv_formulation='gram' in conv mode)")
   use_fused = device.type == "cuda" and warm_power and kernels_route
+  # data parallel: the fused-DP composition where a solve+stats kernel
+  # takes the configuration (vtc_tpu :629-809 without its TPU-only terms),
+  # else the psum-per-op step with the stepsize computed in the step
+  dp_fused = False
+  if dp_mesh is not None:
+    dp_fused = (early_eps is None and warm_power
+                and resolved_formulation == "pallas")
+    if not dp_fused and warm_power:
+      lipschitz_method, warm_power = "power", False
+
+  def dp_fused_now():
+    """Whether this segment's configuration runs a solve+stats kernel."""
+    if not dp_fused:
+      return False
+    shard_b, s_now = training_batches.shape[1], dictionary.shape[0]
+    n_in = training_batches.shape[-1]
+    if group_assignments is None:
+      return (inference_alg in ("ista", "fista")
+              and update_alg in fused_train_step.UPDATE_ALGS
+              and fused_train_step.fused_solve_stats_supported(
+                  shard_b, s_now, n_in))
+    return (inference_alg in fused_group_train_step.INFERENCE_ALGS
+            and update_alg in fused_group_train_step.UPDATE_ALGS
+            and not nonneg
+            and fused_group_train_step.fused_group_solve_stats_supported(
+                shard_b, s_now, n_in, group_assignments))
+
+  def make_dp_runner():
+    """(runner, whether it tracks the warm eigenvector)."""
+    if dp_fused_now():
+      common = dict(hard_threshold=hard, renormalize=renormalize,
+                    upd_num_iters=upd_niters, power_iters=2)
+      if group_assignments is None:
+        local = parallel.build_dp_fused_local_step(
+            dp_mesh, inference_alg, update_alg, nonneg=nonneg, **common)
+      else:
+        local = parallel.build_dp_group_fused_local_step(
+            dp_mesh, inference_alg, update_alg,
+            group_assignments=group_assignments,
+            alignment_penalty=alignment_penalty, **common)
+      return _dp_fused_segment_runner(local), True
+    local = parallel.build_dp_local_step(
+        dp_mesh, mode, inference_alg, update_alg, nonneg=nonneg,
+        hard_threshold=hard, group_assignments=group_assignments,
+        alignment_penalty=alignment_penalty, renormalize=renormalize,
+        fc_formulation=all_params.get("fc_formulation", "gram"),
+        early_stopping_epsilon=early_eps,
+        lipschitz_method=("power" if lipschitz_method == "power_warm"
+                          else lipschitz_method),
+        upd_num_iters=upd_niters)
+    return _dp_segment_runner(local), False
 
   def make_step():
     return sc.build_raw_step_fn(
@@ -334,15 +453,15 @@ def train_dictionary_scanned(training_batches, validation_batches,
           sc._numpy(_infer(vb)) for vb in validation_batches], axis=0)
       dictionary, hessian, groups = sc.reset_or_prune(
           rp_sched[it], dictionary, hessian, v_codes, group_assignments,
-          True)
+          True, dp_mesh)
       eigvec = None  # the dictionary jumped: re-seed the eigenvector
       if groups is not group_assignments:  # pruned: rows and groups moved
         group_assignments = groups
         raw_step = make_step()
       previous_dictionary = dictionary
-    if it in ckpt_sched:
+    if writer and it in ckpt_sched:
       sc.save_checkpoint(logging_path, it, dictionary, hessian)
-    if it in vis_sched:
+    if writer and it in vis_sched:
       metrics = [sc.compute_metrics(
           vb, _infer(vb), dictionary, previous_dictionary, mode=mode,
           sparsity_weight=sw, group_assignments=group_assignments,
@@ -352,13 +471,29 @@ def train_dictionary_scanned(training_batches, validation_batches,
         tb_writer.add_scalar(
             name, float(np.mean([m[name] for m in metrics])), it)
 
+  order = None  # the global sample order of a sharded, shuffled run
   for seg_start, seg_end in zip(boundaries[:-1], boundaries[1:]):
     handle_events(seg_start)
     if shuffle_each_epoch and seg_start % k == 0 and seg_start < total_iters:
-      perm = torch.randperm(k * b_per, generator=shuffle_gen).to(device)
-      flat = training_batches.reshape((k * b_per,)
-                                      + training_batches.shape[2:])
-      training_batches = flat[perm].reshape(training_batches.shape)
+      perm = torch.randperm(k * b_per, generator=shuffle_gen)
+      if global_batches is None:
+        flat = training_batches.reshape((k * b_per,)
+                                        + training_batches.shape[2:])
+        training_batches = flat[perm.to(device)].reshape(
+            training_batches.shape)
+      else:
+        # permute the global sample index as the single-device run permutes
+        # its samples (each epoch's permutation composed with the last),
+        # then take this rank's shard of every batch
+        order = perm if order is None else order[perm]
+        mine = order.reshape(k, b_per)[:, shard_lo:shard_hi].reshape(-1)
+        flat = global_batches.reshape((k * b_per,) + global_batches.shape[2:])
+        if isinstance(flat, torch.Tensor):
+          mine = mine.to(flat.device)
+        else:
+          mine = mine.numpy()
+        training_batches = sc.as_tensor(flat[mine], device).reshape(
+            training_batches.shape)
     if seg_end == seg_start:
       continue
     epoch = seg_start // k
@@ -368,9 +503,16 @@ def train_dictionary_scanned(training_batches, validation_batches,
     if eigvec is None:
       eigvec = (seed_eigvec(dictionary) if warm_power
                 else torch.zeros(1, device=device))
-    dictionary, hessian, eigvec = make_runner()(
+    runner, tracks_eigvec = (make_dp_runner() if dp_mesh is not None
+                             else (make_runner(), True))
+    dictionary, hessian, eigvec = runner(
         dictionary, hessian, eigvec, training_batches[lo:hi], sw, n_it,
         upd_step)
+    if warm_power and not tracks_eigvec:
+      # this segment trained the dictionary without refreshing the warm
+      # eigenvector: re-seed it exactly before the next fused segment,
+      # whose two power iterations assume an exact seed
+      eigvec = None
   handle_events(total_iters)  # trailing checkpoint / vis events
   if tb_writer is not None:
     tb_writer.flush()

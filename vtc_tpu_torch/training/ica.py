@@ -1,5 +1,4 @@
-"""ICA dictionary learning, single-device: counterpart of
-vtc_tpu/training/ica.py:1-633.
+"""ICA dictionary learning: counterpart of vtc_tpu/training/ica.py:1-633.
 
 Fully-connected only, a square (critically sampled) dictionary,
 ``ica_natural_gradient`` updates, an iteration-indexed update schedule
@@ -22,18 +21,34 @@ with pSNR logging.  ``all_params`` is never mutated.
   power-of-two chunks, so a rollback takes a whole segment; the result is
   the same.
 
+With ``all_params['data_parallel']`` (True: the default process group's
+world, or one rank without a group; or a ``parallel.Mesh``) the scanned
+trainer shards each batch over the mesh (:428-437): every rank calls it
+with the same global batches, keeps its shard of the batch axis on the
+device and returns the same dictionary.  ``_segment_runner_dp`` (:250-333)
+runs, per step, this rank's codes, one all-reduce of the statistic
+codes^T sign(codes) and the replicated update; with the fused path on
+(``use_fused`` as above) the refreshes, codes and statistic are one
+solve+stats step on the shard (K9, ``ops/fused_ica_train.ica_solve_stats``)
+and the segment's largest residual feeds the same lazy guard, whose
+rollback reruns on the plain data-parallel runner.  Where vtc_tpu would
+pick its whole-segment DP kernel K18 the port runs this composition: K18
+waits, ROADMAP.md §1 item 9.  Rank 0 writes checkpoints and figures.
+
 The tensors live on ``device``: the keyword argument, else that of the
 first tensor among the data and the initial dictionary, else the CUDA
-device (raising without one).  Raise NotImplementedError, each naming its
-ROADMAP.md §1 item: data_parallel (item 9) and 'train_precision' other
-than 'highest' (item 3).
+device (raising without one).  Raise NotImplementedError naming its
+ROADMAP.md §1 item: 'train_precision' other than 'highest' (item 3).  The
+per-batch trainer has no data-parallel mode, in vtc_tpu or here.
 """
 import time
 import warnings
 from pathlib import Path
 
 import numpy as np
+import torch
 
+from vtc_tpu_torch import parallel
 from vtc_tpu_torch.analysis_transforms.fully_connected import (
     invertible_linear)
 from vtc_tpu_torch.device import resolve_device
@@ -57,10 +72,6 @@ def _check_common(init_dictionary, all_params):
   assert all_params["dictionary_update_algorithm"] == "ica_natural_gradient"
   assert np.shape(init_dictionary)[0] == np.shape(init_dictionary)[1], (
       "ICA requires a square (critically sampled) dictionary")
-  if all_params.get("data_parallel"):
-    raise NotImplementedError(
-        "data_parallel waits for the multi-device slice, ROADMAP.md §1 "
-        "item 9")
   tier = str(all_params.get("train_precision", "highest"))
   if tier != "highest":
     raise NotImplementedError(
@@ -109,6 +120,10 @@ def train_dictionary(image_dataset, init_dictionary, all_params, *,
   'stdout_print_interval', 'reshaped_kernel_size'.
   """
   _check_common(init_dictionary, all_params)
+  if all_params.get("data_parallel"):
+    raise ValueError(
+        "the per-batch ICA trainer has no data-parallel mode (nor has "
+        "vtc_tpu's); train_dictionary_scanned takes data_parallel")
   device = resolve_device(device, init_dictionary)
   dictionary = sc.as_tensor(init_dictionary, device)
   schedule = all_params["dict_update_param_schedule"]
@@ -189,6 +204,62 @@ def _fused_segment_runner(upd_num_iters, refine_iters=3, mxu="highest"):
   return run
 
 
+def _segment_runner_dp(upd_num_iters, mesh, warm_inverse, refine_iters=3,
+                       mxu="highest", fused=False):
+  """The data-parallel segment over this rank's shards: per step the
+  shard's codes, one sum of the statistic codes^T sign(codes) over the
+  mesh, and the replicated update.  The statistic is a batch mean, so the
+  sum of the shards' sums over global_b is the single-device value up to
+  the order of the sum; the inverse tracking (or the LU solve) needs the
+  replicated dictionary alone and runs replicated (vtc_tpu :250-333).
+
+  ``fused=True``: the refreshes, codes and statistic are one solve+stats
+  step per shard (K9), and the runner returns (dictionary, dinv,
+  max_residual), the largest post-refinement residual of the segment (the
+  same on every rank), kept on the device for the caller's lazy guard.
+  Otherwise it returns (dictionary, dinv) from the per-step guarded
+  tracking, or with ``warm_inverse`` off from the shard's LU solve."""
+  precision, guard_tol, boost_tol = _TIERS[mxu]
+
+  def update(d, stat_sum, shard_b, stepsize):
+    stat = mesh.sum(stat_sum) / (shard_b * mesh.size)
+    return ica_natural_gradient._update_from_stat(d, stat, stepsize,
+                                                  upd_num_iters)
+
+  if fused:
+
+    def run(dictionary, dinv, batches, stepsize):
+      d, x = dictionary, dinv
+      r_max = torch.zeros((), dtype=d.dtype, device=d.device)
+      for batch_shard in batches:
+        x, stat_sum, res = fused_ica_train.ica_solve_stats(
+            d, x, batch_shard, refine_iters=refine_iters, mxu=mxu,
+            boost_tol=boost_tol)
+        d = update(d, stat_sum, batch_shard.shape[0], stepsize)
+        r_max = torch.maximum(r_max, res)  # keeps NaN
+      return d, x, r_max
+
+    return run
+
+  def run(dictionary, dinv, batches, stepsize):
+    d, x = dictionary, dinv
+    for batch_shard in batches:
+      if warm_inverse:
+        x = invertible_linear.refine_inverse_guarded(
+            d, x, refine_iters, residual_tol=guard_tol, precision=precision,
+            boost_tol=boost_tol)
+        with matmul_precision(precision):
+          codes = batch_shard @ x
+      else:
+        codes = invertible_linear._solve_nonortho(batch_shard, d)
+      with matmul_precision():
+        stat_sum = codes.T @ torch.sign(codes)
+      d = update(d, stat_sum, batch_shard.shape[0], stepsize)
+    return d, x
+
+  return run
+
+
 def train_dictionary_scanned(training_batches, init_dictionary, all_params,
                              *, device=None):
   """Train with whole segments (see the module docstring); same
@@ -204,9 +275,16 @@ def train_dictionary_scanned(training_batches, init_dictionary, all_params,
   ckpt_sched = all_params.get("checkpoint_schedule") or set()
   vis_sched = all_params.get("training_visualization_schedule") or set()
   kernel_reshaping = all_params.get("reshaped_kernel_size")
-  logging_path, tb_writer = _open_logging(all_params, dump_params=False)
+  data_parallel = all_params.get("data_parallel", False)
+  dp_mesh = parallel.resolve_mesh(data_parallel) if data_parallel else None
+  writer = dp_mesh is None or dp_mesh.index == 0
+  logging_path, tb_writer = (_open_logging(all_params, dump_params=False)
+                             if writer else (None, None))
 
   device = resolve_device(device, training_batches, init_dictionary)
+  if dp_mesh is not None:
+    # this rank's shard of the batch axis; the rest stays with the caller
+    training_batches = dp_mesh.shard(training_batches, dim=1)
   training_batches = sc.as_tensor(training_batches, device)
   dictionary = sc.as_tensor(init_dictionary, device)
   k = training_batches.shape[0]
@@ -218,6 +296,10 @@ def train_dictionary_scanned(training_batches, init_dictionary, all_params,
 
   warm_inverse = bool(all_params.get("warm_inverse", True))
   dinv = invertible_linear.exact_inverse(dictionary) if warm_inverse else None
+  if dp_mesh is not None and dinv is None:
+    # the data-parallel runner carries the inverse either way; unused with
+    # warm_inverse off, where the codes come from the shard's LU solve
+    dinv = torch.zeros_like(dictionary)
   mxu = "highest"
   guard_tol = _TIERS[mxu][1]
   refine = int(all_params.get("refine_iters", 3))
@@ -246,9 +328,14 @@ def train_dictionary_scanned(training_batches, init_dictionary, all_params,
       rollbacks += 1
       dictionary, dinv = pending[bad]["d_in"], pending[bad]["dinv_in"]
       for ent in pending[bad:]:  # everything after it is stale too
-        dictionary, dinv = _segment_runner_tracked(
-            ent["upd_niters"], refine_iters=refine, mxu=mxu)(
-                dictionary, dinv, ent["batches"], ent["stepsize"])
+        fallback = (
+            _segment_runner_dp(ent["upd_niters"], dp_mesh, warm_inverse,
+                               refine_iters=refine, mxu=mxu)
+            if dp_mesh is not None else
+            _segment_runner_tracked(ent["upd_niters"], refine_iters=refine,
+                                    mxu=mxu))
+        dictionary, dinv = fallback(dictionary, dinv, ent["batches"],
+                                    ent["stepsize"])
     pending.clear()
 
   rollbacks_before = rollbacks
@@ -260,13 +347,16 @@ def train_dictionary_scanned(training_batches, init_dictionary, all_params,
       upd_niters = int(schedule[seg_start]["num_iters"])
     if seg_start in ckpt_sched:
       drain_guard()
-      ckpt_util.save_dictionary_checkpoint(logging_path, seg_start,
-                                           sc._numpy(dictionary))
+      if writer:
+        ckpt_util.save_dictionary_checkpoint(logging_path, seg_start,
+                                             sc._numpy(dictionary))
     if seg_start in vis_sched:
       drain_guard()
-      batch = training_batches[seg_start - (seg_start // k) * k]
-      _log_progress(tb_writer, batch, invertible_linear.run(batch, dictionary),
-                    dictionary, kernel_reshaping, seg_start)
+      if writer:
+        batch = training_batches[seg_start - (seg_start // k) * k]
+        _log_progress(tb_writer, batch,
+                      invertible_linear.run(batch, dictionary), dictionary,
+                      kernel_reshaping, seg_start)
     if seg_end == seg_start:
       continue
     epoch = seg_start // k
@@ -276,10 +366,18 @@ def train_dictionary_scanned(training_batches, init_dictionary, all_params,
     if fused_on:
       ent = {"batches": batches, "d_in": dictionary, "dinv_in": dinv,
              "stepsize": stepsize, "upd_niters": upd_niters}
-      dictionary, dinv, ent["res"] = _fused_segment_runner(
-          upd_niters, refine_iters=refine, mxu=mxu)(
-              dictionary, dinv, batches, stepsize)
+      runner = (_segment_runner_dp(upd_niters, dp_mesh, warm_inverse,
+                                   refine_iters=refine, mxu=mxu, fused=True)
+                if dp_mesh is not None else
+                _fused_segment_runner(upd_niters, refine_iters=refine,
+                                      mxu=mxu))
+      dictionary, dinv, ent["res"] = runner(dictionary, dinv, batches,
+                                            stepsize)
       pending.append(ent)
+    elif dp_mesh is not None:
+      dictionary, dinv = _segment_runner_dp(
+          upd_niters, dp_mesh, warm_inverse, refine_iters=refine, mxu=mxu)(
+              dictionary, dinv, batches, stepsize)
     elif warm_inverse:
       dictionary, dinv = _segment_runner_tracked(
           upd_niters, refine_iters=refine, mxu=mxu)(
@@ -287,10 +385,10 @@ def train_dictionary_scanned(training_batches, init_dictionary, all_params,
     else:
       dictionary = _segment_runner(upd_niters)(dictionary, batches, stepsize)
   drain_guard()
-  if total_iters in ckpt_sched:
+  if writer and total_iters in ckpt_sched:
     ckpt_util.save_dictionary_checkpoint(logging_path, total_iters,
                                          sc._numpy(dictionary))
-  if total_iters in vis_sched:
+  if writer and total_iters in vis_sched:
     batch = training_batches[k - 1]
     _log_progress(tb_writer, batch, invertible_linear.run(batch, dictionary),
                   dictionary, kernel_reshaping, total_iters)

@@ -1,5 +1,5 @@
 """Sparse-coding dictionary learning, fully-connected (with its subspace,
-group-sparse, variants) and convolutional, single-device: counterpart of
+group-sparse, variants) and convolutional: counterpart of
 vtc_tpu/training/sparse_coding.py:89-696.
 
 ``train_dictionary(training_image_dataset, validation_image_dataset,
@@ -27,7 +27,17 @@ and the dictionary figures use the port's own copies of vtc_tpu's
 numpy-only host modules (utils/checkpoint, training/reset_prune,
 utils/debug, utils/plotting).
 
-Raise NotImplementedError, each naming its ROADMAP.md §1 item:
+With ``all_params['data_parallel']`` (True, or a ``parallel.Mesh``), fc
+and subspace: every rank calls the trainer with the same global batches,
+solves its own shard of each (``parallel.build_shard_map_train_step``:
+the gradient and the Hessian statistic are summed over the ranks, the
+update runs replicated) and returns the same dictionary (vtc_tpu
+:484-509).  True means the default process group's world, or one rank
+without a group.  Rank 0 of the mesh writes the checkpoints and the
+TensorBoard log, and its reset/prune draw is broadcast, so the replicated
+dictionary stays the same on every rank.
+
+Raise NotImplementedError, each naming its ROADMAP.md §1 item: conv with
 data_parallel (item 9), profile_dir (item 8), and an early stop where a
 CUDA kernel would run the solve (fc_formulation='pallas', or a conv solve
 on the card through K10; item 3).
@@ -43,6 +53,7 @@ from vtc_tpu_torch.analysis_transforms.convolutional import (
 from vtc_tpu_torch.analysis_transforms.fully_connected import ista_fista
 from vtc_tpu_torch.analysis_transforms.fully_connected import (
     subspace_ista_fista)
+from vtc_tpu_torch import parallel
 from vtc_tpu_torch.device import resolve_device
 from vtc_tpu_torch.dict_update_rules.convolutional import (
     sc_cheap_quadratic_descent as conv_cqd)
@@ -87,10 +98,10 @@ def check_supported(mode, inference_alg, update_alg, group_assignments=None,
   if group_assignments is None and (inference_alg.startswith("subspace")
                                     or update_alg.startswith("subspace")):
     raise ValueError("the subspace algorithms need group_assignments")
-  if data_parallel:
+  if data_parallel and mode == "convolutional":
     raise NotImplementedError(
-        "data_parallel waits for the multi-device slice, ROADMAP.md §1 "
-        "item 9")
+        "data_parallel in conv mode waits for the conv solve+stats kernels "
+        "(K13, K17), ROADMAP.md §1 item 9")
 
 
 def normalize_groups(group_assignments):
@@ -127,16 +138,17 @@ def as_tensor(x, device):
 # ---------------------------------------------------------------------------
 # batch iteration over the accepted dataset containers
 # ---------------------------------------------------------------------------
-def iterate_batches(dataset, device):
+def iterate_batches(dataset, device, mesh=None):
   """Yield batches as float32 tensors on ``device`` from an ndarray or
   tensor of stacked batches (k, b, n), a list/tuple of batches, or any
-  re-iterable yielding batches (vtc_tpu sparse_coding.py:89-98)."""
+  re-iterable yielding batches (vtc_tpu sparse_coding.py:89-98).  With a
+  ``parallel.Mesh``, only this rank's shard of each batch is moved."""
   if isinstance(dataset, (np.ndarray, torch.Tensor)):
-    for i in range(dataset.shape[0]):
-      yield as_tensor(dataset[i], device)
+    batches = (dataset[i] for i in range(dataset.shape[0]))
   else:
-    for batch in dataset:
-      yield as_tensor(batch, device)
+    batches = dataset
+  for batch in batches:
+    yield as_tensor(batch if mesh is None else mesh.shard(batch), device)
 
 
 # ---------------------------------------------------------------------------
@@ -405,14 +417,17 @@ def compute_metrics(batch, codes, dictionary, previous_dictionary, *,
 # ---------------------------------------------------------------------------
 # host-side events shared with the scanned trainer
 # ---------------------------------------------------------------------------
-def open_logging(all_params, group_assignments=None):
+def open_logging(all_params, group_assignments=None, writer=True):
   """Create the logging folder, dump training_params.yaml (and the
   calling script) and open TensorBoard, as vtc_tpu does
-  (sparse_coding.py:436-463).  Returns (logging_path, tb_writer)."""
+  (sparse_coding.py:436-463).  Returns (logging_path, tb_writer); both
+  None when this rank is not the ``writer`` of a data-parallel run."""
   logging_path = all_params.get("logging_folder_fullpath")
   ckpt_sched = all_params.get("checkpoint_schedule")
   vis_sched = all_params.get("training_visualization_schedule")
   tb_writer = None
+  if not writer:
+    return None, None
   if ckpt_sched or vis_sched:
     assert logging_path is not None
     logging_path = Path(logging_path)
@@ -449,17 +464,22 @@ def save_checkpoint(logging_path, iteration, dictionary, hessian):
 
 
 def reset_or_prune(event, dictionary, hessian, v_codes, group_assignments,
-                   uses_hessian):
+                   uses_hessian, mesh=None):
   """Apply one reset/prune event (training/reset_prune, the port's copy
-  of vtc_tpu's numpy-only module).  Returns (dictionary, hessian, groups); after a
-  prune that removed rows, ``groups`` is a new list of the groups
+  of vtc_tpu's numpy-only module).  Returns (dictionary, hessian, groups);
+  after a prune that removed rows, ``groups`` is a new list of the groups
   remapped to the remaining rows (vtc_tpu sparse_coding.py:620-633), or
-  None without groups; else it is ``group_assignments`` itself."""
+  None without groups; else it is ``group_assignments`` itself.  The
+  event draws random numbers on the host: with a ``parallel.Mesh`` every
+  rank takes rank 0's outcome."""
   f_params = dict(event["filter_params"])
   f_params["group_assignments"] = group_assignments
-  new_dict, affected, new_groups = reset_prune.reset_or_prune_dict_elements(
+  outcome = reset_prune.reset_or_prune_dict_elements(
       _numpy(dictionary), v_codes, event["filter_type"], f_params,
       event["action"])
+  if mesh is not None:
+    outcome = mesh.broadcast_object(outcome)
+  new_dict, affected, new_groups = outcome
   device = dictionary.device
   dictionary = as_tensor(new_dict, device)
   if not (event["action"] == "prune" and len(affected) > 0):
@@ -532,6 +552,9 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
   if mode == "convolutional":
     kernel_stride = tuple(int(x) for x in all_params["strides"])
     padding = conv_shapes.normalize_padding(all_params["padding"])
+  data_parallel = all_params.get("data_parallel", False)
+  dp_mesh = parallel.resolve_mesh(data_parallel) if data_parallel else None
+  writer = dp_mesh is None or dp_mesh.index == 0
   device = resolve_device(device, init_dictionary)
   dictionary = as_tensor(init_dictionary, device)
   if renormalize:
@@ -545,7 +568,8 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
   rp_schedule = all_params.get("dict_element_rp_schedule")
   print_interval = all_params.get("stdout_print_interval", 1000)
   kernel_reshaping = all_params.get("reshaped_kernel_size")
-  logging_path, tb_writer = open_logging(all_params, group_assignments)
+  logging_path, tb_writer = open_logging(all_params, group_assignments,
+                                         writer)
 
   fc_formulation = all_params.get("fc_formulation", "gram")
   lipschitz_method = all_params.get("lipschitz_method", "eigvalsh")
@@ -558,16 +582,36 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
   is_subspace = inference_alg.startswith("subspace")
 
   def make_step():
-    return build_raw_step_fn(
-        mode, inference_alg, update_alg, nonneg=nonneg,
-        hard_threshold=hard_threshold, kernel_stride=kernel_stride,
-        padding=padding, group_assignments=group_assignments,
-        alignment_penalty=alignment_penalty, renormalize=renormalize,
-        fc_formulation=fc_formulation,
-        conv_formulation=all_params.get("conv_formulation", "auto"),
-        lipschitz_method=lipschitz_method,
-        compute_stepsize_in_step=in_step_stepsize,
-        early_stopping_epsilon=early_eps)
+    if dp_mesh is None:
+      return build_raw_step_fn(
+          mode, inference_alg, update_alg, nonneg=nonneg,
+          hard_threshold=hard_threshold, kernel_stride=kernel_stride,
+          padding=padding, group_assignments=group_assignments,
+          alignment_penalty=alignment_penalty, renormalize=renormalize,
+          fc_formulation=fc_formulation,
+          conv_formulation=all_params.get("conv_formulation", "auto"),
+          lipschitz_method=lipschitz_method,
+          compute_stepsize_in_step=in_step_stepsize,
+          early_stopping_epsilon=early_eps)
+    # the update iteration count is fixed when the step is built, so the
+    # steps are kept per count (schedules rarely change it); the stepsize
+    # is computed in the step (vtc_tpu :484-509)
+    dp_steps = {}
+
+    def step(dictionary, hessian, batch_shard, sw, n_it, upd_stp, n_upd,
+             _unused_stepsize):
+      if n_upd not in dp_steps:
+        dp_steps[n_upd] = parallel.build_dp_local_step(
+            dp_mesh, mode, inference_alg, update_alg, nonneg=nonneg,
+            hard_threshold=hard_threshold,
+            group_assignments=group_assignments,
+            alignment_penalty=alignment_penalty, renormalize=renormalize,
+            fc_formulation=fc_formulation, lipschitz_method=lipschitz_method,
+            upd_num_iters=n_upd, early_stopping_epsilon=early_eps)
+      return dp_steps[n_upd](dictionary, hessian, batch_shard, sw, n_it,
+                             upd_stp)
+
+    return step
 
   step_fn = make_step()
 
@@ -627,7 +671,7 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
       upd_num_iters = int(ent["num_iters"])
 
   for epoch_idx in range(num_epochs):
-    for batch in iterate_batches(training_image_dataset, device):
+    for batch in iterate_batches(training_image_dataset, device, dp_mesh):
       if total_iter % print_interval == 0 and total_iter != 0:
         now = time.time()
         rate = patches_since_print / max(now - last_print_time, 1e-9)
@@ -654,18 +698,18 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
                                  axis=0)
         dictionary, hessian, groups = reset_or_prune(
             rp_schedule[total_iter], dictionary, hessian, v_codes,
-            group_assignments, uses_hessian)
+            group_assignments, uses_hessian, dp_mesh)
         if groups is not group_assignments:  # pruned: rows and groups moved
           group_assignments = groups
           step_fn = make_step()
         previous_dictionary = dictionary
 
       # ---- checkpointing ----
-      if ckpt_sched is not None and total_iter in ckpt_sched:
+      if writer and ckpt_sched is not None and total_iter in ckpt_sched:
         save_checkpoint(logging_path, total_iter, dictionary, hessian)
 
       # ---- validation metrics + dictionary viz ----
-      if vis_sched is not None and total_iter in vis_sched:
+      if writer and vis_sched is not None and total_iter in vis_sched:
         all_metrics = []
         for vb in iterate_batches(validation_image_dataset, device):
           v_codes = infer_only(dictionary, vb, sparsity_weight,
@@ -697,7 +741,8 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
       dictionary, hessian, _ = step_fn(
           dictionary, hessian, batch, sparsity_weight, inf_num_iters,
           upd_stepsize, upd_num_iters, cached_inf_stepsize)
-      patches_since_print += int(batch.shape[0])
+      patches_since_print += int(batch.shape[0]) * (
+          1 if dp_mesh is None else dp_mesh.size)
       total_iter += 1
     print("Epoch", epoch_idx + 1, "finished")
 
