@@ -55,6 +55,13 @@ caught.
   over a gloo group (shards of 125); encode_dataset and PCA on a mesh of
   one.  Kernels K3, K7 and K9, the per-shard solve+stats steps, with one
   all-reduce of their statistics per step and the replicated update.
+* Conv data-parallel training: the scanned conv trainer above with
+  all_params['data_parallel'] on a mesh of one rank (one 200-step segment
+  of 40, bench.py's conv_dp_rdma_batch5 row at b 5 for 100 steps, and 20
+  steps at three update iterations), the per-batch conv trainer at the
+  example's parameters (50 steps of 5) and the conv encode on a mesh of
+  one; the world of 2 runs conv on shards of 20.  Kernel K13, the conv
+  solve+stats step of one shard, in its gradient and gram forms.
 
 The phases that check a refusal (an early stop or a tier the kernels do
 not have yet) require NotImplementedError naming its ROADMAP.md item and
@@ -214,8 +221,8 @@ the phases that make its check here.
    plain version must fail the limit.  One identity each: the replicated
    update from K3's own statistics, (C D - B) / b, is K2's one-step
    output; K7's is K6's (also with the anti-alignment penalty 0.4); K9's
-   is K8's.  The tiers, conv with data_parallel, a code axis of 2 and the
-   data-parallel early stop on the kernel route must be refused.
+   is K8's.  The tiers, a code axis of 2 and the data-parallel early stop
+   on the kernel route must be refused.
 27. A world of 1 through the normal entry points.  First a probe: whether
    torch.distributed has NCCL and a one-rank NCCL group initialises and
    reduces a device tensor (printed; with one, data_parallel=True inside
@@ -233,16 +240,62 @@ the phases that make its check here.
    sub-command --dp-rank) share the GPU, join a gloo group over a file://
    store in a temporary directory, stage the statistics through pinned host
    buffers, and run 50 steepest and 50 cheap-quadratic steps fc and
-   subspace and 50 ICA steps on shards of 125 through the trainers.  Each
-   rank must count 100 K3, 100 K7 and 50 K9 launches and none of K2, K6 or
-   K8; both ranks must return bitwise the same state; and it must match
-   the single-process trainers (K2, K6, K8) on the global batch, the
+   subspace and 50 ICA steps on shards of 125, and 50 steepest, 50
+   cheap-quadratic and 20 gram-form (three update iterations) conv steps
+   on shards of 20 (images each rank makes on the card from one seed)
+   through K17, the sum of each step's statistics called back from its C
+   loop, and 50 cheap-quadratic conv steps on a mesh of two slices
+   (dcn=2), where the trainer takes K13's composition as vtc_tpu does,
+   all through the trainers.  Each rank must count 100 K3, 100 K7, 50 K9,
+   50 K13 and 120 K17 launches and none of K2, K6, K8 or K12; both ranks
+   must return bitwise the same state; and it must match the
+   single-process trainers (K2, K6, K8, K12) on the global batch, the
    steepest and ICA runs within phase 2's limit, the cheap-quadratic ones
    within the rounding floor.  A rank's failure fails the run.
 29. Timing: K3, K7 and K9 ms per step at b 250 and at a shard of 125
    against their plain versions and against K2, K6 and K8's whole steps;
    the host's enqueue time per data-parallel step; the world-of-1
    trainers' patches/s (phase 27's runs).
+30. K13 against plain, in float32 and float64: the flagship (b 40, FISTA
+   25, windowed kernels, exact seed) and a shard of 20 in both forms; b 5
+   with ISTA 25 and random kernels, 12x12 kernels at stride 8
+   (zero-extended), c = 3 hard and nonnegative at a small size, in the
+   gradient form.  Codes, eigenvector and stepsize at phase 2's limit; the
+   sums over the shard (grad_sum, bx, cm, stat) at 1e-5 of their largest
+   entry, without the codes' 1e-4 cap (phase 26's rule for K9's
+   statistic).  The replicated update from K13's gradient-form statistics
+   is K12's one-step output, and from its gram form at three update
+   iterations K12's at three.  A TF32 control must fail the limits; the
+   bf16x3 tier and the early stop must be refused, and so must the gram
+   form where the padding (2 at stride 4) is no stride multiple, by the
+   gate and the wrapper, with no launch.  Then K17, a whole data-parallel
+   segment at a world of 1, against its fp32 and fp64 plain versions over
+   two steps: the flagship in both forms (one and three update
+   iterations), b 5 with ISTA 25, 12x12 kernels zero-extended; the
+   kernels, Hessian and eigenvector at phase 2's limit, the last codes
+   too.  K17's segment must equal K13's composition on the same steps
+   within the limit; a TF32 control must fail; the bf16x3 tier, the early
+   stop and the gram form off its gate must be refused with no launch.
+31. A world of 1 through the entry points: train_dictionary_scanned(
+   data_parallel=True) on phase 19's segment (200 K17 steps, no K13 or
+   K12 step or K10 solve; unit norm, finite, the held-out loss falls, the
+   final
+   kernels within the rounding floor of phase 19's); bench.py's
+   conv_dp_rdma_batch5 row (b 5, 100 steps, on phase 19's images); 20
+   steps at three update iterations, which must take the gram form and
+   land within the floor of K12's run; the per-batch train_dictionary(
+   data_parallel=True) at the example's parameters, 50 steps (the
+   psum-per-op step, held to the trainer checks); encode_dataset over
+   phase 15's images on a mesh of one, bitwise phase 15's codes with 8
+   K10 launches.
+32. Timing: K13 ms per step at b 40 and at a shard of 20 in both forms,
+   against its plain version and K12's whole step (phase 22), each with
+   its bound, and at b 10, 20, 30 and 40; K17 ms per step in both forms
+   against its plain version and K13's composition, with its bound, and
+   at bench.py's b-5 row; the host's enqueue time per conv data-parallel
+   step, K13's composition and K17's segment; the world-of-1 conv
+   trainer's images/s beside phase 19's, the b-5 row's and the per-batch
+   trainer's.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -289,6 +342,8 @@ CUDA_TESTS = {
     "test_torch_port_code_shard.py::test_cuda_kernel_matches_plain": (23,),
     "test_torch_port_conv.py::test_cuda_wrappers_raise_and_match_plain": (
         13, 14),
+    "test_torch_port_conv_parallel.py::test_cuda_conv_dp_runs_k13_and_k17": (
+        30, 31),
     "test_torch_port_conv_scanned.py::test_cuda_k12_matches_plain": (18,),
     "test_torch_port_conv_train.py::test_cuda_conv_trainer_runs_k10": (16,),
     "test_torch_port_ica.py::test_cuda_k8_matches_plain": (20,),
@@ -1481,6 +1536,7 @@ def code_shard_kernel_cases(torch, cs, lipschitz, gen, dev):
 # the data-parallel layer (K3, K7 and K9: the per-shard solve+stats steps)
 # ---------------------------------------------------------------------------
 DP_STEPS2 = 50            # steps of each world-of-2 run
+DP_GRAM_STEPS2 = 20       # steps of the conv gram-form world-of-2 run
 DP_CHILD_TIMEOUT = 600    # seconds a world-of-2 rank may take
 # how far a 1,000-step cheap-quadratic run may sit from the single-device
 # trainer's: FISTA with the cheap-quadratic update amplifies rounding
@@ -1728,31 +1784,57 @@ def nccl_probe(torch, dist, store):
 
 
 # the world-of-2 runs: (key, the family, the update rule or None for the
-# family's cheap-quadratic default)
-DP2_RUNS = (("fc steepest", "fc", "sc_steepest_descent"),
-            ("fc cheap-quad", "fc", None),
-            ("subspace steepest", "subspace", "subspace_sc_steepest_descent"),
-            ("subspace cheap-quad", "subspace", None),
-            ("ica", "ica", None))
+# family's cheap-quadratic default, update iterations, steps, slices of the
+# mesh: 1 is data_parallel=True, 2 a mesh with a 'dcn' axis of 2)
+DP2_RUNS = (("fc steepest", "fc", "sc_steepest_descent", 1, DP_STEPS2, 1),
+            ("fc cheap-quad", "fc", None, 1, DP_STEPS2, 1),
+            ("subspace steepest", "subspace", "subspace_sc_steepest_descent",
+             1, DP_STEPS2, 1),
+            ("subspace cheap-quad", "subspace", None, 1, DP_STEPS2, 1),
+            ("ica", "ica", None, 1, DP_STEPS2, 1),
+            ("conv steepest", "conv", "sc_steepest_descent", 1, DP_STEPS2, 1),
+            ("conv cheap-quad", "conv", None, 1, DP_STEPS2, 1),
+            ("conv cheap-quad upd 3 (gram form)", "conv", None, 3,
+             DP_GRAM_STEPS2, 1),
+            ("conv cheap-quad dcn=2 (K13)", "conv", None, 1, DP_STEPS2, 2))
 
 
-def dp2_run(torch, family, alg, data, data_parallel):
+def dp2_conv_images(torch):
+  """The conv runs' (DP_STEPS2, 40, 1, 272, 272) images, made on the card
+  from a seed: each rank and the parent make the same ones."""
+  from vtc_tpu_torch.ops import convolutions as conv_ops
+  gen = windowed_kernels(np.random.RandomState(0), CONV_S, 1, CONV_K)
+  return conv_segment_images(torch, conv_ops, torch.device("cuda", 0),
+                             DP_STEPS2, gen, seed=28)
+
+
+def dp2_run(torch, family, alg, upd, steps, data, data_parallel, dcn=1):
   """One world-of-2 run, or its single-process twin on the global batch:
-  DP_STEPS2 steps through the trainers' entry points."""
+  ``steps`` steps through the trainers' entry points."""
+  from vtc_tpu_torch import parallel
   from vtc_tpu_torch.training import compiled_epoch, ica
   dev = torch.device("cuda", 0)
-  extra = {"data_parallel": True} if data_parallel else {}
+  extra = {}
+  if data_parallel:
+    extra["data_parallel"] = (True if dcn == 1
+                              else parallel.make_mesh(dcn=dcn))
   if family == "ica":
     return ica.train_dictionary_scanned(
         data["ica_x"], data["ica_d0"],
-        dict(ica_params(DP_STEPS2, ICA_STEP), **extra), device=dev)
-  params = (train_params(DP_STEPS2) if family == "fc"
-            else subspace_train_params(DP_STEPS2, SUB_STEP))
+        dict(ica_params(steps, ICA_STEP), **extra), device=dev)
+  if family == "conv":
+    params = conv_segment_params(steps, SEG_STEP)
+    params["dict_update_param_schedule"] = {
+        0: {"stepsize": SEG_STEP, "num_iters": upd}}
+  else:
+    params = (train_params(steps) if family == "fc"
+              else subspace_train_params(steps, SUB_STEP))
   if alg is not None:
     params["dictionary_update_algorithm"] = alg
-  x = data[family + "_x"]
+  x = data[family + "_x"][:steps]
   return compiled_epoch.train_dictionary_scanned(
-      x, x[:1], data["d0"], dict(params, **extra), device=dev)
+      x, x[:1], data[family + "_d0" if family == "conv" else "d0"],
+      dict(params, **extra), device=dev)
 
 
 def dp_rank_main(rank, world, workdir):
@@ -1763,6 +1845,8 @@ def dp_rank_main(rank, world, workdir):
   import os
   import torch
   import torch.distributed as dist
+  from vtc_tpu_torch.ops import fused_conv_dp_train as K17
+  from vtc_tpu_torch.ops import fused_conv_train as K12
   from vtc_tpu_torch.ops import fused_group_train_step as K6
   from vtc_tpu_torch.ops import fused_ica_train as K8
   from vtc_tpu_torch.ops import fused_train_step as K2
@@ -1770,27 +1854,32 @@ def dp_rank_main(rank, world, workdir):
     print("chip_smoke: no CUDA device", file=sys.stderr)
     return 1
   data = dict(np.load(os.path.join(workdir, "inputs.npz")))
+  data["conv_x"] = dp2_conv_images(torch)
   dist.init_process_group("gloo", init_method="file://" + os.path.join(
       workdir, "store"), rank=rank, world_size=world)
   try:
     out = {}
-    for key, family, alg in DP2_RUNS:
-      out[key] = dp2_run(torch, family, alg, data, True).cpu().numpy()
+    for key, family, alg, upd, steps, dcn in DP2_RUNS:
+      out[key] = dp2_run(torch, family, alg, upd, steps, data, True,
+                         dcn).cpu().numpy()
     torch.cuda.synchronize()
     out["launches"] = np.array([K2.stats_launches, K6.stats_launches,
-                                K8.stats_launches, K2.launches, K6.launches,
-                                K8.launches])
+                                K8.stats_launches, K12.stats_launches,
+                                K17.launches, K2.launches, K6.launches,
+                                K8.launches, K12.launches])
     np.savez(os.path.join(workdir, "rank%d.npz" % rank), **out)
   finally:
     dist.destroy_process_group()
   return 0
 
 
-def dp_world_of_two(torch, fc_x, sub_x, d0, dev):
+def dp_world_of_two(torch, fc_x, sub_x, d0, conv_d0, dev):
   """Phase 28: two processes of this script share the card, join a gloo
   group over a file store and run DP_STEPS2 fc, subspace and ICA steps on
-  shards of 125.  Both ranks must return bitwise the same state, which
-  must match the single-process trainers on the global batch."""
+  shards of 125 and the conv runs on shards of 20.  Both ranks must return
+  bitwise the same state, which must match the single-process trainers on
+  the global batch.  Returns rank 0's launch counts (K3, K7, K9, K13,
+  K17, K2, K6, K8, K12)."""
   import os
   import tempfile
   world = 2
@@ -1801,7 +1890,7 @@ def dp_world_of_two(torch, fc_x, sub_x, d0, dev):
   data = {"fc_x": fc_x[:DP_STEPS2].cpu().numpy(),
           "subspace_x": sub_x[:DP_STEPS2].cpu().numpy(),
           "d0": d0.cpu().numpy(), "ica_x": ica_x.cpu().numpy(),
-          "ica_d0": mixing.cpu().numpy()}
+          "ica_d0": mixing.cpu().numpy(), "conv_d0": conv_d0.cpu().numpy()}
   with tempfile.TemporaryDirectory() as workdir:
     np.savez(os.path.join(workdir, "inputs.npz"), **data)
     t0 = time.perf_counter()
@@ -1820,19 +1909,21 @@ def dp_world_of_two(torch, fc_x, sub_x, d0, dev):
           % codes)
     ranks = [dict(np.load(os.path.join(workdir, "rank%d.npz" % rank)))
              for rank in range(world)]
-  want_launches = [2 * DP_STEPS2, 2 * DP_STEPS2, DP_STEPS2, 0, 0, 0]
+  want_launches = [2 * DP_STEPS2, 2 * DP_STEPS2, DP_STEPS2, DP_STEPS2,
+                   2 * DP_STEPS2 + DP_GRAM_STEPS2, 0, 0, 0, 0]
   for rank, out in enumerate(ranks):
     check(list(out["launches"]) == want_launches,
-          "rank %d launched %s, expected %s (K3, K7, K9, K2, K6, K8)" % (
-              rank, list(out["launches"]), want_launches))
+          "rank %d launched %s, expected %s (K3, K7, K9, K13, K17, K2, K6, "
+          "K8, K12)" % (rank, list(out["launches"]), want_launches))
   print("world of 2 on the one card (gloo, file store, statistics staged "
         "through pinned host buffers): both ranks done in %.1f s, each %d K3, "
-        "%d K7 and %d K9 launches and no K2, K6 or K8" % (
-            dt, *want_launches[:3]))
-  for key, family, alg in DP2_RUNS:
+        "%d K7, %d K9, %d K13 and %d K17 launches and no K2, K6, K8 or K12"
+        % (dt, *want_launches[:5]))
+  data["conv_x"] = dp2_conv_images(torch)
+  for key, family, alg, upd, steps, _ in DP2_RUNS:
     check(np.array_equal(ranks[0][key], ranks[1][key]),
           key + ": the two ranks' replicated state is not bitwise equal")
-    single = dp2_run(torch, family, alg, data, False)
+    single = dp2_run(torch, family, alg, upd, steps, data, False)
     err = float(np.abs(ranks[0][key] - single.cpu().numpy()).max())
     strict = "cheap-quad" not in key
     lim = limit(single) if strict else DP_FLOOR
@@ -1842,6 +1933,312 @@ def dp_world_of_two(torch, fc_x, sub_x, d0, dev):
     check(np.isfinite(ranks[0][key]).all() and err <= lim,
           "%s: world of 2 differs from the single-process run by %.3e, "
           "bound %.3e" % (key, err, lim))
+  return [int(n) for n in ranks[0]["launches"]]
+
+
+# ---------------------------------------------------------------------------
+# conv data parallelism (K13: the conv solve+stats step of one shard)
+# ---------------------------------------------------------------------------
+K13_SUMS = ("grad_sum", "bx", "cm", "stat")  # sums over the shard
+
+
+def conv_stats_flops(geo, b, iters, gram, power_iters=2):
+  """K13's operations for one shard's step: K12's refresh, corr and solve,
+  then the gradient form's residual synthesis and gradient product, or the
+  gram form's bx product and the C_m product.  C_m is symmetric, so it
+  needs (R*s)(R*s + 1) operations per block position, one triangle and
+  the diagonal (the kernel computes both triangles)."""
+  depth = 2.0 * geo["s"] * geo["r"] * geo["cpx"]
+  blocks, codes = geo["bh"] * geo["bw"], geo["code_h"] * geo["code_w"]
+  rs = geo["r"] * geo["s"]
+  stats = (depth + rs * (rs + 1.0)) * blocks if gram else 2 * depth * blocks
+  return (depth * geo["s"] + 2.0 * power_iters * geo["s"] ** 2
+          + b * (depth * (codes + iters * (blocks + codes)) + stats))
+
+
+def conv_stats_bound(geo, b, iters, gram, power_iters=2):
+  """K13, one shard's step: ``conv_stats_flops``; reading the images and
+  the kernels, writing the codes and statistics."""
+  blocks, codes = geo["bh"] * geo["bw"], geo["code_h"] * geo["code_w"]
+  rs = geo["r"] * geo["s"]
+  kernel = geo["c"] * geo["kh"] * geo["kw"]
+  out = geo["cpx"] * rs + (rs * rs if gram else 0) + geo["s"]
+  nbytes = 4.0 * (b * geo["c"] * geo["sv"] * geo["sh"] * blocks
+                  + kernel * geo["s"] + b * geo["s"] * codes + out)
+  return bound(conv_stats_flops(geo, b, iters, gram, power_iters), nbytes)
+
+
+def conv_dp_bound(geo, b, iters, upd_iters, steps, power_iters=2):
+  """K17, one step of a segment of ``steps`` at a world of 1: K13's work
+  on the shard (the gram form at more than one update iteration) and the
+  update, whose gram form adds the product pack(D') C_m, 2 cpx (R*s)^2
+  per update iteration; reading each step's images, and per segment the
+  kernels once, writing the kernels and the last codes once."""
+  gram = upd_iters > 1
+  rs = geo["r"] * geo["s"]
+  flops = (conv_stats_flops(geo, b, iters, gram, power_iters)
+           + (upd_iters * 2.0 * geo["cpx"] * rs * rs if gram else 0.0))
+  blocks, codes = geo["bh"] * geo["bw"], geo["code_h"] * geo["code_w"]
+  kernel = geo["c"] * geo["kh"] * geo["kw"]
+  nbytes = 4.0 * (b * geo["c"] * geo["sv"] * geo["sh"] * blocks
+                  + (2 * kernel * geo["s"] + b * geo["s"] * codes) / steps)
+  return bound(flops, nbytes)
+
+
+def k13_names(gram):
+  return (("codes", "bx", "cm", "stat", "eigvec", "stepsize") if gram
+          else ("codes", "grad_sum", "stat", "eigvec", "stepsize"))
+
+
+def k13_limits(names, want64):
+  """The sums over the shard are held to 1e-5 of their largest entry
+  without the codes' 1e-4 cap (a sum of 43,560 products: K9's rule)."""
+  return {what: REL_TOL * float(w.abs().max())
+          for what, w in zip(names, want64) if what in K13_SUMS}
+
+
+def conv_stats_kernel_cases(torch, K12, parallel, conv_ops, lipschitz,
+                            x_flag, flag_d, padding, dev):
+  """Phase 30: K13 against its fp32 and fp64 plain versions in both forms,
+  its replicated update held to K12's step, a TF32 control and the
+  refusals.  Returns the largest fp32 difference."""
+  stride = (CONV_STRIDE, CONV_STRIDE)
+  x = torch.tensor(x_flag[:SEG_BATCH], device=dev)
+  d = torch.tensor(flag_d, device=dev)
+  d_init = torch.tensor(unit_kernels(np.random.RandomState(2), CONV_S, 1,
+                                     CONV_K), device=dev)
+  gen12 = windowed_kernels(np.random.RandomState(0), CONV_S, 1, 12)
+  x12, pad12 = conv_images(torch, conv_ops, dev, SEG_BATCH, gen12,
+                           CONV_STRIDE, CONV_IMG, seed=3)
+  # c = 3, small, hard and nonnegative (discontinuous thresholds: small
+  # sizes only), stride 4 = kernel; padding 2 is no stride multiple, so the
+  # gram form is refused there
+  rng = np.random.RandomState(6)
+  x3 = torch.tensor(np.pad(rng.randn(3, 3, 16, 16),
+                           ((0, 0), (0, 0), (2, 2), (2, 2))).astype(
+                               np.float32), device=dev)
+  d3 = torch.tensor(unit_kernels(rng, 6, 3, 4), device=dev)
+  pad3 = ((2, 2), (2, 2))
+  # (name, images, kernels, stride, padding, lambda, iters, forms, flags)
+  cases = [
+      ("flagship b40 fista25", x, d, stride, padding, CONV_LAM, SEG_ITERS,
+       (False, True), {}),
+      ("shard b20 fista25", x[:SEG_BATCH // 2], d, stride, padding, CONV_LAM,
+       SEG_ITERS, (False, True), {}),
+      ("b5 ista25 random kernels", x[:CONV_TRAIN_BATCH], d_init, stride,
+       padding, CONV_LAM, CONV_TRAIN_ITERS, (False,), {"variant": "ista"}),
+      ("12x12/8 zero-extended 268 b40", torch.tensor(x12, device=dev),
+       torch.tensor(gen12, device=dev), stride, pad12, CONV_LAM, SEG_ITERS,
+       (False,), {}),
+      ("c3 4x4/4 ista hard", x3, d3, (4, 4), pad3, 0.05, 20, (False,),
+       {"variant": "ista", "hard": True}),
+      ("c3 4x4/4 fista nonneg", x3, d3, (4, 4), pad3, 0.05, 20, (False,),
+       {"nonneg": True}),
+  ]
+  worst = 0.0
+  for name, xb, dk, strd, pad, lam, iters, forms, flags in cases:
+    s = dk.shape[0]
+    v = lipschitz.top_gram_eigenpair(dk.reshape(s, -1))[1].contiguous()
+    for gram in forms:
+      kw = dict(flags, kernel_stride=strd, padding=pad, power_iters=2,
+                gram_stats=gram)
+      before = K12.stats_launches
+      got = K12.conv_solve_stats(dk, v, xb, lam, iters, **kw)
+      check(K12.stats_launches == before + 1, name + ": K13 did not count")
+      want32 = K12.conv_solve_stats_plain(dk, v, xb, lam, iters, **kw)
+      want64 = K12.conv_solve_stats_plain(dk.double(), v.double(),
+                                          xb.double(), lam, iters, **kw)
+      torch.cuda.synchronize()
+      names = k13_names(gram)
+      worst = max(worst, compare_outputs(
+          torch, "K13 %s %s" % (name, "gram" if gram else "grad"), names,
+          got, want32, want64, k13_limits(names, want64)))
+  # the replicated update from K13's statistics is K12's step: the
+  # gradient form at one update iteration, the gram form at three
+  mesh1 = parallel.make_mesh()
+  h = torch.zeros(CONV_S, device=dev)
+  v = lipschitz.top_gram_eigenpair(d.reshape(CONV_S, -1))[1].contiguous()
+  step_names = ("dictionary", "hessian", "eigvec", "codes")
+  for upd in (1, 3):
+    k12 = K12.fused_conv_train_segment(
+        d, h, v, x[None], CONV_LAM, SEG_ITERS, SEG_STEP, kernel_stride=stride,
+        padding=padding, upd_num_iters=upd, power_iters=2)
+    dp = parallel.build_dp_conv_fused_local_step(
+        mesh1, "fista", "sc_cheap_quadratic_descent", kernel_stride=stride,
+        padding=padding, upd_num_iters=upd, power_iters=2)(
+            d, h, v, x, CONV_LAM, SEG_ITERS, SEG_STEP)
+    torch.cuda.synchronize()
+    worst = max(worst, compare_outputs(
+        torch, "K13 update == K12 step, %s form upd %d" % (
+            "gram" if upd > 1 else "gradient", upd), step_names, dp, k12,
+        [t.double() for t in k12]))
+    print("K13 update vs K12 step upd %d: Hessian bitwise equal %s" % (
+        upd, bool((dp[1] == k12[1]).all())))
+  # control: TF32 products in the plain version must fail the limits
+  names = k13_names(False)
+  kw = dict(kernel_stride=stride, padding=padding, power_iters=2)
+  want64 = K12.conv_solve_stats_plain(d.double(), v.double(), x.double(),
+                                      CONV_LAM, SEG_ITERS, **kw)
+  tf32 = K12.conv_solve_stats_plain(d, v, x, CONV_LAM, SEG_ITERS,
+                                    precision="tensorfloat32", **kw)
+  limits = k13_limits(names, want64)
+  ratios = []
+  for what, t, w in zip(names, tf32, want64):
+    err = float((t.double() - w).abs().max())
+    lim = limits.get(what, limit(w))
+    ratios.append(err / lim)
+    print("control: K13 plain with TF32 products, %-10s max|d| fp64 %.3e, "
+          "limit %.3e" % (what, err, lim))
+  check(max(ratios) > 1.0, "the limit does not tell TF32 products from fp32")
+  # the refusals: no launch
+  for label, call, kind, item in (
+      ("K13 mxu='bf16x3'", lambda: K12.conv_solve_stats(
+          d, v, x[:2], CONV_LAM, 5, mxu="bf16x3", **kw), NotImplementedError,
+       "item 3a"),
+      ("K13 early_stopping_epsilon", lambda: K12.conv_solve_stats(
+          d, v, x[:2], CONV_LAM, 5, early_stopping_epsilon=1e-3, **kw),
+       NotImplementedError, "item 3a"),
+      ("K13 gram form at padding 2, stride 4", lambda: K12.conv_solve_stats(
+          d3, torch.ones(6, device=dev), x3, 0.05, 5, kernel_stride=(4, 4),
+          padding=pad3, gram_stats=True), ValueError, "gram_stats")):
+    before = K12.stats_launches
+    try:
+      call()
+    except kind as err:
+      check(item in str(err), "%s: the refusal names no %s: %s" % (
+          label, item, err))
+    else:
+      raise RuntimeError("chip_smoke: %s was not refused" % label)
+    check(K12.stats_launches == before, label + " launched K13")
+    print("refused on the card: %s (%s)" % (label, item))
+  check(not K12.conv_solve_stats_supported(
+      x3.shape, d3.shape, (4, 4), "fista", "sc_cheap_quadratic_descent",
+      upd_num_iters=3, padding=pad3), "the gate admits the gram form at "
+        "padding 2, stride 4")
+  return worst
+
+
+K17_NAMES = ("kernels", "hessian", "eigvec", "codes")
+
+
+def conv_dp_kernel_cases(torch, K17, K12, parallel, compiled_epoch, conv_ops,
+                         lipschitz, x_flag, flag_d, padding, dev):
+  """Phase 30, second half: K17, a whole data-parallel segment at a world
+  of 1, against its fp32 and fp64 plain versions, against K13's
+  composition, a TF32 control and the refusals.  Returns the largest fp32
+  difference."""
+  stride = (CONV_STRIDE, CONV_STRIDE)
+  mesh1 = parallel.make_mesh()
+  x2 = torch.tensor(x_flag[:2 * SEG_BATCH], device=dev).reshape(
+      (2, SEG_BATCH) + x_flag.shape[1:])
+  d = torch.tensor(flag_d, device=dev)
+  gen12 = windowed_kernels(np.random.RandomState(0), CONV_S, 1, 12)
+  x12, pad12 = conv_images(torch, conv_ops, dev, SEG_BATCH, gen12,
+                           CONV_STRIDE, CONV_IMG, seed=3)
+  cq, sd = "sc_cheap_quadratic_descent", "sc_steepest_descent"
+  # (name, batches, kernels, stride, padding, lambda, iters, flags)
+  cases = [
+      ("flagship 2 x b40 fista25 cheap-quad", x2, d, stride, padding,
+       CONV_LAM, SEG_ITERS, {}),
+      ("flagship 2 x b40 upd 3 (gram form)", x2, d, stride, padding,
+       CONV_LAM, SEG_ITERS, {"upd_num_iters": 3}),
+      ("2 x b5 ista25 cheap-quad", x2[:, :CONV_TRAIN_BATCH].contiguous(), d,
+       stride, padding, CONV_LAM, CONV_TRAIN_ITERS, {"variant": "ista"}),
+      ("12x12/8 zero-extended 268 b40 steepest",
+       torch.tensor(x12, device=dev)[None], torch.tensor(gen12, device=dev),
+       stride, pad12, CONV_LAM, SEG_ITERS, {"update_alg": sd}),
+  ]
+  worst, outputs = 0.0, {}
+  for name, xb, dk, strd, pad, lam, iters, flags in cases:
+    s = dk.shape[0]
+    h = torch.full((s,), 0.01, device=dev)
+    v = lipschitz.top_gram_eigenpair(dk.reshape(s, -1))[1].contiguous()
+    kw = dict(flags, mesh=mesh1, kernel_stride=strd, padding=pad,
+              power_iters=2)
+    args = (lam, iters, SEG_STEP)
+    before = K17.launches
+    got = K17.fused_conv_dp_train_segment(dk, h, v, xb, *args, **kw)
+    check(K17.launches == before + xb.shape[0], name + ": K17 did not count")
+    want32 = K17.fused_conv_dp_train_plain(dk, h, v, xb, *args, **kw)
+    want64 = K17.fused_conv_dp_train_plain(dk.double(), h.double(),
+                                           v.double(), xb.double(), *args,
+                                           **kw)
+    torch.cuda.synchronize()
+    outputs[name] = (got, want64)
+    worst = max(worst, compare_outputs(torch, "K17 " + name, K17_NAMES, got,
+                                       want32, want64))
+  # K17's segment is K13's composition on the same steps
+  h = torch.full((CONV_S,), 0.01, device=dev)
+  v = lipschitz.top_gram_eigenpair(d.reshape(CONV_S, -1))[1].contiguous()
+  for name, upd in (("flagship 2 x b40 fista25 cheap-quad", 1),
+                    ("flagship 2 x b40 upd 3 (gram form)", 3)):
+    runner = compiled_epoch._dp_fused_segment_runner(
+        parallel.build_dp_conv_fused_local_step(
+            mesh1, "fista", cq, kernel_stride=stride, padding=padding,
+            upd_num_iters=upd, power_iters=2))
+    comp = runner(d, h, v, x2, CONV_LAM, SEG_ITERS, SEG_STEP)
+    got, want64 = outputs[name]
+    torch.cuda.synchronize()
+    worst = max(worst, compare_outputs(
+        torch, "K17 == K13's composition, upd %d" % upd, K17_NAMES[:3],
+        got[:3], comp, want64[:3]))
+  # control: TF32 products in the plain version must fail the limits
+  kw = dict(mesh=mesh1, kernel_stride=stride, padding=padding, power_iters=2)
+  tf32 = K17.fused_conv_dp_train_plain(d, h, v, x2, CONV_LAM, SEG_ITERS,
+                                       SEG_STEP, precision="tensorfloat32",
+                                       **kw)
+  want64 = outputs["flagship 2 x b40 fista25 cheap-quad"][1]
+  ratios = []
+  for what, t, w in zip(K17_NAMES, tf32, want64):
+    err = float((t.double() - w).abs().max())
+    ratios.append(err / limit(w))
+    print("control: K17 plain with TF32 products, %-10s max|d| fp64 %.3e, "
+          "limit %.3e" % (what, err, limit(w)))
+  check(max(ratios) > 1.0, "the limit does not tell TF32 products from fp32")
+  # the refusals: no launch
+  rng = np.random.RandomState(6)
+  x3 = torch.tensor(np.pad(rng.randn(1, 3, 3, 16, 16),
+                           ((0, 0), (0, 0), (0, 0), (2, 2), (2, 2))).astype(
+                               np.float32), device=dev)
+  d3 = torch.tensor(unit_kernels(rng, 6, 3, 4), device=dev)
+  six = torch.ones(6, device=dev)
+  for label, call, kind, item in (
+      ("K17 mxu='bf16x3'", lambda: K17.fused_conv_dp_train_segment(
+          d, h, v, x2[:, :2], CONV_LAM, 5, SEG_STEP, mxu="bf16x3", **kw),
+       NotImplementedError, "item 3a"),
+      ("K17 early_stopping_epsilon", lambda: K17.fused_conv_dp_train_segment(
+          d, h, v, x2[:, :2], CONV_LAM, 5, SEG_STEP,
+          early_stopping_epsilon=1e-3, **kw), NotImplementedError, "item 3a"),
+      ("K17 gram form at padding 2, stride 4",
+       lambda: K17.fused_conv_dp_train_segment(
+           d3, six, six, x3, 0.05, 5, 0.05, mesh=mesh1, kernel_stride=(4, 4),
+           padding=((2, 2), (2, 2)), upd_num_iters=3), ValueError,
+       "conv_solve_stats_supported")):
+    before = K17.launches
+    try:
+      call()
+    except kind as err:
+      check(item in str(err), "%s: the refusal names no %s: %s" % (
+          label, item, err))
+    else:
+      raise RuntimeError("chip_smoke: %s was not refused" % label)
+    check(K17.launches == before, label + " launched K17")
+    print("refused on the card: %s (%s)" % (label, item))
+  return worst
+
+
+def k17_calls(K17):
+  """Record the (steps, upd_num_iters) of each K17 segment call, and a
+  function that puts the wrapper back."""
+  calls = []
+  original = K17.fused_conv_dp_train_segment
+
+  def counted(*args, **kwargs):
+    calls.append((int(args[3].shape[0]), int(kwargs["upd_num_iters"])))
+    return original(*args, **kwargs)
+
+  K17.fused_conv_dp_train_segment = counted
+  return calls, lambda: setattr(K17, "fused_conv_dp_train_segment", original)
 
 
 def time_ms(torch, fn, reps):
@@ -2455,7 +2852,6 @@ def main():
   check(np.isfinite(sloss1) and sloss1 < sloss0,
         "held-out conv LASSO loss did not fall: %.6f -> %.6f" % (sloss0,
                                                                  sloss1))
-  del seg_images, seg_batches
 
   # phase 20: K8 against plain on the card
   g = torch.Generator(device=dev).manual_seed(20)
@@ -2744,11 +3140,6 @@ def main():
   k3_err, k7_err, k9_err = dp_kernel_cases(
       torch, parallel, K2, K6, K8, ica, sub, lipschitz, invertible_linear,
       train_patches, gtrain, dev)
-  check_refuses("conv train_dictionary_scanned data_parallel", lambda: (
-      compiled_epoch.train_dictionary_scanned(
-          cbatches[:2], cheld[None], cd0,
-          dict(conv_segment_params(2, SEG_STEP), data_parallel=True))), "9",
-                K12)
   check_refuses("a mesh with a code axis of 2",
                 lambda: parallel.make_mesh(code=2), "9")
   check_refuses("data-parallel train_dictionary_scanned "
@@ -2882,7 +3273,7 @@ def main():
         % (NUM_BATCHES, NUM_BATCHES))
 
   # phase 28: a world of 2 on the one card
-  dp_world_of_two(torch, batches, gbatches, d0, dev)
+  dp2_launches = dp_world_of_two(torch, batches, gbatches, d0, sd0, dev)
 
   # phase 29: data-parallel timing (warm)
   xs250 = batches[0]
@@ -2958,6 +3349,240 @@ def main():
         "%.1f patches/s (single-device: phases 7, 12 and 22) [%s]" % (
             dp_rates["fc"], dp_rates["subspace"], dp_rates["ica"], card))
 
+  # phase 30: K13 and K17 against their plain versions on the card
+  from vtc_tpu_torch.ops import fused_conv_dp_train as K17
+  stride = (CONV_STRIDE, CONV_STRIDE)
+  k13_err = conv_stats_kernel_cases(torch, K12, parallel, conv_ops, lipschitz,
+                                    cimages, conv_gen, cpad, dev)
+  k17_err = conv_dp_kernel_cases(torch, K17, K12, parallel, compiled_epoch,
+                                 conv_ops, lipschitz, cimages, conv_gen, cpad,
+                                 dev)
+
+  # phase 31: a world of 1 through the entry points.  The scanned conv
+  # trainer on phase 19's segment: K17 every step, no K13 or K12 step
+  K17.launches = K12.stats_launches = K12.launches = 0
+  K10.launches = K11.launches = 0
+  t0 = time.perf_counter()
+  dp_strained = compiled_epoch.train_dictionary_scanned(
+      seg_batches, seg_held[None], sd0,
+      dict(conv_segment_params(SEG_STEPS, SEG_STEP), data_parallel=True))
+  torch.cuda.synchronize()
+  dp_seg_s = time.perf_counter() - t0
+  k17_launches, k13_in_dp = K17.launches, K12.stats_launches
+  k12_in_dp, k10_in_dp = K12.launches, K10.launches + K11.launches
+  print("world of 1, conv train_dictionary_scanned(data_parallel=True): %d "
+        "K17 steps, %d K13 steps, %d K12 steps, %d K10/K11 solves" % (
+            k17_launches, k13_in_dp, k12_in_dp, k10_in_dp))
+  check(k17_launches == SEG_STEPS and k13_in_dp == 0 and k12_in_dp == 0
+        and k10_in_dp == 0, "expected %d K17 steps and no K13 or K12 step "
+        "or K10 solve" % SEG_STEPS)
+  check(bool(torch.isfinite(dp_strained).all()), "non-finite conv kernels")
+  dp_norm_err = float((torch.linalg.vector_norm(
+      dp_strained.reshape(CONV_S, -1), dim=1) - 1).abs().max())
+  dp_sloss = held_out_fista_conv_loss(conv_ista_fista, sparse_coding,
+                                      seg_held, dp_strained)
+  apart = float((dp_strained - strained).abs().max())
+  print("world of 1, conv scanned: kernels unit norm within %.2e; held-out "
+        "conv LASSO loss %.6f -> %.6f (single device %.6f); final kernels "
+        "max|d| %.3e from phase 19's (rounding floor %.1e)" % (
+            dp_norm_err, sloss0, dp_sloss, sloss1, apart, DP_FLOOR))
+  check(dp_norm_err <= 1e-4, "kernels not unit norm: %.3e" % dp_norm_err)
+  check(np.isfinite(dp_sloss) and dp_sloss < sloss0,
+        "held-out conv LASSO loss did not fall: %.6f -> %.6f" % (sloss0,
+                                                                 dp_sloss))
+  check(apart <= DP_FLOOR, "the conv data-parallel trainer's kernels are "
+        "%.3e from the single-device trainer's, floor %.1e" % (apart,
+                                                               DP_FLOOR))
+  # bench.py's conv_dp_rdma_batch5 row (:806-815, the row K17 runs on the
+  # TPU): b 5, 100 steps, on phase 19's images
+  b5_batches = seg_batches.reshape((-1, CONV_TRAIN_BATCH)
+                                   + seg_batches.shape[2:])[:100]
+  K17.launches = 0
+  t0 = time.perf_counter()
+  b5_trained = compiled_epoch.train_dictionary_scanned(
+      b5_batches, seg_held[None], sd0,
+      dict(conv_segment_params(100, SEG_STEP), data_parallel=True))
+  torch.cuda.synchronize()
+  b5_s = time.perf_counter() - t0
+  b5_norm = float((torch.linalg.vector_norm(
+      b5_trained.reshape(CONV_S, -1), dim=1) - 1).abs().max())
+  print("world of 1, conv scanned b5 (bench's conv_dp_rdma_batch5): %d K17 "
+        "steps; kernels finite %s, unit norm within %.2e" % (
+            K17.launches, bool(torch.isfinite(b5_trained).all()), b5_norm))
+  check(K17.launches == 100 and bool(torch.isfinite(b5_trained).all())
+        and b5_norm <= 1e-4, "the b-5 conv DP row did not run 100 K17 steps "
+        "to finite unit-norm kernels")
+  # 20 steps at three update iterations: the gram form
+  gparams = conv_segment_params(20, SEG_STEP)
+  gparams["dict_update_param_schedule"] = {
+      0: {"stepsize": SEG_STEP, "num_iters": 3}}
+  calls, restore = k17_calls(K17)
+  try:
+    K17.launches = K12.stats_launches = K12.launches = 0
+    gdp = compiled_epoch.train_dictionary_scanned(
+        seg_batches[:20], seg_held[None], sd0,
+        dict(gparams, data_parallel=True))
+    torch.cuda.synchronize()
+    gform = list(calls), K17.launches, K12.stats_launches, K12.launches
+  finally:
+    restore()
+  gone = compiled_epoch.train_dictionary_scanned(
+      seg_batches[:20], seg_held[None], sd0, gparams)
+  gapart = float((gdp - gone).abs().max())
+  print("world of 1, conv scanned upd 3: K17 calls (steps, update "
+        "iterations) %s, %d K17, %d K13 and %d K12 steps; max|d| %.3e from "
+        "the single-device K12 run (rounding floor %.1e)" % (
+            *gform, gapart, DP_FLOOR))
+  check(gform == ([(20, 3)], 20, 0, 0),
+        "the upd-3 segment did not take K17's gram form: %s" % (gform,))
+  check(bool(torch.isfinite(gdp).all()) and gapart <= DP_FLOOR,
+        "the gram-form segment is %.3e from K12's" % gapart)
+  # the per-batch trainer at the example's parameters: the psum-per-op step
+  t0 = time.perf_counter()
+  pb_trained = sparse_coding.train_dictionary(
+      cbatches[:50], cheld[None], cd0,
+      dict(conv_train_params(50), data_parallel=True))
+  torch.cuda.synchronize()
+  pb_s = time.perf_counter() - t0
+  pb_norm = float((torch.linalg.vector_norm(
+      pb_trained.reshape(CONV_S, -1), dim=1) - 1).abs().max())
+  pb_loss = held_out_conv_loss(conv_ista_fista, sparse_coding, cheld,
+                               pb_trained)
+  print("world of 1, conv train_dictionary(data_parallel=True) 50 steps of "
+        "%d: kernels unit norm within %.2e; held-out conv LASSO loss %.6f -> "
+        "%.6f" % (CONV_TRAIN_BATCH, pb_norm, closs0, pb_loss))
+  check(bool(torch.isfinite(pb_trained).all()) and pb_norm <= 1e-4,
+        "per-batch conv DP: kernels not finite or not unit norm")
+  check(np.isfinite(pb_loss) and pb_loss < closs0,
+        "per-batch conv DP: held-out loss did not fall: %.6f -> %.6f" % (
+            closs0, pb_loss))
+  # the conv encode with a mesh of one: phase 15's codes, bitwise
+  K10.launches = K11.launches = 0
+  dp_ccodes = encode_dataset(cimages, conv_d, CONV_LAM, CONV_ITERS,
+                             data_parallel=mesh1, **conv_kw)
+  check(K10.launches == n_conv_batches and K11.launches == 0,
+        "conv encode with a mesh of one: %d K10 launches, expected %d" % (
+            K10.launches, n_conv_batches))
+  check(np.array_equal(dp_ccodes, ccodes),
+        "conv encode with a mesh of one differs from phase 15's codes")
+  print("world of 1: conv encode_dataset (%d K10 launches) with a mesh of one "
+        "equals phase 15's codes bitwise" % n_conv_batches)
+
+  # phase 32: conv data-parallel timing (warm)
+  xs40 = seg_batches[0]
+  xs20 = xs40[:SEG_BATCH // 2].contiguous()
+  k13_kw = dict(kernel_stride=stride, padding=cpad, power_iters=2)
+  k13_run = lambda xx, gram: (lambda: K12.conv_solve_stats(
+      sd0, sv0, xx, CONV_LAM, SEG_ITERS, gram_stats=gram, **k13_kw))
+  k13_plain = lambda gram: (lambda: K12.conv_solve_stats_plain(
+      sd0, sv0, xs40, CONV_LAM, SEG_ITERS, gram_stats=gram, **k13_kw))
+  k13_times = {}
+  with torch.no_grad():
+    for gram in (False, True):
+      k13_run(xs40, gram)(), k13_run(xs20, gram)(), k13_plain(gram)()
+      plain_runs = [time_ms(torch, k13_plain(gram), 10)]
+      runs = [time_ms(torch, k13_run(xs40, gram), 10),
+              time_ms(torch, k13_run(xs40, gram), 10)]
+      half_ms = time_ms(torch, k13_run(xs20, gram), 10)
+      plain_runs.append(time_ms(torch, k13_plain(gram), 10))
+      k13_times[gram] = (sum(runs) / 2, sum(plain_runs) / 2, half_ms)
+      full_b = conv_stats_bound(seg_geo, SEG_BATCH, SEG_ITERS, gram)
+      half_b = conv_stats_bound(seg_geo, SEG_BATCH // 2, SEG_ITERS, gram)
+      print("K13 %s form ms per step (b=40 1x272x272, 64 16x16/8, fista 25): "
+            "%.4f (runs %.4f, %.4f); plain %.4f (runs %.4f, %.4f); bound "
+            "%.4f (%s); a shard of 20: %.4f, bound %.4f; K12's whole step "
+            "%.4f (phase 22) [%s]" % (
+                "gram" if gram else "gradient", k13_times[gram][0], *runs,
+                k13_times[gram][1], *plain_runs, full_b[0], full_b[1],
+                half_ms, half_b[0], k12_ms, card))
+  k13_ms, k13_p_ms = k13_times[False][:2]
+  k13_bound = conv_stats_bound(seg_geo, SEG_BATCH, SEG_ITERS, False)
+  # K13 over the batch: per image, does the time step where the working
+  # set (image blocks, codes, momentum and correlations) leaves the 50 MB L2?
+  sweep = []
+  with torch.no_grad():
+    for b in (10, 20, 30, 40):
+      xb = xs40[:b].contiguous()
+      k13_run(xb, False)()
+      sweep.append((b, time_ms(torch, k13_run(xb, False), 10)))
+  print("K13 gradient form over the batch: %s ms per step, %s ms per image "
+        "[%s]" % (", ".join("b %d %.4f" % bt for bt in sweep),
+                  ", ".join("%.4f" % (t / b) for b, t in sweep), card))
+  # K17: the whole data-parallel segment at a world of 1, 10 steps of 40,
+  # against its plain version (2 steps) and K13's composition
+  seg_k = seg_batches[:10]
+  k17_kw = dict(mesh=mesh1, kernel_stride=stride, padding=cpad,
+                power_iters=2)
+  k17_run = lambda xx, upd: (lambda: K17.fused_conv_dp_train_segment(
+      sd0, sh0, sv0, xx, CONV_LAM, SEG_ITERS, SEG_STEP, upd_num_iters=upd,
+      **k17_kw))
+  k17_plain = lambda upd: (lambda: K17.fused_conv_dp_train_plain(
+      sd0, sh0, sv0, seg_k[:2], CONV_LAM, SEG_ITERS, SEG_STEP,
+      upd_num_iters=upd, **k17_kw))
+  k17_times = {}
+  with torch.no_grad():
+    for upd in (1, 3):
+      k17_run(seg_k[:2], upd)(), k17_plain(upd)()
+      plain_runs = [time_ms(torch, k17_plain(upd), 5) / 2]
+      runs = [time_ms(torch, k17_run(seg_k, upd), 3) / 10,
+              time_ms(torch, k17_run(seg_k, upd), 3) / 10]
+      plain_runs.append(time_ms(torch, k17_plain(upd), 5) / 2)
+      k17_times[upd] = (sum(runs) / 2, sum(plain_runs) / 2)
+      k17_b = conv_dp_bound(seg_geo, SEG_BATCH, SEG_ITERS, upd, 10)
+      print("K17 %s form ms per step (a segment of 10 steps of b=40, upd %d): "
+            "%.4f (runs %.4f, %.4f); plain %.4f (runs %.4f, %.4f); bound "
+            "%.4f (%s); K13 alone %.4f [%s]" % (
+                "gram" if upd > 1 else "gradient", upd, k17_times[upd][0],
+                *runs, k17_times[upd][1], *plain_runs, k17_b[0], k17_b[1],
+                k13_times[upd > 1][0], card))
+    b5_seg = seg_batches.reshape((-1, CONV_TRAIN_BATCH)
+                                 + seg_batches.shape[2:])[:100]
+    k17_run(b5_seg[:2], 1)()
+    b5_k17_ms = time_ms(torch, k17_run(b5_seg, 1), 3) / 100
+  k17_ms, k17_p_ms = k17_times[1]
+  k17_bound = conv_dp_bound(seg_geo, SEG_BATCH, SEG_ITERS, 1, 10)
+  b5_bound = conv_dp_bound(seg_geo, CONV_TRAIN_BATCH, SEG_ITERS, 1, 100)
+  print("K17 at bench.py's b-5 row (100 steps of 5, one segment): %.4f ms "
+        "per step, bound %.4f ms (%s) [%s]" % (b5_k17_ms, b5_bound[0],
+                                               b5_bound[1], card))
+  # the host's share: K13's composition is one Python call per step, K17
+  # one C loop per segment.  A step is about 80 launches, so 5 steps
+  # enqueue inside the launch queue (about a thousand) and time the host
+  # alone; 50 steps fill it, and the host then waits on the device.
+  composition = compiled_epoch._dp_fused_segment_runner(
+      parallel.build_dp_conv_fused_local_step(
+          mesh1, "fista", "sc_cheap_quadratic_descent", kernel_stride=stride,
+          padding=cpad, power_iters=2))
+  k17_runner = compiled_epoch._dp_conv_segment_runner(
+      mesh1, "fista", "sc_cheap_quadratic_descent", 1, False, False, True,
+      stride, cpad)
+  with torch.no_grad():
+    for label, runner in (("K13's composition", composition),
+                          ("K17's segment", k17_runner)):
+      runner(sd0, sh0, sv0, seg_batches[:3], CONV_LAM, SEG_ITERS, SEG_STEP)
+      for k in (5, 50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner(sd0, sh0, sv0, seg_batches[:k], CONV_LAM, SEG_ITERS, SEG_STEP)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        print("data-parallel conv step at a world of 1, %s (%d steps of "
+              "40): host enqueue %.4f ms per step, device and host together "
+              "%.4f ms per step [%s]" % (label, k, 1e3 * host / k,
+                                         1e3 * total / k, card))
+  print("conv train_dictionary_scanned(data_parallel=True) at a world of 1, "
+        "%d steps of %d: %.2f images/s (phase 31's run); single device %.2f "
+        "images/s (phase 19's run); the b-5 row %.2f images/s; per-batch "
+        "train_dictionary(data_parallel=True) %.2f images/s [%s]" % (
+            SEG_STEPS, SEG_BATCH, SEG_STEPS * SEG_BATCH / dp_seg_s,
+            SEG_STEPS * SEG_BATCH / seg_s, 100 * CONV_TRAIN_BATCH / b5_s,
+            50 * CONV_TRAIN_BATCH / pb_s, card))
+  print("the b-5 row through the trainer: %.4f ms per step (host clock), "
+        "bound %.4f ms (%s) [%s]" % (1e3 * b5_s / 100, b5_bound[0],
+                                      b5_bound[1], card))
+  del seg_images, seg_batches
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -3001,6 +3626,12 @@ def main():
       ("ica_solve_stats", "fused_ica_train_step.cu",
        "vtc_tpu/ops/pallas_ica_train.py:250", k9_launches, k9_err,
        dp_times["K9"][0], dp_times["K9"][1], k9_bound),
+      ("conv_solve_stats", "fused_conv_train_step.cu",
+       "vtc_tpu/ops/pallas_conv_train.py:922", dp2_launches[3], k13_err,
+       k13_ms, k13_p_ms, k13_bound),
+      ("fused_conv_dp_train", "fused_conv_train_step.cu",
+       "vtc_tpu/ops/pallas_conv_dp_train.py:399", k17_launches, k17_err,
+       k17_ms, k17_p_ms, k17_bound),
   ]
   print(json.dumps({"kernels": [{
       "name": name,

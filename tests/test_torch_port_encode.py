@@ -144,13 +144,16 @@ def test_encode_dataset_options_match_jax(problem):
 def test_encode_dataset_rejects_unported_options(problem):
   x, d = problem
   # mode='convolutional' is ported (tests/test_torch_port_conv.py), and so
-  # is data_parallel for fc and subspace (tests/
-  # test_torch_port_parallel_train.py); conv with data_parallel waits
-  images = np.zeros((4, 1, 12, 12), np.float32)
+  # is data_parallel in every mode (tests/test_torch_port_parallel_train.py,
+  # tests/test_torch_port_conv_parallel.py): conv with one rank is the
+  # plain call
+  images = np.random.RandomState(1).randn(4, 1, 12, 12).astype(np.float32)
   kernels = np.ones((3, 1, 4, 4), np.float32) / 4.0
-  with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9"):
-    encode_dataset(images, kernels, LAM, 5, device="cpu", data_parallel=True,
-                   mode="convolutional", kernel_stride=(2, 2))
+  conv = dict(mode="convolutional", kernel_stride=(2, 2), batch_size=2)
+  assert np.array_equal(
+      encode_dataset(images, kernels, LAM, 5, device="cpu", data_parallel=True,
+                     **conv),
+      encode_dataset(images, kernels, LAM, 5, device="cpu", **conv))
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     encode_dataset(x, d, LAM, 5, device="cpu", mxu_precision="bf16")
   with pytest.raises(TypeError, match="data_parallel"):

@@ -409,12 +409,7 @@ def test_code_axis_and_gspmd_wait():
                 lambda: parallel.Mesh(1, code=2),
                 lambda: parallel.build_pjit_train_step(
                     parallel.make_mesh(), "fully-connected", "fista",
-                    "sc_steepest_descent"),
-                lambda: parallel.build_dp_local_step(
-                    parallel.make_mesh(), "convolutional", "fista",
-                    "sc_steepest_descent", kernel_stride=(2, 2)),
-                lambda: parallel.data_parallel.build_dp_conv_fused_local_step(
-                    parallel.make_mesh(), "fista", "sc_steepest_descent")):
+                    "sc_steepest_descent")):
     with pytest.raises(NotImplementedError, match="item 9"):
       build()
 

@@ -428,18 +428,6 @@ def test_world_of_one_ica_pca_encode():
 
 
 def test_refusals_that_still_hold():
-  conv = np.random.RandomState(7).randn(2, 4, 1, 12, 12).astype(np.float32)
-  kernels = np.random.RandomState(8).randn(6, 1, 4, 4).astype(np.float32)
-  kernels /= np.sqrt((kernels ** 2).sum(axis=(1, 2, 3), keepdims=True))
-  params = _params(mode="convolutional", strides=(2, 2),
-                   padding=((2, 2), (2, 2)), data_parallel=True)
-  for fn in (sc.train_dictionary, compiled_epoch.train_dictionary_scanned):
-    with pytest.raises(NotImplementedError, match="item 9"):
-      fn(conv, conv[:1], kernels, params, device="cpu")
-  with pytest.raises(NotImplementedError, match="item 9"):
-    encode_dataset(conv[0], kernels, 0.05, 5, mode="convolutional",
-                   kernel_stride=(2, 2), data_parallel=parallel.make_mesh(),
-                   device="cpu")
   with pytest.raises(ValueError, match="per-batch ICA trainer"):
     ica.train_dictionary(ICA_BATCHES, ICA_D0,
                          _ica_params(data_parallel=True), device="cpu")

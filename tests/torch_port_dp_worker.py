@@ -25,7 +25,10 @@ import torch
 import torch.distributed as dist
 
 from vtc_tpu_torch import parallel
+from vtc_tpu_torch.analysis_transforms.convolutional import (
+    ista_fista as conv_ista_fista)
 from vtc_tpu_torch.analysis_transforms.fully_connected import ista_fista
+from vtc_tpu_torch.ops import conv_shapes
 from vtc_tpu_torch.encode import encode_dataset
 from vtc_tpu_torch.training import compiled_epoch, ica, pca
 from vtc_tpu_torch.training import sparse_coding as sc
@@ -58,6 +61,24 @@ def case_mesh(dcn=1):
           "object": mesh.broadcast_object({"rank": mesh.index})}
 
 
+def case_mesh_nd(images, batches, stats):
+  """``shard``, ``all_gather``, ``sum`` and ``sum_`` on the arrays of conv
+  data parallelism: (b, c, H, W) images, (k, b, c, H, W) batches and the
+  gram-form statistics (bx, cm, stat), scaled by rank + 1 (``sum_``: packed
+  into one buffer, as K17 sums them)."""
+  mesh = parallel.make_mesh()
+  shard4, shard5 = mesh.shard(images), mesh.shard(batches, dim=1)
+  summed = mesh.sum(*[_t(a) * (mesh.index + 1) for a in stats])
+  flat = torch.cat([_t(a).reshape(-1) for a in stats]) * (mesh.index + 1)
+  in_place = mesh.sum_(flat)
+  return {"bounds": mesh.shard_bounds(images.shape[0]),
+          "sum_": flat.numpy(), "sum_ returns it": in_place is flat,
+          "shard4": np.asarray(shard4), "shard5": np.asarray(shard5),
+          "gather4": mesh.all_gather(_t(shard4)).numpy(),
+          "gather5": mesh.all_gather(_t(shard5), dim=1).numpy(),
+          "sum": [t.numpy() for t in summed]}
+
+
 def case_shard_map_step(d, h, batch, sw, n_it, upd_step, mode, inference_alg,
                         update_alg, config, dcn=1):
   """``build_shard_map_train_step`` on the global batch."""
@@ -77,6 +98,30 @@ def case_fused_runner(d, h, v, batches, sw, n_it, upd_step, inference_alg,
            else parallel.build_dp_fused_local_step)
   runner = compiled_epoch._dp_fused_segment_runner(
       build(mesh, inference_alg, update_alg, **config))
+  shards = _t(mesh.shard(batches, dim=1))
+  return _np(runner(_t(d), _t(h), _t(v), shards, sw, n_it, upd_step))
+
+
+def case_conv_fused_runner(d, h, v, batches, sw, n_it, upd_step,
+                           inference_alg, update_alg, config):
+  """``_dp_fused_segment_runner`` of ``build_dp_conv_fused_local_step``
+  (K13's composition) over this rank's shards of (k, b, c, H, W)."""
+  mesh = parallel.make_mesh()
+  runner = compiled_epoch._dp_fused_segment_runner(
+      parallel.build_dp_conv_fused_local_step(mesh, inference_alg,
+                                              update_alg, **config))
+  shards = _t(mesh.shard(batches, dim=1))
+  return _np(runner(_t(d), _t(h), _t(v), shards, sw, n_it, upd_step))
+
+
+def case_conv_dp_runner(d, h, v, batches, sw, n_it, upd_step, inference_alg,
+                        update_alg, config):
+  """``_dp_conv_segment_runner`` (K17, its plain version on CPU tensors)
+  over this rank's shards of (k, b, c, H, W)."""
+  mesh = parallel.make_mesh()
+  runner = compiled_epoch._dp_conv_segment_runner(
+      mesh, inference_alg, update_alg, config["upd_num_iters"], False, False,
+      True, config["kernel_stride"], config["padding"])
   shards = _t(mesh.shard(batches, dim=1))
   return _np(runner(_t(d), _t(h), _t(v), shards, sw, n_it, upd_step))
 
@@ -116,11 +161,41 @@ def case_early_stop(d, batch, sw, n_it, eps, formulation):
           "reductions": len(reductions)}
 
 
-def case_train(trainer, batches, val, d0, params):
-  """A sparse-coding trainer with params['data_parallel'] = True."""
+def case_conv_early_stop(d, batch, sw, n_it, eps, kernel_stride, padding):
+  """The conv batch-global stop test (the 'gram' loop of the psum-per-op
+  step): this rank's codes and how many times it reduced the stop
+  scalar."""
+  mesh = parallel.make_mesh()
+  reductions = []
+  original = mesh.mean
+
+  def counted(tensor):
+    reductions.append(1)
+    return original(tensor)
+
+  mesh.mean = counted
+  d = _t(d)
+  shard = _t(mesh.shard(batch))
+  eta = 1.0 / torch.linalg.eigvalsh(d.reshape(d.shape[0], -1)
+                                    @ d.reshape(d.shape[0], -1).T)[-1]
+  mask = conv_shapes.create_mask(shard.shape, padding)
+  init = torch.zeros((shard.shape[0], d.shape[0])
+                     + conv_ista_fista.code_spatial_dims(shard.shape, d.shape,
+                                                         kernel_stride))
+  codes = conv_ista_fista._solve(
+      shard, d, mask, sw, n_it, eta, init, kernel_stride, "fista", False,
+      False, eps, formulation="gram", padding=padding, psum_axes=mesh)
+  return {"codes": mesh.all_gather(codes).numpy(),
+          "reductions": len(reductions)}
+
+
+def case_train(trainer, batches, val, d0, params, dcn=1):
+  """A sparse-coding trainer with params['data_parallel'] = True, or with
+  ``dcn`` > 1 a mesh of that many slices."""
   fn = {"per_batch": sc.train_dictionary,
         "scanned": compiled_epoch.train_dictionary_scanned}[trainer]
-  params = dict(params, data_parallel=True)
+  params = dict(params, data_parallel=True if dcn == 1
+                else parallel.make_mesh(dcn=dcn))
   return fn(batches, val, d0, params, device="cpu").numpy()
 
 

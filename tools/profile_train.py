@@ -30,7 +30,12 @@ replicated update in torch ops, driven from Python step by step
 (training/compiled_epoch._dp_fused_segment_runner, training/ica.
 _segment_runner_dp); the "fused" lines are that runner's, the "plain" line
 the solve+stats step's plain version, and the trace's "other" group holds
-the replicated update's torch kernels.  It reports
+the replicated update's torch kernels.  With --dp --conv the trainer runs
+the whole data-parallel conv segment, kernel K17 (ops/fused_conv_dp_train:
+K13's refresh, solve and statistics, then the update, from one C loop);
+the "fused" and "plain" lines are K17's and its plain version's, and the
+step split gives K13's share of the busy time beside the update's.  It
+reports
 
 * with CUDA events after a warm-up call: the fused train step (fc:
   ops/fused_train_step, kernel K2) per step over a short segment and the
@@ -49,7 +54,8 @@ the replicated update's torch kernels.  It reports
   (gather_rows_kernel, sum_slots_kernel, sign_mask_kernel), the conv
   GEMMs (gather_gemm), the conv gradient (block_grad_partial_kernel,
   grad_reduce_kernel), the conv update (conv_update_kernel,
-  conv_hessian_ema_kernel, dall_from_dstk_kernel), the ICA passes
+  conv_hessian_ema_kernel, dall_from_dstk_kernel), K13's statistics
+  (conv_code_stat_kernel, block_cm_partial_kernel), the ICA passes
   (residual_kernel, sign_kernel, natural_gradient_kernel, axpy_kernel),
   K19's reconstruction (recon_partial_kernel, recon_sum_kernel), its
   gradient with the prox (grad_prox_kernel, group_prox_kernel) and its
@@ -83,6 +89,11 @@ PRODUCTS = "products (gemm_kernel)"
 EPILOGUE = ("epilogue (hessian_ema_kernel, update_rows_kernel, "
             "column_sumsq_kernel)")
 GROUP_PASSES = "group passes (gather_rows, sum_slots, sign_mask)"
+CONV_UPDATE = "conv update (conv_update, conv_hessian_ema, dall_from_dstk)"
+CONV_GEMMS = "conv GEMMs: corr, synthesis, analysis (gather_gemm)"
+CONV_GRAD = "conv gradient (block_grad_partial, grad_reduce)"
+K13_STATS = "K13 statistics (conv_code_stat, block_cm_partial)"
+K17_UPDATE = "K17 update inputs (divide, hessian_from_stat)"
 GROUPS = ((RECON, ("recon_partial_kernel", "recon_sum_kernel")),
           (GRAD, ("grad_prox_kernel", "group_prox_kernel")),
           (RESID, ("resid_partial_kernel", "resid_sum_kernel")),
@@ -92,17 +103,16 @@ GROUPS = ((RECON, ("recon_partial_kernel", "recon_sum_kernel")),
           ("FISTA (fista_kernel, fold_gram_kernel)",
            ("fista_kernel", "fold_gram_kernel")),
           # before the epilogue: conv_hessian_ema_kernel contains its name
-          ("conv update (conv_update, conv_hessian_ema, dall_from_dstk)",
-           ("conv_update_kernel", "conv_hessian_ema_kernel",
-            "dall_from_dstk_kernel")),
+          (CONV_UPDATE, ("conv_update_kernel", "conv_hessian_ema_kernel",
+                         "dall_from_dstk_kernel")),
+          (K13_STATS, ("conv_code_stat_kernel", "block_cm_partial_kernel")),
+          (K17_UPDATE, ("divide_kernel", "hessian_from_stat_kernel")),
           (EPILOGUE, ("hessian_ema_kernel", "update_rows_kernel",
                       "column_sumsq_kernel")),
           (GROUP_PASSES,
            ("gather_rows_kernel", "sum_slots_kernel", "sign_mask_kernel")),
-          ("conv GEMMs: corr, synthesis, analysis (gather_gemm)",
-           ("gather_gemm",)),
-          ("conv gradient (block_grad_partial, grad_reduce)",
-           ("block_grad_partial_kernel", "grad_reduce_kernel")),
+          (CONV_GEMMS, ("gather_gemm",)),
+          (CONV_GRAD, ("block_grad_partial_kernel", "grad_reduce_kernel")),
           ("ICA passes (residual, sign, natural_gradient, axpy)",
            ("residual_kernel", "sign_kernel", "natural_gradient_kernel",
             "axpy_kernel")))
@@ -117,9 +127,9 @@ def group_of(name):
 
 def workload(args, torch, dev):
   """The segment, its runners and its trainer for the chosen family."""
-  from vtc_tpu_torch.ops import (fused_code_shard_train, fused_conv_train,
-                                 fused_group_train_step, fused_ica_train,
-                                 fused_train_step, lipschitz)
+  from vtc_tpu_torch.ops import (fused_code_shard_train, fused_conv_dp_train,
+                                 fused_conv_train, fused_group_train_step,
+                                 fused_ica_train, fused_train_step, lipschitz)
   from vtc_tpu_torch import parallel
   from vtc_tpu_torch.training import compiled_epoch, ica
   cs = chip_smoke
@@ -172,6 +182,22 @@ def workload(args, torch, dev):
     kw = dict(kernel_stride=(cs.CONV_STRIDE, cs.CONV_STRIDE),
               padding=params["padding"], power_iters=2)
     scalars = (cs.CONV_LAM, cs.SEG_ITERS, cs.SEG_STEP)
+    if args.dp:
+      k17 = fused_conv_dp_train
+      dp_kw = dict(kw, mesh=parallel.make_mesh())
+      return dict(
+          name="data-parallel conv (a mesh of one rank)", units="images",
+          steps=steps, batch=batch, short=20, plain_steps=5, kernels=k17,
+          fused=lambda k: lambda: k17.fused_conv_dp_train_segment(
+              d0, h0, v0, batches[:k], *scalars, **dp_kw),
+          plain=lambda k: lambda: k17.fused_conv_dp_train_plain(
+              d0, h0, v0, batches[:k], *scalars, **dp_kw),
+          trainer=lambda: compiled_epoch.train_dictionary_scanned(
+              batches, batches[:1], d0, dict(params, data_parallel=True)),
+          split=(("K13's part: refresh, solve and statistics",
+                  (POWER, PRODUCTS, CONV_GEMMS, CONV_GRAD, K13_STATS)),
+                 ("the update (divide, hessian_from_stat, conv_update) and "
+                  "the rest", (CONV_UPDATE, K17_UPDATE, "other"))))
     return dict(
         name="conv", units="images", steps=steps, batch=batch, short=20,
         plain_steps=5, kernels=fused_conv_train,
@@ -297,13 +323,14 @@ def main():
                       help="profile bench.py's big-dictionary grouped row "
                       "(kernel K19)")
   parser.add_argument("--dp", action="store_true",
-                      help="run the fc, --subspace or --ica workload "
+                      help="run the fc, --subspace, --ica or --conv workload "
                       "data-parallel on a mesh of one rank (kernels K3, K7, "
-                      "K9)")
+                      "K9, K17)")
   parser.add_argument("--out", help="also write the report here")
   args = parser.parse_args()
-  if args.dp and (args.conv or args.bigdict or args.bigdict_groups):
-    parser.error("--dp goes with the fc, --subspace or --ica workload")
+  if args.dp and (args.bigdict or args.bigdict_groups):
+    parser.error("--dp goes with the fc, --subspace, --ica or --conv "
+                 "workload")
   import torch
   if not torch.cuda.is_available():
     print("profile_train: no CUDA device", file=sys.stderr)
@@ -333,7 +360,7 @@ def main():
 
   # a short segment enqueues without filling the launch queue (about a
   # thousand launches), so its enqueue time is the host's own cost
-  for k in (20, steps):
+  for k in (w.get("enqueue_steps", 20), steps):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     w["fused"](k)()

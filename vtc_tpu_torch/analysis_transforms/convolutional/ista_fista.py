@@ -1,7 +1,8 @@
 """Convolutional ISTA / FISTA sparse inference: counterpart of
 ``code_spatial_dims``, ``_solve`` and ``run`` (vtc_tpu/analysis_transforms/
 convolutional/ista_fista.py:26-196), with the same arguments and
-formulations:
+formulations (``_solve`` also takes vtc_tpu's ``psum_axes``, the
+data-parallel stop test of the psum-per-op step):
 
 * 'gram' (the default, as in JAX): the code-space Gram operator
   (ops/conv_gram.py), grad = L(z) - A(mask * X):
@@ -26,7 +27,8 @@ from typing import Optional
 
 import torch
 
-from vtc_tpu_torch.ops import conv_shapes, fused_conv_direct, fused_conv_fista
+from vtc_tpu_torch.ops import conv_gram, conv_shapes, fused_conv_direct
+from vtc_tpu_torch.ops import fused_conv_fista
 from vtc_tpu_torch.ops import convolutions as conv_ops
 from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
 from vtc_tpu_torch.ops import thresholds
@@ -41,22 +43,35 @@ def code_spatial_dims(padded_shape, kernel_shape, kernel_stride):
               padded_shape[3], kernel_shape[3], kernel_stride[1]))
 
 
-def _solve_direct(images_padded, dictionary, mask, sparsity_weight,
-                  num_iters, stepsize, initial_codes, kernel_stride,
-                  variant, nonnegative_only, hard_threshold,
-                  early_stopping_epsilon):
+def _solve(images_padded, dictionary, mask, sparsity_weight, num_iters,
+           stepsize, initial_codes, kernel_stride, variant, nonnegative_only,
+           hard_threshold, early_stopping_epsilon, formulation="direct",
+           padding=None, psum_axes=None):
+  """vtc_tpu's ``_solve`` (:35-76): the 'gram' loop (code-space Gram
+  operator, grad = L(z) - A(mask * X); it needs the padding that made
+  ``mask``) or the 'direct' one.  ``psum_axes`` is the ``parallel.Mesh``
+  of the data-parallel stop test (ops/solver.py), or None."""
   threshold_fn = thresholds.select(nonnegative_only, hard_threshold)
+  if formulation == "gram":
+    op = conv_gram.build_gram_operator(
+        dictionary, kernel_stride, padding, tuple(images_padded.shape[2:]),
+        tuple(initial_codes.shape[2:]))
+    corr = conv_ops.analyze(mask * images_padded, dictionary, kernel_stride)
 
-  def grad_fn(z):
-    return conv_ops.inference_gradient(images_padded, z, dictionary,
-                                       kernel_stride, mask)
+    def grad_fn(z):
+      return conv_gram.apply_gram(z, op) - corr
+  else:
+
+    def grad_fn(z):
+      return conv_ops.inference_gradient(images_padded, z, dictionary,
+                                         kernel_stride, mask)
 
   def prox_fn(x, ss):
     return threshold_fn(x, sparsity_weight * ss)
 
   return proximal_gradient_loop(
       grad_fn, prox_fn, initial_codes, stepsize, num_iters, variant=variant,
-      early_stopping_epsilon=early_stopping_epsilon)
+      early_stopping_epsilon=early_stopping_epsilon, psum_axes=psum_axes)
 
 
 def run(images_padded, dictionary, kernel_stride, padding_dims,
@@ -148,7 +163,7 @@ def run(images_padded, dictionary, kernel_stride, padding_dims,
                                 device=device)
   mask = conv_shapes.create_mask(images_padded.shape, padding,
                                  torch.float32, device)
-  return _solve_direct(
+  return _solve(
       images_padded, dictionary, mask, lam, num_iters,
       torch.as_tensor(stepsize, dtype=torch.float32, device=device),
       initial_codes, kernel_stride, variant, bool(nonnegative_only),

@@ -1,4 +1,5 @@
-// Fused convolutional train steps for Hopper (sm_90a), CUDA C++.
+// Fused convolutional train steps and the conv solve+stats step for Hopper
+// (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernel K12: vtc_tpu/ops/pallas_conv_train.py,
 // fused_conv_train_segment_pallas (:547) with its segment kernel
@@ -46,6 +47,42 @@
 // second pass adds in order -- deterministic, no atomics.  Every product
 // is IEEE fp32 FMA on the CUDA cores (no TF32, no library); the small
 // products and the power refresh are train_core.cuh's.
+//
+// Also the TPU kernel K13: conv_solve_stats_pallas (pallas_conv_train.py:
+// 840, kernel _make_stats_kernel :776), the data-parallel step of one
+// shard.  vtc_conv_solve_stats runs K12's first half (refresh_and_solve
+// below: the same kernels in the same order) and then, in place of the
+// update, the shard's UNAVERAGED block-space statistics, which the caller
+// sums over the ranks:
+//
+//   gradient form: grad_sum = (mask * S(dstk, codes) - xblk) (x) stack
+//                  (cpx, R*s), K12's gradient product without the 1/b;
+//   gram form:     bx = xblk (x) stack (cpx, R*s) and
+//                  cm[a*s+i, a'*s+j] = sum m[B] z[i, B-a] z[j, B-a']
+//                  (R*s, R*s), m the first row of the block mask (exact
+//                  for a stride-block-uniform mask, which the wrapper's
+//                  gate requires), so the gradient at ANY dstk' is
+//                  (dstk' cm - bx) / b;
+//   stat[j] = sum_{b, positions} codes^2, in the order of K12's EMA.
+//
+// Both products are long-K reductions over the b*bh*bw block positions
+// with small outputs, split over K in kGradChunk chunks into partial sums
+// that a second pass adds in order: deterministic, no atomics.  cm is
+// symmetric, so its work is (R*s)(R*s + 1) FLOP per position (3 GFLOP at
+// the flagship); the kernel computes both triangles, twice that.
+//
+// And the TPU kernel K17: fused_conv_dp_train_segment_pallas
+// (pallas_conv_dp_train.py:300, kernel _make_conv_dp_kernel :125), a
+// rank's whole data-parallel segment.  vtc_conv_dp_train_segment runs, per
+// step, K13's refresh, solve and statistics (the same functions), then
+// hands the packed statistics to a host hook that sums them over the ranks
+// (where the TPU kernel all-reduces them over remote DMA, in-kernel), then
+// the replicated update from the global statistics with K12's update
+// kernel: the Hessian EMA from the summed stat, and per update iteration
+// the gradient grad_sum / global_b, or (dstk cm - bx) / global_b in the
+// gram form, projected, Hessian-scaled, rescaled, stepped, renormalized.
+// The whole segment is enqueued from one C loop; at a world of one there
+// is no hook and no host work per step.
 #include "conv_gemm.cuh"
 #include "train_core.cuh"
 
@@ -54,6 +91,9 @@ namespace {
 constexpr int kGradChunk = 1024;  // gradient-product K values per split
 constexpr int kUpdateThreads = 1024;
 constexpr int kMaxKernels = 512;  // K10's gate bounds s by 512
+// What vtc_conv_dp_train_segment returns when its sum hook reports a
+// failure (the hook's caller holds the error).
+constexpr int kSumHookFailed = -1;
 
 // dall[i, a*cpx + p] = dstk[p, a*s + i]
 __global__ void dall_from_dstk_kernel(const float* __restrict__ dstk,
@@ -70,13 +110,9 @@ __global__ void dall_from_dstk_kernel(const float* __restrict__ dstk,
   dall[(static_cast<int64_t>(i) * r + a) * cpx + p] = dstk[e];
 }
 
-// h[j] = 0.99 h[j] + (sum_{b, y, x} codes[b, j, y, x]^2 / b) / 100, one
-// block per kernel j, summed in a fixed order.
-__global__ void __launch_bounds__(kRowThreads)
-    conv_hessian_ema_kernel(const float* __restrict__ codes,
-                            float* __restrict__ h, int b, int s, int chw) {
-  __shared__ float scratch[33];
-  const int j = blockIdx.x;
+// sum_{b, y, x} codes[b, j, y, x]^2 over one block, in a fixed order.
+__device__ float code_square_sum(const float* __restrict__ codes, int b,
+                                 int s, int chw, int j, float* scratch) {
   const int count = b * chw;
   float acc = 0.0f;
   for (int idx = threadIdx.x; idx < count; idx += blockDim.x) {
@@ -85,10 +121,44 @@ __global__ void __launch_bounds__(kRowThreads)
         codes[(static_cast<int64_t>(bb) * s + j) * chw + (idx - bb * chw)];
     acc = fmaf(c, c, acc);
   }
-  const float total = block_sum(acc, scratch);
+  return block_sum(acc, scratch);
+}
+
+// h[j] = 0.99 h[j] + (sum_{b, y, x} codes[b, j, y, x]^2 / b) / 100, one
+// block per kernel j.
+__global__ void __launch_bounds__(kRowThreads)
+    conv_hessian_ema_kernel(const float* __restrict__ codes,
+                            float* __restrict__ h, int b, int s, int chw) {
+  __shared__ float scratch[33];
+  const float total = code_square_sum(codes, b, s, chw, blockIdx.x, scratch);
   if (threadIdx.x == 0)
-    h[j] = __fadd_rn(__fmul_rn(0.99f, h[j]),
-                     (total / static_cast<float>(b)) / 100.0f);
+    h[blockIdx.x] = __fadd_rn(__fmul_rn(0.99f, h[blockIdx.x]),
+                              (total / static_cast<float>(b)) / 100.0f);
+}
+
+// stat[j] = sum_{b, y, x} codes[b, j, y, x]^2 (K13), the sum of the EMA
+// above in the same order.
+__global__ void __launch_bounds__(kRowThreads)
+    conv_code_stat_kernel(const float* __restrict__ codes,
+                          float* __restrict__ stat, int b, int s, int chw) {
+  __shared__ float scratch[33];
+  const float total = code_square_sum(codes, b, s, chw, blockIdx.x, scratch);
+  if (threadIdx.x == 0) stat[blockIdx.x] = total;
+}
+
+// codes[b, j, Y - a_y, X - a_x] for the stack column col = a*s + j at the
+// block position pos = Y*bw + X of sample b, zero outside the codes.
+__device__ __forceinline__ float stacked_code(const float* __restrict__ codes,
+                                              int col, int s, int ax, int bb,
+                                              int pos, int bw, int code_h,
+                                              int code_w) {
+  const int a = col / s;
+  const int j = col - a * s;
+  const int by = pos / bw;
+  const int y = by - a / ax;
+  const int x = (pos - by * bw) - a % ax;
+  if (y < 0 || y >= code_h || x < 0 || x >= code_w) return 0.0f;
+  return codes[((static_cast<int64_t>(bb) * s + j) * code_h + y) * code_w + x];
 }
 
 // partial[split, p, a*s + j] = sum over the split's chunk of k = (b, Y, X)
@@ -127,16 +197,8 @@ __global__ void __launch_bounds__(kGemmThreads)
         if (p < cpx)
           av = resid[(static_cast<int64_t>(bb) * cpx + p) * blocks + pos];
         const int col = j0 + hi;
-        if (col < rs) {
-          const int a = col / s;
-          const int j = col - a * s;
-          const int by = pos / bw;
-          const int y = by - a / ax;
-          const int x = (pos - by * bw) - a % ax;
-          if (y >= 0 && y < code_h && x >= 0 && x < code_w)
-            bv = codes[((static_cast<int64_t>(bb) * s + j) * code_h + y) *
-                           code_w + x];
-        }
+        if (col < rs)
+          bv = stacked_code(codes, col, s, ax, bb, pos, bw, code_h, code_w);
       }
       As[lo][hi] = av;
       Bs[lo][hi] = bv;
@@ -160,7 +222,68 @@ __global__ void __launch_bounds__(kGemmThreads)
   }
 }
 
-// grad[e] = (sum over splits, in order, of partial[split, e]) / b
+// partial[split, a*s + i, a'*s + j] = sum over the split's chunk of
+// k = (b, Y, X) of m[Y, X] * stack[a*s + i] * stack[a'*s + j], stack the
+// codes of block_grad_partial_kernel: K13's gram-form C_m, unaveraged.
+__global__ void __launch_bounds__(kGemmThreads)
+    block_cm_partial_kernel(const float* __restrict__ codes,
+                            const float* __restrict__ m,
+                            float* __restrict__ partial, int s, int ax, int r,
+                            int bh, int bw, int code_h, int code_w,
+                            int64_t kdim) {
+  __shared__ float As[kTile][kTile + 1];  // As[k][row]
+  __shared__ float Bs[kTile][kTile + 1];  // Bs[k][column]
+  const int tid = threadIdx.x;
+  const int tx = tid & 31;
+  const int ty = tid >> 5;
+  const int i0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.x * kTile;
+  const int rs = r * s;
+  const int blocks = bh * bw;
+  const int64_t k_lo = static_cast<int64_t>(blockIdx.z) * kGradChunk;
+  const int64_t k_hi = k_lo + kGradChunk < kdim ? k_lo + kGradChunk : kdim;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int64_t k0 = k_lo; k0 < k_hi; k0 += kTile) {
+    for (int idx = tid; idx < kTile * kTile; idx += kGemmThreads) {
+      const int hi = idx >> 5;
+      const int lo = idx & 31;
+      const int64_t k = k0 + lo;
+      float av = 0.0f, bv = 0.0f;
+      if (k < k_hi) {
+        const int bb = static_cast<int>(k / blocks);
+        const int pos = static_cast<int>(k - static_cast<int64_t>(bb) * blocks);
+        const int row = i0 + hi;
+        if (row < rs)
+          av = __fmul_rn(m[pos], stacked_code(codes, row, s, ax, bb, pos, bw,
+                                              code_h, code_w));
+        const int col = j0 + hi;
+        if (col < rs)
+          bv = stacked_code(codes, col, s, ax, bb, pos, bw, code_h, code_w);
+      }
+      As[lo][hi] = av;
+      Bs[lo][hi] = bv;
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kTile; ++kk) {
+      const float bv = Bs[kk][tx];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q] = fmaf(As[kk][ty * 4 + q], bv, acc[q]);
+    }
+    __syncthreads();
+  }
+  const int col = j0 + tx;
+  if (col >= rs) return;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int row = i0 + ty * 4 + q;
+    if (row < rs)
+      partial[(static_cast<int64_t>(blockIdx.z) * rs + row) * rs + col] =
+          acc[q];
+  }
+}
+
+// grad[e] = (sum over splits, in order, of partial[split, e]) / b (K13
+// passes b = 1: the sum itself)
 __global__ void grad_reduce_kernel(const float* __restrict__ partial,
                                    float* __restrict__ grad, int splits,
                                    int count, float b) {
@@ -170,6 +293,23 @@ __global__ void grad_reduce_kernel(const float* __restrict__ partial,
   for (int sp = 0; sp < splits; ++sp)
     acc = __fadd_rn(acc, partial[static_cast<int64_t>(sp) * count + e]);
   grad[e] = acc / b;
+}
+
+// dst[e] = src[e] / b (K17: a summed statistic over the global batch)
+__global__ void divide_kernel(const float* __restrict__ src,
+                              float* __restrict__ dst, int count, float b) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < count) dst[e] = src[e] / b;
+}
+
+// h[j] = 0.99 h[j] + (stat[j] / b) / 100 (K17: conv_hessian_ema_kernel's
+// EMA from a code statistic summed over the ranks, b the global batch)
+__global__ void hessian_from_stat_kernel(const float* __restrict__ stat,
+                                         float* __restrict__ h, int s,
+                                         float b) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < s)
+    h[j] = __fadd_rn(__fmul_rn(0.99f, h[j]), (stat[j] / b) / 100.0f);
 }
 
 // One update iteration on the packed kernels, one block: the support
@@ -219,6 +359,192 @@ __global__ void __launch_bounds__(kUpdateThreads)
     dstk[e] = dstk[e] / norms[(e % rs) % s];
 }
 
+// What a conv step needs to run, fixed for a segment (K12) or a shard's
+// step (K13): sizes, the solve's scratch and the gathered products.
+struct ConvStep {
+  int b, s, cpx, r, ax, bh, bw, code_h, code_w, blocks, chw, weights, splits;
+  int num_iters, fista, power_iters;
+  int64_t kdim;
+  size_t code_bytes;
+  const float* dstk;
+  float *v, *dall, *gram, *eta, *z, *old, *partial;
+  GemmArgs synth, resid, anal, corr;
+};
+
+// Fill *st; cudaErrorInvalidValue for sizes the kernels do not take.
+cudaError_t conv_step_setup(ConvStep* st, const float* dstk, float* v,
+                            const float* mblk, int b, int s, int cpx, int ay,
+                            int ax, int bh, int bw, float lam, int num_iters,
+                            int fista, int mode, int power_iters, float* dall,
+                            float* gram, float* eta, float* img, float* corr,
+                            float* z, float* old, float* partial) {
+  const int code_h = bh - (ay - 1), code_w = bw - (ax - 1);
+  if (b < 1 || s < 1 || s > kMaxKernels || cpx < 1 || ay < 1 || ax < 1 ||
+      code_h < 1 || code_w < 1 || num_iters < 0 || power_iters < 0 ||
+      mode < 0 || mode > 3)
+    return cudaErrorInvalidValue;
+  ConvStep& t = *st;
+  t.b = b;
+  t.s = s;
+  t.cpx = cpx;
+  t.r = ay * ax;
+  t.ax = ax;
+  t.bh = bh;
+  t.bw = bw;
+  t.code_h = code_h;
+  t.code_w = code_w;
+  t.blocks = bh * bw;
+  t.chw = code_h * code_w;
+  t.weights = cpx * t.r * s;
+  t.kdim = static_cast<int64_t>(b) * t.blocks;
+  t.splits = static_cast<int>((t.kdim + kGradChunk - 1) / kGradChunk);
+  t.num_iters = num_iters;
+  t.fista = fista;
+  t.power_iters = power_iters;
+  t.code_bytes = sizeof(float) * static_cast<size_t>(b) * s * t.chw;
+  t.dstk = dstk;
+  t.v = v;
+  t.dall = dall;
+  t.gram = gram;
+  t.eta = eta;
+  t.z = z;
+  t.old = old;
+  t.partial = partial;
+
+  t.synth = GemmArgs{};
+  t.synth.a = dstk;
+  t.synth.m = cpx;
+  t.synth.k = t.r * s;
+  t.synth.src = z;
+  t.synth.src_c = s;
+  t.synth.src_h = code_h;
+  t.synth.src_w = code_w;
+  t.synth.off_w = ax;
+  t.synth.sign = -1;  // z[B - a]
+  t.synth.nb = b;
+  t.synth.out_h = bh;
+  t.synth.out_w = bw;
+  t.synth.lines = kAll;
+  t.synth.epilogue = kMaskStore;
+  t.synth.out = img;
+  t.synth.mask = mblk;
+
+  t.resid = t.synth;  // mask * S(dstk, codes) - xblk
+  t.resid.src = old;
+  t.resid.epilogue = kMaskResid;
+
+  t.anal = GemmArgs{};
+  t.anal.a = dall;
+  t.anal.m = s;
+  t.anal.k = t.r * cpx;
+  t.anal.src_c = cpx;
+  t.anal.src_h = bh;
+  t.anal.src_w = bw;
+  t.anal.off_w = ax;
+  t.anal.sign = 1;  // y[c + a]
+  t.anal.nb = b;
+  t.anal.out_h = code_h;
+  t.anal.out_w = code_w;
+  t.anal.lines = kAll;
+  t.anal.src = img;
+  t.anal.epilogue = kProx;
+  t.anal.out = z;
+  t.anal.z_cur = z;
+  t.anal.corr = corr;
+  t.anal.old = old;
+  t.anal.eta = eta;
+  t.anal.lam = lam;
+  t.anal.fista = fista;
+  t.anal.shrink = mode;
+
+  t.corr = t.anal;
+  t.corr.epilogue = kStore;
+  t.corr.out = corr;
+  return power_setup(s);
+}
+
+#define VTC_CHECK(...)                \
+  do {                                \
+    err = (__VA_ARGS__);              \
+    if (err != cudaSuccess) return err; \
+  } while (0)
+
+// The first half of a step, which K12 and K13 share: the flat-kernel Gram
+// and the warm power refresh into v and eta, then K10's solve of the image
+// blocks xs from zero codes into old.
+cudaError_t refresh_and_solve(const ConvStep& st, const float* xs,
+                              cudaStream_t stream) {
+  cudaError_t err;
+  dall_from_dstk_kernel<<<(st.weights + 255) / 256, 256, 0, stream>>>(
+      st.dstk, st.dall, st.cpx, st.r, st.s);
+  VTC_CHECK(cudaGetLastError());
+  VTC_CHECK(gemm<false, true>(st.dall, st.dall, nullptr, st.gram, st.s, st.s,
+                              st.r * st.cpx, stream));
+  VTC_CHECK(power_refresh(st.gram, st.v, st.eta, st.s, st.power_iters,
+                          stream));
+  GemmArgs corr = st.corr;
+  corr.src = xs;
+  VTC_CHECK(launch_gather_gemm(corr, 1, st.chw, stream));
+  VTC_CHECK(cudaMemsetAsync(st.z, 0, st.code_bytes, stream));
+  VTC_CHECK(cudaMemsetAsync(st.old, 0, st.code_bytes, stream));
+  GemmArgs anal = st.anal;
+  float t = 1.0f;
+  for (int it = 0; it < st.num_iters; ++it) {
+    anal.beta = st.fista ? fista_beta(&t) : 0.0f;
+    VTC_CHECK(launch_gather_gemm(st.synth, 1, st.blocks, stream));
+    VTC_CHECK(launch_gather_gemm(anal, 1, st.chw, stream));
+  }
+  return cudaSuccess;
+}
+
+// out (cpx, R*s) = (left (x) code stack) / divisor, left (b, cpx, bh, bw)
+// the residual or the image blocks: the split-K product, then the splits
+// added in order.
+cudaError_t block_gradient(const ConvStep& st, const float* left, float* out,
+                           float divisor, cudaStream_t stream) {
+  const dim3 grid((st.r * st.s + kTile - 1) / kTile,
+                  (st.cpx + kTile - 1) / kTile, st.splits);
+  block_grad_partial_kernel<<<grid, kGemmThreads, 0, stream>>>(
+      left, st.old, st.partial, st.cpx, st.s, st.ax, st.r, st.bh, st.bw,
+      st.code_h, st.code_w, st.kdim);
+  cudaError_t err;
+  VTC_CHECK(cudaGetLastError());
+  grad_reduce_kernel<<<(st.weights + 255) / 256, 256, 0, stream>>>(
+      st.partial, out, st.splits, st.weights, divisor);
+  return cudaGetLastError();
+}
+
+// K13's second half, after refresh_and_solve left the codes in st.old: the
+// shard's unaveraged statistics of the image blocks xs.  gram 0: out
+// (cpx, R*s) the gradient sum; gram 1: out = bx and cm (R*s, R*s).  stat
+// (s,) the code statistic.
+cudaError_t shard_stats(const ConvStep& st, const float* xs, const float* mblk,
+                        int gram, float* img, float* out, float* cm,
+                        float* stat, cudaStream_t stream) {
+  cudaError_t err;
+  if (gram) {
+    VTC_CHECK(block_gradient(st, xs, out, 1.0f, stream));
+    const int rs = st.r * st.s;
+    const dim3 grid((rs + kTile - 1) / kTile, (rs + kTile - 1) / kTile,
+                    st.splits);
+    block_cm_partial_kernel<<<grid, kGemmThreads, 0, stream>>>(
+        st.old, mblk, st.partial, st.s, st.ax, st.r, st.bh, st.bw, st.code_h,
+        st.code_w, st.kdim);
+    VTC_CHECK(cudaGetLastError());
+    grad_reduce_kernel<<<(rs * rs + 255) / 256, 256, 0, stream>>>(
+        st.partial, cm, st.splits, rs * rs, 1.0f);
+  } else {
+    GemmArgs resid = st.resid;
+    resid.extra = xs;
+    VTC_CHECK(launch_gather_gemm(resid, 1, st.blocks, stream));
+    VTC_CHECK(block_gradient(st, img, out, 1.0f, stream));
+  }
+  VTC_CHECK(cudaGetLastError());
+  conv_code_stat_kernel<<<st.s, kRowThreads, 0, stream>>>(st.old, stat, st.b,
+                                                          st.s, st.chw);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -248,123 +574,149 @@ int vtc_conv_train_segment(float* dstk, float* h, float* v, const float* xblk,
                            float* dall, float* gram, float* eta, float* img,
                            float* corr, float* z, float* old, float* partial,
                            float* grad, void* stream_ptr) {
-  const int code_h = bh - (ay - 1), code_w = bw - (ax - 1);
-  if (k < 0 || b < 1 || s < 1 || s > kMaxKernels || cpx < 1 || ay < 1 ||
-      ax < 1 || code_h < 1 || code_w < 1 || num_iters < 0 ||
-      upd_num_iters < 0 || power_iters < 0 || mode < 0 || mode > 3)
+  if (k < 0 || upd_num_iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int r = ay * ax;
-  const int blocks = bh * bw;
-  const int chw = code_h * code_w;
-  const int64_t kdim = static_cast<int64_t>(b) * blocks;
-  const int splits = static_cast<int>((kdim + kGradChunk - 1) / kGradChunk);
-  const int weights = cpx * r * s;
-  const size_t code_bytes = sizeof(float) * static_cast<size_t>(b) * s * chw;
-  cudaError_t err = power_setup(s);
+  ConvStep st;
+  cudaError_t err = conv_step_setup(
+      &st, dstk, v, mblk, b, s, cpx, ay, ax, bh, bw, lam, num_iters, fista,
+      mode, power_iters, dall, gram, eta, img, corr, z, old, partial);
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  GemmArgs synth = {};
-  synth.a = dstk;
-  synth.m = cpx;
-  synth.k = r * s;
-  synth.src = z;
-  synth.src_c = s;
-  synth.src_h = code_h;
-  synth.src_w = code_w;
-  synth.off_w = ax;
-  synth.sign = -1;  // z[B - a]
-  synth.nb = b;
-  synth.out_h = bh;
-  synth.out_w = bw;
-  synth.lines = kAll;
-  synth.epilogue = kMaskStore;
-  synth.out = img;
-  synth.mask = mblk;
-
-  GemmArgs resid = synth;  // mask * S(dstk, codes) - xblk
-  resid.src = old;
-  resid.epilogue = kMaskResid;
-
-  GemmArgs anal = {};
-  anal.a = dall;
-  anal.m = s;
-  anal.k = r * cpx;
-  anal.src_c = cpx;
-  anal.src_h = bh;
-  anal.src_w = bw;
-  anal.off_w = ax;
-  anal.sign = 1;  // y[c + a]
-  anal.nb = b;
-  anal.out_h = code_h;
-  anal.out_w = code_w;
-  anal.lines = kAll;
-  anal.src = img;
-  anal.epilogue = kProx;
-  anal.out = z;
-  anal.z_cur = z;
-  anal.corr = corr;
-  anal.old = old;
-  anal.eta = eta;
-  anal.lam = lam;
-  anal.fista = fista;
-  anal.shrink = mode;
-
-  GemmArgs corr_args = anal;
-  corr_args.epilogue = kStore;
-  corr_args.out = corr;
-
-  const dim3 grad_grid((r * s + kTile - 1) / kTile, (cpx + kTile - 1) / kTile,
-                       splits);
-#define VTC_CHECK(...)                                    \
-  do {                                                    \
-    err = (__VA_ARGS__);                                  \
-    if (err != cudaSuccess) return static_cast<int>(err); \
-  } while (0)
-#define VTC_LAUNCHED() VTC_CHECK(cudaGetLastError())
+  GemmArgs resid = st.resid;
+  const int64_t step_floats = static_cast<int64_t>(b) * cpx * st.blocks;
   for (int step = 0; step < k; ++step) {
-    const float* xs = xblk + static_cast<int64_t>(step) * b * cpx * blocks;
-    // the stepsize: flat-kernel Gram and the warm power refresh
-    dall_from_dstk_kernel<<<(weights + 255) / 256, 256, 0, stream>>>(
-        dstk, dall, cpx, r, s);
-    VTC_LAUNCHED();
-    VTC_CHECK(gemm<false, true>(dall, dall, nullptr, gram, s, s, r * cpx,
-                                stream));
-    VTC_CHECK(power_refresh(gram, v, eta, s, power_iters, stream));
-    // the solve (K10's), from zero codes
-    corr_args.src = xs;
-    VTC_CHECK(launch_gather_gemm(corr_args, 1, chw, stream));
-    VTC_CHECK(cudaMemsetAsync(z, 0, code_bytes, stream));
-    VTC_CHECK(cudaMemsetAsync(old, 0, code_bytes, stream));
-    float t = 1.0f;
-    for (int it = 0; it < num_iters; ++it) {
-      anal.beta = fista ? fista_beta(&t) : 0.0f;
-      VTC_CHECK(launch_gather_gemm(synth, 1, blocks, stream));
-      VTC_CHECK(launch_gather_gemm(anal, 1, chw, stream));
-    }
+    const float* xs = xblk + step * step_floats;
+    err = refresh_and_solve(st, xs, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
     if (update == 1) {
       conv_hessian_ema_kernel<<<s, kRowThreads, 0, stream>>>(old, h, b, s,
-                                                             chw);
-      VTC_LAUNCHED();
+                                                             st.chw);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
     }
     resid.extra = xs;
     for (int u = 0; u < upd_num_iters; ++u) {
-      VTC_CHECK(launch_gather_gemm(resid, 1, blocks, stream));
-      block_grad_partial_kernel<<<grad_grid, kGemmThreads, 0, stream>>>(
-          img, old, partial, cpx, s, ax, r, bh, bw, code_h, code_w, kdim);
-      VTC_LAUNCHED();
-      grad_reduce_kernel<<<(weights + 255) / 256, 256, 0, stream>>>(
-          partial, grad, splits, weights, static_cast<float>(b));
-      VTC_LAUNCHED();
-      conv_update_kernel<<<1, kUpdateThreads, 0, stream>>>(
-          dstk, grad, supp, h, cpx, r, s, upd_step, lowest, update == 1,
-          renorm);
-      VTC_LAUNCHED();
+      err = launch_gather_gemm(resid, 1, st.blocks, stream);
+      if (err == cudaSuccess)
+        err = block_gradient(st, img, grad, static_cast<float>(b), stream);
+      if (err == cudaSuccess) {
+        conv_update_kernel<<<1, kUpdateThreads, 0, stream>>>(
+            dstk, grad, supp, h, cpx, st.r, s, upd_step, lowest, update == 1,
+            renorm);
+        err = cudaGetLastError();
+      }
+      if (err != cudaSuccess) return static_cast<int>(err);
     }
   }
-#undef VTC_LAUNCHED
-#undef VTC_CHECK
+  return 0;
+}
+
+// K13, one shard's step: vtc_conv_train_segment's refresh and solve on the
+// shard's image blocks xblk (b, cpx, bh, bw), then its unaveraged
+// statistics.  dstk is read only; v (s,) is refreshed in place and eta
+// (1,) receives the stepsize; codes (b, s, ch, cw) land in old.
+//
+// gram_stats 0: out (cpx, R*s) receives the gradient sum
+//   (mask * S(dstk, codes) - xblk) (x) stack; cm is unused.
+// gram_stats 1: out receives bx = xblk (x) stack and cm (R*s, R*s) the
+//   masked code Gram; the caller guarantees a stride-block-uniform mask.
+// stat (s,) receives sum_{b, positions} codes^2.  Scratch as
+// vtc_conv_train_segment's; partial holds (splits, max(cpx, R*s), R*s)
+// in the gram form.  Returns the first CUDA error code (0 on success).
+int vtc_conv_solve_stats(const float* dstk, float* v, const float* xblk,
+                         const float* mblk, int b, int s, int cpx, int ay,
+                         int ax, int bh, int bw, float lam, int num_iters,
+                         int fista, int mode, int power_iters, int gram_stats,
+                         float* dall, float* gram, float* eta, float* img,
+                         float* corr, float* z, float* old, float* partial,
+                         float* out, float* cm, float* stat,
+                         void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  ConvStep st;
+  cudaError_t err = conv_step_setup(
+      &st, dstk, v, mblk, b, s, cpx, ay, ax, bh, bw, lam, num_iters, fista,
+      mode, power_iters, dall, gram, eta, img, corr, z, old, partial);
+  if (err == cudaSuccess) err = refresh_and_solve(st, xblk, stream);
+  if (err == cudaSuccess)
+    err = shard_stats(st, xblk, mblk, gram_stats, img, out, cm, stat, stream);
+  return static_cast<int>(err);
+}
+
+// K17, one rank's whole data-parallel segment: k steps, each K13's refresh,
+// solve and shard statistics, then the statistics summed over the ranks,
+// then the replicated update from the global statistics, every launch
+// enqueued from this loop on one stream.
+//
+// In place: dstk (cpx, R*s), h (s,), v (s,), replicated.  xblk (k, b, cpx,
+// bh, bw) this rank's image blocks of every step (b its shard); mblk, supp
+// and the scratch as vtc_conv_train_segment's, partial (splits, max(cpx,
+// R*s), R*s) in the gram form.  comm holds the statistics the ranks sum,
+// packed: gram 0 [grad_sum (cpx*R*s) | stat (s)], gram 1 [cm ((R*s)^2) |
+// bx (cpx*R*s) | stat (s)].  sum_hook(step), when given, sums comm over the
+// ranks in place on the stream's order (a torch.distributed all-reduce) and
+// returns 0; a null hook is a world of one.  global_b: the batch summed over
+// the ranks.  gram 1 updates from (dstk cm - bx) / global_b at every update
+// iteration; gram 0 from grad_sum / global_b (exact at the solve dictionary,
+// so one update iteration).  old holds this rank's last codes on return.
+// Returns the first CUDA error code (0 on success), or kSumHookFailed.
+int vtc_conv_dp_train_segment(
+    float* dstk, float* h, float* v, const float* xblk, const float* mblk,
+    const float* supp, int k, int b, int s, int cpx, int ay, int ax, int bh,
+    int bw, float lam, int num_iters, float upd_step, int upd_num_iters,
+    float lowest, int fista, int mode, int update, int renorm,
+    int power_iters, int gram, float global_b, float* dall, float* gram_mat,
+    float* eta, float* img, float* corr, float* z, float* old,
+    float* partial, float* grad, float* comm, int (*sum_hook)(int),
+    void* stream_ptr) {
+  if (k < 0 || upd_num_iters < 0 || !(global_b >= 1.0f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  ConvStep st;
+  cudaError_t err = conv_step_setup(
+      &st, dstk, v, mblk, b, s, cpx, ay, ax, bh, bw, lam, num_iters, fista,
+      mode, power_iters, dall, gram_mat, eta, img, corr, z, old, partial);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rs = st.r * s;
+  float* cm = gram ? comm : nullptr;
+  float* out = gram ? comm + static_cast<int64_t>(rs) * rs : comm;
+  float* stat = out + st.weights;
+  const int64_t step_floats = static_cast<int64_t>(b) * cpx * st.blocks;
+  const int blocks = (st.weights + 255) / 256;
+  for (int step = 0; step < k; ++step) {
+    const float* xs = xblk + step * step_floats;
+    err = refresh_and_solve(st, xs, stream);
+    if (err == cudaSuccess)
+      err = shard_stats(st, xs, mblk, gram, img, out, cm, stat, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (sum_hook != nullptr && sum_hook(step) != 0) return kSumHookFailed;
+    if (update == 1) {
+      hessian_from_stat_kernel<<<(s + 255) / 256, 256, 0, stream>>>(
+          stat, h, s, global_b);
+      err = cudaGetLastError();
+    }
+    for (int u = 0; u < upd_num_iters && err == cudaSuccess; ++u) {
+      if (gram) {
+        err = gemm<false, false>(dstk, cm, out, grad, cpx, rs, rs, stream);
+        if (err == cudaSuccess)
+          divide_kernel<<<blocks, 256, 0, stream>>>(grad, grad, st.weights,
+                                                    global_b);
+      } else {
+        divide_kernel<<<blocks, 256, 0, stream>>>(out, grad, st.weights,
+                                                  global_b);
+      }
+      if (err == cudaSuccess) err = cudaGetLastError();
+      if (err == cudaSuccess) {
+        conv_update_kernel<<<1, kUpdateThreads, 0, stream>>>(
+            dstk, grad, supp, h, cpx, st.r, s, upd_step, lowest, update == 1,
+            renorm);
+        err = cudaGetLastError();
+      }
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return 0;
 }
 
 }  // extern "C"
+
+#undef VTC_CHECK

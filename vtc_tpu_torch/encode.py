@@ -29,12 +29,12 @@ The solves run on ``device``, by default the dictionary's device when it
 is a tensor, else the CUDA device (``device="cpu"`` runs on the CPU).
 
 With ``data_parallel`` (a ``parallel.Mesh``, or True for the default
-process group's world), fc and subspace (vtc_tpu/encode.py:166-182): every
-rank calls with the same dataset, each batch is sharded over the mesh
-(``batch_size`` must divide by its size), every rank solves its shards
-through the same pipeline (K1 or K4 per shard on a CUDA device), and the
-codes are gathered, so every rank returns all of them.  Conv with
-``data_parallel`` raises NotImplementedError (ROADMAP.md §1 item 9).
+process group's world), in every mode (vtc_tpu/encode.py:84-93,
+:166-182): every rank calls with the same dataset, each batch is sharded
+over the mesh (``batch_size`` must divide by its size), every rank solves
+its shards through the same pipeline (K1, K4 or the conv route, K10 where
+its gate holds, per shard on a CUDA device), and the codes are gathered,
+so every rank returns all of them.
 """
 import numpy as np
 import torch
@@ -114,13 +114,9 @@ class _CudaChunks:
     dest[...] = self.pinned_out[slot][:len(codes)].numpy()
 
 
-def _check_scope(mode, data_parallel, mxu_precision):
+def _check_scope(mode, mxu_precision):
   if mode not in ("fully-connected", "convolutional"):
     raise ValueError("mode must be 'fully-connected' or 'convolutional'")
-  if data_parallel is not None and mode == "convolutional":
-    raise NotImplementedError(
-        "data_parallel in conv mode waits for the conv data-parallel "
-        "slice, ROADMAP.md §1 item 9")
   if mxu_precision != "highest":
     raise NotImplementedError(
         "mxu_precision=%r: the reduced-precision tiers wait, ROADMAP.md "
@@ -151,8 +147,8 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
       (``subspace_ista_fista.run``; K4 on a CUDA device).
     kernel_stride, padding: conv-mode geometry, as the conv trainer's.
     data_parallel: optional ``parallel.Mesh`` (or True); each batch is
-      sharded over its data axes and the codes are gathered (fc and
-      subspace; batch_size must divide by the mesh's size).
+      sharded over its data axes and the codes are gathered (batch_size
+      must divide by the mesh's size).
     nonnegative_only, hard_threshold: threshold variants
       (nonnegative_only is not defined for group-sparse inference).
     formulation: None -> 'pallas' (the CUDA kernel) on a CUDA device
@@ -166,7 +162,7 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
   Returns:
     (D, s) float32 numpy codes, or (D, s, sh, sw) in conv mode.
   """
-  _check_scope(mode, data_parallel, mxu_precision)
+  _check_scope(mode, mxu_precision)
   if nonnegative_only and group_assignments is not None:
     raise ValueError(
         "nonnegative_only is not defined for group-sparse inference "

@@ -149,6 +149,13 @@ def load_library():
       [ptr] * 6 + [i32] * 8 + [f32, i32, f32, i32, f32] + [i32] * 5
       + [ptr] * 9 + [ptr])
   lib.vtc_conv_train_segment.restype = i32
+  lib.vtc_conv_solve_stats.argtypes = (
+      [ptr] * 4 + [i32] * 7 + [f32] + [i32] * 5 + [ptr] * 11 + [ptr])
+  lib.vtc_conv_solve_stats.restype = i32
+  lib.vtc_conv_dp_train_segment.argtypes = (
+      [ptr] * 6 + [i32] * 8 + [f32, i32, f32, i32, f32] + [i32] * 6 + [f32]
+      + [ptr] * 10 + [ptr, ptr])
+  lib.vtc_conv_dp_train_segment.restype = i32
   lib.vtc_ica_train_segment.argtypes = (
       [ptr] * 6 + [i32, i32, i32, f32, i32, i32, i32, f32] + [ptr] * 8
       + [ptr])

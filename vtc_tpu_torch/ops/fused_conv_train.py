@@ -33,6 +33,19 @@ counterpart.  Left out: the TPU knobs ``batch_tile`` and ``interpret``;
 the in-kernel early stop and the ``mxu`` tiers other than 'highest' raise
 NotImplementedError on a CUDA tensor (ROADMAP.md §1 item 3).
 ``launches`` counts the train steps the kernels ran.
+
+Also here, the port of TPU kernel K13, ``conv_solve_stats_pallas``
+(pallas_conv_train.py:840-971, kernel ``_make_stats_kernel`` :776): one
+data-parallel shard's step, ``conv_solve_stats``.  It runs K12's warm
+refresh and solve and, in place of the update, the shard's unaveraged
+block-space statistics, which the caller sums over the ranks: the gradient
+sum and the Hessian statistic, or with ``gram_stats`` the packed pair
+(bx, cm) from which the gradient at any dictionary follows.  A CUDA tensor
+runs ``vtc_conv_solve_stats`` of the same ``.cu`` file (whose first half
+is K12's own) or raises; a CPU tensor runs ``conv_solve_stats_plain``.
+``stats_launches`` counts the steps that kernel ran;
+``conv_solve_stats_supported`` is the data-parallel trainer's gate, for
+K13's composition and K17 (ops/fused_conv_dp_train) alike.
 """
 import ctypes
 
@@ -46,6 +59,7 @@ from vtc_tpu_torch.ops import conv_shapes, fused_conv_direct, lipschitz
 from vtc_tpu_torch.ops.precision import matmul_precision
 
 launches = 0
+stats_launches = 0
 
 UPDATE_ALGS = ("sc_steepest_descent", "sc_cheap_quadratic_descent")
 
@@ -55,7 +69,7 @@ def gram_stats_supported(img_shape, dict_shape, kernel_stride, padding):
   (pallas_conv_train.py:155-165): each padding amount a multiple of its
   stride and the kernels stride multiples, so the block mask factors per
   stride block.  The port's segment runs single-tile and never needs
-  them; the gate stays for callers that ask."""
+  them; ``conv_solve_stats(gram_stats=True)`` does."""
   del img_shape
   if padding is not None:
     (pv0, pv1), (ph0, ph1) = padding
@@ -64,6 +78,16 @@ def gram_stats_supported(img_shape, dict_shape, kernel_stride, padding):
       return False
   _, _, kh, kw = dict_shape
   return kh % kernel_stride[0] == 0 and kw % kernel_stride[1] == 0
+
+
+def _geometry_supported(img_shape, dict_shape, kernel_stride):
+  """K10's geometry with the (s, s) flat-kernel Gram: what the kernels of
+  this file take, whatever the algorithms."""
+  kernel_stride = tuple(int(x) for x in kernel_stride)
+  if not fused_conv_direct.supported(img_shape, dict_shape, kernel_stride):
+    return False
+  geo = fused_conv_direct.geometry(img_shape, dict_shape, kernel_stride)
+  return geo["s"] <= geo["r"] * geo["cpx"]
 
 
 def fused_conv_segment_supported(img_shape, dict_shape, kernel_stride,
@@ -79,11 +103,29 @@ def fused_conv_segment_supported(img_shape, dict_shape, kernel_stride,
     return False
   if inference_alg not in ("ista", "fista") or update_alg not in UPDATE_ALGS:
     return False
-  kernel_stride = tuple(int(x) for x in kernel_stride)
-  if not fused_conv_direct.supported(img_shape, dict_shape, kernel_stride):
+  return _geometry_supported(img_shape, dict_shape, kernel_stride)
+
+
+def conv_solve_stats_supported(img_shape, dict_shape, kernel_stride,
+                               inference_alg, update_alg, *, upd_num_iters=1,
+                               padding=None):
+  """True when ``conv_solve_stats`` covers this shard configuration at
+  ``upd_num_iters`` update iterations, and so K13's composition and K17
+  (ops/fused_conv_dp_train) do (vtc_tpu pallas_conv_train.py:758-773
+  without the VMEM tile fit): one update iteration always (the summed
+  gradient is exact at the solve dictionary); more need the gram-form
+  statistics, so a stride-block-uniform mask (``gram_stats_supported``).
+  ``padding`` None is the all-ones mask, as the wrapper and vtc_tpu's
+  trainer read it (vtc_tpu's gate refuses it at more than one iteration,
+  where nothing of vtc_tpu asks it)."""
+  if not fused_conv_segment_supported(img_shape, dict_shape, kernel_stride,
+                                      inference_alg, update_alg):
     return False
-  geo = fused_conv_direct.geometry(img_shape, dict_shape, kernel_stride)
-  return geo["s"] <= geo["r"] * geo["cpx"]  # the (s, s) flat-kernel Gram
+  if int(upd_num_iters) <= 1:
+    return True
+  return gram_stats_supported(
+      img_shape, dict_shape, tuple(int(x) for x in kernel_stride),
+      conv_shapes.normalize_padding(padding))
 
 
 def fused_conv_train_plain(dictionary, hessian, eigvec, batches,
@@ -228,16 +270,7 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
            and int(power_iters) >= 0, "iteration counts must be >= 0")
   geo = fused_conv_direct.geometry(img_shape, dictionary.shape,
                                    kernel_stride)
-  with matmul_precision():
-    dstk, _ = fused_conv_direct.pack_weights(dictionary, geo)
-    mask_img, mblk = fused_conv_direct.block_mask(img_shape, padding, geo,
-                                                  torch.float32, device)
-    xblk = fused_conv_direct.blockify(
-        mask_img * batches.reshape((-1,) + img_shape[1:]), geo).contiguous()
-    supp = None
-    if geo["ekh"] or geo["ekw"]:  # zero-extended: the real-support mask
-      supp = fused_conv_direct.pack_weights(torch.ones_like(dictionary),
-                                            geo)[0]
+  dstk, mblk, xblk, supp = segment_inputs(dictionary, batches, padding, geo)
   d, h, v, codes, eta = _launch(
       dstk.clone(), hessian.contiguous().clone(),
       eigvec.contiguous().clone(), xblk, mblk, supp, geo, k,
@@ -248,6 +281,25 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
   kernels = fused_conv_direct.unpack_dstk(d, geo, dictionary.shape)
   out = (kernels.contiguous(), h, v, codes)
   return out + (eta,) if return_stepsize else out
+
+
+def segment_inputs(dictionary, batches, padding, geo):
+  """What the segment kernels take of a (k, b, c, H, W) segment, made with
+  torch ops: the packed kernels dstk (cpx, R*s), the block mask mblk, the
+  masked image blocks xblk (k*b, cpx, bh, bw) and, for zero-extended
+  kernels, the real-support mask supp (cpx, R*s), else None."""
+  img_shape = tuple(batches.shape[1:])
+  with matmul_precision():
+    dstk, _ = fused_conv_direct.pack_weights(dictionary, geo)
+    mask_img, mblk = fused_conv_direct.block_mask(
+        img_shape, padding, geo, torch.float32, batches.device)
+    xblk = fused_conv_direct.blockify(
+        mask_img * batches.reshape((-1,) + img_shape[1:]), geo).contiguous()
+    supp = None
+    if geo["ekh"] or geo["ekw"]:  # zero-extended: the real-support mask
+      supp = fused_conv_direct.pack_weights(torch.ones_like(dictionary),
+                                            geo)[0]
+  return dstk, mblk, xblk, supp
 
 
 def _launch(dstk, h, v, xblk, mblk, supp, geo, k, lam, num_iters, upd_step,
@@ -290,3 +342,182 @@ def _launch(dstk, h, v, xblk, mblk, supp, geo, k, lam, num_iters, upd_step,
         "b=%d, s=%d, cpx=%d, R=%d)" % (err, k, b, s, cpx, r))
   launches += k
   return dstk, h, v, old, eta
+
+
+def conv_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
+                           inf_num_iters, *, kernel_stride, padding,
+                           variant="fista", nonneg=False, hard=False,
+                           power_iters=12, gram_stats=False, precision=None):
+  """The plain PyTorch version of ``conv_solve_stats``, on any device and
+  in the inputs' own float type: ``lipschitz.power_iterate`` on the flat
+  kernels -> ``fused_conv_direct_plain`` -> the block statistics of
+  ``fused_conv_direct.build_block_update_stats`` (the composition of
+  vtc_tpu's tests/test_pallas_conv_train.py:180-215).  ``precision`` is
+  the matmul precision of the solve ('tensorfloat32' shows what TF32
+  products would cost); the refresh and the statistics stay at
+  'highest', as in every tier of the TPU kernel (:829-833)."""
+  kernel_stride = tuple(int(x) for x in kernel_stride)
+  padding = conv_shapes.normalize_padding(padding)
+  s = dictionary.shape[0]
+  eigval, v = lipschitz.power_iterate(dictionary.reshape(s, -1), eigvec,
+                                      int(power_iters))
+  eta = 1.0 / eigval
+  codes = fused_conv_direct.fused_conv_direct_plain(
+      batch, dictionary, sparsity_weight, inf_num_iters, eta,
+      kernel_stride=kernel_stride, padding=padding, variant=variant,
+      nonneg=nonneg, hard=hard, precision=precision)
+  stats = fused_conv_direct.build_block_update_stats(
+      batch, codes, dictionary.shape, kernel_stride, padding)
+  stat = torch.sum(codes * codes, dim=(0, 2, 3))
+  if not gram_stats:
+    # the batch-averaged gradient with a batch of 1: the unaveraged sum
+    grad_sum = fused_conv_direct.dictionary_gradient_from_block_stats(
+        dict(stats, batch=1), dictionary)
+    return codes, grad_sum, stat, v, eta
+  zstack = stats["zstack"]
+  b, rs = zstack.shape[:2]
+  z = zstack.reshape(b, rs, -1)
+  with matmul_precision():
+    m_row = stats["mblk"][0].reshape(1, 1, -1)  # the block-uniform mask
+    cm = torch.einsum("bkn,bln->kl", z * m_row, z)
+    bx = torch.einsum("bpn,bkn->pk", stats["xblk"].reshape(b, -1, z.shape[2]),
+                      z)
+  return codes, bx, cm, stat, v, eta
+
+
+def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
+                     inf_num_iters, *, kernel_stride, padding, variant="fista",
+                     nonneg=False, hard=False, power_iters=12,
+                     gram_stats=False, mxu="highest",
+                     early_stopping_epsilon=None):
+  """One data-parallel shard's conv solve+stats step.
+
+  Args:
+    dictionary: (s, c, kh, kw) float32 kernels, the replicated dictionary.
+    eigvec: (s,) warm eigenvector of the flat-kernel Gram (normalized
+      here).
+    batch: (b, c, H, W) float32 padded images, this rank's shard.
+    sparsity_weight, inf_num_iters: Python scalars.
+    kernel_stride / padding: the geometry; it must pass
+      ``conv_solve_stats_supported``, and with ``gram_stats`` also
+      ``gram_stats_supported`` (ValueError otherwise, on any device).
+    variant / nonneg / hard / power_iters: as in vtc_tpu.
+    mxu: 'highest' only; early_stopping_epsilon: None only (vtc_tpu's
+      kernel has no stop test; vtc_tpu's data-parallel stop is K17's,
+      which waits too).  Both raise NotImplementedError, ROADMAP.md §1
+      item 3a.
+
+  Returns:
+    gram_stats False: (codes (b, s, ch, cw), grad_sum (s, c, kh, kw), stat
+    (s,), new_eigvec, eta), grad_sum the masked-residual kernel gradient
+    summed over the shard: the full-batch gradient at the solve dictionary
+    is the sum over the shards divided by the global batch.
+    gram_stats True: (codes, bx (cpx, R*s), cm (R*s, R*s), stat,
+    new_eigvec, eta) in packed block space: the gradient at any D' is
+    (fused_conv_direct.pack_weights(D')[0] @ sum(cm) - sum(bx)) / global_b.
+    New tensors; eta is 0-d.
+  """
+  if variant not in ("ista", "fista"):
+    raise ValueError("variant must be 'ista' or 'fista'")
+  if mxu != "highest":
+    raise NotImplementedError(
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        % (mxu,))
+  if early_stopping_epsilon is not None:
+    raise NotImplementedError(
+        "conv_solve_stats has no early stop (a batch-global reduction per "
+        "iteration across the ranks), ROADMAP.md §1 item 3a")
+  kernel_stride = tuple(int(x) for x in kernel_stride)
+  padding = conv_shapes.normalize_padding(padding)
+
+  def require(cond, message):
+    if not cond:
+      raise ValueError("conv_solve_stats: " + message)
+
+  require(batch.dim() == 4 and dictionary.dim() == 4
+          and batch.shape[1] == dictionary.shape[1],
+          "shapes must be (b, c, H, W) and (s, c, kh, kw), got %s and %s"
+          % (tuple(batch.shape), tuple(dictionary.shape)))
+  require(not gram_stats or gram_stats_supported(
+      batch.shape, dictionary.shape, kernel_stride, padding),
+          "gram_stats needs a stride-block-uniform mask and kernels that "
+          "are stride multiples (gram_stats_supported())")
+  if batch.device.type == "cpu":
+    return conv_solve_stats_plain(
+        dictionary, eigvec, batch, float(sparsity_weight), int(inf_num_iters),
+        kernel_stride=kernel_stride, padding=padding, variant=variant,
+        nonneg=bool(nonneg), hard=bool(hard), power_iters=int(power_iters),
+        gram_stats=bool(gram_stats))
+  require(batch.device.type == "cuda",
+          "tensors must be on the CPU or a CUDA device, got "
+          + str(batch.device))
+  device = batch.device
+  s = dictionary.shape[0]
+  for name, t, shape in (("dictionary", dictionary, tuple(dictionary.shape)),
+                         ("eigvec", eigvec, (s,)),
+                         ("batch", batch, tuple(batch.shape))):
+    require(t.device == device and t.dtype == torch.float32
+            and tuple(t.shape) == shape,
+            "%s must be a float32 %s tensor on %s" % (name, shape, device))
+  require(batch.shape[0] > 0, "empty batch")
+  require(_geometry_supported(batch.shape, dictionary.shape, kernel_stride),
+          "geometry outside the kernels' gate (conv_solve_stats_supported())")
+  require(int(inf_num_iters) >= 0 and int(power_iters) >= 0,
+          "iteration counts must be >= 0")
+  geo = fused_conv_direct.geometry(batch.shape, dictionary.shape,
+                                   kernel_stride)
+  with matmul_precision():
+    dstk, _ = fused_conv_direct.pack_weights(dictionary, geo)
+    mask_img, mblk = fused_conv_direct.block_mask(batch.shape, padding, geo,
+                                                  torch.float32, device)
+    xblk = fused_conv_direct.blockify(mask_img * batch, geo).contiguous()
+  codes, out, cm, stat, v, eta = _launch_stats(
+      dstk, eigvec.contiguous().clone(), xblk, mblk, geo,
+      float(sparsity_weight), int(inf_num_iters), variant=variant,
+      nonneg=bool(nonneg), hard=bool(hard), power_iters=int(power_iters),
+      gram_stats=bool(gram_stats))
+  if gram_stats:
+    return codes, out, cm, stat, v, eta
+  grad_sum = fused_conv_direct.unpack_dstk(out, geo, dictionary.shape)
+  return codes, grad_sum.contiguous(), stat, v, eta
+
+
+def _launch_stats(dstk, v, xblk, mblk, geo, lam, num_iters, *, variant,
+                  nonneg, hard, power_iters, gram_stats):
+  """Allocate the scratch and enqueue one shard's step on the current
+  stream."""
+  global stats_launches
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  device = dstk.device
+  b = xblk.shape[0]
+  s, cpx, r = geo["s"], geo["cpx"], geo["r"]
+  bh, bw, ch, cw = geo["bh"], geo["bw"], geo["code_h"], geo["code_w"]
+  splits = -(-(b * bh * bw) // lib.vtc_conv_train_chunk())
+
+  def empty(*shape):
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+  rows = max(cpx, r * s) if gram_stats else cpx
+  dall, gram, eta = empty(s, r * cpx), empty(s, s), empty(1)
+  img, corr = empty(b, cpx, bh, bw), empty(b, s, ch, cw)
+  z, old = empty(b, s, ch, cw), empty(b, s, ch, cw)
+  partial, out = empty(splits, rows, r * s), empty(cpx, r * s)
+  cm = empty(r * s, r * s) if gram_stats else None
+  stat = empty(s)
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.vtc_conv_solve_stats(
+        dstk.data_ptr(), v.data_ptr(), xblk.data_ptr(), mblk.data_ptr(), b,
+        s, cpx, geo["ay"], geo["ax"], bh, bw, ctypes.c_float(lam), num_iters,
+        int(variant == "fista"), fused_conv_direct._MODES[(nonneg, hard)],
+        power_iters, int(gram_stats), dall.data_ptr(), gram.data_ptr(),
+        eta.data_ptr(), img.data_ptr(), corr.data_ptr(), z.data_ptr(),
+        old.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        None if cm is None else cm.data_ptr(), stat.data_ptr(), stream)
+  if err != 0:
+    raise RuntimeError(
+        "conv solve+stats launch failed with CUDA error %d (b=%d, s=%d, "
+        "cpx=%d, R=%d, gram_stats=%s)" % (err, b, s, cpx, r, gram_stats))
+  stats_launches += 1
+  return old, out, cm, stat, v, eta.reshape(())

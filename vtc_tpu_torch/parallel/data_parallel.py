@@ -1,5 +1,6 @@
 """Data-parallel train steps on ``torch.distributed``: counterpart of
-vtc_tpu/parallel/data_parallel.py, fully-connected and subspace.
+vtc_tpu/parallel/data_parallel.py, fully-connected, subspace and
+convolutional.
 
 The batch is sharded over the mesh's data axes, the dictionary, the
 Hessian EMA and the warm eigenvector are replicated, and what a step
@@ -10,12 +11,19 @@ the axis names: the mesh is where the size and the collectives come from.
 On a mesh of one rank no collective is issued.
 
 * ``build_dp_local_step`` (:82-224): the psum-per-op step.  The solve runs
-  vtc_tpu's ``_solve`` on the shard ('gram', else the two-product
-  iteration), with ``early_stopping_epsilon`` the batch-global stop test
-  (one scalar all-reduce per iteration: all ranks leave at the same
-  iteration); the gradient codes^T (codes D - X) is summed per update
-  iteration and the Hessian statistic once.  vtc_tpu runs this through XLA
-  outside any Pallas kernel, so it is plain torch ops here.
+  vtc_tpu's ``_solve`` on the shard (fc: 'gram', else the two-product
+  iteration; conv: the 'gram' loop of
+  ``convolutional/ista_fista._solve``), with ``early_stopping_epsilon``
+  the batch-global stop test (one scalar all-reduce per iteration: all
+  ranks leave at the same iteration).  fc sums the gradient codes^T
+  (codes D - X) per update iteration and the Hessian statistic once;
+  conv sums the shard's kernel gradient times its batch per update
+  iteration (code-space autocorrelation statistics where
+  ``conv_dict_gram.supported``, else the image-space gradient) and applies
+  the single-device epilogue to the global gradient: the Hessian scaling,
+  the Frobenius rescale (no floor, as vtc_tpu) and the per-kernel renorm.
+  vtc_tpu runs this through XLA outside any Pallas kernel, so it is plain
+  torch ops here.
 * ``build_dp_fused_local_step`` (:227-283): the fused-DP composition.  One
   solve+stats kernel per shard per step (K3,
   ``ops/fused_train_step.fused_solve_stats``), one all-reduce of (C, B,
@@ -26,37 +34,46 @@ On a mesh of one rank no collective is issued.
   subspace family (K7, ``ops/fused_group_train_step.
   fused_group_solve_stats``); the anti-alignment regularizer depends on
   the replicated dictionary alone and runs after the reduction.
+* ``build_dp_conv_fused_local_step`` (:358-452): the conv family (K13,
+  ``ops/fused_conv_train.conv_solve_stats``), one all-reduce of
+  (grad_sum, stat) per step, or with ``upd_num_iters`` > 1 of the gram-form
+  (bx, cm, stat), from which every update iteration's gradient is
+  unpack((pack(D') @ cm - bx) / global_b).  Its epilogue floors the
+  gradient norm at 1e-30, as vtc_tpu's does.  The scanned trainer runs
+  it on a mesh with a 'dcn' axis; elsewhere it takes the whole-segment
+  kernel K17 (``ops/fused_conv_dp_train``), whose plain version is this
+  step's composition (``conv_replicated_update``).
 * ``build_shard_map_train_step`` (:455-486; the name stays so a reader
   finds it): the global-batch step of the per-batch trainer.  It takes
-  this rank's shard of the batch, runs ``build_dp_local_step``'s step and
-  gathers the codes, so every rank returns what vtc_tpu's caller sees.
+  this rank's shard of the batch (2-D patches or 4-D images), runs
+  ``build_dp_local_step``'s step and gathers the codes, so every rank
+  returns what vtc_tpu's caller sees.
 
 The replicated updates are XLA outside any Pallas kernel in vtc_tpu
-(:266-280, :334-352) and plain torch ops under the precision pins here.
+(:266-280, :334-352, :425-449) and plain torch ops under the precision pins
+here.
 
-Raise NotImplementedError naming ROADMAP.md §1 item 9: mode
-'convolutional' (conv DP, K13 and K17), ``build_dp_conv_fused_local_step``
-and ``build_pjit_train_step`` (GSPMD with the 'code' axis).
+``build_pjit_train_step`` (GSPMD with the 'code' axis) raises
+NotImplementedError naming ROADMAP.md §1 item 9.
 """
 import torch
 
+from vtc_tpu_torch.analysis_transforms.convolutional import (
+    ista_fista as conv_ista_fista)
 from vtc_tpu_torch.analysis_transforms.fully_connected import ista_fista
 from vtc_tpu_torch.analysis_transforms.fully_connected import (
     subspace_ista_fista)
 from vtc_tpu_torch.dict_update_rules.fully_connected._subspace_common import (
     alignment_regularization_gradients)
-from vtc_tpu_torch.ops import fused_group_train_step, fused_train_step
+from vtc_tpu_torch.ops import conv_dict_gram, conv_shapes, fused_conv_direct
+from vtc_tpu_torch.ops import fused_conv_train, fused_group_train_step
+from vtc_tpu_torch.ops import fused_train_step
+from vtc_tpu_torch.ops import convolutions as conv_ops
 from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
 from vtc_tpu_torch.ops.precision import matmul_precision
 
 CHEAP_QUAD_ALGS = ("sc_cheap_quadratic_descent",
                    "subspace_sc_cheap_quadratic_descent")
-
-
-def _refuse_conv(what):
-  raise NotImplementedError(
-      what + ": conv data parallelism (K13, the conv solve+stats kernel, "
-      "and K17) waits, ROADMAP.md §1 item 9")
 
 
 def build_pjit_train_step(mesh, mode, inference_alg, update_alg, **config):
@@ -66,10 +83,6 @@ def build_pjit_train_step(mesh, mode, inference_alg, update_alg, **config):
       "build_pjit_train_step (GSPMD, dictionary rows over the 'code' axis) "
       "waits, ROADMAP.md §1 item 9; build_shard_map_train_step is the "
       "data-parallel step")
-
-
-def build_dp_conv_fused_local_step(*args, **kwargs):
-  _refuse_conv("build_dp_conv_fused_local_step")
 
 
 def _replicated_update(dictionary, hessian, stat, upd_stepsize,
@@ -95,6 +108,35 @@ def _replicated_update(dictionary, hessian, stat, upd_stepsize,
   return d, hessian
 
 
+def _replicated_conv_update(dictionary, hessian, stat, upd_stepsize,
+                            upd_num_iters, global_b, uses_hessian,
+                            renormalize, lowest_code_val, grad_fn,
+                            norm_floor):
+  """The conv counterpart of ``_replicated_update``, in vtc_tpu's order
+  (dict_update_rules/convolutional/*._update): the Hessian scaling, then
+  the rescale of the gradient to the dictionary's Frobenius norm (its norm
+  floored at 1e-30 with ``norm_floor``, the fused form's), the step and the
+  per-kernel renorm.  ``grad_fn(d)`` is the reduced, batch-averaged kernel
+  gradient at d."""
+  with matmul_precision():
+    if uses_hessian:
+      hessian = 0.99 * hessian + (stat / global_b) / 100.0
+      scale = (hessian + lowest_code_val)[:, None, None, None]
+    d = dictionary
+    for _ in range(int(upd_num_iters)):
+      grad = grad_fn(d)
+      if uses_hessian:
+        grad = grad / scale
+      grad_norm = torch.linalg.vector_norm(grad.reshape(-1))
+      if norm_floor:
+        grad_norm = torch.clamp(grad_norm, min=1e-30)
+      grad = grad * (torch.linalg.vector_norm(d.reshape(-1)) / grad_norm)
+      d = d - upd_stepsize * grad
+      if renormalize:
+        d = d / torch.sqrt(torch.sum(d ** 2, dim=(1, 2, 3), keepdim=True))
+  return d, hessian
+
+
 def build_dp_local_step(mesh, mode, inference_alg, update_alg, *,
                         nonneg=False, hard_threshold=False,
                         kernel_stride=None, padding=None,
@@ -109,10 +151,19 @@ def build_dp_local_step(mesh, mode, inference_alg, update_alg, *,
   codes being the shard's.  Every rank of ``mesh`` must call it in step:
   it sums the dictionary gradient per update iteration, the Hessian
   statistic once and, with ``early_stopping_epsilon``, the stop test's
-  scalar per solver iteration over the mesh.
+  scalar per solver iteration over the mesh.  Conv mode needs
+  ``kernel_stride`` and takes ``padding``.
   """
+  if mode == "convolutional":
+    return _build_dp_conv_local_step(
+        mesh, inference_alg, update_alg, nonneg=nonneg,
+        hard_threshold=hard_threshold, kernel_stride=kernel_stride,
+        padding=padding, renormalize=renormalize,
+        lipschitz_method=lipschitz_method, upd_num_iters=upd_num_iters,
+        lowest_code_val=lowest_code_val,
+        early_stopping_epsilon=early_stopping_epsilon)
   if mode != "fully-connected":
-    _refuse_conv("build_dp_local_step(mode=%r)" % (mode,))
+    raise ValueError("unknown mode %r" % (mode,))
   is_subspace_inf = inference_alg.startswith("subspace")
   is_subspace_upd = update_alg.startswith("subspace")
   variant = inference_alg[9:] if is_subspace_inf else inference_alg
@@ -165,6 +216,59 @@ def build_dp_local_step(mesh, mode, inference_alg, update_alg, *,
         dictionary, hessian, stat, float(upd_step), upd_num_iters,
         global_b, uses_hessian, renormalize, lowest_code_val,
         lambda d: mesh.sum(codes.T @ (codes @ d - batch_shard)), reg_fn)
+    return new_dict, hessian, codes
+
+  return local_step
+
+
+def _build_dp_conv_local_step(mesh, inference_alg, update_alg, *, nonneg,
+                              hard_threshold, kernel_stride, padding,
+                              renormalize, lipschitz_method, upd_num_iters,
+                              lowest_code_val, early_stopping_epsilon):
+  """The conv branch of ``build_dp_local_step`` (vtc_tpu :143-158,
+  :165-219)."""
+  if kernel_stride is None:
+    raise ValueError("mode='convolutional' needs kernel_stride")
+  stride = tuple(int(x) for x in kernel_stride)
+  padding = conv_shapes.normalize_padding(padding)
+  uses_hessian = update_alg in CHEAP_QUAD_ALGS
+  stop_axes = mesh if early_stopping_epsilon is not None else None
+  early_eps = (None if early_stopping_epsilon is None
+               else float(early_stopping_epsilon))
+
+  def local_step(dictionary, hessian, batch_shard, sw, n_it, upd_step):
+    local_b = batch_shard.shape[0]
+    global_b = local_b * mesh.size
+    mask = conv_shapes.create_mask(batch_shard.shape, padding,
+                                   batch_shard.dtype, batch_shard.device)
+    stepsize = lipschitz_ops.fista_stepsize(
+        dictionary.reshape(dictionary.shape[0], -1), lipschitz_method)
+    init = torch.zeros(
+        (local_b, dictionary.shape[0]) + conv_ista_fista.code_spatial_dims(
+            batch_shard.shape, dictionary.shape, stride),
+        dtype=batch_shard.dtype, device=batch_shard.device)
+    codes = conv_ista_fista._solve(
+        batch_shard, dictionary, mask, float(sw), int(n_it), stepsize, init,
+        stride, inference_alg, nonneg, hard_threshold, early_eps,
+        formulation="gram", padding=padding, psum_axes=stop_axes)
+    stat = None
+    if uses_hessian:
+      stat = mesh.sum(torch.sum(codes ** 2, dim=(0, 2, 3)))
+    if conv_dict_gram.supported(dictionary.shape, stride):
+      # the code-space gradient: its dictionary-independent statistics
+      # once per step, outside the update loop
+      stats = conv_dict_gram.build_dict_gradient_stats(
+          batch_shard, codes, dictionary.shape, stride, padding)
+      conv_grad = lambda d: conv_dict_gram.dictionary_gradient_from_stats(
+          stats, d, stride)
+    else:
+      conv_grad = lambda d: conv_ops.dictionary_gradient(
+          batch_shard, codes, d, stride, mask)
+    new_dict, hessian = _replicated_conv_update(
+        dictionary, hessian, stat, float(upd_step), upd_num_iters, global_b,
+        uses_hessian, renormalize, lowest_code_val,
+        lambda d: mesh.sum(conv_grad(d) * local_b) / global_b,
+        norm_floor=False)
     return new_dict, hessian, codes
 
   return local_step
@@ -238,6 +342,68 @@ def build_dp_group_fused_local_step(mesh, inference_alg, update_alg, *,
     return new_dict, hessian, eigvec, codes
 
   return local_step
+
+
+def build_dp_conv_fused_local_step(mesh, inference_alg, update_alg, *,
+                                   kernel_stride, padding, nonneg=False,
+                                   hard_threshold=False, renormalize=True,
+                                   upd_num_iters=1, lowest_code_val=0.001,
+                                   power_iters=12, mxu="highest"):
+  """The conv counterpart of ``build_dp_fused_local_step``.
+
+  Signature: local_step(dictionary, hessian, eigvec, batch_shard, sw,
+  inf_num_iters, upd_stepsize) -> (dict, hessian, eigvec, codes), eigvec
+  the flat-kernel Gram's, (s,).  With ``upd_num_iters`` == 1 the reduced
+  quantity is the gradient at the solve dictionary (any mask); with more,
+  the gram-form statistics, which need a stride-block-uniform mask
+  (``fused_conv_train.gram_stats_supported``; the wrapper raises
+  otherwise).
+  """
+  uses_hessian = update_alg == "sc_cheap_quadratic_descent"
+  gram_stats = int(upd_num_iters) > 1
+  stride = tuple(int(x) for x in kernel_stride)
+  padding = conv_shapes.normalize_padding(padding)
+  flags = dict(kernel_stride=stride, padding=padding, variant=inference_alg,
+               nonneg=nonneg, hard=hard_threshold, power_iters=power_iters,
+               gram_stats=gram_stats, mxu=mxu)
+
+  def local_step(dictionary, hessian, eigvec, batch_shard, sw, n_it,
+                 upd_step):
+    out = fused_conv_train.conv_solve_stats(dictionary, eigvec, batch_shard,
+                                            sw, n_it, **flags)
+    codes, stats, eigvec = out[0], out[1:-2], out[-2]
+    new_dict, hessian = conv_replicated_update(
+        mesh, dictionary, hessian, stats, batch_shard.shape, float(upd_step),
+        upd_num_iters, kernel_stride=stride, uses_hessian=uses_hessian,
+        renormalize=renormalize, lowest_code_val=lowest_code_val)
+    return new_dict, hessian, eigvec, codes
+
+  return local_step
+
+
+def conv_replicated_update(mesh, dictionary, hessian, stats, shard_shape,
+                           upd_stepsize, upd_num_iters, *, kernel_stride,
+                           uses_hessian, renormalize, lowest_code_val):
+  """The fused conv step after K13 (vtc_tpu :418-449): one sum over
+  ``mesh`` of this rank's ``stats`` -- (grad_sum, stat), or the gram form's
+  (bx, cm, stat) -- and the replicated update from the global statistics,
+  its gradient norm floored at 1e-30.  Also the plain version of K17's
+  update (ops/fused_conv_dp_train).  Returns (dictionary, hessian)."""
+  global_b = shard_shape[0] * mesh.size
+  if len(stats) == 3:  # the gram form
+    bx, cm, stat = mesh.sum(*stats)
+    geo = fused_conv_direct.geometry(shard_shape, dictionary.shape,
+                                     kernel_stride)
+    grad_fn = lambda d: fused_conv_direct.unpack_dstk(
+        (fused_conv_direct.pack_weights(d, geo)[0] @ cm - bx) / global_b,
+        geo, dictionary.shape)
+  else:
+    grad_sum, stat = mesh.sum(*stats)
+    grad0 = grad_sum / global_b
+    grad_fn = lambda d: grad0
+  return _replicated_conv_update(
+      dictionary, hessian, stat, upd_stepsize, upd_num_iters, global_b,
+      uses_hessian, renormalize, lowest_code_val, grad_fn, norm_floor=True)
 
 
 def build_shard_map_train_step(mesh, mode, inference_alg, update_alg,

@@ -145,6 +145,14 @@ class Mesh:
       at += t.numel()
     return tuple(out) if len(out) != 1 else out[0]
 
+  def sum_(self, flat):
+    """Sum the contiguous 1-d tensor ``flat`` over the ranks in place, in
+    its device's stream order, and return it: the one all-reduce of
+    ``sum`` without the packing.  A mesh of one rank leaves it as it is."""
+    if self.size > 1:
+      self._all_reduce_flat(flat)
+    return flat
+
   def mean(self, tensor):
     """The mean over the ranks of a tensor (one all-reduce)."""
     if self.size == 1:

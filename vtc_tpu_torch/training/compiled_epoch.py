@@ -1,7 +1,7 @@
 """Whole training segments: counterpart of ``train_dictionary_scanned``
 (vtc_tpu/training/compiled_epoch.py:427-1297), fully-connected (with the
-subspace, group-sparse, variants) and convolutional, and data-parallel
-for the first two.
+subspace, group-sparse, variants) and convolutional, each also
+data-parallel.
 
 Same ``all_params`` schema and semantics as ``sparse_coding.
 train_dictionary``: the epochs are split into segments at every
@@ -52,22 +52,35 @@ JAX package's ``jax.random.permutation``, not the same order.
   directly (bench.py:584-591), and so does chip_smoke.py.
 
 With ``all_params['data_parallel']`` (True: the default process group's
-world, or one rank without a group; or a ``parallel.Mesh``), fc and
-subspace (:557-814): every rank calls the trainer with the same global
+world, or one rank without a group; or a ``parallel.Mesh``), fc, subspace
+and conv (:557-814): every rank calls the trainer with the same global
 batches, holds its own shard of the batch axis on the device for the whole
-run and returns the same dictionary.
+run (axis 1 of the (k, b, n) or (k, b, c, H, W) batches) and returns the
+same dictionary.
 
+* ``_dp_conv_segment_runner`` (:249-281): for mode='convolutional', where
+  vtc_tpu picks its whole-segment conv DP kernel K17 (``dp_rdma_conv``,
+  :707-720, :1160-1171): each rank runs its segment through
+  ops/fused_conv_dp_train (the port of K17), one C loop per segment with
+  one all-reduce of the step's statistics between its solve and its
+  update.  Its gate is K13's, ``conv_solve_stats_supported`` at the
+  segment's ``upd_num_iters`` (more than one update iteration takes the
+  gram form, so a stride-block-uniform mask); vtc_tpu's further terms are
+  VMEM budgets and its interpret-mode device count.
 * ``_dp_fused_segment_runner`` (:178-211): the fused-DP composition, per
-  step one solve+stats kernel on the shard (K3, or K7 with groups), one
-  all-reduce of its statistics and the replicated update, the warm
-  eigenvector riding replicated.  Picked where vtc_tpu picks it ('pallas',
-  warm tracking, no early stop, the gates of ``fused_solve_stats_supported``
-  / ``fused_group_solve_stats_supported``), and also where vtc_tpu would
-  pick its whole-segment DP kernels K15 and K16 (``dp_rdma``,
-  ``dp_rdma_group``), which wait (ROADMAP.md §1 item 9): the same numbers,
-  one launch group and one all-reduce per step instead of one launch per
-  segment.  Its per-step Python between the kernels takes the place of
-  K2's one C loop per segment.
+  step one solve+stats kernel on the shard (K3, K7 with groups, K13 in
+  conv mode on a mesh with a 'dcn' axis, where vtc_tpu does not take K17),
+  one all-reduce of its statistics and the replicated update, the warm
+  eigenvector riding replicated.  Picked where vtc_tpu picks it (warm
+  tracking, no early stop, 'pallas' (fc) or 'auto'/'pallas' (conv), the
+  gates of ``fused_solve_stats_supported`` /
+  ``fused_group_solve_stats_supported`` / ``conv_solve_stats_supported``),
+  and also where vtc_tpu would pick its whole-segment fc, subspace and ICA
+  DP kernels K15, K16 and K18 (``dp_rdma``, ``dp_rdma_group``), which wait
+  (ROADMAP.md §1 item 9.2): the same numbers, one launch group and one
+  all-reduce per step instead of one launch per segment.  Its per-step
+  Python between the kernels takes the place of K2's one C loop per
+  segment.
 * ``_dp_segment_runner`` (:395-424): the psum-per-op step
   (``parallel.build_dp_local_step``) for every other configuration, with
   the stepsize computed in the step: 'power_warm' is downgraded to 'power'
@@ -78,11 +91,10 @@ run and returns the same dictionary.
   the samples of the single-device run.  Rank 0 writes checkpoints and
   metrics; reset/prune takes rank 0's draw on every rank.
 
-Raise NotImplementedError, each naming its ROADMAP.md §1 item: conv with
-data_parallel (item 9), 'hbm_chunk_steps' streaming (item 8),
-'train_precision' other than 'highest' (item 3), and
-'early_stopping_epsilon' where the kernels would run it on a CUDA device
-(item 3).
+Raise NotImplementedError, each naming its ROADMAP.md §1 item:
+'hbm_chunk_steps' streaming (item 8), 'train_precision' other than
+'highest' (item 3), and 'early_stopping_epsilon' where the kernels would
+run it on a CUDA device (item 3).
 """
 import time
 
@@ -91,7 +103,8 @@ import torch
 
 from vtc_tpu_torch import parallel
 from vtc_tpu_torch.ops import conv_shapes, fused_code_shard_train
-from vtc_tpu_torch.ops import fused_conv_train, fused_group_train_step
+from vtc_tpu_torch.ops import fused_conv_dp_train, fused_conv_train
+from vtc_tpu_torch.ops import fused_group_train_step
 from vtc_tpu_torch.ops import fused_train_step
 from vtc_tpu_torch.ops import lipschitz as lip
 from vtc_tpu_torch.training import sparse_coding as sc
@@ -204,6 +217,26 @@ def _code_shard_segment_runner(cs_size, data_size, variant, update_alg,
   return run
 
 
+def _dp_conv_segment_runner(mesh, variant, update_alg, upd_niters, nonneg,
+                            hard, renormalize, kernel_stride, padding):
+  """vtc_tpu's ``_dp_rdma_conv_segment_runner``: this rank's shards of the
+  whole segment through the data-parallel conv segment kernels (K17), the
+  statistics summed over ``mesh`` once per step, warm tracking at
+  power_iters=2."""
+
+  def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
+    dictionary, hessian, eigvec, _ = (
+        fused_conv_dp_train.fused_conv_dp_train_segment(
+            dictionary, hessian, eigvec, batches, sw, n_it, upd_step,
+            mesh=mesh, kernel_stride=kernel_stride, padding=padding,
+            variant=variant, update_alg=update_alg, upd_num_iters=upd_niters,
+            nonneg=nonneg, hard=hard, renormalize=renormalize,
+            power_iters=2))
+    return dictionary, hessian, eigvec
+
+  return run
+
+
 def _dp_fused_segment_runner(local_step):
   """The fused-DP composition over this rank's shards of a segment:
   ``local_step`` (``parallel.build_dp_fused_local_step`` or its group
@@ -259,8 +292,7 @@ def train_dictionary_scanned(training_batches, validation_batches,
   conv_formulation = all_params.get("conv_formulation", "auto")
   group_assignments = sc.normalize_groups(
       all_params.get("group_assignments"))
-  sc.check_supported(mode, inference_alg, update_alg, group_assignments,
-                     all_params.get("data_parallel", False))
+  sc.check_supported(mode, inference_alg, update_alg, group_assignments)
   if all_params.get("train_precision", "highest") != "highest":
     raise NotImplementedError(
         "train_precision=%r: the reduced-precision tiers wait, ROADMAP.md "
@@ -330,8 +362,7 @@ def train_dictionary_scanned(training_batches, validation_batches,
   # else the psum-per-op step with the stepsize computed in the step
   dp_fused = False
   if dp_mesh is not None:
-    dp_fused = (early_eps is None and warm_power
-                and resolved_formulation == "pallas")
+    dp_fused = early_eps is None and warm_power and kernels_route
     if not dp_fused and warm_power:
       lipschitz_method, warm_power = "power", False
 
@@ -341,6 +372,13 @@ def train_dictionary_scanned(training_batches, validation_batches,
       return False
     shard_b, s_now = training_batches.shape[1], dictionary.shape[0]
     n_in = training_batches.shape[-1]
+    if mode == "convolutional":
+      # vtc_tpu's terms (:695-702, :1172-1179): the gram form at more than
+      # one update iteration
+      return fused_conv_train.conv_solve_stats_supported(
+          tuple(training_batches.shape[1:]), dictionary.shape, kernel_stride,
+          inference_alg, update_alg, upd_num_iters=upd_niters,
+          padding=padding)
     if group_assignments is None:
       return (inference_alg in ("ista", "fista")
               and update_alg in fused_train_step.UPDATE_ALGS
@@ -355,9 +393,17 @@ def train_dictionary_scanned(training_batches, validation_batches,
   def make_dp_runner():
     """(runner, whether it tracks the warm eigenvector)."""
     if dp_fused_now():
+      if mode == "convolutional" and "dcn" not in dp_mesh.axis_names:
+        return _dp_conv_segment_runner(
+            dp_mesh, inference_alg, update_alg, upd_niters, nonneg, hard,
+            renormalize, kernel_stride, padding), True
       common = dict(hard_threshold=hard, renormalize=renormalize,
                     upd_num_iters=upd_niters, power_iters=2)
-      if group_assignments is None:
+      if mode == "convolutional":
+        local = parallel.build_dp_conv_fused_local_step(
+            dp_mesh, inference_alg, update_alg, kernel_stride=kernel_stride,
+            padding=padding, nonneg=nonneg, **common)
+      elif group_assignments is None:
         local = parallel.build_dp_fused_local_step(
             dp_mesh, inference_alg, update_alg, nonneg=nonneg, **common)
       else:
@@ -368,7 +414,8 @@ def train_dictionary_scanned(training_batches, validation_batches,
       return _dp_fused_segment_runner(local), True
     local = parallel.build_dp_local_step(
         dp_mesh, mode, inference_alg, update_alg, nonneg=nonneg,
-        hard_threshold=hard, group_assignments=group_assignments,
+        hard_threshold=hard, kernel_stride=kernel_stride, padding=padding,
+        group_assignments=group_assignments,
         alignment_penalty=alignment_penalty, renormalize=renormalize,
         fc_formulation=all_params.get("fc_formulation", "gram"),
         early_stopping_epsilon=early_eps,

@@ -27,20 +27,20 @@ and the dictionary figures use the port's own copies of vtc_tpu's
 numpy-only host modules (utils/checkpoint, training/reset_prune,
 utils/debug, utils/plotting).
 
-With ``all_params['data_parallel']`` (True, or a ``parallel.Mesh``), fc
-and subspace: every rank calls the trainer with the same global batches,
-solves its own shard of each (``parallel.build_shard_map_train_step``:
-the gradient and the Hessian statistic are summed over the ranks, the
-update runs replicated) and returns the same dictionary (vtc_tpu
-:484-509).  True means the default process group's world, or one rank
-without a group.  Rank 0 of the mesh writes the checkpoints and the
-TensorBoard log, and its reset/prune draw is broadcast, so the replicated
-dictionary stays the same on every rank.
+With ``all_params['data_parallel']`` (True, or a ``parallel.Mesh``), fc,
+subspace and conv: every rank calls the trainer with the same global
+batches, solves its own shard of each (``parallel.build_dp_local_step``,
+the step of ``build_shard_map_train_step``: the gradient and the Hessian
+statistic are summed over the ranks, the update runs replicated) and
+returns the same dictionary (vtc_tpu :484-509).  True means the default
+process group's world, or one rank without a group.  Rank 0 of the mesh
+writes the checkpoints and the TensorBoard log, and its reset/prune draw
+is broadcast, so the replicated dictionary stays the same on every rank.
 
-Raise NotImplementedError, each naming its ROADMAP.md §1 item: conv with
-data_parallel (item 9), profile_dir (item 8), and an early stop where a
-CUDA kernel would run the solve (fc_formulation='pallas', or a conv solve
-on the card through K10; item 3).
+Raise NotImplementedError, each naming its ROADMAP.md §1 item:
+profile_dir (item 8), and an early stop where a CUDA kernel would run the
+solve (fc_formulation='pallas', or a conv solve on the card through K10;
+item 3).
 """
 import time
 from pathlib import Path
@@ -81,9 +81,8 @@ CHEAP_QUAD_ALGS = ("sc_cheap_quadratic_descent",
                    "subspace_sc_cheap_quadratic_descent")
 
 
-def check_supported(mode, inference_alg, update_alg, group_assignments=None,
-                    data_parallel=False):
-  """Raise NotImplementedError for what the port does not run yet."""
+def check_supported(mode, inference_alg, update_alg, group_assignments=None):
+  """Raise for algorithm combinations that do not exist."""
   if mode not in ("fully-connected", "convolutional"):
     raise ValueError("unknown mode %r" % (mode,))
   if mode == "convolutional" and (inference_alg.startswith("subspace")
@@ -98,10 +97,6 @@ def check_supported(mode, inference_alg, update_alg, group_assignments=None,
   if group_assignments is None and (inference_alg.startswith("subspace")
                                     or update_alg.startswith("subspace")):
     raise ValueError("the subspace algorithms need group_assignments")
-  if data_parallel and mode == "convolutional":
-    raise NotImplementedError(
-        "data_parallel in conv mode waits for the conv solve+stats kernels "
-        "(K13, K17), ROADMAP.md §1 item 9")
 
 
 def normalize_groups(group_assignments):
@@ -536,8 +531,7 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
   update_alg = all_params["dictionary_update_algorithm"]
   upd_schedule = all_params["dict_update_param_schedule"]
   group_assignments = normalize_groups(all_params.get("group_assignments"))
-  check_supported(mode, inference_alg, update_alg, group_assignments,
-                  all_params.get("data_parallel", False))
+  check_supported(mode, inference_alg, update_alg, group_assignments)
   if all_params.get("profile_dir") is not None:
     raise NotImplementedError(
         "profile_dir (a torch.profiler trace inside the trainer) waits, "
@@ -603,8 +597,8 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
       if n_upd not in dp_steps:
         dp_steps[n_upd] = parallel.build_dp_local_step(
             dp_mesh, mode, inference_alg, update_alg, nonneg=nonneg,
-            hard_threshold=hard_threshold,
-            group_assignments=group_assignments,
+            hard_threshold=hard_threshold, kernel_stride=kernel_stride,
+            padding=padding, group_assignments=group_assignments,
             alignment_penalty=alignment_penalty, renormalize=renormalize,
             fc_formulation=fc_formulation, lipschitz_method=lipschitz_method,
             upd_num_iters=n_upd, early_stopping_epsilon=early_eps)
