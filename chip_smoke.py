@@ -53,7 +53,11 @@ caught.
   rank (no process group: the one card) for 1,000, 1,000 and 2,000 steps,
   and at a world of 2 with two processes of this script sharing the card
   over a gloo group (shards of 125); encode_dataset and PCA on a mesh of
-  one.  Kernels K3, K7 and K9, the per-shard solve+stats steps, with one
+  one.  Kernels K15, K16 and K18 (bench.py's fc_, subspace_ and
+  ica_dp_rdma_batch250 rows, bench.py:796-827), each rank's whole segment
+  from one C loop with the statistics summed over the ranks by a host hook
+  between each step's solve and its update; and, on a mesh of two slices
+  ('dcn'), K3, K7 and K9, the per-shard solve+stats steps, with one
   all-reduce of their statistics per step and the replicated update.
 * Conv data-parallel training: the scanned conv trainer above with
   all_params['data_parallel'] on a mesh of one rank (one 200-step segment
@@ -226,16 +230,12 @@ the phases that make its check here.
 27. A world of 1 through the normal entry points.  First a probe: whether
    torch.distributed has NCCL and a one-rank NCCL group initialises and
    reduces a device tensor (printed; with one, data_parallel=True inside
-   it must give bitwise the run without a group).  Then
-   train_dictionary_scanned(data_parallel=True), fc and subspace, 1,000
-   steps each: 1,000 K3 / K7 launches and no K2 / K6 launch, unit rows,
-   the held-out loss falls, and the final dictionary within the rounding
-   floor of ROADMAP.md §3 (twice 2.2e-4) of the single-device trainer's
-   from phases 6 and 11.  The scanned ICA trainer for 2,000 steps: 2,000
-   K9 launches, no K8, no rollback, the held-out NLL falls; stepsize 40
-   must roll back through the data-parallel fallback.  encode_dataset (fc
-   and subspace, 16 K1 / K4 launches) and PCA with a mesh of one must
-   equal their single-device results bitwise.
+   it must give bitwise the run without a group).  The scanned ICA trainer
+   with data_parallel at stepsize 40 must roll back through the
+   data-parallel fallback.  encode_dataset (fc and subspace, 16 K1 / K4
+   launches) and PCA with a mesh of one must equal their single-device
+   results bitwise.  (The 1,000- and 2,000-step world-of-1 trainers run
+   in phase 34, through K15, K16 and K18.)
 28. A world of 2 on the one card: two processes of this script (the hidden
    sub-command --dp-rank) share the GPU, join a gloo group over a file://
    store in a temporary directory, stage the statistics through pinned host
@@ -243,19 +243,20 @@ the phases that make its check here.
    subspace and 50 ICA steps on shards of 125, and 50 steepest, 50
    cheap-quadratic and 20 gram-form (three update iterations) conv steps
    on shards of 20 (images each rank makes on the card from one seed)
-   through K17, the sum of each step's statistics called back from its C
-   loop, and 50 cheap-quadratic conv steps on a mesh of two slices
-   (dcn=2), where the trainer takes K13's composition as vtc_tpu does,
-   all through the trainers.  Each rank must count 100 K3, 100 K7, 50 K9,
-   50 K13 and 120 K17 launches and none of K2, K6, K8 or K12; both ranks
-   must return bitwise the same state; and it must match the
-   single-process trainers (K2, K6, K8, K12) on the global batch, the
-   steepest and ICA runs within phase 2's limit, the cheap-quadratic ones
-   within the rounding floor.  A rank's failure fails the run.
+   through K15, K16, K18 and K17, the sum of each step's statistics
+   called back from the kernel's C loop, and 50 cheap-quadratic fc,
+   subspace and conv steps and 50 ICA steps on a mesh of two slices
+   (dcn=2), where the trainers take K3, K7, K9 and K13's composition as
+   vtc_tpu does, all through the trainers.  Each rank must count 50 K3,
+   50 K7, 50 K9, 50 K13, 120 K17, 100 K15, 100 K16 and 50 K18 launches and
+   none of K2, K6, K8 or K12; both ranks must return bitwise the same
+   state; and it must match the single-process trainers (K2, K6, K8, K12)
+   on the global batch, the steepest and ICA runs within phase 2's limit,
+   the cheap-quadratic ones within the rounding floor.  A rank's failure
+   fails the run.
 29. Timing: K3, K7 and K9 ms per step at b 250 and at a shard of 125
    against their plain versions and against K2, K6 and K8's whole steps;
-   the host's enqueue time per data-parallel step; the world-of-1
-   trainers' patches/s (phase 27's runs).
+   the host's enqueue time per step of their composition.
 30. K13 against plain, in float32 and float64: the flagship (b 40, FISTA
    25, windowed kernels, exact seed) and a shard of 20 in both forms; b 5
    with ISTA 25 and random kernels, 12x12 kernels at stride 8
@@ -296,6 +297,35 @@ the phases that make its check here.
    step, K13's composition and K17's segment; the world-of-1 conv
    trainer's images/s beside phase 19's, the b-5 row's and the per-batch
    trainer's.
+33. K15, K16 and K18 against their fp32 and fp64 plain versions, each a
+   whole data-parallel segment of 10 steps at a world of 1: K15 at the
+   flagship (b 250, s = n = 256, FISTA 25, cheap-quad 0.1), at a shard of
+   125, with steepest descent at three update iterations, at a ragged
+   13 x 37 x 24 shape with s > n (the n x n power Gram; cheap-quad at three
+   update iterations and stepsize 0.003) and ISTA hard nonnegative there;
+   K16 at 64 x 4 groups at b 250 and 125, and with the anti-alignment
+   penalty 0.4 on ragged overlapping groups (steepest descent: with the
+   cheap-quadratic rule sign(D D^T) flips between fp32 and fp64 over ten
+   steps); K18 at n 256, b 250 (gapped sources, as phase 20), a shard of
+   125 at three update iterations, and a stale 1.35 X seed that fires the
+   boost.  Every output at phase 2's limit, K18's residual at 1e-5; each
+   wrapper must count one launch per step.  A TF32 control of each plain
+   version must fail the limit; the tiers and the early stop must be
+   refused with no launch.
+34. A world of 1 through the entry points: train_dictionary_scanned(
+   data_parallel=True), fc and subspace, 1,000 steps each: 1,000 K15 / K16
+   launches and no K3 / K7 or K2 / K6 launch, unit rows, the held-out loss
+   falls, and the final dictionary within the rounding floor of ROADMAP.md
+   §3 (twice 2.2e-4) of the single-device trainer's from phases 6 and 11.
+   The scanned ICA trainer for 2,000 steps: 2,000 K18 launches, no K9 or
+   K8, no rollback, the held-out NLL falls, within the floor of phase 21's.
+35. Timing: K15, K16 and K18 ms per step over a segment of 100 (K18: 200)
+   steps at b 250, beside their plain versions, K3, K7 and K9's
+   composition and K2, K6 and K8's whole steps; the host's enqueue time
+   per step over 5 and 50 steps, of each kernel's segment and of the
+   composition; and bench.py's fc_, subspace_ and ica_dp_rdma_batch250
+   rows at a world of 1 (patches/s per chip through the trainers) beside
+   the single-device fused trainers, in turns.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -350,7 +380,10 @@ CUDA_TESTS = {
     "test_torch_port_parallel.py::"
     "test_cuda_solve_stats_kernels_match_plain": (26,),
     "test_torch_port_parallel_train.py::"
-    "test_cuda_dp_trainers_run_the_stats_kernels": (27,),
+    "test_cuda_dp_trainers_run_the_stats_kernels": (34,),
+    "test_torch_port_dp_segments.py::test_cuda_k15_matches_plain": (33,),
+    "test_torch_port_dp_segments.py::test_cuda_k16_matches_plain": (33,),
+    "test_torch_port_dp_segments.py::test_cuda_k18_matches_plain": (33,),
     "test_torch_port_subspace.py::"
     "test_cuda_early_stop_raises_and_launches_nothing": (8,),
     "test_torch_port_subspace.py::test_cuda_kernel_matches_plain": (8, 9),
@@ -1796,7 +1829,14 @@ DP2_RUNS = (("fc steepest", "fc", "sc_steepest_descent", 1, DP_STEPS2, 1),
             ("conv cheap-quad", "conv", None, 1, DP_STEPS2, 1),
             ("conv cheap-quad upd 3 (gram form)", "conv", None, 3,
              DP_GRAM_STEPS2, 1),
-            ("conv cheap-quad dcn=2 (K13)", "conv", None, 1, DP_STEPS2, 2))
+            ("conv cheap-quad dcn=2 (K13)", "conv", None, 1, DP_STEPS2, 2),
+            ("fc cheap-quad dcn=2 (K3)", "fc", None, 1, DP_STEPS2, 2),
+            ("subspace cheap-quad dcn=2 (K7)", "subspace", None, 1,
+             DP_STEPS2, 2),
+            ("ica dcn=2 (K9)", "ica", None, 1, DP_STEPS2, 2))
+# what each rank counts, in dp_rank_main's order
+DP2_COUNTS = ("K3", "K7", "K9", "K13", "K17", "K15", "K16", "K18", "K2",
+              "K6", "K8", "K12")
 
 
 def dp2_conv_images(torch):
@@ -1847,6 +1887,8 @@ def dp_rank_main(rank, world, workdir):
   import torch.distributed as dist
   from vtc_tpu_torch.ops import fused_conv_dp_train as K17
   from vtc_tpu_torch.ops import fused_conv_train as K12
+  from vtc_tpu_torch.ops import fused_dp_train as K15
+  from vtc_tpu_torch.ops import fused_group_dp_train as K16
   from vtc_tpu_torch.ops import fused_group_train_step as K6
   from vtc_tpu_torch.ops import fused_ica_train as K8
   from vtc_tpu_torch.ops import fused_train_step as K2
@@ -1863,10 +1905,11 @@ def dp_rank_main(rank, world, workdir):
       out[key] = dp2_run(torch, family, alg, upd, steps, data, True,
                          dcn).cpu().numpy()
     torch.cuda.synchronize()
-    out["launches"] = np.array([K2.stats_launches, K6.stats_launches,
-                                K8.stats_launches, K12.stats_launches,
-                                K17.launches, K2.launches, K6.launches,
-                                K8.launches, K12.launches])
+    out["launches"] = np.array([
+        K2.stats_launches, K6.stats_launches, K8.stats_launches,
+        K12.stats_launches, K17.launches, K15.launches, K16.launches,
+        K8.dp_launches, K2.launches, K6.launches, K8.launches,
+        K12.launches])
     np.savez(os.path.join(workdir, "rank%d.npz" % rank), **out)
   finally:
     dist.destroy_process_group()
@@ -1878,8 +1921,8 @@ def dp_world_of_two(torch, fc_x, sub_x, d0, conv_d0, dev):
   group over a file store and run DP_STEPS2 fc, subspace and ICA steps on
   shards of 125 and the conv runs on shards of 20.  Both ranks must return
   bitwise the same state, which must match the single-process trainers on
-  the global batch.  Returns rank 0's launch counts (K3, K7, K9, K13,
-  K17, K2, K6, K8, K12)."""
+  the global batch.  Returns rank 0's launch counts, {DP2_COUNTS name:
+  count}."""
   import os
   import tempfile
   world = 2
@@ -1909,16 +1952,21 @@ def dp_world_of_two(torch, fc_x, sub_x, d0, conv_d0, dev):
           % codes)
     ranks = [dict(np.load(os.path.join(workdir, "rank%d.npz" % rank)))
              for rank in range(world)]
-  want_launches = [2 * DP_STEPS2, 2 * DP_STEPS2, DP_STEPS2, DP_STEPS2,
-                   2 * DP_STEPS2 + DP_GRAM_STEPS2, 0, 0, 0, 0]
+  # the 'dcn' runs take K3, K7, K9 and K13's composition, every other run
+  # K15, K16, K18 or K17, the sum called back from the kernel's C loop
+  want = dict(K3=DP_STEPS2, K7=DP_STEPS2, K9=DP_STEPS2, K13=DP_STEPS2,
+              K17=2 * DP_STEPS2 + DP_GRAM_STEPS2, K15=2 * DP_STEPS2,
+              K16=2 * DP_STEPS2, K18=DP_STEPS2, K2=0, K6=0, K8=0, K12=0)
+  want_launches = [want[name] for name in DP2_COUNTS]
   for rank, out in enumerate(ranks):
     check(list(out["launches"]) == want_launches,
-          "rank %d launched %s, expected %s (K3, K7, K9, K13, K17, K2, K6, "
-          "K8, K12)" % (rank, list(out["launches"]), want_launches))
+          "rank %d launched %s, expected %s (%s)" % (
+              rank, list(out["launches"]), want_launches,
+              ", ".join(DP2_COUNTS)))
   print("world of 2 on the one card (gloo, file store, statistics staged "
-        "through pinned host buffers): both ranks done in %.1f s, each %d K3, "
-        "%d K7, %d K9, %d K13 and %d K17 launches and no K2, K6, K8 or K12"
-        % (dt, *want_launches[:5]))
+        "through pinned host buffers): both ranks done in %.1f s, each %s "
+        "launches and no K2, K6, K8 or K12" % (dt, ", ".join(
+            "%d %s" % (want[name], name) for name in DP2_COUNTS[:8])))
   data["conv_x"] = dp2_conv_images(torch)
   for key, family, alg, upd, steps, _ in DP2_RUNS:
     check(np.array_equal(ranks[0][key], ranks[1][key]),
@@ -1933,7 +1981,7 @@ def dp_world_of_two(torch, fc_x, sub_x, d0, conv_d0, dev):
     check(np.isfinite(ranks[0][key]).all() and err <= lim,
           "%s: world of 2 differs from the single-process run by %.3e, "
           "bound %.3e" % (key, err, lim))
-  return [int(n) for n in ranks[0]["launches"]]
+  return dict(zip(DP2_COUNTS, (int(n) for n in ranks[0]["launches"])))
 
 
 # ---------------------------------------------------------------------------
@@ -2225,6 +2273,165 @@ def conv_dp_kernel_cases(torch, K17, K12, parallel, compiled_epoch, conv_ops,
     check(K17.launches == before, label + " launched K17")
     print("refused on the card: %s (%s)" % (label, item))
   return worst
+
+
+# ---------------------------------------------------------------------------
+# the whole-segment data-parallel kernels K15 (fc), K16 (subspace), K18 (ICA)
+# ---------------------------------------------------------------------------
+DP_SEG_STEPS = 10         # steps of each phase-33 segment
+SEG_NAMES = ("dictionary", "hessian", "eigvec", "last codes")
+
+
+def dp_segment_kernel_cases(torch, parallel, K15, K16, K8, sub, lipschitz,
+                            invertible_linear, train_patches, gtrain, dev):
+  """Phase 33: K15, K16 and K18, each a whole data-parallel segment of
+  DP_SEG_STEPS steps at a world of 1, against their fp32 and fp64 plain
+  versions, TF32 controls, and the refusals.  Returns the largest fp32
+  difference of each kernel."""
+  mesh1 = parallel.make_mesh()
+  k = DP_SEG_STEPS
+  rng = np.random.RandomState(33)
+  flag_d = torch.tensor(unit_rows(np.random.RandomState(2), 256, 256),
+                        device=dev)
+  x = torch.tensor(train_patches[:k * TRAIN_BATCH], device=dev).reshape(
+      k, TRAIN_BATCH, 256)
+  gx = torch.tensor(gtrain[:k * TRAIN_BATCH], device=dev).reshape(
+      k, TRAIN_BATCH, 256)
+  rag_d = torch.tensor(unit_rows(rng, 37, 24), device=dev)  # s > n
+  rag_x = torch.tensor(rng.randn(k, 13, 24).astype(np.float32), device=dev)
+  sd, cq = "sc_steepest_descent", "sc_cheap_quadratic_descent"
+
+  def run(label, kernel, plain, counter, names, args, kw, limits=None):
+    before = counter()
+    got = kernel(*args, **kw)
+    check(counter() == before + k, label + ": did not count one launch per "
+          "step")
+    want32 = plain(*args, **kw)
+    want64 = plain(*[a.double() if isinstance(a, torch.Tensor) else a
+                     for a in args], **kw)
+    torch.cuda.synchronize()
+    return compare_outputs(torch, label, names, got, want32, want64,
+                           limits), want64
+
+  # K15: the flagship (b 250, s = n = 256, FISTA 25), a shard of 125,
+  # steepest descent at three update iterations, and a ragged s > n shape
+  # (the n x n power Gram); cheap-quadratic segments of ten steps are well
+  # posed at these widths, and at the ragged one with a small stepsize
+  # (rounding is amplified by threshold flips otherwise, phase 5)
+  k15_err = 0.0
+  for label, xb, d, lam, iters, step, flags in (
+      ("flagship 10 x b250 fista25 cheap-quad", x, flag_d, LAM, TRAIN_ITERS,
+       TRAIN_STEP, {}),
+      ("flagship shard 10 x b125 cheap-quad", x[:, :TRAIN_BATCH // 2],
+       flag_d, LAM, TRAIN_ITERS, TRAIN_STEP, {}),
+      ("flagship 10 x b250 steepest upd 3", x, flag_d, LAM, TRAIN_ITERS,
+       TRAIN_STEP, {"update_alg": sd, "upd_num_iters": 3}),
+      ("ragged 10 x 13x37x24 (s > n) cheap-quad upd 3", rag_x, rag_d, 0.08,
+       20, 0.003, {"upd_num_iters": 3}),
+      ("13x37x24 ista hard nonneg steepest", rag_x, rag_d, 0.08, 20, 0.05,
+       {"update_alg": sd, "variant": "ista", "hard": True, "nonneg": True})):
+    s = d.shape[0]
+    h = torch.zeros(s, device=dev)
+    v = lipschitz.top_gram_eigenpair(d)[1].contiguous()
+    err, want64 = run(
+        "K15 " + label, K15.fused_dp_train_segment, K15.fused_dp_train_plain,
+        lambda: K15.launches, SEG_NAMES,
+        (d, h, v, xb.contiguous(), lam, iters, step),
+        dict(flags, mesh=mesh1, power_iters=2))
+    k15_err = max(k15_err, err)
+  h = torch.zeros(256, device=dev)
+  v = lipschitz.top_gram_eigenpair(flag_d)[1].contiguous()
+  kw = dict(mesh=mesh1, power_iters=2)
+  want64 = K15.fused_dp_train_plain(flag_d.double(), h.double(), v.double(),
+                                    x.double(), LAM, TRAIN_ITERS, TRAIN_STEP,
+                                    **kw)
+  tf32_control(torch, "K15 plain", SEG_NAMES, K15.fused_dp_train_plain(
+      flag_d, h, v, x, LAM, TRAIN_ITERS, TRAIN_STEP,
+      precision="tensorfloat32", **kw), want64)
+  for label, extra in (("K15 mxu='bf16x3'", {"mxu": "bf16x3"}),
+                       ("K15 early_stopping_epsilon",
+                        {"early_stopping_epsilon": 1e-3})):
+    check_refuses(label, lambda: K15.fused_dp_train_segment(
+        flag_d, h, v, x[:2], LAM, 5, TRAIN_STEP, **extra, **kw), "3a", K15)
+
+  # K16: 64 contiguous groups of 4 (the identity selection) at b 250 and a
+  # shard of 125; the anti-alignment regularizer (penalty 0.4) on ragged
+  # overlapping groups (the row gather and the fixed-order unpack), with
+  # steepest descent: with the cheap-quadratic rule, sign(D D^T) of
+  # near-orthogonal atoms flips between fp32 and fp64 over ten steps
+  flag_g = contiguous_groups(256, GROUP_SIZE)
+  pen_g = [[0, 1, 2, 3], [4, 5], [6, 7, 8], [9, 10, 11, 12], [13, 0], [0, 1]]
+  pen_d = torch.tensor(unit_rows(rng, 14, 16), device=dev)
+  pen_x = torch.tensor(rng.randn(k, 10, 16).astype(np.float32), device=dev)
+  k16_err = 0.0
+  for label, xb, d, groups, lam, iters, step, flags in (
+      ("flagship 64x4 10 x b250 cheap-quad", gx, flag_d, flag_g, LAM,
+       TRAIN_ITERS, SUB_STEP, {}),
+      ("flagship 64x4 shard 10 x b125 cheap-quad", gx[:, :TRAIN_BATCH // 2],
+       flag_d, flag_g, LAM, TRAIN_ITERS, SUB_STEP, {}),
+      ("ragged overlapping s14 n16 penalty 0.4 steepest", pen_x, pen_d,
+       pen_g, 0.05, 10, 0.1, {
+           "alignment_penalty": 0.4,
+           "update_alg": "subspace_sc_steepest_descent"})):
+    s = d.shape[0]
+    h = torch.zeros(s, device=dev)
+    gather, mask, _ = sub.group_layout(groups, s, dev)
+    v = lipschitz.top_gram_eigenpair(
+        sub.build_grouped_dictionary(d, gather, mask))[1].contiguous()
+    err, _ = run(
+        "K16 " + label, K16.fused_group_dp_train_segment,
+        K16.fused_group_dp_train_plain, lambda: K16.launches, SEG_NAMES,
+        (d, h, v, xb.contiguous(), lam, iters, step),
+        dict(flags, group_assignments=groups, mesh=mesh1, power_iters=2))
+    k16_err = max(k16_err, err)
+  h = torch.zeros(256, device=dev)
+  v = lipschitz.top_gram_eigenpair(flag_d)[1].contiguous()  # 64 x 4: Dg = D
+  gkw = dict(group_assignments=flag_g, mesh=mesh1, power_iters=2)
+  want64 = K16.fused_group_dp_train_plain(
+      flag_d.double(), h.double(), v.double(), gx.double(), LAM, TRAIN_ITERS,
+      SUB_STEP, **gkw)
+  tf32_control(torch, "K16 plain", SEG_NAMES, K16.fused_group_dp_train_plain(
+      flag_d, h, v, gx, LAM, TRAIN_ITERS, SUB_STEP,
+      precision="tensorfloat32", **gkw), want64)
+  for label, extra in (("K16 mxu='bf16'", {"mxu": "bf16"}),
+                       ("K16 early_stopping_epsilon",
+                        {"early_stopping_epsilon": 1e-3})):
+    check_refuses(label, lambda: K16.fused_group_dp_train_segment(
+        flag_d, h, v, gx[:2], LAM, 5, SUB_STEP, **extra, **gkw), "3a", K16)
+
+  # K18: gapped sources from their orthogonal mixing matrix (phase 20: the
+  # codes stay clear of sign()'s discontinuity), n 256 at b 250 from an
+  # exact seed, a shard of 125 at three update iterations, and a stale
+  # 1.35 X seed that fires the boost; the residual at 1e-5
+  mixing = torch.tensor(random_orthogonal(ICA_N, 11), device=dev)
+  g = torch.Generator(device=dev).manual_seed(330)
+  xi_ = gapped_mixtures(torch, dev, k * ICA_BATCH, mixing, g).reshape(
+      k, ICA_BATCH, ICA_N)
+  x0 = invertible_linear.exact_inverse(mixing)
+  inames = ("dictionary", "inverse", "residual")
+  k18_err = 0.0
+  for label, xb, xi, upd in (
+      ("10 x b250 exact seed", xi_, x0, 1),
+      ("shard 10 x b125 upd 3", xi_[:, :ICA_BATCH // 2], x0, 3),
+      ("10 x b250 stale 1.35 X, boost fires", xi_, 1.35 * x0, 1)):
+    err, _ = run(
+        "K18 " + label, K8.fused_ica_dp_train_segment,
+        K8.fused_ica_dp_train_plain, lambda: K8.dp_launches, inames,
+        (mixing, xi.contiguous(), xb.contiguous(), ICA_STEP),
+        dict(mesh=mesh1, refine_iters=ICA_REFINE, boost_tol=ICA_BOOST_TOL,
+             upd_num_iters=upd), {"residual": ICA_LIMIT})
+    k18_err = max(k18_err, err)
+  ikw = dict(mesh=mesh1, refine_iters=ICA_REFINE, boost_tol=ICA_BOOST_TOL)
+  want64 = K8.fused_ica_dp_train_plain(mixing.double(), x0.double(),
+                                       xi_.double(), ICA_STEP, **ikw)
+  tf32_control(torch, "K18 plain", inames[:2], K8.fused_ica_dp_train_plain(
+      mixing, x0, xi_, ICA_STEP, precision="tensorfloat32", **ikw)[:2],
+               want64[:2])
+  before = K8.dp_launches
+  check_refuses("K18 mxu='bf16x3'", lambda: K8.fused_ica_dp_train_segment(
+      mixing, x0, xi_[:2], ICA_STEP, mxu="bf16x3", **ikw), "3a")
+  check(K8.dp_launches == before, "K18 mxu='bf16x3' launched K18")
+  return k15_err, k16_err, k18_err
 
 
 def k17_calls(K17):
@@ -3179,71 +3386,11 @@ def main():
           "data_parallel=True differs inside a one-rank NCCL group")
     print("data_parallel=True inside a one-rank NCCL group: 10 steps, "
           "bitwise the run without a group")
-  dp_rates = {}
-  for label, x, held, params_, kmod, twin, want in (
-      ("fc", batches, held_out, params, K2, trained,
-       lambda dd: held_out_loss(torch, ista_fista, sparse_coding, held_out,
-                                dd)),
-      ("subspace", gbatches, gheld, gparams, K6, gtrained,
-       lambda dd: held_out_group_loss(torch, sub, sparse_coding, gheld, dd,
-                                      groups))):
-    kmod.stats_launches = kmod.launches = 0
-    t0 = time.perf_counter()
-    dp_trained = compiled_epoch.train_dictionary_scanned(
-        x, held[None], d0, dict(params_, data_parallel=True))
-    torch.cuda.synchronize()
-    dp_rates[label] = TRAIN_STEPS * TRAIN_BATCH / (time.perf_counter() - t0)
-    dp_rates[label + " launches"] = kmod.stats_launches
-    check(kmod.stats_launches == TRAIN_STEPS and kmod.launches == 0,
-          "%s data-parallel trainer: expected %d solve+stats steps and no "
-          "fused train step, counted %d and %d" % (
-              label, TRAIN_STEPS, kmod.stats_launches, kmod.launches))
-    check(bool(torch.isfinite(dp_trained).all()),
-          label + ": non-finite dictionary")
-    norm_err = float((torch.linalg.vector_norm(dp_trained, dim=1)
-                      - 1).abs().max())
-    l0, l1 = want(d0), want(dp_trained)
-    apart = float((dp_trained - twin).abs().max())
-    print("world of 1, %s train_dictionary_scanned(data_parallel=True): %d "
-          "solve+stats steps, no fused train step; rows unit norm within "
-          "%.2e; held-out loss %.6f -> %.6f; final dictionary max|d| %.3e "
-          "from the single-device trainer's (rounding floor %.1e)" % (
-              label, kmod.stats_launches, norm_err, l0, l1, apart, DP_FLOOR))
-    check(norm_err <= 1e-4, "%s: rows not unit norm: %.3e" % (label,
-                                                               norm_err))
-    check(np.isfinite(l1) and l1 < l0,
-          "%s: held-out loss did not fall: %.6f -> %.6f" % (label, l0, l1))
-    check(apart <= DP_FLOOR, "%s: the data-parallel trainer's dictionary "
-          "is %.3e from the single-device trainer's, floor %.1e" % (
-              label, apart, DP_FLOOR))
-  k3_launches = dp_rates["fc launches"]
-  k7_launches = dp_rates["subspace launches"]
-  K8.stats_launches = K8.launches = 0
-  rollbacks0 = ica.rollbacks
-  t0 = time.perf_counter()
-  dp_itrained = ica.train_dictionary_scanned(
-      ica_batches, id0, dict(ica_params(ICA_STEPS, ICA_STEP),
-                             data_parallel=True))
-  torch.cuda.synchronize()
-  dp_rates["ica"] = ICA_STEPS * ICA_BATCH / (time.perf_counter() - t0)
-  k9_launches = K8.stats_launches
-  dp_nll = ica_nll(torch, ica_held, dp_itrained)
-  print("world of 1, ICA train_dictionary_scanned(data_parallel=True): %d "
-        "K9 steps, %d K8 steps, %d guard rollbacks; held-out Laplace NLL "
-        "%.4f -> %.4f; max|d| %.3e from the single-device trainer's" % (
-            k9_launches, K8.launches, ica.rollbacks - rollbacks0, nll0,
-            dp_nll, float((dp_itrained - itrained).abs().max())))
-  check(k9_launches == ICA_STEPS and K8.launches == 0
-        and ica.rollbacks == rollbacks0,
-        "expected %d K9 steps, no K8 step and no rollback" % ICA_STEPS)
-  check(bool(torch.isfinite(dp_itrained).all()) and dp_nll < nll0,
-        "data-parallel ICA: held-out NLL did not fall: %.4f -> %.4f" % (
-            nll0, dp_nll))
   rollbacks0 = ica.rollbacks
   dp_wrecked = ica.train_dictionary_scanned(
       ica_batches[:3], id0, dict(ica_params(3, 40.0), data_parallel=True))
-  print("data-parallel ICA at stepsize 40: %d guard rollbacks through the "
-        "data-parallel fallback, dictionary finite: %s" % (
+  print("data-parallel ICA at stepsize 40 (K18): %d guard rollbacks "
+        "through the data-parallel fallback, dictionary finite: %s" % (
             ica.rollbacks - rollbacks0,
             bool(torch.isfinite(dp_wrecked).all())))
   check(ica.rollbacks - rollbacks0 >= 1,
@@ -3344,10 +3491,6 @@ def main():
     print("data-parallel %s step at a world of 1 (200 steps): host enqueue "
           "%.4f ms per step, device and host together %.4f ms per step "
           "[%s]" % (label, 1e3 * host / 200, 1e3 * total / 200, card))
-  print("train_dictionary_scanned(data_parallel=True) at a world of 1, "
-        "phase 27's runs: fc %.1f patches/s, subspace %.1f patches/s, ICA "
-        "%.1f patches/s (single-device: phases 7, 12 and 22) [%s]" % (
-            dp_rates["fc"], dp_rates["subspace"], dp_rates["ica"], card))
 
   # phase 30: K13 and K17 against their plain versions on the card
   from vtc_tpu_torch.ops import fused_conv_dp_train as K17
@@ -3583,6 +3726,192 @@ def main():
                                       b5_bound[1], card))
   del seg_images, seg_batches
 
+  # phase 33: K15, K16 and K18 against their plain versions on the card
+  from vtc_tpu_torch.ops import fused_dp_train as K15
+  from vtc_tpu_torch.ops import fused_group_dp_train as K16
+  k15_err, k16_err, k18_err = dp_segment_kernel_cases(
+      torch, parallel, K15, K16, K8, sub, lipschitz, invertible_linear,
+      train_patches, gtrain, dev)
+
+  # phase 34: a world of 1 through the entry points: the scanned fc,
+  # subspace and ICA trainers with data_parallel=True take K15, K16 and K18
+  # every step, and not K3, K7 or K9's composition (a 'dcn' mesh's: phase
+  # 28) nor the single-device K2, K6 or K8
+  sub_params = subspace_train_params(TRAIN_STEPS, SUB_STEP)
+  dp_runs = {}
+  for label, x, held, params_, seg, kmod, twin, want in (
+      ("fc", batches, held_out, params, K15, K2, trained,
+       lambda dd: held_out_loss(torch, ista_fista, sparse_coding, held_out,
+                                dd)),
+      ("subspace", gbatches, gheld, sub_params, K16, K6, gtrained,
+       lambda dd: held_out_group_loss(torch, sub, sparse_coding, gheld, dd,
+                                      groups))):
+    seg.launches = kmod.stats_launches = kmod.launches = 0
+    t0 = time.perf_counter()
+    dp_trained = compiled_epoch.train_dictionary_scanned(
+        x, held[None], d0, dict(params_, data_parallel=True))
+    torch.cuda.synchronize()
+    dp_runs[label] = time.perf_counter() - t0
+    counts = seg.launches, kmod.stats_launches, kmod.launches
+    dp_runs[label + " launches"] = counts[0]
+    check(counts == (TRAIN_STEPS, 0, 0),
+          "%s data-parallel trainer: expected %d whole-segment steps and no "
+          "solve+stats or single-device step, counted %s" % (
+              label, TRAIN_STEPS, counts))
+    check(bool(torch.isfinite(dp_trained).all()),
+          label + ": non-finite dictionary")
+    norm_err = float((torch.linalg.vector_norm(dp_trained, dim=1)
+                      - 1).abs().max())
+    l0, l1 = want(d0), want(dp_trained)
+    apart = float((dp_trained - twin).abs().max())
+    print("world of 1, %s train_dictionary_scanned(data_parallel=True): %d "
+          "%s steps, %d solve+stats, %d single-device; rows unit norm within "
+          "%.2e; held-out loss %.6f -> %.6f; final dictionary max|d| %.3e "
+          "from the single-device trainer's (rounding floor %.1e)" % (
+              label, counts[0], "K15" if seg is K15 else "K16", counts[1],
+              counts[2], norm_err, l0, l1, apart, DP_FLOOR))
+    check(norm_err <= 1e-4, "%s: rows not unit norm: %.3e" % (label,
+                                                               norm_err))
+    check(np.isfinite(l1) and l1 < l0,
+          "%s: held-out loss did not fall: %.6f -> %.6f" % (label, l0, l1))
+    check(apart <= DP_FLOOR, "%s: the data-parallel trainer's dictionary "
+          "is %.3e from the single-device trainer's, floor %.1e" % (
+              label, apart, DP_FLOOR))
+  K8.dp_launches = K8.stats_launches = K8.launches = 0
+  rollbacks0 = ica.rollbacks
+  t0 = time.perf_counter()
+  dp_itrained = ica.train_dictionary_scanned(
+      ica_batches, id0, dict(ica_params(ICA_STEPS, ICA_STEP),
+                             data_parallel=True))
+  torch.cuda.synchronize()
+  dp_runs["ica"] = time.perf_counter() - t0
+  icounts = K8.dp_launches, K8.stats_launches, K8.launches
+  dp_runs["ica launches"] = icounts[0]
+  dp_nll = ica_nll(torch, ica_held, dp_itrained)
+  iapart = float((dp_itrained - itrained).abs().max())
+  print("world of 1, ICA train_dictionary_scanned(data_parallel=True): %d "
+        "K18 steps, %d K9, %d K8, %d guard rollbacks; held-out Laplace NLL "
+        "%.4f -> %.4f; max|d| %.3e from the single-device trainer's "
+        "(rounding floor %.1e)" % (*icounts, ica.rollbacks - rollbacks0,
+                                   nll0, dp_nll, iapart, DP_FLOOR))
+  check(icounts == (ICA_STEPS, 0, 0) and ica.rollbacks == rollbacks0,
+        "expected %d K18 steps, no K9 or K8 step and no rollback" % ICA_STEPS)
+  check(bool(torch.isfinite(dp_itrained).all()) and dp_nll < nll0,
+        "data-parallel ICA: held-out NLL did not fall: %.4f -> %.4f" % (
+            nll0, dp_nll))
+  check(iapart <= DP_FLOOR, "data-parallel ICA: %.3e from the single-device "
+        "trainer's, floor %.1e" % (iapart, DP_FLOOR))
+
+  # phase 35: timing (warm): K15, K16 and K18 per step beside their plain
+  # versions, K3, K7 and K9's composition and K2, K6 and K8, the host's
+  # enqueue, and the world-of-1 trainers against the single-device ones
+  seg_kw = dict(mesh=mesh1, power_iters=2)
+  whole = {
+      "K15": (lambda k: lambda: K15.fused_dp_train_segment(
+          d0, h0, v0, batches[:k], LAM, TRAIN_ITERS, TRAIN_STEP, **seg_kw),
+              lambda k: lambda: K15.fused_dp_train_plain(
+                  d0, h0, v0, batches[:k], LAM, TRAIN_ITERS, TRAIN_STEP,
+                  **seg_kw),
+              compiled_epoch._dp_fused_segment_runner(
+                  parallel.build_dp_fused_local_step(
+                      mesh1, "fista", "sc_cheap_quadratic_descent",
+                      power_iters=2)),
+              (d0, h0, v0), batches, (LAM, TRAIN_ITERS, TRAIN_STEP),
+              lambda k: lambda: K2.fused_train_segment(
+                  d0, h0, v0, batches[:k], LAM, TRAIN_ITERS, TRAIN_STEP,
+                  power_iters=2)),
+      "K16": (lambda k: lambda: K16.fused_group_dp_train_segment(
+          d0, h0, gv0, gbatches[:k], LAM, TRAIN_ITERS, SUB_STEP,
+          group_assignments=groups, **seg_kw),
+              lambda k: lambda: K16.fused_group_dp_train_plain(
+                  d0, h0, gv0, gbatches[:k], LAM, TRAIN_ITERS, SUB_STEP,
+                  group_assignments=groups, **seg_kw),
+              compiled_epoch._dp_fused_segment_runner(
+                  parallel.build_dp_group_fused_local_step(
+                      mesh1, "subspace_fista",
+                      "subspace_sc_cheap_quadratic_descent",
+                      group_assignments=groups, power_iters=2)),
+              (d0, h0, gv0), gbatches, (LAM, TRAIN_ITERS, SUB_STEP),
+              lambda k: lambda: K6.fused_group_train_segment(
+                  d0, h0, gv0, gbatches[:k], LAM, TRAIN_ITERS, SUB_STEP,
+                  group_assignments=groups, power_iters=2)),
+      "K18": (lambda k: lambda: K8.fused_ica_dp_train_segment(
+          id0, ix0, ica_batches[:k], ICA_STEP, mesh=mesh1, **k9_kw),
+              lambda k: lambda: K8.fused_ica_dp_train_plain(
+                  id0, ix0, ica_batches[:k], ICA_STEP, mesh=mesh1, **k9_kw),
+              ica._segment_runner_dp(1, mesh1, True, refine_iters=ICA_REFINE,
+                                     fused=True),
+              (id0, ix0), ica_batches, (ICA_STEP,),
+              lambda k: lambda: K8.fused_ica_train_segment(
+                  id0, ix0, ica_batches[:k], ICA_STEP, **k9_kw)),
+  }
+  seg_times = {}
+  with torch.no_grad():
+    for name, (kernel, plain, composition, state, data, args,
+               single) in whole.items():
+      reps = 200 if name == "K18" else 100
+      comp = lambda: composition(*state, data[:reps], *args)
+      kernel(2)(), plain(2)(), comp(), single(2)()
+      plain_runs = [time_ms(torch, plain(10), 1) / 10]
+      runs = [time_ms(torch, kernel(reps), 3) / reps,
+              time_ms(torch, kernel(reps), 3) / reps]
+      comp_ms = time_ms(torch, comp, 1) / reps
+      single_ms = time_ms(torch, single(reps), 3) / reps
+      plain_runs.append(time_ms(torch, plain(10), 1) / 10)
+      seg_times[name] = (sum(runs) / 2, sum(plain_runs) / 2)
+      print("%s ms per step (a segment of %d steps of b=250 at a world of 1): "
+            "%.4f (runs %.4f, %.4f); plain %.4f (runs %.4f, %.4f); %s's "
+            "composition %.4f; %s's whole step %.4f [%s]" % (
+                name, reps, seg_times[name][0], *runs, seg_times[name][1],
+                *plain_runs, {"K15": "K3", "K16": "K7", "K18": "K9"}[name],
+                comp_ms, {"K15": "K2", "K16": "K6", "K18": "K8"}[name],
+                single_ms, card))
+      # the host's share: 5 steps enqueue inside the launch queue, so the
+      # host's own time; 50 steps may fill it, and the host then waits
+      for label, run in (("the segment kernel", kernel),
+                         ("the composition", lambda k: lambda: composition(
+                             *state, data[:k], *args))):
+        for k in (5, 50):
+          torch.cuda.synchronize()
+          t0 = time.perf_counter()
+          run(k)()
+          host = time.perf_counter() - t0
+          torch.cuda.synchronize()
+          total = time.perf_counter() - t0
+          print("data-parallel %s at a world of 1, %s (%d steps): host "
+                "enqueue %.4f ms per step, device and host together %.4f ms "
+                "per step [%s]" % (name, label, k, 1e3 * host / k,
+                                   1e3 * total / k, card))
+  # bench.py's *_dp_rdma_batch250 rows at a world of 1 (per chip), beside
+  # the single-device fused trainer, in turns: single, data-parallel,
+  # data-parallel, single
+  for label, x, held, params_, rows, steps, run_ica in (
+      ("fc", batches, held_out, params, "fc_dp_rdma_batch250", TRAIN_STEPS,
+       False),
+      ("subspace", gbatches, gheld, sub_params, "subspace_dp_rdma_batch250",
+       TRAIN_STEPS, False),
+      ("ica", ica_batches, None, ica_params(ICA_STEPS, ICA_STEP),
+       "ica_dp_rdma_batch250", ICA_STEPS, True)):
+    rates = {False: [], True: []}
+    for dp in (False, True, True, False):
+      p_ = dict(params_, data_parallel=True) if dp else params_
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      if run_ica:
+        ica.train_dictionary_scanned(x, id0, p_)
+      else:
+        compiled_epoch.train_dictionary_scanned(x, held[None], d0, p_)
+      torch.cuda.synchronize()
+      rates[dp].append(steps * TRAIN_BATCH / (time.perf_counter() - t0))
+    dp_rate, one_rate = sum(rates[True]) / 2, sum(rates[False]) / 2
+    print("%s (bench.py's %s) at a world of 1: train_dictionary_scanned("
+          "data_parallel=True) %.1f patches/s per chip (runs %.1f, %.1f), "
+          "%.1f%% of the single-device fused trainer's %.1f (runs %.1f, "
+          "%.1f); phase 34's first run %.1f patches/s [%s]" % (
+              label, rows, dp_rate, *rates[True], 100 * dp_rate / one_rate,
+              one_rate, *rates[False],
+              steps * TRAIN_BATCH / dp_runs[label], card))
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -3618,20 +3947,30 @@ def main():
        "vtc_tpu/ops/pallas_code_shard_train.py:616", k19_launches, k19_err,
        k19_ms, k19_p_ms, k19_bound),
       ("fused_solve_stats", "fused_train_step.cu",
-       "vtc_tpu/ops/pallas_train_step.py:975", k3_launches, k3_err,
+       "vtc_tpu/ops/pallas_train_step.py:975", dp2_launches["K3"], k3_err,
        dp_times["K3"][0], dp_times["K3"][1], k3_bound),
       ("fused_group_solve_stats", "fused_group_train_step.cu",
-       "vtc_tpu/ops/pallas_train_step.py:1175", k7_launches, k7_err,
+       "vtc_tpu/ops/pallas_train_step.py:1175", dp2_launches["K7"], k7_err,
        dp_times["K7"][0], dp_times["K7"][1], k3_bound),
       ("ica_solve_stats", "fused_ica_train_step.cu",
-       "vtc_tpu/ops/pallas_ica_train.py:250", k9_launches, k9_err,
+       "vtc_tpu/ops/pallas_ica_train.py:250", dp2_launches["K9"], k9_err,
        dp_times["K9"][0], dp_times["K9"][1], k9_bound),
       ("conv_solve_stats", "fused_conv_train_step.cu",
-       "vtc_tpu/ops/pallas_conv_train.py:922", dp2_launches[3], k13_err,
+       "vtc_tpu/ops/pallas_conv_train.py:922", dp2_launches["K13"], k13_err,
        k13_ms, k13_p_ms, k13_bound),
       ("fused_conv_dp_train", "fused_conv_train_step.cu",
        "vtc_tpu/ops/pallas_conv_dp_train.py:399", k17_launches, k17_err,
        k17_ms, k17_p_ms, k17_bound),
+      ("fused_dp_train", "fused_train_step.cu",
+       "vtc_tpu/ops/pallas_dp_train.py:404", dp_runs["fc launches"], k15_err,
+       seg_times["K15"][0], seg_times["K15"][1], k2_bound),
+      ("fused_group_dp_train", "fused_group_train_step.cu",
+       "vtc_tpu/ops/pallas_group_dp_train.py:443",
+       dp_runs["subspace launches"], k16_err, seg_times["K16"][0],
+       seg_times["K16"][1], k2_bound),
+      ("fused_ica_dp_train", "fused_ica_train_step.cu",
+       "vtc_tpu/ops/pallas_ica_train.py:394", dp_runs["ica launches"],
+       k18_err, seg_times["K18"][0], seg_times["K18"][1], k8_bound),
   ]
   print(json.dumps({"kernels": [{
       "name": name,

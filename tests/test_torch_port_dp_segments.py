@@ -1,0 +1,536 @@
+"""The port's whole-segment data-parallel kernels against vtc_tpu on the CPU:
+the plain versions of K15 (fc), K16 (subspace) and K18 (ICA), their
+runners at worlds of 1, 2 and 4, and the scanned trainers' choice of them.
+
+The same seeded numpy inputs go through both packages, at small sizes
+(s 16 or 24, n 16 or 24, a global batch of 16, 3 steps; ICA at n 128, which
+vtc_tpu's kernel needs lane-aligned).  vtc_tpu's kernels run in interpret
+mode inside a ``shard_map`` over a 'data' axis of the same size as the
+port's world, as tests/test_pallas_dp_train.py runs them.
+
+* Each plain version (what a CPU tensor runs) at a world of 1 against
+  vtc_tpu's kernel on a one-device axis: K15 with ista and fista, steepest
+  and cheap-quadratic, 1 and 3 update iterations, nonneg and hard, s > n;
+  K16 with and without the anti-alignment regularizer, contiguous groups
+  (vtc_tpu's roll prox) and a ragged overlapping partition (its gsel and
+  expand matrices); K18 from an exact seed and from a stale one that fires
+  the boost, with the residual.
+* The runners at worlds of 2 and 4, spawned CPU processes in one gloo
+  group (tests/torch_port_dp_worker.py, one spawn per world size for the
+  file), against vtc_tpu's kernel at the same axis size and against the
+  port's world of 1.  Replicated state must be bitwise equal on every rank.
+* The trainers' choice: a world of 1 and a mesh without a 'dcn' axis go
+  through K15, K16 and K18's wrappers and not K3, K7 or K9's; a mesh with
+  a 'dcn' axis takes K3, K7 and K9's composition, and an early-stopped run
+  the psum-per-op step, neither of them.
+
+Tolerances, each as the existing data-parallel tests state them: 2e-5 of
+max(1, |largest value|) on the state, vtc_tpu's own bound for its DP
+runners and kernels (tests/test_parallel.py:397-400,
+tests/test_pallas_dp_train.py); a cheap-quadratic segment of three steps
+does not amplify rounding past it (ROADMAP.md §3 measures 8e-5 to 2.2e-4
+after twelve).  The ragged overlapping groups' singular grouped Gram grows
+last-bit differences, so K16 there is held at 3e-5, the bound of
+tests/test_torch_port_parallel.py's K7 case.  K18's inverse at 2e-4 and
+residual at 1e-5, K8's and K9's bounds (tests/test_pallas_ica_train.py).
+The ICA sources sit at least 0.05 from zero, so no code meets sign()'s
+discontinuity, where a last-bit difference would move the statistic by a
+whole code.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, PartitionSpec
+
+import torch_port_dp_worker as worker
+from vtc_tpu.analysis_transforms.fully_connected import (
+    subspace_ista_fista as jax_sub)
+from vtc_tpu.ops import lipschitz as jax_lip
+from vtc_tpu.ops import pallas_dp_train as jax_k15
+from vtc_tpu.ops import pallas_group_dp_train as jax_k16
+from vtc_tpu.ops import pallas_ica_train as jax_k18
+from vtc_tpu_torch import parallel
+from vtc_tpu_torch.ops import (fused_dp_train, fused_group_dp_train,
+                               fused_ica_train)
+from vtc_tpu_torch.training import compiled_epoch, ica
+
+WORLDS = (2, 4)
+SW, N_IT, UPD_STEP = 0.2, 10, 0.01
+CQ, SD = "sc_cheap_quadratic_descent", "sc_steepest_descent"
+SUB_CQ, SUB_SD = "subspace_" + CQ, "subspace_" + SD
+ICA_STEP, ICA_REFINE, ICA_BOOST = 0.02, 3, 1e-6  # the 'highest' tier's boost
+
+
+def assert_close(got, want, what, rel=2e-5):
+  """|got - want| <= rel * max(1, |want|max) everywhere."""
+  got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else got
+  want = np.asarray(want, np.float64)
+  err = float(np.max(np.abs(np.asarray(got, np.float64) - want)))
+  bound = rel * max(1.0, float(np.abs(want).max()))
+  print("%s: max|d| = %.3e (bound %.1e)" % (what, err, bound))
+  assert err <= bound, "%s: max|d| %.3e > %.1e" % (what, err, bound)
+
+
+def _t(x):
+  return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _unit_rows(rng, s, n):
+  d = rng.randn(s, n).astype(np.float32)
+  return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+def _eigvec(matrix):
+  """vtc_tpu's exact eigenvector seed, as numpy: both sides start from it."""
+  return np.asarray(jax_lip.top_gram_eigenpair(jnp.asarray(matrix))[1])
+
+
+def _sparse_problem(seed, s, n, groups=None, k=3, b=16):
+  """A unit-norm dictionary, a small Hessian, the exact seed of the (grouped)
+  Gram's eigenvector and (k, b, n) sparse-synthesizable batches."""
+  rng = np.random.RandomState(seed)
+  d = _unit_rows(rng, s, n)
+  basis = rng.randn(6, n)
+  x = ((rng.randn(k * b, 6) * 0.5) @ basis + 0.1 * rng.randn(k * b, n))
+  h = (0.05 + 0.05 * rng.rand(s)).astype(np.float32)
+  lip = d
+  if groups is not None:
+    gi, vm = jax_sub.pack_group_indices(groups, s)
+    lip = np.asarray(jax_sub.build_grouped_dictionary(jnp.asarray(d), gi, vm))
+  return dict(d=d, h=h, v=_eigvec(lip),
+              x=x.astype(np.float32).reshape(k, b, n))
+
+
+def _ica_problem(seed, stale, k=3, b=16, n=128):
+  """An orthogonal mixing matrix as the dictionary, its inverse (times
+  ``stale``) as the seed, and mixtures of sources at least 0.05 from
+  zero."""
+  rng = np.random.RandomState(seed)
+  d = np.linalg.qr(rng.randn(n, n))[0].astype(np.float32)
+  src = np.sign(rng.randn(k * b, n)) * (0.05 + rng.laplace(size=(k * b, n)))
+  x = (src @ d).astype(np.float32).reshape(k, b, n)
+  xi = (stale * np.linalg.inv(d.astype(np.float64))).astype(np.float32)
+  return dict(d=d, v=xi, x=x)
+
+
+def _jax_mesh(p):
+  return Mesh(np.asarray(jax.devices()[:p]).reshape(p, 1), ("data", "code"))
+
+
+def _jax_dp(kernel, p, state, x, scalars, **kw):
+  """vtc_tpu's whole-segment DP kernel in interpret mode inside a shard_map
+  over a 'data' axis of ``p`` devices: ``state`` the replicated arrays
+  before the batches, ``scalars`` the arguments after them."""
+
+  def body(*args):
+    xs = args[-1]
+    return kernel(*args[:-1], xs.reshape(xs.shape[0], -1, xs.shape[-1]),
+                  *scalars, axis_name="data", axis_size=p, interpret=True,
+                  **kw)
+
+  rep = PartitionSpec()
+  n_out = 3 if kernel is jax_k18.fused_ica_dp_train_segment_pallas else 4
+  fn = jax.jit(jax.shard_map(
+      body, mesh=_jax_mesh(p),
+      in_specs=(rep,) * len(state) + (PartitionSpec(None, "data", None),),
+      out_specs=(rep,) * n_out, check_vma=False))
+  return tuple(np.asarray(a) for a in fn(*state, x))
+
+
+# ---------------------------------------------------------------------------
+# the cases: (family, problem, flags, relative bound)
+# ---------------------------------------------------------------------------
+RAGGED = [[0, 1, 2, 3], [4, 5], [6, 7, 8], [9, 10, 11, 12], [13, 0]]
+GROUPS16 = [list(range(i, i + 4)) for i in range(0, 16, 4)]
+CASES = {
+    "K15 fista cheap-quad upd 1": ("fc", (0, 16, 16), {}, 2e-5),
+    "K15 ista steepest upd 3": ("fc", (1, 16, 16), {
+        "variant": "ista", "update_alg": SD, "upd_num_iters": 3}, 2e-5),
+    "K15 fista nonneg hard": ("fc", (2, 16, 16), {
+        "nonneg": True, "hard": True}, 2e-5),
+    "K15 s > n cheap-quad upd 3": ("fc", (3, 24, 16), {
+        "upd_num_iters": 3}, 2e-5),
+    "K16 contiguous cheap-quad (roll prox)": ("group", (4, 16, 16, GROUPS16),
+                                              {}, 2e-5),
+    "K16 contiguous steepest upd 2, penalty 0.1": (
+        "group", (5, 16, 16, GROUPS16), {
+            "variant": "ista", "update_alg": SUB_SD, "upd_num_iters": 2,
+            "alignment_penalty": 0.1}, 2e-5),
+    "K16 ragged overlapping, penalty 0.1 (gsel, expand)": (
+        "group", (6, 14, 24, RAGGED), {"alignment_penalty": 0.1}, 3e-5),
+    "K18 exact seed, boost armed": ("ica", (7, 1.0), {}, None),
+    "K18 stale seed, boost fires, upd 2": ("ica", (8, 1.35), {
+        "upd_num_iters": 2}, None),
+}
+# the cases the worlds of 2 and 4 run: one of each kernel
+WORLD_CASES = ("K15 s > n cheap-quad upd 3",
+               "K16 ragged overlapping, penalty 0.1 (gsel, expand)",
+               "K18 stale seed, boost fires, upd 2")
+ICA_LIMITS = (2e-5, 2e-4, 1e-5)  # dictionary, inverse, residual (absolute)
+
+
+@functools.lru_cache(maxsize=None)
+def problem(name):
+  family, args, _, _ = CASES[name]
+  if family == "ica":
+    return _ica_problem(*args)
+  groups = args[3] if family == "group" else None
+  return _sparse_problem(args[0], args[1], args[2], groups)
+
+
+def _flags(name):
+  family, args, flags, _ = CASES[name]
+  if family == "ica":
+    return dict(dict(upd_num_iters=1), **flags)
+  base = dict(variant="fista", upd_num_iters=1)
+  if family == "fc":
+    base.update(update_alg=CQ, nonneg=False, hard=False)
+  else:
+    base.update(update_alg=SUB_CQ, group_assignments=args[3],
+                alignment_penalty=0.0)
+  return dict(base, **flags)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_segment(name, p=1):
+  """vtc_tpu's kernel over the case's global batches on ``p`` devices."""
+  family = CASES[name][0]
+  pr, flags = problem(name), _flags(name)
+  if family == "ica":
+    return _jax_dp(jax_k18.fused_ica_dp_train_segment_pallas, p,
+                   (pr["d"], pr["v"]), pr["x"], (jnp.float32(ICA_STEP),),
+                   refine_iters=ICA_REFINE, boost_tol=ICA_BOOST, **flags)
+  kernel = (jax_k15.fused_dp_train_segment_pallas if family == "fc"
+            else jax_k16.fused_group_dp_train_segment_pallas)
+  if family == "group":
+    flags["group_assignments"] = tuple(tuple(g) for g in
+                                       flags["group_assignments"])
+  return _jax_dp(kernel, p, (pr["d"], pr["h"], pr["v"]), pr["x"],
+                 (jnp.float32(SW), jnp.int32(N_IT), jnp.float32(UPD_STEP)),
+                 power_iters=2, **flags)
+
+
+def _check(name, got, want, label):
+  family, _, _, rel = CASES[name]
+  if family == "ica":
+    for what, g, w, atol in zip(("dictionary", "inverse", "residual"), got,
+                                want, ICA_LIMITS):
+      err = float(np.max(np.abs(np.asarray(g, np.float64)
+                                - np.asarray(w, np.float64))))
+      print("%s %s: max|d| = %.3e (atol %.1e)" % (label, what, err, atol))
+      assert err <= atol, "%s %s: %.3e > %.1e" % (label, what, err, atol)
+    return
+  for what, g, w in zip(("dictionary", "hessian", "eigvec", "last codes"),
+                        got, want):
+    assert tuple(np.shape(g)) == tuple(np.shape(w)), what
+    assert_close(g, w, "%s %s" % (label, what), rel)
+
+
+@functools.lru_cache(maxsize=None)
+def port_world_of_one(name):
+  """The port's wrapper on CPU tensors (its plain version) on a mesh of
+  one."""
+  family = CASES[name][0]
+  pr, flags = problem(name), _flags(name)
+  mesh = parallel.make_mesh()
+  if family == "ica":
+    return tuple(t.numpy() for t in fused_ica_train.fused_ica_dp_train_segment(
+        _t(pr["d"]), _t(pr["v"]), _t(pr["x"]), ICA_STEP, mesh=mesh,
+        refine_iters=ICA_REFINE, boost_tol=ICA_BOOST, **flags))
+  fn = (fused_dp_train.fused_dp_train_segment if family == "fc"
+        else fused_group_dp_train.fused_group_dp_train_segment)
+  return tuple(t.numpy() for t in fn(
+      _t(pr["d"]), _t(pr["h"]), _t(pr["v"]), _t(pr["x"]), SW, N_IT, UPD_STEP,
+      mesh=mesh, power_iters=2, **flags))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_matches_the_pallas_kernel(name):
+  """What a CPU tensor runs at a world of 1 against vtc_tpu's kernel on a
+  one-device axis; no kernel launches on the CPU."""
+  counters = (fused_dp_train.launches, fused_group_dp_train.launches,
+              fused_ica_train.dp_launches)
+  got = port_world_of_one(name)
+  assert counters == (fused_dp_train.launches, fused_group_dp_train.launches,
+                      fused_ica_train.dp_launches)
+  assert float(np.abs(got[0] - problem(name)["d"]).max()) > 1e-3  # trained
+  _check(name, got, jax_segment(name), name)
+  if CASES[name][0] != "ica":
+    density = float((got[3] != 0).mean())
+    print("code density %.3f" % density)
+    assert density > 0.0  # not dead
+    if CASES[name][0] == "fc":
+      assert density < 1.0  # sparse
+
+
+def test_the_stale_seed_fires_the_boost():
+  """The stale seed's first residual, three refreshes from 1.35 X, is above
+  the boost tolerance; the segment's largest residual, the boosted one, is
+  far below it (vtc_tpu's kernel gives the same, the test above), and
+  both segments stay under the trainer's guard."""
+  stale = port_world_of_one("K18 stale seed, boost fires, upd 2")
+  exact = port_world_of_one("K18 exact seed, boost armed")
+  pr = problem("K18 stale seed, boost fires, upd 2")
+  _, _, unboosted = fused_ica_train.ica_solve_stats_plain(
+      _t(pr["d"]), _t(pr["v"]), _t(pr["x"][0]), refine_iters=ICA_REFINE)
+  print("residual: unboosted first step %.3e, stale segment %.3e, exact "
+        "segment %.3e" % (float(unboosted), float(stale[2]),
+                          float(exact[2])))
+  assert float(unboosted) > ICA_BOOST
+  assert 0.0 <= float(stale[2]) < 1e-2 * float(unboosted)
+  assert 0.0 <= float(exact[2]) < 1e-3
+
+
+def test_the_gates_and_refusals():
+  pr, flags = problem("K15 fista cheap-quad upd 1"), _flags(
+      "K15 fista cheap-quad upd 1")
+  mesh = parallel.make_mesh()
+  args = (_t(pr["d"]), _t(pr["h"]), _t(pr["v"]), _t(pr["x"]), SW, N_IT,
+          UPD_STEP)
+  for extra in ({"mxu": "bf16x3"}, {"early_stopping_epsilon": 1e-3}):
+    with pytest.raises(NotImplementedError, match="item 3a"):
+      fused_dp_train.fused_dp_train_segment(*args, mesh=mesh, **flags,
+                                            **extra)
+    gflags = _flags("K16 contiguous cheap-quad (roll prox)")
+    with pytest.raises(NotImplementedError, match="item 3a"):
+      fused_group_dp_train.fused_group_dp_train_segment(
+          *args, mesh=mesh, **gflags, **extra)
+  ipr = problem("K18 exact seed, boost armed")
+  with pytest.raises(NotImplementedError, match="item 3a"):
+    fused_ica_train.fused_ica_dp_train_segment(
+        _t(ipr["d"]), _t(ipr["v"]), _t(ipr["x"]), ICA_STEP, mesh=mesh,
+        mxu="bf16x3")
+  # the regularizer's unit-norm form needs renormalization, as vtc_tpu's
+  assert not fused_group_dp_train.fused_group_dp_segment_supported(
+      8, 16, 16, GROUPS16, alignment_penalty=0.1, renormalize=False)
+  with pytest.raises(ValueError, match="fused_group_dp_segment_supported"):
+    fused_group_dp_train.fused_group_dp_train_segment(
+        *args, mesh=mesh, group_assignments=GROUPS16, alignment_penalty=0.1,
+        renormalize=False)
+  # K3's, K7's and K8's gates, and vtc_tpu's at the shapes it takes
+  for b, s, n in ((16, 16, 16), (4, 24, 16), (125, 256, 256)):
+    assert fused_dp_train.fused_dp_segment_supported(b, s, n)
+    assert jax_k15.fused_dp_segment_supported(b, s, n, 4)
+    assert fused_group_dp_train.fused_group_dp_segment_supported(
+        b, s, n, GROUPS16)
+  assert fused_ica_train.fused_ica_dp_segment_supported(128, 8)
+  assert fused_ica_train.fused_ica_dp_segment_supported(100, 8)  # any n
+  assert not fused_ica_train.fused_ica_dp_segment_supported(128, 8, 64)
+  assert not fused_dp_train.fused_dp_segment_supported(0, 16, 16)
+
+
+# ---------------------------------------------------------------------------
+# worlds of 2 and 4: one spawn per world size
+# ---------------------------------------------------------------------------
+ROUTE = _sparse_problem(10, 16, 16, k=4)
+ROUTE_DATA, ROUTE_D0 = ROUTE["x"], ROUTE["d"]
+ROUTE_ICA = _ica_problem(11, 1.0, k=4)
+
+
+def _route_params(family, **extra):
+  if family == "ica":
+    params = {"num_epochs": 2,
+              "dictionary_update_algorithm": "ica_natural_gradient",
+              "dict_update_param_schedule": {
+                  0: {"stepsize": ICA_STEP, "num_iters": 1},
+                  5: {"stepsize": 0.01, "num_iters": 2}},
+              "use_fused": True, "stdout_print_interval": 10 ** 9}
+  else:
+    params = {"mode": "fully-connected", "num_epochs": 2,
+              "code_inference_algorithm": "fista",
+              "inference_param_schedule": {
+                  0: {"sparsity_weight": SW, "num_iters": 8}},
+              "dictionary_update_algorithm": CQ,
+              "dict_update_param_schedule": {
+                  0: {"stepsize": 0.01, "num_iters": 1},
+                  5: {"stepsize": 0.005, "num_iters": 2}},
+              "fc_formulation": "pallas", "stdout_print_interval": 10 ** 9}
+    if family == "subspace":
+      params.update(code_inference_algorithm="subspace_fista",
+                    dictionary_update_algorithm=SUB_CQ,
+                    group_assignments=GROUPS16,
+                    subspace_alignment_penalty=0.1)
+  params.update(extra)
+  return params
+
+
+def _route_case(family, dcn=1, **extra):
+  if family == "ica":
+    return dict(family=family, batches=ROUTE_ICA["x"], d0=ROUTE_ICA["d"],
+                params=_route_params(family, **extra), dcn=dcn)
+  return dict(family=family, batches=ROUTE_DATA, d0=ROUTE_D0,
+              params=_route_params(family, **extra), dcn=dcn)
+
+
+ROUTES = {"fc": _route_case("fc"), "subspace": _route_case("subspace"),
+          "ica": _route_case("ica"),
+          "fc dcn=2": _route_case("fc", 2),
+          "subspace dcn=2": _route_case("subspace", 2),
+          "ica dcn=2": _route_case("ica", 2)}
+
+
+@functools.lru_cache(maxsize=None)
+def rank_results(world):
+  cases = []
+  for name in WORLD_CASES:
+    family = CASES[name][0]
+    pr = problem(name)
+    config = _flags(name)
+    if family == "ica":
+      config.update(refine_iters=ICA_REFINE, stepsize=ICA_STEP)
+      cases.append((name, "dp_segment", dict(family=family, d=pr["d"],
+                                             v=pr["v"], batches=pr["x"],
+                                             config=config)))
+    else:
+      config.update(sw=SW, n_it=N_IT, upd_step=UPD_STEP)
+      cases.append((name, "dp_segment", dict(family=family, d=pr["d"],
+                                             h=pr["h"], v=pr["v"],
+                                             batches=pr["x"],
+                                             config=config)))
+  for name, kw in ROUTES.items():
+    cases.append(("route " + name, "routes", kw))
+  return worker.run_ranks(world, cases)
+
+
+def _replicated(world, key):
+  results = rank_results(world)
+  first = results[0][key]
+  for other in results[1:]:
+    a, b = first, other[key]
+    if isinstance(a, dict):
+      assert a["calls"] == b["calls"], key
+      a, b = a["dictionary"], b["dictionary"]
+    for x, y in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+      assert np.array_equal(x, y), "%s differs across ranks" % key
+  return first
+
+
+@pytest.mark.parametrize("name", WORLD_CASES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_runners_match_vtc_tpu_at_their_world(world, name):
+  """The runner over this rank's shards at a world of 2 or 4 against
+  vtc_tpu's kernel at the same axis size, and against the port's world of
+  1; the ranks bitwise equal."""
+  got = _replicated(world, name)
+  want = jax_segment(name, world)
+  if CASES[name][0] == "ica":
+    _check(name, got, want, "world %d vs vtc_tpu's kernel" % world)
+    _check(name, got, port_world_of_one(name), "world %d vs world 1" % world)
+    return
+  # the runners return the replicated state; the last codes are a shard's
+  _check(name, got, want[:3], "world %d vs vtc_tpu's kernel" % world)
+  _check(name, got, port_world_of_one(name)[:3],
+         "world %d vs world 1" % world)
+
+
+@pytest.mark.parametrize("family", ["fc", "subspace", "ica"])
+@pytest.mark.parametrize("world", WORLDS)
+def test_trainers_take_the_segment_kernels_off_a_dcn_mesh(world, family):
+  """data_parallel=True on a world of 2 or 4: K15, K16 or K18 once per
+  segment, no K3, K7 or K9; a mesh of two slices ('dcn'): K3, K7 or K9
+  once per step, as vtc_tpu takes them, to the same numbers."""
+  whole = {"fc": "K15", "subspace": "K16", "ica": "K18"}[family]
+  step = {"fc": "K3", "subspace": "K7", "ica": "K9"}[family]
+  flat = _replicated(world, "route " + family)
+  sliced = _replicated(world, "route %s dcn=2" % family)
+  steps = 2 * (ROUTE_ICA["x"] if family == "ica" else ROUTE_DATA).shape[0]
+  # two epochs of 4 steps, cut at step 5: segments [0, 4), [4, 5), [5, 8)
+  assert {k: v for k, v in flat["calls"].items() if v} == {whole: 3}, (
+      flat["calls"])
+  assert {k: v for k, v in sliced["calls"].items() if v} == {step: steps}, (
+      sliced["calls"])
+  assert float(np.abs(flat["dictionary"] - (
+      ROUTE_ICA["d"] if family == "ica" else ROUTE_D0)).max()) > 1e-3
+  assert_close(sliced["dictionary"], flat["dictionary"],
+               "%s: K%s's composition vs the segment kernel" % (family, step))
+
+
+# ---------------------------------------------------------------------------
+# a world of 1, in this process, with no process group
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("family", ["fc", "subspace", "ica"])
+def test_world_of_one_takes_the_segment_kernels(family):
+  assert not torch.distributed.is_initialized()
+  whole = {"fc": "K15", "subspace": "K16", "ica": "K18"}[family]
+  got = worker.CASES["routes"](**ROUTES[family])
+  assert {k: v for k, v in got["calls"].items() if v} == {whole: 3}, (
+      got["calls"])
+  kw = ROUTES[family]
+  params = dict(kw["params"])
+  if family == "ica":
+    single = ica.train_dictionary_scanned(kw["batches"], kw["d0"], params,
+                                          device="cpu")
+  else:
+    single = compiled_epoch.train_dictionary_scanned(
+        kw["batches"], kw["batches"][:1], kw["d0"], params, device="cpu")
+  assert_close(got["dictionary"], single, "a mesh of one vs one device")
+
+
+def test_early_stop_takes_neither():
+  """An early-stopped data-parallel run keeps the psum-per-op step: the
+  in-kernel stop test waits (ROADMAP.md §1 item 3a)."""
+  got = worker.CASES["routes"](**_route_case(
+      "fc", lipschitz_method="power_warm", early_stopping_epsilon=1e-2))
+  assert not any(got["calls"].values()), got["calls"]
+  assert np.isfinite(got["dictionary"]).all()
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+def _cuda(*tensors):
+  return [t.cuda() for t in tensors]
+
+
+def _cuda_case(name):
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: K15, K16 and K18 have no CPU mode")
+  for case in CASES:
+    if case.startswith(name):
+      pr, flags = problem(case), _flags(case)
+      yield case, pr, flags
+
+
+@pytest.mark.cuda
+def test_cuda_k15_matches_plain():
+  mesh = parallel.make_mesh()
+  for case, pr, flags in _cuda_case("K15"):
+    before = fused_dp_train.launches
+    got = fused_dp_train.fused_dp_train_segment(
+        *_cuda(_t(pr["d"]), _t(pr["h"]), _t(pr["v"]), _t(pr["x"])), SW,
+        N_IT, UPD_STEP, mesh=mesh, power_iters=2, **flags)
+    assert fused_dp_train.launches == before + pr["x"].shape[0]
+    _check(case, [g.cpu().numpy() for g in got], port_world_of_one(case),
+           "cuda " + case)
+
+
+@pytest.mark.cuda
+def test_cuda_k16_matches_plain():
+  mesh = parallel.make_mesh()
+  for case, pr, flags in _cuda_case("K16"):
+    before = fused_group_dp_train.launches
+    got = fused_group_dp_train.fused_group_dp_train_segment(
+        *_cuda(_t(pr["d"]), _t(pr["h"]), _t(pr["v"]), _t(pr["x"])), SW,
+        N_IT, UPD_STEP, mesh=mesh, power_iters=2, **flags)
+    assert fused_group_dp_train.launches == before + pr["x"].shape[0]
+    _check(case, [g.cpu().numpy() for g in got], port_world_of_one(case),
+           "cuda " + case)
+
+
+@pytest.mark.cuda
+def test_cuda_k18_matches_plain():
+  mesh = parallel.make_mesh()
+  for case, pr, flags in _cuda_case("K18"):
+    before = fused_ica_train.dp_launches
+    got = fused_ica_train.fused_ica_dp_train_segment(
+        *_cuda(_t(pr["d"]), _t(pr["v"]), _t(pr["x"])), ICA_STEP, mesh=mesh,
+        refine_iters=ICA_REFINE, boost_tol=ICA_BOOST, **flags)
+    assert fused_ica_train.dp_launches == before + pr["x"].shape[0]
+    _check(case, [g.cpu().numpy() for g in got], port_world_of_one(case),
+           "cuda " + case)

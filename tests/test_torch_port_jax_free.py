@@ -191,10 +191,13 @@ for alg, group_arrays in (("sc_cheap_quadratic_descent", None),
   assert out[0].shape == (40, 12) and bool(out[0].isfinite().all())
 
 # the data-parallel layer: the mesh, the steps, K3, K7 and K9's plain
-# versions, and every entry point with data_parallel on a mesh of one rank
+# versions, and every entry point with data_parallel on a mesh of one rank,
+# where the scanned trainers run K15, K16 and K18's plain versions
 from vtc_tpu_torch import parallel
+from vtc_tpu_torch.ops import fused_dp_train, fused_group_dp_train, sum_hook
 from vtc_tpu_torch.parallel import data_parallel, mesh as mesh_module
 mesh = parallel.make_mesh()
+assert sum_hook.SumHook(mesh, torch.zeros(3)).pointer is None
 assert mesh.size == 1 and parallel.dp_axes(mesh) == ("data",)
 for dp_params in (dict(params, fc_formulation="pallas"),
                   dict(sub_params, fc_formulation="pallas"), params):

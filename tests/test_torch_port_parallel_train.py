@@ -33,7 +33,8 @@ from vtc_tpu.training import pca as jax_pca
 from vtc_tpu.training import sparse_coding as jax_sc
 from vtc_tpu_torch import parallel
 from vtc_tpu_torch.encode import encode_dataset
-from vtc_tpu_torch.ops import (fused_group_train_step, fused_ica_train,
+from vtc_tpu_torch.ops import (fused_dp_train, fused_group_dp_train,
+                               fused_group_train_step, fused_ica_train,
                                fused_train_step)
 from vtc_tpu_torch.training import compiled_epoch, ica, pca
 from vtc_tpu_torch.training import sparse_coding as sc
@@ -367,10 +368,13 @@ def test_world_of_one_needs_no_process_group(name):
 
 
 def test_world_of_one_runs_the_solve_stats_steps(monkeypatch):
-  """With 'pallas' the data-parallel scanned trainers go through K3, K7 and
-  K9's wrappers (their plain versions on CPU tensors), one call per step,
-  and never through the single-device segment wrappers."""
-  calls = {"k3": 0, "k7": 0, "k9": 0}
+  """With 'pallas' the data-parallel scanned trainers go through the
+  whole-segment wrappers of K15, K16 and K18, one call per segment, whose
+  plain versions on CPU tensors run K3, K7 and K9's plain steps, one per
+  step; never through K3, K7 or K9's own wrappers (their per-step
+  composition, which a mesh with a 'dcn' axis takes) nor the single-device
+  segment wrappers."""
+  calls = {key: 0 for key in ("k15", "k16", "k18", "k3", "k7", "k9")}
 
   def counting(module, name, key):
     original = getattr(module, name)
@@ -382,24 +386,36 @@ def test_world_of_one_runs_the_solve_stats_steps(monkeypatch):
     monkeypatch.setattr(module, name, wrapped)
 
   def forbidden(*args, **kwargs):
-    raise AssertionError("a single-device segment ran under data_parallel")
+    raise AssertionError("a single-device segment or the per-step "
+                         "composition ran at a world of 1")
 
-  counting(fused_train_step, "fused_solve_stats", "k3")
-  counting(fused_group_train_step, "fused_group_solve_stats", "k7")
-  counting(fused_ica_train, "ica_solve_stats", "k9")
-  monkeypatch.setattr(fused_train_step, "fused_train_segment", forbidden)
-  monkeypatch.setattr(fused_group_train_step, "fused_group_train_segment",
-                      forbidden)
-  monkeypatch.setattr(fused_ica_train, "fused_ica_train_segment", forbidden)
+  counting(fused_dp_train, "fused_dp_train_segment", "k15")
+  counting(fused_group_dp_train, "fused_group_dp_train_segment", "k16")
+  counting(fused_ica_train, "fused_ica_dp_train_segment", "k18")
+  counting(fused_train_step, "fused_solve_stats_plain", "k3")
+  counting(fused_group_train_step, "fused_group_solve_stats_plain", "k7")
+  counting(fused_ica_train, "ica_solve_stats_plain", "k9")
+  for module, name in (
+      (fused_train_step, "fused_train_segment"),
+      (fused_train_step, "fused_solve_stats"),
+      (fused_group_train_step, "fused_group_train_segment"),
+      (fused_group_train_step, "fused_group_solve_stats"),
+      (fused_ica_train, "fused_ica_train_segment"),
+      (fused_ica_train, "ica_solve_stats")):
+    monkeypatch.setattr(module, name, forbidden)
   steps = 2 * DATA.shape[0]
   for name in ("scanned fc fused", "scanned subspace fused"):
     compiled_epoch.train_dictionary_scanned(
         DATA, DATA[:1], D0, dict(TRAIN_CASES[name][1], data_parallel=True),
         device="cpu")
+  # two epochs of 4 steps, cut at step 5: three segments
+  assert (calls["k15"], calls["k16"]) == (3, 3)
   assert (calls["k3"], calls["k7"]) == (steps, steps)
   ica.train_dictionary_scanned(
       ICA_BATCHES, ICA_D0, _ica_params(use_fused=True, data_parallel=True),
       device="cpu")
+  # two epochs of 6 steps, cut at step 4: three segments
+  assert calls["k18"] == 3
   assert calls["k9"] == 2 * ICA_BATCHES.shape[0]
 
 
@@ -438,19 +454,25 @@ def test_refusals_that_still_hold():
 
 @pytest.mark.cuda
 def test_cuda_dp_trainers_run_the_stats_kernels():
+  """On the card a world of 1 runs the whole-segment kernels K15, K16 and
+  K18 every step, and not K3, K7 or K9 (the 'dcn' composition)."""
   if not torch.cuda.is_available():
-    pytest.skip("needs a CUDA device: K3, K7 and K9 have no CPU mode")
+    pytest.skip("needs a CUDA device: K15, K16 and K18 have no CPU mode")
   steps = 2 * DATA.shape[0]
-  for name, module in (("scanned fc fused", fused_train_step),
-                       ("scanned subspace fused", fused_group_train_step)):
-    module.stats_launches = module.launches = 0
+  for name, module, segment in (
+      ("scanned fc fused", fused_train_step, fused_dp_train),
+      ("scanned subspace fused", fused_group_train_step,
+       fused_group_dp_train)):
+    module.stats_launches = module.launches = segment.launches = 0
     params = dict(TRAIN_CASES[name][1], data_parallel=True)
     params.pop("fc_formulation")  # 'pallas' is the default on the card
     got = compiled_epoch.train_dictionary_scanned(DATA, DATA[:1], D0, params,
                                                   device="cuda")
-    assert (module.stats_launches, module.launches) == (steps, 0)
+    assert (segment.launches, module.stats_launches,
+            module.launches) == (steps, 0, 0)
     assert_close(got.cpu(), _single(name), 1e-3, "cuda vs cpu")
-  fused_ica_train.stats_launches = 0
+  fused_ica_train.stats_launches = fused_ica_train.dp_launches = 0
   ica.train_dictionary_scanned(ICA_BATCHES, ICA_D0,
                                _ica_params(data_parallel=True), device="cuda")
-  assert fused_ica_train.stats_launches == 2 * ICA_BATCHES.shape[0]
+  assert fused_ica_train.dp_launches == 2 * ICA_BATCHES.shape[0]
+  assert fused_ica_train.stats_launches == 0

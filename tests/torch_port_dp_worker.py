@@ -126,6 +126,72 @@ def case_conv_dp_runner(d, h, v, batches, sw, n_it, upd_step, inference_alg,
   return _np(runner(_t(d), _t(h), _t(v), shards, sw, n_it, upd_step))
 
 
+def case_dp_segment(family, d, batches, config, h=None, v=None):
+  """A whole-segment data-parallel runner over this rank's shards of the
+  (k, b, n) ``batches``: K15 ('fc', ``_dp_fc_segment_runner``), K16
+  ('group', ``_dp_group_segment_runner``) or K18 ('ica',
+  ``ica._dp_kernel_segment_runner``; ``v`` is the inverse), their plain
+  versions on CPU tensors.  Returns the replicated state."""
+  mesh = parallel.make_mesh()
+  shards = _t(mesh.shard(batches, dim=1))
+  if family == "ica":
+    runner = ica._dp_kernel_segment_runner(
+        config["upd_num_iters"], mesh, refine_iters=config["refine_iters"])
+    return _np(runner(_t(d), _t(v), shards, config["stepsize"]))
+  if family == "fc":
+    runner = compiled_epoch._dp_fc_segment_runner(
+        mesh, config["variant"], config["update_alg"],
+        config["upd_num_iters"], config["nonneg"], config["hard"], True)
+  else:
+    runner = compiled_epoch._dp_group_segment_runner(
+        mesh, config["variant"], config["update_alg"],
+        config["upd_num_iters"], False, True, config["group_assignments"],
+        config["alignment_penalty"])
+  return _np(runner(_t(d), _t(h), _t(v), shards, config["sw"],
+                    config["n_it"], config["upd_step"]))
+
+
+def case_routes(family, batches, d0, params, dcn=1):
+  """Which data-parallel wrappers a scanned trainer (fc and subspace:
+  compiled_epoch; 'ica': ica) calls with data_parallel=True, or with
+  ``dcn`` > 1 a mesh of that many slices: the calls of each of K15, K16,
+  K18 (whole segments) and K3, K7, K9 (one shard's step), and the result.
+  Also runs in the test process, at a world of 1."""
+  from vtc_tpu_torch.ops import (fused_dp_train, fused_group_dp_train,
+                                 fused_group_train_step, fused_ica_train,
+                                 fused_train_step)
+  watched = {"K15": (fused_dp_train, "fused_dp_train_segment"),
+             "K16": (fused_group_dp_train, "fused_group_dp_train_segment"),
+             "K18": (fused_ica_train, "fused_ica_dp_train_segment"),
+             "K3": (fused_train_step, "fused_solve_stats"),
+             "K7": (fused_group_train_step, "fused_group_solve_stats"),
+             "K9": (fused_ica_train, "ica_solve_stats")}
+  calls = dict.fromkeys(watched, 0)
+  originals = {key: getattr(module, name)
+               for key, (module, name) in watched.items()}
+
+  def counted(key):
+    def call(*args, **kwargs):
+      calls[key] += 1
+      return originals[key](*args, **kwargs)
+    return call
+
+  for key, (module, name) in watched.items():
+    setattr(module, name, counted(key))
+  try:
+    params = dict(params, data_parallel=True if dcn == 1
+                  else parallel.make_mesh(dcn=dcn))
+    if family == "ica":
+      out = ica.train_dictionary_scanned(batches, d0, params, device="cpu")
+    else:
+      out = compiled_epoch.train_dictionary_scanned(
+          batches, batches[:1], d0, params, device="cpu")
+  finally:
+    for key, (module, name) in watched.items():
+      setattr(module, name, originals[key])
+  return {"dictionary": out.numpy(), "calls": calls}
+
+
 def case_cold_runner(d, h, batches, sw, n_it, upd_step, inference_alg,
                      update_alg, config):
   """``_dp_segment_runner`` (the psum-per-op step) over this rank's

@@ -24,13 +24,13 @@ stepsize 0.1) through training/compiled_epoch._code_shard_segment_runner
 and the residual-form step (ops/fused_code_shard_train, kernel K19);
 --bigdict-groups the same with 512 contiguous groups of 4.  With --dp (fc,
 --subspace or --ica) the same workload runs data-parallel on a mesh of one
-rank, all_params['data_parallel'] = True with no process group: per step
-one solve+stats step (kernels K3, K7 or K9), no collective, and the
-replicated update in torch ops, driven from Python step by step
-(training/compiled_epoch._dp_fused_segment_runner, training/ica.
-_segment_runner_dp); the "fused" lines are that runner's, the "plain" line
-the solve+stats step's plain version, and the trace's "other" group holds
-the replicated update's torch kernels.  With --dp --conv the trainer runs
+rank, all_params['data_parallel'] = True with no process group: the
+trainer runs the whole data-parallel segment, kernel K15, K16 or K18
+(ops/fused_dp_train, ops/fused_group_dp_train, ops/fused_ica_train.
+fused_ica_dp_train_segment: K3's, K7's or K9's refresh, solve and
+statistics, then the update, from one C loop, with no host hook at a world
+of one); the "fused" and "plain" lines are that kernel's and its plain
+version's.  With --dp --conv the trainer runs
 the whole data-parallel conv segment, kernel K17 (ops/fused_conv_dp_train:
 K13's refresh, solve and statistics, then the update, from one C loop);
 the "fused" and "plain" lines are K17's and its plain version's, and the
@@ -93,7 +93,7 @@ CONV_UPDATE = "conv update (conv_update, conv_hessian_ema, dall_from_dstk)"
 CONV_GEMMS = "conv GEMMs: corr, synthesis, analysis (gather_gemm)"
 CONV_GRAD = "conv gradient (block_grad_partial, grad_reduce)"
 K13_STATS = "K13 statistics (conv_code_stat, block_cm_partial)"
-K17_UPDATE = "K17 update inputs (divide, hessian_from_stat)"
+DP_UPDATE = "DP update inputs (divide, hessian_from_stat: K15-K17)"
 GROUPS = ((RECON, ("recon_partial_kernel", "recon_sum_kernel")),
           (GRAD, ("grad_prox_kernel", "group_prox_kernel")),
           (RESID, ("resid_partial_kernel", "resid_sum_kernel")),
@@ -106,7 +106,7 @@ GROUPS = ((RECON, ("recon_partial_kernel", "recon_sum_kernel")),
           (CONV_UPDATE, ("conv_update_kernel", "conv_hessian_ema_kernel",
                          "dall_from_dstk_kernel")),
           (K13_STATS, ("conv_code_stat_kernel", "block_cm_partial_kernel")),
-          (K17_UPDATE, ("divide_kernel", "hessian_from_stat_kernel")),
+          (DP_UPDATE, ("divide_kernel", "hessian_from_stat_kernel")),
           (EPILOGUE, ("hessian_ema_kernel", "update_rows_kernel",
                       "column_sumsq_kernel")),
           (GROUP_PASSES,
@@ -128,7 +128,8 @@ def group_of(name):
 def workload(args, torch, dev):
   """The segment, its runners and its trainer for the chosen family."""
   from vtc_tpu_torch.ops import (fused_code_shard_train, fused_conv_dp_train,
-                                 fused_conv_train, fused_group_train_step,
+                                 fused_conv_train, fused_dp_train,
+                                 fused_group_dp_train, fused_group_train_step,
                                  fused_ica_train, fused_train_step, lipschitz)
   from vtc_tpu_torch import parallel
   from vtc_tpu_torch.training import compiled_epoch, ica
@@ -220,19 +221,15 @@ def workload(args, torch, dev):
     params = cs.ica_params(steps, cs.ICA_STEP)
     kw = dict(refine_iters=cs.ICA_REFINE, boost_tol=cs.ICA_BOOST_TOL)
     if args.dp:
-      runner = ica._segment_runner_dp(1, parallel.make_mesh(), True,
-                                      refine_iters=cs.ICA_REFINE, fused=True)
-
-      def plain_stats(k):
-        for shard in batches[:k]:
-          fused_ica_train.ica_solve_stats_plain(d0, x0, shard, **kw)
-
+      dp_kw = dict(kw, mesh=parallel.make_mesh())
       return dict(
           name="data-parallel ICA (a mesh of one rank)", units="patches",
           steps=steps, batch=batch, short=100, plain_steps=100,
-          kernels=fused_ica_train, count="stats_launches",
-          fused=lambda k: lambda: runner(d0, x0, batches[:k], cs.ICA_STEP),
-          plain=lambda k: lambda: plain_stats(k),
+          kernels=fused_ica_train, count="dp_launches",
+          fused=lambda k: lambda: fused_ica_train.fused_ica_dp_train_segment(
+              d0, x0, batches[:k], cs.ICA_STEP, **dp_kw),
+          plain=lambda k: lambda: fused_ica_train.fused_ica_dp_train_plain(
+              d0, x0, batches[:k], cs.ICA_STEP, **dp_kw),
           trainer=lambda: ica.train_dictionary_scanned(
               batches, d0, dict(params, data_parallel=True)))
     return dict(
@@ -268,30 +265,20 @@ def workload(args, torch, dev):
   v0 = lipschitz.top_gram_eigenpair(d0)[1].contiguous()
   scalars = (cs.LAM, cs.TRAIN_ITERS, step)
   if args.dp:
-    mesh = parallel.make_mesh()
-    if args.subspace:
-      local = parallel.build_dp_group_fused_local_step(
-          mesh, "subspace_fista", "subspace_sc_cheap_quadratic_descent",
-          power_iters=2, **extra)
-      plain_fn = fused_group_train_step.fused_group_solve_stats_plain
-    else:
-      local = parallel.build_dp_fused_local_step(
-          mesh, "fista", "sc_cheap_quadratic_descent", power_iters=2)
-      plain_fn = fused_train_step.fused_solve_stats_plain
-    runner = compiled_epoch._dp_fused_segment_runner(local)
-
-    def plain_stats(k):
-      for shard in batches[:k]:
-        plain_fn(d0, v0, shard, cs.LAM, cs.TRAIN_ITERS, power_iters=2,
-                 **extra)
-
+    kernels = fused_group_dp_train if args.subspace else fused_dp_train
+    segment = (fused_group_dp_train.fused_group_dp_train_segment
+               if args.subspace else fused_dp_train.fused_dp_train_segment)
+    plain = (fused_group_dp_train.fused_group_dp_train_plain
+             if args.subspace else fused_dp_train.fused_dp_train_plain)
+    dp_kw = dict(extra, mesh=parallel.make_mesh(), power_iters=2)
     return dict(
         name="data-parallel %s (a mesh of one rank)" % (
             "subspace" if args.subspace else "fc"), units="patches",
         steps=steps, batch=batch, short=100, plain_steps=100, kernels=kernels,
-        count="stats_launches",
-        fused=lambda k: lambda: runner(d0, h0, v0, batches[:k], *scalars),
-        plain=lambda k: lambda: plain_stats(k),
+        fused=lambda k: lambda: segment(d0, h0, v0, batches[:k], *scalars,
+                                        **dp_kw),
+        plain=lambda k: lambda: plain(d0, h0, v0, batches[:k], *scalars,
+                                      **dp_kw),
         trainer=lambda: compiled_epoch.train_dictionary_scanned(
             batches, batches[:1], d0, dict(params, data_parallel=True)))
   return dict(
@@ -324,8 +311,8 @@ def main():
                       "(kernel K19)")
   parser.add_argument("--dp", action="store_true",
                       help="run the fc, --subspace, --ica or --conv workload "
-                      "data-parallel on a mesh of one rank (kernels K3, K7, "
-                      "K9, K17)")
+                      "data-parallel on a mesh of one rank (kernels K15, "
+                      "K16, K18, K17)")
   parser.add_argument("--out", help="also write the report here")
   args = parser.parse_args()
   if args.dp and (args.bigdict or args.bigdict_groups):

@@ -91,9 +91,6 @@ namespace {
 constexpr int kGradChunk = 1024;  // gradient-product K values per split
 constexpr int kUpdateThreads = 1024;
 constexpr int kMaxKernels = 512;  // K10's gate bounds s by 512
-// What vtc_conv_dp_train_segment returns when its sum hook reports a
-// failure (the hook's caller holds the error).
-constexpr int kSumHookFailed = -1;
 
 // dall[i, a*cpx + p] = dstk[p, a*s + i]
 __global__ void dall_from_dstk_kernel(const float* __restrict__ dstk,
@@ -300,16 +297,6 @@ __global__ void divide_kernel(const float* __restrict__ src,
                               float* __restrict__ dst, int count, float b) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e < count) dst[e] = src[e] / b;
-}
-
-// h[j] = 0.99 h[j] + (stat[j] / b) / 100 (K17: conv_hessian_ema_kernel's
-// EMA from a code statistic summed over the ranks, b the global batch)
-__global__ void hessian_from_stat_kernel(const float* __restrict__ stat,
-                                         float* __restrict__ h, int s,
-                                         float b) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < s)
-    h[j] = __fadd_rn(__fmul_rn(0.99f, h[j]), (stat[j] / b) / 100.0f);
 }
 
 // One update iteration on the packed kernels, one block: the support
@@ -666,7 +653,7 @@ int vtc_conv_dp_train_segment(
     float lowest, int fista, int mode, int update, int renorm,
     int power_iters, int gram, float global_b, float* dall, float* gram_mat,
     float* eta, float* img, float* corr, float* z, float* old,
-    float* partial, float* grad, float* comm, int (*sum_hook)(int),
+    float* partial, float* grad, float* comm, SumHook sum_hook,
     void* stream_ptr) {
   if (k < 0 || upd_num_iters < 0 || !(global_b >= 1.0f))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -689,11 +676,7 @@ int vtc_conv_dp_train_segment(
       err = shard_stats(st, xs, mblk, gram, img, out, cm, stat, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (sum_hook != nullptr && sum_hook(step) != 0) return kSumHookFailed;
-    if (update == 1) {
-      hessian_from_stat_kernel<<<(s + 255) / 256, 256, 0, stream>>>(
-          stat, h, s, global_b);
-      err = cudaGetLastError();
-    }
+    if (update == 1) err = hessian_from_stat(stat, h, s, global_b, stream);
     for (int u = 0; u < upd_num_iters && err == cudaSuccess; ++u) {
       if (gram) {
         err = gemm<false, false>(dstk, cm, out, grad, cpx, rs, rs, stream);

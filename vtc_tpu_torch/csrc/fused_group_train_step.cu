@@ -60,6 +60,20 @@
 // stat = sum_b codes^2 over the summed (b, s) codes (train_core.cuh's
 // gram_form_stats, fixed order, no atomics).  The regularizer needs only
 // the replicated dictionary, so it stays with the caller's update.
+//
+// Also here, K16: a rank's whole data-parallel subspace segment.  Replaces
+// vtc_tpu/ops/pallas_group_dp_train.py, fused_group_dp_train_segment_pallas
+// (:300, kernel _make_group_dp_kernel :94).  vtc_group_dp_train_segment
+// runs, per step, K7's step on the rank's shard (the row gather, the
+// grouped Gram, the power refresh, K4's group solve, the summed codes and
+// the statistics, packed [C (s, s) | B (s, n) | stat (s)]), then the host
+// hook that sums the packed buffer over the ranks (train_core.cuh), then
+// K6's update from the global statistics: the Hessian EMA from the summed
+// stat and, per update iteration, grad = C D - B, the anti-alignment
+// regularizer on the replicated dictionary (K6's sign mask and row update)
+// and the step with vtc_tpu's 1e-30 renorm floor.  One C loop per segment,
+// K17's layout; no hook at a world of one.  Bound as K7 is, by the group
+// solve on ceil(b / 16) blocks.
 #include "train_core.cuh"
 
 extern "C" int vtc_fused_group_fista(const float* gram, const float* corr,
@@ -279,6 +293,75 @@ int vtc_group_solve_stats(
   if (solve_err != 0) return solve_err;
   VTC_CHECK(gram_form_stats(sel == nullptr ? gcodes : codes, x, cmat, bmat,
                             stat, b, s, n, stream));
+  return 0;
+}
+
+// K16, one rank's data-parallel subspace segment of k steps on its shard
+// x (k, b, n).  In place: d (s, n), h (s,), v (dim,), replicated.  The
+// group structure and the solve's scratch are vtc_group_train_segment's;
+// comem (s, s), or null for no regularizer, with ddt (D D^T) and smat
+// (s, s) and sd (s, n) its scratch.  comm (s*s + s*n + s,) receives each step's
+// packed statistics [C | B | stat], summed over the ranks by sum_hook
+// (when given) before the update; global_b is the batch over all ranks.
+// grad (s, n).  The last step's summed codes of the shard are in codes, or
+// in gcodes when sum_idx is null.  Returns the first CUDA error code (0 on
+// success), or kSumHookFailed.
+int vtc_group_dp_train_segment(
+    float* d, float* h, float* v, const float* x, int k, int b, int s,
+    int n, int gm, int group_size, const int* sel, const int* sum_idx,
+    int sum_width, const float* comem, float penalty, float lam,
+    int num_iters, float upd_step, int upd_num_iters, float lowest,
+    int fista, int hard, int update, int renorm, int power_iters,
+    float global_b, float* dg, float* gram, float* pgram, float* corr,
+    float* gcodes, float* codes, float* grad, float* ddt, float* smat,
+    float* sd, float* eta, int sk, int sc, float* gn_scratch,
+    float* state_scratch, float* comm, SumHook sum_hook, void* stream_ptr) {
+  if (k < 0 || upd_num_iters < 0 || !(global_b >= 1.0f) ||
+      !group_args_ok(b, s, n, gm, num_iters, power_iters, sel, sum_idx,
+                     sum_width, dg, pgram, codes) ||
+      (comem != nullptr &&
+       (ddt == nullptr || smat == nullptr || sd == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  float* step_codes = sel == nullptr ? gcodes : codes;
+  cudaError_t err = power_setup(gm > n ? n : gm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* cmat = comm;
+  float* bmat = comm + static_cast<int64_t>(s) * s;
+  float* stat = bmat + static_cast<int64_t>(s) * n;
+  const float inv_b = 1.0f / global_b;
+  for (int step = 0; step < k; ++step) {
+    const float* xs = x + static_cast<int64_t>(step) * b * n;
+    const int solve_err = group_refresh_and_solve(
+        d, v, xs, b, s, n, gm, group_size, sel, sum_idx, sum_width, lam,
+        num_iters, fista, hard, power_iters, dg, gram, pgram, corr, gcodes,
+        codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr);
+    if (solve_err != 0) return solve_err;
+    VTC_CHECK(gram_form_stats(step_codes, xs, cmat, bmat, stat, b, s, n,
+                              stream));
+    if (sum_hook != nullptr && sum_hook(step) != 0) return kSumHookFailed;
+    if (update == 1)
+      VTC_CHECK(hessian_from_stat(stat, h, s, global_b, stream));
+    for (int u = 0; u < upd_num_iters; ++u) {
+      VTC_CHECK(gemm<false, false>(cmat, d, bmat, grad, s, n, s, stream));
+      if (comem == nullptr) {
+        VTC_CHECK(update_rows<false>(d, grad, h, AlignmentReg{}, s, n, inv_b,
+                                     upd_step, lowest, update == 1,
+                                     renorm != 0, stream));
+        continue;
+      }
+      VTC_CHECK(gemm<false, true>(d, d, nullptr, ddt, s, s, n, stream));
+      sign_mask_kernel<<<pass_grid(static_cast<int64_t>(s) * s),
+                         kPassThreads, 0, stream>>>(
+          comem, ddt, smat, static_cast<int64_t>(s) * s);
+      VTC_CHECK(cudaGetLastError());
+      VTC_CHECK(gemm<false, false>(smat, d, nullptr, sd, s, n, s, stream));
+      VTC_CHECK(update_rows<true>(d, grad, h,
+                                  AlignmentReg{sd, smat, ddt, penalty}, s, n,
+                                  inv_b, upd_step, lowest, update == 1,
+                                  renorm != 0, stream));
+    }
+  }
   return 0;
 }
 

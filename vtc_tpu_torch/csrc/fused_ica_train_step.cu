@@ -44,6 +44,21 @@
 // update, which the caller runs replicated from the statistic summed over
 // the shards.  The residual stays on the device, as r_max does in K8.  It
 // is bound as K8 is, by the latency of its dependent launches.
+//
+// Also here, K18: a rank's whole data-parallel ICA segment.  Replaces
+// vtc_tpu/ops/pallas_ica_train.py, fused_ica_dp_train_segment_pallas
+// (:355, kernel _make_ica_kernel with num_devices > 1, :101).
+// vtc_ica_dp_train_segment runs, per step, K9's step on the rank's shard
+// (refine_and_stat: the refreshes of the replicated inverse, the guard
+// residual with the device-decided boost into the running r_max, the
+// shard's codes and its statistic codes^T sign(codes)), then the host hook
+// that sums the (n, n) statistic over the ranks (train_core.cuh; the TPU
+// kernel all-reduces it in-kernel), then K8's update from the global
+// statistic: M = stat / global_b - I and upd_num_iters x D += eta M D.
+// One C loop per segment, K17's layout; no hook at a world of one.  The
+// residual depends on the replicated D and X alone, so r_max is the same
+// on every rank.  Bound as K8 is, by the latency of its dependent
+// launches.
 #include "train_core.cuh"
 
 namespace {
@@ -238,6 +253,52 @@ int vtc_ica_solve_stats(const float* d, float* x, float* res,
   if (front_err != 0) return front_err;
   if (inv.cur != x)
     VTC_CHECK(cudaMemcpyAsync(x, inv.cur, sizeof(float) * n * n,
+                              cudaMemcpyDeviceToDevice, stream));
+  return 0;
+}
+
+// K18, one rank's data-parallel ICA segment of k steps on its shard
+// batches (k, b, n).  In place: d (n, n), x (n, n) the tracked inverse,
+// r_max (1,) the running residual maximum (the caller zeroes it), all
+// replicated.  comm (n, n) receives each step's unaveraged statistic,
+// summed over the ranks by sum_hook (when given) before the update;
+// global_b is the batch over all ranks.  eye, eye2 and the scratch as
+// vtc_ica_train_segment's.  Returns the first CUDA error code (0 on
+// success), or kSumHookFailed.
+int vtc_ica_dp_train_segment(float* d, float* x, float* r_max,
+                             const float* batches, const float* eye,
+                             const float* eye2, int k, int b, int n,
+                             float stepsize, int refine_iters,
+                             int upd_num_iters, int has_boost,
+                             float boost_tol, float global_b, float* x_alt,
+                             float* e, float* codes, float* sgn, float* m,
+                             float* p, int* boost, float* comm,
+                             SumHook sum_hook, void* stream_ptr) {
+  if (k < 0 || b < 1 || n < 1 || refine_iters < 0 || upd_num_iters < 0 ||
+      !(global_b >= 1.0f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int nn = n * n;
+  InverseBuffers inv{x, x_alt};
+  cudaError_t err;
+  for (int step = 0; step < k; ++step) {
+    const float* xs = batches + static_cast<int64_t>(step) * b * n;
+    const int front_err = refine_and_stat(
+        d, &inv, r_max, xs, eye, eye2, b, n, refine_iters, has_boost,
+        boost_tol, e, codes, sgn, comm, boost, stream);
+    if (front_err != 0) return front_err;
+    if (sum_hook != nullptr && sum_hook(step) != 0) return kSumHookFailed;
+    natural_gradient_kernel<<<(nn + 255) / 256, 256, 0, stream>>>(
+        comm, m, n, global_b);
+    VTC_CHECK(cudaGetLastError());
+    for (int u = 0; u < upd_num_iters; ++u) {
+      VTC_CHECK(gemm<false, false>(m, d, nullptr, p, n, n, n, stream));
+      axpy_kernel<<<(nn + 255) / 256, 256, 0, stream>>>(d, p, stepsize, nn);
+      VTC_CHECK(cudaGetLastError());
+    }
+  }
+  if (inv.cur != x)
+    VTC_CHECK(cudaMemcpyAsync(x, inv.cur, sizeof(float) * nn,
                               cudaMemcpyDeviceToDevice, stream));
   return 0;
 }

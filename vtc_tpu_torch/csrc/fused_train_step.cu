@@ -62,6 +62,22 @@
 // rows in order: no atomics, since C D' - B cancels.  It is bound as K2
 // is, by the solve on ceil(b / 16) blocks; a shard of half the batch runs
 // on half as many.
+//
+// Also here, K15: a rank's whole data-parallel fc segment.  Replaces
+// vtc_tpu/ops/pallas_dp_train.py, fused_dp_train_segment_pallas (:310,
+// kernel _make_dp_kernel :129).  vtc_dp_train_segment runs, per step, K3's
+// step on the rank's shard (refresh_and_solve and gram_form_stats, into
+// one packed buffer [C (s, s) | B (s, n) | stat (s)]), then the host hook
+// that sums that buffer over the ranks (train_core.cuh; where the TPU
+// kernel all-reduces it over remote DMA, in-kernel), then K2's update from
+// the global statistics: the Hessian EMA from the summed stat and, per
+// update iteration, grad = C D - B by the fp32 product with its fused
+// "- X", D -= step * grad / global_b [/ (h + lowest)], rows renormalized
+// with vtc_tpu's 1e-30 floor.  The whole segment is enqueued from one C
+// loop, K17's layout (fused_conv_train_step.cu): at a world of one there
+// is no hook and no host work per step.  Per step it does K3's work plus
+// 2 upd_num_iters s^2 n for C D, so it is bound as K3 is, by the solve on
+// ceil(b / 16) blocks.
 #include "train_core.cuh"
 
 extern "C" int vtc_fused_fista(const float* gram, const float* corr,
@@ -177,6 +193,55 @@ int vtc_solve_stats(const float* d, float* v, const float* x, int b, int s,
       corr, codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr);
   if (solve_err != 0) return solve_err;
   VTC_CHECK(gram_form_stats(codes, x, cmat, bmat, stat, b, s, n, stream));
+  return 0;
+}
+
+// K15, one rank's data-parallel segment of k steps on its shard
+// x (k, b, n).  In place: d (s, n), h (s,), v (dim,), replicated.
+// comm (s*s + s*n + s,) receives each step's packed statistics
+// [C | B | stat]; sum_hook(step), when given, sums it over the ranks
+// before the update.  global_b is the batch over all ranks.  Scratch as
+// vtc_train_segment's (gram, pgram, corr, grad, eta, gn, state); codes
+// (b, s) holds the last step's codes of the shard on return.  Returns the
+// first CUDA error code (0 on success), or kSumHookFailed.
+int vtc_dp_train_segment(float* d, float* h, float* v, const float* x, int k,
+                         int b, int s, int n, float lam, int num_iters,
+                         float upd_step, int upd_num_iters, float lowest,
+                         int fista, int mode, int update, int renorm,
+                         int power_iters, float global_b, float* gram,
+                         float* pgram, float* corr, float* codes, float* grad,
+                         float* eta, int sk, int sc, float* gn_scratch,
+                         float* state_scratch, float* comm, SumHook sum_hook,
+                         void* stream_ptr) {
+  if (k < 0 || b <= 0 || s <= 0 || n <= 0 || num_iters < 0 ||
+      upd_num_iters < 0 || power_iters < 0 || !(global_b >= 1.0f) ||
+      (s > n && pgram == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err = power_setup(s > n ? n : s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* cmat = comm;
+  float* bmat = comm + static_cast<int64_t>(s) * s;
+  float* stat = bmat + static_cast<int64_t>(s) * n;
+  const float inv_b = 1.0f / global_b;
+  for (int step = 0; step < k; ++step) {
+    const float* xs = x + static_cast<int64_t>(step) * b * n;
+    const int solve_err = refresh_and_solve(
+        d, v, xs, b, s, n, lam, num_iters, fista, mode, power_iters, gram,
+        pgram, corr, codes, eta, sk, sc, gn_scratch, state_scratch,
+        stream_ptr);
+    if (solve_err != 0) return solve_err;
+    VTC_CHECK(gram_form_stats(codes, xs, cmat, bmat, stat, b, s, n, stream));
+    if (sum_hook != nullptr && sum_hook(step) != 0) return kSumHookFailed;
+    if (update == 1)
+      VTC_CHECK(hessian_from_stat(stat, h, s, global_b, stream));
+    for (int u = 0; u < upd_num_iters; ++u) {
+      VTC_CHECK(gemm<false, false>(cmat, d, bmat, grad, s, n, s, stream));
+      VTC_CHECK(update_rows<false>(d, grad, h, AlignmentReg{}, s, n, inv_b,
+                                   upd_step, lowest, update == 1,
+                                   renorm != 0, stream));
+    }
+  }
   return 0;
 }
 

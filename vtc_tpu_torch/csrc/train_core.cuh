@@ -4,8 +4,10 @@
 // (fused_conv_train_step.cu, conv segments; the product and the power
 // refresh) and K19 (fused_code_shard_train_step.cu, residual-form
 // segments; the product tile, the power refresh, the Hessian EMA, the row
-// update and the sign mask), and by the per-shard solve+stats steps K3, K7
-// and K9 beside K2, K6 and K8 (the gram-form statistics), for Hopper
+// update and the sign mask), by the per-shard solve+stats steps K3, K7
+// and K9 beside K2, K6 and K8 (the gram-form statistics), and by the
+// whole-segment data-parallel loops K15, K16, K17 and K18 (the host hook's
+// contract and the Hessian EMA from a summed statistic), for Hopper
 // (sm_90a).  Included by each: everything here has internal linkage.
 //
 // Precision.  Every product is IEEE fp32 FMA on the CUDA cores: no TF32,
@@ -239,6 +241,34 @@ cudaError_t hessian_ema(const float* codes, float* h, int b, int s,
                         float inv_b, cudaStream_t stream) {
   hessian_ema_kernel<<<(s + 255) / 256, 256, 0, stream>>>(codes, h, b, s,
                                                           inv_b);
+  return cudaGetLastError();
+}
+
+// The whole-segment data-parallel loops (K15-K18) run each step's solve
+// and statistics, then call the host hook, int sum_hook(int step), which
+// sums the packed statistics over the ranks in place, in stream order
+// (where the TPU kernels all-reduce them over remote DMA, in-kernel), then
+// the replicated update.  A mesh of one rank passes no hook.  A hook that
+// reports a failure (nonzero) ends the segment with kSumHookFailed; the
+// hook's caller holds the error.
+using SumHook = int (*)(int);
+constexpr int kSumHookFailed = -1;
+
+// h[j] = 0.99 h[j] + (stat[j] / b) / 100, the Hessian EMA from a code
+// statistic summed over the ranks, b the global batch (K15-K17); the
+// product and the sum rounded apart, as the plain version's two ops.
+__global__ void hessian_from_stat_kernel(const float* __restrict__ stat,
+                                         float* __restrict__ h, int s,
+                                         float b) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < s)
+    h[j] = __fadd_rn(__fmul_rn(0.99f, h[j]), (stat[j] / b) / 100.0f);
+}
+
+cudaError_t hessian_from_stat(const float* stat, float* h, int s, float b,
+                              cudaStream_t stream) {
+  hessian_from_stat_kernel<<<(s + 255) / 256, 256, 0, stream>>>(stat, h, s,
+                                                                b);
   return cudaGetLastError();
 }
 

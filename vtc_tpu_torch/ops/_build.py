@@ -121,6 +121,10 @@ def load_library():
       [ptr] * 3 + [i32] * 3 + [f32] + [i32] * 4 + [ptr] * 8 + [i32, i32]
       + [ptr] * 3)
   lib.vtc_solve_stats.restype = i32
+  lib.vtc_dp_train_segment.argtypes = (
+      [ptr] * 4 + [i32] * 4 + [f32, i32, f32, i32, f32] + [i32] * 5 + [f32]
+      + [ptr] * 6 + [i32, i32] + [ptr] * 3 + [ptr, ptr])
+  lib.vtc_dp_train_segment.restype = i32
   lib.vtc_fused_group_fista.argtypes = [
       ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32, i32,
       ptr, ptr, ptr, ptr]
@@ -135,6 +139,11 @@ def load_library():
       [ptr] * 3 + [i32] * 5 + [ptr, ptr, i32, f32] + [i32] * 4 + [ptr] * 10
       + [i32, i32] + [ptr] * 3)
   lib.vtc_group_solve_stats.restype = i32
+  lib.vtc_group_dp_train_segment.argtypes = (
+      [ptr] * 4 + [i32] * 6 + [ptr, ptr, i32, ptr, f32, f32, i32, f32, i32,
+                                f32] + [i32] * 5 + [f32] + [ptr] * 11
+      + [i32, i32] + [ptr] * 3 + [ptr, ptr])
+  lib.vtc_group_dp_train_segment.restype = i32
   lib.vtc_conv_direct.argtypes = [
       ptr, ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32, i32,
       i32, i32, ptr, ptr, ptr, ptr, ptr]
@@ -163,6 +172,10 @@ def load_library():
   lib.vtc_ica_solve_stats.argtypes = (
       [ptr] * 6 + [i32, i32, i32, i32, f32] + [ptr] * 6 + [ptr])
   lib.vtc_ica_solve_stats.restype = i32
+  lib.vtc_ica_dp_train_segment.argtypes = (
+      [ptr] * 6 + [i32] * 3 + [f32] + [i32] * 3 + [f32, f32] + [ptr] * 8
+      + [ptr, ptr])
+  lib.vtc_ica_dp_train_segment.restype = i32
   lib.vtc_code_shard_split_k.argtypes = []
   lib.vtc_code_shard_split_k.restype = i32
   lib.vtc_code_shard_train_segment.argtypes = (

@@ -19,7 +19,8 @@ vtc_tpu's: a scan of [K13 -> psum -> replicated update]
   one C loop on the current stream, K13's kernels and then K12's update
   kernel per step.  Where the TPU kernel all-reduces the statistics over
   remote DMA inside the kernel, the C loop calls back into Python once per
-  step on a mesh of more than one rank, and the callback sums the packed
+  step on a mesh of more than one rank, and the callback
+  (``ops/sum_hook``, shared with K15, K16 and K18) sums the packed
   statistics with one ``torch.distributed`` all-reduce (``Mesh.sum_``),
   stream-ordered; a mesh of one rank has no callback and no host work per
   step.  Or it raises.
@@ -42,13 +43,10 @@ import ctypes
 import torch
 
 from vtc_tpu_torch.ops import conv_shapes, fused_conv_direct, fused_conv_train
+from vtc_tpu_torch.ops.sum_hook import SumHook
 from vtc_tpu_torch.parallel import data_parallel
 
 launches = 0
-
-# the C loop's per-step callback: int sum_hook(int step)
-_SUM_HOOK = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_int)
-_SUM_HOOK_FAILED = -1  # kSumHookFailed of the .cu file
 
 
 def fused_conv_dp_train_plain(dictionary, hessian, eigvec, batches,
@@ -215,19 +213,7 @@ def _launch(dstk, h, v, xblk, mblk, supp, geo, k, mesh, lam, num_iters,
   grad = empty(cpx, rs)
   # [cm | bx | stat] or [grad_sum | stat], summed by one all-reduce
   comm = empty((rs * rs if gram else 0) + cpx * rs + s)
-  failures = []
-  hook = None
-  if mesh.size > 1:
-
-    def sum_stats(step):
-      try:
-        mesh.sum_(comm)
-      except BaseException as err:  # handed back to the caller below
-        failures.append(err)
-        return 1
-      return 0
-
-    hook = _SUM_HOOK(sum_stats)
+  hook = SumHook(mesh, comm)
   f32 = ctypes.c_float
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -241,15 +227,8 @@ def _launch(dstk, h, v, xblk, mblk, supp, geo, k, mesh, lam, num_iters,
         power_iters, int(gram), f32(b * mesh.size), dall.data_ptr(),
         gram_mat.data_ptr(), eta.data_ptr(), img.data_ptr(), corr.data_ptr(),
         z.data_ptr(), old.data_ptr(), partial.data_ptr(), grad.data_ptr(),
-        comm.data_ptr(),
-        None if hook is None else ctypes.cast(hook, ctypes.c_void_p), stream)
-  if failures:
-    raise failures[0]
-  if err != 0:
-    raise RuntimeError(
-        "data-parallel conv segment launch failed with %s (k=%d, b=%d, s=%d, "
-        "cpx=%d, R=%d, gram form %s)" % (
-            "a failed sum hook" if err == _SUM_HOOK_FAILED
-            else "CUDA error %d" % err, k, b, s, cpx, r, gram))
+        comm.data_ptr(), hook.pointer, stream)
+  hook.check(err, "data-parallel conv segment launch (k=%d, b=%d, s=%d, "
+             "cpx=%d, R=%d, gram form %s)" % (k, b, s, cpx, r, gram))
   launches += k
   return dstk, h, v, old

@@ -36,6 +36,23 @@ codes and its unaveraged statistic codes^T sign(codes), and no update.  A
 CUDA tensor runs ``vtc_ica_solve_stats`` of the same source or raises; a
 CPU tensor runs ``ica_solve_stats_plain``.  ``stats_launches`` counts the
 steps that kernel ran.
+
+And the port of TPU kernel K18, ``fused_ica_dp_train_segment_pallas``
+(vtc_tpu/ops/pallas_ica_train.py:355-410, kernel ``_make_ica_kernel`` with
+num_devices > 1, :101): ``fused_ica_dp_train_segment``, a rank's whole
+data-parallel ICA segment with K8's contract ``(dictionary, inverse,
+max_residual)``.  Per batch of this rank's (k, b_shard, n) segment: K9's
+refreshes, residual and boost, the shard's codes and statistic, the
+statistic's sum over the ranks of the port's ``parallel.Mesh``, and the
+replicated update D += eta (stat / global_b - I) D, ``upd_num_iters``
+times.  A CUDA tensor runs ``vtc_ica_dp_train_segment`` of the same
+source: the whole segment from one C loop, the statistic summed by the host
+hook (``ops/sum_hook``) between a step's statistic and its update at a
+world above one; or raises.  A CPU tensor runs ``fused_ica_dp_train_plain``.
+The largest residual stays on the device, NaN kept, for the trainer's lazy
+guard, as K8's does.  ``fused_ica_dp_segment_supported`` is K8's and K9's
+gate: vtc_tpu's comm slots and VMEM budget (:343-352) have no counterpart.
+``dp_launches`` counts the train steps that kernel ran.
 """
 import ctypes
 import functools
@@ -47,9 +64,11 @@ from vtc_tpu_torch.analysis_transforms.fully_connected import (
 from vtc_tpu_torch.dict_update_rules.fully_connected import (
     ica_natural_gradient)
 from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.sum_hook import SumHook
 
 launches = 0
 stats_launches = 0
+dp_launches = 0
 
 
 def fused_ica_segment_supported(n, batch_size, num_atoms=None):
@@ -300,3 +319,131 @@ def _launch_stats(d, x, batch, refine_iters, boost_tol):
         % (err, b, n))
   stats_launches += 1
   return x, stat, res
+
+
+def fused_ica_dp_segment_supported(n, batch_shard_size, num_atoms=None):
+  """True when ``fused_ica_dp_train_segment`` takes this geometry: K8's and
+  K9's gate, a square dictionary and a shard.  vtc_tpu's ``num_devices``
+  (its comm-slot count) bounds nothing on the card."""
+  return fused_ica_segment_supported(n, batch_shard_size, num_atoms)
+
+
+def fused_ica_dp_train_plain(dictionary, inverse_estimate, batches,
+                             stepsize, *, mesh, refine_iters=5,
+                             upd_num_iters=1, boost_tol=None,
+                             precision=None):
+  """The plain PyTorch version of the data-parallel segment, on any device
+  and in the inputs' own float type: per batch K9's plain version, the sum
+  of the statistic over ``mesh`` and the replicated update; the running
+  residual maximum keeps NaN.  ``precision`` is the matmul precision of
+  the refreshes and the codes product (default 'highest')."""
+  d, x = dictionary, inverse_estimate
+  r_max = torch.zeros((), dtype=d.dtype, device=d.device)
+  for batch in batches:
+    x, stat, res = ica_solve_stats_plain(
+        d, x, batch, refine_iters=refine_iters, boost_tol=boost_tol,
+        precision=precision)
+    stat = mesh.sum(stat) / (batch.shape[0] * mesh.size)
+    d = ica_natural_gradient._update_from_stat(d, stat, stepsize,
+                                               upd_num_iters)
+    r_max = torch.maximum(r_max, res)  # keeps NaN
+  return d, x, r_max
+
+
+def fused_ica_dp_train_segment(dictionary, inverse_estimate, batches,
+                               stepsize, *, mesh, refine_iters=5,
+                               upd_num_iters=1, mxu="highest",
+                               boost_tol=None):
+  """Run ``batches.shape[0]`` data-parallel ICA train steps on this rank.
+
+  Every rank of ``mesh`` calls it in step, with the same replicated state
+  and its own shard of every batch.
+
+  Args:
+    dictionary, inverse_estimate: (n, n) float32 tensors, replicated.
+    batches: (k, b_shard, n) float32, this rank's shards, k >= 1.
+    stepsize: the ascent stepsize, a Python float.
+    mesh: the ``parallel.Mesh`` the ranks share.
+    refine_iters / upd_num_iters / boost_tol: as in vtc_tpu.
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a).
+
+  Returns:
+    (dictionary, inverse, max_residual): new tensors, replicated; the
+    inputs are not modified; max_residual is 0-d, the same on every rank.
+  """
+  if mxu != "highest":
+    raise NotImplementedError(
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        % (mxu,))
+
+  def require(cond, message):
+    if not cond:
+      raise ValueError("fused_ica_dp_train_segment: " + message)
+
+  require(batches.dim() == 3 and batches.shape[0] >= 1,
+          "batches must be (k, b_shard, n) with k >= 1, got %s"
+          % (tuple(batches.shape),))
+  k, b, n = batches.shape
+  require(fused_ica_dp_segment_supported(n, b, dictionary.shape[0])
+          and tuple(dictionary.shape) == (n, n),
+          "dictionary must be square (%d, %d), got %s"
+          % (n, n, tuple(dictionary.shape)))
+  boost_tol = None if boost_tol is None else float(boost_tol)
+  if batches.device.type == "cpu":
+    return fused_ica_dp_train_plain(
+        dictionary, inverse_estimate, batches, float(stepsize), mesh=mesh,
+        refine_iters=int(refine_iters), upd_num_iters=int(upd_num_iters),
+        boost_tol=boost_tol)
+  require(batches.device.type == "cuda",
+          "tensors must be on the CPU or a CUDA device, got "
+          + str(batches.device))
+  device = batches.device
+  for name, t in (("dictionary", dictionary),
+                  ("inverse_estimate", inverse_estimate)):
+    require(t.device == device and t.dtype == torch.float32
+            and tuple(t.shape) == (n, n),
+            "%s must be a float32 (%d, %d) tensor on %s"
+            % (name, n, n, device))
+  require(batches.dtype == torch.float32, "batches must be float32")
+  require(int(refine_iters) >= 0 and int(upd_num_iters) >= 0,
+          "iteration counts must be >= 0")
+  return _launch_dp(dictionary.contiguous().clone(),
+                    inverse_estimate.contiguous().clone(),
+                    batches.contiguous(), mesh, float(stepsize),
+                    int(refine_iters), int(upd_num_iters), boost_tol)
+
+
+def _launch_dp(d, x, batches, mesh, stepsize, refine_iters, upd_num_iters,
+               boost_tol):
+  """Allocate the scratch and the statistic's buffer, and enqueue the k
+  steps on the current stream, the sum over the ranks between each step's
+  statistic and its update."""
+  global dp_launches
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  k, b, n = batches.shape
+  device = batches.device
+
+  def empty(*shape):
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+  eye, eye2 = _identities(n, device)
+  r_max = torch.zeros((), dtype=torch.float32, device=device)
+  x_alt, e, m, p, comm = (empty(n, n) for _ in range(5))
+  codes, sgn = empty(b, n), empty(b, n)
+  boost = torch.zeros(1, dtype=torch.int32, device=device)
+  hook = SumHook(mesh, comm.view(-1))
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.vtc_ica_dp_train_segment(
+        d.data_ptr(), x.data_ptr(), r_max.data_ptr(), batches.data_ptr(),
+        eye.data_ptr(), eye2.data_ptr(), k, b, n, ctypes.c_float(stepsize),
+        refine_iters, upd_num_iters, int(boost_tol is not None),
+        ctypes.c_float(0.0 if boost_tol is None else boost_tol),
+        ctypes.c_float(b * mesh.size), x_alt.data_ptr(), e.data_ptr(),
+        codes.data_ptr(), sgn.data_ptr(), m.data_ptr(), p.data_ptr(),
+        boost.data_ptr(), comm.data_ptr(), hook.pointer, stream)
+  hook.check(err, "data-parallel ICA segment launch (k=%d, b=%d, n=%d)"
+             % (k, b, n))
+  dp_launches += k
+  return d, x, r_max

@@ -67,25 +67,35 @@ same dictionary.
   segment's ``upd_num_iters`` (more than one update iteration takes the
   gram form, so a stride-block-uniform mask); vtc_tpu's further terms are
   VMEM budgets and its interpret-mode device count.
+* ``_dp_fc_segment_runner`` (:214-246, vtc_tpu's
+  ``_dp_rdma_segment_runner``) and ``_dp_group_segment_runner``
+  (:284-318, ``_dp_rdma_group_segment_runner``): where vtc_tpu picks its
+  whole-segment fc and subspace DP kernels K15 and K16 (``dp_rdma``,
+  ``dp_rdma_group``, :645-690, :761-809), each rank runs its segment
+  through ops/fused_dp_train or ops/fused_group_dp_train, one C loop per
+  segment with one all-reduce of the step's packed statistics between its
+  solve and its update, as K17.  Their gates are K3's and K7's (subspace:
+  and a regularizer only with renormalization), on a mesh without a 'dcn'
+  axis.  vtc_tpu's further terms are VMEM budgets, and its interpret-mode
+  device count (the CPU interpreter's remote-DMA simulation needs a spare
+  host thread), an artefact with no counterpart here.
 * ``_dp_fused_segment_runner`` (:178-211): the fused-DP composition, per
   step one solve+stats kernel on the shard (K3, K7 with groups, K13 in
-  conv mode on a mesh with a 'dcn' axis, where vtc_tpu does not take K17),
-  one all-reduce of its statistics and the replicated update, the warm
-  eigenvector riding replicated.  Picked where vtc_tpu picks it (warm
+  conv mode), one all-reduce of its statistics and the replicated update,
+  the warm eigenvector riding replicated: the same numbers as K15, K16
+  and K17, one Python call per step.  Picked where vtc_tpu picks it (warm
   tracking, no early stop, 'pallas' (fc) or 'auto'/'pallas' (conv), the
   gates of ``fused_solve_stats_supported`` /
-  ``fused_group_solve_stats_supported`` / ``conv_solve_stats_supported``),
-  and also where vtc_tpu would pick its whole-segment fc, subspace and ICA
-  DP kernels K15, K16 and K18 (``dp_rdma``, ``dp_rdma_group``), which wait
-  (ROADMAP.md §1 item 9.2): the same numbers, one launch group and one
-  all-reduce per step instead of one launch per segment.  Its per-step
-  Python between the kernels takes the place of K2's one C loop per
-  segment.
+  ``fused_group_solve_stats_supported`` / ``conv_solve_stats_supported``)
+  and the whole-segment kernels do not run: on a mesh with a 'dcn' axis,
+  and for subspace a regularizer without renormalization.
 * ``_dp_segment_runner`` (:395-424): the psum-per-op step
   (``parallel.build_dp_local_step``) for every other configuration, with
   the stepsize computed in the step: 'power_warm' is downgraded to 'power'
   (:810-813), and a warm run's eigenvector is re-seeded after a segment
-  that took this runner (:1281-1285).
+  that took this runner (:1281-1285).  An early-stopped data-parallel run
+  takes it too, where vtc_tpu takes K15, K16 or K17 with their in-kernel
+  stop test: that test waits with every kernel's (ROADMAP.md §1 item 3a).
 * The shuffle permutes the global sample index with the seeded generator
   every rank has, before the shard is taken: a data-parallel run visits
   the samples of the single-device run.  Rank 0 writes checkpoints and
@@ -104,6 +114,7 @@ import torch
 from vtc_tpu_torch import parallel
 from vtc_tpu_torch.ops import conv_shapes, fused_code_shard_train
 from vtc_tpu_torch.ops import fused_conv_dp_train, fused_conv_train
+from vtc_tpu_torch.ops import fused_dp_train, fused_group_dp_train
 from vtc_tpu_torch.ops import fused_group_train_step
 from vtc_tpu_torch.ops import fused_train_step
 from vtc_tpu_torch.ops import lipschitz as lip
@@ -232,6 +243,43 @@ def _dp_conv_segment_runner(mesh, variant, update_alg, upd_niters, nonneg,
             variant=variant, update_alg=update_alg, upd_num_iters=upd_niters,
             nonneg=nonneg, hard=hard, renormalize=renormalize,
             power_iters=2))
+    return dictionary, hessian, eigvec
+
+  return run
+
+
+def _dp_fc_segment_runner(mesh, variant, update_alg, upd_niters, nonneg,
+                          hard, renormalize):
+  """vtc_tpu's ``_dp_rdma_segment_runner``: this rank's shards of the whole
+  segment through the data-parallel fc segment kernels (K15), the
+  statistics summed over ``mesh`` once per step, warm tracking at
+  power_iters=2."""
+
+  def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
+    dictionary, hessian, eigvec, _ = fused_dp_train.fused_dp_train_segment(
+        dictionary, hessian, eigvec, batches, sw, n_it, upd_step, mesh=mesh,
+        variant=variant, update_alg=update_alg, upd_num_iters=upd_niters,
+        nonneg=nonneg, hard=hard, renormalize=renormalize, power_iters=2)
+    return dictionary, hessian, eigvec
+
+  return run
+
+
+def _dp_group_segment_runner(mesh, variant, update_alg, upd_niters, hard,
+                             renormalize, group_assignments,
+                             alignment_penalty):
+  """vtc_tpu's ``_dp_rdma_group_segment_runner``: the subspace counterpart
+  of ``_dp_fc_segment_runner`` (K16), the anti-alignment regularizer on the
+  replicated dictionary inside."""
+
+  def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
+    dictionary, hessian, eigvec, _ = (
+        fused_group_dp_train.fused_group_dp_train_segment(
+            dictionary, hessian, eigvec, batches, sw, n_it, upd_step,
+            group_assignments=group_assignments, mesh=mesh, variant=variant,
+            update_alg=update_alg, upd_num_iters=upd_niters, hard=hard,
+            renormalize=renormalize, power_iters=2,
+            alignment_penalty=alignment_penalty))
     return dictionary, hessian, eigvec
 
   return run
@@ -393,10 +441,24 @@ def train_dictionary_scanned(training_batches, validation_batches,
   def make_dp_runner():
     """(runner, whether it tracks the warm eigenvector)."""
     if dp_fused_now():
-      if mode == "convolutional" and "dcn" not in dp_mesh.axis_names:
+      # the whole-segment kernels where vtc_tpu takes them: no 'dcn' axis
+      # (the port's mesh has no other axis above 1)
+      whole = "dcn" not in dp_mesh.axis_names
+      if whole and mode == "convolutional":
         return _dp_conv_segment_runner(
             dp_mesh, inference_alg, update_alg, upd_niters, nonneg, hard,
             renormalize, kernel_stride, padding), True
+      if whole and group_assignments is None:
+        return _dp_fc_segment_runner(
+            dp_mesh, inference_alg, update_alg, upd_niters, nonneg, hard,
+            renormalize), True
+      if whole and fused_group_dp_train.fused_group_dp_segment_supported(
+          training_batches.shape[1], dictionary.shape[0],
+          training_batches.shape[-1], group_assignments,
+          alignment_penalty=alignment_penalty, renormalize=renormalize):
+        return _dp_group_segment_runner(
+            dp_mesh, inference_alg[9:], update_alg, upd_niters, hard,
+            renormalize, group_assignments, alignment_penalty), True
       common = dict(hard_threshold=hard, renormalize=renormalize,
                     upd_num_iters=upd_niters, power_iters=2)
       if mode == "convolutional":

@@ -27,13 +27,20 @@ trainer shards each batch over the mesh (:428-437): every rank calls it
 with the same global batches, keeps its shard of the batch axis on the
 device and returns the same dictionary.  ``_segment_runner_dp`` (:250-333)
 runs, per step, this rank's codes, one all-reduce of the statistic
-codes^T sign(codes) and the replicated update; with the fused path on
-(``use_fused`` as above) the refreshes, codes and statistic are one
-solve+stats step on the shard (K9, ``ops/fused_ica_train.ica_solve_stats``)
-and the segment's largest residual feeds the same lazy guard, whose
-rollback reruns on the plain data-parallel runner.  Where vtc_tpu would
-pick its whole-segment DP kernel K18 the port runs this composition: K18
-waits, ROADMAP.md §1 item 9.  Rank 0 writes checkpoints and figures.
+codes^T sign(codes) and the replicated update.  With the fused path on
+(``use_fused`` as above), on a mesh without a 'dcn' axis (``use_rdma_dp``,
+:478-495), ``_dp_kernel_segment_runner`` (:218-247, vtc_tpu's
+``_rdma_segment_runner_dp``) runs each rank's whole segment through K18
+(``ops/fused_ica_train.fused_ica_dp_train_segment``: one C loop per
+segment, the statistic summed over the ranks between each step's
+statistic and its update); on a mesh with one, ``_segment_runner_dp(
+fused=True)`` runs K9's composition, one solve+stats step per shard
+(``ops/fused_ica_train.ica_solve_stats``), as vtc_tpu does.  Either way
+the segment's largest residual feeds the same lazy guard, whose rollback
+reruns on the plain data-parallel runner.  vtc_tpu's further terms for
+K18 are its VMEM budget and its interpret-mode device count (the CPU
+interpreter's remote-DMA simulation needs a spare host thread), which have
+no counterpart here.  Rank 0 writes checkpoints and figures.
 
 The tensors live on ``device``: the keyword argument, else that of the
 first tensor among the data and the initial dictionary, else the CUDA
@@ -204,6 +211,23 @@ def _fused_segment_runner(upd_num_iters, refine_iters=3, mxu="highest"):
   return run
 
 
+def _dp_kernel_segment_runner(upd_num_iters, mesh, refine_iters=3,
+                              mxu="highest"):
+  """This rank's shards of the whole segment through the data-parallel ICA
+  segment kernels (K18), the statistic summed over ``mesh`` once per step;
+  returns (dictionary, dinv, max_residual) for the caller's lazy guard, as
+  ``_fused_segment_runner`` does (vtc_tpu :218-247)."""
+  boost_tol = _TIERS[mxu][2]
+
+  def run(dictionary, dinv, batches, stepsize):
+    return fused_ica_train.fused_ica_dp_train_segment(
+        dictionary, dinv, batches, stepsize, mesh=mesh,
+        refine_iters=refine_iters, upd_num_iters=upd_num_iters, mxu=mxu,
+        boost_tol=boost_tol)
+
+  return run
+
+
 def _segment_runner_dp(upd_num_iters, mesh, warm_inverse, refine_iters=3,
                        mxu="highest", fused=False):
   """The data-parallel segment over this rank's shards: per step the
@@ -314,6 +338,11 @@ def train_dictionary_scanned(training_batches, init_dictionary, all_params,
   fused_on = (warm_inverse and geom_ok
               and (use_fused is True
                    or (use_fused is None and device.type == "cuda")))
+  # the whole-segment data-parallel kernel K18 where vtc_tpu takes it: a
+  # mesh without a 'dcn' axis (the port's mesh has no other axis above 1;
+  # K18's gate is geom_ok's)
+  use_dp_kernel = (fused_on and dp_mesh is not None
+                   and "dcn" not in dp_mesh.axis_names)
   pending = []  # fused segments awaiting their guard check
 
   def drain_guard():
@@ -366,11 +395,15 @@ def train_dictionary_scanned(training_batches, init_dictionary, all_params,
     if fused_on:
       ent = {"batches": batches, "d_in": dictionary, "dinv_in": dinv,
              "stepsize": stepsize, "upd_niters": upd_niters}
-      runner = (_segment_runner_dp(upd_niters, dp_mesh, warm_inverse,
-                                   refine_iters=refine, mxu=mxu, fused=True)
-                if dp_mesh is not None else
-                _fused_segment_runner(upd_niters, refine_iters=refine,
-                                      mxu=mxu))
+      if dp_mesh is None:
+        runner = _fused_segment_runner(upd_niters, refine_iters=refine,
+                                       mxu=mxu)
+      elif use_dp_kernel:
+        runner = _dp_kernel_segment_runner(upd_niters, dp_mesh,
+                                           refine_iters=refine, mxu=mxu)
+      else:
+        runner = _segment_runner_dp(upd_niters, dp_mesh, warm_inverse,
+                                    refine_iters=refine, mxu=mxu, fused=True)
       dictionary, dinv, ent["res"] = runner(dictionary, dinv, batches,
                                             stepsize)
       pending.append(ent)
