@@ -66,6 +66,13 @@ caught.
   example's parameters (50 steps of 5) and the conv encode on a mesh of
   one; the world of 2 runs conv on shards of 20.  Kernel K13, the conv
   solve+stats step of one shard, in its gradient and gram forms.
+* Big-dictionary training across devices: the scanned trainer at
+  bench.py's measure_bigdict width with dictionary rows sharded over a
+  'code' axis (train_dictionary_scanned(data_parallel=make_mesh(data=1,
+  code=2)), fc and 512 groups of 4, and make_mesh(data=2, code=2)), two and
+  four processes of this script sharing the card over gloo; kernel K19
+  across devices, each rank's segment from one C loop with the sums over
+  the ranks as calls of its host hook.
 
 The phases that check a refusal (an early stop or a tier the kernels do
 not have yet) require NotImplementedError naming its ROADMAP.md item and
@@ -202,7 +209,7 @@ the phases that make its check here.
    matrices), and ISTA hard nonnegative at a small size.  Dictionary,
    Hessian EMA, eigenvector, codes and stepsize are held to phase 2's
    limit, a TF32 control of the plain step must fail it, and the early
-   stop, the bf16x3 tier and a code axis of 2 must be refused.
+   stop and the bf16x3 tier must be refused.
 24. The big-dictionary slice: _code_shard_segment_runner over one 200-step
    segment of 128 sparse mixtures of a 2048-atom generator (26 MB, made
    on the card), fc and with 512 groups of 4; K19 must count 200 steps
@@ -225,8 +232,8 @@ the phases that make its check here.
    plain version must fail the limit.  One identity each: the replicated
    update from K3's own statistics, (C D - B) / b, is K2's one-step
    output; K7's is K6's (also with the anti-alignment penalty 0.4); K9's
-   is K8's.  The tiers, a code axis of 2 and the data-parallel early stop
-   on the kernel route must be refused.
+   is K8's.  The tiers and the data-parallel early stop on the kernel
+   route must be refused.
 27. A world of 1 through the normal entry points.  First a probe: whether
    torch.distributed has NCCL and a one-rank NCCL group initialises and
    reduces a device tensor (printed; with one, data_parallel=True inside
@@ -326,6 +333,33 @@ the phases that make its check here.
    composition; and bench.py's fc_, subspace_ and ica_dp_rdma_batch250
    rows at a world of 1 (patches/s per chip through the trainers) beside
    the single-device fused trainers, in turns.
+36. K19 across devices: processes of this script (the hidden sub-command
+   --cs-rank) share the card in a gloo group over a file:// store, two on
+   a (data 1, code 2) mesh, then four on a (data 2, code 2) mesh; the
+   sums of the n x n Gram, the reconstruction, the Hessian statistic and
+   the gradient over the ranks are calls of K19's host hook.  One step at
+   bench's width (s 2048: s_l 1024; b 128, at data 2 b_l 64), fc and 512
+   contiguous groups of 4, and at s 512 groups of 4 with the penalty 0.4
+   and a ragged partition inside each shard (two update iterations),
+   against the fp32 and fp64 plain versions across the same ranks, every
+   gathered output at phase 2's limit; the ranks must hold bitwise the
+   same eigenvector, stepsize and gathered state; the difference of the
+   stacked shards from K19 at a code axis of 1 on the whole dictionary in
+   one process is printed.  The early stop and the bf16x3 tier must be
+   refused at a code axis of 2.
+37. The scanned trainer through its entry point,
+   train_dictionary_scanned(data_parallel=make_mesh(data=1, code=2)), 50
+   steps at bench's width fc and grouped, and make_mesh(data=2, code=2),
+   20 fc steps: each rank must count one K19 launch per step and none of
+   K2, K6, K15 or K16; the ranks must return bitwise the same dictionary,
+   unit rows, within the rounding floor of the single-process
+   _code_shard_segment_runner at code 1 on the global batch.
+38. Timing per rank: K19 across devices ms per step over a 20-step
+   segment at code 2 and at 2 x 2, the hook sums per step and the host's
+   time in them, the plain version's ms, the per-rank bound, and K19 at a
+   code axis of 1 (phase 25) beside them.  The ranks share one card over
+   gloo, each sum staged through pinned host memory: host-bound numbers,
+   not a multi-GPU measurement (NCCL across GPUs cannot run on one card).
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -370,6 +404,8 @@ REL_TOL = 1e-5  # ... and at most this share of the largest code
 # when a cuda test is missing here or a phase named here does not exist.
 CUDA_TESTS = {
     "test_torch_port_code_shard.py::test_cuda_kernel_matches_plain": (23,),
+    "test_torch_port_code_shard_parallel.py::"
+    "test_cuda_kernel_across_ranks_matches_plain": (36,),
     "test_torch_port_conv.py::test_cuda_wrappers_raise_and_match_plain": (
         13, 14),
     "test_torch_port_conv_parallel.py::test_cuda_conv_dp_runs_k13_and_k17": (
@@ -1559,8 +1595,6 @@ def code_shard_kernel_cases(torch, cs, lipschitz, gen, dev):
                 "3a", cs)
   check_refuses("K19 mxu='bf16x3'", lambda: (
       cs.fused_code_sharded_train_segment(*step, mxu="bf16x3")), "3a", cs)
-  check_refuses("K19 axis_size=2", lambda: (
-      cs.fused_code_sharded_train_segment(*step, axis_size=2)), "9", cs)
   return worst
 
 
@@ -2448,6 +2482,388 @@ def k17_calls(K17):
   return calls, lambda: setattr(K17, "fused_conv_dp_train_segment", original)
 
 
+# ---------------------------------------------------------------------------
+# K19 across devices: dictionary rows over a 'code' axis (phases 36-38)
+# ---------------------------------------------------------------------------
+CS_MESHES = {2: dict(data=1, code=2), 4: dict(data=2, code=2)}
+# phase 37's trainer runs: (label, world, grouped, steps)
+CS_TRAIN = (("fc", 2, False, 50), ("grouped 512x4", 2, True, 50),
+            ("fc", 4, False, 20))
+CS_TIME_STEPS = 20        # phase 38's timed segment
+CS_CHILD_TIMEOUT = 600    # seconds a rank of phases 36-38 may take
+CS_NAMES = ("dictionary", "hessian", "eigvec", "codes", "stepsize")
+# what each rank counts in phase 37's runs, in cs_rank_main's order
+CS_COUNTS = ("K19", "K2", "K6", "K15", "K16")
+
+
+def ragged_in_shards(s, shards, seed):
+  """A seeded disjoint partition of range(s) into shuffled groups of 1 to
+  6 rows, none across a boundary of ``shards`` equal row shards: a layout
+  K19 across devices takes with the member-table prox."""
+  rng, groups, per = np.random.RandomState(seed), [], s // shards
+  for lo in range(0, s, per):
+    perm, at = lo + rng.permutation(per), 0
+    while at < per:
+      size = int(rng.randint(1, 7))
+      groups.append(sorted(int(i) for i in perm[at:at + size]))
+      at += size
+  return groups
+
+
+def cs_variants():
+  """Phase 36's one-step cases: (name, dictionary, batch, groups, flags),
+  the dictionary and batch naming arrays of cs_rank_main's inputs."""
+  sub_cq = "subspace_sc_cheap_quadratic_descent"
+  return (
+      ("bench fc fista cheap-quad", "d", "x_fc", None, {}),
+      ("bench 512x4 groups cheap-quad", "d", "x_g",
+       contiguous_groups(BIG_S, 4), {"update_alg": sub_cq}),
+      ("s512 4s penalty 0.4 cheap-quad", "d_small", "x_small",
+       contiguous_groups(BIG_SMALL_S, 4),
+       {"update_alg": sub_cq, "alignment_penalty": 0.4}),
+      ("s512 ragged 1-6 cheap-quad upd 2", "d_small", "x_small",
+       ragged_in_shards(BIG_SMALL_S, 2, 36),
+       {"update_alg": sub_cq, "upd_num_iters": 2}))
+
+
+def bigdict_params(steps, grouped):
+  """The scanned trainer at bench.py's measure_bigdict rows (fc, or 512
+  contiguous groups of 4)."""
+  params = dict(train_params(steps), inference_param_schedule={
+      0: {"sparsity_weight": LAM, "num_iters": TRAIN_ITERS}},
+                dict_update_param_schedule={
+                    0: {"stepsize": BIG_STEP, "num_iters": 1}})
+  if grouped:
+    params.update(code_inference_algorithm="subspace_fista",
+                  dictionary_update_algorithm=(
+                      "subspace_sc_cheap_quadratic_descent"),
+                  group_assignments=contiguous_groups(BIG_S, 4))
+  return params
+
+
+def cs_gathered(mesh, out):
+  """(dictionary, hessian, eigvec, codes, stepsize) of one rank's K19
+  output, the shards gathered into the global arrays, as numpy."""
+  d, h, v, codes, eta = out
+  codes = mesh.all_gather(mesh.all_gather_code(codes, dim=1))
+  return [t.detach().cpu().numpy() for t in (
+      mesh.all_gather_code(d), mesh.all_gather_code(h), v, codes, eta)]
+
+
+def cs_rank_main(rank, world, workdir):
+  """The hidden sub-command: one rank of phases 36-38 at a world of 2
+  (code 2) or 4 (data 2 x code 2).  Joins the gloo group over the file
+  store in ``workdir``, runs K19 across devices against its plain
+  versions (36), the scanned trainer (37) and the timing (38) on the
+  shared card, and saves its results to ``workdir``."""
+  import os
+  import torch
+  import torch.distributed as dist
+  from vtc_tpu_torch import convert, parallel
+  from vtc_tpu_torch.ops import fused_code_shard_train as K19
+  from vtc_tpu_torch.ops import fused_dp_train as K15
+  from vtc_tpu_torch.ops import fused_group_dp_train as K16
+  from vtc_tpu_torch.ops import fused_group_train_step as K6
+  from vtc_tpu_torch.ops import fused_train_step as K2
+  from vtc_tpu_torch.training import compiled_epoch
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device", file=sys.stderr)
+    return 1
+  dev = torch.device("cuda", 0)
+  data = dict(np.load(os.path.join(workdir, "inputs.npz")))
+  dist.init_process_group("gloo", init_method="file://" + os.path.join(
+      workdir, "store"), rank=rank, world_size=world)
+  try:
+    mesh = parallel.make_mesh(**CS_MESHES[world])
+    code, size = mesh.code_size, mesh.size
+    axes = dict(axis_size=code, data_axis_size=size,
+                data_stride=code if size > 1 else 0)
+    out = {}
+    # phase 36: one step of each variant against its fp32 and fp64 plain
+    # versions, every rank on its shards
+    for name, dkey, xkey, groups, flags in cs_variants():
+      d, x, v = data[dkey], data[xkey], data["v_" + dkey]
+      state = convert.code_shard_state_from_numpy(
+          d, np.zeros(d.shape[0], np.float32), v, mesh, dev,
+          group_assignments=groups)
+      if flags.get("alignment_penalty", 0.0) == 0.0:
+        state.pop("comem_local", None)
+      args = (state.pop("dict_shard"), state.pop("hessian_shard"),
+              state.pop("eigvec"),
+              torch.tensor(mesh.shard(x, dim=1), device=dev))
+      kw = dict(flags, power_iters=2, return_stepsize=True, **state)
+      scalars = (LAM, TRAIN_ITERS, BIG_STEP)
+      before = K19.launches
+      got = K19.fused_code_sharded_train_segment(*args, *scalars, mesh=mesh,
+                                                 **axes, **kw)
+      torch.cuda.synchronize()
+      check(K19.launches == before + 1, name + ": K19 did not count its "
+            "step")
+      want32 = K19.fused_code_sharded_train_segment_plain(
+          *args, *scalars, mesh=mesh, **kw)
+      kw64 = {k: (t.double() if isinstance(t, torch.Tensor) else t)
+              for k, t in kw.items()}
+      want64 = K19.fused_code_sharded_train_segment_plain(
+          *(t.double() for t in args), *scalars, mesh=mesh, **kw64)
+      for tag, result in (("kernel", got), ("fp32", want32),
+                          ("fp64", want64)):
+        for what, a in zip(CS_NAMES, cs_gathered(mesh, result)):
+          out["36|%s|%s|%s" % (name, tag, what)] = a
+    # the refusals on a CUDA tensor, at a code axis of 2
+    d = convert.code_shard_state_from_numpy(
+        data["d"], np.zeros(BIG_S, np.float32), data["v_d"], mesh, dev)
+    step = (d["dict_shard"], d["hessian_shard"], d["eigvec"],
+            torch.tensor(mesh.shard(data["x_fc"], dim=1), device=dev), LAM,
+            TRAIN_ITERS, BIG_STEP)
+    check_refuses("K19 across devices early_stopping_epsilon", lambda: (
+        K19.fused_code_sharded_train_segment(
+            *step, mesh=mesh, early_stopping_epsilon=1e-3, **axes)), "3a",
+                  K19)
+    check_refuses("K19 across devices mxu='bf16x3'", lambda: (
+        K19.fused_code_sharded_train_segment(*step, mesh=mesh,
+                                             mxu="bf16x3", **axes)), "3a",
+                  K19)
+    # phase 37: the scanned trainer on the mesh, counts set to 0 just
+    # before each run and read just after
+    for label, w, grouped, steps in CS_TRAIN:
+      if w != world:
+        continue
+      x = data["train_g" if grouped else "train_fc"][:steps]
+      K19.launches = K2.launches = K6.launches = 0
+      K15.launches = K16.launches = 0
+      trained = compiled_epoch.train_dictionary_scanned(
+          x, x[:1], data["d"], dict(bigdict_params(steps, grouped),
+                                    data_parallel=mesh), device=dev)
+      torch.cuda.synchronize()
+      out["37|%s|launches" % label] = np.array([
+          K19.launches, K2.launches, K6.launches, K15.launches,
+          K16.launches])
+      out["37|%s|dictionary" % label] = trained.cpu().numpy()
+    # phase 38: K19 across devices per step on this rank, the host's time
+    # in the hook's sums, and the plain version's
+    x = torch.tensor(mesh.shard(data["train_fc"][:CS_TIME_STEPS], dim=1),
+                     device=dev)
+    seg = (d["dict_shard"], d["hessian_shard"], d["eigvec"], x, LAM,
+           TRAIN_ITERS, BIG_STEP)
+    K19.fused_code_sharded_train_segment(*seg[:3], x[:2], *seg[4:],
+                                         mesh=mesh, power_iters=2, **axes)
+    sums = {"calls": 0, "s": 0.0}
+
+    def timed(fn):
+      def call(flat):
+        t0 = time.perf_counter()
+        out = fn(flat)
+        sums["s"] += time.perf_counter() - t0
+        sums["calls"] += 1
+        return out
+      return call
+
+    runs = []
+    for _ in range(2):
+      mesh.sum_code_, mesh.sum_ = timed(mesh.sum_code_), timed(mesh.sum_)
+      sums.update(calls=0, s=0.0)
+      torch.cuda.synchronize()
+      dist.barrier()
+      t0 = time.perf_counter()
+      K19.fused_code_sharded_train_segment(*seg, mesh=mesh, power_iters=2,
+                                           **axes)
+      torch.cuda.synchronize()
+      runs.append((1e3 * (time.perf_counter() - t0) / CS_TIME_STEPS,
+                   sums["calls"] / CS_TIME_STEPS,
+                   1e3 * sums["s"] / CS_TIME_STEPS))
+      del mesh.sum_code_, mesh.sum_  # the class's methods again
+    dist.barrier()
+    t0 = time.perf_counter()
+    K19.fused_code_sharded_train_segment_plain(*seg[:3], x[:5], *seg[4:],
+                                               mesh=mesh, power_iters=2)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / 5
+    # one hook sum taken apart: gloo's all-reduce of the (b_l, n)
+    # reconstruction in host memory alone, then staged from the card
+    # (pinned copy, stream sync, copy back), 50 sums each
+    probe = []
+    for where in ("cpu", dev):
+      buf = torch.zeros(x.shape[1] * 256, device=where)
+      mesh.sum_code_(buf)
+      dist.barrier()
+      t0 = time.perf_counter()
+      for _ in range(50):
+        mesh.sum_code_(buf)
+      torch.cuda.synchronize()
+      probe.append(1e3 * (time.perf_counter() - t0) / 50)
+    out["38|timing"] = np.array([runs[0][0], runs[1][0], runs[0][1],
+                                 runs[0][2], runs[1][2], plain_ms] + probe)
+    np.savez(os.path.join(workdir, "rank%d.npz" % rank), **out)
+  finally:
+    dist.destroy_process_group()
+  return 0
+
+
+def spawn_ranks(flag, world, workdir, timeout):
+  """Start ``world`` processes of this script with the hidden sub-command
+  ``flag``, wait for them, and stop any that outlives ``timeout``;
+  returns (exit codes, seconds)."""
+  import os
+  t0 = time.perf_counter()
+  procs = [subprocess.Popen(
+      [sys.executable, os.path.abspath(__file__), flag, str(rank),
+       str(world), workdir]) for rank in range(world)]
+  try:
+    codes = [proc.wait(timeout=timeout) for proc in procs]
+  finally:
+    for proc in procs:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+  return codes, time.perf_counter() - t0
+
+
+def code_shard_across_devices(torch, K19, lipschitz, compiled_epoch, gen,
+                              dev, card, k19_ms):
+  """Phases 36-38: K19 across devices at a world of 2 (code 2) and of 4
+  (data 2 x code 2), the ranks being processes of this script sharing the
+  card over gloo.  Returns (launches per rank on phase 37's main path,
+  the largest kernel-vs-fp32 difference, ms per step at code 2, the
+  plain version's, the per-rank bound at code 2)."""
+  import os
+  import tempfile
+  d = unit_rows(np.random.RandomState(2), BIG_S, 256)
+  small = gen[:BIG_SMALL_S].contiguous()
+  data = {"d": d, "d_small": d[:BIG_SMALL_S].copy()}
+  for key, seed, g, group in (("x_fc", 360, gen, 1), ("x_g", 361, gen, 4),
+                              ("x_small", 362, small, 4)):
+    data[key] = bigdict_mixtures(torch, dev, BIG_B, g, group,
+                                 seed=seed)[None].cpu().numpy()
+  for key, grouped in (("train_fc", False), ("train_g", True)):
+    data[key] = bigdict_mixtures(
+        torch, dev, 50 * BIG_B, gen, 4 if grouped else 1,
+        seed=370 + grouped).reshape(50, BIG_B, 256).cpu().numpy()
+  for key in ("d", "d_small"):
+    data["v_" + key] = lipschitz.top_gram_eigenpair(
+        torch.tensor(data[key], device=dev))[1].cpu().numpy()
+  results = {}
+  with tempfile.TemporaryDirectory() as workdir:
+    np.savez(os.path.join(workdir, "inputs.npz"), **data)
+    for world in (2, 4):
+      sub = os.path.join(workdir, "world%d" % world)
+      os.mkdir(sub)
+      os.link(os.path.join(workdir, "inputs.npz"),
+              os.path.join(sub, "inputs.npz"))
+      codes, dt = spawn_ranks("--cs-rank", world, sub, CS_CHILD_TIMEOUT)
+      check(codes == [0] * world, "a rank of the world of %d failed: exit "
+            "codes %s" % (world, codes))
+      results[world] = [dict(np.load(os.path.join(sub, "rank%d.npz" % r)))
+                        for r in range(world)]
+      print("K19 across devices: %d processes sharing one card over gloo "
+            "(%s) done in %.1f s" % (world, CS_MESHES[world], dt))
+
+  # phase 36: the ranks agree bitwise, the kernel holds to its plain
+  # versions, and the stacked shards sit beside K19 at a code axis of 1
+  worst = 0.0
+  for world, ranks in results.items():
+    for name, dkey, xkey, groups, flags in cs_variants():
+      def outputs(rank, tag):
+        return [ranks[rank]["36|%s|%s|%s" % (name, tag, what)]
+                for what in CS_NAMES]
+      for rank in range(1, world):
+        for what, a, b in zip(CS_NAMES, outputs(0, "kernel"),
+                              outputs(rank, "kernel")):
+          if what != "codes":
+            check(np.array_equal(a, b), "world %d %s: the %s differs "
+                  "between ranks 0 and %d" % (world, name, what, rank))
+      label = "K19 x%d %s" % (world, name)
+      worst = max(worst, compare_outputs(
+          torch, label, CS_NAMES,
+          *[[torch.from_numpy(a) for a in outputs(0, tag)]
+            for tag in ("kernel", "fp32", "fp64")]))
+      one_kw = dict(flags, power_iters=2, return_stepsize=True)
+      if groups is not None:
+        one_kw["expand_local"] = K19.code_shard_group_arrays(
+            groups, data[dkey].shape[0], 1)[0][0]
+        if flags.get("alignment_penalty", 0.0) != 0.0:
+          one_kw["comem_local"] = K19.code_shard_group_arrays(
+              groups, data[dkey].shape[0], 1)[1][0]
+      one = K19.fused_code_sharded_train_segment(
+          torch.tensor(data[dkey], device=dev),
+          torch.zeros(data[dkey].shape[0], device=dev),
+          torch.tensor(data["v_" + dkey], device=dev),
+          torch.tensor(data[xkey], device=dev), LAM, TRAIN_ITERS, BIG_STEP,
+          **one_kw)
+      print("%-48s ranks bitwise equal; stacked shards vs K19 at code axis "
+            "1: %s" % (label, ", ".join(
+                "%s %.3e" % (what, float(np.abs(a - b.cpu().numpy()).max()))
+                for what, a, b in zip(CS_NAMES, outputs(0, "kernel"),
+                                      one))))
+
+  # phase 37: the trainer through K19 only, the ranks bitwise equal, and
+  # the single-process runner at code 1 on the global batch
+  launches = 0
+  for label, world, grouped, steps in CS_TRAIN:
+    ranks = results[world]
+    counts = dict(zip(CS_COUNTS, (int(c) for c in ranks[0][
+        "37|%s|launches" % label])))
+    for rank, out in enumerate(ranks):
+      check(list(out["37|%s|launches" % label]) == [steps, 0, 0, 0, 0],
+            "world %d %s: rank %d launched %s, expected %d K19 steps and "
+            "no K2, K6, K15 or K16" % (world, label, rank, dict(zip(
+                CS_COUNTS, out["37|%s|launches" % label])), steps))
+      check(np.array_equal(out["37|%s|dictionary" % label],
+                           ranks[0]["37|%s|dictionary" % label]),
+            "world %d %s: rank %d's dictionary differs from rank 0's" % (
+                world, label, rank))
+    launches += counts["K19"]
+    d0 = torch.tensor(data["d"], device=dev)
+    runner = compiled_epoch._code_shard_segment_runner(
+        None, 1, 1, "fista",
+        ("subspace_sc_cheap_quadratic_descent" if grouped
+         else "sc_cheap_quadratic_descent"), 1, False, False, True,
+        group_arrays=(K19.code_shard_group_arrays(
+            contiguous_groups(BIG_S, 4), BIG_S, 1) if grouped else None))
+    single = runner(d0, torch.zeros(BIG_S, device=dev),
+                    lipschitz.top_gram_eigenpair(d0)[1].contiguous(),
+                    torch.tensor(data["train_g" if grouped else
+                                      "train_fc"][:steps], device=dev),
+                    LAM, TRAIN_ITERS, BIG_STEP)[0].cpu().numpy()
+    got = ranks[0]["37|%s|dictionary" % label]
+    err = float(np.abs(got - single).max())
+    unit = float(np.abs(np.linalg.norm(got, axis=1) - 1).max())
+    print("K19 x%d train_dictionary_scanned(data_parallel=make_mesh(%s)) %s, "
+          "%d steps: each rank %s; ranks bitwise equal; rows unit within "
+          "%.2e; vs the single-process runner at code 1 on the global batch "
+          "max|d| %.3e (rounding floor %.1e)" % (
+              world, ", ".join("%s=%d" % kv for kv in
+                               CS_MESHES[world].items()), label, steps,
+              ", ".join("%d %s" % (counts[c], c) for c in CS_COUNTS), unit,
+              err, DP_FLOOR))
+    check(np.isfinite(got).all() and unit <= 1e-4 and err <= DP_FLOOR,
+          "world %d %s: %.3e from the single-process runner" % (world, label,
+                                                                err))
+
+  # phase 38: timing per rank
+  timing = {}
+  for world, ranks in results.items():
+    t = np.array([out["38|timing"] for out in ranks])
+    ms = float(t[:, :2].mean())
+    b_l, s_l = BIG_B // CS_MESHES[world]["data"], BIG_S // CS_MESHES[world][
+        "code"]
+    bnd = code_shard_step_bound(b_l, s_l, 256, TRAIN_ITERS)
+    timing[world] = (ms, float(t[:, 5].mean()), bnd)
+    print("K19 across devices, %d processes sharing one card over gloo "
+          "(%s; b_l %d, s_l %d, n 256, fista 25, cheap-quad, a %d-step "
+          "segment): %.4f ms per step per rank (ranks x runs %s); %d hook "
+          "sums per step, host %.4f ms per step in them; plain version %.4f "
+          "ms per step; per-rank bound %.4f ms (%s); K19 at code axis 1 "
+          "(phase 25) %.4f ms; one sum over 'code' of the (b_l, n) "
+          "reconstruction: gloo's all-reduce of host memory %.4f ms, staged "
+          "from the card %.4f ms.  NCCL across GPUs cannot run on one card: "
+          "these times are host-bound, not a multi-GPU number [%s]" % (
+              world, CS_MESHES[world], b_l, s_l, CS_TIME_STEPS, ms,
+              np.round(t[:, :2], 4).tolist(), int(t[0, 2]),
+              float(t[:, 3:5].mean()), timing[world][1], bnd[0], bnd[1],
+              k19_ms, float(t[:, 6].mean()), float(t[:, 7].mean()), card))
+  return (launches, worst) + timing[2]
+
+
 def time_ms(torch, fn, reps):
   start, stop = (torch.cuda.Event(enable_timing=True),
                  torch.cuda.Event(enable_timing=True))
@@ -3201,8 +3617,9 @@ def main():
           "%.1f s" % (label, bx.shape[0], bbatches.numel() * 4 / 1e6,
                       time.perf_counter() - t0))
     runner = compiled_epoch._code_shard_segment_runner(
-        1, 1, "fista", ("subspace_sc_cheap_quadratic_descent" if grouped
-                        else "sc_cheap_quadratic_descent"), 1, False, False,
+        None, 1, 1, "fista",
+        ("subspace_sc_cheap_quadratic_descent" if grouped
+         else "sc_cheap_quadratic_descent"), 1, False, False,
         True, group_arrays=big_arrays if grouped else None)
     K19.launches = 0
     btrained, bh, bv = runner(bd0, torch.zeros(BIG_S, device=dev), bv0,
@@ -3253,8 +3670,9 @@ def main():
   for grouped in (False, True):
     label = "grouped 512x4" if grouped else "fc"
     runner = compiled_epoch._code_shard_segment_runner(
-        1, 1, "fista", ("subspace_sc_cheap_quadratic_descent" if grouped
-                        else "sc_cheap_quadratic_descent"), 1, False, False,
+        None, 1, 1, "fista",
+        ("subspace_sc_cheap_quadratic_descent" if grouped
+         else "sc_cheap_quadratic_descent"), 1, False, False,
         True, group_arrays=big_arrays if grouped else None)
     out = runner(*bench_args, bench_x, *seg_args)  # warm-up, and the check
     torch.cuda.synchronize()
@@ -3347,8 +3765,6 @@ def main():
   k3_err, k7_err, k9_err = dp_kernel_cases(
       torch, parallel, K2, K6, K8, ica, sub, lipschitz, invertible_linear,
       train_patches, gtrain, dev)
-  check_refuses("a mesh with a code axis of 2",
-                lambda: parallel.make_mesh(code=2), "9")
   check_refuses("data-parallel train_dictionary_scanned "
                 "early_stopping_epsilon", lambda: (
                     compiled_epoch.train_dictionary_scanned(
@@ -3912,6 +4328,10 @@ def main():
               one_rate, *rates[False],
               steps * TRAIN_BATCH / dp_runs[label], card))
 
+  # phases 36-38: K19 across devices, ranks of this script on the card
+  cs_launches, cs_err, cs_ms, cs_p_ms, cs_bound = code_shard_across_devices(
+      torch, K19, lipschitz, compiled_epoch, big_gen, dev, card, k19_ms)
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -3946,6 +4366,10 @@ def main():
       ("fused_code_shard_train", "fused_code_shard_train_step.cu",
        "vtc_tpu/ops/pallas_code_shard_train.py:616", k19_launches, k19_err,
        k19_ms, k19_p_ms, k19_bound),
+      ("fused_code_shard_train across devices",
+       "fused_code_shard_train_step.cu",
+       "vtc_tpu/ops/pallas_code_shard_train.py:616 (code axis > 1)",
+       cs_launches, cs_err, cs_ms, cs_p_ms, cs_bound),
       ("fused_solve_stats", "fused_train_step.cu",
        "vtc_tpu/ops/pallas_train_step.py:975", dp2_launches["K3"], k3_err,
        dp_times["K3"][0], dp_times["K3"][1], k3_bound),
@@ -3996,4 +4420,7 @@ if __name__ == "__main__":
   if len(sys.argv) == 5 and sys.argv[1] == "--dp-rank":
     # one rank of phase 28's world of 2, started by main()
     sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+  if len(sys.argv) == 5 and sys.argv[1] == "--cs-rank":
+    # one rank of phases 36-38, started by main()
+    sys.exit(cs_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
   sys.exit(main())

@@ -210,7 +210,8 @@ def test_group_members_refuses_non_partitions():
 
 def test_supported_agrees_with_vtc_tpu():
   """Wherever vtc_tpu's VMEM budget holds, the gates agree at axis 1; the
-  port refuses s <= n and every axis above 1."""
+  port refuses a global s <= n, and takes every axis above 1 with a global
+  s > n (a shard may have s_l <= n)."""
   agreed = 0
   for b in (8, 128, 256):
     for s in (32, 64, 256, 2048):
@@ -220,8 +221,8 @@ def test_supported_agrees_with_vtc_tpu():
         if jcs.code_shard_segment_supported(b, s, n, 1) and s > n:
           assert port
           agreed += 1
-        assert not cs.code_shard_segment_supported(b, s, n, 2)
-        assert not cs.code_shard_segment_supported(b, s, n, 1, 2)
+        assert cs.code_shard_segment_supported(b, s, n, 2) == (2 * s > n)
+        assert cs.code_shard_segment_supported(b, s, n, 1, 2) == (s > n)
   assert agreed >= 10
   assert cs.code_shard_segment_supported(128, 2048, 256, 1)  # bench's row
   # past the TPU's VMEM budget, the card still runs it
@@ -251,7 +252,7 @@ def test_runner_matches_vtc_tpu(rng, grouped):
       *map(jnp.asarray, (d, h, v, x)), jnp.float32(args[0]),
       jnp.int32(args[1]), jnp.float32(args[2]))
   before = cs.launches
-  got = compiled_epoch._code_shard_segment_runner(1, 1, *flags, **kw)(
+  got = compiled_epoch._code_shard_segment_runner(None, 1, 1, *flags, **kw)(
       *map(torch.from_numpy, (d, h, v, x)), *args)
   assert cs.launches == before  # CPU tensors take the plain version
   for g, w, name in zip(got, want, NAMES):
@@ -261,22 +262,25 @@ def test_runner_matches_vtc_tpu(rng, grouped):
 def test_refusals(rng):
   d, h, v, x = map(torch.from_numpy, _problem(rng, k=1))
   args = (d, h, v, x, 0.1, 5, 0.05)
+  # axes above 1 run on a mesh that has them (test_torch_port_code_shard_
+  # parallel.py); without one, the sizes must be the one-rank mesh's
   for kw in (dict(axis_size=2), dict(data_axis_size=2)):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 9"):
+    with pytest.raises(ValueError, match="must be the mesh's"):
       cs.fused_code_sharded_train_segment(*args, **kw)
   for sizes in ((2, 1), (1, 2)):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 9"):
+    with pytest.raises(ValueError, match="needs a mesh of those sizes"):
       compiled_epoch._code_shard_segment_runner(
-          *sizes, "fista", "sc_steepest_descent", 1, False, False, True)
+          None, *sizes, "fista", "sc_steepest_descent", 1, False, False,
+          True)
   with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 3a"):
     cs.fused_code_sharded_train_segment(*args, mxu="bf16x3")
   with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 3a"):
     compiled_epoch._code_shard_segment_runner(
-        1, 1, "fista", "sc_steepest_descent", 1, False, False, True,
+        None, 1, 1, "fista", "sc_steepest_descent", 1, False, False, True,
         mxu="bf16x3")(d, h, v, x, 0.1, 5, 0.05)
   for kw in (dict(interpret=True), dict(code_stride=2),
              dict(data_stride=3)):
-    with pytest.raises(ValueError, match="axis-1 values"):
+    with pytest.raises(ValueError, match="row-major strides"):
       cs.fused_code_sharded_train_segment(*args, **kw)
   with pytest.raises(ValueError, match="s > n"):
     cs.fused_code_sharded_train_segment(d[:16], h[:16], v, x, 0.1, 5, 0.05)

@@ -185,7 +185,8 @@ v12 = lipschitz.top_gram_eigenpair(big)[1].contiguous()
 for alg, group_arrays in (("sc_cheap_quadratic_descent", None),
                           ("subspace_sc_cheap_quadratic_descent", arrays)):
   out = compiled_epoch._code_shard_segment_runner(
-      1, 1, "fista", alg, 1, False, False, True, group_arrays=group_arrays)(
+      None, 1, 1, "fista", alg, 1, False, False, True,
+      group_arrays=group_arrays)(
           big, torch.zeros(40), v12, torch.from_numpy(batches), 0.05, 5,
           0.01)
   assert out[0].shape == (40, 12) and bool(out[0].isfinite().all())

@@ -405,13 +405,31 @@ def test_mesh_of_one_rank_needs_no_group():
 
 
 def test_code_axis_and_gspmd_wait():
+  """The 'code' axis and the GSPMD step run (their multi-rank cases are in
+  tests/test_torch_port_code_shard_parallel.py and _trainer.py): here a
+  code axis without a group of its ranks is refused, and
+  ``build_pjit_train_step`` on a mesh of one rank is the single-device
+  raw step, rows sharded or not."""
   for build in (lambda: parallel.make_mesh(code=2),
-                lambda: parallel.Mesh(1, code=2),
-                lambda: parallel.build_pjit_train_step(
-                    parallel.make_mesh(), "fully-connected", "fista",
-                    "sc_steepest_descent")):
-    with pytest.raises(NotImplementedError, match="item 9"):
+                lambda: parallel.Mesh(1, code=2)):
+    with pytest.raises(ValueError, match="process group"):
       build()
+  rng = np.random.RandomState(3)
+  d = rng.randn(24, 8).astype(np.float32)
+  d /= np.linalg.norm(d, axis=1, keepdims=True)
+  d, batch = torch.from_numpy(d), torch.from_numpy(
+      rng.randn(10, 8).astype(np.float32))
+  h = torch.zeros(24)
+  want = sc.build_raw_step_fn("fully-connected", "fista",
+                              "sc_steepest_descent")(d, h, batch, 0.05, 6,
+                                                     0.1, 1, None)
+  for shard in (False, True):
+    got = parallel.build_pjit_train_step(
+        parallel.make_mesh(), "fully-connected", "fista",
+        "sc_steepest_descent", shard_code_axis=shard)(d, h, batch, 0.05, 6,
+                                                      0.1)
+    for g, w in zip(got, want):
+      np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

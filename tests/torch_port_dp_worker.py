@@ -305,6 +305,133 @@ def case_encode(data, d, sw, n_it, kw):
                         data_parallel=parallel.make_mesh(), **kw)
 
 
+# ---------------------------------------------------------------------------
+# the 'code' axis: dictionary rows sharded over ranks
+# ---------------------------------------------------------------------------
+def case_code_mesh(mesh_spec):
+  """A mesh with a 'code' axis: its layout, the row and batch shards of a
+  global array, and the sums and gathers over the code and data groups,
+  each rank contributing (mesh rank + 1) times the array."""
+  mesh = parallel.make_mesh(**mesh_spec)
+  rows = 4 * mesh.code_size * mesh.size
+  x = np.arange(rows * 3, dtype=np.float32).reshape(rows, 3)
+  scale = mesh.rank + 1
+  flat = _t(x[:2]).reshape(-1) * scale
+  code_sum = mesh.sum_code_(flat)
+  return {"axis_names": mesh.axis_names, "shape": dict(mesh.shape),
+          "position": dict(mesh.position), "size": mesh.size,
+          "index": mesh.index, "code_size": mesh.code_size,
+          "code_index": mesh.code_index, "rank": mesh.rank,
+          "dp_axes": parallel.dp_axes(mesh),
+          "row_bounds": mesh.code_shard_bounds(rows),
+          "rows": np.asarray(mesh.code_shard(x)),
+          "batch": np.asarray(mesh.shard(x)),
+          "sum": mesh.sum(_t(x[:2]) * scale).numpy(),
+          "sum_code_": code_sum.numpy(), "in place": code_sum is flat,
+          "gather": mesh.all_gather(_t(mesh.shard(x))).numpy(),
+          "gather_code": mesh.all_gather_code(
+              _t(mesh.code_shard(x)).T, dim=1).numpy(),
+          "object": mesh.broadcast_object({"rank": mesh.rank})}
+
+
+def case_cs_segment(mesh_spec, d, h, v, batches, sw, n_it, upd_step, kw,
+                    groups=None):
+  """K19 across ranks (its plain version on CPU tensors): this rank's rows
+  of ``d`` and ``h``, the replicated ``v`` and its batch shard; with
+  ``groups`` the rank's slice of code_shard_group_arrays.  Returns the
+  rows, codes and eigenvector gathered into the global arrays, the
+  stepsize, and the rank's own eigenvector."""
+  from vtc_tpu_torch import convert
+  from vtc_tpu_torch.ops import fused_code_shard_train as cs
+  mesh = parallel.make_mesh(**mesh_spec)
+  state = convert.code_shard_state_from_numpy(d, h, v, mesh, "cpu",
+                                              group_assignments=groups)
+  if groups is None or kw.get("alignment_penalty", 0.0) == 0.0:
+    state.pop("comem_local", None)
+  code, data = mesh.code_size, mesh.size
+  d1, h1, v1, codes, eta = cs.fused_code_sharded_train_segment(
+      *(state.pop(key) for key in ("dict_shard", "hessian_shard", "eigvec")),
+      _t(mesh.shard(batches, dim=1)), sw, n_it, upd_step, axis_size=code,
+      data_axis_size=data, data_stride=code if data > 1 else 0, mesh=mesh,
+      power_iters=2, return_stepsize=True, **state, **kw)
+  dg, hg, vg = convert.code_shard_state_to_numpy(mesh, d1, h1, v1)
+  codes = mesh.all_gather(mesh.all_gather_code(codes, dim=1))
+  return {"state": (dg, hg, vg, codes.numpy()), "eta": eta.numpy(),
+          "eigvec": v1.numpy()}
+
+
+def case_cs_cuda(mesh_spec, d, h, v, batches, sw, n_it, upd_step):
+  """K19 across ranks on the card (CUDA tensors: the kernels) and its
+  float64 plain version, both gathered into the global arrays."""
+  from vtc_tpu_torch import convert
+  from vtc_tpu_torch.ops import fused_code_shard_train as cs
+  mesh = parallel.make_mesh(**mesh_spec)
+  dev = torch.device("cuda", 0)
+  state = convert.code_shard_state_from_numpy(d, h, v, mesh, dev)
+  args = (state["dict_shard"], state["hessian_shard"], state["eigvec"],
+          torch.tensor(mesh.shard(batches, dim=1), device=dev))
+  code, data = mesh.code_size, mesh.size
+  got = cs.fused_code_sharded_train_segment(
+      *args, sw, n_it, upd_step, axis_size=code, data_axis_size=data,
+      data_stride=code if data > 1 else 0, mesh=mesh, power_iters=2)
+  want = cs.fused_code_sharded_train_segment_plain(
+      *(t.double() for t in args), sw, n_it, upd_step, mesh=mesh,
+      power_iters=2)
+  return [convert.code_shard_state_to_numpy(mesh, *out[:3])
+          for out in (got, want)]
+
+
+def case_cs_train(mesh_spec, batches, d0, params):
+  """The scanned trainer on a mesh with a 'code' axis: the dictionary and
+  the calls of each route (K19's wrapper, K3 and K7's compositions, the
+  whole-segment K15 and K16, and the psum-per-op step)."""
+  from vtc_tpu_torch.ops import (fused_code_shard_train, fused_dp_train,
+                                 fused_group_dp_train,
+                                 fused_group_train_step, fused_train_step)
+  watched = {"K19": (fused_code_shard_train,
+                     "fused_code_sharded_train_segment"),
+             "K15": (fused_dp_train, "fused_dp_train_segment"),
+             "K16": (fused_group_dp_train, "fused_group_dp_train_segment"),
+             "K3": (fused_train_step, "fused_solve_stats"),
+             "K7": (fused_group_train_step, "fused_group_solve_stats"),
+             "psum-per-op": (parallel, "build_dp_local_step")}
+  calls = dict.fromkeys(watched, 0)
+  originals = {key: getattr(module, name)
+               for key, (module, name) in watched.items()}
+
+  def counted(key):
+    def call(*args, **kwargs):
+      calls[key] += 1
+      return originals[key](*args, **kwargs)
+    return call
+
+  for key, (module, name) in watched.items():
+    setattr(module, name, counted(key))
+  try:
+    out = compiled_epoch.train_dictionary_scanned(
+        batches, batches[:1], d0,
+        dict(params, data_parallel=parallel.make_mesh(**mesh_spec)),
+        device="cpu")
+  finally:
+    for key, (module, name) in watched.items():
+      setattr(module, name, originals[key])
+  return {"dictionary": out.numpy(), "calls": calls}
+
+
+def case_pjit(mesh_spec, d, h, batch, sw, n_it, upd_step, shard_code):
+  """``build_pjit_train_step`` on the global arrays."""
+  mesh = parallel.make_mesh(**mesh_spec)
+  step = parallel.build_pjit_train_step(
+      mesh, "fully-connected", "fista", "sc_cheap_quadratic_descent",
+      shard_code_axis=shard_code)
+  return _np(step(_t(d), _t(h), batch, sw, n_it, upd_step))
+
+
+def case_cs_encode(mesh_spec, data, d, sw, n_it, kw):
+  return encode_dataset(data, d, sw, n_it, device="cpu",
+                        data_parallel=parallel.make_mesh(**mesh_spec), **kw)
+
+
 CASES = {name[5:]: fn for name, fn in list(globals().items())
          if name.startswith("case_")}
 

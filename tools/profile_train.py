@@ -150,7 +150,7 @@ def workload(args, torch, dev):
       alg = "subspace_sc_cheap_quadratic_descent"
       kw = dict(expand_local=arrays[0][0], update_alg=alg)
     runner = compiled_epoch._code_shard_segment_runner(
-        1, 1, "fista", alg, 1, False, False, True, group_arrays=arrays)
+        None, 1, 1, "fista", alg, 1, False, False, True, group_arrays=arrays)
     scalars = (cs.LAM, cs.TRAIN_ITERS, cs.BIG_STEP)
     return dict(
         name="big-dictionary %s" % ("grouped 512x4" if arrays else "fc"),

@@ -12,6 +12,11 @@ vtc_tpu's trainers write beside each dictionary checkpoint.  The ICA
 trainers take a square (n, n) dictionary and its tracked inverse
 (``ica_state_from_numpy``); a fitted ``PCACoder`` is its (k, n)
 principal directions and its (n,) component means (``pca_from_numpy``).
+The code-sharded trainer's state on one rank is its row shard of the
+dictionary and of the Hessian, the replicated (n,) eigenvector of the
+n x n Gram and, with groups, its slice of ``code_shard_group_arrays``
+(``code_shard_state_from_numpy``); ``code_shard_state_to_numpy``
+gathers the shards back into vtc_tpu's global arrays.
 """
 import numpy as np
 import torch
@@ -55,6 +60,46 @@ def train_state_from_numpy(dictionary, hessian, eigvec, device,
                        % (name, shape, array.shape))
     out.append(torch.tensor(array, device=device))
   return tuple(out)
+
+
+def code_shard_state_from_numpy(dictionary, hessian, eigvec, mesh, device,
+                                group_assignments=None):
+  """This rank's code-sharded train state on ``device`` from vtc_tpu's
+  global (s, n) dictionary, (s,) Hessian EMA and (n,) eigenvector (s > n):
+  the dict of ``fused_code_shard_train.fused_code_sharded_train_segment``'s
+  arguments -- 'dict_shard' and 'hessian_shard', the rows of
+  ``mesh.code_shard``; 'eigvec', replicated; with ``group_assignments``
+  (a disjoint partition with no group across a shard boundary)
+  'expand_local' and 'comem_local', the rank's slices of
+  ``code_shard_group_arrays``."""
+  from vtc_tpu_torch.ops.fused_code_shard_train import (
+      code_shard_group_arrays)
+  s, n = np.shape(dictionary)
+  d, h, v = train_state_from_numpy(dictionary, hessian, eigvec, device)
+  if v.shape[0] != n:
+    raise ValueError("the code-sharded state's eigenvector is the n x n "
+                     "Gram's: it needs s > n, got s=%d, n=%d" % (s, n))
+  state = {"dict_shard": mesh.code_shard(d).contiguous(),
+           "hessian_shard": mesh.code_shard(h).contiguous(), "eigvec": v}
+  if group_assignments is not None:
+    arrays = code_shard_group_arrays(group_assignments, s, mesh.code_size)
+    if arrays is None:
+      raise ValueError("the groups must be a disjoint partition of the rows "
+                       "with no group across a shard boundary")
+    state["expand_local"] = torch.tensor(arrays[0][mesh.code_index],
+                                         device=device)
+    state["comem_local"] = torch.tensor(arrays[1][mesh.code_index],
+                                        device=device)
+  return state
+
+
+def code_shard_state_to_numpy(mesh, dict_shard, hessian_shard, eigvec):
+  """The inverse of ``code_shard_state_from_numpy``: the shards gathered
+  over the mesh's 'code' axis (every rank of it calls this together) as
+  vtc_tpu's global float32 (dictionary, hessian, eigvec)."""
+  return tuple(np.ascontiguousarray(t.detach().cpu().numpy(), np.float32)
+               for t in (mesh.all_gather_code(dict_shard),
+                         mesh.all_gather_code(hessian_shard), eigvec))
 
 
 def load_train_state(checkpoint_dir, device):

@@ -1,8 +1,9 @@
 // Residual-form train steps for big dictionaries, Hopper (sm_90a), CUDA C++.
 //
-// Replaces the TPU kernel K19 at a code axis of size 1:
-// vtc_tpu/ops/pallas_code_shard_train.py, fused_code_sharded_train_segment_
-// pallas (:484) with its kernel _make_cs_kernel (:233).  Same contract: for
+// Replaces the TPU kernel K19: vtc_tpu/ops/pallas_code_shard_train.py,
+// fused_code_sharded_train_segment_pallas (:484) with its kernel
+// _make_cs_kernel (:233), at a code axis of size 1 and across devices (see
+// "Across ranks" below).  Same contract: for
 // each of the k batches X (b, n) of a segment, with the dictionary D (s, n),
 // s > n, the Hessian-diagonal EMA h (s,) and the eigenvector v (n,) of the
 // n x n Gram carried from step to step,
@@ -56,6 +57,25 @@
 //    tile): no TF32, no tensor cores, no library call.  The epilogue's
 //    arithmetic is explicitly rounded (__fmul_rn, __fsub_rn, ...), so no
 //    FMA contraction changes it against the plain version.
+//
+// Across ranks (vtc_tpu's 'code' axis above 1, optionally with a 'data'
+// axis): each rank holds s rows of the dictionary (its row shard, of a
+// global s * code_ranks) and b patches (its batch shard, of a global
+// b * data_ranks), and the sums vtc_tpu exchanges by remote DMA inside
+// its kernel (K14) become calls of the host hook between launches, each
+// summing a device buffer over one axis in place, in stream order:
+//  * the partial Gram D_l^T D_l, over 'code', once a step, before the
+//    power refresh (vtc_tpu sums the power_iters + 1 vectors v D_l^T D_l
+//    instead: the same quantity, since v P = sum_l v D_l^T D_l);
+//  * the partial reconstruction z_l D_l (and the update's codes_l D_l),
+//    over 'code', every iteration, before X is subtracted, as vtc_tpu
+//    sums first and subtracts after;
+//  * with a data axis, the Hessian statistic sum_b codes^2 and the row
+//    gradient codes_l^T resid, over 'data'.
+// Every rank receives the same bytes from each sum, so the stepsize, the
+// eigenvector and the rows of a shard stay bitwise equal on the ranks
+// that hold them.  With no hook (one rank) the launches are the ones
+// above, unchanged.
 #include "train_core.cuh"
 
 namespace {
@@ -116,6 +136,24 @@ __device__ __forceinline__ void split_sum(const float* __restrict__ partial,
       acc = __fadd_rn(acc, partial[static_cast<int64_t>(sp) * count + e]);
     out[e] = x == nullptr ? acc : __fsub_rn(acc, x[e]);
   }
+}
+
+// Which buffer a call of the axis hook sums, and over which axis.
+enum SumWhich {
+  kSumGram = 0,   // pgram (n, n) over 'code'
+  kSumRecon = 1,  // rbuf (b, n) over 'code': z_l D_l or codes_l D_l
+  kSumStat = 2,   // stat (s,) over 'data': sum_b codes^2
+  kSumGrad = 3,   // grad (s, n) over 'data': codes_l^T resid
+};
+
+// r[e] = r[e] - x[e]: X subtracted from a reconstruction summed over ranks.
+__global__ void subtract_x_kernel(float* __restrict__ r,
+                                  const float* __restrict__ x,
+                                  int64_t count) {
+  for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       e < count; e += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    r[e] = __fsub_rn(r[e], x[e]);
 }
 
 // One kernel name per product, so that a trace splits the step's time:
@@ -289,7 +327,9 @@ int vtc_code_shard_split_k() { return kSplitK; }
 // k residual-form train steps on one stream, every launch enqueued before
 // returning.
 //
-// In place: d (s, n) with s > n, h (s,), v (n,).  x (k, b, n).  The prox:
+// In place: d (s, n), h (s,), v (n,), the rank's shards; x (k, b, n).  The
+// global dictionary has more rows than columns: s * code_ranks > n.  The
+// prox:
 // window > 0 (1, 2, 4, ..., 32) for groups that are contiguous blocks of
 // window rows; else members (groups, width) int32 on the device for any
 // other partition; else (both 0 / null) the elementwise shrinkage of mode
@@ -299,7 +339,10 @@ int vtc_code_shard_split_k() { return kSplitK; }
 // max(b, n) * n); rbuf (b, n); z, old (b, s); pre (b, s) with members;
 // grad (s, n); cmat, smat (s, s) and sd (s, n) with comem; eta (1,).  The
 // last step's codes are in old on return.  update: 0 steepest, 1 cheap
-// quadratic.  Returns the first CUDA error code (0 on success).
+// quadratic.  inv_b is 1 / (b * data_ranks).  Across ranks (code_ranks or
+// data_ranks above 1) hook sums the buffers of SumWhich in place, stat
+// (s,) being the Hessian statistic's scratch with data_ranks above 1.
+// Returns the first CUDA error code (0 on success), or kSumHookFailed.
 int vtc_code_shard_train_segment(
     float* d, float* h, float* v, const float* x, int k, int b, int s, int n,
     int window, const int* members, int groups, int width,
@@ -308,8 +351,14 @@ int vtc_code_shard_train_segment(
     int update, int renorm, int power_iters, float inv_b, float* pgram,
     float* partial, float* rbuf, float* z, float* old, float* pre,
     float* grad, float* cmat, float* smat, float* sd, float* eta,
+    int code_ranks, int data_ranks, float* stat, AxisSumHook hook,
     void* stream_ptr) {
-  if (k < 0 || b <= 0 || s <= n || n <= 0 || num_iters < 0 ||
+  const bool code_sum = code_ranks > 1;
+  const bool data_sum = data_ranks > 1;
+  if (k < 0 || b <= 0 || s <= 0 || n <= 0 || code_ranks < 1 ||
+      data_ranks < 1 || static_cast<int64_t>(s) * code_ranks <= n ||
+      ((code_sum || data_sum) && hook == nullptr) ||
+      (data_sum && stat == nullptr) || num_iters < 0 ||
       upd_num_iters < 0 || power_iters < 0 || mode < 0 || mode > 3 ||
       window < 0 || window > 32 || (window & (window - 1)) != 0 ||
       (window > 0 && (members != nullptr || s % window != 0)) ||
@@ -334,6 +383,8 @@ int vtc_code_shard_train_segment(
     if (err != cudaSuccess) return static_cast<int>(err); \
   } while (0)
 #define VTC_LAUNCHED() VTC_CHECK(cudaGetLastError())
+#define VTC_SUM(WHICH) \
+  if (hook(step, WHICH) != 0) return kSumHookFailed
   IterArgs it = {};
   it.r = rbuf;
   it.d = d;
@@ -355,6 +406,7 @@ int vtc_code_shard_train_segment(
     pgram_sum_kernel<<<pass_grid(nn), kPassThreads, 0, stream>>>(
         partial, pgram, splits, nn);
     VTC_LAUNCHED();
+    if (code_sum) VTC_SUM(kSumGram);
     VTC_CHECK(power_refresh(pgram, v, eta, n, power_iters, stream));
     // the solve, from zero codes
     VTC_CHECK(cudaMemsetAsync(z, 0, codes_bytes, stream));
@@ -368,20 +420,41 @@ int vtc_code_shard_train_segment(
           z, d, partial, b, s, n);
       VTC_LAUNCHED();
       recon_sum_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
-          partial, xs, rbuf, splits, bn);
+          partial, code_sum ? nullptr : xs, rbuf, splits, bn);
       VTC_LAUNCHED();
+      if (code_sum) {
+        VTC_SUM(kSumRecon);
+        subtract_x_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
+            rbuf, xs, bn);
+        VTC_LAUNCHED();
+      }
       VTC_CHECK(launch_iteration(it, mode, window, members, groups, width,
                                  stream));
     }
-    if (update == 1) VTC_CHECK(hessian_ema(old, h, b, s, inv_b, stream));
+    if (update == 1 && data_sum) {
+      VTC_CHECK(column_sumsq(old, stat, b, s, stream));
+      VTC_SUM(kSumStat);
+      VTC_CHECK(hessian_from_stat(stat, h, s,
+                                  static_cast<float>(b) * data_ranks,
+                                  stream));
+    } else if (update == 1) {
+      VTC_CHECK(hessian_ema(old, h, b, s, inv_b, stream));
+    }
     for (int u = 0; u < upd_num_iters; ++u) {
       resid_partial_kernel<<<bn_grid, kGemmThreads, 0, stream>>>(
           old, d, partial, b, s, n);
       VTC_LAUNCHED();
       resid_sum_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
-          partial, xs, rbuf, splits, bn);
+          partial, code_sum ? nullptr : xs, rbuf, splits, bn);
       VTC_LAUNCHED();
+      if (code_sum) {
+        VTC_SUM(kSumRecon);
+        subtract_x_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
+            rbuf, xs, bn);
+        VTC_LAUNCHED();
+      }
       VTC_CHECK(gemm<true, false>(old, rbuf, nullptr, grad, s, n, b, stream));
+      if (data_sum) VTC_SUM(kSumGrad);
       if (comem == nullptr) {
         VTC_CHECK(update_rows<false>(d, grad, h, AlignmentReg{}, s, n, inv_b,
                                      upd_step, lowest, update == 1,
@@ -400,6 +473,7 @@ int vtc_code_shard_train_segment(
                                   renorm != 0, stream));
     }
   }
+#undef VTC_SUM
 #undef VTC_LAUNCHED
 #undef VTC_CHECK
   return 0;

@@ -254,9 +254,16 @@ cudaError_t hessian_ema(const float* codes, float* h, int b, int s,
 using SumHook = int (*)(int);
 constexpr int kSumHookFailed = -1;
 
+// K19 across devices sums several buffers a step, each over its own mesh
+// axis: int axis_sum_hook(int step, int which), ``which`` naming the
+// buffer (fused_code_shard_train_step.cu, enum SumWhich); the same
+// failure rule.
+using AxisSumHook = int (*)(int, int);
+
 // h[j] = 0.99 h[j] + (stat[j] / b) / 100, the Hessian EMA from a code
-// statistic summed over the ranks, b the global batch (K15-K17); the
-// product and the sum rounded apart, as the plain version's two ops.
+// statistic summed over the ranks, b the global batch (K15-K17, and K19
+// with a data axis); the product and the sum rounded apart, as the plain
+// version's two ops.
 __global__ void hessian_from_stat_kernel(const float* __restrict__ stat,
                                          float* __restrict__ h, int s,
                                          float b) {

@@ -181,6 +181,6 @@ def load_library():
   lib.vtc_code_shard_train_segment.argtypes = (
       [ptr] * 4 + [i32] * 5 + [ptr, i32, i32, ptr, f32, f32, i32, f32, i32,
                                 f32] + [i32] * 5 + [f32] + [ptr] * 11
-      + [ptr])
+      + [i32, i32, ptr, ptr] + [ptr])
   lib.vtc_code_shard_train_segment.restype = i32
   return lib

@@ -1,13 +1,11 @@
 """Residual-form train steps over a segment for big dictionaries: the port
 of TPU kernel K19, ``fused_code_sharded_train_segment_pallas``
 (vtc_tpu/ops/pallas_code_shard_train.py:484-629, kernel ``_make_cs_kernel``
-:233-481), at a code axis of size 1.
+:233-481), at a code axis of size 1 and across ranks.
 
-At axis 1 that kernel is a single-device whole-segment solver for
-dictionaries whose s x s Gram is too large for the gram-form kernels
-(its docstring :53-56): it never builds that Gram.  Per batch X (b, n) of
-the (k, b, n) segment, with the dictionary D (s, n), the Hessian-diagonal
-EMA h (s,) and the eigenvector v (n,) of the n x n Gram D^T D carried:
+It never builds the s x s Gram.  Per batch X (b, n) of the (k, b, n)
+segment, with the dictionary D (s, n), the Hessian-diagonal EMA h (s,) and
+the eigenvector v (n,) of the n x n Gram D^T D carried:
 
   v = v / |v|; power_iters times v = v D^T D / |v D^T D|
   eta = 1 / ((v D^T D) . v)
@@ -24,23 +22,36 @@ The prox is the elementwise shrinkage (soft, hard, nonnegative), or with
 ``expand_local`` the group-norm shrinkage over a disjoint partition of
 the rows (vtc_tpu's grouped variant; ``code_shard_group_arrays`` builds
 the partition's arrays).  The eigenvector is the n x n Gram's, so the
-dictionary must have more rows than columns (s > n), the rule vtc_tpu's
-caller applies (vtc_tpu/training/compiled_epoch.py:596).
+global dictionary must have more rows than columns (s > n), the rule
+vtc_tpu's caller applies (vtc_tpu/training/compiled_epoch.py:596).
+
+Across ranks (``mesh``, a ``parallel.Mesh`` with a 'code' axis above 1
+and optionally a 'data' axis): each rank passes its row shard D_l (s_l,
+n) and h_l (s_l,) (``mesh.code_shard``), the replicated v and its batch
+shard (k, b_l, n) (``mesh.shard``).  The sums vtc_tpu's kernel exchanges
+by remote DMA are taken where it takes them: D^T D = sum over 'code' of
+D_l^T D_l; z D = sum over 'code' of z_l D_l, before X is subtracted, each
+iteration, and likewise the update's codes D; with a data axis, the
+Hessian statistic sum_b codes^2 and the gradient codes_l^T resid summed
+over 'data' and scaled by 1 / (b_l * data).  Group norms and the
+regularizer stay inside a shard (``code_shard_group_arrays`` keeps every
+group inside one).
 
 * A CUDA tensor runs the hand-written kernels of
   ``vtc_tpu_torch/csrc/fused_code_shard_train_step.cu`` (built at first
-  use by ``ops/_build.py``) on the current stream; or raises.
+  use by ``ops/_build.py``) on the current stream, the sums over ranks as
+  calls of its host hook (``ops/sum_hook.AxisSumHook``); or raises.
 * A CPU tensor runs ``fused_code_sharded_train_segment_plain``, the same
-  steps in plain PyTorch.  ``chip_smoke.py`` holds the kernels against it
-  on the card; tests/test_torch_port_code_shard.py holds it against the
-  Pallas kernel.
+  steps in plain PyTorch with the same sums.  ``chip_smoke.py`` holds the
+  kernels against it on the card; tests/test_torch_port_code_shard.py and
+  test_torch_port_code_shard_parallel.py hold it against the Pallas
+  kernel.
 
-Refused, each naming its ROADMAP.md item: a code or data axis above 1
-(item 9), and on a CUDA tensor the in-kernel early stop, and on any device
-the ``mxu`` tiers other than 'highest' (item 3a).  ``interpret``,
-``code_stride`` and ``data_stride`` are TPU and mesh knobs, accepted at
-their axis-1 values only.  ``launches`` counts the train steps the kernels
-ran.
+Refused, each naming its ROADMAP.md item: on a CUDA tensor the in-kernel
+early stop, and on any device the ``mxu`` tiers other than 'highest'
+(item 3a).  ``axis_size``, ``data_axis_size``, ``code_stride`` and
+``data_stride`` must be the mesh's; ``interpret`` is a TPU knob, accepted
+at False only.  ``launches`` counts the train steps the kernels ran.
 """
 import ctypes
 
@@ -49,6 +60,7 @@ import torch
 
 from vtc_tpu_torch.ops import fused_fista, fused_group_train_step, lipschitz
 from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.sum_hook import AxisSumHook
 
 launches = 0
 
@@ -61,18 +73,18 @@ _MAX_WINDOW = 32  # the kernel's in-warp group prox takes windows up to this
 def code_shard_segment_supported(batch_size, shard_code_size, input_size,
                                  num_devices, data_devices=1,
                                  local_group_max=0, use_reg=False):
-  """True when ``fused_code_sharded_train_segment`` runs this geometry on
-  the card (vtc_tpu pallas_code_shard_train.py:149-161).  The TPU gate's
-  VMEM budget has no counterpart: the state lives in device memory and
-  only the one-block power refresh on the n x n Gram bounds the shapes.
-  The port refuses what vtc_tpu's gate leaves to its caller: s <= n (the
-  eigenvector is the n x n Gram's) and any axis above 1 (ROADMAP.md §1
-  item 9)."""
+  """True when ``fused_code_sharded_train_segment`` runs this per-shard
+  geometry on the card (vtc_tpu pallas_code_shard_train.py:149-161):
+  ``batch_size`` the per-data-shard batch, ``shard_code_size`` the rows of
+  one of ``num_devices`` code shards.  The TPU gate's VMEM budget has no
+  counterpart: the state lives in device memory and only the one-block
+  power refresh on the n x n Gram bounds the shapes.  The port also
+  refuses what vtc_tpu's gate leaves to its caller: a global dictionary
+  with s <= n (the eigenvector is the n x n Gram's)."""
   del local_group_max, use_reg
-  if int(num_devices) != 1 or int(data_devices) != 1:
-    return False
   b, s, n = int(batch_size), int(shard_code_size), int(input_size)
-  return (b > 0 and n > 0 and s > n
+  c, d = int(num_devices), int(data_devices)
+  return (b > 0 and n > 0 and s > 0 and c >= 1 and d >= 1 and s * c > n
           and fused_group_train_step._power_smem_bytes(n)
           <= fused_fista._SMEM_PER_BLOCK)
 
@@ -194,9 +206,22 @@ def _prox_fn(table, hard, nonneg):
   return prox
 
 
+def _code_sum(mesh, t):
+  """t summed over the 'code' axis (a new tensor; t itself at one rank)."""
+  if mesh is None or mesh.code_size == 1:
+    return t
+  flat = t.reshape(-1).clone()
+  return mesh.sum_code_(flat).reshape(t.shape)
+
+
+def _data_sum(mesh, t):
+  """t summed over the data axes (t itself at one rank)."""
+  return t if mesh is None else mesh.sum(t)
+
+
 def fused_code_sharded_train_segment_plain(
     dictionary, hessian, eigvec, batches, sparsity_weight, inf_num_iters,
-    upd_stepsize, *, expand_local=None, comem_local=None,
+    upd_stepsize, *, mesh=None, expand_local=None, comem_local=None,
     alignment_penalty=0.0, variant="fista",
     update_alg="sc_cheap_quadratic_descent", upd_num_iters=1, nonneg=False,
     hard=False, renormalize=True, power_iters=12, lowest_code_val=0.001,
@@ -204,6 +229,12 @@ def fused_code_sharded_train_segment_plain(
     return_stepsize=False):
   """The plain PyTorch version of the segment, on any device and in the
   inputs' own float type (float64 inputs give the oracle).
+
+  With ``mesh`` the arguments are this rank's shards (rows over 'code',
+  the batch over the data axes) and the sums over ranks are taken where
+  the kernel takes them.  ``stop_count`` defaults to the global
+  b * data * s_l * code (vtc_tpu :560-561); the stop test sums |codes -
+  old| over 'code', then over 'data'.
 
   ``precision`` is the matmul precision of the solve and the update
   (default 'highest'); 'tensorfloat32' shows what TF32 products would
@@ -213,9 +244,10 @@ def fused_code_sharded_train_segment_plain(
   d, h, v = dictionary, hessian, eigvec
   b = batches.shape[1]
   s, n = d.shape
-  if s <= n:
+  code, data = (1, 1) if mesh is None else (mesh.code_size, mesh.size)
+  if s * code <= n:
     raise ValueError("the residual form's eigenvector is the n x n Gram's: "
-                     "it needs s > n, got s=%d, n=%d" % (s, n))
+                     "it needs s > n, got s=%d, n=%d" % (s * code, n))
   table = None if expand_local is None else group_members(expand_local)[0]
   prox = _prox_fn(table, hard, nonneg)
   use_fista = variant == "fista"
@@ -223,18 +255,22 @@ def fused_code_sharded_train_segment_plain(
   penalty = float(alignment_penalty)
   comem = (None if penalty == 0.0 else
            torch.as_tensor(comem_local).to(d.device, d.dtype))
-  stop_elems = int(stop_count) if stop_count is not None else b * s
-  inv_b = 1.0 / b
+  stop_elems = (int(stop_count) if stop_count is not None
+                else b * data * s * code)
+  inv_b = 1.0 / (b * data)
   codes = eta = None
   for x in batches:
-    eigval, v = lipschitz.power_iterate(d, v, int(power_iters))
+    with matmul_precision():
+      gram = _code_sum(mesh, d.T @ d)
+    eigval, v = lipschitz.power_iterate_gram(gram, v, int(power_iters))
     eta = 1.0 / eigval
     lam_eta = sparsity_weight * eta
     with matmul_precision(precision):
       z = old = codes = torch.zeros(b, s, dtype=d.dtype, device=d.device)
       t = np.float32(1.0)
       for j in range(int(inf_num_iters)):
-        codes = prox(z - eta * ((z @ d - x) @ d.T), lam_eta)
+        recon = _code_sum(mesh, z @ d) - x
+        codes = prox(z - eta * (recon @ d.T), lam_eta)
         if use_fista:
           t_next = (np.float32(1.0) + np.sqrt(np.float32(1.0)
                                               + np.float32(4.0) * t * t)
@@ -243,18 +279,25 @@ def fused_code_sharded_train_segment_plain(
           t = t_next
         else:
           z = codes
-        # vtc_tpu's stop rule: mean |codes - old| / eta, never at j = 0
-        stop = (early_stopping_epsilon is not None and j > 0 and float(
-            (codes - old).abs().sum() / stop_elems / eta)
-                < early_stopping_epsilon)
+        # vtc_tpu's stop rule: mean |codes - old| / eta over the global
+        # batch and rows, never at j = 0
+        stop = False
+        if early_stopping_epsilon is not None and j > 0:
+          total = _data_sum(mesh, _code_sum(mesh, (codes - old).abs().sum()))
+          stop = float(total / stop_elems / eta) < early_stopping_epsilon
         old = codes
         if stop:
           break
       if cheap:
-        h = 0.99 * h + ((codes * codes).sum(dim=0) * inv_b) / 100.0
+        stat = (codes * codes).sum(dim=0)
+        if data > 1:  # train_core's hessian_from_stat, as K15-K17
+          h = 0.99 * h + (_data_sum(mesh, stat) / (b * data)) / 100.0
+        else:
+          h = 0.99 * h + (stat * inv_b) / 100.0
         scale = (h + lowest_code_val)[:, None]
       for _ in range(int(upd_num_iters)):
-        grad = codes.T @ (codes @ d - x) * inv_b
+        resid = _code_sum(mesh, codes @ d) - x
+        grad = _data_sum(mesh, codes.T @ resid) * inv_b
         if comem is not None:
           cos = d @ d.T
           smat = comem * torch.sign(cos)
@@ -286,25 +329,28 @@ def fused_code_sharded_train_segment(
     upd_num_iters=1, nonneg=False, hard=False, renormalize=True,
     power_iters=12, lowest_code_val=0.001, interpret=False, mxu="highest",
     early_stopping_epsilon=None, stop_count=None, roll_window=None,
-    return_stepsize=False):
-  """Run ``batches.shape[0]`` residual-form train steps.
+    mesh=None, return_stepsize=False):
+  """Run ``batches.shape[0]`` residual-form train steps on this rank.
 
   Args:
-    dict_shard: (s, n) float32 tensor, s > n (the whole dictionary: the
-      code axis has size 1).
-    hessian_shard: (s,) Hessian-diagonal EMA (unchanged by steepest
-      descent).
-    eigvec: (n,) warm eigenvector of D^T D (normalized here).
-    batches: (k, b, n) float32, each row a training batch, k >= 1.
+    dict_shard: (s_l, n) float32 tensor, this rank's rows of a dictionary
+      of s_l * axis_size > n rows (the whole dictionary at axis 1).
+    hessian_shard: (s_l,) its rows of the Hessian-diagonal EMA (unchanged
+      by steepest descent).
+    eigvec: (n,) warm eigenvector of D^T D (normalized here), replicated.
+    batches: (k, b_l, n) float32, this rank's batch shards, k >= 1.
     sparsity_weight, inf_num_iters, upd_stepsize: Python scalars.
-    axis_name, data_axis_name: ignored (no mesh); axis_size and
-      data_axis_size must be 1 (ROADMAP.md §1 item 9).
-    code_stride, data_stride, interpret: TPU and mesh knobs, accepted at
-      1, 0 or 1, and False only.
-    expand_local: (s, g) 0/1 partition of the rows into groups (from
-      ``code_shard_group_arrays(groups, s, 1)[0][0]``) for the grouped
-      variant, else None; comem_local: (s, s) co-membership counts, needed
-      when alignment_penalty is not 0 (which needs renormalize).
+    axis_name, data_axis_name: ignored (the mesh names the axes);
+      axis_size and data_axis_size must be the mesh's 'code' and data-axes
+      sizes (1 and 1 without a mesh).
+    code_stride, data_stride: the mesh's row-major strides (1 and
+      axis_size; data_stride 0 is accepted at data_axis_size 1);
+      interpret: False only (a TPU knob).
+    expand_local: (s_l, g) 0/1 partition of this rank's rows into groups
+      (``code_shard_group_arrays(groups, s, axis_size)[0][code position]``)
+      for the grouped variant, else None; comem_local: (s_l, s_l)
+      co-membership counts, needed when alignment_penalty is not 0 (which
+      needs renormalize).
     variant: 'ista' | 'fista' (vtc_tpu's caller strips the subspace
       prefix, vtc_tpu/training/compiled_epoch.py:1126).
     update_alg: the two fc update rules or their subspace names.
@@ -312,30 +358,36 @@ def fused_code_sharded_train_segment(
       lowest_code_val: as in vtc_tpu.
     mxu: 'highest' only (ROADMAP.md §1 item 3a).
     early_stopping_epsilon, stop_count: CPU tensors only (the plain
-      version's stop test, mean over stop_count elements, default b * s);
-      a CUDA tensor raises, ROADMAP.md §1 item 3a.
+      version's stop test, mean over stop_count elements, default the
+      global b * s); a CUDA tensor raises, ROADMAP.md §1 item 3a.
     roll_window: vtc_tpu's prox hint; None or the window of expand_local.
+    mesh: the ``parallel.Mesh`` the ranks share, without a 'dcn' axis;
+      None is a mesh of one rank.  Every rank of it calls this together.
     return_stepsize: also return the final step's stepsize 1/eigval.
 
   Returns:
-    (dictionary, hessian, eigvec, last_codes[, stepsize]): new tensors;
-    the inputs are not modified.  last_codes is the (b, s) codes of the
-    final step.
+    (dict_shard, hessian_shard, eigvec, last_codes[, stepsize]): new
+    tensors, this rank's rows, the replicated eigenvector and the (b_l,
+    s_l) codes of the final step; the inputs are not modified.
   """
-  if int(axis_size) != 1 or int(data_axis_size) != 1:
-    raise NotImplementedError(
-        "a code or data axis above 1 (axis_size=%d, data_axis_size=%d) "
-        "needs the multi-device layer, ROADMAP.md §1 item 9"
-        % (int(axis_size), int(data_axis_size)))
+  code, data = (1, 1) if mesh is None else (mesh.code_size, mesh.size)
+  if mesh is not None and "dcn" in mesh.axis_names:
+    raise ValueError("fused_code_sharded_train_segment: a mesh with a "
+                     "'dcn' axis is not a code-sharded mesh (vtc_tpu's "
+                     "trainer takes it only without one)")
+  _require(int(axis_size) == code and int(data_axis_size) == data,
+           "axis_size=%d and data_axis_size=%d must be the mesh's 'code' "
+           "and data-axes sizes, %d and %d"
+           % (int(axis_size), int(data_axis_size), code, data))
   if mxu != "highest":
     raise NotImplementedError(
         "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
         % (mxu,))
-  _require(int(code_stride) == 1 and int(data_stride) in (0, 1)
+  _require(int(code_stride) == 1
+           and int(data_stride) in ((0, code) if data == 1 else (code,))
            and not interpret,
-           "code_stride, data_stride and interpret are TPU and mesh knobs "
-           "with no counterpart here; pass their axis-1 values (1, 0, "
-           "False)")
+           "code_stride and data_stride are the mesh's row-major strides "
+           "(1 and %d) and interpret is a TPU knob (False)" % code)
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
   if update_alg not in UPDATE_ALGS:
@@ -347,8 +399,8 @@ def fused_code_sharded_train_segment(
   _require(dict_shard.dim() == 2 and dict_shard.shape[1] == n,
            "dictionary must be (s, %d), got %s" % (n, tuple(dict_shard.shape)))
   s = dict_shard.shape[0]
-  _require(s > n, "the eigenvector is the n x n Gram's: s > n is needed, "
-           "got s=%d, n=%d" % (s, n))
+  _require(s * code > n, "the eigenvector is the n x n Gram's: s > n is "
+           "needed for the global dictionary, got s=%d, n=%d" % (s * code, n))
   use_reg = float(alignment_penalty) != 0.0
   table = window = None
   if expand_local is not None:
@@ -373,9 +425,10 @@ def fused_code_sharded_train_segment(
   if batches.device.type == "cpu":
     return fused_code_sharded_train_segment_plain(
         dict_shard, hessian_shard, eigvec, batches, float(sparsity_weight),
-        int(inf_num_iters), float(upd_stepsize), expand_local=expand_local,
-        comem_local=comem_local, early_stopping_epsilon=early_stopping_epsilon,
-        stop_count=stop_count, return_stepsize=return_stepsize, **flags)
+        int(inf_num_iters), float(upd_stepsize), mesh=mesh,
+        expand_local=expand_local, comem_local=comem_local,
+        early_stopping_epsilon=early_stopping_epsilon, stop_count=stop_count,
+        return_stepsize=return_stepsize, **flags)
   _require(batches.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(batches.device))
@@ -394,30 +447,32 @@ def fused_code_sharded_train_segment(
   _require(b > 0, "empty batch")
   _require(int(inf_num_iters) >= 0 and int(upd_num_iters) >= 0
            and int(power_iters) >= 0, "iteration counts must be >= 0")
-  _require(code_shard_segment_supported(b, s, n, 1),
+  _require(code_shard_segment_supported(b, s, n, code, data),
            "n = %d is too large for the one-block power refresh" % n)
   if use_reg:
     _require(tuple(comem_local.shape) == (s, s),
              "comem_local must be (%d, %d)" % (s, s))
   out = _launch(dict_shard, hessian_shard, eigvec, batches.contiguous(),
-                table, window, comem_local if use_reg else None,
+                table, window, comem_local if use_reg else None, mesh,
                 float(sparsity_weight), int(inf_num_iters),
                 float(upd_stepsize), **flags)
   return out if return_stepsize else out[:4]
 
 
-def _launch(dictionary, hessian, eigvec, batches, table, window, comem, lam,
-            num_iters, upd_step, *, variant, update_alg, upd_num_iters,
+def _launch(dictionary, hessian, eigvec, batches, table, window, comem, mesh,
+            lam, num_iters, upd_step, *, variant, update_alg, upd_num_iters,
             nonneg, hard, renormalize, power_iters, lowest_code_val,
             alignment_penalty):
   """Allocate state and scratch, copy the group table and co-membership
-  counts to the device, and enqueue the k steps on the current stream."""
+  counts to the device, and enqueue the k steps on the current stream,
+  the sums over ranks as calls of the hook."""
   global launches
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
   s = dictionary.shape[0]
   device = batches.device
+  code, data = (1, 1) if mesh is None else (mesh.code_size, mesh.size)
   splits = -(-s // lib.vtc_code_shard_split_k())
 
   def empty(*shape):
@@ -439,6 +494,15 @@ def _launch(dictionary, hessian, eigvec, batches, table, window, comem, lam,
   pgram, eta = empty(n, n), empty(1)
   partial = empty(splits * max(b, n) * n)
   rbuf, z, old, grad = empty(b, n), empty(b, s), empty(b, s), empty(s, n)
+  stat = empty(s) if data > 1 else None
+  sums = {}  # csrc enum SumWhich: what the hook sums, over which axis
+  if code > 1:
+    sums[0] = (mesh.sum_code_, pgram.view(-1))
+    sums[1] = (mesh.sum_code_, rbuf.view(-1))
+  if data > 1:
+    sums[2] = (mesh.sum_, stat)
+    sums[3] = (mesh.sum_, grad.view(-1))
+  hook = AxisSumHook(sums)
   mode = (2 if hard else 0) if table is not None else \
       fused_fista._MODES[(nonneg, hard)]
 
@@ -454,13 +518,11 @@ def _launch(dictionary, hessian, eigvec, batches, table, window, comem, lam,
         f32(alignment_penalty), f32(lam), num_iters, f32(upd_step),
         upd_num_iters, f32(lowest_code_val), int(variant == "fista"),
         mode, int(update_alg.endswith("cheap_quadratic_descent")),
-        int(renormalize), power_iters, f32(1.0 / b), pgram.data_ptr(),
-        partial.data_ptr(), rbuf.data_ptr(), z.data_ptr(), old.data_ptr(),
-        ptr(pre), grad.data_ptr(), ptr(cmat), ptr(smat), ptr(sd),
-        eta.data_ptr(), stream)
-  if err != 0:
-    raise RuntimeError(
-        "residual-form train step launch failed with CUDA error %d (k=%d, "
-        "b=%d, s=%d, n=%d)" % (err, k, b, s, n))
+        int(renormalize), power_iters, f32(1.0 / (b * data)),
+        pgram.data_ptr(), partial.data_ptr(), rbuf.data_ptr(), z.data_ptr(),
+        old.data_ptr(), ptr(pre), grad.data_ptr(), ptr(cmat), ptr(smat),
+        ptr(sd), eta.data_ptr(), code, data, ptr(stat), hook.pointer, stream)
+  hook.check(err, "residual-form train step launch (k=%d, b=%d, s=%d, n=%d, "
+             "code %d, data %d)" % (k, b, s, n, code, data))
   launches += k
   return d, h, v, old, eta

@@ -51,7 +51,14 @@ def power_iterate(matrix, v, num_iters: int = 4):
 
   Returns (top_eigenvalue_estimate, refreshed_unit_eigenvector)."""
   with matmul_precision():
-    gram = _smaller_gram(matrix)
+    return power_iterate_gram(_smaller_gram(matrix), v, num_iters)
+
+
+def power_iterate_gram(gram, v, num_iters: int = 4):
+  """``power_iterate`` on a given Gram (n x n): for a Gram summed over the
+  row shards of a dictionary.  Returns (eigenvalue estimate, unit
+  eigenvector)."""
+  with matmul_precision():
     return _power(gram, v / torch.linalg.vector_norm(v), num_iters)
 
 

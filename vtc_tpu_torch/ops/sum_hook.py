@@ -1,6 +1,6 @@
-"""The host hook of the whole-segment data-parallel kernels K15, K16, K17
-and K18: the port's stand-in for vtc_tpu's in-kernel remote-DMA
-all-reduce K14 (vtc_tpu/ops/pallas_collective.py:31-185).
+"""The host hooks of the whole-segment multi-rank kernels K15, K16, K17,
+K18 and K19 across devices: the port's stand-in for vtc_tpu's in-kernel
+remote-DMA all-reduce K14 (vtc_tpu/ops/pallas_collective.py:31-185).
 
 Each of those kernels is one C loop per segment that calls back into
 Python once per step, between the step's statistics and its update
@@ -12,11 +12,20 @@ loop runs with no host work per step.  An error raised in the callback
 cannot cross the C frame, so the callback keeps it and returns 1, the loop
 returns ``FAILED``, and ``check`` raises the kept error: nothing is caught
 and carried on.
+
+``AxisSumHook(sums)`` is the hook of K19 across devices, which sums
+several buffers, each over its own axis, in one step:
+``int hook(int step, int which)`` (csrc/train_core.cuh,
+``AxisSumHook``) calls ``sums[which] = (sum_, buffer)`` as
+``sum_(buffer)``, for example ``mesh.sum_code_`` of the reconstruction or
+``mesh.sum_`` of the gradient.
 """
 import ctypes
 
 FAILED = -1  # kSumHookFailed of csrc/train_core.cuh
 _HOOK = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_int)  # int hook(int step)
+# int hook(int step, int which)
+_AXIS_HOOK = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_int, ctypes.c_int)
 
 
 class SumHook:
@@ -27,19 +36,25 @@ class SumHook:
   """
 
   def __init__(self, mesh, packed):
+    self._set(_HOOK, (lambda step: mesh.sum_(packed)) if mesh.size > 1
+              else None)
+
+  def _set(self, prototype, fn):
+    """Wrap ``fn`` (None: no hook) as a C function of ``prototype`` that
+    keeps any error for ``check`` and returns 1 for it, else 0."""
     self._failures = []
     self._callback = None
-    if mesh.size > 1:
+    if fn is not None:
 
-      def sum_packed(step):
+      def guarded(*args):
         try:
-          mesh.sum_(packed)
+          fn(*args)
         except BaseException as err:  # raised again by check()
           self._failures.append(err)
           return 1
         return 0
 
-      self._callback = _HOOK(sum_packed)  # kept alive with the hook
+      self._callback = prototype(guarded)  # kept alive with the hook
     self.pointer = (None if self._callback is None
                     else ctypes.cast(self._callback, ctypes.c_void_p))
 
@@ -52,3 +67,13 @@ class SumHook:
       raise RuntimeError("%s failed with %s" % (
           what, "a failed sum hook" if err == FAILED
           else "CUDA error %d" % err))
+
+
+class AxisSumHook(SumHook):
+  """hook(step, which): ``sums[which]`` = (sum_, buffer) runs as
+  ``sum_(buffer)``; ``sums`` maps each ``which`` the C loop calls to its
+  in-place sum and buffer.  Empty ``sums``: pointer None, no hook."""
+
+  def __init__(self, sums):
+    self._set(_AXIS_HOOK, (lambda step, which: sums[which][0](sums[which][1]))
+              if sums else None)

@@ -53,8 +53,18 @@ The replicated updates are XLA outside any Pallas kernel in vtc_tpu
 (:266-280, :334-352, :425-449) and plain torch ops under the precision pins
 here.
 
-``build_pjit_train_step`` (GSPMD with the 'code' axis) raises
-NotImplementedError naming ROADMAP.md §1 item 9.
+On a mesh with a 'code' axis above 1 every step here runs as it does
+without one: the batch is sharded over the data axes and the ranks along
+'code' compute the same thing (vtc_tpu's ``shard_map`` with the
+dictionary replicated over 'code', ``dp_axes``).
+
+* ``build_pjit_train_step`` (:44-79): vtc_tpu's GSPMD step, in which XLA
+  places the collectives and whose results do not depend on
+  ``shard_code_axis``.  GSPMD has no torch counterpart, and the contract
+  here is global arrays in and replicated results out, so rows kept
+  sharded inside the step would save no memory on any rank: it is
+  ``build_shard_map_train_step``, replicated over 'code', for every
+  ``shard_code_axis``.
 """
 import torch
 
@@ -76,13 +86,21 @@ CHEAP_QUAD_ALGS = ("sc_cheap_quadratic_descent",
                    "subspace_sc_cheap_quadratic_descent")
 
 
-def build_pjit_train_step(mesh, mode, inference_alg, update_alg, **config):
-  """vtc_tpu's GSPMD step (:44-79) shards dictionary rows over the 'code'
-  axis; it waits with that axis."""
-  raise NotImplementedError(
-      "build_pjit_train_step (GSPMD, dictionary rows over the 'code' axis) "
-      "waits, ROADMAP.md §1 item 9; build_shard_map_train_step is the "
-      "data-parallel step")
+def build_pjit_train_step(mesh, mode, inference_alg, update_alg, *,
+                          upd_num_iters=1, shard_code_axis=False, **config):
+  """vtc_tpu's GSPMD-sharded step: the batch over the data axes, the
+  dictionary rows over 'code' with ``shard_code_axis``.  Signature:
+    step(dictionary, hessian, batch, sparsity_weight, inf_num_iters,
+         upd_stepsize) -> (new_dictionary, new_hessian, codes)
+  on the global arrays, the same on every rank; the results are
+  replicated (the codes gathered, (b, s)) and are the single-device raw
+  step's.  ``shard_code_axis`` is taken for vtc_tpu's signature and has no
+  effect on the results: the step is ``build_shard_map_train_step``,
+  replicated over 'code'."""
+  del shard_code_axis
+  return build_shard_map_train_step(
+      mesh, mode, inference_alg, update_alg, upd_num_iters=upd_num_iters,
+      **config)
 
 
 def _replicated_update(dictionary, hessian, stat, upd_stepsize,

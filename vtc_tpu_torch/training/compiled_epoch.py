@@ -46,10 +46,12 @@ JAX package's ``jax.random.permutation``, not the same order.
   'padding' reach the raw step and the metrics (:488-490, :995-999).
 * ``_code_shard_segment_runner`` (:319-392): the residual-form segment
   for dictionaries with s > n (ops/fused_code_shard_train, the port of
-  K19), fc and grouped.  Like vtc_tpu's ``train_dictionary_scanned``,
-  which picks it only on a code axis above 1 (:588-590), the port's
-  trainer never picks it; bench.py's big-dictionary rows call it
-  directly (bench.py:584-591), and so does chip_smoke.py.
+  K19), fc and grouped.  bench.py's big-dictionary rows call it directly
+  at a code axis of 1 (bench.py:584-591), and so does chip_smoke.py; the
+  trainer picks it, as vtc_tpu's does (:565-628), with a
+  ``data_parallel`` mesh whose 'code' axis is above 1: the dictionary
+  rows sharded over 'code', the batch over 'data', the global dictionary
+  gathered on every rank after each segment.
 
 With ``all_params['data_parallel']`` (True: the default process group's
 world, or one rank without a group; or a ``parallel.Mesh``), fc, subspace
@@ -79,6 +81,10 @@ same dictionary.
   axis.  vtc_tpu's further terms are VMEM budgets, and its interpret-mode
   device count (the CPU interpreter's remote-DMA simulation needs a spare
   host thread), an artefact with no counterpart here.
+* On a mesh with a 'code' axis above 1 that the code-shard gate declines,
+  the runners below run replicated over 'code' (their sums span the data
+  group) and the whole-segment K15, K16 and K17 are not taken: vtc_tpu
+  takes them only when every axis but 'data' has size 1 (:656-659).
 * ``_dp_fused_segment_runner`` (:178-211): the fused-DP composition, per
   step one solve+stats kernel on the shard (K3, K7 with groups, K13 in
   conv mode), one all-reduce of its statistics and the replicated update,
@@ -192,38 +198,50 @@ def _fused_conv_segment_runner(variant, update_alg, upd_niters, nonneg,
   return run
 
 
-def _code_shard_segment_runner(cs_size, data_size, variant, update_alg,
-                               upd_niters, nonneg, hard, renormalize,
-                               group_arrays=None, alignment_penalty=0.0,
-                               mxu="highest", early_eps=None,
-                               stop_count=None):
+def _code_shard_segment_runner(mesh, cs_size, data_size, variant,
+                               update_alg, upd_niters, nonneg, hard,
+                               renormalize, group_arrays=None,
+                               alignment_penalty=0.0, mxu="highest",
+                               early_eps=None, stop_count=None):
   """The residual-form segment for big dictionaries: the whole segment
   through the residual-form train kernels (ops/fused_code_shard_train,
   the port of K19), warm tracking of the n x n Gram's eigenvector at
-  power_iters=2.  vtc_tpu's runner takes a jax Mesh first; the port has
-  none and runs a code and data axis of size 1 only (larger ones raise,
-  ROADMAP.md §1 item 9).  ``group_arrays`` (from code_shard_group_arrays
-  with one shard) selects the grouped variant."""
-  if int(cs_size) != 1 or int(data_size) != 1:
-    raise NotImplementedError(
-        "the code-sharded runner at cs_size=%d, data_size=%d needs the "
-        "multi-device layer, ROADMAP.md §1 item 9" % (cs_size, data_size))
+  power_iters=2, dictionary rows sharded over the mesh's 'code' axis and
+  the batch over its 'data' axis (vtc_tpu :319-392).
+
+  ``mesh``: the ``parallel.Mesh`` (None: a mesh of one rank), whose
+  'code' and data-axes sizes ``cs_size`` and ``data_size`` must be.  The
+  runner takes the replicated dictionary, Hessian and eigenvector and this
+  rank's batch shards (k, b_l, n), as the data-parallel runners do: it
+  takes its rows on entry and all-gathers them over 'code' at the end, so
+  every rank returns the same global state.  ``group_arrays`` (from
+  code_shard_group_arrays with ``cs_size`` shards) selects the grouped
+  variant; the rank takes the arrays of its code position (:361-370)."""
+  if mesh is None:
+    mesh = parallel.Mesh(1)
+  if (int(cs_size), int(data_size)) != (mesh.code_size, mesh.size):
+    raise ValueError(
+        "the code-sharded runner at cs_size=%d, data_size=%d needs a mesh of "
+        "those sizes, got %r" % (cs_size, data_size, mesh))
   kw = {}
   if group_arrays is not None:
-    kw["expand_local"] = group_arrays[0][0]
+    kw["expand_local"] = group_arrays[0][mesh.code_index]
     if alignment_penalty != 0.0:
-      kw["comem_local"] = group_arrays[1][0]
+      kw["comem_local"] = group_arrays[1][mesh.code_index]
     kw["alignment_penalty"] = alignment_penalty
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
-    dictionary, hessian, eigvec, _ = (
+    d_shard, h_shard, eigvec, _ = (
         fused_code_shard_train.fused_code_sharded_train_segment(
-            dictionary, hessian, eigvec, batches, sw, n_it, upd_step,
-            variant=variant, update_alg=update_alg, upd_num_iters=upd_niters,
-            nonneg=nonneg, hard=hard, renormalize=renormalize, power_iters=2,
-            mxu=mxu, early_stopping_epsilon=early_eps, stop_count=stop_count,
-            **kw))
-    return dictionary, hessian, eigvec
+            mesh.code_shard(dictionary), mesh.code_shard(hessian), eigvec,
+            batches, sw, n_it, upd_step, axis_size=cs_size,
+            data_axis_size=data_size, data_stride=cs_size if data_size > 1
+            else 0, mesh=mesh, variant=variant, update_alg=update_alg,
+            upd_num_iters=upd_niters, nonneg=nonneg, hard=hard,
+            renormalize=renormalize, power_iters=2, mxu=mxu,
+            early_stopping_epsilon=early_eps, stop_count=stop_count, **kw))
+    return (mesh.all_gather_code(d_shard), mesh.all_gather_code(h_shard),
+            eigvec)
 
   return run
 
@@ -360,7 +378,7 @@ def train_dictionary_scanned(training_batches, validation_batches,
   is_subspace = inference_alg.startswith("subspace")
   data_parallel = all_params.get("data_parallel", False)
   dp_mesh = parallel.resolve_mesh(data_parallel) if data_parallel else None
-  writer = dp_mesh is None or dp_mesh.index == 0
+  writer = dp_mesh is None or dp_mesh.rank == 0
   logging_path, tb_writer = sc.open_logging(all_params, group_assignments,
                                             writer)
 
@@ -405,13 +423,43 @@ def train_dictionary_scanned(training_batches, validation_batches,
         "early stop yet, ROADMAP.md §1 item 3; use fc_formulation='gram' "
         "(conv_formulation='gram' in conv mode)")
   use_fused = device.type == "cuda" and warm_power and kernels_route
+  def code_shard_plan(s_now):
+    """(whether the code-sharded runner takes the configuration at s_now
+    rows, its group arrays) -- vtc_tpu :588-628."""
+    cs = dp_mesh.code_size
+    arrays = None
+    if group_assignments is None:
+      ok = (inference_alg in ("ista", "fista")
+            and update_alg in fused_train_step.UPDATE_ALGS)
+    else:
+      ok = (inference_alg in fused_group_train_step.INFERENCE_ALGS
+            and update_alg in fused_group_train_step.UPDATE_ALGS
+            and not nonneg and (alignment_penalty == 0.0 or renormalize))
+      if ok:
+        arrays = fused_code_shard_train.code_shard_group_arrays(
+            group_assignments, s_now, cs)
+        ok = arrays is not None
+    return ok and fused_code_shard_train.code_shard_segment_supported(
+        b_per // dp_mesh.size, s_now // cs, training_batches.shape[-1], cs,
+        dp_mesh.size), arrays
+
+  # the code-sharded route on a mesh with a 'code' axis above 1: vtc_tpu's
+  # cs_common (:565-628) without its TPU-only interpret term (:600-602)
+  code_sharded = (
+      dp_mesh is not None and dp_mesh.code_size > 1
+      and mode == "fully-connected" and "dcn" not in dp_mesh.axis_names
+      and warm_power and resolved_formulation == "pallas"
+      and init_dictionary.shape[0] % dp_mesh.code_size == 0
+      and init_dictionary.shape[0] > training_batches.shape[-1]
+      and b_per % dp_mesh.size == 0
+      and code_shard_plan(init_dictionary.shape[0])[0])
   # data parallel: the fused-DP composition where a solve+stats kernel
   # takes the configuration (vtc_tpu :629-809 without its TPU-only terms),
   # else the psum-per-op step with the stepsize computed in the step
   dp_fused = False
   if dp_mesh is not None:
     dp_fused = early_eps is None and warm_power and kernels_route
-    if not dp_fused and warm_power:
+    if not dp_fused and not code_sharded and warm_power:
       lipschitz_method, warm_power = "power", False
 
   def dp_fused_now():
@@ -440,10 +488,28 @@ def train_dictionary_scanned(training_batches, validation_batches,
 
   def make_dp_runner():
     """(runner, whether it tracks the warm eigenvector)."""
+    if code_sharded:
+      ok, arrays = code_shard_plan(dictionary.shape[0])
+      if not ok:
+        raise ValueError("the dictionary or its groups left the code-sharded "
+                         "runner's gate during training (a reset/prune)")
+      # vtc_tpu's stop count (:1116-1123): the global batch times the
+      # grouped codes' G * M, or the rows
+      stop_count = b_per * (dictionary.shape[0] if group_assignments is None
+                            else len(group_assignments)
+                            * max(len(g) for g in group_assignments))
+      return _code_shard_segment_runner(
+          dp_mesh, dp_mesh.code_size, dp_mesh.size,
+          (inference_alg[9:] if group_assignments is not None
+           else inference_alg), update_alg, upd_niters, nonneg, hard,
+          renormalize, group_arrays=arrays,
+          alignment_penalty=alignment_penalty, early_eps=early_eps,
+          stop_count=stop_count), True
     if dp_fused_now():
-      # the whole-segment kernels where vtc_tpu takes them: no 'dcn' axis
-      # (the port's mesh has no other axis above 1)
-      whole = "dcn" not in dp_mesh.axis_names
+      # the whole-segment kernels where vtc_tpu takes them (:656-659): every
+      # axis other than 'data' of size 1 (no 'dcn' axis, 'code' 1)
+      whole = all(dp_mesh.shape[a] == 1 for a in dp_mesh.axis_names
+                  if a != "data")
       if whole and mode == "convolutional":
         return _dp_conv_segment_runner(
             dp_mesh, inference_alg, update_alg, upd_niters, nonneg, hard,

@@ -301,7 +301,7 @@ def train_dictionary_scanned(training_batches, init_dictionary, all_params,
   kernel_reshaping = all_params.get("reshaped_kernel_size")
   data_parallel = all_params.get("data_parallel", False)
   dp_mesh = parallel.resolve_mesh(data_parallel) if data_parallel else None
-  writer = dp_mesh is None or dp_mesh.index == 0
+  writer = dp_mesh is None or dp_mesh.rank == 0
   logging_path, tb_writer = (_open_logging(all_params, dump_params=False)
                              if writer else (None, None))
 
@@ -338,11 +338,12 @@ def train_dictionary_scanned(training_batches, init_dictionary, all_params,
   fused_on = (warm_inverse and geom_ok
               and (use_fused is True
                    or (use_fused is None and device.type == "cuda")))
-  # the whole-segment data-parallel kernel K18 where vtc_tpu takes it: a
-  # mesh without a 'dcn' axis (the port's mesh has no other axis above 1;
-  # K18's gate is geom_ok's)
+  # the whole-segment data-parallel kernel K18 where vtc_tpu takes it
+  # (:486-488): a mesh without a 'dcn' axis whose only axis above 1, if
+  # any, is 'data' (K18's gate is geom_ok's)
   use_dp_kernel = (fused_on and dp_mesh is not None
-                   and "dcn" not in dp_mesh.axis_names)
+                   and "dcn" not in dp_mesh.axis_names
+                   and dp_mesh.code_size == 1)
   pending = []  # fused segments awaiting their guard check
 
   def drain_guard():

@@ -548,7 +548,7 @@ def train_dictionary(training_image_dataset, validation_image_dataset,
     padding = conv_shapes.normalize_padding(all_params["padding"])
   data_parallel = all_params.get("data_parallel", False)
   dp_mesh = parallel.resolve_mesh(data_parallel) if data_parallel else None
-  writer = dp_mesh is None or dp_mesh.index == 0
+  writer = dp_mesh is None or dp_mesh.rank == 0
   device = resolve_device(device, init_dictionary)
   dictionary = as_tensor(init_dictionary, device)
   if renormalize:
