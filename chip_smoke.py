@@ -147,9 +147,12 @@ the phases that make its check here.
 13. K10 against plain, in float32 and float64, at the limit of phase 2:
    the flagship (b 40, FISTA 100, cold and warm), the trainer's batch of
    5 with ISTA 25 and its random initial kernels, 12x12 kernels at
-   stride 8 (zero-extended to 16; padded 268x268) at full width, and
-   c = 3 with hard and nonnegative thresholds at a small size.  A TF32
-   control of the plain version must fail the limit.
+   stride 8 (zero-extended to 16; padded 268x268) at full width, c = 3
+   with hard and nonnegative thresholds at a small size, and a ragged
+   geometry for the tiled GEMM (s 40, c 3, 6x6 at stride 2: M of 12 and
+   40, K of 108 and 360, 2,001 blocks and 1,701 code positions, FISTA
+   and ISTA).  TF32 controls of the plain version at the flagship and
+   the ragged geometry must fail the limit.
 14. K11 against plain and against K10 at the flagship geometry (the
    wrapper called directly), at a small geometry with kernel % stride
    != 0 and asymmetric padding, and, as a serving path, encode_dataset
@@ -164,9 +167,14 @@ the phases that make its check here.
    steps of 5 images from random unit-norm kernels; K10 must count 200
    launches, the kernels stay unit norm within 1e-4, everything finite,
    and the held-out batch's conv LASSO loss (compute_metrics) must fall.
-17. Timing: K10, K11 and plain ms per flagship batch, K10 at the
-   trainer's batch, conv encode images/s, conv trainer images/s and the
-   stepsize's eigvalsh ms.
+17. Timing: K10, K11 and plain ms per flagship batch (K10 with its
+   TFLOP/s and share of the fp32 peak), the same loop with cuDNN's
+   products (K10's library time), K10 at the trainer's batch, conv
+   encode images/s, conv trainer images/s and the stepsize's eigvalsh
+   ms.  A profile of one K10 and one K11 flagship solve counts the
+   gathered GEMM's launches: every K10 product and K11's interior go to
+   the tiled kernel, only K11's rows, columns and corners to the line
+   kernel.
 18. K12 against plain, in float32 and float64: one step at the flagship
    (b 40, FISTA 25, windowed kernels, exact eigenvector seed), b 5 with
    ISTA 25, 12x12 kernels at stride 8 (zero-extended, 268x268), steepest
@@ -196,7 +204,9 @@ the phases that make its check here.
    + log |det D|, c = x D^-1) fall.  Then stepsize 40 through the trainer,
    which must roll back; ICACoder.fit for 4 steps (encode/decode inverts);
    PCACoder.fit on 20,000 patches, rows orthonormal within 1e-4.
-22. Timing: K12 and plain ms per full-width step with the bound, conv
+22. Timing: K12 and plain ms per full-width step with the bound, the
+   gathered GEMM's ms per step (profiled) and cuDNN's FISTA-25 solve of
+   the same batch (the library time of the step's solve), conv
    scanned trainer images/s, K8 and plain ms per step with the bound, ICA
    scanned trainer patches/s, per-batch ICA trainer patches/s.
    Phases 5, 6, 8, 10, 11, 13, 14 and 16 also check the refusals of
@@ -299,7 +309,8 @@ the phases that make its check here.
 32. Timing: K13 ms per step at b 40 and at a shard of 20 in both forms,
    against its plain version and K12's whole step (phase 22), each with
    its bound, and at b 10, 20, 30 and 40; K17 ms per step in both forms
-   against its plain version and K13's composition, with its bound, and
+   against its plain version and K13's composition, with its bound and
+   phase 22's library solve beside both, and
    at bench.py's b-5 row; the host's enqueue time per conv data-parallel
    step, K13's composition and K17's segment; the world-of-1 conv
    trainer's images/s beside phase 19's, the b-5 row's and the per-batch
@@ -1062,6 +1073,35 @@ def conv_kernel_cases(torch, K10, conv_ops, lipschitz, x_flag, flag_d,
         0.05, 20, eta3, kernel_stride=(2, 2), padding=((2, 2), (2, 2)),
         variant=variant, nonneg=nonneg, hard=hard)
     worst = max(worst, err)
+  # ragged for the tiled GEMM: s 40, c 3, 6x6 kernels at stride 2 give M
+  # of 12 and 40 (no multiple of 64), K of 360 and 108 (no multiple of 16)
+  # and 2,001 image blocks and 1,701 code positions (no multiple of 64 or
+  # 128), so every tile has a partial edge
+  rng = np.random.RandomState(11)
+  xr = torch.tensor(np.pad(0.3 * rng.randn(3, 3, 50, 38),
+                           ((0, 0), (0, 0), (4, 4), (4, 4))).astype(
+                               np.float32), device=dev)
+  dr = torch.tensor(windowed_kernels(rng, 40, 3, 6, sigma=1.5), device=dev)
+  etar = 0.5 * lipschitz.fista_stepsize(dr.reshape(40, -1))
+  rkw = dict(kernel_stride=(2, 2), padding=((4, 4), (4, 4)))
+  geo = K10.geometry(xr.shape, dr.shape, (2, 2))
+  check((geo["cpx"], geo["r"] * geo["cpx"], geo["r"] * 40,
+         3 * geo["bh"] * geo["bw"], 3 * geo["code_h"] * geo["code_w"])
+        == (12, 108, 360, 2001, 1701), "ragged geometry %s" % (geo,))
+  for variant in ("fista", "ista"):
+    _, err = conv_compare(torch, "K10 ragged s40 c3 6x6/2 %s" % variant,
+                          K10.fused_conv_direct_solve,
+                          K10.fused_conv_direct_plain, xr, dr, 0.05, 20,
+                          etar, variant=variant, **rkw)
+    worst = max(worst, err)
+  want64 = K10.fused_conv_direct_plain(xr.double(), dr.double(), 0.05, 20,
+                                       etar.double(), **rkw)
+  tf32 = K10.fused_conv_direct_plain(xr, dr, 0.05, 20, etar,
+                                     precision="tensorfloat32", **rkw)
+  err = float((tf32.double() - want64).abs().max())
+  print("control: K10 plain with TF32 products, ragged: max|d| fp64 %.3e, "
+        "limit %.3e (must fail it)" % (err, limit(want64)))
+  check(err > limit(want64), "the limit does not tell TF32 products from fp32")
   # control: TF32 products at the flagship must fail the limit
   want64 = K10.fused_conv_direct_plain(x.double(), d.double(), CONV_LAM,
                                        CONV_ITERS, eta.double(), **kw)
@@ -2875,6 +2915,26 @@ def time_ms(torch, fn, reps):
   return start.elapsed_time(stop) / reps
 
 
+def gemm_profile(torch, fn):
+  """{'tiled': [launches, device ms], 'line': [...]}: the gathered GEMM's
+  two kernels (csrc/conv_gemm.cuh) in one call of fn, from
+  torch.profiler's device events."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  out = {"tiled": [0, 0.0], "line": [0, 0.0]}
+  for e in prof.events():
+    if (e.device_type == torch.autograd.DeviceType.CUDA
+        and "gather_gemm" in e.name):
+      slot = out["tiled" if "gather_gemm_tiled" in e.name else "line"]
+      slot[0] += 1
+      slot[1] += (e.time_range.end - e.time_range.start) / 1e3
+  return out
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -3369,6 +3429,10 @@ def main():
                                                 CONV_ITERS, ceta, **ckw)
   k10_plain = lambda: K10.fused_conv_direct_plain(xc, conv_d, CONV_LAM,
                                                   CONV_ITERS, ceta, **ckw)
+  # K10's library time: the same loop with each product one cuDNN call
+  # (conv2d, conv_transpose2d; TF32 off), not a kernel of the port
+  k10_library = lambda: K10.fused_conv_direct_library(
+      xc, conv_d, CONV_LAM, CONV_ITERS, ceta, **ckw)
   k11_run = lambda: K11.fused_conv_fista_solve(xc, conv_d, CONV_LAM,
                                                CONV_ITERS, ceta, **ckw)
   k11_plain = lambda: K11.fused_conv_fista_plain(xc, conv_d, CONV_LAM,
@@ -3385,6 +3449,9 @@ def main():
     k10_plain_ms = [time_ms(torch, k10_plain, 2)]
     k10_ms_runs = [time_ms(torch, k10_run, 3), time_ms(torch, k10_run, 3)]
     k10_plain_ms.append(time_ms(torch, k10_plain, 2))
+    k10_library()
+    k10_lib_ms = [time_ms(torch, k10_library, 2),
+                  time_ms(torch, k10_library, 2)]
     k11_plain_ms = [time_ms(torch, k11_plain, 2)]
     k11_ms_runs = [time_ms(torch, k11_run, 3), time_ms(torch, k11_run, 3)]
     k11_plain_ms.append(time_ms(torch, k11_plain, 2))
@@ -3401,10 +3468,36 @@ def main():
   b5_bound, _ = conv_direct_bound(geo, CONV_TRAIN_BATCH, CONV_TRAIN_ITERS)
   op, _ = K11.operator_and_corr(xc, conv_d, (CONV_STRIDE, CONV_STRIDE), cpad)
   k11_bound, k11_by = conv_gram_bound(op, CONV_BATCH, CONV_ITERS)
+  k10_flops = k10_bound * 1e-3 * FP32_PEAK  # operations bound it
   print("K10 ms per flagship batch (b=40 1x272x272, 64 16x16/8, fista 100): "
-        "%.4f (runs %.4f, %.4f); plain %.4f (runs %.4f, %.4f); bound %.4f "
-        "(%s) [%s]" % (k10_ms, *k10_ms_runs, k10_p_ms, *k10_plain_ms,
-                       k10_bound, k10_by, card))
+        "%.4f (runs %.4f, %.4f), %.2f TFLOP/s, %.1f%% of the fp32 peak; "
+        "plain %.4f (runs %.4f, %.4f); bound %.4f (%s) [%s]" % (
+            k10_ms, *k10_ms_runs, k10_flops / k10_ms / 1e9,
+            100 * k10_bound / k10_ms, k10_p_ms, *k10_plain_ms, k10_bound,
+            k10_by, card))
+  k10_lib = sum(k10_lib_ms) / 2
+  lib_codes, run_codes = k10_library(), k10_run()
+  print("K10's loop with cuDNN's products (conv2d, conv_transpose2d, TF32 "
+        "off) ms per flagship batch: %.4f (runs %.4f, %.4f), %.2f TFLOP/s; "
+        "max|d| from K10 %.3e (limit %.3e) [%s]" % (
+            k10_lib, *k10_lib_ms, k10_flops / k10_lib / 1e9,
+            float((lib_codes - run_codes).abs().max()), limit(run_codes),
+            card))
+  # which kernel served each gathered GEMM (not main-path counts)
+  k10_gemm = gemm_profile(torch, k10_run)
+  k11_gemm = gemm_profile(torch, k11_run)
+  print("gathered GEMM launches (profiled): K10 flagship solve %d tiled "
+        "(%.4f ms), %d line; K11 flagship solve %d tiled (its interior, "
+        "%.4f ms), %d line (rows, columns, corners, %.4f ms) [%s]" % (
+            k10_gemm["tiled"][0], k10_gemm["tiled"][1], k10_gemm["line"][0],
+            k11_gemm["tiled"][0], k11_gemm["tiled"][1], k11_gemm["line"][0],
+            k11_gemm["line"][1], card))
+  check(k10_gemm["tiled"][0] == 2 * CONV_ITERS + 1
+        and k10_gemm["line"][0] == 0,
+        "K10's products did not all take the tiled GEMM: %s" % (k10_gemm,))
+  check(k11_gemm["tiled"][0] == CONV_ITERS and k11_gemm["line"][0] > 0,
+        "K11's interior should take the tiled GEMM, its lines the line "
+        "kernel: %s" % (k11_gemm,))
   print("K11 ms per flagship batch (b=40 1x272x272, 64 16x16/8, fista 100): "
         "%.4f (runs %.4f, %.4f); plain %.4f (runs %.4f, %.4f); bound %.4f "
         "(%s) [%s]" % (k11_ms, *k11_ms_runs, k11_p_ms, *k11_plain_ms,
@@ -3567,10 +3660,25 @@ def main():
                          (CONV_STRIDE, CONV_STRIDE))
   k12_bound = conv_train_bound(seg_geo, SEG_BATCH, SEG_ITERS)
   k8_bound = ica_step_bound(ICA_N, ICA_BATCH)
+  k12_gemm = gemm_profile(torch, k12_run)
+  # the library time of a step's solve: K10's loop with cuDNN's products
+  # on the step's batch, FISTA 25 (K12, K13 and K17 solve this)
+  seta = lipschitz.fista_stepsize(sd0.reshape(CONV_S, -1))
+  solve_lib = lambda: K10.fused_conv_direct_library(
+      seg10[0], sd0, CONV_LAM, SEG_ITERS, seta,
+      kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=cpad)
+  with torch.no_grad():
+    solve_lib()
+    solve_lib_ms = (time_ms(torch, solve_lib, 5) + time_ms(torch, solve_lib,
+                                                           5)) / 2
   print("K12 ms per step (b=40 1x272x272, 64 16x16/8, fista 25, cheap-quad): "
         "%.4f (runs %.4f, %.4f); plain %.4f (runs %.4f, %.4f); bound %.4f "
-        "(%s) [%s]" % (k12_ms, *k12_ms_runs, k12_p_ms, *k12_plain_ms,
-                       k12_bound[0], k12_bound[1], card))
+        "(%s); the gathered GEMM %.4f ms per step (%d tiled, %d line "
+        "launches, profiled); the solve with cuDNN's products (FISTA 25, "
+        "b 40) %.4f [%s]" % (
+            k12_ms, *k12_ms_runs, k12_p_ms, *k12_plain_ms, k12_bound[0],
+            k12_bound[1], (k12_gemm["tiled"][1] + k12_gemm["line"][1]) / 10,
+            k12_gemm["tiled"][0], k12_gemm["line"][0], solve_lib_ms, card))
   print("conv train_dictionary_scanned %d steps of %d in %.4f s: %.2f "
         "images/s (phase 19's run) [%s]" % (
             SEG_STEPS, SEG_BATCH, seg_s, SEG_STEPS * SEG_BATCH / seg_s, card))
@@ -4050,10 +4158,10 @@ def main():
       print("K13 %s form ms per step (b=40 1x272x272, 64 16x16/8, fista 25): "
             "%.4f (runs %.4f, %.4f); plain %.4f (runs %.4f, %.4f); bound "
             "%.4f (%s); a shard of 20: %.4f, bound %.4f; K12's whole step "
-            "%.4f (phase 22) [%s]" % (
+            "%.4f, the solve with cuDNN's products %.4f (phase 22) [%s]" % (
                 "gram" if gram else "gradient", k13_times[gram][0], *runs,
                 k13_times[gram][1], *plain_runs, full_b[0], full_b[1],
-                half_ms, half_b[0], k12_ms, card))
+                half_ms, half_b[0], k12_ms, solve_lib_ms, card))
   k13_ms, k13_p_ms = k13_times[False][:2]
   k13_bound = conv_stats_bound(seg_geo, SEG_BATCH, SEG_ITERS, False)
   # K13 over the batch: per image, does the time step where the working
@@ -4090,10 +4198,11 @@ def main():
       k17_b = conv_dp_bound(seg_geo, SEG_BATCH, SEG_ITERS, upd, 10)
       print("K17 %s form ms per step (a segment of 10 steps of b=40, upd %d): "
             "%.4f (runs %.4f, %.4f); plain %.4f (runs %.4f, %.4f); bound "
-            "%.4f (%s); K13 alone %.4f [%s]" % (
+            "%.4f (%s); K13 alone %.4f; the solve with cuDNN's products "
+            "%.4f (phase 22) [%s]" % (
                 "gram" if upd > 1 else "gradient", upd, k17_times[upd][0],
                 *runs, k17_times[upd][1], *plain_runs, k17_b[0], k17_b[1],
-                k13_times[upd > 1][0], card))
+                k13_times[upd > 1][0], solve_lib_ms, card))
     b5_seg = seg_batches.reshape((-1, CONV_TRAIN_BATCH)
                                  + seg_batches.shape[2:])[:100]
     k17_run(b5_seg[:2], 1)()
@@ -4396,6 +4505,10 @@ def main():
        "vtc_tpu/ops/pallas_ica_train.py:394", dp_runs["ica launches"],
        k18_err, seg_times["K18"][0], seg_times["K18"][1], k8_bound),
   ]
+  # K10's library time is its own loop with each product one cuDNN call
+  # (phase 17); no single PyTorch call computes any other kernel's solve
+  # or step, so theirs are null
+  library_ms = {"fused_conv_direct": k10_lib}
   print(json.dumps({"kernels": [{
       "name": name,
       "route": "cuda",
@@ -4407,7 +4520,7 @@ def main():
       "plain_ms": t_plain,
       "bound_ms": bnd[0],
       "bound_by": bnd[1],
-      "library_ms": None,  # no single PyTorch call computes a solve or step
+      "library_ms": library_ms.get(name),
   } for name, source, replaces, n, err, t, t_plain, bnd in kernels]}))
   print(card)
   print(json.dumps({"ok": True, "device": {

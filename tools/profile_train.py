@@ -52,13 +52,14 @@ reports
   FISTA solve (fista_kernel, fold_gram_kernel), the epilogue
   (hessian_ema_kernel, update_rows_kernel), the group passes
   (gather_rows_kernel, sum_slots_kernel, sign_mask_kernel), the conv
-  GEMMs (gather_gemm), the conv gradient (block_grad_partial_kernel,
-  grad_reduce_kernel), the conv update (conv_update_kernel,
-  conv_hessian_ema_kernel, dall_from_dstk_kernel), K13's statistics
-  (conv_code_stat_kernel, block_cm_partial_kernel), the ICA passes
-  (residual_kernel, sign_kernel, natural_gradient_kernel, axpy_kernel),
-  K19's reconstruction (recon_partial_kernel, recon_sum_kernel), its
-  gradient with the prox (grad_prox_kernel, group_prox_kernel) and its
+  GEMMs (gather_gemm_tiled, gather_gemm), the conv gradient
+  (block_grad_partial_kernel, grad_reduce_kernel), the conv update
+  (conv_update_kernel, conv_hessian_ema_kernel, dall_from_dstk_kernel),
+  K13's statistics (conv_code_stat_kernel, block_cm_partial_kernel), the
+  ICA passes (residual_kernel, sign_kernel, natural_gradient_kernel,
+  axpy_kernel), K19's reconstruction (recon_partial_kernel,
+  recon_sum_kernel), its gradient with the prox (grad_prox_kernel,
+  group_prox_kernel) and its
   update residual (resid_partial_kernel, resid_sum_kernel), and everything
   else; for K19 also the step's split between the reconstruction, the
   gradient, the power refresh (with the n x n Gram's pgram_partial_kernel
@@ -90,7 +91,8 @@ EPILOGUE = ("epilogue (hessian_ema_kernel, update_rows_kernel, "
             "column_sumsq_kernel)")
 GROUP_PASSES = "group passes (gather_rows, sum_slots, sign_mask)"
 CONV_UPDATE = "conv update (conv_update, conv_hessian_ema, dall_from_dstk)"
-CONV_GEMMS = "conv GEMMs: corr, synthesis, analysis (gather_gemm)"
+CONV_GEMMS = ("conv GEMMs: corr, synthesis, analysis, residual "
+              "(gather_gemm_tiled, gather_gemm)")
 CONV_GRAD = "conv gradient (block_grad_partial, grad_reduce)"
 K13_STATS = "K13 statistics (conv_code_stat, block_cm_partial)"
 DP_UPDATE = "DP update inputs (divide, hessian_from_stat: K15-K17)"
@@ -198,7 +200,7 @@ def workload(args, torch, dev):
           split=(("K13's part: refresh, solve and statistics",
                   (POWER, PRODUCTS, CONV_GEMMS, CONV_GRAD, K13_STATS)),
                  ("the update (divide, hessian_from_stat, conv_update) and "
-                  "the rest", (CONV_UPDATE, K17_UPDATE, "other"))))
+                  "the rest", (CONV_UPDATE, DP_UPDATE, "other"))))
     return dict(
         name="conv", units="images", steps=steps, batch=batch, short=20,
         plain_steps=5, kernels=fused_conv_train,

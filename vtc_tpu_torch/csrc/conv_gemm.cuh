@@ -1,5 +1,5 @@
 // Gathered fp32 GEMM for the convolutional solves (K10 and K11) and the
-// conv train step (K12), CUDA C++ for Hopper (sm_90a).
+// conv train steps (K12, K13 and K17), CUDA C++ for Hopper (sm_90a).
 //
 // Every product of the conv iteration is one shape:
 //
@@ -9,20 +9,38 @@
 // n a code or image-block position (b, Y, X) and k = o * C + ch running
 // over the offsets o of a tile's neighbourhood and the channels ch of the
 // source.  Reads outside the source are zeros.  K10's synthesis, its
-// analysis and its corr = A(mask * X), and K11's interior operator and
-// its border corrections are all instances: they differ in A, in the
-// offset decode of k, in which positions n run (all of them, one code
-// row, one code column or one corner per grid z) and in the epilogue.
+// analysis and its corr = A(mask * X), K12's residual, and K11's interior
+// operator and its border corrections are all instances: they differ in
+// A, in the offset decode of k, in which positions n run (all of them,
+// one code row, one code column or one corner per grid z) and in the
+// epilogue, one __device__ function both kernels below call.
 //
-// The kernel is an implicit GEMM with no materialized shifted stack: a
-// block computes a 64 x 64 tile of C in registers (256 threads, 4 x 4
-// each), staging 16-deep slices of A and of the gathered source in
-// shared memory.  Each thread gathers one fixed position n for the whole
-// K loop, so consecutive threads read consecutive pixels.  Plain fp32
-// FMA on the SIMT units: no tensor cores, no TF32, no library.
+// Two implicit GEMMs, no materialized shifted stack, plain fp32 FMA on
+// the SIMT units (no tensor cores, no TF32, no library):
+//
+// * gather_gemm_tiled, for every position (lines == kAll) and K up to
+//   kTableMaxK: a 64 x BN tile of C per block of 128 threads, BN = 128
+//   (8 x 8 outputs a thread, as two 4-wide groups in m and in n, so a
+//   k step is 4 conflict-free float4 shared reads for 64 FMAs) or, when
+//   128-wide tiles would not give every SM two blocks, BN = 64 (4 x 8 a
+//   thread).  16-deep slices of A and of the gathered source pass
+//   through a two-stage cp.async ring: slice k+1 is copied while slice k
+//   is computed.  Every gathered element is one 4-byte cp.async whose
+//   source size is 0 where the position lies outside the source, n >= N
+//   or k >= K (a zero fill, no branch around the copy).  The offset
+//   decode of k (source offset of (channel, dy, dx), and dy, dx for the
+//   bounds test) is a table in shared memory, built once per block.
+// * gather_gemm, for K11's row, column and corner lines (one code row or
+//   column long, where a large tile would idle) and for larger K: a
+//   64 x 64 tile (256 threads, 4 x 4 each), synchronous 16-deep slices.
+//
+// Both sum each output over k in increasing order with one fmaf chain
+// from 0, so for the same inputs they give the same bits.
+// launch_gather_gemm picks between them.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <cstdlib>
 
 // Internal linkage: each .cu that includes this gets its own copy.
 namespace {
@@ -31,6 +49,10 @@ constexpr int kBM = 64;
 constexpr int kBN = 64;
 constexpr int kBK = 16;
 constexpr int kThreads = 256;
+// gather_gemm_tiled: threads per block, and the largest K its offset
+// table (8 bytes an entry) takes
+constexpr int kTileThreads = 128;
+constexpr int kTableMaxK = 4096;
 
 // epilogues: what a block does with its tile of C at output index idx
 enum Epilogue {
@@ -124,6 +146,64 @@ __device__ __forceinline__ bool decode_position(const GemmArgs& p,
     default: *y = t / p.out_w; *x = t - *y * p.out_w; break;
   }
   return true;
+}
+
+// The epilogue, one function pair both kernels call.  epilogue_load reads
+// what the epilogue needs at output index idx (mask index midx, output
+// row y); epilogue_store combines it with v = C[m, n] and writes.  A
+// kernel may load several outputs' inputs before storing any: outputs
+// never share an index.  eta and thresh = lam * eta are read once per
+// block (kProx).
+struct EpiIn {
+  float v0, v1, v2, v3;
+};
+
+__device__ __forceinline__ EpiIn epilogue_load(const GemmArgs& p,
+                                               long long idx, long long midx,
+                                               int y) {
+  EpiIn in = {0.f, 0.f, 0.f, 0.f};
+  switch (p.epilogue) {
+    case kMaskStore: in.v0 = p.mask[midx]; break;
+    case kNegStoreKeepRows: in.v0 = p.row_flag[y] ? p.out[idx] : 0.f; break;
+    case kAdd: in.v0 = p.out[idx]; break;
+    case kMaskResid:
+      in.v0 = p.mask[midx];
+      in.v1 = p.extra[idx];
+      break;
+    case kProx:
+      in.v0 = p.z_cur[idx];
+      in.v1 = p.corr[idx];
+      in.v2 = p.old[idx];
+      if (p.extra) in.v3 = p.extra[idx];
+      break;
+    default: break;
+  }
+  return in;
+}
+
+__device__ __forceinline__ void epilogue_store(const GemmArgs& p,
+                                               long long idx, float v,
+                                               const EpiIn& in, float eta,
+                                               float thresh) {
+  switch (p.epilogue) {
+    case kStore: p.out[idx] = v; break;
+    case kMaskStore: p.out[idx] = v * in.v0; break;
+    case kNegStore: p.out[idx] = -v; break;
+    case kNegStoreKeepRows: p.out[idx] = __fsub_rn(in.v0, v); break;
+    case kAdd: p.out[idx] = __fadd_rn(in.v0, v); break;
+    case kMaskResid: p.out[idx] = __fsub_rn(__fmul_rn(v, in.v0), in.v1); break;
+    default: {
+      float g = p.extra ? __fadd_rn(v, in.v3) : v;
+      g = __fsub_rn(g, in.v1);
+      const float codes =
+          shrink_value(__fsub_rn(in.v0, __fmul_rn(eta, g)), thresh, p.shrink);
+      const float next =
+          p.fista ? __fadd_rn(codes, __fmul_rn(p.beta, __fsub_rn(codes, in.v2)))
+                  : codes;
+      p.old[idx] = codes;
+      p.out[idx] = next;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) gather_gemm(GemmArgs p) {
@@ -222,50 +302,284 @@ __global__ void __launch_bounds__(kThreads) gather_gemm(GemmArgs p) {
     for (int i = 0; i < 4; ++i) {
       const int m = m0 + ty * 4 + i;
       if (m >= p.m) continue;
+      const long long midx = (static_cast<long long>(m) * p.out_h + y) *
+                                 p.out_w + x;
       const long long idx =
           ((static_cast<long long>(b) * p.m + m) * p.out_h + y) * p.out_w + x;
-      const float v = acc[i][j];
-      switch (p.epilogue) {
-        case kStore: p.out[idx] = v; break;
-        case kMaskStore:
-          p.out[idx] =
-              v * p.mask[(static_cast<long long>(m) * p.out_h + y) * p.out_w +
-                         x];
-          break;
-        case kNegStore: p.out[idx] = -v; break;
-        case kNegStoreKeepRows:
-          p.out[idx] = __fsub_rn(p.row_flag[y] ? p.out[idx] : 0.f, v);
-          break;
-        case kAdd: p.out[idx] = __fadd_rn(p.out[idx], v); break;
-        case kMaskResid:
-          p.out[idx] = __fsub_rn(
-              __fmul_rn(v, p.mask[(static_cast<long long>(m) * p.out_h + y) *
-                                      p.out_w + x]),
-              p.extra[idx]);
-          break;
-        default: {
-          float g = p.extra ? __fadd_rn(v, p.extra[idx]) : v;
-          g = __fsub_rn(g, p.corr[idx]);
-          const float codes = shrink_value(
-              __fsub_rn(p.z_cur[idx], __fmul_rn(eta, g)), thresh, p.shrink);
-          const float next =
-              p.fista ? __fadd_rn(codes,
-                                  __fmul_rn(p.beta, __fsub_rn(codes,
-                                                              p.old[idx])))
-                      : codes;
-          p.old[idx] = codes;
-          p.out[idx] = next;
-        }
-      }
+      epilogue_store(p, idx, acc[i][j], epilogue_load(p, idx, midx, y), eta,
+                     thresh);
     }
   }
 }
 
+// One entry of gather_gemm_tiled's offset table: k's source offset
+// (ch * src_h + dy) * src_w + dx, and dy, dx for the bounds test.
+struct __align__(8) KOffset {
+  int off;
+  short dy, dx;
+};
+
+// A 4-byte cp.async; where copy is false it reads nothing and writes a
+// zero (a source size of 0), so gmem need only be a valid address.
+__device__ __forceinline__ void gemm_cp_async4(float* smem, const float* gmem,
+                                               bool copy) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(copy ? 4 : 0));
+}
+
+__device__ __forceinline__ void gemm_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void gemm_cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Shared memory of gather_gemm_tiled<BN>: the two-stage ring of A
+// (kBK x (kBM + 4)) and source (kBK x (BN + 4)) slices, then the offset
+// table padded to a whole slice; after the K loop the kBM x (BN + 4) tile
+// of C over both.
+inline size_t tile_smem_bytes(int bn, int k) {
+  const size_t ring =
+      sizeof(float) * (2 * kBK * (kBM + 4) + 2 * kBK * (bn + 4));
+  const size_t table =
+      sizeof(KOffset) * static_cast<size_t>((k + kBK - 1) / kBK * kBK);
+  const size_t tile = sizeof(float) * kBM * (bn + 4);
+  return ring + table > tile ? ring + table : tile;
+}
+
+// The lines == kAll GEMM: a kBM x BN tile of C per block, each of the
+// 128 threads holding 4 * TM rows (TM groups of 4, kBM / TM apart) by 8
+// columns (2 groups of 4, BN / 2 apart).  BN = 128 takes TM = 2, BN = 64
+// TM = 1.
+template <int BN, int TM>
+__global__ void __launch_bounds__(kTileThreads) gather_gemm_tiled(GemmArgs p) {
+  static_assert(kTileThreads == (kBM / (4 * TM)) * (BN / 8), "thread grid");
+  constexpr int kAS = kBM + 4, kBS = BN + 4, kCS = BN + 4;
+  extern __shared__ __align__(16) float tile_smem[];
+  float* as = tile_smem;                  // [2][kBK][kAS]
+  float* bs = as + 2 * kBK * kAS;         // [2][kBK][kBS]
+  KOffset* table = reinterpret_cast<KOffset*>(bs + 2 * kBK * kBS);
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kBM;
+  const long long n0 = static_cast<long long>(blockIdx.x) * BN;
+  const int len = p.out_h * p.out_w;
+  const long long npos = static_cast<long long>(p.nb) * len;
+  const int kpad = (p.k + kBK - 1) / kBK * kBK;
+
+  for (int k = tid; k < kpad; k += kTileThreads) {
+    KOffset e = {0, 0, 0};
+    if (k < p.k) {
+      const int o = k / p.src_c, ch = k - o * p.src_c;
+      const int dy = p.sign * (o / p.off_w) + p.off_y0;
+      const int dx = p.sign * (o % p.off_w) + p.off_x0;
+      e.off = (ch * p.src_h + dy) * p.src_w + dx;
+      e.dy = static_cast<short>(dy);
+      e.dx = static_cast<short>(dx);
+    }
+    table[k] = e;
+  }
+
+  // the source position this thread gathers, fixed for the whole K loop:
+  // column tid % BN, rows tid / BN + r * (kTileThreads / BN) of a slice
+  constexpr int kRowsB = BN * kBK / kTileThreads;
+  constexpr int kRowsA = kBM * kBK / kTileThreads;
+  const int col = tid % BN, row0 = tid / BN;
+  int gy = 0, gx = 0;
+  const float* src_n = p.src;
+  const bool nvalid = n0 + col < npos;
+  if (nvalid) {
+    const long long n = n0 + col;
+    const int b = static_cast<int>(n / len);
+    const int t = static_cast<int>(n - static_cast<long long>(b) * len);
+    gy = t / p.out_w;
+    gx = t - gy * p.out_w;
+    src_n += static_cast<long long>(b) * p.src_c * p.src_h * p.src_w +
+             gy * p.src_w + gx;
+  }
+  __syncthreads();
+
+  // copy slice k0 of A (transposed) and of the gathered source to stage
+  auto load_slice = [&](int stage, int k0) {
+    float* as_s = as + stage * kBK * kAS;
+    float* bs_s = bs + stage * kBK * kBS;
+#pragma unroll
+    for (int r = 0; r < kRowsA; ++r) {
+      const int e = tid + r * kTileThreads;
+      const int mm = e / kBK, kk = e % kBK;
+      const int gm = m0 + mm, gk = k0 + kk;
+      const bool ok = gm < p.m && gk < p.k;
+      gemm_cp_async4(as_s + kk * kAS + mm,
+                     ok ? p.a + static_cast<long long>(gm) * p.k + gk : p.a,
+                     ok);
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsB; ++r) {
+      const int kk = row0 + r * (kTileThreads / BN);
+      const KOffset e = table[k0 + kk];
+      const bool ok = nvalid && k0 + kk < p.k &&
+                      static_cast<unsigned>(gy + e.dy) <
+                          static_cast<unsigned>(p.src_h) &&
+                      static_cast<unsigned>(gx + e.dx) <
+                          static_cast<unsigned>(p.src_w);
+      gemm_cp_async4(bs_s + kk * kBS + col, ok ? src_n + e.off : p.src, ok);
+    }
+  };
+
+  float acc[4 * TM][8];
+#pragma unroll
+  for (int i = 0; i < 4 * TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int ty = tid / (BN / 8), tx = tid % (BN / 8);
+
+  const int slices = kpad / kBK;
+  if (slices > 0) load_slice(0, 0);
+  gemm_cp_async_commit();
+  for (int t = 0; t < slices; ++t) {
+    // always commit, so that wait_group 1 leaves exactly slice t landed
+    if (t + 1 < slices) load_slice((t + 1) & 1, (t + 1) * kBK);
+    gemm_cp_async_commit();
+    gemm_cp_async_wait1();
+    __syncthreads();
+    const float* as_s = as + (t & 1) * kBK * kAS;
+    const float* bs_s = bs + (t & 1) * kBK * kBS;
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float ar[4 * TM], br[8];
+#pragma unroll
+      for (int g = 0; g < TM; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            as_s + kk * kAS + g * (kBM / TM) + ty * 4);
+        ar[4 * g] = v.x;
+        ar[4 * g + 1] = v.y;
+        ar[4 * g + 2] = v.z;
+        ar[4 * g + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            bs_s + kk * kBS + h * (BN / 2) + tx * 4);
+        br[4 * h] = v.x;
+        br[4 * h + 1] = v.y;
+        br[4 * h + 2] = v.z;
+        br[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4 * TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  // The epilogue: the tile goes through shared memory (over the ring,
+  // free after the loop's last barrier) so that each warp writes whole
+  // rows of C, lane l at columns l + 32 q, in coalesced runs, 4 outputs'
+  // inputs loaded before their stores.
+  float* cs = tile_smem;  // [kBM][kCS]
+#pragma unroll
+  for (int i = 0; i < 4 * TM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(
+          cs + ((i / 4) * (kBM / TM) + ty * 4 + (i % 4)) * kCS +
+          h * (BN / 2) + tx * 4) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                      acc[i][4 * h + 3]);
+  __syncthreads();
+  const float eta = p.epilogue == kProx ? *p.eta : 0.f;
+  const float thresh = __fmul_rn(p.lam, eta);
+  constexpr int kQ = BN / 32, kR = 4 / kQ, kWarps = kTileThreads / 32;
+  const int lane = tid % 32, warp = tid / 32;
+  // this lane's columns: output offset b * M * len + t, t = y * out_w + x
+  long long cbase[kQ];
+  int ct[kQ];
+  bool cvalid[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const long long n = n0 + lane + 32 * q;
+    cvalid[q] = n < npos;
+    const long long b = cvalid[q] ? n / len : 0;
+    ct[q] = static_cast<int>(n - b * len);
+    cbase[q] = b * p.m * len + ct[q];
+  }
+  for (int r0 = warp * kR; r0 < kBM; r0 += kWarps * kR) {
+    EpiIn in[kR][kQ];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int m = m0 + r0 + r;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q)
+        if (m < p.m && cvalid[q])
+          in[r][q] = epilogue_load(
+              p, cbase[q] + static_cast<long long>(m) * len,
+              static_cast<long long>(m) * len + ct[q], ct[q] / p.out_w);
+    }
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int m = m0 + r0 + r;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q)
+        if (m < p.m && cvalid[q])
+          epilogue_store(p, cbase[q] + static_cast<long long>(m) * len,
+                         cs[(r0 + r) * kCS + lane + 32 * q], in[r][q], eta,
+                         thresh);
+    }
+  }
+}
+
+// gather_gemm_tiled<BN, TM> over every position, its dynamic shared
+// memory allowed up to the table's cap on first use.
+template <int BN, int TM>
+cudaError_t launch_tiled(const GemmArgs& p, long long positions,
+                         cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gather_gemm_tiled<BN, TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(tile_smem_bytes(BN, kTableMaxK)));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(static_cast<unsigned>((positions + BN - 1) / BN),
+                  static_cast<unsigned>((p.m + kBM - 1) / kBM), 1);
+  gather_gemm_tiled<BN, TM><<<grid, kTileThreads, tile_smem_bytes(BN, p.k),
+                              stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The SM count of the current device, read once (0 if the query fails:
+// the launch then reports the device's error).
+inline int gemm_sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
+}
+
+// Whether the offset table holds this product: K within its cap, the
+// shifts within a short and one sample's source within an int.
+inline bool tile_table_fits(const GemmArgs& p) {
+  const int reach = p.k / p.src_c / p.off_w + 1;
+  return p.k <= kTableMaxK && reach + abs(p.off_y0) < 32767 &&
+         p.off_w + abs(p.off_x0) < 32767 &&
+         static_cast<long long>(p.src_c) * p.src_h * p.src_w < (1LL << 31);
+}
+
 // Launch one gathered GEMM over `lines` grid z indices of `len`
-// positions each; returns the launch's CUDA error.
+// positions each; returns the launch's CUDA error.  Every position at
+// once (kAll) takes the tiled kernel where its offset table fits, 128
+// positions a block where that gives every SM two blocks, else 64;
+// K11's lines and larger K take gather_gemm.
 inline cudaError_t launch_gather_gemm(const GemmArgs& p, int lines, int len,
                                       cudaStream_t stream) {
   const long long positions = static_cast<long long>(p.nb) * len;
+  if (p.lines == kAll && tile_table_fits(p)) {
+    return (positions + 127) / 128 >= 2LL * gemm_sm_count()
+               ? launch_tiled<128, 2>(p, positions, stream)
+               : launch_tiled<64, 1>(p, positions, stream);
+  }
   const dim3 grid(static_cast<unsigned>((positions + kBN - 1) / kBN),
                   static_cast<unsigned>((p.m + kBM - 1) / kBM),
                   static_cast<unsigned>(lines));

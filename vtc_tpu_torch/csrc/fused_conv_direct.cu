@@ -21,22 +21,28 @@
 // per image block or code position: 73.6 MFLOP per sample-iteration at
 // 272x272 images, about 4.4 ms for 40 images and 100 iterations at the
 // 67 TFLOP/s fp32 SIMT peak.  The state moves 23 MB per batch of 40, so
-// the solve is bound by operations, not bytes.
+// the solve is bound by operations, not bytes; but each iteration's
+// epilogues read and write about 100 MB of state (the analysis reads z,
+// corr and old and writes z and old), which the GEMM must stream in
+// coalesced runs to stay near its FMA rate.
 //
 // Layout.  One sample's state (z, old, corr and its image blocks, 1.1 MB
 // at the flagship) does not fit the 227 KB a block may hold, so the TPU
 // kernel's residency cannot be copied: the state lives in device memory
 // (45 MB at batch 40, near the 50 MB L2) and the host enqueues two
 // kernels per iteration from one C loop, never waiting inside a solve.
-// Each is the gathered implicit GEMM of conv_gemm.cuh (64 x 64 register
-// tiles, fp32 FMA): the synthesis over every image block with the mask
-// in its epilogue, then the analysis over every code position with the
-// shrink and the momentum in its epilogue.  The analysis reads only the
-// image blocks and rewrites z at its own positions, so z is updated in
-// place.  A cooperative kernel with a grid barrier per iteration, or a
-// cluster that keeps a sample in distributed shared memory, is later
-// work.  tests/test_torch_port_conv.py holds the plain version of this
-// layout to vtc_tpu's kernel; chip_smoke.py holds this kernel to it.
+// Each is conv_gemm.cuh's tiled gathered GEMM over every position (64 x
+// 128 tiles, 8 x 8 fp32 FMA outputs a thread, a two-stage cp.async ring,
+// the k offsets in a shared-memory table; 64-wide tiles at small
+// batches): the synthesis over every image block with the mask in its
+// epilogue, then the analysis over every code position with the shrink
+// and the momentum in its epilogue, each written through shared memory
+// in coalesced rows.  The analysis reads only the image blocks and
+// rewrites z at its own positions, so z is updated in place.  A
+// cooperative kernel with a grid barrier per iteration, or a cluster
+// that keeps a sample in distributed shared memory, is later work.
+// tests/test_torch_port_conv.py holds the plain version of this layout to
+// vtc_tpu's kernel; chip_smoke.py holds this kernel to it.
 #include "conv_gemm.cuh"
 
 extern "C" {

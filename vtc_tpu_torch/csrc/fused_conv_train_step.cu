@@ -30,11 +30,14 @@
 // the C entry vtc_conv_train_segment enqueues per-step kernels for the
 // whole segment on one stream; dstk, h, v, eta and the code state stay in
 // device memory and the host never waits.  The solve is K10's: the
-// gathered implicit GEMM of conv_gemm.cuh for corr, the synthesis (mask
-// in the epilogue) and the analysis (shrink and momentum in the
-// epilogue).  The update's synthesis is the same GEMM with the residual
-// epilogue.  The batch is one tile: the TPU kernel's batch tiles and its
-// gram-form tile accumulators (:501-516) exist for VMEM only and have no
+// tiled gathered implicit GEMM of conv_gemm.cuh (64 x 128 tiles of 8 x 8
+// fp32 FMA outputs a thread, a two-stage cp.async ring, a shared-memory
+// k-offset table, an epilogue written through shared memory in coalesced
+// rows; 64-wide tiles at small batches) for corr, the synthesis (mask in
+// the epilogue) and the analysis (shrink and momentum in the epilogue).
+// The update's synthesis is the same GEMM with the residual epilogue.
+// The batch is one tile: the TPU kernel's batch tiles and its gram-form
+// tile accumulators (:501-516) exist for VMEM only and have no
 // counterpart here.
 //
 // What bounds it on this card.  At the flagship (64 kernels of 16x16 at

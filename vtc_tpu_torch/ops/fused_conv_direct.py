@@ -25,6 +25,10 @@ outside the kernel, as the JAX function does with XLA (:383-391).  Then:
   version of the same block iteration, which the CPU tests hold to
   vtc_tpu's kernel and ``chip_smoke.py`` holds the kernel against.
 
+``fused_conv_direct_library`` is the same iteration with each product
+as one library convolution (cuDNN on the card, TF32 off): the yardstick
+``chip_smoke.py`` times beside the kernel.  The main path never calls it.
+
 ``supported`` is the JAX gate (:98-112).  ``build_block_update_stats``
 and ``dictionary_gradient_from_block_stats`` (:212-252) are the conv
 trainer's 'block' dictionary gradient, as torch ops.
@@ -81,13 +85,20 @@ def supported(img_shape, dict_shape, kernel_stride):
   return geo["code_h"] >= 1 and geo["code_w"] >= 1
 
 
-def pack_weights(dictionary, geo):
-  """(dstk, dall): synthesis (cpx, R*s) and analysis (s, R*cpx), with
-  parts[a, i, (ch, py, px)] = D[i, ch, a_y*sv + py, a_x*sh + px]."""
+def kernel_parts(dictionary, geo):
+  """(R, s, cpx) parts[a, i, (ch, py, px)] = D[i, ch, a_y*sv + py,
+  a_x*sh + px] of the zero-extended kernels."""
   s, c = geo["s"], geo["c"]
   d = F.pad(dictionary, (0, geo["ekw"], 0, geo["ekh"]))
   parts = d.reshape(s, c, geo["ay"], geo["sv"], geo["ax"], geo["sh"])
-  parts = parts.permute(2, 4, 0, 1, 3, 5).reshape(geo["r"], s, geo["cpx"])
+  return parts.permute(2, 4, 0, 1, 3, 5).reshape(geo["r"], s, geo["cpx"])
+
+
+def pack_weights(dictionary, geo):
+  """(dstk, dall): synthesis (cpx, R*s) and analysis (s, R*cpx) from
+  ``kernel_parts``."""
+  s = geo["s"]
+  parts = kernel_parts(dictionary, geo)
   dstk = parts.permute(2, 0, 1).reshape(geo["cpx"], geo["r"] * s)
   dall = parts.permute(1, 0, 2).reshape(s, geo["r"] * geo["cpx"])
   return dstk.contiguous(), dall.contiguous()
@@ -147,17 +158,12 @@ def _product(weights, stack):
   return (weights @ stack.reshape(b, k, h * w)).reshape(b, -1, h, w)
 
 
-def fused_conv_direct_plain(images, dictionary, sparsity_weight, num_iters,
-                            stepsize, *, kernel_stride, padding,
-                            initial_codes=None, variant="fista",
-                            nonneg=False, hard=False,
-                            early_stopping_epsilon=None, precision=None):
-  """The plain PyTorch version of K10, on any device and in the inputs'
-  own float type (float64 inputs give the float64 oracle): the same
-  block-space products, mask and update as the kernel.
-  ``early_stopping_epsilon`` is the loop's batch-global stop test;
-  ``precision`` the matmul precision of ``ops/precision`` (default
-  'highest'), 'tensorfloat32' showing what TF32 products would cost."""
+def _block_solve(products, images, dictionary, sparsity_weight, num_iters,
+                 stepsize, kernel_stride, padding, initial_codes, variant,
+                 nonneg, hard, early_stopping_epsilon, precision):
+  """K10's iteration in the inputs' own float type, with the block-space
+  products that ``products(dictionary, geo)`` returns as (synthesize,
+  analyze): img = mblk * synthesize(z), grad = analyze(img) - corr."""
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
   dtype, device = images.dtype, images.device
@@ -170,13 +176,12 @@ def fused_conv_direct_plain(images, dictionary, sparsity_weight, num_iters,
   else:
     z = torch.as_tensor(initial_codes, dtype=dtype, device=device)
   with matmul_precision(precision):
-    dstk, dall = pack_weights(dictionary, geo)
+    synthesize, analyze = products(dictionary, geo)
     mask_img, mblk = block_mask(images.shape, padding, geo, dtype, device)
-    corr = _product(dall, block_stack(blockify(mask_img * images, geo), geo))
+    corr = analyze(blockify(mask_img * images, geo))
 
     def grad_fn(z):
-      img = _product(dstk, code_stack(z, geo)) * mblk
-      return _product(dall, block_stack(img, geo)) - corr
+      return analyze(synthesize(z) * mblk) - corr
 
     def prox_fn(x, ss):
       return shrink(x, sparsity_weight * ss)
@@ -184,6 +189,52 @@ def fused_conv_direct_plain(images, dictionary, sparsity_weight, num_iters,
     return proximal_gradient_loop(
         grad_fn, prox_fn, z, eta, num_iters, variant=variant,
         early_stopping_epsilon=early_stopping_epsilon)
+
+
+def _stack_products(dictionary, geo):
+  """The kernel's products: the packed weights times the shifted stacks."""
+  dstk, dall = pack_weights(dictionary, geo)
+  return (lambda z: _product(dstk, code_stack(z, geo)),
+          lambda img: _product(dall, block_stack(img, geo)))
+
+
+def _library_products(dictionary, geo):
+  """The same products as one library convolution each: with
+  W[i, p, a_y, a_x] = Dpart[a][i, p] of shape (s, cpx, ay, ax), the
+  analysis is conv2d(img, W) and the synthesis conv_transpose2d(z, W)."""
+  w = kernel_parts(dictionary, geo).reshape(
+      geo["ay"], geo["ax"], geo["s"], geo["cpx"]).permute(2, 3, 0, 1)
+  w = w.contiguous()
+  return (lambda z: F.conv_transpose2d(z, w), lambda img: F.conv2d(img, w))
+
+
+def fused_conv_direct_plain(images, dictionary, sparsity_weight, num_iters,
+                            stepsize, *, kernel_stride, padding,
+                            initial_codes=None, variant="fista",
+                            nonneg=False, hard=False,
+                            early_stopping_epsilon=None, precision=None):
+  """The plain PyTorch version of K10, on any device and in the inputs'
+  own float type (float64 inputs give the float64 oracle): the same
+  block-space products, mask and update as the kernel.
+  ``early_stopping_epsilon`` is the loop's batch-global stop test;
+  ``precision`` the matmul precision of ``ops/precision`` (default
+  'highest'), 'tensorfloat32' showing what TF32 products would cost."""
+  return _block_solve(_stack_products, images, dictionary, sparsity_weight,
+                      num_iters, stepsize, kernel_stride, padding,
+                      initial_codes, variant, nonneg, hard,
+                      early_stopping_epsilon, precision)
+
+
+def fused_conv_direct_library(images, dictionary, sparsity_weight, num_iters,
+                              stepsize, *, kernel_stride, padding,
+                              variant="fista", nonneg=False, hard=False):
+  """K10's solve with each product as one library call (cuDNN on the
+  card) under ``ops/precision``'s IEEE fp32 pins: the yardstick that
+  chip_smoke.py times beside the kernel.  Nothing on the main path calls
+  it."""
+  return _block_solve(_library_products, images, dictionary,
+                      sparsity_weight, num_iters, stepsize, kernel_stride,
+                      padding, None, variant, nonneg, hard, None, None)
 
 
 def build_block_update_stats(images_padded, codes, dict_shape,
