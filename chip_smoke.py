@@ -371,6 +371,27 @@ the phases that make its check here.
    code axis of 1 (phase 25) beside them.  The ranks share one card over
    gloo, each sum staged through pinned host memory: host-bound numbers,
    not a multi-GPU measurement (NCCL across GPUs cannot run on one card).
+39. The fc/subspace solve's two kernels (csrc/fista_core.cuh).  (a)
+   fista_cluster_kernel and fista_kernel, both forced through the
+   wrappers' internal route argument, on the same CPU-made G, c and warm
+   starts (FISTA 25), must give torch.equal codes: FISTA and ISTA with the
+   soft, nonnegative, hard and nonnegative-hard shrinks, cold and warm, at
+   b 250, 125 and 37 and s 256 and 40; groups of 1, 2 and 4, soft and
+   hard, there; groups of 8 and 16 (s 256) and 3 and 6 (s 96), which take
+   the shared-memory prox pass; s 512 (64 columns a CTA); and b 2048, a
+   shape the route sends to fista_kernel.  (b) The auto route at b 250 and
+   125, fc and 64 x 4 groups, against the fp32 and fp64 plain versions at
+   phase 2's limit, each with a TF32 control that must fail it.  (c) The
+   library's layout constants equal ops/fused_fista's; for 17 shapes the
+   route launch_solve took, ops/fused_fista.solve_route's choice and the
+   library's vtc_fista_route agree, and so do the rows a cluster takes;
+   the cluster slots and cudaOccupancyMaxActiveClusters are printed; a
+   forced cluster launch that does not fit (s 1024; groups of 26) raises
+   and counts nothing.  (d) A torch.profiler count over 20-step segments
+   of the b-250 trainers of phases 6, 11 and 34
+   (train_dictionary_scanned fc and subspace, and with
+   data_parallel=True): one fista_cluster_kernel launch a step and no
+   fista_kernel or fold_gram_kernel launch.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -431,6 +452,10 @@ CUDA_TESTS = {
     "test_torch_port_dp_segments.py::test_cuda_k15_matches_plain": (33,),
     "test_torch_port_dp_segments.py::test_cuda_k16_matches_plain": (33,),
     "test_torch_port_dp_segments.py::test_cuda_k18_matches_plain": (33,),
+    "test_torch_port_fista_cluster.py::"
+    "test_cuda_cluster_kernel_matches_classic_bitwise": (39,),
+    "test_torch_port_fista_cluster.py::"
+    "test_cuda_trainers_launch_the_cluster_kernel": (39,),
     "test_torch_port_subspace.py::"
     "test_cuda_early_stop_raises_and_launches_nothing": (8,),
     "test_torch_port_subspace.py::test_cuda_kernel_matches_plain": (8, 9),
@@ -2904,6 +2929,232 @@ def code_shard_across_devices(torch, K19, lipschitz, compiled_epoch, gen,
   return (launches, worst) + timing[2]
 
 
+CLUSTER_ITERS = 25        # phase 39: the trainers' solve depth
+DISPATCH_STEPS = 20       # phase 39: steps of each profiled trainer
+
+
+def solve_inputs(torch, x, d, dev):
+  """(gram, corr, eta) of a solve, made on the CPU in float64 from the
+  float32 images and dictionary, then float32 on dev: G = D D^T,
+  c = X D^T, eta = 1 / the top eigenvalue of G."""
+  x64, d64 = x.astype(np.float64), d.astype(np.float64)
+  gram = d64 @ d64.T
+  eta = 1.0 / np.linalg.eigvalsh(gram)[-1]
+  as_dev = lambda a: torch.tensor(np.ascontiguousarray(a, np.float32),
+                                  device=dev)
+  return as_dev(gram), as_dev(x64 @ d64.T), as_dev([eta])
+
+
+def cluster_bitwise_cases(torch, K1, K4, patches, gpatches, dev):
+  """Phase 39 (a): fista_cluster_kernel and fista_kernel, both forced, on
+  the same CPU-made inputs; the codes must be torch.equal.  Returns the
+  number of cases."""
+  rng = np.random.RandomState(39)
+  flag_d = unit_rows(np.random.RandomState(0), 256, 256)
+  dicts = {256: flag_d, 40: unit_rows(rng, 40, 256),
+           96: unit_rows(rng, 96, 256), 512: unit_rows(rng, 512, 256)}
+  inputs = {}
+
+  def problem(s, b, grouped):
+    key = (s, grouped)
+    if key not in inputs:
+      x = (gpatches if grouped else patches)[:2048]
+      inputs[key] = solve_inputs(torch, x, dicts[s], dev)
+    gram, corr, eta = inputs[key]
+    return gram, corr[:b].contiguous(), eta
+
+  def warm(b, s):
+    w = 0.05 * rng.randn(b, s) * (rng.rand(b, s) < 0.1)
+    return torch.tensor(w.astype(np.float32), device=dev)
+
+  # (label, s, b, M or None, fista, mode or hard, warm)
+  cases = []
+  for s in (256, 40):
+    for b in (250, 125, 37):
+      for fista in (True, False):
+        for mode in range(4):
+          for w in (False, True):
+            cases.append(("fc", s, b, None, fista, mode, w))
+      for m in (1, 2, 4):
+        for hard in (False, True):
+          cases.append(("group", s, b, m, True, hard, False))
+      cases.append(("group", s, b, 4, False, False, True))
+  # M dividing a CTA's columns but not 4: the shared-memory pass
+  for m in (8, 16):
+    for hard in (False, True):
+      cases.append(("group shared pass", 256, 250, m, True, hard, False))
+  for m in (3, 6):
+    cases.append(("group shared pass", 96, 125, m, True, False, True))
+  # 64 columns a CTA (256 threads); a shape the route sends to fista_kernel
+  cases += [("fc s512", 512, 250, None, True, 0, False),
+            ("fc s512", 512, 250, None, True, 2, True),
+            ("fc b2048 (classic route)", 256, 2048, None, True, 0, False),
+            ("group b2048 (classic route)", 256, 2048, 4, True, False,
+             False)]
+  by_label = {}
+  for label, s, b, m, fista, mode, w in cases:
+    gram, corr, eta = problem(s, b, m is not None)
+    init = warm(b, s) if w else None
+    if m is None:
+      run = lambda route: K1._launch(gram, corr, init, eta, LAM,
+                                     CLUSTER_ITERS, fista, mode, route=route)
+    else:
+      run = lambda route: K4._launch(gram, corr, init, eta, LAM,
+                                     CLUSTER_ITERS, m, fista, bool(mode),
+                                     route=route)
+    classic, cluster = run("classic"), run("cluster")
+    torch.cuda.synchronize()
+    same = torch.equal(classic, cluster)
+    differ = int((classic != cluster).sum())
+    stats = by_label.setdefault(label, [0, 0, 0.0, 0])
+    stats[0] += 1
+    stats[1] += int(same)
+    stats[2] = max(stats[2], float(classic.abs().max()))
+    stats[3] += int((classic != 0).sum())
+    check(same, "%s s %d b %d M %s %s mode %s warm %s: the cluster kernel's "
+          "codes differ from fista_kernel's at %d of %d entries" % (
+              label, s, b, m, "fista" if fista else "ista", mode, w, differ,
+              classic.numel()))
+  for label, (n, same, top, nonzero) in by_label.items():
+    print("cluster vs classic, %-28s %3d cases, %3d bitwise equal (max|code| "
+          "%.4f, %d nonzero codes)" % (label, n, same, top, nonzero))
+  return len(cases)
+
+
+def cluster_plain_cases(torch, K1, K4, lipschitz, patches, gpatches, dev):
+  """Phase 39 (b): the auto route at b 250 and 125 (the cluster kernel)
+  against the fp32 and fp64 plain versions at phase 2's limit, with a
+  TF32 control.  Returns the largest fp32 error."""
+  d = torch.tensor(unit_rows(np.random.RandomState(0), 256, 256), device=dev)
+  eta = lipschitz.fista_stepsize(d)
+  worst = 0.0
+  for b in (250, 125):
+    for grouped in (False, True):
+      x = torch.tensor((gpatches if grouped else patches)[:b], device=dev)
+      if grouped:
+        got = K4.fused_group_fista_solve(x, d, GROUP_SIZE, LAM, CLUSTER_ITERS,
+                                         eta)
+        route = K4.last_route
+        plain = lambda xx, dd, ee, **kw: K4.fused_group_fista_plain(
+            xx, dd, GROUP_SIZE, LAM, CLUSTER_ITERS, ee, **kw)
+      else:
+        got = K1.fused_fista_solve(x, d, LAM, CLUSTER_ITERS, eta)
+        route = K1.last_route
+        plain = lambda xx, dd, ee, **kw: K1.fused_fista_plain(
+            xx, dd, LAM, CLUSTER_ITERS, ee, **kw)
+      want32 = plain(x, d, eta)
+      want64 = plain(x.double(), d.double(), eta.double())
+      tf32 = plain(x, d, eta, precision="tensorfloat32")
+      torch.cuda.synchronize()
+      err32 = float((got - want32).abs().max())
+      err64 = float((got.double() - want64).abs().max())
+      err_tf32 = float((tf32.double() - want64).abs().max())
+      lim = limit(want64)
+      name = "b %d %s" % (b, "64x4 groups" if grouped else "fc")
+      print("auto route (%s) vs plain, %-16s max|d| fp32 %.3e fp64 %.3e, "
+            "limit %.3e; TF32 control %.3e (must fail it)" % (
+                route, name, err32, err64, lim, err_tf32))
+      check(route == "cluster", name + ": the auto route is " + route)
+      check(err32 <= lim and err64 <= lim, "%s: the cluster kernel differs "
+            "from plain by %.3e / %.3e, limit %.3e" % (name, err32, err64,
+                                                       lim))
+      check(err_tf32 > lim, name + ": the limit does not tell TF32 "
+            "products from fp32")
+      worst = max(worst, err32)
+  return worst
+
+
+def cluster_route_cases(torch, K1, K4, lib, dev):
+  """Phase 39 (c): the route launch_solve took for each shape equals
+  solve_route's; the layout constants match the library's; a forced
+  cluster launch that does not fit raises and counts nothing."""
+  sm, slots = lib.vtc_fista_sm_count(), lib.vtc_fista_cluster_slots()
+  check(sm == torch.cuda.get_device_properties(dev).multi_processor_count,
+        "the library reads %d SMs" % sm)
+  check(slots >= 1, "reading the cluster slots failed: CUDA error %d" % -slots)
+  check((lib.vtc_fista_rows(), lib.vtc_fista_chunk(), lib.vtc_fista_cluster(),
+         lib.vtc_fista_cluster_max_rows())
+        == (K1.ROWS, K1.CHUNK, K1.CLUSTER, K1.CLUSTER_MAX_ROWS),
+        "fused_fista's layout constants differ from the library's")
+  rows250 = K1.cluster_rows(TRAIN_BATCH, 256, 1, slots)
+  print("cluster kernel: %d SMs, %d cluster slots (clusters of %d resident "
+        "at one CTA per SM); at b 250, s 256: %d rows a cluster, %d "
+        "clusters, %d resident at once" % (
+            sm, slots, K1.CLUSTER, rows250, -(-TRAIN_BATCH // rows250),
+            lib.vtc_fista_cluster_occupancy(256, rows250)))
+  shapes = [(250, 256, 1), (125, 256, 1), (37, 256, 1), (1024, 256, 1),
+            (2048, 256, 1), (250, 40, 1), (13, 37, 1), (250, 512, 1),
+            (64, 1024, 1), (250, 256, 4), (125, 256, 4), (2048, 256, 4),
+            (250, 256, 2), (250, 256, 8), (125, 96, 3), (13, 104, 26),
+            (250, 1024, 8)]
+  for b, s, m in shapes:
+    zeros = torch.zeros((b, s), device=dev)
+    gram = torch.zeros((s, s), device=dev)
+    eta = torch.ones(1, device=dev)
+    if m == 1:
+      K1._launch(gram, zeros, None, eta, LAM, 1, True, 0)
+      took = K1.last_route
+    else:
+      K4._launch(gram, zeros, None, eta, LAM, 1, m, True, False)
+      took = K4.last_route
+    want = K1.solve_route(b, s, m, sm)
+    rows = K1.cluster_rows(b, s, m, slots)
+    lay = K1.cluster_layout(s, m, max(rows, 2))
+    print("route: b %4d s %4d M %2d -> %-7s (solve_route %s; cluster layout "
+          "%s)" % (b, s, m, took, want,
+                   "%d rows, %d CTAs of %d threads, %d bytes" % (
+                       rows, K1.cluster_grid(b, rows), lay["threads"],
+                       lay["smem"]) if rows else "does not fit"))
+    check(took == want == {1: "classic", 2: "cluster"}[
+        lib.vtc_fista_route(b, s, m)],
+          "b %d s %d M %d: launch_solve took %s, solve_route says %s" % (
+              b, s, m, took, want))
+    check(rows == max(lib.vtc_fista_cluster_rows(b, s, m), 0),
+          "b %d s %d M %d: the library takes %d rows a cluster, "
+          "cluster_rows %d" % (b, s, m, lib.vtc_fista_cluster_rows(b, s, m),
+                               rows))
+  for s, m in ((1024, 1), (104, 26)):
+    before = (K1.launches, K4.launches)
+    zeros = torch.zeros((16, s), device=dev)
+    gram = torch.zeros((s, s), device=dev)
+    eta = torch.ones(1, device=dev)
+    try:
+      if m == 1:
+        K1._launch(gram, zeros, None, eta, LAM, 1, True, 0, route="cluster")
+      else:
+        K4._launch(gram, zeros, None, eta, LAM, 1, m, True, False,
+                   route="cluster")
+      refused = False
+    except RuntimeError as e:
+      refused = "CUDA error" in str(e)
+    print("forced cluster launch at s %d M %d: %s" % (
+        s, m, "refused" if refused else "LAUNCHED"))
+    check(refused and (K1.launches, K4.launches) == before,
+          "a forced cluster launch that does not fit must raise, uncounted")
+
+
+def solve_dispatch(torch, fn):
+  """{'cluster': n, 'classic': n, 'fold': n}: launches of fista_core.cuh's
+  kernels (fista_cluster_kernel, fista_kernel, fold_gram_kernel) in one
+  call of fn, from torch.profiler's device events."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  out = {"cluster": 0, "classic": 0, "fold": 0}
+  for e in prof.events():
+    if e.device_type == torch.autograd.DeviceType.CUDA:
+      for key, name in (("cluster", "fista_cluster_kernel"),
+                        ("classic", "fista_kernel"),
+                        ("fold", "fold_gram_kernel")):
+        if name in e.name:
+          out[key] += 1
+          break
+  return out
+
+
 def time_ms(torch, fn, reps):
   start, stop = (torch.cuda.Event(enable_timing=True),
                  torch.cuda.Event(enable_timing=True))
@@ -4440,6 +4691,37 @@ def main():
   # phases 36-38: K19 across devices, ranks of this script on the card
   cs_launches, cs_err, cs_ms, cs_p_ms, cs_bound = code_shard_across_devices(
       torch, K19, lipschitz, compiled_epoch, big_gen, dev, card, k19_ms)
+
+  # phase 39: the solve's two kernels (csrc/fista_core.cuh): the cluster
+  # kernel against fista_kernel bitwise, the auto route against plain, the
+  # route of every shape, and which kernel the b-250 trainers launch
+  lib = _build.load_library()
+  cluster_route_cases(torch, fused_fista, fused_group_fista, lib, dev)
+  n_bitwise = cluster_bitwise_cases(torch, fused_fista, fused_group_fista,
+                                    patches, gtrain, dev)
+  cluster_err = cluster_plain_cases(torch, fused_fista, fused_group_fista,
+                                    lipschitz, patches, gtrain, dev)
+  print("phase 39: %d bitwise cases equal; auto route within %.3e of plain"
+        % (n_bitwise, cluster_err))
+  dispatch_params = train_params(DISPATCH_STEPS)
+  dispatch_sub = subspace_train_params(DISPATCH_STEPS, SUB_STEP)
+  for label, x, held, params_ in (
+      ("fc (K2, phase 6)", batches, held_out, dispatch_params),
+      ("subspace (K6, phase 11)", gbatches, gheld, dispatch_sub),
+      ("fc data_parallel (K15, phase 34)", batches, held_out,
+       dict(dispatch_params, data_parallel=True)),
+      ("subspace data_parallel (K16, phase 34)", gbatches, gheld,
+       dict(dispatch_sub, data_parallel=True))):
+    run = lambda: compiled_epoch.train_dictionary_scanned(
+        x[:DISPATCH_STEPS], held[None], d0, params_)
+    seen = solve_dispatch(torch, run)
+    print("dispatch (profiled), train_dictionary_scanned %s, %d steps of "
+          "b 250: fista_cluster_kernel %d, fista_kernel %d, fold_gram_kernel "
+          "%d" % (label, DISPATCH_STEPS, seen["cluster"], seen["classic"],
+                  seen["fold"]))
+    check(seen == {"cluster": DISPATCH_STEPS, "classic": 0, "fold": 0},
+          "%s: expected one fista_cluster_kernel launch a step and no "
+          "fista_kernel, saw %s" % (label, seen))
 
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],

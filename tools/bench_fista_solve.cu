@@ -1,0 +1,307 @@
+// Times the fc/subspace solve's two kernels alone
+// (vtc_tpu_torch/csrc/fista_core.cuh) at s = 256, FISTA, and the parts of
+// the cluster kernel's iteration on their own.  For each batch (125, 250,
+// 2048) it runs fista_kernel (the classic route, its fold included) and
+// fista_cluster_kernel through launch_solve, elementwise soft and with
+// the group prox at M = 4, at 25 and 125 iterations, and prints ms per
+// solve and µs per iteration (the slope between the two counts), and
+// whether the two kernels' codes are bitwise equal.  Then, on the
+// cluster kernel's layout and grid, the pieces of an iteration:
+//   barrier   one cluster.sync() per iteration;
+//   exchange  each thread's four values written into every CTA of the
+//             cluster (cluster_push), then the barrier;
+//   product   the CTA's slice of z @ (-eta G) (cluster_product) from its
+//             resident G slice, with a block barrier between iterations.
+// Built and run by tools/bench_fista_solve.py.
+#include <cmath>
+#include <cstdio>
+#include <cstring>
+#include <vector>
+
+#include "fista_core.cuh"
+
+namespace {
+
+constexpr int kS = 256;
+
+// One cluster.sync() per iteration, or the exchange and the barrier: each
+// thread's two rows of four values written into every CTA of the cluster.
+template <bool PUSH>
+__global__ void __launch_bounds__(kClusterMaxThreads)
+    exchange_kernel(int num_iters, int sk, int rows, float* out) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const ClusterLayout lay = cluster_layout(sk, 1, rows);
+  const int ty = threadIdx.x / (lay.w / 4);
+  const int tx = threadIdx.x - ty * (lay.w / 4);
+  const int plane = rows * lay.ldz;
+  float* zbuf = smem + sk * lay.w;
+  unsigned bases[kCluster];
+  cluster_bases(zbuf, bases);
+  float4 v = make_float4(rank, ty, tx, 0.0f);
+  cluster.sync();
+  for (int it = 0; it < num_iters; ++it) {
+    if (PUSH) {
+      for (int r = 0; r < 2; ++r)
+        cluster_push(bases,
+                     4u * static_cast<unsigned>(
+                              ((it & 1) ^ 1) * plane +
+                              (2 * ty + r) * lay.ldz + rank * lay.w + tx * 4),
+                     v);
+    }
+    cluster.sync();
+    v.w += 1.0f;
+  }
+  if (threadIdx.x == 0)
+    out[blockIdx.x] = zbuf[(num_iters & 1) * plane] + v.w;
+}
+
+// The product alone: the resident G slice times the thread's two z rows,
+// the eight outputs written back into the other local z buffer.
+__global__ void __launch_bounds__(kClusterMaxThreads)
+    product_kernel(const float* __restrict__ gram, int num_iters, int s,
+                   int sk, int rows, float* out) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const ClusterLayout lay = cluster_layout(sk, 1, rows);
+  const int ty = threadIdx.x / (lay.w / 4);
+  const int tx = threadIdx.x - ty * (lay.w / 4);
+  const int plane = rows * lay.ldz;
+  float* gs = smem;
+  float* zbuf = gs + sk * lay.w;
+  cluster_load(gram, nullptr, -0.01f, rows, s, sk, lay.w, rank, 0, rows,
+               lay.ldz, gs, zbuf);
+  for (int idx = threadIdx.x; idx < 2 * plane; idx += blockDim.x)
+    zbuf[idx] = 0.01f;
+  __syncthreads();
+  float acc[2][4];
+  for (int it = 0; it < num_iters; ++it) {
+    const float* z = zbuf + (it & 1) * plane;
+    float* zn = zbuf + ((it & 1) ^ 1) * plane;
+    cluster_product(z + 2 * ty * lay.ldz, lay.ldz, gs + tx * 4, sk, lay.w,
+                    acc);
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float4*>(zn + (2 * ty + r) * lay.ldz +
+                                 rank * lay.w + tx * 4) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = zbuf[(num_iters & 1) * plane];
+}
+
+// Launch a part on the cluster kernel's grid, layout and shared memory.
+template <typename... Params, typename... Args>
+cudaError_t launch_on_clusters(void (*kernel)(Params...), int b, int sk,
+                               int rows, Args... args) {
+  const ClusterLayout lay = cluster_layout(sk, 1, rows);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((b + rows - 1) / rows * kCluster);
+  config.blockDim = dim3(lay.threads);
+  config.dynamicSmemBytes = lay.smem;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+float* to_device(const std::vector<float>& h) {
+  float* d = nullptr;
+  cudaMalloc(&d, h.size() * sizeof(float));
+  cudaMemcpy(d, h.data(), h.size() * sizeof(float), cudaMemcpyHostToDevice);
+  return d;
+}
+
+// ms per call of fn over reps calls, after one warm-up call.
+template <typename F>
+float time_ms(F fn, int reps) {
+  cudaEvent_t start, stop;
+  cudaEventCreate(&start);
+  cudaEventCreate(&stop);
+  fn();
+  cudaEventRecord(start);
+  for (int i = 0; i < reps; ++i) fn();
+  cudaEventRecord(stop);
+  cudaEventSynchronize(stop);
+  float ms = 0.0f;
+  cudaEventElapsedTime(&ms, start, stop);
+  cudaEventDestroy(start);
+  cudaEventDestroy(stop);
+  return ms / reps;
+}
+
+unsigned lcg(unsigned& seed) {
+  seed = seed * 1664525u + 1013904223u;
+  return seed >> 8;
+}
+
+}  // namespace
+
+int main() {
+  const int s = kS, n = 256, bmax = 2048, reps = 20;
+  const int sk = (s + kChunk - 1) / kChunk * kChunk;
+  const int sc = (s + kColBlock - 1) / kColBlock * kColBlock;
+  // a unit-norm random dictionary D (s, n), sparse mixtures X = A D plus
+  // noise, G = D D^T and c = X D^T in double, eta = 1 / |G|_2
+  unsigned seed = 12345u;
+  auto uniform = [&]() { return (lcg(seed) & 0xffff) / 65536.0 - 0.5; };
+  std::vector<double> d(static_cast<size_t>(s) * n);
+  for (int i = 0; i < s; ++i) {
+    double norm = 0.0;
+    for (int j = 0; j < n; ++j) {
+      d[i * n + j] = uniform();
+      norm += d[i * n + j] * d[i * n + j];
+    }
+    for (int j = 0; j < n; ++j) d[i * n + j] /= std::sqrt(norm);
+  }
+  std::vector<float> gram(static_cast<size_t>(s) * s);
+  for (int i = 0; i < s; ++i)
+    for (int j = 0; j < s; ++j) {
+      double acc = 0.0;
+      for (int k = 0; k < n; ++k) acc += d[i * n + k] * d[j * n + k];
+      gram[i * s + j] = static_cast<float>(acc);
+    }
+  std::vector<double> v(s, 1.0), u(s);
+  double lmax = 0.0;
+  for (int it = 0; it < 200; ++it) {
+    double norm = 0.0;
+    for (int i = 0; i < s; ++i) {
+      u[i] = 0.0;
+      for (int j = 0; j < s; ++j) u[i] += gram[i * s + j] * v[j];
+      norm += u[i] * u[i];
+    }
+    lmax = std::sqrt(norm);
+    for (int i = 0; i < s; ++i) v[i] = u[i] / lmax;
+  }
+  std::vector<float> corr(static_cast<size_t>(bmax) * s);
+  std::vector<double> x(n);
+  for (int r = 0; r < bmax; ++r) {
+    for (int j = 0; j < n; ++j) x[j] = 0.02 * uniform();
+    for (int a = 0; a < 5; ++a) {
+      const int atom = lcg(seed) % s;
+      const double coef = 2.0 * uniform();
+      for (int j = 0; j < n; ++j) x[j] += coef * d[atom * n + j];
+    }
+    for (int i = 0; i < s; ++i) {
+      double acc = 0.0;
+      for (int j = 0; j < n; ++j) acc += x[j] * d[i * n + j];
+      corr[static_cast<size_t>(r) * s + i] = static_cast<float>(acc);
+    }
+  }
+  const float eta_h = static_cast<float>(1.0 / lmax), lam = 0.008f;
+  float* gram_d = to_device(gram);
+  float* corr_d = to_device(corr);
+  float* eta_d = to_device(std::vector<float>(1, eta_h));
+  float *gn, *out_a, *out_b, *sink;
+  cudaMalloc(&gn, static_cast<size_t>(sk) * sc * sizeof(float));
+  cudaMalloc(&out_a, static_cast<size_t>(bmax) * s * sizeof(float));
+  cudaMalloc(&out_b, static_cast<size_t>(bmax) * s * sizeof(float));
+  cudaMalloc(&sink, static_cast<size_t>(bmax) * kCluster * sizeof(float));
+  std::vector<float> ha(static_cast<size_t>(bmax) * s),
+      hb(static_cast<size_t>(bmax) * s);
+  const int slots = cluster_slots();
+  std::printf("s %d: sk %d, clusters of %d CTAs, w %d; %d SMs, %d cluster "
+              "slots (clusters resident at one CTA per SM)\n",
+              s, sk, kCluster, sk / kCluster, device_sm_count(), slots);
+  if (slots < 1) return 1;
+  bool ok = true;
+  for (int b : {125, 250, 2048}) {
+    for (int group : {0, 4}) {
+      float ms[2][2];
+      for (int route = 0; route < 2; ++route) {
+        float* out = route ? out_b : out_a;
+        for (int which = 0; which < 2; ++which) {
+          const int iters = which ? 125 : 25;
+          auto run = [&]() {
+            const int r = route ? kRouteCluster : kRouteClassic;
+            return group ? launch_solve<true, kSoft, true>(
+                               gram_d, corr_d, nullptr, eta_d, lam, iters, b,
+                               s, sk, sc, group, gn, nullptr, out, r, nullptr,
+                               0)
+                         : launch_solve<true, kSoft, false>(
+                               gram_d, corr_d, nullptr, eta_d, lam, iters, b,
+                               s, sk, sc, 1, gn, nullptr, out, r, nullptr, 0);
+          };
+          ms[route][which] = time_ms(run, reps);
+          const cudaError_t err = cudaGetLastError();
+          if (err != cudaSuccess) {
+            std::printf("CUDA error: %s\n", cudaGetErrorString(err));
+            return 1;
+          }
+        }
+      }
+      // the last calls (125 iterations) of both routes, compared
+      cudaMemcpy(ha.data(), out_a, static_cast<size_t>(b) * s * 4,
+                 cudaMemcpyDeviceToHost);
+      cudaMemcpy(hb.data(), out_b, static_cast<size_t>(b) * s * 4,
+                 cudaMemcpyDeviceToHost);
+      int differ = 0, nonzero = 0;
+      for (size_t i = 0; i < static_cast<size_t>(b) * s; ++i) {
+        differ += std::memcmp(&ha[i], &hb[i], 4) != 0;
+        nonzero += ha[i] != 0.0f;
+      }
+      ok = ok && differ == 0;
+      std::printf(
+          "b %4d %-11s FISTA: fista_kernel %.4f ms at 25 it, %.4f at 125, "
+          "%.3f us/it; fista_cluster_kernel %.4f, %.4f, %.3f us/it; codes "
+          "%s (%d of %d differ, %d nonzero)\n",
+          b, group ? "group M 4" : "elementwise", ms[0][0], ms[0][1],
+          (ms[0][1] - ms[0][0]) * 10.0f, ms[1][0], ms[1][1],
+          (ms[1][1] - ms[1][0]) * 10.0f,
+          differ ? "DIFFER" : "bitwise equal", differ, b * s, nonzero);
+    }
+    const int rows = cluster_rows(b, sk, 1, slots);
+    const ClusterLayout lay = cluster_layout(sk, 1, rows);
+    std::printf(
+        "b %4d cluster layout: %d rows a cluster, %d clusters, %d threads, "
+        "%d bytes of shared memory, %d clusters resident at once\n",
+        b, rows, (b + rows - 1) / rows, lay.threads, lay.smem,
+        cluster_occupancy<true, kSoft, false>(sk, 1, rows));
+    float parts[3][2];
+    for (int which = 0; which < 2; ++which) {
+      const int iters = which ? 125 : 25;
+      parts[0][which] = time_ms(
+          [&]() {
+            return launch_on_clusters(exchange_kernel<false>, b, sk, rows,
+                                      iters, sk, rows, sink);
+          },
+          reps);
+      parts[1][which] = time_ms(
+          [&]() {
+            return launch_on_clusters(exchange_kernel<true>, b, sk, rows,
+                                      iters, sk, rows, sink);
+          },
+          reps);
+      parts[2][which] = time_ms(
+          [&]() {
+            return launch_on_clusters(product_kernel, b, sk, rows,
+                                      static_cast<const float*>(gram_d),
+                                      iters, s, sk, rows, sink);
+          },
+          reps);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) {
+      std::printf("CUDA error: %s\n", cudaGetErrorString(err));
+      return 1;
+    }
+    std::printf(
+        "b %4d parts of a cluster iteration: barrier %.3f us/it, exchange "
+        "and barrier %.3f us/it, product %.3f us/it (ms at 25 / 125 it: "
+        "%.4f / %.4f, %.4f / %.4f, %.4f / %.4f)\n",
+        b, (parts[0][1] - parts[0][0]) * 10.0f,
+        (parts[1][1] - parts[1][0]) * 10.0f,
+        (parts[2][1] - parts[2][0]) * 10.0f, parts[0][0], parts[0][1],
+        parts[1][0], parts[1][1], parts[2][0], parts[2][1]);
+  }
+  return ok ? 0 : 2;
+}

@@ -1,0 +1,71 @@
+"""Time the fc/subspace solve kernels alone, on one CUDA device.
+
+  python3 tools/bench_fista_solve.py [--out report.txt]
+
+Compiles tools/bench_fista_solve.cu against vtc_tpu_torch/csrc/
+fista_core.cuh with nvcc (for sm_90a, with ptxas's register report) into
+vtc_tpu_torch/_build/, runs it, and prints the registers, spills and
+shared memory of the solve kernels; then, at s 256 and FISTA, for b 125,
+250 and 2048, elementwise and with groups of 4: ms per solve at 25 and
+125 iterations and µs per iteration of fista_kernel and
+fista_cluster_kernel, and whether their codes are bitwise equal; then
+what the cluster kernel's iteration costs in parts (the barrier alone,
+the exchange with the barrier, the product alone); and the card's name
+and power limit.  Every line is printed, and written to --out when
+given.  Exits non-zero when the two kernels' codes differ.  Needs nvcc
+and a CUDA device.
+"""
+import argparse
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import chip_smoke  # noqa: E402  (the card's line)
+from vtc_tpu_torch.ops import _build  # noqa: E402
+
+KERNELS = ("fista_cluster_kernel", "fista_kernel", "exchange_kernel",
+           "product_kernel")
+
+
+def main():
+  parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument("--out", help="also write the report here")
+  args = parser.parse_args()
+  nvcc = _build.find_nvcc()
+  if nvcc is None:
+    print("bench_fista_solve: nvcc not found", file=sys.stderr)
+    return 1
+  here = os.path.dirname(os.path.abspath(__file__))
+  _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  binary = str(_build.BUILD_DIR / "bench_fista_solve")
+  built = subprocess.run(
+      [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_build.CSRC),
+       "-o", binary, os.path.join(here, "bench_fista_solve.cu")],
+      capture_output=True, text=True, check=False)
+  if built.returncode != 0:
+    print(built.stdout + built.stderr, file=sys.stderr)
+    return 1
+  lines, kernel = [], None
+  for line in (built.stdout + built.stderr).splitlines():
+    if "Compiling entry function" in line:
+      name = line.split("'")[1]
+      kernel = name if any(k in name for k in KERNELS) else None
+    elif kernel and ("registers" in line or "spill" in line):
+      lines.append("%s: %s" % (kernel, line.split(":", 1)[-1].strip()))
+  run = subprocess.run([binary], capture_output=True, text=True,
+                       check=False, timeout=600)
+  lines += run.stdout.splitlines() + [chip_smoke.card_line()]
+  print("\n".join(lines))
+  if args.out:
+    with open(args.out, "w") as f:
+      f.write("\n".join(lines) + "\n")
+  if run.returncode != 0:
+    print(run.stderr, file=sys.stderr)
+  return run.returncode
+
+
+if __name__ == "__main__":
+  sys.exit(main())

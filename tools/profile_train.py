@@ -49,7 +49,8 @@ reports
   time, the union of the device's busy intervals, its idle share, and
   device time by kernel, grouped into
   the products (gemm_kernel), the power refresh (power_kernel), the
-  FISTA solve (fista_kernel, fold_gram_kernel), the epilogue
+  FISTA solve (fista_cluster_kernel, and fista_kernel with
+  fold_gram_kernel at large batches), the epilogue
   (hessian_ema_kernel, update_rows_kernel), the group passes
   (gather_rows_kernel, sum_slots_kernel, sign_mask_kernel), the conv
   GEMMs (gather_gemm_tiled, gather_gemm), the conv gradient
@@ -102,8 +103,8 @@ GROUPS = ((RECON, ("recon_partial_kernel", "recon_sum_kernel")),
           (PRODUCTS, ("gemm_kernel",)),
           (POWER, ("power_kernel", "pgram_partial_kernel",
                    "pgram_sum_kernel")),
-          ("FISTA (fista_kernel, fold_gram_kernel)",
-           ("fista_kernel", "fold_gram_kernel")),
+          ("FISTA (fista_cluster_kernel, fista_kernel, fold_gram_kernel)",
+           ("fista_cluster_kernel", "fista_kernel", "fold_gram_kernel")),
           # before the epilogue: conv_hessian_ema_kernel contains its name
           (CONV_UPDATE, ("conv_update_kernel", "conv_hessian_ema_kernel",
                          "dall_from_dstk_kernel")),

@@ -20,47 +20,102 @@
 // across blocks every iteration) and no reduced-precision tier: products
 // are IEEE fp32 FMAs on the CUDA cores.
 //
-// What bounds it on this card.  Rows are independent and t_k is a scalar
-// every block recomputes identically, so one launch runs every iteration
-// with no grid-wide synchronisation.  Per iteration a block of kRows rows
-// does kRows * s * s FMAs and must read all of G (256 KB at s = 256),
-// which does not fit its shared memory.  So the kernel is bound by fp32
-// FMA throughput on the CUDA cores, plus the L2 reads of G: once per block
-// per iteration, kRows rows of reuse per byte.
+// Two kernels compute that contract, and launch_solve picks one by the
+// shape (solve_route below); both give the same bits.  Rows are
+// independent and t_k is a scalar every block recomputes identically, so
+// each runs every iteration in one launch.  Per iteration a batch of b
+// rows does b * s * s FMAs; every output is one fmaf chain over k in
+// ascending order from 0.0f over the zero-padded depth sk, with no
+// split-K, so an iteration cannot take less than the latency of one
+// sk-long chain of dependent FMAs.
 //
-// What the design does about it.
-//  * eta is folded into G once per solve (fold_gram_kernel), and eta c is
-//    folded once per block, as pallas_fista.py:89-95 does; the iteration
-//    keeps JAX's association, (z + z @ (-eta G)) + eta c.
+// fista_kernel, the classic layout: one block of kRows rows per batch
+// tile, ceil(b / kRows) blocks.  A block reads all of G (256 KB at
+// s = 256, beyond its shared memory) every iteration, so:
+//  * eta is folded into G once per solve (fold_gram_kernel), and eta c
+//    once per block, as pallas_fista.py:89-95 does; the iteration keeps
+//    JAX's association, (z + z @ (-eta G)) + eta c.
 //  * The block's state (z twice for ping-pong, old, eta c) lives in shared
 //    memory when it fits the block's budget and in a global scratch slice
 //    owned by the block otherwise; the same code addresses both.
 //  * G streams from L2 in kChunk x kColBlock slices through a two-deep
-//    cp.async ring.  G is constant, so the ring runs across iteration
-//    boundaries: the first slice of the next iteration is in flight while
-//    the last slice of this one is multiplied.
-//  * Each thread keeps a 4 x 4 register tile of the product: 4 rows and 4
-//    neighbouring columns, read as float4 from shared memory (z rows are
-//    a broadcast within a warp; G slices are conflict-free 16-byte reads).
-//  * The group prox needs every slot of a group before it can scale any,
-//    and a group may cross the 4-column thread tiles and the column
-//    blocks.  So the group kernel writes the pre-prox row into the next
-//    z buffer, synchronises, and then runs one pass over (row, group)
-//    pairs that takes each group's norm and scales, and moves, its slots.
-//  * Ragged edges are masked in the kernel: G is copied into a zero-padded
-//    (sk, sc) scratch and the padded codes stay exactly zero.
+//    cp.async ring that runs across iteration boundaries.
+//  * Each thread keeps a 4 x 4 register tile of the product (4 rows, 4
+//    neighbouring columns) read as float4 from shared memory.
+//  * The group prox needs every slot of a group, and a group may cross
+//    the thread tiles, so the group kernel writes the pre-prox rows,
+//    synchronises, and runs one pass over (row, group) pairs.
+// It fills the card at large batches (128 blocks at b = 2048) but uses
+// ceil(b / 16) of the 132 SMs below that: 16 at the trainers' b = 250.
+//
+// fista_cluster_kernel, the small-batch layout: one thread-block cluster
+// of kCluster = 8 CTAs per tile of `rows` batch rows.  CTA q owns the
+// columns [q w, (q+1) w) with w = sk / kCluster:
+//  * its (sk, w) slice of G is copied into shared memory once per solve
+//    (cp.async, every copy in flight at once) and multiplied by -eta in
+//    place, fold_gram_kernel's one multiply (no fold launch, no gn round
+//    trip); it stays there: nothing streams per iteration;
+//  * it keeps the tile's full z rows twice (ping-pong) in shared memory;
+//    old and eta c of its own columns live in the registers of the
+//    thread that owns them: two rows and four neighbouring columns, so
+//    each float4 of G read from shared memory feeds eight FMAs;
+//  * an iteration: each thread takes its eight outputs of z @ (-eta G)
+//    from shared memory, applies (z + acc) + eta c, the prox and the
+//    momentum in registers, writes its next-z values into the other z
+//    buffer of every CTA of the cluster through distributed shared
+//    memory (st.shared::cluster), and the cluster synchronises once.
+//    The buffers alternate, so no CTA writes a buffer another may still
+//    read, and the last iteration's barrier is the last remote write any
+//    CTA sees;
+//  * the group prox is register-local for M in {1, 2, 4}: a thread's four
+//    columns start at a multiple of 4, so they hold whole groups.  Other
+//    M that divide w take one CTA-local shared-memory pass for the norms;
+//  * rows (cluster_rows) spreads the batch over the card's cluster slots,
+//    the clusters resident at one CTA per SM (15 of 8 on the 132-SM
+//    NVIDIA H100 80GB HBM3, 700 W: clusters must fit a GPC): 18 rows and
+//    14 clusters at b = 250, 10 rows and 13 clusters at b = 125.  (A 16th
+//    cluster at b = 250 would share SMs with another and double their
+//    time.)
+// Its iteration is bound by the issue of the product's instructions in
+// the two or three warps a CTA has (the product alone about 2.7 µs at
+// b = 250 and s = 256 on an NVIDIA H100 80GB HBM3 at 700 W), then the
+// DSMEM broadcast (rows * sk floats into each CTA) with the cluster
+// barrier (1.2 µs, the barrier alone 0.43); tools/bench_fista_solve.py
+// times each part.
+//
+// The route (solve_route) is a pure function of the shape and the SM
+// count: the cluster kernel where its layout fits (w a multiple of M,
+// the shared memory within a block's budget) and the classic kernel
+// would fill at most half of the SMs; the classic kernel otherwise.  A
+// launch that fails returns its CUDA error; neither kernel stands in for
+// the other.
+//
+// Ragged edges are masked in both: G is zero-padded to (sk, sc) (the
+// cluster kernel pads its slice in the load), and the padded codes stay
+// exactly +0.0f.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;   // 64 column threads x 4 row threads
 constexpr int kRows = 16;       // batch rows per block (4 per row thread)
 constexpr int kColBlock = 256;  // columns per column block (4 per thread)
 constexpr int kChunk = 32;      // depth of one streamed slice of G
 constexpr int kSliceFloats = kChunk * kColBlock;
+constexpr int kCluster = 8;     // CTAs per cluster (the portable size)
+constexpr int kClusterMaxRows = 32;  // batch rows per cluster, 2 a thread
+constexpr int kClusterMaxThreads = 512;
+constexpr int kSmemPerBlock = 232448;  // a block's opt-in shared memory
+// sk (a multiple of kChunk) splits into kCluster slices of whole float4s
+static_assert(kChunk % (4 * kCluster) == 0, "cluster slices of 4 columns");
+
+enum Route { kRouteAuto = 0, kRouteClassic = 1, kRouteCluster = 2 };
 
 enum Shrink { kSoft = 0, kSoftNonneg = 1, kHard = 2, kHardNonneg = 3 };
 
@@ -75,6 +130,12 @@ __device__ __forceinline__ float shrink(float x, float t) {
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
                "l"(gmem));
 }
 
@@ -134,11 +195,37 @@ __device__ __forceinline__ float momentum(float code, float old,
                : code;
 }
 
+// The scale of one group from its sum of squares: IEEE sqrtf and
+// division, the zero-norm guard of thresholds.group_shrink, and for HARD
+// norm < t -> 0.  Both kernels call it, so they agree bit for bit.
+template <bool HARD>
+__device__ __forceinline__ float group_scale(float sq, float t) {
+  const float norm = sqrtf(sq);
+  if (HARD) return norm < t ? 0.0f : 1.0f;
+  const float safe = norm == 0.0f ? 1.0f : norm;
+  return fmaxf(__fsub_rn(1.0f, __fdiv_rn(t, safe)), 0.0f);
+}
+
+// FISTA's t_{k+1} = (1 + sqrt(1 + 4 t_k^2)) / 2 and beta = (t_k - 1) /
+// t_{k+1}, with explicit roundings (no contraction into an FMA); ISTA
+// keeps t and has beta 0.
+template <bool FISTA>
+__device__ __forceinline__ float next_t(float t_k, float* beta) {
+  if (!FISTA) {
+    *beta = 0.0f;
+    return t_k;
+  }
+  const float t_next = __fdiv_rn(
+      __fadd_rn(1.0f, __fsqrt_rn(__fadd_rn(
+                          1.0f, __fmul_rn(__fmul_rn(4.0f, t_k), t_k)))),
+      2.0f);
+  *beta = __fdiv_rn(__fsub_rn(t_k, 1.0f), t_next);
+  return t_next;
+}
+
 // The group prox over the block's rows.  zn holds the pre-prox values of
 // every slot; each (row, group) pair takes its group's norm, scales the
 // slots and applies the momentum in place, and records the codes in old.
-// IEEE sqrtf and division, the zero-norm guard of
-// thresholds.group_shrink, and for HARD norm < t -> 0.
 template <bool FISTA, bool HARD>
 __device__ __forceinline__ void group_prox(float* zn, float* old, int s,
                                            int sk, int group_size,
@@ -150,14 +237,7 @@ __device__ __forceinline__ void group_prox(float* zn, float* old, int s,
     float sq = 0.0f;
     for (int m = 0; m < group_size; ++m)
       sq = fmaf(zn[at + m], zn[at + m], sq);
-    const float norm = sqrtf(sq);
-    float scale;
-    if (HARD) {
-      scale = norm < t ? 0.0f : 1.0f;
-    } else {
-      const float safe = norm == 0.0f ? 1.0f : norm;
-      scale = fmaxf(__fsub_rn(1.0f, __fdiv_rn(t, safe)), 0.0f);
-    }
+    const float scale = group_scale<HARD>(sq, t);
     for (int m = 0; m < group_size; ++m) {
       const float code = __fmul_rn(zn[at + m], scale);
       zn[at + m] = momentum<FISTA>(code, old[at + m], beta);
@@ -218,15 +298,8 @@ __global__ void __launch_bounds__(kThreads)
   if (num_iters > 0) load_slice(gn, 0, nk, sc, gbuf);
 
   for (int it = 0; it < num_iters; ++it) {
-    float t_next = t_k;
-    float beta = 0.0f;
-    if (FISTA) {  // explicit roundings: no contraction into an FMA
-      t_next = __fdiv_rn(
-          __fadd_rn(1.0f, __fsqrt_rn(__fadd_rn(
-                              1.0f, __fmul_rn(__fmul_rn(4.0f, t_k), t_k)))),
-          2.0f);
-      beta = __fdiv_rn(__fsub_rn(t_k, 1.0f), t_next);
-    }
+    float beta;
+    const float t_next = next_t<FISTA>(t_k, &beta);
     const float* z = cur ? zbuf1 : zbuf0;
     float* zn = cur ? zbuf0 : zbuf1;
 
@@ -313,14 +386,495 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Fold G, then launch the solve.  state_global null keeps the block's
-// state in shared memory.  Returns the first CUDA error.
+// The cluster kernel's layout for a padded depth sk and rows batch rows
+// per cluster (even): w columns per CTA, z rows of ldz floats (4 past
+// sk, so the rows a warp reads fall on different banks), one thread per
+// (row pair, 4 columns), and the dynamic shared memory: the G slice, two
+// z buffers and, for a group prox whose M does not divide 4, the staged
+// pre-prox slice and its group scales.
+struct ClusterLayout {
+  int w, ldz, threads, smem;
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(int sk,
+                                                        int group_size,
+                                                        int rows) {
+  ClusterLayout lay;
+  lay.w = sk / kCluster;
+  lay.ldz = sk + 4;
+  lay.threads = rows / 2 * (lay.w / 4);
+  int floats = sk * lay.w + 2 * rows * lay.ldz;
+  if (4 % group_size != 0 && lay.w % group_size == 0)
+    floats += rows * lay.w + rows * (lay.w / group_size);
+  lay.smem = floats * static_cast<int>(sizeof(float));
+  return lay;
+}
+
+// The most rows (even, at most kClusterMaxRows) a cluster can take for
+// sk padded codes in groups of group_size (1: elementwise) within a
+// block's thread and shared-memory budgets, or 0 where a group would
+// cross two CTAs' columns or not even two rows fit.
+__host__ __device__ inline int cluster_max_rows(int sk, int group_size) {
+  if (group_size < 1 || (sk / kCluster) % group_size != 0) return 0;
+  for (int rows = kClusterMaxRows; rows >= 2; rows -= 2) {
+    const ClusterLayout lay = cluster_layout(sk, group_size, rows);
+    if (lay.threads <= kClusterMaxThreads && lay.smem <= kSmemPerBlock)
+      return rows;
+  }
+  return 0;
+}
+
+// Rows per cluster for a batch of b: as few as spread the batch over the
+// card's cluster slots (the clusters resident at one CTA per SM), so
+// each CTA has an SM of its own, within cluster_max_rows.
+__host__ __device__ inline int cluster_rows(int b, int sk, int group_size,
+                                            int slots) {
+  const int spread = slots > 0 ? slots : 1;
+  const int per_slot = (b + spread - 1) / spread;
+  const int rows = per_slot < 2 ? 2 : (per_slot + 1) / 2 * 2;
+  const int most = cluster_max_rows(sk, group_size);
+  return rows > most ? most : rows;
+}
+
+// The route: the cluster kernel where its layout fits and the classic
+// kernel's ceil(b / kRows) blocks would fill at most half of the SMs; the
+// classic kernel otherwise.  ops/fused_fista.solve_route mirrors it.
+inline int solve_route(int b, int sk, int group_size, int sm_count) {
+  const int tiles = (b + kRows - 1) / kRows;
+  return cluster_max_rows(sk, group_size) >= 2 && 2 * tiles <= sm_count
+             ? kRouteCluster
+             : kRouteClassic;
+}
+
+// The current device's SM count, read once per device.
+inline int device_sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    counts[dev] = 0;
+  return counts[dev];
+}
+
+// The cluster kernel's pieces, which tools/bench_fista_solve.cu also
+// times on their own.
+
+// Copy the (rows, width) block at src (row stride ld, live where row <
+// live_rows and column < live_cols) into dst (row stride dld) with
+// cp.async, zero elsewhere; width is a multiple of 4.  Each thread walks
+// its float4s with a running (row, float4) pair, so no division per
+// element, and every copy is in flight at once: the caller commits and
+// waits.  A whole float4 moves as one 16-byte copy where the source rows
+// are 16-byte aligned (ld a multiple of 4) and it is all live.
+__device__ __forceinline__ void cluster_copy_in(const float* src, int ld,
+                                                int live_rows, int live_cols,
+                                                float* dst, int dld, int rows,
+                                                int width) {
+  const int per_row = width / 4;
+  const int step = blockDim.x;
+  int r = threadIdx.x / per_row;
+  int c4 = threadIdx.x - r * per_row;
+  const int dr = step / per_row, dc = step - dr * per_row;
+  for (; r < rows;) {
+    float* d = dst + r * dld + c4 * 4;
+    const int col = c4 * 4;
+    if (src != nullptr && r < live_rows && col + 3 < live_cols &&
+        ld % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      cp_async16(d, src + static_cast<int64_t>(r) * ld + col);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (src != nullptr && r < live_rows && col + i < live_cols)
+          cp_async4(d + i, src + static_cast<int64_t>(r) * ld + col + i);
+        else
+          d[i] = 0.0f;
+      }
+    }
+    r += dr;
+    c4 += dc;
+    if (c4 >= per_row) {
+      c4 -= per_row;
+      ++r;
+    }
+  }
+}
+
+// gs (sk, w) = -eta G for the columns [rank w, (rank+1) w), zero-padded,
+// and the tile's z rows (init, zero-padded) into zbuf: every copy in
+// flight at once, then fold_gram_kernel's one multiply on the live
+// entries in place (padding stays +0.0f).
+__device__ __forceinline__ void cluster_load(
+    const float* __restrict__ gram, const float* __restrict__ init,
+    float neg_eta, int b, int s, int sk, int w, int rank, int64_t row0,
+    int rows, int ldz, float* gs, float* zbuf) {
+  const int g_cols = s - rank * w;  // live columns of this CTA's slice
+  cluster_copy_in(gram + rank * w, s, s, g_cols, gs, w, sk, w);
+  const int z_rows = b - row0 < rows ? static_cast<int>(b - row0) : rows;
+  cluster_copy_in(init == nullptr ? nullptr : init + row0 * s, s, z_rows, s,
+                  zbuf, ldz, rows, sk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int per_row = w / 4, step = blockDim.x;
+  int k = threadIdx.x / per_row;
+  int c4 = threadIdx.x - k * per_row;
+  const int dk = step / per_row, dc = step - dk * per_row;
+  for (; k < s;) {
+    float4* p = reinterpret_cast<float4*>(gs + k * w + c4 * 4);
+    float4 v = *p;
+    const int col = c4 * 4;
+    if (col < g_cols) v.x = neg_eta * v.x;
+    if (col + 1 < g_cols) v.y = neg_eta * v.y;
+    if (col + 2 < g_cols) v.z = neg_eta * v.z;
+    if (col + 3 < g_cols) v.w = neg_eta * v.w;
+    *p = v;
+    k += dk;
+    c4 += dc;
+    if (c4 >= per_row) {
+      c4 -= per_row;
+      ++k;
+    }
+  }
+}
+
+// acc[r][c] = sum_k zr[r ldz + k] gcol[k w + c], r < 2, c < 4: eight fmaf
+// chains over k in ascending order from 0.0f (fista_kernel's order).  Per
+// four k a thread reads one float4 of each z row and four float4 of G,
+// each G float4 serving both rows.  (Issuing the next four k's reads
+// before this four's FMAs, or holding the z float4s in an array, measured
+// slower on an NVIDIA H100 80GB HBM3 at 700 W: 3.4-4.2 against 2.7-3.2
+// µs an iteration at b = 250, tools/bench_fista_solve.py.)
+__device__ __forceinline__ void cluster_product(const float* zr, int ldz,
+                                                const float* gcol, int sk,
+                                                int w, float (&acc)[2][4]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+#pragma unroll 2
+  for (int k = 0; k < sk; k += 4) {
+    const float4 a0 = *reinterpret_cast<const float4*>(zr + k);
+    const float4 a1 = *reinterpret_cast<const float4*>(zr + ldz + k);
+    const float* g = gcol + k * w;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 gv = *reinterpret_cast<const float4*>(g + kk * w);
+      const float v0 = kk == 0 ? a0.x : kk == 1 ? a0.y : kk == 2 ? a0.z : a0.w;
+      const float v1 = kk == 0 ? a1.x : kk == 1 ? a1.y : kk == 2 ? a1.z : a1.w;
+      acc[0][0] = fmaf(v0, gv.x, acc[0][0]);
+      acc[0][1] = fmaf(v0, gv.y, acc[0][1]);
+      acc[0][2] = fmaf(v0, gv.z, acc[0][2]);
+      acc[0][3] = fmaf(v0, gv.w, acc[0][3]);
+      acc[1][0] = fmaf(v1, gv.x, acc[1][0]);
+      acc[1][1] = fmaf(v1, gv.y, acc[1][1]);
+      acc[1][2] = fmaf(v1, gv.z, acc[1][2]);
+      acc[1][3] = fmaf(v1, gv.w, acc[1][3]);
+    }
+  }
+}
+
+// bases[q]: the shared::cluster address of local in the CTA of cluster
+// rank q (mapa), for cluster_push.
+__device__ __forceinline__ void cluster_bases(const float* local,
+                                              unsigned (&bases)[kCluster]) {
+  const unsigned own =
+      static_cast<unsigned>(__cvta_generic_to_shared(local));
+#pragma unroll
+  for (int q = 0; q < kCluster; ++q)
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(bases[q])
+                 : "r"(own), "r"(q));
+}
+
+// Write v at byte offset at of the same buffer in every CTA of the
+// cluster through distributed shared memory.
+__device__ __forceinline__ void cluster_push(
+    const unsigned (&bases)[kCluster], unsigned at, float4 v) {
+#pragma unroll
+  for (int q = 0; q < kCluster; ++q)
+    asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
+                 ::"r"(bases[q] + at), "f"(v.x), "f"(v.y), "f"(v.z),
+                 "f"(v.w)
+                 : "memory");
+}
+
+// The group prox of a row's four columns, which hold 4 / M whole groups:
+// code = x * scale of its group, in registers.
+template <int M, bool HARD>
+__device__ __forceinline__ void register_group_prox(const float (&x)[4],
+                                                    float t,
+                                                    float (&code)[4]) {
+#pragma unroll
+  for (int g = 0; g < 4; g += M) {
+    float sq = 0.0f;
+#pragma unroll
+    for (int m = 0; m < M; ++m) sq = fmaf(x[g + m], x[g + m], sq);
+    const float scale = group_scale<HARD>(sq, t);
+#pragma unroll
+    for (int m = 0; m < M; ++m) code[g + m] = __fmul_rn(x[g + m], scale);
+  }
+}
+
+// GROUP: the group prox of group_size slots (MODE kSoft or kHard), in
+// registers for M in {1, 2, 4}, else through one CTA-local pass over the
+// staged slice (M divides w); otherwise the elementwise shrink<MODE>.
+// One cluster of kCluster CTAs per rows batch rows; the CTA of cluster
+// rank q owns the columns [q w, (q+1) w), its thread (ty, tx) the rows
+// 2 ty and 2 ty + 1 and the columns q w + 4 tx .. +3.
+template <bool FISTA, int MODE, bool GROUP>
+__global__ void __launch_bounds__(kClusterMaxThreads)
+    fista_cluster_kernel(const float* __restrict__ gram,
+                         const float* __restrict__ corr,
+                         const float* __restrict__ init,
+                         const float* __restrict__ eta_ptr, float lam,
+                         int num_iters, int b, int s, int sk, int group_size,
+                         int rows, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const ClusterLayout lay = cluster_layout(sk, group_size, rows);
+  const int w = lay.w, ldz = lay.ldz;
+  const int tid = threadIdx.x;
+  const int ty = tid / (w / 4);
+  const int tx = tid - ty * (w / 4);
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x / kCluster) * rows;
+  const int j0 = rank * w + tx * 4;  // the thread's first column
+  const int plane = rows * ldz;      // one z buffer
+
+  float* gs = smem;                  // (sk, w): -eta G, this CTA's columns
+  float* zbuf = gs + sk * w;         // two (rows, ldz) z buffers
+  float* pre = zbuf + 2 * plane;     // shared pass: (rows, w) pre-prox
+  float* scl = pre + rows * w;       // shared pass: (rows, w / M) scales
+
+  const float eta = *eta_ptr;
+  const float lam_eta = lam * eta;
+  cluster_load(gram, init, -eta, b, s, sk, w, rank, row0, rows, ldz, gs,
+               zbuf);
+  // this thread's rows and columns of z, old and eta c
+  float zown[2][4], old[2][4], ec[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t row = row0 + 2 * ty + r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const bool live = row < b && j0 + c < s;
+      const int64_t at = row * s + j0 + c;
+      zown[r][c] = (live && init != nullptr) ? init[at] : 0.0f;
+      old[r][c] = zown[r][c];
+      ec[r][c] = live ? eta * corr[at] : 0.0f;
+    }
+  }
+  unsigned bases[kCluster];  // zbuf in every CTA of the cluster
+  cluster_bases(zbuf, bases);
+  // every CTA of the cluster has started (and its z rows are loaded)
+  // before any writes into another's shared memory
+  cluster.sync();
+
+  float t_k = 1.0f;
+  for (int it = 0; it < num_iters; ++it) {
+    float beta;
+    const float t_next = next_t<FISTA>(t_k, &beta);
+    const int cur = it & 1;
+    float acc[2][4], x[2][4], code[2][4];
+    cluster_product(zbuf + cur * plane + 2 * ty * ldz, ldz, gs + tx * 4, sk,
+                    w, acc);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        x[r][c] = __fadd_rn(__fadd_rn(zown[r][c], acc[r][c]), ec[r][c]);
+    if (GROUP) {
+      constexpr bool kHardGroup = MODE == kHard;
+      if (group_size == 4) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          register_group_prox<4, kHardGroup>(x[r], lam_eta, code[r]);
+      } else if (group_size == 2) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          register_group_prox<2, kHardGroup>(x[r], lam_eta, code[r]);
+      } else if (group_size == 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          register_group_prox<1, kHardGroup>(x[r], lam_eta, code[r]);
+      } else {
+        const int per_row = w / group_size;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float4*>(pre + (2 * ty + r) * w + tx * 4) =
+              make_float4(x[r][0], x[r][1], x[r][2], x[r][3]);
+        __syncthreads();
+        for (int p = tid; p < rows * per_row; p += blockDim.x) {
+          const int r = p / per_row;
+          const float* g = pre + r * w + (p - r * per_row) * group_size;
+          float sq = 0.0f;
+          for (int m = 0; m < group_size; ++m) sq = fmaf(g[m], g[m], sq);
+          scl[p] = group_scale<kHardGroup>(sq, lam_eta);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            code[r][c] = __fmul_rn(
+                x[r][c],
+                scl[(2 * ty + r) * per_row + (tx * 4 + c) / group_size]);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          code[r][c] = shrink<MODE>(x[r][c], lam_eta);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        // padded columns stay +0.0f, as fista_kernel never writes them
+        const bool col = j0 + c < s;
+        zown[r][c] = col ? momentum<FISTA>(code[r][c], old[r][c], beta)
+                         : 0.0f;
+        old[r][c] = col ? code[r][c] : 0.0f;
+      }
+      const int at = (cur ^ 1) * plane + (2 * ty + r) * ldz + j0;
+      cluster_push(bases, static_cast<unsigned>(at) * 4u,
+                   make_float4(zown[r][0], zown[r][1], zown[r][2],
+                               zown[r][3]));
+    }
+    // every CTA has read z and written the next z everywhere: the next
+    // iteration reads it and overwrites this one's.  The last barrier is
+    // also the one after which no CTA writes into another, so each may
+    // then exit.
+    cluster.sync();
+    t_k = t_next;
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t row = row0 + 2 * ty + r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (row < b && j0 + c < s) out[row * s + j0 + c] = old[r][c];
+  }
+}
+
+// The number of clusters of kCluster CTAs the current device holds at
+// one CTA per SM (cudaOccupancyMaxActiveClusters at a whole SM's shared
+// memory), read once per device; minus the CUDA error on failure.
+inline int cluster_slots() {
+  static int slots[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return -static_cast<int>(cudaErrorInvalidDevice);
+  if (slots[dev] > 0) return slots[dev];
+  auto kernel = fista_cluster_kernel<true, kSoft, false>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemPerBlock);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kCluster);
+  config.blockDim = dim3(128);
+  config.dynamicSmemBytes = kSmemPerBlock;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (clusters < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
+  slots[dev] = clusters;
+  return clusters;
+}
+
+// Launch the cluster kernel: kCluster CTAs per cluster_rows batch rows.
+template <bool FISTA, int MODE, bool GROUP>
+cudaError_t launch_cluster(const float* gram, const float* corr,
+                           const float* init, const float* eta, float lam,
+                           int num_iters, int b, int s, int sk,
+                           int group_size, float* out, cudaStream_t stream) {
+  if (cluster_max_rows(sk, group_size) < 2) return cudaErrorInvalidValue;
+  const int slots = cluster_slots();
+  if (slots < 0) return static_cast<cudaError_t>(-slots);
+  const int rows = cluster_rows(b, sk, group_size, slots);
+  const ClusterLayout lay = cluster_layout(sk, group_size, rows);
+  auto kernel = fista_cluster_kernel<FISTA, MODE, GROUP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim =
+      dim3(static_cast<unsigned>((b + rows - 1) / rows) * kCluster);
+  config.blockDim = dim3(static_cast<unsigned>(lay.threads));
+  config.dynamicSmemBytes = static_cast<size_t>(lay.smem);
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, gram, corr, init, eta, lam,
+                           num_iters, b, s, sk, group_size, rows, out);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// How many clusters of the cluster kernel can be resident at once for sk
+// padded codes at rows rows per cluster (cudaOccupancyMaxActiveClusters),
+// or minus the CUDA error.
+template <bool FISTA, int MODE, bool GROUP>
+int cluster_occupancy(int sk, int group_size, int rows) {
+  if (rows < 2 || rows > cluster_max_rows(sk, group_size))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const ClusterLayout lay = cluster_layout(sk, group_size, rows);
+  auto kernel = fista_cluster_kernel<FISTA, MODE, GROUP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kCluster);
+  config.blockDim = dim3(static_cast<unsigned>(lay.threads));
+  config.dynamicSmemBytes = static_cast<size_t>(lay.smem);
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
+}
+
+// Launch the solve on the route given (kRouteAuto: solve_route's), and
+// store the route taken in *taken unless it is null.  The classic route
+// folds G into gn first; state_global null keeps its blocks' state in
+// shared memory.  Returns the first CUDA error.
 template <bool FISTA, int MODE, bool GROUP>
 cudaError_t launch_solve(const float* gram, const float* corr,
                          const float* init, const float* eta, float lam,
                          int num_iters, int b, int s, int sk, int sc,
                          int group_size, float* gn, float* state_global,
-                         float* out, cudaStream_t stream) {
+                         float* out, int route, int* taken,
+                         cudaStream_t stream) {
+  if (route == kRouteAuto)
+    route = solve_route(b, sk, group_size, device_sm_count());
+  if (taken != nullptr) *taken = route;
+  if (route == kRouteCluster)
+    return launch_cluster<FISTA, MODE, GROUP>(gram, corr, init, eta, lam,
+                                              num_iters, b, s, sk,
+                                              group_size, out, stream);
+  if (route != kRouteClassic) return cudaErrorInvalidValue;
   const int64_t total = static_cast<int64_t>(sk) * sc;
   const unsigned fold_grid =
       static_cast<unsigned>(total / 256 + 1 < 1024 ? total / 256 + 1 : 1024);

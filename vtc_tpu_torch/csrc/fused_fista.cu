@@ -8,9 +8,11 @@
 //   codes = shrink(z + z @ (-eta G) + eta c, lam * eta)
 //
 // with soft / nonneg-soft / hard / nonneg-hard shrinkage, FISTA or ISTA
-// momentum and an optional warm start.  The kernel, what bounds it and
-// what its design does about it are in fista_core.cuh, which K4 shares:
-// this file instantiates its elementwise-shrink variants.
+// momentum and an optional warm start.  The two kernels (the classic
+// layout for large batches, the thread-block-cluster layout for small
+// ones), the route between them, what bounds each and what its design
+// does about it are in fista_core.cuh, which K4 shares: this file
+// instantiates their elementwise-shrink variants.
 #include "fista_core.cuh"
 
 extern "C" {
@@ -22,22 +24,57 @@ int vtc_fista_col_block() { return kColBlock; }
 int vtc_fista_slice_bytes() {
   return 2 * kSliceFloats * static_cast<int>(sizeof(float));
 }
+int vtc_fista_cluster() { return kCluster; }
+int vtc_fista_cluster_max_rows() { return kClusterMaxRows; }
+
+// The current device's SM count, as the route reads it, and its cluster
+// slots (clusters resident at one CTA per SM, or minus the CUDA error).
+int vtc_fista_sm_count() { return device_sm_count(); }
+int vtc_fista_cluster_slots() { return cluster_slots(); }
+
+// The route launch_solve takes on this device for b rows of s codes in
+// groups of group_size (1: elementwise): 1 classic, 2 cluster.
+int vtc_fista_route(int b, int s, int group_size) {
+  const int sk = (s + kChunk - 1) / kChunk * kChunk;
+  return solve_route(b, sk, group_size, device_sm_count());
+}
+
+// The rows per cluster the cluster kernel takes for that shape on this
+// device, or minus the CUDA error of reading its cluster slots.
+int vtc_fista_cluster_rows(int b, int s, int group_size) {
+  const int sk = (s + kChunk - 1) / kChunk * kChunk;
+  const int slots = cluster_slots();
+  return slots < 0 ? slots : cluster_rows(b, sk, group_size, slots);
+}
+
+// cudaOccupancyMaxActiveClusters of the (FISTA, soft) cluster kernel for
+// s codes at rows rows per cluster, or minus the CUDA error.
+int vtc_fista_cluster_occupancy(int s, int rows) {
+  const int sk = (s + kChunk - 1) / kChunk * kChunk;
+  return cluster_occupancy<true, kSoft, false>(sk, 1, rows);
+}
 
 // gram (s, s), corr (b, s), init (b, s) or null, eta (1,) on the device.
 // gn_scratch (sk, sc); state_scratch (ceil(b / rows), 4, rows, sk) or
-// null to keep the state in shared memory; out (b, s).
+// null to keep the state in shared memory (both used by the classic
+// route only); out (b, s).  route: 0 the shape's own (solve_route),
+// 1 the classic kernel, 2 the cluster kernel (1 and 2 force a kernel, for
+// checks and tools); taken, unless null, receives the route launched.
 // Returns the CUDA error code of the launches (0 on success).
 int vtc_fused_fista(const float* gram, const float* corr, const float* init,
                     const float* eta, float lam, int num_iters, int b, int s,
                     int sk, int sc, int fista, int mode, float* gn_scratch,
-                    float* state_scratch, float* out, void* stream_ptr) {
-  if (!solve_args_ok(b, s, num_iters, sk, sc) || mode < 0 || mode > 3)
+                    float* state_scratch, float* out, int route, int* taken,
+                    void* stream_ptr) {
+  if (!solve_args_ok(b, s, num_iters, sk, sc) || mode < 0 || mode > 3 ||
+      route < kRouteAuto || route > kRouteCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err;
 #define VTC_LAUNCH(F, M)                                                     \
   launch_solve<F, M, false>(gram, corr, init, eta, lam, num_iters, b, s, sk, \
-                            sc, 1, gn_scratch, state_scratch, out, stream)
+                            sc, 1, gn_scratch, state_scratch, out, route,    \
+                            taken, stream)
   if (fista) {
     switch (mode) {
       case kSoft: err = VTC_LAUNCH(true, kSoft); break;

@@ -19,14 +19,15 @@
 // two forms (rsqrt on power-of-two windows, membership matmuls
 // otherwise) agree with it to 1e-6.
 //
-// The kernel is K1's (fista_core.cuh: the G ring in shared memory, the
-// 4 x 4 register tiles, the state in shared or global memory) with the
-// group prox as its epilogue: the pre-prox rows go to the block's state,
-// the block synchronises, and one pass over (row, group) pairs scales
-// each group.  That pass costs kRows * G*M reads and writes of the state
-// per iteration against the product's kRows * (G*M)^2 FMAs, so the
-// kernel stays bound as K1 is (fista_core.cuh).  A thread-local prox for
-// M in {1, 2, 4} would spare the extra synchronisation: later speed work.
+// The kernels are K1's (fista_core.cuh) with the group prox as their
+// epilogue.  The classic kernel writes the pre-prox rows to the block's
+// state, synchronises, and runs one pass over (row, group) pairs.  The
+// cluster kernel, which takes the small batches, keeps a thread's four
+// neighbouring columns in registers: for M in {1, 2, 4} they hold whole
+// groups, so it takes each group's norm and scale there, with no barrier
+// and no second pass; an M that divides a CTA's columns but not 4 takes
+// one CTA-local shared-memory pass, and an M that does not divide them
+// is routed to the classic kernel (solve_route).
 #include "fista_core.cuh"
 
 extern "C" {
@@ -35,22 +36,23 @@ extern "C" {
 // device, gm = groups * group_size.  gn_scratch (sk, sc); state_scratch
 // (ceil(b / rows), 4, rows, sk) or null to keep the state in shared
 // memory (the sizes of vtc_fused_fista); out (b, gm).  hard: 0 soft,
-// 1 hard group thresholding.  Returns the CUDA error code (0 on success).
+// 1 hard group thresholding.  route and taken as in vtc_fused_fista.
+// Returns the CUDA error code (0 on success).
 int vtc_fused_group_fista(const float* gram, const float* corr,
                           const float* init, const float* eta, float lam,
                           int num_iters, int b, int gm, int group_size,
                           int sk, int sc, int fista, int hard,
                           float* gn_scratch, float* state_scratch, float* out,
-                          void* stream_ptr) {
+                          int route, int* taken, void* stream_ptr) {
   if (!solve_args_ok(b, gm, num_iters, sk, sc) || group_size < 1 ||
-      gm % group_size != 0)
+      gm % group_size != 0 || route < kRouteAuto || route > kRouteCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err;
 #define VTC_LAUNCH(F, M)                                                    \
   launch_solve<F, M, true>(gram, corr, init, eta, lam, num_iters, b, gm, sk, \
                            sc, group_size, gn_scratch, state_scratch, out,  \
-                           stream)
+                           route, taken, stream)
   if (fista)
     err = hard ? VTC_LAUNCH(true, kHard) : VTC_LAUNCH(true, kSoft);
   else

@@ -46,9 +46,10 @@
 // near-orthogonal atoms can flip between fp32 and fp64, so the
 // regularized step is held to its plain version at small sizes.
 //
-// What bounds it on this card: as K2, the group solve on ceil(b / 16)
-// blocks (16 of 132 SMs at the flagship's b = 250); the build, unpack
-// and regularizer passes are bound by launch latency.
+// What bounds it on this card: as K2, the group solve, which takes the
+// cluster kernel at the flagship's b = 250 (112 CTAs, the group prox in
+// registers for M in {1, 2, 4}; fista_core.cuh); the build, unpack and
+// regularizer passes are bound by launch latency.
 //
 // Also here, K7: the per-shard group solve+stats step of the data-parallel
 // composition.  Replaces vtc_tpu/ops/pallas_train_step.py,
@@ -73,7 +74,7 @@
 // regularizer on the replicated dictionary (K6's sign mask and row update)
 // and the step with vtc_tpu's 1e-30 renorm floor.  One C loop per segment,
 // K17's layout; no hook at a world of one.  Bound as K7 is, by the group
-// solve on ceil(b / 16) blocks.
+// solve.
 #include "train_core.cuh"
 
 extern "C" int vtc_fused_group_fista(const float* gram, const float* corr,
@@ -82,7 +83,7 @@ extern "C" int vtc_fused_group_fista(const float* gram, const float* corr,
                                      int group_size, int sk, int sc,
                                      int fista, int hard, float* gn_scratch,
                                      float* state_scratch, float* out,
-                                     void* stream_ptr);
+                                     int route, int* taken, void* stream_ptr);
 
 namespace {
 
@@ -165,7 +166,8 @@ int group_refresh_and_solve(const float* d, float* v, const float* xs, int b,
   VTC_CHECK(gemm<false, true>(xs, grouped, nullptr, corr, b, gm, n, stream));
   const int solve_err = vtc_fused_group_fista(
       gram, corr, nullptr, eta, lam, num_iters, b, gm, group_size, sk, sc,
-      fista, hard, gn_scratch, state_scratch, gcodes, stream_ptr);
+      fista, hard, gn_scratch, state_scratch, gcodes, 0, nullptr,
+      stream_ptr);  // the shape's own route
   if (solve_err != 0) return solve_err;
   if (!identity) {
     sum_slots_kernel<<<pass_grid(static_cast<int64_t>(b) * s), kPassThreads,

@@ -30,17 +30,19 @@
 // What bounds it on this card.  Per flagship step (b = 250, s = n = 256,
 // 25 iterations) the products outside the solve are about 0.13 GFLOP
 // (G, c, resid, grad) against 0.8 GFLOP in FISTA, and every operand fits
-// the 50 MB L2.  The FISTA solve (K1) runs on ceil(b / 16) = 16 of the
-// 132 SMs, so the step is bound by the solve's latency on those 16 SMs,
-// not by FMA throughput or bandwidth.  The small kernels here are bound
-// by launch latency.  What the design does about it: the solve reuses
-// K1 as it is (its G-slice ring, register tiles and shared-memory state);
-// the products use one simple fp32 SIMT tile (32 x 32 outputs, 256
+// the 50 MB L2.  The solve is K1's: at this batch launch_solve routes it
+// to the thread-block-cluster kernel (fista_core.cuh): clusters of 8
+// CTAs, 14 clusters of 18 rows (112 CTAs) at b = 250, each CTA's slice of
+// G resident in its shared memory, where the classic kernel ran 16 blocks
+// on 16 of the 132 SMs.  Its iterations are bound by the product's
+// instruction issue in the few warps a CTA has, then the cluster's code
+// exchange and barrier; the small kernels here are bound by launch
+// latency.  What the design does about
+// it: the products use one simple fp32 SIMT tile (32 x 32 outputs, 256
 // threads, 4 outputs each) with transpose flags and a fused "- X", so
 // five products share one kernel; the power refresh is one block.
-// Making the step faster (a CUDA graph over the segment, a persistent
-// kernel, splitting the solve over more SMs at small batch) is later
-// work (ROADMAP.md).
+// Capturing the segment in a CUDA graph or running it as a persistent
+// kernel is later work (ROADMAP.md).
 //
 // The kernels (the fp32 SIMT product, the power refresh, the Hessian EMA
 // and the row update) live in train_core.cuh, which K6 shares, and the
@@ -60,8 +62,8 @@
 // its first half is K2's own (refresh_and_solve below), and C and B are
 // two more calls of the fp32 product, each entry one thread's sum over the
 // rows in order: no atomics, since C D' - B cancels.  It is bound as K2
-// is, by the solve on ceil(b / 16) blocks; a shard of half the batch runs
-// on half as many.
+// is, by the solve; a shard of half the batch runs on half as many
+// clusters, each with the same work per iteration.
 //
 // Also here, K15: a rank's whole data-parallel fc segment.  Replaces
 // vtc_tpu/ops/pallas_dp_train.py, fused_dp_train_segment_pallas (:310,
@@ -76,8 +78,7 @@
 // with vtc_tpu's 1e-30 floor.  The whole segment is enqueued from one C
 // loop, K17's layout (fused_conv_train_step.cu): at a world of one there
 // is no hook and no host work per step.  Per step it does K3's work plus
-// 2 upd_num_iters s^2 n for C D, so it is bound as K3 is, by the solve on
-// ceil(b / 16) blocks.
+// 2 upd_num_iters s^2 n for C D, so it is bound as K3 is, by the solve.
 #include "train_core.cuh"
 
 extern "C" int vtc_fused_fista(const float* gram, const float* corr,
@@ -85,7 +86,8 @@ extern "C" int vtc_fused_fista(const float* gram, const float* corr,
                                float lam, int num_iters, int b, int s,
                                int sk, int sc, int fista, int mode,
                                float* gn_scratch, float* state_scratch,
-                               float* out, void* stream_ptr);
+                               float* out, int route, int* taken,
+                               void* stream_ptr);
 
 namespace {
 
@@ -115,7 +117,7 @@ int refresh_and_solve(const float* d, float* v, const float* xs, int b, int s,
   VTC_CHECK(gemm<false, true>(xs, d, nullptr, corr, b, s, n, stream));
   return vtc_fused_fista(gram, corr, nullptr, eta, lam, num_iters, b, s, sk,
                          sc, fista, mode, gn_scratch, state_scratch, codes,
-                         stream_ptr);
+                         0, nullptr, stream_ptr);  // the shape's own route
 }
 
 }  // namespace

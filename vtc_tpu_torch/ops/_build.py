@@ -102,13 +102,21 @@ def load_library():
   """Build if needed, load, and declare the C entry points."""
   lib = ctypes.CDLL(str(build()))
   ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+  i32p = ctypes.POINTER(i32)
   for name in ("vtc_fista_rows", "vtc_fista_chunk", "vtc_fista_col_block",
-               "vtc_fista_slice_bytes"):
+               "vtc_fista_slice_bytes", "vtc_fista_cluster",
+               "vtc_fista_cluster_max_rows", "vtc_fista_sm_count",
+               "vtc_fista_cluster_slots"):
     getattr(lib, name).argtypes = []
     getattr(lib, name).restype = i32
+  for name in ("vtc_fista_route", "vtc_fista_cluster_rows"):
+    getattr(lib, name).argtypes = [i32, i32, i32]
+    getattr(lib, name).restype = i32
+  lib.vtc_fista_cluster_occupancy.argtypes = [i32, i32]
+  lib.vtc_fista_cluster_occupancy.restype = i32
   lib.vtc_fused_fista.argtypes = [
       ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32,
-      ptr, ptr, ptr, ptr]
+      ptr, ptr, ptr, i32, i32p, ptr]
   lib.vtc_fused_fista.restype = i32
   lib.vtc_power_smem_bytes.argtypes = [i32]
   lib.vtc_power_smem_bytes.restype = i32
@@ -127,7 +135,7 @@ def load_library():
   lib.vtc_dp_train_segment.restype = i32
   lib.vtc_fused_group_fista.argtypes = [
       ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32, i32,
-      ptr, ptr, ptr, ptr]
+      ptr, ptr, ptr, i32, i32p, ptr]
   lib.vtc_fused_group_fista.restype = i32
   lib.vtc_group_train_segment.argtypes = [
       ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, i32, ptr,

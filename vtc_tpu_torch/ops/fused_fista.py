@@ -14,6 +14,13 @@ its kernel (pallas_fista.py:196-198).  Then:
   holds the kernel against on the card.  It is also the 'gram'
   formulation of ``ista_fista.run``: one loop serves both.
 
+The library has two solve kernels with the same bits (csrc/
+fista_core.cuh): the classic layout, one block per 16 rows, and a
+thread-block-cluster layout for small batches, 8 CTAs per cluster with
+G resident in shared memory.  ``solve_route`` is the C route's rule in
+Python, and ``cluster_rows`` and ``cluster_layout`` its layout, so the
+CPU tests can pin them; ``last_route`` is the route of the last launch.
+
 Scope: no in-kernel early stop and only the 'highest' (IEEE fp32) tier;
 both wait in ROADMAP.md §1 item 3, and the wrapper raises when asked for
 an early stop.  ``launches`` counts kernel launches.
@@ -27,9 +34,17 @@ from vtc_tpu_torch.ops.precision import matmul_precision
 from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 launches = 0
+last_route = None  # 'classic' or 'cluster': the route of the last launch
 
 # shared memory a block may opt into on Hopper (sm_90): 227 KB
 _SMEM_PER_BLOCK = 232448
+# fista_core.cuh's layout constants (kRows, kChunk, kCluster,
+# kClusterMaxRows, kClusterMaxThreads); chip_smoke.py checks them against
+# the library's
+ROWS, CHUNK, CLUSTER, CLUSTER_MAX_ROWS, CLUSTER_MAX_THREADS = (
+    16, 32, 8, 32, 512)
+# the C entries' route argument
+ROUTES = {"auto": 0, "classic": 1, "cluster": 2}
 # the kernel's shrink modes, indexed by (nonneg, hard)
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2,
           (True, True): 3}
@@ -160,9 +175,65 @@ def solve_layout(lib, s):
                   <= _SMEM_PER_BLOCK)
 
 
-def _launch(gram, corr, init, eta, lam, num_iters, fista, mode):
-  """Allocate the kernel's scratch and launch it on the current stream."""
-  global launches
+def cluster_layout(s, group_size, rows):
+  """The cluster kernel's layout for s codes in groups of group_size (1:
+  elementwise) at rows batch rows per cluster, as fista_core.cuh's
+  cluster_layout: the padded depth sk, w columns per CTA, threads per
+  CTA (one per row pair and four columns) and the dynamic shared memory
+  in bytes."""
+  sk = -(-s // CHUNK) * CHUNK
+  w = sk // CLUSTER
+  floats = sk * w + 2 * rows * (sk + 4)
+  if 4 % group_size and w % group_size == 0:  # the shared-memory prox pass
+    floats += rows * w + rows * (w // group_size)
+  return dict(sk=sk, w=w, threads=rows // 2 * (w // 4), smem=4 * floats)
+
+
+def cluster_max_rows(s, group_size):
+  """The most rows (even, at most CLUSTER_MAX_ROWS) a cluster takes within
+  a block's thread and shared-memory budgets, or 0 where a group would
+  cross two CTAs' columns or not even two rows fit
+  (fista_core.cuh's cluster_max_rows)."""
+  sk = -(-s // CHUNK) * CHUNK
+  if group_size < 1 or (sk // CLUSTER) % group_size:
+    return 0
+  for rows in range(CLUSTER_MAX_ROWS, 1, -2):
+    lay = cluster_layout(s, group_size, rows)
+    if (lay["threads"] <= CLUSTER_MAX_THREADS
+        and lay["smem"] <= _SMEM_PER_BLOCK):
+      return rows
+  return 0
+
+
+def cluster_rows(b, s, group_size, slots):
+  """Rows per cluster for a batch of b on a card that holds slots
+  clusters at one CTA per SM: the batch spread over the slots, even,
+  within cluster_max_rows (fista_core.cuh's cluster_rows)."""
+  per_slot = -(-b // max(slots, 1))
+  rows = max(2, -(-per_slot // 2) * 2)
+  return min(rows, cluster_max_rows(s, group_size))
+
+
+def cluster_grid(b, rows):
+  """CTAs of a cluster launch: CLUSTER per rows batch rows."""
+  return -(-b // rows) * CLUSTER
+
+
+def solve_route(b, s, group_size, sm_count):
+  """'cluster' or 'classic': the kernel fista_core.cuh's solve_route
+  picks for b rows of s codes in groups of group_size on a card of
+  sm_count SMs.  The cluster kernel where its layout fits and the classic
+  kernel's ceil(b / 16) blocks would fill at most half of the SMs."""
+  tiles = -(-b // ROWS)
+  return ("cluster" if cluster_max_rows(s, group_size) >= 2
+          and 2 * tiles <= sm_count else "classic")
+
+
+def _launch(gram, corr, init, eta, lam, num_iters, fista, mode,
+            route="auto"):
+  """Allocate the kernel's scratch and launch it on the current stream.
+  route 'classic' or 'cluster' forces a kernel (for checks and tools)."""
+  global launches, last_route
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   rows = lib.vtc_fista_rows()
@@ -174,6 +245,7 @@ def _launch(gram, corr, init, eta, lam, num_iters, fista, mode):
            torch.empty((-(-b // rows), 4, rows, sk), dtype=torch.float32,
                        device=device))
   out = torch.empty((b, s), dtype=torch.float32, device=device)
+  taken = ctypes.c_int(0)
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.vtc_fused_fista(
@@ -181,11 +253,13 @@ def _launch(gram, corr, init, eta, lam, num_iters, fista, mode):
         None if init is None else init.data_ptr(), eta.data_ptr(),
         ctypes.c_float(lam), num_iters, b, s, sk, sc, int(fista), mode,
         gn.data_ptr(), None if state is None else state.data_ptr(),
-        out.data_ptr(), stream)
+        out.data_ptr(), ROUTES[route], ctypes.byref(taken), stream)
   if err != 0:
     raise RuntimeError(
         "fused FISTA kernel launch failed with CUDA error %d "
-        "(b=%d, s=%d, state in %s)" % (
-            err, b, s, "shared memory" if state_in_smem else "global"))
+        "(b=%d, s=%d, route %s, state in %s)" % (
+            err, b, s, route,
+            "shared memory" if state_in_smem else "global"))
   launches += 1
+  last_route = {1: "classic", 2: "cluster"}[taken.value]
   return out

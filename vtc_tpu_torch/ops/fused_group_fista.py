@@ -18,7 +18,9 @@ does.  Then:
 * a CUDA tensor launches the hand-written kernel in
   ``vtc_tpu_torch/csrc/fused_group_fista.cu`` (K1's iteration with the
   group prox as its epilogue; built at first use by ``ops/_build.py``)
-  on the current stream, or raises;
+  on the current stream, or raises.  Like K1 it takes the classic or the
+  cluster kernel by ``fused_fista.solve_route``; ``last_route`` is the
+  route of the last launch;
 * a CPU tensor runs ``fused_group_fista_plain``, which is also the 'gram'
   formulation of ``subspace_ista_fista`` and what ``chip_smoke.py`` holds
   the kernel against on the card.
@@ -35,6 +37,7 @@ from vtc_tpu_torch.ops.precision import matmul_precision
 from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 launches = 0
+last_route = None
 
 
 def group_prox(x, group_size, t, hard):
@@ -177,9 +180,12 @@ def fused_group_fista_solve(images, grouped_dictionary, group_size,
                  num_iters, group_size, variant == "fista", bool(hard))
 
 
-def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard):
-  """Allocate the kernel's scratch and launch it on the current stream."""
-  global launches
+def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard,
+            route="auto"):
+  """Allocate the kernel's scratch and launch it on the current stream.
+  route 'classic' or 'cluster' forces a kernel (fused_fista.solve_route
+  is the rule 'auto' follows)."""
+  global launches, last_route
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   b, gm = corr.shape
@@ -191,6 +197,7 @@ def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard):
            torch.empty((-(-b // rows), 4, rows, sk), dtype=torch.float32,
                        device=device))
   out = torch.empty((b, gm), dtype=torch.float32, device=device)
+  taken = ctypes.c_int(0)
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.vtc_fused_group_fista(
@@ -198,12 +205,14 @@ def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard):
         None if init is None else init.data_ptr(), eta.data_ptr(),
         ctypes.c_float(lam), num_iters, b, gm, group_size, sk, sc,
         int(fista), int(hard), gn.data_ptr(),
-        None if state is None else state.data_ptr(), out.data_ptr(), stream)
+        None if state is None else state.data_ptr(), out.data_ptr(),
+        fused_fista.ROUTES[route], ctypes.byref(taken), stream)
   if err != 0:
     raise RuntimeError(
         "fused group FISTA kernel launch failed with CUDA error %d "
-        "(b=%d, G*M=%d, M=%d, state in %s)" % (
-            err, b, gm, group_size,
+        "(b=%d, G*M=%d, M=%d, route %s, state in %s)" % (
+            err, b, gm, group_size, route,
             "shared memory" if state_in_smem else "global"))
   launches += 1
+  last_route = {1: "classic", 2: "cluster"}[taken.value]
   return out
