@@ -261,7 +261,9 @@ the phases that make its check here.
    cheap-quadratic and 20 gram-form (three update iterations) conv steps
    on shards of 20 (images each rank makes on the card from one seed)
    through K15, K16, K18 and K17, the sum of each step's statistics
-   called back from the kernel's C loop, and 50 cheap-quadratic fc,
+   called back from the kernel's C loop (K18: between the front and the
+   back launch of its persistent segment kernel, the route each rank
+   must report), and 50 cheap-quadratic fc,
    subspace and conv steps and 50 ICA steps on a mesh of two slices
    (dcn=2), where the trainers take K3, K7, K9 and K13's composition as
    vtc_tpu does, all through the trainers.  Each rank must count 50 K3,
@@ -392,6 +394,29 @@ the phases that make its check here.
    (train_dictionary_scanned fc and subspace, and with
    data_parallel=True): one fista_cluster_kernel launch a step and no
    fista_kernel or fold_gram_kernel launch.
+40. The ICA step's two routes (csrc/ica_segment.cuh, csrc/
+   fused_ica_train_step.cu; phases 20, 21, 28, 33 and 34 run the default,
+   the persistent segment kernel, and phases 20 and 33 check that they
+   did).  (a) The persistent route and the per-step route, both forced
+   through the wrappers' internal route argument, on the same CPU-made
+   inputs (orthogonal dictionaries, their inverses, mixtures of sources
+   clear of zero) must give bitwise-equal D, X and r_max, for K8, for K18
+   at a world of 1, and K18's persistent route against K8's: n 256, b 250
+   over 1 and 50 steps at one and three update iterations, a stale 1.35 X
+   seed whose boost fires (r_max must come back under the boost
+   tolerance), stepsize 40 (r_max NaN or above the guard in both), and
+   the ragged n 24 / b 13, n 200 / b 77 and n 384 / b 250, each also on a
+   forced grid of 1, 7 or 132 CTAs, where the tiles outnumber the CTAs.
+   (b) The library's layout constants and grids equal ops/fused_ica_
+   train's segment_plan; a forced grid one CTA above what the card holds
+   at once is refused, raises and counts nothing.  (c) A torch.profiler
+   count over phase 21's 2,000-step trainer and phase 34's data-parallel
+   twin: one ica_segment_kernel launch in the segment and none of the
+   per-step route's kernels.  (d) Timing, in turns (per-step route,
+   persistent, persistent, per-step route): K8 and K18 (world of 1) ms
+   per step over a 100-step segment at n 256, b 250, refine 3, upd 1,
+   the boost armed.  Phase 28's world of 2 runs K18 as front and back
+   launches of the segment kernel around the hook and checks the route.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -456,6 +481,10 @@ CUDA_TESTS = {
     "test_cuda_cluster_kernel_matches_classic_bitwise": (39,),
     "test_torch_port_fista_cluster.py::"
     "test_cuda_trainers_launch_the_cluster_kernel": (39,),
+    "test_torch_port_ica_persistent.py::"
+    "test_cuda_ica_persistent_matches_steps_bitwise": (40,),
+    "test_torch_port_ica_persistent.py::"
+    "test_cuda_ica_trainers_launch_the_segment_kernel": (40,),
     "test_torch_port_subspace.py::"
     "test_cuda_early_stop_raises_and_launches_nothing": (8,),
     "test_torch_port_subspace.py::test_cuda_kernel_matches_plain": (8, 9),
@@ -1468,6 +1497,8 @@ def ica_kernel_cases(torch, K8, invertible_linear, dev):
     kw = dict(refine_iters=ICA_REFINE, upd_num_iters=upd,
               boost_tol=ICA_BOOST_TOL)
     got = K8.fused_ica_train_segment(d0, xi.contiguous(), xb, ICA_STEP, **kw)
+    check(K8.last_route == "persistent", "K8 took the %s route"
+          % K8.last_route)
     want32 = K8.fused_ica_train_plain(d0, xi, xb, ICA_STEP, **kw)
     want64 = K8.fused_ica_train_plain(d0.double(), xi.double(), xb.double(),
                                       ICA_STEP, **kw)
@@ -1933,6 +1964,7 @@ DP2_RUNS = (("fc steepest", "fc", "sc_steepest_descent", 1, DP_STEPS2, 1),
             ("subspace cheap-quad dcn=2 (K7)", "subspace", None, 1,
              DP_STEPS2, 2),
             ("ica dcn=2 (K9)", "ica", None, 1, DP_STEPS2, 2))
+DP2_ROUTE_STEPS = 5       # K18's two routes at a world of 2
 # what each rank counts, in dp_rank_main's order
 DP2_COUNTS = ("K3", "K7", "K9", "K13", "K17", "K15", "K16", "K18", "K2",
               "K6", "K8", "K12")
@@ -2003,12 +2035,31 @@ def dp_rank_main(rank, world, workdir):
     for key, family, alg, upd, steps, dcn in DP2_RUNS:
       out[key] = dp2_run(torch, family, alg, upd, steps, data, True,
                          dcn).cpu().numpy()
+      if key == "ica":  # K18's route: two launches a step around the hook
+        out["ica route"] = np.array(K8.last_route)
     torch.cuda.synchronize()
     out["launches"] = np.array([
         K2.stats_launches, K6.stats_launches, K8.stats_launches,
         K12.stats_launches, K17.launches, K15.launches, K16.launches,
         K8.dp_launches, K2.launches, K6.launches, K8.launches,
         K12.launches])
+    # K18 at this world on both routes, forced (phase 40's comparison at a
+    # world of 2: the persistent route's front and back launches around
+    # the hook against the per-step route's C loop)
+    from vtc_tpu_torch import parallel
+    from vtc_tpu_torch.analysis_transforms.fully_connected import (
+        invertible_linear)
+    mesh = parallel.make_mesh()
+    dev = torch.device("cuda", 0)
+    d = torch.tensor(data["ica_d0"], device=dev)
+    shard = mesh.shard(torch.tensor(data["ica_x"][:DP2_ROUTE_STEPS],
+                                    device=dev), dim=1).contiguous()
+    for route in ("steps", "persistent"):
+      got = K8._launch_dp(d.clone(), 1.35 * invertible_linear.exact_inverse(d),
+                          shard, mesh, ICA_STEP, ICA_REFINE, 2, ICA_BOOST_TOL,
+                          route=route)
+      for name, t in zip(("dictionary", "inverse", "residual"), got):
+        out["k18 %s %s" % (route, name)] = t.cpu().numpy()
     np.savez(os.path.join(workdir, "rank%d.npz" % rank), **out)
   finally:
     dist.destroy_process_group()
@@ -2062,10 +2113,25 @@ def dp_world_of_two(torch, fc_x, sub_x, d0, conv_d0, dev):
           "rank %d launched %s, expected %s (%s)" % (
               rank, list(out["launches"]), want_launches,
               ", ".join(DP2_COUNTS)))
+    check(str(out["ica route"]) == "persistent",
+          "rank %d ran K18 on the %s route" % (rank, out["ica route"]))
+    for name in ("dictionary", "inverse", "residual"):
+      persistent, steps = (out["k18 %s %s" % (route, name)].tobytes()
+                           for route in ("persistent", "steps"))
+      check(persistent == steps
+            and persistent == ranks[0]["k18 persistent " + name].tobytes(),
+            "rank %d: K18's %s at a world of 2 differs between the routes "
+            "or from rank 0's" % (rank, name))
+  print("world of 2: K18's persistent route (front and back launches of "
+        "ica_segment_kernel around the hook), %d steps from a stale 1.35 X "
+        "seed at two update iterations, bitwise equal to the per-step route "
+        "on both ranks" % DP2_ROUTE_STEPS)
   print("world of 2 on the one card (gloo, file store, statistics staged "
         "through pinned host buffers): both ranks done in %.1f s, each %s "
-        "launches and no K2, K6, K8 or K12" % (dt, ", ".join(
-            "%d %s" % (want[name], name) for name in DP2_COUNTS[:8])))
+        "launches and no K2, K6, K8 or K12; K18 on the persistent route "
+        "(front and back launches of ica_segment_kernel around the hook)"
+        % (dt, ", ".join("%d %s" % (want[name], name)
+                         for name in DP2_COUNTS[:8])))
   data["conv_x"] = dp2_conv_images(torch)
   for key, family, alg, upd, steps, _ in DP2_RUNS:
     check(np.array_equal(ranks[0][key], ranks[1][key]),
@@ -2520,6 +2586,8 @@ def dp_segment_kernel_cases(torch, parallel, K15, K16, K8, sub, lipschitz,
         dict(mesh=mesh1, refine_iters=ICA_REFINE, boost_tol=ICA_BOOST_TOL,
              upd_num_iters=upd), {"residual": ICA_LIMIT})
     k18_err = max(k18_err, err)
+    check(K8.last_route == "persistent", "K18 took the %s route"
+          % K8.last_route)
   ikw = dict(mesh=mesh1, refine_iters=ICA_REFINE, boost_tol=ICA_BOOST_TOL)
   want64 = K8.fused_ica_dp_train_plain(mixing.double(), x0.double(),
                                        xi_.double(), ICA_STEP, **ikw)
@@ -3183,6 +3251,156 @@ def gemm_profile(torch, fn):
       slot = out["tiled" if "gather_gemm_tiled" in e.name else "line"]
       slot[0] += 1
       slot[1] += (e.time_range.end - e.time_range.start) / 1e3
+  return out
+
+
+# ---------------------------------------------------------------------------
+# phase 40: the persistent ICA segment kernel (csrc/ica_segment.cuh)
+# ---------------------------------------------------------------------------
+ICA_STEP_KERNELS = ("gemm_kernel", "sign_kernel", "residual_kernel",
+                    "natural_gradient_kernel", "axpy_kernel")
+ICA_ROUTE_STEPS = 100     # phase 40's timed segments
+
+
+def bits_equal(torch, a, b):
+  """The same float32 bits (NaN payloads included)."""
+  return (a.shape == b.shape and a.dtype == b.dtype
+          and torch.equal(a.contiguous().view(torch.int32),
+                          b.contiguous().view(torch.int32)))
+
+
+def ica_cpu_problem(torch, n, b, k, seed, stale, dev):
+  """Made on the CPU with numpy: a random orthogonal dictionary, its
+  inverse (times ``stale``) as the seed and k batches of b mixtures of
+  sources at least 0.05 from zero, moved to the card."""
+  rng = np.random.RandomState(seed)
+  d = np.linalg.qr(rng.randn(n, n))[0]
+  src = np.sign(rng.randn(k * b, n)) * (0.05 + rng.laplace(size=(k * b, n)))
+  x = (src @ d).reshape(k, b, n)
+  xi = stale * np.linalg.inv(d)
+  return [torch.tensor(a.astype(np.float32), device=dev) for a in (d, xi, x)]
+
+
+def ica_routes(torch, K8, d, xi, x, step, upd, mesh=None, grid=0):
+  """{route: (D, X, r_max)}: both routes, forced, on the same inputs (K18's
+  wrapper when mesh is given); grid sets the persistent launch's CTAs."""
+  out = {}
+  for route in ("steps", "persistent"):
+    args = (d.clone(), xi.clone(), x)
+    tail = (ICA_REFINE, upd, ICA_BOOST_TOL)
+    g = grid if route == "persistent" else 0
+    if mesh is None:
+      out[route] = K8._launch(*args, step, *tail, route=route, grid=g)
+    else:
+      out[route] = K8._launch_dp(*args, mesh, step, *tail, route=route,
+                                 grid=g)
+    torch.cuda.synchronize()
+    check(K8.last_route == route, "asked for the %s route, took %s" % (
+        route, K8.last_route))
+  return out
+
+
+def ica_persistent_bitwise_cases(torch, K8, parallel, lib, dev):
+  """Phase 40 (a): the persistent and the per-step routes of K8 and K18
+  (world of 1) give bitwise the same D, X and r_max; (c) the library's
+  layout and grid are ops/fused_ica_train's; a grid the card cannot hold
+  at once is refused.  Returns the number of equal cases."""
+  sm, bps = lib.vtc_ica_segment_sm_count(), lib.vtc_ica_segment_blocks_per_sm()
+  check(sm == torch.cuda.get_device_properties(dev).multi_processor_count,
+        "the library reads %d SMs" % sm)
+  layout = (ctypes_ints(4))
+  lib.vtc_ica_segment_layout(layout)
+  check(tuple(layout) == (K8.SEG_TILE_M, K8.SEG_TILE_N, K8.SEG_SLICE,
+                          K8.SEG_THREADS),
+        "fused_ica_train's layout constants differ from the library's: %s"
+        % (tuple(layout),))
+  for n, b in ((256, 250), (256, 125), (24, 13), (200, 77), (384, 250),
+               (1024, 250)):
+    plan = K8.segment_plan(n, b, sm, bps)
+    got = lib.vtc_ica_segment_grid(n, b)
+    print("segment kernel at n %4d b %3d: grid %4d CTAs (%d SMs x %d CTAs "
+          "an SM; tiles of an n x n phase %d, of the residual and codes "
+          "phase %d)" % (n, b, got, sm, bps, plan["tiles"]["n x n"],
+                         plan["tiles"]["residual and codes"]))
+    check(got == plan["grid"], "the library's grid %d, segment_plan's %d" % (
+        got, plan["grid"]))
+  mesh1 = parallel.make_mesh()
+  equal = 0
+  cases = [
+      # label, n, b, steps, upd, stale, stepsize, grid (0: the shape's own)
+      ("n 256 b 250, 1 step, upd 1", 256, 250, 1, 1, 1.0, ICA_STEP, 0),
+      ("n 256 b 250, 1 step, upd 3", 256, 250, 1, 3, 1.0, ICA_STEP, 0),
+      ("n 256 b 250, 50 steps, upd 1", 256, 250, 50, 1, 1.0, ICA_STEP, 0),
+      ("n 256 b 250, 50 steps, upd 3", 256, 250, 50, 3, 1.0, ICA_STEP, 0),
+      ("n 256 b 250, stale 1.35 X seed", 256, 250, 3, 1, 1.35, ICA_STEP, 0),
+      ("n 256 b 250, stepsize 40", 256, 250, 3, 1, 1.0, 40.0, 0),
+      ("n 24 b 13", 24, 13, 5, 1, 1.0, ICA_STEP, 0),
+      ("n 24 b 13 on 1 CTA", 24, 13, 5, 2, 1.0, ICA_STEP, 1),
+      ("n 200 b 77", 200, 77, 5, 1, 1.0, ICA_STEP, 0),
+      ("n 200 b 77 on 7 CTAs", 200, 77, 5, 1, 1.35, ICA_STEP, 7),
+      ("n 384 b 250", 384, 250, 5, 1, 1.0, ICA_STEP, 0),
+      ("n 384 b 250 on 132 CTAs", 384, 250, 5, 3, 1.0, ICA_STEP, 132),
+  ]
+  for label, n, b, k, upd, stale, step, grid in cases:
+    d, xi, x = ica_cpu_problem(torch, n, b, k, 400 + n + b, stale, dev)
+    k8 = ica_routes(torch, K8, d, xi, x, step, upd, grid=grid)
+    k18 = ica_routes(torch, K8, d, xi, x, step, upd, mesh=mesh1, grid=grid)
+    pairs = (("K8 persistent vs steps", k8["persistent"], k8["steps"]),
+             ("K18 persistent vs steps", k18["persistent"], k18["steps"]),
+             ("K18 vs K8, persistent", k18["persistent"], k8["persistent"]))
+    for what, got, want in pairs:
+      same = [bits_equal(torch, g, w) for g, w in zip(got, want)]
+      check(all(same), "%s, %s: D, X, r_max bitwise equal %s; max|dD| %.3e"
+            % (label, what, same, float((got[0] - want[0]).abs().max())))
+      equal += 1
+    res = float(k8["persistent"][2])
+    print("phase 40 (a) %-32s K8 and K18 (world of 1), both routes: D, X "
+          "and r_max bitwise equal; r_max %r" % (label, res))
+    if step == 40.0:
+      check(not res < ICA_GUARD_TOL,
+            "stepsize 40 did not show in the residual: %r" % res)
+    if stale > 1.0:
+      check(res < ICA_BOOST_TOL, "the stale seed's boost did not restore "
+            "the floor: %r" % res)
+  # a grid the card cannot hold at once: the launch is refused and raises
+  d, xi, x = ica_cpu_problem(torch, 256, 250, 1, 7, 1.0, dev)
+  before = K8.launches
+  try:
+    K8._launch(d.clone(), xi.clone(), x, ICA_STEP, ICA_REFINE, 1,
+               ICA_BOOST_TOL, route="persistent", grid=sm * bps + 1)
+    refused = False
+  except RuntimeError as e:
+    refused = "CUDA error" in str(e)
+  print("forced persistent launch of %d CTAs (%d fit at once): %s" % (
+      sm * bps + 1, sm * bps, "refused" if refused else "LAUNCHED"))
+  check(refused and K8.launches == before,
+        "a cooperative launch the card cannot hold must raise, uncounted")
+  return equal
+
+
+def ctypes_ints(count):
+  import ctypes
+  return (ctypes.c_int * count)()
+
+
+def ica_dispatch(torch, fn):
+  """{'segment': n, 'steps': n}: launches of ica_segment_kernel and of the
+  per-step route's kernels in one call of fn, from torch.profiler's device
+  events."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  out = {"segment": 0, "steps": 0}
+  for e in prof.events():
+    if e.device_type == torch.autograd.DeviceType.CUDA:
+      if "ica_segment_kernel" in e.name:
+        out["segment"] += 1
+      elif any("(anonymous namespace)::" + k in e.name
+               for k in ICA_STEP_KERNELS):
+        out["steps"] += 1
   return out
 
 
@@ -4722,6 +4940,49 @@ def main():
     check(seen == {"cluster": DISPATCH_STEPS, "classic": 0, "fold": 0},
           "%s: expected one fista_cluster_kernel launch a step and no "
           "fista_kernel, saw %s" % (label, seen))
+
+  # phase 40: the persistent ICA segment kernel (csrc/ica_segment.cuh):
+  # both routes bitwise equal, the library's layout and grid, a refused
+  # launch, which kernels the ICA trainers launch, and the routes' times
+  n_ica_equal = ica_persistent_bitwise_cases(torch, K8, parallel, lib, dev)
+  print("phase 40: %d route comparisons bitwise equal" % n_ica_equal)
+  for label, params_ in (
+      ("phase 21's trainer (K8)", ica_params(ICA_STEPS, ICA_STEP)),
+      ("phase 34's data_parallel trainer (K18)",
+       dict(ica_params(ICA_STEPS, ICA_STEP), data_parallel=True))):
+    seen = ica_dispatch(torch, lambda: ica.train_dictionary_scanned(
+        ica_batches, id0, params_))
+    print("dispatch (profiled), ICA train_dictionary_scanned, %s, one "
+          "segment of %d steps: ica_segment_kernel %d, the per-step "
+          "route's kernels %d" % (label, ICA_STEPS, seen["segment"],
+                                  seen["steps"]))
+    check(seen == {"segment": 1, "steps": 0},
+          "%s: expected one ica_segment_kernel launch a segment and none "
+          "of %s, saw %s" % (label, ", ".join(ICA_STEP_KERNELS), seen))
+  ica_route_ms = {}
+  with torch.no_grad():
+    for name in ("K8", "K18"):
+      runs = {"steps": [], "persistent": []}
+      for route in ("steps", "persistent", "persistent", "steps"):
+        seg = ica_batches[:ICA_ROUTE_STEPS]
+        if name == "K8":
+          fn = lambda: K8._launch(id0.clone(), ix0.clone(), seg, ICA_STEP,
+                                  ICA_REFINE, 1, ICA_BOOST_TOL, route=route)
+        else:
+          fn = lambda: K8._launch_dp(id0.clone(), ix0.clone(), seg, mesh1,
+                                     ICA_STEP, ICA_REFINE, 1, ICA_BOOST_TOL,
+                                     route=route)
+        fn()
+        runs[route].append(time_ms(torch, fn, 3) / ICA_ROUTE_STEPS)
+      ica_route_ms[name] = {r: sum(v) / 2 for r, v in runs.items()}
+      print("%s ms per step (n 256, b 250, refine 3, upd 1, boost armed; a "
+            "%d-step segment): persistent %.4f (runs %.4f, %.4f), per-step "
+            "route %.4f (runs %.4f, %.4f), %.2fx; bound %.4f (%s) [%s]" % (
+                name, ICA_ROUTE_STEPS, ica_route_ms[name]["persistent"],
+                *runs["persistent"], ica_route_ms[name]["steps"],
+                *runs["steps"], ica_route_ms[name]["steps"]
+                / ica_route_ms[name]["persistent"], k8_bound[0],
+                k8_bound[1], card))
 
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],

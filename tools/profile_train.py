@@ -57,8 +57,9 @@ reports
   (block_grad_partial_kernel, grad_reduce_kernel), the conv update
   (conv_update_kernel, conv_hessian_ema_kernel, dall_from_dstk_kernel),
   K13's statistics (conv_code_stat_kernel, block_cm_partial_kernel), the
-  ICA passes (residual_kernel, sign_kernel, natural_gradient_kernel,
-  axpy_kernel), K19's reconstruction (recon_partial_kernel,
+  ICA segment kernel (ica_segment_kernel: every phase of every step of an
+  ICA segment, one launch a segment), K19's reconstruction
+  (recon_partial_kernel,
   recon_sum_kernel), its gradient with the prox (grad_prox_kernel,
   group_prox_kernel) and its
   update residual (resid_partial_kernel, resid_sum_kernel), and everything
@@ -97,6 +98,7 @@ CONV_GEMMS = ("conv GEMMs: corr, synthesis, analysis, residual "
 CONV_GRAD = "conv gradient (block_grad_partial, grad_reduce)"
 K13_STATS = "K13 statistics (conv_code_stat, block_cm_partial)"
 DP_UPDATE = "DP update inputs (divide, hessian_from_stat: K15-K17)"
+ICA_SEGMENT = "ICA segment, the whole step (ica_segment_kernel: K8, K18)"
 GROUPS = ((RECON, ("recon_partial_kernel", "recon_sum_kernel")),
           (GRAD, ("grad_prox_kernel", "group_prox_kernel")),
           (RESID, ("resid_partial_kernel", "resid_sum_kernel")),
@@ -116,9 +118,7 @@ GROUPS = ((RECON, ("recon_partial_kernel", "recon_sum_kernel")),
            ("gather_rows_kernel", "sum_slots_kernel", "sign_mask_kernel")),
           (CONV_GEMMS, ("gather_gemm",)),
           (CONV_GRAD, ("block_grad_partial_kernel", "grad_reduce_kernel")),
-          ("ICA passes (residual, sign, natural_gradient, axpy)",
-           ("residual_kernel", "sign_kernel", "natural_gradient_kernel",
-            "axpy_kernel")))
+          (ICA_SEGMENT, ("ica_segment_kernel",)))
 
 
 def group_of(name):

@@ -18,47 +18,72 @@
 // refinement diverged must show, so both maxima propagate NaN as
 // jnp.maximum does (CUDA's fmaxf drops it), and the boost test is
 // NaN > tol, false, as in the TPU kernel.  The boost is decided on the
-// device: the two extra refreshes and the second residual are launched
-// every step and do nothing unless the flag the first residual wrote is
-// set, so the host never waits.  sign(0) is 0.
+// device, so the host never waits.  sign(0) is 0.
+//
+// Two routes give the same bits (the C entries' route argument; the
+// wrappers' private route=, ops/fused_ica_train.ROUTES):
+//
+// * persistent (the default, ica_segment.cuh): the whole segment is one
+//   cooperative launch of ica_segment_kernel, a resident CTA per slot of
+//   the card walking every step's phases with a grid barrier between
+//   dependent ones (about 9 a step at refine_iters 3), the sign and the
+//   natural gradient formed as the operands land in shared memory.
+// * steps: the per-step kernels below, enqueued by one C loop per
+//   segment on one stream (refine_and_stat, natural_gradient_kernel and
+//   the update's gemm and axpy_kernel: about 20 dependent launches a
+//   step, each product train_core.cuh's 32 x 32 tile kernel on 64 blocks
+//   at n = 256).  The boost's two refreshes and second residual are
+//   launched every step and do nothing unless the flag the first residual
+//   wrote is set.  It is the persistent route's bitwise reference and
+//   K9's route.
 //
 // Layout.  D and X (256 KB each at n = 256) with the products' operands
 // exceed one block's 227 KB, and Hopper blocks run in no order, so the
-// TPU kernel's VMEM residency across grid steps becomes per-step kernels
-// enqueued by one C loop per segment on one stream (K2's layout); D, X,
-// the flag and r_max stay in device memory.  X ping-pongs between two
-// buffers; the boost's two refreshes leave it where it was.
+// TPU kernel's VMEM residency across grid steps becomes either one
+// persistent grid whose CTAs meet at grid barriers (persistent) or
+// per-step kernels (steps); D, X, the flag and r_max stay in device
+// memory.  X ping-pongs between two buffers (the boost's two refreshes
+// leave it where it was), and on the persistent route so does D, which
+// other CTAs still read while a tile of D' is written; the entries copy
+// each back into the caller's buffer at the end of the segment.
+// chip_smoke.py phase 40 holds the two routes bitwise equal.
 //
 // What bounds it on this card.  At n = 256, b = 250, refine_iters 3, a
-// step is (4*3 + 2 + 2) n^3 + 4 b n^2 = 0.34 GFLOP, 5 us at the fp32 SIMT
-// peak; every operand fits the 50 MB L2.  Each product is train_core.cuh's
-// fp32 SIMT tile kernel (64 blocks at n = 256), so the step is bound by
-// the latency of about 20 dependent launches, not by FMA throughput.
-// Every product is IEEE fp32 FMA (no TF32, no library).
+// step is (4*3 + 2 + 2) n^3 + 4 b n^2 = 0.334 GFLOP, 5 us at the fp32 SIMT
+// peak of 67 TFLOP/s; every operand fits the 50 MB L2.  The steps route
+// is bound by the latency of about 20 dependent launches; the persistent
+// route by its grid barriers' latency and the issue rate of each phase's
+// 128 small products, not by FMA throughput.  Every product is IEEE fp32
+// FMA (no TF32, no library).
 //
 // Also here, K9: the per-shard step of the data-parallel composition.
 // Replaces vtc_tpu/ops/pallas_ica_train.py, ica_solve_stats_pallas (:226,
 // kernel _make_ica_stats_kernel :189): a K8 step's refreshes, residual and
-// boost (refine_and_stat below, K8's own first half), the codes of one
-// shard of the batch and its unaveraged statistic codes^T sign(codes); no
-// update, which the caller runs replicated from the statistic summed over
-// the shards.  The residual stays on the device, as r_max does in K8.  It
-// is bound as K8 is, by the latency of its dependent launches.
+// boost (refine_and_stat below, the steps route's first half), the codes
+// of one shard of the batch and its unaveraged statistic codes^T
+// sign(codes); no update, which the caller runs replicated from the
+// statistic summed over the shards.  The residual stays on the device, as
+// r_max does in K8.  It takes the steps route, bound by the latency of its
+// dependent launches.
 //
 // Also here, K18: a rank's whole data-parallel ICA segment.  Replaces
 // vtc_tpu/ops/pallas_ica_train.py, fused_ica_dp_train_segment_pallas
-// (:355, kernel _make_ica_kernel with num_devices > 1, :101).
-// vtc_ica_dp_train_segment runs, per step, K9's step on the rank's shard
-// (refine_and_stat: the refreshes of the replicated inverse, the guard
-// residual with the device-decided boost into the running r_max, the
-// shard's codes and its statistic codes^T sign(codes)), then the host hook
-// that sums the (n, n) statistic over the ranks (train_core.cuh; the TPU
-// kernel all-reduces it in-kernel), then K8's update from the global
-// statistic: M = stat / global_b - I and upd_num_iters x D += eta M D.
-// One C loop per segment, K17's layout; no hook at a world of one.  The
-// residual depends on the replicated D and X alone, so r_max is the same
-// on every rank.  Bound as K8 is, by the latency of its dependent
-// launches.
+// (:355, kernel _make_ica_kernel with num_devices > 1, :101).  Per step,
+// K9's step on the rank's shard (the refreshes of the replicated inverse,
+// the guard residual with the device-decided boost into the running
+// r_max, the shard's codes and its statistic codes^T sign(codes)), then
+// the host hook that sums the (n, n) statistic over the ranks
+// (train_core.cuh; the TPU kernel all-reduces it in-kernel), then K8's
+// update from the global statistic: M = stat / global_b - I and
+// upd_num_iters x D += eta M D.  No hook at a world of one: on the
+// persistent route the segment is then one launch, K8's kernel with
+// global_b.  At a world above one the persistent route launches the
+// kernel twice a step, its front (to the statistic, into comm) and its
+// back (the update from the summed comm), the hook between them; the
+// steps route keeps one C loop per segment, K17's layout.  The residual
+// depends on the replicated D and X alone, so r_max is the same on every
+// rank.
+#include "ica_segment.cuh"
 #include "train_core.cuh"
 
 namespace {
@@ -185,7 +210,8 @@ int refine_and_stat(const float* d, InverseBuffers* x, float* r_max,
 
 extern "C" {
 
-// k ICA train steps on one stream, every launch enqueued before returning.
+// The steps route of K8: k ICA train steps on one stream, every launch
+// enqueued before returning.
 //
 // In place: d (n, n), x (n, n) the tracked inverse, r_max (1,) the running
 // residual maximum (the caller zeroes it).  batches (k, b, n); eye and
@@ -257,10 +283,10 @@ int vtc_ica_solve_stats(const float* d, float* x, float* res,
   return 0;
 }
 
-// K18, one rank's data-parallel ICA segment of k steps on its shard
-// batches (k, b, n).  In place: d (n, n), x (n, n) the tracked inverse,
-// r_max (1,) the running residual maximum (the caller zeroes it), all
-// replicated.  comm (n, n) receives each step's unaveraged statistic,
+// The steps route of K18: one rank's data-parallel ICA segment of k steps
+// on its shard batches (k, b, n).  In place: d (n, n), x (n, n) the
+// tracked inverse, r_max (1,) the running residual maximum (the caller
+// zeroes it), all replicated.  comm (n, n) receives each step's unaveraged statistic,
 // summed over the ranks by sum_hook (when given) before the update;
 // global_b is the batch over all ranks.  eye, eye2 and the scratch as
 // vtc_ica_train_segment's.  Returns the first CUDA error code (0 on
@@ -300,6 +326,101 @@ int vtc_ica_dp_train_segment(float* d, float* x, float* r_max,
   if (inv.cur != x)
     VTC_CHECK(cudaMemcpyAsync(x, inv.cur, sizeof(float) * nn,
                               cudaMemcpyDeviceToDevice, stream));
+  return 0;
+}
+
+// The persistent route's layout: out[0..3] = tile rows, tile columns,
+// k-slice depth and threads of ica_segment_kernel (ica_segment.cuh).
+void vtc_ica_segment_layout(int* out) {
+  out[0] = kSegTileM;
+  out[1] = kSegTileN;
+  out[2] = kSegSlice;
+  out[3] = kSegThreads;
+}
+
+// The current device's SM count and ica_segment_kernel's resident CTAs
+// per SM, as seg_grid reads them (0 when the device cannot be read).
+int vtc_ica_segment_sm_count() { return seg_sm_count(); }
+int vtc_ica_segment_blocks_per_sm() { return seg_blocks_per_sm(); }
+
+// CTAs of the persistent route's launches for an (n, n) dictionary and
+// batches of b on the current device: the size of its partials scratch.
+int vtc_ica_segment_grid(int n, int b) {
+  if (n < 1 || b < 1) return 0;
+  return seg_grid(n, b, seg_sm_count(), seg_blocks_per_sm());
+}
+
+// The persistent route of K8 and K18: k ICA train steps as cooperative
+// launches of ica_segment_kernel on one stream, every launch enqueued
+// before returning.  In place: d (n, n), x (n, n) the tracked inverse,
+// r_max (1,) the running residual maximum (the caller zeroes it).
+// batches (k, b, n).  stat_div divides the statistic: b for K8, global_b
+// for K18.  Scratch: d_alt, x_alt and e (n, n), codes (b, n), stat (n, n)
+// (K18's comm, which sum_hook sums over the ranks; null without sum_hook),
+// partials (grid,), barrier (1,) unsigned.  grid: the launches' CTAs, 0 for
+// vtc_ica_segment_grid(n, b) (another count is for checks and tools).
+// Without sum_hook the segment is one launch; with it each step is a front
+// launch (to the statistic), sum_hook(step), then a back launch (the
+// update).  Returns the first CUDA error code (0 on success; a grid the
+// card cannot hold at once is refused, cudaErrorCooperativeLaunchTooLarge),
+// or kSumHookFailed.
+int vtc_ica_persistent_segment(float* d, float* x, float* r_max,
+                               const float* batches, int k, int b, int n,
+                               float stepsize, int refine_iters,
+                               int upd_num_iters, int has_boost,
+                               float boost_tol, float stat_div, float* d_alt,
+                               float* x_alt, float* e, float* codes,
+                               float* stat, float* partials,
+                               unsigned* barrier, int grid,
+                               SumHook sum_hook, void* stream_ptr) {
+  if (k < 0 || b < 1 || n < 1 || refine_iters < 0 || upd_num_iters < 0 ||
+      grid < 0 || !(stat_div >= 1.0f) ||
+      (sum_hook != nullptr && stat == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (grid == 0) grid = vtc_ica_segment_grid(n, b);
+  SegmentArgs a{d,     d_alt, x,        x_alt, e,      codes,  stat,
+                partials, r_max, barrier,  batches,
+                k,     b,     n,        refine_iters, upd_num_iters,
+                has_boost, kSegFront | kSegBack,
+                boost_tol, stepsize, stat_div};
+  // where D and X are after a launch of `steps` steps running `parts`
+  auto advance = [&](int steps, int parts) {
+    if ((parts & kSegFront) && (steps & 1) && (refine_iters & 1)) {
+      float* t = a.x;
+      a.x = a.x_alt;
+      a.x_alt = t;
+    }
+    if ((parts & kSegBack) && (steps & 1) && (upd_num_iters & 1)) {
+      float* t = a.d;
+      a.d = a.d_alt;
+      a.d_alt = t;
+    }
+  };
+  cudaError_t err;
+  if (sum_hook == nullptr) {
+    if (k > 0) VTC_CHECK(launch_ica_segment(a, grid, stream));
+    advance(k, a.parts);
+  } else {
+    a.steps = 1;
+    for (int step = 0; step < k; ++step) {
+      a.batches = batches + static_cast<int64_t>(step) * b * n;
+      a.parts = kSegFront;
+      VTC_CHECK(launch_ica_segment(a, grid, stream));
+      advance(1, a.parts);
+      if (sum_hook(step) != 0) return kSumHookFailed;
+      a.parts = kSegBack;
+      VTC_CHECK(launch_ica_segment(a, grid, stream));
+      advance(1, a.parts);
+    }
+  }
+  const size_t bytes = sizeof(float) * n * n;
+  if (a.x != x)
+    VTC_CHECK(cudaMemcpyAsync(x, a.x, bytes, cudaMemcpyDeviceToDevice,
+                              stream));
+  if (a.d != d)
+    VTC_CHECK(cudaMemcpyAsync(d, a.d, bytes, cudaMemcpyDeviceToDevice,
+                              stream));
   return 0;
 }
 

@@ -184,6 +184,17 @@ def load_library():
       [ptr] * 6 + [i32] * 3 + [f32] + [i32] * 3 + [f32, f32] + [ptr] * 8
       + [ptr, ptr])
   lib.vtc_ica_dp_train_segment.restype = i32
+  lib.vtc_ica_segment_layout.argtypes = [i32p]
+  lib.vtc_ica_segment_layout.restype = None
+  for name in ("vtc_ica_segment_sm_count", "vtc_ica_segment_blocks_per_sm"):
+    getattr(lib, name).argtypes = []
+    getattr(lib, name).restype = i32
+  lib.vtc_ica_segment_grid.argtypes = [i32, i32]
+  lib.vtc_ica_segment_grid.restype = i32
+  lib.vtc_ica_persistent_segment.argtypes = (
+      [ptr] * 4 + [i32] * 3 + [f32] + [i32] * 3 + [f32, f32] + [ptr] * 7
+      + [i32, ptr, ptr])
+  lib.vtc_ica_persistent_segment.restype = i32
   lib.vtc_code_shard_split_k.argtypes = []
   lib.vtc_code_shard_split_k.restype = i32
   lib.vtc_code_shard_train_segment.argtypes = (

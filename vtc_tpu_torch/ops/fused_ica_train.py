@@ -14,7 +14,10 @@ reads it (training/ica.py).
 
 * A CUDA tensor runs the hand-written kernels of
   ``vtc_tpu_torch/csrc/fused_ica_train_step.cu`` (built at first use by
-  ``ops/_build.py``) on the current stream, or raises.
+  ``ops/_build.py``) on the current stream, or raises: the whole segment
+  as one cooperative launch of the persistent segment kernel
+  (``csrc/ica_segment.cuh``), which a card that cannot hold its grid at
+  once refuses (the wrapper then raises; there is no fallback).
 * A CPU tensor runs ``fused_ica_train_plain``, the composition the JAX
   tests use as K8's reference (tests/test_pallas_ica_train.py:27-40):
   ``newton_refine_inverse`` -> the residual -> codes ->
@@ -27,6 +30,14 @@ card's kernels take any n and batch.  Left out: the ``mxu`` tiers other
 than 'highest' raise NotImplementedError (ROADMAP.md §1 item 3), and the
 TPU's ``interpret`` has no counterpart.  ``launches`` counts the train
 steps the kernels ran.
+
+Two routes give the same bits: 'persistent', the segment kernel, and
+'steps', the per-step kernels enqueued from one C loop (about 20 launches
+a step), kept as its bitwise reference.  The private ``route=`` of
+``_launch`` / ``_launch_dp`` forces one ('auto' is 'persistent'; no public
+entry point takes a route) and ``last_route`` names the route of the last
+launch.  ``segment_plan`` and ``segment_phases`` mirror the segment
+kernel's grid, tiles and barriers, so the CPU tests can pin them.
 
 Also here, the port of TPU kernel K9, ``ica_solve_stats_pallas``
 (vtc_tpu/ops/pallas_ica_train.py:226-274, kernel ``_make_ica_stats_kernel``
@@ -46,9 +57,10 @@ refreshes, residual and boost, the shard's codes and statistic, the
 statistic's sum over the ranks of the port's ``parallel.Mesh``, and the
 replicated update D += eta (stat / global_b - I) D, ``upd_num_iters``
 times.  A CUDA tensor runs ``vtc_ica_dp_train_segment`` of the same
-source: the whole segment from one C loop, the statistic summed by the host
-hook (``ops/sum_hook``) between a step's statistic and its update at a
-world above one; or raises.  A CPU tensor runs ``fused_ica_dp_train_plain``.
+source, or raises: at a world of one the segment kernel, one launch; at a
+world above one two launches of it a step, the statistic summed by the host
+hook (``ops/sum_hook``) between the front (to the statistic) and the back
+(the update).  A CPU tensor runs ``fused_ica_dp_train_plain``.
 The largest residual stays on the device, NaN kept, for the trainer's lazy
 guard, as K8's does.  ``fused_ica_dp_segment_supported`` is K8's and K9's
 gate: vtc_tpu's comm slots and VMEM budget (:343-352) have no counterpart.
@@ -69,6 +81,39 @@ from vtc_tpu_torch.ops.sum_hook import SumHook
 launches = 0
 stats_launches = 0
 dp_launches = 0
+last_route = None  # 'persistent' or 'steps': the route of the last launch
+
+ROUTES = ("auto", "steps", "persistent")
+# ica_segment.cuh's layout (kSegTileM, kSegTileN, kSegSlice, kSegThreads);
+# chip_smoke.py checks them against the library's
+SEG_TILE_M, SEG_TILE_N, SEG_SLICE, SEG_THREADS = 32, 16, 32, 128
+
+
+def segment_tiles(m, n):
+  """Output tiles of an (m, n) product on the segment kernel."""
+  return -(-m // SEG_TILE_M) * -(-n // SEG_TILE_N)
+
+
+def segment_phases(refine_iters, upd_num_iters, boosted):
+  """Grid barriers in one step of the segment kernel (seg_step_phases):
+  two a refresh, the residual and codes phase, the statistic, one an
+  update, and five more when the boost fires."""
+  return (2 * refine_iters + 2 + upd_num_iters + (5 if boosted else 0))
+
+
+def segment_plan(n, b, sm_count, blocks_per_sm):
+  """The launch 'auto' makes for an (n, n) dictionary and batches of b
+  on a card of sm_count SMs that holds blocks_per_sm segment CTAs an SM:
+  the route ('persistent' for every shape: the kernel masks any n and b
+  and loops where a phase's tiles outnumber its CTAs), its grid (every
+  CTA the card holds at once, but no more than the largest phase has
+  tiles), and the tiles of an n x n phase and of the residual and codes
+  phase, whose tile pairs rows of D X with the same rows of batch X over
+  the same columns (seg_pair_tiles)."""
+  tiles = {"n x n": segment_tiles(n, n),
+           "residual and codes": segment_tiles(max(n, b), n)}
+  grid = min(sm_count * blocks_per_sm, tiles["residual and codes"])
+  return {"route": "persistent", "grid": grid, "tiles": tiles}
 
 
 def fused_ica_segment_supported(n, batch_size, num_atoms=None):
@@ -164,39 +209,78 @@ def fused_ica_train_segment(dictionary, inverse_estimate, batches, stepsize,
 
 
 def _launch(d, x, batches, stepsize, refine_iters, upd_num_iters,
-            boost_tol):
-  """Allocate the scratch and enqueue the k steps on the current stream."""
-  global launches
+            boost_tol, route="auto", grid=0):
+  """Allocate the scratch and enqueue the k steps on the current stream.
+  route 'steps' or 'persistent' forces a route and grid a persistent
+  launch's CTA count (for checks and tools; 0: the shape's own)."""
+  global launches, last_route
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
   device = batches.device
-
-  def empty(*shape):
-    return torch.empty(shape, dtype=torch.float32, device=device)
-
-  eye = torch.eye(n, dtype=torch.float32, device=device)
-  eye2 = 2.0 * eye
+  route = _route(route)
   r_max = torch.zeros((), dtype=torch.float32, device=device)
-  x_alt, e, stat, m, p = (empty(n, n) for _ in range(5))
-  codes, sgn = empty(b, n), empty(b, n)
-  boost = torch.zeros(1, dtype=torch.int32, device=device)
-  with torch.cuda.device(device):
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.vtc_ica_train_segment(
-        d.data_ptr(), x.data_ptr(), r_max.data_ptr(), batches.data_ptr(),
-        eye.data_ptr(), eye2.data_ptr(), k, b, n, ctypes.c_float(stepsize),
-        refine_iters, upd_num_iters, int(boost_tol is not None),
-        ctypes.c_float(0.0 if boost_tol is None else boost_tol),
-        x_alt.data_ptr(), e.data_ptr(), codes.data_ptr(), sgn.data_ptr(),
-        stat.data_ptr(), m.data_ptr(), p.data_ptr(), boost.data_ptr(),
-        stream)
+  if route == "persistent":
+    err = _persistent(lib, d, x, r_max, batches, stepsize, refine_iters,
+                      upd_num_iters, boost_tol, float(b), None, None, grid)
+  else:
+    eye, eye2 = _identities(n, device)
+    x_alt, e, stat, m, p = (_empty(device, n, n) for _ in range(5))
+    codes, sgn = _empty(device, b, n), _empty(device, b, n)
+    boost = torch.zeros(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+      stream = torch.cuda.current_stream(device).cuda_stream
+      err = lib.vtc_ica_train_segment(
+          d.data_ptr(), x.data_ptr(), r_max.data_ptr(), batches.data_ptr(),
+          eye.data_ptr(), eye2.data_ptr(), k, b, n, ctypes.c_float(stepsize),
+          refine_iters, upd_num_iters, int(boost_tol is not None),
+          ctypes.c_float(0.0 if boost_tol is None else boost_tol),
+          x_alt.data_ptr(), e.data_ptr(), codes.data_ptr(), sgn.data_ptr(),
+          stat.data_ptr(), m.data_ptr(), p.data_ptr(), boost.data_ptr(),
+          stream)
   if err != 0:
     raise RuntimeError(
         "fused ICA train step launch failed with CUDA error %d (k=%d, b=%d, "
-        "n=%d)" % (err, k, b, n))
+        "n=%d, route %s)" % (err, k, b, n, route))
   launches += k
+  last_route = route
   return d, x, r_max
+
+
+def _route(route):
+  if route not in ROUTES:
+    raise ValueError("route must be one of %s, got %r" % (ROUTES, route))
+  return "persistent" if route == "auto" else route
+
+
+def _empty(device, *shape):
+  return torch.empty(shape, dtype=torch.float32, device=device)
+
+
+def _persistent(lib, d, x, r_max, batches, stepsize, refine_iters,
+                upd_num_iters, boost_tol, stat_div, stat, hook_pointer, grid):
+  """Enqueue a segment on the persistent route (vtc_ica_persistent_segment)
+  on the current stream: d, x and r_max in place, stat (n, n) the raw
+  statistic that a front launch leaves for the hook (K18's comm; None
+  without a hook, where every launch also updates), grid CTAs (0: the
+  shape's own); returns the C entry's error code."""
+  k, b, n = batches.shape
+  device = batches.device
+  with torch.cuda.device(device):
+    slots = grid or lib.vtc_ica_segment_grid(n, b)
+    d_alt, x_alt, e = (_empty(device, n, n) for _ in range(3))
+    codes, partials = _empty(device, b, n), _empty(device, max(slots, 1))
+    barrier = torch.zeros(1, dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return lib.vtc_ica_persistent_segment(
+        d.data_ptr(), x.data_ptr(), r_max.data_ptr(), batches.data_ptr(), k,
+        b, n, ctypes.c_float(stepsize), refine_iters, upd_num_iters,
+        int(boost_tol is not None),
+        ctypes.c_float(0.0 if boost_tol is None else boost_tol),
+        ctypes.c_float(stat_div), d_alt.data_ptr(), x_alt.data_ptr(),
+        e.data_ptr(), codes.data_ptr(),
+        None if stat is None else stat.data_ptr(), partials.data_ptr(),
+        barrier.data_ptr(), grid, hook_pointer, stream)
 
 
 def ica_solve_stats_plain(dictionary, inverse_estimate, batch, *,
@@ -295,14 +379,10 @@ def _launch_stats(d, x, batch, refine_iters, boost_tol):
   lib = load_library()
   b, n = batch.shape
   device = batch.device
-
-  def empty(*shape):
-    return torch.empty(shape, dtype=torch.float32, device=device)
-
   eye, eye2 = _identities(n, device)
   res = torch.zeros((), dtype=torch.float32, device=device)
-  x_alt, e, stat = empty(n, n), empty(n, n), empty(n, n)
-  codes, sgn = empty(b, n), empty(b, n)
+  x_alt, e, stat = (_empty(device, n, n) for _ in range(3))
+  codes, sgn = _empty(device, b, n), _empty(device, b, n)
   boost = torch.zeros(1, dtype=torch.int32, device=device)
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -414,36 +494,40 @@ def fused_ica_dp_train_segment(dictionary, inverse_estimate, batches,
 
 
 def _launch_dp(d, x, batches, mesh, stepsize, refine_iters, upd_num_iters,
-               boost_tol):
+               boost_tol, route="auto", grid=0):
   """Allocate the scratch and the statistic's buffer, and enqueue the k
   steps on the current stream, the sum over the ranks between each step's
-  statistic and its update."""
-  global dp_launches
+  statistic and its update.  route and grid as ``_launch``'s."""
+  global dp_launches, last_route
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
   device = batches.device
-
-  def empty(*shape):
-    return torch.empty(shape, dtype=torch.float32, device=device)
-
-  eye, eye2 = _identities(n, device)
+  route = _route(route)
   r_max = torch.zeros((), dtype=torch.float32, device=device)
-  x_alt, e, m, p, comm = (empty(n, n) for _ in range(5))
-  codes, sgn = empty(b, n), empty(b, n)
-  boost = torch.zeros(1, dtype=torch.int32, device=device)
+  comm = _empty(device, n, n)
   hook = SumHook(mesh, comm.view(-1))
-  with torch.cuda.device(device):
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.vtc_ica_dp_train_segment(
-        d.data_ptr(), x.data_ptr(), r_max.data_ptr(), batches.data_ptr(),
-        eye.data_ptr(), eye2.data_ptr(), k, b, n, ctypes.c_float(stepsize),
-        refine_iters, upd_num_iters, int(boost_tol is not None),
-        ctypes.c_float(0.0 if boost_tol is None else boost_tol),
-        ctypes.c_float(b * mesh.size), x_alt.data_ptr(), e.data_ptr(),
-        codes.data_ptr(), sgn.data_ptr(), m.data_ptr(), p.data_ptr(),
-        boost.data_ptr(), comm.data_ptr(), hook.pointer, stream)
-  hook.check(err, "data-parallel ICA segment launch (k=%d, b=%d, n=%d)"
-             % (k, b, n))
+  if route == "persistent":
+    err = _persistent(lib, d, x, r_max, batches, stepsize, refine_iters,
+                      upd_num_iters, boost_tol, float(b * mesh.size), comm,
+                      hook.pointer, grid)
+  else:
+    eye, eye2 = _identities(n, device)
+    x_alt, e, m, p = (_empty(device, n, n) for _ in range(4))
+    codes, sgn = _empty(device, b, n), _empty(device, b, n)
+    boost = torch.zeros(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+      stream = torch.cuda.current_stream(device).cuda_stream
+      err = lib.vtc_ica_dp_train_segment(
+          d.data_ptr(), x.data_ptr(), r_max.data_ptr(), batches.data_ptr(),
+          eye.data_ptr(), eye2.data_ptr(), k, b, n, ctypes.c_float(stepsize),
+          refine_iters, upd_num_iters, int(boost_tol is not None),
+          ctypes.c_float(0.0 if boost_tol is None else boost_tol),
+          ctypes.c_float(b * mesh.size), x_alt.data_ptr(), e.data_ptr(),
+          codes.data_ptr(), sgn.data_ptr(), m.data_ptr(), p.data_ptr(),
+          boost.data_ptr(), comm.data_ptr(), hook.pointer, stream)
+  hook.check(err, "data-parallel ICA segment launch (k=%d, b=%d, n=%d, "
+             "route %s)" % (k, b, n, route))
   dp_launches += k
+  last_route = route
   return d, x, r_max
