@@ -417,6 +417,30 @@ the phases that make its check here.
    per step over a 100-step segment at n 256, b 250, refine 3, upd 1,
    the boost armed.  Phase 28's world of 2 runs K18 as front and back
    launches of the segment kernel around the hook and checks the route.
+41. K19's solve as one launch a step (csrc/code_shard_solve.cuh, csrc/
+   fused_code_shard_train_step.cu; phases 23-25 run the default at a mesh
+   of one rank, the persistent solve kernel, and phases 23 and 24 check
+   that they did; phases 36-38 check that the ranks took the per-step
+   route).  (a) The persistent route and the per-step route, both forced
+   through the wrapper's internal route argument, on the same CPU-made
+   inputs (unit rows, the Gram's eigenvector, sparse mixtures) must give
+   bitwise-equal D, h, v, codes and stepsize: bench's fc over 1 and 20
+   steps, its 512 contiguous groups of 4, windows 8, 16 and 32 (hard) at
+   s 512, phase 23's ragged member-table partition (steepest, upd 2) and
+   penalty-0.15 case at s 512, ISTA hard nonnegative at s 96 / n 24 / b
+   13, b 77 / s 600 / n 200, b 19 / s 250 / n 37 (rows that are not
+   whole float4s), upd 2, and forced grids of 1, 7 and 132 CTAs.
+   (b) The library's layout constants, grids and barriers a step equal
+   ops/fused_code_shard_train's solve_plan and solve_barriers; a forced
+   grid one CTA above what the card holds at once is refused, raises and
+   counts no solve launch.  (c) A torch.profiler count over phase 24's
+   two 200-step trainers (a second, uncounted run of each segment): one
+   code_shard_solve_kernel launch a step and none of recon_partial_kernel,
+   recon_sum_kernel or grad_prox_kernel; the solve kernel's device time a
+   launch.  (d) Phase 23's fp32 and fp64 limits and TF32 control run the
+   auto route.  (e) In phase 25, K19 ms per step on both routes in turns
+   (per-step route, persistent, persistent, per-step route) over bench's
+   200-step segment, fc and 512 x 4.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -463,6 +487,8 @@ CUDA_TESTS = {
     "test_torch_port_code_shard.py::test_cuda_kernel_matches_plain": (23,),
     "test_torch_port_code_shard_parallel.py::"
     "test_cuda_kernel_across_ranks_matches_plain": (36,),
+    "test_torch_port_code_shard_persistent.py::"
+    "test_cuda_code_shard_persistent_matches_steps_bitwise": (41,),
     "test_torch_port_conv.py::test_cuda_wrappers_raise_and_match_plain": (
         13, 14),
     "test_torch_port_conv_parallel.py::test_cuda_conv_dp_runs_k13_and_k17": (
@@ -1659,6 +1685,8 @@ def code_shard_kernel_cases(torch, cs, lipschitz, gen, dev):
     before = cs.launches
     got = cs.fused_code_sharded_train_segment(dk, h, v, x, *args, **kw)
     check(cs.launches == before + 1, name + ": K19 did not count its step")
+    check(cs.last_route == "persistent", name + ": K19 took the %s route"
+          % cs.last_route)
     want32 = cs.fused_code_sharded_train_segment_plain(dk, h, v, x, *args,
                                                        **kw)
     want64 = cs.fused_code_sharded_train_segment_plain(
@@ -2732,6 +2760,8 @@ def cs_rank_main(rank, world, workdir):
       torch.cuda.synchronize()
       check(K19.launches == before + 1, name + ": K19 did not count its "
             "step")
+      check(K19.last_route == "steps", name + ": K19 across devices took "
+            "the %s route" % K19.last_route)
       want32 = K19.fused_code_sharded_train_segment_plain(
           *args, *scalars, mesh=mesh, **kw)
       kw64 = {k: (t.double() if isinstance(t, torch.Tensor) else t)
@@ -3376,6 +3406,185 @@ def ica_persistent_bitwise_cases(torch, K8, parallel, lib, dev):
   check(refused and K8.launches == before,
         "a cooperative launch the card cannot hold must raise, uncounted")
   return equal
+
+
+# ---------------------------------------------------------------------------
+# phase 41: the persistent solve under K19 (csrc/code_shard_solve.cuh)
+# ---------------------------------------------------------------------------
+CS_STEP_KERNELS = ("recon_partial_kernel", "recon_sum_kernel",
+                   "grad_prox_kernel")
+
+
+def cs_cpu_problem(torch, s, n, b, k, seed, dev):
+  """Made on the CPU with numpy: unit rows, a zero Hessian EMA, the n x n
+  Gram's top eigenvector and k batches of b mixtures of the rows (12.8
+  active a patch on average, N(0, 0.05^2) amplitudes, N(0, 0.003^2)
+  noise, as bigdict_mixtures), moved to the card."""
+  rng = np.random.RandomState(seed)
+  d = unit_rows(rng, s, n)
+  v = np.linalg.eigh(d.astype(np.float64).T @ d)[1][:, -1]
+  amps = (rng.rand(k * b, s) < 12.8 / s) * rng.randn(k * b, s) * 0.05
+  x = (amps @ d + 0.003 * rng.randn(k * b, n)).reshape(k, b, n)
+  return [torch.tensor(a.astype(np.float32), device=dev)
+          for a in (d, np.zeros(s), v, x)]
+
+
+def cs_launch_args(K19, s, groups=None, penalty=0.0, **flags):
+  """(table, window, comem, flags) of K19's _launch for a partition of
+  range(s) into groups (None: fc) and the flags over its defaults."""
+  table = window = comem = None
+  if groups is not None:
+    arrays = K19.code_shard_group_arrays(groups, s, 1)
+    table, window = K19.group_members(arrays[0][0])
+    if penalty:
+      comem = arrays[1][0]
+  kw = dict(variant="fista", update_alg="sc_cheap_quadratic_descent",
+            upd_num_iters=1, nonneg=False, hard=False, renormalize=True,
+            power_iters=2, lowest_code_val=0.001, alignment_penalty=penalty)
+  kw.update(flags)
+  return table, window, comem, kw
+
+
+def cs_routes(torch, K19, d, h, v, x, grid=0, **case):
+  """{route: (D, h, v, codes, eta)}: both routes, forced, on the same
+  inputs; grid sets the persistent launch's CTAs."""
+  table, window, comem, kw = cs_launch_args(K19, d.shape[0], **case)
+  out = {}
+  for route in ("steps", "persistent"):
+    out[route] = K19._launch(d, h, v, x, table, window, comem, None, LAM,
+                             TRAIN_ITERS, BIG_STEP, route=route,
+                             grid=grid if route == "persistent" else 0, **kw)
+    torch.cuda.synchronize()
+    check(K19.last_route == route, "asked for the %s route, took %s" % (
+        route, K19.last_route))
+  return out
+
+
+def cs_persistent_bitwise_cases(torch, K19, lib, dev):
+  """Phase 41 (a): the persistent and the per-step routes of K19 give
+  bitwise the same D, h, v, codes and stepsize; (b) the library's layout
+  and grid are ops/fused_code_shard_train's, and a grid the card cannot
+  hold at once is refused.  Returns the number of equal cases."""
+  sm, bps = lib.vtc_code_shard_sm_count(), lib.vtc_code_shard_blocks_per_sm()
+  check(sm == torch.cuda.get_device_properties(dev).multi_processor_count,
+        "the library reads %d SMs" % sm)
+  layout = ctypes_ints(6)
+  lib.vtc_code_shard_layout(layout)
+  check(tuple(layout) == (K19.SOLVE_TILE_M, K19.SOLVE_TILE_N,
+                          K19.SOLVE_DEPTH, K19.SOLVE_SLICE,
+                          K19.SOLVE_THREADS, K19.SPLIT_K),
+        "fused_code_shard_train's layout constants differ from the "
+        "library's: %s" % (tuple(layout),))
+  for b, s, n in ((128, 2048, 256), (128, 512, 256), (13, 96, 24),
+                  (77, 600, 200), (250, 2048, 256), (128, 2048, 512)):
+    plan = K19.solve_plan(b, s, n, sm, bps)
+    got = lib.vtc_code_shard_grid(b, s, n)
+    print("solve kernel at b %3d s %4d n %3d: grid %3d CTAs (%d SMs x %d "
+          "CTAs an SM; tiles of phase A %d, of phase B %d; D slices "
+          "resident: A %s, B %s)" % (b, s, n, got, sm, bps,
+                                     plan["tiles"]["A"], plan["tiles"]["B"],
+                                     plan["resident"]["A"],
+                                     plan["resident"]["B"]))
+    check(got == plan["grid"], "the library's grid %d, solve_plan's %d" % (
+        got, plan["grid"]))
+    for members in (0, 1):
+      check(lib.vtc_code_shard_barriers(TRAIN_ITERS, members, 1)
+            == K19.solve_barriers(TRAIN_ITERS, members, True),
+            "the library's barriers a step differ from solve_barriers")
+  sub_cq = "subspace_sc_cheap_quadratic_descent"
+  steep = "subspace_sc_steepest_descent"
+  small = BIG_SMALL_S
+  cases = [
+      # label, (s, n, b, steps), case, grid (0: the shape's own)
+      ("bench fc, 1 step", (BIG_S, 256, BIG_B, 1), {}, 0),
+      ("bench fc, 20 steps", (BIG_S, 256, BIG_B, 20), {}, 0),
+      ("bench 512x4 groups", (BIG_S, 256, BIG_B, 2),
+       dict(groups=contiguous_groups(BIG_S, 4), update_alg=sub_cq), 0),
+      ("s512 window 8", (small, 256, BIG_B, 2),
+       dict(groups=contiguous_groups(small, 8), update_alg=sub_cq), 0),
+      ("s512 window 16", (small, 256, BIG_B, 2),
+       dict(groups=contiguous_groups(small, 16), update_alg=sub_cq), 0),
+      ("s512 window 32 hard", (small, 256, BIG_B, 2),
+       dict(groups=contiguous_groups(small, 32), hard=True,
+            update_alg=steep), 0),
+      ("s512 ragged 1-6 steepest upd 2", (small, 256, BIG_B, 2),
+       dict(groups=ragged_partition(small, 23), upd_num_iters=2,
+            update_alg=steep), 0),
+      ("s512 4s penalty 0.15", (small, 256, BIG_B, 2),
+       dict(groups=contiguous_groups(small, 4), penalty=0.15,
+            update_alg=sub_cq), 0),
+      ("s96 n24 b13 ista hard nonneg upd 2", (96, 24, 13, 2),
+       dict(variant="ista", hard=True, nonneg=True, upd_num_iters=2,
+            update_alg="sc_steepest_descent"), 0),
+      ("b77 s600 n200", (600, 200, 77, 2), {}, 0),
+      ("b19 s250 n37 (single-float copies)", (250, 37, 19, 2), {}, 0),
+      ("bench fc upd 2", (BIG_S, 256, BIG_B, 2), dict(upd_num_iters=2), 0),
+      ("b77 s600 n200 on 1 CTA", (600, 200, 77, 2), {}, 1),
+      ("bench fc on 7 CTAs", (BIG_S, 256, BIG_B, 2), {}, 7),
+      ("bench 512x4 on 132 CTAs", (BIG_S, 256, BIG_B, 2),
+       dict(groups=contiguous_groups(BIG_S, 4), update_alg=sub_cq), 132),
+  ]
+  equal = 0
+  for seed, (label, (s, n, b, k), case, grid) in enumerate(cases):
+    d, h, v, x = cs_cpu_problem(torch, s, n, b, k, 410 + seed, dev)
+    out = cs_routes(torch, K19, d, h, v, x, grid=grid, **case)
+    got, want = out["persistent"], out["steps"]
+    same = [bits_equal(torch, g, w) for g, w in zip(got, want)]
+    check(all(same), "%s: D, h, v, codes, eta bitwise equal %s; max|dD| "
+          "%.3e" % (label, same, float((got[0] - want[0]).abs().max())))
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          label + ": non-finite state")
+    equal += 1
+    print("phase 41 (a) %-36s both routes: D, h, v, codes and eta bitwise "
+          "equal; codes max %.4g" % (label, float(got[3].abs().max())))
+  # a grid the card cannot hold at once: the launch is refused and raises
+  d, h, v, x = cs_cpu_problem(torch, BIG_S, 256, BIG_B, 1, 7, dev)
+  before, solves = K19.launches, K19.solve_launches
+  try:
+    cs_routes(torch, K19, d, h, v, x, grid=sm * bps + 1)
+    refused = False
+  except RuntimeError as e:
+    refused = "CUDA error" in str(e)
+  torch.cuda.synchronize()
+  print("forced persistent launch of %d CTAs (%d fit at once): %s" % (
+      sm * bps + 1, sm * bps, "refused" if refused else "LAUNCHED"))
+  check(refused and K19.solve_launches == solves
+        and K19.launches == before + 1,
+        "a cooperative launch the card cannot hold must raise, uncounted")
+  return equal
+
+
+def cs_dispatch(torch, fn):
+  """{'solve': n, 'steps': n, 'solve_ms': ms}: launches of
+  code_shard_solve_kernel and of the per-step route's solve kernels in
+  one call of fn, and the solve kernel's device time per launch, from
+  torch.profiler's device events."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  out = {"solve": 0, "steps": 0}
+  us = 0.0
+  for e in prof.events():
+    if e.device_type == torch.autograd.DeviceType.CUDA:
+      if "code_shard_solve_kernel" in e.name:
+        out["solve"] += 1
+        us += e.time_range.elapsed_us()
+      elif any("(anonymous namespace)::" + k in e.name
+               for k in CS_STEP_KERNELS):
+        out["steps"] += 1
+  out["solve_ms"] = us / 1e3 / max(out["solve"], 1)
+  return out
+
+
+def cs_solve_bound(b, s, n, iters, upd_iters=1):
+  """The solve kernel, one launch: per FISTA iteration z D and (z D - X)
+  D^T, 2 b s n FLOPs each, and the update's first residual codes D;
+  reading D and X, writing the codes and the residual."""
+  flops = 4.0 * b * s * n * iters + (2.0 * b * s * n if upd_iters else 0.0)
+  return bound(flops, 4.0 * (s * n + 2 * b * n + b * s))
 
 
 def ctypes_ints(count):
@@ -4181,7 +4390,8 @@ def main():
   bd0 = convert.dictionary_from_numpy(
       unit_rows(np.random.RandomState(2), BIG_S, 256), dev)
   bv0 = lipschitz.top_gram_eigenpair(bd0)[1].contiguous()
-  k19_launches = 0
+  k19_launches = k19_solves = 0
+  k19_dispatch = {}
   for grouped in (False, True):
     label = "grouped 512x4" if grouped else "fc"
     t0 = time.perf_counter()
@@ -4198,12 +4408,22 @@ def main():
         ("subspace_sc_cheap_quadratic_descent" if grouped
          else "sc_cheap_quadratic_descent"), 1, False, False,
         True, group_arrays=big_arrays if grouped else None)
-    K19.launches = 0
+    K19.launches = K19.solve_launches = 0
     btrained, bh, bv = runner(bd0, torch.zeros(BIG_S, device=dev), bv0,
                               bbatches, LAM, TRAIN_ITERS, BIG_STEP)
     torch.cuda.synchronize()
     seg_launches = K19.launches
     k19_launches += seg_launches
+    k19_solves += K19.solve_launches
+    check(K19.solve_launches == BIG_STEPS and K19.last_route == "persistent",
+          "%s: expected %d launches of the persistent solve, counted %d "
+          "(route %s)" % (label, BIG_STEPS, K19.solve_launches,
+                          K19.last_route))
+    # phase 41 (c), on the same segment: which kernels the trainer
+    # launches (the profiled run is not counted)
+    k19_dispatch[label] = cs_dispatch(torch, lambda: runner(
+        bd0, torch.zeros(BIG_S, device=dev), bv0, bbatches, LAM,
+        TRAIN_ITERS, BIG_STEP))
     check(seg_launches == BIG_STEPS, "%s: expected %d K19 steps, counted "
           "%d" % (label, BIG_STEPS, seg_launches))
     check(all(bool(torch.isfinite(t).all()) for t in (btrained, bh, bv)),
@@ -4270,6 +4490,31 @@ def main():
               BIG_B / (sum(runs) / 2) * 1e3, card))
   k19_ms = sum(rates["fc"]) / 2
   k19_g_ms = sum(rates["grouped 512x4"]) / 2
+  # phase 41 (e): both routes forced, in turns (per-step route, persistent,
+  # persistent, per-step route), on the same 200-step segment
+  k19_route_ms = {}
+  with torch.no_grad():
+    for grouped in (False, True):
+      label = "grouped 512x4" if grouped else "fc"
+      table, window, comem, kw = cs_launch_args(
+          K19, BIG_S, groups=big_groups if grouped else None,
+          update_alg=("subspace_sc_cheap_quadratic_descent" if grouped
+                      else "sc_cheap_quadratic_descent"))
+      runs = {"steps": [], "persistent": []}
+      for route in ("steps", "persistent", "persistent", "steps"):
+        fn = lambda: K19._launch(bench_d, bench_h, bench_v, bench_x, table,
+                                 window, comem, None, LAM, TRAIN_ITERS,
+                                 BIG_STEP, route=route, **kw)
+        fn()
+        runs[route].append(time_ms(torch, fn, 1) / BIG_STEPS)
+      k19_route_ms[label] = {r: sum(v_) / 2 for r, v_ in runs.items()}
+      print("phase 41 (e) K19 %s ms per step, both routes in turns (a %d-"
+            "step segment at bench's configuration): persistent %.4f (runs "
+            "%.4f, %.4f), per-step route %.4f (runs %.4f, %.4f), %.2fx "
+            "[%s]" % (label, BIG_STEPS, k19_route_ms[label]["persistent"],
+                      *runs["persistent"], k19_route_ms[label]["steps"],
+                      *runs["steps"], k19_route_ms[label]["steps"]
+                      / k19_route_ms[label]["persistent"], card))
   short = bench_x[:20]
   plain_fc = lambda: K19.fused_code_sharded_train_segment_plain(
       *bench_args, short, *seg_args, power_iters=2)
@@ -4984,6 +5229,24 @@ def main():
                 / ica_route_ms[name]["persistent"], k8_bound[0],
                 k8_bound[1], card))
 
+  # phase 41: the persistent solve under K19 (csrc/code_shard_solve.cuh):
+  # both routes bitwise equal, the library's layout and grid, a refused
+  # launch, which kernels phase 24's trainers launched (profiled there)
+  # and phase 25's routes in turns (timed there)
+  n_cs_equal = cs_persistent_bitwise_cases(torch, K19, lib, dev)
+  print("phase 41: %d route comparisons bitwise equal" % n_cs_equal)
+  for label, seen in k19_dispatch.items():
+    print("phase 41 (c) dispatch (profiled), _code_shard_segment_runner %s, "
+          "%d steps: code_shard_solve_kernel %d (%.4f ms a launch), the "
+          "per-step route's %s %d" % (label, BIG_STEPS, seen["solve"],
+                                      seen["solve_ms"],
+                                      ", ".join(CS_STEP_KERNELS),
+                                      seen["steps"]))
+    check(seen["solve"] == BIG_STEPS and seen["steps"] == 0,
+          "%s: expected one code_shard_solve_kernel launch a step and none "
+          "of %s, saw %s" % (label, ", ".join(CS_STEP_KERNELS), seen))
+  cs_solve_ms = k19_dispatch["fc"]["solve_ms"]
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -5018,6 +5281,11 @@ def main():
       ("fused_code_shard_train", "fused_code_shard_train_step.cu",
        "vtc_tpu/ops/pallas_code_shard_train.py:616", k19_launches, k19_err,
        k19_ms, k19_p_ms, k19_bound),
+      ("code_shard_solve (K19's solve, one launch a step)",
+       "code_shard_solve.cuh",
+       "vtc_tpu/ops/pallas_code_shard_train.py:370 (fista_body of :233)",
+       k19_solves, k19_err, cs_solve_ms, k19_p_ms,
+       cs_solve_bound(BIG_B, BIG_S, 256, TRAIN_ITERS)),
       ("fused_code_shard_train across devices",
        "fused_code_shard_train_step.cu",
        "vtc_tpu/ops/pallas_code_shard_train.py:616 (code axis > 1)",

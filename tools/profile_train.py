@@ -58,14 +58,13 @@ reports
   (conv_update_kernel, conv_hessian_ema_kernel, dall_from_dstk_kernel),
   K13's statistics (conv_code_stat_kernel, block_cm_partial_kernel), the
   ICA segment kernel (ica_segment_kernel: every phase of every step of an
-  ICA segment, one launch a segment), K19's reconstruction
-  (recon_partial_kernel,
-  recon_sum_kernel), its gradient with the prox (grad_prox_kernel,
-  group_prox_kernel) and its
-  update residual (resid_partial_kernel, resid_sum_kernel), and everything
-  else; for K19 also the step's split between the reconstruction, the
-  gradient, the power refresh (with the n x n Gram's pgram_partial_kernel
-  and pgram_sum_kernel) and the update.
+  ICA segment, one launch a segment), K19's solve at a mesh of one rank
+  (code_shard_solve_kernel: every FISTA iteration of a step and the
+  update's first residual, one launch a step), its later update residuals
+  (resid_partial_kernel, resid_sum_kernel), and everything else; for K19
+  also the step's split between the solve, the power refresh (with the
+  n x n Gram's pgram_partial_kernel and pgram_sum_kernel) and the
+  update.
 
 Every line of the report is printed, and written to --out when given.
 Needs a CUDA device; imports nothing of the JAX package.
@@ -84,8 +83,8 @@ sys.path.insert(0, os.path.join(_ROOT, "tools"))
 import chip_smoke  # noqa: E402  (the workload and the card's line)
 from profile_encode import busy_ms, time_ms  # noqa: E402
 
-RECON = "K19 reconstruction z D - X (recon_partial, recon_sum)"
-GRAD = "K19 gradient, prox, momentum (grad_prox, group_prox)"
+CS_SOLVE = ("K19 solve: every FISTA iteration and the update's first "
+            "residual (code_shard_solve_kernel)")
 POWER = "power refresh (power_kernel; K19: pgram_partial, pgram_sum)"
 RESID = "K19 update residual codes D - X (resid_partial, resid_sum)"
 PRODUCTS = "products (gemm_kernel)"
@@ -99,8 +98,7 @@ CONV_GRAD = "conv gradient (block_grad_partial, grad_reduce)"
 K13_STATS = "K13 statistics (conv_code_stat, block_cm_partial)"
 DP_UPDATE = "DP update inputs (divide, hessian_from_stat: K15-K17)"
 ICA_SEGMENT = "ICA segment, the whole step (ica_segment_kernel: K8, K18)"
-GROUPS = ((RECON, ("recon_partial_kernel", "recon_sum_kernel")),
-          (GRAD, ("grad_prox_kernel", "group_prox_kernel")),
+GROUPS = ((CS_SOLVE, ("code_shard_solve_kernel",)),
           (RESID, ("resid_partial_kernel", "resid_sum_kernel")),
           (PRODUCTS, ("gemm_kernel",)),
           (POWER, ("power_kernel", "pgram_partial_kernel",
@@ -164,8 +162,7 @@ def workload(args, torch, dev):
         plain=lambda k: lambda: k19.fused_code_sharded_train_segment_plain(
             d0, h0, v0, batches[:k], *scalars, power_iters=2, **kw),
         trainer=lambda: runner(d0, h0, v0, batches, *scalars),
-        split=(("reconstruction r = z D - X", (RECON,)),
-               ("gradient r D^T with prox and momentum", (GRAD,)),
+        split=(("solve (FISTA and the first residual)", (CS_SOLVE,)),
                ("power refresh (D^T D and the power kernel)", (POWER,)),
                ("update (Hessian EMA, residual, codes^T resid, rows)",
                 (RESID, PRODUCTS, EPILOGUE, GROUP_PASSES))))

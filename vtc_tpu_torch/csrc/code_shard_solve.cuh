@@ -1,0 +1,761 @@
+// The persistent residual-form FISTA solve under K19 at a code axis of 1,
+// CUDA C++ for Hopper (sm_90a).
+//
+// Replaces, as one launch a train step, the per-iteration kernels that
+// fused_code_shard_train_step.cu's C loop enqueues for the solve of the
+// TPU kernel K19 (vtc_tpu/ops/pallas_code_shard_train.py: the kernel
+// _make_cs_kernel :233, its FISTA body fista_body :370, under
+// fused_code_sharded_train_segment_pallas :484).  The TPU kernel keeps the
+// dictionary shard resident in VMEM for every iteration; the Hopper
+// counterpart is one resident CTA per SM (a cooperative launch, so the card
+// runs every CTA at once or refuses the launch), each holding its two
+// slices of D in shared memory for the whole solve, with a grid-wide
+// barrier (grid_sync.cuh) between dependent phases.
+//
+// Phases of one step, a grid barrier after each (cs_step_barriers):
+//
+//   1  prologue: z = old = 0 over the CTA's phase-B tiles; the resident D
+//      slices' copies put in flight
+//   per iteration:
+//   A  the reconstruction's partials: for each kSplitK chunk c of the s
+//      atoms, partial[c] = z[:, chunk c] D[chunk c, :], one fmaf chain per
+//      output over the chunk's k in order
+//   S  r = (the partials added in chunk order) - X, the per-step route's
+//      split_sum, spread over every thread of the grid
+//   B  u = z - eta (r D^T), one fmaf chain over k = 0 .. n-1, then the
+//      prox and the momentum (grad_prox_kernel's epilogue); with a member
+//      table, pre = u
+//   G  with a member table only: the group prox over (row, group) pairs in
+//      member order (group_prox_kernel's pass)
+//   and, with upd_num_iters >= 1, the update's first residual codes D - X
+//   as phases A and S with old in place of z, into r (no barrier after S:
+//   the launch ends).  Later update iterations need the updated D, so the
+//   C loop launches their residuals per step as before.
+//
+// Layout (ROADMAP's "memory shape" rule: a persistent cooperative kernel a
+// step, the D slices resident).  An output tile is 32 batch rows by 64
+// columns, 128 threads of 4 x 4 outputs: at b 128, s 2048, n 256 phase A
+// has 8 chunks x 4 x 4 tiles and phase B 4 x 32, so each of 128 CTAs holds
+// one tile of each and keeps both D slices resident (2 x 64 KB), beside a
+// 32 KB staging buffer for its rows of z, old or r, which other CTAs write
+// and so come through L2 each phase (copied in 32-deep k slices with
+// cp.async, every slice in flight before the first computes).  A CTA
+// with one phase-B tile and no member table holds its entries of z and
+// old in registers for the whole solve (else it loads them under phase
+// B's product).  Operands sit [row][k] in shared memory (4 floats of
+// padding), so a thread reads a float4 of k for each of its rows and
+// columns: 8 conflict-free 16-byte reads carry 64 FMAs.  A thread's rows are 4 apart and its columns 8
+// apart (lanes along columns), so a window of up to 8 columns is one row
+// of neighbouring lanes and the in-warp group norm is the per-step
+// kernel's xor butterfly (lanes first, then the thread's own columns for
+// windows of 16 and 32).  Where a phase's tiles outnumber the CTAs (a
+// ragged or large shape, a forced small grid) or n > kCsDepth, a CTA walks
+// several tiles and copies their D slices from L2 as it goes (a slice
+// already in its buffer is not copied again); the bits are the same.
+// Out-of-range rows, columns and k values copy as zeros and are never
+// stored or summed.
+//
+// Same bits.  Every output is the fmaf chain, in the same k order, of the
+// per-step kernels (train_core.cuh's gemm_tile), with their epilogue
+// expressions and the momentum coefficients the C loop computes on the
+// host (betas): so the codes, D, h, v and eta equal the per-step route's
+// bit for bit.  No split of k beyond kSplitK's chunks, no reordered sum, no
+// TF32.
+//
+// The bound at b 128, s 2048, n 256, FISTA 25: a product is 2 b s n = 134
+// MFLOP, 2.0 us at the fp32 SIMT peak of 67 TFLOP/s; a step is 6.99 GFLOP,
+// 0.1043 ms.  What bounds this kernel (tools/bench_code_shard_solve.py):
+// a tile's FMAs read 8 floats a k for 16 FMAs a thread, and the SM's
+// shared-memory pipe delivers 32 a cycle, so a phase's FMAs take twice
+// their time at the FMA peak (5.5 us a 32 x 64 x 256 tile); then three
+// grid barriers an iteration (about 1 us each) and the operands' L2
+// latency.  The split sum is its own phase: summed by the last of a
+// tile's eight CTAs instead (an atomic ticket a tile, no barrier), 16
+// CTAs read 64 KB each and phase A took 26 us against 6.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "grid_sync.cuh"  // the grid barrier and the cp.async helpers
+
+namespace {
+
+constexpr int kSplitK = 256;         // K values per split of a long-K product
+constexpr int kCsTileM = 32;         // output tile rows (batch rows)
+constexpr int kCsTileN = 64;         // output tile columns
+constexpr int kCsDepth = 256;        // k values a tile's operands hold at once
+constexpr int kCsSlice = 32;         // k values per copy group
+constexpr int kCsThreads = 128;      // 4 x 4 outputs each
+constexpr int kCsLd = kCsDepth + 4;  // a shared row of k values, padded
+
+static_assert(kCsDepth == kSplitK, "a phase-A tile is one chunk deep");
+static_assert(kCsThreads * 16 == kCsTileM * kCsTileN,
+              "a thread holds four rows by four columns");
+static_assert(kCsDepth % kCsSlice == 0 && kCsDepth / kCsSlice <= 8,
+              "at most eight copy groups in flight");
+
+enum Shrink { kSoft = 0, kSoftNonneg = 1, kHard = 2, kHardNonneg = 3 };
+
+template <int MODE>
+__device__ __forceinline__ float threshold(float x, float t) {
+  if (MODE == kSoft) return x - fminf(fmaxf(x, -t), t);
+  if (MODE == kSoftNonneg) return fmaxf(x - t, 0.0f);
+  if (MODE == kHard) return fabsf(x) < t ? 0.0f : x;
+  return x < t ? 0.0f : x;
+}
+
+// The group scale of a group of norm |g| at threshold t.
+template <int MODE>
+__device__ __forceinline__ float group_scale(float norm, float t) {
+  if (MODE == kHard) return norm < t ? 0.0f : 1.0f;
+  return norm > 0.0f ? fmaxf(__fsub_rn(1.0f, t / norm), 0.0f) : 0.0f;
+}
+
+// The FISTA / ISTA momentum: the next z from the codes and their previous
+// value prev, code + beta (code - prev), or code.
+__device__ __forceinline__ float momentum_z(float code, float prev,
+                                            float beta, int fista) {
+  return fista ? __fadd_rn(code, __fmul_rn(beta, __fsub_rn(code, prev)))
+               : code;
+}
+
+// z[at] = the next z, old[at] = code, old read past the L1 (another CTA
+// may have written it in this launch).
+__device__ __forceinline__ void momentum_at(float* z, float* old, int64_t at,
+                                            float code, float beta,
+                                            int fista) {
+  z[at] = momentum_z(code, __ldcg(old + at), beta, fista);
+  old[at] = code;
+}
+
+__host__ __device__ inline int cs_cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Tiles of phase A (the reconstruction's partials: kSplitK chunks of s by
+// (b, n) output tiles, cs_out_tiles) and of phase B ((b, s) output
+// tiles).
+__host__ __device__ inline int cs_out_tiles(int b, int n) {
+  return cs_cdiv(b, kCsTileM) * cs_cdiv(n, kCsTileN);
+}
+__host__ __device__ inline int cs_tiles_a(int b, int s, int n) {
+  return cs_cdiv(s, kSplitK) * cs_out_tiles(b, n);
+}
+__host__ __device__ inline int cs_tiles_b(int b, int s) {
+  return cs_cdiv(b, kCsTileM) * cs_cdiv(s, kCsTileN);
+}
+
+// Grid barriers in one step: the prologue's, three an iteration (A, S, B;
+// four with a member table) and the residual's A.
+// ops/fused_code_shard_train.solve_barriers mirrors it.
+__host__ __device__ inline int cs_step_barriers(int num_iters, int members,
+                                                int resid) {
+  return 1 + num_iters * (members ? 4 : 3) + (resid ? 1 : 0);
+}
+
+// CTAs of a launch: every CTA the card holds at once, but no more than the
+// larger phase has tiles.  ops/fused_code_shard_train.solve_plan mirrors
+// it.
+inline int cs_grid(int b, int s, int n, int sm_count, int blocks_per_sm) {
+  const int slots = sm_count * blocks_per_sm;
+  const int ta = cs_tiles_a(b, s, n), tb = cs_tiles_b(b, s);
+  const int tiles = ta > tb ? ta : tb;
+  return slots < tiles ? slots : tiles;
+}
+
+struct SolveArgs {
+  const float* x;        // (b, n) this step's batch
+  const float* d;        // (s, n)
+  float* z;              // (b, s) the iterate
+  float* old;            // (b, s) the codes; the step's codes at the end
+  float* pre;            // (b, s) the pre-prox values (member table only)
+  float* partial;        // (ceil(s / kSplitK), b, n) phase A's partials
+  float* r;              // (b, n) z D - X; at the end codes D - X
+  const float* eta;      // (1,) the stepsize
+  const float* betas;    // (num_iters,) the momentum of each iteration
+  const int* members;    // (groups, width) or null
+  unsigned* barrier;     // (1,) the grid barrier's arrivals
+  unsigned barrier_base; // *barrier at launch
+  float lam;
+  int fista, mode, window, groups, width;
+  int b, s, n, num_iters, resid;
+};
+
+// The dynamic shared memory of a CTA.
+struct SolveSmem {
+  float a[kCsTileM][kCsLd];   // rows of z, old or r: a[row][k]
+  float da[kCsTileN][kCsLd];  // phase A's D: da[j][k] = D[c0 + k, j0 + j]
+  float db[kCsTileN][kCsLd];  // phase B's D: db[j][k] = D[j0 + j, k0 + k]
+};
+
+// wait until at most n (0 .. 7) of this thread's copy groups are in flight
+__device__ __forceinline__ void cs_wait(int n) {
+  switch (n) {
+    case 0: seg_cp_async_wait<0>(); break;
+    case 1: seg_cp_async_wait<1>(); break;
+    case 2: seg_cp_async_wait<2>(); break;
+    case 3: seg_cp_async_wait<3>(); break;
+    case 4: seg_cp_async_wait<4>(); break;
+    case 5: seg_cp_async_wait<5>(); break;
+    case 6: seg_cp_async_wait<6>(); break;
+    default: seg_cp_async_wait<7>(); break;
+  }
+}
+
+// The tile row of a thread's r-th output row and the tile column of its
+// c-th output column: warp w covers rows 16 (w / 2) .. + 15 and columns
+// 32 (w % 2) .. + 31; lane l rows l / 8 + 4 r, columns l % 8 + 8 c.
+__device__ __forceinline__ int cs_row(int r) {
+  return (threadIdx.x >> 6) * 16 + ((threadIdx.x & 31) >> 3) + 4 * r;
+}
+__device__ __forceinline__ int cs_col(int c) {
+  return ((threadIdx.x >> 5) & 1) * 32 + (threadIdx.x & 7) + 8 * c;
+}
+
+// Copy slice st (k values kb + 32 st ..) of ROWS rows of src (rows r0..,
+// row length ld, `rows` rows in all, k < k_end) into dst[row][32 st ..]:
+// float4s along k where vec, else floats; a warp's reads are contiguous.
+template <int ROWS>
+__device__ __forceinline__ void cs_load_rows(float (*dst)[kCsLd],
+                                             const float* src, int ld,
+                                             int rows, int r0, int kb, int st,
+                                             int k_end, bool vec) {
+  const int ks = st * kCsSlice;
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < ROWS * kCsSlice / 4 / kCsThreads; ++q) {
+      const int idx = threadIdx.x + q * kCsThreads;
+      const int row = idx / (kCsSlice / 4);
+      const int kk = ks + 4 * (idx % (kCsSlice / 4));
+      const int i = r0 + row, k = kb + kk;
+      const bool ok = i < rows && k < k_end;
+      seg_cp_async16(&dst[row][kk],
+                     ok ? src + static_cast<int64_t>(i) * ld + k : src, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int q = 0; q < ROWS * kCsSlice / kCsThreads; ++q) {
+      const int idx = threadIdx.x + q * kCsThreads;
+      const int row = idx / kCsSlice;
+      const int kk = ks + idx % kCsSlice;
+      const int i = r0 + row, k = kb + kk;
+      const bool ok = i < rows && k < k_end;
+      seg_cp_async4(&dst[row][kk],
+                    ok ? src + static_cast<int64_t>(i) * ld + k : src, ok);
+    }
+  }
+}
+
+// Copy slice st of phase A's D operand, D[kb + k, j0 + j] for the tile's
+// 64 columns, transposed into da[j][k] (floats; a warp reads along a row
+// of D).
+__device__ __forceinline__ void cs_load_cols(float (*dst)[kCsLd],
+                                             const float* d, int n, int j0,
+                                             int kb, int st, int k_end) {
+  const int ks = st * kCsSlice;
+#pragma unroll 4
+  for (int q = 0; q < kCsTileN * kCsSlice / kCsThreads; ++q) {
+    const int idx = threadIdx.x + q * kCsThreads;
+    const int j = idx % kCsTileN;
+    const int kk = ks + idx / kCsTileN;
+    const int col = j0 + j, k = kb + kk;
+    const bool ok = col < n && k < k_end;
+    seg_cp_async4(&dst[j][kk], ok ? d + static_cast<int64_t>(k) * n + col : d,
+                  ok);
+  }
+}
+
+__device__ __forceinline__ float cs_f4(const float4& v, int q) {
+  return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
+}
+
+// acc[r][c] += the products of k values k .. k + 3, in k order.
+__device__ __forceinline__ void cs_fma4(const SolveSmem& sm,
+                                        const float (*bs)[kCsLd], int k,
+                                        float acc[4][4]) {
+  float4 av[4], bv[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    av[r] = *reinterpret_cast<const float4*>(&sm.a[cs_row(r)][k]);
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    bv[c] = *reinterpret_cast<const float4*>(&bs[cs_col(c)][k]);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[r][c] = fmaf(cs_f4(av[r], q), cs_f4(bv[c], q), acc[r][c]);
+}
+
+// acc += the products of the kn (<= 32) k values from k0 of the buffers,
+// stopping at kn as gemm_tile does.
+__device__ __forceinline__ void cs_slice_fma(const SolveSmem& sm,
+                                             const float (*bs)[kCsLd], int k0,
+                                             int kn, float acc[4][4]) {
+  if (kn == kCsSlice) {
+#pragma unroll
+    for (int k4 = 0; k4 < kCsSlice; k4 += 4) cs_fma4(sm, bs, k0 + k4, acc);
+    return;
+  }
+  int k = 0;
+  for (; k + 4 <= kn; k += 4) cs_fma4(sm, bs, k0 + k, acc);
+  for (; k < kn; ++k) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[r][c] = fmaf(sm.a[cs_row(r)][k0 + k], bs[cs_col(c)][k0 + k],
+                         acc[r][c]);
+  }
+}
+
+// Issue the copies of a k block [kb, k_end) (at most kCsDepth values), one
+// group a 32-deep slice: rows i0.. of A (a, row length lda, M rows) and,
+// where load_b, the tile's D operand (TRANSPOSED: phase A's columns of D,
+// j0 its first column; else phase B's rows of D, j0 its first row), which
+// is otherwise already in bs.
+template <bool TRANSPOSED>
+__device__ __forceinline__ void cs_issue(SolveSmem& sm, float (*bs)[kCsLd],
+                                         const float* a, int lda, int M,
+                                         int i0, bool vec_a, const float* d,
+                                         int s, int n, int j0, bool load_b,
+                                         bool vec_d, int kb, int k_end) {
+  const int slices = cs_cdiv(k_end - kb, kCsSlice);
+  for (int st = 0; st < slices; ++st) {
+    cs_load_rows<kCsTileM>(sm.a, a, lda, M, i0, kb, st, k_end, vec_a);
+    if (load_b) {
+      if (TRANSPOSED)
+        cs_load_cols(bs, d, n, j0, kb, st, k_end);
+      else
+        cs_load_rows<kCsTileN>(bs, d, n, s, j0, kb, st, k_end, vec_d);
+    }
+    seg_cp_async_commit();
+  }
+}
+
+// acc += the products of the k block cs_issue copied, each slice once it
+// has landed.  Every thread of the CTA must call both.
+__device__ __forceinline__ void cs_compute(SolveSmem& sm,
+                                           const float (*bs)[kCsLd], int kb,
+                                           int k_end, float acc[4][4]) {
+  const int slices = cs_cdiv(k_end - kb, kCsSlice);
+  for (int st = 0; st < slices; ++st) {
+    cs_wait(slices - 1 - st);
+    __syncthreads();
+    const int k0 = st * kCsSlice;
+    const int kn = k_end - kb - k0 < kCsSlice ? k_end - kb - k0 : kCsSlice;
+    cs_slice_fma(sm, bs, k0, kn, acc);
+  }
+  __syncthreads();  // the next block's copies reuse the buffers
+}
+
+template <bool TRANSPOSED>
+__device__ __forceinline__ void cs_block(SolveSmem& sm, float (*bs)[kCsLd],
+                                         const float* a, int lda, int M,
+                                         int i0, bool vec_a, const float* d,
+                                         int s, int n, int j0, bool load_b,
+                                         bool vec_d, int kb, int k_end,
+                                         float acc[4][4]) {
+  cs_issue<TRANSPOSED>(sm, bs, a, lda, M, i0, vec_a, d, s, n, j0, load_b,
+                       vec_d, kb, k_end);
+  cs_compute(sm, bs, kb, k_end, acc);
+}
+
+// The copy modes of a launch: float4s where rows are whole float4s and
+// every base is 16-byte aligned.
+struct SolveCopy {
+  bool codes, r, d;  // rows of z / old (length s), of r (n), of D (n)
+  bool sum;          // the split sum: partial, x and r by float4s
+};
+
+__device__ __forceinline__ SolveCopy cs_copy_mode(const SolveArgs& p) {
+  const auto aligned = [](const void* q) {
+    return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+  };
+  return {p.s % 4 == 0 && aligned(p.z) && aligned(p.old),
+          p.n % 4 == 0 && aligned(p.r), p.n % 4 == 0 && aligned(p.d),
+          p.n % 4 == 0 && aligned(p.r) && aligned(p.x) &&
+              aligned(p.partial)};
+}
+
+// Phase-B tile t's row block (of kCsTileM batch rows) and column block
+// (of kCsTileN atoms): neighbouring tiles take neighbouring row blocks,
+// so the CTAs that read a row block of r are spread over the grid.
+__device__ __forceinline__ int cs_row_block(const SolveArgs& p, int t) {
+  return t % cs_cdiv(p.b, kCsTileM);
+}
+__device__ __forceinline__ int cs_col_block(const SolveArgs& p, int t) {
+  return t / cs_cdiv(p.b, kCsTileM);
+}
+
+// The D slice phase-A tile t reads (its chunk and column block), and
+// phase-B tile t's at k block kb_i.
+__device__ __forceinline__ int cs_key_a(const SolveArgs& p, int t) {
+  const int per = cs_out_tiles(p.b, p.n), ctn = cs_cdiv(p.n, kCsTileN);
+  return (t / per) * ctn + (t % per) % ctn;
+}
+__device__ __forceinline__ int cs_key_b(const SolveArgs& p, int t, int kb_i) {
+  return cs_col_block(p, t) * cs_cdiv(p.n, kCsDepth) + kb_i;
+}
+
+// Issue the copies of phase-A tile t's D slice, one group (the prologue
+// of a resident slice).
+__device__ __forceinline__ void cs_prefetch_a(SolveSmem& sm,
+                                              const SolveArgs& p, int t) {
+  const int per = cs_out_tiles(p.b, p.n), ctn = cs_cdiv(p.n, kCsTileN);
+  const int c = t / per, j0 = ((t % per) % ctn) * kCsTileN;
+  const int kb = c * kSplitK;
+  const int k_end = p.s - kb < kSplitK ? p.s : kb + kSplitK;
+  for (int st = 0; st < cs_cdiv(k_end - kb, kCsSlice); ++st)
+    cs_load_cols(sm.da, p.d, p.n, j0, kb, st, k_end);
+}
+
+__device__ __forceinline__ void cs_prefetch_b(SolveSmem& sm,
+                                              const SolveArgs& p, bool vec_d,
+                                              int t) {
+  const int j0 = cs_col_block(p, t) * kCsTileN;
+  for (int st = 0; st < cs_cdiv(p.n, kCsSlice); ++st)
+    cs_load_rows<kCsTileN>(sm.db, p.d, p.n, p.s, j0, 0, st, p.n, vec_d);
+}
+
+// Phase S: r = (the chunk partials added in chunk order) - X, the
+// per-step route's split_sum, over every thread of the grid (float4s of
+// four neighbouring entries where sum), past the L1.
+__device__ __forceinline__ void cs_sum_phase(const SolveArgs& p,
+                                             SolveCopy mode) {
+  const int splits = cs_cdiv(p.s, kSplitK);
+  const int64_t bn = static_cast<int64_t>(p.b) * p.n;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kCsThreads;
+  const int64_t first = blockIdx.x * static_cast<int64_t>(kCsThreads) +
+                        threadIdx.x;
+  if (mode.sum) {
+    const float4* part = reinterpret_cast<const float4*>(p.partial);
+    const float4* x = reinterpret_cast<const float4*>(p.x);
+    float4* r = reinterpret_cast<float4*>(p.r);
+    const int64_t quads = bn / 4;
+    for (int64_t e = first; e < quads; e += stride) {
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int sp0 = 0; sp0 < splits; sp0 += 8) {
+        float4 v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (sp0 + u < splits) v[u] = __ldcg(part + (sp0 + u) * quads + e);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (sp0 + u >= splits) break;
+          if (sp0 + u == 0) {
+            acc = v[u];
+          } else {
+            acc.x = __fadd_rn(acc.x, v[u].x);
+            acc.y = __fadd_rn(acc.y, v[u].y);
+            acc.z = __fadd_rn(acc.z, v[u].z);
+            acc.w = __fadd_rn(acc.w, v[u].w);
+          }
+        }
+      }
+      const float4 xv = __ldg(x + e);
+      r[e] = make_float4(__fsub_rn(acc.x, xv.x), __fsub_rn(acc.y, xv.y),
+                         __fsub_rn(acc.z, xv.z), __fsub_rn(acc.w, xv.w));
+    }
+    return;
+  }
+  for (int64_t e = first; e < bn; e += stride) {
+    float acc = 0.0f;
+    for (int sp0 = 0; sp0 < splits; sp0 += 8) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (sp0 + u < splits) v[u] = __ldcg(p.partial + (sp0 + u) * bn + e);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (sp0 + u >= splits) break;
+        acc = sp0 + u == 0 ? v[u] : __fadd_rn(acc, v[u]);
+      }
+    }
+    p.r[e] = __fsub_rn(acc, p.x[e]);
+  }
+}
+
+// Phase-A tile t with src (z, or old for the update's residual) as A: its
+// chunk's partial.  key_a names the D slice in da.
+__device__ __forceinline__ void cs_phase_a_tile(SolveSmem& sm,
+                                                const SolveArgs& p,
+                                                SolveCopy mode,
+                                                const float* src, int t,
+                                                int& key_a) {
+  const int per = cs_out_tiles(p.b, p.n), ctn = cs_cdiv(p.n, kCsTileN);
+  const int c = t / per, o = t % per;
+  const int i0 = (o / ctn) * kCsTileM, j0 = (o % ctn) * kCsTileN;
+  const int kb = c * kSplitK;
+  const int k_end = p.s - kb < kSplitK ? p.s : kb + kSplitK;
+  const int key = cs_key_a(p, t);
+  const bool load = key != key_a;
+  key_a = key;
+  float acc[4][4] = {};
+  cs_block<true>(sm, sm.da, src, p.s, p.b, i0, mode.codes, p.d, p.s, p.n, j0,
+                 load, false, kb, k_end, acc);
+  float* part = p.partial + static_cast<int64_t>(c) * p.b * p.n;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + cs_row(r);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int j = j0 + cs_col(cc);
+      if (i < p.b && j < p.n)
+        part[static_cast<int64_t>(i) * p.n + j] = acc[r][cc];
+    }
+  }
+}
+
+__device__ __forceinline__ float cs_threshold(int mode, float x, float t) {
+  if (mode == kSoft) return threshold<kSoft>(x, t);
+  if (mode == kSoftNonneg) return threshold<kSoftNonneg>(x, t);
+  if (mode == kHard) return threshold<kHard>(x, t);
+  return threshold<kHardNonneg>(x, t);
+}
+
+__device__ __forceinline__ float cs_group_scale(int mode, float norm,
+                                                float t) {
+  return mode == kHard ? group_scale<kHard>(norm, t)
+                       : group_scale<kSoft>(norm, t);
+}
+
+// Phase-B tile t: u = z - eta (r D^T) and its epilogue (grad_prox_kernel's
+// expressions).  key_b names the D slice in db.  zv and ov hold the
+// thread's entries of z and old: where held, they are the tile's (the
+// CTA's only phase-B tile, no member table) from the last iteration and
+// are kept up to date; else they are loaded here.
+__device__ __forceinline__ void cs_phase_b_tile(SolveSmem& sm,
+                                                const SolveArgs& p,
+                                                SolveCopy mode, int t,
+                                                float eta, float lam_eta,
+                                                float beta, int& key_b,
+                                                bool held, float zv[4][4],
+                                                float ov[4][4]) {
+  const int i0 = cs_row_block(p, t) * kCsTileM;
+  const int j0 = cs_col_block(p, t) * kCsTileN;
+  const int w = p.members != nullptr ? -1 : p.window;
+  float acc[4][4] = {};
+  const int blocks = cs_cdiv(p.n, kCsDepth);
+  for (int kb_i = 0; kb_i < blocks; ++kb_i) {
+    const int kb = kb_i * kCsDepth;
+    const int k_end = p.n - kb < kCsDepth ? p.n : kb + kCsDepth;
+    const int key = cs_key_b(p, t, kb_i);
+    const bool load = key != key_b;
+    key_b = key;
+    cs_issue<false>(sm, sm.db, p.r, p.n, p.b, i0, mode.r, p.d, p.s, p.n, j0,
+                    load, mode.d, kb, k_end);
+    if (kb_i == 0 && !held) {
+      // the thread's entries of z and old, loaded behind the operand's
+      // copies (their L2 latency under the product)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = i0 + cs_row(r);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = j0 + cs_col(c);
+          const int64_t at = static_cast<int64_t>(i) * p.s + j;
+          const bool inside = i < p.b && j < p.s;
+          zv[r][c] = inside ? __ldcg(p.z + at) : 0.0f;
+          ov[r][c] = inside && w >= 0 ? __ldcg(p.old + at) : 0.0f;
+        }
+      }
+    }
+    cs_compute(sm, sm.db, kb, k_end, acc);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + cs_row(r);
+    float u[4];
+    bool inside[4];
+    int64_t at[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = j0 + cs_col(c);
+      inside[c] = i < p.b && j < p.s;
+      at[c] = static_cast<int64_t>(i) * p.s + j;
+      u[c] = inside[c] ? __fsub_rn(zv[r][c], __fmul_rn(eta, acc[r][c]))
+                       : 0.0f;
+    }
+    if (w < 0) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (inside[c]) p.pre[at[c]] = u[c];
+      continue;
+    }
+    float code[4];
+    if (w == 0) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        code[c] = cs_threshold(p.mode, u[c], lam_eta);
+    } else {
+      // the per-step kernel's butterfly: neighbouring columns sit on
+      // neighbouring lanes (xor 1, 2, 4), then a thread's columns 8 apart
+      // (16, 32); every lane takes part, outside entries add zeros
+      float sq[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sq[c] = __fmul_rn(u[c], u[c]);
+      for (int off = 1; off < w && off < 8; off <<= 1)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          sq[c] = __fadd_rn(sq[c], __shfl_xor_sync(0xffffffffu, sq[c], off));
+      if (w >= 16) {
+        const float lo = __fadd_rn(sq[0], sq[1]);
+        const float hi = __fadd_rn(sq[2], sq[3]);
+        if (w == 16) {
+          sq[0] = sq[1] = lo;
+          sq[2] = sq[3] = hi;
+        } else {
+          sq[0] = sq[1] = sq[2] = sq[3] = __fadd_rn(lo, hi);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        code[c] = __fmul_rn(u[c],
+                            cs_group_scale(p.mode, sqrtf(sq[c]), lam_eta));
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!inside[c]) continue;
+      zv[r][c] = momentum_z(code[c], ov[r][c], beta, p.fista);
+      ov[r][c] = code[c];
+      p.z[at[c]] = zv[r][c];
+      p.old[at[c]] = code[c];
+    }
+  }
+}
+
+// Phase G: the group prox of a member table, one thread per (row, group),
+// group_prox_kernel's pass over the grid.
+__device__ __forceinline__ void cs_group_phase(const SolveArgs& p,
+                                               float lam_eta, float beta) {
+  const int64_t total = static_cast<int64_t>(p.b) * p.groups;
+  for (int64_t idx = blockIdx.x * static_cast<int64_t>(kCsThreads) +
+                     threadIdx.x;
+       idx < total; idx += static_cast<int64_t>(gridDim.x) * kCsThreads) {
+    const int64_t row = idx / p.groups;
+    const int* list = p.members + (idx - row * p.groups) * p.width;
+    const int64_t base = row * p.s;
+    float sq = 0.0f;
+    for (int m = 0; m < p.width && list[m] >= 0; ++m) {
+      const float u = __ldcg(p.pre + base + list[m]);
+      sq = __fadd_rn(sq, __fmul_rn(u, u));
+    }
+    const float scale = cs_group_scale(p.mode, sqrtf(sq), lam_eta);
+    for (int m = 0; m < p.width && list[m] >= 0; ++m)
+      momentum_at(p.z, p.old, base + list[m],
+                  __fmul_rn(__ldcg(p.pre + base + list[m]), scale), beta,
+                  p.fista);
+  }
+}
+
+__global__ void __launch_bounds__(kCsThreads, 1)
+    code_shard_solve_kernel(SolveArgs p) {
+  extern __shared__ __align__(16) unsigned char cs_smem[];
+  SolveSmem& sm = *reinterpret_cast<SolveSmem*>(cs_smem);
+  const SolveCopy mode = cs_copy_mode(p);
+  const int tiles_a = cs_tiles_a(p.b, p.s, p.n);
+  const int tiles_b = cs_tiles_b(p.b, p.s);
+  const int grid = static_cast<int>(gridDim.x);
+  unsigned target = p.barrier_base;
+  // the prologue: a CTA with one tile of a phase keeps its D slice for
+  // the whole solve (n <= kCsDepth for phase B), copies in flight now
+  int key_a = -1, key_b = -1;
+  const int t0 = static_cast<int>(blockIdx.x);
+  if (grid >= tiles_a && t0 < tiles_a) {
+    cs_prefetch_a(sm, p, t0);
+    key_a = cs_key_a(p, t0);
+  }
+  if (grid >= tiles_b && p.n <= kCsDepth && t0 < tiles_b) {
+    cs_prefetch_b(sm, p, mode.d, t0);
+    key_b = cs_key_b(p, t0, 0);
+  }
+  seg_cp_async_commit();
+  for (int t = t0; t < tiles_b; t += grid) {
+    const int i0 = cs_row_block(p, t) * kCsTileM;
+    const int j0 = cs_col_block(p, t) * kCsTileN;
+    for (int e = threadIdx.x; e < kCsTileM * kCsTileN; e += kCsThreads) {
+      const int i = i0 + e / kCsTileN, j = j0 + e % kCsTileN;
+      if (i < p.b && j < p.s) {
+        const int64_t at = static_cast<int64_t>(i) * p.s + j;
+        p.z[at] = 0.0f;
+        p.old[at] = 0.0f;
+      }
+    }
+  }
+  const float eta = *p.eta;
+  const float lam_eta = __fmul_rn(p.lam, eta);
+  // a CTA with one phase-B tile and no member table holds its entries of
+  // z and old in registers for the whole solve (zero, as stored above)
+  const bool held = grid >= tiles_b && p.members == nullptr;
+  float zv[4][4] = {}, ov[4][4] = {};
+  seg_grid_sync(p.barrier, target);
+  for (int it = 0; it < p.num_iters; ++it) {
+    for (int t = t0; t < tiles_a; t += grid)
+      cs_phase_a_tile(sm, p, mode, p.z, t, key_a);
+    seg_grid_sync(p.barrier, target);
+    cs_sum_phase(p, mode);
+    seg_grid_sync(p.barrier, target);
+    const float beta = p.betas[it];
+    for (int t = t0; t < tiles_b; t += grid)
+      cs_phase_b_tile(sm, p, mode, t, eta, lam_eta, beta, key_b, held, zv,
+                      ov);
+    seg_grid_sync(p.barrier, target);
+    if (p.members != nullptr) {
+      cs_group_phase(p, lam_eta, beta);
+      seg_grid_sync(p.barrier, target);
+    }
+  }
+  if (p.resid) {
+    for (int t = t0; t < tiles_a; t += grid)
+      cs_phase_a_tile(sm, p, mode, p.old, t, key_a);
+    seg_grid_sync(p.barrier, target);
+    cs_sum_phase(p, mode);
+  }
+  cs_wait(0);  // no copy outlives the launch
+}
+
+// The current device's SM count and the solve kernel's resident CTAs per
+// SM (its dynamic shared memory opted in), read once per device.
+inline int cs_device_value(int which) {
+  static int values[2][64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  int& v = values[which][dev];
+  if (v == 0) {
+    cudaError_t err;
+    if (which == 0) {
+      err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    } else {
+      err = cudaFuncSetAttribute(code_shard_solve_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(sizeof(SolveSmem)));
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &v, code_shard_solve_kernel, kCsThreads, sizeof(SolveSmem));
+    }
+    if (err != cudaSuccess) v = 0;
+  }
+  return v;
+}
+
+inline int cs_sm_count() { return cs_device_value(0); }
+inline int cs_blocks_per_sm() { return cs_device_value(1); }
+
+// Launch the solve kernel cooperatively on grid CTAs.  A grid the card
+// cannot hold at once is refused by the launch
+// (cudaErrorCooperativeLaunchTooLarge), never run; the error is returned
+// and taken off the runtime's last error.
+inline cudaError_t launch_code_shard_solve(SolveArgs args, int grid,
+                                           cudaStream_t stream) {
+  if (grid < 1 || cs_blocks_per_sm() < 1) return cudaErrorInvalidConfiguration;
+  void* params[] = {&args};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(code_shard_solve_kernel), dim3(grid),
+      dim3(kCsThreads), params, sizeof(SolveSmem), stream);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+}  // namespace

@@ -30,7 +30,14 @@
 // Layout: K2's (fused_train_step.cu).  Per-step kernels that one C loop per
 // segment enqueues on one stream; D (2 MB at s 2048, n 256), z and old
 // (1 MB each at b 128) and r (128 KB) stay in device memory, which L2
-// (50 MB) holds, and the host never waits inside a segment.
+// (50 MB) holds, and the host never waits inside a segment.  Two routes
+// give the same bits.  At one rank the step's solve (every FISTA
+// iteration) and the update's first residual are one cooperative launch
+// of code_shard_solve.cuh's code_shard_solve_kernel, the D slices
+// resident in shared memory; the Gram, the power refresh and the update
+// stay per-step launches.  The per-step route below (about 3 launches an
+// iteration) is its bitwise reference and the route across ranks, where
+// the hook runs between launches.
 //
 // What bounds it on this card.  A FISTA iteration is two products of
 // 2 b s n FLOPs each (134 MFLOP at b 128, s 2048, n 256), 6.7 GFLOP per
@@ -76,28 +83,12 @@
 // eigenvector and the rows of a shard stay bitwise equal on the ranks
 // that hold them.  With no hook (one rank) the launches are the ones
 // above, unchanged.
+#include <vector>
+
 #include "train_core.cuh"
+#include "code_shard_solve.cuh"
 
 namespace {
-
-constexpr int kSplitK = 256;  // K values per split of a long-K product
-
-enum Shrink { kSoft = 0, kSoftNonneg = 1, kHard = 2, kHardNonneg = 3 };
-
-template <int MODE>
-__device__ __forceinline__ float threshold(float x, float t) {
-  if (MODE == kSoft) return x - fminf(fmaxf(x, -t), t);
-  if (MODE == kSoftNonneg) return fmaxf(x - t, 0.0f);
-  if (MODE == kHard) return fabsf(x) < t ? 0.0f : x;
-  return x < t ? 0.0f : x;
-}
-
-// The group scale of a group of norm |g| at threshold t.
-template <int MODE>
-__device__ __forceinline__ float group_scale(float norm, float t) {
-  if (MODE == kHard) return norm < t ? 0.0f : 1.0f;
-  return norm > 0.0f ? fmaxf(__fsub_rn(1.0f, t / norm), 0.0f) : 0.0f;
-}
 
 // partial[blockIdx.z] (M, N) = op(A) op(B) summed over the split's K values
 // [blockIdx.z * kSplitK, +kSplitK), train_core.cuh's layouts.
@@ -206,10 +197,7 @@ struct IterArgs {
 
 __device__ __forceinline__ void momentum(const IterArgs& p, int64_t at,
                                          float code) {
-  p.z[at] = p.fista ? __fadd_rn(code, __fmul_rn(p.beta,
-                                                __fsub_rn(code, p.old[at])))
-                    : code;
-  p.old[at] = code;
+  momentum_at(p.z, p.old, at, code, p.beta, p.fista);
 }
 
 // u = z - eta (r D^T), a 32 x 32 tile of (b, s) per block, then
@@ -324,6 +312,32 @@ extern "C" {
 // partial-sum scratch with it.
 int vtc_code_shard_split_k() { return kSplitK; }
 
+// The persistent solve's layout (code_shard_solve.cuh): kCsTileM,
+// kCsTileN, kCsDepth, kCsSlice, kCsThreads, kSplitK.
+void vtc_code_shard_layout(int* out) {
+  out[0] = kCsTileM;
+  out[1] = kCsTileN;
+  out[2] = kCsDepth;
+  out[3] = kCsSlice;
+  out[4] = kCsThreads;
+  out[5] = kSplitK;
+}
+
+int vtc_code_shard_sm_count() { return cs_sm_count(); }
+int vtc_code_shard_blocks_per_sm() { return cs_blocks_per_sm(); }
+
+// The persistent solve's CTAs at (b, s, n) on the current device (0 for
+// an empty shape).
+int vtc_code_shard_grid(int b, int s, int n) {
+  if (b < 1 || s < 1 || n < 1) return 0;
+  return cs_grid(b, s, n, cs_sm_count(), cs_blocks_per_sm());
+}
+
+// Grid barriers in one step of the persistent solve.
+int vtc_code_shard_barriers(int num_iters, int members, int resid) {
+  return cs_step_barriers(num_iters, members, resid);
+}
+
 // k residual-form train steps on one stream, every launch enqueued before
 // returning.
 //
@@ -342,7 +356,15 @@ int vtc_code_shard_split_k() { return kSplitK; }
 // quadratic.  inv_b is 1 / (b * data_ranks).  Across ranks (code_ranks or
 // data_ranks above 1) hook sums the buffers of SumWhich in place, stat
 // (s,) being the Hessian statistic's scratch with data_ranks above 1.
-// Returns the first CUDA error code (0 on success), or kSumHookFailed.
+//
+// persistent 0 runs each FISTA iteration as per-step launches (the route
+// the hook needs between them); 1 runs a step's solve and the update's
+// first residual as one cooperative launch of code_shard_solve_kernel on
+// grid CTAs (0: vtc_code_shard_grid), one rank only, with betas
+// (num_iters,) and barrier (1,) unsigned device scratch.
+// Both give the same bits.  Returns the first CUDA error code (0 on
+// success; a grid the card cannot hold at once is refused,
+// cudaErrorCooperativeLaunchTooLarge), or kSumHookFailed.
 int vtc_code_shard_train_segment(
     float* d, float* h, float* v, const float* x, int k, int b, int s, int n,
     int window, const int* members, int groups, int width,
@@ -352,6 +374,7 @@ int vtc_code_shard_train_segment(
     float* partial, float* rbuf, float* z, float* old, float* pre,
     float* grad, float* cmat, float* smat, float* sd, float* eta,
     int code_ranks, int data_ranks, float* stat, AxisSumHook hook,
+    int persistent, int grid, float* betas, unsigned* barrier,
     void* stream_ptr) {
   const bool code_sum = code_ranks > 1;
   const bool data_sum = data_ranks > 1;
@@ -364,7 +387,10 @@ int vtc_code_shard_train_segment(
       (window > 0 && (members != nullptr || s % window != 0)) ||
       (members != nullptr && (pre == nullptr || groups < 1 || width < 1)) ||
       (comem != nullptr &&
-       (cmat == nullptr || smat == nullptr || sd == nullptr)))
+       (cmat == nullptr || smat == nullptr || sd == nullptr)) ||
+      grid < 0 ||
+      (persistent && (code_sum || data_sum || barrier == nullptr ||
+                      (num_iters > 0 && betas == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int splits = (s + kSplitK - 1) / kSplitK;
@@ -385,6 +411,14 @@ int vtc_code_shard_train_segment(
 #define VTC_LAUNCHED() VTC_CHECK(cudaGetLastError())
 #define VTC_SUM(WHICH) \
   if (hook(step, WHICH) != 0) return kSumHookFailed
+  // the momentum of each iteration, the same floats on both routes
+  std::vector<float> beta_of(num_iters);
+  float t = 1.0f;
+  for (int iter = 0; iter < num_iters; ++iter) {
+    const float t_next = (1.0f + sqrtf(1.0f + 4.0f * t * t)) / 2.0f;
+    beta_of[iter] = (t - 1.0f) / t_next;
+    t = t_next;
+  }
   IterArgs it = {};
   it.r = rbuf;
   it.d = d;
@@ -397,6 +431,37 @@ int vtc_code_shard_train_segment(
   it.b = b;
   it.s = s;
   it.n = n;
+  SolveArgs sa = {};
+  unsigned barrier_base = 0;
+  if (persistent && k > 0) {
+    if (grid == 0) grid = vtc_code_shard_grid(b, s, n);
+    if (num_iters > 0)
+      VTC_CHECK(cudaMemcpyAsync(betas, beta_of.data(),
+                                sizeof(float) * num_iters,
+                                cudaMemcpyHostToDevice, stream));
+    VTC_CHECK(cudaMemsetAsync(barrier, 0, sizeof(unsigned), stream));
+    sa.d = d;
+    sa.z = z;
+    sa.old = old;
+    sa.pre = pre;
+    sa.partial = partial;
+    sa.r = rbuf;
+    sa.eta = eta;
+    sa.betas = betas;
+    sa.members = members;
+    sa.barrier = barrier;
+    sa.lam = lam;
+    sa.fista = fista;
+    sa.mode = mode;
+    sa.window = window;
+    sa.groups = groups;
+    sa.width = width;
+    sa.b = b;
+    sa.s = s;
+    sa.n = n;
+    sa.num_iters = num_iters;
+    sa.resid = upd_num_iters > 0;
+  }
   for (int step = 0; step < k; ++step) {
     const float* xs = x + static_cast<int64_t>(step) * b * n;
     // the stepsize: the n x n Gram and the warm power refresh
@@ -408,28 +473,34 @@ int vtc_code_shard_train_segment(
     VTC_LAUNCHED();
     if (code_sum) VTC_SUM(kSumGram);
     VTC_CHECK(power_refresh(pgram, v, eta, n, power_iters, stream));
-    // the solve, from zero codes
-    VTC_CHECK(cudaMemsetAsync(z, 0, codes_bytes, stream));
-    VTC_CHECK(cudaMemsetAsync(old, 0, codes_bytes, stream));
-    float t = 1.0f;
-    for (int iter = 0; iter < num_iters; ++iter) {
-      const float t_next = (1.0f + sqrtf(1.0f + 4.0f * t * t)) / 2.0f;
-      it.beta = (t - 1.0f) / t_next;
-      t = t_next;
-      recon_partial_kernel<<<bn_grid, kGemmThreads, 0, stream>>>(
-          z, d, partial, b, s, n);
-      VTC_LAUNCHED();
-      recon_sum_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
-          partial, code_sum ? nullptr : xs, rbuf, splits, bn);
-      VTC_LAUNCHED();
-      if (code_sum) {
-        VTC_SUM(kSumRecon);
-        subtract_x_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
-            rbuf, xs, bn);
+    if (persistent) {
+      // the solve and the update's first residual, one launch
+      sa.x = xs;
+      sa.barrier_base = barrier_base;
+      VTC_CHECK(launch_code_shard_solve(sa, grid, stream));
+      barrier_base += static_cast<unsigned>(
+          cs_step_barriers(num_iters, members != nullptr, sa.resid) * grid);
+    } else {
+      // the solve, from zero codes
+      VTC_CHECK(cudaMemsetAsync(z, 0, codes_bytes, stream));
+      VTC_CHECK(cudaMemsetAsync(old, 0, codes_bytes, stream));
+      for (int iter = 0; iter < num_iters; ++iter) {
+        it.beta = beta_of[iter];
+        recon_partial_kernel<<<bn_grid, kGemmThreads, 0, stream>>>(
+            z, d, partial, b, s, n);
         VTC_LAUNCHED();
+        recon_sum_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
+            partial, code_sum ? nullptr : xs, rbuf, splits, bn);
+        VTC_LAUNCHED();
+        if (code_sum) {
+          VTC_SUM(kSumRecon);
+          subtract_x_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
+              rbuf, xs, bn);
+          VTC_LAUNCHED();
+        }
+        VTC_CHECK(launch_iteration(it, mode, window, members, groups, width,
+                                   stream));
       }
-      VTC_CHECK(launch_iteration(it, mode, window, members, groups, width,
-                                 stream));
     }
     if (update == 1 && data_sum) {
       VTC_CHECK(column_sumsq(old, stat, b, s, stream));
@@ -441,17 +512,20 @@ int vtc_code_shard_train_segment(
       VTC_CHECK(hessian_ema(old, h, b, s, inv_b, stream));
     }
     for (int u = 0; u < upd_num_iters; ++u) {
-      resid_partial_kernel<<<bn_grid, kGemmThreads, 0, stream>>>(
-          old, d, partial, b, s, n);
-      VTC_LAUNCHED();
-      resid_sum_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
-          partial, code_sum ? nullptr : xs, rbuf, splits, bn);
-      VTC_LAUNCHED();
-      if (code_sum) {
-        VTC_SUM(kSumRecon);
-        subtract_x_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
-            rbuf, xs, bn);
+      // the persistent route's launch left the first residual in rbuf
+      if (!persistent || u > 0) {
+        resid_partial_kernel<<<bn_grid, kGemmThreads, 0, stream>>>(
+            old, d, partial, b, s, n);
         VTC_LAUNCHED();
+        resid_sum_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
+            partial, code_sum ? nullptr : xs, rbuf, splits, bn);
+        VTC_LAUNCHED();
+        if (code_sum) {
+          VTC_SUM(kSumRecon);
+          subtract_x_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
+              rbuf, xs, bn);
+          VTC_LAUNCHED();
+        }
       }
       VTC_CHECK(gemm<true, false>(old, rbuf, nullptr, grad, s, n, b, stream));
       if (data_sum) VTC_SUM(kSumGrad);

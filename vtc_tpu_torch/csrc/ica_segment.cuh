@@ -67,17 +67,15 @@
 // same-bits rule fixes each output's fmaf chain, so the work cannot be
 // split along k over more CTAs.
 //
-// The grid barrier is hand-rolled, cooperative_groups' grid.sync()
-// pattern written out: an arrival counter (zeroed by the host before each
-// launch) that each CTA's thread 0 increments after a __threadfence and
-// then polls with ld.acquire.gpu until every CTA of this barrier has
-// arrived (about 1 us on 128 CTAs).  A poll that runs past kSegSpinLimit
-// traps, so a fault ends the launch with an error instead of hanging the
-// card.
+// The grid barrier is grid_sync.cuh's seg_grid_sync, its arrival counter
+// zeroed by the host before each launch; the cp.async helpers are that
+// header's too.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "grid_sync.cuh"
 
 namespace {
 
@@ -87,7 +85,6 @@ constexpr int kSegSlice = 32;      // depth of a k slice
 constexpr int kSegStages = 8;      // k slices in the ring (256 deep)
 constexpr int kSegThreads = 128;   // 16 row pairs x 8 column pairs
 constexpr int kSegLdA = kSegSlice + 4;
-constexpr unsigned kSegSpinLimit = 1u << 26;
 
 static_assert(kSegThreads == (kSegTileM / 2) * (kSegTileN / 2),
               "a thread holds two rows by two columns");
@@ -175,62 +172,6 @@ __device__ __forceinline__ float seg_nan_max(float a, float b) {
 // sign(x): -1, 0 or 1, NaN kept (the per-step route's sign_kernel)
 __device__ __forceinline__ float seg_sign(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : (x == 0.0f ? 0.0f : x));
-}
-
-// A 4-byte cp.async; where copy is false it reads nothing and writes a
-// zero (a source size of 0), so gmem need only be a valid address.
-__device__ __forceinline__ void seg_cp_async4(float* smem, const float* gmem,
-                                              bool copy) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(copy ? 4 : 0));
-}
-
-// A 16-byte cp.async past the L1; where copy is false it reads nothing
-// and writes zeros.
-__device__ __forceinline__ void seg_cp_async16(float* smem, const float* gmem,
-                                               bool copy) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(copy ? 16 : 0));
-}
-
-__device__ __forceinline__ void seg_cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's copy groups are still in flight
-template <int N>
-__device__ __forceinline__ void seg_cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ unsigned seg_ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-// Every CTA of the grid arrives before any leaves; writes before the
-// barrier are seen by every thread after it.  target counts the arrivals
-// this CTA has waited for so far (gridDim.x per barrier), in wrapping
-// unsigned arithmetic.
-__device__ __forceinline__ void seg_grid_sync(unsigned* counter,
-                                              unsigned& target) {
-  target += gridDim.x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-    unsigned spins = 0;
-    while (static_cast<int>(seg_ld_acquire(counter) - target) < 0) {
-      if (++spins > kSegSpinLimit) __trap();
-    }
-  }
-  __syncthreads();
 }
 
 // The A operand of a tile: rows i0.. of one source, or of two (kDual:

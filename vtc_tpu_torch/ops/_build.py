@@ -200,6 +200,15 @@ def load_library():
   lib.vtc_code_shard_train_segment.argtypes = (
       [ptr] * 4 + [i32] * 5 + [ptr, i32, i32, ptr, f32, f32, i32, f32, i32,
                                 f32] + [i32] * 5 + [f32] + [ptr] * 11
-      + [i32, i32, ptr, ptr] + [ptr])
+      + [i32, i32, ptr, ptr] + [i32, i32, ptr, ptr] + [ptr])
   lib.vtc_code_shard_train_segment.restype = i32
+  lib.vtc_code_shard_layout.argtypes = [i32p]
+  lib.vtc_code_shard_layout.restype = None
+  for name in ("vtc_code_shard_sm_count", "vtc_code_shard_blocks_per_sm"):
+    getattr(lib, name).argtypes = []
+    getattr(lib, name).restype = i32
+  lib.vtc_code_shard_grid.argtypes = [i32, i32, i32]
+  lib.vtc_code_shard_grid.restype = i32
+  lib.vtc_code_shard_barriers.argtypes = [i32, i32, i32]
+  lib.vtc_code_shard_barriers.restype = i32
   return lib

@@ -40,7 +40,11 @@ group inside one).
 * A CUDA tensor runs the hand-written kernels of
   ``vtc_tpu_torch/csrc/fused_code_shard_train_step.cu`` (built at first
   use by ``ops/_build.py``) on the current stream, the sums over ranks as
-  calls of its host hook (``ops/sum_hook.AxisSumHook``); or raises.
+  calls of its host hook (``ops/sum_hook.AxisSumHook``); or raises.  At a
+  mesh of one rank each step's solve is one cooperative launch of the
+  persistent solve kernel (``csrc/code_shard_solve.cuh``), which a card
+  that cannot hold its grid at once refuses (the wrapper then raises;
+  there is no fallback).
 * A CPU tensor runs ``fused_code_sharded_train_segment_plain``, the same
   steps in plain PyTorch with the same sums.  ``chip_smoke.py`` holds the
   kernels against it on the card; tests/test_torch_port_code_shard.py and
@@ -51,7 +55,19 @@ Refused, each naming its ROADMAP.md item: on a CUDA tensor the in-kernel
 early stop, and on any device the ``mxu`` tiers other than 'highest'
 (item 3a).  ``axis_size``, ``data_axis_size``, ``code_stride`` and
 ``data_stride`` must be the mesh's; ``interpret`` is a TPU knob, accepted
-at False only.  ``launches`` counts the train steps the kernels ran.
+at False only.  ``launches`` counts the train steps the kernels ran,
+``solve_launches`` the launches of the persistent solve kernel (one a step
+on that route).
+
+Two routes give the same bits: 'persistent', a step's solve and the
+update's first residual as one launch of the solve kernel (one rank
+only), and 'steps', about three launches a FISTA iteration from the C
+loop, kept as its bitwise reference and as the route across ranks, where
+the hook runs between launches.  The private ``route=`` of ``_launch``
+forces one ('auto': ``auto_route``; no public entry point takes a route)
+and ``last_route`` names the route of the last launch.  ``solve_plan``
+and ``solve_barriers`` mirror the solve kernel's grid, tiles and
+barriers, so the CPU tests can pin them.
 """
 import ctypes
 
@@ -63,11 +79,62 @@ from vtc_tpu_torch.ops.precision import matmul_precision
 from vtc_tpu_torch.ops.sum_hook import AxisSumHook
 
 launches = 0
+solve_launches = 0  # launches of the persistent solve kernel
+last_route = None  # 'persistent' or 'steps': the route of the last launch
+
+ROUTES = ("auto", "steps", "persistent")
+# code_shard_solve.cuh's layout (kCsTileM, kCsTileN, kCsDepth, kCsSlice,
+# kCsThreads, kSplitK); chip_smoke.py checks them against the library's
+SOLVE_TILE_M, SOLVE_TILE_N, SOLVE_DEPTH, SOLVE_SLICE = 32, 64, 256, 32
+SOLVE_THREADS, SPLIT_K = 128, 256
 
 UPDATE_ALGS = ("sc_steepest_descent", "sc_cheap_quadratic_descent",
                "subspace_sc_steepest_descent",
                "subspace_sc_cheap_quadratic_descent")
 _MAX_WINDOW = 32  # the kernel's in-warp group prox takes windows up to this
+
+
+def _cdiv(a, b):
+  return -(-a // b)
+
+
+def solve_tiles(b, s, n):
+  """The persistent solve's tiles: phase A (the reconstruction's partials,
+  a kSplitK chunk of the s atoms by a (b, n) output tile each), phase B
+  (the (b, s) output tiles) and the (b, n) output tiles (cs_tiles_a,
+  cs_tiles_b, cs_out_tiles)."""
+  out = _cdiv(b, SOLVE_TILE_M) * _cdiv(n, SOLVE_TILE_N)
+  return {"A": _cdiv(s, SPLIT_K) * out,
+          "B": _cdiv(b, SOLVE_TILE_M) * _cdiv(s, SOLVE_TILE_N), "out": out}
+
+
+def solve_barriers(num_iters, members, resid):
+  """Grid barriers in one step of the solve kernel (cs_step_barriers): the
+  prologue's, three an iteration (the partials, the split sum, the
+  gradient), four with a member table, and one before the update
+  residual's split sum."""
+  return 1 + int(num_iters) * (4 if members else 3) + (1 if resid else 0)
+
+
+def solve_plan(b, s, n, sm_count, blocks_per_sm):
+  """The persistent launch at (b, s, n) on a card of sm_count SMs that
+  holds blocks_per_sm solve CTAs an SM: its grid (every CTA the card holds
+  at once, but no more than the larger phase has tiles), the tiles, and
+  which D slices stay resident in shared memory for the whole solve (a
+  phase whose tiles the grid covers; phase B also needs n <= the depth of
+  one slice)."""
+  tiles = solve_tiles(b, s, n)
+  grid = min(sm_count * blocks_per_sm, max(tiles["A"], tiles["B"]))
+  return {"grid": grid, "tiles": tiles,
+          "resident": {"A": grid >= tiles["A"],
+                       "B": grid >= tiles["B"] and n <= SOLVE_DEPTH}}
+
+
+def auto_route(code_size, data_size):
+  """The route 'auto' takes: the persistent solve at a mesh of one rank,
+  the per-step route (the hook between launches) on any axis above 1."""
+  return ("persistent" if int(code_size) == 1 and int(data_size) == 1
+          else "steps")
 
 
 def code_shard_segment_supported(batch_size, shard_code_size, input_size,
@@ -462,17 +529,26 @@ def fused_code_sharded_train_segment(
 def _launch(dictionary, hessian, eigvec, batches, table, window, comem, mesh,
             lam, num_iters, upd_step, *, variant, update_alg, upd_num_iters,
             nonneg, hard, renormalize, power_iters, lowest_code_val,
-            alignment_penalty):
+            alignment_penalty, route="auto", grid=0):
   """Allocate state and scratch, copy the group table and co-membership
   counts to the device, and enqueue the k steps on the current stream,
-  the sums over ranks as calls of the hook."""
-  global launches
+  the sums over ranks as calls of the hook.  route 'steps' or
+  'persistent' forces a route and grid a persistent launch's CTA count
+  (for checks and tools; 0: the shape's own)."""
+  global launches, solve_launches, last_route
+  code, data = (1, 1) if mesh is None else (mesh.code_size, mesh.size)
+  if route not in ROUTES:
+    raise ValueError("route must be one of %s, got %r" % (ROUTES, route))
+  if route == "auto":
+    route = auto_route(code, data)
+  _require(route == "steps" or (code == 1 and data == 1),
+           "the persistent solve runs at a mesh of one rank only")
+  persistent = route == "persistent"
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
   s = dictionary.shape[0]
   device = batches.device
-  code, data = (1, 1) if mesh is None else (mesh.code_size, mesh.size)
   splits = -(-s // lib.vtc_code_shard_split_k())
 
   def empty(*shape):
@@ -495,6 +571,10 @@ def _launch(dictionary, hessian, eigvec, batches, table, window, comem, mesh,
   partial = empty(splits * max(b, n) * n)
   rbuf, z, old, grad = empty(b, n), empty(b, s), empty(b, s), empty(s, n)
   stat = empty(s) if data > 1 else None
+  betas = barrier = None
+  if persistent:
+    betas = empty(max(num_iters, 1))
+    barrier = torch.empty(1, dtype=torch.int32, device=device)
   sums = {}  # csrc enum SumWhich: what the hook sums, over which axis
   if code > 1:
     sums[0] = (mesh.sum_code_, pgram.view(-1))
@@ -521,8 +601,12 @@ def _launch(dictionary, hessian, eigvec, batches, table, window, comem, mesh,
         int(renormalize), power_iters, f32(1.0 / (b * data)),
         pgram.data_ptr(), partial.data_ptr(), rbuf.data_ptr(), z.data_ptr(),
         old.data_ptr(), ptr(pre), grad.data_ptr(), ptr(cmat), ptr(smat),
-        ptr(sd), eta.data_ptr(), code, data, ptr(stat), hook.pointer, stream)
+        ptr(sd), eta.data_ptr(), code, data, ptr(stat), hook.pointer,
+        int(persistent), int(grid), ptr(betas), ptr(barrier), stream)
   hook.check(err, "residual-form train step launch (k=%d, b=%d, s=%d, n=%d, "
-             "code %d, data %d)" % (k, b, s, n, code, data))
+             "code %d, data %d, route %s)" % (k, b, s, n, code, data, route))
   launches += k
+  if persistent:
+    solve_launches += k
+  last_route = route
   return d, h, v, old, eta
