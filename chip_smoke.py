@@ -373,7 +373,7 @@ the phases that make its check here.
    code axis of 1 (phase 25) beside them.  The ranks share one card over
    gloo, each sum staged through pinned host memory: host-bound numbers,
    not a multi-GPU measurement (NCCL across GPUs cannot run on one card).
-39. The fc/subspace solve's two kernels (csrc/fista_core.cuh).  (a)
+39. The fc/subspace solve's small-batch kernel (csrc/fista_core.cuh).  (a)
    fista_cluster_kernel and fista_kernel, both forced through the
    wrappers' internal route argument, on the same CPU-made G, c and warm
    starts (FISTA 25), must give torch.equal codes: FISTA and ISTA with the
@@ -381,7 +381,7 @@ the phases that make its check here.
    b 250, 125 and 37 and s 256 and 40; groups of 1, 2 and 4, soft and
    hard, there; groups of 8 and 16 (s 256) and 3 and 6 (s 96), which take
    the shared-memory prox pass; s 512 (64 columns a CTA); and b 2048, a
-   shape the route sends to fista_kernel.  (b) The auto route at b 250 and
+   shape the route sends to fista_wide_kernel (phase 42).  (b) The auto route at b 250 and
    125, fc and 64 x 4 groups, against the fp32 and fp64 plain versions at
    phase 2's limit, each with a TF32 control that must fail it.  (c) The
    library's layout constants equal ops/fused_fista's; for 17 shapes the
@@ -441,6 +441,25 @@ the phases that make its check here.
    auto route.  (e) In phase 25, K19 ms per step on both routes in turns
    (per-step route, persistent, persistent, per-step route) over bench's
    200-step segment, fc and 512 x 4.
+42. The fc/subspace solve's large-batch kernel (csrc/fista_core.cuh,
+   fista_wide_kernel; phases 3, 4, 9 and 12 run it through the auto
+   route).  (a) fista_wide_kernel and fista_kernel, both forced through
+   the wrappers' internal route argument, on the same CPU-made G, c and
+   warm starts (100 iterations), must give torch.equal codes: at b 2048
+   FISTA and ISTA with the four shrinks, cold and warm; groups of 1, 2
+   and 4, soft and hard; the ragged b 1,100 and 2,047; b 4,096 (two
+   waves); s 40 and 96 (clusters of one CTA).  (b) The auto route at b
+   2048 and 1,100, fc and 64 x 4 groups, against the fp32 and fp64 plain
+   versions at phase 2's limit, each with a TF32 control that must fail
+   it.  (c) For 14 shapes the route launch_solve took, ops/fused_fista.
+   solve_route's choice and the library's vtc_fista_route agree, and so
+   do the wide cluster size and rows; the flagship takes one wave; a
+   forced wide launch that does not fit (s 1024; groups of 3) raises and
+   counts nothing.  (d) A torch.profiler count over the flagship fc and
+   subspace encode_dataset of phases 3 and 9: one fista_wide_kernel
+   launch a batch (16 for 32,768 patches) and no fista_kernel,
+   fista_cluster_kernel or fold_gram_kernel.  (e) The library time of K1
+   and K4: 100 torch.matmul (2048 x 256) @ (256 x 256) in fp32, TF32 off.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -507,6 +526,10 @@ CUDA_TESTS = {
     "test_cuda_cluster_kernel_matches_classic_bitwise": (39,),
     "test_torch_port_fista_cluster.py::"
     "test_cuda_trainers_launch_the_cluster_kernel": (39,),
+    "test_torch_port_fista_wide.py::"
+    "test_cuda_wide_kernel_matches_classic_bitwise": (42,),
+    "test_torch_port_fista_wide.py::"
+    "test_cuda_encode_launches_the_wide_kernel": (42,),
     "test_torch_port_ica_persistent.py::"
     "test_cuda_ica_persistent_matches_steps_bitwise": (40,),
     "test_torch_port_ica_persistent.py::"
@@ -3083,11 +3106,13 @@ def cluster_bitwise_cases(torch, K1, K4, patches, gpatches, dev):
       cases.append(("group shared pass", 256, 250, m, True, hard, False))
   for m in (3, 6):
     cases.append(("group shared pass", 96, 125, m, True, False, True))
-  # 64 columns a CTA (256 threads); a shape the route sends to fista_kernel
+  # 64 columns a CTA (256 threads); a shape the route sends to
+  # fista_wide_kernel (phase 42)
   cases += [("fc s512", 512, 250, None, True, 0, False),
             ("fc s512", 512, 250, None, True, 2, True),
-            ("fc b2048 (classic route)", 256, 2048, None, True, 0, False),
-            ("group b2048 (classic route)", 256, 2048, 4, True, False,
+            ("fc b2048 (the wide route's)", 256, 2048, None, True, 0,
+             False),
+            ("group b2048 (the wide route's)", 256, 2048, 4, True, False,
              False)]
   by_label = {}
   for label, s, b, m, fista, mode, w in cases:
@@ -3119,27 +3144,28 @@ def cluster_bitwise_cases(torch, K1, K4, patches, gpatches, dev):
   return len(cases)
 
 
-def cluster_plain_cases(torch, K1, K4, lipschitz, patches, gpatches, dev):
-  """Phase 39 (b): the auto route at b 250 and 125 (the cluster kernel)
-  against the fp32 and fp64 plain versions at phase 2's limit, with a
-  TF32 control.  Returns the largest fp32 error."""
+def solve_plain_cases(torch, K1, K4, lipschitz, patches, gpatches, dev,
+                      batches, iters, route_name):
+  """Phases 39 (b) and 42 (b): the auto route at each batch (the
+  route_name kernel) against the fp32 and fp64 plain versions at phase
+  2's limit, fc and 64 x 4 groups, with a TF32 control.  Returns the
+  largest fp32 error."""
   d = torch.tensor(unit_rows(np.random.RandomState(0), 256, 256), device=dev)
   eta = lipschitz.fista_stepsize(d)
   worst = 0.0
-  for b in (250, 125):
+  for b in batches:
     for grouped in (False, True):
       x = torch.tensor((gpatches if grouped else patches)[:b], device=dev)
       if grouped:
-        got = K4.fused_group_fista_solve(x, d, GROUP_SIZE, LAM, CLUSTER_ITERS,
-                                         eta)
+        got = K4.fused_group_fista_solve(x, d, GROUP_SIZE, LAM, iters, eta)
         route = K4.last_route
         plain = lambda xx, dd, ee, **kw: K4.fused_group_fista_plain(
-            xx, dd, GROUP_SIZE, LAM, CLUSTER_ITERS, ee, **kw)
+            xx, dd, GROUP_SIZE, LAM, iters, ee, **kw)
       else:
-        got = K1.fused_fista_solve(x, d, LAM, CLUSTER_ITERS, eta)
+        got = K1.fused_fista_solve(x, d, LAM, iters, eta)
         route = K1.last_route
         plain = lambda xx, dd, ee, **kw: K1.fused_fista_plain(
-            xx, dd, LAM, CLUSTER_ITERS, ee, **kw)
+            xx, dd, LAM, iters, ee, **kw)
       want32 = plain(x, d, eta)
       want64 = plain(x.double(), d.double(), eta.double())
       tf32 = plain(x, d, eta, precision="tensorfloat32")
@@ -3149,17 +3175,49 @@ def cluster_plain_cases(torch, K1, K4, lipschitz, patches, gpatches, dev):
       err_tf32 = float((tf32.double() - want64).abs().max())
       lim = limit(want64)
       name = "b %d %s" % (b, "64x4 groups" if grouped else "fc")
-      print("auto route (%s) vs plain, %-16s max|d| fp32 %.3e fp64 %.3e, "
-            "limit %.3e; TF32 control %.3e (must fail it)" % (
-                route, name, err32, err64, lim, err_tf32))
-      check(route == "cluster", name + ": the auto route is " + route)
-      check(err32 <= lim and err64 <= lim, "%s: the cluster kernel differs "
-            "from plain by %.3e / %.3e, limit %.3e" % (name, err32, err64,
-                                                       lim))
+      print("auto route (%s) vs plain, %-16s %d it, max|d| fp32 %.3e fp64 "
+            "%.3e, limit %.3e; TF32 control %.3e (must fail it)" % (
+                route, name, iters, err32, err64, lim, err_tf32))
+      check(route == route_name, name + ": the auto route is " + route)
+      check(err32 <= lim and err64 <= lim, "%s: the %s kernel differs "
+            "from plain by %.3e / %.3e, limit %.3e" % (name, route, err32,
+                                                       err64, lim))
       check(err_tf32 > lim, name + ": the limit does not tell TF32 "
             "products from fp32")
       worst = max(worst, err32)
   return worst
+
+
+def zero_solve_route(torch, K1, K4, dev, b, s, m, route="auto"):
+  """Launch one iteration on zero inputs of b rows of s codes in groups of
+  m (1: K1, elementwise; else K4) on the route given, and return the
+  route the wrapper reports it took."""
+  zeros = torch.zeros((b, s), device=dev)
+  gram = torch.zeros((s, s), device=dev)
+  eta = torch.ones(1, device=dev)
+  if m == 1:
+    K1._launch(gram, zeros, None, eta, LAM, 1, True, 0, route=route)
+    return K1.last_route
+  K4._launch(gram, zeros, None, eta, LAM, 1, m, True, False, route=route)
+  return K4.last_route
+
+
+def check_forced_refusals(torch, K1, K4, dev, route, b, shapes):
+  """A launch of b rows forced onto route at each (s, M) of shapes, which
+  its layout cannot hold, raises with the CUDA error and counts
+  nothing."""
+  for s, m in shapes:
+    before = (K1.launches, K4.launches)
+    try:
+      zero_solve_route(torch, K1, K4, dev, b, s, m, route)
+      refused = False
+    except RuntimeError as e:
+      refused = "CUDA error" in str(e)
+    print("forced %s launch at s %d M %d: %s" % (
+        route, s, m, "refused" if refused else "LAUNCHED"))
+    check(refused and (K1.launches, K4.launches) == before,
+          "a forced %s launch that does not fit must raise, uncounted"
+          % route)
 
 
 def cluster_route_cases(torch, K1, K4, lib, dev):
@@ -3186,15 +3244,7 @@ def cluster_route_cases(torch, K1, K4, lib, dev):
             (250, 256, 2), (250, 256, 8), (125, 96, 3), (13, 104, 26),
             (250, 1024, 8)]
   for b, s, m in shapes:
-    zeros = torch.zeros((b, s), device=dev)
-    gram = torch.zeros((s, s), device=dev)
-    eta = torch.ones(1, device=dev)
-    if m == 1:
-      K1._launch(gram, zeros, None, eta, LAM, 1, True, 0)
-      took = K1.last_route
-    else:
-      K4._launch(gram, zeros, None, eta, LAM, 1, m, True, False)
-      took = K4.last_route
+    took = zero_solve_route(torch, K1, K4, dev, b, s, m)
     want = K1.solve_route(b, s, m, sm)
     rows = K1.cluster_rows(b, s, m, slots)
     lay = K1.cluster_layout(s, m, max(rows, 2))
@@ -3203,48 +3253,33 @@ def cluster_route_cases(torch, K1, K4, lib, dev):
                    "%d rows, %d CTAs of %d threads, %d bytes" % (
                        rows, K1.cluster_grid(b, rows), lay["threads"],
                        lay["smem"]) if rows else "does not fit"))
-    check(took == want == {1: "classic", 2: "cluster"}[
-        lib.vtc_fista_route(b, s, m)],
+    check(took == want == K1.ROUTE_NAMES[lib.vtc_fista_route(b, s, m)],
           "b %d s %d M %d: launch_solve took %s, solve_route says %s" % (
               b, s, m, took, want))
     check(rows == max(lib.vtc_fista_cluster_rows(b, s, m), 0),
           "b %d s %d M %d: the library takes %d rows a cluster, "
           "cluster_rows %d" % (b, s, m, lib.vtc_fista_cluster_rows(b, s, m),
                                rows))
-  for s, m in ((1024, 1), (104, 26)):
-    before = (K1.launches, K4.launches)
-    zeros = torch.zeros((16, s), device=dev)
-    gram = torch.zeros((s, s), device=dev)
-    eta = torch.ones(1, device=dev)
-    try:
-      if m == 1:
-        K1._launch(gram, zeros, None, eta, LAM, 1, True, 0, route="cluster")
-      else:
-        K4._launch(gram, zeros, None, eta, LAM, 1, m, True, False,
-                   route="cluster")
-      refused = False
-    except RuntimeError as e:
-      refused = "CUDA error" in str(e)
-    print("forced cluster launch at s %d M %d: %s" % (
-        s, m, "refused" if refused else "LAUNCHED"))
-    check(refused and (K1.launches, K4.launches) == before,
-          "a forced cluster launch that does not fit must raise, uncounted")
+  check_forced_refusals(torch, K1, K4, dev, "cluster", 16,
+                        ((1024, 1), (104, 26)))
 
 
 def solve_dispatch(torch, fn):
-  """{'cluster': n, 'classic': n, 'fold': n}: launches of fista_core.cuh's
-  kernels (fista_cluster_kernel, fista_kernel, fold_gram_kernel) in one
-  call of fn, from torch.profiler's device events."""
+  """{'cluster': n, 'wide': n, 'classic': n, 'fold': n}: launches of
+  fista_core.cuh's kernels (fista_cluster_kernel, fista_wide_kernel,
+  fista_kernel, fold_gram_kernel) in one call of fn, from
+  torch.profiler's device events."""
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
     fn()
     torch.cuda.synchronize()
-  out = {"cluster": 0, "classic": 0, "fold": 0}
+  out = {"cluster": 0, "wide": 0, "classic": 0, "fold": 0}
   for e in prof.events():
     if e.device_type == torch.autograd.DeviceType.CUDA:
       for key, name in (("cluster", "fista_cluster_kernel"),
+                        ("wide", "fista_wide_kernel"),
                         ("classic", "fista_kernel"),
                         ("fold", "fold_gram_kernel")):
         if name in e.name:
@@ -3282,6 +3317,143 @@ def gemm_profile(torch, fn):
       slot[0] += 1
       slot[1] += (e.time_range.end - e.time_range.start) / 1e3
   return out
+
+
+# ---------------------------------------------------------------------------
+# phase 42: the large-batch solve (fista_wide_kernel, csrc/fista_core.cuh)
+# ---------------------------------------------------------------------------
+WIDE_SHAPES = [  # (b, s, M): the wide route's and its edges
+    (2048, 256, 1), (2048, 256, 2), (2048, 256, 4), (1100, 256, 1),
+    (2047, 256, 4), (4096, 256, 1), (1057, 256, 2), (1056, 256, 1),
+    (2048, 40, 1), (2048, 96, 4), (2048, 288, 1), (2048, 256, 8),
+    (2048, 320, 1), (2048, 96, 3)]
+
+
+def wide_bitwise_cases(torch, K1, K4, patches, gpatches, dev):
+  """Phase 42 (a): fista_wide_kernel and fista_kernel, both forced, on the
+  same CPU-made inputs (100 iterations); the codes must be torch.equal.
+  Returns the number of cases."""
+  rng = np.random.RandomState(42)
+  dicts = {256: unit_rows(np.random.RandomState(0), 256, 256),
+           40: unit_rows(rng, 40, 256), 96: unit_rows(rng, 96, 256)}
+  inputs = {}
+
+  def problem(s, b, grouped):
+    key = (s, grouped)
+    if key not in inputs:
+      x = (gpatches if grouped else patches)[:4096]
+      inputs[key] = solve_inputs(torch, x, dicts[s], dev)
+    gram, corr, eta = inputs[key]
+    return gram, corr[:b].contiguous(), eta
+
+  def warm(b, s):
+    w = 0.05 * rng.randn(b, s) * (rng.rand(b, s) < 0.1)
+    return torch.tensor(w.astype(np.float32), device=dev)
+
+  # (label, s, b, M or None, fista, mode or hard, warm)
+  cases = [("fc b2048", 256, 2048, None, fista, mode, w)
+           for fista in (True, False) for mode in range(4)
+           for w in (False, True)]
+  cases += [("group b2048", 256, 2048, m, True, hard, False)
+            for m in (1, 2, 4) for hard in (False, True)]
+  cases.append(("group b2048", 256, 2048, 4, False, False, True))
+  for b in (1100, 2047):
+    cases += [("ragged b%d" % b, 256, b, None, True, 0, True),
+              ("ragged b%d" % b, 256, b, None, False, 2, False),
+              ("ragged b%d" % b, 256, b, 4, True, False, False),
+              ("ragged b%d" % b, 256, b, 2, True, True, True)]
+  cases += [("b4096", 256, 4096, None, True, 0, False),
+            ("b4096", 256, 4096, 4, True, True, False)]
+  for s in (40, 96):
+    cases += [("s%d b2048" % s, s, 2048, None, True, 0, False),
+              ("s%d b2048" % s, s, 2048, None, False, 3, True),
+              ("s%d b2048" % s, s, 2048, 4, True, False, False),
+              ("s%d b2048" % s, s, 2048, 2, True, True, True)]
+  sm = torch.cuda.get_device_properties(dev).multi_processor_count
+  by_label = {}
+  for label, s, b, m, fista, mode, w in cases:
+    check(K1.solve_route(b, s, m or 1, sm) == "wide",
+          "%s: s %d b %d M %s is not a wide-route shape" % (label, s, b, m))
+    gram, corr, eta = problem(s, b, m is not None)
+    init = warm(b, s) if w else None
+    if m is None:
+      run = lambda route: K1._launch(gram, corr, init, eta, LAM, ITERS,
+                                     fista, mode, route=route)
+    else:
+      run = lambda route: K4._launch(gram, corr, init, eta, LAM, ITERS, m,
+                                     fista, bool(mode), route=route)
+    classic, wide = run("classic"), run("wide")
+    torch.cuda.synchronize()
+    same = torch.equal(classic, wide)
+    differ = int((classic != wide).sum())
+    stats = by_label.setdefault(label, [0, 0, 0.0, 0])
+    stats[0] += 1
+    stats[1] += int(same)
+    stats[2] = max(stats[2], float(classic.abs().max()))
+    stats[3] += int((classic != 0).sum())
+    check(same, "%s s %d b %d M %s %s mode %s warm %s: the wide kernel's "
+          "codes differ from fista_kernel's at %d of %d entries" % (
+              label, s, b, m, "fista" if fista else "ista", mode, w, differ,
+              classic.numel()))
+  for label, (n, same, top, nonzero) in by_label.items():
+    print("wide vs classic, %-12s %3d cases, %3d bitwise equal (max|code| "
+          "%.4f, %d nonzero codes)" % (label, n, same, top, nonzero))
+  return len(cases)
+
+
+def wide_route_cases(torch, K1, K4, lib, dev):
+  """Phase 42 (c): for each of WIDE_SHAPES the route launch_solve took,
+  ops/fused_fista.solve_route's choice and the library's agree, and on
+  the wide route so do the cluster size and the rows a cluster; the
+  flagship fills the card in one wave; a forced wide launch the layout
+  cannot hold raises and counts nothing."""
+  sm = lib.vtc_fista_sm_count()
+  for b, s, m in WIDE_SHAPES:
+    took = zero_solve_route(torch, K1, K4, dev, b, s, m)
+    want = K1.solve_route(b, s, m, sm)
+    check(took == want == K1.ROUTE_NAMES[lib.vtc_fista_route(b, s, m)],
+          "b %d s %d M %d: launch_solve took %s, solve_route says %s" % (
+              b, s, m, took, want))
+    cluster = K1.wide_cluster(s, m)
+    check(cluster == lib.vtc_fista_wide_cluster(s, m),
+          "s %d M %d: the library's wide clusters have %d CTAs, "
+          "wide_cluster %d" % (s, m, lib.vtc_fista_wide_cluster(s, m),
+                               cluster))
+    layout = "does not fit"
+    if cluster:
+      slots = lib.vtc_fista_wide_slots(cluster)
+      check(slots >= 1, "reading the wide slots failed: CUDA error %d"
+            % -slots)
+      rows = K1.wide_rows(b, s, m, slots)
+      check(rows == lib.vtc_fista_wide_rows(b, s, m),
+            "b %d s %d M %d: the library takes %d rows a wide cluster, "
+            "wide_rows %d" % (b, s, m, lib.vtc_fista_wide_rows(b, s, m),
+                              rows))
+      lay = K1.wide_layout(s, cluster, rows)
+      layout = ("clusters of %d (%d resident), %d rows, %d CTAs of %d "
+                "threads, %d bytes" % (cluster, slots, rows,
+                                       K1.wide_grid(b, s, m, rows),
+                                       lay["threads"], lay["smem"]))
+      if (b, s) == (BATCH, 256):
+        check(-(-b // rows) <= slots, "the flagship takes more than one "
+              "wave: %d clusters for %d slots" % (-(-b // rows), slots))
+    print("route: b %4d s %4d M %d -> %-7s (solve_route %s; wide layout %s)"
+          % (b, s, m, took, want, layout))
+  check_forced_refusals(torch, K1, K4, dev, "wide", BATCH,
+                        ((1024, 1), (96, 3)))
+
+
+def solve_library_ms(torch, dev):
+  """The library time of K1's and K4's timed solve: 100 (2048 x 256) @
+  (256 x 256) products, each one torch.matmul (cuBLAS) in fp32 with TF32
+  off, the iterations' products without their prox."""
+  from vtc_tpu_torch.ops.precision import matmul_precision
+  gen = torch.Generator(device=dev).manual_seed(42)
+  z = torch.randn((BATCH, 256), generator=gen, device=dev)
+  g = torch.randn((256, 256), generator=gen, device=dev)
+  with matmul_precision():
+    torch.matmul(z, g)
+    return ITERS * time_ms(torch, lambda: torch.matmul(z, g), 200)
 
 
 # ---------------------------------------------------------------------------
@@ -5162,8 +5334,10 @@ def main():
   cluster_route_cases(torch, fused_fista, fused_group_fista, lib, dev)
   n_bitwise = cluster_bitwise_cases(torch, fused_fista, fused_group_fista,
                                     patches, gtrain, dev)
-  cluster_err = cluster_plain_cases(torch, fused_fista, fused_group_fista,
-                                    lipschitz, patches, gtrain, dev)
+  cluster_err = solve_plain_cases(torch, fused_fista, fused_group_fista,
+                                  lipschitz, patches, gtrain, dev,
+                                  (TRAIN_BATCH, 125), CLUSTER_ITERS,
+                                  "cluster")
   print("phase 39: %d bitwise cases equal; auto route within %.3e of plain"
         % (n_bitwise, cluster_err))
   dispatch_params = train_params(DISPATCH_STEPS)
@@ -5179,10 +5353,12 @@ def main():
         x[:DISPATCH_STEPS], held[None], d0, params_)
     seen = solve_dispatch(torch, run)
     print("dispatch (profiled), train_dictionary_scanned %s, %d steps of "
-          "b 250: fista_cluster_kernel %d, fista_kernel %d, fold_gram_kernel "
-          "%d" % (label, DISPATCH_STEPS, seen["cluster"], seen["classic"],
-                  seen["fold"]))
-    check(seen == {"cluster": DISPATCH_STEPS, "classic": 0, "fold": 0},
+          "b 250: fista_cluster_kernel %d, fista_wide_kernel %d, "
+          "fista_kernel %d, fold_gram_kernel %d" % (
+              label, DISPATCH_STEPS, seen["cluster"], seen["wide"],
+              seen["classic"], seen["fold"]))
+    check(seen == {"cluster": DISPATCH_STEPS, "wide": 0, "classic": 0,
+                   "fold": 0},
           "%s: expected one fista_cluster_kernel launch a step and no "
           "fista_kernel, saw %s" % (label, seen))
 
@@ -5246,6 +5422,40 @@ def main():
           "%s: expected one code_shard_solve_kernel launch a step and none "
           "of %s, saw %s" % (label, ", ".join(CS_STEP_KERNELS), seen))
   cs_solve_ms = k19_dispatch["fc"]["solve_ms"]
+
+  # phase 42: the large-batch solve (fista_wide_kernel, csrc/
+  # fista_core.cuh): against fista_kernel bitwise, the auto route against
+  # plain, the route of each shape, which kernels the flagship encodes
+  # launch, and the library's product time
+  n_wide = wide_bitwise_cases(torch, fused_fista, fused_group_fista,
+                              patches, gpatches, dev)
+  wide_err = solve_plain_cases(torch, fused_fista, fused_group_fista,
+                               lipschitz, patches, gpatches, dev,
+                               (BATCH, 1100), ITERS, "wide")
+  wide_route_cases(torch, fused_fista, fused_group_fista, lib, dev)
+  print("phase 42: %d bitwise cases equal; auto route within %.3e of plain"
+        % (n_wide, wide_err))
+  for label, fn in (
+      ("fc (phase 3)", lambda: encode_dataset(
+          patches, dictionary, LAM, ITERS, batch_size=BATCH,
+          chunk_batches=4)),
+      ("subspace (phase 9)", lambda: encode_dataset(
+          gpatches, dictionary, LAM, ITERS, batch_size=BATCH,
+          chunk_batches=4, group_assignments=groups))):
+    seen = solve_dispatch(torch, fn)
+    print("dispatch (profiled), encode_dataset %s, %d patches in batches "
+          "of %d: fista_wide_kernel %d, fista_cluster_kernel %d, "
+          "fista_kernel %d, fold_gram_kernel %d" % (
+              label, patches.shape[0], BATCH, seen["wide"], seen["cluster"],
+              seen["classic"], seen["fold"]))
+    check(seen == {"wide": NUM_BATCHES, "cluster": 0, "classic": 0,
+                   "fold": 0},
+          "%s: expected one fista_wide_kernel launch a batch and no other "
+          "solve kernel, saw %s" % (label, seen))
+  solve_lib_ms = solve_library_ms(torch, dev)
+  print("library: %d torch.matmul (%d x 256) @ (256 x 256), fp32, TF32 "
+        "off: %.4f ms (K1 %.4f, K4 %.4f ms per flagship solve) [%s]" % (
+            ITERS, BATCH, solve_lib_ms, ms, g_ms, card))
 
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
@@ -5317,9 +5527,12 @@ def main():
        k18_err, seg_times["K18"][0], seg_times["K18"][1], k8_bound),
   ]
   # K10's library time is its own loop with each product one cuDNN call
-  # (phase 17); no single PyTorch call computes any other kernel's solve
-  # or step, so theirs are null
-  library_ms = {"fused_conv_direct": k10_lib}
+  # (phase 17); K1's and K4's the 100 iteration products of their timed
+  # solve, each one torch.matmul in fp32 without the prox (phase 42); no
+  # PyTorch call computes any other kernel's solve or step, so theirs are
+  # null
+  library_ms = {"fused_conv_direct": k10_lib, "fused_fista": solve_lib_ms,
+                "fused_group_fista": solve_lib_ms}
   print(json.dumps({"kernels": [{
       "name": name,
       "route": "cuda",

@@ -6,10 +6,10 @@ cluster kernel, and ``cluster_rows`` / ``cluster_layout`` give the cluster
 kernel's layout; the C header computes the same.  Here, on the CPU:
 
 * the route sends the trainers' batch of 250 and its data-parallel shard
-  of 125 (s 256, groups of 1, 2 and 4) to the cluster kernel, the encode
-  batch of 2048 to the classic one on a 132-SM card, and a group that
-  would cross two CTAs' columns or an s past the shared-memory budget to
-  the classic one;
+  of 125 (s 256, groups of 1, 2 and 4) to the cluster kernel, and a
+  group that would cross two CTAs' columns or an s past the shared-memory
+  budget to the classic one (the encode batch of 2048 takes the wide
+  kernel: tests/test_torch_port_fista_wide.py);
 * every shape routed to the cluster kernel has a layout within a block's
   227 KB of shared memory and 512 threads, a grid that is a multiple of
   the cluster size, and threads that own every (row, column) of a
@@ -68,8 +68,8 @@ def test_small_batches_take_the_cluster_kernel(b, s, m):
 
 
 @pytest.mark.parametrize("b,s,m,why", [
-    (2048, 256, 1, "the classic kernel fills the card"),
-    (2048, 256, 4, "the classic kernel fills the card"),
+    (2048, 256, 8, "a group of 8 is not whole in a wide thread's columns"),
+    (2048, 320, 1, "past the wide layout's shared-memory budget"),
     (13, 104, 26, "a group of 26 crosses a CTA's 16 columns"),
     (250, 40, 3, "a group of 3 crosses a CTA's 8 columns"),
     (250, 1024, 1, "past the shared-memory budget"),

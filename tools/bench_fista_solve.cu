@@ -1,17 +1,20 @@
-// Times the fc/subspace solve's two kernels alone
+// Times the fc/subspace solve's kernels alone
 // (vtc_tpu_torch/csrc/fista_core.cuh) at s = 256, FISTA, and the parts of
-// the cluster kernel's iteration on their own.  For each batch (125, 250,
-// 2048) it runs fista_kernel (the classic route, its fold included) and
-// fista_cluster_kernel through launch_solve, elementwise soft and with
-// the group prox at M = 4, at 25 and 125 iterations, and prints ms per
-// solve and µs per iteration (the slope between the two counts), and
-// whether the two kernels' codes are bitwise equal.  Then, on the
-// cluster kernel's layout and grid, the pieces of an iteration:
+// the cluster and wide kernels' iterations on their own.  For each batch
+// it runs fista_kernel (the classic route, its fold included) and the
+// route the batch takes (fista_cluster_kernel at b 125 and 250,
+// fista_wide_kernel at b 1100, 2048 and 4096) through launch_solve,
+// elementwise soft and with the group prox at M = 4, at 25 and 125
+// iterations, and prints ms per solve and µs per iteration (the slope
+// between the two counts), and whether the two kernels' codes are
+// bitwise equal.  Then, on that kernel's layout and grid, the pieces of
+// an iteration:
 //   barrier   one cluster.sync() per iteration;
-//   exchange  each thread's four values written into every CTA of the
+//   exchange  each thread's values written into every CTA of the
 //             cluster (cluster_push), then the barrier;
-//   product   the CTA's slice of z @ (-eta G) (cluster_product) from its
-//             resident G slice, with a block barrier between iterations.
+//   product   the CTA's slice of z @ (-eta G) (cluster_product or
+//             wide_product) from its resident G slice, with a block
+//             barrier between iterations.
 // Built and run by tools/bench_fista_solve.py.
 #include <cmath>
 #include <cstdio>
@@ -91,27 +94,98 @@ __global__ void __launch_bounds__(kClusterMaxThreads)
   if (threadIdx.x == 0) out[blockIdx.x] = zbuf[(num_iters & 1) * plane];
 }
 
+// The wide kernel's parts: one cluster.sync() per iteration, or the
+// exchange and the barrier (each thread's 8 rows of four values written
+// into every CTA of the cluster).
+template <bool PUSH>
+__global__ void __launch_bounds__(kWideMaxThreads, 1)
+    wide_exchange_kernel(int num_iters, int sk, int rows, float* out) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int size = static_cast<int>(cluster.num_blocks());
+  const WideLayout lay = wide_layout(sk, size, rows);
+  const int ty = threadIdx.x / (lay.w / 4);
+  const int tx = threadIdx.x - ty * (lay.w / 4);
+  const int plane = rows * lay.ldz;
+  float* zbuf = smem + sk * lay.w;
+  unsigned bases[kWideMaxCluster];
+  cluster_bases(zbuf, bases, size);
+  float4 v = make_float4(rank, ty, tx, 0.0f);
+  cluster.sync();
+  for (int it = 0; it < num_iters; ++it) {
+    if (PUSH) {
+      for (int r = 0; r < kWideRowsPerThread; ++r)
+        cluster_push(bases,
+                     4u * static_cast<unsigned>(
+                              ((it & 1) ^ 1) * plane +
+                              (kWideRowsPerThread * ty + r) * lay.ldz +
+                              rank * lay.w + tx * 4),
+                     v, size);
+    }
+    cluster.sync();
+    v.w += 1.0f;
+  }
+  if (threadIdx.x == 0)
+    out[blockIdx.x] = zbuf[(num_iters & 1) * plane] + v.w;
+}
+
+// The wide product alone: the resident G slice times the thread's 8 z
+// rows, the 32 outputs written back into the other local z buffer.
+__global__ void __launch_bounds__(kWideMaxThreads, 1)
+    wide_product_kernel(const float* __restrict__ gram, int num_iters, int s,
+                        int sk, int rows, float* out) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int size = static_cast<int>(cluster.num_blocks());
+  const WideLayout lay = wide_layout(sk, size, rows);
+  const int ty = threadIdx.x / (lay.w / 4);
+  const int tx = threadIdx.x - ty * (lay.w / 4);
+  const int r0 = kWideRowsPerThread * ty;
+  const int plane = rows * lay.ldz;
+  float* gs = smem;
+  float* zbuf = gs + sk * lay.w;
+  cluster_load(gram, nullptr, -0.01f, rows, s, sk, lay.w, rank, 0, rows,
+               lay.ldz, gs, zbuf);
+  for (int idx = threadIdx.x; idx < 2 * plane; idx += blockDim.x)
+    zbuf[idx] = 0.01f;
+  __syncthreads();
+  float acc[8][4];
+  for (int it = 0; it < num_iters; ++it) {
+    const float* z = zbuf + (it & 1) * plane;
+    float* zn = zbuf + ((it & 1) ^ 1) * plane;
+    if (sk == kWideFixedDepth && size == 2)  // launch_wide's choice
+      wide_product<kWideFixedDepth>(z + r0 * lay.ldz, lay.ldz, gs + tx * 4,
+                                    sk, lay.w, acc);
+    else
+      wide_product<0>(z + r0 * lay.ldz, lay.ldz, gs + tx * 4, sk, lay.w,
+                      acc);
+    for (int r = 0; r < 8; ++r)
+      *reinterpret_cast<float4*>(zn + (r0 + r) * lay.ldz + rank * lay.w +
+                                 tx * 4) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = zbuf[(num_iters & 1) * plane];
+}
+
+// Launch a part on the wide kernel's grid, layout and shared memory.
+template <typename... Params, typename... Args>
+cudaError_t launch_on_wide(void (*kernel)(Params...), int b, int sk,
+                           int cluster, int rows, Args... args) {
+  const WideLayout lay = wide_layout(sk, cluster, rows);
+  return launch_clusters(kernel, cluster, (b + rows - 1) / rows * cluster,
+                         lay.threads, lay.smem, nullptr, args...);
+}
+
 // Launch a part on the cluster kernel's grid, layout and shared memory.
 template <typename... Params, typename... Args>
 cudaError_t launch_on_clusters(void (*kernel)(Params...), int b, int sk,
                                int rows, Args... args) {
   const ClusterLayout lay = cluster_layout(sk, 1, rows);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((b + rows - 1) / rows * kCluster);
-  config.blockDim = dim3(lay.threads);
-  config.dynamicSmemBytes = lay.smem;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, kernel, args...);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return launch_clusters(kernel, kCluster, (b + rows - 1) / rows * kCluster,
+                         lay.threads, lay.smem, nullptr, args...);
 }
 
 float* to_device(const std::vector<float>& h) {
@@ -147,7 +221,7 @@ unsigned lcg(unsigned& seed) {
 }  // namespace
 
 int main() {
-  const int s = kS, n = 256, bmax = 2048, reps = 20;
+  const int s = kS, n = 256, bmax = 4096, reps = 20;
   const int sk = (s + kChunk - 1) / kChunk * kChunk;
   const int sc = (s + kColBlock - 1) / kColBlock * kColBlock;
   // a unit-norm random dictionary D (s, n), sparse mixtures X = A D plus
@@ -214,15 +288,18 @@ int main() {
               s, sk, kCluster, sk / kCluster, device_sm_count(), slots);
   if (slots < 1) return 1;
   bool ok = true;
-  for (int b : {125, 250, 2048}) {
+  for (int b : {125, 250, 1100, 2048, 4096}) {
+    const int route = solve_route(b, sk, 1, device_sm_count());
+    const bool wide = route == kRouteWide;
+    const char* name = wide ? "fista_wide_kernel" : "fista_cluster_kernel";
     for (int group : {0, 4}) {
       float ms[2][2];
-      for (int route = 0; route < 2; ++route) {
-        float* out = route ? out_b : out_a;
+      for (int which_route = 0; which_route < 2; ++which_route) {
+        float* out = which_route ? out_b : out_a;
+        const int r = which_route ? route : kRouteClassic;
         for (int which = 0; which < 2; ++which) {
           const int iters = which ? 125 : 25;
           auto run = [&]() {
-            const int r = route ? kRouteCluster : kRouteClassic;
             return group ? launch_solve<true, kSoft, true>(
                                gram_d, corr_d, nullptr, eta_d, lam, iters, b,
                                s, sk, sc, group, gn, nullptr, out, r, nullptr,
@@ -231,7 +308,7 @@ int main() {
                                gram_d, corr_d, nullptr, eta_d, lam, iters, b,
                                s, sk, sc, 1, gn, nullptr, out, r, nullptr, 0);
           };
-          ms[route][which] = time_ms(run, reps);
+          ms[which_route][which] = time_ms(run, reps);
           const cudaError_t err = cudaGetLastError();
           if (err != cudaSuccess) {
             std::printf("CUDA error: %s\n", cudaGetErrorString(err));
@@ -252,42 +329,63 @@ int main() {
       ok = ok && differ == 0;
       std::printf(
           "b %4d %-11s FISTA: fista_kernel %.4f ms at 25 it, %.4f at 125, "
-          "%.3f us/it; fista_cluster_kernel %.4f, %.4f, %.3f us/it; codes "
-          "%s (%d of %d differ, %d nonzero)\n",
+          "%.3f us/it; %s %.4f, %.4f, %.3f us/it; codes %s (%d of %d "
+          "differ, %d nonzero)\n",
           b, group ? "group M 4" : "elementwise", ms[0][0], ms[0][1],
-          (ms[0][1] - ms[0][0]) * 10.0f, ms[1][0], ms[1][1],
+          (ms[0][1] - ms[0][0]) * 10.0f, name, ms[1][0], ms[1][1],
           (ms[1][1] - ms[1][0]) * 10.0f,
           differ ? "DIFFER" : "bitwise equal", differ, b * s, nonzero);
     }
-    const int rows = cluster_rows(b, sk, 1, slots);
-    const ClusterLayout lay = cluster_layout(sk, 1, rows);
+    int rows, cluster, threads, smem, resident;
+    if (wide) {
+      cluster = wide_cluster(sk, 1);
+      rows = wide_device_rows(b, sk, 1);
+      const WideLayout lay = wide_layout(sk, cluster, rows);
+      threads = lay.threads;
+      smem = lay.smem;
+      resident = wide_slots(cluster);
+    } else {
+      cluster = kCluster;
+      rows = cluster_rows(b, sk, 1, slots);
+      const ClusterLayout lay = cluster_layout(sk, 1, rows);
+      threads = lay.threads;
+      smem = lay.smem;
+      resident = cluster_occupancy<true, kSoft, false>(sk, 1, rows);
+    }
     std::printf(
-        "b %4d cluster layout: %d rows a cluster, %d clusters, %d threads, "
-        "%d bytes of shared memory, %d clusters resident at once\n",
-        b, rows, (b + rows - 1) / rows, lay.threads, lay.smem,
-        cluster_occupancy<true, kSoft, false>(sk, 1, rows));
+        "b %4d %s layout: clusters of %d CTAs, %d rows a cluster, %d "
+        "clusters (%d CTAs), %d threads, %d bytes of shared memory, %d "
+        "clusters resident at once\n",
+        b, name, cluster, rows, (b + rows - 1) / rows,
+        (b + rows - 1) / rows * cluster, threads, smem, resident);
     float parts[3][2];
     for (int which = 0; which < 2; ++which) {
       const int iters = which ? 125 : 25;
-      parts[0][which] = time_ms(
-          [&]() {
+      for (int part = 0; part < 3; ++part) {
+        auto run = [&]() {
+          if (wide) {
+            if (part == 0)
+              return launch_on_wide(wide_exchange_kernel<false>, b, sk,
+                                    cluster, rows, iters, sk, rows, sink);
+            if (part == 1)
+              return launch_on_wide(wide_exchange_kernel<true>, b, sk,
+                                    cluster, rows, iters, sk, rows, sink);
+            return launch_on_wide(wide_product_kernel, b, sk, cluster, rows,
+                                  static_cast<const float*>(gram_d), iters, s,
+                                  sk, rows, sink);
+          }
+          if (part == 0)
             return launch_on_clusters(exchange_kernel<false>, b, sk, rows,
                                       iters, sk, rows, sink);
-          },
-          reps);
-      parts[1][which] = time_ms(
-          [&]() {
+          if (part == 1)
             return launch_on_clusters(exchange_kernel<true>, b, sk, rows,
                                       iters, sk, rows, sink);
-          },
-          reps);
-      parts[2][which] = time_ms(
-          [&]() {
-            return launch_on_clusters(product_kernel, b, sk, rows,
-                                      static_cast<const float*>(gram_d),
-                                      iters, s, sk, rows, sink);
-          },
-          reps);
+          return launch_on_clusters(product_kernel, b, sk, rows,
+                                    static_cast<const float*>(gram_d), iters,
+                                    s, sk, rows, sink);
+        };
+        parts[part][which] = time_ms(run, reps);
+      }
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) {
@@ -295,10 +393,10 @@ int main() {
       return 1;
     }
     std::printf(
-        "b %4d parts of a cluster iteration: barrier %.3f us/it, exchange "
-        "and barrier %.3f us/it, product %.3f us/it (ms at 25 / 125 it: "
-        "%.4f / %.4f, %.4f / %.4f, %.4f / %.4f)\n",
-        b, (parts[0][1] - parts[0][0]) * 10.0f,
+        "b %4d parts of a %s iteration: barrier %.3f us/it, exchange and "
+        "barrier %.3f us/it, product %.3f us/it (ms at 25 / 125 it: %.4f / "
+        "%.4f, %.4f / %.4f, %.4f / %.4f)\n",
+        b, name, (parts[0][1] - parts[0][0]) * 10.0f,
         (parts[1][1] - parts[1][0]) * 10.0f,
         (parts[2][1] - parts[2][0]) * 10.0f, parts[0][0], parts[0][1],
         parts[1][0], parts[1][1], parts[2][0], parts[2][1]);

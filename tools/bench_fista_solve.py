@@ -5,15 +5,17 @@
 Compiles tools/bench_fista_solve.cu against vtc_tpu_torch/csrc/
 fista_core.cuh with nvcc (for sm_90a, with ptxas's register report) into
 vtc_tpu_torch/_build/, runs it, and prints the registers, spills and
-shared memory of the solve kernels; then, at s 256 and FISTA, for b 125,
-250 and 2048, elementwise and with groups of 4: ms per solve at 25 and
-125 iterations and µs per iteration of fista_kernel and
-fista_cluster_kernel, and whether their codes are bitwise equal; then
-what the cluster kernel's iteration costs in parts (the barrier alone,
-the exchange with the barrier, the product alone); and the card's name
-and power limit.  Every line is printed, and written to --out when
-given.  Exits non-zero when the two kernels' codes differ.  Needs nvcc
-and a CUDA device.
+shared memory of the solve kernels; then, at s 256 and FISTA, for b 125
+and 250 (the cluster route) and 1100, 2048 and 4096 (the wide route),
+elementwise and with groups of 4: ms per solve at 25 and 125 iterations
+and µs per iteration of fista_kernel and of the batch's route's kernel,
+and whether their codes are bitwise equal; then that kernel's layout
+and what its iteration costs in parts (the barrier alone, the exchange
+with the barrier, the product alone); then the iteration's product as
+one torch.matmul (cuBLAS, fp32 with TF32 off) at b 1100, 2048 and 4096;
+and the card's name and power limit.  Every line is printed, and written
+to --out when given.  Exits non-zero when two kernels' codes differ.
+Needs nvcc and a CUDA device.
 """
 import argparse
 import os
@@ -26,8 +28,32 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402  (the card's line)
 from vtc_tpu_torch.ops import _build  # noqa: E402
 
-KERNELS = ("fista_cluster_kernel", "fista_kernel", "exchange_kernel",
-           "product_kernel")
+KERNELS = ("fista_cluster_kernel", "fista_wide_kernel", "fista_kernel",
+           "exchange_kernel", "product_kernel")
+
+
+def library_lines():
+  """µs of one torch.matmul (cuBLAS) of an iteration's (b, 256) @
+  (256, 256) product in fp32, TF32 off, at each wide-route batch."""
+  import torch
+  torch.backends.cuda.matmul.allow_tf32 = False
+  gen = torch.Generator().manual_seed(0)
+  g = torch.randn(256, 256, generator=gen).cuda()
+  lines = []
+  for b in (1100, 2048, 4096):
+    z = torch.randn(b, 256, generator=gen).cuda()
+    torch.matmul(z, g)
+    start, stop = (torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(100):
+      torch.matmul(z, g)
+    stop.record()
+    stop.synchronize()
+    lines.append("b %4d torch.matmul (%d x 256) @ (256 x 256), fp32, TF32 "
+                 "off: %.3f us a product" % (b, b, start.elapsed_time(stop)
+                                             * 10.0))
+  return lines
 
 
 def main():
@@ -57,7 +83,8 @@ def main():
       lines.append("%s: %s" % (kernel, line.split(":", 1)[-1].strip()))
   run = subprocess.run([binary], capture_output=True, text=True,
                        check=False, timeout=600)
-  lines += run.stdout.splitlines() + [chip_smoke.card_line()]
+  lines += run.stdout.splitlines() + library_lines()
+  lines.append(chip_smoke.card_line())
   print("\n".join(lines))
   if args.out:
     with open(args.out, "w") as f:

@@ -20,8 +20,8 @@
 // across blocks every iteration) and no reduced-precision tier: products
 // are IEEE fp32 FMAs on the CUDA cores.
 //
-// Two kernels compute that contract, and launch_solve picks one by the
-// shape (solve_route below); both give the same bits.  Rows are
+// Three kernels compute that contract, and launch_solve picks one by the
+// shape (solve_route below); all give the same bits.  Rows are
 // independent and t_k is a scalar every block recomputes identically, so
 // each runs every iteration in one launch.  Per iteration a batch of b
 // rows does b * s * s FMAs; every output is one fmaf chain over k in
@@ -45,8 +45,10 @@
 //  * The group prox needs every slot of a group, and a group may cross
 //    the thread tiles, so the group kernel writes the pre-prox rows,
 //    synchronises, and runs one pass over (row, group) pairs.
-// It fills the card at large batches (128 blocks at b = 2048) but uses
-// ceil(b / 16) of the 132 SMs below that: 16 at the trainers' b = 250.
+// It is the bitwise reference of the other two and the route of every
+// shape their layouts cannot hold.  Its 128 blocks at b = 2048 each read
+// all of G from L2 every iteration (32 MB an iteration), more than L2
+// delivers in the iteration's FMA time.
 //
 // fista_cluster_kernel, the small-batch layout: one thread-block cluster
 // of kCluster = 8 CTAs per tile of `rows` batch rows.  CTA q owns the
@@ -83,16 +85,34 @@
 // barrier (1.2 µs, the barrier alone 0.43); tools/bench_fista_solve.py
 // times each part.
 //
+// fista_wide_kernel, the large-batch layout: the cluster kernel's ideas
+// (a resident -eta G slice, z pushed over DSMEM, one cluster barrier an
+// iteration) sized for a batch that fills the card.  A cluster has the
+// fewest CTAs P whose slices leave a block's shared memory room for four
+// warps of rows (wide_cluster: P = 2 at sk = 256, a 128 KB slice and at
+// most 48 rows; s up to 288), so a cluster takes many rows and the batch
+// fills the card in one wave: 32 rows a cluster, 64 clusters, 128 CTAs at
+// b = 2048 on the 132-SM card (wide_rows).  A thread owns 8 rows x 4
+// neighbouring columns, so it reads 12 float4s from shared memory per
+// 128 FMAs (the classic kernel's 4 x 4 tile 8 per 64); that return path
+// into registers, not the FMA pipe, bounds the product (wide_product).
+// old and eta c stay in registers, the thread's own z is re-read from the
+// z buffer after the product.  The group prox is register-local, so the
+// kernel takes M in {1, 2, 4}; other M stay on the classic route.  Per
+// CTA an iteration is rows * w * sk FMAs (1.05 M at b = 2048, s = 256:
+// 4.1-4.4 µs at the FMA pipe's rate, 6.9 measured) plus the push and the
+// barrier (1.1 µs): 8.2 µs an iteration against fista_kernel's 17.1.
+//
 // The route (solve_route) is a pure function of the shape and the SM
 // count: the cluster kernel where its layout fits (w a multiple of M,
 // the shared memory within a block's budget) and the classic kernel
-// would fill at most half of the SMs; the classic kernel otherwise.  A
-// launch that fails returns its CUDA error; neither kernel stands in for
-// the other.
+// would fill at most half of the SMs; above that the wide kernel where
+// its layout fits; the classic kernel otherwise.  A launch that fails
+// returns its CUDA error; no kernel stands in for another.
 //
-// Ragged edges are masked in both: G is zero-padded to (sk, sc) (the
-// cluster kernel pads its slice in the load), and the padded codes stay
-// exactly +0.0f.
+// Ragged edges are masked in all three: G is zero-padded to (sk, sc)
+// (the cluster and wide kernels pad their slices in the load), and the
+// padded codes stay exactly +0.0f.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -112,10 +132,20 @@ constexpr int kCluster = 8;     // CTAs per cluster (the portable size)
 constexpr int kClusterMaxRows = 32;  // batch rows per cluster, 2 a thread
 constexpr int kClusterMaxThreads = 512;
 constexpr int kSmemPerBlock = 232448;  // a block's opt-in shared memory
+constexpr int kWideRowsPerThread = 8;  // the wide kernel's thread tile: 8
+                                       // rows x 4 neighbouring columns
+constexpr int kWideMaxThreads = 256;   // so up to 255 registers a thread
+constexpr int kWideMinThreads = 128;   // four warps: one per SM partition
+constexpr int kWideMaxCluster = 8;     // the portable cluster size
 // sk (a multiple of kChunk) splits into kCluster slices of whole float4s
 static_assert(kChunk % (4 * kCluster) == 0, "cluster slices of 4 columns");
 
-enum Route { kRouteAuto = 0, kRouteClassic = 1, kRouteCluster = 2 };
+enum Route {
+  kRouteAuto = 0,
+  kRouteClassic = 1,
+  kRouteCluster = 2,
+  kRouteWide = 3
+};
 
 enum Shrink { kSoft = 0, kSoftNonneg = 1, kHard = 2, kHardNonneg = 3 };
 
@@ -436,14 +466,91 @@ __host__ __device__ inline int cluster_rows(int b, int sk, int group_size,
   return rows > most ? most : rows;
 }
 
+// The wide kernel's layout for a padded depth sk, clusters of `cluster`
+// CTAs and rows batch rows per cluster (a multiple of
+// kWideRowsPerThread): w columns per CTA, z rows of ldz floats (4 past sk:
+// the next four k's reads past a row's end stay in the buffer), one
+// thread per (8 rows, 4 columns), and the dynamic shared memory: the G
+// slice and two z buffers.
+struct WideLayout {
+  int w, ldz, threads, smem;
+};
+
+__host__ __device__ inline WideLayout wide_layout(int sk, int cluster,
+                                                  int rows) {
+  WideLayout lay;
+  lay.w = sk / cluster;
+  lay.ldz = sk + 4;
+  lay.threads = rows / kWideRowsPerThread * (lay.w / 4);
+  lay.smem = (sk * lay.w + 2 * rows * lay.ldz) * static_cast<int>(
+                                                     sizeof(float));
+  return lay;
+}
+
+// The most rows (a multiple of kWideRowsPerThread) a cluster of `cluster`
+// CTAs takes for sk padded codes in groups of group_size within a block's
+// thread and shared-memory budgets, or 0: where a group is not whole in a
+// thread's four columns (4 % M != 0), the slices are not whole float4s,
+// or not even one thread tile of rows fits.
+__host__ __device__ inline int wide_max_rows(int sk, int group_size,
+                                             int cluster) {
+  if (group_size < 1 || 4 % group_size != 0 || cluster < 1 ||
+      sk % (4 * cluster) != 0)
+    return 0;
+  const int per_row = sk / cluster / 4;  // column threads
+  const int by_threads = kWideMaxThreads / per_row * kWideRowsPerThread;
+  const int free_floats =
+      kSmemPerBlock / static_cast<int>(sizeof(float)) - sk * (sk / cluster);
+  const int by_smem = free_floats < 0 ? 0
+                                      : free_floats / (2 * (sk + 4)) /
+                                            kWideRowsPerThread *
+                                            kWideRowsPerThread;
+  return by_threads < by_smem ? by_threads : by_smem;
+}
+
+// The wide kernel's cluster size for that shape: the fewest CTAs (1, 2, 4
+// or 8) whose slices leave shared memory for kWideMinThreads threads'
+// tiles of rows, or 0 where none does and the shape stays on the classic
+// route.  (With fewer than four warps a CTA leaves SM partitions without
+// FMAs to issue, and at s 320 and above the slices leave room for fewer
+// rows than that in every cluster size.)
+__host__ __device__ inline int wide_cluster(int sk, int group_size) {
+  for (int cluster = 1; cluster <= kWideMaxCluster; cluster *= 2) {
+    const int rows = wide_max_rows(sk, group_size, cluster);
+    if (wide_layout(sk, cluster, rows).threads >= kWideMinThreads)
+      return cluster;
+  }
+  return 0;
+}
+
+// Rows per cluster for a batch of b when the card holds slots clusters of
+// wide_cluster's size at one CTA per SM: the fewest waves the most rows
+// allow, the batch spread evenly over them, rounded up to whole thread
+// tiles; 0 where the layout does not fit.
+__host__ __device__ inline int wide_rows(int b, int sk, int group_size,
+                                         int slots) {
+  const int cluster = wide_cluster(sk, group_size);
+  if (cluster == 0) return 0;
+  const int most = wide_max_rows(sk, group_size, cluster);
+  const int spread = slots > 0 ? slots : 1;
+  const int64_t per_wave = static_cast<int64_t>(spread) * most;
+  const int waves = static_cast<int>((b + per_wave - 1) / per_wave);
+  const int64_t per_cluster = static_cast<int64_t>(spread) * waves;
+  const int rows = static_cast<int>((b + per_cluster - 1) / per_cluster);
+  return (rows + kWideRowsPerThread - 1) / kWideRowsPerThread *
+         kWideRowsPerThread;
+}
+
 // The route: the cluster kernel where its layout fits and the classic
-// kernel's ceil(b / kRows) blocks would fill at most half of the SMs; the
-// classic kernel otherwise.  ops/fused_fista.solve_route mirrors it.
+// kernel's ceil(b / kRows) blocks would fill at most half of the SMs;
+// above that the wide kernel where its layout fits; the classic kernel
+// otherwise.  ops/fused_fista.solve_route mirrors it.
 inline int solve_route(int b, int sk, int group_size, int sm_count) {
   const int tiles = (b + kRows - 1) / kRows;
-  return cluster_max_rows(sk, group_size) >= 2 && 2 * tiles <= sm_count
-             ? kRouteCluster
-             : kRouteClassic;
+  if (2 * tiles <= sm_count)
+    return cluster_max_rows(sk, group_size) >= 2 ? kRouteCluster
+                                                 : kRouteClassic;
+  return wide_cluster(sk, group_size) > 0 ? kRouteWide : kRouteClassic;
 }
 
 // The current device's SM count, read once per device.
@@ -576,28 +683,35 @@ __device__ __forceinline__ void cluster_product(const float* zr, int ldz,
 }
 
 // bases[q]: the shared::cluster address of local in the CTA of cluster
-// rank q (mapa), for cluster_push.
+// rank q (mapa), for cluster_push; ranks at or past count are left unset
+// (count is the cluster's size, at most N).
+template <int N>
 __device__ __forceinline__ void cluster_bases(const float* local,
-                                              unsigned (&bases)[kCluster]) {
+                                              unsigned (&bases)[N],
+                                              int count = N) {
   const unsigned own =
       static_cast<unsigned>(__cvta_generic_to_shared(local));
 #pragma unroll
-  for (int q = 0; q < kCluster; ++q)
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-                 : "=r"(bases[q])
-                 : "r"(own), "r"(q));
+  for (int q = 0; q < N; ++q)
+    if (q < count)
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                   : "=r"(bases[q])
+                   : "r"(own), "r"(q));
 }
 
 // Write v at byte offset at of the same buffer in every CTA of the
-// cluster through distributed shared memory.
-__device__ __forceinline__ void cluster_push(
-    const unsigned (&bases)[kCluster], unsigned at, float4 v) {
+// cluster (its first count ranks) through distributed shared memory.
+template <int N>
+__device__ __forceinline__ void cluster_push(const unsigned (&bases)[N],
+                                             unsigned at, float4 v,
+                                             int count = N) {
 #pragma unroll
-  for (int q = 0; q < kCluster; ++q)
-    asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
-                 ::"r"(bases[q] + at), "f"(v.x), "f"(v.y), "f"(v.z),
-                 "f"(v.w)
-                 : "memory");
+  for (int q = 0; q < N; ++q)
+    if (q < count)
+      asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
+                   ::"r"(bases[q] + at), "f"(v.x), "f"(v.y), "f"(v.z),
+                   "f"(v.w)
+                   : "memory");
 }
 
 // The group prox of a row's four columns, which hold 4 / M whole groups:
@@ -761,37 +875,253 @@ __global__ void __launch_bounds__(kClusterMaxThreads)
   }
 }
 
-// The number of clusters of kCluster CTAs the current device holds at
-// one CTA per SM (cudaOccupancyMaxActiveClusters at a whole SM's shared
-// memory), read once per device; minus the CUDA error on failure.
-inline int cluster_slots() {
-  static int slots[64] = {};
+// The wide kernel's product: acc[r][c] = sum_k zr[r ldz + k] gcol[k w + c]
+// for its 8 rows and 4 columns, 32 fmaf chains over k in ascending order
+// from 0.0f (fista_kernel's order).  Per four k a thread reads one float4
+// of each z row (the warp's lanes share the address: a broadcast) and
+// one float4 of G for each k.  What bounds it is the shared memory's
+// return path into registers, 128 bytes a cycle an SM: a warp's float4
+// read writes 512 bytes of registers, broadcast or not, so the tile's 12
+// float4s per 128 FMAs take 1.5 times the FMA pipe's time.  SK > 0
+// compiles the strides of clusters of two CTAs at sk = SK (w = SK / 2,
+// ldz = SK + 4) into the loop; 0 reads them at run time.  On an NVIDIA
+// H100 80GB HBM3 at 700 W at b = 2048, s = 256 (tools/
+// bench_fista_solve.py): 6.9 µs alone with the strides compiled in,
+// 7.8 read at run time; loading the next four k's float4s before this
+// four's FMAs measured 7.7 and 7.9 (an iteration 8.4 and 9.0 against
+// 8.2).
+static_assert(kWideRowsPerThread == 8, "wide_product's tile has 8 rows");
+constexpr int kWideFixedDepth = 256;  // the flagship's sk, compiled in
+template <int SK>
+__device__ __forceinline__ void wide_product(const float* zr, int ldz,
+                                             const float* gcol, int sk,
+                                             int w, float (&acc)[8][4]) {
+  if (SK > 0) {
+    sk = SK;
+    w = SK / 2;
+    ldz = SK + 4;
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+#pragma unroll 2
+  for (int k = 0; k < sk; k += 4) {
+    float4 a[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      a[r] = *reinterpret_cast<const float4*>(zr + r * ldz + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 g = *reinterpret_cast<const float4*>(gcol + (k + kk) * w);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float v = kk == 0   ? a[r].x
+                        : kk == 1 ? a[r].y
+                        : kk == 2 ? a[r].z
+                                  : a[r].w;
+        acc[r][0] = fmaf(v, g.x, acc[r][0]);
+        acc[r][1] = fmaf(v, g.y, acc[r][1]);
+        acc[r][2] = fmaf(v, g.z, acc[r][2]);
+        acc[r][3] = fmaf(v, g.w, acc[r][3]);
+      }
+    }
+  }
+}
+
+// GROUP: the group prox of group_size slots in {1, 2, 4} (MODE kSoft or
+// kHard), in registers; otherwise the elementwise shrink<MODE>.  SK:
+// wide_product's compiled strides (launch_wide passes kWideFixedDepth
+// for sk 256 in clusters of two, else 0).  One cluster of P =
+// wide_cluster CTAs per rows batch rows; the CTA of cluster rank q owns
+// the columns [q w, (q+1) w), its thread (ty, tx) the rows 8 ty .. 8 ty
+// + 7 and the columns q w + 4 tx .. +3.  The iteration is
+// fista_cluster_kernel's: the product from the resident slice, the prox
+// and momentum in registers, the thread's next-z float4s pushed into the
+// other z buffer of every CTA of the cluster, one cluster barrier.
+template <bool FISTA, int MODE, bool GROUP, int SK>
+__global__ void __launch_bounds__(kWideMaxThreads, 1)
+    fista_wide_kernel(const float* __restrict__ gram,
+                      const float* __restrict__ corr,
+                      const float* __restrict__ init,
+                      const float* __restrict__ eta_ptr, float lam,
+                      int num_iters, int b, int s, int sk, int group_size,
+                      int rows, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int size = static_cast<int>(cluster.num_blocks());
+  const WideLayout lay = wide_layout(sk, size, rows);
+  const int w = lay.w, ldz = lay.ldz;
+  const int tid = threadIdx.x;
+  const int ty = tid / (w / 4);
+  const int tx = tid - ty * (w / 4);
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x / size) * rows;
+  const int r0 = kWideRowsPerThread * ty;  // the thread's first row
+  const int j0 = rank * w + tx * 4;        // and first column
+  const int plane = rows * ldz;            // one z buffer
+
+  float* gs = smem;           // (sk, w): -eta G, this CTA's columns
+  float* zbuf = gs + sk * w;  // two (rows, ldz) z buffers
+
+  const float eta = *eta_ptr;
+  const float lam_eta = lam * eta;
+  cluster_load(gram, init, -eta, b, s, sk, w, rank, row0, rows, ldz, gs,
+               zbuf);
+  // this thread's rows and columns of old and eta c
+  float old[8][4], ec[8][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int64_t row = row0 + r0 + r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const bool live = row < b && j0 + c < s;
+      const int64_t at = row * s + j0 + c;
+      old[r][c] = (live && init != nullptr) ? init[at] : 0.0f;
+      ec[r][c] = live ? eta * corr[at] : 0.0f;
+    }
+  }
+  unsigned bases[kWideMaxCluster];  // zbuf in every CTA of the cluster
+  cluster_bases(zbuf, bases, size);
+  // every CTA of the cluster has started (and its z rows are loaded)
+  // before any writes into another's shared memory
+  cluster.sync();
+
+  float t_k = 1.0f;
+  for (int it = 0; it < num_iters; ++it) {
+    float beta;
+    const float t_next = next_t<FISTA>(t_k, &beta);
+    const int cur = it & 1;
+    const float* zr = zbuf + cur * plane + r0 * ldz;
+    float acc[8][4];
+    wide_product<SK>(zr, ldz, gs + tx * 4, sk, w, acc);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      // the thread's own z, as it pushed it (or as loaded)
+      const float4 zo =
+          *reinterpret_cast<const float4*>(zr + r * ldz + j0);
+      float x[4], code[4], zn[4];
+      x[0] = __fadd_rn(__fadd_rn(zo.x, acc[r][0]), ec[r][0]);
+      x[1] = __fadd_rn(__fadd_rn(zo.y, acc[r][1]), ec[r][1]);
+      x[2] = __fadd_rn(__fadd_rn(zo.z, acc[r][2]), ec[r][2]);
+      x[3] = __fadd_rn(__fadd_rn(zo.w, acc[r][3]), ec[r][3]);
+      if (GROUP) {
+        constexpr bool kHardGroup = MODE == kHard;
+        if (group_size == 4)
+          register_group_prox<4, kHardGroup>(x, lam_eta, code);
+        else if (group_size == 2)
+          register_group_prox<2, kHardGroup>(x, lam_eta, code);
+        else
+          register_group_prox<1, kHardGroup>(x, lam_eta, code);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) code[c] = shrink<MODE>(x[c], lam_eta);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        // padded columns stay +0.0f, as fista_kernel never writes them
+        const bool col = j0 + c < s;
+        zn[c] = col ? momentum<FISTA>(code[c], old[r][c], beta) : 0.0f;
+        old[r][c] = col ? code[c] : 0.0f;
+      }
+      const int at = (cur ^ 1) * plane + (r0 + r) * ldz + j0;
+      cluster_push(bases, static_cast<unsigned>(at) * 4u,
+                   make_float4(zn[0], zn[1], zn[2], zn[3]), size);
+    }
+    // every CTA has read z and written the next z everywhere: the next
+    // iteration reads it and overwrites this one's.  The last barrier is
+    // also the one after which no CTA writes into another, so each may
+    // then exit.
+    cluster.sync();
+    t_k = t_next;
+  }
+
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int64_t row = row0 + r0 + r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (row < b && j0 + c < s) out[row * s + j0 + c] = old[r][c];
+  }
+}
+
+// A launch of grid CTAs of threads threads in clusters of `size`, with
+// smem bytes of dynamic shared memory on stream; the configuration points
+// at attr, which this fills with the cluster size.
+inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute& attr, int size,
+                                         unsigned grid, unsigned threads,
+                                         int smem, cudaStream_t stream) {
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = size;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  return config;
+}
+
+// Launch kernel(args...) in that configuration after raising its dynamic
+// shared-memory limit to smem; the first CUDA error of the two, or of the
+// launch check.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), int size,
+                            unsigned grid, unsigned threads, int smem,
+                            cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config =
+      cluster_config(attr, size, grid, threads, smem, stream);
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// How many clusters of `size` CTAs of kernel, at threads threads and smem
+// bytes of dynamic shared memory, can be resident at once
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
+template <typename... Params>
+int resident_clusters(void (*kernel)(Params...), int size, unsigned threads,
+                      int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config =
+      cluster_config(attr, size, size, threads, smem, nullptr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
+}
+
+// The number of clusters of `size` CTAs of kernel the current device
+// holds at one CTA per SM (resident_clusters at a whole SM's shared
+// memory), read once per device into cache; minus the CUDA error on
+// failure.
+template <typename... Params>
+int device_slots(void (*kernel)(Params...), int size, int (&cache)[64]) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -static_cast<int>(err);
   if (dev < 0 || dev >= 64) return -static_cast<int>(cudaErrorInvalidDevice);
-  if (slots[dev] > 0) return slots[dev];
-  auto kernel = fista_cluster_kernel<true, kSoft, false>;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemPerBlock);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kCluster);
-  config.blockDim = dim3(128);
-  config.dynamicSmemBytes = kSmemPerBlock;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
-  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (cache[dev] > 0) return cache[dev];
+  const int clusters = resident_clusters(kernel, size, 128, kSmemPerBlock);
+  if (clusters < 0) return clusters;
   if (clusters < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
-  slots[dev] = clusters;
+  cache[dev] = clusters;
   return clusters;
+}
+
+// The cluster kernel's slots: clusters of kCluster CTAs at one CTA per SM.
+inline int cluster_slots() {
+  static int slots[64] = {};
+  return device_slots(fista_cluster_kernel<true, kSoft, false>, kCluster,
+                      slots);
 }
 
 // Launch the cluster kernel: kCluster CTAs per cluster_rows batch rows.
@@ -805,61 +1135,69 @@ cudaError_t launch_cluster(const float* gram, const float* corr,
   if (slots < 0) return static_cast<cudaError_t>(-slots);
   const int rows = cluster_rows(b, sk, group_size, slots);
   const ClusterLayout lay = cluster_layout(sk, group_size, rows);
-  auto kernel = fista_cluster_kernel<FISTA, MODE, GROUP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim =
-      dim3(static_cast<unsigned>((b + rows - 1) / rows) * kCluster);
-  config.blockDim = dim3(static_cast<unsigned>(lay.threads));
-  config.dynamicSmemBytes = static_cast<size_t>(lay.smem);
-  config.stream = stream;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, kernel, gram, corr, init, eta, lam,
-                           num_iters, b, s, sk, group_size, rows, out);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_clusters(
+      fista_cluster_kernel<FISTA, MODE, GROUP>, kCluster,
+      static_cast<unsigned>((b + rows - 1) / rows * kCluster), lay.threads,
+      lay.smem, stream, gram, corr, init, eta, lam, num_iters, b, s, sk,
+      group_size, rows, out);
 }
 
 // How many clusters of the cluster kernel can be resident at once for sk
-// padded codes at rows rows per cluster (cudaOccupancyMaxActiveClusters),
-// or minus the CUDA error.
+// padded codes at rows rows per cluster, or minus the CUDA error.
 template <bool FISTA, int MODE, bool GROUP>
 int cluster_occupancy(int sk, int group_size, int rows) {
   if (rows < 2 || rows > cluster_max_rows(sk, group_size))
     return -static_cast<int>(cudaErrorInvalidValue);
   const ClusterLayout lay = cluster_layout(sk, group_size, rows);
-  auto kernel = fista_cluster_kernel<FISTA, MODE, GROUP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kCluster);
-  config.blockDim = dim3(static_cast<unsigned>(lay.threads));
-  config.dynamicSmemBytes = static_cast<size_t>(lay.smem);
-  config.attrs = attr;
-  config.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
-  return err == cudaSuccess ? clusters : -static_cast<int>(err);
+  return resident_clusters(fista_cluster_kernel<FISTA, MODE, GROUP>,
+                           kCluster, lay.threads, lay.smem);
+}
+
+// The wide kernel's slots: clusters of `cluster` CTAs (1, 2, 4 or 8) at
+// one CTA per SM.
+inline int wide_slots(int cluster) {
+  static int slots[kWideMaxCluster + 1][64] = {};
+  if (cluster < 1 || cluster > kWideMaxCluster)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return device_slots(fista_wide_kernel<true, kSoft, false, 0>, cluster,
+                      slots[cluster]);
+}
+
+// The wide kernel's rows per cluster for that shape on the current
+// device, or minus the CUDA error of reading its slots (0 where the
+// layout does not fit).
+inline int wide_device_rows(int b, int sk, int group_size) {
+  const int cluster = wide_cluster(sk, group_size);
+  if (cluster == 0) return 0;
+  const int slots = wide_slots(cluster);
+  return slots < 0 ? slots : wide_rows(b, sk, group_size, slots);
+}
+
+// Launch the wide kernel: wide_cluster CTAs per wide_rows batch rows.
+template <bool FISTA, int MODE, bool GROUP>
+cudaError_t launch_wide(const float* gram, const float* corr,
+                        const float* init, const float* eta, float lam,
+                        int num_iters, int b, int s, int sk, int group_size,
+                        float* out, cudaStream_t stream) {
+  const int cluster = wide_cluster(sk, group_size);
+  if (cluster == 0) return cudaErrorInvalidValue;
+  const int rows = wide_device_rows(b, sk, group_size);
+  if (rows < 0) return static_cast<cudaError_t>(-rows);
+  const WideLayout lay = wide_layout(sk, cluster, rows);
+  auto kernel = sk == kWideFixedDepth && cluster == 2
+                    ? fista_wide_kernel<FISTA, MODE, GROUP, kWideFixedDepth>
+                    : fista_wide_kernel<FISTA, MODE, GROUP, 0>;
+  return launch_clusters(
+      kernel, cluster, static_cast<unsigned>((b + rows - 1) / rows * cluster),
+      lay.threads, lay.smem, stream, gram, corr, init, eta, lam, num_iters, b,
+      s, sk, group_size, rows, out);
 }
 
 // Launch the solve on the route given (kRouteAuto: solve_route's), and
 // store the route taken in *taken unless it is null.  The classic route
-// folds G into gn first; state_global null keeps its blocks' state in
-// shared memory.  Returns the first CUDA error.
+// folds G into gn first (the other two fold their slices themselves);
+// state_global null keeps its blocks' state in shared memory.  Returns
+// the first CUDA error.
 template <bool FISTA, int MODE, bool GROUP>
 cudaError_t launch_solve(const float* gram, const float* corr,
                          const float* init, const float* eta, float lam,
@@ -874,6 +1212,10 @@ cudaError_t launch_solve(const float* gram, const float* corr,
     return launch_cluster<FISTA, MODE, GROUP>(gram, corr, init, eta, lam,
                                               num_iters, b, s, sk,
                                               group_size, out, stream);
+  if (route == kRouteWide)
+    return launch_wide<FISTA, MODE, GROUP>(gram, corr, init, eta, lam,
+                                           num_iters, b, s, sk, group_size,
+                                           out, stream);
   if (route != kRouteClassic) return cudaErrorInvalidValue;
   const int64_t total = static_cast<int64_t>(sk) * sc;
   const unsigned fold_grid =

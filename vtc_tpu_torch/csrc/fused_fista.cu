@@ -8,11 +8,13 @@
 //   codes = shrink(z + z @ (-eta G) + eta c, lam * eta)
 //
 // with soft / nonneg-soft / hard / nonneg-hard shrinkage, FISTA or ISTA
-// momentum and an optional warm start.  The two kernels (the classic
-// layout for large batches, the thread-block-cluster layout for small
-// ones), the route between them, what bounds each and what its design
-// does about it are in fista_core.cuh, which K4 shares: this file
-// instantiates their elementwise-shrink variants.
+// momentum and an optional warm start.  The three kernels (the classic
+// layout, the bitwise reference and the route of what the others cannot
+// hold; the eight-CTA cluster layout for small batches; the wide cluster
+// layout for batches that fill the card), the route between them, what
+// bounds each and what its design does about it are in fista_core.cuh,
+// which K4 shares: this file instantiates their elementwise-shrink
+// variants.
 #include "fista_core.cuh"
 
 extern "C" {
@@ -33,7 +35,7 @@ int vtc_fista_sm_count() { return device_sm_count(); }
 int vtc_fista_cluster_slots() { return cluster_slots(); }
 
 // The route launch_solve takes on this device for b rows of s codes in
-// groups of group_size (1: elementwise): 1 classic, 2 cluster.
+// groups of group_size (1: elementwise): 1 classic, 2 cluster, 3 wide.
 int vtc_fista_route(int b, int s, int group_size) {
   const int sk = (s + kChunk - 1) / kChunk * kChunk;
   return solve_route(b, sk, group_size, device_sm_count());
@@ -54,12 +56,28 @@ int vtc_fista_cluster_occupancy(int s, int rows) {
   return cluster_occupancy<true, kSoft, false>(sk, 1, rows);
 }
 
+// The wide kernel's cluster size for s codes in groups of group_size (0:
+// its layout does not fit), and its rows per cluster for b such rows on
+// this device (or minus the CUDA error of reading its cluster slots).
+int vtc_fista_wide_cluster(int s, int group_size) {
+  return wide_cluster((s + kChunk - 1) / kChunk * kChunk, group_size);
+}
+int vtc_fista_wide_rows(int b, int s, int group_size) {
+  return wide_device_rows(b, (s + kChunk - 1) / kChunk * kChunk,
+                          group_size);
+}
+
+// The clusters of cluster_size wide-kernel CTAs this device holds at one
+// CTA per SM, or minus the CUDA error.
+int vtc_fista_wide_slots(int cluster_size) { return wide_slots(cluster_size); }
+
 // gram (s, s), corr (b, s), init (b, s) or null, eta (1,) on the device.
 // gn_scratch (sk, sc); state_scratch (ceil(b / rows), 4, rows, sk) or
 // null to keep the state in shared memory (both used by the classic
 // route only); out (b, s).  route: 0 the shape's own (solve_route),
-// 1 the classic kernel, 2 the cluster kernel (1 and 2 force a kernel, for
-// checks and tools); taken, unless null, receives the route launched.
+// 1 the classic kernel, 2 the cluster kernel, 3 the wide kernel (1-3
+// force a kernel, for checks and tools); taken, unless null, receives the
+// route launched.
 // Returns the CUDA error code of the launches (0 on success).
 int vtc_fused_fista(const float* gram, const float* corr, const float* init,
                     const float* eta, float lam, int num_iters, int b, int s,
@@ -67,7 +85,7 @@ int vtc_fused_fista(const float* gram, const float* corr, const float* init,
                     float* state_scratch, float* out, int route, int* taken,
                     void* stream_ptr) {
   if (!solve_args_ok(b, s, num_iters, sk, sc) || mode < 0 || mode > 3 ||
-      route < kRouteAuto || route > kRouteCluster)
+      route < kRouteAuto || route > kRouteWide)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err;

@@ -27,7 +27,10 @@
 // groups, so it takes each group's norm and scale there, with no barrier
 // and no second pass; an M that divides a CTA's columns but not 4 takes
 // one CTA-local shared-memory pass, and an M that does not divide them
-// is routed to the classic kernel (solve_route).
+// is routed to the classic kernel (solve_route).  The wide kernel, which
+// takes the batches that fill the card, has the same four-column
+// register prox and takes only M in {1, 2, 4}; other M at those batches
+// stay on the classic kernel.
 #include "fista_core.cuh"
 
 extern "C" {
@@ -45,7 +48,7 @@ int vtc_fused_group_fista(const float* gram, const float* corr,
                           float* gn_scratch, float* state_scratch, float* out,
                           int route, int* taken, void* stream_ptr) {
   if (!solve_args_ok(b, gm, num_iters, sk, sc) || group_size < 1 ||
-      gm % group_size != 0 || route < kRouteAuto || route > kRouteCluster)
+      gm % group_size != 0 || route < kRouteAuto || route > kRouteWide)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err;

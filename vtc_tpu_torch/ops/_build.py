@@ -109,9 +109,14 @@ def load_library():
                "vtc_fista_cluster_slots"):
     getattr(lib, name).argtypes = []
     getattr(lib, name).restype = i32
-  for name in ("vtc_fista_route", "vtc_fista_cluster_rows"):
+  for name in ("vtc_fista_route", "vtc_fista_cluster_rows",
+               "vtc_fista_wide_rows"):
     getattr(lib, name).argtypes = [i32, i32, i32]
     getattr(lib, name).restype = i32
+  lib.vtc_fista_wide_cluster.argtypes = [i32, i32]
+  lib.vtc_fista_wide_cluster.restype = i32
+  lib.vtc_fista_wide_slots.argtypes = [i32]
+  lib.vtc_fista_wide_slots.restype = i32
   lib.vtc_fista_cluster_occupancy.argtypes = [i32, i32]
   lib.vtc_fista_cluster_occupancy.restype = i32
   lib.vtc_fused_fista.argtypes = [

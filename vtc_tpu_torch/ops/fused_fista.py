@@ -14,12 +14,16 @@ its kernel (pallas_fista.py:196-198).  Then:
   holds the kernel against on the card.  It is also the 'gram'
   formulation of ``ista_fista.run``: one loop serves both.
 
-The library has two solve kernels with the same bits (csrc/
-fista_core.cuh): the classic layout, one block per 16 rows, and a
-thread-block-cluster layout for small batches, 8 CTAs per cluster with
-G resident in shared memory.  ``solve_route`` is the C route's rule in
-Python, and ``cluster_rows`` and ``cluster_layout`` its layout, so the
-CPU tests can pin them; ``last_route`` is the route of the last launch.
+The library has three solve kernels with the same bits (csrc/
+fista_core.cuh): the classic layout, one block per 16 rows with G
+streamed from L2; a thread-block-cluster layout for small batches, 8
+CTAs per cluster with G resident in shared memory; and the wide cluster
+layout for batches that fill the card, the fewest CTAs a cluster whose
+G slices fit (2 at s 256) and 8 x 4 outputs a thread.
+``solve_route`` is the C route's rule in Python, and ``cluster_rows``,
+``cluster_layout``, ``wide_cluster``, ``wide_rows`` and ``wide_layout``
+the layouts, so the CPU tests can pin them; ``last_route`` is the route
+of the last launch.
 
 Scope: no in-kernel early stop and only the 'highest' (IEEE fp32) tier;
 both wait in ROADMAP.md §1 item 3, and the wrapper raises when asked for
@@ -34,7 +38,7 @@ from vtc_tpu_torch.ops.precision import matmul_precision
 from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 launches = 0
-last_route = None  # 'classic' or 'cluster': the route of the last launch
+last_route = None  # 'classic', 'cluster' or 'wide': the last launch's
 
 # shared memory a block may opt into on Hopper (sm_90): 227 KB
 _SMEM_PER_BLOCK = 232448
@@ -43,8 +47,13 @@ _SMEM_PER_BLOCK = 232448
 # the library's
 ROWS, CHUNK, CLUSTER, CLUSTER_MAX_ROWS, CLUSTER_MAX_THREADS = (
     16, 32, 8, 32, 512)
-# the C entries' route argument
-ROUTES = {"auto": 0, "classic": 1, "cluster": 2}
+# fista_core.cuh's wide layout constants (kWideRowsPerThread,
+# kWideMaxThreads, kWideMinThreads, kWideMaxCluster)
+(WIDE_ROWS_PER_THREAD, WIDE_MAX_THREADS, WIDE_MIN_THREADS,
+ WIDE_MAX_CLUSTER) = (8, 256, 128, 8)
+# the C entries' route argument, and the route names of their taken value
+ROUTES = {"auto": 0, "classic": 1, "cluster": 2, "wide": 3}
+ROUTE_NAMES = {v: k for k, v in ROUTES.items() if v}
 # the kernel's shrink modes, indexed by (nonneg, hard)
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2,
           (True, True): 3}
@@ -219,20 +228,82 @@ def cluster_grid(b, rows):
   return -(-b // rows) * CLUSTER
 
 
+def wide_layout(s, cluster, rows):
+  """The wide kernel's layout for s codes in clusters of `cluster` CTAs at
+  rows batch rows per cluster, as fista_core.cuh's wide_layout: the
+  padded depth sk, w columns per CTA, threads per CTA (one per 8 rows and
+  4 columns) and the dynamic shared memory in bytes (the G slice and two
+  z buffers of rows x (sk + 4))."""
+  sk = -(-s // CHUNK) * CHUNK
+  w = sk // cluster
+  return dict(sk=sk, w=w, threads=rows // WIDE_ROWS_PER_THREAD * (w // 4),
+              smem=4 * (sk * w + 2 * rows * (sk + 4)))
+
+
+def wide_max_rows(s, group_size, cluster):
+  """The most rows (a multiple of 8) a wide cluster of `cluster` CTAs
+  takes within a block's thread and shared-memory budgets, or 0 where a
+  group is not whole in a thread's four columns, the slices are not whole
+  float4s or no thread tile fits (fista_core.cuh's wide_max_rows)."""
+  sk = -(-s // CHUNK) * CHUNK
+  if group_size < 1 or 4 % group_size or cluster < 1 or sk % (4 * cluster):
+    return 0
+  per_row = sk // cluster // 4
+  by_threads = WIDE_MAX_THREADS // per_row * WIDE_ROWS_PER_THREAD
+  free = _SMEM_PER_BLOCK // 4 - sk * (sk // cluster)
+  by_smem = (0 if free < 0 else free // (2 * (sk + 4))
+             // WIDE_ROWS_PER_THREAD * WIDE_ROWS_PER_THREAD)
+  return min(by_threads, by_smem)
+
+
+def wide_cluster(s, group_size):
+  """The wide kernel's CTAs a cluster: the fewest of 1, 2, 4, 8 whose
+  slices leave shared memory for WIDE_MIN_THREADS threads' tiles of rows,
+  or 0 (fista_core.cuh's wide_cluster)."""
+  for cluster in (1, 2, 4, WIDE_MAX_CLUSTER):
+    rows = wide_max_rows(s, group_size, cluster)
+    if wide_layout(s, cluster, rows)["threads"] >= WIDE_MIN_THREADS:
+      return cluster
+  return 0
+
+
+def wide_rows(b, s, group_size, slots):
+  """Rows per wide cluster for a batch of b on a card that holds slots
+  such clusters at one CTA per SM: the fewest waves the most rows allow,
+  the batch spread evenly over them, in whole thread tiles; 0 where the
+  layout does not fit (fista_core.cuh's wide_rows)."""
+  cluster = wide_cluster(s, group_size)
+  if not cluster:
+    return 0
+  most = wide_max_rows(s, group_size, cluster)
+  spread = max(slots, 1)
+  waves = -(-b // (spread * most))
+  rows = -(-b // (spread * waves))
+  return -(-rows // WIDE_ROWS_PER_THREAD) * WIDE_ROWS_PER_THREAD
+
+
+def wide_grid(b, s, group_size, rows):
+  """CTAs of a wide launch: wide_cluster's size per rows batch rows."""
+  return -(-b // rows) * wide_cluster(s, group_size)
+
+
 def solve_route(b, s, group_size, sm_count):
-  """'cluster' or 'classic': the kernel fista_core.cuh's solve_route
-  picks for b rows of s codes in groups of group_size on a card of
-  sm_count SMs.  The cluster kernel where its layout fits and the classic
-  kernel's ceil(b / 16) blocks would fill at most half of the SMs."""
-  tiles = -(-b // ROWS)
-  return ("cluster" if cluster_max_rows(s, group_size) >= 2
-          and 2 * tiles <= sm_count else "classic")
+  """'cluster', 'wide' or 'classic': the kernel fista_core.cuh's
+  solve_route picks for b rows of s codes in groups of group_size on a
+  card of sm_count SMs.  The cluster kernel where its layout fits and the
+  classic kernel's ceil(b / 16) blocks would fill at most half of the
+  SMs; above that the wide kernel where its layout fits; the classic
+  kernel otherwise."""
+  if 2 * -(-b // ROWS) <= sm_count:
+    return "cluster" if cluster_max_rows(s, group_size) >= 2 else "classic"
+  return "wide" if wide_cluster(s, group_size) else "classic"
 
 
 def _launch(gram, corr, init, eta, lam, num_iters, fista, mode,
             route="auto"):
   """Allocate the kernel's scratch and launch it on the current stream.
-  route 'classic' or 'cluster' forces a kernel (for checks and tools)."""
+  route 'classic', 'cluster' or 'wide' forces a kernel (for checks and
+  tools)."""
   global launches, last_route
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
@@ -261,5 +332,5 @@ def _launch(gram, corr, init, eta, lam, num_iters, fista, mode,
             err, b, s, route,
             "shared memory" if state_in_smem else "global"))
   launches += 1
-  last_route = {1: "classic", 2: "cluster"}[taken.value]
+  last_route = ROUTE_NAMES[taken.value]
   return out

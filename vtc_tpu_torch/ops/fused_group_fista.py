@@ -18,9 +18,9 @@ does.  Then:
 * a CUDA tensor launches the hand-written kernel in
   ``vtc_tpu_torch/csrc/fused_group_fista.cu`` (K1's iteration with the
   group prox as its epilogue; built at first use by ``ops/_build.py``)
-  on the current stream, or raises.  Like K1 it takes the classic or the
-  cluster kernel by ``fused_fista.solve_route``; ``last_route`` is the
-  route of the last launch;
+  on the current stream, or raises.  Like K1 it takes the classic, the
+  cluster or the wide kernel by ``fused_fista.solve_route``;
+  ``last_route`` is the route of the last launch;
 * a CPU tensor runs ``fused_group_fista_plain``, which is also the 'gram'
   formulation of ``subspace_ista_fista`` and what ``chip_smoke.py`` holds
   the kernel against on the card.
@@ -183,8 +183,8 @@ def fused_group_fista_solve(images, grouped_dictionary, group_size,
 def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard,
             route="auto"):
   """Allocate the kernel's scratch and launch it on the current stream.
-  route 'classic' or 'cluster' forces a kernel (fused_fista.solve_route
-  is the rule 'auto' follows)."""
+  route 'classic', 'cluster' or 'wide' forces a kernel
+  (fused_fista.solve_route is the rule 'auto' follows)."""
   global launches, last_route
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
@@ -214,5 +214,5 @@ def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard,
             err, b, gm, group_size, route,
             "shared memory" if state_in_smem else "global"))
   launches += 1
-  last_route = {1: "classic", 2: "cluster"}[taken.value]
+  last_route = fused_fista.ROUTE_NAMES[taken.value]
   return out
