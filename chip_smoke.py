@@ -535,17 +535,18 @@ CUDA_TESTS = {
     "test_torch_port_ica_persistent.py::"
     "test_cuda_ica_trainers_launch_the_segment_kernel": (40,),
     "test_torch_port_subspace.py::"
-    "test_cuda_early_stop_raises_and_launches_nothing": (8,),
+    "test_cuda_early_stop_raises_and_launches_nothing": (8, 43),
     "test_torch_port_subspace.py::test_cuda_kernel_matches_plain": (8, 9),
     "test_torch_port_subspace_train.py::test_cuda_early_stop_raises": (
-        10, 11),
+        10, 11, 43),
     "test_torch_port_subspace_train.py::test_cuda_kernels_match_plain": (
         10,),
     "test_torch_port_subspace_train.py::"
     "test_cuda_scanned_runs_the_fused_group_kernels": (11,),
-    "test_torch_port_train_step.py::test_cuda_early_stop_raises": (5,),
+    "test_torch_port_train_step.py::test_cuda_early_stop_raises": (5, 43),
     "test_torch_port_train_step.py::test_cuda_kernels_match_plain": (5,),
-    "test_torch_port_trainer.py::test_cuda_scanned_early_stop_raises": (6,),
+    "test_torch_port_trainer.py::test_cuda_scanned_early_stop_raises": (
+        6, 43),
     "test_torch_port_trainer.py::test_cuda_scanned_runs_the_fused_kernels": (
         6,),
 }
@@ -1660,6 +1661,16 @@ def check_refuses(label, fn, item, counter=None):
   check(counter is None or counter.launches == before,
         "%s launched a kernel before refusing" % label)
   print("refused on the card: %s (ROADMAP.md §1 item %s)" % (label, item))
+
+
+def check_runs(label, fn, counter):
+  """fn, which raised before the early stop reached the fc/subspace
+  kernels (phase 43), runs and launches counter's kernel."""
+  before = counter.launches
+  fn()
+  check(counter.launches > before, "%s launched no kernel" % label)
+  print("runs on the card: %s (%d launches)" % (
+      label, counter.launches - before))
 
 
 def code_shard_kernel_cases(torch, cs, lipschitz, gen, dev):
@@ -3457,6 +3468,243 @@ def solve_library_ms(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 43: the in-kernel early stop (csrc/fista_core.cuh, "The early stop")
+# ---------------------------------------------------------------------------
+STOP_ITERS = 100          # phase 43's solve depth
+STOP_SHAPES = [  # (b, s, M or None for fc, the route the stop takes)
+    (TRAIN_BATCH, 256, None, "cluster"), (TRAIN_BATCH, 256, 4, "cluster"),
+    (BATCH, 256, None, "wide"), (BATCH, 256, 4, "wide"),
+    (4096, 256, None, "classic"), (4096, 256, 4, "classic"),  # 2 waves
+    (BATCH, 320, None, "classic"), (TRAIN_BATCH, 96, 3, "classic"),
+    # small batches, where hard thresholds compare with plain (below)
+    (37, 40, None, "cluster"), (37, 40, 4, "cluster"),
+    (37, 48, 3, "classic")]
+# Hard thresholds are discontinuous: from b 250 up, a code that crosses
+# the threshold one iteration apart in two float32 solves moves the rest
+# of the trajectory by more than the limit (as phases 5 and 39 find), so
+# hard cases are held to plain at the small shapes and reported there.
+STOP_HARD_PLAIN_BATCH = 250
+
+
+def stop_eps(avgs, which):
+  """An eps for the stop test from a plain run's means (avgs[k - 1] after
+  iteration k): 'early' stops at k = 1, 'mid' at the first new low past the
+  first quarter 5% under every earlier mean (eps between the two), 'never'
+  is 0."""
+  if which == "never":
+    return 0.0
+  if which == "early":
+    return 1.5 * avgs[0]
+  for k in range(max(2, len(avgs) // 4), len(avgs)):
+    low = min(avgs[:k])
+    if avgs[k] < 0.95 * low:
+      return float(np.sqrt(avgs[k] * low))
+  return float(avgs[len(avgs) // 2])  # no clear low: a mean of the run
+
+
+def stop_solve_cases(torch, K1, K4, lipschitz, solver, lib, patches,
+                     gpatches, dev):
+  """Phase 43 (a): K1 and K4 with the stop on each route (STOP_SHAPES), fc
+  soft / nonneg / hard and groups soft / hard, FISTA and ISTA, three eps:
+  the route is the expected one and stop_route's; the codes are bitwise
+  those of the same route run without the stop for the count it reports;
+  a second call gives the same count and bits; the count is the plain
+  fp32 version's and the codes within phase 2's limit of it (a case whose
+  plain mean lies within 1e-5 relative of eps is reported apart, and so is
+  a hard case from STOP_HARD_PLAIN_BATCH up that passes its other checks).
+  Returns (cases, the largest error against plain, near cases, hard
+  cases reported)."""
+  from vtc_tpu_torch.ops.precision import matmul_precision
+  rng = np.random.RandomState(43)
+  dicts = {256: unit_rows(np.random.RandomState(0), 256, 256),
+           320: unit_rows(rng, 320, 256), 96: unit_rows(rng, 96, 256),
+           40: unit_rows(rng, 40, 256), 48: unit_rows(rng, 48, 256)}
+  sm, cslots = lib.vtc_fista_sm_count(), lib.vtc_fista_cluster_slots()
+  cases, worst, near, hard_split = 0, 0.0, [], []
+  for b, s, m, want_route in STOP_SHAPES:
+    x = torch.tensor((gpatches if m else patches)[:b], device=dev)
+    d = torch.tensor(dicts[s], device=dev)
+    eta = lipschitz.fista_stepsize(d).reshape(1).float().contiguous()
+    with matmul_precision():
+      gram, corr = (d @ d.T).contiguous(), (x @ d.T).contiguous()
+    gm = m or 1
+    wcl = K1.wide_cluster(s, gm)
+    wslots = lib.vtc_fista_wide_slots(wcl) if wcl else 1
+    mirror = K1.stop_route(b, s, gm, sm, cslots, wslots)
+    words = lib.vtc_fista_stop_words(b, s, gm)
+    check(mirror == want_route == K1.ROUTE_NAMES[
+        lib.vtc_fista_stop_route(b, s, gm)],
+          "b %d s %d M %d: the stop route is %s, stop_route says %s, the "
+          "library %d" % (b, s, gm, want_route, mirror,
+                          lib.vtc_fista_stop_route(b, s, gm)))
+    check(words == K1.stop_words(mirror, b, s, gm, cslots, wslots),
+          "b %d s %d M %d: the library's stop words %d differ from "
+          "stop_words" % (b, s, gm, words))
+    modes = [(f, mode) for f in (True, False)
+             for mode in ((0, 1, 2) if m is None else (0, 1))]
+    tally = [0, 0, 0, 0, 0.0, []]  # cases, bitwise, det, counts, err, its
+    for fista, mode in modes:
+      variant = "fista" if fista else "ista"
+
+      def plain(eps):
+        if m is None:
+          out = K1.fused_fista_plain(
+              x, d, LAM, STOP_ITERS, eta, variant=variant, nonneg=mode == 1,
+              hard=mode == 2, early_stopping_epsilon=eps)
+        else:
+          out = K4.fused_group_fista_plain(
+              x, d, m, LAM, STOP_ITERS, eta, variant=variant,
+              hard=bool(mode), early_stopping_epsilon=eps)
+        return out, solver.last_iters, list(solver.last_avgs)
+
+      def kernel(iters, eps=None, route="auto"):
+        mod = K1 if m is None else K4
+        if m is None:
+          out = K1._launch(gram, corr, None, eta, LAM, iters, fista, mode,
+                           route=route, eps=eps)
+        else:
+          out = K4._launch(gram, corr, None, eta, LAM, iters, m, fista,
+                           bool(mode), route=route, eps=eps)
+        return out, mod.last_route, mod.last_iters
+
+      avgs = plain(0.0)[2]
+      for which in ("early", "mid", "never"):
+        eps = stop_eps(avgs, which)
+        got, route, its = kernel(STOP_ITERS, eps)
+        it = int(its.item())
+        again, _, its2 = kernel(STOP_ITERS, eps)
+        ref = kernel(it, None, route)[0]
+        want, plain_it, plain_avgs = plain(eps)
+        torch.cuda.synchronize()
+        label = "b %d s %d M %s %s mode %s eps %s (%.4g)" % (
+            b, s, m, variant, mode, which, eps)
+        check(route == want_route, "%s: took %s" % (label, route))
+        same, det = torch.equal(got, ref), (
+            torch.equal(got, again) and int(its2.item()) == it)
+        check(same, "%s: the stopped codes (%d it) differ from the %s "
+              "route's without the stop at %d of %d entries" % (
+                  label, it, route, int((got != ref).sum()), got.numel()))
+        check(det, "%s: a second call differs (%d vs %d it)" % (
+            label, it, int(its2.item())))
+        close = eps > 0 and any(abs(a - eps) <= 1e-5 * eps
+                                for a in plain_avgs)
+        if close:
+          near.append("%s: kernel %d it, plain %d" % (label, it, plain_it))
+        else:
+          check(it == plain_it, "%s: the kernel ran %d iterations, the "
+                "plain version %d" % (label, it, plain_it))
+        if it == plain_it:
+          err = float((got - want).abs().max())
+          lim = limit(want)
+          hard = mode == 2 if m is None else mode == 1
+          if hard and b >= STOP_HARD_PLAIN_BATCH and err > lim:
+            hard_split.append("%s: max|d| %.3e against plain, limit %.3e, "
+                              "%d of %d entries past it" % (
+                                  label, err, lim,
+                                  int(((got - want).abs() > lim).sum()),
+                                  got.numel()))
+          else:
+            check(err <= lim, "%s: max|d| %.3e against plain, limit %.3e"
+                  % (label, err, lim))
+            tally[4] = max(tally[4], err)
+        tally[0] += 1
+        tally[1] += int(same)
+        tally[2] += int(det)
+        tally[3] += int(it == plain_it)
+        tally[5].append(it)
+        cases += 1
+    worst = max(worst, tally[4])
+    print("stop, b %4d s %3d %-8s route %-7s (%d words): %2d cases, %2d "
+          "bitwise the route's at the count, %2d deterministic, %2d counts "
+          "equal plain's, max|d| %.3e; counts %s" % (
+              b, s, "fc" if m is None else "M %d" % m, want_route, words,
+              tally[0], tally[1], tally[2], tally[3], tally[4],
+              " ".join(map(str, tally[5]))))
+  return cases, worst, near, hard_split
+
+
+def stop_trainer_runs(torch, compiled_epoch, K1, K2, K6, batches, held,
+                      gbatches, gheld, d0, steps, eps):
+  """Phase 43 (b): the flagship scanned fc and subspace trainers with a
+  stop at eps: each step's solve is one fista_cluster_kernel launch (and
+  no other solve kernel), and some solves end before TRAIN_ITERS.
+  Returns {label: per-step counts}."""
+  counts = {}
+  for label, x, h, params_, mod in (
+      ("fc (K2)", batches, held, train_params(steps), K2),
+      ("subspace (K6)", gbatches, gheld,
+       subspace_train_params(steps, SUB_STEP), K6)):
+    params_ = dict(params_, early_stopping_epsilon=eps)
+    seen = solve_dispatch(
+        torch, lambda: compiled_epoch.train_dictionary_scanned(
+            x[:steps], h[None], d0, params_))
+    its = mod.last_iters.tolist()
+    counts[label] = its
+    print("dispatch (profiled), train_dictionary_scanned %s with "
+          "early_stopping_epsilon %.4g, %d steps of b 250: "
+          "fista_cluster_kernel %d, fista_wide_kernel %d, fista_kernel %d, "
+          "fold_gram_kernel %d; solve iterations %s" % (
+              label, eps, steps, seen["cluster"], seen["wide"],
+              seen["classic"], seen["fold"], its))
+    check(seen == {"cluster": steps, "wide": 0, "classic": 0, "fold": 0},
+          "%s: expected one fista_cluster_kernel launch a step with the "
+          "stop, saw %s" % (label, seen))
+    check(len(its) == steps and min(its) < TRAIN_ITERS,
+          "%s: no solve stopped early (%s)" % (label, its))
+  return counts
+
+
+def stop_train_eps(torch, K1, solver, lipschitz, train_patches, dev):
+  """The trainers' eps in phase 43: a mid-run stop (stop_eps) of the
+  flagship's first solve (b 250, FISTA 25, phase 5's dictionary)."""
+  d = torch.tensor(unit_rows(np.random.RandomState(2), 256, 256), device=dev)
+  x = torch.tensor(train_patches[:TRAIN_BATCH], device=dev)
+  K1.fused_fista_plain(x, d, LAM, TRAIN_ITERS, lipschitz.fista_stepsize(d),
+                       early_stopping_epsilon=0.0)
+  return stop_eps(solver.last_avgs, "mid")
+
+
+def stop_train_step_cases(torch, K2, K6, solver, lipschitz, train_patches,
+                          gtrain, dev, eps):
+  """Phase 43 (b): one flagship K2 and K6 step with the stop at eps against
+  the fp32 plain version: the same solve count and every output within
+  phase 5's limit.  Returns the largest difference."""
+  d = torch.tensor(unit_rows(np.random.RandomState(2), 256, 256), device=dev)
+  h = torch.zeros(256, device=dev)
+  v = lipschitz.top_gram_eigenpair(d)[1].contiguous()
+  names = ("dictionary", "hessian", "eigvec", "codes", "stepsize")
+  worst = 0.0
+  for label, mod, data, kw in (
+      ("K2", K2, train_patches, {}),
+      ("K6", K6, gtrain,
+       {"group_assignments": contiguous_groups(256, GROUP_SIZE)})):
+    x = torch.tensor(data[:TRAIN_BATCH][None], device=dev)
+    flags = dict(kw, power_iters=2, return_stepsize=True,
+                 early_stopping_epsilon=eps)
+    args = (d, h, v, x, LAM, TRAIN_ITERS, TRAIN_STEP)
+    plain = (K2.fused_train_segment_plain if mod is K2
+             else K6.fused_group_train_segment_plain)
+    got = (K2.fused_train_segment if mod is K2
+           else K6.fused_group_train_segment)(*args, **flags)
+    its = int(mod.last_iters[0].item())
+    want = plain(*args, **flags)
+    plain_it = solver.last_iters
+    torch.cuda.synchronize()
+    check(its == plain_it, "%s with the stop: %d solve iterations, the plain "
+          "version %d" % (label, its, plain_it))
+    for what, g, w in zip(names, got, want):
+      err = float((g - w).abs().max())
+      lim = limit(w) if float(w.abs().max()) > 0 else TOL
+      print("stop, %s one flagship step (eps %.4g, %d of %d iterations) vs "
+            "plain: %-10s max|d| %.3e limit %.3e" % (
+                label, eps, its, TRAIN_ITERS, what, err, lim))
+      check(err <= lim, "%s with the stop: %s differs from plain by %.3e, "
+            "limit %.3e" % (label, what, err, lim))
+      worst = max(worst, err)
+  return worst
+
+
+# ---------------------------------------------------------------------------
 # phase 40: the persistent ICA segment kernel (csrc/ica_segment.cuh)
 # ---------------------------------------------------------------------------
 ICA_STEP_KERNELS = ("gemm_kernel", "sign_kernel", "residual_kernel",
@@ -3893,10 +4141,10 @@ def main():
   train_err = train_kernel_cases(torch, fused_train_step, lipschitz,
                                  train_patches, dev)
   rd, rh, rv, rx = refusal_problem(torch, dev)
-  check_refuses("K2 early_stopping_epsilon", lambda: (
+  check_runs("K2 early_stopping_epsilon", lambda: (
       fused_train_step.fused_train_segment(rd, rh, rv, rx, 0.05, 5, 0.1,
                                            early_stopping_epsilon=1e-3)),
-                "3", fused_train_step)
+             fused_train_step)
 
   # phase 6: the trainer through its public entry points
   batches = torch.tensor(train_patches.reshape(TRAIN_STEPS, TRAIN_BATCH,
@@ -3924,16 +4172,16 @@ def main():
   check(norm_err <= 1e-4, "rows not unit norm: %.3e" % norm_err)
   check(np.isfinite(loss1) and loss1 < loss0,
         "held-out LASSO loss did not fall: %.6f -> %.6f" % (loss0, loss1))
-  check_refuses("train_dictionary_scanned early_stopping_epsilon", lambda: (
+  check_runs("train_dictionary_scanned early_stopping_epsilon", lambda: (
       compiled_epoch.train_dictionary_scanned(
           rx, rx[:1], rd, dict(train_params(2), early_stopping_epsilon=1e-3))),
-                "3", fused_train_step)
-  check_refuses("the raw step's K1 solve with early_stopping_epsilon",
-                lambda: sparse_coding.build_raw_step_fn(
-                    "fully-connected", "fista", "sc_steepest_descent",
-                    fc_formulation="pallas", early_stopping_epsilon=1e-3)(
-                        rd, rh, rx[0], 0.05, 10, 0.05, 1, None),
-                "3", fused_fista)
+             fused_train_step)
+  check_runs("the raw step's K1 solve with early_stopping_epsilon",
+             lambda: sparse_coding.build_raw_step_fn(
+                 "fully-connected", "fista", "sc_steepest_descent",
+                 fc_formulation="pallas", early_stopping_epsilon=1e-3)(
+                     rd, rh, rx[0], 0.05, 10, 0.05, 1, None),
+             fused_fista)
 
   fit_patches = train_patches[:FIT_STEPS * TRAIN_BATCH]
   fitter = SparseCoder(256, sparsity_weight=LAM, inference_iters=TRAIN_ITERS,
@@ -3989,14 +4237,14 @@ def main():
       gpatches.shape[0], time.perf_counter() - t0))
   group_err = group_kernel_cases(torch, fused_group_fista, sub, lipschitz,
                                  gpatches, dev)
-  check_refuses("K4 early_stopping_epsilon", lambda: (
+  check_runs("K4 early_stopping_epsilon", lambda: (
       fused_group_fista.fused_group_fista_solve(
           rx[0], rd, GROUP_SIZE, 0.1, 20, 0.05, early_stopping_epsilon=1e-3)),
-                "3", fused_group_fista)
-  check_refuses("subspace run('pallas') early_stopping_epsilon", lambda: (
+             fused_group_fista)
+  check_runs("subspace run('pallas') early_stopping_epsilon", lambda: (
       sub.run(rx[0], rd, contiguous_groups(24, GROUP_SIZE), 0.1, 20,
               formulation="pallas", early_stopping_epsilon=1e-2)),
-                "3", fused_group_fista)
+             fused_group_fista)
 
   # phase 9: the subspace encode slice through encode_dataset
   groups = contiguous_groups(256, GROUP_SIZE)
@@ -4037,11 +4285,11 @@ def main():
       gtrain.shape[0], time.perf_counter() - t0))
   group_train_err = group_train_kernel_cases(
       torch, fused_group_train_step, sub, lipschitz, gtrain, dev)
-  check_refuses("K6 early_stopping_epsilon", lambda: (
+  check_runs("K6 early_stopping_epsilon", lambda: (
       fused_group_train_step.fused_group_train_segment(
           rd, rh, rv, rx, 0.05, 5, 0.1,
           group_assignments=contiguous_groups(24, GROUP_SIZE),
-          early_stopping_epsilon=1e-3)), "3", fused_group_train_step)
+          early_stopping_epsilon=1e-3)), fused_group_train_step)
 
   # phase 11: the subspace trainer through train_dictionary_scanned
   gbatches = torch.tensor(gtrain.reshape(TRAIN_STEPS, TRAIN_BATCH, 256),
@@ -4069,13 +4317,13 @@ def main():
   check(np.isfinite(gloss1) and gloss1 < gloss0,
         "held-out group-LASSO loss did not fall: %.6f -> %.6f" % (
             gloss0, gloss1))
-  check_refuses("subspace train_dictionary_scanned early_stopping_epsilon",
-                lambda: compiled_epoch.train_dictionary_scanned(
-                    rx, rx[:1], rd, dict(
-                        subspace_train_params(2, SUB_STEP),
-                        group_assignments=contiguous_groups(24, GROUP_SIZE),
-                        early_stopping_epsilon=1e-3)),
-                "3", fused_group_train_step)
+  check_runs("subspace train_dictionary_scanned early_stopping_epsilon",
+             lambda: compiled_epoch.train_dictionary_scanned(
+                 rx, rx[:1], rd, dict(
+                     subspace_train_params(2, SUB_STEP),
+                     group_assignments=contiguous_groups(24, GROUP_SIZE),
+                     early_stopping_epsilon=1e-3)),
+             fused_group_train_step)
 
   # phase 12: subspace timing (warm)
   xg = torch.tensor(gpatches[:BATCH], device=dev)
@@ -4765,7 +5013,7 @@ def main():
                         rx, rx[:1], rd, dict(train_params(2),
                                              data_parallel=True,
                                              early_stopping_epsilon=1e-3))),
-                "3")
+                "3a.1")
 
   # phase 27: a world of 1 through the normal entry points.  First the
   # collective backends the card has
@@ -5457,6 +5705,202 @@ def main():
         "off: %.4f ms (K1 %.4f, K4 %.4f ms per flagship solve) [%s]" % (
             ITERS, BATCH, solve_lib_ms, ms, g_ms, card))
 
+  # phase 43: the in-kernel early stop (csrc/fista_core.cuh, "The early
+  # stop"): K1 and K4 with the stop on every route against the route
+  # without it (bitwise at the reported count), deterministic, at the plain
+  # version's count; one flagship K2 and K6 step with it against plain; the
+  # flagship trainers with it launch only fista_cluster_kernel; the main
+  # path with the stop (counted); the stop's cost an iteration; the stopped
+  # solve and trainer against formulation='gram' with the same eps
+  from vtc_tpu_torch.ops import solver
+  n_stop, stop_err, stop_near, stop_hard = stop_solve_cases(
+      torch, fused_fista, fused_group_fista, lipschitz, solver, lib, patches,
+      gpatches, dev)
+  print("phase 43: %d stopped solves bitwise their route's at the count, "
+        "deterministic, at the plain version's count, within %.3e of plain; "
+        "%d with a plain mean within 1e-5 relative of eps%s; %d hard cases "
+        "from b %d up past the limit (threshold crossings)%s" % (
+            n_stop, stop_err, len(stop_near),
+            "".join("\n  near eps: " + c for c in stop_near),
+            len(stop_hard), STOP_HARD_PLAIN_BATCH,
+            "".join("\n  hard: " + c for c in stop_hard)))
+  train_eps = stop_train_eps(torch, fused_fista, solver, lipschitz,
+                             train_patches, dev)
+  stop_step_err = stop_train_step_cases(
+      torch, fused_train_step, fused_group_train_step, solver, lipschitz,
+      train_patches, gtrain, dev, train_eps)
+  stop_counts = stop_trainer_runs(
+      torch, compiled_epoch, fused_fista, fused_train_step,
+      fused_group_train_step, batches, held_out, gbatches, gheld, d0,
+      DISPATCH_STEPS, train_eps)
+  # the solve's inputs at b 2048 and the eps of a mid-run stop there
+  flag_d = torch.tensor(unit_rows(np.random.RandomState(0), 256, 256),
+                        device=dev)
+  flag_eta = lipschitz.fista_stepsize(flag_d).reshape(1).float().contiguous()
+  sx = torch.tensor(patches[:BATCH], device=dev)
+  gsx = torch.tensor(gpatches[:BATCH], device=dev)
+  fused_fista.fused_fista_plain(sx, flag_d, LAM, ITERS, flag_eta,
+                                early_stopping_epsilon=0.0)
+  solve_eps = stop_eps(solver.last_avgs, "mid")
+  fused_group_fista.fused_group_fista_plain(
+      gsx, flag_d, GROUP_SIZE, LAM, ITERS, flag_eta,
+      early_stopping_epsilon=0.0)
+  gsolve_eps = stop_eps(solver.last_avgs, "mid")
+  stop_groups = contiguous_groups(256, GROUP_SIZE)
+  # the main path with the stop: the flagship trainers and the solvers,
+  # every count zeroed just before and read just after
+  for mod in (fused_fista, fused_group_fista, fused_train_step,
+              fused_group_train_step):
+    mod.launches = 0
+  stop_params = dict(train_params(DISPATCH_STEPS),
+                     early_stopping_epsilon=train_eps)
+  stop_gparams = dict(subspace_train_params(DISPATCH_STEPS, SUB_STEP),
+                      early_stopping_epsilon=train_eps)
+  compiled_epoch.train_dictionary_scanned(
+      batches[:DISPATCH_STEPS], held_out[None], d0, stop_params)
+  compiled_epoch.train_dictionary_scanned(
+      gbatches[:DISPATCH_STEPS], gheld[None], d0, stop_gparams)
+  ista_fista.run(sx, flag_d, LAM, ITERS, formulation="pallas",
+                 early_stopping_epsilon=solve_eps, stepsize=flag_eta)
+  sub.run(gsx, flag_d, stop_groups, LAM, ITERS, formulation="pallas",
+          early_stopping_epsilon=gsolve_eps, stepsize=flag_eta)
+  torch.cuda.synchronize()
+  stop_launches = {mod: mod.launches for mod in (
+      fused_fista, fused_group_fista, fused_train_step,
+      fused_group_train_step)}
+  print("phase 43 main path with the stop: K1 %d, K4 %d, K2 %d, K6 %d "
+        "launches" % tuple(stop_launches.values()))
+  check(tuple(stop_launches.values()) == (1, 1, DISPATCH_STEPS,
+                                          DISPATCH_STEPS),
+        "the main path with the stop launched %s" % (
+            tuple(stop_launches.values()),))
+  # µs an iteration without and with the stop (eps 0: never stops, so every
+  # iteration does the stop's work), FISTA, fc and 64 x 4 groups
+  stop_cost = {}
+  for b in (TRAIN_BATCH, BATCH):
+    for grouped in (False, True):
+      x = (gsx if grouped else sx)[:b]
+      with torch.no_grad():
+        gram = (flag_d @ flag_d.T).contiguous()
+        corr = (x @ flag_d.T).contiguous()
+      per = {}
+      for eps in (None, 0.0):
+        t = {}
+        for iters in (25, 125):
+          if grouped:
+            fn = lambda: fused_group_fista._launch(
+                gram, corr, None, flag_eta, LAM, iters, GROUP_SIZE, True,
+                False, eps=eps)
+          else:
+            fn = lambda: fused_fista._launch(gram, corr, None, flag_eta, LAM,
+                                             iters, True, 0, eps=eps)
+          fn()
+          t[iters] = time_ms(torch, fn, 20)
+        per[eps is not None] = (t[125] - t[25]) * 10.0
+      route = (fused_group_fista if grouped else fused_fista).last_route
+      stop_cost[(b, grouped)] = (per[False], per[True])
+      print("stop cost, b %d %s (%s route), FISTA: %.3f us an iteration "
+            "without the stop, %.3f with it (eps 0, never stops): %.3f us "
+            "(design target 0.5: %s) [%s]" % (
+                b, "64x4 groups" if grouped else "fc", route, per[False],
+                per[True], per[True] - per[False],
+                "met" if per[True] - per[False] <= 0.5 else "missed", card))
+  # the stopped solve at b 2048 against formulation='gram' (the plain loop,
+  # the card's only route before the stop) with the same eps, whole calls
+  # (G and c included), and the plain fp32 kernels' stand-ins
+  solve_ms = {}
+  for label, fn in (
+      ("K1 pallas", lambda: ista_fista.run(
+          sx, flag_d, LAM, ITERS, formulation="pallas",
+          early_stopping_epsilon=solve_eps, stepsize=flag_eta)),
+      ("K1 gram", lambda: ista_fista.run(
+          sx, flag_d, LAM, ITERS, formulation="gram",
+          early_stopping_epsilon=solve_eps, stepsize=flag_eta)),
+      ("K4 pallas", lambda: sub.run(
+          gsx, flag_d, stop_groups, LAM, ITERS, formulation="pallas",
+          early_stopping_epsilon=gsolve_eps, stepsize=flag_eta)),
+      ("K4 gram", lambda: sub.run(
+          gsx, flag_d, stop_groups, LAM, ITERS, formulation="gram",
+          early_stopping_epsilon=gsolve_eps, stepsize=flag_eta))):
+    fn()
+    solve_ms[label] = time_ms(torch, fn, 10)
+  k1_stop_it = int(fused_fista.last_iters.item())
+  k4_stop_it = int(fused_group_fista.last_iters.item())
+  print("stopped solve, b %d, %d iterations at most: K1 (eps %.4g, %d "
+        "iterations) %.4f ms against formulation='gram' %.4f ms (%.2fx); K4 "
+        "(eps %.4g, %d iterations) %.4f ms against 'gram' %.4f ms (%.2fx) "
+        "[%s]" % (BATCH, ITERS, solve_eps, k1_stop_it, solve_ms["K1 pallas"],
+                  solve_ms["K1 gram"], solve_ms["K1 gram"]
+                  / solve_ms["K1 pallas"], gsolve_eps, k4_stop_it,
+                  solve_ms["K4 pallas"], solve_ms["K4 gram"],
+                  solve_ms["K4 gram"] / solve_ms["K4 pallas"], card))
+  # the scanned fc trainer at the flagship with the stop, against
+  # fc_formulation='gram' with the same eps, in turns
+  stop_steps = 200
+  trainer_s = {"pallas": [], "gram": []}
+  for form in ("pallas", "gram", "gram", "pallas"):
+    params_ = dict(train_params(stop_steps), fc_formulation=form,
+                   early_stopping_epsilon=train_eps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compiled_epoch.train_dictionary_scanned(
+        batches[:stop_steps], held_out[None], d0, params_)
+    torch.cuda.synchronize()
+    trainer_s[form].append(time.perf_counter() - t0)
+  rate = {f: stop_steps * TRAIN_BATCH / (sum(v) / 2)
+          for f, v in trainer_s.items()}
+  print("scanned fc trainer, %d steps of b %d, FISTA %d, eps %.4g: "
+        "fc_formulation='pallas' (K2 with the stop) %.0f patches/s (runs "
+        "%.4f, %.4f s), 'gram' %.0f patches/s (runs %.4f, %.4f s): %.2fx "
+        "[%s]" % (stop_steps, TRAIN_BATCH, TRAIN_ITERS, train_eps,
+                  rate["pallas"], *trainer_s["pallas"], rate["gram"],
+                  *trainer_s["gram"], rate["pallas"] / rate["gram"], card))
+  # the stop entries of the kernels line: each stopped kernel's time at
+  # this run's count against its plain version with the same eps
+  stop_times = {}
+  for name, fn, plain_fn in (
+      ("K1", lambda: fused_fista.fused_fista_solve(
+          sx, flag_d, LAM, ITERS, flag_eta, early_stopping_epsilon=solve_eps),
+       lambda: fused_fista.fused_fista_plain(
+           sx, flag_d, LAM, ITERS, flag_eta,
+           early_stopping_epsilon=solve_eps)),
+      ("K4", lambda: fused_group_fista.fused_group_fista_solve(
+          gsx, flag_d, GROUP_SIZE, LAM, ITERS, flag_eta,
+          early_stopping_epsilon=gsolve_eps),
+       lambda: fused_group_fista.fused_group_fista_plain(
+           gsx, flag_d, GROUP_SIZE, LAM, ITERS, flag_eta,
+           early_stopping_epsilon=gsolve_eps))):
+    fn()
+    plain_fn()
+    stop_times[name] = (time_ms(torch, fn, 10), time_ms(torch, plain_fn, 3))
+  tx = batches[:DISPATCH_STEPS]
+  tgx = gbatches[:DISPATCH_STEPS]
+  tv = lipschitz.top_gram_eigenpair(d0)[1].contiguous()
+  th = torch.zeros(256, device=dev)
+  targs = (LAM, TRAIN_ITERS, TRAIN_STEP)
+  tkw = dict(power_iters=2, early_stopping_epsilon=train_eps)
+  gkw = dict(tkw, group_assignments=stop_groups)
+  for name, fn, plain_fn in (
+      ("K2", lambda: fused_train_step.fused_train_segment(
+          d0, th, tv, tx, *targs, **tkw),
+       lambda: fused_train_step.fused_train_segment_plain(
+           d0, th, tv, tx, *targs, **tkw)),
+      ("K6", lambda: fused_group_train_step.fused_group_train_segment(
+          d0, th, tv, tgx, *targs, **gkw),
+       lambda: fused_group_train_step.fused_group_train_segment_plain(
+           d0, th, tv, tgx, *targs, **gkw))):
+    fn()
+    plain_fn()
+    stop_times[name] = (time_ms(torch, fn, 3) / DISPATCH_STEPS,
+                        time_ms(torch, plain_fn, 1) / DISPATCH_STEPS)
+  k2_stop_it = float(fused_train_step.last_iters.float().mean())
+  k6_stop_it = float(fused_group_train_step.last_iters.float().mean())
+  print("stop builds: K1 %.4f ms (plain %.4f), K4 %.4f ms (plain %.4f) per "
+        "b %d solve; K2 %.4f ms (plain %.4f), K6 %.4f ms (plain %.4f) per "
+        "flagship step (%.1f and %.1f solve iterations a step) [%s]" % (
+            *stop_times["K1"], *stop_times["K4"], BATCH, *stop_times["K2"],
+            *stop_times["K6"], k2_stop_it, k6_stop_it, card))
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -5525,14 +5969,39 @@ def main():
       ("fused_ica_dp_train", "fused_ica_train_step.cu",
        "vtc_tpu/ops/pallas_ica_train.py:394", dp_runs["ica launches"],
        k18_err, seg_times["K18"][0], seg_times["K18"][1], k8_bound),
+      # the stop builds (phase 43): launches on its main path, the error of
+      # its stopped solves (a) or flagship steps (b), the times and bounds
+      # at the iterations this run's data took
+      ("fused_fista (early stop)", "fused_fista.cu",
+       "vtc_tpu/ops/pallas_fista.py:107-130 (the stop test of :220)",
+       stop_launches[fused_fista], stop_err, *stop_times["K1"],
+       solve_bound(BATCH, 256, 256, k1_stop_it)),
+      ("fused_group_fista (early stop)", "fused_group_fista.cu",
+       "vtc_tpu/ops/pallas_group_fista.py:105-130 (the stop test of :238)",
+       stop_launches[fused_group_fista], stop_err, *stop_times["K4"],
+       solve_bound(BATCH, 256, 256, k4_stop_it)),
+      ("fused_train_step (early stop)", "fused_train_step.cu",
+       "vtc_tpu/ops/pallas_train_step.py:486-512 (the stop test of :1589)",
+       stop_launches[fused_train_step], stop_step_err, *stop_times["K2"],
+       train_step_bound(TRAIN_BATCH, 256, 256, k2_stop_it)),
+      ("fused_group_train_step (early stop)", "fused_group_train_step.cu",
+       "vtc_tpu/ops/pallas_train_step.py:665-690 (the stop test of :1402)",
+       stop_launches[fused_group_train_step], stop_step_err,
+       *stop_times["K6"], train_step_bound(TRAIN_BATCH, 256, 256,
+                                           k6_stop_it)),
   ]
   # K10's library time is its own loop with each product one cuDNN call
   # (phase 17); K1's and K4's the 100 iteration products of their timed
-  # solve, each one torch.matmul in fp32 without the prox (phase 42); no
+  # solve, each one torch.matmul in fp32 without the prox (phase 42), and
+  # with the stop those of the iterations the stopped solve took; no
   # PyTorch call computes any other kernel's solve or step, so theirs are
   # null
   library_ms = {"fused_conv_direct": k10_lib, "fused_fista": solve_lib_ms,
-                "fused_group_fista": solve_lib_ms}
+                "fused_group_fista": solve_lib_ms,
+                "fused_fista (early stop)":
+                    solve_lib_ms / ITERS * k1_stop_it,
+                "fused_group_fista (early stop)":
+                    solve_lib_ms / ITERS * k4_stop_it}
   print(json.dumps({"kernels": [{
       "name": name,
       "route": "cuda",

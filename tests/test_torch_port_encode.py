@@ -81,18 +81,18 @@ def test_run_flags_match_jax(problem, formulation):
 
 
 def test_run_pallas_early_stop_refused_off_cpu(problem):
-  """The kernel has no stop test: off the CPU, 'pallas' with an early
-  stop raises instead of running the plain loop."""
+  """Off the CPU and off CUDA, 'pallas' with an early stop raises instead
+  of running the plain loop."""
   x, d = problem
   xt, dt = torch.from_numpy(x[:8]).to("meta"), torch.from_numpy(d).to("meta")
-  with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
+  with pytest.raises(ValueError, match="CPU or a CUDA device"):
     ista_fista.run(xt, dt, LAM, 5, formulation="pallas",
-                   early_stopping_epsilon=1e-2)
+                   early_stopping_epsilon=1e-2, stepsize=0.05)
 
 
 def test_run_pallas_early_stop_refused_on_cuda(problem):
-  """On the card 'pallas' with an early stop raises and launches
-  nothing; the caller picks 'gram', which stops as JAX does."""
+  """On the card 'pallas' with an early stop runs K1's stop test (one
+  launch) and 'gram' the plain loop; both stop as JAX does."""
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA device: the kernel has no CPU mode")
   x, d = problem
@@ -100,12 +100,12 @@ def test_run_pallas_early_stop_refused_on_cuda(problem):
   dev = torch.device("cuda", 0)
   xt, dt = torch.from_numpy(x).to(dev), torch.from_numpy(d).to(dev)
   before = fused_fista.launches
-  with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
-    ista_fista.run(xt, dt, LAM, ITERS, formulation="pallas",
-                   early_stopping_epsilon=1e-2)
-  assert fused_fista.launches == before
   want = np.asarray(jax_ista_fista.run(x, d, LAM, ITERS, formulation="gram",
                                        early_stopping_epsilon=1e-2))
+  got = ista_fista.run(xt, dt, LAM, ITERS, formulation="pallas",
+                       early_stopping_epsilon=1e-2)
+  assert fused_fista.launches == before + 1
+  assert_close(got.cpu(), want, "run pallas early stop on cuda")
   got = ista_fista.run(xt, dt, LAM, ITERS, formulation="gram",
                        early_stopping_epsilon=1e-2)
   assert_close(got.cpu(), want, "run gram early stop on cuda")

@@ -118,9 +118,11 @@ def test_num_iters_is_dynamic(rng):
 def test_wrapper_refuses_what_it_does_not_run(rng):
   x, d, step = _problem(rng)
   xt, dt = torch.from_numpy(x), torch.from_numpy(d)
-  with pytest.raises(NotImplementedError, match="early stop"):
-    fused_fista.fused_fista_solve(xt, dt, 0.1, 5, step,
-                                  early_stopping_epsilon=1e-3)
+  # the early stop runs on CPU tensors too: the plain version's stop test
+  stopped = fused_fista.fused_fista_solve(xt, dt, 0.1, 50, step,
+                                          early_stopping_epsilon=1e-3)
+  assert torch.equal(stopped, fused_fista.fused_fista_plain(
+      xt, dt, 0.1, 50, step, early_stopping_epsilon=1e-3))
   with pytest.raises(ValueError):
     fused_fista.fused_fista_solve(xt, dt, 0.1, 5, step, variant="adam")
   # neither CPU nor CUDA: no silent plain path

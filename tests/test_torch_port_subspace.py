@@ -259,7 +259,8 @@ def test_wrappers_refuse_what_they_do_not_run(rng):
   with pytest.raises(ValueError):
     sub.run(x, d, CONTIGUOUS, 0.1, 5, formulation="xla")
   xt, dt = torch.from_numpy(x).to("meta"), torch.from_numpy(d).to("meta")
-  with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
+  # an early stop off the CPU and off CUDA: no silent plain path
+  with pytest.raises(ValueError, match="CPU or a CUDA device"):
     sub.run(xt, dt, CONTIGUOUS, 0.1, 5, formulation="pallas",
             early_stopping_epsilon=1e-2, stepsize=0.05)
   with pytest.raises(ValueError, match="CPU or a CUDA device"):
@@ -282,18 +283,23 @@ def _cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_early_stop_raises_and_launches_nothing(rng):
+  # the stop now runs on the card: one K4 launch each, the plain codes
   dev = _cuda_device()
   x, d = _problem(rng)
   before = fused_group_fista.launches
-  with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
-    sub.run(torch.from_numpy(x).to(dev), torch.from_numpy(d).to(dev),
-            RAGGED, 0.1, 20, formulation="pallas",
-            early_stopping_epsilon=1e-2)
-  with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
-    fused_group_fista.fused_group_fista_solve(
-        torch.from_numpy(x).to(dev), torch.from_numpy(d).to(dev), 4, 0.1,
-        20, 0.05, early_stopping_epsilon=1e-3)
-  assert fused_group_fista.launches == before
+  got = sub.run(torch.from_numpy(x).to(dev), torch.from_numpy(d).to(dev),
+                RAGGED, 0.1, 20, formulation="pallas",
+                early_stopping_epsilon=1e-2)
+  want = sub.run(x, d, RAGGED, 0.1, 20, formulation="pallas",
+                 early_stopping_epsilon=1e-2)
+  assert_close(got.cpu(), want, "run pallas early stop on cuda")
+  xt, dt = torch.from_numpy(x), torch.from_numpy(d)
+  got = fused_group_fista.fused_group_fista_solve(
+      xt.to(dev), dt.to(dev), 4, 0.1, 20, 0.05, early_stopping_epsilon=1e-3)
+  want = fused_group_fista.fused_group_fista_plain(
+      xt, dt, 4, 0.1, 20, 0.05, early_stopping_epsilon=1e-3)
+  assert_close(got.cpu(), want, "K4 early stop on cuda")
+  assert fused_group_fista.launches == before + 2
 
 
 @pytest.mark.cuda

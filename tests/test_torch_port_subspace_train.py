@@ -400,18 +400,35 @@ def _cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_early_stop_raises(rng):
+  # K6 stops each step's group solve on the card and matches its plain
+  # version; the scanned trainer takes it; a data-parallel run still
+  # raises (item 3a.1)
   dev = _cuda_device()
-  d, h, v, batches = (torch.from_numpy(a).to(dev)
-                      for a in _k6_problem(rng, RAGGED, k=1))
-  with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
-    fgts.fused_group_train_segment(d, h, v, batches, 0.05, 5, 0.1,
-                                   group_assignments=RAGGED,
-                                   early_stopping_epsilon=1e-3)
+  arrays = _k6_problem(rng, RAGGED, k=2)
+  flags = dict(group_assignments=RAGGED, early_stopping_epsilon=1e-3,
+               power_iters=2)
+  before = fgts.launches
+  got = fgts.fused_group_train_segment(
+      *(torch.from_numpy(a).to(dev) for a in arrays), 0.05, 20, 0.1,
+      **flags)
+  assert fgts.launches == before + 2
+  want = fgts.fused_group_train_segment(
+      *(torch.from_numpy(a) for a in arrays), 0.05, 20, 0.1, **flags)
+  for g, w, what in zip(got, want, ("dictionary", "hessian", "eigvec",
+                                    "codes")):
+    assert_close(g.cpu(), w, "K6 early stop " + what, atol=1e-4)
   data, d0 = _data(rng, k=2)
-  with pytest.raises(NotImplementedError, match="item 3"):
+  params = _params(early_stopping_epsilon=1e-3)
+  before = fgts.launches
+  got = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params,
+                                                device="cuda")
+  assert fgts.launches == before + 4
+  want = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params,
+                                                 device="cpu")
+  assert_close(got.cpu(), want, "scanned early stop vs cpu", atol=1e-3)
+  with pytest.raises(NotImplementedError, match="item 3a.1"):
     compiled_epoch.train_dictionary_scanned(
-        data, data[:1], d0, _params(early_stopping_epsilon=1e-3),
-        device="cuda")
+        data, data[:1], d0, dict(params, data_parallel=True), device="cuda")
 
 
 @pytest.mark.cuda

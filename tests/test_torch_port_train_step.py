@@ -178,12 +178,21 @@ def _cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_early_stop_raises(rng):
+  # the stop now runs on the card: K2 with it matches its plain version,
+  # and the step counts agree with the plain loop's
   dev = _cuda_device()
-  d, h, v, batches = (torch.from_numpy(a).to(dev)
-                      for a in _problem(rng, k=1))
-  with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
-    fused_train_step.fused_train_segment(d, h, v, batches, 0.05, 5, 0.1,
-                                         early_stopping_epsilon=1e-3)
+  arrays = _problem(rng, k=2)
+  flags = dict(early_stopping_epsilon=5e-2, power_iters=2)
+  before = fused_train_step.launches
+  got = fused_train_step.fused_train_segment(
+      *(torch.from_numpy(a).to(dev) for a in arrays), 0.05, 60, 0.01,
+      **flags)
+  assert fused_train_step.launches == before + 2
+  assert fused_train_step.last_iters.shape == (2,)
+  want = _port(*arrays, 0.05, 60, 0.01, **flags)
+  for g, w, what in zip(got, want, ("dictionary", "hessian", "eigvec",
+                                    "codes")):
+    assert_close(g.cpu(), w, "K2 early stop " + what, 1e-4)
 
 
 @pytest.mark.cuda

@@ -381,17 +381,32 @@ def test_cuda_scanned_early_stop_raises(rng):
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA device: the fused train kernels have no CPU "
                 "mode")
+  # K2 stops each step's solve on the card and matches the plain run; a
+  # data-parallel run still raises (item 3a.1)
   data, d0 = _data(rng, k=2)
-  with pytest.raises(NotImplementedError, match="item 3"):
+  params = _params(early_stopping_epsilon=1e-3)
+  fused_train_step.launches = 0
+  got = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params,
+                                                device="cuda")
+  assert fused_train_step.launches == 2
+  want = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params,
+                                                 device="cpu")
+  assert_close(got.cpu(), want, "cuda scanned early stop vs cpu", atol=1e-3)
+  with pytest.raises(NotImplementedError, match="item 3a.1"):
     compiled_epoch.train_dictionary_scanned(
-        data, data[:1], d0, _params(early_stopping_epsilon=1e-3),
-        device="cuda")
-  with pytest.raises(NotImplementedError, match="item 3"):
-    sc.build_raw_step_fn(
-        "fully-connected", "fista", "sc_steepest_descent",
-        fc_formulation="pallas", early_stopping_epsilon=1e-3)(
-            torch.from_numpy(d0).cuda(), torch.zeros(24, device="cuda"),
-            torch.from_numpy(data[0]).cuda(), 0.05, 10, 0.05, 1, None)
+        data, data[:1], d0, dict(params, data_parallel=True), device="cuda")
+  # the raw step's K1 solve stops on the card too
+  step = sc.build_raw_step_fn(
+      "fully-connected", "fista", "sc_steepest_descent",
+      fc_formulation="pallas", early_stopping_epsilon=1e-3)
+  args = (torch.from_numpy(d0), torch.zeros(24),
+          torch.from_numpy(data[0]))
+  fused_fista.launches = 0
+  got = step(*(a.cuda() for a in args), 0.05, 10, 0.05, 1, None)
+  assert fused_fista.launches == 1
+  want = step(*args, 0.05, 10, 0.05, 1, None)
+  for g, w, what in zip(got, want, ("dictionary", "hessian", "codes")):
+    assert_close(g.cpu(), w, "raw step early stop " + what, atol=1e-4)
 
 
 @pytest.mark.cuda

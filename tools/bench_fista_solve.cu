@@ -15,6 +15,15 @@
 //   product   the CTA's slice of z @ (-eta G) (cluster_product or
 //             wide_product) from its resident G slice, with a block
 //             barrier between iterations.
+// Then the early stop (the "The early stop" of fista_core.cuh): the same
+// solve on the route the stop takes at that batch (stop_route) with eps 0,
+// which never stops, so it runs every iteration with the stop's work (µs
+// per iteration beside the build without it, codes bitwise equal), and
+// the stop's exchange alone on the cluster and wide grids:
+//   stop exchange  per iteration one warp of every CTA posts its tagged
+//                  share and gathers all the launch's (stop_gather), then
+//                  the block synchronises: what the stop warp does while
+//                  the compute warps form the product.
 // Built and run by tools/bench_fista_solve.py.
 #include <cmath>
 #include <cstdio>
@@ -170,6 +179,23 @@ __global__ void __launch_bounds__(kWideMaxThreads, 1)
   if (threadIdx.x == 0) out[blockIdx.x] = zbuf[(num_iters & 1) * plane];
 }
 
+// The stop's exchange alone: per iteration warp 0 of every CTA posts a
+// tagged share and gathers every CTA's, then the block synchronises.
+__global__ void stop_exchange_kernel(int num_iters, SolveStop stop,
+                                     float* out) {
+  float acc = 0.0f;
+  for (int it = 0; it < num_iters; ++it) {
+    if (threadIdx.x < 32) {
+      unsigned long long* slots = stop.words + (it & 1) * gridDim.x;
+      if (threadIdx.x == 0)
+        stop_post(slots + blockIdx.x, stop.tag + it, 1.0f + acc);
+      acc = stop_gather(slots, gridDim.x, stop.tag + it);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = acc;
+}
+
 // Launch a part on the wide kernel's grid, layout and shared memory.
 template <typename... Params, typename... Args>
 cudaError_t launch_on_wide(void (*kernel)(Params...), int b, int sk,
@@ -280,6 +306,17 @@ int main() {
   cudaMalloc(&out_a, static_cast<size_t>(bmax) * s * sizeof(float));
   cudaMalloc(&out_b, static_cast<size_t>(bmax) * s * sizeof(float));
   cudaMalloc(&sink, static_cast<size_t>(bmax) * kCluster * sizeof(float));
+  // the stop's words (tags rise from call to call), count and the classic
+  // route's global state
+  unsigned long long* stop_words_d;
+  int* iters_d;
+  float* state_d;
+  unsigned tag = 1;
+  cudaMalloc(&stop_words_d, 4096 * sizeof(unsigned long long));
+  cudaMemset(stop_words_d, 0, 4096 * sizeof(unsigned long long));
+  cudaMalloc(&iters_d, sizeof(int));
+  cudaMalloc(&state_d, static_cast<size_t>((bmax + kRows - 1) / kRows) * 4 *
+                           kRows * sk * sizeof(float));
   std::vector<float> ha(static_cast<size_t>(bmax) * s),
       hb(static_cast<size_t>(bmax) * s);
   const int slots = cluster_slots();
@@ -385,6 +422,91 @@ int main() {
                                     s, sk, rows, sink);
         };
         parts[part][which] = time_ms(run, reps);
+      }
+    }
+    // the early stop: the stop route at eps 0 (never stops) against the
+    // same route without it, and the exchange alone on the route's grid
+    {
+      int64_t words = 0;
+      const int sroute = device_stop_route(b, sk, 1, &words);
+      const char* sname = sroute == kRouteWide      ? "fista_wide_kernel"
+                          : sroute == kRouteCluster ? "fista_cluster_kernel"
+                                                    : "fista_kernel";
+      for (int group : {0, 4}) {
+        // in turns: without, with, with, without; each the mean of its two
+        float sms[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+        for (int turn = 0; turn < 4; ++turn) {
+          const int with = turn == 1 || turn == 2;
+          float* out = with ? out_b : out_a;
+          for (int which = 0; which < 2; ++which) {
+            const int iters = which ? 125 : 25;
+            auto run = [&]() {
+              SolveStop stop{0.0f, 1.0f / (static_cast<float>(b) * s),
+                             stop_words_d, iters_d, tag};
+              tag += iters + 1;
+              const SolveStop* sp = with ? &stop : nullptr;
+              return group ? launch_solve<true, kSoft, true>(
+                                 gram_d, corr_d, nullptr, eta_d, lam, iters,
+                                 b, s, sk, sc, group, gn, state_d, out,
+                                 sroute, nullptr, 0, sp)
+                           : launch_solve<true, kSoft, false>(
+                                 gram_d, corr_d, nullptr, eta_d, lam, iters,
+                                 b, s, sk, sc, 1, gn, state_d, out, sroute,
+                                 nullptr, 0, sp);
+            };
+            sms[with][which] += 0.5f * time_ms(run, reps);
+            const cudaError_t err = cudaGetLastError();
+            if (err != cudaSuccess) {
+              std::printf("CUDA error: %s\n", cudaGetErrorString(err));
+              return 1;
+            }
+          }
+        }
+        cudaMemcpy(ha.data(), out_a, static_cast<size_t>(b) * s * 4,
+                   cudaMemcpyDeviceToHost);
+        cudaMemcpy(hb.data(), out_b, static_cast<size_t>(b) * s * 4,
+                   cudaMemcpyDeviceToHost);
+        int differ = 0;
+        for (size_t i = 0; i < static_cast<size_t>(b) * s; ++i)
+          differ += std::memcmp(&ha[i], &hb[i], 4) != 0;
+        ok = ok && differ == 0;
+        const float off = (sms[0][1] - sms[0][0]) * 10.0f;
+        const float on = (sms[1][1] - sms[1][0]) * 10.0f;
+        std::printf(
+            "b %4d %-11s early stop on %s (%lld words): without %.3f us/it, "
+            "with (eps 0, never stops) %.3f us/it, the stop %.3f us/it "
+            "(in turns, means of two; ms at 25 / 125 it: %.4f / %.4f, "
+            "%.4f / %.4f); codes %s\n",
+            b, group ? "group M 4" : "elementwise", sname,
+            static_cast<long long>(words), off, on, on - off, sms[0][0],
+            sms[0][1], sms[1][0], sms[1][1],
+            differ ? "DIFFER" : "bitwise equal");
+      }
+      if (sroute != kRouteClassic) {
+        const int cluster = wide ? wide_cluster(sk, 1) : kCluster;
+        const int rows = wide ? wide_device_rows(b, sk, 1)
+                              : cluster_rows(b, sk, 1, slots);
+        const unsigned grid = (b + rows - 1) / rows * cluster;
+        float xs[2];
+        for (int which = 0; which < 2; ++which) {
+          const int iters = which ? 125 : 25;
+          auto run = [&]() {
+            SolveStop stop{0.0f, 1.0f, stop_words_d, iters_d, tag};
+            tag += iters + 1;
+            return launch_clusters_as(true, stop_exchange_kernel, cluster,
+                                      grid, 128, 0, nullptr, iters, stop,
+                                      sink);
+          };
+          xs[which] = time_ms(run, reps);
+        }
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) {
+          std::printf("CUDA error: %s\n", cudaGetErrorString(err));
+          return 1;
+        }
+        std::printf("b %4d the stop's exchange alone on %u CTAs: %.3f us/it "
+                    "(ms at 25 / 125 it: %.4f / %.4f)\n",
+                    b, grid, (xs[1] - xs[0]) * 10.0f, xs[0], xs[1]);
       }
     }
     const cudaError_t err = cudaGetLastError();

@@ -9,13 +9,14 @@ ista_fista.py:34-152), with the same arguments and formulations:
 * 'direct': the reference's literal two-product iteration;
 * 'pallas': keeps its JAX spelling so callers' parameters carry over, and
   selects the hand-written CUDA kernel (``ops/fused_fista``; the plain
-  PyTorch version for CPU tensors).  The kernel has no batch-global stop
-  test yet: on a CUDA device 'pallas' with ``early_stopping_epsilon``
-  raises NotImplementedError (ROADMAP.md §1 item 3), and the caller picks
-  'gram'.  CPU tensors run the plain version, stop test included.
+  PyTorch version for CPU tensors).  ``early_stopping_epsilon`` runs the
+  batch-global stop test inside the kernel on every batch size, where
+  vtc_tpu's kernel takes it only when the batch fits one VMEM tile
+  (``early_stop_tile_fits``) and runs the XLA loop otherwise: the same
+  rule, so the same codes.
 
 Only ``mxu_precision='highest'`` exists: the reduced-precision tiers
-wait (ROADMAP.md §1).
+wait (ROADMAP.md §1 item 3a.2).
 """
 from typing import Optional
 
@@ -89,8 +90,8 @@ def run(images, dictionary, sparsity_weight, num_iters, variant="fista",
     nonnegative_only, hard_threshold: threshold variants.
     stepsize: optional precomputed 1/L; skips the eigenvalue solve.
     lipschitz_method: 'eigvalsh' (exact) or 'power'.
-    formulation: 'gram' | 'direct' | 'pallas' (the CUDA kernel; with
-      ``early_stopping_epsilon`` it runs on CPU tensors only).
+    formulation: 'gram' | 'direct' | 'pallas' (the CUDA kernel K1, its
+      stop test on the device; CPU tensors take its plain version).
     mxu_precision: 'highest' only.
 
   Returns:
@@ -103,7 +104,7 @@ def run(images, dictionary, sparsity_weight, num_iters, variant="fista",
   if mxu_precision != "highest":
     raise NotImplementedError(
         "mxu_precision=%r: the reduced-precision tiers (tf32x3, the "
-        "card's bf16x3) wait, ROADMAP.md §1 item 3" % (mxu_precision,))
+        "card's bf16x3) wait, ROADMAP.md §1 item 3a.2" % (mxu_precision,))
   dictionary = torch.as_tensor(dictionary, dtype=torch.float32)
   device = dictionary.device
   images = torch.as_tensor(images, dtype=torch.float32, device=device)
@@ -112,21 +113,15 @@ def run(images, dictionary, sparsity_weight, num_iters, variant="fista",
         initial_codes, dtype=torch.float32, device=device).contiguous()
   if early_stopping_epsilon is not None:
     early_stopping_epsilon = float(early_stopping_epsilon)
-    if formulation == "pallas" and device.type != "cpu":
-      raise NotImplementedError(
-          "formulation='pallas' with early_stopping_epsilon: the CUDA "
-          "kernel has no batch-global stop test yet, ROADMAP.md §1 item 3; "
-          "use formulation='gram'")
   if stepsize is None:
     stepsize = lipschitz_ops.fista_stepsize(dictionary, lipschitz_method)
   flags = dict(initial_codes=initial_codes, variant=variant,
                nonneg=bool(nonnegative_only), hard=bool(hard_threshold))
-  if formulation == "pallas" and early_stopping_epsilon is None:
+  if formulation == "pallas":
     return fused_fista.fused_fista_solve(
         images, dictionary, float(sparsity_weight), num_iters, stepsize,
-        **flags)
+        early_stopping_epsilon=early_stopping_epsilon, **flags)
   if formulation != "direct":
-    # 'gram', or 'pallas' stopping early on CPU tensors: the plain version
     return fused_fista.fused_fista_plain(
         images, dictionary, float(sparsity_weight), num_iters, stepsize,
         early_stopping_epsilon=early_stopping_epsilon, **flags)

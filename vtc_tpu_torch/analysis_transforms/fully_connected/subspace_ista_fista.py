@@ -18,12 +18,13 @@ norm; the duplicated memberships are summed back into (b, s) codes.
   the kernel's plain version), 'direct' (two products per iteration) and
   'pallas', which keeps its JAX spelling and selects the hand-written
   CUDA kernel K4 (``ops/fused_group_fista``; the plain version for CPU
-  tensors).  On a CUDA device 'pallas' with ``early_stopping_epsilon``
-  raises NotImplementedError (ROADMAP.md §1 item 3); CPU tensors run the
-  plain version, stop test included.
+  tensors).  With ``early_stopping_epsilon`` K4 runs the batch-global
+  stop test on the device at every batch size, where vtc_tpu's kernel
+  takes it only when the batch fits one VMEM tile and runs the XLA loop
+  otherwise: the same rule, so the same codes.
 
 Only ``mxu_precision='highest'`` exists: the tiers wait (ROADMAP.md §1
-item 3).
+item 3a.2).
 """
 import functools
 from typing import Optional
@@ -193,7 +194,7 @@ def run(images, dictionary, group_assignments, sparsity_weight, num_iters,
   if mxu_precision != "highest":
     raise NotImplementedError(
         "mxu_precision=%r: the reduced-precision tiers wait, ROADMAP.md §1 "
-        "item 3" % (mxu_precision,))
+        "item 3a.2" % (mxu_precision,))
   dictionary = torch.as_tensor(dictionary, dtype=torch.float32)
   device = dictionary.device
   images = torch.as_tensor(images, dtype=torch.float32, device=device)
@@ -204,11 +205,6 @@ def run(images, dictionary, group_assignments, sparsity_weight, num_iters,
                                           valid_mask)
   if early_stopping_epsilon is not None:
     early_stopping_epsilon = float(early_stopping_epsilon)
-    if formulation == "pallas" and device.type != "cpu":
-      raise NotImplementedError(
-          "formulation='pallas' with early_stopping_epsilon: the CUDA "
-          "kernel has no batch-global stop test yet, ROADMAP.md §1 item 3; "
-          "use formulation='gram'")
   if stepsize is None:
     # the top eigenvalue of the *grouped* Gram (vtc_tpu :169-172)
     stepsize = lipschitz_ops.fista_stepsize(grouped_dict, lipschitz_method)
@@ -220,13 +216,14 @@ def run(images, dictionary, group_assignments, sparsity_weight, num_iters,
     init_grouped = pack_codes(
         torch.as_tensor(initial_codes, dtype=torch.float32, device=device),
         gather_inds, valid_mask)
-  if formulation == "pallas" and early_stopping_epsilon is None:
+  if formulation == "pallas":
     flat = fused_group_fista.fused_group_fista_solve(
         images, grouped_dict, m, float(sparsity_weight), int(num_iters),
         stepsize, initial_grouped=(
             None if initial_codes is None
             else init_grouped.reshape(b, g * m).contiguous()),
-        variant=variant, hard=bool(hard_threshold))
+        variant=variant, hard=bool(hard_threshold),
+        early_stopping_epsilon=early_stopping_epsilon)
     if not ret_summed_gduplicates:
       return flat, grouped_dict
     return unpack_codes_summed(flat, gather_inds, valid_mask, code_size,

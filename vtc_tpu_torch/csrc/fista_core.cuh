@@ -16,9 +16,9 @@
 // the group prox (K4, the TPU's K5): the s codes are s / M groups of M
 // contiguous slots, and each group is scaled by max(1 - t / |g|, 0)
 // (norm 0 -> 1, vtc_tpu thresholds.group_shrink) or, hard, zeroed when
-// |g| < t.  No early stop (the batch-global stop test needs a reduction
-// across blocks every iteration) and no reduced-precision tier: products
-// are IEEE fp32 FMAs on the CUDA cores.
+// |g| < t.  No reduced-precision tier: products are IEEE fp32 FMAs on the
+// CUDA cores.  The batch-global early stop is a compile-time flag (STOP)
+// of each kernel; its design is in "The early stop" below.
 //
 // Three kernels compute that contract, and launch_solve picks one by the
 // shape (solve_route below); all give the same bits.  Rows are
@@ -113,6 +113,45 @@
 // Ragged edges are masked in all three: G is zero-padded to (sk, sc)
 // (the cluster and wide kernels pad their slices in the load), and the
 // padded codes stay exactly +0.0f.
+//
+// The early stop (STOP, vtc_tpu's pallas_fista.py:107-130).  After
+// iteration k (from 0), avg = (sum |codes_k - codes_{k-1}| * inv_count) /
+// eta, with codes_{-1} the start and eta read from eta_ptr on the device;
+// the solve ends after iteration k when avg < eps and k > 0, and returns
+// codes_k.  The sum is batch-global, so every CTA must see every CTA's
+// share; it is taken in a fixed order, so every CTA reaches the same
+// decision from the same bits and two runs take the same iterations.  No
+// float atomics, no host read inside the loop.  With STOP off a kernel is
+// the code above, bitwise and no slower.
+//  * The cluster and wide kernels, where their grid is one resident wave
+//    (stop_route): each CTA gets one more warp, the stop warp, which
+//    computes nothing of the iteration.  In iteration k the compute
+//    threads add their |code - old| (before old is overwritten) in a
+//    fixed order, leave the sum in shared memory and signal a named
+//    barrier without waiting (bar.arrive).  The stop warp arrives at the
+//    cluster barrier at once, and while the compute threads push,
+//    synchronise and form iteration k + 1's product, it sums theirs into
+//    the CTA's share, posts it to the CTA's slot of a device array as one
+//    64-bit word tagged with k, waits until every slot of the launch
+//    carries the tag and sums the slots in a fixed order (stop_gather);
+//    it writes the decision to a shared word, then waits at the barrier.
+//    After that product the compute threads read the word: on a stop the
+//    CTA writes old (codes_k) and leaves.  The decision lags one product,
+//    which a stop computes in vain, and the exchange runs beside it.  Two
+//    sets of slots alternate with the parity of k, and a slot is
+//    rewritten only after every CTA has read it (a CTA posts k + 2 only
+//    after all posted k + 1, which each did after reading k).  A poll
+//    that spins past kStopSpinLimit traps.  Residency is checked before
+//    the launch from the slots the routes already read, and the launch is
+//    cooperative, so the runtime refuses a grid that is not co-resident.
+//  * Every other shape (the classic route; a cluster or wide grid past one
+//    wave; no room for the stop warp; M outside {1, 2, 4}): fista_kernel
+//    with its state in global memory, launched once per iteration from
+//    the C entry.  Each launch posts its blocks' shares, the last block to
+//    arrive (an atomic ticket) sums them in block order, writes the stop
+//    flag, t_{k+1} and the count; the launches after a stop read the flag
+//    and exit at once, and one copy kernel writes old out.  The host
+//    enqueues all of it and never waits.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -139,6 +178,11 @@ constexpr int kWideMinThreads = 128;   // four warps: one per SM partition
 constexpr int kWideMaxCluster = 8;     // the portable cluster size
 // sk (a multiple of kChunk) splits into kCluster slices of whole float4s
 static_assert(kChunk % (4 * kCluster) == 0, "cluster slices of 4 columns");
+constexpr unsigned kStopSpinLimit = 1u << 26;  // polls of a slot, then trap
+constexpr int kStopLaneWords = 8;  // slots per lane in stop_gather, so a
+                                   // stop launch has at most 256 CTAs
+constexpr int kStopCtlWords = 3;  // the classic route's words before its
+                                  // blocks' shares: ticket, flag, t
 
 enum Route {
   kRouteAuto = 0,
@@ -256,10 +300,12 @@ __device__ __forceinline__ float next_t(float t_k, float* beta) {
 // The group prox over the block's rows.  zn holds the pre-prox values of
 // every slot; each (row, group) pair takes its group's norm, scales the
 // slots and applies the momentum in place, and records the codes in old.
+// Adds |code - old| of its slots to *delta, in order, when delta is set.
 template <bool FISTA, bool HARD>
 __device__ __forceinline__ void group_prox(float* zn, float* old, int s,
                                            int sk, int group_size,
-                                           float t, float beta) {
+                                           float t, float beta,
+                                           float* delta = nullptr) {
   const int groups = s / group_size;
   for (int p = threadIdx.x; p < kRows * groups; p += kThreads) {
     const int r = p / groups;
@@ -270,22 +316,210 @@ __device__ __forceinline__ void group_prox(float* zn, float* old, int s,
     const float scale = group_scale<HARD>(sq, t);
     for (int m = 0; m < group_size; ++m) {
       const float code = __fmul_rn(zn[at + m], scale);
+      if (delta != nullptr)
+        *delta = __fadd_rn(*delta, fabsf(__fsub_rn(code, old[at + m])));
       zn[at + m] = momentum<FISTA>(code, old[at + m], beta);
       old[at + m] = code;
     }
   }
 }
 
+// The early stop's arguments (see "The early stop" above).  words: the
+// zeroed device array of stop_words() 64-bit words, reused from solve to
+// solve with rising tags; iters receives the iterations the solve ran;
+// the solve's slot for iteration k carries the tag tag + k (tag >= 1).
+struct SolveStop {
+  float eps;
+  float inv_count;  // 1 / (b s), or 1 / (b G M) for groups
+  unsigned long long* words;
+  int* iters;
+  unsigned tag;
+};
+
+// A share v posted with its tag as one 64-bit word (so a reader sees both
+// or neither), and a relaxed read of one, both at the device's scope.
+__device__ __forceinline__ void stop_post(unsigned long long* p, unsigned tag,
+                                          float v) {
+  const unsigned long long word =
+      (static_cast<unsigned long long>(tag) << 32) | __float_as_uint(v);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(word)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long stop_load(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The sum of v over the 32 lanes of a warp by an xor butterfly: the same
+// bits in every lane (each level adds the same two values), and from run
+// to run.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, m));
+  return v;
+}
+
+// In one whole warp: wait until each of the count (<= 32 kStopLaneWords)
+// words at p carries tag, then sum their shares in a fixed order (lane i
+// adds the words i, i + 32, ... in turn, then warp_sum).  Every warp that
+// calls it on the same words gets the same bits.  Each round of polls
+// puts every read of the words not yet posted in flight at once, so a
+// round costs one trip to L2 however many words a lane waits for; a slot
+// still unposted after kStopSpinLimit rounds traps.
+__device__ __forceinline__ float stop_gather(const unsigned long long* p,
+                                             int count, unsigned tag) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long posted = static_cast<unsigned long long>(tag)
+                                    << 32;
+  unsigned long long w[kStopLaneWords];
+#pragma unroll
+  for (int j = 0; j < kStopLaneWords; ++j)
+    w[j] = lane + 32 * j < count ? stop_load(p + lane + 32 * j) : posted;
+  for (unsigned spins = 0;; ++spins) {
+    bool ready = true;
+#pragma unroll
+    for (int j = 0; j < kStopLaneWords; ++j)
+      ready = ready && static_cast<unsigned>(w[j] >> 32) == tag;
+    if (ready) break;
+    if (spins > kStopSpinLimit) __trap();
+#pragma unroll
+    for (int j = 0; j < kStopLaneWords; ++j)
+      if (static_cast<unsigned>(w[j] >> 32) != tag)
+        w[j] = stop_load(p + lane + 32 * j);
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kStopLaneWords; ++j)
+    acc = __fadd_rn(acc, __uint_as_float(static_cast<unsigned>(w[j])));
+  return warp_sum(acc);
+}
+
+// The stop test on a batch-global sum of |codes_k - codes_{k-1}|, as
+// vtc_tpu associates it: (sum * inv_count) / eta < eps (k > 0 is the
+// caller's).
+__device__ __forceinline__ bool stop_test(float sum, float eta,
+                                          const SolveStop& stop) {
+  return __fdiv_rn(__fmul_rn(sum, stop.inv_count), eta) < stop.eps;
+}
+
+// The cluster and wide kernels' stop builds keep, past their layouts in
+// dynamic shared memory, each thread's sum of |code - old| by the parity
+// of the iteration (nt = whole warps of compute threads), then the
+// decision word: (it << 1) | stop, the stop warp's verdict on iteration
+// it - 1, read in iteration it.  stop_smem is its size in bytes.
+__host__ __device__ inline int stop_smem(int threads) {
+  return (2 * ((threads + 31) / 32 * 32) + 4) * static_cast<int>(
+                                                   sizeof(float));
+}
+
+// The named block barrier on which the compute threads hand their sums to
+// the stop warp (bar.arrive: they do not wait), and the cluster barrier in
+// two halves, so the stop warp arrives before its gather and waits after.
+constexpr int kStopBarrier = 1;
+
+__device__ __forceinline__ void named_arrive(int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(kStopBarrier), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(kStopBarrier), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+
+// Whether iteration it of num_iters hands its sums to the stop warp: from
+// k = 1 (k = 0 never stops) to the last but one (the last ends the loop).
+__device__ __forceinline__ bool stop_turn(int it, int num_iters) {
+  return it >= 1 && it + 1 < num_iters;
+}
+
+// The stop warp's whole loop in a cluster or wide kernel, in step with the
+// compute threads' iterations (one cluster barrier each).  In an iteration
+// that hands its sums over, it waits for them (named_sync) and arrives at
+// the cluster barrier at once, so the compute threads' barrier waits on
+// nothing of the stop; then, while they push, synchronise and form the
+// next product, it forms the CTA's share (the threads' sums in thread
+// order, lane by lane, then warp_sum), posts it with its tag, gathers
+// every CTA's share (stop_gather) and writes the decision for the next
+// iteration, and waits at the barrier.  (The sums alternate by parity:
+// the compute threads write the next iteration's while it reads these.)
+// It leaves where the compute threads break: after a stop.
+__device__ __forceinline__ void stop_warp_loop(int num_iters,
+                                               const float* deltas, int nt,
+                                               float eta,
+                                               const SolveStop& stop,
+                                               volatile int* word) {
+  const int lane = threadIdx.x & 31;
+  bool stopping = false;
+  for (int it = 0; it < num_iters && !stopping; ++it) {
+    if (!stop_turn(it, num_iters)) {
+      cluster_arrive();
+      cluster_wait();
+      continue;
+    }
+    named_sync(nt + 32);
+    cluster_arrive();
+    const float* dk = deltas + (it & 1) * nt;
+    float v = 0.0f;
+    for (int i = lane; i < nt; i += 32) v = __fadd_rn(v, dk[i]);
+    const float share = warp_sum(v);
+    unsigned long long* slots = stop.words + (it & 1) * gridDim.x;
+    if (lane == 0) stop_post(slots + blockIdx.x, stop.tag + it, share);
+    stopping = stop_test(stop_gather(slots, gridDim.x, stop.tag + it), eta,
+                         stop);
+    if (lane == 0) *word = ((it + 1) << 1) | (stopping ? 1 : 0);
+    cluster_wait();
+  }
+}
+
+// The stop warp's decision on iteration it - 1, waited for in shared
+// memory: true on a stop.  (A wait past kStopSpinLimit polls traps.)
+__device__ __forceinline__ bool stop_decided(const volatile int* word,
+                                             int it) {
+  int w = *word;
+  unsigned spins = 0;
+  while ((w >> 1) != it) {
+    if (++spins > kStopSpinLimit) __trap();
+    w = *word;
+  }
+  return (w & 1) != 0;
+}
+
 // GROUP: the prox is the group prox of group_size slots (MODE kSoft or
-// kHard); otherwise the elementwise shrink<MODE>.
-template <bool FISTA, int MODE, bool GROUP>
+// kHard); otherwise the elementwise shrink<MODE>.  STOP: one iteration,
+// k0, of a solve whose state lives in state_global from launch to launch
+// (k0 = 0 loads it); a launch after a stop exits at once, and the last
+// block of each launch takes the stop test (see "The early stop"); out is
+// written by stop_writeout_kernel after the last launch.
+template <bool FISTA, int MODE, bool GROUP, bool STOP = false>
 __global__ void __launch_bounds__(kThreads)
     fista_kernel(const float* __restrict__ gn, const float* __restrict__ corr,
                  const float* __restrict__ init,
                  const float* __restrict__ eta_ptr, float lam, int num_iters,
                  int b, int s, int sk, int sc, int group_size,
-                 float* state_global, float* __restrict__ out) {
+                 float* state_global, float* __restrict__ out,
+                 SolveStop stop = {}, int k0 = 0) {
   extern __shared__ __align__(16) float smem[];
+  unsigned* const ticket = reinterpret_cast<unsigned*>(stop.words);
+  volatile int* const stop_flag = reinterpret_cast<int*>(stop.words + 1);
+  float* const t_saved = reinterpret_cast<float*>(stop.words + 2);
+  float* const shares = reinterpret_cast<float*>(stop.words + kStopCtlWords);
+  if (STOP && k0 > 0 && *stop_flag != 0) return;
   const int tid = threadIdx.x;
   const int tx = tid & 63;  // owns columns tx*4 .. tx*4+3 of a column block
   const int ty = tid >> 6;  // owns rows ty*4 .. ty*4+3 of the block
@@ -305,7 +539,7 @@ __global__ void __launch_bounds__(kThreads)
   const float eta = *eta_ptr;
   const float lam_eta = lam * eta;
 
-  for (int idx = tid; idx < plane; idx += kThreads) {
+  for (int idx = tid; idx < plane && (!STOP || k0 == 0); idx += kThreads) {
     const int r = idx / sk;
     const int j = idx - r * sk;
     const int64_t row = row0 + r;
@@ -322,8 +556,9 @@ __global__ void __launch_bounds__(kThreads)
   const int nk = sk / kChunk;
   const int ncb = sc / kColBlock;
   const int nq = nk * ncb;  // slices per iteration
-  float t_k = 1.0f;
-  int cur = 0;
+  float t_k = STOP && k0 > 0 ? *t_saved : 1.0f;
+  int cur = STOP ? k0 & 1 : 0;
+  float delta = 0.0f;  // STOP: this thread's sum of |code - old|
   unsigned slice = 0;  // running slice counter; its parity picks the buffer
   if (num_iters > 0) load_slice(gn, 0, nk, sc, gbuf);
 
@@ -391,6 +626,8 @@ __global__ void __launch_bounds__(kThreads)
               zn[idx] = x;  // pre-prox; the group pass below finishes it
             } else {
               const float code = shrink<MODE>(x, lam_eta);
+              if (STOP)
+                delta = __fadd_rn(delta, fabsf(__fsub_rn(code, old[idx])));
               zn[idx] = momentum<FISTA>(code, old[idx], beta);
               old[idx] = code;
             }
@@ -401,19 +638,73 @@ __global__ void __launch_bounds__(kThreads)
     if (GROUP) {
       __syncthreads();  // every slot of every group is in zn
       group_prox<FISTA, MODE == kHard>(zn, old, s, sk, group_size, lam_eta,
-                                       beta);
+                                       beta, STOP ? &delta : nullptr);
     }
     __syncthreads();  // zn complete before the next iteration reads it
     cur ^= 1;
     t_k = t_next;
   }
 
-  for (int idx = tid; idx < plane; idx += kThreads) {
-    const int r = idx / sk;
-    const int j = idx - r * sk;
-    const int64_t row = row0 + r;
-    if (row < b && j < s) out[row * s + j] = old[idx];
+  if constexpr (STOP) {
+    // the block's share (its warps' sums in warp order), then the last
+    // block to arrive sums the shares in block order and decides
+    __shared__ float warp_shares[kThreads / 32];
+    __shared__ bool last;
+    delta = warp_sum(delta);
+    if ((tid & 31) == 0) warp_shares[tid >> 5] = delta;
+    __syncthreads();
+    if (tid == 0) {
+      float share = 0.0f;
+      for (int w = 0; w < kThreads / 32; ++w)
+        share = __fadd_rn(share, warp_shares[w]);
+      shares[blockIdx.x] = share;
+      __threadfence();
+      last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (last && tid < 32) {
+      __threadfence();
+      float sum = 0.0f;
+      for (int i = tid; i < static_cast<int>(gridDim.x); i += 32)
+        sum = __fadd_rn(sum, reinterpret_cast<volatile float*>(shares)[i]);
+      sum = warp_sum(sum);
+      if (tid == 0) {
+        *stop_flag = k0 > 0 && stop_test(sum, eta, stop) ? 1 : 0;
+        *t_saved = t_k;
+        *stop.iters = k0 + 1;
+        *ticket = 0u;
+      }
+    }
+  } else {
+    for (int idx = tid; idx < plane; idx += kThreads) {
+      const int r = idx / sk;
+      const int j = idx - r * sk;
+      const int64_t row = row0 + r;
+      if (row < b && j < s) out[row * s + j] = old[idx];
+    }
   }
+}
+
+// The classic stop route's output: old of every live entry of the blocks'
+// global state (ceil(b / kRows), 4, kRows, sk) into out (b, s).
+__global__ void stop_writeout_kernel(const float* __restrict__ state, int b,
+                                     int s, int sk, float* __restrict__ out) {
+  const int64_t total = static_cast<int64_t>(b) * s;
+  const int64_t plane = static_cast<int64_t>(kRows) * sk;
+  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                     threadIdx.x;
+       idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t row = idx / s;
+    const int64_t blk = row / kRows;
+    out[idx] = state[blk * 4 * plane + 2 * plane + (row - blk * kRows) * sk +
+                     (idx - row * s)];
+  }
+}
+
+// Threads of a STOP launch of a kernel with `threads` compute threads:
+// the compute warps, then the stop warp.
+__host__ __device__ inline int stop_threads(int threads) {
+  return (threads + 31) / 32 * 32 + 32;
 }
 
 // The cluster kernel's layout for a padded depth sk and rows batch rows
@@ -736,15 +1027,18 @@ __device__ __forceinline__ void register_group_prox(const float (&x)[4],
 // staged slice (M divides w); otherwise the elementwise shrink<MODE>.
 // One cluster of kCluster CTAs per rows batch rows; the CTA of cluster
 // rank q owns the columns [q w, (q+1) w), its thread (ty, tx) the rows
-// 2 ty and 2 ty + 1 and the columns q w + 4 tx .. +3.
-template <bool FISTA, int MODE, bool GROUP>
+// 2 ty and 2 ty + 1 and the columns q w + 4 tx .. +3.  STOP: the early
+// stop, with the stop warp after the compute warps (stop_threads; M in
+// {1, 2, 4} only, and every CTA of the launch resident).
+template <bool FISTA, int MODE, bool GROUP, bool STOP = false>
 __global__ void __launch_bounds__(kClusterMaxThreads)
     fista_cluster_kernel(const float* __restrict__ gram,
                          const float* __restrict__ corr,
                          const float* __restrict__ init,
                          const float* __restrict__ eta_ptr, float lam,
                          int num_iters, int b, int s, int sk, int group_size,
-                         int rows, float* __restrict__ out) {
+                         int rows, float* __restrict__ out,
+                         SolveStop stop = {}) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -756,11 +1050,20 @@ __global__ void __launch_bounds__(kClusterMaxThreads)
   const int64_t row0 = static_cast<int64_t>(blockIdx.x / kCluster) * rows;
   const int j0 = rank * w + tx * 4;  // the thread's first column
   const int plane = rows * ldz;      // one z buffer
+  // STOP: the threads past lay.threads hold no rows; the last warp is the
+  // stop warp
+  const bool compute = !STOP || tid < lay.threads;
+  const bool stop_warp = STOP && tid >= (lay.threads + 31) / 32 * 32;
 
   float* gs = smem;                  // (sk, w): -eta G, this CTA's columns
   float* zbuf = gs + sk * w;         // two (rows, ldz) z buffers
   float* pre = zbuf + 2 * plane;     // shared pass: (rows, w) pre-prox
   float* scl = pre + rows * w;       // shared pass: (rows, w / M) scales
+  // STOP: past the layout, the threads' sums by parity and the decision
+  // (stop_smem)
+  const int nt = (lay.threads + 31) / 32 * 32;
+  float* deltas = smem + lay.smem / sizeof(float);
+  volatile int* stop_word = reinterpret_cast<int*>(deltas + 2 * nt);
 
   const float eta = *eta_ptr;
   const float lam_eta = lam * eta;
@@ -773,106 +1076,129 @@ __global__ void __launch_bounds__(kClusterMaxThreads)
     const int64_t row = row0 + 2 * ty + r;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const bool live = row < b && j0 + c < s;
+      const bool live = compute && row < b && j0 + c < s;
       const int64_t at = row * s + j0 + c;
       zown[r][c] = (live && init != nullptr) ? init[at] : 0.0f;
       old[r][c] = zown[r][c];
       ec[r][c] = live ? eta * corr[at] : 0.0f;
     }
   }
+  if (STOP && tid == 0) *stop_word = 0;  // no decision yet
   unsigned bases[kCluster];  // zbuf in every CTA of the cluster
   cluster_bases(zbuf, bases);
   // every CTA of the cluster has started (and its z rows are loaded)
   // before any writes into another's shared memory
   cluster.sync();
+  if (STOP && stop_warp) {
+    stop_warp_loop(num_iters, deltas, nt, eta, stop, stop_word);
+    return;
+  }
 
   float t_k = 1.0f;
-  for (int it = 0; it < num_iters; ++it) {
+  int it = 0;
+  for (; it < num_iters; ++it) {
     float beta;
     const float t_next = next_t<FISTA>(t_k, &beta);
     const int cur = it & 1;
     float acc[2][4], x[2][4], code[2][4];
-    cluster_product(zbuf + cur * plane + 2 * ty * ldz, ldz, gs + tx * 4, sk,
-                    w, acc);
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        x[r][c] = __fadd_rn(__fadd_rn(zown[r][c], acc[r][c]), ec[r][c]);
-    if (GROUP) {
-      constexpr bool kHardGroup = MODE == kHard;
-      if (group_size == 4) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          register_group_prox<4, kHardGroup>(x[r], lam_eta, code[r]);
-      } else if (group_size == 2) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          register_group_prox<2, kHardGroup>(x[r], lam_eta, code[r]);
-      } else if (group_size == 1) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          register_group_prox<1, kHardGroup>(x[r], lam_eta, code[r]);
-      } else {
-        const int per_row = w / group_size;
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          *reinterpret_cast<float4*>(pre + (2 * ty + r) * w + tx * 4) =
-              make_float4(x[r][0], x[r][1], x[r][2], x[r][3]);
-        __syncthreads();
-        for (int p = tid; p < rows * per_row; p += blockDim.x) {
-          const int r = p / per_row;
-          const float* g = pre + r * w + (p - r * per_row) * group_size;
-          float sq = 0.0f;
-          for (int m = 0; m < group_size; ++m) sq = fmaf(g[m], g[m], sq);
-          scl[p] = group_scale<kHardGroup>(sq, lam_eta);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            code[r][c] = __fmul_rn(
-                x[r][c],
-                scl[(2 * ty + r) * per_row + (tx * 4 + c) / group_size]);
-      }
-    } else {
+    if (compute)
+      cluster_product(zbuf + cur * plane + 2 * ty * ldz, ldz, gs + tx * 4,
+                      sk, w, acc);
+    // STOP: the decision on iteration it - 1 (old still holds its codes);
+    // every CTA of the launch breaks at the same it
+    if (STOP && it >= 2 && stop_decided(stop_word, it)) break;
+    float delta = 0.0f;
+    if (compute) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          code[r][c] = shrink<MODE>(x[r][c], lam_eta);
-    }
+          x[r][c] = __fadd_rn(__fadd_rn(zown[r][c], acc[r][c]), ec[r][c]);
+      if (GROUP) {
+        constexpr bool kHardGroup = MODE == kHard;
+        if (group_size == 4) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
+          for (int r = 0; r < 2; ++r)
+            register_group_prox<4, kHardGroup>(x[r], lam_eta, code[r]);
+        } else if (group_size == 2) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        // padded columns stay +0.0f, as fista_kernel never writes them
-        const bool col = j0 + c < s;
-        zown[r][c] = col ? momentum<FISTA>(code[r][c], old[r][c], beta)
-                         : 0.0f;
-        old[r][c] = col ? code[r][c] : 0.0f;
+          for (int r = 0; r < 2; ++r)
+            register_group_prox<2, kHardGroup>(x[r], lam_eta, code[r]);
+        } else if (group_size == 1 || STOP) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            register_group_prox<1, kHardGroup>(x[r], lam_eta, code[r]);
+        } else {
+          const int per_row = w / group_size;
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<float4*>(pre + (2 * ty + r) * w + tx * 4) =
+                make_float4(x[r][0], x[r][1], x[r][2], x[r][3]);
+          __syncthreads();
+          for (int p = tid; p < rows * per_row; p += blockDim.x) {
+            const int r = p / per_row;
+            const float* g = pre + r * w + (p - r * per_row) * group_size;
+            float sq = 0.0f;
+            for (int m = 0; m < group_size; ++m) sq = fmaf(g[m], g[m], sq);
+            scl[p] = group_scale<kHardGroup>(sq, lam_eta);
+          }
+          __syncthreads();
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              code[r][c] = __fmul_rn(
+                  x[r][c],
+                  scl[(2 * ty + r) * per_row + (tx * 4 + c) / group_size]);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            code[r][c] = shrink<MODE>(x[r][c], lam_eta);
       }
-      const int at = (cur ^ 1) * plane + (2 * ty + r) * ldz + j0;
-      cluster_push(bases, static_cast<unsigned>(at) * 4u,
-                   make_float4(zown[r][0], zown[r][1], zown[r][2],
-                               zown[r][3]));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          // padded columns stay +0.0f, as fista_kernel never writes them
+          const bool col = j0 + c < s;
+          if (STOP)  // padded entries add exact zeros
+            delta = __fadd_rn(delta, fabsf(__fsub_rn(code[r][c], old[r][c])));
+          zown[r][c] = col ? momentum<FISTA>(code[r][c], old[r][c], beta)
+                           : 0.0f;
+          old[r][c] = col ? code[r][c] : 0.0f;
+        }
+        const int at = (cur ^ 1) * plane + (2 * ty + r) * ldz + j0;
+        cluster_push(bases, static_cast<unsigned>(at) * 4u,
+                     make_float4(zown[r][0], zown[r][1], zown[r][2],
+                                 zown[r][3]));
+      }
+    }
+    if (STOP && stop_turn(it, num_iters)) {  // the sum, to the stop warp
+      deltas[(it & 1) * nt + tid] = delta;
+      named_arrive(nt + 32);
     }
     // every CTA has read z and written the next z everywhere: the next
     // iteration reads it and overwrites this one's.  The last barrier is
     // also the one after which no CTA writes into another, so each may
-    // then exit.
+    // then exit.  (After a stop's break, none has written since the
+    // last.)
     cluster.sync();
     t_k = t_next;
   }
 
+  if (compute) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int64_t row = row0 + 2 * ty + r;
+    for (int r = 0; r < 2; ++r) {
+      const int64_t row = row0 + 2 * ty + r;
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (row < b && j0 + c < s) out[row * s + j0 + c] = old[r][c];
+      for (int c = 0; c < 4; ++c)
+        if (row < b && j0 + c < s) out[row * s + j0 + c] = old[r][c];
+    }
   }
+  if (STOP && blockIdx.x == 0 && tid == 0) *stop.iters = it;
 }
 
 // The wide kernel's product: acc[r][c] = sum_k zr[r ldz + k] gcol[k w + c]
@@ -938,15 +1264,17 @@ __device__ __forceinline__ void wide_product(const float* zr, int ldz,
 // + 7 and the columns q w + 4 tx .. +3.  The iteration is
 // fista_cluster_kernel's: the product from the resident slice, the prox
 // and momentum in registers, the thread's next-z float4s pushed into the
-// other z buffer of every CTA of the cluster, one cluster barrier.
-template <bool FISTA, int MODE, bool GROUP, int SK>
+// other z buffer of every CTA of the cluster, one cluster barrier.  STOP:
+// the early stop, as fista_cluster_kernel's.
+template <bool FISTA, int MODE, bool GROUP, int SK, bool STOP = false>
 __global__ void __launch_bounds__(kWideMaxThreads, 1)
     fista_wide_kernel(const float* __restrict__ gram,
                       const float* __restrict__ corr,
                       const float* __restrict__ init,
                       const float* __restrict__ eta_ptr, float lam,
                       int num_iters, int b, int s, int sk, int group_size,
-                      int rows, float* __restrict__ out) {
+                      int rows, float* __restrict__ out,
+                      SolveStop stop = {}) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -960,9 +1288,18 @@ __global__ void __launch_bounds__(kWideMaxThreads, 1)
   const int r0 = kWideRowsPerThread * ty;  // the thread's first row
   const int j0 = rank * w + tx * 4;        // and first column
   const int plane = rows * ldz;            // one z buffer
+  // STOP: the threads past lay.threads hold no rows; the last warp is the
+  // stop warp
+  const bool compute = !STOP || tid < lay.threads;
+  const bool stop_warp = STOP && tid >= (lay.threads + 31) / 32 * 32;
 
   float* gs = smem;           // (sk, w): -eta G, this CTA's columns
   float* zbuf = gs + sk * w;  // two (rows, ldz) z buffers
+  // STOP: past the layout, the threads' sums by parity and the decision
+  // (stop_smem)
+  const int nt = (lay.threads + 31) / 32 * 32;
+  float* deltas = smem + lay.smem / sizeof(float);
+  volatile int* stop_word = reinterpret_cast<int*>(deltas + 2 * nt);
 
   const float eta = *eta_ptr;
   const float lam_eta = lam * eta;
@@ -975,93 +1312,123 @@ __global__ void __launch_bounds__(kWideMaxThreads, 1)
     const int64_t row = row0 + r0 + r;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const bool live = row < b && j0 + c < s;
+      const bool live = compute && row < b && j0 + c < s;
       const int64_t at = row * s + j0 + c;
       old[r][c] = (live && init != nullptr) ? init[at] : 0.0f;
       ec[r][c] = live ? eta * corr[at] : 0.0f;
     }
   }
+  if (STOP && tid == 0) *stop_word = 0;  // no decision yet
   unsigned bases[kWideMaxCluster];  // zbuf in every CTA of the cluster
   cluster_bases(zbuf, bases, size);
   // every CTA of the cluster has started (and its z rows are loaded)
   // before any writes into another's shared memory
   cluster.sync();
+  if (STOP && stop_warp) {
+    stop_warp_loop(num_iters, deltas, nt, eta, stop, stop_word);
+    return;
+  }
 
   float t_k = 1.0f;
-  for (int it = 0; it < num_iters; ++it) {
+  int it = 0;
+  for (; it < num_iters; ++it) {
     float beta;
     const float t_next = next_t<FISTA>(t_k, &beta);
     const int cur = it & 1;
     const float* zr = zbuf + cur * plane + r0 * ldz;
     float acc[8][4];
-    wide_product<SK>(zr, ldz, gs + tx * 4, sk, w, acc);
+    if (compute) wide_product<SK>(zr, ldz, gs + tx * 4, sk, w, acc);
+    // STOP: the decision on iteration it - 1 (old still holds its codes);
+    // every CTA of the launch breaks at the same it
+    if (STOP && it >= 2 && stop_decided(stop_word, it)) break;
+    float delta, dcol[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (compute) {
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      // the thread's own z, as it pushed it (or as loaded)
-      const float4 zo =
-          *reinterpret_cast<const float4*>(zr + r * ldz + j0);
-      float x[4], code[4], zn[4];
-      x[0] = __fadd_rn(__fadd_rn(zo.x, acc[r][0]), ec[r][0]);
-      x[1] = __fadd_rn(__fadd_rn(zo.y, acc[r][1]), ec[r][1]);
-      x[2] = __fadd_rn(__fadd_rn(zo.z, acc[r][2]), ec[r][2]);
-      x[3] = __fadd_rn(__fadd_rn(zo.w, acc[r][3]), ec[r][3]);
-      if (GROUP) {
-        constexpr bool kHardGroup = MODE == kHard;
-        if (group_size == 4)
-          register_group_prox<4, kHardGroup>(x, lam_eta, code);
-        else if (group_size == 2)
-          register_group_prox<2, kHardGroup>(x, lam_eta, code);
-        else
-          register_group_prox<1, kHardGroup>(x, lam_eta, code);
-      } else {
+      for (int r = 0; r < 8; ++r) {
+        // the thread's own z, as it pushed it (or as loaded)
+        const float4 zo =
+            *reinterpret_cast<const float4*>(zr + r * ldz + j0);
+        float x[4], code[4], zn[4];
+        x[0] = __fadd_rn(__fadd_rn(zo.x, acc[r][0]), ec[r][0]);
+        x[1] = __fadd_rn(__fadd_rn(zo.y, acc[r][1]), ec[r][1]);
+        x[2] = __fadd_rn(__fadd_rn(zo.z, acc[r][2]), ec[r][2]);
+        x[3] = __fadd_rn(__fadd_rn(zo.w, acc[r][3]), ec[r][3]);
+        if (GROUP) {
+          constexpr bool kHardGroup = MODE == kHard;
+          if (group_size == 4)
+            register_group_prox<4, kHardGroup>(x, lam_eta, code);
+          else if (group_size == 2)
+            register_group_prox<2, kHardGroup>(x, lam_eta, code);
+          else
+            register_group_prox<1, kHardGroup>(x, lam_eta, code);
+        } else {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) code[c] = shrink<MODE>(x[c], lam_eta);
+          for (int c = 0; c < 4; ++c) code[c] = shrink<MODE>(x[c], lam_eta);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          // padded columns stay +0.0f, as fista_kernel never writes them
+          const bool col = j0 + c < s;
+          if (STOP)  // a column's sum over the rows; padding adds zeros
+            dcol[c] = __fadd_rn(dcol[c], fabsf(__fsub_rn(code[c], old[r][c])));
+          zn[c] = col ? momentum<FISTA>(code[c], old[r][c], beta) : 0.0f;
+          old[r][c] = col ? code[c] : 0.0f;
+        }
+        const int at = (cur ^ 1) * plane + (r0 + r) * ldz + j0;
+        cluster_push(bases, static_cast<unsigned>(at) * 4u,
+                     make_float4(zn[0], zn[1], zn[2], zn[3]), size);
       }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        // padded columns stay +0.0f, as fista_kernel never writes them
-        const bool col = j0 + c < s;
-        zn[c] = col ? momentum<FISTA>(code[c], old[r][c], beta) : 0.0f;
-        old[r][c] = col ? code[c] : 0.0f;
-      }
-      const int at = (cur ^ 1) * plane + (r0 + r) * ldz + j0;
-      cluster_push(bases, static_cast<unsigned>(at) * 4u,
-                   make_float4(zn[0], zn[1], zn[2], zn[3]), size);
+    }
+    if (STOP && stop_turn(it, num_iters)) {  // the sum, to the stop warp
+      delta = __fadd_rn(__fadd_rn(dcol[0], dcol[1]),
+                        __fadd_rn(dcol[2], dcol[3]));
+      deltas[(it & 1) * nt + tid] = delta;
+      named_arrive(nt + 32);
     }
     // every CTA has read z and written the next z everywhere: the next
     // iteration reads it and overwrites this one's.  The last barrier is
     // also the one after which no CTA writes into another, so each may
-    // then exit.
+    // then exit.  (After a stop's break, none has written since the
+    // last.)
     cluster.sync();
     t_k = t_next;
   }
 
+  if (compute) {
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int64_t row = row0 + r0 + r;
+    for (int r = 0; r < 8; ++r) {
+      const int64_t row = row0 + r0 + r;
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (row < b && j0 + c < s) out[row * s + j0 + c] = old[r][c];
+      for (int c = 0; c < 4; ++c)
+        if (row < b && j0 + c < s) out[row * s + j0 + c] = old[r][c];
+    }
   }
+  if (STOP && blockIdx.x == 0 && tid == 0) *stop.iters = it;
 }
 
 // A launch of grid CTAs of threads threads in clusters of `size`, with
 // smem bytes of dynamic shared memory on stream; the configuration points
-// at attr, which this fills with the cluster size.
-inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute& attr, int size,
-                                         unsigned grid, unsigned threads,
-                                         int smem, cudaStream_t stream) {
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = size;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
+// at attrs, which this fills with the cluster size and, when cooperative,
+// the cooperative flag (the runtime then refuses a grid whose CTAs cannot
+// all be resident at once).
+inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute (&attrs)[2],
+                                         int size, unsigned grid,
+                                         unsigned threads, int smem,
+                                         cudaStream_t stream,
+                                         bool cooperative = false) {
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = size;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(grid);
   config.blockDim = dim3(threads);
   config.dynamicSmemBytes = static_cast<size_t>(smem);
   config.stream = stream;
-  config.attrs = &attr;
-  config.numAttrs = 1;
+  config.attrs = attrs;
+  config.numAttrs = cooperative ? 2 : 1;
   return config;
 }
 
@@ -1069,17 +1436,25 @@ inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute& attr, int size,
 // shared-memory limit to smem; the first CUDA error of the two, or of the
 // launch check.
 template <typename... Params, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(Params...), int size,
-                            unsigned grid, unsigned threads, int smem,
-                            cudaStream_t stream, Args... args) {
+cudaError_t launch_clusters_as(bool cooperative, void (*kernel)(Params...),
+                               int size, unsigned grid, unsigned threads,
+                               int smem, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
+  cudaLaunchAttribute attrs[2];
   const cudaLaunchConfig_t config =
-      cluster_config(attr, size, grid, threads, smem, stream);
+      cluster_config(attrs, size, grid, threads, smem, stream, cooperative);
   err = cudaLaunchKernelEx(&config, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), int size,
+                            unsigned grid, unsigned threads, int smem,
+                            cudaStream_t stream, Args... args) {
+  return launch_clusters_as(false, kernel, size, grid, threads, smem, stream,
+                            args...);
 }
 
 // How many clusters of `size` CTAs of kernel, at threads threads and smem
@@ -1091,9 +1466,9 @@ int resident_clusters(void (*kernel)(Params...), int size, unsigned threads,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  cudaLaunchAttribute attr;
+  cudaLaunchAttribute attrs[2];
   const cudaLaunchConfig_t config =
-      cluster_config(attr, size, size, threads, smem, nullptr);
+      cluster_config(attrs, size, size, threads, smem, nullptr);
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
@@ -1124,22 +1499,97 @@ inline int cluster_slots() {
                       slots);
 }
 
-// Launch the cluster kernel: kCluster CTAs per cluster_rows batch rows.
+// Whether the cluster kernel's stop build takes b rows of sk padded codes
+// in groups of group_size on a card of `slots` cluster slots: the group
+// prox in registers (M in {1, 2, 4}), the grid one resident wave (at most
+// slots clusters, so every CTA has an SM) of at most 32 kStopLaneWords
+// CTAs, and room for the stop warp and its shared memory.
+__host__ __device__ inline bool cluster_stop_fits(int b, int sk,
+                                                  int group_size, int slots) {
+  if (group_size < 1 || 4 % group_size != 0 || slots < 1) return false;
+  const int rows = cluster_rows(b, sk, group_size, slots);
+  if (rows < 2) return false;
+  const int clusters = (b + rows - 1) / rows;
+  const ClusterLayout lay = cluster_layout(sk, group_size, rows);
+  return clusters <= slots && clusters * kCluster <= 32 * kStopLaneWords &&
+         stop_threads(lay.threads) <= kClusterMaxThreads &&
+         lay.smem + stop_smem(lay.threads) <= kSmemPerBlock;
+}
+
+// The same for the wide kernel's stop build, on a card of `slots` clusters
+// of wide_cluster's size.
+__host__ __device__ inline bool wide_stop_fits(int b, int sk, int group_size,
+                                               int slots) {
+  const int cluster = wide_cluster(sk, group_size);
+  if (cluster == 0 || slots < 1) return false;
+  const int rows = wide_rows(b, sk, group_size, slots);
+  const int clusters = (b + rows - 1) / rows;
+  const WideLayout lay = wide_layout(sk, cluster, rows);
+  return clusters <= slots && clusters * cluster <= 32 * kStopLaneWords &&
+         stop_threads(lay.threads) <= kWideMaxThreads &&
+         lay.smem + stop_smem(lay.threads) <= kSmemPerBlock;
+}
+
+// The route of a solve with the early stop (ops/fused_fista.stop_route
+// mirrors it): solve_route's cluster or wide kernel where its stop build
+// fits, else the classic route, launched an iteration at a time.
+// wide_slots counts clusters of wide_cluster's size.
+inline int stop_route(int b, int sk, int group_size, int sm_count,
+                      int cluster_slots, int wide_slots) {
+  const int route = solve_route(b, sk, group_size, sm_count);
+  if (route == kRouteCluster &&
+      cluster_stop_fits(b, sk, group_size, cluster_slots))
+    return kRouteCluster;
+  if (route == kRouteWide && wide_stop_fits(b, sk, group_size, wide_slots))
+    return kRouteWide;
+  return kRouteClassic;
+}
+
+// The 64-bit words of the stop's device array on a route: two slots per
+// CTA of a cluster or wide launch, or the classic route's three control
+// words and one share per block.
+inline int64_t stop_words(int route, int b, int sk, int group_size,
+                          int cluster_slots, int wide_slots) {
+  if (route == kRouteCluster) {
+    const int rows = cluster_rows(b, sk, group_size, cluster_slots);
+    return rows < 2 ? 0 : 2 * static_cast<int64_t>((b + rows - 1) / rows) *
+                              kCluster;
+  }
+  if (route == kRouteWide) {
+    const int rows = wide_rows(b, sk, group_size, wide_slots);
+    return rows < 1 ? 0 : 2 * static_cast<int64_t>((b + rows - 1) / rows) *
+                              wide_cluster(sk, group_size);
+  }
+  return kStopCtlWords + static_cast<int64_t>((b + kRows - 1) / kRows);
+}
+
+// Launch the cluster kernel: kCluster CTAs per cluster_rows batch rows;
+// with stop, its stop build, cooperatively, where cluster_stop_fits.
 template <bool FISTA, int MODE, bool GROUP>
 cudaError_t launch_cluster(const float* gram, const float* corr,
                            const float* init, const float* eta, float lam,
                            int num_iters, int b, int s, int sk,
-                           int group_size, float* out, cudaStream_t stream) {
+                           int group_size, float* out, cudaStream_t stream,
+                           const SolveStop* stop = nullptr) {
   if (cluster_max_rows(sk, group_size) < 2) return cudaErrorInvalidValue;
   const int slots = cluster_slots();
   if (slots < 0) return static_cast<cudaError_t>(-slots);
   const int rows = cluster_rows(b, sk, group_size, slots);
   const ClusterLayout lay = cluster_layout(sk, group_size, rows);
-  return launch_clusters(
-      fista_cluster_kernel<FISTA, MODE, GROUP>, kCluster,
-      static_cast<unsigned>((b + rows - 1) / rows * kCluster), lay.threads,
-      lay.smem, stream, gram, corr, init, eta, lam, num_iters, b, s, sk,
-      group_size, rows, out);
+  const unsigned grid = static_cast<unsigned>((b + rows - 1) / rows *
+                                              kCluster);
+  if (stop == nullptr)
+    return launch_clusters(fista_cluster_kernel<FISTA, MODE, GROUP>,
+                           kCluster, grid, lay.threads, lay.smem, stream,
+                           gram, corr, init, eta, lam, num_iters, b, s, sk,
+                           group_size, rows, out, SolveStop{});
+  if (!cluster_stop_fits(b, sk, group_size, slots))
+    return cudaErrorInvalidValue;
+  return launch_clusters_as(
+      true, fista_cluster_kernel<FISTA, MODE, GROUP, true>, kCluster, grid,
+      stop_threads(lay.threads), lay.smem + stop_smem(lay.threads), stream,
+      gram, corr,
+      init, eta, lam, num_iters, b, s, sk, group_size, rows, out, *stop);
 }
 
 // How many clusters of the cluster kernel can be resident at once for sk
@@ -1173,49 +1623,138 @@ inline int wide_device_rows(int b, int sk, int group_size) {
   return slots < 0 ? slots : wide_rows(b, sk, group_size, slots);
 }
 
-// Launch the wide kernel: wide_cluster CTAs per wide_rows batch rows.
+// Launch the wide kernel: wide_cluster CTAs per wide_rows batch rows;
+// with stop, its stop build, cooperatively, where wide_stop_fits.
 template <bool FISTA, int MODE, bool GROUP>
 cudaError_t launch_wide(const float* gram, const float* corr,
                         const float* init, const float* eta, float lam,
                         int num_iters, int b, int s, int sk, int group_size,
-                        float* out, cudaStream_t stream) {
+                        float* out, cudaStream_t stream,
+                        const SolveStop* stop = nullptr) {
   const int cluster = wide_cluster(sk, group_size);
   if (cluster == 0) return cudaErrorInvalidValue;
-  const int rows = wide_device_rows(b, sk, group_size);
-  if (rows < 0) return static_cast<cudaError_t>(-rows);
+  const int slots = wide_slots(cluster);
+  if (slots < 0) return static_cast<cudaError_t>(-slots);
+  const int rows = wide_rows(b, sk, group_size, slots);
   const WideLayout lay = wide_layout(sk, cluster, rows);
-  auto kernel = sk == kWideFixedDepth && cluster == 2
-                    ? fista_wide_kernel<FISTA, MODE, GROUP, kWideFixedDepth>
-                    : fista_wide_kernel<FISTA, MODE, GROUP, 0>;
-  return launch_clusters(
-      kernel, cluster, static_cast<unsigned>((b + rows - 1) / rows * cluster),
-      lay.threads, lay.smem, stream, gram, corr, init, eta, lam, num_iters, b,
-      s, sk, group_size, rows, out);
+  const unsigned grid =
+      static_cast<unsigned>((b + rows - 1) / rows * cluster);
+  const bool fixed = sk == kWideFixedDepth && cluster == 2;
+  if (stop == nullptr)
+    return launch_clusters(
+        fixed ? fista_wide_kernel<FISTA, MODE, GROUP, kWideFixedDepth>
+              : fista_wide_kernel<FISTA, MODE, GROUP, 0>,
+        cluster, grid, lay.threads, lay.smem, stream, gram, corr, init, eta,
+        lam, num_iters, b, s, sk, group_size, rows, out, SolveStop{});
+  if (!wide_stop_fits(b, sk, group_size, slots)) return cudaErrorInvalidValue;
+  return launch_clusters_as(
+      true,
+      fixed ? fista_wide_kernel<FISTA, MODE, GROUP, kWideFixedDepth, true>
+            : fista_wide_kernel<FISTA, MODE, GROUP, 0, true>,
+      cluster, grid, stop_threads(lay.threads),
+      lay.smem + stop_smem(lay.threads), stream,
+      gram, corr, init, eta, lam, num_iters, b, s, sk, group_size, rows, out,
+      *stop);
 }
 
-// Launch the solve on the route given (kRouteAuto: solve_route's), and
-// store the route taken in *taken unless it is null.  The classic route
-// folds G into gn first (the other two fold their slices themselves);
-// state_global null keeps its blocks' state in shared memory.  Returns
-// the first CUDA error.
+// stop_route and stop_words on the current device: the route (or minus
+// the CUDA error of reading the slots), and its words through *words
+// unless null.
+inline int device_stop_route(int b, int sk, int group_size,
+                             int64_t* words = nullptr) {
+  const int cslots = cluster_slots();
+  if (cslots < 0) return cslots;
+  const int cluster = wide_cluster(sk, group_size);
+  const int wslots = cluster == 0 ? 1 : wide_slots(cluster);
+  if (wslots < 0) return wslots;
+  const int route =
+      stop_route(b, sk, group_size, device_sm_count(), cslots, wslots);
+  if (words != nullptr)
+    *words = stop_words(route, b, sk, group_size, cslots, wslots);
+  return route;
+}
+
+// The classic route with the stop: fista_kernel's stop build once per
+// iteration on the blocks' global state (gn folded), then the copy of old
+// into out.  With no iteration, the plain kernel writes the start out and
+// the count is 0.
+template <bool FISTA, int MODE, bool GROUP>
+cudaError_t launch_classic_stop(const float* gn, const float* corr,
+                                const float* init, const float* eta,
+                                float lam, int num_iters, int b, int s,
+                                int sk, int sc, int group_size,
+                                float* state_global, float* out,
+                                const SolveStop& stop, cudaStream_t stream) {
+  if (state_global == nullptr) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>((b + kRows - 1) / kRows);
+  const size_t smem = 2 * kSliceFloats * sizeof(float);
+  cudaError_t err;
+  if (num_iters == 0) {
+    auto kernel = fista_kernel<FISTA, MODE, GROUP>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(gn, corr, init, eta, lam, 0, b,
+                                             s, sk, sc, group_size,
+                                             state_global, out, SolveStop{},
+                                             0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return cudaMemsetAsync(stop.iters, 0, sizeof(int), stream);
+  }
+  auto kernel = fista_kernel<FISTA, MODE, GROUP, true>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  // the ticket starts at 0 whatever the words held before
+  err = cudaMemsetAsync(stop.words, 0, sizeof(unsigned long long), stream);
+  if (err != cudaSuccess) return err;
+  for (int k = 0; k < num_iters; ++k) {
+    kernel<<<grid, kThreads, smem, stream>>>(gn, corr, init, eta, lam, 1, b,
+                                             s, sk, sc, group_size,
+                                             state_global, out, stop, k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t total = static_cast<int64_t>(b) * s;
+  const unsigned copy_grid =
+      static_cast<unsigned>(total / 256 + 1 < 1024 ? total / 256 + 1 : 1024);
+  stop_writeout_kernel<<<copy_grid, 256, 0, stream>>>(state_global, b, s, sk,
+                                                      out);
+  return cudaGetLastError();
+}
+
+// Launch the solve on the route given (kRouteAuto: solve_route's, or with
+// stop stop_route's), and store the route taken in *taken unless it is
+// null.  The classic route folds G into gn first (the other two fold
+// their slices themselves); state_global null keeps its blocks' state in
+// shared memory (the classic route with stop needs it).  stop null is the
+// flag-off build.  Returns the first CUDA error.
 template <bool FISTA, int MODE, bool GROUP>
 cudaError_t launch_solve(const float* gram, const float* corr,
                          const float* init, const float* eta, float lam,
                          int num_iters, int b, int s, int sk, int sc,
                          int group_size, float* gn, float* state_global,
                          float* out, int route, int* taken,
-                         cudaStream_t stream) {
-  if (route == kRouteAuto)
-    route = solve_route(b, sk, group_size, device_sm_count());
+                         cudaStream_t stream,
+                         const SolveStop* stop = nullptr) {
+  if (route == kRouteAuto) {
+    route = stop == nullptr
+                ? solve_route(b, sk, group_size, device_sm_count())
+                : device_stop_route(b, sk, group_size);
+    if (route < 0) return static_cast<cudaError_t>(-route);
+  }
   if (taken != nullptr) *taken = route;
   if (route == kRouteCluster)
     return launch_cluster<FISTA, MODE, GROUP>(gram, corr, init, eta, lam,
                                               num_iters, b, s, sk,
-                                              group_size, out, stream);
+                                              group_size, out, stream, stop);
   if (route == kRouteWide)
     return launch_wide<FISTA, MODE, GROUP>(gram, corr, init, eta, lam,
                                            num_iters, b, s, sk, group_size,
-                                           out, stream);
+                                           out, stream, stop);
   if (route != kRouteClassic) return cudaErrorInvalidValue;
   const int64_t total = static_cast<int64_t>(sk) * sc;
   const unsigned fold_grid =
@@ -1223,6 +1762,10 @@ cudaError_t launch_solve(const float* gram, const float* corr,
   fold_gram_kernel<<<fold_grid, 256, 0, stream>>>(gram, eta, gn, s, sk, sc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (stop != nullptr)
+    return launch_classic_stop<FISTA, MODE, GROUP>(
+        gn, corr, init, eta, lam, num_iters, b, s, sk, sc, group_size,
+        state_global, out, *stop, stream);
   auto kernel = fista_kernel<FISTA, MODE, GROUP>;
   size_t smem = 2 * kSliceFloats * sizeof(float);
   if (state_global == nullptr)
@@ -1234,7 +1777,8 @@ cudaError_t launch_solve(const float* gram, const float* corr,
   const unsigned grid = static_cast<unsigned>((b + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(gn, corr, init, eta, lam,
                                            num_iters, b, s, sk, sc,
-                                           group_size, state_global, out);
+                                           group_size, state_global, out,
+                                           SolveStop{}, 0);
   return cudaGetLastError();
 }
 
@@ -1242,6 +1786,17 @@ cudaError_t launch_solve(const float* gram, const float* corr,
 inline bool solve_args_ok(int b, int s, int num_iters, int sk, int sc) {
   return b > 0 && s > 0 && num_iters >= 0 && sk >= s && sc >= s &&
          sk % kChunk == 0 && sc % kColBlock == 0;
+}
+
+// The early stop of a C entry's arguments: null (the flag-off build)
+// unless eps >= 0, else *stop filled from them.
+inline const SolveStop* solve_stop(SolveStop* stop, float eps,
+                                   float inv_count, void* words, int* iters,
+                                   unsigned tag) {
+  if (!(eps >= 0.0f)) return nullptr;
+  *stop = SolveStop{eps, inv_count, static_cast<unsigned long long*>(words),
+                    iters, tag};
+  return stop;
 }
 
 }  // namespace

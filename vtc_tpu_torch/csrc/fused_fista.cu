@@ -8,13 +8,14 @@
 //   codes = shrink(z + z @ (-eta G) + eta c, lam * eta)
 //
 // with soft / nonneg-soft / hard / nonneg-hard shrinkage, FISTA or ISTA
-// momentum and an optional warm start.  The three kernels (the classic
+// momentum, an optional warm start and the optional batch-global early
+// stop (pallas_fista.py:107-130).  The three kernels (the classic
 // layout, the bitwise reference and the route of what the others cannot
 // hold; the eight-CTA cluster layout for small batches; the wide cluster
 // layout for batches that fill the card), the route between them, what
 // bounds each and what its design does about it are in fista_core.cuh,
 // which K4 shares: this file instantiates their elementwise-shrink
-// variants.
+// variants, with the stop and without.
 #include "fista_core.cuh"
 
 extern "C" {
@@ -49,6 +50,21 @@ int vtc_fista_cluster_rows(int b, int s, int group_size) {
   return slots < 0 ? slots : cluster_rows(b, sk, group_size, slots);
 }
 
+// The route launch_solve takes with the early stop for that shape on this
+// device (stop_route: 1 classic, 2 cluster, 3 wide) and the 64-bit words of
+// the stop's device array there, or minus the CUDA error of reading the
+// slots.
+int vtc_fista_stop_route(int b, int s, int group_size) {
+  return device_stop_route(b, (s + kChunk - 1) / kChunk * kChunk,
+                           group_size);
+}
+int64_t vtc_fista_stop_words(int b, int s, int group_size) {
+  int64_t words = 0;
+  const int route = device_stop_route(
+      b, (s + kChunk - 1) / kChunk * kChunk, group_size, &words);
+  return route < 0 ? route : words;
+}
+
 // cudaOccupancyMaxActiveClusters of the (FISTA, soft) cluster kernel for
 // s codes at rows rows per cluster, or minus the CUDA error.
 int vtc_fista_cluster_occupancy(int s, int rows) {
@@ -77,22 +93,33 @@ int vtc_fista_wide_slots(int cluster_size) { return wide_slots(cluster_size); }
 // route only); out (b, s).  route: 0 the shape's own (solve_route),
 // 1 the classic kernel, 2 the cluster kernel, 3 the wide kernel (1-3
 // force a kernel, for checks and tools); taken, unless null, receives the
-// route launched.
+// route launched.  The early stop: eps >= 0 turns it on (a negative eps
+// or NaN is the build without it), with inv_count = 1 / (b s),
+// stop_words (vtc_fista_stop_words 64-bit words, zeroed once and then
+// reused with rising tags), iters (one int: the iterations run) and tag
+// (>= 1; a later solve on the same words takes a tag past tag +
+// num_iters); on the classic route it needs state_scratch.
 // Returns the CUDA error code of the launches (0 on success).
 int vtc_fused_fista(const float* gram, const float* corr, const float* init,
                     const float* eta, float lam, int num_iters, int b, int s,
                     int sk, int sc, int fista, int mode, float* gn_scratch,
                     float* state_scratch, float* out, int route, int* taken,
-                    void* stream_ptr) {
+                    float eps, float inv_count, void* stop_words, int* iters,
+                    unsigned tag, void* stream_ptr) {
   if (!solve_args_ok(b, s, num_iters, sk, sc) || mode < 0 || mode > 3 ||
-      route < kRouteAuto || route > kRouteWide)
+      route < kRouteAuto || route > kRouteWide ||
+      (eps >= 0.0f && (stop_words == nullptr || iters == nullptr ||
+                       tag == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  SolveStop stop_args;
+  const SolveStop* stop =
+      solve_stop(&stop_args, eps, inv_count, stop_words, iters, tag);
   cudaError_t err;
 #define VTC_LAUNCH(F, M)                                                     \
   launch_solve<F, M, false>(gram, corr, init, eta, lam, num_iters, b, s, sk, \
                             sc, 1, gn_scratch, state_scratch, out, route,    \
-                            taken, stream)
+                            taken, stream, stop)
   if (fista) {
     switch (mode) {
       case kSoft: err = VTC_LAUNCH(true, kSoft); break;

@@ -10,7 +10,9 @@
 //
 //   codes = group_prox(z + z @ (-eta G) + eta c, lam * eta)
 //
-// with FISTA or ISTA momentum and an optional packed warm start.  Group g
+// with FISTA or ISTA momentum, an optional packed warm start and the
+// optional batch-global early stop over the b*G*M packed entries
+// (pallas_group_fista.py:105-130).  Group g
 // is the window of slots [g*M, (g+1)*M); the slots a short group pads are
 // zero rows of Dg, so they stay exactly zero and add nothing to a norm,
 // and the TPU kernel's 0/1 membership operand has no counterpart.  One
@@ -39,23 +41,31 @@ extern "C" {
 // device, gm = groups * group_size.  gn_scratch (sk, sc); state_scratch
 // (ceil(b / rows), 4, rows, sk) or null to keep the state in shared
 // memory (the sizes of vtc_fused_fista); out (b, gm).  hard: 0 soft,
-// 1 hard group thresholding.  route and taken as in vtc_fused_fista.
+// 1 hard group thresholding.  route, taken and the early stop (eps,
+// inv_count = 1 / (b gm), stop_words, iters, tag) as in vtc_fused_fista.
 // Returns the CUDA error code (0 on success).
 int vtc_fused_group_fista(const float* gram, const float* corr,
                           const float* init, const float* eta, float lam,
                           int num_iters, int b, int gm, int group_size,
                           int sk, int sc, int fista, int hard,
                           float* gn_scratch, float* state_scratch, float* out,
-                          int route, int* taken, void* stream_ptr) {
+                          int route, int* taken, float eps, float inv_count,
+                          void* stop_words, int* iters, unsigned tag,
+                          void* stream_ptr) {
   if (!solve_args_ok(b, gm, num_iters, sk, sc) || group_size < 1 ||
-      gm % group_size != 0 || route < kRouteAuto || route > kRouteWide)
+      gm % group_size != 0 || route < kRouteAuto || route > kRouteWide ||
+      (eps >= 0.0f && (stop_words == nullptr || iters == nullptr ||
+                       tag == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  SolveStop stop_args;
+  const SolveStop* stop =
+      solve_stop(&stop_args, eps, inv_count, stop_words, iters, tag);
   cudaError_t err;
 #define VTC_LAUNCH(F, M)                                                    \
   launch_solve<F, M, true>(gram, corr, init, eta, lam, num_iters, b, gm, sk, \
                            sc, group_size, gn_scratch, state_scratch, out,  \
-                           route, taken, stream)
+                           route, taken, stream, stop)
   if (fista)
     err = hard ? VTC_LAUNCH(true, kHard) : VTC_LAUNCH(true, kSoft);
   else

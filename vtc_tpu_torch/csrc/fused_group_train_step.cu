@@ -83,7 +83,10 @@ extern "C" int vtc_fused_group_fista(const float* gram, const float* corr,
                                      int group_size, int sk, int sc,
                                      int fista, int hard, float* gn_scratch,
                                      float* state_scratch, float* out,
-                                     int route, int* taken, void* stream_ptr);
+                                     int route, int* taken, float eps,
+                                     float inv_count, void* stop_words,
+                                     int* iters, unsigned tag,
+                                     void* stream_ptr);
 
 namespace {
 
@@ -134,9 +137,10 @@ __global__ void sum_slots_kernel(const float* __restrict__ gcodes,
 // The first half of a step, which K6 and K7 share: the grouped dictionary
 // (a row gather unless the groups tile range(s) in order, sel == nullptr),
 // its Gram (and Dg^T Dg when gm > n), the warm power refresh into v and
-// eta, c = X Dg^T, the group solve into gcodes and the duplicate-summed
-// (b, s) codes.  Those land in codes, or stay in gcodes when sum_idx is
-// null.  Returns the first CUDA error code (0 on success).
+// eta, c = X Dg^T, the group solve into gcodes (with stop's early stop as
+// step `step`) and the duplicate-summed (b, s) codes.  Those land in
+// codes, or stay in gcodes when sum_idx is null.  Returns the first CUDA
+// error code (0 on success).
 int group_refresh_and_solve(const float* d, float* v, const float* xs, int b,
                             int s, int n, int gm, int group_size,
                             const int* sel, const int* sum_idx, int sum_width,
@@ -145,7 +149,9 @@ int group_refresh_and_solve(const float* d, float* v, const float* xs, int b,
                             float* pgram, float* corr, float* gcodes,
                             float* codes, float* eta, int sk, int sc,
                             float* gn_scratch, float* state_scratch,
-                            void* stream_ptr) {
+                            void* stream_ptr,
+                            const SegmentStop& stop = {},
+                            int step = 0) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool identity = sel == nullptr;
   const int dim = gm > n ? n : gm;
@@ -164,10 +170,11 @@ int group_refresh_and_solve(const float* d, float* v, const float* xs, int b,
                                 stream));
   VTC_CHECK(power_refresh(power_gram, v, eta, dim, power_iters, stream));
   VTC_CHECK(gemm<false, true>(xs, grouped, nullptr, corr, b, gm, n, stream));
-  const int solve_err = vtc_fused_group_fista(
+  const int solve_err = vtc_fused_group_fista(  // the shape's own route
       gram, corr, nullptr, eta, lam, num_iters, b, gm, group_size, sk, sc,
-      fista, hard, gn_scratch, state_scratch, gcodes, 0, nullptr,
-      stream_ptr);  // the shape's own route
+      fista, hard, gn_scratch, state_scratch, gcodes, 0, nullptr, stop.eps,
+      stop.inv_count, stop.words, stop.step_iters(step),
+      SegmentStop::step_tag(step, num_iters), stream_ptr);
   if (solve_err != 0) return solve_err;
   if (!identity) {
     sum_slots_kernel<<<pass_grid(static_cast<int64_t>(b) * s), kPassThreads,
@@ -209,7 +216,11 @@ extern "C" {
 // with comem; eta (1,); K4's gn (sk, sc) and state (see
 // vtc_fused_group_fista).  The last step's summed codes are in codes, or
 // in gcodes when sum_idx is null.  update: 0 steepest, 1 cheap
-// quadratic.  Returns the first CUDA error code (0 on success).
+// quadratic.  The early stop of every step's group solve: eps >= 0 turns
+// it on, with inv_count = 1 / (b gm), the zeroed stop_words of
+// vtc_fista_stop_words and iters (k,), each step's count; the Hessian EMA
+// and the update take the stopped codes.  Returns the first CUDA error
+// code (0 on success).
 int vtc_group_train_segment(
     float* d, float* h, float* v, const float* x, int k, int b, int s,
     int n, int gm, int group_size, const int* sel, const int* sum_idx,
@@ -219,13 +230,16 @@ int vtc_group_train_segment(
     float inv_b, float* dg, float* gram, float* pgram, float* corr,
     float* gcodes, float* codes, float* resid, float* grad, float* cmat,
     float* smat, float* sd, float* eta, int sk, int sc, float* gn_scratch,
-    float* state_scratch, void* stream_ptr) {
+    float* state_scratch, float eps, float inv_count, void* stop_words,
+    int* iters, void* stream_ptr) {
   if (k < 0 || upd_num_iters < 0 ||
       !group_args_ok(b, s, n, gm, num_iters, power_iters, sel, sum_idx,
                      sum_width, dg, pgram, codes) ||
       (comem != nullptr &&
-       (cmat == nullptr || smat == nullptr || sd == nullptr)))
+       (cmat == nullptr || smat == nullptr || sd == nullptr)) ||
+      (eps >= 0.0f && (stop_words == nullptr || iters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const SegmentStop stop{eps, inv_count, stop_words, iters};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   float* step_codes = sel == nullptr ? gcodes : codes;
   cudaError_t err = power_setup(gm > n ? n : gm);
@@ -235,7 +249,8 @@ int vtc_group_train_segment(
     const int solve_err = group_refresh_and_solve(
         d, v, xs, b, s, n, gm, group_size, sel, sum_idx, sum_width, lam,
         num_iters, fista, hard, power_iters, dg, gram, pgram, corr, gcodes,
-        codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr);
+        codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr, stop,
+        step);
     if (solve_err != 0) return solve_err;
     if (update == 1)
       VTC_CHECK(hessian_ema(step_codes, h, b, s, inv_b, stream));

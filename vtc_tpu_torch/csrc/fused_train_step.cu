@@ -86,8 +86,9 @@ extern "C" int vtc_fused_fista(const float* gram, const float* corr,
                                float lam, int num_iters, int b, int s,
                                int sk, int sc, int fista, int mode,
                                float* gn_scratch, float* state_scratch,
-                               float* out, int route, int* taken,
-                               void* stream_ptr);
+                               float* out, int route, int* taken, float eps,
+                               float inv_count, void* stop_words, int* iters,
+                               unsigned tag, void* stream_ptr);
 
 namespace {
 
@@ -99,13 +100,15 @@ namespace {
 
 // The first half of a step, which K2 and K3 share: G = D D^T (and D^T D
 // when s > n), the warm power refresh into v and eta, c = X D^T and the
-// solve into codes.  Returns the first CUDA error code (0 on success).
+// solve into codes, with stop's early stop as step `step`.  Returns the
+// first CUDA error code (0 on success).
 int refresh_and_solve(const float* d, float* v, const float* xs, int b, int s,
                       int n, float lam, int num_iters, int fista, int mode,
                       int power_iters, float* gram, float* pgram, float* corr,
                       float* codes, float* eta, int sk, int sc,
                       float* gn_scratch, float* state_scratch,
-                      void* stream_ptr) {
+                      void* stream_ptr, const SegmentStop& stop = {},
+                      int step = 0) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int dim = s > n ? n : s;
   const float* power_gram = s > n ? pgram : gram;
@@ -115,9 +118,11 @@ int refresh_and_solve(const float* d, float* v, const float* xs, int b, int s,
     VTC_CHECK(gemm<true, false>(d, d, nullptr, pgram, n, n, s, stream));
   VTC_CHECK(power_refresh(power_gram, v, eta, dim, power_iters, stream));
   VTC_CHECK(gemm<false, true>(xs, d, nullptr, corr, b, s, n, stream));
-  return vtc_fused_fista(gram, corr, nullptr, eta, lam, num_iters, b, s, sk,
-                         sc, fista, mode, gn_scratch, state_scratch, codes,
-                         0, nullptr, stream_ptr);  // the shape's own route
+  return vtc_fused_fista(  // the shape's own route
+      gram, corr, nullptr, eta, lam, num_iters, b, s, sk, sc, fista, mode,
+      gn_scratch, state_scratch, codes, 0, nullptr, stop.eps, stop.inv_count,
+      stop.words, stop.step_iters(step),
+      SegmentStop::step_tag(step, num_iters), stream_ptr);
 }
 
 }  // namespace
@@ -135,7 +140,11 @@ int vtc_power_smem_bytes(int dim) { return power_smem_bytes(dim); }
 // unused; corr (b, s); resid (b, n); grad (s, n); eta (1,); K1's gn
 // (sk, sc) and state (see vtc_fused_fista).  codes (b, s) holds the last
 // step's codes on return.  mode: K1's shrink mode; update: 0 steepest,
-// 1 cheap quadratic.  Returns the first CUDA error code (0 on success).
+// 1 cheap quadratic.  The early stop of every step's solve: eps >= 0
+// turns it on (vtc_fused_fista's), with inv_count = 1 / (b s), the zeroed
+// stop_words of vtc_fista_stop_words and iters (k,), each step's count;
+// the Hessian EMA and the update take the stopped codes.  Returns the
+// first CUDA error code (0 on success).
 int vtc_train_segment(float* d, float* h, float* v, const float* x, int k,
                       int b, int s, int n, float lam, int num_iters,
                       float upd_step, int upd_num_iters, float lowest,
@@ -143,11 +152,14 @@ int vtc_train_segment(float* d, float* h, float* v, const float* x, int k,
                       int power_iters, float inv_b, float* gram,
                       float* pgram, float* corr, float* codes, float* resid,
                       float* grad, float* eta, int sk, int sc,
-                      float* gn_scratch, float* state_scratch,
+                      float* gn_scratch, float* state_scratch, float eps,
+                      float inv_count, void* stop_words, int* iters,
                       void* stream_ptr) {
   if (k < 0 || b <= 0 || s <= 0 || n <= 0 || num_iters < 0 ||
-      upd_num_iters < 0 || power_iters < 0 || (s > n && pgram == nullptr))
+      upd_num_iters < 0 || power_iters < 0 || (s > n && pgram == nullptr) ||
+      (eps >= 0.0f && (stop_words == nullptr || iters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const SegmentStop stop{eps, inv_count, stop_words, iters};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = power_setup(s > n ? n : s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -156,7 +168,7 @@ int vtc_train_segment(float* d, float* h, float* v, const float* x, int k,
     const int solve_err = refresh_and_solve(
         d, v, xs, b, s, n, lam, num_iters, fista, mode, power_iters, gram,
         pgram, corr, codes, eta, sk, sc, gn_scratch, state_scratch,
-        stream_ptr);
+        stream_ptr, stop, step);
     if (solve_err != 0) return solve_err;
     if (update == 1) VTC_CHECK(hessian_ema(codes, h, b, s, inv_b, stream));
     for (int u = 0; u < upd_num_iters; ++u) {

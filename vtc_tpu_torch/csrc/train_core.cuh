@@ -254,6 +254,24 @@ cudaError_t hessian_ema(const float* codes, float* h, int b, int s,
 using SumHook = int (*)(int);
 constexpr int kSumHookFailed = -1;
 
+// The solve's early stop through K2's and K6's segments: eps (< 0: none)
+// and inv_count of the C entries' stop (vtc_fused_fista), the zeroed
+// words and one count per step; step k's solve takes the tags from
+// 1 + k (num_iters + 1), so one set of words serves the segment.
+struct SegmentStop {
+  float eps = -1.0f;
+  float inv_count = 0.0f;
+  void* words = nullptr;
+  int* iters = nullptr;
+
+  int* step_iters(int step) const {
+    return iters == nullptr ? nullptr : iters + step;
+  }
+  static unsigned step_tag(int step, int num_iters) {
+    return 1u + static_cast<unsigned>(step) * (num_iters + 1u);
+  }
+};
+
 // K19 across devices sums several buffers a step, each over its own mesh
 // axis: int axis_sum_hook(int step, int which), ``which`` naming the
 // buffer (fused_code_shard_train_step.cu, enum SumWhich); the same

@@ -119,16 +119,22 @@ def load_library():
   lib.vtc_fista_wide_slots.restype = i32
   lib.vtc_fista_cluster_occupancy.argtypes = [i32, i32]
   lib.vtc_fista_cluster_occupancy.restype = i32
+  lib.vtc_fista_stop_route.argtypes = [i32, i32, i32]
+  lib.vtc_fista_stop_route.restype = i32
+  lib.vtc_fista_stop_words.argtypes = [i32, i32, i32]
+  lib.vtc_fista_stop_words.restype = ctypes.c_int64
+  # the solve's early stop: eps, inv_count, the words, the count, the tag
+  stop = [f32, f32, ptr, ptr, ctypes.c_uint]
   lib.vtc_fused_fista.argtypes = [
       ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32,
-      ptr, ptr, ptr, i32, i32p, ptr]
+      ptr, ptr, ptr, i32, i32p] + stop + [ptr]
   lib.vtc_fused_fista.restype = i32
   lib.vtc_power_smem_bytes.argtypes = [i32]
   lib.vtc_power_smem_bytes.restype = i32
   lib.vtc_train_segment.argtypes = [
       ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, i32, f32, i32, f32,
       i32, i32, i32, i32, i32, f32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-      i32, i32, ptr, ptr, ptr]
+      i32, i32, ptr, ptr] + stop[:4] + [ptr]
   lib.vtc_train_segment.restype = i32
   lib.vtc_solve_stats.argtypes = (
       [ptr] * 3 + [i32] * 3 + [f32] + [i32] * 4 + [ptr] * 8 + [i32, i32]
@@ -140,13 +146,13 @@ def load_library():
   lib.vtc_dp_train_segment.restype = i32
   lib.vtc_fused_group_fista.argtypes = [
       ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32, i32,
-      ptr, ptr, ptr, i32, i32p, ptr]
+      ptr, ptr, ptr, i32, i32p] + stop + [ptr]
   lib.vtc_fused_group_fista.restype = i32
   lib.vtc_group_train_segment.argtypes = [
       ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, i32, ptr,
       f32, f32, i32, f32, i32, f32, i32, i32, i32, i32, i32, f32,
       ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-      i32, i32, ptr, ptr, ptr]
+      i32, i32, ptr, ptr] + stop[:4] + [ptr]
   lib.vtc_group_train_segment.restype = i32
   lib.vtc_group_solve_stats.argtypes = (
       [ptr] * 3 + [i32] * 5 + [ptr, ptr, i32, f32] + [i32] * 4 + [ptr] * 10

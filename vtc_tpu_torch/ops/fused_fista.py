@@ -25,9 +25,17 @@ G slices fit (2 at s 256) and 8 x 4 outputs a thread.
 the layouts, so the CPU tests can pin them; ``last_route`` is the route
 of the last launch.
 
-Scope: no in-kernel early stop and only the 'highest' (IEEE fp32) tier;
-both wait in ROADMAP.md §1 item 3, and the wrapper raises when asked for
-an early stop.  ``launches`` counts kernel launches.
+``early_stopping_epsilon`` runs vtc_tpu's batch-global stop test
+(pallas_fista.py:107-130) inside the kernels, on every batch size: the
+cluster or wide kernel's stop build where its grid is one resident wave,
+else the classic kernel launched an iteration at a time, which decides
+on the device (csrc/fista_core.cuh, "The early stop").  ``stop_route``
+and ``stop_words`` mirror that route and the size of its device array;
+``last_iters`` (a private test hook) is the device tensor of the
+iterations the last stopped launch ran.
+
+Scope: only the 'highest' (IEEE fp32) tier; the others wait in
+ROADMAP.md §1 item 3a.2.  ``launches`` counts kernel launches.
 """
 import ctypes
 
@@ -39,6 +47,7 @@ from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 launches = 0
 last_route = None  # 'classic', 'cluster' or 'wide': the last launch's
+last_iters = None  # int32 device tensor: the last stopped launch's count
 
 # shared memory a block may opt into on Hopper (sm_90): 227 KB
 _SMEM_PER_BLOCK = 232448
@@ -51,6 +60,8 @@ ROWS, CHUNK, CLUSTER, CLUSTER_MAX_ROWS, CLUSTER_MAX_THREADS = (
 # kWideMaxThreads, kWideMinThreads, kWideMaxCluster)
 (WIDE_ROWS_PER_THREAD, WIDE_MAX_THREADS, WIDE_MIN_THREADS,
  WIDE_MAX_CLUSTER) = (8, 256, 128, 8)
+# fista_core.cuh's early-stop constants (kStopLaneWords, kStopCtlWords)
+STOP_LANE_WORDS, STOP_CTL_WORDS = 8, 3
 # the C entries' route argument, and the route names of their taken value
 ROUTES = {"auto": 0, "classic": 1, "cluster": 2, "wide": 3}
 ROUTE_NAMES = {v: k for k, v in ROUTES.items() if v}
@@ -120,22 +131,20 @@ def fused_fista_solve(images, dictionary, sparsity_weight, num_iters,
       read by the kernel itself, so the host never waits for it.
     initial_codes: optional (b, s) warm start (seeds z and old).
     variant / nonneg / hard: 'ista' | 'fista', threshold flags.
-    early_stopping_epsilon: must be None (not in the kernel yet).
+    early_stopping_epsilon: optional; stop after the first iteration k > 0
+      whose mean |codes_k - codes_{k-1}| / stepsize is below it, and
+      return codes_k (the batch-global test, decided on the device).
 
   Returns:
     (b, s) codes on the inputs' device.
   """
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
-  if early_stopping_epsilon is not None:
-    raise NotImplementedError(
-        "the fused kernel has no early stop yet (a batch-global reduction "
-        "per iteration, ROADMAP.md §1 item 3); use formulation='gram'")
   if images.device.type == "cpu":
     return fused_fista_plain(
         images, dictionary, sparsity_weight, num_iters, stepsize,
         initial_codes=initial_codes, variant=variant, nonneg=nonneg,
-        hard=hard)
+        hard=hard, early_stopping_epsilon=early_stopping_epsilon)
   _require(images.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(images.device))
@@ -169,7 +178,8 @@ def fused_fista_solve(images, dictionary, sparsity_weight, num_iters,
     corr = (images @ dictionary.T).contiguous()
   return _launch(gram, corr, initial_codes, eta, float(sparsity_weight),
                  num_iters, variant == "fista",
-                 _MODES[(bool(nonneg), bool(hard))])
+                 _MODES[(bool(nonneg), bool(hard))],
+                 eps=early_stopping_epsilon)
 
 
 def solve_layout(lib, s):
@@ -299,20 +309,120 @@ def solve_route(b, s, group_size, sm_count):
   return "wide" if wide_cluster(s, group_size) else "classic"
 
 
+def stop_threads(threads):
+  """Threads of a stop build with ``threads`` compute threads: whole
+  compute warps, then the stop warp (fista_core.cuh's stop_threads)."""
+  return -(-threads // 32) * 32 + 32
+
+
+def stop_smem(threads):
+  """Bytes of shared memory a stop build takes past its layout: each
+  thread's sum by parity and the decision word (fista_core.cuh's
+  stop_smem)."""
+  return (2 * (-(-threads // 32) * 32) + 4) * 4
+
+
+def cluster_stop_fits(b, s, group_size, slots):
+  """Whether the cluster kernel's stop build takes the shape on a card of
+  ``slots`` cluster slots: M in {1, 2, 4}, one resident wave of at most
+  32 STOP_LANE_WORDS CTAs, room for the stop warp and its shared memory
+  (fista_core.cuh's cluster_stop_fits)."""
+  if group_size < 1 or 4 % group_size or slots < 1:
+    return False
+  rows = cluster_rows(b, s, group_size, slots)
+  if rows < 2:
+    return False
+  clusters = -(-b // rows)
+  lay = cluster_layout(s, group_size, rows)
+  return (clusters <= slots and clusters * CLUSTER <= 32 * STOP_LANE_WORDS
+          and stop_threads(lay["threads"]) <= CLUSTER_MAX_THREADS
+          and lay["smem"] + stop_smem(lay["threads"]) <= _SMEM_PER_BLOCK)
+
+
+def wide_stop_fits(b, s, group_size, slots):
+  """The same for the wide kernel's stop build on a card of ``slots``
+  clusters of wide_cluster's size (fista_core.cuh's wide_stop_fits)."""
+  cluster = wide_cluster(s, group_size)
+  if not cluster or slots < 1:
+    return False
+  rows = wide_rows(b, s, group_size, slots)
+  clusters = -(-b // rows)
+  lay = wide_layout(s, cluster, rows)
+  return (clusters <= slots and clusters * cluster <= 32 * STOP_LANE_WORDS
+          and stop_threads(lay["threads"]) <= WIDE_MAX_THREADS
+          and lay["smem"] + stop_smem(lay["threads"]) <= _SMEM_PER_BLOCK)
+
+
+def stop_route(b, s, group_size, sm_count, cluster_slots, wide_slots):
+  """'cluster', 'wide' or 'classic': the route of a solve with the early
+  stop (fista_core.cuh's stop_route).  solve_route's cluster or wide
+  kernel where its stop build fits one resident wave (``cluster_slots``
+  clusters of 8, ``wide_slots`` clusters of wide_cluster's size), else
+  the classic kernel, an iteration a launch."""
+  route = solve_route(b, s, group_size, sm_count)
+  if route == "cluster" and cluster_stop_fits(b, s, group_size,
+                                              cluster_slots):
+    return "cluster"
+  if route == "wide" and wide_stop_fits(b, s, group_size, wide_slots):
+    return "wide"
+  return "classic"
+
+
+def stop_words(route, b, s, group_size, cluster_slots, wide_slots):
+  """The 64-bit words of the stop's device array on ``route``: two tagged
+  slots per CTA of a cluster or wide launch, or the classic route's
+  STOP_CTL_WORDS control words and one share per block of ROWS rows
+  (fista_core.cuh's stop_words)."""
+  if route == "cluster":
+    rows = cluster_rows(b, s, group_size, cluster_slots)
+    return 2 * -(-b // rows) * CLUSTER if rows >= 2 else 0
+  if route == "wide":
+    rows = wide_rows(b, s, group_size, wide_slots)
+    return 2 * -(-b // rows) * wide_cluster(s, group_size) if rows else 0
+  return STOP_CTL_WORDS + -(-b // ROWS)
+
+
+def stop_scratch(lib, b, s, group_size, route, eps, device, steps=1):
+  """The C entries' early-stop arguments for ``steps`` solves in a row of
+  b rows of s codes in groups of group_size: (eps, the words, the counts
+  (steps,) int32, whether stop_route takes the classic route, which keeps
+  its state in global memory).  eps None is the build without the stop:
+  (-1.0, None, None, False).  A negative or NaN eps never stops, as 0.0
+  does.  The stop takes its own route: ``route`` must be 'auto'."""
+  if eps is None:
+    return -1.0, None, None, False
+  if route != "auto":
+    raise ValueError("the early stop takes stop_route's route, not %r"
+                     % (route,))
+  eps = float(eps)
+  if not eps >= 0.0:
+    eps = 0.0
+  taken = lib.vtc_fista_stop_route(b, s, group_size)
+  words = lib.vtc_fista_stop_words(b, s, group_size)
+  if taken < 0 or words < 0:
+    raise RuntimeError("reading the early stop's route failed with CUDA "
+                       "error %d" % -min(taken, words))
+  return (eps, torch.zeros(words, dtype=torch.int64, device=device),
+          torch.zeros(steps, dtype=torch.int32, device=device),
+          taken == ROUTES["classic"])
+
+
 def _launch(gram, corr, init, eta, lam, num_iters, fista, mode,
-            route="auto"):
+            route="auto", eps=None):
   """Allocate the kernel's scratch and launch it on the current stream.
   route 'classic', 'cluster' or 'wide' forces a kernel (for checks and
-  tools)."""
-  global launches, last_route
+  tools); eps the early stop's threshold (None: none)."""
+  global launches, last_route, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   rows = lib.vtc_fista_rows()
   b, s = corr.shape
   device = corr.device
   sk, sc, state_in_smem = solve_layout(lib, s)
+  eps, words, iters, classic = stop_scratch(lib, b, s, 1, route, eps,
+                                            device)
   gn = torch.empty((sk, sc), dtype=torch.float32, device=device)
-  state = (None if state_in_smem else
+  state = (None if state_in_smem and not classic else
            torch.empty((-(-b // rows), 4, rows, sk), dtype=torch.float32,
                        device=device))
   out = torch.empty((b, s), dtype=torch.float32, device=device)
@@ -324,13 +434,19 @@ def _launch(gram, corr, init, eta, lam, num_iters, fista, mode,
         None if init is None else init.data_ptr(), eta.data_ptr(),
         ctypes.c_float(lam), num_iters, b, s, sk, sc, int(fista), mode,
         gn.data_ptr(), None if state is None else state.data_ptr(),
-        out.data_ptr(), ROUTES[route], ctypes.byref(taken), stream)
+        out.data_ptr(), ROUTES[route], ctypes.byref(taken),
+        ctypes.c_float(eps), ctypes.c_float(1.0 / (b * s)),
+        None if words is None else words.data_ptr(),
+        None if iters is None else iters.data_ptr(), 1, stream)
   if err != 0:
     raise RuntimeError(
         "fused FISTA kernel launch failed with CUDA error %d "
-        "(b=%d, s=%d, route %s, state in %s)" % (
+        "(b=%d, s=%d, route %s, state in %s%s)" % (
             err, b, s, route,
-            "shared memory" if state_in_smem else "global"))
+            "shared memory" if state is None else "global",
+            "" if words is None else ", early stop"))
   launches += 1
   last_route = ROUTE_NAMES[taken.value]
+  if iters is not None:
+    last_iters = iters
   return out

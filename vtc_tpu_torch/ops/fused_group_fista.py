@@ -25,8 +25,14 @@ does.  Then:
   formulation of ``subspace_ista_fista`` and what ``chip_smoke.py`` holds
   the kernel against on the card.
 
-Scope: no in-kernel early stop and only the 'highest' (IEEE fp32) tier;
-both wait in ROADMAP.md §1 item 3.  ``launches`` counts kernel launches.
+``early_stopping_epsilon`` runs vtc_tpu's batch-global stop test
+(pallas_group_fista.py:105-130, the mean over the b*G*M packed entries)
+inside the kernels, on K1's stop routes (``fused_fista.stop_route``);
+``last_iters`` (a private test hook) is the device tensor of the
+iterations the last stopped launch ran.
+
+Scope: only the 'highest' (IEEE fp32) tier; the others wait in
+ROADMAP.md §1 item 3a.2.  ``launches`` counts kernel launches.
 """
 import ctypes
 
@@ -38,6 +44,7 @@ from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 launches = 0
 last_route = None
+last_iters = None
 
 
 def group_prox(x, group_size, t, hard):
@@ -121,8 +128,8 @@ def fused_group_fista_solve(images, grouped_dictionary, group_size,
     initial_grouped: optional (b, G*M) packed warm start (seeds z and
       old), zero in the padded slots.
     variant / hard: 'ista' | 'fista', hard group thresholding.
-    early_stopping_epsilon: CPU tensors only (the plain version's stop
-      test); a CUDA tensor raises, ROADMAP.md §1 item 3.
+    early_stopping_epsilon: optional; the batch-global stop test over the
+      b*G*M packed entries, decided on the device (as fused_fista_solve's).
 
   Returns:
     (b, G*M) packed grouped codes on the inputs' device.
@@ -142,11 +149,6 @@ def fused_group_fista_solve(images, grouped_dictionary, group_size,
   _require(images.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(images.device))
-  if early_stopping_epsilon is not None:
-    raise NotImplementedError(
-        "the fused group kernel has no early stop yet (a batch-global "
-        "reduction per iteration, ROADMAP.md §1 item 3); use "
-        "formulation='gram'")
   device = images.device
   _require(grouped_dictionary.device == device,
            "grouped dictionary on another device")
@@ -177,23 +179,27 @@ def fused_group_fista_solve(images, grouped_dictionary, group_size,
     gram = (grouped_dictionary @ grouped_dictionary.T).contiguous()
     corr = (images @ grouped_dictionary.T).contiguous()
   return _launch(gram, corr, initial_grouped, eta, float(sparsity_weight),
-                 num_iters, group_size, variant == "fista", bool(hard))
+                 num_iters, group_size, variant == "fista", bool(hard),
+                 eps=early_stopping_epsilon)
 
 
 def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard,
-            route="auto"):
+            route="auto", eps=None):
   """Allocate the kernel's scratch and launch it on the current stream.
   route 'classic', 'cluster' or 'wide' forces a kernel
-  (fused_fista.solve_route is the rule 'auto' follows)."""
-  global launches, last_route
+  (fused_fista.solve_route is the rule 'auto' follows, stop_route with
+  the early stop); eps the stop's threshold (None: none)."""
+  global launches, last_route, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   b, gm = corr.shape
   device = corr.device
   sk, sc, state_in_smem = fused_fista.solve_layout(lib, gm)
   rows = lib.vtc_fista_rows()
+  eps, words, iters, classic = fused_fista.stop_scratch(
+      lib, b, gm, group_size, route, eps, device)
   gn = torch.empty((sk, sc), dtype=torch.float32, device=device)
-  state = (None if state_in_smem else
+  state = (None if state_in_smem and not classic else
            torch.empty((-(-b // rows), 4, rows, sk), dtype=torch.float32,
                        device=device))
   out = torch.empty((b, gm), dtype=torch.float32, device=device)
@@ -206,13 +212,19 @@ def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard,
         ctypes.c_float(lam), num_iters, b, gm, group_size, sk, sc,
         int(fista), int(hard), gn.data_ptr(),
         None if state is None else state.data_ptr(), out.data_ptr(),
-        fused_fista.ROUTES[route], ctypes.byref(taken), stream)
+        fused_fista.ROUTES[route], ctypes.byref(taken), ctypes.c_float(eps),
+        ctypes.c_float(1.0 / (b * gm)),
+        None if words is None else words.data_ptr(),
+        None if iters is None else iters.data_ptr(), 1, stream)
   if err != 0:
     raise RuntimeError(
         "fused group FISTA kernel launch failed with CUDA error %d "
-        "(b=%d, G*M=%d, M=%d, route %s, state in %s)" % (
+        "(b=%d, G*M=%d, M=%d, route %s, state in %s%s)" % (
             err, b, gm, group_size, route,
-            "shared memory" if state_in_smem else "global"))
+            "shared memory" if state is None else "global",
+            "" if words is None else ", early stop"))
   launches += 1
   last_route = fused_fista.ROUTE_NAMES[taken.value]
+  if iters is not None:
+    last_iters = iters
   return out

@@ -30,9 +30,15 @@ summed unpack; its ``group_expand_matrix`` has none, because K4's prox
 takes the window M.  ``fused_group_segment_supported`` is the gate of
 the scanned trainer.
 
-Left out: the TPU knob ``interpret``; the in-kernel early stop and the
-``mxu`` tiers other than 'highest' raise NotImplementedError (ROADMAP.md
-§1 item 3).  ``launches`` counts the train steps the kernels ran.
+``early_stopping_epsilon`` stops every step's group solve by vtc_tpu's
+batch-global test over the b*G*M packed entries
+(pallas_train_step.py:665-690) on the device, on K1's stop routes, and
+the Hessian EMA and the update take the stopped codes; ``last_iters`` (a
+private test hook) is the int32 device tensor (k,) of each step's count.
+
+Left out: the TPU knob ``interpret``; the ``mxu`` tiers other than
+'highest' raise NotImplementedError (ROADMAP.md §1 item 3a.2).
+``launches`` counts the train steps the kernels ran.
 
 Also here, the port of TPU kernel K7, ``fused_group_solve_stats_pallas``
 (vtc_tpu/ops/pallas_train_step.py:1112-1209, kernel
@@ -200,9 +206,9 @@ def fused_group_train_segment(
     variant / update_alg / upd_num_iters / hard / renormalize /
       power_iters / lowest_code_val / alignment_penalty: as in vtc_tpu;
       a nonzero penalty needs renormalize (the unit-norm form).
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3).
-    early_stopping_epsilon: CPU tensors only (the plain version's stop
-      test); a CUDA tensor raises, ROADMAP.md §1 item 3.
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2).
+    early_stopping_epsilon: optional; each step's group solve stops by the
+      batch-global test over the b*G*M packed entries, on the device.
     return_stepsize: also return the final step's stepsize 1/eigval, a
       one-element tensor.
 
@@ -217,7 +223,7 @@ def fused_group_train_segment(
     raise ValueError("update_alg must be one of %s" % (UPDATE_ALGS,))
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
         % (mxu,))
   _require(float(alignment_penalty) == 0.0 or renormalize,
            "the anti-alignment regularizer uses the unit-norm gradient "
@@ -240,10 +246,6 @@ def fused_group_train_segment(
   _require(batches.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(batches.device))
-  if early_stopping_epsilon is not None:
-    raise NotImplementedError(
-        "the fused group train kernels have no early stop yet (a "
-        "batch-global reduction per iteration, ROADMAP.md §1 item 3)")
   device = batches.device
   k, b, n = batches.shape
   _require(dictionary.dim() == 2 and dictionary.shape[1] == n,
@@ -268,16 +270,18 @@ def fused_group_train_segment(
            % dim)
   out = _launch(dictionary, hessian, eigvec, batches.contiguous(), groups,
                 float(sparsity_weight), int(inf_num_iters),
-                float(upd_stepsize), **flags)
+                float(upd_stepsize), eps=early_stopping_epsilon, **flags)
   return out if return_stepsize else out[:4]
 
 
 def _launch(dictionary, hessian, eigvec, batches, groups, lam, num_iters,
             upd_step, *, variant, update_alg, upd_num_iters, hard,
-            renormalize, power_iters, lowest_code_val, alignment_penalty):
+            renormalize, power_iters, lowest_code_val, alignment_penalty,
+            eps=None):
   """Allocate state and scratch, copy the group index lists to the
-  device, and enqueue the k steps on the current stream."""
-  global launches
+  device, and enqueue the k steps on the current stream; eps the group
+  solves' early stop (None: none)."""
+  global launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
@@ -289,6 +293,8 @@ def _launch(dictionary, hessian, eigvec, batches, groups, lam, num_iters,
   identity = gm == s and np.array_equal(sel_np, np.arange(s))
   rows = lib.vtc_fista_rows()
   sk, sc, state_in_smem = fused_fista.solve_layout(lib, gm)
+  eps, words, iters, classic = fused_fista.stop_scratch(
+      lib, b, gm, m, "auto", eps, device, steps=k)
   use_reg = alignment_penalty != 0.0
 
   def empty(*shape):
@@ -316,7 +322,8 @@ def _launch(dictionary, hessian, eigvec, batches, groups, lam, num_iters,
   pgram = empty(n, n) if gm > n else None
   resid, grad, eta = empty(b, n), empty(s, n), empty(1)
   gn = empty(sk, sc)
-  state = None if state_in_smem else empty(-(-b // rows), 4, rows, sk)
+  state = (None if state_in_smem and not classic
+           else empty(-(-b // rows), 4, rows, sk))
 
   def ptr(t):
     return None if t is None else t.data_ptr()
@@ -333,12 +340,16 @@ def _launch(dictionary, hessian, eigvec, batches, groups, lam, num_iters,
         int(renormalize), power_iters, f32(1.0 / b), ptr(dg),
         gram.data_ptr(), ptr(pgram), corr.data_ptr(), gcodes.data_ptr(),
         ptr(codes), resid.data_ptr(), grad.data_ptr(), ptr(cmat), ptr(smat),
-        ptr(sdm), eta.data_ptr(), sk, sc, gn.data_ptr(), ptr(state), stream)
+        ptr(sdm), eta.data_ptr(), sk, sc, gn.data_ptr(), ptr(state),
+        f32(eps), f32(1.0 / (b * gm)), ptr(words), ptr(iters), stream)
   if err != 0:
     raise RuntimeError(
         "fused group train step launch failed with CUDA error %d (k=%d, "
-        "b=%d, s=%d, n=%d, G*M=%d)" % (err, k, b, s, n, gm))
+        "b=%d, s=%d, n=%d, G*M=%d%s)" % (
+            err, k, b, s, n, gm, "" if words is None else ", early stop"))
   launches += k
+  if iters is not None:
+    last_iters = iters
   return d, h, v, gcodes if identity else codes, eta
 
 
@@ -408,7 +419,7 @@ def fused_group_solve_stats(dictionary, eigvec, batch, sparsity_weight,
     sparsity_weight, inf_num_iters: Python scalars.
     group_assignments: list of index lists (ragged, may overlap).
     variant / hard / power_iters: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a).
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2).
 
   Returns:
     (codes (b, s) summed, cmat (s, s), bmat (s, n), stat (s,), new_eigvec,
@@ -418,7 +429,7 @@ def fused_group_solve_stats(dictionary, eigvec, batch, sparsity_weight,
     raise ValueError("variant must be 'ista' or 'fista'")
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
         % (mxu,))
   groups = tuple(tuple(int(i) for i in g) for g in group_assignments)
   flags = dict(variant=variant, hard=bool(hard), power_iters=int(power_iters))

@@ -19,12 +19,19 @@ renormalized.
   ``hessian_diagonal_ema`` -> the update rule's ``_update``.
   ``chip_smoke.py`` holds the kernels against it on the card.
 
+``early_stopping_epsilon`` stops every step's solve by vtc_tpu's
+batch-global test (pallas_train_step.py:486-512) on the device, on K1's
+stop routes (``fused_fista.stop_route``), and the Hessian EMA and the
+update take the stopped codes; the segment stays one host call with no
+host wait.  ``last_iters`` (a private test hook) is the int32 device
+tensor (k,) of the iterations each step's solve ran.
+
 Left out: the TPU knobs ``interpret`` and ``batch_tile`` have no
 counterpart on the card (every batch size runs the single-tile
-semantics, which the tiled kernel reproduces); the in-kernel early stop
-and the ``mxu`` tiers other than 'highest' raise NotImplementedError
-(ROADMAP.md §1 item 3).  ``launches`` counts the train steps the kernels
-ran.
+semantics, which the tiled kernel reproduces, and the stop test is
+batch-global at every size); the ``mxu`` tiers other than 'highest'
+raise NotImplementedError (ROADMAP.md §1 item 3a.2).  ``launches``
+counts the train steps the kernels ran.
 
 Also here, the port of TPU kernel K3, ``fused_solve_stats_pallas``
 (vtc_tpu/ops/pallas_train_step.py:940-1007, kernel
@@ -51,6 +58,7 @@ from vtc_tpu_torch.ops.precision import matmul_precision
 
 launches = 0
 stats_launches = 0
+last_iters = None
 
 UPDATE_ALGS = ("sc_steepest_descent", "sc_cheap_quadratic_descent")
 
@@ -118,9 +126,9 @@ def fused_train_segment(dictionary, hessian, eigvec, batches,
       (runtime arguments of the kernels: changing them rebuilds nothing).
     variant / update_alg / upd_num_iters / nonneg / hard / renormalize /
       power_iters / lowest_code_val: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3).
-    early_stopping_epsilon: CPU tensors only (the plain version's stop
-      test); a CUDA tensor raises, ROADMAP.md §1 item 3.
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2).
+    early_stopping_epsilon: optional; each step's solve stops by the
+      batch-global test (fused_fista_solve's), decided on the device.
     return_stepsize: also return the final step's stepsize 1/eigval, a
       one-element tensor (what the kernels keep on the device).
 
@@ -135,7 +143,7 @@ def fused_train_segment(dictionary, hessian, eigvec, batches,
     raise ValueError("update_alg must be one of %s" % (UPDATE_ALGS,))
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
         % (mxu,))
   _require(batches.dim() == 3 and batches.shape[0] >= 1,
            "batches must be (k, b, n) with k >= 1, got %s"
@@ -154,10 +162,6 @@ def fused_train_segment(dictionary, hessian, eigvec, batches,
   _require(batches.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(batches.device))
-  if early_stopping_epsilon is not None:
-    raise NotImplementedError(
-        "the fused train kernels have no early stop yet (a batch-global "
-        "reduction per iteration, ROADMAP.md §1 item 3)")
   device = batches.device
   k, b, n = batches.shape
   _require(dictionary.dim() == 2 and dictionary.shape[1] == n,
@@ -176,16 +180,16 @@ def fused_train_segment(dictionary, hessian, eigvec, batches,
            and int(power_iters) >= 0, "iteration counts must be >= 0")
   out = _launch(dictionary, hessian, eigvec, batches.contiguous(),
                 float(sparsity_weight), int(inf_num_iters),
-                float(upd_stepsize), **flags)
+                float(upd_stepsize), eps=early_stopping_epsilon, **flags)
   return out if return_stepsize else out[:4]
 
 
 def _launch(dictionary, hessian, eigvec, batches, lam, num_iters, upd_step,
             *, variant, update_alg, upd_num_iters, nonneg, hard,
-            renormalize, power_iters, lowest_code_val):
+            renormalize, power_iters, lowest_code_val, eps=None):
   """Allocate state and scratch, enqueue the k steps on the current
-  stream."""
-  global launches
+  stream; eps the solves' early stop (None: none)."""
+  global launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
@@ -193,6 +197,8 @@ def _launch(dictionary, hessian, eigvec, batches, lam, num_iters, upd_step,
   device = batches.device
   rows = lib.vtc_fista_rows()
   sk, sc, state_in_smem = fused_fista.solve_layout(lib, s)
+  eps, words, iters, classic = fused_fista.stop_scratch(
+      lib, b, s, 1, "auto", eps, device, steps=k)
   _require(lib.vtc_power_smem_bytes(min(s, n)) <= fused_fista._SMEM_PER_BLOCK,
            "min(s, n) = %d is too large for the one-block power refresh"
            % min(s, n))
@@ -207,7 +213,8 @@ def _launch(dictionary, hessian, eigvec, batches, lam, num_iters, upd_step,
   pgram = empty(n, n) if s > n else None
   resid, grad, eta = empty(b, n), empty(s, n), empty(1)
   gn = empty(sk, sc)
-  state = None if state_in_smem else empty(-(-b // rows), 4, rows, sk)
+  state = (None if state_in_smem and not classic
+           else empty(-(-b // rows), 4, rows, sk))
 
   def ptr(t):
     return None if t is None else t.data_ptr()
@@ -224,12 +231,16 @@ def _launch(dictionary, hessian, eigvec, batches, lam, num_iters, upd_step,
         power_iters, f32(1.0 / b), gram.data_ptr(), ptr(pgram),
         corr.data_ptr(), codes.data_ptr(), resid.data_ptr(),
         grad.data_ptr(), eta.data_ptr(), sk, sc, gn.data_ptr(),
-        ptr(state), stream)
+        ptr(state), f32(eps), f32(1.0 / (b * s)), ptr(words), ptr(iters),
+        stream)
   if err != 0:
     raise RuntimeError(
         "fused train step launch failed with CUDA error %d (k=%d, b=%d, "
-        "s=%d, n=%d)" % (err, k, b, s, n))
+        "s=%d, n=%d%s)" % (err, k, b, s, n,
+                           "" if words is None else ", early stop"))
   launches += k
+  if iters is not None:
+    last_iters = iters
   return d, h, v, codes, eta
 
 
@@ -275,7 +286,7 @@ def fused_solve_stats(dictionary, eigvec, batch, sparsity_weight,
     batch: (b, n) float32, this shard of the batch.
     sparsity_weight, inf_num_iters: Python scalars.
     variant / nonneg / hard / power_iters: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a).
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2).
 
   Returns:
     (codes (b, s), cmat (s, s), bmat (s, n), stat (s,), new_eigvec, eta):
@@ -286,7 +297,7 @@ def fused_solve_stats(dictionary, eigvec, batch, sparsity_weight,
     raise ValueError("variant must be 'ista' or 'fista'")
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
         % (mxu,))
   flags = dict(variant=variant, nonneg=bool(nonneg), hard=bool(hard),
                power_iters=int(power_iters))

@@ -25,6 +25,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+# test hooks: the iterations the last loop ran, and with a stop test the
+# batch-global means it read (the mean after iteration k at index k - 1)
+last_iters = None
+last_avgs = None
+
 
 def numpy_dtype(dtype: torch.dtype):
   """The numpy scalar type of a torch floating dtype."""
@@ -59,12 +64,15 @@ def proximal_gradient_loop(
   averages over (where vtc_tpu names the axes of the enclosing shard_map),
   or None.
   """
+  global last_iters, last_avgs
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
   use_fista = variant == "fista"
   t_k = numpy_dtype(init_codes.dtype)(1)
   z = old_codes = codes = init_codes
+  last_iters, last_avgs = 0, []
   for k in range(int(num_iters)):
+    last_iters = k + 1
     if prestep_fn is not None:
       codes = prox_fn(prestep_fn(z), stepsize)
     else:
@@ -80,7 +88,8 @@ def proximal_gradient_loop(
       avg_delta = torch.mean(torch.abs(delta))
       if psum_axes is not None:
         avg_delta = psum_axes.mean(avg_delta)
-      avg_delta = avg_delta / stepsize
-      if float(avg_delta) < early_stopping_epsilon:
+      avg_delta = float(avg_delta / stepsize)
+      last_avgs.append(avg_delta)
+      if avg_delta < early_stopping_epsilon:
         break
   return codes

@@ -101,7 +101,7 @@ same dictionary.
   (:810-813), and a warm run's eigenvector is re-seeded after a segment
   that took this runner (:1281-1285).  An early-stopped data-parallel run
   takes it too, where vtc_tpu takes K15, K16 or K17 with their in-kernel
-  stop test: that test waits with every kernel's (ROADMAP.md §1 item 3a).
+  stop test: that test waits with those kernels' (ROADMAP.md §1 item 3a.1).
 * The shuffle permutes the global sample index with the seeded generator
   every rank has, before the shard is taken: a data-parallel run visits
   the samples of the single-device run.  Rank 0 writes checkpoints and
@@ -109,8 +109,10 @@ same dictionary.
 
 Raise NotImplementedError, each naming its ROADMAP.md §1 item:
 'hbm_chunk_steps' streaming (item 8), 'train_precision' other than
-'highest' (item 3), and 'early_stopping_epsilon' where the kernels would
-run it on a CUDA device (item 3).
+'highest' (item 3a.2), and 'early_stopping_epsilon' where the conv or
+data-parallel kernels (K10-K12, K15-K17, K19) would run it on a CUDA
+device (item 3a.1).  The single-device fc and subspace segments stop on
+the device (K2, K6, and K1 in the per-step route).
 """
 import time
 
@@ -147,15 +149,17 @@ def _segment_runner(raw_step, upd_num_iters, warm_power, lip_matrix_fn):
 
 
 def _fused_segment_runner(variant, update_alg, upd_niters, nonneg, hard,
-                          renormalize):
+                          renormalize, early_eps=None):
   """The whole segment through the fused train kernels, warm tracking
-  at power_iters=2 (safe: the trainer seeds the eigenvector exactly)."""
+  at power_iters=2 (safe: the trainer seeds the eigenvector exactly);
+  ``early_eps`` stops each step's solve on the device."""
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
     dictionary, hessian, eigvec, _ = fused_train_step.fused_train_segment(
         dictionary, hessian, eigvec, batches, sw, n_it, upd_step,
         variant=variant, update_alg=update_alg, upd_num_iters=upd_niters,
-        nonneg=nonneg, hard=hard, renormalize=renormalize, power_iters=2)
+        nonneg=nonneg, hard=hard, renormalize=renormalize, power_iters=2,
+        early_stopping_epsilon=early_eps)
     return dictionary, hessian, eigvec
 
   return run
@@ -163,7 +167,7 @@ def _fused_segment_runner(variant, update_alg, upd_niters, nonneg, hard,
 
 def _fused_group_segment_runner(variant, update_alg, upd_niters, hard,
                                 renormalize, group_assignments,
-                                alignment_penalty):
+                                alignment_penalty, early_eps=None):
   """The subspace counterpart of ``_fused_segment_runner``: the whole
   segment through the fused group train kernels (the anti-alignment
   regularizer runs in them too), warm tracking at power_iters=2."""
@@ -175,7 +179,8 @@ def _fused_group_segment_runner(variant, update_alg, upd_niters, hard,
             group_assignments=group_assignments, variant=variant,
             update_alg=update_alg, upd_num_iters=upd_niters, hard=hard,
             renormalize=renormalize, power_iters=2,
-            alignment_penalty=alignment_penalty))
+            alignment_penalty=alignment_penalty,
+            early_stopping_epsilon=early_eps))
     return dictionary, hessian, eigvec
 
   return run
@@ -362,7 +367,7 @@ def train_dictionary_scanned(training_batches, validation_batches,
   if all_params.get("train_precision", "highest") != "highest":
     raise NotImplementedError(
         "train_precision=%r: the reduced-precision tiers wait, ROADMAP.md "
-        "§1 item 3" % (all_params["train_precision"],))
+        "§1 item 3a.2" % (all_params["train_precision"],))
   if all_params.get("hbm_chunk_steps") is not None:
     raise NotImplementedError(
         "hbm_chunk_steps (streaming an epoch larger than device memory) "
@@ -417,11 +422,13 @@ def train_dictionary_scanned(training_batches, validation_batches,
   kernels_route = (conv_formulation in ("auto", "pallas")
                    if mode == "convolutional"
                    else resolved_formulation == "pallas")
-  if early_eps is not None and device.type == "cuda" and kernels_route:
+  if (early_eps is not None and device.type == "cuda" and kernels_route
+      and (mode == "convolutional" or dp_mesh is not None)):
     raise NotImplementedError(
-        "early_stopping_epsilon with the fused CUDA kernels: they have no "
-        "early stop yet, ROADMAP.md §1 item 3; use fc_formulation='gram' "
-        "(conv_formulation='gram' in conv mode)")
+        "early_stopping_epsilon with the conv or data-parallel CUDA kernels "
+        "(K10-K12, K15-K17, K19): their stop test waits, ROADMAP.md §1 "
+        "item 3a.1; use conv_formulation='gram' (fc_formulation='gram' "
+        "for data_parallel)")
   use_fused = device.type == "cuda" and warm_power and kernels_route
   def code_shard_plan(s_now):
     """(whether the code-sharded runner takes the configuration at s_now
@@ -580,7 +587,7 @@ def train_dictionary_scanned(training_batches, validation_batches,
       return _segment_runner(raw_step, upd_niters, warm_power, lip_matrix)
     if use_fused and group_assignments is None:
       return _fused_segment_runner(inference_alg, update_alg, upd_niters,
-                                   nonneg, hard, renormalize)
+                                   nonneg, hard, renormalize, early_eps)
     if use_fused and fused_group_train_step.fused_group_segment_supported(
         inference_alg, update_alg, group_assignments,
         alignment_penalty=alignment_penalty,
@@ -589,7 +596,7 @@ def train_dictionary_scanned(training_batches, validation_batches,
         input_size=training_batches.shape[-1], renormalize=renormalize):
       return _fused_group_segment_runner(
           inference_alg[9:], update_alg, upd_niters, hard, renormalize,
-          group_assignments, alignment_penalty)
+          group_assignments, alignment_penalty, early_eps)
     return _segment_runner(raw_step, upd_niters, warm_power, lip_matrix)
 
   raw_step = make_step()

@@ -38,9 +38,9 @@ writes the checkpoints and the TensorBoard log, and its reset/prune draw
 is broadcast, so the replicated dictionary stays the same on every rank.
 
 Raise NotImplementedError, each naming its ROADMAP.md §1 item:
-profile_dir (item 8), and an early stop where a CUDA kernel would run the
-solve (fc_formulation='pallas', or a conv solve on the card through K10;
-item 3).
+profile_dir (item 8), and an early stop where the conv CUDA kernel K10
+would run the solve on the card (item 3a.1).  With
+``fc_formulation='pallas'`` K1 stops on the device.
 """
 import time
 from pathlib import Path
@@ -166,12 +166,11 @@ def build_raw_step_fn(mode, inference_alg, update_alg, *, nonneg=False,
   (new_dictionary, new_hessian, codes)``.  ``inf_stepsize`` is ignored
   when ``compute_stepsize_in_step`` (1/L comes from the current
   dictionary by ``lipschitz_method``).  ``fc_formulation``: 'gram' |
-  'direct' | 'pallas' (K1's kernel on a CUDA device, which has no early
-  stop yet: with ``early_stopping_epsilon`` a CUDA device raises
-  NotImplementedError, ROADMAP.md §1 item 3; CPU tensors run the plain
-  version, stop test included).  The subspace solve ('subspace_ista',
-  'subspace_fista') runs the 'gram' loop for 'pallas', as vtc_tpu's
-  does, with hard thresholding off (vtc_tpu :173-186).
+  'direct' | 'pallas' (K1's kernel on a CUDA device, with
+  ``early_stopping_epsilon`` its stop test on the device; CPU tensors run
+  the plain version, stop test included).  The subspace solve
+  ('subspace_ista', 'subspace_fista') runs the 'gram' loop for 'pallas',
+  as vtc_tpu's does, with hard thresholding off (vtc_tpu :173-186).
   ``alignment_penalty``: the subspace updates' anti-alignment weight (0
   takes the fc rule).  ``kernel_stride``, ``padding`` and
   ``conv_formulation`` belong to the conv branch (``_build_conv_step``).
@@ -292,8 +291,8 @@ def _build_conv_step(inference_alg, update_alg, *, nonneg, hard_threshold,
             **flags)
       if on_card:
         raise NotImplementedError(
-            "early_stopping_epsilon with the conv CUDA kernel: it has no "
-            "early stop yet, ROADMAP.md §1 item 3; use "
+            "early_stopping_epsilon with the conv CUDA kernel: its stop "
+            "test waits, ROADMAP.md §1 item 3a.1; use "
             "conv_formulation='gram'")
       return fused_conv_direct.fused_conv_direct_plain(
           batch, dictionary, sparsity_weight, num_iters, stepsize,
