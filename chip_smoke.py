@@ -266,13 +266,16 @@ the phases that make its check here.
    must report), and 50 cheap-quadratic fc,
    subspace and conv steps and 50 ICA steps on a mesh of two slices
    (dcn=2), where the trainers take K3, K7, K9 and K13's composition as
-   vtc_tpu does, all through the trainers.  Each rank must count 50 K3,
-   50 K7, 50 K9, 50 K13, 120 K17, 100 K15, 100 K16 and 50 K18 launches and
-   none of K2, K6, K8 or K12; both ranks must return bitwise the same
-   state; and it must match the single-process trainers (K2, K6, K8, K12)
-   on the global batch, the steepest and ICA runs within phase 2's limit,
-   the cheap-quadratic ones within the rounding floor.  A rank's failure
-   fails the run.
+   vtc_tpu does, all through the trainers; then 10 cheap-quadratic conv
+   steps with a mid-run early stop (K17, the rank's share of the stop's
+   sum added over the ranks once an iteration).  Each rank must count 50
+   K3, 50 K7, 50 K9, 50 K13, 130 K17, 100 K15, 100 K16 and 50 K18
+   launches and none of K2, K6, K8 or K12; both ranks must return bitwise
+   the same state (with the stop, the same count every step, some short
+   of 25); and it must match the single-process trainers (K2, K6, K8,
+   K12) on the global batch, the steepest and ICA runs within phase 2's
+   limit, the cheap-quadratic ones within the rounding floor.  A rank's
+   failure fails the run.
 29. Timing: K3, K7 and K9 ms per step at b 250 and at a shard of 125
    against their plain versions and against K2, K6 and K8's whole steps;
    the host's enqueue time per step of their composition.
@@ -460,6 +463,30 @@ the phases that make its check here.
    launch a batch (16 for 32,768 patches) and no fista_kernel,
    fista_cluster_kernel or fold_gram_kernel.  (e) The library time of K1
    and K4: 100 torch.matmul (2048 x 256) @ (256 x 256) in fp32, TF32 off.
+44. The conv family's early stop (csrc/conv_gemm.cuh, "The early stop";
+   phases 13, 14, 16 and 30 run each conv route with an eps once).  (a)
+   K10 at the flagship (b 40 FISTA 100), the trainer's b 5 ISTA 25, the
+   12x12/8 zero-extended geometry and c = 3 nonneg FISTA / hard ISTA, and
+   K11 at the flagship, each with an eps that stops at k = 1, one picked
+   from the plain version's means to stop mid-run, and 0 (never): the
+   stopped codes bitwise those of the same kernel without the stop run to
+   the count it reports, the count the fp32 plain version's (a case whose
+   plain mean lies within 1e-5 relative of eps is reported apart), the
+   codes within phase 2's limit of plain.  (b) The same for one flagship
+   K12 step and one K17 step at a world of 1, every output.  (c) The
+   200-step scanned conv trainer of phase 19 with a mid-run eps: 200 K12
+   steps and no other solve, most solves short of 25 iterations, the
+   kernels finite and unit norm, the held-out loss falling.  (d) The main
+   path with the stop, every count zeroed before and read after:
+   run('pallas') with K10's gate (1 K10) and off it (phase 14's serving
+   geometry: 1 K11), the per-batch trainer (20 K10), the scanned trainer
+   (20 K12) and with data_parallel=True at a world of 1 (20 K17).  (e)
+   The stop's µs an iteration at eps 0 against the build without it, K10
+   at b 40 FISTA and b 5 ISTA, in turns; the stopped K10 against
+   formulation='gram' with the same eps; 20 steps of the scanned trainer
+   with the stop against conv_formulation='gram'; the stop rows' times at
+   this run's counts, their plain versions and (K10, K11) the same loop
+   with cuDNN's products at the count.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -509,11 +536,14 @@ CUDA_TESTS = {
     "test_torch_port_code_shard_persistent.py::"
     "test_cuda_code_shard_persistent_matches_steps_bitwise": (41,),
     "test_torch_port_conv.py::test_cuda_wrappers_raise_and_match_plain": (
-        13, 14),
+        13, 14, 44),
+    "test_torch_port_conv_early_stop.py::test_cuda_conv_stop_matches_plain": (
+        44,),
     "test_torch_port_conv_parallel.py::test_cuda_conv_dp_runs_k13_and_k17": (
         30, 31),
     "test_torch_port_conv_scanned.py::test_cuda_k12_matches_plain": (18,),
-    "test_torch_port_conv_train.py::test_cuda_conv_trainer_runs_k10": (16,),
+    "test_torch_port_conv_train.py::test_cuda_conv_trainer_runs_k10": (
+        16, 44),
     "test_torch_port_ica.py::test_cuda_k8_matches_plain": (20,),
     "test_torch_port_parallel.py::"
     "test_cuda_solve_stats_kernels_match_plain": (26,),
@@ -1665,7 +1695,8 @@ def check_refuses(label, fn, item, counter=None):
 
 def check_runs(label, fn, counter):
   """fn, which raised before the early stop reached the fc/subspace
-  kernels (phase 43), runs and launches counter's kernel."""
+  kernels (phase 43) or the conv kernels (phase 44), runs and launches
+  counter's kernel."""
   before = counter.launches
   fn()
   check(counter.launches > before, "%s launched no kernel" % label)
@@ -2041,9 +2072,11 @@ def dp2_conv_images(torch):
                              DP_STEPS2, gen, seed=28)
 
 
-def dp2_run(torch, family, alg, upd, steps, data, data_parallel, dcn=1):
+def dp2_run(torch, family, alg, upd, steps, data, data_parallel, dcn=1,
+            eps=None):
   """One world-of-2 run, or its single-process twin on the global batch:
-  ``steps`` steps through the trainers' entry points."""
+  ``steps`` steps through the trainers' entry points; ``eps`` the solves'
+  early stop (conv)."""
   from vtc_tpu_torch import parallel
   from vtc_tpu_torch.training import compiled_epoch, ica
   dev = torch.device("cuda", 0)
@@ -2064,6 +2097,8 @@ def dp2_run(torch, family, alg, upd, steps, data, data_parallel, dcn=1):
               else subspace_train_params(steps, SUB_STEP))
   if alg is not None:
     params["dictionary_update_algorithm"] = alg
+  if eps is not None:
+    params["early_stopping_epsilon"] = eps
   x = data[family + "_x"][:steps]
   return compiled_epoch.train_dictionary_scanned(
       x, x[:1], data[family + "_d0" if family == "conv" else "d0"],
@@ -2099,6 +2134,12 @@ def dp_rank_main(rank, world, workdir):
                          dcn).cpu().numpy()
       if key == "ica":  # K18's route: two launches a step around the hook
         out["ica route"] = np.array(K8.last_route)
+    # K17 with the stop: one share sum over the ranks an iteration (phase
+    # 44)
+    out["conv stop"] = dp2_run(
+        torch, "conv", None, 1, DP2_STOP_STEPS, data, True,
+        eps=float(data["conv_stop_eps"])).cpu().numpy()
+    out["conv stop counts"] = K17.last_iters.cpu().numpy()
     torch.cuda.synchronize()
     out["launches"] = np.array([
         K2.stats_launches, K6.stats_launches, K8.stats_launches,
@@ -2142,10 +2183,21 @@ def dp_world_of_two(torch, fc_x, sub_x, d0, conv_d0, dev):
   g = torch.Generator(device=dev).manual_seed(280)
   ica_x = gapped_mixtures(torch, dev, DP_STEPS2 * ICA_BATCH, mixing,
                           g).reshape(DP_STEPS2, ICA_BATCH, ICA_N)
+  # the stop run's eps: a mid-run stop of the conv runs' first solve
+  from vtc_tpu_torch.ops import fused_conv_train, lipschitz, solver
+  conv_x = dp2_conv_images(torch)
+  fused_conv_train.fused_conv_train_plain(
+      conv_d0, torch.zeros(CONV_S, device=dev),
+      lipschitz.top_gram_eigenpair(conv_d0.reshape(CONV_S, -1))[1],
+      conv_x[:1], CONV_LAM, SEG_ITERS, SEG_STEP,
+      kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=((8, 8), (8, 8)),
+      power_iters=2, early_stopping_epsilon=0.0)
+  stop_eps_dp = stop_eps(solver.last_avgs, "mid")
   data = {"fc_x": fc_x[:DP_STEPS2].cpu().numpy(),
           "subspace_x": sub_x[:DP_STEPS2].cpu().numpy(),
           "d0": d0.cpu().numpy(), "ica_x": ica_x.cpu().numpy(),
-          "ica_d0": mixing.cpu().numpy(), "conv_d0": conv_d0.cpu().numpy()}
+          "ica_d0": mixing.cpu().numpy(), "conv_d0": conv_d0.cpu().numpy(),
+          "conv_stop_eps": np.array(stop_eps_dp)}
   with tempfile.TemporaryDirectory() as workdir:
     np.savez(os.path.join(workdir, "inputs.npz"), **data)
     t0 = time.perf_counter()
@@ -2167,7 +2219,8 @@ def dp_world_of_two(torch, fc_x, sub_x, d0, conv_d0, dev):
   # the 'dcn' runs take K3, K7, K9 and K13's composition, every other run
   # K15, K16, K18 or K17, the sum called back from the kernel's C loop
   want = dict(K3=DP_STEPS2, K7=DP_STEPS2, K9=DP_STEPS2, K13=DP_STEPS2,
-              K17=2 * DP_STEPS2 + DP_GRAM_STEPS2, K15=2 * DP_STEPS2,
+              K17=2 * DP_STEPS2 + DP_GRAM_STEPS2 + DP2_STOP_STEPS,
+              K15=2 * DP_STEPS2,
               K16=2 * DP_STEPS2, K18=DP_STEPS2, K2=0, K6=0, K8=0, K12=0)
   want_launches = [want[name] for name in DP2_COUNTS]
   for rank, out in enumerate(ranks):
@@ -2194,7 +2247,25 @@ def dp_world_of_two(torch, fc_x, sub_x, d0, conv_d0, dev):
         "(front and back launches of ica_segment_kernel around the hook)"
         % (dt, ", ".join("%d %s" % (want[name], name)
                          for name in DP2_COUNTS[:8])))
-  data["conv_x"] = dp2_conv_images(torch)
+  data["conv_x"] = conv_x
+  counts = [out["conv stop counts"].tolist() for out in ranks]
+  check(np.array_equal(ranks[0]["conv stop"], ranks[1]["conv stop"])
+        and counts[0] == counts[1] and len(counts[0]) == DP2_STOP_STEPS,
+        "K17 with the stop at a world of 2: the ranks differ (counts %s)"
+        % counts)
+  single = dp2_run(torch, "conv", None, 1, DP2_STOP_STEPS, data, False,
+                   eps=stop_eps_dp)
+  err = float(np.abs(ranks[0]["conv stop"] - single.cpu().numpy()).max())
+  print("world of 2  conv cheap-quad with the stop (eps %.4g, K17, one "
+        "share sum an iteration): ranks bitwise equal, the same counts "
+        "every step %s; vs the single-process trainer (K12 with the stop) "
+        "max|d| %.3e, rounding floor %.3e" % (stop_eps_dp, counts[0], err,
+                                              DP_FLOOR))
+  check(np.isfinite(ranks[0]["conv stop"]).all() and err <= DP_FLOOR,
+        "K17 with the stop at a world of 2 differs from the single-process "
+        "run by %.3e" % err)
+  check(min(counts[0]) < SEG_ITERS, "no solve stopped early at a world of "
+        "2: %s" % counts[0])
   for key, family, alg, upd, steps, _ in DP2_RUNS:
     check(np.array_equal(ranks[0][key], ranks[1][key]),
           key + ": the two ranks' replicated state is not bitwise equal")
@@ -2477,13 +2548,14 @@ def conv_dp_kernel_cases(torch, K17, K12, parallel, compiled_epoch, conv_ops,
                                np.float32), device=dev)
   d3 = torch.tensor(unit_kernels(rng, 6, 3, 4), device=dev)
   six = torch.ones(6, device=dev)
+  check_runs("K17 early_stopping_epsilon", lambda: (
+      K17.fused_conv_dp_train_segment(d, h, v, x2[:, :2], CONV_LAM, 5,
+                                      SEG_STEP, early_stopping_epsilon=1e-3,
+                                      **kw)), K17)
   for label, call, kind, item in (
       ("K17 mxu='bf16x3'", lambda: K17.fused_conv_dp_train_segment(
           d, h, v, x2[:, :2], CONV_LAM, 5, SEG_STEP, mxu="bf16x3", **kw),
        NotImplementedError, "item 3a"),
-      ("K17 early_stopping_epsilon", lambda: K17.fused_conv_dp_train_segment(
-          d, h, v, x2[:, :2], CONV_LAM, 5, SEG_STEP,
-          early_stopping_epsilon=1e-3, **kw), NotImplementedError, "item 3a"),
       ("K17 gram form at padding 2, stride 4",
        lambda: K17.fused_conv_dp_train_segment(
            d3, six, six, x3, 0.05, 5, 0.05, mesh=mesh1, kernel_stride=(4, 4),
@@ -3275,27 +3347,42 @@ def cluster_route_cases(torch, K1, K4, lib, dev):
                         ((1024, 1), (104, 26)))
 
 
+PROFILE_PAD_S = 0.25  # idle host time on each side of a profiled call
+
+
+def device_events(torch, fn):
+  """The device events of one call of fn, from torch.profiler. The
+  profiler drops a device event that its clock places outside the window
+  between its start and its stop; a window that closed just after the
+  card finished lost the last launches of a call now and then (19 of 20,
+  196 of 200), so the window opens and closes PROFILE_PAD_S away from
+  the call's work."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    time.sleep(PROFILE_PAD_S)
+    fn()
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_PAD_S)
+  return [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def solve_dispatch(torch, fn):
   """{'cluster': n, 'wide': n, 'classic': n, 'fold': n}: launches of
   fista_core.cuh's kernels (fista_cluster_kernel, fista_wide_kernel,
   fista_kernel, fold_gram_kernel) in one call of fn, from
   torch.profiler's device events."""
-  from torch.profiler import ProfilerActivity, profile
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    fn()
-    torch.cuda.synchronize()
   out = {"cluster": 0, "wide": 0, "classic": 0, "fold": 0}
-  for e in prof.events():
-    if e.device_type == torch.autograd.DeviceType.CUDA:
-      for key, name in (("cluster", "fista_cluster_kernel"),
-                        ("wide", "fista_wide_kernel"),
-                        ("classic", "fista_kernel"),
-                        ("fold", "fold_gram_kernel")):
-        if name in e.name:
-          out[key] += 1
-          break
+  for e in device_events(torch, fn):
+    for key, name in (("cluster", "fista_cluster_kernel"),
+                      ("wide", "fista_wide_kernel"),
+                      ("classic", "fista_kernel"),
+                      ("fold", "fold_gram_kernel")):
+      if name in e.name:
+        out[key] += 1
+        break
   return out
 
 
@@ -3314,16 +3401,9 @@ def gemm_profile(torch, fn):
   """{'tiled': [launches, device ms], 'line': [...]}: the gathered GEMM's
   two kernels (csrc/conv_gemm.cuh) in one call of fn, from
   torch.profiler's device events."""
-  from torch.profiler import ProfilerActivity, profile
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    fn()
-    torch.cuda.synchronize()
   out = {"tiled": [0, 0.0], "line": [0, 0.0]}
-  for e in prof.events():
-    if (e.device_type == torch.autograd.DeviceType.CUDA
-        and "gather_gemm" in e.name):
+  for e in device_events(torch, fn):
+    if "gather_gemm" in e.name:
       slot = out["tiled" if "gather_gemm_tiled" in e.name else "line"]
       slot[0] += 1
       slot[1] += (e.time_range.end - e.time_range.start) / 1e3
@@ -3705,6 +3785,226 @@ def stop_train_step_cases(torch, K2, K6, solver, lipschitz, train_patches,
 
 
 # ---------------------------------------------------------------------------
+# phase 44: the conv family's early stop (csrc/conv_gemm.cuh, "The early
+# stop"): K10, K11, K12 and K17
+# ---------------------------------------------------------------------------
+CONV_STOP_STEPS = 200     # the scanned trainer with the stop (phase 19's)
+CONV_STOP_GRAM_STEPS = 20  # its 'gram' formulation, timed beside it
+DP2_STOP_STEPS = 10       # phase 28's world-of-2 run with the stop
+
+
+def conv_stop_case(torch, label, mod, run, plain, which, eps, names,
+                   near):
+  """One stopped case: ``run(eps, iters)`` the kernel's call (eps None:
+  without the stop), ``plain(eps)`` its fp32 plain version; mod.last_iters
+  the kernel's counts.  The stopped outputs must be bitwise those of the
+  kernel without the stop run to the count it reports, the count the
+  plain version's (a case whose plain mean lies within 1e-5 relative of
+  eps goes to ``near`` instead), and every output within phase 2's limit
+  of plain.  Returns (count, the largest difference against plain)."""
+  got = run(eps, None)
+  it = int(mod.last_iters[-1].item())
+  ref = run(None, it)
+  want = plain(eps)
+  plain_it, plain_avgs = solver_state()
+  torch.cuda.synchronize()
+  got, ref, want = (t if isinstance(t, tuple) else (t,)
+                    for t in (got, ref, want))
+  for what, g, r in zip(names, got, ref):
+    check(torch.equal(g, r), "%s eps %s: the stopped %s (%d it) differs "
+          "from the kernel's without the stop at %d of %d entries" % (
+              label, which, what, it, int((g != r).sum()), g.numel()))
+  if eps > 0 and any(abs(a - eps) <= 1e-5 * eps for a in plain_avgs):
+    near.append("%s eps %s: kernel %d it, plain %d" % (label, which, it,
+                                                        plain_it))
+    return it, 0.0
+  check(it == plain_it, "%s eps %s (%.4g): the kernel ran %d iterations, "
+        "the plain version %d" % (label, which, eps, it, plain_it))
+  worst = 0.0
+  for what, g, w in zip(names, got, want):
+    err = float((g - w).abs().max())
+    lim = limit(w) if float(w.abs().max()) > 0 else TOL
+    check(bool(torch.isfinite(g).all()) and err <= lim,
+          "%s eps %s: %s differs from plain by %.3e, limit %.3e" % (
+              label, which, what, err, lim))
+    worst = max(worst, err)
+  return it, worst
+
+
+def solver_state():
+  """(iterations, means) of the plain loop's last run."""
+  from vtc_tpu_torch.ops import solver
+  return solver.last_iters, list(solver.last_avgs)
+
+
+def conv_stop_solve_cases(torch, K10, K11, conv_ops, lipschitz, x_flag,
+                          flag_d, padding, dev):
+  """Phase 44 (a): K10 at the flagship (b 40 FISTA 100), the trainer's b 5
+  ISTA 25, the 12x12/8 zero-extended geometry and c = 3 nonneg / hard;
+  K11 at phase 14's flagship; each with an eps stopping at k 1, one
+  stopping mid-run and 0 (never).  Returns (cases, {label: counts},
+  {module: the largest difference against plain}, the near cases,
+  {label: the mid eps})."""
+  stride = (CONV_STRIDE, CONV_STRIDE)
+  x = torch.tensor(x_flag[:CONV_BATCH], device=dev)
+  d = torch.tensor(flag_d, device=dev)
+  eta = lipschitz.fista_stepsize(d.reshape(CONV_S, -1))
+  kw = dict(kernel_stride=stride, padding=padding)
+  d_init = torch.tensor(unit_kernels(np.random.RandomState(2), CONV_S, 1,
+                                     CONV_K), device=dev)
+  gen12 = windowed_kernels(np.random.RandomState(0), CONV_S, 1, 12)
+  x12, pad12 = conv_images(torch, conv_ops, dev, CONV_BATCH, gen12,
+                           CONV_STRIDE, CONV_IMG, seed=3)
+  d12 = torch.tensor(gen12, device=dev)
+  rng = np.random.RandomState(5)
+  x3 = torch.tensor(np.pad(rng.randn(3, 3, 16, 16),
+                           ((0, 0), (0, 0), (2, 2), (2, 2))).astype(
+                               np.float32), device=dev)
+  d3 = torch.tensor(unit_kernels(rng, 6, 3, 4), device=dev)
+  kw3 = dict(kernel_stride=(2, 2), padding=((2, 2), (2, 2)))
+  # (label, module, x, d, lambda, iters, eta, flags)
+  cases = [
+      ("K10 flagship b40 fista100", K10, x, d, CONV_LAM, CONV_ITERS, eta,
+       kw),
+      ("K10 trainer b5 ista25", K10, x[:CONV_TRAIN_BATCH], d_init, CONV_LAM,
+       CONV_TRAIN_ITERS, lipschitz.fista_stepsize(
+           d_init.reshape(CONV_S, -1)), dict(kw, variant="ista")),
+      ("K10 12x12/8 zero-extended b40 fista100", K10,
+       torch.tensor(x12, device=dev), d12, CONV_LAM, CONV_ITERS,
+       lipschitz.fista_stepsize(d12.reshape(CONV_S, -1)),
+       dict(kernel_stride=stride, padding=pad12)),
+      ("K10 c3 4x4/2 fista nonneg", K10, x3, d3, 0.05, 20,
+       0.5 * lipschitz.fista_stepsize(d3.reshape(6, -1)),
+       dict(kw3, nonneg=True)),
+      ("K10 c3 4x4/2 ista hard", K10, x3, d3, 0.05, 20,
+       0.5 * lipschitz.fista_stepsize(d3.reshape(6, -1)),
+       dict(kw3, variant="ista", hard=True)),
+      ("K11 flagship b40 fista100", K11, x, d, CONV_LAM, CONV_ITERS, eta,
+       kw),
+  ]
+  n, counts, worst, near, mids = 0, {}, {K10: 0.0, K11: 0.0}, [], {}
+  for label, mod, xc, dc, lam, iters, step, flags in cases:
+    direct = mod is K10
+    solve = K10.fused_conv_direct_solve if direct else \
+        K11.fused_conv_fista_solve
+    plain_fn = K10.fused_conv_direct_plain if direct else \
+        K11.fused_conv_fista_plain
+
+    def run(eps, count):
+      return solve(xc, dc, lam, iters if count is None else count, step,
+                   early_stopping_epsilon=eps, **flags)
+
+    def plain(eps):
+      return plain_fn(xc, dc, lam, iters, step, early_stopping_epsilon=eps,
+                      **flags)
+
+    plain(0.0)
+    avgs = solver_state()[1]
+    its = []
+    for which in ("early", "mid", "never"):
+      eps = stop_eps(avgs, which)
+      it, err = conv_stop_case(torch, label, mod, run, plain, which, eps,
+                               ("codes",), near)
+      its.append(it)
+      worst[mod] = max(worst[mod], err)
+      n += 1
+    counts[label], mids[label] = its, stop_eps(avgs, "mid")
+    print("stop, %-40s counts (k 1, mid, never) %s of %d; bitwise the "
+          "kernel without the stop at the count" % (label, its, iters))
+  return n, counts, worst, near, mids
+
+
+def conv_stop_step_cases(torch, K12, K17, parallel, lipschitz, x_flag,
+                         flag_d, padding, dev):
+  """Phase 44 (b): one flagship K12 step (b 40 FISTA 25) and one K17 step
+  at a world of 1 with eps stopping at k 1, mid-run and never, against
+  the same kernel without the stop at the count and the plain versions.
+  Returns (cases, {module: the largest difference}, the near cases, the
+  mid eps)."""
+  x = torch.tensor(x_flag[:SEG_BATCH], device=dev)[None]
+  d = torch.tensor(flag_d, device=dev)
+  h = torch.full((CONV_S,), 0.01, device=dev)
+  v = lipschitz.top_gram_eigenpair(d.reshape(CONV_S, -1))[1].contiguous()
+  kw = dict(kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=padding,
+            power_iters=2)
+  mesh1 = parallel.make_mesh()
+  K12.fused_conv_train_plain(d, h, v, x, CONV_LAM, SEG_ITERS, SEG_STEP,
+                             early_stopping_epsilon=0.0, **kw)
+  avgs = solver_state()[1]
+  n, worst, near, mid = 0, {K12: 0.0, K17: 0.0}, [], stop_eps(avgs, "mid")
+  for label, mod, seg, plain_seg, extra in (
+      ("K12 flagship step", K12, K12.fused_conv_train_segment,
+       K12.fused_conv_train_plain, {}),
+      ("K17 flagship step, world of 1", K17,
+       K17.fused_conv_dp_train_segment, K17.fused_conv_dp_train_plain,
+       {"mesh": mesh1})):
+
+    def run(eps, count):
+      return seg(d, h, v, x, CONV_LAM, SEG_ITERS if count is None else count,
+                 SEG_STEP, early_stopping_epsilon=eps, **kw, **extra)
+
+    def plain(eps):
+      return plain_seg(d, h, v, x, CONV_LAM, SEG_ITERS, SEG_STEP,
+                       early_stopping_epsilon=eps, **kw, **extra)
+
+    its = []
+    for which in ("early", "mid", "never"):
+      eps = stop_eps(avgs, which)
+      it, err = conv_stop_case(torch, label, mod, run, plain, which, eps,
+                               K17_NAMES, near)
+      its.append(it)
+      worst[mod] = max(worst[mod], err)
+      n += 1
+    print("stop, %-40s counts (k 1, mid, never) %s of %d; every output "
+          "bitwise the kernel without the stop at the count, max|d| from "
+          "plain %.3e" % (label, its, SEG_ITERS, worst[mod]))
+  return n, worst, near, mid
+
+
+def conv_stop_trainer(torch, compiled_epoch, K10, K11, K12, sparse_coding,
+                      conv_ista_fista, batches, held, d0, eps):
+  """Phase 44 (c): the scanned conv trainer at measure_conv(40, 25) with a
+  mid-run eps, CONV_STOP_STEPS steps: every step on K12 (no K10 or K11
+  launch), most solves ending before SEG_ITERS, the kernels finite and
+  unit norm, the held-out loss falling.  Returns (seconds, counts)."""
+  K12.launches = K10.launches = K11.launches = 0
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  trained = compiled_epoch.train_dictionary_scanned(
+      batches[:CONV_STOP_STEPS], held[None], d0,
+      dict(conv_segment_params(CONV_STOP_STEPS, SEG_STEP),
+           early_stopping_epsilon=eps))
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  counts = K12.last_iters.tolist()
+  launches = (K12.launches, K10.launches + K11.launches)
+  norm_err = float((torch.linalg.vector_norm(
+      trained.reshape(CONV_S, -1), dim=1) - 1).abs().max())
+  loss0 = held_out_fista_conv_loss(conv_ista_fista, sparse_coding, held, d0)
+  loss1 = held_out_fista_conv_loss(conv_ista_fista, sparse_coding, held,
+                                   trained)
+  below = sum(c < SEG_ITERS for c in counts)
+  print("conv scanned trainer with the stop (eps %.4g): %d K12 steps, %d "
+        "K10/K11 solves; %d of %d solves ended before %d iterations (mean "
+        "%.2f, min %d, max %d); kernels unit norm within %.2e; held-out "
+        "loss %.6f -> %.6f" % (
+            eps, *launches, below, len(counts), SEG_ITERS,
+            float(np.mean(counts)), min(counts), max(counts), norm_err,
+            loss0, loss1))
+  check(launches == (CONV_STOP_STEPS, 0) and len(counts) == CONV_STOP_STEPS,
+        "expected %d K12 steps and no other solve, counted %s (%d counts)" % (
+            CONV_STOP_STEPS, launches, len(counts)))
+  check(2 * below > len(counts), "most solves should stop early: %d of %d"
+        % (below, len(counts)))
+  check(bool(torch.isfinite(trained).all()) and norm_err <= 1e-4,
+        "the kernels are not finite and unit norm (%.3e)" % norm_err)
+  check(np.isfinite(loss1) and loss1 < loss0,
+        "held-out conv LASSO loss did not fall: %.6f -> %.6f" % (loss0,
+                                                                 loss1))
+  return seconds, counts
+
+
+# ---------------------------------------------------------------------------
 # phase 40: the persistent ICA segment kernel (csrc/ica_segment.cuh)
 # ---------------------------------------------------------------------------
 ICA_STEP_KERNELS = ("gemm_kernel", "sign_kernel", "residual_kernel",
@@ -3979,22 +4279,15 @@ def cs_dispatch(torch, fn):
   code_shard_solve_kernel and of the per-step route's solve kernels in
   one call of fn, and the solve kernel's device time per launch, from
   torch.profiler's device events."""
-  from torch.profiler import ProfilerActivity, profile
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    fn()
-    torch.cuda.synchronize()
   out = {"solve": 0, "steps": 0}
   us = 0.0
-  for e in prof.events():
-    if e.device_type == torch.autograd.DeviceType.CUDA:
-      if "code_shard_solve_kernel" in e.name:
-        out["solve"] += 1
-        us += e.time_range.elapsed_us()
-      elif any("(anonymous namespace)::" + k in e.name
-               for k in CS_STEP_KERNELS):
-        out["steps"] += 1
+  for e in device_events(torch, fn):
+    if "code_shard_solve_kernel" in e.name:
+      out["solve"] += 1
+      us += e.time_range.elapsed_us()
+    elif any("(anonymous namespace)::" + k in e.name
+             for k in CS_STEP_KERNELS):
+      out["steps"] += 1
   out["solve_ms"] = us / 1e3 / max(out["solve"], 1)
   return out
 
@@ -4016,20 +4309,13 @@ def ica_dispatch(torch, fn):
   """{'segment': n, 'steps': n}: launches of ica_segment_kernel and of the
   per-step route's kernels in one call of fn, from torch.profiler's device
   events."""
-  from torch.profiler import ProfilerActivity, profile
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    fn()
-    torch.cuda.synchronize()
   out = {"segment": 0, "steps": 0}
-  for e in prof.events():
-    if e.device_type == torch.autograd.DeviceType.CUDA:
-      if "ica_segment_kernel" in e.name:
-        out["segment"] += 1
-      elif any("(anonymous namespace)::" + k in e.name
-               for k in ICA_STEP_KERNELS):
-        out["steps"] += 1
+  for e in device_events(torch, fn):
+    if "ica_segment_kernel" in e.name:
+      out["segment"] += 1
+    elif any("(anonymous namespace)::" + k in e.name
+             for k in ICA_STEP_KERNELS):
+      out["steps"] += 1
   return out
 
 
@@ -4399,10 +4685,9 @@ def main():
   rcx = torch.tensor(cimages[:2], device=dev)
   rck = torch.tensor(conv_gen, device=dev)
   rckw = dict(kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=cpad)
-  check_refuses("K10 early_stopping_epsilon", lambda: (
+  check_runs("K10 early_stopping_epsilon", lambda: (
       K10.fused_conv_direct_solve(rcx, rck, CONV_LAM, 5, 0.1,
-                                  early_stopping_epsilon=1e-3, **rckw)),
-                "3", K10)
+                                  early_stopping_epsilon=1e-3, **rckw)), K10)
   check_refuses("conv run('pallas') mxu_precision='bf16'", lambda: (
       conv_ista_fista.run(rcx, rck, (CONV_STRIDE, CONV_STRIDE), cpad,
                           CONV_LAM, 5, formulation="pallas",
@@ -4412,10 +4697,9 @@ def main():
   # turns away
   conv_err_gram = conv_gram_cases(torch, K11, lipschitz, cimages, conv_gen,
                                   cpad, k10_codes, dev)
-  check_refuses("K11 early_stopping_epsilon", lambda: (
+  check_runs("K11 early_stopping_epsilon", lambda: (
       K11.fused_conv_fista_solve(rcx, rck, CONV_LAM, 5, 0.1,
-                                 early_stopping_epsilon=1e-3, **rckw)),
-                "3", K11)
+                                 early_stopping_epsilon=1e-3, **rckw)), K11)
   gen3 = windowed_kernels(np.random.RandomState(7), CONV_S, 3, 32)
   x3, pad3 = conv_images(torch, conv_ops, dev, 16, gen3, 16, CONV_IMG,
                          seed=7)
@@ -4515,10 +4799,10 @@ def main():
   check(np.isfinite(closs1) and closs1 < closs0,
         "held-out conv LASSO loss did not fall: %.6f -> %.6f" % (
             closs0, closs1))
-  check_refuses("conv train_dictionary early_stopping_epsilon", lambda: (
+  check_runs("conv train_dictionary early_stopping_epsilon", lambda: (
       sparse_coding.train_dictionary(
           cbatches[:2], cheld[None], cd0,
-          dict(conv_train_params(2), early_stopping_epsilon=1e-3))), "3", K10)
+          dict(conv_train_params(2), early_stopping_epsilon=1e-3))), K10)
 
   # phase 17: conv timing (warm)
   xc = torch.tensor(cimages[:CONV_BATCH], device=dev)
@@ -5901,11 +6185,221 @@ def main():
             *stop_times["K1"], *stop_times["K4"], BATCH, *stop_times["K2"],
             *stop_times["K6"], k2_stop_it, k6_stop_it, card))
 
+
+  # phase 44: the conv family's early stop (csrc/conv_gemm.cuh, "The early
+  # stop"): K10 and K11 with the stop against the same kernel without it at
+  # the count it reports, at the plain version's count and within phase
+  # 2's limit of it; one flagship K12 and K17 step likewise; the scanned
+  # conv trainer with a mid-run eps; the main path with the stop
+  # (counted); the stop's cost an iteration; the stopped K10 and the
+  # trainer against formulation 'gram' with the same eps
+  t44 = time.perf_counter()
+  n_cstop, cstop_counts, cstop_err, cstop_near, cstop_mid = (
+      conv_stop_solve_cases(torch, K10, K11, conv_ops, lipschitz, cimages,
+                            conv_gen, cpad, dev))
+  n_sstop, sstop_err, sstop_near, _ = conv_stop_step_cases(
+      torch, K12, K17, parallel, lipschitz, cimages, conv_gen, cpad, dev)
+  cnear = cstop_near + sstop_near
+  print("phase 44: %d stopped K10/K11 solves and %d stopped K12/K17 steps "
+        "bitwise the kernel without the stop at the count, at the plain "
+        "version's count, within %.3e of plain; %d with a plain mean within "
+        "1e-5 relative of eps%s" % (
+            n_cstop, n_sstop, max(list(cstop_err.values())
+                                  + list(sstop_err.values())), len(cnear),
+            "".join("\n  near eps: " + c for c in cnear)))
+  # phase 19's segment again (its images were freed after phase 32)
+  stop_images = conv_segment_images(torch, conv_ops, dev, CONV_STOP_STEPS + 1,
+                                    conv_gen, seed=19)
+  stop_batches, stop_held = (stop_images[:CONV_STOP_STEPS],
+                             stop_images[CONV_STOP_STEPS])
+  # the trainers' eps: a mid-run stop of the first step's solve
+  ctrain_h = torch.zeros(CONV_S, device=dev)
+  ctrain_v = lipschitz.top_gram_eigenpair(
+      sd0.reshape(CONV_S, -1))[1].contiguous()
+  seg_kw = dict(kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=cpad,
+                power_iters=2)
+  K12.fused_conv_train_plain(sd0, ctrain_h, ctrain_v, stop_batches[:1],
+                             CONV_LAM, SEG_ITERS, SEG_STEP,
+                             early_stopping_epsilon=0.0, **seg_kw)
+  seg_eps = stop_eps(solver.last_avgs, "mid")
+  ctrain_stop_s, ctrain_counts = conv_stop_trainer(
+      torch, compiled_epoch, K10, K11, K12, sparse_coding, conv_ista_fista,
+      stop_batches, stop_held, sd0, seg_eps)
+  # the per-batch trainer's and the serving path's eps
+  K10.fused_conv_direct_plain(xt5, cd0, CONV_LAM, CONV_TRAIN_ITERS, eta5,
+                              variant="ista", early_stopping_epsilon=0.0,
+                              **ckw)
+  b5_eps = stop_eps(solver.last_avgs, "mid")
+  x3_44 = torch.tensor(x3[:8], device=dev)
+  K11.fused_conv_fista_plain(x3_44, d3, CONV_LAM, CONV_ITERS, eta3,
+                             kernel_stride=(16, 16), padding=pad3,
+                             early_stopping_epsilon=0.0)
+  k11_eps = stop_eps(solver.last_avgs, "mid")
+  flag_eps = cstop_mid["K10 flagship b40 fista100"]
+  # the main path with the stop: every count zeroed just before, read just
+  # after: run('pallas') with K10's gate and without it (K11), the
+  # per-batch trainer (K10), the scanned trainer (K12) and with
+  # data_parallel=True at a world of 1 (K17)
+  main_steps = 20
+  for mod in (K10, K11, K12, K17):
+    mod.launches = 0
+  conv_ista_fista.run(xc, conv_d, (CONV_STRIDE, CONV_STRIDE), cpad, CONV_LAM,
+                      CONV_ITERS, formulation="pallas",
+                      early_stopping_epsilon=flag_eps, stepsize=ceta)
+  conv_ista_fista.run(x3_44, d3, (16, 16), pad3, CONV_LAM, CONV_ITERS,
+                      formulation="pallas", early_stopping_epsilon=k11_eps,
+                      stepsize=eta3)
+  sparse_coding.train_dictionary(
+      cbatches[:main_steps], cheld[None], cd0,
+      dict(conv_train_params(main_steps), early_stopping_epsilon=b5_eps))
+  seg_params = dict(conv_segment_params(main_steps, SEG_STEP),
+                    early_stopping_epsilon=seg_eps)
+  compiled_epoch.train_dictionary_scanned(stop_batches[:main_steps],
+                                          stop_held[None], sd0, seg_params)
+  compiled_epoch.train_dictionary_scanned(
+      stop_batches[:main_steps], stop_held[None], sd0,
+      dict(seg_params, data_parallel=True))
+  torch.cuda.synchronize()
+  cstop_launches = {mod: mod.launches for mod in (K10, K11, K12, K17)}
+  print("phase 44 main path with the stop: K10 %d, K11 %d, K12 %d, K17 %d "
+        "launches" % tuple(cstop_launches.values()))
+  check(tuple(cstop_launches.values()) == (1 + main_steps, 1, main_steps,
+                                           main_steps),
+        "the conv main path with the stop launched %s" % (
+            tuple(cstop_launches.values()),))
+  # µs an iteration without and with the stop (eps 0: never stops, so every
+  # iteration does the stop's work), in turns: b 40 FISTA and b 5 ISTA
+  cstop_cost = {}
+  for label, fn in (
+      ("b 40 FISTA", lambda iters, eps: K10.fused_conv_direct_solve(
+          xc, conv_d, CONV_LAM, iters, ceta, early_stopping_epsilon=eps,
+          **ckw)),
+      ("b 5 ISTA", lambda iters, eps: K10.fused_conv_direct_solve(
+          xt5, cd0, CONV_LAM, iters, eta5, variant="ista",
+          early_stopping_epsilon=eps, **ckw))):
+    per = {False: [], True: []}
+    with torch.no_grad():
+      for eps in (None, 0.0, 0.0, None):
+        t = {}
+        for iters in (25, 125):
+          fn(iters, eps)
+          t[iters] = time_ms(torch, lambda: fn(iters, eps), 3)
+        per[eps is not None].append((t[125] - t[25]) * 10.0)
+    off, on = np.mean(per[False]), np.mean(per[True])
+    cstop_cost[label] = (off, on)
+    print("conv stop cost, K10 %s: %.3f us an iteration without the stop "
+          "(runs %s), %.3f with it (eps 0, never stops; runs %s): %.3f us "
+          "(design target 3: %s) [%s]" % (
+              label, off, ", ".join("%.3f" % v for v in per[False]), on,
+              ", ".join("%.3f" % v for v in per[True]), on - off,
+              "met" if on - off <= 3.0 else "missed", card))
+  # the stopped K10 at the flagship against formulation='gram' (the plain
+  # loop, the card's only route before the stop) with the same eps, whole
+  # calls, in turns
+  cgram_ms = {"pallas": [], "gram": []}
+  with torch.no_grad():
+    for form in ("pallas", "gram", "gram", "pallas"):
+      fn = lambda: conv_ista_fista.run(
+          xc, conv_d, (CONV_STRIDE, CONV_STRIDE), cpad, CONV_LAM, CONV_ITERS,
+          formulation=form, early_stopping_epsilon=flag_eps, stepsize=ceta)
+      fn()
+      cgram_ms[form].append(time_ms(torch, fn, 2))
+  k10_flag_it = cstop_counts["K10 flagship b40 fista100"][1]
+  print("stopped conv solve, b %d, %d iterations at most: K10 (eps %.4g, %d "
+        "iterations) %.4f ms (runs %.4f, %.4f) against formulation='gram' "
+        "%.4f ms (runs %.4f, %.4f): %.2fx [%s]" % (
+            CONV_BATCH, CONV_ITERS, flag_eps, k10_flag_it,
+            np.mean(cgram_ms["pallas"]), *cgram_ms["pallas"],
+            np.mean(cgram_ms["gram"]), *cgram_ms["gram"],
+            np.mean(cgram_ms["gram"]) / np.mean(cgram_ms["pallas"]), card))
+  # the scanned conv trainer with the stop against conv_formulation='gram'
+  # with the same eps, CONV_STOP_GRAM_STEPS steps, in turns
+  ctrainer_s = {"pallas": [], "gram": []}
+  for form in ("pallas", "gram", "gram", "pallas"):
+    params_ = dict(conv_segment_params(CONV_STOP_GRAM_STEPS, SEG_STEP),
+                   conv_formulation=form, early_stopping_epsilon=seg_eps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compiled_epoch.train_dictionary_scanned(
+        stop_batches[:CONV_STOP_GRAM_STEPS], stop_held[None], sd0, params_)
+    torch.cuda.synchronize()
+    ctrainer_s[form].append(time.perf_counter() - t0)
+  crate = {f: CONV_STOP_GRAM_STEPS * SEG_BATCH / np.mean(v)
+           for f, v in ctrainer_s.items()}
+  print("scanned conv trainer, %d steps of b %d, FISTA %d, eps %.4g: "
+        "conv_formulation='pallas' (K12 with the stop) %.2f images/s (runs "
+        "%.4f, %.4f s), 'gram' %.2f images/s (runs %.4f, %.4f s): %.2fx; the "
+        "%d-step run with the stop %.4f s (%.2f images/s) [%s]" % (
+            CONV_STOP_GRAM_STEPS, SEG_BATCH, SEG_ITERS, seg_eps,
+            crate["pallas"], *ctrainer_s["pallas"], crate["gram"],
+            *ctrainer_s["gram"], crate["pallas"] / crate["gram"],
+            CONV_STOP_STEPS, ctrain_stop_s,
+            CONV_STOP_STEPS * SEG_BATCH / ctrain_stop_s, card))
+  # the stop rows of the kernels line: each stopped kernel's time at this
+  # run's count against its plain version with the same eps, and the same
+  # loop with cuDNN's products at that count (K10, K11)
+  cstop_times = {}
+  with torch.no_grad():
+    for name, mod, fn, plain_fn in (
+        ("K10", K10, lambda: K10.fused_conv_direct_solve(
+            xc, conv_d, CONV_LAM, CONV_ITERS, ceta,
+            early_stopping_epsilon=flag_eps, **ckw),
+         lambda: K10.fused_conv_direct_plain(
+             xc, conv_d, CONV_LAM, CONV_ITERS, ceta,
+             early_stopping_epsilon=flag_eps, **ckw)),
+        ("K11", K11, lambda: K11.fused_conv_fista_solve(
+            xc, conv_d, CONV_LAM, CONV_ITERS, ceta,
+            early_stopping_epsilon=flag_eps, **ckw),
+         lambda: K11.fused_conv_fista_plain(
+             xc, conv_d, CONV_LAM, CONV_ITERS, ceta,
+             early_stopping_epsilon=flag_eps, **ckw))):
+      fn()
+      it = int(mod.last_iters.item())
+      plain_fn()
+      lib_fn = lambda: K10.fused_conv_direct_library(
+          xc, conv_d, CONV_LAM, it, ceta, **ckw)
+      lib_fn()
+      cstop_times[name] = (time_ms(torch, fn, 3), time_ms(torch, plain_fn, 2),
+                           time_ms(torch, lib_fn, 2), it)
+    stop10 = stop_batches[:10]
+    for name, mod, fn, plain_fn in (
+        ("K12", K12, lambda: K12.fused_conv_train_segment(
+            sd0, ctrain_h, ctrain_v, stop10, CONV_LAM, SEG_ITERS, SEG_STEP,
+            early_stopping_epsilon=seg_eps, **seg_kw),
+         lambda: K12.fused_conv_train_plain(
+             sd0, ctrain_h, ctrain_v, stop10[:2], CONV_LAM, SEG_ITERS,
+             SEG_STEP, early_stopping_epsilon=seg_eps, **seg_kw)),
+        ("K17", K17, lambda: K17.fused_conv_dp_train_segment(
+            sd0, ctrain_h, ctrain_v, stop10, CONV_LAM, SEG_ITERS, SEG_STEP,
+            mesh=mesh1, early_stopping_epsilon=seg_eps, **seg_kw),
+         lambda: K17.fused_conv_dp_train_plain(
+             sd0, ctrain_h, ctrain_v, stop10[:2], CONV_LAM, SEG_ITERS,
+             SEG_STEP, mesh=mesh1, early_stopping_epsilon=seg_eps,
+             **seg_kw))):
+      fn()
+      its = mod.last_iters.float().mean().item()
+      plain_fn()
+      cstop_times[name] = (time_ms(torch, fn, 2) / 10,
+                           time_ms(torch, plain_fn, 1) / 2, None, its)
+  print("conv stop builds: K10 %.4f ms (plain %.4f, cuDNN's products %.4f) "
+        "at %d of %d iterations; K11 %.4f ms (plain %.4f, cuDNN's products "
+        "%.4f) at %d; K12 %.4f ms a step (plain %.4f) at %.1f of %d "
+        "iterations a step; K17 %.4f (plain %.4f) at %.1f [%s]" % (
+            *cstop_times["K10"], CONV_ITERS, *cstop_times["K11"],
+            cstop_times["K12"][0], cstop_times["K12"][1],
+            cstop_times["K12"][3], SEG_ITERS, cstop_times["K17"][0],
+            cstop_times["K17"][1], cstop_times["K17"][3], card))
+  del stop_images, stop_batches
+  print("phase 44 took %.1f s" % (time.perf_counter() - t44))
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
   # bounds at each kernel's timed shape (fp32 SIMT peak, HBM rate)
   k1_bound = solve_bound(BATCH, 256, 256, ITERS)
+  stop_geo = K10.geometry(xc.shape, conv_d.shape, (CONV_STRIDE, CONV_STRIDE))
+  stop_op, _ = K11.operator_and_corr(xc, conv_d, (CONV_STRIDE, CONV_STRIDE),
+                                     cpad)
   k2_bound = train_step_bound(TRAIN_BATCH, 256, 256, TRAIN_ITERS)
   kernels = [
       ("fused_fista", "fused_fista.cu", "vtc_tpu/ops/pallas_fista.py:220",
@@ -5989,14 +6483,39 @@ def main():
        stop_launches[fused_group_train_step], stop_step_err,
        *stop_times["K6"], train_step_bound(TRAIN_BATCH, 256, 256,
                                            k6_stop_it)),
+      # the conv stop builds (phase 44): launches on its main path, the
+      # error of its stopped solves (a) or flagship steps (b), the times and
+      # bounds at the iterations this run's data took
+      ("fused_conv_direct (early stop)", "fused_conv_direct.cu",
+       "vtc_tpu/ops/pallas_conv_direct.py:307-334 (the stop test of :416)",
+       cstop_launches[K10], cstop_err[K10], *cstop_times["K10"][:2],
+       conv_direct_bound(stop_geo, CONV_BATCH, cstop_times["K10"][3])),
+      ("fused_conv_fista (early stop)", "fused_conv_fista.cu",
+       "vtc_tpu/ops/pallas_conv_fista.py:329 (with the stop of vtc_tpu/"
+       "analysis_transforms/convolutional/ista_fista.py:163-176)",
+       cstop_launches[K11], cstop_err[K11], *cstop_times["K11"][:2],
+       conv_gram_bound(stop_op, CONV_BATCH, cstop_times["K11"][3])),
+      ("fused_conv_train (early stop)", "fused_conv_train_step.cu",
+       "vtc_tpu/ops/pallas_conv_train.py:320-344 (the stop test of :692)",
+       cstop_launches[K12], sstop_err[K12], *cstop_times["K12"][:2],
+       conv_train_bound(seg_geo, SEG_BATCH, cstop_times["K12"][3])),
+      ("fused_conv_dp_train (early stop)", "fused_conv_train_step.cu",
+       "vtc_tpu/ops/pallas_conv_dp_train.py:143-213 (the stop test of :399)",
+       cstop_launches[K17], sstop_err[K17], *cstop_times["K17"][:2],
+       conv_dp_bound(seg_geo, SEG_BATCH, cstop_times["K17"][3], 1, 10)),
   ]
   # K10's library time is its own loop with each product one cuDNN call
-  # (phase 17); K1's and K4's the 100 iteration products of their timed
-  # solve, each one torch.matmul in fp32 without the prox (phase 42), and
-  # with the stop those of the iterations the stopped solve took; no
-  # PyTorch call computes any other kernel's solve or step, so theirs are
-  # null
-  library_ms = {"fused_conv_direct": k10_lib, "fused_fista": solve_lib_ms,
+  # (phase 17), K11's the same loop on K11's timed inputs (the same
+  # function), and with the stop that loop at the iterations the stopped
+  # solve took (phase 44); K1's and K4's the 100 iteration products of
+  # their timed solve, each one torch.matmul in fp32 without the prox
+  # (phase 42), and with the stop those of the iterations the stopped solve
+  # took; no PyTorch call computes any other kernel's solve or step, so
+  # theirs are null
+  library_ms = {"fused_conv_direct": k10_lib, "fused_conv_fista": k10_lib,
+                "fused_conv_direct (early stop)": cstop_times["K10"][2],
+                "fused_conv_fista (early stop)": cstop_times["K11"][2],
+                "fused_fista": solve_lib_ms,
                 "fused_group_fista": solve_lib_ms,
                 "fused_fista (early stop)":
                     solve_lib_ms / ITERS * k1_stop_it,

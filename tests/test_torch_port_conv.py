@@ -29,7 +29,7 @@ from vtc_tpu_torch import convert
 from vtc_tpu_torch.analysis_transforms.convolutional import ista_fista
 from vtc_tpu_torch.encode import encode_dataset
 from vtc_tpu_torch.ops import (conv_gram, conv_shapes, fused_conv_direct,
-                               fused_conv_fista)
+                               fused_conv_fista, solver)
 from vtc_tpu_torch.ops import convolutions as conv_ops
 
 ATOL = 1e-4
@@ -402,10 +402,16 @@ def test_wrappers_refuse_what_they_do_not_run(rng):
   x = torch.from_numpy(padded_images(rng, 2, 1, (8, 8), padding))
   d = torch.from_numpy(kernels(rng, 6, 1, 4))
   kw = dict(kernel_stride=(2, 2), padding=padding)
-  for solve in (fused_conv_direct.fused_conv_direct_solve,
-                fused_conv_fista.fused_conv_fista_solve):
-    with pytest.raises(NotImplementedError, match="item 3"):
-      solve(x, d, 0.1, 5, 0.1, early_stopping_epsilon=1e-3, **kw)
+  for solve, plain in (
+      (fused_conv_direct.fused_conv_direct_solve,
+       fused_conv_direct.fused_conv_direct_plain),
+      (fused_conv_fista.fused_conv_fista_solve,
+       fused_conv_fista.fused_conv_fista_plain)):
+    # the early stop runs (since the kernels took it): a CPU tensor takes
+    # the plain version with the stop test
+    got = solve(x, d, 0.1, 5, 0.1, early_stopping_epsilon=1e-3, **kw)
+    want = plain(x, d, 0.1, 5, 0.1, early_stopping_epsilon=1e-3, **kw)
+    assert torch.equal(got, want)
     with pytest.raises(ValueError):
       solve(x, d, 0.1, 5, 0.1, variant="adam", **kw)
     # neither CPU nor CUDA: no silent plain path
@@ -422,9 +428,9 @@ def test_wrappers_refuse_what_they_do_not_run(rng):
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
       ista_fista.run(xm, dm, (stride, stride), None, 0.1, 5,
                      formulation="pallas", stepsize=0.1)
-  # 'pallas' with an early stop on a tensor that is not on the CPU raises
-  # before any plain route
-  with pytest.raises(NotImplementedError, match="item 3"):
+  # 'pallas' with an early stop on a tensor that is not on the CPU reaches
+  # the kernel wrapper, which refuses it: never the plain route
+  with pytest.raises(ValueError, match="CPU or a CUDA device"):
     ista_fista.run(x.to("meta"), d.to("meta"), (2, 2), padding, 0.1, 5,
                    formulation="pallas", early_stopping_epsilon=1e-3,
                    stepsize=0.1)
@@ -445,9 +451,15 @@ def test_cuda_wrappers_raise_and_match_plain(rng):
        fused_conv_direct.fused_conv_direct_plain, fused_conv_direct),
       (fused_conv_fista.fused_conv_fista_solve,
        fused_conv_fista.fused_conv_fista_plain, fused_conv_fista)):
-    with pytest.raises(NotImplementedError, match="item 3"):
-      solve(x.to(dev), d.to(dev), 0.05, 5, 0.1, early_stopping_epsilon=1e-3,
-            **kw)
+    # the early stop runs in the kernel and ends where the plain loop does
+    before = counter.launches
+    got = solve(x.to(dev), d.to(dev), 0.05, 20, 0.1,
+                early_stopping_epsilon=1e-3, **kw)
+    assert counter.launches == before + 1
+    want = plain(x.to(dev), d.to(dev), 0.05, 20, 0.1,
+                 early_stopping_epsilon=1e-3, **kw)
+    assert int(counter.last_iters.item()) == solver.last_iters
+    assert_close(got, want.cpu().numpy(), solve.__name__ + " early stop")
     before = counter.launches
     got = solve(x.to(dev), d.to(dev), 0.05, 20, 0.1, **kw)
     assert counter.launches == before + 1

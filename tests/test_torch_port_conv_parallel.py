@@ -418,9 +418,19 @@ def test_k17_refuses_what_waits():
   args = (_t(p["d"]), _t(p["h"]), _t(p["v"]), _t(p["x"]), SW, N_IT, UPD_STEP)
   kw = dict(mesh=parallel.make_mesh(), kernel_stride=p["stride"],
             padding=p["padding"])
-  for extra in ({"mxu": "bf16x3"}, {"early_stopping_epsilon": 1e-3}):
-    with pytest.raises(NotImplementedError, match="item 3a"):
-      fused_conv_dp_train.fused_conv_dp_train_segment(*args, **kw, **extra)
+  with pytest.raises(NotImplementedError, match="item 3a"):
+    fused_conv_dp_train.fused_conv_dp_train_segment(*args, **kw,
+                                                    mxu="bf16x3")
+  # the early stop runs (since K17 took it): a CPU tensor takes the plain
+  # version with the stop test over the mesh
+  calls = fused_conv_dp_train.launches
+  got = fused_conv_dp_train.fused_conv_dp_train_segment(
+      *args, **kw, early_stopping_epsilon=1e-3)
+  want = fused_conv_dp_train.fused_conv_dp_train_plain(
+      *args, **kw, early_stopping_epsilon=1e-3)
+  assert fused_conv_dp_train.launches == calls
+  for g, w in zip(got, want):
+    assert torch.equal(g, w)
   # the gram form off its gate: padding 1 at stride 2
   x = _t(p["x"][:, :, :, 1:-1, 1:-1])
   with pytest.raises(ValueError, match="conv_solve_stats_supported"):

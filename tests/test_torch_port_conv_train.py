@@ -267,8 +267,8 @@ def test_train_dictionary_conv_validation_and_checkpoint(rng, tmp_path):
 
 def test_scanned_trainer_refuses_conv_naming_k12(rng):
   """The scanned trainer refused conv until K12 was ported; it now runs
-  conv, on the CPU through the per-step path, and refuses only the early
-  stop that K12 lacks on the card (ROADMAP.md §1 item 3)."""
+  conv, on the CPU through the per-step path (and since K12 took the
+  early stop, that too on the card)."""
   data, d0 = conv_data(rng)
   got = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, _params(),
                                                 device="cpu")
@@ -296,6 +296,13 @@ def test_cuda_conv_trainer_runs_k10(rng):
   assert fused_conv_direct.launches == before + 6
   want = sc.train_dictionary(data, data[:1], d0, params, device="cpu")
   assert_close(got.cpu(), want, "cuda conv trainer vs cpu", 1e-3)
-  with pytest.raises(NotImplementedError, match="item 3"):
-    sc.train_dictionary(data, data[:1], d0,
-                        _params(early_stopping_epsilon=1e-3), device="cuda")
+  # the early stop runs in K10 on the card (one launch a step)
+  before = fused_conv_direct.launches
+  got = sc.train_dictionary(data, data[:1], d0,
+                            _params(early_stopping_epsilon=1e-3),
+                            device="cuda")
+  assert fused_conv_direct.launches == before + 6
+  want = sc.train_dictionary(data, data[:1], d0,
+                             _params(early_stopping_epsilon=1e-3),
+                             device="cpu")
+  assert_close(got.cpu(), want, "cuda conv trainer early stop vs cpu", 1e-3)

@@ -13,15 +13,14 @@ data-parallel stop test of the psum-per-op step):
   kernels with the JAX dispatch (:133-173): K10
   (``ops/fused_conv_direct``) when its gate ``supported(...)`` holds,
   else K11 (``ops/fused_conv_fista``); CPU tensors take their plain
-  versions.  The kernels have no batch-global stop test yet: on a CUDA
-  device 'pallas' with ``early_stopping_epsilon`` raises
-  NotImplementedError (ROADMAP.md §1 item 3).  CPU tensors run the plain
-  versions, stop test included.
+  versions.  ``early_stopping_epsilon`` runs the batch-global stop test
+  in either kernel on the card, decided on the device; CPU tensors run
+  it in the plain versions.
 
 Padded images must be stride-exact ((H - kh) % sv == 0): vtc_tpu fails
 on other geometries in every formulation, and the port raises ValueError
 (ops/conv_shapes.require_stride_exact).  Only ``mxu_precision='highest'``
-exists: the reduced-precision tiers wait (ROADMAP.md §1 item 3).
+exists: the reduced-precision tiers wait (ROADMAP.md §1 item 3a.2).
 """
 from typing import Optional
 
@@ -129,11 +128,6 @@ def run(images_padded, dictionary, kernel_stride, padding_dims,
           code_shape, tuple(initial_codes.shape)))
   if early_stopping_epsilon is not None:
     early_stopping_epsilon = float(early_stopping_epsilon)
-    if formulation == "pallas" and device.type != "cpu":
-      raise NotImplementedError(
-          "formulation='pallas' with early_stopping_epsilon: the conv CUDA "
-          "kernels have no batch-global stop test yet, ROADMAP.md §1 item "
-          "3; use formulation='gram'")
   if stepsize is None:
     stepsize = lipschitz_ops.fista_stepsize(
         dictionary.reshape(dictionary.shape[0], -1), lipschitz_method)
@@ -144,16 +138,13 @@ def run(images_padded, dictionary, kernel_stride, padding_dims,
   direct_gate = fused_conv_direct.supported(
       images_padded.shape, dictionary.shape, kernel_stride)
   if formulation == "pallas":
-    if early_stopping_epsilon is not None:
-      # CPU tensors: the kernels' plain versions with the stop test
-      plain = (fused_conv_direct.fused_conv_direct_plain if direct_gate
-               else fused_conv_fista.fused_conv_fista_plain)
-      return plain(images_padded, dictionary, lam, num_iters, stepsize,
-                   early_stopping_epsilon=early_stopping_epsilon, **flags)
+    # K10 where its gate holds, else K11 (vtc_tpu runs its XLA gram loop
+    # there with a stop, :163-176: K11 computes the same function); both
+    # take the stop test in the kernel on the card
     solve = (fused_conv_direct.fused_conv_direct_solve if direct_gate
              else fused_conv_fista.fused_conv_fista_solve)
     return solve(images_padded, dictionary, lam, num_iters, stepsize,
-                 **flags)
+                 early_stopping_epsilon=early_stopping_epsilon, **flags)
   if formulation == "gram":
     return fused_conv_fista.fused_conv_fista_plain(
         images_padded, dictionary, lam, num_iters, stepsize,

@@ -37,8 +37,33 @@
 // Both sum each output over k in increasing order with one fmaf chain
 // from 0, so for the same inputs they give the same bits.
 // launch_gather_gemm picks between them.
+//
+// The early stop (STOP, vtc_tpu's pallas_conv_direct.py:307-334 and
+// pallas_conv_train.py:320-344).  After iteration k (from 0) a solve
+// stops when (sum |codes_k - codes_{k-1}| * inv_count) / eta < eps and
+// k > 0, and returns codes_k.  The conv state lives in device memory and
+// the host enqueues every iteration's launches without waiting, so the
+// stop is a word in device memory that the launches still queued read:
+//  * the kProx launch of iteration k adds |codes - old| over each
+//    thread's outputs in a fixed order, sums its block's threads in a
+//    fixed order into one share per tile, and the last block to arrive
+//    (an acquire-release atomic ticket) sums the shares in a fixed order
+//    and writes the solve's stop word (its tag, the count k + 1
+//    and the stop bit) and the count.  No float atomics: every run takes
+//    the same decision from the same bits;
+//  * every STOP launch of the solve (synthesis, analysis, K11's row,
+//    column and corner lines) reads the word on entry and, once the word
+//    carries the solve's tag and the stop bit, returns before it reads or
+//    writes any state (the read's latency hides behind the block's
+//    set-up).  old then holds codes_k.
+// A word tagged by another solve (a lower tag) reads as no stop, so one
+// zeroed set of words serves every solve of a segment.  With STOP off the
+// kernels are the code above, bitwise and no slower.  K17 at a world
+// above one leaves the rank's sum in stop.local instead of deciding; the
+// C loop sums it over the ranks and conv_stop_decide_kernel decides.
 #pragma once
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <cstdlib>
 
@@ -76,6 +101,21 @@ enum Lines {
 // shrink modes, as ops/thresholds.select (nonneg, hard)
 enum Shrink { kSoft = 0, kSoftNonneg = 1, kHard = 2, kHardNonneg = 3 };
 
+// The early stop's arguments (see "The early stop" above).  words: the
+// zeroed device array of conv_stop_words() 64-bit words, word 0 the stop
+// word, word 1 the ticket, the shares (one float a tile) after them.
+struct ConvStop {
+  unsigned long long* words;
+  int* iters;      // receives the iterations the solve ran
+  float* local;    // or null; else the rank's sum goes here, undecided
+  float eps;
+  float inv_count;  // 1 / (b s code_h code_w), the global b across ranks
+  unsigned tag;     // the solve's tag, >= 1, rising from solve to solve
+  int it;           // the launch's iteration k
+};
+
+constexpr int kStopCtlWords = 2;  // the stop word and the ticket
+
 struct GemmArgs {
   // A of grid z: a + z * a_line_stride, (m x k) row-major
   const float* a;
@@ -104,6 +144,7 @@ struct GemmArgs {
   const float* eta;
   float lam, beta;
   int fista, shrink;
+  ConvStop stop;  // STOP builds only
 };
 
 __device__ __forceinline__ float shrink_value(float x, float t, int mode) {
@@ -181,10 +222,13 @@ __device__ __forceinline__ EpiIn epilogue_load(const GemmArgs& p,
   return in;
 }
 
+// STOP: a kProx output also adds |codes - old| to *delta.
+template <bool STOP = false>
 __device__ __forceinline__ void epilogue_store(const GemmArgs& p,
                                                long long idx, float v,
                                                const EpiIn& in, float eta,
-                                               float thresh) {
+                                               float thresh,
+                                               float* delta = nullptr) {
   switch (p.epilogue) {
     case kStore: p.out[idx] = v; break;
     case kMaskStore: p.out[idx] = v * in.v0; break;
@@ -200,13 +244,110 @@ __device__ __forceinline__ void epilogue_store(const GemmArgs& p,
       const float next =
           p.fista ? __fadd_rn(codes, __fmul_rn(p.beta, __fsub_rn(codes, in.v2)))
                   : codes;
+      if constexpr (STOP)
+        *delta = __fadd_rn(*delta, fabsf(__fsub_rn(codes, in.v2)));
       p.old[idx] = codes;
       p.out[idx] = next;
     }
   }
 }
 
+// The early stop (see above).  The solve's stop word, and whether it
+// says the solve of st has stopped: it carries st's tag and the stop bit.
+// Every thread of a block reads the same word, written before the launch
+// began, so a block returns whole.
+__device__ __forceinline__ unsigned long long conv_stop_word(
+    const ConvStop& st) {
+  return *reinterpret_cast<volatile unsigned long long*>(st.words);
+}
+
+__device__ __forceinline__ bool conv_stopped(const ConvStop& st,
+                                             unsigned long long w) {
+  return static_cast<unsigned>(w >> 32) == st.tag && (w & 1ull);
+}
+
+// The sum of v over the 32 lanes of a warp by an xor butterfly: the same
+// bits in every lane, and from run to run.
+__device__ __forceinline__ float conv_warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, m));
+  return v;
+}
+
+// Iteration st.it's decision on the batch-global sum of |codes - old|:
+// the count, then the word with the stop bit where (sum * inv_count) /
+// eta < eps and k > 0, as vtc_tpu associates it.
+__device__ __forceinline__ void conv_stop_decide(const ConvStop& st,
+                                                 float sum, float eta) {
+  const bool stop = st.it > 0 &&
+                    __fdiv_rn(__fmul_rn(sum, st.inv_count), eta) < st.eps;
+  *st.iters = st.it + 1;
+  *reinterpret_cast<volatile unsigned long long*>(st.words) =
+      (static_cast<unsigned long long>(st.tag) << 32) |
+      (static_cast<unsigned long long>(st.it + 1) << 1) |
+      (stop ? 1ull : 0ull);
+}
+
+// A kProx STOP launch's end, in every thread of the block: the block's
+// share (its warps' sums in warp order) to its tile's slot, then the last
+// block to arrive sums the slots (thread t the slots t, t + blockDim.x,
+// ... in turn, then its warps in warp order) and decides (or, with
+// st.local, leaves the rank's sum there).  The ticket is reset for the
+// next launch by that block.
+__device__ __forceinline__ void conv_stop_share(const ConvStop& st,
+                                                float delta, float eta) {
+  __shared__ float warp_shares[32];
+  __shared__ bool last;
+  unsigned* const ticket = reinterpret_cast<unsigned*>(st.words + 1);
+  float* const shares = reinterpret_cast<float*>(st.words + kStopCtlWords);
+  const int tid = threadIdx.x;
+  const unsigned tiles = gridDim.x * gridDim.y * gridDim.z;
+  delta = conv_warp_sum(delta);
+  if ((tid & 31) == 0) warp_shares[tid >> 5] = delta;
+  __syncthreads();
+  if (tid == 0) {
+    float share = 0.0f;
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w)
+      share = __fadd_rn(share, warp_shares[w]);
+    shares[(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] =
+        share;
+    // release: the share before the ticket; acquire: the last block sees
+    // every share, and passes them on to its threads at the barrier
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> arrivals(*ticket);
+    last = arrivals.fetch_add(1u, cuda::memory_order_acq_rel) == tiles - 1;
+  }
+  __syncthreads();
+  if (!last) return;  // the same in every thread of the block
+  float sum = 0.0f;
+  for (unsigned i = tid; i < tiles; i += blockDim.x)
+    sum = __fadd_rn(sum, reinterpret_cast<volatile float*>(shares)[i]);
+  sum = conv_warp_sum(sum);
+  if ((tid & 31) == 0) warp_shares[tid >> 5] = sum;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.0f;
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w)
+      total = __fadd_rn(total, warp_shares[w]);
+    *ticket = 0u;
+    if (st.local != nullptr)
+      *st.local = total;
+    else
+      conv_stop_decide(st, total, eta);
+  }
+}
+
+// K17 at a world above one: the decision of iteration st.it on the sum
+// over the ranks in *st.local, one thread; nothing once the solve stopped.
+__global__ void conv_stop_decide_kernel(ConvStop st, const float* eta) {
+  if (conv_stopped(st, conv_stop_word(st))) return;
+  conv_stop_decide(st, *st.local, *eta);
+}
+
+template <bool STOP = false>
 __global__ void __launch_bounds__(kThreads) gather_gemm(GemmArgs p) {
+  // STOP: the stop word, tested before the K loop
+  const unsigned long long stop_word = STOP ? conv_stop_word(p.stop) : 0;
   __shared__ __align__(16) float as[kBK][kBM + 4];
   __shared__ __align__(16) float bs[kBK][kBN + 4];
   const int tid = threadIdx.x;
@@ -245,6 +386,7 @@ __global__ void __launch_bounds__(kThreads) gather_gemm(GemmArgs p) {
     b_dx[r] = p.sign * (b_o[r] % p.off_w) + p.off_x0;
   }
 
+  if (STOP && conv_stopped(p.stop, stop_word)) return;
   for (int k0 = 0; k0 < p.k; k0 += kBK) {
 #pragma unroll
     for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
@@ -293,6 +435,7 @@ __global__ void __launch_bounds__(kThreads) gather_gemm(GemmArgs p) {
 
   const float eta = p.epilogue == kProx ? *p.eta : 0.f;
   const float thresh = __fmul_rn(p.lam, eta);
+  float delta = 0.f;  // STOP: this thread's sum of |codes - old|
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     int b, y, x;
@@ -306,10 +449,12 @@ __global__ void __launch_bounds__(kThreads) gather_gemm(GemmArgs p) {
                                  p.out_w + x;
       const long long idx =
           ((static_cast<long long>(b) * p.m + m) * p.out_h + y) * p.out_w + x;
-      epilogue_store(p, idx, acc[i][j], epilogue_load(p, idx, midx, y), eta,
-                     thresh);
+      epilogue_store<STOP>(p, idx, acc[i][j], epilogue_load(p, idx, midx, y),
+                           eta, thresh, &delta);
     }
   }
+  if constexpr (STOP)
+    if (p.epilogue == kProx) conv_stop_share(p.stop, delta, eta);
 }
 
 // One entry of gather_gemm_tiled's offset table: k's source offset
@@ -353,9 +498,11 @@ inline size_t tile_smem_bytes(int bn, int k) {
 // 128 threads holding 4 * TM rows (TM groups of 4, kBM / TM apart) by 8
 // columns (2 groups of 4, BN / 2 apart).  BN = 128 takes TM = 2, BN = 64
 // TM = 1.
-template <int BN, int TM>
+template <int BN, int TM, bool STOP = false>
 __global__ void __launch_bounds__(kTileThreads) gather_gemm_tiled(GemmArgs p) {
   static_assert(kTileThreads == (kBM / (4 * TM)) * (BN / 8), "thread grid");
+  // STOP: the stop word, tested once the offset table is built
+  const unsigned long long stop_word = STOP ? conv_stop_word(p.stop) : 0;
   constexpr int kAS = kBM + 4, kBS = BN + 4, kCS = BN + 4;
   extern __shared__ __align__(16) float tile_smem[];
   float* as = tile_smem;                  // [2][kBK][kAS]
@@ -399,6 +546,7 @@ __global__ void __launch_bounds__(kTileThreads) gather_gemm_tiled(GemmArgs p) {
              gy * p.src_w + gx;
   }
   __syncthreads();
+  if (STOP && conv_stopped(p.stop, stop_word)) return;
 
   // copy slice k0 of A (transposed) and of the gathered source to stage
   auto load_slice = [&](int stage, int k0) {
@@ -491,6 +639,7 @@ __global__ void __launch_bounds__(kTileThreads) gather_gemm_tiled(GemmArgs p) {
   __syncthreads();
   const float eta = p.epilogue == kProx ? *p.eta : 0.f;
   const float thresh = __fmul_rn(p.lam, eta);
+  float delta = 0.f;  // STOP: this thread's sum of |codes - old|
   constexpr int kQ = BN / 32, kR = 4 / kQ, kWarps = kTileThreads / 32;
   const int lane = tid % 32, warp = tid / 32;
   // this lane's columns: output offset b * M * len + t, t = y * out_w + x
@@ -523,26 +672,29 @@ __global__ void __launch_bounds__(kTileThreads) gather_gemm_tiled(GemmArgs p) {
 #pragma unroll
       for (int q = 0; q < kQ; ++q)
         if (m < p.m && cvalid[q])
-          epilogue_store(p, cbase[q] + static_cast<long long>(m) * len,
-                         cs[(r0 + r) * kCS + lane + 32 * q], in[r][q], eta,
-                         thresh);
+          epilogue_store<STOP>(p, cbase[q] + static_cast<long long>(m) * len,
+                               cs[(r0 + r) * kCS + lane + 32 * q], in[r][q],
+                               eta, thresh, &delta);
     }
   }
+  if constexpr (STOP)
+    if (p.epilogue == kProx) conv_stop_share(p.stop, delta, eta);
 }
 
 // gather_gemm_tiled<BN, TM> over every position, its dynamic shared
 // memory allowed up to the table's cap on first use.
-template <int BN, int TM>
+template <int BN, int TM, bool STOP = false>
 cudaError_t launch_tiled(const GemmArgs& p, long long positions,
                          cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gather_gemm_tiled<BN, TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gather_gemm_tiled<BN, TM, STOP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(tile_smem_bytes(BN, kTableMaxK)));
   if (attr != cudaSuccess) return attr;
   const dim3 grid(static_cast<unsigned>((positions + BN - 1) / BN),
                   static_cast<unsigned>((p.m + kBM - 1) / kBM), 1);
-  gather_gemm_tiled<BN, TM><<<grid, kTileThreads, tile_smem_bytes(BN, p.k),
-                              stream>>>(p);
+  gather_gemm_tiled<BN, TM, STOP><<<grid, kTileThreads,
+                                    tile_smem_bytes(BN, p.k), stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -571,20 +723,41 @@ inline bool tile_table_fits(const GemmArgs& p) {
 // positions each; returns the launch's CUDA error.  Every position at
 // once (kAll) takes the tiled kernel where its offset table fits, 128
 // positions a block where that gives every SM two blocks, else 64;
-// K11's lines and larger K take gather_gemm.
-inline cudaError_t launch_gather_gemm(const GemmArgs& p, int lines, int len,
-                                      cudaStream_t stream) {
+// K11's lines and larger K take gather_gemm.  STOP: the kernels' stop
+// builds with p.stop (see "The early stop").
+template <bool STOP = false>
+cudaError_t launch_gather_gemm(const GemmArgs& p, int lines, int len,
+                               cudaStream_t stream) {
   const long long positions = static_cast<long long>(p.nb) * len;
   if (p.lines == kAll && tile_table_fits(p)) {
     return (positions + 127) / 128 >= 2LL * gemm_sm_count()
-               ? launch_tiled<128, 2>(p, positions, stream)
-               : launch_tiled<64, 1>(p, positions, stream);
+               ? launch_tiled<128, 2, STOP>(p, positions, stream)
+               : launch_tiled<64, 1, STOP>(p, positions, stream);
   }
   const dim3 grid(static_cast<unsigned>((positions + kBN - 1) / kBN),
                   static_cast<unsigned>((p.m + kBM - 1) / kBM),
                   static_cast<unsigned>(lines));
-  gather_gemm<<<grid, kThreads, 0, stream>>>(p);
+  gather_gemm<STOP><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The 64-bit words of a stop's device array for a kProx product of m
+// rows over `positions` positions: the control words and one share for
+// each tile of the smallest tiles either kernel takes (64 x 64), two to
+// a word.
+inline long long conv_stop_words(int m, long long positions) {
+  const long long tiles =
+      (positions + kBN - 1) / kBN * ((m + kBM - 1) / kBM);
+  return kStopCtlWords + (tiles + 1) / 2;
+}
+
+// A gathered GEMM with or without its stop build: the stop build where
+// stop is true.
+inline cudaError_t launch_gather_gemm_stop(const GemmArgs& p, int lines,
+                                           int len, bool stop,
+                                           cudaStream_t stream) {
+  return stop ? launch_gather_gemm<true>(p, lines, len, stream)
+              : launch_gather_gemm<false>(p, lines, len, stream);
 }
 
 // FISTA momentum of iteration with t_k = *t, in float32 as the plain

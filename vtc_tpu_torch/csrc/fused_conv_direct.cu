@@ -41,6 +41,13 @@
 // rewrites z at its own positions, so z is updated in place.  A
 // cooperative kernel with a grid barrier per iteration, or a cluster
 // that keeps a sample in distributed shared memory, is later work.
+//
+// The early stop (vtc_tpu's :307-334): with stop words every launch of
+// the loop is its STOP build (conv_gemm.cuh, "The early stop").  The loop
+// still enqueues all num_iters iterations without waiting; the analysis
+// launch of each iteration decides on the device, and the launches after
+// a stop return at entry, leaving the codes of the last iteration run in
+// old and the count in *iters.
 // tests/test_torch_port_conv.py holds the plain version of this layout to
 // vtc_tpu's kernel; chip_smoke.py holds this kernel to it.
 #include "conv_gemm.cuh"
@@ -51,12 +58,19 @@ extern "C" {
 // block mask; xblk (b, cpx, bh, bw) masked image blocks; eta (1,) on the
 // device.  img (b, cpx, bh, bw) and corr (b, s, ch, cw) are scratch; z
 // and old (b, s, ch, cw) hold the initial codes on entry, and old holds
-// the codes on return.  Returns the CUDA error of the launches.
+// the codes on return.  stop_words: null for the loop without the stop,
+// else the zeroed conv_stop_words() array of the early stop at eps over
+// a mean of inv_count (1 / (b s code_h code_w)), with iters (1,)
+// receiving the count.  Returns the CUDA error of the
+// launches.
 int vtc_conv_direct(const float* dstk, const float* dall, const float* mblk,
                     const float* xblk, const float* eta, float lam,
                     int num_iters, int b, int s, int cpx, int ay, int ax,
                     int bh, int bw, int fista, int mode, float* img,
-                    float* corr, float* z, float* old, void* stream_ptr) {
+                    float* corr, float* z, float* old, float eps,
+                    float inv_count, unsigned long long* stop_words,
+                    int* iters,
+                    void* stream_ptr) {
   const int code_h = bh - (ay - 1), code_w = bw - (ax - 1);
   if (b < 1 || s < 1 || cpx < 1 || ay < 1 || ax < 1 || code_h < 1 ||
       code_w < 1 || num_iters < 0 || mode < 0 || mode > 3)
@@ -114,15 +128,30 @@ int vtc_conv_direct(const float* dstk, const float* dall, const float* mblk,
   anal.lam = lam;
   anal.fista = fista;
   anal.shrink = mode;
+  const bool stop = stop_words != nullptr;
+  if (stop) {
+    synth.stop.words = anal.stop.words = stop_words;
+    anal.stop.iters = iters;
+    anal.stop.eps = eps;
+    anal.stop.inv_count = inv_count;
+    synth.stop.tag = anal.stop.tag = 1u;
+  }
   float t = 1.0f;
   for (int it = 0; it < num_iters; ++it) {
     anal.beta = fista ? fista_beta(&t) : 0.0f;
-    err = launch_gather_gemm(synth, 1, bh * bw, stream);
+    anal.stop.it = it;
+    err = launch_gather_gemm_stop(synth, 1, bh * bw, stop, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch_gather_gemm(anal, 1, code_h * code_w, stream);
+    err = launch_gather_gemm_stop(anal, 1, code_h * code_w, stop, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
+}
+
+// The 64-bit words of the conv solves' stop array for s codes at
+// `positions` code positions (b * code_h * code_w).
+long long vtc_conv_stop_words(int s, long long positions) {
+  return conv_stop_words(s, positions);
 }
 
 }  // extern "C"

@@ -38,6 +38,13 @@
 // columns (:145-153) are a Mosaic workaround: here a column is a strided
 // read.  The interior product gathers z around each position while the
 // epilogue writes the next z, so z is double-buffered.
+//
+// The early stop (vtc_tpu's run(formulation='gram') rule, the same as
+// K10's): with stop words every launch is its STOP build (conv_gemm.cuh,
+// "The early stop"); the interior launch decides, and every launch after
+// a stop returns at entry.  The interior writes the codes to old every
+// iteration, so old holds those of the last iteration run wherever the
+// ping-pong of z stood.
 // tests/test_torch_port_conv.py holds the plain version to vtc_tpu's
 // kernel; chip_smoke.py holds this kernel to it and to K10.
 #include "conv_gemm.cuh"
@@ -48,15 +55,19 @@ extern "C" {
 // with A[i, o*s + j] = G[o][i][j]; spec_py (P,), spec_px (Q,) and
 // row_flag (ch,) ints; corr (b, s, ch, cw); eta (1,) on the device.
 // corrbuf (b, s, ch, cw) is zero on entry; z and z2 are the two code
-// buffers, z and old holding the initial codes on entry.  Returns the
-// CUDA error of the launches; the codes are in old.
+// buffers, z and old holding the initial codes on entry.  stop_words,
+// eps, inv_count and iters: the early stop, as vtc_conv_direct's (null
+// words: none).  Returns the CUDA error of the launches; the codes are in
+// old.
 int vtc_conv_fista(const float* gint, const float* grows, const float* gcols,
                    const float* gcorn, const int* spec_py, const int* spec_px,
                    const int* row_flag, int num_p, int num_q,
                    const float* corr, const float* eta, float lam,
                    int num_iters, int b, int s, int code_h, int code_w,
                    int ry, int rx, int fista, int mode, float* corrbuf,
-                   float* z, float* z2, float* old, void* stream_ptr) {
+                   float* z, float* z2, float* old, float eps,
+                   float inv_count, unsigned long long* stop_words,
+                   int* iters, void* stream_ptr) {
   if (b < 1 || s < 1 || code_h < 1 || code_w < 1 || ry < 0 || rx < 0 ||
       num_p < 0 || num_q < 0 || num_iters < 0 || mode < 0 || mode > 3)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -104,6 +115,15 @@ int vtc_conv_fista(const float* gint, const float* grows, const float* gcols,
   interior.lam = lam;
   interior.fista = fista;
   interior.shrink = mode;
+  const bool stop = stop_words != nullptr;
+  if (stop) {
+    rows.stop.words = cols.stop.words = corners.stop.words =
+        interior.stop.words = stop_words;
+    rows.stop.tag = cols.stop.tag = corners.stop.tag = interior.stop.tag = 1u;
+    interior.stop.iters = iters;
+    interior.stop.eps = eps;
+    interior.stop.inv_count = inv_count;
+  }
 
   float* cur = z;
   float* next = z2;
@@ -112,21 +132,23 @@ int vtc_conv_fista(const float* gint, const float* grows, const float* gcols,
   for (int it = 0; it < num_iters; ++it) {
     rows.src = cols.src = corners.src = interior.src = cur;
     if (num_p > 0) {
-      err = launch_gather_gemm(rows, num_p, code_w, stream);
+      err = launch_gather_gemm_stop(rows, num_p, code_w, stop, stream);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     if (num_q > 0) {
-      err = launch_gather_gemm(cols, num_q, code_h, stream);
+      err = launch_gather_gemm_stop(cols, num_q, code_h, stop, stream);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     if (num_p > 0 && num_q > 0) {
-      err = launch_gather_gemm(corners, num_p * num_q, 1, stream);
+      err = launch_gather_gemm_stop(corners, num_p * num_q, 1, stop,
+                                    stream);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     interior.beta = fista ? fista_beta(&t) : 0.0f;
     interior.z_cur = cur;
     interior.out = next;
-    err = launch_gather_gemm(interior, 1, code_h * code_w, stream);
+    interior.stop.it = it;
+    err = launch_gather_gemm_stop(interior, 1, code_h * code_w, stop, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     float* tmp = cur;
     cur = next;

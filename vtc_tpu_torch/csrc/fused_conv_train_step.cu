@@ -86,6 +86,18 @@
 // gram form, projected, Hessian-scaled, rescaled, stepped, renormalized.
 // The whole segment is enqueued from one C loop; at a world of one there
 // is no hook and no host work per step.
+//
+// The early stop of K12's and K17's solves (vtc_tpu's
+// pallas_conv_train.py:320-344 and pallas_conv_dp_train.py:143-213):
+// with stop words refresh_and_solve runs K10's loop on the gathered
+// GEMM's STOP builds (conv_gemm.cuh, "The early stop"), step k's solve
+// tagged k + 1 with its count in iters[k], so one zeroed set of words
+// serves the segment.  At a world above one (K17) the analysis leaves the
+// rank's sum of |codes - old| in a one-float buffer, the C loop calls the
+// stop hook, which sums it over the ranks (the same bits on every rank),
+// and conv_stop_decide_kernel decides: every rank stops at the same
+// count, vtc_tpu's one slot all-reduce an iteration (:190-213).  K13 has
+// no stop, as vtc_tpu's.
 #include "conv_gemm.cuh"
 #include "train_core.cuh"
 
@@ -459,11 +471,32 @@ cudaError_t conv_step_setup(ConvStep* st, const float* dstk, float* v,
     if (err != cudaSuccess) return err; \
   } while (0)
 
+// A segment's early stop: the solve's stop arguments (words, eps,
+// inv_count; local at a world above one) and the per-step counts, and the
+// stop hook that sums local over the ranks.  words null: no stop.
+struct StepStop {
+  ConvStop base = {};
+  int* iters = nullptr;
+  SumHook hook = nullptr;
+  bool hook_failed = false;
+
+  // step k's solve: its tag and count
+  ConvStop of_step(int step) const {
+    ConvStop st = base;
+    st.tag = static_cast<unsigned>(step) + 1u;
+    st.iters = iters + step;
+    return st;
+  }
+};
+
 // The first half of a step, which K12 and K13 share: the flat-kernel Gram
 // and the warm power refresh into v and eta, then K10's solve of the image
-// blocks xs from zero codes into old.
+// blocks xs from zero codes into old.  stop: step's early stop (null or
+// null words: none); a failed stop hook sets stop->hook_failed and returns
+// cudaErrorUnknown.
 cudaError_t refresh_and_solve(const ConvStep& st, const float* xs,
-                              cudaStream_t stream) {
+                              cudaStream_t stream, StepStop* stop = nullptr,
+                              int step = 0) {
   cudaError_t err;
   dall_from_dstk_kernel<<<(st.weights + 255) / 256, 256, 0, stream>>>(
       st.dstk, st.dall, st.cpx, st.r, st.s);
@@ -477,12 +510,23 @@ cudaError_t refresh_and_solve(const ConvStep& st, const float* xs,
   VTC_CHECK(launch_gather_gemm(corr, 1, st.chw, stream));
   VTC_CHECK(cudaMemsetAsync(st.z, 0, st.code_bytes, stream));
   VTC_CHECK(cudaMemsetAsync(st.old, 0, st.code_bytes, stream));
-  GemmArgs anal = st.anal;
+  GemmArgs anal = st.anal, synth = st.synth;
+  const bool stopping = stop != nullptr && stop->base.words != nullptr;
+  if (stopping) anal.stop = synth.stop = stop->of_step(step);
   float t = 1.0f;
   for (int it = 0; it < st.num_iters; ++it) {
     anal.beta = st.fista ? fista_beta(&t) : 0.0f;
-    VTC_CHECK(launch_gather_gemm(st.synth, 1, st.blocks, stream));
-    VTC_CHECK(launch_gather_gemm(anal, 1, st.chw, stream));
+    anal.stop.it = it;
+    VTC_CHECK(launch_gather_gemm_stop(synth, 1, st.blocks, stopping, stream));
+    VTC_CHECK(launch_gather_gemm_stop(anal, 1, st.chw, stopping, stream));
+    if (stopping && anal.stop.local != nullptr) {
+      if (stop->hook(it) != 0) {
+        stop->hook_failed = true;
+        return cudaErrorUnknown;
+      }
+      conv_stop_decide_kernel<<<1, 1, 0, stream>>>(anal.stop, st.eta);
+      VTC_CHECK(cudaGetLastError());
+    }
   }
   return cudaSuccess;
 }
@@ -554,7 +598,10 @@ int vtc_conv_train_chunk() { return kGradChunk; }
 // R*s) with splits = ceil(b*bh*bw / vtc_conv_train_chunk()), grad
 // (cpx, R*s).  old (b, s, ch, cw) holds the last step's codes on return.
 // mode: the shrink mode (conv_gemm.cuh); update: 0 steepest, 1 cheap
-// quadratic.  Returns the first CUDA error code (0 on success).
+// quadratic.  stop_words: null for solves without the stop, else the
+// zeroed vtc_conv_stop_words() array of the early stop at eps over a mean
+// of inv_count (1 / (b s code_h code_w)), iters (k,) receiving each
+// step's count.  Returns the first CUDA error code (0 on success).
 int vtc_conv_train_segment(float* dstk, float* h, float* v, const float* xblk,
                            const float* mblk, const float* supp, int k, int b,
                            int s, int cpx, int ay, int ax, int bh, int bw,
@@ -563,9 +610,16 @@ int vtc_conv_train_segment(float* dstk, float* h, float* v, const float* xblk,
                            int mode, int update, int renorm, int power_iters,
                            float* dall, float* gram, float* eta, float* img,
                            float* corr, float* z, float* old, float* partial,
-                           float* grad, void* stream_ptr) {
+                           float* grad, float eps, float inv_count,
+                           unsigned long long* stop_words, int* iters,
+                           void* stream_ptr) {
   if (k < 0 || upd_num_iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  StepStop stop;
+  stop.base.words = stop_words;
+  stop.base.eps = eps;
+  stop.base.inv_count = inv_count;
+  stop.iters = iters;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   ConvStep st;
   cudaError_t err = conv_step_setup(
@@ -576,7 +630,7 @@ int vtc_conv_train_segment(float* dstk, float* h, float* v, const float* xblk,
   const int64_t step_floats = static_cast<int64_t>(b) * cpx * st.blocks;
   for (int step = 0; step < k; ++step) {
     const float* xs = xblk + step * step_floats;
-    err = refresh_and_solve(st, xs, stream);
+    err = refresh_and_solve(st, xs, stream, &stop, step);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (update == 1) {
       conv_hessian_ema_kernel<<<s, kRowThreads, 0, stream>>>(old, h, b, s,
@@ -648,6 +702,11 @@ int vtc_conv_solve_stats(const float* dstk, float* v, const float* xblk,
 // the ranks.  gram 1 updates from (dstk cm - bx) / global_b at every update
 // iteration; gram 0 from grad_sum / global_b (exact at the solve dictionary,
 // so one update iteration).  old holds this rank's last codes on return.
+// stop_words, eps, inv_count and iters: the early stop, as
+// vtc_conv_train_segment's, inv_count over the global batch; at a world
+// above one stop_local (1,) takes the rank's sum of |codes - old| each
+// iteration and stop_hook(it) sums it over the ranks in place (a null
+// hook: a world of one, where the kernel decides on its own sum).
 // Returns the first CUDA error code (0 on success), or kSumHookFailed.
 int vtc_conv_dp_train_segment(
     float* dstk, float* h, float* v, const float* xblk, const float* mblk,
@@ -656,10 +715,18 @@ int vtc_conv_dp_train_segment(
     float lowest, int fista, int mode, int update, int renorm,
     int power_iters, int gram, float global_b, float* dall, float* gram_mat,
     float* eta, float* img, float* corr, float* z, float* old,
-    float* partial, float* grad, float* comm, SumHook sum_hook,
-    void* stream_ptr) {
+    float* partial, float* grad, float* comm, SumHook sum_hook, float eps,
+    float inv_count, unsigned long long* stop_words, int* iters,
+    float* stop_local, SumHook stop_hook, void* stream_ptr) {
   if (k < 0 || upd_num_iters < 0 || !(global_b >= 1.0f))
     return static_cast<int>(cudaErrorInvalidValue);
+  StepStop stop;
+  stop.base.words = stop_words;
+  stop.base.eps = eps;
+  stop.base.inv_count = inv_count;
+  stop.base.local = stop_hook != nullptr ? stop_local : nullptr;
+  stop.iters = iters;
+  stop.hook = stop_hook;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   ConvStep st;
   cudaError_t err = conv_step_setup(
@@ -674,7 +741,8 @@ int vtc_conv_dp_train_segment(
   const int blocks = (st.weights + 255) / 256;
   for (int step = 0; step < k; ++step) {
     const float* xs = xblk + step * step_floats;
-    err = refresh_and_solve(st, xs, stream);
+    err = refresh_and_solve(st, xs, stream, &stop, step);
+    if (stop.hook_failed) return kSumHookFailed;
     if (err == cudaSuccess)
       err = shard_stats(st, xs, mblk, gram, img, out, cm, stat, stream);
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -33,9 +33,16 @@ as one library convolution (cuDNN on the card, TF32 off): the yardstick
 and ``dictionary_gradient_from_block_stats`` (:212-252) are the conv
 trainer's 'block' dictionary gradient, as torch ops.
 
-Scope: no in-kernel early stop and only the 'highest' (IEEE fp32) tier;
-both wait in ROADMAP.md §1 item 3, and the wrapper raises when asked for
-an early stop.  ``launches`` counts solves launched on the card.
+``early_stopping_epsilon`` runs vtc_tpu's batch-global stop test
+(:307-334) on the card: the kernel's launches are the gathered GEMM's
+STOP builds, the analysis launch of each iteration decides on the device
+and the launches after a stop return at entry (csrc/conv_gemm.cuh, "The
+early stop"); the host never reads the mean.  ``last_iters`` (a private
+test hook) is the int32 device tensor of the last stopped launch's
+count; ``stop_scratch`` sizes the stop's device words.
+
+Scope: only the 'highest' (IEEE fp32) tier (ROADMAP.md §1 item 3a.2).
+``launches`` counts solves launched on the card.
 """
 import ctypes
 
@@ -47,6 +54,7 @@ from vtc_tpu_torch.ops.precision import matmul_precision
 from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 launches = 0
+last_iters = None  # int32 device tensor: the last stopped launch's count
 
 # the kernel's shrink modes, indexed by (nonneg, hard)
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2,
@@ -160,7 +168,8 @@ def _product(weights, stack):
 
 def _block_solve(products, images, dictionary, sparsity_weight, num_iters,
                  stepsize, kernel_stride, padding, initial_codes, variant,
-                 nonneg, hard, early_stopping_epsilon, precision):
+                 nonneg, hard, early_stopping_epsilon, precision,
+                 psum_axes=None):
   """K10's iteration in the inputs' own float type, with the block-space
   products that ``products(dictionary, geo)`` returns as (synthesize,
   analyze): img = mblk * synthesize(z), grad = analyze(img) - corr."""
@@ -188,7 +197,7 @@ def _block_solve(products, images, dictionary, sparsity_weight, num_iters,
 
     return proximal_gradient_loop(
         grad_fn, prox_fn, z, eta, num_iters, variant=variant,
-        early_stopping_epsilon=early_stopping_epsilon)
+        early_stopping_epsilon=early_stopping_epsilon, psum_axes=psum_axes)
 
 
 def _stack_products(dictionary, geo):
@@ -212,17 +221,20 @@ def fused_conv_direct_plain(images, dictionary, sparsity_weight, num_iters,
                             stepsize, *, kernel_stride, padding,
                             initial_codes=None, variant="fista",
                             nonneg=False, hard=False,
-                            early_stopping_epsilon=None, precision=None):
+                            early_stopping_epsilon=None, precision=None,
+                            psum_axes=None):
   """The plain PyTorch version of K10, on any device and in the inputs'
   own float type (float64 inputs give the float64 oracle): the same
   block-space products, mask and update as the kernel.
-  ``early_stopping_epsilon`` is the loop's batch-global stop test;
-  ``precision`` the matmul precision of ``ops/precision`` (default
-  'highest'), 'tensorfloat32' showing what TF32 products would cost."""
+  ``early_stopping_epsilon`` is the loop's batch-global stop test, over
+  the ranks of the ``parallel.Mesh`` ``psum_axes`` where one is given
+  (ops/solver.py); ``precision`` the matmul precision of
+  ``ops/precision`` (default 'highest'), 'tensorfloat32' showing what
+  TF32 products would cost."""
   return _block_solve(_stack_products, images, dictionary, sparsity_weight,
                       num_iters, stepsize, kernel_stride, padding,
                       initial_codes, variant, nonneg, hard,
-                      early_stopping_epsilon, precision)
+                      early_stopping_epsilon, precision, psum_axes)
 
 
 def fused_conv_direct_library(images, dictionary, sparsity_weight, num_iters,
@@ -291,17 +303,15 @@ def fused_conv_direct_solve(images, dictionary, sparsity_weight, num_iters,
     kernel_stride: (sv, sh); padding: ((lv, tv), (lh, th)) or None.
     initial_codes: optional (b, s, code_h, code_w) warm start.
     variant / nonneg / hard: 'ista' | 'fista', threshold flags.
-    early_stopping_epsilon: must be None (not in the kernel yet).
+    early_stopping_epsilon: optional; stop after the first iteration k > 0
+      whose mean |codes_k - codes_{k-1}| / stepsize is below it, and
+      return codes_k (the batch-global test, decided on the device).
 
   Returns:
     (b, s, code_h, code_w) codes on the inputs' device.
   """
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
-  if early_stopping_epsilon is not None:
-    raise NotImplementedError(
-        "the conv kernels have no early stop yet (a batch-global reduction "
-        "per iteration, ROADMAP.md §1 item 3); use formulation='gram'")
   kernel_stride = tuple(int(x) for x in kernel_stride)
   padding = conv_shapes.normalize_padding(padding)
   if images.device.type == "cpu":
@@ -309,7 +319,7 @@ def fused_conv_direct_solve(images, dictionary, sparsity_weight, num_iters,
         images, dictionary, sparsity_weight, num_iters, stepsize,
         kernel_stride=kernel_stride, padding=padding,
         initial_codes=initial_codes, variant=variant, nonneg=nonneg,
-        hard=hard)
+        hard=hard, early_stopping_epsilon=early_stopping_epsilon)
   _require(images.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(images.device))
@@ -349,18 +359,39 @@ def fused_conv_direct_solve(images, dictionary, sparsity_weight, num_iters,
     xblk = blockify(mask_img * images, geo).contiguous()
   return _launch(dstk, dall, mblk, xblk, eta, float(sparsity_weight),
                  num_iters, variant == "fista",
-                 _MODES[(bool(nonneg), bool(hard))], geo, z)
+                 _MODES[(bool(nonneg), bool(hard))], geo, z,
+                 eps=early_stopping_epsilon)
+
+
+def stop_scratch(lib, s, positions, eps, device, steps=1):
+  """The conv C entries' early-stop arguments for ``steps`` solves in a
+  row of s codes at ``positions`` code positions (b * code_h * code_w):
+  (eps, the zeroed words of ``vtc_conv_stop_words``, the counts (steps,)
+  int32).  eps None is the build without the stop: (-1.0, None, None).
+  A negative or NaN eps never stops, as in the plain loop."""
+  if eps is None:
+    return -1.0, None, None
+  words = lib.vtc_conv_stop_words(s, positions)
+  return (float(eps), torch.zeros(words, dtype=torch.int64, device=device),
+          torch.zeros(steps, dtype=torch.int32, device=device))
+
+
+def ptr(t):
+  """A tensor's device pointer, or None for None."""
+  return None if t is None else t.data_ptr()
 
 
 def _launch(dstk, dall, mblk, xblk, eta, lam, num_iters, fista, mode, geo,
-            z):
+            z, eps=None):
   """Allocate the kernel's scratch and enqueue the solve on the current
-  stream."""
-  global launches
+  stream; eps the early stop's threshold (None: none)."""
+  global launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   device = z.device
   b = z.shape[0]
+  positions = b * geo["code_h"] * geo["code_w"]
+  eps, words, iters = stop_scratch(lib, geo["s"], positions, eps, device)
   img = torch.empty_like(xblk)
   corr = torch.empty_like(z)
   old = z.clone()
@@ -371,10 +402,14 @@ def _launch(dstk, dall, mblk, xblk, eta, lam, num_iters, fista, mode, geo,
         eta.data_ptr(), ctypes.c_float(lam), num_iters, b, geo["s"],
         geo["cpx"], geo["ay"], geo["ax"], geo["bh"], geo["bw"], int(fista),
         mode, img.data_ptr(), corr.data_ptr(), z.data_ptr(), old.data_ptr(),
-        stream)
+        ctypes.c_float(eps), ctypes.c_float(1.0 / (positions * geo["s"])),
+        ptr(words), ptr(iters), stream)
   if err != 0:
     raise RuntimeError(
         "conv direct kernel launch failed with CUDA error %d (b=%d, s=%d, "
-        "cpx=%d, R=%d)" % (err, b, geo["s"], geo["cpx"], geo["r"]))
+        "cpx=%d, R=%d%s)" % (err, b, geo["s"], geo["cpx"], geo["r"],
+                             "" if words is None else ", early stop"))
   launches += 1
+  if iters is not None:
+    last_iters = iters
   return old

@@ -31,11 +31,19 @@ vtc_tpu's: a scan of [K13 -> psum -> replicated update]
 The gate is K13's, ``fused_conv_train.conv_solve_stats_supported``: the
 TPU kernel's further terms (the shard as one VMEM tile, the comm slots
 beside the solve's working set, ``fused_conv_dp_segment_supported``
-:86-122) are VMEM budgets with no counterpart on the card.  Left out: the
-in-kernel batch-global early stop and the ``mxu`` tiers other than
-'highest' raise NotImplementedError (ROADMAP.md §1 item 3a), as K12's and
-K13's wrappers do; the trainer runs an early-stopped data-parallel
-segment through the psum-per-op step, whose stop test is batch-global.
+:86-122) are VMEM budgets with no counterpart on the card.
+
+``early_stopping_epsilon`` runs vtc_tpu's batch-global stop test over
+the ranks (:143-213): each solve's iteration sums |codes - old| on the
+device (csrc/conv_gemm.cuh, "The early stop"), over the global batch's
+count; at a world above one the C loop calls ``ops/sum_hook.StopHook``
+once per iteration, which sums the rank's one-float share with
+``Mesh.sum_`` (the same bits on every rank), and a one-thread kernel
+decides, so every rank stops at the same count, as vtc_tpu's one slot
+all-reduce an iteration.  At a world of one there is no hook.
+``last_iters`` (a private test hook) is the int32 device tensor of the
+last stopped segment's counts, one a step.  The ``mxu`` tiers other than
+'highest' raise NotImplementedError (ROADMAP.md §1 item 3a.2).
 ``launches`` counts the train steps the kernel ran.
 """
 import ctypes
@@ -43,10 +51,11 @@ import ctypes
 import torch
 
 from vtc_tpu_torch.ops import conv_shapes, fused_conv_direct, fused_conv_train
-from vtc_tpu_torch.ops.sum_hook import SumHook
+from vtc_tpu_torch.ops.sum_hook import StopHook, SumHook
 from vtc_tpu_torch.parallel import data_parallel
 
 launches = 0
+last_iters = None  # int32 device tensor (k,): the last stopped segment's
 
 
 def fused_conv_dp_train_plain(dictionary, hessian, eigvec, batches,
@@ -55,11 +64,16 @@ def fused_conv_dp_train_plain(dictionary, hessian, eigvec, batches,
                               update_alg="sc_cheap_quadratic_descent",
                               upd_num_iters=1, nonneg=False, hard=False,
                               renormalize=True, power_iters=12,
-                              lowest_code_val=0.001, precision=None):
+                              lowest_code_val=0.001, precision=None,
+                              early_stopping_epsilon=None):
   """The plain PyTorch version of the segment, on any device and in the
   inputs' own float type (float64 inputs give the oracle): per batch K13's
   plain version, the sum over ``mesh`` and the replicated update.
-  ``precision`` is the matmul precision of the solve (default 'highest')."""
+  ``precision`` is the matmul precision of the solve (default 'highest');
+  ``early_stopping_epsilon`` the solve's stop test on the mean over the
+  ranks (ops/solver.py with ``psum_axes=mesh``: with the equal shards
+  every rank takes, the global batch's mean), so every rank stops at the
+  same iteration."""
   gram = int(upd_num_iters) > 1
   d, h, v = dictionary, hessian, eigvec
   codes = None
@@ -68,7 +82,8 @@ def fused_conv_dp_train_plain(dictionary, hessian, eigvec, batches,
         d, v, batch, sparsity_weight, inf_num_iters,
         kernel_stride=kernel_stride, padding=padding, variant=variant,
         nonneg=nonneg, hard=hard, power_iters=power_iters, gram_stats=gram,
-        precision=precision)
+        precision=precision, early_stopping_epsilon=early_stopping_epsilon,
+        psum_axes=mesh)
     codes, stats, v = out[0], out[1:-2], out[-2]
     d, h = data_parallel.conv_replicated_update(
         mesh, d, h, stats, batch.shape, upd_stepsize, upd_num_iters,
@@ -108,8 +123,11 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
       ``upd_num_iters`` (ValueError otherwise, on any device).
     variant / update_alg / upd_num_iters / nonneg / hard / renormalize /
       power_iters / lowest_code_val: as in vtc_tpu.
-    mxu: 'highest' only; early_stopping_epsilon: None only.  Both raise
-      NotImplementedError, ROADMAP.md §1 item 3a.
+    mxu: 'highest' only (NotImplementedError otherwise, ROADMAP.md §1
+      item 3a.2).
+    early_stopping_epsilon: optional; each step's solve stops after the
+      first iteration k > 0 whose mean |codes_k - codes_{k-1}| / eta over
+      the global batch is below it, on every rank at the same count.
 
   Returns:
     (kernels, hessian, eigvec, last_codes): new tensors, replicated but for
@@ -125,11 +143,6 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
     raise NotImplementedError(
         "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
         % (mxu,))
-  if early_stopping_epsilon is not None:
-    raise NotImplementedError(
-        "the data-parallel conv segment has no in-kernel early stop (a "
-        "batch-global reduction per solver iteration), ROADMAP.md §1 item "
-        "3a; the psum-per-op step (parallel.build_dp_local_step) has it")
 
   def require(cond, message):
     if not cond:
@@ -155,7 +168,8 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
   if batches.device.type == "cpu":
     return fused_conv_dp_train_plain(
         dictionary, hessian, eigvec, batches, float(sparsity_weight),
-        int(inf_num_iters), float(upd_stepsize), mesh=mesh, **flags)
+        int(inf_num_iters), float(upd_stepsize), mesh=mesh,
+        early_stopping_epsilon=early_stopping_epsilon, **flags)
   require(batches.device.type == "cuda",
           "tensors must be on the CPU or a CUDA device, got "
           + str(batches.device))
@@ -178,7 +192,7 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
   d, h, v, codes = _launch(
       dstk.clone(), hessian.contiguous().clone(), eigvec.contiguous().clone(),
       xblk, mblk, supp, geo, k, mesh, float(sparsity_weight),
-      int(inf_num_iters), float(upd_stepsize),
+      int(inf_num_iters), float(upd_stepsize), eps=early_stopping_epsilon,
       **{key: flags[key] for key in (
           "variant", "update_alg", "upd_num_iters", "nonneg", "hard",
           "renormalize", "power_iters", "lowest_code_val")})
@@ -188,11 +202,12 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
 
 def _launch(dstk, h, v, xblk, mblk, supp, geo, k, mesh, lam, num_iters,
             upd_step, *, variant, update_alg, upd_num_iters, nonneg, hard,
-            renormalize, power_iters, lowest_code_val):
+            renormalize, power_iters, lowest_code_val, eps=None):
   """Allocate the scratch and the packed statistics, and enqueue the k
   steps on the current stream, the sum over the ranks between each step's
-  statistics and its update."""
-  global launches
+  statistics and its update; eps the early stop's threshold (None:
+  none), its share summed over the ranks once per solver iteration."""
+  global launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   device = dstk.device
@@ -214,6 +229,10 @@ def _launch(dstk, h, v, xblk, mblk, supp, geo, k, mesh, lam, num_iters,
   # [cm | bx | stat] or [grad_sum | stat], summed by one all-reduce
   comm = empty((rs * rs if gram else 0) + cpx * rs + s)
   hook = SumHook(mesh, comm)
+  eps, words, iters = fused_conv_direct.stop_scratch(
+      lib, s, b * ch * cw, eps, device, steps=k)
+  local = None if words is None or mesh.size == 1 else empty(1)
+  stop_hook = None if local is None else StopHook(mesh, local)
   f32 = ctypes.c_float
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -227,8 +246,18 @@ def _launch(dstk, h, v, xblk, mblk, supp, geo, k, mesh, lam, num_iters,
         power_iters, int(gram), f32(b * mesh.size), dall.data_ptr(),
         gram_mat.data_ptr(), eta.data_ptr(), img.data_ptr(), corr.data_ptr(),
         z.data_ptr(), old.data_ptr(), partial.data_ptr(), grad.data_ptr(),
-        comm.data_ptr(), hook.pointer, stream)
-  hook.check(err, "data-parallel conv segment launch (k=%d, b=%d, s=%d, "
-             "cpx=%d, R=%d, gram form %s)" % (k, b, s, cpx, r, gram))
+        comm.data_ptr(), hook.pointer, f32(eps),
+        f32(1.0 / (b * mesh.size * s * ch * cw)),
+        fused_conv_direct.ptr(words), fused_conv_direct.ptr(iters),
+        fused_conv_direct.ptr(local),
+        None if stop_hook is None else stop_hook.pointer, stream)
+  what = ("data-parallel conv segment launch (k=%d, b=%d, s=%d, cpx=%d, "
+          "R=%d, gram form %s%s)" % (k, b, s, cpx, r, gram,
+                                    "" if words is None else ", early stop"))
+  if stop_hook is not None:
+    stop_hook.check(0, what)
+  hook.check(err, what)
   launches += k
+  if iters is not None:
+    last_iters = iters
   return dstk, h, v, old

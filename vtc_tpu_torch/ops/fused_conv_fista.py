@@ -18,9 +18,13 @@ Then:
   loop serves both, as in vtc_tpu (its kernel is tested against 'gram').
 
 ``run(formulation='pallas')`` takes this kernel for the geometries K10's
-gate turns away.  Scope: no in-kernel early stop and only the 'highest'
-tier (ROADMAP.md §1 item 3).  ``launches`` counts solves launched on the
-card.
+gate turns away.  ``early_stopping_epsilon`` runs the batch-global stop
+test on the card as K10 does (csrc/conv_gemm.cuh, "The early stop"): the
+interior launch decides on the device and every launch after a stop
+returns at entry; ``last_iters`` (a private test hook) is the int32 device
+tensor of the last stopped launch's count.  Scope: only the 'highest'
+tier (ROADMAP.md §1 item 3a.2).  ``launches`` counts solves launched on
+the card.
 """
 import ctypes
 
@@ -28,9 +32,11 @@ import torch
 
 from vtc_tpu_torch.ops import conv_gram, conv_shapes, thresholds
 from vtc_tpu_torch.ops import convolutions as conv_ops
+from vtc_tpu_torch.ops.fused_conv_direct import ptr, stop_scratch
 from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 launches = 0
+last_iters = None  # int32 device tensor: the last stopped launch's count
 
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2,
           (True, True): 3}
@@ -111,10 +117,6 @@ def fused_conv_fista_solve(images, dictionary, sparsity_weight, num_iters,
   stride-exact geometry."""
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
-  if early_stopping_epsilon is not None:
-    raise NotImplementedError(
-        "the conv kernels have no early stop yet (a batch-global reduction "
-        "per iteration, ROADMAP.md §1 item 3); use formulation='gram'")
   kernel_stride = tuple(int(x) for x in kernel_stride)
   padding = conv_shapes.normalize_padding(padding)
   if images.device.type == "cpu":
@@ -122,7 +124,7 @@ def fused_conv_fista_solve(images, dictionary, sparsity_weight, num_iters,
         images, dictionary, sparsity_weight, num_iters, stepsize,
         kernel_stride=kernel_stride, padding=padding,
         initial_codes=initial_codes, variant=variant, nonneg=nonneg,
-        hard=hard)
+        hard=hard, early_stopping_epsilon=early_stopping_epsilon)
   _require(images.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(images.device))
@@ -153,7 +155,8 @@ def fused_conv_fista_solve(images, dictionary, sparsity_weight, num_iters,
   if images.shape[0] == 0:
     return z
   return _launch(op, corr, eta, float(sparsity_weight), num_iters,
-                 variant == "fista", _MODES[(bool(nonneg), bool(hard))], z)
+                 variant == "fista", _MODES[(bool(nonneg), bool(hard))], z,
+                 eps=early_stopping_epsilon)
 
 
 def _stacked(g, lines):
@@ -163,10 +166,10 @@ def _stacked(g, lines):
   return g.permute(0, 2, 1, 3).reshape(lines, s, n_off * s).contiguous()
 
 
-def _launch(op, corr, eta, lam, num_iters, fista, mode, z):
+def _launch(op, corr, eta, lam, num_iters, fista, mode, z, eps=None):
   """Pack the operator, allocate the scratch and enqueue the solve on
-  the current stream."""
-  global launches
+  the current stream; eps the early stop's threshold (None: none)."""
+  global launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   device = z.device
@@ -186,10 +189,7 @@ def _launch(op, corr, eta, lam, num_iters, fista, mode, z):
   corrbuf = torch.zeros_like(z)
   z2 = torch.empty_like(z)
   old = z.clone()
-
-  def ptr(t):
-    return None if t is None else t.data_ptr()
-
+  eps, words, iters = stop_scratch(lib, s, b * code_h * code_w, eps, device)
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.vtc_conv_fista(
@@ -197,11 +197,15 @@ def _launch(op, corr, eta, lam, num_iters, fista, mode, z):
         px.data_ptr(), row_flag.data_ptr(), num_p, num_q, corr.data_ptr(),
         eta.data_ptr(), ctypes.c_float(lam), num_iters, b, s, code_h, code_w,
         op["ry"], op["rx"], int(fista), mode, corrbuf.data_ptr(),
-        z.data_ptr(), z2.data_ptr(), old.data_ptr(), stream)
+        z.data_ptr(), z2.data_ptr(), old.data_ptr(), ctypes.c_float(eps),
+        ctypes.c_float(1.0 / z.numel()), ptr(words), ptr(iters), stream)
   if err != 0:
     raise RuntimeError(
         "conv gram kernel launch failed with CUDA error %d (b=%d, s=%d, "
-        "%d offsets, %d special rows, %d special columns)" % (
-            err, b, s, n_off, num_p, num_q))
+        "%d offsets, %d special rows, %d special columns%s)" % (
+            err, b, s, n_off, num_p, num_q,
+            "" if words is None else ", early stop"))
   launches += 1
+  if iters is not None:
+    last_iters = iters
   return old

@@ -29,10 +29,14 @@ semantics.  So the gate keeps vtc_tpu's math (K10's geometry, s <= R*cpx,
 ista/fista, the two update rules, no groups) and drops the TPU's VMEM
 tile fit (``_fits``, ``_pick_tile`` :115-139); the gram-form tile
 accumulators (:501-516), which only tiled batches use, have no
-counterpart.  Left out: the TPU knobs ``batch_tile`` and ``interpret``;
-the in-kernel early stop and the ``mxu`` tiers other than 'highest' raise
-NotImplementedError on a CUDA tensor (ROADMAP.md §1 item 3).
-``launches`` counts the train steps the kernels ran.
+counterpart.  ``early_stopping_epsilon`` runs each step's solve with
+vtc_tpu's batch-global stop test (:320-344) on the card, decided on the
+device (csrc/conv_gemm.cuh, "The early stop"); ``last_iters`` (a private
+test hook) is the int32 device tensor of the last stopped segment's
+counts, one a step.  Left out: the TPU knobs ``batch_tile`` and
+``interpret``; the ``mxu`` tiers other than 'highest' raise
+NotImplementedError (ROADMAP.md §1 item 3a.2).  ``launches`` counts the
+train steps the kernels ran.
 
 Also here, the port of TPU kernel K13, ``conv_solve_stats_pallas``
 (pallas_conv_train.py:840-971, kernel ``_make_stats_kernel`` :776): one
@@ -60,6 +64,7 @@ from vtc_tpu_torch.ops.precision import matmul_precision
 
 launches = 0
 stats_launches = 0
+last_iters = None  # int32 device tensor (k,): the last stopped segment's
 
 UPDATE_ALGS = ("sc_steepest_descent", "sc_cheap_quadratic_descent")
 
@@ -206,8 +211,9 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
       power_iters / lowest_code_val: as in vtc_tpu (power_iters 12 is the
       robust default; the trainer passes 2 from an exact seed).
     mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3).
-    early_stopping_epsilon: CPU tensors only (the plain version's stop
-      test); a CUDA tensor raises, ROADMAP.md §1 item 3.
+    early_stopping_epsilon: optional; each step's solve stops after the
+      first iteration k > 0 whose mean |codes_k - codes_{k-1}| / eta is
+      below it (the batch-global test, decided on the device).
     return_stepsize: also return the final step's stepsize 1/eigval, a
       one-element tensor.
 
@@ -243,10 +249,6 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
   _require(batches.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(batches.device))
-  if early_stopping_epsilon is not None:
-    raise NotImplementedError(
-        "the fused conv train kernels have no early stop yet (a "
-        "batch-global reduction per iteration, ROADMAP.md §1 item 3)")
   device = batches.device
   k = batches.shape[0]
   img_shape = tuple(batches.shape[1:])
@@ -275,6 +277,7 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
       dstk.clone(), hessian.contiguous().clone(),
       eigvec.contiguous().clone(), xblk, mblk, supp, geo, k,
       float(sparsity_weight), int(inf_num_iters), float(upd_stepsize),
+      eps=early_stopping_epsilon,
       **{key: flags[key] for key in (
           "variant", "update_alg", "upd_num_iters", "nonneg", "hard",
           "renormalize", "power_iters", "lowest_code_val")})
@@ -304,9 +307,10 @@ def segment_inputs(dictionary, batches, padding, geo):
 
 def _launch(dstk, h, v, xblk, mblk, supp, geo, k, lam, num_iters, upd_step,
             *, variant, update_alg, upd_num_iters, nonneg, hard, renormalize,
-            power_iters, lowest_code_val):
-  """Allocate the scratch and enqueue the k steps on the current stream."""
-  global launches
+            power_iters, lowest_code_val, eps=None):
+  """Allocate the scratch and enqueue the k steps on the current stream;
+  eps the early stop's threshold (None: none)."""
+  global launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   device = dstk.device
@@ -322,6 +326,8 @@ def _launch(dstk, h, v, xblk, mblk, supp, geo, k, lam, num_iters, upd_step,
   img, corr = empty(b, cpx, bh, bw), empty(b, s, ch, cw)
   z, old = empty(b, s, ch, cw), empty(b, s, ch, cw)
   partial, grad = empty(splits, cpx, r * s), empty(cpx, r * s)
+  eps, words, iters = fused_conv_direct.stop_scratch(
+      lib, s, b * ch * cw, eps, device, steps=k)
   f32 = ctypes.c_float
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -335,19 +341,25 @@ def _launch(dstk, h, v, xblk, mblk, supp, geo, k, lam, num_iters, upd_step,
         int(update_alg == "sc_cheap_quadratic_descent"), int(renormalize),
         power_iters, dall.data_ptr(), gram.data_ptr(), eta.data_ptr(),
         img.data_ptr(), corr.data_ptr(), z.data_ptr(), old.data_ptr(),
-        partial.data_ptr(), grad.data_ptr(), stream)
+        partial.data_ptr(), grad.data_ptr(), f32(eps),
+        f32(1.0 / (b * s * ch * cw)), fused_conv_direct.ptr(words),
+        fused_conv_direct.ptr(iters), stream)
   if err != 0:
     raise RuntimeError(
         "fused conv train step launch failed with CUDA error %d (k=%d, "
-        "b=%d, s=%d, cpx=%d, R=%d)" % (err, k, b, s, cpx, r))
+        "b=%d, s=%d, cpx=%d, R=%d%s)" % (
+            err, k, b, s, cpx, r, "" if words is None else ", early stop"))
   launches += k
+  if iters is not None:
+    last_iters = iters
   return dstk, h, v, old, eta
 
 
 def conv_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
                            inf_num_iters, *, kernel_stride, padding,
                            variant="fista", nonneg=False, hard=False,
-                           power_iters=12, gram_stats=False, precision=None):
+                           power_iters=12, gram_stats=False, precision=None,
+                           early_stopping_epsilon=None, psum_axes=None):
   """The plain PyTorch version of ``conv_solve_stats``, on any device and
   in the inputs' own float type: ``lipschitz.power_iterate`` on the flat
   kernels -> ``fused_conv_direct_plain`` -> the block statistics of
@@ -355,7 +367,10 @@ def conv_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
   vtc_tpu's tests/test_pallas_conv_train.py:180-215).  ``precision`` is
   the matmul precision of the solve ('tensorfloat32' shows what TF32
   products would cost); the refresh and the statistics stay at
-  'highest', as in every tier of the TPU kernel (:829-833)."""
+  'highest', as in every tier of the TPU kernel (:829-833).
+  ``early_stopping_epsilon`` and ``psum_axes`` are the solve's stop test
+  over the ranks, which K17's plain version takes through this function
+  (K13 itself has none)."""
   kernel_stride = tuple(int(x) for x in kernel_stride)
   padding = conv_shapes.normalize_padding(padding)
   s = dictionary.shape[0]
@@ -365,7 +380,8 @@ def conv_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
   codes = fused_conv_direct.fused_conv_direct_plain(
       batch, dictionary, sparsity_weight, inf_num_iters, eta,
       kernel_stride=kernel_stride, padding=padding, variant=variant,
-      nonneg=nonneg, hard=hard, precision=precision)
+      nonneg=nonneg, hard=hard, precision=precision,
+      early_stopping_epsilon=early_stopping_epsilon, psum_axes=psum_axes)
   stats = fused_conv_direct.build_block_update_stats(
       batch, codes, dictionary.shape, kernel_stride, padding)
   stat = torch.sum(codes * codes, dim=(0, 2, 3))
@@ -403,9 +419,8 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
       ``gram_stats_supported`` (ValueError otherwise, on any device).
     variant / nonneg / hard / power_iters: as in vtc_tpu.
     mxu: 'highest' only; early_stopping_epsilon: None only (vtc_tpu's
-      kernel has no stop test; vtc_tpu's data-parallel stop is K17's,
-      which waits too).  Both raise NotImplementedError, ROADMAP.md §1
-      item 3a.
+      kernel has no stop test; vtc_tpu's data-parallel stop is K17's).
+      Both raise NotImplementedError, ROADMAP.md §1 item 3a.
 
   Returns:
     gram_stats False: (codes (b, s, ch, cw), grad_sum (s, c, kh, kw), stat
@@ -425,8 +440,8 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
         % (mxu,))
   if early_stopping_epsilon is not None:
     raise NotImplementedError(
-        "conv_solve_stats has no early stop (a batch-global reduction per "
-        "iteration across the ranks), ROADMAP.md §1 item 3a")
+        "conv_solve_stats has no early stop, as vtc_tpu's K13 has none; "
+        "the data-parallel conv stop is K17's (ROADMAP.md §1 item 3a.1)")
   kernel_stride = tuple(int(x) for x in kernel_stride)
   padding = conv_shapes.normalize_padding(padding)
 

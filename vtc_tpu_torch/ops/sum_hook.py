@@ -13,6 +13,14 @@ cannot cross the C frame, so the callback keeps it and returns 1, the loop
 returns ``FAILED``, and ``check`` raises the kept error: nothing is caught
 and carried on.
 
+``StopHook(mesh, local)`` is the early stop's hook of K17 at a world
+above one (and of K15 and K16 when they take the stop): the C loop calls
+it once per solver iteration, after the analysis launch has left the
+rank's sum of |codes - old| in the one-float device buffer ``local``, and
+it sums that buffer over the ranks with ``Mesh.sum_`` (the same bits on
+every rank, so every rank takes the same decision), vtc_tpu's one slot
+all-reduce an iteration (pallas_conv_dp_train.py:190-213).
+
 ``AxisSumHook(sums)`` is the hook of K19 across devices, which sums
 several buffers, each over its own axis, in one step:
 ``int hook(int step, int which)`` (csrc/train_core.cuh,
@@ -67,6 +75,18 @@ class SumHook:
       raise RuntimeError("%s failed with %s" % (
           what, "a failed sum hook" if err == FAILED
           else "CUDA error %d" % err))
+
+
+class StopHook(SumHook):
+  """The per-iteration sum of the one-float ``local`` over ``mesh``, as a
+  C function pointer ``int hook(int iteration)``; None on a mesh of one,
+  where the kernel decides on its own sum."""
+
+  def __init__(self, mesh, local):
+    if local.numel() != 1:
+      raise ValueError("the stop hook sums one float, got %d"
+                       % local.numel())
+    super().__init__(mesh, local)
 
 
 class AxisSumHook(SumHook):

@@ -68,7 +68,10 @@ same dictionary.
   update.  Its gate is K13's, ``conv_solve_stats_supported`` at the
   segment's ``upd_num_iters`` (more than one update iteration takes the
   gram form, so a stride-block-uniform mask); vtc_tpu's further terms are
-  VMEM budgets and its interpret-mode device count.
+  VMEM budgets and its interpret-mode device count.  With
+  'early_stopping_epsilon' it is the only fused data-parallel runner
+  (vtc_tpu :721-746): its solves stop over the global batch, the share
+  summed over the ranks once per iteration.
 * ``_dp_fc_segment_runner`` (:214-246, vtc_tpu's
   ``_dp_rdma_segment_runner``) and ``_dp_group_segment_runner``
   (:284-318, ``_dp_rdma_group_segment_runner``): where vtc_tpu picks its
@@ -99,9 +102,11 @@ same dictionary.
   (``parallel.build_dp_local_step``) for every other configuration, with
   the stepsize computed in the step: 'power_warm' is downgraded to 'power'
   (:810-813), and a warm run's eigenvector is re-seeded after a segment
-  that took this runner (:1281-1285).  An early-stopped data-parallel run
-  takes it too, where vtc_tpu takes K15, K16 or K17 with their in-kernel
-  stop test: that test waits with those kernels' (ROADMAP.md §1 item 3a.1).
+  that took this runner (:1281-1285).  An early-stopped fc or subspace
+  data-parallel run takes it too, where vtc_tpu takes K15 or K16 with
+  their in-kernel stop test: that test waits with those kernels'
+  (ROADMAP.md §1 item 3a.1); so does an early-stopped conv run on a mesh
+  with a 'dcn' axis, as in vtc_tpu.
 * The shuffle permutes the global sample index with the seeded generator
   every rank has, before the shard is taken: a data-parallel run visits
   the samples of the single-device run.  Rank 0 writes checkpoints and
@@ -109,10 +114,11 @@ same dictionary.
 
 Raise NotImplementedError, each naming its ROADMAP.md §1 item:
 'hbm_chunk_steps' streaming (item 8), 'train_precision' other than
-'highest' (item 3a.2), and 'early_stopping_epsilon' where the conv or
-data-parallel kernels (K10-K12, K15-K17, K19) would run it on a CUDA
-device (item 3a.1).  The single-device fc and subspace segments stop on
-the device (K2, K6, and K1 in the per-step route).
+'highest' (item 3a.2), and 'early_stopping_epsilon' where the
+data-parallel fc/subspace kernels (K15, K16) or the code-sharded K19
+would run it on a CUDA device (item 3a.1).  The single-device segments
+stop on the device (K2, K6, K12, and K1 or K10 in the per-step route),
+and so does the data-parallel conv segment (K17).
 """
 import time
 
@@ -187,17 +193,20 @@ def _fused_group_segment_runner(variant, update_alg, upd_niters, hard,
 
 
 def _fused_conv_segment_runner(variant, update_alg, upd_niters, nonneg,
-                               hard, renormalize, kernel_stride, padding):
+                               hard, renormalize, kernel_stride, padding,
+                               early_eps=None):
   """The conv counterpart of ``_fused_segment_runner``: the whole segment
   through the fused conv train kernels in stride-block space, warm
-  tracking at power_iters=2."""
+  tracking at power_iters=2; ``early_eps`` each solve's batch-global stop
+  test, in the kernels (vtc_tpu :835-841)."""
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
     dictionary, hessian, eigvec, _ = fused_conv_train.fused_conv_train_segment(
         dictionary, hessian, eigvec, batches, sw, n_it, upd_step,
         kernel_stride=kernel_stride, padding=padding, variant=variant,
         update_alg=update_alg, upd_num_iters=upd_niters, nonneg=nonneg,
-        hard=hard, renormalize=renormalize, power_iters=2)
+        hard=hard, renormalize=renormalize, power_iters=2,
+        early_stopping_epsilon=early_eps)
     return dictionary, hessian, eigvec
 
   return run
@@ -252,11 +261,13 @@ def _code_shard_segment_runner(mesh, cs_size, data_size, variant,
 
 
 def _dp_conv_segment_runner(mesh, variant, update_alg, upd_niters, nonneg,
-                            hard, renormalize, kernel_stride, padding):
+                            hard, renormalize, kernel_stride, padding,
+                            early_eps=None):
   """vtc_tpu's ``_dp_rdma_conv_segment_runner``: this rank's shards of the
   whole segment through the data-parallel conv segment kernels (K17), the
   statistics summed over ``mesh`` once per step, warm tracking at
-  power_iters=2."""
+  power_iters=2; ``early_eps`` each solve's stop test over the global
+  batch, its share summed over ``mesh`` once per iteration."""
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
     dictionary, hessian, eigvec, _ = (
@@ -265,7 +276,7 @@ def _dp_conv_segment_runner(mesh, variant, update_alg, upd_niters, nonneg,
             mesh=mesh, kernel_stride=kernel_stride, padding=padding,
             variant=variant, update_alg=update_alg, upd_num_iters=upd_niters,
             nonneg=nonneg, hard=hard, renormalize=renormalize,
-            power_iters=2))
+            power_iters=2, early_stopping_epsilon=early_eps))
     return dictionary, hessian, eigvec
 
   return run
@@ -423,12 +434,11 @@ def train_dictionary_scanned(training_batches, validation_batches,
                    if mode == "convolutional"
                    else resolved_formulation == "pallas")
   if (early_eps is not None and device.type == "cuda" and kernels_route
-      and (mode == "convolutional" or dp_mesh is not None)):
+      and dp_mesh is not None and mode == "fully-connected"):
     raise NotImplementedError(
-        "early_stopping_epsilon with the conv or data-parallel CUDA kernels "
-        "(K10-K12, K15-K17, K19): their stop test waits, ROADMAP.md §1 "
-        "item 3a.1; use conv_formulation='gram' (fc_formulation='gram' "
-        "for data_parallel)")
+        "early_stopping_epsilon with the data-parallel fc/subspace CUDA "
+        "kernels (K15, K16) or the code-sharded one (K19): their stop test "
+        "waits, ROADMAP.md §1 item 3a.1; use fc_formulation='gram'")
   use_fused = device.type == "cuda" and warm_power and kernels_route
   def code_shard_plan(s_now):
     """(whether the code-sharded runner takes the configuration at s_now
@@ -462,10 +472,15 @@ def train_dictionary_scanned(training_batches, validation_batches,
       and code_shard_plan(init_dictionary.shape[0])[0])
   # data parallel: the fused-DP composition where a solve+stats kernel
   # takes the configuration (vtc_tpu :629-809 without its TPU-only terms),
-  # else the psum-per-op step with the stepsize computed in the step
+  # else the psum-per-op step with the stepsize computed in the step; with
+  # an early stop only K17 (vtc_tpu :721-746: conv, every axis other than
+  # 'data' of size 1), whose solves stop over the global batch
   dp_fused = False
   if dp_mesh is not None:
-    dp_fused = early_eps is None and warm_power and kernels_route
+    whole_mesh = all(dp_mesh.shape[a] == 1 for a in dp_mesh.axis_names
+                     if a != "data")
+    dp_fused = warm_power and kernels_route and (
+        early_eps is None or (mode == "convolutional" and whole_mesh))
     if not dp_fused and not code_sharded and warm_power:
       lipschitz_method, warm_power = "power", False
 
@@ -515,17 +530,15 @@ def train_dictionary_scanned(training_batches, validation_batches,
     if dp_fused_now():
       # the whole-segment kernels where vtc_tpu takes them (:656-659): every
       # axis other than 'data' of size 1 (no 'dcn' axis, 'code' 1)
-      whole = all(dp_mesh.shape[a] == 1 for a in dp_mesh.axis_names
-                  if a != "data")
-      if whole and mode == "convolutional":
+      if whole_mesh and mode == "convolutional":
         return _dp_conv_segment_runner(
             dp_mesh, inference_alg, update_alg, upd_niters, nonneg, hard,
-            renormalize, kernel_stride, padding), True
-      if whole and group_assignments is None:
+            renormalize, kernel_stride, padding, early_eps), True
+      if whole_mesh and group_assignments is None:
         return _dp_fc_segment_runner(
             dp_mesh, inference_alg, update_alg, upd_niters, nonneg, hard,
             renormalize), True
-      if whole and fused_group_dp_train.fused_group_dp_segment_supported(
+      if whole_mesh and fused_group_dp_train.fused_group_dp_segment_supported(
           training_batches.shape[1], dictionary.shape[0],
           training_batches.shape[-1], group_assignments,
           alignment_penalty=alignment_penalty, renormalize=renormalize):
@@ -583,7 +596,7 @@ def train_dictionary_scanned(training_batches, validation_batches,
         return _fused_conv_segment_runner(inference_alg, update_alg,
                                           upd_niters, nonneg, hard,
                                           renormalize, kernel_stride,
-                                          padding)
+                                          padding, early_eps)
       return _segment_runner(raw_step, upd_niters, warm_power, lip_matrix)
     if use_fused and group_assignments is None:
       return _fused_segment_runner(inference_alg, update_alg, upd_niters,

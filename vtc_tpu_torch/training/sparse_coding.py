@@ -285,16 +285,8 @@ def _build_conv_step(inference_alg, update_alg, *, nonneg, hard_threshold,
         and (conv_formulation == "pallas" or on_card)
         and fused_conv_direct.supported(batch.shape, dictionary.shape,
                                         stride)):
-      if early_stopping_epsilon is None:
-        return fused_conv_direct.fused_conv_direct_solve(
-            batch, dictionary, sparsity_weight, num_iters, stepsize,
-            **flags)
-      if on_card:
-        raise NotImplementedError(
-            "early_stopping_epsilon with the conv CUDA kernel: its stop "
-            "test waits, ROADMAP.md §1 item 3a.1; use "
-            "conv_formulation='gram'")
-      return fused_conv_direct.fused_conv_direct_plain(
+      # K10, its stop test in the kernel on the card
+      return fused_conv_direct.fused_conv_direct_solve(
           batch, dictionary, sparsity_weight, num_iters, stepsize,
           early_stopping_epsilon=early_stopping_epsilon, **flags)
     return fused_conv_fista.fused_conv_fista_plain(
