@@ -74,10 +74,10 @@ caught.
   across devices, each rank's segment from one C loop with the sums over
   the ranks as calls of its host hook.
 
-The phases that check a refusal (an early stop or a tier the kernels do
-not have yet) require NotImplementedError naming its ROADMAP.md item and
-no launch of the kernel.  CUDA_TESTS below maps each test marked cuda to
-the phases that make its check here.
+The phases that check a refusal (a tier the kernels do not have yet, or
+K13's early stop, which vtc_tpu's K13 lacks too) require
+NotImplementedError and no launch of the kernel.  CUDA_TESTS below maps
+each test marked cuda to the phases that make its check here.
 
 1. Device and build: requires CUDA (there is no CPU path), prints the
    card's name and power limit, builds the kernels from
@@ -487,6 +487,39 @@ the phases that make its check here.
    with the stop against conv_formulation='gram'; the stop rows' times at
    this run's counts, their plain versions and (K10, K11) the same loop
    with cuDNN's products at the count.
+45. The early stop of the data-parallel fc and subspace segments and of
+   the big-dictionary segment (csrc/fista_core.cuh's classic route across
+   ranks, csrc/code_shard_solve.cuh's STOP build, csrc/
+   fused_code_shard_train_step.cu's per-step stop).  (a) K15 and K16 at
+   the flagship data-parallel rows (b 250, s = n = 256, FISTA 25,
+   cheap-quad, 64 groups of 4) at a world of 1, one step on two batches
+   at an eps that stops at k = 1, one from the plain version's means that
+   stops mid-run, and 0 (never): every output bitwise the same kernel
+   without the stop run to the count it reports, the count the fp32 plain
+   version's, within phase 2's limit of it; a 10-step segment at the mid
+   eps, every step's count the plain version's.  (b) K15 and K16 at a
+   world of 2 through the scanned trainers (two processes of this script
+   sharing the card over gloo, spawned as phase 37's): both ranks bitwise
+   equal with the same counts every step, the world of 1's, within the
+   rounding floor of it.  (c) K19 at one rank, bench's fc and 512 x 4 and a ragged
+   s 512 partition (the member table), at the three eps: the persistent
+   and per-step routes bitwise equal at the same count, the persistent
+   route bitwise its build without the stop at the count, the plain
+   version's count, within the limit; a 3-step segment at the mid eps;
+   then at (data 1, code 2) and (2, 2) meshes (2 and 4 processes): every
+   rank bitwise the same state and counts, the counts those of the fp32
+   plain version with the stop on the same mesh and of K19 at one rank,
+   the state within the limit of both.  (d) The main path with the
+   stop, every count zeroed before and read after: the data-parallel fc
+   and subspace trainers at a world of 1 (20 K15, 20 K16 steps) and
+   _code_shard_segment_runner fc and 512 x 4 (40 K19 steps, each one
+   persistent solve).  (e) In turns: the stop's µs an iteration on K19's
+   persistent route at eps 0 against the build without it (8 paired
+   readings, their median and range); the stopped K19 segment against K19
+   without the stop at 25 iterations; the data-parallel fc trainer with
+   the mid eps against fc_formulation='gram' (100 steps, 4 calls of each,
+   the ratio of the medians and turn by turn); the stop rows' times at
+   this run's counts beside their plain versions.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -549,6 +582,8 @@ CUDA_TESTS = {
     "test_cuda_solve_stats_kernels_match_plain": (26,),
     "test_torch_port_parallel_train.py::"
     "test_cuda_dp_trainers_run_the_stats_kernels": (34,),
+    "test_torch_port_dp_early_stop.py::test_cuda_dp_stop_matches_plain": (
+        45,),
     "test_torch_port_dp_segments.py::test_cuda_k15_matches_plain": (33,),
     "test_torch_port_dp_segments.py::test_cuda_k16_matches_plain": (33,),
     "test_torch_port_dp_segments.py::test_cuda_k18_matches_plain": (33,),
@@ -568,7 +603,7 @@ CUDA_TESTS = {
     "test_cuda_early_stop_raises_and_launches_nothing": (8, 43),
     "test_torch_port_subspace.py::test_cuda_kernel_matches_plain": (8, 9),
     "test_torch_port_subspace_train.py::test_cuda_early_stop_raises": (
-        10, 11, 43),
+        10, 11, 43, 45),
     "test_torch_port_subspace_train.py::test_cuda_kernels_match_plain": (
         10,),
     "test_torch_port_subspace_train.py::"
@@ -576,7 +611,7 @@ CUDA_TESTS = {
     "test_torch_port_train_step.py::test_cuda_early_stop_raises": (5, 43),
     "test_torch_port_train_step.py::test_cuda_kernels_match_plain": (5,),
     "test_torch_port_trainer.py::test_cuda_scanned_early_stop_raises": (
-        6, 43),
+        6, 43, 45),
     "test_torch_port_trainer.py::test_cuda_scanned_runs_the_fused_kernels": (
         6,),
 }
@@ -1695,8 +1730,9 @@ def check_refuses(label, fn, item, counter=None):
 
 def check_runs(label, fn, counter):
   """fn, which raised before the early stop reached the fc/subspace
-  kernels (phase 43) or the conv kernels (phase 44), runs and launches
-  counter's kernel."""
+  kernels (phase 43), the conv kernels (phase 44) or the data-parallel and
+  big-dictionary segments (phase 45), runs and launches counter's
+  kernel."""
   before = counter.launches
   fn()
   check(counter.launches > before, "%s launched no kernel" % label)
@@ -1776,12 +1812,11 @@ def code_shard_kernel_cases(torch, cs, lipschitz, gen, dev):
       print("control: K19 plain step with TF32 products, %-10s max|d| fp64 "
             "%.3e, limit %.3e" % (what, err, limit(w)))
   check(max(ratios) > 1.0, "the limit does not tell TF32 products from fp32")
-  # the refusals on a CUDA tensor
+  # the early stop runs (phase 45 holds it to plain); the tiers are refused
   step = (d, h, v, x_fc) + args
-  check_refuses("K19 early_stopping_epsilon", lambda: (
+  check_runs("K19 early_stopping_epsilon", lambda: (
       cs.fused_code_sharded_train_segment(*step,
-                                          early_stopping_epsilon=1e-3)),
-                "3a", cs)
+                                          early_stopping_epsilon=1e-3)), cs)
   check_refuses("K19 mxu='bf16x3'", lambda: (
       cs.fused_code_sharded_train_segment(*step, mxu="bf16x3")), "3a", cs)
   return worst
@@ -2441,9 +2476,10 @@ def conv_stats_kernel_cases(torch, K12, parallel, conv_ops, lipschitz,
       ("K13 mxu='bf16x3'", lambda: K12.conv_solve_stats(
           d, v, x[:2], CONV_LAM, 5, mxu="bf16x3", **kw), NotImplementedError,
        "item 3a"),
-      ("K13 early_stopping_epsilon", lambda: K12.conv_solve_stats(
-          d, v, x[:2], CONV_LAM, 5, early_stopping_epsilon=1e-3, **kw),
-       NotImplementedError, "item 3a"),
+      ("K13 early_stopping_epsilon (none in vtc_tpu's K13 either)",
+       lambda: K12.conv_solve_stats(
+           d, v, x[:2], CONV_LAM, 5, early_stopping_epsilon=1e-3, **kw),
+       NotImplementedError, "conv stop is K17's"),
       ("K13 gram form at padding 2, stride 4", lambda: K12.conv_solve_stats(
           d3, torch.ones(6, device=dev), x3, 0.05, 5, kernel_stride=(4, 4),
           padding=pad3, gram_stats=True), ValueError, "gram_stats")):
@@ -2647,11 +2683,12 @@ def dp_segment_kernel_cases(torch, parallel, K15, K16, K8, sub, lipschitz,
   tf32_control(torch, "K15 plain", SEG_NAMES, K15.fused_dp_train_plain(
       flag_d, h, v, x, LAM, TRAIN_ITERS, TRAIN_STEP,
       precision="tensorfloat32", **kw), want64)
-  for label, extra in (("K15 mxu='bf16x3'", {"mxu": "bf16x3"}),
-                       ("K15 early_stopping_epsilon",
-                        {"early_stopping_epsilon": 1e-3})):
-    check_refuses(label, lambda: K15.fused_dp_train_segment(
-        flag_d, h, v, x[:2], LAM, 5, TRAIN_STEP, **extra, **kw), "3a", K15)
+  check_refuses("K15 mxu='bf16x3'", lambda: K15.fused_dp_train_segment(
+      flag_d, h, v, x[:2], LAM, 5, TRAIN_STEP, mxu="bf16x3", **kw), "3a.2",
+                K15)
+  check_runs("K15 early_stopping_epsilon", lambda: K15.fused_dp_train_segment(
+      flag_d, h, v, x[:2], LAM, 5, TRAIN_STEP, early_stopping_epsilon=1e-3,
+      **kw), K15)
 
   # K16: 64 contiguous groups of 4 (the identity selection) at b 250 and a
   # shard of 125; the anti-alignment regularizer (penalty 0.4) on ragged
@@ -2692,11 +2729,12 @@ def dp_segment_kernel_cases(torch, parallel, K15, K16, K8, sub, lipschitz,
   tf32_control(torch, "K16 plain", SEG_NAMES, K16.fused_group_dp_train_plain(
       flag_d, h, v, gx, LAM, TRAIN_ITERS, SUB_STEP,
       precision="tensorfloat32", **gkw), want64)
-  for label, extra in (("K16 mxu='bf16'", {"mxu": "bf16"}),
-                       ("K16 early_stopping_epsilon",
-                        {"early_stopping_epsilon": 1e-3})):
-    check_refuses(label, lambda: K16.fused_group_dp_train_segment(
-        flag_d, h, v, gx[:2], LAM, 5, SUB_STEP, **extra, **gkw), "3a", K16)
+  check_refuses("K16 mxu='bf16'", lambda: K16.fused_group_dp_train_segment(
+      flag_d, h, v, gx[:2], LAM, 5, SUB_STEP, mxu="bf16", **gkw), "3a.2", K16)
+  check_runs("K16 early_stopping_epsilon", lambda: (
+      K16.fused_group_dp_train_segment(flag_d, h, v, gx[:2], LAM, 5,
+                                       SUB_STEP, early_stopping_epsilon=1e-3,
+                                       **gkw)), K16)
 
   # K18: gapped sources from their orthogonal mixing matrix (phase 20: the
   # codes stay clear of sign()'s discontinuity), n 256 at b 250 from an
@@ -2884,10 +2922,9 @@ def cs_rank_main(rank, world, workdir):
     step = (d["dict_shard"], d["hessian_shard"], d["eigvec"],
             torch.tensor(mesh.shard(data["x_fc"], dim=1), device=dev), LAM,
             TRAIN_ITERS, BIG_STEP)
-    check_refuses("K19 across devices early_stopping_epsilon", lambda: (
+    check_runs("K19 across devices early_stopping_epsilon", lambda: (
         K19.fused_code_sharded_train_segment(
-            *step, mesh=mesh, early_stopping_epsilon=1e-3, **axes)), "3a",
-                  K19)
+            *step, mesh=mesh, early_stopping_epsilon=1e-3, **axes)), K19)
     check_refuses("K19 across devices mxu='bf16x3'", lambda: (
         K19.fused_code_sharded_train_segment(*step, mesh=mesh,
                                              mxu="bf16x3", **axes)), "3a",
@@ -4319,6 +4356,595 @@ def ica_dispatch(torch, fn):
   return out
 
 
+# ---------------------------------------------------------------------------
+# phase 45: the early stop of the data-parallel fc and subspace segments
+# (K15, K16) and of the big-dictionary segment (K19), one rank and across
+# ranks
+# ---------------------------------------------------------------------------
+STOP_DP_STEPS = 10        # the world-of-2 runs and the timed segments
+STOP_MAIN_STEPS = 20      # each main-path run with the stop
+STOP_CS_STEPS = 3         # K19's stopped segments (both routes, the ranks)
+STOP_CS_TIME_STEPS = 20   # K19's timed segments
+STOP_COST_ROUNDS = 4      # rounds of six K19 readings (off, 0, mid, mid, 0, off)
+STOP_TRAIN_REPEAT = 5     # the timed DP trainer runs STOP_MAIN_STEPS x this
+STOP_CHILD_TIMEOUT = 600  # seconds a rank of phase 45 may take
+# the worlds of phase 45: 2 processes (K15 and K16 on a 'data' axis of 2,
+# K19 on a 'code' axis of 2) and 4 (K19 on data 2 x code 2)
+STOP_MESHES = {2: dict(data=1, code=2), 4: dict(data=2, code=2)}
+
+
+def dp_stop_inputs(torch, lipschitz, dev):
+  """Phase 45's flagship data-parallel rows (bench.py:796-827: b 250,
+  s = n = 256, FISTA 25, cheap-quadratic, 64 groups of 4): phase 5's
+  dictionary, a zero Hessian EMA, its exact eigenvector seed (Dg = D for
+  the contiguous groups) and STOP_MAIN_STEPS batches of fc and of
+  group-sparse patches, on the card."""
+  d = torch.tensor(unit_rows(np.random.RandomState(2), 256, 256), device=dev)
+  num, shape = STOP_MAIN_STEPS * TRAIN_BATCH, (STOP_MAIN_STEPS, TRAIN_BATCH,
+                                              256)
+  fc = torch.tensor(synthetic_patches(num, seed=45).reshape(shape),
+                    device=dev)
+  gx = torch.tensor(group_patches(num, seed=46).reshape(shape), device=dev)
+  v = lipschitz.top_gram_eigenpair(d)[1].contiguous()
+  return d, torch.zeros(256, device=dev), v, fc, gx
+
+
+def dp_stop_families(K15, K16, mesh):
+  """(label, module, segment, plain, batches' index, stepsize, flags) of K15
+  and K16 at the flagship rows on ``mesh``."""
+  kw = dict(mesh=mesh, power_iters=2)
+  return (("K15", K15, K15.fused_dp_train_segment, K15.fused_dp_train_plain,
+           0, TRAIN_STEP, kw),
+          ("K16", K16, K16.fused_group_dp_train_segment,
+           K16.fused_group_dp_train_plain, 1, SUB_STEP,
+           dict(kw, group_assignments=contiguous_groups(256, GROUP_SIZE))))
+
+
+def dp_stop_cases(torch, K15, K16, mesh1, inputs):
+  """Phase 45 (a): one flagship K15 and K16 step at a world of 1 for each
+  of two batches with an eps that stops at k = 1, one picked from the
+  plain version's means to stop mid-run, and 0 (never): every output
+  bitwise the same kernel's without the stop run to the count it reports,
+  the count the fp32 plain version's and every output within phase 2's
+  limit of it (conv_stop_case); then a STOP_DP_STEPS-step segment at the
+  mid eps, its count every step the plain version's and every output
+  within the limit.  Returns ({label: mid eps}, {label: largest error},
+  near cases, stopped steps checked)."""
+  d, h, v = inputs[:3]
+  eps_mid, errs, near, cases = {}, {}, [], 0
+  for label, mod, seg, plain, which_x, step, kw in dp_stop_families(
+      K15, K16, mesh1):
+    x = inputs[3 + which_x]
+    plain(d, h, v, x[:1], LAM, TRAIN_ITERS, step, early_stopping_epsilon=0.0,
+          **kw)
+    avgs = solver_state()[1]
+    eps_mid[label] = stop_eps(avgs, "mid")
+    worst, counts = 0.0, []
+    for i in range(2):
+      xi = x[i:i + 1].contiguous()
+      for which in ("early", "mid", "never"):
+        it, err = conv_stop_case(
+            torch, "%s flagship step, batch %d" % (label, i), mod,
+            lambda eps, iters, xi=xi: seg(
+                d, h, v, xi, LAM, TRAIN_ITERS if iters is None else iters,
+                step, early_stopping_epsilon=eps, **kw),
+            lambda eps, xi=xi: plain(d, h, v, xi, LAM, TRAIN_ITERS, step,
+                                     early_stopping_epsilon=eps, **kw),
+            which, stop_eps(avgs, which), SEG_NAMES, near)
+        worst = max(worst, err)
+        counts.append(it)
+        cases += 1
+    xs = x[:STOP_DP_STEPS].contiguous()
+    got = seg(d, h, v, xs, LAM, TRAIN_ITERS, step,
+              early_stopping_epsilon=eps_mid[label], **kw)
+    its = mod.last_iters.tolist()
+    want = plain(d, h, v, xs, LAM, TRAIN_ITERS, step,
+                 early_stopping_epsilon=eps_mid[label], **kw)
+    check(its == mod.plain_iters, "%s, a %d-step segment at eps %.4g: the "
+          "kernel's counts %s, the plain version's %s" % (
+              label, STOP_DP_STEPS, eps_mid[label], its, mod.plain_iters))
+    for what, g, w in zip(SEG_NAMES, got, want):
+      err = float((g - w).abs().max())
+      lim = limit(w) if float(w.abs().max()) > 0 else TOL
+      check(bool(torch.isfinite(g).all()) and err <= lim,
+            "%s, the %d-step segment: %s differs from plain by %.3e, limit "
+            "%.3e" % (label, STOP_DP_STEPS, what, err, lim))
+      worst = max(worst, err)
+    errs[label] = worst
+    print("stop, %s one flagship step at a world of 1, two batches, counts "
+          "(k 1, mid, never) %s of %d, every output bitwise the kernel "
+          "without the stop at the count; a %d-step segment at eps %.4g: "
+          "counts %s, the plain version's; max|d| from plain %.3e" % (
+              label, counts, TRAIN_ITERS, STOP_DP_STEPS, eps_mid[label], its,
+              worst))
+  return eps_mid, errs, near, cases
+
+
+def cs_stop_variants():
+  """Phase 45's K19 cases: (name, s, groups), bench's fc and 512 x 4 (the
+  in-warp window prox) and a ragged partition of s 512 into groups of 1 to
+  6 rows none across a half (the member table; two row shards)."""
+  return (("bench fc", BIG_S, None),
+          ("bench 512x4", BIG_S, contiguous_groups(BIG_S, 4)),
+          ("s512 ragged 1-6", BIG_SMALL_S,
+           ragged_in_shards(BIG_SMALL_S, 2, 45)))
+
+
+def cs_stop_count(b, s, groups):
+  """vtc_tpu's stop count (compiled_epoch.py:1116-1123): the batch times the
+  grouped codes' G * M, or the rows."""
+  return b * (s if groups is None else len(groups) * max(map(len, groups)))
+
+
+def cs_stop_flags(s, groups):
+  """The update rule of a K19 case: cheap-quadratic, the subspace name for
+  groups."""
+  return dict(update_alg="subspace_sc_cheap_quadratic_descent"
+              if groups is not None else "sc_cheap_quadratic_descent")
+
+
+def cs_stop_cases(torch, K19, dev):
+  """Phase 45 (c): K19 at one rank with the stop, each case of
+  cs_stop_variants, one step at three eps (k = 1, mid-run from the plain
+  version's means, 0): the persistent and the per-step route (forced)
+  bitwise equal at the same count; the persistent route bitwise its build
+  without the stop run to the count; the count the fp32 plain version's
+  and every output within phase 2's limit of it (near cases apart).  Then
+  a STOP_CS_STEPS-step segment at the mid eps: both routes bitwise equal
+  with the same counts every step, the plain version's.  Returns
+  ({name: mid eps}, the largest error, near cases, cases)."""
+  eps_mid, worst, near, cases = {}, 0.0, [], 0
+  for seed, (name, s, groups) in enumerate(cs_stop_variants()):
+    d, h, v, x = cs_cpu_problem(torch, s, 256, BIG_B, STOP_CS_STEPS,
+                                450 + seed, dev)
+    count = cs_stop_count(BIG_B, s, groups)
+    table, window, comem, kw = cs_launch_args(K19, s, groups,
+                                              **cs_stop_flags(s, groups))
+    expand = (None if groups is None
+              else K19.code_shard_group_arrays(groups, s, 1)[0][0])
+
+    def launch(xb, iters, eps, route):
+      out = K19._launch(d, h, v, xb, table, window, comem, None, LAM, iters,
+                        BIG_STEP, route=route, eps=eps, stop_count=count,
+                        **kw)
+      its = None if eps is None else K19.last_iters.tolist()
+      return out, its
+
+    def plain(xb, eps):
+      return K19.fused_code_sharded_train_segment_plain(
+          d, h, v, xb, LAM, TRAIN_ITERS, BIG_STEP, expand_local=expand,
+          early_stopping_epsilon=eps, stop_count=count, return_stepsize=True,
+          **cs_stop_flags(s, groups), power_iters=2)
+
+    plain(x[:1], 0.0)
+    avgs = list(K19.plain_avgs)
+    eps_mid[name] = stop_eps(avgs, "mid")
+    counts = []
+    for which in ("early", "mid", "never"):
+      eps = stop_eps(avgs, which)
+      label = "K19 %s, one step, eps %s (%.4g)" % (name, which, eps)
+      got, its = launch(x[:1], TRAIN_ITERS, eps, "persistent")
+      steps, steps_its = launch(x[:1], TRAIN_ITERS, eps, "steps")
+      it = its[0]
+      ref, _ = launch(x[:1], it, None, "persistent")
+      want = plain(x[:1], eps)
+      torch.cuda.synchronize()
+      check(steps_its == its, "%s: the per-step route ran %s iterations, "
+            "the persistent route %s" % (label, steps_its, its))
+      for what, g, a, r in zip(CS_NAMES, got, steps, ref):
+        check(bits_equal(torch, g, a), "%s: the routes' %s differ" % (
+            label, what))
+        check(bits_equal(torch, g, r), "%s: the stopped %s differs from the "
+              "kernel's without the stop at %d iterations" % (
+                  label, what, it))
+      counts.append(it)
+      cases += 1
+      if eps > 0 and any(abs(a - eps) <= 1e-5 * eps for a in K19.plain_avgs):
+        near.append("%s: kernel %d it, plain %d" % (label, it,
+                                                     K19.plain_iters[0]))
+        continue
+      check(it == K19.plain_iters[0], "%s: the kernel ran %d iterations, the "
+            "plain version %d" % (label, it, K19.plain_iters[0]))
+      for what, g, w in zip(CS_NAMES, got, want):
+        err = float((g - w).abs().max())
+        lim = limit(w) if float(w.abs().max()) > 0 else TOL
+        check(bool(torch.isfinite(g).all()) and err <= lim,
+              "%s: %s differs from plain by %.3e, limit %.3e" % (
+                  label, what, err, lim))
+        worst = max(worst, err)
+    got, its = launch(x, TRAIN_ITERS, eps_mid[name], "persistent")
+    steps, steps_its = launch(x, TRAIN_ITERS, eps_mid[name], "steps")
+    plain(x, eps_mid[name])
+    torch.cuda.synchronize()
+    check(its == steps_its == K19.plain_iters and all(
+        bits_equal(torch, g, a) for g, a in zip(got, steps)),
+          "K19 %s, a %d-step segment at eps %.4g: the routes' counts %s and "
+          "%s (plain %s) or state differ" % (
+              name, STOP_CS_STEPS, eps_mid[name], its, steps_its,
+              K19.plain_iters))
+    print("stop, K19 %-16s one step, counts (k 1, mid, never) %s of %d: "
+          "both routes bitwise equal, bitwise the kernel without the stop at "
+          "the count; a %d-step segment at eps %.4g: counts %s on both "
+          "routes and in plain, the routes bitwise equal" % (
+              name, counts, TRAIN_ITERS, STOP_CS_STEPS, eps_mid[name], its))
+  return eps_mid, worst, near, cases
+
+
+def stop_rank_main(rank, world, workdir):
+  """The hidden sub-command: one rank of phase 45 at a world of 2 or 4.
+  Joins the gloo group over the file store in ``workdir``; at a world of 2
+  runs the scanned fc and subspace trainers with data_parallel=True (a
+  'data' axis of 2: K15 and K16 on shards of 125) with the stop for
+  STOP_DP_STEPS steps; at both worlds runs K19 with the stop on
+  STOP_MESHES[world] for each case of cs_stop_variants, STOP_CS_STEPS
+  steps, and its fp32 plain version with the same stop on the same mesh;
+  and saves the replicated or gathered state, the counts and the launches
+  to ``workdir``."""
+  import os
+  import torch
+  import torch.distributed as dist
+  from vtc_tpu_torch import convert, parallel
+  from vtc_tpu_torch.ops import fused_code_shard_train as K19
+  from vtc_tpu_torch.ops import fused_dp_train as K15
+  from vtc_tpu_torch.ops import fused_group_dp_train as K16
+  from vtc_tpu_torch.training import compiled_epoch
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device", file=sys.stderr)
+    return 1
+  dev = torch.device("cuda", 0)
+  data = dict(np.load(os.path.join(workdir, "inputs.npz")))
+  dist.init_process_group("gloo", init_method="file://" + os.path.join(
+      workdir, "store"), rank=rank, world_size=world)
+  try:
+    out = {}
+    if world == 2:
+      for label, mod, params, key in (
+          ("K15", K15, train_params(STOP_DP_STEPS), "fc"),
+          ("K16", K16, subspace_train_params(STOP_DP_STEPS, SUB_STEP), "g")):
+        x = data[key][:STOP_DP_STEPS]
+        mod.launches = 0
+        got = compiled_epoch.train_dictionary_scanned(
+            x, x[:1], data["d"], dict(
+                params, data_parallel=True,
+                early_stopping_epsilon=float(data["eps " + label])),
+            device=dev)
+        torch.cuda.synchronize()
+        out[label + " dictionary"] = got.cpu().numpy()
+        out[label + " counts"] = mod.last_iters.cpu().numpy()
+        out[label + " launches"] = np.array(mod.launches)
+    mesh = parallel.make_mesh(**STOP_MESHES[world])
+    code, size = mesh.code_size, mesh.size
+    for name, s, groups in cs_stop_variants():
+      d, x, v = (data["cs %s %s" % (name, key)] for key in ("d", "x", "v"))
+      state = convert.code_shard_state_from_numpy(
+          d, np.zeros(s, np.float32), v, mesh, dev, group_assignments=groups)
+      state.pop("comem_local", None)
+      args = (state.pop("dict_shard"), state.pop("hessian_shard"),
+              state.pop("eigvec"),
+              torch.tensor(mesh.shard(x, dim=1), device=dev), LAM,
+              TRAIN_ITERS, BIG_STEP)
+      kw = dict(mesh=mesh, power_iters=2, return_stepsize=True,
+                early_stopping_epsilon=float(data["cs %s eps" % name]),
+                stop_count=cs_stop_count(BIG_B, s, groups),
+                **cs_stop_flags(s, groups), **state)
+      K19.launches = 0
+      got = K19.fused_code_sharded_train_segment(
+          *args, axis_size=code, data_axis_size=size,
+          data_stride=code if size > 1 else 0, **kw)
+      torch.cuda.synchronize()
+      check(K19.launches == STOP_CS_STEPS and K19.last_route == "steps",
+            "%s: K19 with the stop across ranks counted %d steps on the %s "
+            "route" % (name, K19.launches, K19.last_route))
+      for what, a in zip(CS_NAMES, cs_gathered(mesh, got)):
+        out["cs %s %s" % (name, what)] = a
+      out["cs %s counts" % name] = K19.last_iters.cpu().numpy()
+      want = K19.fused_code_sharded_train_segment_plain(*args, **kw)
+      for what, a in zip(CS_NAMES, cs_gathered(mesh, want)):
+        out["cs %s plain %s" % (name, what)] = a
+      out["cs %s plain counts" % name] = np.array(K19.plain_iters)
+    np.savez(os.path.join(workdir, "rank%d.npz" % rank), **out)
+  finally:
+    dist.destroy_process_group()
+  return 0
+
+
+def stop_across_ranks(torch, K19, inputs, eps_dp, eps_cs, dev, mesh1, K15,
+                      K16):
+  """Phase 45 (b) and (c) across ranks: processes of this script sharing
+  the card over gloo (spawn_ranks, phase 37's launcher), 2 then 4.  K15
+  and K16 at a world of 2 through the scanned trainers with the stop: both
+  ranks bitwise the same dictionary with the same counts every step, each
+  a K15 or K16 step, within the rounding floor of the world-of-1 segment
+  with its counts every step.  K19 with the stop at (data 1, code 2) and
+  (2, 2) for each case of cs_stop_variants: every rank bitwise the same
+  replicated state and counts; the counts every step those of the fp32
+  plain version with the same stop on the same mesh and of K19 at one
+  rank, and every gathered output within phase 2's limit of that plain
+  version's and of K19's at one rank.  Returns the seconds it took."""
+  import os
+  import tempfile
+  d, h, v, fc, gx = inputs
+  data = {"d": d.cpu().numpy(), "fc": fc.cpu().numpy(),
+          "g": gx.cpu().numpy(), "eps K15": np.array(eps_dp["K15"]),
+          "eps K16": np.array(eps_dp["K16"])}
+  one = {}
+  for seed, (name, s, groups) in enumerate(cs_stop_variants()):
+    cd, ch, cv, cx = cs_cpu_problem(torch, s, 256, BIG_B, STOP_CS_STEPS,
+                                    460 + seed, dev)
+    for key, t in (("d", cd), ("x", cx), ("v", cv)):
+      data["cs %s %s" % (name, key)] = t.cpu().numpy()
+    data["cs %s eps" % name] = np.array(eps_cs[name])
+    kw = dict(cs_stop_flags(s, groups), power_iters=2, return_stepsize=True)
+    if groups is not None:
+      kw["expand_local"] = K19.code_shard_group_arrays(groups, s, 1)[0][0]
+    got = K19.fused_code_sharded_train_segment(
+        cd, ch, cv, cx, LAM, TRAIN_ITERS, BIG_STEP,
+        early_stopping_epsilon=eps_cs[name],
+        stop_count=cs_stop_count(BIG_B, s, groups), **kw)
+    one[name] = ([t.cpu().numpy() for t in got], K19.last_iters.tolist())
+  t0 = time.perf_counter()
+  results = {}
+  with tempfile.TemporaryDirectory() as workdir:
+    np.savez(os.path.join(workdir, "inputs.npz"), **data)
+    for world in (2, 4):
+      sub = os.path.join(workdir, "world%d" % world)
+      os.mkdir(sub)
+      os.link(os.path.join(workdir, "inputs.npz"),
+              os.path.join(sub, "inputs.npz"))
+      codes, dt = spawn_ranks("--stop-rank", world, sub, STOP_CHILD_TIMEOUT)
+      check(codes == [0] * world, "a rank of phase 45's world of %d failed: "
+            "exit codes %s" % (world, codes))
+      results[world] = [dict(np.load(os.path.join(sub, "rank%d.npz" % r)))
+                        for r in range(world)]
+      print("phase 45: %d processes sharing one card over gloo done in "
+            "%.1f s" % (world, dt))
+  ranks = results[2]
+  for label, mod, seg, _, which_x, step, kw in dp_stop_families(K15, K16,
+                                                                mesh1):
+    counts = [out[label + " counts"].tolist() for out in ranks]
+    check(all(np.array_equal(out[label + " dictionary"],
+                             ranks[0][label + " dictionary"])
+              for out in ranks) and counts[0] == counts[1]
+          and len(counts[0]) == STOP_DP_STEPS,
+          "%s with the stop at a world of 2: the ranks differ (counts %s)" % (
+              label, counts))
+    check(all(int(out[label + " launches"]) == STOP_DP_STEPS
+              for out in ranks), "%s at a world of 2 launched %s steps" % (
+                  label, [int(out[label + " launches"]) for out in ranks]))
+    single = seg(d, h, v, inputs[3 + which_x][:STOP_DP_STEPS].contiguous(),
+                 LAM, TRAIN_ITERS, step, early_stopping_epsilon=eps_dp[label],
+                 **kw)[0]
+    single_its = mod.last_iters.tolist()
+    err = float(np.abs(ranks[0][label + " dictionary"]
+                       - single.cpu().numpy()).max())
+    print("world of 2  %s with the stop (eps %.4g, the classic route, one "
+          "share sum over the ranks an iteration): ranks bitwise equal, the "
+          "same counts every step %s; the world-of-1 segment's counts %s, "
+          "max|d| %.3e from it (rounding floor %.3e)" % (
+              label, eps_dp[label], counts[0], single_its, err, DP_FLOOR))
+    check(counts[0] == single_its, "%s at a world of 2 ran %s iterations, "
+          "the world-of-1 segment %s" % (label, counts[0], single_its))
+    check(np.isfinite(ranks[0][label + " dictionary"]).all()
+          and err <= DP_FLOOR, "%s at a world of 2 differs from a world of "
+          "1 by %.3e" % (label, err))
+    check(min(counts[0]) < TRAIN_ITERS, "%s: no solve stopped early at a "
+          "world of 2: %s" % (label, counts[0]))
+  for world, ranks in results.items():
+    for name, s, groups in cs_stop_variants():
+      counts = [out["cs %s counts" % name].tolist() for out in ranks]
+      for what in CS_NAMES:
+        check(all(np.array_equal(out["cs %s %s" % (name, what)],
+                                 ranks[0]["cs %s %s" % (name, what)])
+                  for out in ranks), "K19 %s at %s with the stop: the %s "
+              "differs between the ranks" % (name, STOP_MESHES[world], what))
+      check(all(c == counts[0] for c in counts), "K19 %s at %s: the ranks' "
+            "counts %s" % (name, STOP_MESHES[world], counts))
+      label = "K19 %s at %s with the stop" % (name, STOP_MESHES[world])
+      one_out, one_its = one[name]
+      plain_its = ranks[0]["cs %s plain counts" % name].tolist()
+      check(counts[0] == plain_its == one_its, "%s: the ranks ran %s "
+            "iterations, the plain version on the mesh %s, K19 at one rank "
+            "%s" % (label, counts[0], plain_its, one_its))
+      errs = {}
+      for what, w_one in zip(CS_NAMES, one_out):
+        g = ranks[0]["cs %s %s" % (name, what)]
+        w = ranks[0]["cs %s plain %s" % (name, what)]
+        lim = limit(w) if float(np.abs(w).max()) > 0 else TOL
+        errs[what] = (float(np.abs(g - w).max()),
+                      float(np.abs(g - w_one).max()), lim)
+        check(np.isfinite(g).all() and max(errs[what][:2]) <= lim,
+              "%s: %s differs from the plain version on the mesh by %.3e "
+              "and from K19 at one rank by %.3e, limit %.3e" % (
+                  label, what, *errs[what]))
+      print("%s (eps %.4g): ranks bitwise equal, the same counts every step "
+            "%s, the plain version's on the mesh and K19's at one rank; "
+            "max|d| from plain / from one rank (limit): %s" % (
+                label, eps_cs[name], counts[0], ", ".join(
+                    "%s %.3e / %.3e (%.3e)" % (what, *e)
+                    for what, e in errs.items())))
+  return time.perf_counter() - t0
+
+
+
+def stop_segments_phase(torch, dev, card, K15, K16, K19, mesh1,
+                        compiled_epoch, lipschitz):
+  """Phase 45, whole (see the module docstring).  Returns what the kernels
+  line takes: ({module: launches on the main path}, {'K15', 'K16': the
+  largest error against plain}, K19's, {'K15', 'K16', 'K19': (ms a step,
+  the plain version's, iterations a step)})."""
+  # the early stop of K15, K16 and K19 (csrc/fista_core.cuh's
+  # classic route across ranks, csrc/code_shard_solve.cuh's STOP build and
+  # csrc/fused_code_shard_train_step.cu's per-step stop): K15 and K16 at a
+  # world of 1 against the same kernel without the stop and against plain;
+  # K19's two routes; the worlds of 2 and 4; the main path with the stop
+  # (counted); the stop's cost an iteration on K19's persistent route; the
+  # stopped K19 against K19 without it; the data-parallel fc trainer with
+  # the stop against fc_formulation='gram'
+  t45 = time.perf_counter()
+  stop_in = dp_stop_inputs(torch, lipschitz, dev)
+  sd, sh, sv, sfc, sgx = stop_in
+  eps_dp, dpstop_err, dpstop_near, n_dpstop = dp_stop_cases(
+      torch, K15, K16, mesh1, stop_in)
+  eps_cs, csstop_err, csstop_near, n_csstop = cs_stop_cases(torch, K19, dev)
+  near45 = dpstop_near + csstop_near
+  print("phase 45: %d stopped K15/K16 steps and %d stopped K19 steps bitwise "
+        "the kernel without the stop at the count, at the plain version's "
+        "count; within %.3e of plain; %d with a plain mean within 1e-5 "
+        "relative of eps%s" % (
+            n_dpstop, n_csstop, max(max(dpstop_err.values()), csstop_err),
+            len(near45), "".join("\n  near eps: " + c for c in near45)))
+  ranks45_s = stop_across_ranks(torch, K19, stop_in, eps_dp, eps_cs, dev,
+                                mesh1, K15, K16)
+  # the main path with the stop, every count zeroed just before and read
+  # just after: the scanned fc and subspace trainers with data_parallel=True
+  # at a world of 1 (K15, K16) and _code_shard_segment_runner at a code
+  # axis of 1, fc and 512 x 4 (K19, persistent route)
+  cs_x = {}
+  for name, s, groups in cs_stop_variants()[:2]:
+    cs_x[name] = cs_cpu_problem(torch, s, 256, BIG_B, STOP_CS_TIME_STEPS,
+                                470 + len(cs_x), dev)
+  for mod in (K15, K16, K19):
+    mod.launches = 0
+  K19.solve_launches = 0
+  compiled_epoch.train_dictionary_scanned(
+      sfc, sfc[:1], sd, dict(train_params(STOP_MAIN_STEPS),
+                             data_parallel=True,
+                             early_stopping_epsilon=eps_dp["K15"]))
+  compiled_epoch.train_dictionary_scanned(
+      sgx, sgx[:1], sd, dict(subspace_train_params(STOP_MAIN_STEPS,
+                                                   SUB_STEP),
+                             data_parallel=True,
+                             early_stopping_epsilon=eps_dp["K16"]))
+  for name, s, groups in cs_stop_variants()[:2]:
+    cd, ch, cv, cx = cs_x[name]
+    compiled_epoch._code_shard_segment_runner(
+        None, 1, 1, "fista", cs_stop_flags(s, groups)["update_alg"], 1,
+        False, False, True, group_arrays=(
+            None if groups is None
+            else K19.code_shard_group_arrays(groups, s, 1)),
+        early_eps=eps_cs[name], stop_count=cs_stop_count(BIG_B, s, groups))(
+            cd, ch, cv, cx, LAM, TRAIN_ITERS, BIG_STEP)
+  torch.cuda.synchronize()
+  dpstop_launches = {mod: mod.launches for mod in (K15, K16, K19)}
+  print("phase 45 main path with the stop: K15 %d, K16 %d, K19 %d launches "
+        "(%d of the persistent solve)" % (
+            *dpstop_launches.values(), K19.solve_launches))
+  check(tuple(dpstop_launches.values()) == (
+      STOP_MAIN_STEPS, STOP_MAIN_STEPS, 2 * STOP_CS_TIME_STEPS)
+        and K19.solve_launches == 2 * STOP_CS_TIME_STEPS,
+        "the main path with the stop launched %s" % (
+            tuple(dpstop_launches.values()),))
+  # µs an iteration of the stop on K19's persistent route: a segment at eps
+  # 0 (never stops, so every iteration from 1 to the last but one does the
+  # stop's work) against the build without it, STOP_COST_ROUNDS rounds of
+  # (off, 0, mid, mid, 0, off), the i-th reading at eps 0 paired with the
+  # i-th without the stop; then the stopped segment (mid eps) against the
+  # build without the stop at 25 iterations
+  cd, ch, cv, cx = cs_x["bench fc"]
+
+  def k19_seg(eps):
+    return K19.fused_code_sharded_train_segment(
+        cd, ch, cv, cx, LAM, TRAIN_ITERS, BIG_STEP, power_iters=2,
+        early_stopping_epsilon=eps)
+
+  k19_times = {None: [], 0.0: [], eps_cs["bench fc"]: []}
+  for eps in (None, 0.0, eps_cs["bench fc"]):
+    k19_seg(eps)
+  for eps in (None, 0.0, eps_cs["bench fc"], eps_cs["bench fc"], 0.0,
+              None) * STOP_COST_ROUNDS:
+    k19_times[eps].append(time_ms(torch, lambda: k19_seg(eps), 5)
+                          / STOP_CS_TIME_STEPS)
+  k19_seg(eps_cs["bench fc"])
+  k19_mid_its = K19.last_iters.float().mean().item()
+  off, on = np.median(k19_times[None]), np.median(k19_times[0.0])
+  turns = TRAIN_ITERS - 2  # the iterations that test: 1 to 23 of 25
+  pair_us = [1e3 * (a - b) / turns
+             for a, b in zip(k19_times[0.0], k19_times[None])]
+  k19_stop_us = float(np.median(pair_us))
+  upper = float(np.percentile(pair_us, 75))
+  verdict = ("met" if upper <= 1.0 else "missed" if k19_stop_us > 1.0
+             else "not resolved (median within, upper quartile %.3f above)"
+             % upper)
+  print("K19 stop cost, persistent route, bench fc (b %d s %d n 256, FISTA "
+        "%d), %d paired readings: median %.4f ms a step without the stop "
+        "(runs %s), %.4f with it at eps 0 (never stops; runs %s); us an "
+        "iteration that tests (%d of %d a step), each pair: %s; median %.3f, "
+        "range %.3f to %.3f (target 1: %s) [%s]" % (
+            BIG_B, BIG_S, TRAIN_ITERS, len(pair_us), off, ", ".join(
+                "%.4f" % t for t in k19_times[None]), on, ", ".join(
+                    "%.4f" % t for t in k19_times[0.0]), turns, TRAIN_ITERS,
+            ", ".join("%.3f" % u for u in pair_us), k19_stop_us,
+            min(pair_us), max(pair_us), verdict, card))
+  k19_mid = float(np.median(k19_times[eps_cs["bench fc"]]))
+  print("stopped K19 segment, bench fc, eps %.4g (%.1f of %d iterations a "
+        "step): median %.4f ms a step (runs %s) against %.4f without the "
+        "stop at %d iterations: %.2fx [%s]" % (
+            eps_cs["bench fc"], k19_mid_its, TRAIN_ITERS, k19_mid, ", ".join(
+                "%.4f" % t for t in k19_times[eps_cs["bench fc"]]), off,
+            TRAIN_ITERS, off / k19_mid, card))
+  # the data-parallel fc trainer with the mid eps (K15 with the stop)
+  # against fc_formulation='gram' (the psum-per-op step, what a
+  # data-parallel early-stopped run took before), whole calls of
+  # STOP_MAIN_STEPS * STOP_TRAIN_REPEAT steps after one untimed call of
+  # each, in turns (pallas, gram, gram, pallas) twice
+  long_fc = sfc.repeat(STOP_TRAIN_REPEAT, 1, 1)
+  train_steps = long_fc.shape[0]
+  dp_gram_s = {"pallas": [], "gram": []}
+  for form in ("pallas", "gram") + ("pallas", "gram", "gram", "pallas") * 2:
+    params_ = dict(train_params(train_steps), data_parallel=True,
+                   fc_formulation=form, early_stopping_epsilon=eps_dp["K15"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compiled_epoch.train_dictionary_scanned(long_fc, long_fc[:1], sd,
+                                            params_)
+    torch.cuda.synchronize()
+    dp_gram_s[form].append(time.perf_counter() - t0)
+  dp_gram_s = {f: t[1:] for f, t in dp_gram_s.items()}  # the warm calls
+  dp_rate = {f: train_steps * TRAIN_BATCH / np.median(t)
+             for f, t in dp_gram_s.items()}
+  ratios = [g / p for p, g in zip(dp_gram_s["pallas"], dp_gram_s["gram"])]
+  print("data-parallel fc trainer (a world of 1), %d steps of b %d, FISTA "
+        "%d, eps %.4g: fc_formulation='pallas' (K15 with the stop) %.0f "
+        "patches/s (median; runs %s s), 'gram' (the psum-per-op step) %.0f "
+        "patches/s (runs %s s): %.2fx by the medians, turn by turn %s [%s]"
+        % (train_steps, TRAIN_BATCH, TRAIN_ITERS, eps_dp["K15"],
+           dp_rate["pallas"], ", ".join(
+               "%.4f" % s for s in dp_gram_s["pallas"]), dp_rate["gram"],
+           ", ".join("%.4f" % s for s in dp_gram_s["gram"]),
+           dp_rate["pallas"] / dp_rate["gram"], ", ".join(
+               "%.2fx" % r for r in ratios), card))
+  # the stop rows of the kernels line: ms a step at this run's counts and
+  # the plain version's with the same eps
+  dpstop_times = {}
+  for label, mod, seg, plain, which_x, step, kw in dp_stop_families(
+      K15, K16, mesh1):
+    xs = stop_in[3 + which_x][:STOP_DP_STEPS].contiguous()
+    fn = lambda: seg(sd, sh, sv, xs, LAM, TRAIN_ITERS, step,
+                     early_stopping_epsilon=eps_dp[label], **kw)
+    plain_fn = lambda: plain(sd, sh, sv, xs[:2], LAM, TRAIN_ITERS, step,
+                             early_stopping_epsilon=eps_dp[label], **kw)
+    fn()
+    its = mod.last_iters.float().mean().item()
+    plain_fn()
+    dpstop_times[label] = (time_ms(torch, fn, 3) / STOP_DP_STEPS,
+                           time_ms(torch, plain_fn, 1) / 2, its)
+  plain_k19 = lambda: K19.fused_code_sharded_train_segment_plain(
+      cd, ch, cv, cx[:2], LAM, TRAIN_ITERS, BIG_STEP, power_iters=2,
+      early_stopping_epsilon=eps_cs["bench fc"])
+  plain_k19()
+  dpstop_times["K19"] = (k19_mid, time_ms(torch, plain_k19, 1) / 2,
+                         k19_mid_its)
+  print("stop builds: K15 %.4f ms a step (plain %.4f) at %.1f of %d "
+        "iterations a step, K16 %.4f (plain %.4f) at %.1f; K19 %.4f (plain "
+        "%.4f) at %.1f [%s]" % (
+            *dpstop_times["K15"], TRAIN_ITERS, *dpstop_times["K16"],
+            *dpstop_times["K19"], card))
+  del stop_in, sfc, sgx, cs_x, long_fc
+  print("phase 45 took %.1f s (its ranks %.1f s)" % (
+      time.perf_counter() - t45, ranks45_s))
+  return dpstop_launches, dpstop_err, csstop_err, dpstop_times
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -5291,13 +5917,12 @@ def main():
   k3_err, k7_err, k9_err = dp_kernel_cases(
       torch, parallel, K2, K6, K8, ica, sub, lipschitz, invertible_linear,
       train_patches, gtrain, dev)
-  check_refuses("data-parallel train_dictionary_scanned "
-                "early_stopping_epsilon", lambda: (
-                    compiled_epoch.train_dictionary_scanned(
-                        rx, rx[:1], rd, dict(train_params(2),
-                                             data_parallel=True,
-                                             early_stopping_epsilon=1e-3))),
-                "3a.1")
+  from vtc_tpu_torch.ops import fused_dp_train
+  check_runs("data-parallel train_dictionary_scanned early_stopping_epsilon",
+             lambda: compiled_epoch.train_dictionary_scanned(
+                 rx, rx[:1], rd, dict(train_params(2), data_parallel=True,
+                                      early_stopping_epsilon=1e-3)),
+             fused_dp_train)
 
   # phase 27: a world of 1 through the normal entry points.  First the
   # collective backends the card has
@@ -6392,6 +7017,12 @@ def main():
   del stop_images, stop_batches
   print("phase 44 took %.1f s" % (time.perf_counter() - t44))
 
+
+  # phase 45: the early stop of K15, K16 and K19 (stop_segments_phase)
+  dpstop_launches, dpstop_err, csstop_err, dpstop_times = (
+      stop_segments_phase(torch, dev, card, K15, K16, K19, mesh1,
+                          compiled_epoch, lipschitz))
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -6503,6 +7134,22 @@ def main():
        "vtc_tpu/ops/pallas_conv_dp_train.py:143-213 (the stop test of :399)",
        cstop_launches[K17], sstop_err[K17], *cstop_times["K17"][:2],
        conv_dp_bound(seg_geo, SEG_BATCH, cstop_times["K17"][3], 1, 10)),
+      # the stop builds of phase 45: launches on its main path, the error of
+      # its stopped steps (a, c), the times and bounds at this run's counts
+      ("fused_dp_train (early stop)", "fused_train_step.cu",
+       "vtc_tpu/ops/pallas_dp_train.py:206-248 (the stop test of :404)",
+       dpstop_launches[K15], dpstop_err["K15"], *dpstop_times["K15"][:2],
+       train_step_bound(TRAIN_BATCH, 256, 256, dpstop_times["K15"][2])),
+      ("fused_group_dp_train (early stop)", "fused_group_train_step.cu",
+       "vtc_tpu/ops/pallas_group_dp_train.py:189-229 (the stop test of "
+       ":443)", dpstop_launches[K16], dpstop_err["K16"],
+       *dpstop_times["K16"][:2],
+       train_step_bound(TRAIN_BATCH, 256, 256, dpstop_times["K16"][2])),
+      ("fused_code_shard_train (early stop)",
+       "fused_code_shard_train_step.cu",
+       "vtc_tpu/ops/pallas_code_shard_train.py:387-431 (the stop test of "
+       ":616)", dpstop_launches[K19], csstop_err, *dpstop_times["K19"][:2],
+       code_shard_step_bound(BIG_B, BIG_S, 256, dpstop_times["K19"][2])),
   ]
   # K10's library time is its own loop with each product one cuDNN call
   # (phase 17), K11's the same loop on K11's timed inputs (the same
@@ -6548,4 +7195,8 @@ if __name__ == "__main__":
   if len(sys.argv) == 5 and sys.argv[1] == "--cs-rank":
     # one rank of phases 36-38, started by main()
     sys.exit(cs_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+  if len(sys.argv) == 5 and sys.argv[1] == "--stop-rank":
+    # one rank of phase 45's worlds of 2 and 4, started by main()
+    sys.exit(stop_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                            sys.argv[4]))
   sys.exit(main())

@@ -456,9 +456,9 @@ def test_per_batch_trainer_takes_k10_with_the_stop(monkeypatch):
 
 def test_k13_keeps_its_refusal():
   """vtc_tpu's K13 has no stop, and neither has the port's: it still
-  raises, naming the data-parallel stop's item."""
+  raises, naming the kernel that has the data-parallel conv stop (K17)."""
   p = SEGMENT
-  with pytest.raises(NotImplementedError, match="item 3a.1"):
+  with pytest.raises(NotImplementedError, match="conv stop is K17's"):
     fused_conv_train.conv_solve_stats(
         _t(p["d"]), _t(p["v"]), _t(p["x"][0]), LAM, 5,
         kernel_stride=p["stride"], padding=p["padding"],

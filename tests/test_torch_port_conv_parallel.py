@@ -208,8 +208,10 @@ def test_the_gates_match_vtc_tpu_and_refuse_the_gram_form_off_them():
     fused_conv_train.conv_solve_stats(d, v, x, SW, 5, kernel_stride=(2, 2),
                                       padding=((1, 1), (1, 1)),
                                       gram_stats=True)
+  # the tiers wait (item 3a.2); vtc_tpu's K13 has no stop test, and the
+  # refusal names the kernel that has the data-parallel conv stop
   for kw, match in (({"mxu": "bf16x3"}, "3a"),
-                    ({"early_stopping_epsilon": 1e-3}, "3a")):
+                    ({"early_stopping_epsilon": 1e-3}, "conv stop is K17's")):
     with pytest.raises(NotImplementedError, match=match):
       fused_conv_train.conv_solve_stats(d, v, x, SW, 5, kernel_stride=(2, 2),
                                         padding=((1, 1), (1, 1)), **kw)

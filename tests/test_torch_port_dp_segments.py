@@ -292,14 +292,22 @@ def test_the_gates_and_refusals():
   mesh = parallel.make_mesh()
   args = (_t(pr["d"]), _t(pr["h"]), _t(pr["v"]), _t(pr["x"]), SW, N_IT,
           UPD_STEP)
-  for extra in ({"mxu": "bf16x3"}, {"early_stopping_epsilon": 1e-3}):
-    with pytest.raises(NotImplementedError, match="item 3a"):
-      fused_dp_train.fused_dp_train_segment(*args, mesh=mesh, **flags,
-                                            **extra)
-    gflags = _flags("K16 contiguous cheap-quad (roll prox)")
-    with pytest.raises(NotImplementedError, match="item 3a"):
-      fused_group_dp_train.fused_group_dp_train_segment(
-          *args, mesh=mesh, **gflags, **extra)
+  gflags = _flags("K16 contiguous cheap-quad (roll prox)")
+  with pytest.raises(NotImplementedError, match="item 3a.2"):
+    fused_dp_train.fused_dp_train_segment(*args, mesh=mesh, **flags,
+                                          mxu="bf16x3")
+  with pytest.raises(NotImplementedError, match="item 3a.2"):
+    fused_group_dp_train.fused_group_dp_train_segment(
+        *args, mesh=mesh, **gflags, mxu="bf16x3")
+  # the early stop runs (tests/test_torch_port_dp_early_stop.py holds it
+  # to vtc_tpu): each step's count, every one short of N_IT at eps 10
+  for mod, fn, kw in (
+      (fused_dp_train, fused_dp_train.fused_dp_train_segment, flags),
+      (fused_group_dp_train, fused_group_dp_train.fused_group_dp_train_segment,
+       gflags)):
+    got = fn(*args, mesh=mesh, early_stopping_epsilon=10.0, **kw)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert mod.plain_iters == [2] * pr["x"].shape[0]
   ipr = problem("K18 exact seed, boost armed")
   with pytest.raises(NotImplementedError, match="item 3a"):
     fused_ica_train.fused_ica_dp_train_segment(
@@ -473,11 +481,15 @@ def test_world_of_one_takes_the_segment_kernels(family):
 
 
 def test_early_stop_takes_neither():
-  """An early-stopped data-parallel run keeps the psum-per-op step: the
-  in-kernel stop test waits (ROADMAP.md §1 item 3a)."""
+  """An early-stopped data-parallel run takes neither K3's composition nor
+  the psum-per-op step: it takes K15 with its stop, once per segment, as
+  vtc_tpu takes its K15 with the stop (the other families in
+  tests/test_torch_port_dp_early_stop.py)."""
   got = worker.CASES["routes"](**_route_case(
       "fc", lipschitz_method="power_warm", early_stopping_epsilon=1e-2))
-  assert not any(got["calls"].values()), got["calls"]
+  assert {k: v for k, v in got["calls"].items() if v} == {"K15": 3}, (
+      got["calls"])
+  assert fused_dp_train.plain_iters is not None
   assert np.isfinite(got["dictionary"]).all()
 
 

@@ -401,8 +401,8 @@ def _cuda_device():
 @pytest.mark.cuda
 def test_cuda_early_stop_raises(rng):
   # K6 stops each step's group solve on the card and matches its plain
-  # version; the scanned trainer takes it; a data-parallel run still
-  # raises (item 3a.1)
+  # version; the scanned trainer takes it; a data-parallel run takes K16
+  # with the stop and lands on the same dictionary
   dev = _cuda_device()
   arrays = _k6_problem(rng, RAGGED, k=2)
   flags = dict(group_assignments=RAGGED, early_stopping_epsilon=1e-3,
@@ -426,9 +426,13 @@ def test_cuda_early_stop_raises(rng):
   want = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params,
                                                  device="cpu")
   assert_close(got.cpu(), want, "scanned early stop vs cpu", atol=1e-3)
-  with pytest.raises(NotImplementedError, match="item 3a.1"):
-    compiled_epoch.train_dictionary_scanned(
-        data, data[:1], d0, dict(params, data_parallel=True), device="cuda")
+  from vtc_tpu_torch.ops import fused_group_dp_train
+  before = fused_group_dp_train.launches
+  dp = compiled_epoch.train_dictionary_scanned(
+      data, data[:1], d0, dict(params, data_parallel=True), device="cuda")
+  assert fused_group_dp_train.launches == before + 4
+  assert_close(dp.cpu(), got.cpu(), "K16 with the stop vs K6 with it",
+               atol=1e-4)
 
 
 @pytest.mark.cuda

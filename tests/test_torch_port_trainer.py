@@ -382,7 +382,8 @@ def test_cuda_scanned_early_stop_raises(rng):
     pytest.skip("needs a CUDA device: the fused train kernels have no CPU "
                 "mode")
   # K2 stops each step's solve on the card and matches the plain run; a
-  # data-parallel run still raises (item 3a.1)
+  # data-parallel run takes K15 with the stop and lands on the same
+  # dictionary
   data, d0 = _data(rng, k=2)
   params = _params(early_stopping_epsilon=1e-3)
   fused_train_step.launches = 0
@@ -392,9 +393,13 @@ def test_cuda_scanned_early_stop_raises(rng):
   want = compiled_epoch.train_dictionary_scanned(data, data[:1], d0, params,
                                                  device="cpu")
   assert_close(got.cpu(), want, "cuda scanned early stop vs cpu", atol=1e-3)
-  with pytest.raises(NotImplementedError, match="item 3a.1"):
-    compiled_epoch.train_dictionary_scanned(
-        data, data[:1], d0, dict(params, data_parallel=True), device="cuda")
+  from vtc_tpu_torch.ops import fused_dp_train
+  before = fused_dp_train.launches
+  dp = compiled_epoch.train_dictionary_scanned(
+      data, data[:1], d0, dict(params, data_parallel=True), device="cuda")
+  assert fused_dp_train.launches == before + 2
+  assert_close(dp.cpu(), got.cpu(), "K15 with the stop vs K2 with it",
+               atol=1e-4)
   # the raw step's K1 solve stops on the card too
   step = sc.build_raw_step_fn(
       "fully-connected", "fista", "sc_steepest_descent",

@@ -153,6 +153,30 @@ def case_dp_segment(family, d, batches, config, h=None, v=None):
                     config["n_it"], config["upd_step"]))
 
 
+def case_dp_stop(family, d, h, v, batches, config):
+  """K15 ('fc') or K16 ('group') with the early stop through its runner
+  (``_dp_fc_segment_runner`` / ``_dp_group_segment_runner`` with
+  ``early_eps``) over this rank's shards of the (k, b, n) ``batches``:
+  the replicated state and the plain version's count of every step."""
+  from vtc_tpu_torch.ops import fused_dp_train, fused_group_dp_train
+  mesh = parallel.make_mesh()
+  shards = _t(mesh.shard(batches, dim=1))
+  if family == "fc":
+    mod = fused_dp_train
+    runner = compiled_epoch._dp_fc_segment_runner(
+        mesh, "fista", config["update_alg"], 1, False, False, True,
+        config["early_eps"])
+  else:
+    mod = fused_group_dp_train
+    runner = compiled_epoch._dp_group_segment_runner(
+        mesh, "fista", config["update_alg"], 1, False, True,
+        config["group_assignments"], config["alignment_penalty"],
+        config["early_eps"])
+  state = _np(runner(_t(d), _t(h), _t(v), shards, config["sw"],
+                     config["n_it"], config["upd_step"]))
+  return {"state": state, "counts": list(mod.plain_iters)}
+
+
 def case_routes(family, batches, d0, params, dcn=1):
   """Which data-parallel wrappers a scanned trainer (fc and subspace:
   compiled_epoch; 'ica': ica) calls with data_parallel=True, or with

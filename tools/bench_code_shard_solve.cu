@@ -98,7 +98,7 @@ Buffers make_buffers(const Problem& pr) {
   b.grad = device_zeros(kS * kN);
   b.eta = device_zeros(1);
   b.betas = device_zeros(kIters);
-  BENCH_CHECK(cudaMalloc(&b.barrier, sizeof(unsigned)));
+  BENCH_CHECK(cudaMalloc(&b.barrier, 2 * sizeof(unsigned)));
   return b;
 }
 
@@ -119,7 +119,7 @@ int run(const Buffers& b, int route, int k, int window, int iters,
       0.0f, kLam, iters, kStep, 1, 0.001f, 1, 0, 1, 1, 2, 1.0f / kB,
       b.pgram, b.partial, b.rbuf, b.z, b.old, nullptr, b.grad, nullptr,
       nullptr, nullptr, b.eta, 1, 1, nullptr, nullptr, route, grid, b.betas,
-      b.barrier, nullptr);
+      b.barrier, -1.0f, 0.0f, nullptr, nullptr, nullptr, nullptr, nullptr);
 }
 
 float time_segment(const Buffers& b, const Problem& pr, int route, int k,
@@ -184,6 +184,7 @@ __global__ void __launch_bounds__(kCsThreads, 1)
   const int per = cs_out_tiles(p.b, p.n), ctn = cs_cdiv(p.n, kCsTileN);
   const bool held = grid >= tiles_b;
   float zv[4][4] = {}, ov[4][4] = {};
+  float no_share = 0.0f;  // phase B without the early stop's share
   for (int it = 0; it < reps; ++it) {
     if (kWhat == 0) {
       for (int t = t0; t < tiles_a; t += grid)
@@ -256,7 +257,8 @@ __global__ void __launch_bounds__(kCsThreads, 1)
     } else if (kWhat == 3) {
       for (int t = t0; t < tiles_b; t += grid)
         cs_phase_b_tile(sm, p, mode, t, eta, lam_eta, 0.5f, key_b, held,
-                        zv, ov);
+                        zv, ov, false,
+                        no_share);
     }
     seg_grid_sync(p.barrier, target);
   }

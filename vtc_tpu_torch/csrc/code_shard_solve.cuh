@@ -72,6 +72,36 @@
 // latency.  The split sum is its own phase: summed by the last of a
 // tile's eight CTAs instead (an atomic ticket a tile, no barrier), 16
 // CTAs read 64 KB each and phase A took 26 us against 6.
+//
+// The early stop (a compile-time STOP build; off, the code above; vtc_tpu
+// pallas_code_shard_train.py:387-431).  After iteration j the solve ends
+// when (sum |codes_j - codes_{j-1}| * inv_count) / eta < eps and j > 0,
+// and old holds codes_j.  In an iteration that can stop (j from 1 to the
+// last but one), each thread adds |code - old| of its phase-B entries, or
+// with a member table of its phase-G pairs' entries, in a fixed order;
+// the CTA sums its threads (each warp's xor butterfly, then the warps in
+// order) and thread 0 writes the CTA's share to its slot just before it
+// arrives at the grid barrier that already ends the phase.  After that
+// barrier every warp of every CTA puts the loads of the grid's slots in
+// flight and goes on with the next iteration's phase A, which writes only
+// the partials; after phase A's barrier it sums them in CTA order (lane l
+// the slots l, l + 32, ..., then the butterfly) and takes the same
+// decision from the same bits: no extra barrier, no float atomics, the
+// loads' L2 latency under phase A.  Two slot sets alternate with the
+// parity of j, so no CTA overwrites a share another may still read.  On a
+// stop every CTA leaves the loop after that same barrier, one phase A
+// computed in vain: old holds codes_j in global memory (a CTA that holds
+// its z and old in registers stores both every iteration), and the
+// update's first residual runs on it.  A STOP launch has at most 256
+// CTAs (eight slots a lane).  A stopped step passes fewer barriers than
+// cs_step_barriers counts, so the STOP build carries the barrier's base
+// on the device: a launch reads it from barrier[1] before its first
+// barrier, and CTA 0 writes the count it ended at there after its last,
+// which every CTA has passed; the host's barrier_base is not read.  CTA 0
+// writes the count of iterations to iters.  The stop costs 0.74 us an
+// iteration that tests (b 128, s 2048, n 256; NVIDIA H100 80GB HBM3, 700
+// W; chip_smoke.py phase 45), against 1.25 when every CTA summed the
+// slots right after the barrier.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -121,12 +151,15 @@ __device__ __forceinline__ float momentum_z(float code, float prev,
 }
 
 // z[at] = the next z, old[at] = code, old read past the L1 (another CTA
-// may have written it in this launch).
-__device__ __forceinline__ void momentum_at(float* z, float* old, int64_t at,
-                                            float code, float beta,
-                                            int fista) {
-  z[at] = momentum_z(code, __ldcg(old + at), beta, fista);
+// may have written it in this launch); returns |code - old|, the entry's
+// part of the early stop's sum.
+__device__ __forceinline__ float momentum_at(float* z, float* old,
+                                             int64_t at, float code,
+                                             float beta, int fista) {
+  const float prev = __ldcg(old + at);
+  z[at] = momentum_z(code, prev, beta, fista);
   old[at] = code;
+  return fabsf(__fsub_rn(code, prev));
 }
 
 __host__ __device__ inline int cs_cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -173,11 +206,17 @@ struct SolveArgs {
   const float* eta;      // (1,) the stepsize
   const float* betas;    // (num_iters,) the momentum of each iteration
   const int* members;    // (groups, width) or null
-  unsigned* barrier;     // (1,) the grid barrier's arrivals
-  unsigned barrier_base; // *barrier at launch
+  unsigned* barrier;     // (2,) the grid barrier's arrivals, and with STOP
+                         // its count at launch (carried on the device)
+  unsigned barrier_base; // *barrier at launch (without STOP)
   float lam;
   int fista, mode, window, groups, width;
   int b, s, n, num_iters, resid;
+  // STOP: the stop test's eps and 1 / count, the CTAs' shares (2, grid)
+  // by parity, and iters (1,), which receives the step's count
+  float eps, inv_count;
+  float* slots;
+  int* iters;
 };
 
 // The dynamic shared memory of a CTA.
@@ -525,14 +564,16 @@ __device__ __forceinline__ float cs_group_scale(int mode, float norm,
 // expressions).  key_b names the D slice in db.  zv and ov hold the
 // thread's entries of z and old: where held, they are the tile's (the
 // CTA's only phase-B tile, no member table) from the last iteration and
-// are kept up to date; else they are loaded here.
+// are kept up to date; else they are loaded here.  Where share, delta
+// adds |code - old| of the thread's entries (the early stop's share).
 __device__ __forceinline__ void cs_phase_b_tile(SolveSmem& sm,
                                                 const SolveArgs& p,
                                                 SolveCopy mode, int t,
                                                 float eta, float lam_eta,
                                                 float beta, int& key_b,
                                                 bool held, float zv[4][4],
-                                                float ov[4][4]) {
+                                                float ov[4][4], bool share,
+                                                float& delta) {
   const int i0 = cs_row_block(p, t) * kCsTileM;
   const int j0 = cs_col_block(p, t) * kCsTileN;
   const int w = p.members != nullptr ? -1 : p.window;
@@ -618,6 +659,8 @@ __device__ __forceinline__ void cs_phase_b_tile(SolveSmem& sm,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       if (!inside[c]) continue;
+      if (share)
+        delta = __fadd_rn(delta, fabsf(__fsub_rn(code[c], ov[r][c])));
       zv[r][c] = momentum_z(code[c], ov[r][c], beta, p.fista);
       ov[r][c] = code[c];
       p.z[at[c]] = zv[r][c];
@@ -627,9 +670,11 @@ __device__ __forceinline__ void cs_phase_b_tile(SolveSmem& sm,
 }
 
 // Phase G: the group prox of a member table, one thread per (row, group),
-// group_prox_kernel's pass over the grid.
+// group_prox_kernel's pass over the grid; share and delta as
+// cs_phase_b_tile's.
 __device__ __forceinline__ void cs_group_phase(const SolveArgs& p,
-                                               float lam_eta, float beta) {
+                                               float lam_eta, float beta,
+                                               bool share, float& delta) {
   const int64_t total = static_cast<int64_t>(p.b) * p.groups;
   for (int64_t idx = blockIdx.x * static_cast<int64_t>(kCsThreads) +
                      threadIdx.x;
@@ -643,13 +688,92 @@ __device__ __forceinline__ void cs_group_phase(const SolveArgs& p,
       sq = __fadd_rn(sq, __fmul_rn(u, u));
     }
     const float scale = cs_group_scale(p.mode, sqrtf(sq), lam_eta);
-    for (int m = 0; m < p.width && list[m] >= 0; ++m)
-      momentum_at(p.z, p.old, base + list[m],
-                  __fmul_rn(__ldcg(p.pre + base + list[m]), scale), beta,
-                  p.fista);
+    for (int m = 0; m < p.width && list[m] >= 0; ++m) {
+      // momentum_at's expressions, the share beside them
+      const int64_t at = base + list[m];
+      const float code = __fmul_rn(__ldcg(p.pre + at), scale);
+      const float prev = __ldcg(p.old + at);
+      if (share) delta = __fadd_rn(delta, fabsf(__fsub_rn(code, prev)));
+      p.z[at] = momentum_z(code, prev, beta, p.fista);
+      p.old[at] = code;
+    }
   }
 }
 
+// The early stop (see above).  The sum of v over a warp's 32 lanes by an
+// xor butterfly: the same bits in every lane.
+__device__ __forceinline__ float cs_warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, m));
+  return v;
+}
+
+// Whether iteration it of num_iters can stop: from 1 (0 never stops) to
+// the last but one (the last ends the loop anyway).
+__device__ __forceinline__ bool cs_stop_turn(int it, int num_iters) {
+  return it >= 1 && it + 1 < num_iters;
+}
+
+// Slots a lane reads in cs_stop_load: a STOP launch has at most 32 times
+// as many CTAs.
+constexpr int kCsStopLaneSlots = 8;
+
+// seg_grid_sync with the CTA's share of iteration it posted first: each
+// warp's butterfly of delta into shared memory before the barrier's
+// __syncthreads, then thread 0 adds the warps in order and writes the
+// share to its slot just before its __threadfence and arrival, so one
+// fence publishes both.  Every thread calls it.
+__device__ __forceinline__ void cs_grid_sync_share(const SolveArgs& p,
+                                                   unsigned& target, int it,
+                                                   float delta) {
+  __shared__ float warp_shares[kCsThreads / 32];
+  delta = cs_warp_sum(delta);
+  if ((threadIdx.x & 31) == 0) warp_shares[threadIdx.x >> 5] = delta;
+  target += gridDim.x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float share = 0.0f;
+    for (int w = 0; w < kCsThreads / 32; ++w)
+      share = __fadd_rn(share, warp_shares[w]);
+    p.slots[(it & 1) * gridDim.x + blockIdx.x] = share;
+    __threadfence();
+    atomicAdd(p.barrier, 1u);
+    unsigned spins = 0;
+    while (static_cast<int>(seg_ld_acquire(p.barrier) - target) < 0) {
+      if (++spins > kSegSpinLimit) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// After that barrier, in every warp: put the loads of iteration it's
+// slots in flight (lane l the slots l, l + 32, ..., past the last a zero),
+// to be summed by cs_stop_test after the next phase.
+__device__ __forceinline__ void cs_stop_load(const SolveArgs& p, int it,
+                                             float sv[kCsStopLaneSlots]) {
+  const float* slots = p.slots + (it & 1) * gridDim.x;
+#pragma unroll
+  for (int j = 0; j < kCsStopLaneSlots; ++j) {
+    const int i = (threadIdx.x & 31) + 32 * j;
+    sv[j] = i < static_cast<int>(gridDim.x) ? __ldcg(slots + i) : 0.0f;
+  }
+}
+
+// The grid's shares summed in a fixed order (each lane its slots in turn,
+// then the butterfly: the same bits in every warp of every CTA) and the
+// stop test, (sum * inv_count) / eta < eps.
+__device__ __forceinline__ bool cs_stop_test(const SolveArgs& p,
+                                             const float sv[kCsStopLaneSlots],
+                                             float eta) {
+  float acc = sv[0];
+#pragma unroll
+  for (int j = 1; j < kCsStopLaneSlots; ++j) acc = __fadd_rn(acc, sv[j]);
+  acc = cs_warp_sum(acc);
+  return __fdiv_rn(__fmul_rn(acc, p.inv_count), eta) < p.eps;
+}
+
+template <bool STOP = false>
 __global__ void __launch_bounds__(kCsThreads, 1)
     code_shard_solve_kernel(SolveArgs p) {
   extern __shared__ __align__(16) unsigned char cs_smem[];
@@ -658,7 +782,8 @@ __global__ void __launch_bounds__(kCsThreads, 1)
   const int tiles_a = cs_tiles_a(p.b, p.s, p.n);
   const int tiles_b = cs_tiles_b(p.b, p.s);
   const int grid = static_cast<int>(gridDim.x);
-  unsigned target = p.barrier_base;
+  // STOP: the base the last launch left (read before any CTA can arrive)
+  unsigned target = STOP ? __ldcg(p.barrier + 1) : p.barrier_base;
   // the prologue: a CTA with one tile of a phase keeps its D slice for
   // the whole solve (n <= kCsDepth for phase B), copies in flight now
   int key_a = -1, key_b = -1;
@@ -691,19 +816,41 @@ __global__ void __launch_bounds__(kCsThreads, 1)
   const bool held = grid >= tiles_b && p.members == nullptr;
   float zv[4][4] = {}, ov[4][4] = {};
   seg_grid_sync(p.barrier, target);
+  int count = p.num_iters;  // STOP: the iterations run
+  // STOP: the slots of iteration `pending` (>= 0) in flight, tested after
+  // the next phase A (which writes only the partials, so old still holds
+  // that iteration's codes and a stop costs one phase A in vain)
+  float sv[kCsStopLaneSlots];
+  int pending = -1;
   for (int it = 0; it < p.num_iters; ++it) {
     for (int t = t0; t < tiles_a; t += grid)
       cs_phase_a_tile(sm, p, mode, p.z, t, key_a);
     seg_grid_sync(p.barrier, target);
+    if (STOP && pending >= 0) {
+      if (cs_stop_test(p, sv, eta)) {
+        count = pending + 1;
+        break;
+      }
+      pending = -1;
+    }
     cs_sum_phase(p, mode);
     seg_grid_sync(p.barrier, target);
     const float beta = p.betas[it];
+    // STOP: this iteration's share of |codes - old|, from phase B or G
+    const bool turn = STOP && cs_stop_turn(it, p.num_iters);
+    float delta = 0.0f;
     for (int t = t0; t < tiles_b; t += grid)
       cs_phase_b_tile(sm, p, mode, t, eta, lam_eta, beta, key_b, held, zv,
-                      ov);
-    seg_grid_sync(p.barrier, target);
+                      ov, turn && p.members == nullptr, delta);
     if (p.members != nullptr) {
-      cs_group_phase(p, lam_eta, beta);
+      seg_grid_sync(p.barrier, target);
+      cs_group_phase(p, lam_eta, beta, turn, delta);
+    }
+    if (turn) {
+      cs_grid_sync_share(p, target, it, delta);
+      cs_stop_load(p, it, sv);
+      pending = it;
+    } else {
       seg_grid_sync(p.barrier, target);
     }
   }
@@ -714,12 +861,16 @@ __global__ void __launch_bounds__(kCsThreads, 1)
     cs_sum_phase(p, mode);
   }
   cs_wait(0);  // no copy outlives the launch
+  if (STOP && blockIdx.x == 0 && threadIdx.x == 0) {
+    *p.iters = count;
+    p.barrier[1] = target;  // every CTA has passed its last barrier
+  }
 }
 
 // The current device's SM count and the solve kernel's resident CTAs per
 // SM (its dynamic shared memory opted in), read once per device.
 inline int cs_device_value(int which) {
-  static int values[2][64] = {};
+  static int values[3][64] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   int& v = values[which][dev];
@@ -728,12 +879,17 @@ inline int cs_device_value(int which) {
     if (which == 0) {
       err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
     } else {
-      err = cudaFuncSetAttribute(code_shard_solve_kernel,
+      // 1: the kernel, 2: its STOP build (opted in by the same call)
+      const void* kernel =
+          which == 1 ? reinterpret_cast<const void*>(code_shard_solve_kernel<>)
+                     : reinterpret_cast<const void*>(
+                           code_shard_solve_kernel<true>);
+      err = cudaFuncSetAttribute(kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(sizeof(SolveSmem)));
       if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &v, code_shard_solve_kernel, kCsThreads, sizeof(SolveSmem));
+            &v, kernel, kCsThreads, sizeof(SolveSmem));
     }
     if (err != cudaSuccess) v = 0;
   }
@@ -743,17 +899,20 @@ inline int cs_device_value(int which) {
 inline int cs_sm_count() { return cs_device_value(0); }
 inline int cs_blocks_per_sm() { return cs_device_value(1); }
 
-// Launch the solve kernel cooperatively on grid CTAs.  A grid the card
-// cannot hold at once is refused by the launch
+// Launch the solve kernel cooperatively on grid CTAs, its STOP build where
+// stop.  A grid the card cannot hold at once is refused by the launch
 // (cudaErrorCooperativeLaunchTooLarge), never run; the error is returned
 // and taken off the runtime's last error.
 inline cudaError_t launch_code_shard_solve(SolveArgs args, int grid,
-                                           cudaStream_t stream) {
-  if (grid < 1 || cs_blocks_per_sm() < 1) return cudaErrorInvalidConfiguration;
+                                           cudaStream_t stream,
+                                           bool stop = false) {
+  if (grid < 1 || cs_device_value(stop ? 2 : 1) < 1)
+    return cudaErrorInvalidConfiguration;
   void* params[] = {&args};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(code_shard_solve_kernel), dim3(grid),
-      dim3(kCsThreads), params, sizeof(SolveSmem), stream);
+      stop ? reinterpret_cast<const void*>(code_shard_solve_kernel<true>)
+           : reinterpret_cast<const void*>(code_shard_solve_kernel<>),
+      dim3(grid), dim3(kCsThreads), params, sizeof(SolveSmem), stream);
   if (err != cudaSuccess) cudaGetLastError();
   return err;
 }

@@ -152,6 +152,15 @@
 //    flag, t_{k+1} and the count; the launches after a stop read the flag
 //    and exit at once, and one copy kernel writes old out.  The host
 //    enqueues all of it and never waits.
+//  * Across ranks (K15 and K16 at a world above one, vtc_tpu's
+//    pallas_dp_train.py:206-248 and pallas_group_dp_train.py:189-229): a
+//    kernel cannot wait on another process, so the solve takes the classic
+//    route, and its last block leaves the rank's sum in a one-float
+//    buffer instead of deciding.  The C loop calls a host hook after each
+//    launch, which sums that buffer over the ranks (the same bits on every
+//    rank), and stop_decide_kernel decides.  The classic and cluster
+//    kernels give the same bits, so the ranks' codes are those of one
+//    process's solve at the same count.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -324,16 +333,25 @@ __device__ __forceinline__ void group_prox(float* zn, float* old, int s,
   }
 }
 
+// A host hook that sums a device buffer over the ranks in stream order
+// and returns 0, or nonzero on a failure (train_core.cuh's SumHook).
+using RankHook = int (*)(int);
+
 // The early stop's arguments (see "The early stop" above).  words: the
 // zeroed device array of stop_words() 64-bit words, reused from solve to
 // solve with rising tags; iters receives the iterations the solve ran;
 // the solve's slot for iteration k carries the tag tag + k (tag >= 1).
 struct SolveStop {
   float eps;
-  float inv_count;  // 1 / (b s), or 1 / (b G M) for groups
+  float inv_count;  // 1 / (b s), or 1 / (b G M) for groups; the global b
   unsigned long long* words;
   int* iters;
   unsigned tag;
+  // the classic route across ranks (K15, K16 at a world above one): the
+  // last block leaves the rank's sum in local, undecided, and hook(k)
+  // sums it over the ranks after each launch; both null at one rank
+  float* local = nullptr;
+  RankHook hook = nullptr;
 };
 
 // A share v posted with its tag as one 64-bit word (so a reader sees both
@@ -669,9 +687,13 @@ __global__ void __launch_bounds__(kThreads)
         sum = __fadd_rn(sum, reinterpret_cast<volatile float*>(shares)[i]);
       sum = warp_sum(sum);
       if (tid == 0) {
-        *stop_flag = k0 > 0 && stop_test(sum, eta, stop) ? 1 : 0;
+        if (stop.local != nullptr) {
+          *stop.local = sum;  // summed over the ranks, then decided
+        } else {
+          *stop_flag = k0 > 0 && stop_test(sum, eta, stop) ? 1 : 0;
+          *stop.iters = k0 + 1;
+        }
         *t_saved = t_k;
-        *stop.iters = k0 + 1;
         *ticket = 0u;
       }
     }
@@ -683,6 +705,17 @@ __global__ void __launch_bounds__(kThreads)
       if (row < b && j < s) out[row * s + j] = old[idx];
     }
   }
+}
+
+// The classic route across ranks: the decision of iteration k on the sum
+// over the ranks in *stop.local, one thread, as the last block decides at
+// one rank; nothing once the solve stopped (k = 0 clears the flag).
+__global__ void stop_decide_kernel(SolveStop stop,
+                                   const float* __restrict__ eta_ptr, int k) {
+  volatile int* const stop_flag = reinterpret_cast<int*>(stop.words + 1);
+  if (k > 0 && *stop_flag != 0) return;
+  *stop_flag = k > 0 && stop_test(*stop.local, *eta_ptr, stop) ? 1 : 0;
+  *stop.iters = k + 1;
 }
 
 // The classic stop route's output: old of every live entry of the blocks'
@@ -1677,7 +1710,11 @@ inline int device_stop_route(int b, int sk, int group_size,
 // The classic route with the stop: fista_kernel's stop build once per
 // iteration on the blocks' global state (gn folded), then the copy of old
 // into out.  With no iteration, the plain kernel writes the start out and
-// the count is 0.
+// the count is 0.  Across ranks (stop.local and stop.hook): after each
+// launch stop.hook(k) sums *stop.local over the ranks and
+// stop_decide_kernel decides, so every rank makes the same num_iters hook
+// calls and stops at the same count; a failed hook returns
+// cudaErrorUnknown (the hook keeps its own error).
 template <bool FISTA, int MODE, bool GROUP>
 cudaError_t launch_classic_stop(const float* gn, const float* corr,
                                 const float* init, const float* eta,
@@ -1717,6 +1754,12 @@ cudaError_t launch_classic_stop(const float* gn, const float* corr,
                                              state_global, out, stop, k);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
+    if (stop.hook != nullptr) {
+      if (stop.hook(k) != 0) return cudaErrorUnknown;
+      stop_decide_kernel<<<1, 1, 0, stream>>>(stop, eta, k);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
   }
   const int64_t total = static_cast<int64_t>(b) * s;
   const unsigned copy_grid =
@@ -1731,7 +1774,9 @@ cudaError_t launch_classic_stop(const float* gn, const float* corr,
 // null.  The classic route folds G into gn first (the other two fold
 // their slices themselves); state_global null keeps its blocks' state in
 // shared memory (the classic route with stop needs it).  stop null is the
-// flag-off build.  Returns the first CUDA error.
+// flag-off build.  A stop across ranks (stop->local) takes the classic
+// route: a CUDA kernel cannot wait on another process, so no resident
+// route takes it.  Returns the first CUDA error.
 template <bool FISTA, int MODE, bool GROUP>
 cudaError_t launch_solve(const float* gram, const float* corr,
                          const float* init, const float* eta, float lam,
@@ -1740,6 +1785,12 @@ cudaError_t launch_solve(const float* gram, const float* corr,
                          float* out, int route, int* taken,
                          cudaStream_t stream,
                          const SolveStop* stop = nullptr) {
+  if (stop != nullptr && stop->local != nullptr) {
+    if (stop->hook == nullptr ||
+        (route != kRouteAuto && route != kRouteClassic))
+      return cudaErrorInvalidValue;
+    route = kRouteClassic;
+  }
   if (route == kRouteAuto) {
     route = stop == nullptr
                 ? solve_route(b, sk, group_size, device_sm_count())
@@ -1792,10 +1843,11 @@ inline bool solve_args_ok(int b, int s, int num_iters, int sk, int sc) {
 // unless eps >= 0, else *stop filled from them.
 inline const SolveStop* solve_stop(SolveStop* stop, float eps,
                                    float inv_count, void* words, int* iters,
-                                   unsigned tag) {
+                                   unsigned tag, float* local,
+                                   RankHook hook) {
   if (!(eps >= 0.0f)) return nullptr;
   *stop = SolveStop{eps, inv_count, static_cast<unsigned long long*>(words),
-                    iters, tag};
+                    iters, tag, local, hook};
   return stop;
 }
 

@@ -83,12 +83,125 @@
 // eigenvector and the rows of a shard stay bitwise equal on the ranks
 // that hold them.  With no hook (one rank) the launches are the ones
 // above, unchanged.
+//
+// The early stop (vtc_tpu :387-431): after iteration j > 0 a step's solve
+// ends when (sum |codes - old| over every rank's rows and batch shard) *
+// inv_count / eta < eps, inv_count = 1 / stop_count (vtc_tpu :557-566).
+// On the persistent route it is code_shard_solve.cuh's STOP build.  On the
+// per-step route the solve's launches take the stop's arguments (CsStop,
+// its words null without the stop: one uniform test at entry) and read a
+// tagged stop word on entry (K12's design, conv_gemm.cuh): the prox
+// launch of each iteration (grad_prox_kernel, or group_prox_kernel with a
+// member table) adds |code - old| over each thread's entries in a fixed
+// order, each block posts its share, and the last block to arrive (an
+// acquire-release ticket) sums the shares in block order and, at one
+// rank, writes the step's stop word (its tag, the count, the stop bit)
+// and the count.
+// Across ranks it leaves the rank's sum in a one-float buffer instead;
+// the C loop sums that buffer through the hook over 'code', then over
+// 'data' (vtc_tpu's order, :396-414), and cs_stop_decide_kernel decides,
+// so every rank makes the same hook calls and stops at the same count.
+// Every launch of a stopped step's solve returns at entry; step k's tag
+// is k + 1, so one zeroed set of words serves the segment.
+#include <cuda/atomic>
 #include <vector>
 
 #include "train_core.cuh"
 #include "code_shard_solve.cuh"
 
 namespace {
+
+// The per-step route's early stop (see above).  words: [0] the stop word,
+// [1] the ticket, then one share (a float) per block of the prox launch
+// (vtc_code_shard_stop_words).
+struct CsStop {
+  unsigned long long* words;
+  int* iters;       // receives the step's count
+  float* local;     // across ranks: the rank's sum goes here, undecided
+  float eps;
+  float inv_count;  // 1 / stop_count
+  unsigned tag;     // the step's tag, >= 1
+  int it;           // the launch's iteration j
+};
+constexpr int kCsStopCtlWords = 2;
+
+// Whether the step of st has stopped: its word carries st's tag and the
+// stop bit (never without the stop, st.words null).  Every thread of a
+// block reads the same word, written before the launch began, so a block
+// returns whole.
+__device__ __forceinline__ bool cs_stopped(const CsStop& st) {
+  if (st.words == nullptr) return false;
+  const unsigned long long w =
+      *reinterpret_cast<volatile unsigned long long*>(st.words);
+  return static_cast<unsigned>(w >> 32) == st.tag && (w & 1ull);
+}
+
+// Iteration st.it's decision on the sum over the rows and the batch: the
+// count, then the word with the stop bit where (sum * inv_count) / eta <
+// eps and j > 0.
+__device__ __forceinline__ void cs_stop_decide(const CsStop& st, float sum,
+                                               float eta) {
+  const bool stop = st.it > 0 &&
+                    __fdiv_rn(__fmul_rn(sum, st.inv_count), eta) < st.eps;
+  *st.iters = st.it + 1;
+  *reinterpret_cast<volatile unsigned long long*>(st.words) =
+      (static_cast<unsigned long long>(st.tag) << 32) |
+      (static_cast<unsigned long long>(st.it + 1) << 1) |
+      (stop ? 1ull : 0ull);
+}
+
+// A prox launch's end, in every thread of the block: the block's share
+// (its warps' butterflies in warp order) to its slot, then the last block
+// to arrive sums the slots (thread t the slots t, t + blockDim.x, ... in
+// turn, then its warps in order) and decides, or leaves the rank's sum in
+// st.local.  That block resets the ticket for the next launch.
+__device__ __forceinline__ void cs_stop_share(const CsStop& st, float delta,
+                                              float eta) {
+  __shared__ float warp_shares[32];
+  __shared__ bool last;
+  unsigned* const ticket = reinterpret_cast<unsigned*>(st.words + 1);
+  float* const shares = reinterpret_cast<float*>(st.words + kCsStopCtlWords);
+  const int tid = threadIdx.x;
+  const unsigned blocks = gridDim.x * gridDim.y;
+  delta = cs_warp_sum(delta);
+  if ((tid & 31) == 0) warp_shares[tid >> 5] = delta;
+  __syncthreads();
+  if (tid == 0) {
+    float share = 0.0f;
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w)
+      share = __fadd_rn(share, warp_shares[w]);
+    shares[blockIdx.y * gridDim.x + blockIdx.x] = share;
+    // release: the share before the ticket; acquire: the last block sees
+    // every share, and passes them on to its threads at the barrier
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> arrivals(*ticket);
+    last = arrivals.fetch_add(1u, cuda::memory_order_acq_rel) == blocks - 1;
+  }
+  __syncthreads();
+  if (!last) return;  // the same in every thread of the block
+  float sum = 0.0f;
+  for (unsigned i = tid; i < blocks; i += blockDim.x)
+    sum = __fadd_rn(sum, reinterpret_cast<volatile float*>(shares)[i]);
+  sum = cs_warp_sum(sum);
+  if ((tid & 31) == 0) warp_shares[tid >> 5] = sum;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.0f;
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w)
+      total = __fadd_rn(total, warp_shares[w]);
+    *ticket = 0u;
+    if (st.local != nullptr)
+      *st.local = total;
+    else
+      cs_stop_decide(st, total, eta);
+  }
+}
+
+// Across ranks: the decision of iteration st.it on the sum over the ranks
+// in *st.local, one thread; nothing once the step stopped.
+__global__ void cs_stop_decide_kernel(CsStop st, const float* eta) {
+  if (cs_stopped(st)) return;
+  cs_stop_decide(st, *st.local, *eta);
+}
 
 // partial[blockIdx.z] (M, N) = op(A) op(B) summed over the split's K values
 // [blockIdx.z * kSplitK, +kSplitK), train_core.cuh's layouts.
@@ -135,12 +248,17 @@ enum SumWhich {
   kSumRecon = 1,  // rbuf (b, n) over 'code': z_l D_l or codes_l D_l
   kSumStat = 2,   // stat (s,) over 'data': sum_b codes^2
   kSumGrad = 3,   // grad (s, n) over 'data': codes_l^T resid
+  kSumStopCode = 4,  // the stop's local (1,) over 'code'
+  kSumStopData = 5,  // the stop's local (1,) over 'data', after 'code'
 };
 
 // r[e] = r[e] - x[e]: X subtracted from a reconstruction summed over ranks.
+// With the stop (st.words set): nothing once st's step stopped (so in
+// every kernel of the solve below).
 __global__ void subtract_x_kernel(float* __restrict__ r,
                                   const float* __restrict__ x,
-                                  int64_t count) {
+                                  int64_t count, CsStop st = {}) {
+  if (cs_stopped(st)) return;
   for (int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                    threadIdx.x;
        e < count; e += static_cast<int64_t>(gridDim.x) * blockDim.x)
@@ -151,7 +269,8 @@ __global__ void subtract_x_kernel(float* __restrict__ r,
 // the reconstruction z D, the update's residual codes D, the power Gram.
 __global__ void __launch_bounds__(kGemmThreads)
     recon_partial_kernel(const float* z, const float* d, float* partial,
-                         int b, int s, int n) {
+                         int b, int s, int n, CsStop st = {}) {
+  if (cs_stopped(st)) return;
   split_product<false, false>(z, d, partial, b, n, s);
 }
 
@@ -167,7 +286,9 @@ __global__ void __launch_bounds__(kGemmThreads)
 }
 
 __global__ void recon_sum_kernel(const float* partial, const float* x,
-                                 float* out, int splits, int64_t count) {
+                                 float* out, int splits, int64_t count,
+                                 CsStop st = {}) {
+  if (cs_stopped(st)) return;
   split_sum(partial, x, out, splits, count);
 }
 
@@ -195,9 +316,10 @@ struct IterArgs {
   int b, s, n;
 };
 
-__device__ __forceinline__ void momentum(const IterArgs& p, int64_t at,
-                                         float code) {
-  momentum_at(p.z, p.old, at, code, p.beta, p.fista);
+// momentum_at on p's z and old; returns |code - old|.
+__device__ __forceinline__ float momentum(const IterArgs& p, int64_t at,
+                                          float code) {
+  return momentum_at(p.z, p.old, at, code, p.beta, p.fista);
 }
 
 // u = z - eta (r D^T), a 32 x 32 tile of (b, s) per block, then
@@ -205,8 +327,18 @@ __device__ __forceinline__ void momentum(const IterArgs& p, int64_t at,
 //   WINDOW > 0:  the group prox of contiguous blocks of WINDOW columns
 //                (xor-shuffle norms over WINDOW lanes) and the momentum;
 //   WINDOW < 0:  pre = u, for group_prox_kernel.
-template <int MODE, int WINDOW>
-__global__ void __launch_bounds__(kGemmThreads) grad_prox_kernel(IterArgs p) {
+// STOP (the stop's build, st.words set): with WINDOW >= 0 the block's
+// |code - old| goes to cs_stop_share.  A compile-time flag in this tile
+// kernel, unlike the pass kernels' test at entry: with the share's code
+// behind a runtime test ptxas gave the build without the stop 32
+// registers in place of 40, and a fc step of the per-step route took
+// 1,045 us in place of 952 (NVIDIA H100 80GB HBM3, 700 W;
+// tools/bench_code_shard_solve.cu).
+template <int MODE, int WINDOW, bool STOP>
+__global__ void __launch_bounds__(kGemmThreads)
+    grad_prox_kernel(IterArgs p, CsStop st) {
+  if (STOP && cs_stopped(st)) return;
+  constexpr bool share = STOP && WINDOW >= 0;
   const int tx = threadIdx.x & 31;
   const int ty = threadIdx.x >> 5;
   const int i0 = blockIdx.y * kTile;
@@ -216,6 +348,7 @@ __global__ void __launch_bounds__(kGemmThreads) grad_prox_kernel(IterArgs p) {
   const float eta = *p.eta;
   const float lam_eta = __fmul_rn(p.lam, eta);
   const int j = j0 + tx;
+  float delta = 0.0f;  // with the stop: this thread's |code - old|
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = i0 + ty * 4 + r;
@@ -226,25 +359,37 @@ __global__ void __launch_bounds__(kGemmThreads) grad_prox_kernel(IterArgs p) {
     if (WINDOW < 0) {
       if (inside) p.pre[at] = u;
     } else if (WINDOW == 0) {
-      if (inside) momentum(p, at, threshold<MODE>(u, lam_eta));
+      if (inside) {
+        const float moved = momentum(p, at, threshold<MODE>(u, lam_eta));
+        if (share) delta = __fadd_rn(delta, moved);
+      }
     } else {
       // every lane takes part: outside entries add zeros
       float sq = __fmul_rn(u, u);
 #pragma unroll
       for (int off = 1; off < WINDOW; off <<= 1)
         sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, off));
-      if (inside)
-        momentum(p, at, __fmul_rn(u, group_scale<MODE>(sqrtf(sq), lam_eta)));
+      if (inside) {
+        const float moved = momentum(
+            p, at, __fmul_rn(u, group_scale<MODE>(sqrtf(sq), lam_eta)));
+        if (share) delta = __fadd_rn(delta, moved);
+      }
     }
   }
+  if constexpr (share) cs_stop_share(st, delta, eta);
 }
 
 // The group prox of any partition: one thread per (row, group); members
 // (groups, width) lists each group's rows ascending, padded with -1.
+// With the stop the block's |code - old| goes to cs_stop_share.
 template <int MODE>
 __global__ void group_prox_kernel(IterArgs p, const int* __restrict__ members,
-                                  int groups, int width) {
-  const float lam_eta = __fmul_rn(p.lam, *p.eta);
+                                  int groups, int width, CsStop st) {
+  if (cs_stopped(st)) return;
+  const bool share = st.words != nullptr;
+  const float eta = *p.eta;
+  const float lam_eta = __fmul_rn(p.lam, eta);
+  float delta = 0.0f;  // with the stop: this thread's |code - old|
   const int64_t total = static_cast<int64_t>(p.b) * groups;
   for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                      threadIdx.x;
@@ -258,17 +403,28 @@ __global__ void group_prox_kernel(IterArgs p, const int* __restrict__ members,
       sq = __fadd_rn(sq, __fmul_rn(u, u));
     }
     const float scale = group_scale<MODE>(sqrtf(sq), lam_eta);
-    for (int m = 0; m < width && list[m] >= 0; ++m)
-      momentum(p, base + list[m], __fmul_rn(p.pre[base + list[m]], scale));
+    for (int m = 0; m < width && list[m] >= 0; ++m) {
+      const float moved = momentum(
+          p, base + list[m], __fmul_rn(p.pre[base + list[m]], scale));
+      if (share) delta = __fadd_rn(delta, moved);
+    }
   }
+  if (share) cs_stop_share(st, delta, eta);
 }
 
+// One FISTA iteration's prox launches after r is formed, with st's stop
+// for its step and iteration (none: st.words null).
 cudaError_t launch_iteration(const IterArgs& p, int mode, int window,
                              const int* members, int groups, int width,
-                             cudaStream_t stream) {
+                             cudaStream_t stream, const CsStop& st = {}) {
   const dim3 grid((p.s + kTile - 1) / kTile, (p.b + kTile - 1) / kTile);
-#define VTC_ITER(M, W) \
-  grad_prox_kernel<M, W><<<grid, kGemmThreads, 0, stream>>>(p)
+  const bool stopping = st.words != nullptr;
+#define VTC_ITER(M, W)                                                 \
+  do {                                                                 \
+    void (*kernel)(IterArgs, CsStop) = grad_prox_kernel<M, W, false>;  \
+    if (stopping) kernel = grad_prox_kernel<M, W, true>;               \
+    kernel<<<grid, kGemmThreads, 0, stream>>>(p, st);                  \
+  } while (0)
   const bool hard = mode == kHard;
   if (members != nullptr) {
     VTC_ITER(kSoft, -1);
@@ -277,10 +433,10 @@ cudaError_t launch_iteration(const IterArgs& p, int mode, int window,
     const unsigned blocks = pass_grid(static_cast<int64_t>(p.b) * groups);
     if (hard)
       group_prox_kernel<kHard><<<blocks, kPassThreads, 0, stream>>>(
-          p, members, groups, width);
+          p, members, groups, width, st);
     else
       group_prox_kernel<kSoft><<<blocks, kPassThreads, 0, stream>>>(
-          p, members, groups, width);
+          p, members, groups, width, st);
   } else if (window == 0) {
     if (mode == kSoft) VTC_ITER(kSoft, 0);
     else if (mode == kSoftNonneg) VTC_ITER(kSoftNonneg, 0);
@@ -338,6 +494,17 @@ int vtc_code_shard_barriers(int num_iters, int members, int resid) {
   return cs_step_barriers(num_iters, members, resid);
 }
 
+// The 64-bit words of the per-step route's stop at (b, s) with groups
+// member-table groups (0: none): the stop word, the ticket and one share
+// per block of the iteration's prox launch.
+int64_t vtc_code_shard_stop_words(int b, int s, int groups) {
+  const int64_t blocks =
+      groups > 0 ? pass_grid(static_cast<int64_t>(b) * groups)
+                 : static_cast<int64_t>((s + kTile - 1) / kTile) *
+                       ((b + kTile - 1) / kTile);
+  return kCsStopCtlWords + blocks;
+}
+
 // k residual-form train steps on one stream, every launch enqueued before
 // returning.
 //
@@ -361,10 +528,17 @@ int vtc_code_shard_barriers(int num_iters, int members, int resid) {
 // the hook needs between them); 1 runs a step's solve and the update's
 // first residual as one cooperative launch of code_shard_solve_kernel on
 // grid CTAs (0: vtc_code_shard_grid), one rank only, with betas
-// (num_iters,) and barrier (1,) unsigned device scratch.
-// Both give the same bits.  Returns the first CUDA error code (0 on
-// success; a grid the card cannot hold at once is refused,
-// cudaErrorCooperativeLaunchTooLarge), or kSumHookFailed.
+// (num_iters,) and barrier (2,) unsigned device scratch.
+// Both give the same bits.
+//
+// The early stop of every step's solve: eps >= 0 turns it on, with
+// inv_count = 1 / stop_count and iters (k,), each step's count; the
+// persistent route takes stop_slots (2 * grid floats), the per-step route
+// the zeroed stop_words of vtc_code_shard_stop_words and, across ranks,
+// stop_local (1,), which the hook sums as kSumStopCode and kSumStopData.
+// Returns the first CUDA error code (0 on success; a grid the card cannot
+// hold at once is refused, cudaErrorCooperativeLaunchTooLarge), or
+// kSumHookFailed.
 int vtc_code_shard_train_segment(
     float* d, float* h, float* v, const float* x, int k, int b, int s, int n,
     int window, const int* members, int groups, int width,
@@ -374,10 +548,12 @@ int vtc_code_shard_train_segment(
     float* partial, float* rbuf, float* z, float* old, float* pre,
     float* grad, float* cmat, float* smat, float* sd, float* eta,
     int code_ranks, int data_ranks, float* stat, AxisSumHook hook,
-    int persistent, int grid, float* betas, unsigned* barrier,
-    void* stream_ptr) {
+    int persistent, int grid, float* betas, unsigned* barrier, float eps,
+    float inv_count, void* stop_words, int* iters, float* stop_slots,
+    float* stop_local, void* stream_ptr) {
   const bool code_sum = code_ranks > 1;
   const bool data_sum = data_ranks > 1;
+  const bool stopping = eps >= 0.0f;
   if (k < 0 || b <= 0 || s <= 0 || n <= 0 || code_ranks < 1 ||
       data_ranks < 1 || static_cast<int64_t>(s) * code_ranks <= n ||
       ((code_sum || data_sum) && hook == nullptr) ||
@@ -390,7 +566,11 @@ int vtc_code_shard_train_segment(
        (cmat == nullptr || smat == nullptr || sd == nullptr)) ||
       grid < 0 ||
       (persistent && (code_sum || data_sum || barrier == nullptr ||
-                      (num_iters > 0 && betas == nullptr))))
+                      (num_iters > 0 && betas == nullptr))) ||
+      (stopping &&
+       (iters == nullptr || (persistent && stop_slots == nullptr) ||
+        (!persistent && stop_words == nullptr) ||
+        ((code_sum || data_sum) && stop_local == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int splits = (s + kSplitK - 1) / kSplitK;
@@ -435,11 +615,13 @@ int vtc_code_shard_train_segment(
   unsigned barrier_base = 0;
   if (persistent && k > 0) {
     if (grid == 0) grid = vtc_code_shard_grid(b, s, n);
+    if (stopping && grid > 32 * kCsStopLaneSlots)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
     if (num_iters > 0)
       VTC_CHECK(cudaMemcpyAsync(betas, beta_of.data(),
                                 sizeof(float) * num_iters,
                                 cudaMemcpyHostToDevice, stream));
-    VTC_CHECK(cudaMemsetAsync(barrier, 0, sizeof(unsigned), stream));
+    VTC_CHECK(cudaMemsetAsync(barrier, 0, 2 * sizeof(unsigned), stream));
     sa.d = d;
     sa.z = z;
     sa.old = old;
@@ -461,6 +643,16 @@ int vtc_code_shard_train_segment(
     sa.n = n;
     sa.num_iters = num_iters;
     sa.resid = upd_num_iters > 0;
+    sa.eps = eps;
+    sa.inv_count = inv_count;
+    sa.slots = stop_slots;
+  }
+  CsStop stop = {};  // the per-step route's early stop
+  if (stopping && !persistent) {
+    stop.words = static_cast<unsigned long long*>(stop_words);
+    stop.local = code_sum || data_sum ? stop_local : nullptr;
+    stop.eps = eps;
+    stop.inv_count = inv_count;
   }
   for (int step = 0; step < k; ++step) {
     const float* xs = x + static_cast<int64_t>(step) * b * n;
@@ -477,29 +669,44 @@ int vtc_code_shard_train_segment(
       // the solve and the update's first residual, one launch
       sa.x = xs;
       sa.barrier_base = barrier_base;
-      VTC_CHECK(launch_code_shard_solve(sa, grid, stream));
+      sa.iters = stopping ? iters + step : nullptr;
+      // with the stop the kernel carries the base on the device: a
+      // stopped step passes fewer barriers than cs_step_barriers counts
+      VTC_CHECK(launch_code_shard_solve(sa, grid, stream, stopping));
       barrier_base += static_cast<unsigned>(
           cs_step_barriers(num_iters, members != nullptr, sa.resid) * grid);
     } else {
       // the solve, from zero codes
       VTC_CHECK(cudaMemsetAsync(z, 0, codes_bytes, stream));
       VTC_CHECK(cudaMemsetAsync(old, 0, codes_bytes, stream));
+      if (stopping && num_iters == 0)
+        VTC_CHECK(cudaMemsetAsync(iters + step, 0, sizeof(int), stream));
+      stop.iters = stopping ? iters + step : nullptr;
+      stop.tag = static_cast<unsigned>(step) + 1u;
       for (int iter = 0; iter < num_iters; ++iter) {
         it.beta = beta_of[iter];
+        stop.it = iter;
         recon_partial_kernel<<<bn_grid, kGemmThreads, 0, stream>>>(
-            z, d, partial, b, s, n);
+            z, d, partial, b, s, n, stop);
         VTC_LAUNCHED();
         recon_sum_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
-            partial, code_sum ? nullptr : xs, rbuf, splits, bn);
+            partial, code_sum ? nullptr : xs, rbuf, splits, bn, stop);
         VTC_LAUNCHED();
         if (code_sum) {
           VTC_SUM(kSumRecon);
           subtract_x_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
-              rbuf, xs, bn);
+              rbuf, xs, bn, stop);
           VTC_LAUNCHED();
         }
         VTC_CHECK(launch_iteration(it, mode, window, members, groups, width,
-                                   stream));
+                                   stream, stop));
+        if (stop.local != nullptr) {
+          // the rank's share over 'code', then over 'data', then decided
+          if (code_sum) VTC_SUM(kSumStopCode);
+          if (data_sum) VTC_SUM(kSumStopData);
+          cs_stop_decide_kernel<<<1, 1, 0, stream>>>(stop, eta);
+          VTC_LAUNCHED();
+        }
       }
     }
     if (update == 1 && data_sum) {

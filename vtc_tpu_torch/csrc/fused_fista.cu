@@ -98,23 +98,33 @@ int vtc_fista_wide_slots(int cluster_size) { return wide_slots(cluster_size); }
 // stop_words (vtc_fista_stop_words 64-bit words, zeroed once and then
 // reused with rising tags), iters (one int: the iterations run) and tag
 // (>= 1; a later solve on the same words takes a tag past tag +
-// num_iters); on the classic route it needs state_scratch.
-// Returns the CUDA error code of the launches (0 on success).
+// num_iters); on the classic route it needs state_scratch.  Across
+// ranks (K15 at a world above one) stop_local (1,) and stop_hook: the
+// classic route an iteration a launch, the last block leaving the rank's
+// sum of |codes - old| in stop_local, then stop_hook(iteration), which
+// sums it over the ranks in stream order, then the decision; inv_count
+// is then over the global batch and stop_words the classic route's
+// (the first launch of a solve clears the flag).  Both null at one rank.
+// Returns the CUDA error code of the launches (0 on success;
+// cudaErrorUnknown when stop_hook failed).
 int vtc_fused_fista(const float* gram, const float* corr, const float* init,
                     const float* eta, float lam, int num_iters, int b, int s,
                     int sk, int sc, int fista, int mode, float* gn_scratch,
                     float* state_scratch, float* out, int route, int* taken,
                     float eps, float inv_count, void* stop_words, int* iters,
-                    unsigned tag, void* stream_ptr) {
+                    unsigned tag, float* stop_local, RankHook stop_hook,
+                    void* stream_ptr) {
   if (!solve_args_ok(b, s, num_iters, sk, sc) || mode < 0 || mode > 3 ||
       route < kRouteAuto || route > kRouteWide ||
       (eps >= 0.0f && (stop_words == nullptr || iters == nullptr ||
-                       tag == 0)))
+                       tag == 0)) ||
+      ((stop_local == nullptr) != (stop_hook == nullptr)) ||
+      (stop_hook != nullptr && (!(eps >= 0.0f) || state_scratch == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   SolveStop stop_args;
-  const SolveStop* stop =
-      solve_stop(&stop_args, eps, inv_count, stop_words, iters, tag);
+  const SolveStop* stop = solve_stop(&stop_args, eps, inv_count, stop_words,
+                                     iters, tag, stop_local, stop_hook);
   cudaError_t err;
 #define VTC_LAUNCH(F, M)                                                     \
   launch_solve<F, M, false>(gram, corr, init, eta, lam, num_iters, b, s, sk, \

@@ -42,8 +42,9 @@ extern "C" {
 // (ceil(b / rows), 4, rows, sk) or null to keep the state in shared
 // memory (the sizes of vtc_fused_fista); out (b, gm).  hard: 0 soft,
 // 1 hard group thresholding.  route, taken and the early stop (eps,
-// inv_count = 1 / (b gm), stop_words, iters, tag) as in vtc_fused_fista.
-// Returns the CUDA error code (0 on success).
+// inv_count = 1 / (b gm), stop_words, iters, tag, and across ranks, for
+// K16, stop_local and stop_hook) as in vtc_fused_fista.  Returns the CUDA
+// error code (0 on success).
 int vtc_fused_group_fista(const float* gram, const float* corr,
                           const float* init, const float* eta, float lam,
                           int num_iters, int b, int gm, int group_size,
@@ -51,16 +52,19 @@ int vtc_fused_group_fista(const float* gram, const float* corr,
                           float* gn_scratch, float* state_scratch, float* out,
                           int route, int* taken, float eps, float inv_count,
                           void* stop_words, int* iters, unsigned tag,
+                          float* stop_local, RankHook stop_hook,
                           void* stream_ptr) {
   if (!solve_args_ok(b, gm, num_iters, sk, sc) || group_size < 1 ||
       gm % group_size != 0 || route < kRouteAuto || route > kRouteWide ||
       (eps >= 0.0f && (stop_words == nullptr || iters == nullptr ||
-                       tag == 0)))
+                       tag == 0)) ||
+      ((stop_local == nullptr) != (stop_hook == nullptr)) ||
+      (stop_hook != nullptr && (!(eps >= 0.0f) || state_scratch == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   SolveStop stop_args;
-  const SolveStop* stop =
-      solve_stop(&stop_args, eps, inv_count, stop_words, iters, tag);
+  const SolveStop* stop = solve_stop(&stop_args, eps, inv_count, stop_words,
+                                     iters, tag, stop_local, stop_hook);
   cudaError_t err;
 #define VTC_LAUNCH(F, M)                                                    \
   launch_solve<F, M, true>(gram, corr, init, eta, lam, num_iters, b, gm, sk, \

@@ -74,7 +74,9 @@
 // regularizer on the replicated dictionary (K6's sign mask and row update)
 // and the step with vtc_tpu's 1e-30 renorm floor.  One C loop per segment,
 // K17's layout; no hook at a world of one.  Bound as K7 is, by the group
-// solve.
+// solve.  Its early stop (vtc_tpu :189-229) is K15's, on the grouped
+// codes: K6's stop route at a world of one, the classic route with a host
+// hook an iteration above one.
 #include "train_core.cuh"
 
 extern "C" int vtc_fused_group_fista(const float* gram, const float* corr,
@@ -86,6 +88,7 @@ extern "C" int vtc_fused_group_fista(const float* gram, const float* corr,
                                      int route, int* taken, float eps,
                                      float inv_count, void* stop_words,
                                      int* iters, unsigned tag,
+                                     float* stop_local, SumHook stop_hook,
                                      void* stream_ptr);
 
 namespace {
@@ -134,13 +137,13 @@ __global__ void sum_slots_kernel(const float* __restrict__ gcodes,
     if (err != cudaSuccess) return static_cast<int>(err); \
   } while (0)
 
-// The first half of a step, which K6 and K7 share: the grouped dictionary
-// (a row gather unless the groups tile range(s) in order, sel == nullptr),
-// its Gram (and Dg^T Dg when gm > n), the warm power refresh into v and
-// eta, c = X Dg^T, the group solve into gcodes (with stop's early stop as
-// step `step`) and the duplicate-summed (b, s) codes.  Those land in
-// codes, or stay in gcodes when sum_idx is null.  Returns the first CUDA
-// error code (0 on success).
+// The first half of a step, which K6, K7 and K16 share: the grouped
+// dictionary (a row gather unless the groups tile range(s) in order, sel
+// == nullptr), its Gram (and Dg^T Dg when gm > n), the warm power refresh
+// into v and eta, c = X Dg^T, the group solve into gcodes (with stop's
+// early stop as step `step`) and the duplicate-summed (b, s) codes.
+// Those land in codes, or stay in gcodes when sum_idx is null.  Returns
+// the first CUDA error code (0 on success).
 int group_refresh_and_solve(const float* d, float* v, const float* xs, int b,
                             int s, int n, int gm, int group_size,
                             const int* sel, const int* sum_idx, int sum_width,
@@ -170,11 +173,12 @@ int group_refresh_and_solve(const float* d, float* v, const float* xs, int b,
                                 stream));
   VTC_CHECK(power_refresh(power_gram, v, eta, dim, power_iters, stream));
   VTC_CHECK(gemm<false, true>(xs, grouped, nullptr, corr, b, gm, n, stream));
-  const int solve_err = vtc_fused_group_fista(  // the shape's own route
+  const int solve_err = vtc_fused_group_fista(  // classic across ranks
       gram, corr, nullptr, eta, lam, num_iters, b, gm, group_size, sk, sc,
       fista, hard, gn_scratch, state_scratch, gcodes, 0, nullptr, stop.eps,
       stop.inv_count, stop.words, stop.step_iters(step),
-      SegmentStop::step_tag(step, num_iters), stream_ptr);
+      SegmentStop::step_tag(step, num_iters), stop.local, stop.hook,
+      stream_ptr);
   if (solve_err != 0) return solve_err;
   if (!identity) {
     sum_slots_kernel<<<pass_grid(static_cast<int64_t>(b) * s), kPassThreads,
@@ -321,8 +325,11 @@ int vtc_group_solve_stats(
 // packed statistics [C | B | stat], summed over the ranks by sum_hook
 // (when given) before the update; global_b is the batch over all ranks.
 // grad (s, n).  The last step's summed codes of the shard are in codes, or
-// in gcodes when sum_idx is null.  Returns the first CUDA error code (0 on
-// success), or kSumHookFailed.
+// in gcodes when sum_idx is null.  The early stop of every step's group
+// solve: eps, inv_count = 1 / (global_b gm), stop_words, iters (k,),
+// stop_local and stop_hook as vtc_dp_train_segment's.  Returns the first
+// CUDA error code (0 on success; cudaErrorUnknown for a failed
+// stop_hook), or kSumHookFailed for a failed sum_hook.
 int vtc_group_dp_train_segment(
     float* d, float* h, float* v, const float* x, int k, int b, int s,
     int n, int gm, int group_size, const int* sel, const int* sum_idx,
@@ -332,13 +339,22 @@ int vtc_group_dp_train_segment(
     float global_b, float* dg, float* gram, float* pgram, float* corr,
     float* gcodes, float* codes, float* grad, float* ddt, float* smat,
     float* sd, float* eta, int sk, int sc, float* gn_scratch,
-    float* state_scratch, float* comm, SumHook sum_hook, void* stream_ptr) {
+    float* state_scratch, float* comm, SumHook sum_hook, float eps,
+    float inv_count, void* stop_words, int* iters, float* stop_local,
+    SumHook stop_hook, void* stream_ptr) {
   if (k < 0 || upd_num_iters < 0 || !(global_b >= 1.0f) ||
       !group_args_ok(b, s, n, gm, num_iters, power_iters, sel, sum_idx,
                      sum_width, dg, pgram, codes) ||
       (comem != nullptr &&
-       (ddt == nullptr || smat == nullptr || sd == nullptr)))
+       (ddt == nullptr || smat == nullptr || sd == nullptr)) ||
+      (eps >= 0.0f && (stop_words == nullptr || iters == nullptr)) ||
+      (stop_hook != nullptr && (stop_local == nullptr ||
+                                state_scratch == nullptr || !(eps >= 0.0f))))
     return static_cast<int>(cudaErrorInvalidValue);
+  const SegmentStop stop{eps,       inv_count,
+                         stop_words, iters,
+                         stop_hook != nullptr ? stop_local : nullptr,
+                         stop_hook};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   float* step_codes = sel == nullptr ? gcodes : codes;
   cudaError_t err = power_setup(gm > n ? n : gm);
@@ -352,7 +368,8 @@ int vtc_group_dp_train_segment(
     const int solve_err = group_refresh_and_solve(
         d, v, xs, b, s, n, gm, group_size, sel, sum_idx, sum_width, lam,
         num_iters, fista, hard, power_iters, dg, gram, pgram, corr, gcodes,
-        codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr);
+        codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr, stop,
+        step);
     if (solve_err != 0) return solve_err;
     VTC_CHECK(gram_form_stats(step_codes, xs, cmat, bmat, stat, b, s, n,
                               stream));

@@ -79,6 +79,10 @@
 // loop, K17's layout (fused_conv_train_step.cu): at a world of one there
 // is no hook and no host work per step.  Per step it does K3's work plus
 // 2 upd_num_iters s^2 n for C D, so it is bound as K3 is, by the solve.
+// Its early stop (vtc_tpu :206-248) is batch-global: at a world of one
+// every step's solve takes K2's stop route (the cluster kernel's stop
+// warp at b 250); above one the classic route with a host hook an
+// iteration (fista_core.cuh, "The early stop"), every rank at one count.
 #include "train_core.cuh"
 
 extern "C" int vtc_fused_fista(const float* gram, const float* corr,
@@ -88,7 +92,8 @@ extern "C" int vtc_fused_fista(const float* gram, const float* corr,
                                float* gn_scratch, float* state_scratch,
                                float* out, int route, int* taken, float eps,
                                float inv_count, void* stop_words, int* iters,
-                               unsigned tag, void* stream_ptr);
+                               unsigned tag, float* stop_local,
+                               SumHook stop_hook, void* stream_ptr);
 
 namespace {
 
@@ -98,10 +103,10 @@ namespace {
     if (err != cudaSuccess) return static_cast<int>(err); \
   } while (0)
 
-// The first half of a step, which K2 and K3 share: G = D D^T (and D^T D
-// when s > n), the warm power refresh into v and eta, c = X D^T and the
-// solve into codes, with stop's early stop as step `step`.  Returns the
-// first CUDA error code (0 on success).
+// The first half of a step, which K2, K3 and K15 share: G = D D^T (and
+// D^T D when s > n), the warm power refresh into v and eta, c = X D^T and
+// the solve into codes, with stop's early stop as step `step`.  Returns
+// the first CUDA error code (0 on success).
 int refresh_and_solve(const float* d, float* v, const float* xs, int b, int s,
                       int n, float lam, int num_iters, int fista, int mode,
                       int power_iters, float* gram, float* pgram, float* corr,
@@ -118,11 +123,12 @@ int refresh_and_solve(const float* d, float* v, const float* xs, int b, int s,
     VTC_CHECK(gemm<true, false>(d, d, nullptr, pgram, n, n, s, stream));
   VTC_CHECK(power_refresh(power_gram, v, eta, dim, power_iters, stream));
   VTC_CHECK(gemm<false, true>(xs, d, nullptr, corr, b, s, n, stream));
-  return vtc_fused_fista(  // the shape's own route
+  return vtc_fused_fista(  // the shape's own route; classic across ranks
       gram, corr, nullptr, eta, lam, num_iters, b, s, sk, sc, fista, mode,
       gn_scratch, state_scratch, codes, 0, nullptr, stop.eps, stop.inv_count,
       stop.words, stop.step_iters(step),
-      SegmentStop::step_tag(step, num_iters), stream_ptr);
+      SegmentStop::step_tag(step, num_iters), stop.local, stop.hook,
+      stream_ptr);
 }
 
 }  // namespace
@@ -216,8 +222,15 @@ int vtc_solve_stats(const float* d, float* v, const float* x, int b, int s,
 // [C | B | stat]; sum_hook(step), when given, sums it over the ranks
 // before the update.  global_b is the batch over all ranks.  Scratch as
 // vtc_train_segment's (gram, pgram, corr, grad, eta, gn, state); codes
-// (b, s) holds the last step's codes of the shard on return.  Returns the
-// first CUDA error code (0 on success), or kSumHookFailed.
+// (b, s) holds the last step's codes of the shard on return.  The early
+// stop of every step's solve, over the global batch: eps >= 0 turns it on,
+// with inv_count = 1 / (global_b s) and iters (k,) each step's count; at a
+// world of one (no stop_hook) the stop_words of vtc_fista_stop_words and
+// K2's stop route, else the classic route's words, stop_local (1,) and
+// stop_hook(iteration), which sums stop_local over the ranks
+// (vtc_fused_fista's; state_scratch required).  Returns the first CUDA
+// error code (0 on success; cudaErrorUnknown for a failed stop_hook), or
+// kSumHookFailed for a failed sum_hook.
 int vtc_dp_train_segment(float* d, float* h, float* v, const float* x, int k,
                          int b, int s, int n, float lam, int num_iters,
                          float upd_step, int upd_num_iters, float lowest,
@@ -226,11 +239,20 @@ int vtc_dp_train_segment(float* d, float* h, float* v, const float* x, int k,
                          float* pgram, float* corr, float* codes, float* grad,
                          float* eta, int sk, int sc, float* gn_scratch,
                          float* state_scratch, float* comm, SumHook sum_hook,
+                         float eps, float inv_count, void* stop_words,
+                         int* iters, float* stop_local, SumHook stop_hook,
                          void* stream_ptr) {
   if (k < 0 || b <= 0 || s <= 0 || n <= 0 || num_iters < 0 ||
       upd_num_iters < 0 || power_iters < 0 || !(global_b >= 1.0f) ||
-      (s > n && pgram == nullptr))
+      (s > n && pgram == nullptr) ||
+      (eps >= 0.0f && (stop_words == nullptr || iters == nullptr)) ||
+      (stop_hook != nullptr && (stop_local == nullptr ||
+                                state_scratch == nullptr || !(eps >= 0.0f))))
     return static_cast<int>(cudaErrorInvalidValue);
+  const SegmentStop stop{eps,       inv_count,
+                         stop_words, iters,
+                         stop_hook != nullptr ? stop_local : nullptr,
+                         stop_hook};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = power_setup(s > n ? n : s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -243,7 +265,7 @@ int vtc_dp_train_segment(float* d, float* h, float* v, const float* x, int k,
     const int solve_err = refresh_and_solve(
         d, v, xs, b, s, n, lam, num_iters, fista, mode, power_iters, gram,
         pgram, corr, codes, eta, sk, sc, gn_scratch, state_scratch,
-        stream_ptr);
+        stream_ptr, stop, step);
     if (solve_err != 0) return solve_err;
     VTC_CHECK(gram_form_stats(codes, xs, cmat, bmat, stat, b, s, n, stream));
     if (sum_hook != nullptr && sum_hook(step) != 0) return kSumHookFailed;

@@ -254,15 +254,20 @@ cudaError_t hessian_ema(const float* codes, float* h, int b, int s,
 using SumHook = int (*)(int);
 constexpr int kSumHookFailed = -1;
 
-// The solve's early stop through K2's and K6's segments: eps (< 0: none)
-// and inv_count of the C entries' stop (vtc_fused_fista), the zeroed
-// words and one count per step; step k's solve takes the tags from
-// 1 + k (num_iters + 1), so one set of words serves the segment.
+// The solve's early stop through K2's, K6's, K15's and K16's segments:
+// eps (< 0: none) and inv_count of the C entries' stop (vtc_fused_fista),
+// the zeroed words and one count per step; step k's solve takes the tags
+// from 1 + k (num_iters + 1), so one set of words serves the segment.
+// Across ranks (K15 and K16 at a world above one) local (1,) takes the
+// rank's share each iteration and hook(iteration) sums it over the ranks
+// (vtc_fused_fista's stop_local and stop_hook); both null at one rank.
 struct SegmentStop {
   float eps = -1.0f;
   float inv_count = 0.0f;
   void* words = nullptr;
   int* iters = nullptr;
+  float* local = nullptr;
+  SumHook hook = nullptr;
 
   int* step_iters(int step) const {
     return iters == nullptr ? nullptr : iters + step;

@@ -124,10 +124,12 @@ def load_library():
   lib.vtc_fista_stop_words.argtypes = [i32, i32, i32]
   lib.vtc_fista_stop_words.restype = ctypes.c_int64
   # the solve's early stop: eps, inv_count, the words, the count, the tag
+  # (vtc_fused_fista and vtc_fused_group_fista then take the share and the
+  # stop hook across ranks, which only the C segments pass)
   stop = [f32, f32, ptr, ptr, ctypes.c_uint]
   lib.vtc_fused_fista.argtypes = [
       ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32,
-      ptr, ptr, ptr, i32, i32p] + stop + [ptr]
+      ptr, ptr, ptr, i32, i32p] + stop + [ptr, ptr, ptr]
   lib.vtc_fused_fista.restype = i32
   lib.vtc_power_smem_bytes.argtypes = [i32]
   lib.vtc_power_smem_bytes.restype = i32
@@ -140,13 +142,15 @@ def load_library():
       [ptr] * 3 + [i32] * 3 + [f32] + [i32] * 4 + [ptr] * 8 + [i32, i32]
       + [ptr] * 3)
   lib.vtc_solve_stats.restype = i32
+  # the stop across ranks: the rank's one-float share and its stop hook
+  rank_stop = stop[:4] + [ptr, ptr]
   lib.vtc_dp_train_segment.argtypes = (
       [ptr] * 4 + [i32] * 4 + [f32, i32, f32, i32, f32] + [i32] * 5 + [f32]
-      + [ptr] * 6 + [i32, i32] + [ptr] * 3 + [ptr, ptr])
+      + [ptr] * 6 + [i32, i32] + [ptr] * 3 + [ptr] + rank_stop + [ptr])
   lib.vtc_dp_train_segment.restype = i32
   lib.vtc_fused_group_fista.argtypes = [
       ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32, i32,
-      ptr, ptr, ptr, i32, i32p] + stop + [ptr]
+      ptr, ptr, ptr, i32, i32p] + stop + [ptr, ptr, ptr]
   lib.vtc_fused_group_fista.restype = i32
   lib.vtc_group_train_segment.argtypes = [
       ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, i32, ptr,
@@ -161,7 +165,7 @@ def load_library():
   lib.vtc_group_dp_train_segment.argtypes = (
       [ptr] * 4 + [i32] * 6 + [ptr, ptr, i32, ptr, f32, f32, i32, f32, i32,
                                 f32] + [i32] * 5 + [f32] + [ptr] * 11
-      + [i32, i32] + [ptr] * 3 + [ptr, ptr])
+      + [i32, i32] + [ptr] * 3 + [ptr] + rank_stop + [ptr])
   lib.vtc_group_dp_train_segment.restype = i32
   # the conv solves' early stop: eps, inv_count, the words, the counts
   conv_stop = [f32, f32, ptr, ptr]
@@ -216,7 +220,8 @@ def load_library():
   lib.vtc_code_shard_train_segment.argtypes = (
       [ptr] * 4 + [i32] * 5 + [ptr, i32, i32, ptr, f32, f32, i32, f32, i32,
                                 f32] + [i32] * 5 + [f32] + [ptr] * 11
-      + [i32, i32, ptr, ptr] + [i32, i32, ptr, ptr] + [ptr])
+      + [i32, i32, ptr, ptr] + [i32, i32, ptr, ptr] + stop[:4]
+      + [ptr, ptr] + [ptr])
   lib.vtc_code_shard_train_segment.restype = i32
   lib.vtc_code_shard_layout.argtypes = [i32p]
   lib.vtc_code_shard_layout.restype = None
@@ -227,4 +232,6 @@ def load_library():
   lib.vtc_code_shard_grid.restype = i32
   lib.vtc_code_shard_barriers.argtypes = [i32, i32, i32]
   lib.vtc_code_shard_barriers.restype = i32
+  lib.vtc_code_shard_stop_words.argtypes = [i32, i32, i32]
+  lib.vtc_code_shard_stop_words.restype = ctypes.c_int64
   return lib

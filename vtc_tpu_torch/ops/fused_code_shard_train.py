@@ -51,9 +51,23 @@ group inside one).
   test_torch_port_code_shard_parallel.py hold it against the Pallas
   kernel.
 
-Refused, each naming its ROADMAP.md item: on a CUDA tensor the in-kernel
-early stop, and on any device the ``mxu`` tiers other than 'highest'
-(item 3a).  ``axis_size``, ``data_axis_size``, ``code_stride`` and
+``early_stopping_epsilon`` runs vtc_tpu's batch-global stop test
+(:387-431): after iteration j > 0 a step's solve ends when the sum of
+|codes - old| over every rank's rows and batch shard (summed over 'code',
+then over 'data'), times 1 / stop_count (default b * data * s_l * code,
+:557-566), over eta is below eps, on every rank at the same count.  On
+the card: the persistent route's STOP build decides inside its launch
+(each CTA's share posted before a grid barrier it already has), the
+per-step route's last prox block (csrc/fused_code_shard_train_step.cu,
+"The early stop"), across ranks after the hook's two sums and a
+one-thread decision.  ``last_iters`` (a private test hook) is the int32
+device tensor (k,) of the last stopped segment's counts, ``plain_iters``
+the plain version's list of them and ``plain_avgs`` the means its last
+step's solve tested (after iteration j at index j - 1).
+
+Refused, naming its ROADMAP.md item: on any device the ``mxu`` tiers
+other than 'highest' (item 3a.2).  ``axis_size``, ``data_axis_size``,
+``code_stride`` and
 ``data_stride`` must be the mesh's; ``interpret`` is a TPU knob, accepted
 at False only.  ``launches`` counts the train steps the kernels ran,
 ``solve_launches`` the launches of the persistent solve kernel (one a step
@@ -81,6 +95,9 @@ from vtc_tpu_torch.ops.sum_hook import AxisSumHook
 launches = 0
 solve_launches = 0  # launches of the persistent solve kernel
 last_route = None  # 'persistent' or 'steps': the route of the last launch
+last_iters = None  # int32 device tensor (k,): the last stopped segment's
+plain_iters = None  # the plain version's counts of its last stopped segment
+plain_avgs = None  # ... and the means its last step's solve tested
 
 ROUTES = ("auto", "steps", "persistent")
 # code_shard_solve.cuh's layout (kCsTileM, kCsTileN, kCsDepth, kCsSlice,
@@ -301,7 +318,8 @@ def fused_code_sharded_train_segment_plain(
   the batch over the data axes) and the sums over ranks are taken where
   the kernel takes them.  ``stop_count`` defaults to the global
   b * data * s_l * code (vtc_tpu :560-561); the stop test sums |codes -
-  old| over 'code', then over 'data'.
+  old| over 'code', then over 'data', then scales the sum by
+  1 / stop_count and divides by eta, as the kernels do.
 
   ``precision`` is the matmul precision of the solve and the update
   (default 'highest'); 'tensorfloat32' shows what TF32 products would
@@ -326,6 +344,8 @@ def fused_code_sharded_train_segment_plain(
                 else b * data * s * code)
   inv_b = 1.0 / (b * data)
   codes = eta = None
+  global plain_iters, plain_avgs
+  counts, avgs = [], []
   for x in batches:
     with matmul_precision():
       gram = _code_sum(mesh, d.T @ d)
@@ -335,6 +355,7 @@ def fused_code_sharded_train_segment_plain(
     with matmul_precision(precision):
       z = old = codes = torch.zeros(b, s, dtype=d.dtype, device=d.device)
       t = np.float32(1.0)
+      avgs = []
       for j in range(int(inf_num_iters)):
         recon = _code_sum(mesh, z @ d) - x
         codes = prox(z - eta * (recon @ d.T), lam_eta)
@@ -351,10 +372,12 @@ def fused_code_sharded_train_segment_plain(
         stop = False
         if early_stopping_epsilon is not None and j > 0:
           total = _data_sum(mesh, _code_sum(mesh, (codes - old).abs().sum()))
-          stop = float(total / stop_elems / eta) < early_stopping_epsilon
+          avgs.append(float(total * (1.0 / stop_elems) / eta))
+          stop = avgs[-1] < early_stopping_epsilon
         old = codes
         if stop:
           break
+      counts.append(j + 1 if int(inf_num_iters) > 0 else 0)
       if cheap:
         stat = (codes * codes).sum(dim=0)
         if data > 1:  # train_core's hessian_from_stat, as K15-K17
@@ -377,6 +400,8 @@ def fused_code_sharded_train_segment_plain(
           d = d / torch.clamp(torch.linalg.vector_norm(d, dim=1,
                                                        keepdim=True),
                               min=1e-30)
+  if early_stopping_epsilon is not None:
+    plain_iters, plain_avgs = counts, avgs
   if return_stepsize:
     return d, h, v, codes, eta.reshape(1)
   return d, h, v, codes
@@ -423,10 +448,10 @@ def fused_code_sharded_train_segment(
     update_alg: the two fc update rules or their subspace names.
     upd_num_iters / nonneg (fc only) / hard / renormalize / power_iters /
       lowest_code_val: as in vtc_tpu.
-    mxu: 'highest' only (ROADMAP.md §1 item 3a).
-    early_stopping_epsilon, stop_count: CPU tensors only (the plain
-      version's stop test, mean over stop_count elements, default the
-      global b * s); a CUDA tensor raises, ROADMAP.md §1 item 3a.
+    mxu: 'highest' only (ROADMAP.md §1 item 3a.2).
+    early_stopping_epsilon, stop_count: the stop test, the mean over
+      stop_count elements (default the global b * s), on every rank at
+      the same count.
     roll_window: vtc_tpu's prox hint; None or the window of expand_local.
     mesh: the ``parallel.Mesh`` the ranks share, without a 'dcn' axis;
       None is a mesh of one rank.  Every rank of it calls this together.
@@ -448,7 +473,7 @@ def fused_code_sharded_train_segment(
            % (int(axis_size), int(data_axis_size), code, data))
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
         % (mxu,))
   _require(int(code_stride) == 1
            and int(data_stride) in ((0, code) if data == 1 else (code,))
@@ -499,10 +524,6 @@ def fused_code_sharded_train_segment(
   _require(batches.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(batches.device))
-  if early_stopping_epsilon is not None:
-    raise NotImplementedError(
-        "the residual-form train kernels have no early stop yet (a "
-        "batch-global reduction per iteration, ROADMAP.md §1 item 3a)")
   device = batches.device
   for name, t, shape in (("dictionary", dict_shard, (s, n)),
                          ("hessian", hessian_shard, (s,)),
@@ -519,23 +540,28 @@ def fused_code_sharded_train_segment(
   if use_reg:
     _require(tuple(comem_local.shape) == (s, s),
              "comem_local must be (%d, %d)" % (s, s))
+  stop_elems = (int(stop_count) if stop_count is not None
+                else b * data * s * code)
   out = _launch(dict_shard, hessian_shard, eigvec, batches.contiguous(),
                 table, window, comem_local if use_reg else None, mesh,
                 float(sparsity_weight), int(inf_num_iters),
-                float(upd_stepsize), **flags)
+                float(upd_stepsize), eps=early_stopping_epsilon,
+                stop_count=stop_elems, **flags)
   return out if return_stepsize else out[:4]
 
 
 def _launch(dictionary, hessian, eigvec, batches, table, window, comem, mesh,
             lam, num_iters, upd_step, *, variant, update_alg, upd_num_iters,
             nonneg, hard, renormalize, power_iters, lowest_code_val,
-            alignment_penalty, route="auto", grid=0):
+            alignment_penalty, route="auto", grid=0, eps=None,
+            stop_count=None):
   """Allocate state and scratch, copy the group table and co-membership
   counts to the device, and enqueue the k steps on the current stream,
   the sums over ranks as calls of the hook.  route 'steps' or
   'persistent' forces a route and grid a persistent launch's CTA count
-  (for checks and tools; 0: the shape's own)."""
-  global launches, solve_launches, last_route
+  (for checks and tools; 0: the shape's own); eps the solves' early stop
+  over stop_count elements (None: none)."""
+  global launches, solve_launches, last_route, last_iters
   code, data = (1, 1) if mesh is None else (mesh.code_size, mesh.size)
   if route not in ROUTES:
     raise ValueError("route must be one of %s, got %r" % (ROUTES, route))
@@ -574,7 +600,19 @@ def _launch(dictionary, hessian, eigvec, batches, table, window, comem, mesh,
   betas = barrier = None
   if persistent:
     betas = empty(max(num_iters, 1))
-    barrier = torch.empty(1, dtype=torch.int32, device=device)
+    barrier = torch.empty(2, dtype=torch.int32, device=device)
+  # the early stop: a negative or NaN eps never stops, as 0.0 does
+  words = iters = slots = local = None
+  if eps is not None:
+    eps = float(eps) if float(eps) >= 0.0 else 0.0
+    iters = torch.zeros(k, dtype=torch.int32, device=device)
+    if persistent:
+      slots = empty(2 * (int(grid) or lib.vtc_code_shard_grid(b, s, n)))
+    else:
+      words = torch.zeros(lib.vtc_code_shard_stop_words(b, s, num_groups),
+                          dtype=torch.int64, device=device)
+      if code > 1 or data > 1:
+        local = empty(1)
   sums = {}  # csrc enum SumWhich: what the hook sums, over which axis
   if code > 1:
     sums[0] = (mesh.sum_code_, pgram.view(-1))
@@ -582,6 +620,11 @@ def _launch(dictionary, hessian, eigvec, batches, table, window, comem, mesh,
   if data > 1:
     sums[2] = (mesh.sum_, stat)
     sums[3] = (mesh.sum_, grad.view(-1))
+  if local is not None:  # the stop's share: over 'code', then 'data'
+    if code > 1:
+      sums[4] = (mesh.sum_code_, local)
+    if data > 1:
+      sums[5] = (mesh.sum_, local)
   hook = AxisSumHook(sums)
   mode = (2 if hard else 0) if table is not None else \
       fused_fista._MODES[(nonneg, hard)]
@@ -602,11 +645,18 @@ def _launch(dictionary, hessian, eigvec, batches, table, window, comem, mesh,
         pgram.data_ptr(), partial.data_ptr(), rbuf.data_ptr(), z.data_ptr(),
         old.data_ptr(), ptr(pre), grad.data_ptr(), ptr(cmat), ptr(smat),
         ptr(sd), eta.data_ptr(), code, data, ptr(stat), hook.pointer,
-        int(persistent), int(grid), ptr(betas), ptr(barrier), stream)
+        int(persistent), int(grid), ptr(betas), ptr(barrier),
+        f32(-1.0 if eps is None else eps),
+        f32(0.0 if eps is None else 1.0 / stop_count), ptr(words),
+        ptr(iters), ptr(slots), ptr(local), stream)
   hook.check(err, "residual-form train step launch (k=%d, b=%d, s=%d, n=%d, "
-             "code %d, data %d, route %s)" % (k, b, s, n, code, data, route))
+             "code %d, data %d, route %s%s)" % (
+                 k, b, s, n, code, data, route,
+                 "" if eps is None else ", early stop"))
   launches += k
   if persistent:
     solve_launches += k
+  if iters is not None:
+    last_iters = iters
   last_route = route
   return d, h, v, old, eta

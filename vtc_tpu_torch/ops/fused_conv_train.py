@@ -418,9 +418,9 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
       ``conv_solve_stats_supported``, and with ``gram_stats`` also
       ``gram_stats_supported`` (ValueError otherwise, on any device).
     variant / nonneg / hard / power_iters: as in vtc_tpu.
-    mxu: 'highest' only; early_stopping_epsilon: None only (vtc_tpu's
-      kernel has no stop test; vtc_tpu's data-parallel stop is K17's).
-      Both raise NotImplementedError, ROADMAP.md §1 item 3a.
+    mxu: 'highest' only (ROADMAP.md §1 item 3a.2); early_stopping_epsilon:
+      None only (vtc_tpu's kernel has no stop test; vtc_tpu's
+      data-parallel stop is K17's).  Both raise NotImplementedError.
 
   Returns:
     gram_stats False: (codes (b, s, ch, cw), grad_sum (s, c, kh, kw), stat
@@ -441,7 +441,7 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
   if early_stopping_epsilon is not None:
     raise NotImplementedError(
         "conv_solve_stats has no early stop, as vtc_tpu's K13 has none; "
-        "the data-parallel conv stop is K17's (ROADMAP.md §1 item 3a.1)")
+        "the data-parallel conv stop is K17's")
   kernel_stride = tuple(int(x) for x in kernel_stride)
   padding = conv_shapes.normalize_padding(padding)
 

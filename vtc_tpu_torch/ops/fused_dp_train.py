@@ -30,22 +30,35 @@ replicated update] (``parallel.build_dp_fused_local_step``).
 (:117-126: the shard as one VMEM tile, and the comm slots of its butterfly
 or all-to-all beside it, within a 24 MB budget) size TPU memory and have
 no counterpart on the card, where the statistics live in device memory and
-the all-reduce is a collective between launches.  Left out: the in-kernel
-batch-global early stop and the ``mxu`` tiers other than 'highest' raise
-NotImplementedError (ROADMAP.md §1 item 3a), as K17's wrapper does; the
-trainer runs an early-stopped data-parallel segment through the
-psum-per-op step, whose stop test is batch-global.  ``launches`` counts
-the train steps the kernel ran.
+the all-reduce is a collective between launches.
+
+``early_stopping_epsilon`` runs vtc_tpu's batch-global stop test over the
+ranks (:206-248): after iteration j > 0 a step's solve ends when the sum
+of |codes - old| over every rank's shard, times 1 / (global_b s), over
+eta is below eps, on every rank at the same count.  At a world of one the
+solve is K2's stop route (the cluster kernel's stop warp at b 250); above
+one the classic route, an iteration a launch, its last block leaving the
+rank's share in a one-float buffer that ``ops/sum_hook.StopHook`` sums
+over the ranks before a one-thread kernel decides
+(csrc/fista_core.cuh, "The early stop").  The plain version takes the
+same test: each rank's sum, ``Mesh.sum``, then the scale.  ``last_iters``
+(a private test hook) is the int32 device tensor (k,) of the last stopped
+segment's counts, ``plain_iters`` the plain version's list of them.  Left
+out: the ``mxu`` tiers other than 'highest' raise NotImplementedError
+(ROADMAP.md §1 item 3a.2).  ``launches`` counts the train steps the
+kernel ran.
 """
 import ctypes
 
 import torch
 
-from vtc_tpu_torch.ops import fused_fista, fused_train_step
-from vtc_tpu_torch.ops.sum_hook import SumHook
+from vtc_tpu_torch.ops import fused_fista, fused_train_step, solver
+from vtc_tpu_torch.ops.sum_hook import StopHook, SumHook
 from vtc_tpu_torch.parallel import data_parallel
 
 launches = 0
+last_iters = None  # int32 device tensor (k,): the last stopped segment's
+plain_iters = None  # the plain version's counts of its last stopped segment
 
 
 def fused_dp_segment_supported(batch_shard_size, code_size, input_size):
@@ -62,23 +75,33 @@ def fused_dp_train_plain(dictionary, hessian, eigvec, batches,
                          update_alg="sc_cheap_quadratic_descent",
                          upd_num_iters=1, nonneg=False, hard=False,
                          renormalize=True, power_iters=12,
-                         lowest_code_val=0.001, precision=None):
+                         lowest_code_val=0.001, precision=None,
+                         early_stopping_epsilon=None):
   """The plain PyTorch version of the segment, on any device and in the
   inputs' own float type (float64 inputs give the oracle): per batch K3's
   plain version, the sum over ``mesh`` and the replicated update.
-  ``precision`` is the matmul precision of the solve (default 'highest')."""
+  ``precision`` is the matmul precision of the solve (default 'highest');
+  ``early_stopping_epsilon`` the kernel's stop test, each iteration's sum
+  of |codes - old| summed over ``mesh`` (``Mesh.sum``) and scaled by
+  1 / (global_b s)."""
+  global plain_iters
   d, h, v = dictionary, hessian, eigvec
   codes = None
+  counts = []
   for batch in batches:
     codes, cmat, bmat, stat, v, _ = fused_train_step.fused_solve_stats_plain(
         d, v, batch, sparsity_weight, inf_num_iters, variant=variant,
         nonneg=nonneg, hard=hard, power_iters=power_iters,
-        precision=precision)
+        precision=precision, early_stopping_epsilon=early_stopping_epsilon,
+        psum_axes=mesh, stop_count=batch.shape[0] * mesh.size * d.shape[0])
+    counts.append(solver.last_iters)
     cmat, bmat, stat = mesh.sum(cmat, bmat, stat)
     d, h = data_parallel._replicated_update(
         d, h, stat, upd_stepsize, upd_num_iters, batch.shape[0] * mesh.size,
         update_alg == "sc_cheap_quadratic_descent", renormalize,
         lowest_code_val, lambda dd, cmat=cmat, bmat=bmat: cmat @ dd - bmat)
+  if early_stopping_epsilon is not None:
+    plain_iters = counts
   return d, h, v, codes
 
 
@@ -106,8 +129,11 @@ def fused_dp_train_segment(dictionary, hessian, eigvec, batches,
     mesh: the ``parallel.Mesh`` the ranks share.
     variant / update_alg / upd_num_iters / nonneg / hard / renormalize /
       power_iters / lowest_code_val: as in vtc_tpu.
-    mxu: 'highest' only; early_stopping_epsilon: None only.  Both raise
-      NotImplementedError, ROADMAP.md §1 item 3a.
+    mxu: 'highest' only (NotImplementedError otherwise, ROADMAP.md §1
+      item 3a.2).
+    early_stopping_epsilon: optional; each step's solve stops after the
+      first iteration j > 0 whose mean |codes_j - codes_{j-1}| / eta over
+      the global batch is below it, on every rank at the same count.
 
   Returns:
     (dictionary, hessian, eigvec, last_codes): new tensors, replicated but
@@ -121,13 +147,8 @@ def fused_dp_train_segment(dictionary, hessian, eigvec, batches,
                      % (fused_train_step.UPDATE_ALGS,))
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
         % (mxu,))
-  if early_stopping_epsilon is not None:
-    raise NotImplementedError(
-        "the data-parallel fc segment has no in-kernel early stop (a "
-        "batch-global reduction per solver iteration), ROADMAP.md §1 item "
-        "3a; the psum-per-op step (parallel.build_dp_local_step) has it")
 
   def require(cond, message):
     if not cond:
@@ -151,7 +172,8 @@ def fused_dp_train_segment(dictionary, hessian, eigvec, batches,
   if batches.device.type == "cpu":
     return fused_dp_train_plain(
         dictionary, hessian, eigvec, batches, float(sparsity_weight),
-        int(inf_num_iters), float(upd_stepsize), mesh=mesh, **flags)
+        int(inf_num_iters), float(upd_stepsize), mesh=mesh,
+        early_stopping_epsilon=early_stopping_epsilon, **flags)
   require(batches.device.type == "cuda",
           "tensors must be on the CPU or a CUDA device, got "
           + str(batches.device))
@@ -168,16 +190,17 @@ def fused_dp_train_segment(dictionary, hessian, eigvec, batches,
   return _launch(dictionary.contiguous().clone(),
                  hessian.contiguous().clone(), eigvec.contiguous().clone(),
                  batches.contiguous(), mesh, float(sparsity_weight),
-                 int(inf_num_iters), float(upd_stepsize), **flags)
+                 int(inf_num_iters), float(upd_stepsize),
+                 eps=early_stopping_epsilon, **flags)
 
 
 def _launch(d, h, v, batches, mesh, lam, num_iters, upd_step, *, variant,
             update_alg, upd_num_iters, nonneg, hard, renormalize,
-            power_iters, lowest_code_val):
+            power_iters, lowest_code_val, eps=None):
   """Allocate the scratch and the packed statistics, and enqueue the k
   steps on the current stream, the sum over the ranks between each step's
-  statistics and its update."""
-  global launches
+  statistics and its update; eps the solves' early stop (None: none)."""
+  global launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
@@ -185,6 +208,8 @@ def _launch(d, h, v, batches, mesh, lam, num_iters, upd_step, *, variant,
   device = batches.device
   rows = lib.vtc_fista_rows()
   sk, sc, state_in_smem = fused_fista.solve_layout(lib, s)
+  eps, words, iters, local, classic = fused_fista.segment_stop_scratch(
+      lib, b, s, 1, eps, device, k, mesh.size)
 
   def empty(*shape):
     return torch.empty(shape, dtype=torch.float32, device=device)
@@ -192,9 +217,15 @@ def _launch(d, h, v, batches, mesh, lam, num_iters, upd_step, *, variant,
   gram, corr, codes = empty(s, s), empty(b, s), empty(b, s)
   pgram = empty(n, n) if s > n else None
   grad, eta, gn = empty(s, n), empty(1), empty(sk, sc)
-  state = None if state_in_smem else empty(-(-b // rows), 4, rows, sk)
+  state = (None if state_in_smem and not classic
+           else empty(-(-b // rows), 4, rows, sk))
   comm = empty(s * s + s * n + s)  # [C | B | stat], summed by one all-reduce
   hook = SumHook(mesh, comm)
+  stop_hook = StopHook(mesh, local) if local is not None else None
+
+  def ptr(t):
+    return None if t is None else t.data_ptr()
+
   f32 = ctypes.c_float
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -207,9 +238,15 @@ def _launch(d, h, v, batches, mesh, lam, num_iters, upd_step, *, variant,
         power_iters, f32(b * mesh.size), gram.data_ptr(),
         None if pgram is None else pgram.data_ptr(), corr.data_ptr(),
         codes.data_ptr(), grad.data_ptr(), eta.data_ptr(), sk, sc,
-        gn.data_ptr(), None if state is None else state.data_ptr(),
-        comm.data_ptr(), hook.pointer, stream)
-  hook.check(err, "data-parallel fc segment launch (k=%d, b=%d, s=%d, n=%d)"
-             % (k, b, s, n))
+        gn.data_ptr(), ptr(state), comm.data_ptr(), hook.pointer, f32(eps),
+        f32(1.0 / (b * mesh.size * s)), ptr(words), ptr(iters), ptr(local),
+        None if stop_hook is None else stop_hook.pointer, stream)
+  what = "data-parallel fc segment launch (k=%d, b=%d, s=%d, n=%d%s)" % (
+      k, b, s, n, "" if words is None else ", early stop")
+  if stop_hook is not None:
+    stop_hook.check(0, what)  # the stop hook's own error first
+  hook.check(err, what)
   launches += k
+  if iters is not None:
+    last_iters = iters
   return d, h, v, codes

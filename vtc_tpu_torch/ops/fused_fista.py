@@ -73,7 +73,8 @@ _MODES = {(False, False): 0, (True, False): 1, (False, True): 2,
 def fused_fista_plain(images, dictionary, sparsity_weight, num_iters,
                       stepsize, *, initial_codes=None, variant="fista",
                       nonneg=False, hard=False, early_stopping_epsilon=None,
-                      precision=None, psum_axes=None):
+                      precision=None, psum_axes=None,
+                      stop_count=None):
   """The plain PyTorch version of the fused solve, on any device and in
   the inputs' own float type (float64 inputs give the float64 oracle).
 
@@ -81,7 +82,9 @@ def fused_fista_plain(images, dictionary, sparsity_weight, num_iters,
   stepsize folded in, the association of the kernel and
   pallas_fista.py:94-105:
   codes = shrink((z + z @ (-eta G)) + eta c, lam * eta).
-  ``early_stopping_epsilon`` is the loop's batch-global stop test.
+  ``early_stopping_epsilon`` is the loop's batch-global stop test, over
+  ``psum_axes``'s ranks and as ``stop_count``'s sum (ops/solver) where
+  given.
   ``precision`` is the matmul precision of ``ops/precision`` (default
   'highest'); 'tensorfloat32' shows what TF32 products would cost.
   """
@@ -108,7 +111,8 @@ def fused_fista_plain(images, dictionary, sparsity_weight, num_iters,
     return proximal_gradient_loop(
         None, prox_fn, z, eta, num_iters, variant=variant,
         early_stopping_epsilon=early_stopping_epsilon,
-        prestep_fn=prestep_fn, psum_axes=psum_axes)
+        prestep_fn=prestep_fn, psum_axes=psum_axes,
+        stop_count=stop_count)
 
 
 def _require(cond, message):
@@ -407,6 +411,26 @@ def stop_scratch(lib, b, s, group_size, route, eps, device, steps=1):
           taken == ROUTES["classic"])
 
 
+def segment_stop_scratch(lib, b, s, group_size, eps, device, steps, world):
+  """The early stop's arguments of a data-parallel segment's solves (K15,
+  K16): (eps, the words, the counts (steps,), the rank's one-float share or
+  None, whether the route is the classic one).  At a world of one
+  ``stop_scratch``'s (the shape's stop route, no share); above one the
+  classic route's words and a share, which the C entry's stop hook sums
+  over the ranks.  eps None: (-1.0, None, None, None, False)."""
+  if world == 1 or eps is None:
+    eps, words, iters, classic = stop_scratch(lib, b, s, group_size, "auto",
+                                              eps, device, steps=steps)
+    return eps, words, iters, None, classic
+  eps = float(eps)
+  if not eps >= 0.0:  # a negative or NaN eps never stops, as 0.0 does
+    eps = 0.0
+  words = stop_words("classic", b, s, group_size, 0, 0)
+  return (eps, torch.zeros(words, dtype=torch.int64, device=device),
+          torch.zeros(steps, dtype=torch.int32, device=device),
+          torch.zeros(1, dtype=torch.float32, device=device), True)
+
+
 def _launch(gram, corr, init, eta, lam, num_iters, fista, mode,
             route="auto", eps=None):
   """Allocate the kernel's scratch and launch it on the current stream.
@@ -437,7 +461,8 @@ def _launch(gram, corr, init, eta, lam, num_iters, fista, mode,
         out.data_ptr(), ROUTES[route], ctypes.byref(taken),
         ctypes.c_float(eps), ctypes.c_float(1.0 / (b * s)),
         None if words is None else words.data_ptr(),
-        None if iters is None else iters.data_ptr(), 1, stream)
+        None if iters is None else iters.data_ptr(), 1, None, None,
+        stream)
   if err != 0:
     raise RuntimeError(
         "fused FISTA kernel launch failed with CUDA error %d "

@@ -37,10 +37,19 @@ vtc_tpu's term "penalty == 0 or renormalize" (:320-323): the in-kernel
 regularizer is the unit-norm form.  vtc_tpu's VMEM and comm-slot budget
 has no counterpart on the card.  The subspace solvers have no nonnegative
 mode, so data-parallel subspace training with ``nonnegative_only`` takes
-neither this kernel nor K7, as in vtc_tpu.  Left out: the in-kernel early
-stop and the ``mxu`` tiers other than 'highest' raise NotImplementedError
-(ROADMAP.md §1 item 3a).  ``launches`` counts the train steps the kernel
-ran.
+neither this kernel nor K7, as in vtc_tpu.
+
+``early_stopping_epsilon`` runs vtc_tpu's batch-global stop test over the
+ranks on the grouped codes (:189-229): the sum of |codes - old| over every
+rank's (b_shard, G*M) packed codes, times 1 / (global_b G M) (:360-366),
+over eta; K15's construction (``ops/fused_dp_train``) on K6's stop route
+at a world of one and the classic route with ``ops/sum_hook.StopHook``
+above one, every rank at the same count; the plain version takes the
+same test.  ``last_iters`` (a private test hook) is the int32 device
+tensor (k,) of the last stopped segment's counts, ``plain_iters`` the
+plain version's list of them.  Left out: the ``mxu``
+tiers other than 'highest' raise NotImplementedError (ROADMAP.md §1 item
+3a.2).  ``launches`` counts the train steps the kernel ran.
 """
 import ctypes
 
@@ -50,11 +59,14 @@ from vtc_tpu_torch.analysis_transforms.fully_connected import (
     subspace_ista_fista as sub)
 from vtc_tpu_torch.dict_update_rules.fully_connected._subspace_common import (
     alignment_regularization_gradients)
-from vtc_tpu_torch.ops import fused_fista, fused_group_train_step
-from vtc_tpu_torch.ops.sum_hook import SumHook
+from vtc_tpu_torch.ops import (fused_fista, fused_group_train_step,
+                               solver)
+from vtc_tpu_torch.ops.sum_hook import StopHook, SumHook
 from vtc_tpu_torch.parallel import data_parallel
 
 launches = 0
+last_iters = None  # int32 device tensor (k,): the last stopped segment's
+plain_iters = None  # the plain version's counts of its last stopped segment
 
 
 def fused_group_dp_segment_supported(batch_shard_size, code_size, input_size,
@@ -74,11 +86,15 @@ def fused_group_dp_train_plain(
     upd_stepsize, *, group_assignments, mesh, variant="fista",
     update_alg="subspace_sc_cheap_quadratic_descent", upd_num_iters=1,
     hard=False, renormalize=True, power_iters=12, lowest_code_val=0.001,
-    alignment_penalty=0.0, precision=None):
+    alignment_penalty=0.0, precision=None, early_stopping_epsilon=None):
   """The plain PyTorch version of the segment, on any device and in the
   inputs' own float type (float64 inputs give the oracle): per batch K7's
   plain version, the sum over ``mesh`` and the replicated update.
-  ``precision`` is the matmul precision of the solve (default 'highest')."""
+  ``precision`` is the matmul precision of the solve (default 'highest');
+  ``early_stopping_epsilon`` the kernel's stop test on the grouped codes,
+  each iteration's sum summed over ``mesh`` and scaled by
+  1 / (global_b G M)."""
+  global plain_iters
   d, h, v = dictionary, hessian, eigvec
   penalty = float(alignment_penalty)
   reg_fn = None
@@ -88,18 +104,25 @@ def fused_group_dp_train_plain(
     reg_fn = lambda dd: penalty * alignment_regularization_gradients(
         dd, gather, mask, renormalize)
   codes = None
+  counts = []
+  gm = len(group_assignments) * max(len(g) for g in group_assignments)
   for batch in batches:
     codes, cmat, bmat, stat, v, _ = (
         fused_group_train_step.fused_group_solve_stats_plain(
             d, v, batch, sparsity_weight, inf_num_iters,
             group_assignments=group_assignments, variant=variant, hard=hard,
-            power_iters=power_iters, precision=precision))
+            power_iters=power_iters, precision=precision,
+            early_stopping_epsilon=early_stopping_epsilon, psum_axes=mesh,
+            stop_count=batch.shape[0] * mesh.size * gm))
+    counts.append(solver.last_iters)
     cmat, bmat, stat = mesh.sum(cmat, bmat, stat)
     d, h = data_parallel._replicated_update(
         d, h, stat, upd_stepsize, upd_num_iters, batch.shape[0] * mesh.size,
         update_alg == "subspace_sc_cheap_quadratic_descent", renormalize,
         lowest_code_val, lambda dd, cmat=cmat, bmat=bmat: cmat @ dd - bmat,
         reg_fn)
+  if early_stopping_epsilon is not None:
+    plain_iters = counts
   return d, h, v, codes
 
 
@@ -128,8 +151,12 @@ def fused_group_dp_train_segment(
     variant / update_alg / upd_num_iters / hard / renormalize /
       power_iters / lowest_code_val / alignment_penalty: as in vtc_tpu; a
       nonzero penalty needs renormalize (the unit-norm form).
-    mxu: 'highest' only; early_stopping_epsilon: None only.  Both raise
-      NotImplementedError, ROADMAP.md §1 item 3a.
+    mxu: 'highest' only (NotImplementedError otherwise, ROADMAP.md §1
+      item 3a.2).
+    early_stopping_epsilon: optional; each step's group solve stops after
+      the first iteration j > 0 whose mean |codes_j - codes_{j-1}| / eta
+      over the global batch's G*M packed codes is below it, on every rank
+      at the same count.
 
   Returns:
     (dictionary, hessian, eigvec, last_codes): new tensors, replicated but
@@ -143,13 +170,8 @@ def fused_group_dp_train_segment(
                      % (fused_group_train_step.UPDATE_ALGS,))
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
         % (mxu,))
-  if early_stopping_epsilon is not None:
-    raise NotImplementedError(
-        "the data-parallel subspace segment has no in-kernel early stop (a "
-        "batch-global reduction per solver iteration), ROADMAP.md §1 item "
-        "3a; the psum-per-op step (parallel.build_dp_local_step) has it")
 
   def require(cond, message):
     if not cond:
@@ -180,7 +202,7 @@ def fused_group_dp_train_segment(
     return fused_group_dp_train_plain(
         dictionary, hessian, eigvec, batches, float(sparsity_weight),
         int(inf_num_iters), float(upd_stepsize), group_assignments=groups,
-        mesh=mesh, **flags)
+        mesh=mesh, early_stopping_epsilon=early_stopping_epsilon, **flags)
   require(batches.device.type == "cuda",
           "tensors must be on the CPU or a CUDA device, got "
           + str(batches.device))
@@ -198,16 +220,18 @@ def fused_group_dp_train_segment(
   return _launch(dictionary.contiguous().clone(),
                  hessian.contiguous().clone(), eigvec.contiguous().clone(),
                  batches.contiguous(), groups, mesh, float(sparsity_weight),
-                 int(inf_num_iters), float(upd_stepsize), **flags)
+                 int(inf_num_iters), float(upd_stepsize),
+                 eps=early_stopping_epsilon, **flags)
 
 
 def _launch(d, h, v, batches, groups, mesh, lam, num_iters, upd_step, *,
             variant, update_alg, upd_num_iters, hard, renormalize,
-            power_iters, lowest_code_val, alignment_penalty):
+            power_iters, lowest_code_val, alignment_penalty, eps=None):
   """Allocate the scratch and the packed statistics, and enqueue the k
   steps on the current stream, the sum over the ranks between each step's
-  statistics and its update."""
-  global launches
+  statistics and its update; eps the group solves' early stop (None:
+  none)."""
+  global launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
@@ -219,6 +243,8 @@ def _launch(d, h, v, batches, groups, mesh, lam, num_iters, upd_step, *,
                                                             device)
   rows = lib.vtc_fista_rows()
   sk, sc, state_in_smem = fused_fista.solve_layout(lib, gm)
+  eps, words, iters, local, classic = fused_fista.segment_stop_scratch(
+      lib, b, gm, m, eps, device, k, mesh.size)
 
   def empty(*shape):
     return torch.empty(shape, dtype=torch.float32, device=device)
@@ -237,9 +263,11 @@ def _launch(d, h, v, batches, groups, mesh, lam, num_iters, upd_step, *,
   gram, corr, gcodes = empty(gm, gm), empty(b, gm), empty(b, gm)
   pgram = empty(n, n) if gm > n else None
   grad, eta, gn = empty(s, n), empty(1), empty(sk, sc)
-  state = None if state_in_smem else empty(-(-b // rows), 4, rows, sk)
+  state = (None if state_in_smem and not classic
+           else empty(-(-b // rows), 4, rows, sk))
   comm = empty(s * s + s * n + s)  # [C | B | stat], summed by one all-reduce
   hook = SumHook(mesh, comm)
+  stop_hook = StopHook(mesh, local) if local is not None else None
   f32 = ctypes.c_float
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -254,8 +282,16 @@ def _launch(d, h, v, batches, groups, mesh, lam, num_iters, upd_step, *,
         gram.data_ptr(), ptr(pgram), corr.data_ptr(), gcodes.data_ptr(),
         ptr(codes), grad.data_ptr(), ptr(ddt), ptr(smat), ptr(sdm),
         eta.data_ptr(), sk, sc, gn.data_ptr(), ptr(state), comm.data_ptr(),
-        hook.pointer, stream)
-  hook.check(err, "data-parallel subspace segment launch (k=%d, b=%d, s=%d, "
-             "n=%d, G*M=%d)" % (k, b, s, n, gm))
+        hook.pointer, f32(eps), f32(1.0 / (b * mesh.size * gm)), ptr(words),
+        ptr(iters), ptr(local),
+        None if stop_hook is None else stop_hook.pointer, stream)
+  what = ("data-parallel subspace segment launch (k=%d, b=%d, s=%d, n=%d, "
+          "G*M=%d%s)" % (k, b, s, n, gm,
+                         "" if words is None else ", early stop"))
+  if stop_hook is not None:
+    stop_hook.check(0, what)  # the stop hook's own error first
+  hook.check(err, what)
   launches += k
+  if iters is not None:
+    last_iters = iters
   return d, h, v, gcodes if sel is None else codes

@@ -64,7 +64,8 @@ def fused_group_fista_plain(images, grouped_dictionary, group_size,
                             sparsity_weight, num_iters, stepsize, *,
                             initial_grouped=None, variant="fista",
                             hard=False, early_stopping_epsilon=None,
-                            precision=None, psum_axes=None):
+                            precision=None, psum_axes=None,
+                            stop_count=None):
   """The plain PyTorch version of the fused group solve, on any device
   and in the inputs' own float type (float64 inputs give the oracle).
 
@@ -72,7 +73,9 @@ def fused_group_fista_plain(images, grouped_dictionary, group_size,
   stepsize folded in, as vtc_tpu subspace_ista_fista.py:95-119 and the
   kernel associate it: codes = prox((z + z @ (-eta G)) + eta c,
   lam * eta), the prox on the (b, G, M) view.  ``early_stopping_epsilon``
-  is the loop's batch-global stop test, its mean over the b*G*M entries.
+  is the loop's batch-global stop test, its mean over the b*G*M entries
+  (over ``psum_axes``'s ranks and as ``stop_count``'s sum, ops/solver,
+  where given).
   ``precision``: the matmul precision of ``ops/precision`` (default
   'highest'); 'tensorfloat32' shows what TF32 products would cost.
 
@@ -101,7 +104,8 @@ def fused_group_fista_plain(images, grouped_dictionary, group_size,
     return proximal_gradient_loop(
         None, prox_fn, z, eta, num_iters, variant=variant,
         early_stopping_epsilon=early_stopping_epsilon,
-        prestep_fn=prestep_fn, psum_axes=psum_axes)
+        prestep_fn=prestep_fn, psum_axes=psum_axes,
+        stop_count=stop_count)
 
 
 def _require(cond, message):
@@ -215,7 +219,8 @@ def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard,
         fused_fista.ROUTES[route], ctypes.byref(taken), ctypes.c_float(eps),
         ctypes.c_float(1.0 / (b * gm)),
         None if words is None else words.data_ptr(),
-        None if iters is None else iters.data_ptr(), 1, stream)
+        None if iters is None else iters.data_ptr(), 1, None, None,
+        stream)
   if err != 0:
     raise RuntimeError(
         "fused group FISTA kernel launch failed with CUDA error %d "

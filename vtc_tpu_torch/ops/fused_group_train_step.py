@@ -368,13 +368,16 @@ def fused_group_solve_stats_supported(batch_shard_size, code_size,
 def fused_group_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
                                   inf_num_iters, *, group_assignments,
                                   variant="fista", hard=False,
-                                  power_iters=12, precision=None):
+                                  power_iters=12, precision=None,
+                                  early_stopping_epsilon=None,
+                                  psum_axes=None, stop_count=None):
   """The plain PyTorch version of ``fused_group_solve_stats``, on any
   device and in the inputs' own float type: ``build_grouped_dictionary``
   -> ``lipschitz.power_iterate`` -> the 'gram' group solve ->
   ``unpack_codes_summed`` -> the three statistics.  ``precision`` is the
   matmul precision of the solve; the refresh and the statistics stay at
-  'highest' (pallas_train_step.py:1021-1024)."""
+  'highest' (pallas_train_step.py:1021-1024).  The group solve's early
+  stop over ``psum_axes`` and ``stop_count`` is K16's."""
   s = dictionary.shape[0]
   gather, mask, index = sub.group_layout(group_assignments, s,
                                          dictionary.device)
@@ -383,7 +386,9 @@ def fused_group_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
   eta = 1.0 / eigval
   flat = fused_group_fista.fused_group_fista_plain(
       batch, grouped, gather.shape[1], sparsity_weight, inf_num_iters, eta,
-      variant=variant, hard=hard, precision=precision)
+      variant=variant, hard=hard, precision=precision,
+      early_stopping_epsilon=early_stopping_epsilon, psum_axes=psum_axes,
+      stop_count=stop_count)
   codes = sub.unpack_codes_summed(flat, gather, mask, s, index)
   with matmul_precision():
     cmat = codes.T @ codes

@@ -257,18 +257,24 @@ def fused_solve_stats_supported(batch_shard_size, code_size, input_size):
 
 def fused_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
                             inf_num_iters, *, variant="fista", nonneg=False,
-                            hard=False, power_iters=12, precision=None):
+                            hard=False, power_iters=12, precision=None,
+                            early_stopping_epsilon=None, psum_axes=None,
+                            stop_count=None):
   """The plain PyTorch version of ``fused_solve_stats``, on any device and
   in the inputs' own float type: ``lipschitz.power_iterate`` ->
   ``fused_fista_plain`` -> the three statistics.  ``precision`` is the
   matmul precision of the solve ('tensorfloat32' shows what TF32 products
   would cost); the refresh and the statistics stay at 'highest', as in
-  every tier of the TPU kernel (pallas_train_step.py:862-865)."""
+  every tier of the TPU kernel (pallas_train_step.py:862-865).  The solve's
+  early stop over ``psum_axes`` and ``stop_count`` is K15's (the
+  data-parallel segment's plain version passes them)."""
   eigval, v = lipschitz.power_iterate(dictionary, eigvec, int(power_iters))
   eta = 1.0 / eigval
   codes = fused_fista.fused_fista_plain(
       batch, dictionary, sparsity_weight, inf_num_iters, eta,
-      variant=variant, nonneg=nonneg, hard=hard, precision=precision)
+      variant=variant, nonneg=nonneg, hard=hard, precision=precision,
+      early_stopping_epsilon=early_stopping_epsilon, psum_axes=psum_axes,
+      stop_count=stop_count)
   with matmul_precision():
     cmat = codes.T @ codes
     bmat = codes.T @ batch

@@ -18,7 +18,11 @@ host once per iteration.  With ``psum_axes`` (the data-parallel stop
 test, vtc_tpu :105-110) that mean is first averaged over the mesh's
 ranks, one scalar all-reduce per iteration: every rank reads the same
 value and leaves the loop at the same iteration, and with equal shards
-the codes equal the single-device solve on the concatenated batch.
+the codes equal the single-device solve on the concatenated batch.  With
+``stop_count`` the test is the whole-segment kernels' instead (vtc_tpu's
+pallas_dp_train.py:239-241): the sums of |codes - old| added over the
+mesh's ranks, times 1 / stop_count, over the stepsize -- a sum of shares,
+then the scale, not a mean of per-rank means.
 """
 from typing import Callable, Optional
 
@@ -54,6 +58,7 @@ def proximal_gradient_loop(
     early_stopping_epsilon: Optional[float] = None,
     prestep_fn: Optional[Callable] = None,
     psum_axes=None,
+    stop_count: Optional[int] = None,
 ) -> torch.Tensor:
   """Run the ISTA/FISTA loop; returns the final codes.
 
@@ -62,7 +67,8 @@ def proximal_gradient_loop(
   ``prestep_fn`` the fused replacement for the gradient step.
   ``psum_axes`` is the ``parallel.Mesh`` whose data axes the stop test
   averages over (where vtc_tpu names the axes of the enclosing shard_map),
-  or None.
+  or None.  ``stop_count``: the global element count of the kernels' stop
+  test (the ranks' sums added, then scaled), or None for the mean.
   """
   global last_iters, last_avgs
   if variant not in ("ista", "fista"):
@@ -85,9 +91,15 @@ def proximal_gradient_loop(
       z = codes
     old_codes = codes
     if early_stopping_epsilon is not None and k > 0:
-      avg_delta = torch.mean(torch.abs(delta))
-      if psum_axes is not None:
-        avg_delta = psum_axes.mean(avg_delta)
+      if stop_count is not None:
+        total = torch.sum(torch.abs(delta))
+        if psum_axes is not None:
+          total = psum_axes.sum(total)
+        avg_delta = total * (1.0 / stop_count)
+      else:
+        avg_delta = torch.mean(torch.abs(delta))
+        if psum_axes is not None:
+          avg_delta = psum_axes.mean(avg_delta)
       avg_delta = float(avg_delta / stepsize)
       last_avgs.append(avg_delta)
       if avg_delta < early_stopping_epsilon:

@@ -69,9 +69,8 @@ same dictionary.
   segment's ``upd_num_iters`` (more than one update iteration takes the
   gram form, so a stride-block-uniform mask); vtc_tpu's further terms are
   VMEM budgets and its interpret-mode device count.  With
-  'early_stopping_epsilon' it is the only fused data-parallel runner
-  (vtc_tpu :721-746): its solves stop over the global batch, the share
-  summed over the ranks once per iteration.
+  'early_stopping_epsilon' its solves stop over the global batch, the
+  share summed over the ranks once per iteration (vtc_tpu :721-746).
 * ``_dp_fc_segment_runner`` (:214-246, vtc_tpu's
   ``_dp_rdma_segment_runner``) and ``_dp_group_segment_runner``
   (:284-318, ``_dp_rdma_group_segment_runner``): where vtc_tpu picks its
@@ -83,7 +82,10 @@ same dictionary.
   and a regularizer only with renormalization), on a mesh without a 'dcn'
   axis.  vtc_tpu's further terms are VMEM budgets, and its interpret-mode
   device count (the CPU interpreter's remote-DMA simulation needs a spare
-  host thread), an artefact with no counterpart here.
+  host thread), an artefact with no counterpart here.  With
+  'early_stopping_epsilon' they take it too, on vtc_tpu's gates for its
+  early-stopped K15 and K16 (:675-693, :786-809): every solve stops over
+  the global batch, the share summed over the ranks once per iteration.
 * On a mesh with a 'code' axis above 1 that the code-shard gate declines,
   the runners below run replicated over 'code' (their sums span the data
   group) and the whole-segment K15, K16 and K17 are not taken: vtc_tpu
@@ -102,23 +104,20 @@ same dictionary.
   (``parallel.build_dp_local_step``) for every other configuration, with
   the stepsize computed in the step: 'power_warm' is downgraded to 'power'
   (:810-813), and a warm run's eigenvector is re-seeded after a segment
-  that took this runner (:1281-1285).  An early-stopped fc or subspace
-  data-parallel run takes it too, where vtc_tpu takes K15 or K16 with
-  their in-kernel stop test: that test waits with those kernels'
-  (ROADMAP.md §1 item 3a.1); so does an early-stopped conv run on a mesh
-  with a 'dcn' axis, as in vtc_tpu.
+  that took this runner (:1281-1285).  An early-stopped run that none of
+  K15, K16 or K17 takes runs it too (a mesh with a 'dcn' axis, a subspace
+  regularizer without renormalization), as in vtc_tpu.
 * The shuffle permutes the global sample index with the seeded generator
   every rank has, before the shard is taken: a data-parallel run visits
   the samples of the single-device run.  Rank 0 writes checkpoints and
   metrics; reset/prune takes rank 0's draw on every rank.
 
 Raise NotImplementedError, each naming its ROADMAP.md §1 item:
-'hbm_chunk_steps' streaming (item 8), 'train_precision' other than
-'highest' (item 3a.2), and 'early_stopping_epsilon' where the
-data-parallel fc/subspace kernels (K15, K16) or the code-sharded K19
-would run it on a CUDA device (item 3a.1).  The single-device segments
-stop on the device (K2, K6, K12, and K1 or K10 in the per-step route),
-and so does the data-parallel conv segment (K17).
+'hbm_chunk_steps' streaming (item 8) and 'train_precision' other than
+'highest' (item 3a.2).  Every segment kernel stops its solves on the
+device with 'early_stopping_epsilon': the single-device K2, K6 and K12
+(and K1 or K10 in the per-step route), the data-parallel K15, K16 and K17
+and the code-sharded K19, the last four over the global batch.
 """
 import time
 
@@ -283,17 +282,19 @@ def _dp_conv_segment_runner(mesh, variant, update_alg, upd_niters, nonneg,
 
 
 def _dp_fc_segment_runner(mesh, variant, update_alg, upd_niters, nonneg,
-                          hard, renormalize):
+                          hard, renormalize, early_eps=None):
   """vtc_tpu's ``_dp_rdma_segment_runner``: this rank's shards of the whole
   segment through the data-parallel fc segment kernels (K15), the
   statistics summed over ``mesh`` once per step, warm tracking at
-  power_iters=2."""
+  power_iters=2; ``early_eps`` each solve's stop test over the global
+  batch, its share summed over ``mesh`` once per iteration."""
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
     dictionary, hessian, eigvec, _ = fused_dp_train.fused_dp_train_segment(
         dictionary, hessian, eigvec, batches, sw, n_it, upd_step, mesh=mesh,
         variant=variant, update_alg=update_alg, upd_num_iters=upd_niters,
-        nonneg=nonneg, hard=hard, renormalize=renormalize, power_iters=2)
+        nonneg=nonneg, hard=hard, renormalize=renormalize, power_iters=2,
+        early_stopping_epsilon=early_eps)
     return dictionary, hessian, eigvec
 
   return run
@@ -301,10 +302,11 @@ def _dp_fc_segment_runner(mesh, variant, update_alg, upd_niters, nonneg,
 
 def _dp_group_segment_runner(mesh, variant, update_alg, upd_niters, hard,
                              renormalize, group_assignments,
-                             alignment_penalty):
+                             alignment_penalty, early_eps=None):
   """vtc_tpu's ``_dp_rdma_group_segment_runner``: the subspace counterpart
   of ``_dp_fc_segment_runner`` (K16), the anti-alignment regularizer on the
-  replicated dictionary inside."""
+  replicated dictionary inside; ``early_eps`` each group solve's stop test
+  over the global batch."""
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
     dictionary, hessian, eigvec, _ = (
@@ -313,7 +315,8 @@ def _dp_group_segment_runner(mesh, variant, update_alg, upd_niters, hard,
             group_assignments=group_assignments, mesh=mesh, variant=variant,
             update_alg=update_alg, upd_num_iters=upd_niters, hard=hard,
             renormalize=renormalize, power_iters=2,
-            alignment_penalty=alignment_penalty))
+            alignment_penalty=alignment_penalty,
+            early_stopping_epsilon=early_eps))
     return dictionary, hessian, eigvec
 
   return run
@@ -433,12 +436,6 @@ def train_dictionary_scanned(training_batches, validation_batches,
   kernels_route = (conv_formulation in ("auto", "pallas")
                    if mode == "convolutional"
                    else resolved_formulation == "pallas")
-  if (early_eps is not None and device.type == "cuda" and kernels_route
-      and dp_mesh is not None and mode == "fully-connected"):
-    raise NotImplementedError(
-        "early_stopping_epsilon with the data-parallel fc/subspace CUDA "
-        "kernels (K15, K16) or the code-sharded one (K19): their stop test "
-        "waits, ROADMAP.md §1 item 3a.1; use fc_formulation='gram'")
   use_fused = device.type == "cuda" and warm_power and kernels_route
   def code_shard_plan(s_now):
     """(whether the code-sharded runner takes the configuration at s_now
@@ -473,14 +470,18 @@ def train_dictionary_scanned(training_batches, validation_batches,
   # data parallel: the fused-DP composition where a solve+stats kernel
   # takes the configuration (vtc_tpu :629-809 without its TPU-only terms),
   # else the psum-per-op step with the stepsize computed in the step; with
-  # an early stop only K17 (vtc_tpu :721-746: conv, every axis other than
-  # 'data' of size 1), whose solves stop over the global batch
+  # an early stop only the whole-segment K15, K16 and K17, whose solves
+  # stop over the global batch (vtc_tpu :675-693, :721-746, :786-809:
+  # every axis other than 'data' of size 1, and for subspace a regularizer
+  # only with renormalization)
   dp_fused = False
   if dp_mesh is not None:
     whole_mesh = all(dp_mesh.shape[a] == 1 for a in dp_mesh.axis_names
                      if a != "data")
     dp_fused = warm_power and kernels_route and (
-        early_eps is None or (mode == "convolutional" and whole_mesh))
+        early_eps is None or (whole_mesh and (
+            group_assignments is None or alignment_penalty == 0.0
+            or renormalize)))
     if not dp_fused and not code_sharded and warm_power:
       lipschitz_method, warm_power = "power", False
 
@@ -537,14 +538,15 @@ def train_dictionary_scanned(training_batches, validation_batches,
       if whole_mesh and group_assignments is None:
         return _dp_fc_segment_runner(
             dp_mesh, inference_alg, update_alg, upd_niters, nonneg, hard,
-            renormalize), True
+            renormalize, early_eps), True
       if whole_mesh and fused_group_dp_train.fused_group_dp_segment_supported(
           training_batches.shape[1], dictionary.shape[0],
           training_batches.shape[-1], group_assignments,
           alignment_penalty=alignment_penalty, renormalize=renormalize):
         return _dp_group_segment_runner(
             dp_mesh, inference_alg[9:], update_alg, upd_niters, hard,
-            renormalize, group_assignments, alignment_penalty), True
+            renormalize, group_assignments, alignment_penalty,
+            early_eps), True
       common = dict(hard_threshold=hard, renormalize=renormalize,
                     upd_num_iters=upd_niters, power_iters=2)
       if mode == "convolutional":

@@ -37,10 +37,9 @@ process group's world, or one rank without a group.  Rank 0 of the mesh
 writes the checkpoints and the TensorBoard log, and its reset/prune draw
 is broadcast, so the replicated dictionary stays the same on every rank.
 
-Raise NotImplementedError, each naming its ROADMAP.md §1 item:
-profile_dir (item 8), and an early stop where the conv CUDA kernel K10
-would run the solve on the card (item 3a.1).  With
-``fc_formulation='pallas'`` K1 stops on the device.
+Raise NotImplementedError, naming its ROADMAP.md §1 item: profile_dir
+(item 8).  An early stop runs on the device wherever a kernel solves: K1
+with ``fc_formulation='pallas'``, K10 and K11 in conv mode.
 """
 import time
 from pathlib import Path
