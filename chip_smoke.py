@@ -520,6 +520,46 @@ each test marked cuda to the phases that make its check here.
    the mid eps against fc_formulation='gram' (100 steps, 4 calls of each,
    the ratio of the medians and turn by turn); the stop rows' times at
    this run's counts beside their plain versions.
+46. The precision tiers bf16, bf16x3 and bf16x5 of K1, K4, K2 and K6
+   (csrc/fista_tier.cuh's fista_tier_kernel, bf16 tensor-core passes;
+   ops/precision.py the plain versions' passes, fp32 products of the bf16
+   values, TF32 off).  (a) One iteration from random codes: K1 at the
+   flagship (soft) and the ragged 13 x 37 x 24 problem (hard, ISTA
+   nonneg-hard), K4 at 64 x 4 and at phase 8's ragged M 26 (soft, hard),
+   one K2 and one K6 step at FISTA 1, each tier against the plain version
+   at the tier at phase 2's limit.  (b) The flagship solves (K1, K4 at b
+   2048, FISTA 100) and steps (K2, K6 at b 250, FISTA 25) at each tier
+   (tier_verdict's three rules): within the larger of a floor and the
+   plain version's spread under five one-ulp nudges of its input; five
+   times closer to the plain version at the tier than that is to
+   'highest' (where the noise, the larger of that spread and the kernel's
+   distance from plain at 'highest', exceeds a tenth of it: within three
+   times the noise, the kernel's tier moving it within 2x of plain's); no
+   plain tier nearer the kernel than its own.  The kernel's result at
+   each other tier and at 'highest', planted in each tier's place, must
+   fail.  The STOP build at each tier: K1 (FISTA soft, ISTA nonneg) and K4
+   (64 x 4) at b 250 and one K2 and one K6 step, FISTA 25, eps at k = 1,
+   mid-run and never: the plain version's count, bitwise the tier kernel
+   without the stop at that count, the same count and bits again, and
+   the three rules at that count.  (c) The 'highest' routes are phases
+   39, 42 and 43's, whose bitwise comparisons run unchanged; a 'highest'
+   flagship solve takes the wide route.  (d) The main path at each tier,
+   its tier counts zeroed before and read after: the fc and subspace
+   encode_dataset of phases 3 and 9 (16 K1 and 16 K4 tier launches) and
+   one 1,000-step segment of phases 6 and 11's trainers (1,000 K2 and
+   1,000 K6 tier steps), each dictionary finite and unit norm within
+   1e-4, its held-out loss falling, and at bf16x3 within 10% of the
+   'highest' run's.  With the stop at bf16x3 and a mid-run eps, counts
+   zeroed before and read after: ista_fista.run and
+   subspace_ista_fista.run at b 250 (one K1 and one K4 tier launch) and
+   20 steps of each trainer (20 K2 and 20 K6 tier steps), some solves
+   ending early.  (e) In turns, each tier kernel's ms against the
+   'highest' route on the same inputs, the plain version's, the bound at
+   the bf16 tensor-core rate (989 TFLOP/s) and the library time (the same
+   passes as products of bf16 operands, with a float32 result where the
+   installed torch offers one; the median of 7 turns, and their range);
+   the STOP build at bf16x3 alike at its count; the encodes' patches/s at
+   each tier against 'highest'.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -614,6 +654,8 @@ CUDA_TESTS = {
         6, 43, 45),
     "test_torch_port_trainer.py::test_cuda_scanned_runs_the_fused_kernels": (
         6,),
+    "test_torch_port_tiers.py::test_cuda_tier_kernel_matches_plain": (46,),
+    "test_torch_port_tiers.py::test_cuda_tier_stop_matches_plain": (46,),
 }
 
 
@@ -4945,6 +4987,713 @@ def stop_segments_phase(torch, dev, card, K15, K16, K19, mesh1,
   return dpstop_launches, dpstop_err, csstop_err, dpstop_times
 
 
+# ---------------------------------------------------------------------------
+# phase 46: the precision tiers of K1, K4, K2 and K6 (csrc/fista_tier.cuh)
+# ---------------------------------------------------------------------------
+TIER_NAMES = ("bf16", "bf16x3", "bf16x5")
+TIER_PASSES = {"bf16": 1, "bf16x3": 3, "bf16x5": 5}  # bf16 products a term
+BF16_PEAK = 989e12        # H100 SXM dense bf16 tensor-core rate, FLOP/s
+# a full solve's bound: the larger of this floor (times the largest value)
+# and the plain version's own spread under five one-ulp nudges of its
+# input (tests/test_torch_port_tiers.py's rule)
+TIER_FLOOR = {"bf16": 2e-3, "bf16x3": 2e-5, "bf16x5": 1e-5}
+TIER_CONTROL = 5.0
+TIER_TRAIN_TOL = 0.10     # bf16x3's held-out loss within 10% of 'highest'
+TIER_TIME_STEPS = 20      # the steps of each timed K2 / K6 segment
+TIER_REPS = 10            # calls of each timed turn
+TIER_LIB_TURNS = 7        # turns of each library time (median and range)
+
+
+def tier_solve_bound(b, s, iters, tier):
+  """K1 / K4 at a tier: the passes' products at the bf16 tensor-core rate,
+  reading G and c and writing the codes."""
+  flops = 2.0 * b * s * s * iters * TIER_PASSES[tier]
+  t_ops, t_bytes = flops / BF16_PEAK, 4.0 * (s * s + 2 * b * s) / HBM_RATE
+  return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+
+def tier_step_bound(b, s, n, iters, tier, power_iters=2):
+  """K2 / K6, one step at a tier: the solve's passes at the bf16 rate
+  beside the fp32 products (G, c, the update, the refresh) at the fp32
+  rate, the two units' least times overlapped; reading X and D, writing
+  D."""
+  solve = 2.0 * b * s * s * iters * TIER_PASSES[tier] / BF16_PEAK
+  rest = (2.0 * s * s * n + 2.0 * b * s * n + 4.0 * b * s * n
+          + 2.0 * power_iters * s * s) / FP32_PEAK
+  t_ops, t_bytes = max(solve, rest), 4.0 * (b * n + 2 * s * n) / HBM_RATE
+  return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+
+def one_ulp_nudge(x, seed):
+  """x with every entry moved one ulp up or down at random (on its
+  device)."""
+  import torch
+  up = torch.from_numpy(np.random.RandomState(seed).rand(*x.shape) < 0.5)
+  up = up.to(x.device)
+  return torch.where(up, torch.nextafter(x, torch.full_like(x, np.inf)),
+                     torch.nextafter(x, torch.full_like(x, -np.inf)))
+
+
+def tier_verdict(torch, got, got_full, plains, nudged, tier):
+  """How a solve or step at a tier (got) stands against the plain version:
+  plains {tier: plain's result} at every tier and 'highest', nudged plain
+  at the tier on five nudged inputs, got_full the kernel at 'highest'.
+  Returns a dict of the readings and of the rules passed:
+  'bound', max|d| within the larger of the floor and plain's spread;
+  'control', the kernel five times closer to plain at the tier than that
+  is to 'highest' where that distance is at least ten times the noise (the
+  larger of plain's own Frobenius spread and the kernel's distance from
+  plain at 'highest'), else within three times the noise with its own tier
+  moving it within 2x of plain's (the tier's split turns the kernel's and
+  plain's last-bit differences into up to 2^-17 of a value, so bf16x3
+  steps sit 1-2 noises apart); 'identity', no plain tier nearer the
+  kernel (Frobenius) than plain at its own tier."""
+  def f64(t):
+    return t.double().reshape(-1)
+  got, got_full = f64(got), f64(got_full)
+  plains = {k: f64(v) for k, v in plains.items()}
+  want, full = plains[tier], plains["highest"]
+  moved = [f64(t) - want for t in nudged]
+  spread = max(float(m.abs().max()) for m in moved)
+  noise = max(max(float(torch.linalg.vector_norm(m)) for m in moved),
+              float(torch.linalg.vector_norm(got_full - full)))
+  v = dict(bound=max(TIER_FLOOR[tier] * max(1.0, float(want.abs().max())),
+                     spread),
+           err=float((got - want).abs().max()),
+           dist=float(torch.linalg.vector_norm(got - want)),
+           control=float(torch.linalg.vector_norm(want - full)),
+           own=float(torch.linalg.vector_norm(got - got_full)), noise=noise,
+           near={k: float(torch.linalg.vector_norm(got - p))
+                 for k, p in plains.items()})
+  v["rule"] = ("5x" if 2.0 * TIER_CONTROL * noise <= v["control"]
+               else "3 noise")
+  v["ok"] = dict(
+      bound=v["err"] <= v["bound"],
+      control=(TIER_CONTROL * v["dist"] <= v["control"] if v["rule"] == "5x"
+               else v["dist"] <= 3.0 * noise
+               and 0.5 * v["control"] <= v["own"] <= 2.0 * v["control"]),
+      identity=all(v["near"][tier] <= d for d in v["near"].values()))
+  return v
+
+
+def tier_check(torch, label, got, got_full, plains, nudged, tier):
+  """tier_verdict's three rules must hold.  Returns the verdict."""
+  v = tier_verdict(torch, got, got_full, plains, nudged, tier)
+  print("tier %s %s: max|d| %.3e (bound %.3e); %.3e from plain at the tier, "
+        "which is %.3e from 'highest' (noise %.3e, rule %s; the kernel's "
+        "tier moves it %.3e); nearest plain tier %s" % (
+            label, tier, v["err"], v["bound"], v["dist"], v["control"],
+            v["noise"], v["rule"], v["own"],
+            min(v["near"], key=v["near"].get)))
+  for rule, ok in v["ok"].items():
+    check(ok, "tier %s %s: the %s rule fails: %s" % (
+        label, tier, rule, {k: v[k] for k in ("err", "bound", "dist",
+                                               "control", "noise", "own",
+                                               "near")}))
+  return v
+
+
+def tier_one_iteration(torch, K1, K4, K2, K6, sub, lipschitz, patches,
+                       train_patches, dev):
+  """(a) One iteration of each tier kernel from random codes against its
+  plain version at the tier, phase 2's limit.  Hard thresholds and the
+  ragged group prox run at the small ragged sizes (a one-ulp difference of
+  a pre-threshold value, or of a square near a bf16 rounding edge, moves a
+  code by more than the limit; phase 2's rule)."""
+  rng = np.random.RandomState(46)
+  d = torch.tensor(unit_rows(rng, 256, 256), device=dev)
+  x = torch.tensor(patches[:BATCH], device=dev)
+  eta = lipschitz.fista_stepsize(d)
+  z0 = torch.tensor((rng.randn(BATCH, 256) * 0.05).astype(np.float32),
+                    device=dev)
+  rag_d = torch.tensor(unit_rows(rng, 37, 24), device=dev)
+  rag_x = torch.tensor(rng.randn(13, 24).astype(np.float32), device=dev)
+  rag_z = torch.tensor(rng.randn(13, 37).astype(np.float32), device=dev)
+  rag_eta = lipschitz.fista_stepsize(rag_d)
+  rag_g = [[0, 2, 5], [1], [2, 3, 4, 5], list(range(6, 32))]  # M = 26
+  gather, mask, _ = sub.group_layout(rag_g, 32, dev)
+  rag_dg = sub.build_grouped_dictionary(rag_d[:32], gather, mask)
+  rag_gz = torch.tensor(rng.randn(13, rag_dg.shape[0]).astype(np.float32),
+                        device=dev) * mask.reshape(1, -1)
+  rag_geta = lipschitz.fista_stepsize(rag_dg)
+  tx = torch.tensor(train_patches[:TRAIN_BATCH], device=dev)[None]
+  th = torch.zeros(256, device=dev)
+  tv = lipschitz.top_gram_eigenpair(d)[1].contiguous()
+  worst = 0.0
+
+  def held(label, got, want):
+    nonlocal worst
+    got, want = [t if isinstance(t, (list, tuple)) else [t]
+                 for t in (got, want)]
+    for g, w in zip(got, want):
+      err, lim = float((g - w).abs().max()), limit(w)
+      worst = max(worst, err)
+      check(err <= lim, "tier one iteration %s: max|d| %.3e > %.3e" % (
+          label, err, lim))
+    print("tier one iteration %s: within phase 2's limit" % label)
+
+  for tier in TIER_NAMES:
+    for kw, xx, dd, ee, zz, name in (
+        (dict(), x, d, eta, z0, "K1 flagship soft"),
+        (dict(hard=True), rag_x, rag_d, rag_eta, rag_z, "K1 13x37 hard"),
+        (dict(variant="ista", nonneg=True, hard=True), rag_x, rag_d,
+         rag_eta, rag_z, "K1 13x37 ista nonneg-hard")):
+      got = K1.fused_fista_solve(xx, dd, LAM, 1, ee, initial_codes=zz,
+                                 mxu=tier, **kw)
+      check(K1.last_route == "tier", "K1 at %s took route %s" % (
+          tier, K1.last_route))
+      held("%s %s" % (name, tier), got, K1.fused_fista_plain(
+          xx, dd, LAM, 1, ee, initial_codes=zz, mxu=tier, **kw))
+    for xx, dg, m, ee, zz, hard, name in (
+        (x, d, GROUP_SIZE, eta, z0, False, "K4 flagship 64x4"),
+        (rag_x, rag_dg, 26, rag_geta, rag_gz, False, "K4 ragged M26 soft"),
+        (rag_x, rag_dg, 26, rag_geta, rag_gz, True, "K4 ragged M26 hard")):
+      got = K4.fused_group_fista_solve(xx, dg, m, LAM, 1, ee,
+                                       initial_grouped=zz.contiguous(),
+                                       hard=hard, mxu=tier)
+      check(K4.last_route == "tier", "K4 at %s took route %s" % (
+          tier, K4.last_route))
+      held("%s %s" % (name, tier), got, K4.fused_group_fista_plain(
+          xx, dg, m, LAM, 1, ee, initial_grouped=zz.contiguous(), hard=hard,
+          mxu=tier))
+    flags = dict(power_iters=2, mxu=tier)
+    held("K2 step (FISTA 1) %s" % tier,
+         K2.fused_train_segment(d, th, tv, tx, LAM, 1, TRAIN_STEP, **flags),
+         K2.fused_train_segment_plain(d, th, tv, tx, LAM, 1, TRAIN_STEP,
+                                      **flags))
+    groups = contiguous_groups(256, GROUP_SIZE)
+    held("K6 step (FISTA 1) %s" % tier,
+         K6.fused_group_train_segment(d, th, tv, tx, LAM, 1, SUB_STEP,
+                                      group_assignments=groups, **flags),
+         K6.fused_group_train_segment_plain(
+             d, th, tv, tx, LAM, 1, SUB_STEP, group_assignments=groups,
+             **flags))
+  return worst
+
+
+def tier_full_cases(torch, K1, K4, K2, K6, lipschitz, patches, train_patches,
+                    dev):
+  """(b) The flagship solves (K1, K4 at b 2048, FISTA 100) and steps (K2,
+  K6 at b 250, FISTA 25) at each tier against the plain version at the
+  tier, with tier_check's rules; then each tier's checks on the kernel's
+  result at every other tier (a planted wrong-tier call), which must fail.
+  Returns ({(K, tier): err}, [(K, tier, planted tier, rules failed)])."""
+  rng = np.random.RandomState(47)
+  d = torch.tensor(unit_rows(rng, 256, 256), device=dev)
+  x = torch.tensor(patches[:BATCH], device=dev)
+  eta = lipschitz.fista_stepsize(d)
+  tx = torch.tensor(train_patches[:TRAIN_BATCH], device=dev)[None]
+  th = torch.zeros(256, device=dev)
+  tv = lipschitz.top_gram_eigenpair(d)[1].contiguous()
+  groups = contiguous_groups(256, GROUP_SIZE)
+  nudged_x = [one_ulp_nudge(x, seed) for seed in range(5)]
+  nudged_tx = [one_ulp_nudge(tx, seed) for seed in range(5)]
+
+  def step(out):
+    return torch.cat([out[0].reshape(-1), out[3].reshape(-1)])
+
+  cases = {
+      "K1": (lambda xx, mxu: K1.fused_fista_solve(xx, d, LAM, ITERS, eta,
+                                                  mxu=mxu),
+             lambda xx, mxu: K1.fused_fista_plain(xx, d, LAM, ITERS, eta,
+                                                  mxu=mxu), x, nudged_x),
+      "K4": (lambda xx, mxu: K4.fused_group_fista_solve(
+          xx, d, GROUP_SIZE, LAM, ITERS, eta, mxu=mxu),
+             lambda xx, mxu: K4.fused_group_fista_plain(
+                 xx, d, GROUP_SIZE, LAM, ITERS, eta, mxu=mxu), x, nudged_x),
+      "K2": (lambda xx, mxu: step(K2.fused_train_segment(
+          d, th, tv, xx, LAM, TRAIN_ITERS, TRAIN_STEP, power_iters=2,
+          mxu=mxu)),
+             lambda xx, mxu: step(K2.fused_train_segment_plain(
+                 d, th, tv, xx, LAM, TRAIN_ITERS, TRAIN_STEP, power_iters=2,
+                 mxu=mxu)), tx, nudged_tx),
+      "K6": (lambda xx, mxu: step(K6.fused_group_train_segment(
+          d, th, tv, xx, LAM, TRAIN_ITERS, SUB_STEP, group_assignments=groups,
+          power_iters=2, mxu=mxu)),
+             lambda xx, mxu: step(K6.fused_group_train_segment_plain(
+                 d, th, tv, xx, LAM, TRAIN_ITERS, SUB_STEP,
+                 group_assignments=groups, power_iters=2, mxu=mxu)), tx,
+             nudged_tx),
+  }
+  errs, planted = {}, []
+  for name, (kernel, plain, xx, nudged) in cases.items():
+    outs = {mxu: kernel(xx, mxu) for mxu in ("highest",) + TIER_NAMES}
+    plains = {mxu: plain(xx, mxu) for mxu in ("highest",) + TIER_NAMES}
+    for tier in TIER_NAMES:
+      spread_in = [plain(nx, tier) for nx in nudged]
+      errs[name, tier] = tier_check(torch, name, outs[tier], outs["highest"],
+                                    plains, spread_in, tier)["err"]
+      # planted: the kernel's result at each other tier in its place must
+      # fail at least one rule
+      for wrong in ("highest",) + TIER_NAMES:
+        if wrong == tier:
+          continue
+        v = tier_verdict(torch, outs[wrong], outs["highest"], plains,
+                         spread_in, tier)
+        failed = [rule for rule, ok in v["ok"].items() if not ok]
+        planted.append((name, tier, wrong, failed))
+        print("tier planted %s: %s in place of %s fails %s (%.3e from plain "
+              "at %s, rule %s)" % (name, wrong, tier,
+                                   ", ".join(failed) or "NOTHING",
+                                   v["dist"], tier, v["rule"]))
+        check(failed, "tier %s: the kernel at %s passes every rule held "
+              "for %s" % (name, wrong, tier))
+  return errs, planted
+
+
+def tier_stop_cases(torch, K1, K4, K2, K6, solver, lipschitz, patches,
+                    gpatches, train_patches, dev):
+  """(b') The tier kernel's STOP build (the classic stop route, an
+  iteration a launch) inside vtc_tpu's one-tile gate: K1 (FISTA soft, ISTA
+  nonneg) and K4 (M 4, FISTA soft) at b 250, one K2 and one K6 step at b
+  250, FISTA 25, each tier, eps at k = 1, mid-run and never (stop_eps from
+  the plain version's means at the tier).  The count is the plain version
+  at the tier's with the same stop (a case whose plain mean lies within
+  1e-3 relative of eps is reported apart); the stopped result is bitwise
+  the tier kernel's without the stop run to that count, and a second call
+  gives the same count and bits; the result passes tier_check at that
+  count.  Returns (cases, {(K, tier): (counts, worst max|d|)}, near)."""
+  rng = np.random.RandomState(49)
+  d = torch.tensor(unit_rows(rng, 256, 256), device=dev)
+  eta = lipschitz.fista_stepsize(d)
+  xs = {False: torch.tensor(patches[:TRAIN_BATCH], device=dev),
+        True: torch.tensor(gpatches[:TRAIN_BATCH], device=dev)}
+  tx = torch.tensor(train_patches[:TRAIN_BATCH], device=dev)[None]
+  th = torch.zeros(256, device=dev)
+  tv = lipschitz.top_gram_eigenpair(d)[1].contiguous()
+  groups = contiguous_groups(256, GROUP_SIZE)
+  nudged = {k: [one_ulp_nudge(v, seed) for seed in range(5)]
+            for k, v in xs.items()}
+  nudged_tx = [one_ulp_nudge(tx, seed) for seed in range(5)]
+
+  def step(out):
+    return torch.cat([out[0].reshape(-1), out[3].reshape(-1)])
+
+  def solve_case(mod, grouped, kw):
+    if grouped:
+      run = lambda x, it, mxu, eps=None: K4.fused_group_fista_solve(
+          x, d, GROUP_SIZE, LAM, it, eta, mxu=mxu,
+          early_stopping_epsilon=eps, **kw)
+      plain = lambda x, it, mxu, eps=None: K4.fused_group_fista_plain(
+          x, d, GROUP_SIZE, LAM, it, eta, mxu=mxu,
+          early_stopping_epsilon=eps, **kw)
+    else:
+      run = lambda x, it, mxu, eps=None: K1.fused_fista_solve(
+          x, d, LAM, it, eta, mxu=mxu, early_stopping_epsilon=eps, **kw)
+      plain = lambda x, it, mxu, eps=None: K1.fused_fista_plain(
+          x, d, LAM, it, eta, mxu=mxu, early_stopping_epsilon=eps, **kw)
+    return (mod, lambda it, mxu, eps=None: run(xs[grouped], it, mxu, eps),
+            lambda x, it, mxu, eps=None: plain(x, it, mxu, eps),
+            xs[grouped], nudged[grouped],
+            lambda: int(mod.last_iters.item()))
+
+  def segment_case(mod):
+    if mod is K2:
+      run = lambda x, it, mxu, eps=None: K2.fused_train_segment(
+          d, th, tv, x, LAM, it, TRAIN_STEP, power_iters=2, mxu=mxu,
+          early_stopping_epsilon=eps)
+      plain = lambda x, it, mxu, eps=None: K2.fused_train_segment_plain(
+          d, th, tv, x, LAM, it, TRAIN_STEP, power_iters=2, mxu=mxu,
+          early_stopping_epsilon=eps)
+    else:
+      run = lambda x, it, mxu, eps=None: K6.fused_group_train_segment(
+          d, th, tv, x, LAM, it, SUB_STEP, group_assignments=groups,
+          power_iters=2, mxu=mxu, early_stopping_epsilon=eps)
+      plain = lambda x, it, mxu, eps=None: (
+          K6.fused_group_train_segment_plain(
+              d, th, tv, x, LAM, it, SUB_STEP, group_assignments=groups,
+              power_iters=2, mxu=mxu, early_stopping_epsilon=eps))
+    return (mod, lambda it, mxu, eps=None: step(run(tx, it, mxu, eps)),
+            lambda x, it, mxu, eps=None: step(plain(x, it, mxu, eps)), tx,
+            nudged_tx, lambda: int(mod.last_iters[0].item()))
+
+  families = {"K1 fista": solve_case(K1, False, {}),
+              "K1 ista nonneg": solve_case(K1, False,
+                                           dict(variant="ista", nonneg=True)),
+              "K4 M4": solve_case(K4, True, {}),
+              "K2 step": segment_case(K2), "K6 step": segment_case(K6)}
+  cases, out, near = 0, {}, []
+  for label, (mod, run, plain, x, nx, count) in families.items():
+    for tier in TIER_NAMES:
+      plain(x, TRAIN_ITERS, tier, 0.0)
+      avgs = list(solver.last_avgs)
+      counts, worst = [], 0.0
+      for which in ("early", "mid", "never"):
+        eps = stop_eps(avgs, which)
+        got = run(TRAIN_ITERS, tier, eps)
+        it = count()
+        route = getattr(mod, "last_route", "tier")
+        check(route == "tier", "%s %s with the stop took %s" % (
+            label, tier, route))
+        again = run(TRAIN_ITERS, tier, eps)
+        it2 = count()
+        ref = run(it, tier)
+        want = plain(x, TRAIN_ITERS, tier, eps)
+        plain_it, plain_avgs = solver.last_iters, list(solver.last_avgs)
+        torch.cuda.synchronize()
+        name = "%s %s eps %s (%.4g)" % (label, tier, which, eps)
+        check(torch.equal(got, ref), "%s: the stopped result (%d it) differs "
+              "from the tier kernel's without the stop at %d of %d entries"
+              % (name, it, int((got != ref).sum()), got.numel()))
+        check(it2 == it and torch.equal(got, again), "%s: a second call "
+              "differs (%d vs %d it)" % (name, it, it2))
+        if eps > 0 and any(abs(a - eps) <= 1e-3 * eps for a in plain_avgs):
+          near.append("%s: kernel %d it, plain %d" % (name, it, plain_it))
+        else:
+          check(it == plain_it, "%s: the kernel ran %d iterations, the "
+                "plain version %d" % (name, it, plain_it))
+        plains = {mxu: plain(x, it, mxu) for mxu in ("highest",) + TIER_NAMES}
+        check(torch.equal(plains[tier], want), "%s: plain with the stop "
+              "differs from plain run to its count" % name)
+        v = tier_check(torch, "stop " + name + " at %d it" % it, got,
+                       run(it, "highest"), plains,
+                       [plain(n, it, tier) for n in nx], tier)
+        worst = max(worst, v["err"])
+        counts.append(it)
+        cases += 1
+      out[label, tier] = (counts, worst)
+      print("tier stop %s %s: counts %s (early, mid, never) equal plain's; "
+            "bitwise the kernel without the stop at the count; max|d| %.3e"
+            % (label, tier, counts, worst))
+  return cases, out, near
+
+
+def tier_stop_main_path(torch, K1, K4, K2, K6, compiled_epoch, ista_fista, sub,
+                        solver, lipschitz, data):
+  """(d') The main path with the stop at bf16x3, the tier counts zeroed
+  before and read after: ista_fista.run and subspace_ista_fista.run
+  ('pallas', b 250, inside vtc_tpu's one-tile gate) and the fc and
+  subspace scanned trainers for STOP_MAIN_STEPS steps, each with a mid-run
+  eps.  Returns ({module: tier launches}, {module: solve counts})."""
+  d = data["dictionary"]
+  x = torch.tensor(data["patches"][:TRAIN_BATCH], device=d.device)
+  check(K1.early_stop_tile_fits(TRAIN_BATCH, d.shape[0]),
+        "b %d is outside vtc_tpu's one-tile gate" % TRAIN_BATCH)
+  K1.fused_fista_plain(x, d, LAM, TRAIN_ITERS, lipschitz.fista_stepsize(d),
+                       early_stopping_epsilon=0.0, mxu="bf16x3")
+  eps = stop_eps(solver.last_avgs, "mid")
+  mods = (K1, K4, K2, K6)
+  for mod in mods:
+    mod.tier_launches = 0
+  ista_fista.run(x, d, LAM, TRAIN_ITERS, formulation="pallas",
+                 early_stopping_epsilon=eps, mxu_precision="bf16x3")
+  its = {K1: int(K1.last_iters.item())}
+  sub.run(x, d, data["groups"], LAM, TRAIN_ITERS, formulation="pallas",
+          early_stopping_epsilon=eps, mxu_precision="bf16x3")
+  its[K4] = int(K4.last_iters.item())
+  for mod, batches, held, params in (
+      (K2, data["batches"], data["held_out"], data["params"]),
+      (K6, data["gbatches"], data["gheld"], data["gparams"])):
+    compiled_epoch.train_dictionary_scanned(
+        batches[:STOP_MAIN_STEPS], held[None], data["d0"],
+        dict(params, train_precision="bf16x3", early_stopping_epsilon=eps))
+    its[mod] = mod.last_iters.tolist()
+  torch.cuda.synchronize()
+  counts = {mod: mod.tier_launches for mod in mods}
+  print("tier main path with the stop (bf16x3, eps %.4g): tier launches K1 "
+        "%d, K4 %d, K2 %d, K6 %d; solve iterations K1 %s, K4 %s, K2 %s, K6 "
+        "%s" % (eps, *(counts[m] for m in mods), *(its[m] for m in mods)))
+  check(counts[K1] == counts[K4] == 1, "expected one K1 and one K4 tier "
+        "launch with the stop, counted %d and %d" % (counts[K1], counts[K4]))
+  check(counts[K2] == counts[K6] == STOP_MAIN_STEPS,
+        "expected %d K2 and K6 tier steps with the stop, counted %d and %d"
+        % (STOP_MAIN_STEPS, counts[K2], counts[K6]))
+  check(its[K1] < TRAIN_ITERS and min(its[K2]) < TRAIN_ITERS
+        and min(its[K6]) < TRAIN_ITERS, "no stopped solve ended early: %s"
+        % {m.__name__: its[m] for m in mods})
+  return counts, its
+
+
+def tier_main_path(torch, K1, K4, K2, K6, compiled_epoch, encode_dataset,
+                   ista_fista, sub, sparse_coding, data):
+  """(d) The trainers at each tier (one 1,000-step segment of phases 6 and
+  11's data and start) and the fc and subspace encodes of phases 3 and 9
+  at each tier, every tier count zeroed before each tier's runs and read
+  after; the trainers' quality, bf16x3's held-out loss against phases 6
+  and 11's 'highest' runs.  Returns ({(module, tier): tier launches},
+  {('fc' or 'subspace', tier): patches/s})."""
+  mods = (K1, K4, K2, K6)
+  rates, trained, counts = {}, {}, {}
+  for tier in TIER_NAMES:
+    for mod in mods:
+      mod.tier_launches = 0
+    for kind, groups in (("fc", None), ("subspace", data["groups"])):
+      t0 = time.perf_counter()
+      codes = encode_dataset(data["patches"], data["dictionary"], LAM, ITERS,
+                             batch_size=BATCH, chunk_batches=4,
+                             group_assignments=groups, mxu_precision=tier)
+      rates[kind, tier] = codes.shape[0] / (time.perf_counter() - t0)
+      check(bool(np.isfinite(codes).all()), "%s encode at %s: non-finite "
+            "codes" % (kind, tier))
+    trained["fc", tier] = compiled_epoch.train_dictionary_scanned(
+        data["batches"], data["held_out"][None], data["d0"],
+        dict(data["params"], train_precision=tier))
+    trained["subspace", tier] = compiled_epoch.train_dictionary_scanned(
+        data["gbatches"], data["gheld"][None], data["d0"],
+        dict(data["gparams"], train_precision=tier))
+    torch.cuda.synchronize()
+    for mod in mods:
+      counts[mod, tier] = mod.tier_launches
+    print("tier main path %s: tier launches K1 %d, K4 %d, K2 %d, K6 %d" % (
+        tier, *(counts[m, tier] for m in mods)))
+    check(counts[K1, tier] == counts[K4, tier] == NUM_BATCHES,
+          "expected %d %s launches of K1 and K4, counted %d and %d" % (
+              NUM_BATCHES, tier, counts[K1, tier], counts[K4, tier]))
+    check(counts[K2, tier] == counts[K6, tier] == TRAIN_STEPS,
+          "expected %d %s steps of K2 and K6, counted %d and %d" % (
+              TRAIN_STEPS, tier, counts[K2, tier], counts[K6, tier]))
+  for (kind, tier), dd in trained.items():
+    if kind == "fc":
+      loss = held_out_loss(torch, ista_fista, sparse_coding,
+                           data["held_out"], dd)
+      ref, start = data["loss1"], data["loss0"]
+    else:
+      loss = held_out_group_loss(torch, sub, sparse_coding, data["gheld"],
+                                 dd, data["groups"])
+      ref, start = data["gloss1"], data["gloss0"]
+    norm_err = float((torch.linalg.vector_norm(dd, dim=1) - 1).abs().max())
+    moved = float((dd - data["trained" if kind == "fc" else "gtrained"])
+                  .abs().max())
+    print("tier trainer %s %s: rows unit norm within %.2e; held-out loss "
+          "%.8f -> %.8f ('highest' %.8f, %+.4f%%); max |D - D_highest| "
+          "%.3e" % (kind, tier, norm_err, start, loss, ref,
+                    100.0 * (loss - ref) / ref, moved))
+    check(bool(torch.isfinite(dd).all()), "tier trainer %s %s: non-finite "
+          "dictionary" % (kind, tier))
+    check(norm_err <= 1e-4, "tier trainer %s %s: rows not unit norm: %.3e"
+          % (kind, tier, norm_err))
+    check(np.isfinite(loss) and loss < start, "tier trainer %s %s: the "
+          "held-out loss did not fall: %.6f -> %.6f" % (kind, tier, start,
+                                                        loss))
+    if tier == "bf16x3":
+      check(abs(loss - ref) <= TIER_TRAIN_TOL * ref,
+            "tier trainer %s bf16x3: held-out loss %.6f, 'highest' %.6f" % (
+                kind, loss, ref))
+  return counts, rates
+
+
+def mm_f32_out(torch):
+  """(how, f(a, b)): one PyTorch product of bf16 operands with a float32
+  result where the installed torch offers it (torch.mm's out_dtype on
+  CUDA), else torch.matmul's bf16 result."""
+  a = torch.ones((16, 16), dtype=torch.bfloat16, device="cuda")
+  try:
+    out = torch.mm(a, a, out_dtype=torch.float32)
+    if out.dtype == torch.float32:
+      return ("torch.mm(bf16, bf16, out_dtype=torch.float32)",
+              lambda x, y: torch.mm(x, y, out_dtype=torch.float32))
+  except (TypeError, RuntimeError, NotImplementedError):
+    pass
+  return ("torch.matmul(bf16, bf16) (bf16 result: this torch has no float32 "
+          "output for bf16 operands)", torch.matmul)
+
+
+def library_turns(torch, fn):
+  """The library time of fn: one warm call, then TIER_LIB_TURNS turns of
+  TIER_REPS calls; (median, least, most) ms a call.  A single reading
+  swung 7x between runs (8.94 to 61.1 ms for K1's bf16x3 passes)."""
+  fn()
+  readings = sorted(time_ms(torch, fn, TIER_REPS)
+                    for _ in range(TIER_LIB_TURNS))
+  return readings[len(readings) // 2], readings[0], readings[-1]
+
+
+def tier_timing(torch, K1, K4, K2, K6, solver, lipschitz, patches,
+                train_patches, dev, card):
+  """(e) In turns ('highest', tier, tier, 'highest'): K1 and K4 at the
+  flagship solve, K2 and K6 per step of a TIER_TIME_STEPS segment; the
+  plain versions at the tier; the library time, the same passes as
+  products of bf16 operands (library_turns).  Then the STOP build at
+  bf16x3 with a mid-run eps: K1 and K4 at b 250, K2 and K6 a step of a
+  TIER_TIME_STEPS segment, beside their plain versions with the stop, the
+  bound and the library time at the count taken.  Returns ({(K, tier):
+  (ms, plain_ms, bound, library_ms)}, {K: 'highest' ms}, {K: (ms,
+  plain_ms, bound, library_ms, mean count)})."""
+  rng = np.random.RandomState(48)
+  d = torch.tensor(unit_rows(rng, 256, 256), device=dev)
+  x = torch.tensor(patches[:BATCH], device=dev)
+  eta = lipschitz.fista_stepsize(d)
+  gram, corr = (d @ d.T).contiguous(), (x @ d.T).contiguous()
+  tx = torch.tensor(train_patches[:TIER_TIME_STEPS * TRAIN_BATCH],
+                    device=dev).reshape(TIER_TIME_STEPS, TRAIN_BATCH, 256)
+  th = torch.zeros(256, device=dev)
+  tv = lipschitz.top_gram_eigenpair(d)[1].contiguous()
+  groups = contiguous_groups(256, GROUP_SIZE)
+  how, mm = mm_f32_out(torch)
+  print("tier library time: %s" % how)
+  za = x.to(torch.bfloat16)
+  gb = (-eta * gram).to(torch.bfloat16)
+  zt = za[:TRAIN_BATCH].contiguous()
+  kernels = {
+      "K1": (lambda mxu: K1._launch(gram, corr, None, eta, LAM, ITERS, True,
+                                    0, mxu=mxu),
+             lambda mxu: K1.fused_fista_plain(x, d, LAM, ITERS, eta,
+                                              mxu=mxu), 1),
+      "K4": (lambda mxu: K4._launch(gram, corr, None, eta, LAM, ITERS,
+                                    GROUP_SIZE, True, False, mxu=mxu),
+             lambda mxu: K4.fused_group_fista_plain(
+                 x, d, GROUP_SIZE, LAM, ITERS, eta, mxu=mxu), 1),
+      "K2": (lambda mxu: K2.fused_train_segment(
+          d, th, tv, tx, LAM, TRAIN_ITERS, TRAIN_STEP, power_iters=2,
+          mxu=mxu),
+             lambda mxu: K2.fused_train_segment_plain(
+                 d, th, tv, tx[:1], LAM, TRAIN_ITERS, TRAIN_STEP,
+                 power_iters=2, mxu=mxu), TIER_TIME_STEPS),
+      "K6": (lambda mxu: K6.fused_group_train_segment(
+          d, th, tv, tx, LAM, TRAIN_ITERS, SUB_STEP, group_assignments=groups,
+          power_iters=2, mxu=mxu),
+             lambda mxu: K6.fused_group_train_segment_plain(
+                 d, th, tv, tx[:1], LAM, TRAIN_ITERS, SUB_STEP,
+                 group_assignments=groups, power_iters=2, mxu=mxu),
+             TIER_TIME_STEPS),
+  }
+  out, highest = {}, {}
+  with torch.no_grad():
+    for name, (kernel, plain, per) in kernels.items():
+      solve = name in ("K1", "K4")
+      for tier in TIER_NAMES:
+        kernel(tier)  # warm
+        turns = [time_ms(torch, lambda: kernel("highest"), TIER_REPS),
+                 time_ms(torch, lambda: kernel(tier), TIER_REPS),
+                 time_ms(torch, lambda: kernel(tier), TIER_REPS),
+                 time_ms(torch, lambda: kernel("highest"), TIER_REPS)]
+        ms = (turns[1] + turns[2]) / 2 / per
+        hi_ms = (turns[0] + turns[3]) / 2 / per
+        highest.setdefault(name, []).append(hi_ms)
+        p_ms = time_ms(torch, lambda: plain(tier), 2)
+        zz = za if solve else zt
+        passes = TIER_PASSES[tier] * (ITERS if solve else TRAIN_ITERS)
+        lib = library_turns(
+            torch, lambda: [mm(zz, gb) for _ in range(passes)])
+        bnd = (tier_solve_bound(BATCH, 256, ITERS, tier) if solve else
+               tier_step_bound(TRAIN_BATCH, 256, 256, TRAIN_ITERS, tier))
+        out[name, tier] = (ms, p_ms, bnd, lib[0])
+        print("tier %s %s: %.4f ms%s against 'highest' %.4f in turns "
+              "(%.4f, %.4f, %.4f, %.4f); plain %.4f; bound %.4f (%s); "
+              "library median %.4f (%d turns %.4f-%.4f) [%s]" % (
+                  name, tier, ms, "" if solve else " a step", hi_ms, *turns,
+                  p_ms, bnd[0], bnd[1], lib[0], TIER_LIB_TURNS, lib[1],
+                  lib[2], card))
+    stop = tier_stop_timing(torch, K1, K4, K2, K6, solver, d, x, eta, tx,
+                            th, tv, groups, mm, card)
+  return out, {k: sum(v) / len(v) for k, v in highest.items()}, stop
+
+
+def tier_stop_timing(torch, K1, K4, K2, K6, solver, d, x, eta, tx, th, tv,
+                     groups, mm, card):
+  """tier_timing's STOP rows at bf16x3 (see there)."""
+  xs = x[:TRAIN_BATCH].contiguous()
+  K1.fused_fista_plain(xs, d, LAM, TRAIN_ITERS, eta,
+                       early_stopping_epsilon=0.0, mxu="bf16x3")
+  eps = stop_eps(solver.last_avgs, "mid")
+  K2.fused_train_segment_plain(d, th, tv, tx[:1], LAM, TRAIN_ITERS,
+                               TRAIN_STEP, power_iters=2, mxu="bf16x3",
+                               early_stopping_epsilon=0.0)
+  seg_eps = stop_eps(solver.last_avgs, "mid")
+  flags = dict(mxu="bf16x3", early_stopping_epsilon=eps)
+  seg = dict(power_iters=2, mxu="bf16x3", early_stopping_epsilon=seg_eps)
+  kernels = {
+      "K1": (lambda: K1.fused_fista_solve(xs, d, LAM, TRAIN_ITERS, eta,
+                                          **flags),
+             lambda: K1.fused_fista_plain(xs, d, LAM, TRAIN_ITERS, eta,
+                                          **flags), 1, K1),
+      "K4": (lambda: K4.fused_group_fista_solve(xs, d, GROUP_SIZE, LAM,
+                                                TRAIN_ITERS, eta, **flags),
+             lambda: K4.fused_group_fista_plain(xs, d, GROUP_SIZE, LAM,
+                                                TRAIN_ITERS, eta, **flags),
+             1, K4),
+      "K2": (lambda: K2.fused_train_segment(d, th, tv, tx, LAM, TRAIN_ITERS,
+                                            TRAIN_STEP, **seg),
+             lambda: K2.fused_train_segment_plain(
+                 d, th, tv, tx[:1], LAM, TRAIN_ITERS, TRAIN_STEP, **seg),
+             TIER_TIME_STEPS, K2),
+      "K6": (lambda: K6.fused_group_train_segment(
+          d, th, tv, tx, LAM, TRAIN_ITERS, SUB_STEP,
+          group_assignments=groups, **seg),
+             lambda: K6.fused_group_train_segment_plain(
+                 d, th, tv, tx[:1], LAM, TRAIN_ITERS, SUB_STEP,
+                 group_assignments=groups, **seg), TIER_TIME_STEPS, K6)}
+  za = xs.to(torch.bfloat16)
+  gb = (-eta * (d @ d.T)).to(torch.bfloat16)
+  out = {}
+  for name, (kernel, plain, per, mod) in kernels.items():
+    kernel()  # warm
+    its = mod.last_iters.float().mean().item()
+    ms = time_ms(torch, kernel, TIER_REPS) / per
+    p_ms = time_ms(torch, plain, 2)
+    passes = max(1, round(TIER_PASSES["bf16x3"] * its))
+    lib = library_turns(torch, lambda: [mm(za, gb) for _ in range(passes)])
+    bnd = (tier_solve_bound(TRAIN_BATCH, 256, its, "bf16x3") if per == 1
+           else tier_step_bound(TRAIN_BATCH, 256, 256, its, "bf16x3"))
+    out[name] = (ms, p_ms, bnd, lib[0], its)
+    print("tier stop %s bf16x3 (eps %.4g, %.1f of %d iterations): %.4f "
+          "ms%s; plain %.4f; bound %.4f (%s); library median %.4f (%d turns "
+          "%.4f-%.4f) [%s]" % (name, eps if per == 1 else seg_eps, its,
+                               TRAIN_ITERS, ms,
+                               "" if per == 1 else " a step", p_ms, bnd[0],
+                               bnd[1], lib[0], TIER_LIB_TURNS, lib[1], lib[2],
+                               card))
+  return out
+
+
+def tier_phase(torch, dev, card, patches, train_patches, data):
+  """Phase 46: (a)-(e) above; (c), that the 'highest' routes are bitwise
+  their parent's, is phases 39, 42 and 43's comparisons, which run the
+  same routes; here a 'highest' solve must not take the tier kernel."""
+  from vtc_tpu_torch.analysis_transforms.fully_connected import ista_fista
+  from vtc_tpu_torch.analysis_transforms.fully_connected import (
+      subspace_ista_fista as sub)
+  from vtc_tpu_torch.encode import encode_dataset
+  from vtc_tpu_torch.ops import fused_fista as K1
+  from vtc_tpu_torch.ops import fused_group_fista as K4
+  from vtc_tpu_torch.ops import fused_group_train_step as K6
+  from vtc_tpu_torch.ops import fused_train_step as K2
+  from vtc_tpu_torch.ops import lipschitz, solver
+  from vtc_tpu_torch.training import compiled_epoch, sparse_coding
+  t0 = time.perf_counter()
+  one_err = tier_one_iteration(torch, K1, K4, K2, K6, sub, lipschitz,
+                               patches, train_patches, dev)
+  full_errs, planted = tier_full_cases(torch, K1, K4, K2, K6, lipschitz,
+                                       patches, train_patches, dev)
+  stop_cases, stops, near = tier_stop_cases(
+      torch, K1, K4, K2, K6, solver, lipschitz, patches, data["gpatches"],
+      train_patches, dev)
+  print("tier stop: %d cases, counts equal plain's, bitwise the kernel "
+        "without the stop at the count; near eps (reported apart): %s" % (
+            stop_cases, near or "none"))
+  x0 = torch.tensor(patches[:BATCH], device=dev)
+  K1.fused_fista_solve(x0, data["dictionary"], LAM, ITERS,
+                       lipschitz.fista_stepsize(data["dictionary"]))
+  check(K1.last_route == "wide", "a 'highest' flagship solve took the %s "
+        "route" % K1.last_route)
+  counts, rates = tier_main_path(torch, K1, K4, K2, K6, compiled_epoch,
+                                 encode_dataset, ista_fista, sub,
+                                 sparse_coding, data)
+  stop_counts, stop_its = tier_stop_main_path(
+      torch, K1, K4, K2, K6, compiled_epoch, ista_fista, sub, solver,
+      lipschitz, data)
+  for kind in ("fc", "subspace"):
+    t1 = time.perf_counter()
+    encode_dataset(data["patches"], data["dictionary"], LAM, ITERS,
+                   batch_size=BATCH, chunk_batches=4,
+                   group_assignments=(data["groups"] if kind == "subspace"
+                                      else None))
+    hi_rate = data["patches"].shape[0] / (time.perf_counter() - t1)
+    print("tier encode %s: %s patches/s; 'highest' %.1f [%s]" % (
+        kind, ", ".join("%s %.1f" % (t, rates[kind, t])
+                        for t in TIER_NAMES), hi_rate, card))
+  times, highest, stop_times = tier_timing(
+      torch, K1, K4, K2, K6, solver, lipschitz, patches, train_patches, dev,
+      card)
+  print("phase 46: %.1f s" % (time.perf_counter() - t0))
+  return dict(one_err=one_err, full_errs=full_errs, counts=counts,
+              times=times, highest=highest, mods=(K1, K4, K2, K6),
+              planted=planted, stops=stops, stop_counts=stop_counts,
+              stop_its=stop_its, stop_times=stop_times)
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -5236,6 +5985,15 @@ def main():
                      group_assignments=contiguous_groups(24, GROUP_SIZE),
                      early_stopping_epsilon=1e-3)),
              fused_group_train_step)
+
+  # phase 46's data: phases 3, 6, 9 and 11's, before later phases reuse
+  # their names
+  tier_data = dict(patches=patches, gpatches=gpatches,
+                   dictionary=dictionary, groups=groups,
+                   batches=batches, held_out=held_out, d0=d0, params=params,
+                   loss0=loss0, loss1=loss1, trained=trained,
+                   gbatches=gbatches, gheld=gheld, gparams=gparams,
+                   gloss0=gloss0, gloss1=gloss1, gtrained=gtrained)
 
   # phase 12: subspace timing (warm)
   xg = torch.tensor(gpatches[:BATCH], device=dev)
@@ -7023,6 +7781,9 @@ def main():
       stop_segments_phase(torch, dev, card, K15, K16, K19, mesh1,
                           compiled_epoch, lipschitz))
 
+  # phase 46: the precision tiers of K1, K4, K2 and K6 (tier_phase)
+  tiers = tier_phase(torch, dev, card, patches, train_patches, tier_data)
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -7151,6 +7912,41 @@ def main():
        ":616)", dpstop_launches[K19], csstop_err, *dpstop_times["K19"][:2],
        code_shard_step_bound(BIG_B, BIG_S, 256, dpstop_times["K19"][2])),
   ]
+  # the tier kernel (phase 46): launches on its main path, the error of the
+  # flagship solve or step at the tier, its time beside the plain version
+  # at the tier and its bound at the bf16 tensor-core rate
+  tier_rows = {"K1": ("fused_fista.cu", "vtc_tpu/ops/pallas_fista.py:44-56 "
+                      "(_make_iter_dot's tier in the kernel of :220)"),
+               "K4": ("fused_group_fista.cu",
+                      "vtc_tpu/ops/pallas_group_fista.py:54-66 (the tier "
+                      "of :238, _make_group_prox's rounding)"),
+               "K2": ("fused_train_step.cu",
+                      "vtc_tpu/ops/pallas_train_step.py:398-411 (the tier "
+                      "of :1589)"),
+               "K6": ("fused_group_train_step.cu",
+                      "vtc_tpu/ops/pallas_train_step.py:541-588, :691 (the "
+                      "tier of :1402)")}
+  tier_mods = dict(zip(("K1", "K4", "K2", "K6"), tiers["mods"]))
+  tier_library = {}
+  for key, (source, replaces) in tier_rows.items():
+    for tier in TIER_NAMES:
+      ms_t, p_t, bnd_t, lib_t = tiers["times"][key, tier]
+      name = "fista_tier_kernel (%s at %s, via %s)" % (key, tier, source)
+      kernels.append((name, "fista_tier.cuh", replaces,
+                      tiers["counts"][tier_mods[key], tier],
+                      tiers["full_errs"][key, tier], ms_t, p_t, bnd_t))
+      tier_library[name] = lib_t
+    # the STOP build at bf16x3: launches on the main path with the stop,
+    # the worst error of its stop cases, its time at a mid-run eps
+    ms_s, p_s, bnd_s, lib_s, _ = tiers["stop_times"][key]
+    name = "fista_tier_kernel (%s at bf16x3, early stop, via %s)" % (
+        key, source)
+    family = {"K1": "K1 fista", "K4": "K4 M4", "K2": "K2 step",
+              "K6": "K6 step"}[key]
+    kernels.append((name, "fista_tier.cuh", replaces,
+                    tiers["stop_counts"][tier_mods[key]],
+                    tiers["stops"][family, "bf16x3"][1], ms_s, p_s, bnd_s))
+    tier_library[name] = lib_s
   # K10's library time is its own loop with each product one cuDNN call
   # (phase 17), K11's the same loop on K11's timed inputs (the same
   # function), and with the stop that loop at the iterations the stopped
@@ -7167,7 +7963,7 @@ def main():
                 "fused_fista (early stop)":
                     solve_lib_ms / ITERS * k1_stop_it,
                 "fused_group_fista (early stop)":
-                    solve_lib_ms / ITERS * k4_stop_it}
+                    solve_lib_ms / ITERS * k4_stop_it, **tier_library}
   print(json.dumps({"kernels": [{
       "name": name,
       "route": "cuda",

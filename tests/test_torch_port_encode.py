@@ -113,9 +113,16 @@ def test_run_pallas_early_stop_refused_on_cuda(problem):
 
 def test_run_rejects_unported_options(problem):
   x, d = problem
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
+  # the tiers run (tests/test_torch_port_tiers.py holds them
+  # to vtc_tpu): bf16x3 lies near the fp32 codes, not on them; an unknown
+  # tier is refused
+  full = ista_fista.run(x[:8], d, LAM, 5, formulation="pallas")
+  tier = ista_fista.run(x[:8], d, LAM, 5, formulation="pallas",
+                        mxu_precision="bf16x3")
+  assert 0.0 < float((tier - full).abs().max()) < 1e-3
+  with pytest.raises(ValueError, match="tier"):
     ista_fista.run(x[:8], d, LAM, 5, formulation="pallas",
-                   mxu_precision="bf16x3")
+                   mxu_precision="bf16x4")
   with pytest.raises(ValueError):
     ista_fista.run(x[:8], d, LAM, 5, formulation="xla")
 
@@ -154,8 +161,14 @@ def test_encode_dataset_rejects_unported_options(problem):
       encode_dataset(images, kernels, LAM, 5, device="cpu", data_parallel=True,
                      **conv),
       encode_dataset(images, kernels, LAM, 5, device="cpu", **conv))
+  # a tier in conv mode still waits; in fc mode the CPU's default 'gram'
+  # formulation keeps full precision, as vtc_tpu's does
   with pytest.raises(NotImplementedError, match="ROADMAP"):
-    encode_dataset(x, d, LAM, 5, device="cpu", mxu_precision="bf16")
+    encode_dataset(images, kernels, LAM, 5, device="cpu",
+                   mxu_precision="bf16", **conv)
+  assert np.array_equal(
+      encode_dataset(x, d, LAM, 5, device="cpu", mxu_precision="bf16"),
+      encode_dataset(x, d, LAM, 5, device="cpu"))
   with pytest.raises(TypeError, match="data_parallel"):
     encode_dataset(x, d, LAM, 5, device="cpu", data_parallel=object())
   got = encode_dataset(x[:BATCH], d, LAM, 5, batch_size=BATCH, device="cpu",

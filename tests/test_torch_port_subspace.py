@@ -253,9 +253,15 @@ def test_encode_dataset_refuses_nonneg_groups(rng):
 
 def test_wrappers_refuse_what_they_do_not_run(rng):
   x, d = _problem(rng)
-  with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
+  # the tiers run (tests/test_torch_port_tiers.py); an unknown
+  # tier is refused
+  full = sub.run(x, d, CONTIGUOUS, 0.1, 5, formulation="pallas")
+  tier = sub.run(x, d, CONTIGUOUS, 0.1, 5, formulation="pallas",
+                 mxu_precision="bf16x3")
+  assert 0.0 < float((tier - full).abs().max()) < 1e-3
+  with pytest.raises(ValueError, match="tier"):
     sub.run(x, d, CONTIGUOUS, 0.1, 5, formulation="pallas",
-            mxu_precision="bf16x3")
+            mxu_precision="tf32x3")
   with pytest.raises(ValueError):
     sub.run(x, d, CONTIGUOUS, 0.1, 5, formulation="xla")
   xt, dt = torch.from_numpy(x).to("meta"), torch.from_numpy(d).to("meta")

@@ -197,9 +197,15 @@ def test_wrapper_refuses_what_it_does_not_run(rng):
   d, h, v, batches = (torch.from_numpy(a)
                       for a in _k6_problem(rng, RAGGED, k=1))
   args = (d, h, v, batches, 0.05, 5, 0.1)
-  with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
+  # the tiers run (tests/test_torch_port_tiers.py); an unknown
+  # tier is refused
+  full = fgts.fused_group_train_segment(*args, group_assignments=RAGGED)
+  tier = fgts.fused_group_train_segment(*args, group_assignments=RAGGED,
+                                        mxu="bf16x3")
+  assert 0.0 < float((tier[0] - full[0]).abs().max()) < 1e-3
+  with pytest.raises(ValueError, match="tier"):
     fgts.fused_group_train_segment(*args, group_assignments=RAGGED,
-                                   mxu="bf16x3")
+                                   mxu="tf32x3")
   with pytest.raises(ValueError, match="renormalize"):
     fgts.fused_group_train_segment(*args, group_assignments=RAGGED,
                                    alignment_penalty=0.4, renormalize=False)

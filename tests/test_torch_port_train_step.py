@@ -150,9 +150,15 @@ def test_early_stop_on_cpu_runs_the_plain_stop_test(rng):
 
 def test_wrapper_refuses_what_it_does_not_run(rng):
   d, h, v, batches = (torch.from_numpy(a) for a in _problem(rng, k=1))
-  with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
+  # the tiers run (tests/test_torch_port_tiers.py); an unknown
+  # tier is refused
+  full = fused_train_step.fused_train_segment(d, h, v, batches, 0.05, 5, 0.1)
+  tier = fused_train_step.fused_train_segment(d, h, v, batches, 0.05, 5, 0.1,
+                                              mxu="bf16x3")
+  assert 0.0 < float((tier[0] - full[0]).abs().max()) < 1e-3
+  with pytest.raises(ValueError, match="tier"):
     fused_train_step.fused_train_segment(d, h, v, batches, 0.05, 5, 0.1,
-                                         mxu="bf16x3")
+                                         mxu="tf32x3")
   with pytest.raises(ValueError):
     fused_train_step.fused_train_segment(d, h, v, batches, 0.05, 5, 0.1,
                                          variant="adam")

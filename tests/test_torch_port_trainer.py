@@ -333,8 +333,12 @@ _SUBSPACE = {"code_inference_algorithm": "subspace_fista",
     ("per_batch", {"profile_dir": "trace"}, "item 8"),
     ("per_batch", dict(_SUBSPACE, profile_dir="trace"), "item 8"),
     ("scanned", {"hbm_chunk_steps": 2}, "item 8"),
-    ("scanned", {"train_precision": "bf16x3"}, "item 3"),
-    ("scanned", dict(_SUBSPACE, train_precision="bf16x3"), "item 3"),
+    # the fc and subspace tiers run (tests/test_torch_port_tiers
+    # .py); those of the data-parallel and conv trainers still wait
+    ("scanned", {"data_parallel": True, "train_precision": "bf16x3"},
+     "item 3a.2.1"),
+    ("scanned", {"mode": "convolutional", "train_precision": "bf16x3"},
+     "item 3a.2.2"),
 ])
 def test_trainers_refuse_what_waits(rng, trainer, change, item):
   data, d0 = _data(rng, k=2)
@@ -348,6 +352,10 @@ def test_trainers_refuse_what_waits(rng, trainer, change, item):
     d0 = rng.randn(6, 1, 4, 4).astype(np.float32)
     d0 /= np.sqrt((d0 ** 2).sum(axis=(1, 2, 3), keepdims=True))
     change = dict(change, strides=(2, 2), padding=((2, 2), (2, 2)))
+    if "train_precision" in change:
+      with pytest.raises(NotImplementedError, match=item):
+        fn(data, data[:1], d0, _params(**change), device="cpu")
+      return
     got = fn(data, data[:1], d0, _params(**change), device="cpu")
     assert got.shape == d0.shape and bool(torch.isfinite(got).all())
     # ... and so does conv with data_parallel: True without a process group
@@ -359,7 +367,7 @@ def test_trainers_refuse_what_waits(rng, trainer, change, item):
              device="cpu")
     assert_close(got, want, "conv data_parallel=True on one rank")
     return
-  if change.get("data_parallel"):
+  if change.get("data_parallel") and "train_precision" not in change:
     # item 9's layer is done for fc and subspace: True without a process
     # group is a mesh of one rank (tests/test_torch_port_parallel_train.py
     # holds worlds of 2 and 4 to vtc_tpu), and lands on the single-device

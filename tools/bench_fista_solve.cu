@@ -30,7 +30,8 @@
 #include <cstring>
 #include <vector>
 
-#include "fista_core.cuh"
+// fista_core.cuh, with the tier kernel that its launch_solve reaches
+#include "fista_tier.cuh"
 
 namespace {
 

@@ -20,7 +20,7 @@ data-parallel stop test of the psum-per-op step):
 Padded images must be stride-exact ((H - kh) % sv == 0): vtc_tpu fails
 on other geometries in every formulation, and the port raises ValueError
 (ops/conv_shapes.require_stride_exact).  Only ``mxu_precision='highest'``
-exists: the reduced-precision tiers wait (ROADMAP.md §1 item 3a.2).
+exists: the reduced-precision tiers wait (ROADMAP.md §1 item 3a.2.2).
 """
 from typing import Optional
 
@@ -107,8 +107,8 @@ def run(images_padded, dictionary, kernel_stride, padding_dims,
     raise ValueError("formulation must be 'gram', 'direct' or 'pallas'")
   if mxu_precision != "highest":
     raise NotImplementedError(
-        "mxu_precision=%r: the reduced-precision tiers (tf32x3, the card's "
-        "bf16x3) wait, ROADMAP.md §1 item 3" % (mxu_precision,))
+        "mxu_precision=%r: the conv tiers wait, ROADMAP.md §1 item 3a.2.2"
+        % (mxu_precision,))
   dictionary = torch.as_tensor(dictionary, dtype=torch.float32)
   device = dictionary.device
   images_padded = torch.as_tensor(images_padded, dtype=torch.float32,

@@ -15,8 +15,12 @@ ista_fista.py:34-152), with the same arguments and formulations:
   (``early_stop_tile_fits``) and runs the XLA loop otherwise: the same
   rule, so the same codes.
 
-Only ``mxu_precision='highest'`` exists: the reduced-precision tiers
-wait (ROADMAP.md §1 item 3a.2).
+``mxu_precision`` ('highest', 'bf16x5', 'bf16x3', 'default' or its
+training spelling 'bf16') is the tier of the 'pallas' formulation's
+iteration product, as in vtc_tpu (``fused_fista_solve``'s ``mxu``); 'gram'
+and 'direct' keep full precision.  A tier with an early stop on a batch
+that vtc_tpu's K1 cannot hold in one tile (``early_stop_tile_fits``) runs
+at full precision, as vtc_tpu's fallback to its 'gram' path does.
 """
 from typing import Optional
 
@@ -25,7 +29,7 @@ import torch
 from vtc_tpu_torch.ops import fused_fista
 from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
 from vtc_tpu_torch.ops import thresholds
-from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.precision import matmul_precision, resolve_tier
 from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 
@@ -92,7 +96,8 @@ def run(images, dictionary, sparsity_weight, num_iters, variant="fista",
     lipschitz_method: 'eigvalsh' (exact) or 'power'.
     formulation: 'gram' | 'direct' | 'pallas' (the CUDA kernel K1, its
       stop test on the device; CPU tensors take its plain version).
-    mxu_precision: 'highest' only.
+    mxu_precision: the 'pallas' formulation's tier: 'highest' (fp32),
+      'bf16x5', 'bf16x3' or 'default' ('bf16', one bf16 pass).
 
   Returns:
     (b, s) float32 codes on the dictionary's device.
@@ -101,10 +106,7 @@ def run(images, dictionary, sparsity_weight, num_iters, variant="fista",
     raise ValueError("variant must be 'ista' or 'fista'")
   if formulation not in ("gram", "direct", "pallas"):
     raise ValueError("formulation must be 'gram', 'direct' or 'pallas'")
-  if mxu_precision != "highest":
-    raise NotImplementedError(
-        "mxu_precision=%r: the reduced-precision tiers (tf32x3, the "
-        "card's bf16x3) wait, ROADMAP.md §1 item 3a.2" % (mxu_precision,))
+  mxu_precision = resolve_tier(mxu_precision)
   dictionary = torch.as_tensor(dictionary, dtype=torch.float32)
   device = dictionary.device
   images = torch.as_tensor(images, dtype=torch.float32, device=device)
@@ -118,9 +120,14 @@ def run(images, dictionary, sparsity_weight, num_iters, variant="fista",
   flags = dict(initial_codes=initial_codes, variant=variant,
                nonneg=bool(nonnegative_only), hard=bool(hard_threshold))
   if formulation == "pallas":
+    if early_stopping_epsilon is not None and not (
+        fused_fista.early_stop_tile_fits(images.shape[0],
+                                         dictionary.shape[0])):
+      mxu_precision = "highest"
     return fused_fista.fused_fista_solve(
         images, dictionary, float(sparsity_weight), num_iters, stepsize,
-        early_stopping_epsilon=early_stopping_epsilon, **flags)
+        early_stopping_epsilon=early_stopping_epsilon, mxu=mxu_precision,
+        **flags)
   if formulation != "direct":
     return fused_fista.fused_fista_plain(
         images, dictionary, float(sparsity_weight), num_iters, stepsize,

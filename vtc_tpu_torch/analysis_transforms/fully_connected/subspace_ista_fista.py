@@ -23,8 +23,9 @@ norm; the duplicated memberships are summed back into (b, s) codes.
   takes it only when the batch fits one VMEM tile and runs the XLA loop
   otherwise: the same rule, so the same codes.
 
-Only ``mxu_precision='highest'`` exists: the tiers wait (ROADMAP.md §1
-item 3a.2).
+``mxu_precision`` is the 'pallas' formulation's tier, as in
+``ista_fista.run`` (K4's ``mxu``; a tier with a stop on a batch outside
+vtc_tpu's tile, ``group_early_stop_tile_fits``, runs at full precision).
 """
 import functools
 from typing import Optional
@@ -34,7 +35,7 @@ import torch
 
 from vtc_tpu_torch.ops import fused_group_fista
 from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
-from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.precision import matmul_precision, resolve_tier
 from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 
@@ -182,7 +183,7 @@ def run(images, dictionary, group_assignments, sparsity_weight, num_iters,
     stepsize: optional precomputed 1/L of the grouped Gram.
     lipschitz_method: 'eigvalsh' (exact) or 'power'.
     formulation: 'gram' | 'direct' | 'pallas' (the CUDA kernel K4).
-    mxu_precision: 'highest' only.
+    mxu_precision: the 'pallas' formulation's tier, as ista_fista.run's.
 
   Returns:
     (b, s) float32 codes, or the tuple above, on the dictionary's device.
@@ -191,10 +192,7 @@ def run(images, dictionary, group_assignments, sparsity_weight, num_iters,
     raise ValueError("variant must be 'ista' or 'fista'")
   if formulation not in ("gram", "direct", "pallas"):
     raise ValueError("formulation must be 'gram', 'direct' or 'pallas'")
-  if mxu_precision != "highest":
-    raise NotImplementedError(
-        "mxu_precision=%r: the reduced-precision tiers wait, ROADMAP.md §1 "
-        "item 3a.2" % (mxu_precision,))
+  mxu_precision = resolve_tier(mxu_precision)
   dictionary = torch.as_tensor(dictionary, dtype=torch.float32)
   device = dictionary.device
   images = torch.as_tensor(images, dtype=torch.float32, device=device)
@@ -217,13 +215,16 @@ def run(images, dictionary, group_assignments, sparsity_weight, num_iters,
         torch.as_tensor(initial_codes, dtype=torch.float32, device=device),
         gather_inds, valid_mask)
   if formulation == "pallas":
+    if early_stopping_epsilon is not None and not (
+        fused_group_fista.group_early_stop_tile_fits(b, g * m, g)):
+      mxu_precision = "highest"  # vtc_tpu's full-precision fallback
     flat = fused_group_fista.fused_group_fista_solve(
         images, grouped_dict, m, float(sparsity_weight), int(num_iters),
         stepsize, initial_grouped=(
             None if initial_codes is None
             else init_grouped.reshape(b, g * m).contiguous()),
         variant=variant, hard=bool(hard_threshold),
-        early_stopping_epsilon=early_stopping_epsilon)
+        early_stopping_epsilon=early_stopping_epsilon, mxu=mxu_precision)
     if not ret_summed_gduplicates:
       return flat, grouped_dict
     return unpack_codes_summed(flat, gather_inds, valid_mask, code_size,

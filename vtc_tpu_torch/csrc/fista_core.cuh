@@ -16,9 +16,11 @@
 // the group prox (K4, the TPU's K5): the s codes are s / M groups of M
 // contiguous slots, and each group is scaled by max(1 - t / |g|, 0)
 // (norm 0 -> 1, vtc_tpu thresholds.group_shrink) or, hard, zeroed when
-// |g| < t.  No reduced-precision tier: products are IEEE fp32 FMAs on the
-// CUDA cores.  The batch-global early stop is a compile-time flag (STOP)
-// of each kernel; its design is in "The early stop" below.
+// |g| < t.  Here the products are IEEE fp32 FMAs on the CUDA cores: the
+// tier 'highest'.  The other tiers (bf16x5, bf16x3, bf16) run
+// fista_tier.cuh's bf16 tensor-core kernel, which launch_solve reaches
+// with a tier argument.  The batch-global early stop is a compile-time
+// flag (STOP) of each kernel; its design is in "The early stop" below.
 //
 // Three kernels compute that contract, and launch_solve picks one by the
 // shape (solve_route below); all give the same bits.  Rows are
@@ -167,6 +169,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tier_codes.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -197,7 +201,9 @@ enum Route {
   kRouteAuto = 0,
   kRouteClassic = 1,
   kRouteCluster = 2,
-  kRouteWide = 3
+  kRouteWide = 3,
+  kRouteTier = 4  // taken, never given: fista_tier.cuh's kernel, which
+                  // every tier but 'highest' takes
 };
 
 enum Shrink { kSoft = 0, kSoftNonneg = 1, kHard = 2, kHardNonneg = 3 };
@@ -524,6 +530,53 @@ __device__ __forceinline__ bool stop_decided(const volatile int* word,
 // (k0 = 0 loads it); a launch after a stop exits at once, and the last
 // block of each launch takes the stop test (see "The early stop"); out is
 // written by stop_writeout_kernel after the last launch.
+// The end of a classic STOP launch, iteration k0 (every thread of the
+// block): the block's share of |codes - old| (its warps' sums in warp
+// order), then the last block to arrive (an atomic ticket) sums the shares
+// in block order and decides, or across ranks leaves the sum in
+// stop.local; it saves t_{k0+1} for the next launch.
+__device__ __forceinline__ void classic_stop_decide(float delta, float eta,
+                                                    float t_k,
+                                                    const SolveStop& stop,
+                                                    int k0) {
+  unsigned* const ticket = reinterpret_cast<unsigned*>(stop.words);
+  volatile int* const stop_flag = reinterpret_cast<int*>(stop.words + 1);
+  float* const t_saved = reinterpret_cast<float*>(stop.words + 2);
+  float* const shares = reinterpret_cast<float*>(stop.words + kStopCtlWords);
+  const int tid = threadIdx.x;
+  __shared__ float warp_shares[kThreads / 32];
+  __shared__ bool last;
+  delta = warp_sum(delta);
+  if ((tid & 31) == 0) warp_shares[tid >> 5] = delta;
+  __syncthreads();
+  if (tid == 0) {
+    float share = 0.0f;
+    for (int w = 0; w < kThreads / 32; ++w)
+      share = __fadd_rn(share, warp_shares[w]);
+    shares[blockIdx.x] = share;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last && tid < 32) {
+    __threadfence();
+    float sum = 0.0f;
+    for (int i = tid; i < static_cast<int>(gridDim.x); i += 32)
+      sum = __fadd_rn(sum, reinterpret_cast<volatile float*>(shares)[i]);
+    sum = warp_sum(sum);
+    if (tid == 0) {
+      if (stop.local != nullptr) {
+        *stop.local = sum;  // summed over the ranks, then decided
+      } else {
+        *stop_flag = k0 > 0 && stop_test(sum, eta, stop) ? 1 : 0;
+        *stop.iters = k0 + 1;
+      }
+      *t_saved = t_k;
+      *ticket = 0u;
+    }
+  }
+}
+
 template <bool FISTA, int MODE, bool GROUP, bool STOP = false>
 __global__ void __launch_bounds__(kThreads)
     fista_kernel(const float* __restrict__ gn, const float* __restrict__ corr,
@@ -533,10 +586,8 @@ __global__ void __launch_bounds__(kThreads)
                  float* state_global, float* __restrict__ out,
                  SolveStop stop = {}, int k0 = 0) {
   extern __shared__ __align__(16) float smem[];
-  unsigned* const ticket = reinterpret_cast<unsigned*>(stop.words);
   volatile int* const stop_flag = reinterpret_cast<int*>(stop.words + 1);
-  float* const t_saved = reinterpret_cast<float*>(stop.words + 2);
-  float* const shares = reinterpret_cast<float*>(stop.words + kStopCtlWords);
+  const float* const t_saved = reinterpret_cast<float*>(stop.words + 2);
   if (STOP && k0 > 0 && *stop_flag != 0) return;
   const int tid = threadIdx.x;
   const int tx = tid & 63;  // owns columns tx*4 .. tx*4+3 of a column block
@@ -664,39 +715,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if constexpr (STOP) {
-    // the block's share (its warps' sums in warp order), then the last
-    // block to arrive sums the shares in block order and decides
-    __shared__ float warp_shares[kThreads / 32];
-    __shared__ bool last;
-    delta = warp_sum(delta);
-    if ((tid & 31) == 0) warp_shares[tid >> 5] = delta;
-    __syncthreads();
-    if (tid == 0) {
-      float share = 0.0f;
-      for (int w = 0; w < kThreads / 32; ++w)
-        share = __fadd_rn(share, warp_shares[w]);
-      shares[blockIdx.x] = share;
-      __threadfence();
-      last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-    }
-    __syncthreads();
-    if (last && tid < 32) {
-      __threadfence();
-      float sum = 0.0f;
-      for (int i = tid; i < static_cast<int>(gridDim.x); i += 32)
-        sum = __fadd_rn(sum, reinterpret_cast<volatile float*>(shares)[i]);
-      sum = warp_sum(sum);
-      if (tid == 0) {
-        if (stop.local != nullptr) {
-          *stop.local = sum;  // summed over the ranks, then decided
-        } else {
-          *stop_flag = k0 > 0 && stop_test(sum, eta, stop) ? 1 : 0;
-          *stop.iters = k0 + 1;
-        }
-        *t_saved = t_k;
-        *ticket = 0u;
-      }
-    }
+    classic_stop_decide(delta, eta, t_k, stop, k0);
   } else {
     for (int idx = tid; idx < plane; idx += kThreads) {
       const int r = idx / sk;
@@ -1715,44 +1734,29 @@ inline int device_stop_route(int b, int sk, int group_size,
 // stop_decide_kernel decides, so every rank makes the same num_iters hook
 // calls and stops at the same count; a failed hook returns
 // cudaErrorUnknown (the hook keeps its own error).
-template <bool FISTA, int MODE, bool GROUP>
-cudaError_t launch_classic_stop(const float* gn, const float* corr,
-                                const float* init, const float* eta,
-                                float lam, int num_iters, int b, int s,
-                                int sk, int sc, int group_size,
-                                float* state_global, float* out,
-                                const SolveStop& stop, cudaStream_t stream) {
+//
+// The loop is drive_classic_stop's.  It takes a launcher:
+// launch(with_stop, iterations, stop, k0) launches the build without
+// (false) or with (true) the stop on ceil(b / kRows) blocks, their shared
+// memory attribute already set, so that fista_tier.cuh's kernel, whose
+// state layout is fista_kernel's, runs on the same route.
+template <class Launch>
+cudaError_t drive_classic_stop(const Launch& launch, const float* eta,
+                               int num_iters, int b, int s, int sk,
+                               float* state_global, float* out,
+                               const SolveStop& stop, cudaStream_t stream) {
   if (state_global == nullptr) return cudaErrorInvalidValue;
-  const unsigned grid = static_cast<unsigned>((b + kRows - 1) / kRows);
-  const size_t smem = 2 * kSliceFloats * sizeof(float);
   cudaError_t err;
   if (num_iters == 0) {
-    auto kernel = fista_kernel<FISTA, MODE, GROUP>;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(gn, corr, init, eta, lam, 0, b,
-                                             s, sk, sc, group_size,
-                                             state_global, out, SolveStop{},
-                                             0);
-    err = cudaGetLastError();
+    err = launch(false, 0, SolveStop{}, 0);
     if (err != cudaSuccess) return err;
     return cudaMemsetAsync(stop.iters, 0, sizeof(int), stream);
   }
-  auto kernel = fista_kernel<FISTA, MODE, GROUP, true>;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   // the ticket starts at 0 whatever the words held before
   err = cudaMemsetAsync(stop.words, 0, sizeof(unsigned long long), stream);
   if (err != cudaSuccess) return err;
   for (int k = 0; k < num_iters; ++k) {
-    kernel<<<grid, kThreads, smem, stream>>>(gn, corr, init, eta, lam, 1, b,
-                                             s, sk, sc, group_size,
-                                             state_global, out, stop, k);
-    err = cudaGetLastError();
+    err = launch(true, 1, stop, k);
     if (err != cudaSuccess) return err;
     if (stop.hook != nullptr) {
       if (stop.hook(k) != 0) return cudaErrorUnknown;
@@ -1769,6 +1773,55 @@ cudaError_t launch_classic_stop(const float* gn, const float* corr,
   return cudaGetLastError();
 }
 
+// Set the dynamic shared memory attribute of a kernel pair (the builds
+// without and with the stop).
+template <class Kernel>
+cudaError_t set_pair_smem(Kernel plain, Kernel stopping, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      plain, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(stopping,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <bool FISTA, int MODE, bool GROUP>
+cudaError_t launch_classic_stop(const float* gn, const float* corr,
+                                const float* init, const float* eta,
+                                float lam, int num_iters, int b, int s,
+                                int sk, int sc, int group_size,
+                                float* state_global, float* out,
+                                const SolveStop& stop, cudaStream_t stream) {
+  auto plain = fista_kernel<FISTA, MODE, GROUP>;
+  auto stopping = fista_kernel<FISTA, MODE, GROUP, true>;
+  const size_t smem = 2 * kSliceFloats * sizeof(float);
+  cudaError_t err = set_pair_smem(plain, stopping, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>((b + kRows - 1) / kRows);
+  return drive_classic_stop(
+      [&](bool with_stop, int iters, const SolveStop& st, int k0) {
+        (with_stop ? stopping : plain)<<<grid, kThreads, smem, stream>>>(
+            gn, corr, init, eta, lam, iters, b, s, sk, sc, group_size,
+            state_global, out, st, k0);
+        return cudaGetLastError();
+      },
+      eta, num_iters, b, s, sk, state_global, out, stop, stream);
+}
+
+// The solve at a tier other than 'highest' (fista_tier.cuh, which every
+// file that instantiates launch_solve includes): fold_tier_kernel, then
+// fista_tier_kernel in one launch, or with stop on the classic stop route.
+// fista and mode are run-time arguments there: one build a tier serves
+// every variant and shrink.
+template <bool GROUP>
+cudaError_t launch_tier(int tier, int fista, int mode, const float* gram,
+                        const float* corr, const float* init,
+                        const float* eta, float lam, int num_iters, int b,
+                        int s, int sk, int sc, int group_size, float* gn,
+                        float* state_global, float* out, cudaStream_t stream,
+                        const SolveStop* stop);
+
 // Launch the solve on the route given (kRouteAuto: solve_route's, or with
 // stop stop_route's), and store the route taken in *taken unless it is
 // null.  The classic route folds G into gn first (the other two fold
@@ -1776,7 +1829,10 @@ cudaError_t launch_classic_stop(const float* gn, const float* corr,
 // shared memory (the classic route with stop needs it).  stop null is the
 // flag-off build.  A stop across ranks (stop->local) takes the classic
 // route: a CUDA kernel cannot wait on another process, so no resident
-// route takes it.  Returns the first CUDA error.
+// route takes it.  A tier other than kTierHighest takes fista_tier.cuh's
+// kernel whatever the shape (route kRouteAuto only, taken kRouteTier; gn
+// then holds the bf16 planes of fista_tier.cuh's tier_gn_floats, and no
+// stop across ranks).  Returns the first CUDA error.
 template <bool FISTA, int MODE, bool GROUP>
 cudaError_t launch_solve(const float* gram, const float* corr,
                          const float* init, const float* eta, float lam,
@@ -1784,7 +1840,16 @@ cudaError_t launch_solve(const float* gram, const float* corr,
                          int group_size, float* gn, float* state_global,
                          float* out, int route, int* taken,
                          cudaStream_t stream,
-                         const SolveStop* stop = nullptr) {
+                         const SolveStop* stop = nullptr,
+                         int tier = kTierHighest) {
+  if (tier != kTierHighest) {
+    if (route != kRouteAuto || (stop != nullptr && stop->local != nullptr))
+      return cudaErrorInvalidValue;
+    if (taken != nullptr) *taken = kRouteTier;
+    return launch_tier<GROUP>(tier, FISTA, MODE, gram, corr, init, eta, lam,
+                              num_iters, b, s, sk, sc, group_size, gn,
+                              state_global, out, stream, stop);
+  }
   if (stop != nullptr && stop->local != nullptr) {
     if (stop->hook == nullptr ||
         (route != kRouteAuto && route != kRouteClassic))

@@ -1,0 +1,589 @@
+// The ISTA/FISTA solve at the precision tiers of K1, K4 and the solves of
+// K2 and K6, for Hopper (sm_90a): fista_tier_kernel, a bf16 tensor-core
+// kernel, with its fold kernel and launcher.  Included by fused_fista.cu
+// and fused_group_fista.cu after fista_core.cuh, whose launch_solve takes
+// a tier other than kTierHighest here.
+//
+// Replaces the tiers of the TPU kernels K1 (vtc_tpu/ops/pallas_fista.py,
+// _make_kernel :44-56), K4 (pallas_group_fista.py :54-66), K2 and K6
+// (pallas_train_step.py :398-411, :541-588): their iteration product is
+// built by _make_iter_dot(mxu) (pallas_train_step.py:129-169) and their
+// group prox by _make_group_prox(mxu, hard, roll_m) (:248-320).
+//
+// What a tier computes.  vtc_tpu splits each float32 operand into bf16
+// terms (round to nearest even) and sums single-pass bf16 products in
+// float32:
+//   bf16    one pass, bf16(z) bf16(G);
+//   bf16x3  hi and lo (_split_hi_lo: hi = bf16(x), lo = bf16(x - hi)),
+//           z_hi G_hi + z_lo G_hi + z_hi G_lo;
+//   bf16x5  the exact three-term split (_split3: hi, mid = bf16(x - hi),
+//           lo = bf16(x - hi - mid)), five of the nine cross products:
+//           hi hi + mid hi + hi mid + lo hi + hi lo.
+// A product of two bf16 values is exact in float32, so the card's bf16
+// tensor cores with float32 accumulation (mma.sync m16n8k16 .bf16 .f32)
+// compute the same passes; only the order of the float32 sums differs.
+// TF32 keeps 10 explicit mantissa bits where bf16 keeps 7, so a TF32
+// split would not give vtc_tpu's terms.
+//
+// Contract: fista_core.cuh's, codes = prox(z + z @ (-eta G) + eta c) with
+// its momentum and warm start, the product at the tier.  -eta G is formed
+// in float32 and then split, once per solve, as prep_gram(-eta * gram)
+// (pallas_fista.py:94), by fold_tier_kernel, into bf16 planes in global
+// memory (one per term of G; 128 KB each at s 256, so they stay in L2).
+// The group prox at M a power of two (vtc_tpu's rotate-and-add prox,
+// roll_prox_window :218-245) and at bf16x5 (the exact split of
+// _make_prox_dots :172-199) sums its windows in float32: that is
+// fista_core.cuh's group_prox.  At other M, bf16x3 and bf16 take
+// _make_prox_dots' rounding: the window sums of the hi and lo terms of
+// x^2 (bf16: of bf16(x^2)) and the scale as hi + lo (bf16: bf16(scale)).
+//
+// Layout: fista_kernel's.  One block of kRows = 16 batch rows (the m16 of
+// one mma tile) and kThreads = 256 threads, ceil(b / 16) blocks, the
+// whole solve in one launch (rows are independent; t_k is a scalar every
+// block recomputes).  The block's state (z twice for ping-pong, old, eta
+// c; (4, 16, sk) floats) lives in shared memory when it fits beside the z
+// terms, else in global scratch; with the stop it is global and the
+// classic stop route (drive_classic_stop) launches the kernel once per
+// iteration, so the state layout and the stop words are fista_kernel's.
+// K1's variant (FISTA or ISTA) and shrink are run-time arguments: they
+// act only in the epilogue, one branch a column block after the products,
+// so 6 builds serve K1's 8 variants at 3 tiers with and without the
+// stop; K4 builds its four in (launch_tier
+// says why), 30 tier kernels in all.  TIER sizes the fragment and
+// accumulator arrays and STOP changes the kernel's entry and exit, so
+// they stay templates.
+//  * Each iteration the block splits its 16 rows of z into their bf16
+//    terms in shared memory, stored in the mma A fragments' order: a lane
+//    reads its four registers of a 16 x 16 tile as one 16-byte load.
+//  * The planes are stored in the B fragments' order: for each 8-column
+//    tile and 16-deep step, 32 lanes x two registers, so a warp reads one
+//    tile of a term as 256 contiguous bytes from L2.
+//  * Warp w of a 256-column block owns its columns [32 w, 32 w + 32):
+//    four n8 tiles.  Over the depth it issues the tier's passes per tile,
+//    the hi x hi pass into one float32 accumulator and the smaller passes
+//    into a second, added at the end (the small passes would otherwise be
+//    rounded against the large sum at every step).
+//  * The epilogue is fista_kernel's: (z + acc) + eta c, the shrink or
+//    (GROUP) the pre-prox value, the momentum; the group pass after the
+//    last column block; then the next z is split.
+//  * Padded columns: the planes are exact zeros past s, so padded codes
+//    stay +0.0f; padded rows have z = c = 0 and stay 0.
+//
+// What bounds it on this card.  At b 2048, s 256, the passes are
+// 2 b s^2 FLOPs each, 26.8 GFLOP an iteration-hundred at bf16, against
+// 989 TFLOP/s of dense bf16 tensor-core rate: 27 µs for 100 iterations
+// at bf16, 81 at bf16x3, 136 at bf16x5.  mma.sync reaches a fraction of
+// that rate (wgmma is the only way to all of it), and each block streams
+// every plane from L2 every iteration (256 KB at bf16x3 and s 256, 32 MB
+// an iteration over 128 blocks), so L2's bandwidth, not the tensor cores,
+// bounds this simple kernel.  Resident planes over a cluster, TMA and
+// wgmma are later work (ROADMAP.md).
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include "fista_core.cuh"
+
+namespace {
+
+constexpr int kTierWarps = kThreads / 32;
+constexpr int kTierTiles = kColBlock / 8 / kTierWarps;  // n8 tiles a warp
+static_assert(kRows == 16, "a block's rows are one m16 tile");
+static_assert(kTierTiles == 4, "a warp owns 32 columns of a column block");
+static_assert(kChunk % 16 == 0, "sk is whole k16 steps");
+
+// bf16 terms of one operand at a tier: 1 at bf16, 2 at bf16x3, 3 at bf16x5.
+__host__ __device__ constexpr int tier_terms(int tier) {
+  return tier == kTierBf16 ? 1 : tier == kTierBf16x3 ? 2 : 3;
+}
+
+// Floats of gn scratch the tier's planes take for a padded (sk, sc) -eta G:
+// tier_terms bf16 planes of sk x sc, at least the classic route's sk x sc.
+__host__ __device__ inline int64_t tier_gn_floats(int tier, int sk, int sc) {
+  const int64_t plane = static_cast<int64_t>(sk) * sc;
+  const int64_t need = (tier_terms(tier) * plane + 1) / 2;
+  return need > plane ? need : plane;
+}
+
+// Bytes of shared memory the block's z terms take, and the whole dynamic
+// shared memory with the state in shared memory or not.
+__host__ __device__ inline int tier_terms_bytes(int tier, int sk) {
+  return tier_terms(tier) * kRows * sk * static_cast<int>(sizeof(uint16_t));
+}
+__host__ __device__ inline int tier_smem(int tier, int sk, bool state_smem) {
+  return tier_terms_bytes(tier, sk) +
+         (state_smem ? 4 * kRows * sk * static_cast<int>(sizeof(float)) : 0);
+}
+
+// Whether the block's state fits its shared memory beside the z terms.
+__host__ __device__ inline bool tier_state_in_smem(int tier, int sk) {
+  return tier_smem(tier, sk, true) <= kSmemPerBlock;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ uint16_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// The terms of v: hi; then lo = bf16(v - hi) (bf16x3) or mid and lo of the
+// exact split (bf16x5), each residual in float32.
+template <int TERMS>
+__device__ __forceinline__ void split_bits(float v, uint16_t (&t)[TERMS]) {
+  t[0] = bf16_bits(v);
+  if constexpr (TERMS >= 2) {
+    const float r = __fsub_rn(v, bf16_round(v));
+    t[1] = bf16_bits(r);
+    if constexpr (TERMS == 3) t[2] = bf16_bits(__fsub_rn(r, bf16_round(r)));
+  }
+}
+
+// -eta G (float32, padded with zeros to (sk, sc)), split into the tier's
+// terms, each a plane of sk * sc bf16 values in the B fragments' order:
+// value idx of a plane is register half h (bit 0), register e (bit 1),
+// lane l (bits 2-6), then the 16-deep step q and the 8-column tile j,
+// j-major; it holds (k, n) = (16 q + 2 (l & 3) + 8 e + h, 8 j + (l >> 2)).
+template <int TERMS>
+__global__ void fold_tier_kernel(const float* __restrict__ gram,
+                                 const float* __restrict__ eta_ptr,
+                                 uint16_t* __restrict__ planes, int s, int sk,
+                                 int sc) {
+  const float neg_eta = -(*eta_ptr);
+  const int nks = sk / 16;
+  const int64_t plane = static_cast<int64_t>(sk) * sc;
+  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                     threadIdx.x;
+       idx < plane; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int h = static_cast<int>(idx & 1);
+    const int e = static_cast<int>((idx >> 1) & 1);
+    const int l = static_cast<int>((idx >> 2) & 31);
+    const int64_t tile = idx >> 7;
+    const int q = static_cast<int>(tile % nks);
+    const int j = static_cast<int>(tile / nks);
+    const int k = 16 * q + 2 * (l & 3) + 8 * e + h;
+    const int n = 8 * j + (l >> 2);
+    const float v = (k < s && n < s)
+                        ? neg_eta * gram[static_cast<int64_t>(k) * s + n]
+                        : 0.0f;
+    uint16_t t[TERMS];
+    split_bits<TERMS>(v, t);
+#pragma unroll
+    for (int p = 0; p < TERMS; ++p) planes[p * plane + idx] = t[p];
+  }
+}
+
+// Split the block's 16 rows of z (row stride sk) into the tier's terms in
+// the A fragments' order: word w of a term (two bf16 values) is register r
+// (bits 0-1) of lane l (bits 2-6) of the 16-deep step q; it holds rows
+// (l >> 2) + 8 (r & 1) and depths 16 q + 2 (l & 3) + 8 (r >> 1) + {0, 1}.
+template <int TERMS>
+__device__ __forceinline__ void split_rows(const float* z, int sk,
+                                           uint32_t* terms) {
+  const int words = kRows * sk / 2;  // of one term
+  for (int w = threadIdx.x; w < words; w += kThreads) {
+    const int r = w & 3;
+    const int l = (w >> 2) & 31;
+    const int q = w >> 7;
+    const int row = (l >> 2) + 8 * (r & 1);
+    const int k = 16 * q + 2 * (l & 3) + 8 * (r >> 1);
+    const float2 v = *reinterpret_cast<const float2*>(z + row * sk + k);
+    uint16_t lo[TERMS], hi[TERMS];
+    split_bits<TERMS>(v.x, lo);
+    split_bits<TERMS>(v.y, hi);
+#pragma unroll
+    for (int p = 0; p < TERMS; ++p)
+      terms[p * words + w] =
+          static_cast<uint32_t>(lo[p]) | (static_cast<uint32_t>(hi[p]) << 16);
+  }
+}
+
+// c += a b over one m16n8k16 tile: bf16 operands, float32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a,
+                                         const uint2& b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y));
+}
+
+// The variant as a run-time argument (fista_core.cuh's templates do the
+// arithmetic).
+__device__ __forceinline__ float momentum_at(bool fista, float code,
+                                             float old, float beta) {
+  return fista ? momentum<true>(code, old, beta)
+               : momentum<false>(code, old, beta);
+}
+
+__device__ __forceinline__ float next_t_at(bool fista, float t_k,
+                                           float* beta) {
+  return fista ? next_t<true>(t_k, beta) : next_t<false>(t_k, beta);
+}
+
+// The group prox over the block's rows at bf16x3 or bf16 for a window M
+// that is not a power of two: _make_prox_dots' rounding of the window sums
+// (the bf16 terms of each x^2, summed term by term) and of the scale each
+// slot receives; otherwise group_prox's.  Adds |code - old| to *delta, in
+// order, when delta is set.
+template <bool HARD, int TIER>
+__device__ __forceinline__ void tier_group_prox(bool fista, float* zn,
+                                                float* old, int s, int sk,
+                                                int group_size, float t,
+                                                float beta, float* delta) {
+  const int groups = s / group_size;
+  for (int p = threadIdx.x; p < kRows * groups; p += kThreads) {
+    const int r = p / groups;
+    const int at = r * sk + (p - r * groups) * group_size;
+    float sq_hi = 0.0f, sq_lo = 0.0f;
+    for (int m = 0; m < group_size; ++m) {
+      const float sq = __fmul_rn(zn[at + m], zn[at + m]);
+      const float hi = bf16_round(sq);
+      sq_hi = __fadd_rn(sq_hi, hi);
+      if (TIER == kTierBf16x3)
+        sq_lo = __fadd_rn(sq_lo, bf16_round(__fsub_rn(sq, hi)));
+    }
+    const float scale = group_scale<HARD>(__fadd_rn(sq_hi, sq_lo), t);
+    const float hi = bf16_round(scale);
+    const float slot_scale =
+        TIER == kTierBf16x3 ? __fadd_rn(hi, bf16_round(__fsub_rn(scale, hi)))
+                            : hi;
+    for (int m = 0; m < group_size; ++m) {
+      const float code = __fmul_rn(zn[at + m], slot_scale);
+      if (delta != nullptr)
+        *delta = __fadd_rn(*delta, fabsf(__fsub_rn(code, old[at + m])));
+      zn[at + m] = momentum_at(fista, code, old[at + m], beta);
+      old[at + m] = code;
+    }
+  }
+}
+
+// The group pass of the tier kernel: the rounded window sums of
+// tier_group_prox, or group_prox's float32 sums (M a power of two, or
+// bf16x5), for the variant and the hardness given at run time.
+template <int TIER>
+__device__ __forceinline__ void tier_group_pass(bool fista, bool hard,
+                                                float* zn, float* old, int s,
+                                                int sk, int group_size,
+                                                float t, float beta,
+                                                float* delta) {
+  if (TIER == kTierBf16x5 || (group_size & (group_size - 1)) == 0) {
+    if (fista)
+      hard ? group_prox<true, true>(zn, old, s, sk, group_size, t, beta, delta)
+           : group_prox<true, false>(zn, old, s, sk, group_size, t, beta,
+                                     delta);
+    else
+      hard ? group_prox<false, true>(zn, old, s, sk, group_size, t, beta,
+                                     delta)
+           : group_prox<false, false>(zn, old, s, sk, group_size, t, beta,
+                                      delta);
+  } else if (hard) {
+    tier_group_prox<true, TIER>(fista, zn, old, s, sk, group_size, t, beta,
+                                delta);
+  } else {
+    tier_group_prox<false, TIER>(fista, zn, old, s, sk, group_size, t, beta,
+                                 delta);
+  }
+}
+
+// The epilogue of one column block, the build of the variant and shrink
+// given: x = (z + acc) + eta c over the thread's fragment values, then
+// (GROUP) the pre-prox value, or the shrink, the momentum and (STOP) the
+// sum of |code - old| in delta.
+template <bool FISTA, int MODE, bool GROUP, bool STOP, int TERMS>
+__device__ __forceinline__ void tier_epilogue(
+    const float (&acc)[kTierTiles][4], const float (&acc_lo)[kTierTiles][4],
+    int col0, int s, int sk, const float* z, float* zn, float* old,
+    const float* ec, float lam_eta, float beta, float& delta) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < kTierTiles; ++n) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = (lane >> 2) + 8 * (c >> 1);
+      const int j = col0 + n * 8 + 2 * (lane & 3) + (c & 1);
+      if (j < s) {
+        const int idx = r * sk + j;
+        const float prod =
+            TERMS == 1 ? acc[n][c] : __fadd_rn(acc[n][c], acc_lo[n][c]);
+        const float x = __fadd_rn(__fadd_rn(z[idx], prod), ec[idx]);
+        if (GROUP) {
+          zn[idx] = x;  // pre-prox; the group pass finishes it
+        } else {
+          const float code = shrink<MODE>(x, lam_eta);
+          if (STOP) delta = __fadd_rn(delta, fabsf(__fsub_rn(code, old[idx])));
+          zn[idx] = momentum<FISTA>(code, old[idx], beta);
+          old[idx] = code;
+        }
+      }
+    }
+  }
+}
+
+// tier_epilogue for the variant and shrink given at run time: one branch
+// a column block, after the products, so the product loop is built once.
+template <bool GROUP, bool STOP, int TERMS>
+__device__ __forceinline__ void tier_epilogue_at(
+    int fista, int mode, const float (&acc)[kTierTiles][4],
+    const float (&acc_lo)[kTierTiles][4], int col0, int s, int sk,
+    const float* z, float* zn, float* old, const float* ec, float lam_eta,
+    float beta, float& delta) {
+#define VTC_EPILOGUE(F, M)                                                  \
+  tier_epilogue<F, M, GROUP, STOP, TERMS>(acc, acc_lo, col0, s, sk, z, zn, \
+                                          old, ec, lam_eta, beta, delta)
+  if (GROUP) {
+    VTC_EPILOGUE(false, kSoft);  // the pre-prox value: no variant, no shrink
+  } else if (fista) {
+    switch (mode) {
+      case kSoft: VTC_EPILOGUE(true, kSoft); break;
+      case kSoftNonneg: VTC_EPILOGUE(true, kSoftNonneg); break;
+      case kHard: VTC_EPILOGUE(true, kHard); break;
+      default: VTC_EPILOGUE(true, kHardNonneg); break;
+    }
+  } else {
+    switch (mode) {
+      case kSoft: VTC_EPILOGUE(false, kSoft); break;
+      case kSoftNonneg: VTC_EPILOGUE(false, kSoftNonneg); break;
+      case kHard: VTC_EPILOGUE(false, kHard); break;
+      default: VTC_EPILOGUE(false, kHardNonneg); break;
+    }
+  }
+#undef VTC_EPILOGUE
+}
+
+// GROUP: the group prox of group_size slots (mode kSoft or kHard);
+// otherwise shrink<mode>.  TIER: kTierBf16, kTierBf16x3 or kTierBf16x5.
+// gn: fold_tier_kernel's planes.  STOP: one iteration, k0, of a solve whose
+// state lives in state_global from launch to launch, as fista_kernel's.
+// VARIANT -1 takes the variant (fista: FISTA or ISTA) and the shrink
+// (mode) from the arguments: they act only in the epilogue and the group
+// pass, so one build a (TIER, STOP) serves K1's eight.  VARIANT 4 fista +
+// mode builds them in (K4, see launch_tier).
+template <bool GROUP, int TIER, bool STOP, int VARIANT>
+__global__ void __launch_bounds__(kThreads)
+    fista_tier_kernel(const float* __restrict__ gn,
+                      const float* __restrict__ corr,
+                      const float* __restrict__ init,
+                      const float* __restrict__ eta_ptr, float lam,
+                      int num_iters, int b, int s, int sk, int sc,
+                      int group_size, float* state_global,
+                      float* __restrict__ out, SolveStop stop, int k0,
+                      int fista_arg, int mode_arg) {
+  constexpr int kTerms = tier_terms(TIER);
+  const int fista = VARIANT < 0 ? fista_arg : VARIANT >> 2;
+  const int mode = VARIANT < 0 ? mode_arg : VARIANT & 3;
+  extern __shared__ __align__(16) float smem[];
+  volatile int* const stop_flag = reinterpret_cast<int*>(stop.words + 1);
+  const float* const t_saved = reinterpret_cast<float*>(stop.words + 2);
+  if (STOP && k0 > 0 && *stop_flag != 0) return;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
+  const int plane = kRows * sk;
+  const int nks = sk / 16;
+  const int term_words = plane / 2;
+
+  uint32_t* const zt = reinterpret_cast<uint32_t*>(smem);
+  float* state =
+      state_global != nullptr
+          ? state_global + static_cast<int64_t>(blockIdx.x) * 4 * plane
+          : smem + tier_terms_bytes(TIER, sk) / static_cast<int>(sizeof(float));
+  float* const zbuf0 = state;
+  float* const zbuf1 = state + plane;
+  float* old = state + 2 * plane;
+  float* ec = state + 3 * plane;
+  const uint2* const planes = reinterpret_cast<const uint2*>(gn);
+  const int64_t plane_pairs = static_cast<int64_t>(sk) * sc / 4;
+
+  const float eta = *eta_ptr;
+  const float lam_eta = lam * eta;
+
+  for (int idx = tid; idx < plane && (!STOP || k0 == 0); idx += kThreads) {
+    const int r = idx / sk;
+    const int j = idx - r * sk;
+    const int64_t row = row0 + r;
+    const bool live = row < b && j < s;
+    const int64_t at = row * s + j;
+    const float z0 = (live && init != nullptr) ? init[at] : 0.0f;
+    zbuf0[idx] = z0;
+    zbuf1[idx] = 0.0f;
+    old[idx] = z0;
+    ec[idx] = live ? eta * corr[at] : 0.0f;
+  }
+  int cur = STOP ? k0 & 1 : 0;
+  __syncthreads();
+  if (num_iters > 0) split_rows<kTerms>(cur ? zbuf1 : zbuf0, sk, zt);
+
+  const int ncb = sc / kColBlock;
+  float t_k = STOP && k0 > 0 ? *t_saved : 1.0f;
+  float delta = 0.0f;  // STOP: this thread's sum of |code - old|
+
+  for (int it = 0; it < num_iters; ++it) {
+    float beta;
+    const float t_next = next_t_at(fista, t_k, &beta);
+    const float* z = cur ? zbuf1 : zbuf0;
+    float* zn = cur ? zbuf0 : zbuf1;
+    __syncthreads();  // the z terms are complete
+
+    for (int cb = 0; cb < ncb; ++cb) {
+      float acc[kTierTiles][4], acc_lo[kTierTiles][4];
+#pragma unroll
+      for (int n = 0; n < kTierTiles; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[n][c] = acc_lo[n][c] = 0.0f;
+      const int tile0 = (cb * kColBlock + warp * 32) / 8;
+
+#pragma unroll 2
+      for (int q = 0; q < nks; ++q) {
+        uint4 a[kTerms];
+#pragma unroll
+        for (int p = 0; p < kTerms; ++p)
+          a[p] = *reinterpret_cast<const uint4*>(zt + p * term_words +
+                                                 (q * 32 + lane) * 4);
+#pragma unroll
+        for (int n = 0; n < kTierTiles; ++n) {
+          const int64_t at = (static_cast<int64_t>(tile0 + n) * nks + q) * 32 +
+                             lane;
+          uint2 bt[kTerms];
+#pragma unroll
+          for (int p = 0; p < kTerms; ++p)
+            bt[p] = __ldg(planes + p * plane_pairs + at);
+          mma_bf16(acc[n], a[0], bt[0]);  // hi x hi
+          if constexpr (kTerms >= 2) {
+            mma_bf16(acc_lo[n], a[1], bt[0]);  // mid (bf16x3: lo) x hi
+            mma_bf16(acc_lo[n], a[0], bt[1]);  // hi x mid (bf16x3: lo)
+          }
+          if constexpr (kTerms == 3) {
+            mma_bf16(acc_lo[n], a[2], bt[0]);  // lo x hi
+            mma_bf16(acc_lo[n], a[0], bt[2]);  // hi x lo
+          }
+        }
+      }
+
+      tier_epilogue_at<GROUP, STOP, kTerms>(
+          fista, mode, acc, acc_lo, cb * kColBlock + warp * 32, s, sk, z, zn,
+          old, ec, lam_eta, beta, delta);
+    }
+    __syncthreads();  // zn complete; every warp is past its product
+    if (GROUP) {
+      tier_group_pass<TIER>(fista, mode == kHard, zn, old, s, sk, group_size,
+                            lam_eta, beta, STOP ? &delta : nullptr);
+      __syncthreads();
+    }
+    if (it + 1 < num_iters) split_rows<kTerms>(zn, sk, zt);
+    cur ^= 1;
+    t_k = t_next;
+  }
+
+  if constexpr (STOP) {
+    classic_stop_decide(delta, eta, t_k, stop, k0);
+  } else {
+    __syncthreads();
+    for (int idx = tid; idx < plane; idx += kThreads) {
+      const int r = idx / sk;
+      const int j = idx - r * sk;
+      const int64_t row = row0 + r;
+      if (row < b && j < s) out[row * s + j] = old[idx];
+    }
+  }
+}
+
+// Fold -eta G into the tier's planes in gn, then run the solve: one launch,
+// or with stop the classic stop route, an iteration a launch (state_global
+// required there).
+template <bool GROUP, int TIER, int VARIANT>
+cudaError_t launch_tier_at(int fista, int mode, const float* gram,
+                           const float* corr, const float* init,
+                           const float* eta, float lam, int num_iters, int b,
+                           int s, int sk, int sc, int group_size, float* gn,
+                           float* state_global, float* out,
+                           cudaStream_t stream, const SolveStop* stop) {
+  if (sk % 16 != 0 || sc % kColBlock != 0) return cudaErrorInvalidValue;
+  const int64_t total = static_cast<int64_t>(sk) * sc;
+  const unsigned fold_grid =
+      static_cast<unsigned>(total / 256 + 1 < 1024 ? total / 256 + 1 : 1024);
+  fold_tier_kernel<tier_terms(TIER)><<<fold_grid, 256, 0, stream>>>(
+      gram, eta, reinterpret_cast<uint16_t*>(gn), s, sk, sc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto plain = fista_tier_kernel<GROUP, TIER, false, VARIANT>;
+  const unsigned grid = static_cast<unsigned>((b + kRows - 1) / kRows);
+  if (stop != nullptr) {
+    auto stopping = fista_tier_kernel<GROUP, TIER, true, VARIANT>;
+    const size_t smem = tier_smem(TIER, sk, false);
+    err = set_pair_smem(plain, stopping, smem);
+    if (err != cudaSuccess) return err;
+    return drive_classic_stop(
+        [&](bool with_stop, int iters, const SolveStop& st, int k0) {
+          (with_stop ? stopping : plain)<<<grid, kThreads, smem, stream>>>(
+              gn, corr, init, eta, lam, iters, b, s, sk, sc, group_size,
+              state_global, out, st, k0, fista, mode);
+          return cudaGetLastError();
+        },
+        eta, num_iters, b, s, sk, state_global, out, *stop, stream);
+  }
+  const int smem = tier_smem(TIER, sk, state_global == nullptr);
+  if (smem > kSmemPerBlock) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(plain,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  plain<<<grid, kThreads, smem, stream>>>(gn, corr, init, eta, lam, num_iters,
+                                          b, s, sk, sc, group_size,
+                                          state_global, out, SolveStop{}, 0,
+                                          fista, mode);
+  return cudaGetLastError();
+}
+
+template <bool GROUP, int VARIANT>
+cudaError_t launch_tier_variant(int tier, int fista, int mode,
+                                const float* gram, const float* corr,
+                                const float* init, const float* eta,
+                                float lam, int num_iters, int b, int s,
+                                int sk, int sc, int group_size, float* gn,
+                                float* state_global, float* out,
+                                cudaStream_t stream, const SolveStop* stop) {
+#define VTC_TIER(T)                                                         \
+  launch_tier_at<GROUP, T, VARIANT>(fista, mode, gram, corr, init, eta,    \
+                                    lam, num_iters, b, s, sk, sc,          \
+                                    group_size, gn, state_global, out,     \
+                                    stream, stop)
+  switch (tier) {
+    case kTierBf16: return VTC_TIER(kTierBf16);
+    case kTierBf16x3: return VTC_TIER(kTierBf16x3);
+    case kTierBf16x5: return VTC_TIER(kTierBf16x5);
+    default: return cudaErrorInvalidValue;
+  }
+#undef VTC_TIER
+}
+
+// K1 passes its variant and shrink at run time: 6 builds (3 tiers, with
+// and without the stop), whose ptxas registers stay within those of the
+// 48 builds with them as templates (56-106, no spills).  K4 builds its
+// four (FISTA or ISTA, soft or hard) in: at run time ptxas gave its group
+// pass 128 registers (bf16x5 with the stop) and 4-byte spills (bf16x3),
+// and its bf16x3 solve took 1.9x as long on an H100
+// (tools/compare_tier_builds.py compares two such builds).
+template <bool GROUP>
+cudaError_t launch_tier(int tier, int fista, int mode, const float* gram,
+                        const float* corr, const float* init,
+                        const float* eta, float lam, int num_iters, int b,
+                        int s, int sk, int sc, int group_size, float* gn,
+                        float* state_global, float* out, cudaStream_t stream,
+                        const SolveStop* stop) {
+#define VTC_VARIANT(V)                                                       \
+  launch_tier_variant<GROUP, V>(tier, fista, mode, gram, corr, init, eta,   \
+                                lam, num_iters, b, s, sk, sc, group_size,   \
+                                gn, state_global, out, stream, stop)
+  if constexpr (!GROUP) {
+    return VTC_VARIANT(-1);
+  } else {
+    const bool hard = mode == kHard;
+    if (fista) return hard ? VTC_VARIANT(4 + kHard) : VTC_VARIANT(4 + kSoft);
+    return hard ? VTC_VARIANT(kHard) : VTC_VARIANT(kSoft);
+  }
+#undef VTC_VARIANT
+}
+
+}  // namespace

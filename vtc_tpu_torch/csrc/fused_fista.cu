@@ -15,8 +15,9 @@
 // layout for batches that fill the card), the route between them, what
 // bounds each and what its design does about it are in fista_core.cuh,
 // which K4 shares: this file instantiates their elementwise-shrink
-// variants, with the stop and without.
-#include "fista_core.cuh"
+// variants, with the stop and without.  The tiers other than 'highest'
+// (bf16x5, bf16x3, bf16) run fista_tier.cuh's bf16 tensor-core kernel.
+#include "fista_tier.cuh"
 
 extern "C" {
 
@@ -65,6 +66,18 @@ int64_t vtc_fista_stop_words(int b, int s, int group_size) {
   return route < 0 ? route : words;
 }
 
+// The tier kernel's layout for s codes at tier (1 bf16, 2 bf16x3, 3
+// bf16x5): the floats of gn scratch its planes take, and whether a block's
+// state fits its shared memory (else the wrappers pass state scratch).
+int64_t vtc_fista_tier_gn_floats(int s, int tier) {
+  const int sk = (s + kChunk - 1) / kChunk * kChunk;
+  const int sc = (s + kColBlock - 1) / kColBlock * kColBlock;
+  return tier_gn_floats(tier, sk, sc);
+}
+int vtc_fista_tier_state_in_smem(int s, int tier) {
+  return tier_state_in_smem(tier, (s + kChunk - 1) / kChunk * kChunk) ? 1 : 0;
+}
+
 // cudaOccupancyMaxActiveClusters of the (FISTA, soft) cluster kernel for
 // s codes at rows rows per cluster, or minus the CUDA error.
 int vtc_fista_cluster_occupancy(int s, int rows) {
@@ -105,6 +118,12 @@ int vtc_fista_wide_slots(int cluster_size) { return wide_slots(cluster_size); }
 // sums it over the ranks in stream order, then the decision; inv_count
 // is then over the global batch and stop_words the classic route's
 // (the first launch of a solve clears the flag).  Both null at one rank.
+// tier: 0 'highest' (the routes above), 1 bf16, 2 bf16x3, 3 bf16x5: the
+// tier kernel (route 0 only, taken 4), gn_scratch then of
+// vtc_fista_tier_gn_floats floats, state_scratch null only where
+// vtc_fista_tier_state_in_smem, the stop on the classic stop route (its
+// words: vtc_fista_stop_words's classic count, kStopCtlWords +
+// ceil(b / rows)), no stop across ranks.
 // Returns the CUDA error code of the launches (0 on success;
 // cudaErrorUnknown when stop_hook failed).
 int vtc_fused_fista(const float* gram, const float* corr, const float* init,
@@ -113,9 +132,10 @@ int vtc_fused_fista(const float* gram, const float* corr, const float* init,
                     float* state_scratch, float* out, int route, int* taken,
                     float eps, float inv_count, void* stop_words, int* iters,
                     unsigned tag, float* stop_local, RankHook stop_hook,
-                    void* stream_ptr) {
+                    int tier, void* stream_ptr) {
   if (!solve_args_ok(b, s, num_iters, sk, sc) || mode < 0 || mode > 3 ||
-      route < kRouteAuto || route > kRouteWide ||
+      route < kRouteAuto || route > kRouteWide || tier < kTierHighest ||
+      tier > kTierBf16x5 ||
       (eps >= 0.0f && (stop_words == nullptr || iters == nullptr ||
                        tag == 0)) ||
       ((stop_local == nullptr) != (stop_hook == nullptr)) ||
@@ -129,7 +149,7 @@ int vtc_fused_fista(const float* gram, const float* corr, const float* init,
 #define VTC_LAUNCH(F, M)                                                     \
   launch_solve<F, M, false>(gram, corr, init, eta, lam, num_iters, b, s, sk, \
                             sc, 1, gn_scratch, state_scratch, out, route,    \
-                            taken, stream, stop)
+                            taken, stream, stop, tier)
   if (fista) {
     switch (mode) {
       case kSoft: err = VTC_LAUNCH(true, kSoft); break;

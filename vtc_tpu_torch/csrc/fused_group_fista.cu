@@ -32,8 +32,10 @@
 // is routed to the classic kernel (solve_route).  The wide kernel, which
 // takes the batches that fill the card, has the same four-column
 // register prox and takes only M in {1, 2, 4}; other M at those batches
-// stay on the classic kernel.
-#include "fista_core.cuh"
+// stay on the classic kernel.  The tiers other than 'highest' run
+// fista_tier.cuh's bf16 tensor-core kernel at every M, its group prox
+// rounding as vtc_tpu's _make_prox_dots where M is not a power of two.
+#include "fista_tier.cuh"
 
 extern "C" {
 
@@ -43,8 +45,8 @@ extern "C" {
 // memory (the sizes of vtc_fused_fista); out (b, gm).  hard: 0 soft,
 // 1 hard group thresholding.  route, taken and the early stop (eps,
 // inv_count = 1 / (b gm), stop_words, iters, tag, and across ranks, for
-// K16, stop_local and stop_hook) as in vtc_fused_fista.  Returns the CUDA
-// error code (0 on success).
+// K16, stop_local and stop_hook) and tier as in vtc_fused_fista.  Returns
+// the CUDA error code (0 on success).
 int vtc_fused_group_fista(const float* gram, const float* corr,
                           const float* init, const float* eta, float lam,
                           int num_iters, int b, int gm, int group_size,
@@ -52,10 +54,11 @@ int vtc_fused_group_fista(const float* gram, const float* corr,
                           float* gn_scratch, float* state_scratch, float* out,
                           int route, int* taken, float eps, float inv_count,
                           void* stop_words, int* iters, unsigned tag,
-                          float* stop_local, RankHook stop_hook,
+                          float* stop_local, RankHook stop_hook, int tier,
                           void* stream_ptr) {
   if (!solve_args_ok(b, gm, num_iters, sk, sc) || group_size < 1 ||
       gm % group_size != 0 || route < kRouteAuto || route > kRouteWide ||
+      tier < kTierHighest || tier > kTierBf16x5 ||
       (eps >= 0.0f && (stop_words == nullptr || iters == nullptr ||
                        tag == 0)) ||
       ((stop_local == nullptr) != (stop_hook == nullptr)) ||
@@ -69,7 +72,7 @@ int vtc_fused_group_fista(const float* gram, const float* corr,
 #define VTC_LAUNCH(F, M)                                                    \
   launch_solve<F, M, true>(gram, corr, init, eta, lam, num_iters, b, gm, sk, \
                            sc, group_size, gn_scratch, state_scratch, out,  \
-                           route, taken, stream, stop)
+                           route, taken, stream, stop, tier)
   if (fista)
     err = hard ? VTC_LAUNCH(true, kHard) : VTC_LAUNCH(true, kSoft);
   else

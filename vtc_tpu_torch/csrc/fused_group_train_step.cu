@@ -89,7 +89,7 @@ extern "C" int vtc_fused_group_fista(const float* gram, const float* corr,
                                      float inv_count, void* stop_words,
                                      int* iters, unsigned tag,
                                      float* stop_local, SumHook stop_hook,
-                                     void* stream_ptr);
+                                     int tier, void* stream_ptr);
 
 namespace {
 
@@ -109,11 +109,13 @@ __global__ void gather_rows_kernel(const float* __restrict__ d,
 }
 
 // codes (b, s): code j of each row sums that row's slots sum_idx[j, :]
-// of gcodes (b, gm), in order, up to the first index >= gm.
+// of gcodes (b, gm), in order, up to the first index >= gm; with round
+// each slot rounded to bf16 first (the unpack's bf16 pass at the tier
+// 'bf16', pallas_train_step.py:691).
 __global__ void sum_slots_kernel(const float* __restrict__ gcodes,
                                  const int* __restrict__ sum_idx,
                                  float* __restrict__ codes, int b, int s,
-                                 int gm, int width) {
+                                 int gm, int width, bool round) {
   const int64_t total = static_cast<int64_t>(b) * s;
   for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                      threadIdx.x;
@@ -125,7 +127,7 @@ __global__ void sum_slots_kernel(const float* __restrict__ gcodes,
     for (int r = 0; r < width; ++r) {
       const int slot = sum_idx[j * width + r];
       if (slot >= gm) break;
-      acc += g[slot];
+      acc += round ? round_to_bf16(g[slot]) : g[slot];
     }
     codes[idx] = acc;
   }
@@ -142,8 +144,10 @@ __global__ void sum_slots_kernel(const float* __restrict__ gcodes,
 // == nullptr), its Gram (and Dg^T Dg when gm > n), the warm power refresh
 // into v and eta, c = X Dg^T, the group solve into gcodes (with stop's
 // early stop as step `step`) and the duplicate-summed (b, s) codes.
-// Those land in codes, or stay in gcodes when sum_idx is null.  Returns
-// the first CUDA error code (0 on success).
+// Those land in codes, or stay in gcodes when sum_idx is null.  tier: the
+// group solve's (vtc_fused_group_fista's); at 'bf16' c is one bf16 pass
+// through round_scratch ((b + gm) n floats) and the unpack rounds each
+// slot, as K2's.  Returns the first CUDA error code (0 on success).
 int group_refresh_and_solve(const float* d, float* v, const float* xs, int b,
                             int s, int n, int gm, int group_size,
                             const int* sel, const int* sum_idx, int sum_width,
@@ -154,7 +158,8 @@ int group_refresh_and_solve(const float* d, float* v, const float* xs, int b,
                             float* gn_scratch, float* state_scratch,
                             void* stream_ptr,
                             const SegmentStop& stop = {},
-                            int step = 0) {
+                            int step = 0, int tier = 0,
+                            float* round_scratch = nullptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool identity = sel == nullptr;
   const int dim = gm > n ? n : gm;
@@ -172,18 +177,29 @@ int group_refresh_and_solve(const float* d, float* v, const float* xs, int b,
     VTC_CHECK(gemm<true, false>(grouped, grouped, nullptr, pgram, n, n, gm,
                                 stream));
   VTC_CHECK(power_refresh(power_gram, v, eta, dim, power_iters, stream));
-  VTC_CHECK(gemm<false, true>(xs, grouped, nullptr, corr, b, gm, n, stream));
+  const bool bf16_pass = tier == kTierBf16;
+  const float* cx = xs;
+  if (bf16_pass) {
+    if (round_scratch == nullptr) return cudaErrorInvalidValue;
+    float* xr = round_scratch;
+    float* dr = round_scratch + static_cast<int64_t>(b) * n;
+    VTC_CHECK(round_bf16(xs, xr, static_cast<int64_t>(b) * n, stream));
+    VTC_CHECK(round_bf16(grouped, dr, static_cast<int64_t>(gm) * n, stream));
+    cx = xr;
+    grouped = dr;
+  }
+  VTC_CHECK(gemm<false, true>(cx, grouped, nullptr, corr, b, gm, n, stream));
   const int solve_err = vtc_fused_group_fista(  // classic across ranks
       gram, corr, nullptr, eta, lam, num_iters, b, gm, group_size, sk, sc,
       fista, hard, gn_scratch, state_scratch, gcodes, 0, nullptr, stop.eps,
       stop.inv_count, stop.words, stop.step_iters(step),
-      SegmentStop::step_tag(step, num_iters), stop.local, stop.hook,
+      SegmentStop::step_tag(step, num_iters), stop.local, stop.hook, tier,
       stream_ptr);
   if (solve_err != 0) return solve_err;
   if (!identity) {
     sum_slots_kernel<<<pass_grid(static_cast<int64_t>(b) * s), kPassThreads,
                        0, stream>>>(gcodes, sum_idx, codes, b, s, gm,
-                                    sum_width);
+                                    sum_width, bf16_pass);
     VTC_CHECK(cudaGetLastError());
   }
   return 0;
@@ -223,8 +239,10 @@ extern "C" {
 // quadratic.  The early stop of every step's group solve: eps >= 0 turns
 // it on, with inv_count = 1 / (b gm), the zeroed stop_words of
 // vtc_fista_stop_words and iters (k,), each step's count; the Hessian EMA
-// and the update take the stopped codes.  Returns the first CUDA error
-// code (0 on success).
+// and the update take the stopped codes.  tier and round_scratch ((b + gm)
+// n floats at 'bf16', else unused): the group solve's tier and K2's bf16
+// pass of c (group_refresh_and_solve).  Returns the first CUDA error code
+// (0 on success).
 int vtc_group_train_segment(
     float* d, float* h, float* v, const float* x, int k, int b, int s,
     int n, int gm, int group_size, const int* sel, const int* sum_idx,
@@ -235,13 +253,14 @@ int vtc_group_train_segment(
     float* gcodes, float* codes, float* resid, float* grad, float* cmat,
     float* smat, float* sd, float* eta, int sk, int sc, float* gn_scratch,
     float* state_scratch, float eps, float inv_count, void* stop_words,
-    int* iters, void* stream_ptr) {
+    int* iters, int tier, float* round_scratch, void* stream_ptr) {
   if (k < 0 || upd_num_iters < 0 ||
       !group_args_ok(b, s, n, gm, num_iters, power_iters, sel, sum_idx,
                      sum_width, dg, pgram, codes) ||
       (comem != nullptr &&
        (cmat == nullptr || smat == nullptr || sd == nullptr)) ||
-      (eps >= 0.0f && (stop_words == nullptr || iters == nullptr)))
+      (eps >= 0.0f && (stop_words == nullptr || iters == nullptr)) ||
+      (tier == kTierBf16 && round_scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const SegmentStop stop{eps, inv_count, stop_words, iters};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -254,7 +273,7 @@ int vtc_group_train_segment(
         d, v, xs, b, s, n, gm, group_size, sel, sum_idx, sum_width, lam,
         num_iters, fista, hard, power_iters, dg, gram, pgram, corr, gcodes,
         codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr, stop,
-        step);
+        step, tier, round_scratch);
     if (solve_err != 0) return solve_err;
     if (update == 1)
       VTC_CHECK(hessian_ema(step_codes, h, b, s, inv_b, stream));

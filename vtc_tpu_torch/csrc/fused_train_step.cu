@@ -93,7 +93,8 @@ extern "C" int vtc_fused_fista(const float* gram, const float* corr,
                                float* out, int route, int* taken, float eps,
                                float inv_count, void* stop_words, int* iters,
                                unsigned tag, float* stop_local,
-                               SumHook stop_hook, void* stream_ptr);
+                               SumHook stop_hook, int tier,
+                               void* stream_ptr);
 
 namespace {
 
@@ -105,15 +106,20 @@ namespace {
 
 // The first half of a step, which K2, K3 and K15 share: G = D D^T (and
 // D^T D when s > n), the warm power refresh into v and eta, c = X D^T and
-// the solve into codes, with stop's early stop as step `step`.  Returns
-// the first CUDA error code (0 on success).
+// the solve into codes, with stop's early stop as step `step`.  At a tier
+// other than 'highest' (vtc_fused_fista's) the solve runs it, and at
+// 'bf16' c is one bf16 pass: X and D rounded to bf16 into round_scratch
+// ((b + s) n floats) before the fp32 product.  The Gram and the refresh
+// stay fp32 in every tier (pallas_train_step.py:400-409).  Returns the
+// first CUDA error code (0 on success).
 int refresh_and_solve(const float* d, float* v, const float* xs, int b, int s,
                       int n, float lam, int num_iters, int fista, int mode,
                       int power_iters, float* gram, float* pgram, float* corr,
                       float* codes, float* eta, int sk, int sc,
                       float* gn_scratch, float* state_scratch,
                       void* stream_ptr, const SegmentStop& stop = {},
-                      int step = 0) {
+                      int step = 0, int tier = 0,
+                      float* round_scratch = nullptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int dim = s > n ? n : s;
   const float* power_gram = s > n ? pgram : gram;
@@ -122,12 +128,23 @@ int refresh_and_solve(const float* d, float* v, const float* xs, int b, int s,
   if (s > n)
     VTC_CHECK(gemm<true, false>(d, d, nullptr, pgram, n, n, s, stream));
   VTC_CHECK(power_refresh(power_gram, v, eta, dim, power_iters, stream));
-  VTC_CHECK(gemm<false, true>(xs, d, nullptr, corr, b, s, n, stream));
+  const float* cx = xs;
+  const float* cd = d;
+  if (tier == kTierBf16) {
+    if (round_scratch == nullptr) return cudaErrorInvalidValue;
+    float* xr = round_scratch;
+    float* dr = round_scratch + static_cast<int64_t>(b) * n;
+    VTC_CHECK(round_bf16(xs, xr, static_cast<int64_t>(b) * n, stream));
+    VTC_CHECK(round_bf16(d, dr, static_cast<int64_t>(s) * n, stream));
+    cx = xr;
+    cd = dr;
+  }
+  VTC_CHECK(gemm<false, true>(cx, cd, nullptr, corr, b, s, n, stream));
   return vtc_fused_fista(  // the shape's own route; classic across ranks
       gram, corr, nullptr, eta, lam, num_iters, b, s, sk, sc, fista, mode,
       gn_scratch, state_scratch, codes, 0, nullptr, stop.eps, stop.inv_count,
       stop.words, stop.step_iters(step),
-      SegmentStop::step_tag(step, num_iters), stop.local, stop.hook,
+      SegmentStop::step_tag(step, num_iters), stop.local, stop.hook, tier,
       stream_ptr);
 }
 
@@ -149,8 +166,11 @@ int vtc_power_smem_bytes(int dim) { return power_smem_bytes(dim); }
 // 1 cheap quadratic.  The early stop of every step's solve: eps >= 0
 // turns it on (vtc_fused_fista's), with inv_count = 1 / (b s), the zeroed
 // stop_words of vtc_fista_stop_words and iters (k,), each step's count;
-// the Hessian EMA and the update take the stopped codes.  Returns the
-// first CUDA error code (0 on success).
+// the Hessian EMA and the update take the stopped codes.  tier: the
+// solve's (vtc_fused_fista's: 0 'highest', 1 bf16, 2 bf16x3, 3 bf16x5;
+// gn_scratch, state_scratch and the stop words sized for it), and at 1 c
+// as one bf16 pass through round_scratch ((b + s) n floats; else unused).
+// Returns the first CUDA error code (0 on success).
 int vtc_train_segment(float* d, float* h, float* v, const float* x, int k,
                       int b, int s, int n, float lam, int num_iters,
                       float upd_step, int upd_num_iters, float lowest,
@@ -160,10 +180,11 @@ int vtc_train_segment(float* d, float* h, float* v, const float* x, int k,
                       float* grad, float* eta, int sk, int sc,
                       float* gn_scratch, float* state_scratch, float eps,
                       float inv_count, void* stop_words, int* iters,
-                      void* stream_ptr) {
+                      int tier, float* round_scratch, void* stream_ptr) {
   if (k < 0 || b <= 0 || s <= 0 || n <= 0 || num_iters < 0 ||
       upd_num_iters < 0 || power_iters < 0 || (s > n && pgram == nullptr) ||
-      (eps >= 0.0f && (stop_words == nullptr || iters == nullptr)))
+      (eps >= 0.0f && (stop_words == nullptr || iters == nullptr)) ||
+      (tier == kTierBf16 && round_scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const SegmentStop stop{eps, inv_count, stop_words, iters};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -174,7 +195,7 @@ int vtc_train_segment(float* d, float* h, float* v, const float* x, int k,
     const int solve_err = refresh_and_solve(
         d, v, xs, b, s, n, lam, num_iters, fista, mode, power_iters, gram,
         pgram, corr, codes, eta, sk, sc, gn_scratch, state_scratch,
-        stream_ptr, stop, step);
+        stream_ptr, stop, step, tier, round_scratch);
     if (solve_err != 0) return solve_err;
     if (update == 1) VTC_CHECK(hessian_ema(codes, h, b, s, inv_b, stream));
     for (int u = 0; u < upd_num_iters; ++u) {

@@ -15,11 +15,18 @@
 // difference of large products, so it stays full fp32, as it does in
 // every tier of the TPU kernels (pallas_train_step.py:400-409).  Square
 // roots and divisions are IEEE sqrtf and '/', no rsqrt intrinsics.
+// At the tier 'bf16' K2 and K6 take c = X D^T as one bf16 pass
+// (pallas_train_step.py:411, :588): round_bf16 rounds both operands to
+// bf16 values first, and the fp32 product of those values is that pass
+// (each term exact in fp32, the sum fp32).
 // Ragged shapes are masked inside every kernel.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tier_codes.cuh"
 
 namespace {
 
@@ -407,6 +414,27 @@ constexpr int kPassThreads = 256;
 unsigned pass_grid(int64_t total) {
   const int64_t blocks = (total + kPassThreads - 1) / kPassThreads;
   return static_cast<unsigned>(blocks < 4096 ? blocks : 4096);
+}
+
+__device__ __forceinline__ float round_to_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// dst = src rounded to bf16 (to nearest even), as floats, over count
+// entries.
+__global__ void round_bf16_kernel(const float* __restrict__ src,
+                                  float* __restrict__ dst, int64_t count) {
+  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                     threadIdx.x;
+       idx < count; idx += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    dst[idx] = round_to_bf16(src[idx]);
+}
+
+cudaError_t round_bf16(const float* src, float* dst, int64_t count,
+                       cudaStream_t stream) {
+  round_bf16_kernel<<<pass_grid(count), kPassThreads, 0, stream>>>(src, dst,
+                                                                   count);
+  return cudaGetLastError();
 }
 
 // smat = comem o sign(cmat), elementwise over count entries (the

@@ -35,6 +35,11 @@ over the mesh (``batch_size`` must divide by its size), every rank solves
 its shards through the same pipeline (K1, K4 or the conv route, K10 where
 its gate holds, per shard on a CUDA device), and the codes are gathered,
 so every rank returns all of them.
+
+``mxu_precision`` runs vtc_tpu's tiers (bf16x5, bf16x3, 'default' or
+'bf16') in fully-connected and subspace mode: the 'pallas' formulation
+(K1, K4 on the card, their tier kernel) takes them, 'gram' and 'direct'
+keep full precision.  Conv mode and ``data_parallel`` refuse a tier.
 """
 import numpy as np
 import torch
@@ -47,6 +52,7 @@ from vtc_tpu_torch import parallel
 from vtc_tpu_torch.device import resolve_device
 from vtc_tpu_torch.ops import conv_shapes, fused_conv_direct
 from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
+from vtc_tpu_torch.ops.precision import resolve_tier
 
 
 class _HostChunks:
@@ -114,13 +120,21 @@ class _CudaChunks:
     dest[...] = self.pinned_out[slot][:len(codes)].numpy()
 
 
-def _check_scope(mode, mxu_precision):
+def _check_scope(mode, mxu_precision, data_parallel):
+  """The tier the solves run ('bf16' is 'default', vtc_tpu's encode.py
+  :160-161); the tiers of the conv and data-parallel paths wait."""
   if mode not in ("fully-connected", "convolutional"):
     raise ValueError("mode must be 'fully-connected' or 'convolutional'")
-  if mxu_precision != "highest":
+  tier = resolve_tier(mxu_precision)
+  if tier != "highest" and mode == "convolutional":
     raise NotImplementedError(
-        "mxu_precision=%r: the reduced-precision tiers wait, ROADMAP.md "
-        "§1 item 3" % (mxu_precision,))
+        "mxu_precision=%r in convolutional mode: the conv tiers wait, "
+        "ROADMAP.md §1 item 3a.2.2" % (mxu_precision,))
+  if tier != "highest" and data_parallel is not None:
+    raise NotImplementedError(
+        "mxu_precision=%r with data_parallel: the data-parallel tiers wait, "
+        "ROADMAP.md §1 item 3a.2.1" % (mxu_precision,))
+  return tier
 
 
 def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
@@ -155,14 +169,17 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
       (conv: where K10's gate holds), 'gram' elsewhere; or force 'gram' /
       'direct' / 'pallas'.
     lipschitz_method: 'eigvalsh' (exact, default) or 'power'.
-    mxu_precision: 'highest' only.
+    mxu_precision: the fc and subspace solves' tier, 'highest',
+      'bf16x5', 'bf16x3' or 'default'/'bf16', applied by the 'pallas'
+      formulation (K1, K4) as in vtc_tpu; conv mode and data_parallel
+      take 'highest' only.
     device: where to solve; defaults to the dictionary's device when it
       is a tensor, else the CUDA device (raising without one).
 
   Returns:
     (D, s) float32 numpy codes, or (D, s, sh, sw) in conv mode.
   """
-  _check_scope(mode, mxu_precision)
+  mxu_precision = _check_scope(mode, mxu_precision, data_parallel)
   if nonnegative_only and group_assignments is not None:
     raise ValueError(
         "nonnegative_only is not defined for group-sparse inference "

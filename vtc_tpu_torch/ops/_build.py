@@ -127,16 +127,21 @@ def load_library():
   # (vtc_fused_fista and vtc_fused_group_fista then take the share and the
   # stop hook across ranks, which only the C segments pass)
   stop = [f32, f32, ptr, ptr, ctypes.c_uint]
+  # ... and the tier (0 'highest', 1 bf16, 2 bf16x3, 3 bf16x5)
   lib.vtc_fused_fista.argtypes = [
       ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32,
-      ptr, ptr, ptr, i32, i32p] + stop + [ptr, ptr, ptr]
+      ptr, ptr, ptr, i32, i32p] + stop + [ptr, ptr, i32, ptr]
   lib.vtc_fused_fista.restype = i32
+  lib.vtc_fista_tier_gn_floats.argtypes = [i32, i32]
+  lib.vtc_fista_tier_gn_floats.restype = ctypes.c_int64
+  lib.vtc_fista_tier_state_in_smem.argtypes = [i32, i32]
+  lib.vtc_fista_tier_state_in_smem.restype = i32
   lib.vtc_power_smem_bytes.argtypes = [i32]
   lib.vtc_power_smem_bytes.restype = i32
   lib.vtc_train_segment.argtypes = [
       ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, i32, f32, i32, f32,
       i32, i32, i32, i32, i32, f32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-      i32, i32, ptr, ptr] + stop[:4] + [ptr]
+      i32, i32, ptr, ptr] + stop[:4] + [i32, ptr, ptr]
   lib.vtc_train_segment.restype = i32
   lib.vtc_solve_stats.argtypes = (
       [ptr] * 3 + [i32] * 3 + [f32] + [i32] * 4 + [ptr] * 8 + [i32, i32]
@@ -150,13 +155,13 @@ def load_library():
   lib.vtc_dp_train_segment.restype = i32
   lib.vtc_fused_group_fista.argtypes = [
       ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32, i32,
-      ptr, ptr, ptr, i32, i32p] + stop + [ptr, ptr, ptr]
+      ptr, ptr, ptr, i32, i32p] + stop + [ptr, ptr, i32, ptr]
   lib.vtc_fused_group_fista.restype = i32
   lib.vtc_group_train_segment.argtypes = [
       ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, i32, ptr,
       f32, f32, i32, f32, i32, f32, i32, i32, i32, i32, i32, f32,
       ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-      i32, i32, ptr, ptr] + stop[:4] + [ptr]
+      i32, i32, ptr, ptr] + stop[:4] + [i32, ptr, ptr]
   lib.vtc_group_train_segment.restype = i32
   lib.vtc_group_solve_stats.argtypes = (
       [ptr] * 3 + [i32] * 5 + [ptr, ptr, i32, f32] + [i32] * 4 + [ptr] * 10

@@ -66,7 +66,7 @@ the plain version's list of them and ``plain_avgs`` the means its last
 step's solve tested (after iteration j at index j - 1).
 
 Refused, naming its ROADMAP.md item: on any device the ``mxu`` tiers
-other than 'highest' (item 3a.2).  ``axis_size``, ``data_axis_size``,
+other than 'highest' (item 3a.2.4).  ``axis_size``, ``data_axis_size``,
 ``code_stride`` and
 ``data_stride`` must be the mesh's; ``interpret`` is a TPU knob, accepted
 at False only.  ``launches`` counts the train steps the kernels ran,
@@ -448,7 +448,7 @@ def fused_code_sharded_train_segment(
     update_alg: the two fc update rules or their subspace names.
     upd_num_iters / nonneg (fc only) / hard / renormalize / power_iters /
       lowest_code_val: as in vtc_tpu.
-    mxu: 'highest' only (ROADMAP.md §1 item 3a.2).
+    mxu: 'highest' only (ROADMAP.md §1 item 3a.2.4).
     early_stopping_epsilon, stop_count: the stop test, the mean over
       stop_count elements (default the global b * s), on every rank at
       the same count.
@@ -473,7 +473,7 @@ def fused_code_sharded_train_segment(
            % (int(axis_size), int(data_axis_size), code, data))
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.4"
         % (mxu,))
   _require(int(code_stride) == 1
            and int(data_stride) in ((0, code) if data == 1 else (code,))

@@ -41,7 +41,7 @@ early stop"); the host never reads the mean.  ``last_iters`` (a private
 test hook) is the int32 device tensor of the last stopped launch's
 count; ``stop_scratch`` sizes the stop's device words.
 
-Scope: only the 'highest' (IEEE fp32) tier (ROADMAP.md §1 item 3a.2).
+Scope: only the 'highest' (IEEE fp32) tier (ROADMAP.md §1 item 3a.2.2).
 ``launches`` counts solves launched on the card.
 """
 import ctypes

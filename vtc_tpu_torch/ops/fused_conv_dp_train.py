@@ -43,7 +43,7 @@ decides, so every rank stops at the same count, as vtc_tpu's one slot
 all-reduce an iteration.  At a world of one there is no hook.
 ``last_iters`` (a private test hook) is the int32 device tensor of the
 last stopped segment's counts, one a step.  The ``mxu`` tiers other than
-'highest' raise NotImplementedError (ROADMAP.md §1 item 3a.2).
+'highest' raise NotImplementedError (ROADMAP.md §1 item 3a.2.2).
 ``launches`` counts the train steps the kernel ran.
 """
 import ctypes
@@ -124,7 +124,7 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
     variant / update_alg / upd_num_iters / nonneg / hard / renormalize /
       power_iters / lowest_code_val: as in vtc_tpu.
     mxu: 'highest' only (NotImplementedError otherwise, ROADMAP.md §1
-      item 3a.2).
+      item 3a.2.2).
     early_stopping_epsilon: optional; each step's solve stops after the
       first iteration k > 0 whose mean |codes_k - codes_{k-1}| / eta over
       the global batch is below it, on every rank at the same count.
@@ -141,7 +141,7 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
                      % (fused_conv_train.UPDATE_ALGS,))
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.2"
         % (mxu,))
 
   def require(cond, message):

@@ -23,7 +23,7 @@ test on the card as K10 does (csrc/conv_gemm.cuh, "The early stop"): the
 interior launch decides on the device and every launch after a stop
 returns at entry; ``last_iters`` (a private test hook) is the int32 device
 tensor of the last stopped launch's count.  Scope: only the 'highest'
-tier (ROADMAP.md §1 item 3a.2).  ``launches`` counts solves launched on
+tier (ROADMAP.md §1 item 3a.2.2).  ``launches`` counts solves launched on
 the card.
 """
 import ctypes

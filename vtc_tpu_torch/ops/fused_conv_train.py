@@ -35,7 +35,7 @@ device (csrc/conv_gemm.cuh, "The early stop"); ``last_iters`` (a private
 test hook) is the int32 device tensor of the last stopped segment's
 counts, one a step.  Left out: the TPU knobs ``batch_tile`` and
 ``interpret``; the ``mxu`` tiers other than 'highest' raise
-NotImplementedError (ROADMAP.md §1 item 3a.2).  ``launches`` counts the
+NotImplementedError (ROADMAP.md §1 item 3a.2.2).  ``launches`` counts the
 train steps the kernels ran.
 
 Also here, the port of TPU kernel K13, ``conv_solve_stats_pallas``
@@ -210,7 +210,7 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
     variant / update_alg / upd_num_iters / nonneg / hard / renormalize /
       power_iters / lowest_code_val: as in vtc_tpu (power_iters 12 is the
       robust default; the trainer passes 2 from an exact seed).
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3).
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2.2).
     early_stopping_epsilon: optional; each step's solve stops after the
       first iteration k > 0 whose mean |codes_k - codes_{k-1}| / eta is
       below it (the batch-global test, decided on the device).
@@ -228,7 +228,7 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
     raise ValueError("update_alg must be one of %s" % (UPDATE_ALGS,))
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.2"
         % (mxu,))
   _require(batches.dim() == 5 and batches.shape[0] >= 1,
            "batches must be (k, b, c, H, W) with k >= 1, got %s"
@@ -418,7 +418,7 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
       ``conv_solve_stats_supported``, and with ``gram_stats`` also
       ``gram_stats_supported`` (ValueError otherwise, on any device).
     variant / nonneg / hard / power_iters: as in vtc_tpu.
-    mxu: 'highest' only (ROADMAP.md §1 item 3a.2); early_stopping_epsilon:
+    mxu: 'highest' only (ROADMAP.md §1 item 3a.2.2); early_stopping_epsilon:
       None only (vtc_tpu's kernel has no stop test; vtc_tpu's
       data-parallel stop is K17's).  Both raise NotImplementedError.
 
@@ -436,7 +436,7 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
     raise ValueError("variant must be 'ista' or 'fista'")
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.2"
         % (mxu,))
   if early_stopping_epsilon is not None:
     raise NotImplementedError(

@@ -45,7 +45,7 @@ same test: each rank's sum, ``Mesh.sum``, then the scale.  ``last_iters``
 (a private test hook) is the int32 device tensor (k,) of the last stopped
 segment's counts, ``plain_iters`` the plain version's list of them.  Left
 out: the ``mxu`` tiers other than 'highest' raise NotImplementedError
-(ROADMAP.md §1 item 3a.2).  ``launches`` counts the train steps the
+(ROADMAP.md §1 item 3a.2.1).  ``launches`` counts the train steps the
 kernel ran.
 """
 import ctypes
@@ -130,7 +130,7 @@ def fused_dp_train_segment(dictionary, hessian, eigvec, batches,
     variant / update_alg / upd_num_iters / nonneg / hard / renormalize /
       power_iters / lowest_code_val: as in vtc_tpu.
     mxu: 'highest' only (NotImplementedError otherwise, ROADMAP.md §1
-      item 3a.2).
+      item 3a.2.1).
     early_stopping_epsilon: optional; each step's solve stops after the
       first iteration j > 0 whose mean |codes_j - codes_{j-1}| / eta over
       the global batch is below it, on every rank at the same count.
@@ -147,7 +147,7 @@ def fused_dp_train_segment(dictionary, hessian, eigvec, batches,
                      % (fused_train_step.UPDATE_ALGS,))
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.1"
         % (mxu,))
 
   def require(cond, message):

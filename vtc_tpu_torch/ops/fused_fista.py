@@ -34,19 +34,30 @@ and ``stop_words`` mirror that route and the size of its device array;
 ``last_iters`` (a private test hook) is the device tensor of the
 iterations the last stopped launch ran.
 
-Scope: only the 'highest' (IEEE fp32) tier; the others wait in
-ROADMAP.md §1 item 3a.2.  ``launches`` counts kernel launches.
+``mxu`` is vtc_tpu's tier of the iteration product ('highest', 'bf16x5',
+'bf16x3', 'bf16' or its spelling 'default'; pallas_fista.py:44-56).
+'highest' takes the three fp32 kernels above.  Every other tier takes
+``fista_tier_kernel`` (csrc/fista_tier.cuh): the bf16 terms of z and of
+-eta G on the tensor cores, whatever the batch size, with the early stop
+on the classic stop route (an iteration a launch); ``last_route`` is then
+'tier'.  On the CPU ``fused_fista_plain`` computes the same passes
+(``precision.tier_dot``); ``solve_scratch`` sizes the tier kernel's
+scratch from the library's own rule.  ``launches`` counts kernel
+launches.
 """
 import ctypes
 
 import torch
 
 from vtc_tpu_torch.ops import thresholds
-from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.precision import (TIER_CODES, bf16_pass,
+                                         matmul_precision, resolve_tier,
+                                         tier_dot, tier_operand)
 from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 launches = 0
-last_route = None  # 'classic', 'cluster' or 'wide': the last launch's
+tier_launches = 0  # the launches above at a tier other than 'highest'
+last_route = None  # the last launch's: 'classic', 'cluster', 'wide', 'tier'
 last_iters = None  # int32 device tensor: the last stopped launch's count
 
 # shared memory a block may opt into on Hopper (sm_90): 227 KB
@@ -64,7 +75,10 @@ ROWS, CHUNK, CLUSTER, CLUSTER_MAX_ROWS, CLUSTER_MAX_THREADS = (
 STOP_LANE_WORDS, STOP_CTL_WORDS = 8, 3
 # the C entries' route argument, and the route names of their taken value
 ROUTES = {"auto": 0, "classic": 1, "cluster": 2, "wide": 3}
-ROUTE_NAMES = {v: k for k, v in ROUTES.items() if v}
+# the taken value of a tier other than 'highest' (fista_core.cuh's
+# kRouteTier), which 'auto' picks by the tier; a forced route at a tier
+# raises
+ROUTE_NAMES = {v: k for k, v in ROUTES.items() if v} | {4: "tier"}
 # the kernel's shrink modes, indexed by (nonneg, hard)
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2,
           (True, True): 3}
@@ -74,7 +88,7 @@ def fused_fista_plain(images, dictionary, sparsity_weight, num_iters,
                       stepsize, *, initial_codes=None, variant="fista",
                       nonneg=False, hard=False, early_stopping_epsilon=None,
                       precision=None, psum_axes=None,
-                      stop_count=None):
+                      stop_count=None, mxu="highest", bf16_corr=False):
   """The plain PyTorch version of the fused solve, on any device and in
   the inputs' own float type (float64 inputs give the float64 oracle).
 
@@ -87,9 +101,14 @@ def fused_fista_plain(images, dictionary, sparsity_weight, num_iters,
   given.
   ``precision`` is the matmul precision of ``ops/precision`` (default
   'highest'); 'tensorfloat32' shows what TF32 products would cost.
+  ``mxu`` is the iteration product's tier (``precision.tier_dot``: bf16
+  passes summed in float32, as vtc_tpu's ``_make_iter_dot``), and
+  ``bf16_corr`` computes c = X D^T as one bf16 pass, as the trainers do
+  at 'bf16'; G, c otherwise, and the rest of the loop stay float32.
   """
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
+  mxu = resolve_tier(mxu)
   dtype, device = images.dtype, images.device
   shrink = thresholds.select(bool(nonneg), bool(hard))
   eta = torch.as_tensor(stepsize, dtype=dtype, device=device)
@@ -100,10 +119,15 @@ def fused_fista_plain(images, dictionary, sparsity_weight, num_iters,
     z = torch.as_tensor(initial_codes, dtype=dtype, device=device)
   with matmul_precision(precision):
     neg_eta_gram = -eta * (dictionary @ dictionary.T)
-    corr_eta = eta * (images @ dictionary.T)
+    corr = (bf16_pass(images, dictionary) if bf16_corr
+            else images @ dictionary.T)
+    corr_eta = eta * corr
+    operand = tier_operand(neg_eta_gram, mxu)
 
     def prestep_fn(z):
-      return z + z @ neg_eta_gram + corr_eta
+      if mxu == "highest":
+        return z + z @ neg_eta_gram + corr_eta
+      return z + tier_dot(z, operand, mxu) + corr_eta
 
     def prox_fn(x, ss):
       return shrink(x, sparsity_weight * ss)
@@ -122,7 +146,8 @@ def _require(cond, message):
 
 def fused_fista_solve(images, dictionary, sparsity_weight, num_iters,
                       stepsize, *, initial_codes=None, variant="fista",
-                      nonneg=False, hard=False, early_stopping_epsilon=None):
+                      nonneg=False, hard=False, early_stopping_epsilon=None,
+                      mxu="highest"):
   """Solve the LASSO codes of a batch with the fused kernel.
 
   Args:
@@ -138,17 +163,20 @@ def fused_fista_solve(images, dictionary, sparsity_weight, num_iters,
     early_stopping_epsilon: optional; stop after the first iteration k > 0
       whose mean |codes_k - codes_{k-1}| / stepsize is below it, and
       return codes_k (the batch-global test, decided on the device).
+    mxu: the iteration product's tier, 'highest' (fp32), 'bf16x5',
+      'bf16x3' or 'bf16' ('default' is 'bf16', as vtc_tpu's K1 reads it).
 
   Returns:
     (b, s) codes on the inputs' device.
   """
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
+  mxu = resolve_tier(mxu)
   if images.device.type == "cpu":
     return fused_fista_plain(
         images, dictionary, sparsity_weight, num_iters, stepsize,
         initial_codes=initial_codes, variant=variant, nonneg=nonneg,
-        hard=hard, early_stopping_epsilon=early_stopping_epsilon)
+        hard=hard, early_stopping_epsilon=early_stopping_epsilon, mxu=mxu)
   _require(images.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(images.device))
@@ -183,7 +211,7 @@ def fused_fista_solve(images, dictionary, sparsity_weight, num_iters,
   return _launch(gram, corr, initial_codes, eta, float(sparsity_weight),
                  num_iters, variant == "fista",
                  _MODES[(bool(nonneg), bool(hard))],
-                 eps=early_stopping_epsilon)
+                 eps=early_stopping_epsilon, mxu=mxu)
 
 
 def solve_layout(lib, s):
@@ -196,6 +224,43 @@ def solve_layout(lib, s):
   state_bytes = 4 * lib.vtc_fista_rows() * sk * 4
   return sk, sc, (lib.vtc_fista_slice_bytes() + state_bytes
                   <= _SMEM_PER_BLOCK)
+
+
+# vtc_tpu's single-tile early-stop budget (pallas_fista.py:134-149): its
+# lanes, sublanes and VMEM bytes
+_TPU_LANES, _TPU_SUBLANES, _EARLY_STOP_VMEM_BUDGET = 128, 8, 12 * 1024 * 1024
+
+
+def early_stop_tile_fits(batch_size, code_size):
+  """vtc_tpu's ``early_stop_tile_fits`` (pallas_fista.py:139-149): whether
+  its K1 takes the early stop in-kernel, the whole batch in one VMEM tile.
+  The port's solvers read it for a tier with a stop: where it fails,
+  vtc_tpu solves at full precision (fully_connected/ista_fista.py:121-139),
+  and so does the port."""
+  s_pad = -(-int(code_size) // _TPU_LANES) * _TPU_LANES
+  b_pad = -(-int(batch_size) // _TPU_SUBLANES) * _TPU_SUBLANES
+  return 4 * (s_pad * s_pad + 6 * b_pad * s_pad) <= _EARLY_STOP_VMEM_BUDGET
+
+
+def solve_scratch(lib, b, s, mxu, classic, device):
+  """(sk, sc, gn, state) of a solve of b rows of s codes at tier mxu: the
+  padded depth and width, the scratch of -eta G (fp32 (sk, sc) at
+  'highest', else the tier kernel's bf16 planes) and the blocks' state in
+  global memory, or None where it fits shared memory and the route
+  (``classic``: the classic stop route, which keeps it global) allows."""
+  rows = lib.vtc_fista_rows()
+  sk, sc, state_in_smem = solve_layout(lib, s)
+  if mxu == "highest":
+    gn = torch.empty((sk, sc), dtype=torch.float32, device=device)
+  else:
+    code = TIER_CODES[mxu]
+    gn = torch.empty(int(lib.vtc_fista_tier_gn_floats(s, code)),
+                     dtype=torch.float32, device=device)
+    state_in_smem = bool(lib.vtc_fista_tier_state_in_smem(s, code))
+  state = (None if state_in_smem and not classic else
+           torch.empty((-(-b // rows), 4, rows, sk), dtype=torch.float32,
+                       device=device))
+  return sk, sc, gn, state
 
 
 def cluster_layout(s, group_size, rows):
@@ -386,13 +451,15 @@ def stop_words(route, b, s, group_size, cluster_slots, wide_slots):
   return STOP_CTL_WORDS + -(-b // ROWS)
 
 
-def stop_scratch(lib, b, s, group_size, route, eps, device, steps=1):
+def stop_scratch(lib, b, s, group_size, route, eps, device, steps=1,
+                 mxu="highest"):
   """The C entries' early-stop arguments for ``steps`` solves in a row of
   b rows of s codes in groups of group_size: (eps, the words, the counts
   (steps,) int32, whether stop_route takes the classic route, which keeps
   its state in global memory).  eps None is the build without the stop:
   (-1.0, None, None, False).  A negative or NaN eps never stops, as 0.0
-  does.  The stop takes its own route: ``route`` must be 'auto'."""
+  does.  The stop takes its own route: ``route`` must be 'auto'.  A tier
+  other than 'highest' stops on the classic stop route."""
   if eps is None:
     return -1.0, None, None, False
   if route != "auto":
@@ -401,6 +468,10 @@ def stop_scratch(lib, b, s, group_size, route, eps, device, steps=1):
   eps = float(eps)
   if not eps >= 0.0:
     eps = 0.0
+  if mxu != "highest":
+    return (eps, torch.zeros(stop_words("classic", b, s, group_size, 0, 0),
+                             dtype=torch.int64, device=device),
+            torch.zeros(steps, dtype=torch.int32, device=device), True)
   taken = lib.vtc_fista_stop_route(b, s, group_size)
   words = lib.vtc_fista_stop_words(b, s, group_size)
   if taken < 0 or words < 0:
@@ -432,23 +503,22 @@ def segment_stop_scratch(lib, b, s, group_size, eps, device, steps, world):
 
 
 def _launch(gram, corr, init, eta, lam, num_iters, fista, mode,
-            route="auto", eps=None):
+            route="auto", eps=None, mxu="highest"):
   """Allocate the kernel's scratch and launch it on the current stream.
   route 'classic', 'cluster' or 'wide' forces a kernel (for checks and
-  tools); eps the early stop's threshold (None: none)."""
-  global launches, last_route, last_iters
+  tools); eps the early stop's threshold (None: none); mxu the tier (one
+  other than 'highest' takes the tier kernel, route 'auto')."""
+  global launches, last_route, last_iters, tier_launches
   from vtc_tpu_torch.ops._build import load_library
+  if mxu != "highest" and route != "auto":
+    raise ValueError("a tier other than 'highest' takes the tier kernel: "
+                     "route must be 'auto', not %r" % (route,))
   lib = load_library()
-  rows = lib.vtc_fista_rows()
   b, s = corr.shape
   device = corr.device
-  sk, sc, state_in_smem = solve_layout(lib, s)
   eps, words, iters, classic = stop_scratch(lib, b, s, 1, route, eps,
-                                            device)
-  gn = torch.empty((sk, sc), dtype=torch.float32, device=device)
-  state = (None if state_in_smem and not classic else
-           torch.empty((-(-b // rows), 4, rows, sk), dtype=torch.float32,
-                       device=device))
+                                            device, mxu=mxu)
+  sk, sc, gn, state = solve_scratch(lib, b, s, mxu, classic, device)
   out = torch.empty((b, s), dtype=torch.float32, device=device)
   taken = ctypes.c_int(0)
   with torch.cuda.device(device):
@@ -462,15 +532,17 @@ def _launch(gram, corr, init, eta, lam, num_iters, fista, mode,
         ctypes.c_float(eps), ctypes.c_float(1.0 / (b * s)),
         None if words is None else words.data_ptr(),
         None if iters is None else iters.data_ptr(), 1, None, None,
-        stream)
+        TIER_CODES[mxu], stream)
   if err != 0:
     raise RuntimeError(
         "fused FISTA kernel launch failed with CUDA error %d "
-        "(b=%d, s=%d, route %s, state in %s%s)" % (
-            err, b, s, route,
+        "(b=%d, s=%d, route %s, tier %s, state in %s%s)" % (
+            err, b, s, route, mxu,
             "shared memory" if state is None else "global",
             "" if words is None else ", early stop"))
   launches += 1
+  if mxu != "highest":
+    tier_launches += 1
   last_route = ROUTE_NAMES[taken.value]
   if iters is not None:
     last_iters = iters

@@ -152,7 +152,7 @@ def fused_group_dp_train_segment(
       power_iters / lowest_code_val / alignment_penalty: as in vtc_tpu; a
       nonzero penalty needs renormalize (the unit-norm form).
     mxu: 'highest' only (NotImplementedError otherwise, ROADMAP.md §1
-      item 3a.2).
+      item 3a.2.1).
     early_stopping_epsilon: optional; each step's group solve stops after
       the first iteration j > 0 whose mean |codes_j - codes_{j-1}| / eta
       over the global batch's G*M packed codes is below it, on every rank
@@ -170,7 +170,7 @@ def fused_group_dp_train_segment(
                      % (fused_group_train_step.UPDATE_ALGS,))
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.1"
         % (mxu,))
 
   def require(cond, message):

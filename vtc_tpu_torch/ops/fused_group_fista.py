@@ -31,33 +31,67 @@ inside the kernels, on K1's stop routes (``fused_fista.stop_route``);
 ``last_iters`` (a private test hook) is the device tensor of the
 iterations the last stopped launch ran.
 
-Scope: only the 'highest' (IEEE fp32) tier; the others wait in
-ROADMAP.md §1 item 3a.2.  ``launches`` counts kernel launches.
+``mxu`` is vtc_tpu's tier (pallas_group_fista.py:54-66), as in
+``fused_fista``: a tier other than 'highest' takes the tier kernel
+(csrc/fista_tier.cuh) at every M.  Its group prox sums the windows in
+float32 where M is a power of two (vtc_tpu's rotate-and-add prox) or the
+tier is 'bf16x5'; at other M, 'bf16x3' and 'bf16' round the window sums
+and the scale as vtc_tpu's ``_make_prox_dots`` (``precision.prox_sums``,
+``prox_scale``).  ``launches`` counts kernel launches.
 """
 import ctypes
 
 import torch
 
 from vtc_tpu_torch.ops import fused_fista, thresholds
-from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.precision import (TIER_CODES, bf16_pass,
+                                         matmul_precision, prox_scale,
+                                         prox_sums, prox_window_exact,
+                                         resolve_tier, tier_dot,
+                                         tier_operand)
 from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 launches = 0
+tier_launches = 0  # the launches above at a tier other than 'highest'
 last_route = None
 last_iters = None
 
 
-def group_prox(x, group_size, t, hard):
+def group_prox(x, group_size, t, hard, mxu="highest"):
   """The group prox on packed (b, G*M) codes at threshold ``t``: soft
   is ``thresholds.group_shrink`` over each window of ``group_size``
-  slots; hard zeroes the groups whose norm is below ``t``."""
+  slots; hard zeroes the groups whose norm is below ``t``.  At 'bf16x3'
+  and 'bf16' with M not a power of two, the window sums of the squares and
+  the scale the slots receive take vtc_tpu's ``_make_prox_dots`` rounding
+  (pallas_train_step.py:172-199, :305-320)."""
   grouped = x.reshape(x.shape[0], -1, group_size)
-  norms = torch.linalg.vector_norm(grouped, dim=2, keepdim=True)
+  if prox_window_exact(group_size, mxu):
+    norms = torch.linalg.vector_norm(grouped, dim=2, keepdim=True)
+    if hard:
+      out = torch.where(norms < t, 0.0, grouped)
+    else:
+      out = thresholds.group_shrink(grouped, norms, t)
+    return out.reshape(x.shape)
+  norms = torch.sqrt(prox_sums(grouped * grouped, mxu))
   if hard:
-    out = torch.where(norms < t, 0.0, grouped)
+    scale = torch.where(norms < t, 0.0, 1.0).to(x.dtype)
   else:
-    out = thresholds.group_shrink(grouped, norms, t)
-  return out.reshape(x.shape)
+    safe = torch.where(norms == 0.0, 1.0, norms)
+    scale = torch.clamp(1.0 - t / safe, min=0.0)
+  return (grouped * prox_scale(scale, mxu)).reshape(x.shape)
+
+
+def group_early_stop_tile_fits(batch_size, gm, g):
+  """vtc_tpu's ``group_early_stop_tile_fits`` (pallas_group_fista.py
+  :148-158) for b rows of gm = G*M packed slots in g groups: whether its K4
+  takes a stop in-kernel; the port's subspace solver reads it for a tier
+  with a stop, as ``fused_fista.early_stop_tile_fits``."""
+  lanes, sublanes = fused_fista._TPU_LANES, fused_fista._TPU_SUBLANES
+  gm_pad = -(-int(gm) // lanes) * lanes
+  g_pad = -(-int(g) // lanes) * lanes
+  b_pad = -(-int(batch_size) // sublanes) * sublanes
+  return 4 * (gm_pad * gm_pad + gm_pad * g_pad + 6 * b_pad * gm_pad) <= (
+      fused_fista._EARLY_STOP_VMEM_BUDGET)
 
 
 def fused_group_fista_plain(images, grouped_dictionary, group_size,
@@ -65,7 +99,8 @@ def fused_group_fista_plain(images, grouped_dictionary, group_size,
                             initial_grouped=None, variant="fista",
                             hard=False, early_stopping_epsilon=None,
                             precision=None, psum_axes=None,
-                            stop_count=None):
+                            stop_count=None, mxu="highest",
+                            bf16_corr=False):
   """The plain PyTorch version of the fused group solve, on any device
   and in the inputs' own float type (float64 inputs give the oracle).
 
@@ -78,12 +113,15 @@ def fused_group_fista_plain(images, grouped_dictionary, group_size,
   where given).
   ``precision``: the matmul precision of ``ops/precision`` (default
   'highest'); 'tensorfloat32' shows what TF32 products would cost.
+  ``mxu``: the tier of the iteration product and the group prox, and
+  ``bf16_corr`` c as one bf16 pass, as ``fused_fista_plain``'s.
 
   Returns:
     (b, G*M) packed grouped codes.
   """
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
+  mxu = resolve_tier(mxu)
   dtype, device = images.dtype, images.device
   eta = torch.as_tensor(stepsize, dtype=dtype, device=device)
   if initial_grouped is None:
@@ -93,13 +131,18 @@ def fused_group_fista_plain(images, grouped_dictionary, group_size,
     z = torch.as_tensor(initial_grouped, dtype=dtype, device=device)
   with matmul_precision(precision):
     neg_eta_gram = -eta * (grouped_dictionary @ grouped_dictionary.T)
-    corr_eta = eta * (images @ grouped_dictionary.T)
+    corr = (bf16_pass(images, grouped_dictionary) if bf16_corr
+            else images @ grouped_dictionary.T)
+    corr_eta = eta * corr
+    operand = tier_operand(neg_eta_gram, mxu)
 
     def prestep_fn(z):
-      return z + z @ neg_eta_gram + corr_eta
+      if mxu == "highest":
+        return z + z @ neg_eta_gram + corr_eta
+      return z + tier_dot(z, operand, mxu) + corr_eta
 
     def prox_fn(x, ss):
-      return group_prox(x, group_size, sparsity_weight * ss, hard)
+      return group_prox(x, group_size, sparsity_weight * ss, hard, mxu)
 
     return proximal_gradient_loop(
         None, prox_fn, z, eta, num_iters, variant=variant,
@@ -116,7 +159,8 @@ def _require(cond, message):
 def fused_group_fista_solve(images, grouped_dictionary, group_size,
                             sparsity_weight, num_iters, stepsize, *,
                             initial_grouped=None, variant="fista",
-                            hard=False, early_stopping_epsilon=None):
+                            hard=False, early_stopping_epsilon=None,
+                            mxu="highest"):
   """Solve the packed group-LASSO codes with the fused kernel.
 
   Args:
@@ -134,12 +178,14 @@ def fused_group_fista_solve(images, grouped_dictionary, group_size,
     variant / hard: 'ista' | 'fista', hard group thresholding.
     early_stopping_epsilon: optional; the batch-global stop test over the
       b*G*M packed entries, decided on the device (as fused_fista_solve's).
+    mxu: the tier, as fused_fista_solve's ('default' is 'bf16').
 
   Returns:
     (b, G*M) packed grouped codes on the inputs' device.
   """
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
+  mxu = resolve_tier(mxu)
   group_size = int(group_size)
   _require(group_size >= 1 and grouped_dictionary.dim() == 2
            and grouped_dictionary.shape[0] % group_size == 0,
@@ -149,7 +195,7 @@ def fused_group_fista_solve(images, grouped_dictionary, group_size,
     return fused_group_fista_plain(
         images, grouped_dictionary, group_size, sparsity_weight, num_iters,
         stepsize, initial_grouped=initial_grouped, variant=variant,
-        hard=hard, early_stopping_epsilon=early_stopping_epsilon)
+        hard=hard, early_stopping_epsilon=early_stopping_epsilon, mxu=mxu)
   _require(images.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(images.device))
@@ -184,28 +230,28 @@ def fused_group_fista_solve(images, grouped_dictionary, group_size,
     corr = (images @ grouped_dictionary.T).contiguous()
   return _launch(gram, corr, initial_grouped, eta, float(sparsity_weight),
                  num_iters, group_size, variant == "fista", bool(hard),
-                 eps=early_stopping_epsilon)
+                 eps=early_stopping_epsilon, mxu=mxu)
 
 
 def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard,
-            route="auto", eps=None):
+            route="auto", eps=None, mxu="highest"):
   """Allocate the kernel's scratch and launch it on the current stream.
   route 'classic', 'cluster' or 'wide' forces a kernel
   (fused_fista.solve_route is the rule 'auto' follows, stop_route with
-  the early stop); eps the stop's threshold (None: none)."""
-  global launches, last_route, last_iters
+  the early stop); eps the stop's threshold (None: none); mxu the tier (one
+  other than 'highest' takes the tier kernel, route 'auto')."""
+  global launches, last_route, last_iters, tier_launches
+  if mxu != "highest" and route != "auto":
+    raise ValueError("a tier other than 'highest' takes the tier kernel: "
+                     "route must be 'auto', not %r" % (route,))
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   b, gm = corr.shape
   device = corr.device
-  sk, sc, state_in_smem = fused_fista.solve_layout(lib, gm)
-  rows = lib.vtc_fista_rows()
   eps, words, iters, classic = fused_fista.stop_scratch(
-      lib, b, gm, group_size, route, eps, device)
-  gn = torch.empty((sk, sc), dtype=torch.float32, device=device)
-  state = (None if state_in_smem and not classic else
-           torch.empty((-(-b // rows), 4, rows, sk), dtype=torch.float32,
-                       device=device))
+      lib, b, gm, group_size, route, eps, device, mxu=mxu)
+  sk, sc, gn, state = fused_fista.solve_scratch(lib, b, gm, mxu, classic,
+                                                device)
   out = torch.empty((b, gm), dtype=torch.float32, device=device)
   taken = ctypes.c_int(0)
   with torch.cuda.device(device):
@@ -220,15 +266,17 @@ def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard,
         ctypes.c_float(1.0 / (b * gm)),
         None if words is None else words.data_ptr(),
         None if iters is None else iters.data_ptr(), 1, None, None,
-        stream)
+        TIER_CODES[mxu], stream)
   if err != 0:
     raise RuntimeError(
         "fused group FISTA kernel launch failed with CUDA error %d "
-        "(b=%d, G*M=%d, M=%d, route %s, state in %s%s)" % (
-            err, b, gm, group_size, route,
+        "(b=%d, G*M=%d, M=%d, route %s, tier %s, state in %s%s)" % (
+            err, b, gm, group_size, route, mxu,
             "shared memory" if state is None else "global",
             "" if words is None else ", early stop"))
   launches += 1
+  if mxu != "highest":
+    tier_launches += 1
   last_route = fused_fista.ROUTE_NAMES[taken.value]
   if iters is not None:
     last_iters = iters

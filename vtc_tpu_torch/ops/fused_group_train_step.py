@@ -36,9 +36,15 @@ batch-global test over the b*G*M packed entries
 the Hessian EMA and the update take the stopped codes; ``last_iters`` (a
 private test hook) is the int32 device tensor (k,) of each step's count.
 
-Left out: the TPU knob ``interpret``; the ``mxu`` tiers other than
-'highest' raise NotImplementedError (ROADMAP.md §1 item 3a.2).
-``launches`` counts the train steps the kernels ran.
+``mxu`` is vtc_tpu's training tier (pallas_train_step.py:541-588): every
+step's group solve runs it (K4's tier kernel, csrc/fista_tier.cuh), and at
+'bf16' c = X Dg^T is one bf16 pass and, where the groups are not the
+identity layout, the summed unpack adds bf16-rounded slots (:691); the
+grouped build, its Gram, the refresh, the update and the regularizer stay
+fp32 in every tier.
+
+Left out: the TPU knob ``interpret``.  ``launches`` counts the train steps
+the kernels ran.
 
 Also here, the port of TPU kernel K7, ``fused_group_solve_stats_pallas``
 (vtc_tpu/ops/pallas_train_step.py:1112-1209, kernel
@@ -69,9 +75,11 @@ from vtc_tpu_torch.dict_update_rules.fully_connected import (
 from vtc_tpu_torch.dict_update_rules.fully_connected import (
     subspace_sc_steepest_descent as sub_sd)
 from vtc_tpu_torch.ops import fused_fista, fused_group_fista, lipschitz
-from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.precision import (TIER_CODES, matmul_precision,
+                                         resolve_tier)
 
 launches = 0
+tier_launches = 0  # the launches above at a tier other than 'highest'
 stats_launches = 0
 
 INFERENCE_ALGS = ("subspace_ista", "subspace_fista")
@@ -136,19 +144,25 @@ def fused_group_train_segment_plain(
     update_alg="subspace_sc_cheap_quadratic_descent", upd_num_iters=1,
     hard=False, renormalize=True, power_iters=12, lowest_code_val=0.001,
     alignment_penalty=0.0, early_stopping_epsilon=None, precision=None,
-    return_stepsize=False):
+    return_stepsize=False, mxu="highest"):
   """The plain PyTorch version of the fused segment, on any device and in
   the inputs' own float type (float64 inputs give the oracle).
 
   ``precision`` is the matmul precision of the solve and the update
   (default 'highest'); 'tensorfloat32' shows what TF32 products would
   cost.  The power refresh always runs at 'highest', as in every tier of
-  the TPU kernel.
+  the TPU kernel.  ``mxu``: the group solve's tier; at 'bf16' c is one
+  bf16 pass and the unpack adds bf16-rounded slots unless the groups are
+  the identity layout.
   """
+  mxu = resolve_tier(mxu)
   d, h, v = dictionary, hessian, eigvec
   s = d.shape[0]
   gather, mask, index = sub.group_layout(group_assignments, s, d.device)
   m = gather.shape[1]
+  sel = group_selection_index(group_assignments)
+  round_unpack = mxu == "bf16" and not (
+      sel.size == s and np.array_equal(sel, np.arange(s)))
   codes = eta = None
   for batch in batches:
     grouped = sub.build_grouped_dictionary(d, gather, mask)
@@ -157,7 +171,10 @@ def fused_group_train_segment_plain(
     flat = fused_group_fista.fused_group_fista_plain(
         batch, grouped, m, sparsity_weight, inf_num_iters, eta,
         variant=variant, hard=hard,
-        early_stopping_epsilon=early_stopping_epsilon, precision=precision)
+        early_stopping_epsilon=early_stopping_epsilon, precision=precision,
+        mxu=mxu, bf16_corr=mxu == "bf16")
+    if round_unpack:
+      flat = flat.to(torch.bfloat16).to(flat.dtype)
     codes = sub.unpack_codes_summed(flat, gather, mask, s, index)
     cheap = update_alg == "subspace_sc_cheap_quadratic_descent"
     if cheap:
@@ -206,7 +223,7 @@ def fused_group_train_segment(
     variant / update_alg / upd_num_iters / hard / renormalize /
       power_iters / lowest_code_val / alignment_penalty: as in vtc_tpu;
       a nonzero penalty needs renormalize (the unit-norm form).
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2).
+    mxu: the training tier, 'highest', 'bf16x5', 'bf16x3' or 'bf16'.
     early_stopping_epsilon: optional; each step's group solve stops by the
       batch-global test over the b*G*M packed entries, on the device.
     return_stepsize: also return the final step's stepsize 1/eigval, a
@@ -221,10 +238,7 @@ def fused_group_train_segment(
     raise ValueError("variant must be 'ista' or 'fista'")
   if update_alg not in UPDATE_ALGS:
     raise ValueError("update_alg must be one of %s" % (UPDATE_ALGS,))
-  if mxu != "highest":
-    raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
-        % (mxu,))
+  mxu = resolve_tier(mxu)
   _require(float(alignment_penalty) == 0.0 or renormalize,
            "the anti-alignment regularizer uses the unit-norm gradient "
            "form: alignment_penalty needs renormalize=True")
@@ -242,7 +256,7 @@ def fused_group_train_segment(
         dictionary, hessian, eigvec, batches, float(sparsity_weight),
         int(inf_num_iters), float(upd_stepsize), group_assignments=groups,
         early_stopping_epsilon=early_stopping_epsilon,
-        return_stepsize=return_stepsize, **flags)
+        return_stepsize=return_stepsize, mxu=mxu, **flags)
   _require(batches.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(batches.device))
@@ -270,18 +284,19 @@ def fused_group_train_segment(
            % dim)
   out = _launch(dictionary, hessian, eigvec, batches.contiguous(), groups,
                 float(sparsity_weight), int(inf_num_iters),
-                float(upd_stepsize), eps=early_stopping_epsilon, **flags)
+                float(upd_stepsize), eps=early_stopping_epsilon, mxu=mxu,
+                **flags)
   return out if return_stepsize else out[:4]
 
 
 def _launch(dictionary, hessian, eigvec, batches, groups, lam, num_iters,
             upd_step, *, variant, update_alg, upd_num_iters, hard,
             renormalize, power_iters, lowest_code_val, alignment_penalty,
-            eps=None):
+            eps=None, mxu="highest"):
   """Allocate state and scratch, copy the group index lists to the
   device, and enqueue the k steps on the current stream; eps the group
-  solves' early stop (None: none)."""
-  global launches, last_iters
+  solves' early stop (None: none), mxu their tier."""
+  global launches, last_iters, tier_launches
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
@@ -291,10 +306,8 @@ def _launch(dictionary, hessian, eigvec, batches, groups, lam, num_iters,
   sel_np = group_selection_index(groups)
   gm = sel_np.size
   identity = gm == s and np.array_equal(sel_np, np.arange(s))
-  rows = lib.vtc_fista_rows()
-  sk, sc, state_in_smem = fused_fista.solve_layout(lib, gm)
   eps, words, iters, classic = fused_fista.stop_scratch(
-      lib, b, gm, m, "auto", eps, device, steps=k)
+      lib, b, gm, m, "auto", eps, device, steps=k, mxu=mxu)
   use_reg = alignment_penalty != 0.0
 
   def empty(*shape):
@@ -321,9 +334,9 @@ def _launch(dictionary, hessian, eigvec, batches, groups, lam, num_iters,
   gram, corr, gcodes = empty(gm, gm), empty(b, gm), empty(b, gm)
   pgram = empty(n, n) if gm > n else None
   resid, grad, eta = empty(b, n), empty(s, n), empty(1)
-  gn = empty(sk, sc)
-  state = (None if state_in_smem and not classic
-           else empty(-(-b // rows), 4, rows, sk))
+  sk, sc, gn, state = fused_fista.solve_scratch(lib, b, gm, mxu, classic,
+                                                device)
+  rounded = empty((b + gm) * n) if mxu == "bf16" else None
 
   def ptr(t):
     return None if t is None else t.data_ptr()
@@ -341,13 +354,16 @@ def _launch(dictionary, hessian, eigvec, batches, groups, lam, num_iters,
         gram.data_ptr(), ptr(pgram), corr.data_ptr(), gcodes.data_ptr(),
         ptr(codes), resid.data_ptr(), grad.data_ptr(), ptr(cmat), ptr(smat),
         ptr(sdm), eta.data_ptr(), sk, sc, gn.data_ptr(), ptr(state),
-        f32(eps), f32(1.0 / (b * gm)), ptr(words), ptr(iters), stream)
+        f32(eps), f32(1.0 / (b * gm)), ptr(words), ptr(iters),
+        TIER_CODES[mxu], ptr(rounded), stream)
   if err != 0:
     raise RuntimeError(
         "fused group train step launch failed with CUDA error %d (k=%d, "
-        "b=%d, s=%d, n=%d, G*M=%d%s)" % (
-            err, k, b, s, n, gm, "" if words is None else ", early stop"))
+        "b=%d, s=%d, n=%d, G*M=%d, tier %s%s)" % (
+            err, k, b, s, n, gm, mxu, "" if words is None else ", early stop"))
   launches += k
+  if mxu != "highest":
+    tier_launches += k
   if iters is not None:
     last_iters = iters
   return d, h, v, gcodes if identity else codes, eta
@@ -424,7 +440,7 @@ def fused_group_solve_stats(dictionary, eigvec, batch, sparsity_weight,
     sparsity_weight, inf_num_iters: Python scalars.
     group_assignments: list of index lists (ragged, may overlap).
     variant / hard / power_iters: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2).
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2.1).
 
   Returns:
     (codes (b, s) summed, cmat (s, s), bmat (s, n), stat (s,), new_eigvec,
@@ -434,7 +450,7 @@ def fused_group_solve_stats(dictionary, eigvec, batch, sparsity_weight,
     raise ValueError("variant must be 'ista' or 'fista'")
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.1"
         % (mxu,))
   groups = tuple(tuple(int(i) for i in g) for g in group_assignments)
   flags = dict(variant=variant, hard=bool(hard), power_iters=int(power_iters))

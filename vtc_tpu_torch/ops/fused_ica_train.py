@@ -27,7 +27,7 @@ reads it (training/ica.py).
 ``fused_ica_segment_supported`` keeps vtc_tpu's "square" and drops its
 TPU rules, the 128-lane alignment of n and the VMEM budget (:86-98): the
 card's kernels take any n and batch.  Left out: the ``mxu`` tiers other
-than 'highest' raise NotImplementedError (ROADMAP.md §1 item 3), and the
+than 'highest' raise NotImplementedError (ROADMAP.md §1 item 3a.2.3), and the
 TPU's ``interpret`` has no counterpart.  ``launches`` counts the train
 steps the kernels ran.
 
@@ -166,7 +166,7 @@ def fused_ica_train_segment(dictionary, inverse_estimate, batches, stepsize,
     batches: (k, b, n) float32, k >= 1.
     stepsize: the ascent stepsize, a Python float.
     refine_iters / upd_num_iters / boost_tol: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3).
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2.3).
 
   Returns:
     (dictionary, inverse, max_residual): new tensors, the inputs are not
@@ -174,7 +174,7 @@ def fused_ica_train_segment(dictionary, inverse_estimate, batches, stepsize,
   """
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.3"
         % (mxu,))
   _require(batches.dim() == 3 and batches.shape[0] >= 1,
            "batches must be (k, b, n) with k >= 1, got %s"
@@ -318,7 +318,7 @@ def ica_solve_stats(dictionary, inverse_estimate, batch, *, refine_iters=5,
     dictionary, inverse_estimate: (n, n) float32 tensors (replicated).
     batch: (b, n) float32, this shard of the batch.
     refine_iters / boost_tol: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a).
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2.3).
 
   Returns:
     (new_inverse (n, n), stat_sum (n, n), residual 0-d): new tensors.  The
@@ -328,7 +328,7 @@ def ica_solve_stats(dictionary, inverse_estimate, batch, *, refine_iters=5,
   """
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.3"
         % (mxu,))
 
   def require(cond, message):
@@ -445,7 +445,7 @@ def fused_ica_dp_train_segment(dictionary, inverse_estimate, batches,
     stepsize: the ascent stepsize, a Python float.
     mesh: the ``parallel.Mesh`` the ranks share.
     refine_iters / upd_num_iters / boost_tol: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a).
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2.3).
 
   Returns:
     (dictionary, inverse, max_residual): new tensors, replicated; the
@@ -453,7 +453,7 @@ def fused_ica_dp_train_segment(dictionary, inverse_estimate, batches,
   """
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.3"
         % (mxu,))
 
   def require(cond, message):

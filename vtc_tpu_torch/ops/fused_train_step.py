@@ -26,12 +26,17 @@ update take the stopped codes; the segment stays one host call with no
 host wait.  ``last_iters`` (a private test hook) is the int32 device
 tensor (k,) of the iterations each step's solve ran.
 
+``mxu`` is vtc_tpu's training tier (pallas_train_step.py:398-411): every
+step's solve runs it (K1's tier kernel, csrc/fista_tier.cuh, its stop on
+the classic stop route), and at 'bf16' c = X D^T is one bf16 pass (both
+operands rounded to bf16, then the fp32 product); the Gram, the power
+refresh and the update stay fp32 in every tier.
+
 Left out: the TPU knobs ``interpret`` and ``batch_tile`` have no
 counterpart on the card (every batch size runs the single-tile
 semantics, which the tiled kernel reproduces, and the stop test is
-batch-global at every size); the ``mxu`` tiers other than 'highest'
-raise NotImplementedError (ROADMAP.md §1 item 3a.2).  ``launches``
-counts the train steps the kernels ran.
+batch-global at every size).  ``launches`` counts the train steps the
+kernels ran.
 
 Also here, the port of TPU kernel K3, ``fused_solve_stats_pallas``
 (vtc_tpu/ops/pallas_train_step.py:940-1007, kernel
@@ -54,9 +59,11 @@ from vtc_tpu_torch.dict_update_rules.fully_connected import (
 from vtc_tpu_torch.dict_update_rules.fully_connected import (
     sc_steepest_descent as sd)
 from vtc_tpu_torch.ops import fused_fista, lipschitz
-from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.precision import (TIER_CODES, matmul_precision,
+                                         resolve_tier)
 
 launches = 0
+tier_launches = 0  # the launches above at a tier other than 'highest'
 stats_launches = 0
 last_iters = None
 
@@ -71,15 +78,17 @@ def fused_train_segment_plain(dictionary, hessian, eigvec, batches,
                               renormalize=True, power_iters=12,
                               lowest_code_val=0.001,
                               early_stopping_epsilon=None, precision=None,
-                              return_stepsize=False):
+                              return_stepsize=False, mxu="highest"):
   """The plain PyTorch version of the fused segment, on any device and
   in the inputs' own float type (float64 inputs give the oracle).
 
   ``precision`` is the matmul precision of the solve and the update
   (default 'highest'); 'tensorfloat32' shows what TF32 products would
   cost.  The power refresh always runs at 'highest', as in every tier of
-  the TPU kernel.
+  the TPU kernel.  ``mxu``: the solve's tier, and at 'bf16' c as one bf16
+  pass (``fused_fista_plain``'s ``bf16_corr``).
   """
+  mxu = resolve_tier(mxu)
   d, h, v = dictionary, hessian, eigvec
   codes = eta = None
   for batch in batches:
@@ -88,7 +97,8 @@ def fused_train_segment_plain(dictionary, hessian, eigvec, batches,
     codes = fused_fista.fused_fista_plain(
         batch, d, sparsity_weight, inf_num_iters, eta,
         variant=variant, nonneg=nonneg, hard=hard,
-        early_stopping_epsilon=early_stopping_epsilon, precision=precision)
+        early_stopping_epsilon=early_stopping_epsilon, precision=precision,
+        mxu=mxu, bf16_corr=mxu == "bf16")
     if update_alg == "sc_cheap_quadratic_descent":
       h = cqd.hessian_diagonal_ema(h, codes)
       d = cqd._update(batch, d, codes, h, upd_stepsize, upd_num_iters,
@@ -126,7 +136,7 @@ def fused_train_segment(dictionary, hessian, eigvec, batches,
       (runtime arguments of the kernels: changing them rebuilds nothing).
     variant / update_alg / upd_num_iters / nonneg / hard / renormalize /
       power_iters / lowest_code_val: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2).
+    mxu: the training tier, 'highest', 'bf16x5', 'bf16x3' or 'bf16'.
     early_stopping_epsilon: optional; each step's solve stops by the
       batch-global test (fused_fista_solve's), decided on the device.
     return_stepsize: also return the final step's stepsize 1/eigval, a
@@ -141,10 +151,7 @@ def fused_train_segment(dictionary, hessian, eigvec, batches,
     raise ValueError("variant must be 'ista' or 'fista'")
   if update_alg not in UPDATE_ALGS:
     raise ValueError("update_alg must be one of %s" % (UPDATE_ALGS,))
-  if mxu != "highest":
-    raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
-        % (mxu,))
+  mxu = resolve_tier(mxu)
   _require(batches.dim() == 3 and batches.shape[0] >= 1,
            "batches must be (k, b, n) with k >= 1, got %s"
            % (tuple(batches.shape),))
@@ -158,7 +165,7 @@ def fused_train_segment(dictionary, hessian, eigvec, batches,
         dictionary, hessian, eigvec, batches, float(sparsity_weight),
         int(inf_num_iters), float(upd_stepsize),
         early_stopping_epsilon=early_stopping_epsilon,
-        return_stepsize=return_stepsize, **flags)
+        return_stepsize=return_stepsize, mxu=mxu, **flags)
   _require(batches.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(batches.device))
@@ -180,25 +187,25 @@ def fused_train_segment(dictionary, hessian, eigvec, batches,
            and int(power_iters) >= 0, "iteration counts must be >= 0")
   out = _launch(dictionary, hessian, eigvec, batches.contiguous(),
                 float(sparsity_weight), int(inf_num_iters),
-                float(upd_stepsize), eps=early_stopping_epsilon, **flags)
+                float(upd_stepsize), eps=early_stopping_epsilon, mxu=mxu,
+                **flags)
   return out if return_stepsize else out[:4]
 
 
 def _launch(dictionary, hessian, eigvec, batches, lam, num_iters, upd_step,
             *, variant, update_alg, upd_num_iters, nonneg, hard,
-            renormalize, power_iters, lowest_code_val, eps=None):
+            renormalize, power_iters, lowest_code_val, eps=None,
+            mxu="highest"):
   """Allocate state and scratch, enqueue the k steps on the current
-  stream; eps the solves' early stop (None: none)."""
-  global launches, last_iters
+  stream; eps the solves' early stop (None: none), mxu their tier."""
+  global launches, last_iters, tier_launches
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
   s = dictionary.shape[0]
   device = batches.device
-  rows = lib.vtc_fista_rows()
-  sk, sc, state_in_smem = fused_fista.solve_layout(lib, s)
   eps, words, iters, classic = fused_fista.stop_scratch(
-      lib, b, s, 1, "auto", eps, device, steps=k)
+      lib, b, s, 1, "auto", eps, device, steps=k, mxu=mxu)
   _require(lib.vtc_power_smem_bytes(min(s, n)) <= fused_fista._SMEM_PER_BLOCK,
            "min(s, n) = %d is too large for the one-block power refresh"
            % min(s, n))
@@ -212,9 +219,9 @@ def _launch(dictionary, hessian, eigvec, batches, lam, num_iters, upd_step,
   gram, corr, codes = empty(s, s), empty(b, s), empty(b, s)
   pgram = empty(n, n) if s > n else None
   resid, grad, eta = empty(b, n), empty(s, n), empty(1)
-  gn = empty(sk, sc)
-  state = (None if state_in_smem and not classic
-           else empty(-(-b // rows), 4, rows, sk))
+  sk, sc, gn, state = fused_fista.solve_scratch(lib, b, s, mxu, classic,
+                                                device)
+  rounded = empty((b + s) * n) if mxu == "bf16" else None
 
   def ptr(t):
     return None if t is None else t.data_ptr()
@@ -232,13 +239,15 @@ def _launch(dictionary, hessian, eigvec, batches, lam, num_iters, upd_step,
         corr.data_ptr(), codes.data_ptr(), resid.data_ptr(),
         grad.data_ptr(), eta.data_ptr(), sk, sc, gn.data_ptr(),
         ptr(state), f32(eps), f32(1.0 / (b * s)), ptr(words), ptr(iters),
-        stream)
+        TIER_CODES[mxu], ptr(rounded), stream)
   if err != 0:
     raise RuntimeError(
         "fused train step launch failed with CUDA error %d (k=%d, b=%d, "
-        "s=%d, n=%d%s)" % (err, k, b, s, n,
-                           "" if words is None else ", early stop"))
+        "s=%d, n=%d, tier %s%s)" % (err, k, b, s, n, mxu,
+                                    "" if words is None else ", early stop"))
   launches += k
+  if mxu != "highest":
+    tier_launches += k
   if iters is not None:
     last_iters = iters
   return d, h, v, codes, eta
@@ -292,7 +301,7 @@ def fused_solve_stats(dictionary, eigvec, batch, sparsity_weight,
     batch: (b, n) float32, this shard of the batch.
     sparsity_weight, inf_num_iters: Python scalars.
     variant / nonneg / hard / power_iters: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2).
+    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2.1).
 
   Returns:
     (codes (b, s), cmat (s, s), bmat (s, n), stat (s,), new_eigvec, eta):
@@ -303,7 +312,7 @@ def fused_solve_stats(dictionary, eigvec, batch, sparsity_weight,
     raise ValueError("variant must be 'ista' or 'fista'")
   if mxu != "highest":
     raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2"
+        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.1"
         % (mxu,))
   flags = dict(variant=variant, nonneg=bool(nonneg), hard=bool(hard),
                power_iters=int(power_iters))

@@ -62,3 +62,123 @@ def matmul_precision(precision=None):
 
 
 _apply(_resolve(_DEFAULT))
+
+
+# The MXU tiers of the fc/subspace solve (vtc_tpu/ops/pallas_train_step.py
+# :103-199): the spelling each entry accepts, resolved to the kernel's own.
+# 'default' is the solvers' and the encode's name for 'bf16'
+# (vtc_tpu/analysis_transforms/fully_connected/ista_fista.py:116-117).
+TIERS = ("highest", "bf16x5", "bf16x3", "bf16")
+# the C entries' tier argument (csrc/fista_tier.cuh's Tier)
+TIER_CODES = {"highest": 0, "bf16": 1, "bf16x3": 2, "bf16x5": 3}
+
+
+def resolve_tier(mxu):
+  """The tier named by ``mxu`` ('default' is 'bf16'); ValueError on an
+  unknown name."""
+  tier = "bf16" if mxu == "default" else mxu
+  if tier not in TIERS:
+    raise ValueError("unknown MXU tier %r; expected one of %s or 'default'"
+                     % (mxu, TIERS))
+  return tier
+
+
+def _bf16(x):
+  """x rounded to bfloat16 (to nearest even), as values of x's type."""
+  return x.to(torch.bfloat16).to(x.dtype)
+
+
+def split_hi_lo(x):
+  """bf16 hi + lo of x (vtc_tpu ``_split_hi_lo``, pallas_train_step.py
+  :103-108): hi + lo carries about 16 significand bits of x.  The terms
+  are returned as values of x's type."""
+  hi = _bf16(x)
+  return hi, _bf16(x - hi)
+
+
+def split3(x):
+  """The exact three-term bf16 split of float32 x (vtc_tpu ``_split3``,
+  :111-126): hi + mid + lo == x, each residual taken in float32."""
+  hi = _bf16(x)
+  r = x - hi
+  mid = _bf16(r)
+  return hi, mid, _bf16(r - mid)
+
+
+def tier_operand(g, mxu):
+  """The iteration operand of ``tier_dot`` for the (s, s) -eta G, formed
+  once per solve (vtc_tpu ``prep_gram`` of ``_make_iter_dot``, :129-169):
+  a tuple of its bf16 terms at the tier, (g,) at 'highest'."""
+  tier = resolve_tier(mxu)
+  if tier == "highest":
+    return (g,)
+  if tier == "bf16":
+    return (_bf16(g),)
+  return split_hi_lo(g) if tier == "bf16x3" else split3(g)
+
+
+def tier_dot(z, operand, mxu):
+  """z @ (-eta G) at the tier (vtc_tpu ``iter_dot``): single-pass bf16
+  products summed in float32, in vtc_tpu's order.  Each pass is a float32
+  product of bf16 values, which is exact in float32 per term; TF32 is
+  off, so only the sums' order differs from the TPU's passes."""
+  tier = resolve_tier(mxu)
+  with matmul_precision("highest"):
+    if tier == "highest":
+      return z @ operand[0]
+    if tier == "bf16":
+      return _bf16(z) @ operand[0]
+    if tier == "bf16x3":
+      g_hi, g_lo = operand
+      z_hi, z_lo = split_hi_lo(z)
+      return z_hi @ g_hi + z_lo @ g_hi + z_hi @ g_lo
+    g_hi, g_mid, g_lo = operand
+    z_hi, z_mid, z_lo = split3(z)
+    return (z_hi @ g_hi + z_mid @ g_hi + z_hi @ g_mid + z_lo @ g_hi
+            + z_hi @ g_lo)
+
+
+def bf16_pass(a, b_t):
+  """a @ b_t.T as one bf16 pass (vtc_tpu ``_dot_t_b``): both operands
+  rounded to bf16, the product in float32 with TF32 off.  The trainers'
+  c = X D^T at 'bf16' (pallas_train_step.py:411, :588)."""
+  with matmul_precision("highest"):
+    return _bf16(a) @ _bf16(b_t).T
+
+
+def prox_window_exact(group_size, mxu):
+  """Whether the group prox sums its windows as one float32 sum at this
+  tier: at 'highest' (the port's own prox), and at every tier for a
+  power-of-two window M, where vtc_tpu's rotate-and-add prox sums in
+  float32 (``roll_prox_window``, :218-245).  Otherwise the tiers take
+  ``_make_prox_dots``' passes (:172-199): ``prox_sums`` and
+  ``prox_scale``."""
+  m = int(group_size)
+  return m & (m - 1) == 0 or resolve_tier(mxu) == "highest"
+
+
+def prox_sums(sq, mxu):
+  """The window sums of squares sq (..., M) at a tier (vtc_tpu ``pdot``
+  against the 0/1 membership operand): each bf16 term of sq summed over
+  the window, the terms' sums added in order (bf16x5 takes the exact
+  three-term split, bf16x3 hi and lo, bf16 one term)."""
+  tier = resolve_tier(mxu)
+  terms = ((_bf16(sq),) if tier == "bf16" else
+           split_hi_lo(sq) if tier == "bf16x3" else split3(sq))
+  total = torch.sum(terms[0], dim=-1, keepdim=True)
+  for term in terms[1:]:
+    total = total + torch.sum(term, dim=-1, keepdim=True)
+  return total
+
+
+def prox_scale(scale, mxu):
+  """A group's scale as its slots receive it at a tier (vtc_tpu
+  ``pdot_t``, the broadcast against the 0/1 operand): bf16(scale), hi +
+  lo, or at bf16x5 the exact split's sum, the scale itself."""
+  tier = resolve_tier(mxu)
+  if tier == "bf16":
+    return _bf16(scale)
+  if tier == "bf16x3":
+    hi, lo = split_hi_lo(scale)
+    return hi + lo
+  return scale

@@ -112,9 +112,17 @@ same dictionary.
   the samples of the single-device run.  Rank 0 writes checkpoints and
   metrics; reset/prune takes rank 0's draw on every rank.
 
+'train_precision' ('highest', 'bf16x5', 'bf16x3', 'bf16') is the tier of
+the single-device fused fc and subspace runners (K2, K6; vtc_tpu :453-470):
+their solves run it, the Gram, refresh and update stay fp32.  As in
+vtc_tpu, a configuration that resolves to a per-step runner keeps full
+precision; on the CPU the fused runners' plain versions run a tier where
+'fc_formulation' is 'pallas' and the power is warm.
+
 Raise NotImplementedError, each naming its ROADMAP.md §1 item:
-'hbm_chunk_steps' streaming (item 8) and 'train_precision' other than
-'highest' (item 3a.2).  Every segment kernel stops its solves on the
+'hbm_chunk_steps' streaming (item 8), and 'train_precision' other than
+'highest' in convolutional mode (item 3a.2.2) or with 'data_parallel'
+(item 3a.2.1).  Every segment kernel stops its solves on the
 device with 'early_stopping_epsilon': the single-device K2, K6 and K12
 (and K1 or K10 in the per-step route), the data-parallel K15, K16 and K17
 and the code-sharded K19, the last four over the global batch.
@@ -131,6 +139,7 @@ from vtc_tpu_torch.ops import fused_dp_train, fused_group_dp_train
 from vtc_tpu_torch.ops import fused_group_train_step
 from vtc_tpu_torch.ops import fused_train_step
 from vtc_tpu_torch.ops import lipschitz as lip
+from vtc_tpu_torch.ops.precision import TIERS
 from vtc_tpu_torch.training import sparse_coding as sc
 
 
@@ -154,17 +163,18 @@ def _segment_runner(raw_step, upd_num_iters, warm_power, lip_matrix_fn):
 
 
 def _fused_segment_runner(variant, update_alg, upd_niters, nonneg, hard,
-                          renormalize, early_eps=None):
+                          renormalize, early_eps=None, mxu="highest"):
   """The whole segment through the fused train kernels, warm tracking
   at power_iters=2 (safe: the trainer seeds the eigenvector exactly);
-  ``early_eps`` stops each step's solve on the device."""
+  ``early_eps`` stops each step's solve on the device; ``mxu`` is the
+  training tier (vtc_tpu :1259-1262)."""
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
     dictionary, hessian, eigvec, _ = fused_train_step.fused_train_segment(
         dictionary, hessian, eigvec, batches, sw, n_it, upd_step,
         variant=variant, update_alg=update_alg, upd_num_iters=upd_niters,
         nonneg=nonneg, hard=hard, renormalize=renormalize, power_iters=2,
-        early_stopping_epsilon=early_eps)
+        early_stopping_epsilon=early_eps, mxu=mxu)
     return dictionary, hessian, eigvec
 
   return run
@@ -172,10 +182,12 @@ def _fused_segment_runner(variant, update_alg, upd_niters, nonneg, hard,
 
 def _fused_group_segment_runner(variant, update_alg, upd_niters, hard,
                                 renormalize, group_assignments,
-                                alignment_penalty, early_eps=None):
+                                alignment_penalty, early_eps=None,
+                                mxu="highest"):
   """The subspace counterpart of ``_fused_segment_runner``: the whole
   segment through the fused group train kernels (the anti-alignment
-  regularizer runs in them too), warm tracking at power_iters=2."""
+  regularizer runs in them too), warm tracking at power_iters=2, at the
+  training tier ``mxu`` (vtc_tpu :1243-1252)."""
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
     dictionary, hessian, eigvec, _ = (
@@ -185,7 +197,7 @@ def _fused_group_segment_runner(variant, update_alg, upd_niters, hard,
             update_alg=update_alg, upd_num_iters=upd_niters, hard=hard,
             renormalize=renormalize, power_iters=2,
             alignment_penalty=alignment_penalty,
-            early_stopping_epsilon=early_eps))
+            early_stopping_epsilon=early_eps, mxu=mxu))
     return dictionary, hessian, eigvec
 
   return run
@@ -378,10 +390,18 @@ def train_dictionary_scanned(training_batches, validation_batches,
   group_assignments = sc.normalize_groups(
       all_params.get("group_assignments"))
   sc.check_supported(mode, inference_alg, update_alg, group_assignments)
-  if all_params.get("train_precision", "highest") != "highest":
+  train_precision = all_params.get("train_precision", "highest")
+  if train_precision not in TIERS:
+    raise ValueError("train_precision must be one of %s, got %r"
+                     % (TIERS, train_precision))
+  if train_precision != "highest" and mode == "convolutional":
     raise NotImplementedError(
-        "train_precision=%r: the reduced-precision tiers wait, ROADMAP.md "
-        "§1 item 3a.2" % (all_params["train_precision"],))
+        "train_precision=%r in convolutional mode: the conv tiers wait, "
+        "ROADMAP.md §1 item 3a.2.2" % (train_precision,))
+  if train_precision != "highest" and all_params.get("data_parallel"):
+    raise NotImplementedError(
+        "train_precision=%r with data_parallel: the data-parallel tiers "
+        "wait, ROADMAP.md §1 item 3a.2.1" % (train_precision,))
   if all_params.get("hbm_chunk_steps") is not None:
     raise NotImplementedError(
         "hbm_chunk_steps (streaming an epoch larger than device memory) "
@@ -436,7 +456,11 @@ def train_dictionary_scanned(training_batches, validation_batches,
   kernels_route = (conv_formulation in ("auto", "pallas")
                    if mode == "convolutional"
                    else resolved_formulation == "pallas")
-  use_fused = device.type == "cuda" and warm_power and kernels_route
+  # the tier runs in the fused segment runners (K2, K6), as vtc_tpu's
+  # runs in its fused kernels only; on the CPU their plain versions take
+  # a tier where a card would run the kernels
+  use_fused = ((device.type == "cuda" or train_precision != "highest")
+               and warm_power and kernels_route)
   def code_shard_plan(s_now):
     """(whether the code-sharded runner takes the configuration at s_now
     rows, its group arrays) -- vtc_tpu :588-628."""
@@ -602,7 +626,8 @@ def train_dictionary_scanned(training_batches, validation_batches,
       return _segment_runner(raw_step, upd_niters, warm_power, lip_matrix)
     if use_fused and group_assignments is None:
       return _fused_segment_runner(inference_alg, update_alg, upd_niters,
-                                   nonneg, hard, renormalize, early_eps)
+                                   nonneg, hard, renormalize, early_eps,
+                                   mxu=train_precision)
     if use_fused and fused_group_train_step.fused_group_segment_supported(
         inference_alg, update_alg, group_assignments,
         alignment_penalty=alignment_penalty,
@@ -611,7 +636,8 @@ def train_dictionary_scanned(training_batches, validation_batches,
         input_size=training_batches.shape[-1], renormalize=renormalize):
       return _fused_group_segment_runner(
           inference_alg[9:], update_alg, upd_niters, hard, renormalize,
-          group_assignments, alignment_penalty, early_eps)
+          group_assignments, alignment_penalty, early_eps,
+          mxu=train_precision)
     return _segment_runner(raw_step, upd_niters, warm_power, lip_matrix)
 
   raw_step = make_step()

@@ -45,8 +45,9 @@ no counterpart here.  Rank 0 writes checkpoints and figures.
 The tensors live on ``device``: the keyword argument, else that of the
 first tensor among the data and the initial dictionary, else the CUDA
 device (raising without one).  Raise NotImplementedError naming its
-ROADMAP.md §1 item: 'train_precision' other than 'highest' (item 3).  The
-per-batch trainer has no data-parallel mode, in vtc_tpu or here.
+ROADMAP.md §1 item: 'train_precision' other than 'highest' (item
+3a.2.3).  The per-batch trainer has no data-parallel mode, in vtc_tpu or
+here.
 """
 import time
 import warnings
@@ -70,7 +71,8 @@ rollbacks = 0
 
 # training tier -> (matmul precision of the refreshes and the codes, the
 # guard's residual tolerance, the boost tolerance), vtc_tpu :143-153; the
-# port runs the parity tier only (the others wait, ROADMAP.md §1 item 3)
+# port runs the parity tier only (the others wait, ROADMAP.md §1 item
+# 3a.2.3)
 _TIERS = {"highest": ("highest", 1e-3, 1e-6)}
 
 
@@ -83,7 +85,7 @@ def _check_common(init_dictionary, all_params):
   if tier != "highest":
     raise NotImplementedError(
         "train_precision=%r: the reduced-precision tiers wait, ROADMAP.md "
-        "§1 item 3" % (tier,))
+        "§1 item 3a.2.3" % (tier,))
 
 
 def _open_logging(all_params, dump_params):
