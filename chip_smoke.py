@@ -76,7 +76,9 @@ caught.
 
 The phases that check a refusal (a tier the kernels do not have yet, or
 K13's early stop, which vtc_tpu's K13 lacks too) require
-NotImplementedError and no launch of the kernel.  CUDA_TESTS below maps
+NotImplementedError and no launch of the kernel; phases 26 and 33 hold
+the tiers K3, K7, K15 and K16 refused before phase 47 to their plain
+versions instead.  CUDA_TESTS below maps
 each test marked cuda to the phases that make its check here.
 
 1. Device and build: requires CUDA (there is no CPU path), prints the
@@ -560,6 +562,38 @@ each test marked cuda to the phases that make its check here.
    installed torch offers one; the median of 7 turns, and their range);
    the STOP build at bf16x3 alike at its count; the encodes' patches/s at
    each tier against 'highest'.
+47. The precision tiers of the data-parallel fc and subspace kernels K3,
+   K7, K15 and K16 (the tier kernel of phase 46 inside K2's and K6's first
+   halves; at 'bf16' c as one bf16 pass and, in K7, every code slot
+   rounded, the identity layout's too).  Flagship rows (bench.py:796-827:
+   b 250, s = n = 256, FISTA 25, cheap-quadratic, 64 contiguous groups of
+   4).  (a) One step at each tier: K3 and K7 on a shard of 125, K15 and
+   K16 at a world of 1, against the plain version at the tier under
+   tier_verdict's three rules (the spread under five one-ulp nudges of the
+   input); the kernel's result at each other tier and at 'highest',
+   planted in each tier's place, must fail; at 'bf16' on the identity
+   layout K7's codes are bf16-rounded and K16's are not.  (b) K15 and K16
+   with the stop at each tier at a world of 1, eps at k = 1, mid-run and
+   never: the plain version's count, bitwise the tier kernel without the
+   stop at that count.  (c) A world of 2, two processes of this script
+   sharing the card over gloo: the scanned fc and subspace trainers with
+   data_parallel=True at bf16x3 and bf16 for 10 steps without and with a
+   mid-run stop (K15, K16; the stop's share summed over the ranks an
+   iteration), and on make_mesh(dcn=2) at bf16x3 (K3, K7): both ranks
+   bitwise equal with the same counts, 10 tier steps a rank, the counts of
+   the world of 1, within the larger of DP_FLOOR, the tier's floor and the
+   world of 1's spread.  (d) The main path at each tier, its tier counts
+   zeroed before and read after: the data-parallel fc and subspace
+   trainers at a world of 1 for one 1,000-step segment each (1,000 K15 and
+   1,000 K16 tier steps), the 'dcn' composition for 50 steps of each (50
+   K3 and 50 K7), the fc and subspace encode_dataset(data_parallel=True)
+   of phases 3 and 9 (16 K1 and 16 K4); every dictionary finite and unit
+   norm within 1e-4, its held-out loss falling, the trainers' at bf16x3
+   within 10% of phases 6 and 11's 'highest'.  (e) In turns, each tier
+   step's ms against the 'highest' route on the same inputs, the plain
+   version's, the bound (the solve's passes at 989 TFLOP/s beside the fp32
+   products at 67) and the library time (the step's solve passes as
+   products of bf16 operands, the median of 7 turns).
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -656,6 +690,10 @@ CUDA_TESTS = {
         6,),
     "test_torch_port_tiers.py::test_cuda_tier_kernel_matches_plain": (46,),
     "test_torch_port_tiers.py::test_cuda_tier_stop_matches_plain": (46,),
+    "test_torch_port_dp_tiers.py::test_cuda_solve_stats_tiers_match_plain": (
+        26, 47),
+    "test_torch_port_dp_tiers.py::test_cuda_dp_segment_tiers_match_plain": (
+        33, 47),
 }
 
 
@@ -2084,11 +2122,22 @@ def dp_kernel_cases(torch, parallel, K2, K6, K8, ica, sub, lipschitz,
         torch, "K9 update == K8 step, upd %d" % upd,
         ("dictionary", "inverse", "residual"), dp, k8,
         [t.double() for t in k8], ilimits))
-  # the refusals on a CUDA tensor
-  check_refuses("K3 mxu='bf16x3'", lambda: K2.fused_solve_stats(
-      d, v, x, LAM, 5, mxu="bf16x3"), "3a")
-  check_refuses("K7 mxu='bf16'", lambda: K6.fused_group_solve_stats(
-      d, v, x, LAM, 5, group_assignments=flag_g, mxu="bf16"), "3a")
+  # the tiers on a CUDA tensor: K3 and K7 run them (phase 47 holds them
+  # to their plain versions at the flagship); K9's still wait
+  xt = torch.tensor(train_patches[:TRAIN_BATCH // 2], device=dev)
+  dt = torch.tensor(flag_d, device=dev)
+  vt = lipschitz.top_gram_eigenpair(dt)[1].contiguous()
+  check_tier_runs(torch, "K3 mxu='bf16x3'", lambda xx, mxu: (
+      K2.fused_solve_stats(dt, vt, xx, LAM, 5, mxu=mxu)),
+                  lambda xx, mxu: K2.fused_solve_stats_plain(
+                      dt, vt, xx, LAM, 5, mxu=mxu), xt, K2,
+                  "stats_tier_launches", "bf16x3")
+  check_tier_runs(torch, "K7 mxu='bf16'", lambda xx, mxu: (
+      K6.fused_group_solve_stats(dt, vt, xx, LAM, 5,
+                                 group_assignments=flag_g, mxu=mxu)),
+                  lambda xx, mxu: K6.fused_group_solve_stats_plain(
+                      dt, vt, xx, LAM, 5, group_assignments=flag_g,
+                      mxu=mxu), xt, K6, "stats_tier_launches", "bf16")
   check_refuses("K9 mxu='bf16x3'", lambda: K8.ica_solve_stats(
       d0, x0, xb, mxu="bf16x3"), "3a")
   return k3_err, k7_err, k9_err
@@ -2725,9 +2774,12 @@ def dp_segment_kernel_cases(torch, parallel, K15, K16, K8, sub, lipschitz,
   tf32_control(torch, "K15 plain", SEG_NAMES, K15.fused_dp_train_plain(
       flag_d, h, v, x, LAM, TRAIN_ITERS, TRAIN_STEP,
       precision="tensorfloat32", **kw), want64)
-  check_refuses("K15 mxu='bf16x3'", lambda: K15.fused_dp_train_segment(
-      flag_d, h, v, x[:2], LAM, 5, TRAIN_STEP, mxu="bf16x3", **kw), "3a.2",
-                K15)
+  check_tier_runs(torch, "K15 mxu='bf16x3'", lambda xx, mxu: (
+      K15.fused_dp_train_segment(flag_d, h, v, xx, LAM, 5, TRAIN_STEP,
+                                 mxu=mxu, **kw)),
+                  lambda xx, mxu: K15.fused_dp_train_plain(
+                      flag_d, h, v, xx, LAM, 5, TRAIN_STEP, mxu=mxu, **kw),
+                  x[:2].contiguous(), K15, "tier_launches", "bf16x3", 2)
   check_runs("K15 early_stopping_epsilon", lambda: K15.fused_dp_train_segment(
       flag_d, h, v, x[:2], LAM, 5, TRAIN_STEP, early_stopping_epsilon=1e-3,
       **kw), K15)
@@ -2771,8 +2823,12 @@ def dp_segment_kernel_cases(torch, parallel, K15, K16, K8, sub, lipschitz,
   tf32_control(torch, "K16 plain", SEG_NAMES, K16.fused_group_dp_train_plain(
       flag_d, h, v, gx, LAM, TRAIN_ITERS, SUB_STEP,
       precision="tensorfloat32", **gkw), want64)
-  check_refuses("K16 mxu='bf16'", lambda: K16.fused_group_dp_train_segment(
-      flag_d, h, v, gx[:2], LAM, 5, SUB_STEP, mxu="bf16", **gkw), "3a.2", K16)
+  check_tier_runs(torch, "K16 mxu='bf16'", lambda xx, mxu: (
+      K16.fused_group_dp_train_segment(flag_d, h, v, xx, LAM, 5, SUB_STEP,
+                                       mxu=mxu, **gkw)),
+                  lambda xx, mxu: K16.fused_group_dp_train_plain(
+                      flag_d, h, v, xx, LAM, 5, SUB_STEP, mxu=mxu, **gkw),
+                  gx[:2].contiguous(), K16, "tier_launches", "bf16", 2)
   check_runs("K16 early_stopping_epsilon", lambda: (
       K16.fused_group_dp_train_segment(flag_d, h, v, gx[:2], LAM, 5,
                                        SUB_STEP, early_stopping_epsilon=1e-3,
@@ -5694,6 +5750,552 @@ def tier_phase(torch, dev, card, patches, train_patches, data):
               stop_its=stop_its, stop_times=stop_times)
 
 
+# ---------------------------------------------------------------------------
+# phase 47: the precision tiers of the data-parallel fc and subspace kernels
+# (K3, K7, K15, K16), the data-parallel trainers and the data-parallel encode
+# ---------------------------------------------------------------------------
+DP_TIER_STEPS = 10        # the world-of-2 runs, with and without the stop
+DP_TIER_DCN_STEPS = 50    # each tier's 'dcn' composition on the main path
+DP_TIER_TIME_STEPS = 20   # the steps of each timed K15 / K16 segment
+DP_TIER_WORLD = ("bf16x3", "bf16")  # the tiers of the world of 2
+DP_TIER_CHILD_TIMEOUT = 600  # seconds a rank of phase 47 may take
+
+
+def dp_tier_bound(b, s, n, iters, tier, upd_iters=0, power_iters=2):
+  """K3 / K7 (upd_iters 0) or a K15 / K16 step at a tier: the solve's
+  passes at the bf16 tensor-core rate beside the fp32 products (G, c, the
+  refresh, C = codes^T codes, B = codes^T X and each update's C D) at the
+  fp32 rate, the two units' least times overlapped; reading X and D and
+  writing C, B and stat (a segment step: D)."""
+  solve = 2.0 * b * s * s * iters * TIER_PASSES[tier] / BF16_PEAK
+  rest = (2.0 * s * s * n + 2.0 * b * s * n + 2.0 * power_iters * s * s
+          + 2.0 * b * s * s + 2.0 * b * s * n
+          + 2.0 * upd_iters * s * s * n) / FP32_PEAK
+  written = s * n if upd_iters else s * s + s * n + s
+  t_ops, t_bytes = (max(solve, rest),
+                    4.0 * (b * n + s * n + written) / HBM_RATE)
+  return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+
+def flat_cat(torch, out):
+  """The outputs of a call, each flattened, as one float64 vector."""
+  out = out if isinstance(out, (tuple, list)) else (out,)
+  return torch.cat([t.double().reshape(-1) for t in out])
+
+
+def check_tier_runs(torch, label, run, plain, x, mod, counter, tier,
+                    steps=1):
+  """A tier one of K3, K7, K15 and K16 refused before phase 47 (phases 26
+  and 33): run(x, mxu) launches its kernel at the tier, ``steps`` more on
+  mod.<counter>, and stands within tier_verdict's bound of plain(x, mxu),
+  the larger of the tier's floor and the plain version's spread under five
+  one-ulp nudges of x."""
+  before = getattr(mod, counter)
+  got = flat_cat(torch, run(x, tier))
+  check(getattr(mod, counter) == before + steps, "%s launched %d tier steps,"
+        " expected %d" % (label, getattr(mod, counter) - before, steps))
+  plains = {m: flat_cat(torch, plain(x, m)) for m in ("highest", tier)}
+  v = tier_verdict(torch, got, flat_cat(torch, run(x, "highest")), plains,
+                   [flat_cat(torch, plain(one_ulp_nudge(x, seed), tier))
+                    for seed in range(5)], tier)
+  check(v["ok"]["bound"], "%s: max|d| %.3e from plain at the tier, bound "
+        "%.3e" % (label, v["err"], v["bound"]))
+  print("runs on the card at its tier: %s, max|d| %.3e from plain (bound "
+        "%.3e)" % (label, v["err"], v["bound"]))
+
+
+def dp_tier_inputs(torch, lipschitz, train_patches, gtrain, dev):
+  """Phase 47's flagship data-parallel rows (bench.py:796-827: b 250,
+  s = n = 256, FISTA 25, cheap-quadratic, 64 contiguous groups of 4): a
+  dictionary, a zero Hessian EMA, its exact eigenvector seed (Dg = D for
+  the contiguous groups) and DP_TIER_TIME_STEPS batches of fc and of
+  group-sparse training patches, on the card."""
+  d = torch.tensor(unit_rows(np.random.RandomState(47), 256, 256),
+                   device=dev)
+  shape = (DP_TIER_TIME_STEPS, TRAIN_BATCH, 256)
+  num = DP_TIER_TIME_STEPS * TRAIN_BATCH
+  fc = torch.tensor(train_patches[:num].reshape(shape), device=dev)
+  gx = torch.tensor(gtrain[:num].reshape(shape), device=dev)
+  v = lipschitz.top_gram_eigenpair(d)[1].contiguous()
+  return d, torch.zeros(256, device=dev), v, fc, gx
+
+
+def dp_tier_families(K3, K7, K15, K16, mesh1, inputs):
+  """{label: (module, kernel(x, mxu, eps=None, iters=None), plain(x, mxu,
+  eps=None), input)} of the four kernels at the flagship rows: K3 and K7
+  on a shard of 125, K15 and K16 one step of 250 on a mesh of one."""
+  d, h, v, fc, gx = inputs
+  groups = contiguous_groups(256, GROUP_SIZE)
+  seg = dict(mesh=mesh1, power_iters=2)
+
+  def k3(x, mxu, eps=None, iters=None):
+    return K3.fused_solve_stats(d, v, x, LAM, TRAIN_ITERS, power_iters=2,
+                                mxu=mxu)
+
+  def k7(x, mxu, eps=None, iters=None):
+    return K7.fused_group_solve_stats(d, v, x, LAM, TRAIN_ITERS,
+                                      group_assignments=groups,
+                                      power_iters=2, mxu=mxu)
+
+  def k15(x, mxu, eps=None, iters=None):
+    return K15.fused_dp_train_segment(
+        d, h, v, x, LAM, TRAIN_ITERS if iters is None else iters, TRAIN_STEP,
+        mxu=mxu, early_stopping_epsilon=eps, **seg)
+
+  def k16(x, mxu, eps=None, iters=None):
+    return K16.fused_group_dp_train_segment(
+        d, h, v, x, LAM, TRAIN_ITERS if iters is None else iters, SUB_STEP,
+        group_assignments=groups, mxu=mxu, early_stopping_epsilon=eps,
+        **seg)
+
+  return {
+      "K3": (K3, k3,
+             lambda x, mxu, eps=None: K3.fused_solve_stats_plain(
+                 d, v, x, LAM, TRAIN_ITERS, power_iters=2, mxu=mxu),
+             fc[0, :TRAIN_BATCH // 2].contiguous()),
+      "K7": (K7, k7,
+             lambda x, mxu, eps=None: K7.fused_group_solve_stats_plain(
+                 d, v, x, LAM, TRAIN_ITERS, group_assignments=groups,
+                 power_iters=2, mxu=mxu),
+             gx[0, :TRAIN_BATCH // 2].contiguous()),
+      "K15": (K15, k15,
+              lambda x, mxu, eps=None: K15.fused_dp_train_plain(
+                  d, h, v, x, LAM, TRAIN_ITERS, TRAIN_STEP, mxu=mxu,
+                  early_stopping_epsilon=eps, **seg), fc[:1]),
+      "K16": (K16, k16,
+              lambda x, mxu, eps=None: K16.fused_group_dp_train_plain(
+                  d, h, v, x, LAM, TRAIN_ITERS, SUB_STEP,
+                  group_assignments=groups, mxu=mxu,
+                  early_stopping_epsilon=eps, **seg), gx[:1])}
+
+
+def dp_tier_one_step(torch, families):
+  """(a) One step of each kernel at each tier against its plain version at
+  the tier under tier_verdict's three rules, the spread under five
+  one-ulp nudges of the input; then the kernel's result at each other
+  tier and at 'highest' planted in each tier's place, which must fail.
+  At 'bf16' K7 on the identity layout returns bf16-rounded codes and K16
+  does not (vtc_tpu's K7 unpack has no identity shortcut, its K16 does).
+  Returns ({(K, tier): err}, [(K, tier, planted tier, rules failed)])."""
+  errs, planted = {}, []
+  for name, (mod, run, plain, x) in families.items():
+    outs = {mxu: flat_cat(torch, run(x, mxu))
+            for mxu in ("highest",) + TIER_NAMES}
+    plains = {mxu: flat_cat(torch, plain(x, mxu))
+              for mxu in ("highest",) + TIER_NAMES}
+    for tier in TIER_NAMES:
+      nudged = [flat_cat(torch, plain(one_ulp_nudge(x, seed), tier))
+                for seed in range(5)]
+      errs[name, tier] = tier_check(torch, name + " one step", outs[tier],
+                                    outs["highest"], plains, nudged,
+                                    tier)["err"]
+      for wrong in ("highest",) + TIER_NAMES:
+        if wrong == tier:
+          continue
+        v = tier_verdict(torch, outs[wrong], outs["highest"], plains, nudged,
+                         tier)
+        failed = [rule for rule, ok in v["ok"].items() if not ok]
+        planted.append((name, tier, wrong, failed))
+        print("tier planted %s: %s in place of %s fails %s" % (
+            name, wrong, tier, ", ".join(failed) or "NOTHING"))
+        check(failed, "tier %s: the kernel at %s passes every rule held for "
+              "%s" % (name, wrong, tier))
+  rounded = {}
+  for name, index in (("K7", 0), ("K16", 3)):
+    run, x = families[name][1], families[name][3]
+    codes = run(x, "bf16")[index]
+    rounded[name] = bool(torch.equal(codes,
+                                     codes.to(torch.bfloat16).float()))
+  print("tier K7 and K16 at bf16 on the identity layout: codes bf16-exact "
+        "%s" % rounded)
+  check(rounded == {"K7": True, "K16": False}, "at bf16 on the identity "
+        "layout K7 must round its codes and K16 must not: %s" % rounded)
+  return errs, planted
+
+
+def dp_tier_stop_cases(torch, families):
+  """(b) K15 and K16 at a world of 1 with the stop at each tier, eps at
+  k = 1, mid-run and never (stop_eps from the plain version's means at
+  the tier): the count the plain version's (a case whose plain mean lies
+  within 1e-3 relative of eps is reported apart), the result bitwise the
+  tier kernel's without the stop at that count.  Returns (cases, {(K,
+  tier): counts}, near)."""
+  cases, out, near = 0, {}, []
+  for name in ("K15", "K16"):
+    mod, run, plain, x = families[name]
+    for tier in TIER_NAMES:
+      plain(x, tier, 0.0)
+      avgs = solver_state()[1]
+      counts = []
+      for which in ("early", "mid", "never"):
+        eps = stop_eps(avgs, which)
+        got = flat_cat(torch, run(x, tier, eps))
+        it = int(mod.last_iters[0].item())
+        ref = flat_cat(torch, run(x, tier, iters=it))
+        plain(x, tier, eps)
+        plain_it, plain_avgs = solver_state()
+        label = "%s %s eps %s (%.4g)" % (name, tier, which, eps)
+        check(torch.equal(got, ref), "%s: the stopped step (%d it) differs "
+              "from the tier kernel's without the stop at that count" % (
+                  label, it))
+        if eps > 0 and any(abs(a - eps) <= 1e-3 * eps for a in plain_avgs):
+          near.append("%s: kernel %d it, plain %d" % (label, it, plain_it))
+        else:
+          check(it == plain_it, "%s: the kernel ran %d iterations, the plain"
+                " version %d" % (label, it, plain_it))
+        counts.append(it)
+        cases += 1
+      out[name, tier] = counts
+      print("tier stop %s %s at a world of 1: counts %s (early, mid, never)"
+            ", the plain version's; bitwise the kernel without the stop at "
+            "the count" % (name, tier, counts))
+  return cases, out, near
+
+
+def dp_tier_rank_main(rank, world, workdir):
+  """The hidden sub-command: one rank of phase 47's world of 2.  Joins the
+  gloo group over the file store in ``workdir`` and runs the scanned fc
+  and subspace trainers with data_parallel=True (K15 and K16 on shards of
+  125) for DP_TIER_STEPS steps at each tier of DP_TIER_WORLD, without and
+  with the stop at the eps of inputs.npz, then on a mesh of two slices
+  (make_mesh(dcn=2): K3's and K7's composition) at bf16x3; saves each
+  dictionary, the counts and the tier launches to ``workdir``."""
+  import os
+  import torch
+  import torch.distributed as dist
+  from vtc_tpu_torch import parallel
+  from vtc_tpu_torch.ops import fused_dp_train as K15
+  from vtc_tpu_torch.ops import fused_group_dp_train as K16
+  from vtc_tpu_torch.ops import fused_group_train_step as K7
+  from vtc_tpu_torch.ops import fused_train_step as K3
+  from vtc_tpu_torch.training import compiled_epoch
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device", file=sys.stderr)
+    return 1
+  dev = torch.device("cuda", 0)
+  data = dict(np.load(os.path.join(workdir, "inputs.npz")))
+  dist.init_process_group("gloo", init_method="file://" + os.path.join(
+      workdir, "store"), rank=rank, world_size=world)
+  try:
+    out = {}
+    runs = dp_tier_world_runs()
+    for key, family, tier, stop, dcn in runs:
+      mod = ((K3 if family == "fc" else K7) if dcn > 1 else
+             (K15 if family == "fc" else K16))
+      counter = "stats_tier_launches" if dcn > 1 else "tier_launches"
+      x = data[family]
+      params = dict(dp_tier_params(family), train_precision=tier,
+                    data_parallel=(True if dcn == 1
+                                   else parallel.make_mesh(dcn=dcn)))
+      if stop:
+        params["early_stopping_epsilon"] = float(data["eps %s %s" % (
+            family, tier)])
+      setattr(mod, counter, 0)
+      got = compiled_epoch.train_dictionary_scanned(x, x[:1], data["d"],
+                                                    params, device=dev)
+      torch.cuda.synchronize()
+      out[key + " dictionary"] = got.cpu().numpy()
+      out[key + " launches"] = np.array(getattr(mod, counter))
+      if stop:
+        out[key + " counts"] = mod.last_iters.cpu().numpy()
+    np.savez(os.path.join(workdir, "rank%d.npz" % rank), **out)
+  finally:
+    dist.destroy_process_group()
+  return 0
+
+
+def dp_tier_params(family):
+  """The scanned trainer's parameters of phase 47's world-of-2 runs."""
+  if family == "fc":
+    return train_params(DP_TIER_STEPS)
+  return subspace_train_params(DP_TIER_STEPS, SUB_STEP)
+
+
+def dp_tier_world_runs():
+  """(key, family, tier, with the stop, dcn) of the world of 2's runs."""
+  runs = [("%s %s%s" % (family, tier, " stop" if stop else ""), family, tier,
+           stop, 1) for tier in DP_TIER_WORLD
+          for family in ("fc", "subspace") for stop in (False, True)]
+  runs += [("%s bf16x3 dcn=2" % family, family, "bf16x3", False, 2)
+           for family in ("fc", "subspace")]
+  return runs
+
+
+def dp_tier_world_of_two(torch, compiled_epoch, parallel, mesh1, families,
+                         inputs):
+  """(c) The world of 2 (dp_tier_rank_main in two processes of this script
+  sharing the card over gloo, phase 45's launcher) against the same
+  trainer at a world of 1 on the whole batches: both ranks bitwise equal
+  with the same counts; DP_TIER_STEPS tier steps on each rank; the counts
+  of the world of 1 (a near eps reported apart); every dictionary within
+  the larger of DP_FLOOR, the tier's floor and the world of 1's spread
+  under five one-ulp nudges of its batches and start.  Returns ({key:
+  (max|d| from the world of 1, bound)}, seconds)."""
+  import os
+  import tempfile
+  d, h, v, fc, gx = inputs
+  xs = {"fc": fc[:DP_TIER_STEPS].contiguous(),
+        "subspace": gx[:DP_TIER_STEPS].contiguous()}
+  data = {"d": d.cpu().numpy(), "fc": xs["fc"].cpu().numpy(),
+          "subspace": xs["subspace"].cpu().numpy()}
+  for family, name in (("fc", "K15"), ("subspace", "K16")):
+    plain, x = families[name][2], families[name][3]
+    for tier in DP_TIER_WORLD:
+      plain(x, tier, 0.0)
+      data["eps %s %s" % (family, tier)] = np.array(
+          stop_eps(solver_state()[1], "mid"))
+  t0 = time.perf_counter()
+  with tempfile.TemporaryDirectory() as workdir:
+    np.savez(os.path.join(workdir, "inputs.npz"), **data)
+    codes, dt = spawn_ranks("--tier-rank", 2, workdir, DP_TIER_CHILD_TIMEOUT)
+    check(codes == [0, 0], "a rank of phase 47's world of 2 failed: exit "
+          "codes %s" % codes)
+    ranks = [dict(np.load(os.path.join(workdir, "rank%d.npz" % r)))
+             for r in range(2)]
+  print("phase 47: 2 processes sharing one card over gloo done in %.1f s"
+        % dt)
+  results = {}
+  for key, family, tier, stop, dcn in dp_tier_world_runs():
+    for what in ("dictionary", "counts"):
+      if key + " " + what in ranks[0]:
+        check(np.array_equal(ranks[0][key + " " + what],
+                             ranks[1][key + " " + what]),
+              "phase 47 world of 2 %s: the ranks' %s differ" % (key, what))
+    launches = [int(r[key + " launches"]) for r in ranks]
+    check(launches == [DP_TIER_STEPS] * 2, "phase 47 world of 2 %s: tier "
+          "launches %s, expected %d a rank" % (key, launches, DP_TIER_STEPS))
+    params = dict(dp_tier_params(family), train_precision=tier)
+    if stop:
+      params["early_stopping_epsilon"] = float(data["eps %s %s" % (family,
+                                                                   tier)])
+    if dcn > 1:
+      # the composition a 'dcn' mesh takes, on a mesh of one
+      runner = dp_tier_dcn_runner(parallel, compiled_epoch, mesh1, family,
+                                  tier)
+
+      def one(x, dd):
+        return runner(dd, torch.zeros(256, device=dd.device),
+                      dp_tier_seed(dd), x, LAM,
+                      TRAIN_ITERS, TRAIN_STEP if family == "fc"
+                      else SUB_STEP)[0]
+    else:
+
+      def one(x, dd):
+        return compiled_epoch.train_dictionary_scanned(
+            x, x[:1], dd, dict(params, data_parallel=True))
+    want = one(xs[family], d)
+    single_counts = None
+    if stop:
+      mod = families["K15" if family == "fc" else "K16"][0]
+      single_counts = mod.last_iters.tolist()
+    moved = max(float((one(one_ulp_nudge(xs[family], seed),
+                           one_ulp_nudge(d, seed + 5)) - want).abs().max())
+                for seed in range(5))
+    bound = max(DP_FLOOR, TIER_FLOOR[tier] * max(
+        1.0, float(want.abs().max())), moved)
+    err = float(np.abs(ranks[0][key + " dictionary"]
+                       - want.cpu().numpy()).max())
+    results[key] = (err, bound)
+    note = ""
+    if stop:
+      counts = ranks[0][key + " counts"].tolist()
+      note = "; counts %s (world of 1: %s)" % (counts, single_counts)
+      check(counts == single_counts, "phase 47 world of 2 %s: counts %s, "
+            "the world of 1's %s" % (key, counts, single_counts))
+      check(min(counts) < TRAIN_ITERS, "phase 47 world of 2 %s: no solve "
+            "stopped early" % key)
+    print("world of 2 %s: ranks bitwise equal, %d tier steps a rank%s; "
+          "max|d| %.3e from the world of 1 (bound %.3e)" % (
+              key, DP_TIER_STEPS, note, err, bound))
+    check(np.isfinite(ranks[0][key + " dictionary"]).all() and err <= bound,
+          "phase 47 world of 2 %s differs from the world of 1 by %.3e > %.3e"
+          % (key, err, bound))
+  return results, time.perf_counter() - t0
+
+
+def dp_tier_seed(d):
+  """The trainers' exact eigenvector seed, fc and subspace alike (Dg = D
+  for the contiguous groups)."""
+  from vtc_tpu_torch.ops import lipschitz
+  return lipschitz.top_gram_eigenpair(d)[1].contiguous()
+
+
+def dp_tier_dcn_runner(parallel, compiled_epoch, mesh, family, tier):
+  """The composition the scanned trainer runs on a mesh with a 'dcn' axis
+  (compiled_epoch._dp_fused_segment_runner of build_dp_fused_local_step or
+  its group twin, K3 or K7 a step) on ``mesh``, at the tier."""
+  common = dict(power_iters=2, mxu=tier)
+  if family == "fc":
+    local = parallel.build_dp_fused_local_step(
+        mesh, "fista", "sc_cheap_quadratic_descent", **common)
+  else:
+    local = parallel.build_dp_group_fused_local_step(
+        mesh, "subspace_fista", "subspace_sc_cheap_quadratic_descent",
+        group_assignments=contiguous_groups(256, GROUP_SIZE), **common)
+  return compiled_epoch._dp_fused_segment_runner(local)
+
+
+def dp_tier_main_path(torch, mods, compiled_epoch, parallel, encode_dataset,
+                      ista_fista, sub, sparse_coding, mesh1, data):
+  """(d) The main path at each tier, every tier count zeroed before and
+  read after: the data-parallel fc and subspace trainers at a world of 1,
+  one 1,000-step segment each of phases 6 and 11's data and start
+  (1,000 K15 and 1,000 K16 tier steps); the 'dcn' composition for
+  DP_TIER_DCN_STEPS steps of each (K3, K7); the fc and subspace
+  encode_dataset(data_parallel=True) of phases 3 and 9 (16 K1 and 16 K4
+  tier launches).  Every dictionary finite and unit norm within 1e-4, its
+  held-out loss falling, and at bf16x3 within 10% of phases 6 and 11's
+  'highest' runs.  Returns {(module, tier): tier launches}."""
+  K1, K4, K3, K7, K15, K16 = mods
+  counters = ((K1, "tier_launches"), (K4, "tier_launches"),
+              (K3, "stats_tier_launches"), (K7, "stats_tier_launches"),
+              (K15, "tier_launches"), (K16, "tier_launches"))
+  counts, trained = {}, {}
+  want = {K1: NUM_BATCHES, K4: NUM_BATCHES, K3: DP_TIER_DCN_STEPS,
+          K7: DP_TIER_DCN_STEPS, K15: TRAIN_STEPS, K16: TRAIN_STEPS}
+  for tier in TIER_NAMES:
+    for mod, counter in counters:
+      setattr(mod, counter, 0)
+    for groups in (None, data["groups"]):
+      codes = encode_dataset(data["patches"], data["dictionary"], LAM, ITERS,
+                             batch_size=BATCH, chunk_batches=4,
+                             group_assignments=groups, mxu_precision=tier,
+                             data_parallel=True)
+      check(codes.shape == (data["patches"].shape[0], 256)
+            and bool(np.isfinite(codes).all()), "data-parallel encode at %s:"
+            " codes of shape %s, finite %s" % (tier, codes.shape,
+                                               np.isfinite(codes).all()))
+    for family, batches, params in (
+        ("fc", data["batches"], data["params"]),
+        ("subspace", data["gbatches"], data["gparams"])):
+      trained[family, tier] = compiled_epoch.train_dictionary_scanned(
+          batches, data["held_out" if family == "fc" else "gheld"][None],
+          data["d0"], dict(params, train_precision=tier, data_parallel=True))
+      runner = dp_tier_dcn_runner(parallel, compiled_epoch, mesh1, family,
+                                  tier)
+      trained[family + " dcn", tier] = runner(
+          data["d0"], torch.zeros(256, device=data["d0"].device),
+          dp_tier_seed(data["d0"]),
+          batches[:DP_TIER_DCN_STEPS].contiguous(), LAM, TRAIN_ITERS,
+          TRAIN_STEP if family == "fc" else SUB_STEP)[0]
+    torch.cuda.synchronize()
+    for mod, counter in counters:
+      counts[mod, tier] = getattr(mod, counter)
+    print("tier data-parallel main path %s: tier launches K1 %d, K4 %d, K3 "
+          "%d, K7 %d, K15 %d, K16 %d" % (
+              tier, *(counts[m, tier] for m, _ in counters)))
+    for mod, _ in counters:
+      check(counts[mod, tier] == want[mod], "expected %d %s launches of %s,"
+            " counted %d" % (want[mod], tier, mod.__name__,
+                             counts[mod, tier]))
+  for (kind, tier), dd in trained.items():
+    if kind.startswith("fc"):
+      loss = held_out_loss(torch, ista_fista, sparse_coding,
+                           data["held_out"], dd)
+      ref, start = data["loss1"], data["loss0"]
+    else:
+      loss = held_out_group_loss(torch, sub, sparse_coding, data["gheld"],
+                                 dd, data["groups"])
+      ref, start = data["gloss1"], data["gloss0"]
+    norm_err = float((torch.linalg.vector_norm(dd, dim=1) - 1).abs().max())
+    print("tier data-parallel trainer %s %s: rows unit norm within %.2e; "
+          "held-out loss %.8f -> %.8f ('highest' 1,000 steps on one device "
+          "%.8f, %+.4f%%)" % (kind, tier, norm_err, start, loss, ref,
+                              100.0 * (loss - ref) / ref))
+    check(bool(torch.isfinite(dd).all()) and norm_err <= 1e-4,
+          "tier data-parallel trainer %s %s: non-finite or rows not unit "
+          "norm (%.3e)" % (kind, tier, norm_err))
+    check(np.isfinite(loss) and loss < start, "tier data-parallel trainer "
+          "%s %s: the held-out loss did not fall: %.6f -> %.6f" % (
+              kind, tier, start, loss))
+    if tier == "bf16x3" and "dcn" not in kind:
+      check(abs(loss - ref) <= TIER_TRAIN_TOL * ref,
+            "tier data-parallel trainer %s bf16x3: held-out loss %.6f, "
+            "'highest' %.6f" % (kind, loss, ref))
+  return counts
+
+
+def dp_tier_timing(torch, families, inputs, card):
+  """(e) In turns ('highest', tier, tier, 'highest'): K3 and K7 one step on
+  the shard of 125, K15 and K16 per step of a DP_TIER_TIME_STEPS segment
+  at b 250; the plain version at the tier (one step); the bound
+  (dp_tier_bound); the library time, the step's solve passes as products
+  of bf16 operands (library_turns).  Returns {(K, tier): (ms, plain_ms,
+  bound, library_ms)}."""
+  d, h, v, fc, gx = inputs
+  how, mm = mm_f32_out(torch)
+  print("tier data-parallel library time: %s" % how)
+  eta = 1.0 / float(torch.dot(v, (d @ d.T) @ v))
+  gb = (-eta * (d @ d.T)).to(torch.bfloat16)
+  whole = {"K15": fc, "K16": gx}
+  out = {}
+  with torch.no_grad():
+    for name, (mod, run, plain, x) in families.items():
+      per = DP_TIER_TIME_STEPS if name in whole else 1
+      xt = whole.get(name, x)
+      zb = x.reshape(-1, 256).to(torch.bfloat16)
+      for tier in TIER_NAMES:
+        run(xt, tier)  # warm
+        turns = [time_ms(torch, lambda: run(xt, "highest"), TIER_REPS),
+                 time_ms(torch, lambda: run(xt, tier), TIER_REPS),
+                 time_ms(torch, lambda: run(xt, tier), TIER_REPS),
+                 time_ms(torch, lambda: run(xt, "highest"), TIER_REPS)]
+        ms = (turns[1] + turns[2]) / 2 / per
+        hi_ms = (turns[0] + turns[3]) / 2 / per
+        p_ms = time_ms(torch, lambda: plain(x, tier), 2)
+        passes = TIER_PASSES[tier] * TRAIN_ITERS
+        lib = library_turns(torch,
+                            lambda: [mm(zb, gb) for _ in range(passes)])
+        b = x.shape[-2]
+        bnd = dp_tier_bound(b, 256, 256, TRAIN_ITERS, tier,
+                            upd_iters=1 if name in whole else 0)
+        out[name, tier] = (ms, p_ms, bnd, lib[0])
+        print("tier %s %s: %.4f ms a step against 'highest' %.4f in turns "
+              "(%.4f, %.4f, %.4f, %.4f); plain %.4f; bound %.4f (%s); "
+              "library median %.4f (%d turns %.4f-%.4f) [%s]" % (
+                  name, tier, ms, hi_ms, *turns, p_ms, bnd[0], bnd[1],
+                  lib[0], TIER_LIB_TURNS, lib[1], lib[2], card))
+  return out
+
+
+def dp_tier_phase(torch, dev, card, train_patches, gtrain, data):
+  """Phase 47: (a)-(e) above."""
+  from vtc_tpu_torch import parallel
+  from vtc_tpu_torch.analysis_transforms.fully_connected import ista_fista
+  from vtc_tpu_torch.analysis_transforms.fully_connected import (
+      subspace_ista_fista as sub)
+  from vtc_tpu_torch.encode import encode_dataset
+  from vtc_tpu_torch.ops import fused_dp_train as K15
+  from vtc_tpu_torch.ops import fused_fista as K1
+  from vtc_tpu_torch.ops import fused_group_dp_train as K16
+  from vtc_tpu_torch.ops import fused_group_fista as K4
+  from vtc_tpu_torch.ops import fused_group_train_step as K7
+  from vtc_tpu_torch.ops import fused_train_step as K3
+  from vtc_tpu_torch.ops import lipschitz
+  from vtc_tpu_torch.training import compiled_epoch, sparse_coding
+  t0 = time.perf_counter()
+  mesh1 = parallel.make_mesh()
+  inputs = dp_tier_inputs(torch, lipschitz, train_patches, gtrain, dev)
+  families = dp_tier_families(K3, K7, K15, K16, mesh1, inputs)
+  errs, planted = dp_tier_one_step(torch, families)
+  stop_cases, stops, near = dp_tier_stop_cases(torch, families)
+  print("tier data-parallel stop: %d cases at the plain version's counts, "
+        "bitwise the kernel without the stop at the count; near eps "
+        "(reported apart): %s" % (stop_cases, near or "none"))
+  world2, world2_s = dp_tier_world_of_two(torch, compiled_epoch, parallel,
+                                          mesh1, families, inputs)
+  counts = dp_tier_main_path(torch, (K1, K4, K3, K7, K15, K16),
+                             compiled_epoch, parallel, encode_dataset,
+                             ista_fista, sub, sparse_coding, mesh1, data)
+  times = dp_tier_timing(torch, families, inputs, card)
+  print("phase 47: %.1f s (its ranks %.1f s)" % (time.perf_counter() - t0,
+                                                 world2_s))
+  return dict(errs=errs, planted=planted, stops=stops, counts=counts,
+              times=times, world2=world2,
+              mods=dict(K3=K3, K7=K7, K15=K15, K16=K16))
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -7784,6 +8386,10 @@ def main():
   # phase 46: the precision tiers of K1, K4, K2 and K6 (tier_phase)
   tiers = tier_phase(torch, dev, card, patches, train_patches, tier_data)
 
+  # phase 47: the tiers of K3, K7, K15 and K16 (dp_tier_phase)
+  dp_tiers = dp_tier_phase(torch, dev, card, train_patches, gtrain,
+                           tier_data)
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -7947,6 +8553,30 @@ def main():
                     tiers["stop_counts"][tier_mods[key]],
                     tiers["stops"][family, "bf16x3"][1], ms_s, p_s, bnd_s))
     tier_library[name] = lib_s
+  # the tier kernel inside the data-parallel kernels (phase 47): launches on
+  # its main path, the error of the flagship step at the tier, its time a
+  # step beside the plain version at the tier, its bound and the library
+  # time of the step's solve passes as products of bf16 operands
+  dp_tier_rows = {
+      "K3": ("fused_solve_stats", "fused_train_step.cu",
+             "vtc_tpu/ops/pallas_train_step.py:854-925 (the tier of :975)"),
+      "K7": ("fused_group_solve_stats", "fused_group_train_step.cu",
+             "vtc_tpu/ops/pallas_train_step.py:1010-1080, :1074 (the tier "
+             "of :1175)"),
+      "K15": ("fused_dp_train", "fused_train_step.cu",
+              "vtc_tpu/ops/pallas_dp_train.py:129-190 (the tier of :404)"),
+      "K16": ("fused_group_dp_train", "fused_group_train_step.cu",
+              "vtc_tpu/ops/pallas_group_dp_train.py:94-231 (the tier of "
+              ":443)")}
+  for key, (wrapper, source, replaces) in dp_tier_rows.items():
+    for tier in TIER_NAMES:
+      ms_t, p_t, bnd_t, lib_t = dp_tiers["times"][key, tier]
+      name = "fista_tier_kernel (%s, %s at %s, via %s)" % (key, wrapper,
+                                                          tier, source)
+      kernels.append((name, "fista_tier.cuh", replaces,
+                      dp_tiers["counts"][dp_tiers["mods"][key], tier],
+                      dp_tiers["errs"][key, tier], ms_t, p_t, bnd_t))
+      tier_library[name] = lib_t
   # K10's library time is its own loop with each product one cuDNN call
   # (phase 17), K11's the same loop on K11's timed inputs (the same
   # function), and with the stop that loop at the iterations the stopped
@@ -7995,4 +8625,8 @@ if __name__ == "__main__":
     # one rank of phase 45's worlds of 2 and 4, started by main()
     sys.exit(stop_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                             sys.argv[4]))
+  if len(sys.argv) == 5 and sys.argv[1] == "--tier-rank":
+    # one rank of phase 47's world of 2, started by main()
+    sys.exit(dp_tier_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4]))
   sys.exit(main())

@@ -48,15 +48,19 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec
 
 import torch_port_dp_worker as worker
+from test_torch_port_tiers import FLOOR, _stop_eps, check_tier, nudged
+from vtc_tpu import parallel as jax_parallel
 from vtc_tpu.analysis_transforms.fully_connected import (
     subspace_ista_fista as jax_sub)
 from vtc_tpu.ops import lipschitz as jax_lip
 from vtc_tpu.ops import pallas_dp_train as jax_k15
 from vtc_tpu.ops import pallas_group_dp_train as jax_k16
 from vtc_tpu.ops import pallas_ica_train as jax_k18
+from vtc_tpu.encode import encode_dataset as jax_encode_dataset
+from vtc_tpu.training import compiled_epoch as jax_compiled_epoch
 from vtc_tpu_torch import parallel
 from vtc_tpu_torch.ops import (fused_dp_train, fused_group_dp_train,
-                               fused_ica_train)
+                               fused_ica_train, solver)
 from vtc_tpu_torch.training import compiled_epoch, ica
 
 WORLDS = (2, 4)
@@ -197,10 +201,13 @@ def _flags(name):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_segment(name, p=1):
-  """vtc_tpu's kernel over the case's global batches on ``p`` devices."""
+def jax_segment(name, p=1, mxu="highest"):
+  """vtc_tpu's kernel over the case's global batches on ``p`` devices, at
+  the tier ``mxu`` (fc and subspace)."""
   family = CASES[name][0]
   pr, flags = problem(name), _flags(name)
+  if family != "ica":
+    flags["mxu"] = mxu
   if family == "ica":
     return _jax_dp(jax_k18.fused_ica_dp_train_segment_pallas, p,
                    (pr["d"], pr["v"]), pr["x"], (jnp.float32(ICA_STEP),),
@@ -232,11 +239,13 @@ def _check(name, got, want, label):
 
 
 @functools.lru_cache(maxsize=None)
-def port_world_of_one(name):
+def port_world_of_one(name, mxu="highest"):
   """The port's wrapper on CPU tensors (its plain version) on a mesh of
-  one."""
+  one, at the tier ``mxu`` (fc and subspace)."""
   family = CASES[name][0]
   pr, flags = problem(name), _flags(name)
+  if family != "ica":
+    flags["mxu"] = mxu
   mesh = parallel.make_mesh()
   if family == "ica":
     return tuple(t.numpy() for t in fused_ica_train.fused_ica_dp_train_segment(
@@ -293,12 +302,17 @@ def test_the_gates_and_refusals():
   args = (_t(pr["d"]), _t(pr["h"]), _t(pr["v"]), _t(pr["x"]), SW, N_IT,
           UPD_STEP)
   gflags = _flags("K16 contiguous cheap-quad (roll prox)")
-  with pytest.raises(NotImplementedError, match="item 3a.2"):
-    fused_dp_train.fused_dp_train_segment(*args, mesh=mesh, **flags,
-                                          mxu="bf16x3")
-  with pytest.raises(NotImplementedError, match="item 3a.2"):
-    fused_group_dp_train.fused_group_dp_train_segment(
-        *args, mesh=mesh, **gflags, mxu="bf16x3")
+  # the tiers run (tests/test_torch_port_dp_tiers.py holds them to
+  # vtc_tpu): a CPU tensor takes the plain version at the tier
+  for seg, plain, kw in (
+      (fused_dp_train.fused_dp_train_segment,
+       fused_dp_train.fused_dp_train_plain, flags),
+      (fused_group_dp_train.fused_group_dp_train_segment,
+       fused_group_dp_train.fused_group_dp_train_plain, gflags)):
+    got = seg(*args, mesh=mesh, **kw, mxu="bf16x3")
+    for g, w in zip(got, plain(*args, mesh=mesh, **kw, mxu="bf16x3")):
+      assert torch.equal(g, w)
+    assert not torch.equal(got[0], seg(*args, mesh=mesh, **kw)[0])
   # the early stop runs (tests/test_torch_port_dp_early_stop.py holds it
   # to vtc_tpu): each step's count, every one short of N_IT at eps 10
   for mod, fn, kw in (
@@ -402,20 +416,218 @@ def rank_results(world):
                                              config=config)))
   for name, kw in ROUTES.items():
     cases.append(("route " + name, "routes", kw))
+  for name, tier in TIER_WORLD_CASES:
+    cases.append(("%s at %s" % (name, tier), "dp_segment",
+                  _tier_case(name, tier)))
+    cases.append(("%s at %s with the stop" % (name, tier), "dp_stop",
+                  _tier_stop_case(name, tier)))
+  if world == 2:
+    for key, kw in TIER_ROUTES.items():
+      cases.append(("route " + key, "routes", kw))
+    cases.append(("encode at bf16x3", "encode", TIER_ENCODE))
+    cases.append(("code-sharded at bf16x3", "refused", dict(
+        batches=ROUTE_DATA, d0=np.concatenate([ROUTE_D0, ROUTE_D0]),
+        params=_route_params("fc", train_precision="bf16x3"),
+        mesh_spec=dict(code=2))))
   return worker.run_ranks(world, cases)
+
+
+# ---------------------------------------------------------------------------
+# the tiers across ranks (tests/test_torch_port_dp_tiers.py holds the world
+# of one to vtc_tpu at every tier)
+# ---------------------------------------------------------------------------
+WORLD_TIERS = ("bf16x3", "bf16")
+TIER_WORLD_CASES = [(name, tier) for name in WORLD_CASES[:2]
+                    for tier in WORLD_TIERS]
+# one segment of the route problem's four steps (a whole vtc_tpu trainer
+# run then takes half a second, and its spread five more)
+TIER_ROUTE_PARAMS = dict(num_epochs=1, dict_update_param_schedule={
+    0: {"stepsize": 0.01, "num_iters": 1}})
+TIER_ROUTES = {"%s dcn=2 at %s" % (family, tier): _route_case(
+    family, 2, train_precision=tier, **TIER_ROUTE_PARAMS)
+               for family in ("fc", "subspace")
+               for tier in ("highest", "bf16x5", "bf16x3", "bf16")}
+TIER_ENCODE = dict(data=ROUTE_DATA.reshape(-1, 16), d=ROUTE_D0, sw=SW,
+                   n_it=8, kw=dict(batch_size=16, formulation="pallas",
+                                   mxu_precision="bf16x3"))
+
+
+def _tier_case(name, tier):
+  family = CASES[name][0]
+  pr = problem(name)
+  config = dict(_flags(name), sw=SW, n_it=N_IT, upd_step=UPD_STEP, mxu=tier)
+  return dict(family=family, d=pr["d"], h=pr["h"], v=pr["v"],
+              batches=pr["x"], config=config)
+
+
+@functools.lru_cache(maxsize=None)
+def _tier_stop_eps(name, tier):
+  """A mid-run eps from the world of one's means at the tier."""
+  kw = _tier_stop_case(name, tier, eps=0.0)
+  worker.CASES["dp_stop"](**kw)
+  return _stop_eps(list(solver.last_avgs), "mid")
+
+
+def _tier_stop_case(name, tier, eps=None):
+  kw = _tier_case(name, tier)
+  flags = kw["config"]
+  kw["config"] = dict(
+      update_alg=flags["update_alg"],
+      group_assignments=flags.get("group_assignments"),
+      alignment_penalty=flags.get("alignment_penalty", 0.0),
+      early_eps=_tier_stop_eps(name, tier) if eps is None else eps,
+      sw=SW, n_it=N_IT, upd_step=UPD_STEP, mxu=tier)
+  return kw
+
+
+def _tier_bound(want, tier):
+  return FLOOR[tier] * max(1.0, float(np.abs(want).max()))
+
+
+def _spread(fn, x, d, want):
+  """How far fn(x, d) moves from want under five one-ulp nudges of both
+  x and d (tests/test_torch_port_dp_tiers.py's spread)."""
+  moved = [np.asarray(fn(nudged(x, seed), nudged(d, seed + 5)), np.float64)
+           - want for seed in range(5)]
+  return (max(float(np.abs(m).max()) for m in moved),
+          max(float(np.linalg.norm(m)) for m in moved))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tier_fn(name, tier):
+  """vtc_tpu's kernel of the case at the tier on a one-device 'data' axis,
+  jitted once: (d, h, v, x) -> the replicated state, flattened."""
+  flags = dict(_flags(name), mxu=tier, power_iters=2)
+  if CASES[name][0] == "fc":
+    kernel = jax_k15.fused_dp_train_segment_pallas
+  else:
+    kernel = jax_k16.fused_group_dp_train_segment_pallas
+    flags["group_assignments"] = tuple(tuple(g) for g in
+                                       flags["group_assignments"])
+  rep = PartitionSpec()
+
+  def body(d, h, v, xs):
+    out = kernel(d, h, v, xs, SW, N_IT, UPD_STEP, axis_name="data",
+                 axis_size=1, interpret=True, **flags)
+    return jnp.concatenate([jnp.ravel(a) for a in out[:3]])
+
+  return jax.jit(jax.shard_map(
+      body, mesh=_jax_mesh(1),
+      in_specs=(rep, rep, rep, PartitionSpec(None, "data", None)),
+      out_specs=rep, check_vma=False))
+
+
+@functools.lru_cache(maxsize=None)
+def _tier_spread(name, tier):
+  """vtc_tpu's own spread of the case's segment at the tier (on one
+  device: the sums over the ranks change only the order of additions)."""
+  pr = problem(name)
+  fn = _jax_tier_fn(name, tier)
+  run = lambda x, d: np.asarray(fn(d, pr["h"], pr["v"], x))
+  return _spread(run, pr["x"], pr["d"], run(pr["x"], pr["d"]))
+
+
+@pytest.mark.parametrize("name,tier", TIER_WORLD_CASES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_tier_runners_match_vtc_tpu_at_their_world(world, name, tier):
+  """K15 and K16 at bf16x3 and bf16 over this rank's shards at a world of
+  2 or 4: the ranks bitwise equal, within the tier's floor of vtc_tpu's
+  kernel at the same axis size and of the port's world of one, and held
+  by check_tier's control against both packages' 'highest' runs, within
+  the larger of the tier's floor and vtc_tpu's own spread."""
+  got = np.concatenate([np.ravel(a) for a in _replicated(
+      world, "%s at %s" % (name, tier))])
+  own_full = np.concatenate([np.ravel(a) for a in _replicated(world, name)])
+  want = np.concatenate([np.ravel(a) for a in jax_segment(name, world,
+                                                          tier)[:3]])
+  full = np.concatenate([np.ravel(a) for a in jax_segment(name, world)[:3]])
+  check_tier(lambda mxu: got if mxu == tier else own_full, want, full,
+             _tier_spread(name, tier), tier, "world %d %s" % (world, name))
+  one = np.concatenate([np.ravel(a)
+                        for a in port_world_of_one(name, tier)[:3]])
+  assert_close(got, one, "world %d vs world 1 at %s" % (world, tier),
+               FLOOR[tier])
+
+
+@pytest.mark.parametrize("name,tier", TIER_WORLD_CASES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_tier_stop_across_ranks(world, name, tier):
+  """K15 and K16 at a tier with a mid-run stop: every rank bitwise equal
+  with the same counts, the counts of the world of one, every state
+  within the tier's floor of it."""
+  got = _replicated(world, "%s at %s with the stop" % (name, tier))
+  one = worker.CASES["dp_stop"](**_tier_stop_case(name, tier))
+  assert got["counts"] == one["counts"], (got["counts"], one["counts"])
+  assert min(got["counts"]) < N_IT, got["counts"]  # it stopped
+  for what, g, w in zip(("dictionary", "hessian", "eigvec"), got["state"],
+                        one["state"]):
+    assert_close(g, w, "world %d %s at %s with the stop: %s" % (
+        world, name, tier, what), FLOOR[tier])
+
+
+def _jax_dcn_trained(family, tier, x=ROUTE_DATA, d0=ROUTE_D0):
+  kw = TIER_ROUTES["%s dcn=2 at %s" % (family, tier)]
+  return np.asarray(jax_compiled_epoch.train_dictionary_scanned(
+      x, x[:1], d0.copy(), dict(
+          kw["params"], data_parallel=jax_parallel.make_mesh(dcn=2,
+                                                             data=1))))
+
+
+@pytest.mark.parametrize("tier", ["bf16x5", "bf16x3", "bf16"])
+@pytest.mark.parametrize("family", ["fc", "subspace"])
+def test_tier_trainers_on_a_dcn_mesh_match_vtc_tpu(family, tier):
+  """train_precision on a mesh of two slices: K3's or K7's composition
+  every step at the tier, the ranks bitwise equal, held to vtc_tpu's
+  trainer on its (dcn 2, data 1) mesh at the tier."""
+  step = {"fc": "K3", "subspace": "K7"}[family]
+  got = _replicated(2, "route %s dcn=2 at %s" % (family, tier))
+  assert {k: v for k, v in got["calls"].items() if v} == {
+      step: ROUTE_DATA.shape[0]}, got["calls"]
+  own_full = _replicated(2, "route %s dcn=2 at highest" % family)
+  want = _jax_dcn_trained(family, tier)
+  check_tier(lambda mxu: (got if mxu == tier else own_full)["dictionary"],
+             want, _jax_dcn_trained(family, "highest"),
+             _spread(lambda x, d: _jax_dcn_trained(family, tier, x, d),
+                     ROUTE_DATA, ROUTE_D0, want), tier,
+             "%s on a dcn mesh" % family)
+
+
+def test_tier_encode_and_code_sharded_refusal_across_ranks():
+  """encode_dataset at bf16x3 on a world of 2: every rank the codes of
+  vtc_tpu's encode on a 'data' axis of 2 within the tier's floor; the
+  trainer on a 'code' axis of 2 hands the tier to K19, which refuses it
+  (ROADMAP.md §1 item 3a.2.4)."""
+  got = _replicated(2, "encode at bf16x3")
+  kw = TIER_ENCODE
+  want = np.asarray(jax_encode_dataset(
+      kw["data"], kw["d"], kw["sw"], kw["n_it"],
+      data_parallel=jax_parallel.make_mesh(data=2), **kw["kw"]))
+  assert_close(got, want, "DP encode at bf16x3 across 2 ranks",
+               FLOOR["bf16x3"])
+  refused = rank_results(2)
+  assert all("item 3a.2.4" in (r["code-sharded at bf16x3"] or "")
+             for r in refused), [r["code-sharded at bf16x3"] for r in refused]
+
+
+def _assert_same(a, b, key):
+  """a and b, one rank's result and another's, are bitwise equal."""
+  if isinstance(a, dict):
+    assert a.keys() == b.keys(), key
+    for k in a:
+      _assert_same(a[k], b[k], key)
+  elif isinstance(a, (tuple, list)):
+    assert len(a) == len(b), key
+    for x, y in zip(a, b):
+      _assert_same(x, y, key)
+  else:
+    assert np.array_equal(a, b), "%s differs across ranks" % key
 
 
 def _replicated(world, key):
   results = rank_results(world)
   first = results[0][key]
   for other in results[1:]:
-    a, b = first, other[key]
-    if isinstance(a, dict):
-      assert a["calls"] == b["calls"], key
-      a, b = a["dictionary"], b["dictionary"]
-    for x, y in zip(a if isinstance(a, tuple) else (a,),
-                    b if isinstance(b, tuple) else (b,)):
-      assert np.array_equal(x, y), "%s differs across ranks" % key
+    _assert_same(first, other[key], key)
   return first
 
 

@@ -173,15 +173,23 @@ def test_gates_drop_the_vmem_rule():
 
 
 def test_wrappers_refuse_the_tiers(rng):
+  """K3 and K7 run the tiers (held to vtc_tpu in
+  tests/test_torch_port_dp_tiers.py): a CPU tensor takes the plain version
+  at the tier, which the tier moves off 'highest'; K9's tiers still wait."""
   d, batch = _unit_rows(rng, 16, 16), rng.randn(8, 16).astype(np.float32)
   v = np.ones(16, np.float32)
-  with pytest.raises(NotImplementedError, match="item 3a"):
-    fused_train_step.fused_solve_stats(_t(d), _t(v), _t(batch), SW, 5,
-                                       mxu="bf16x3")
-  with pytest.raises(NotImplementedError, match="item 3a"):
-    fused_group_train_step.fused_group_solve_stats(
-        _t(d), _t(v), _t(batch), SW, 5, group_assignments=GROUPS16,
-        mxu="bf16")
+  args = (_t(d), _t(v), _t(batch), SW, 5)
+  for wrapper, plain, kw in (
+      (fused_train_step.fused_solve_stats,
+       fused_train_step.fused_solve_stats_plain, dict(mxu="bf16x3")),
+      (fused_group_train_step.fused_group_solve_stats,
+       fused_group_train_step.fused_group_solve_stats_plain,
+       dict(group_assignments=GROUPS16, mxu="bf16"))):
+    got = wrapper(*args, **kw)
+    for g, w in zip(got, plain(*args, **kw)):
+      assert torch.equal(g, w)
+    full = wrapper(*args, **dict(kw, mxu="highest"))
+    assert not torch.equal(got[0], full[0])
   with pytest.raises(NotImplementedError, match="item 3a"):
     fused_ica_train.ica_solve_stats(_t(d), _t(d), _t(batch), mxu="bf16")
   with pytest.raises(ValueError, match="square"):

@@ -333,10 +333,11 @@ _SUBSPACE = {"code_inference_algorithm": "subspace_fista",
     ("per_batch", {"profile_dir": "trace"}, "item 8"),
     ("per_batch", dict(_SUBSPACE, profile_dir="trace"), "item 8"),
     ("scanned", {"hbm_chunk_steps": 2}, "item 8"),
-    # the fc and subspace tiers run (tests/test_torch_port_tiers
-    # .py); those of the data-parallel and conv trainers still wait
-    ("scanned", {"data_parallel": True, "train_precision": "bf16x3"},
-     "item 3a.2.1"),
+    # the fc and subspace tiers run, with data_parallel too
+    # (tests/test_torch_port_tiers.py, tests/test_torch_port_dp_tiers.py);
+    # those of the conv trainers still wait, data-parallel or not
+    ("scanned", {"mode": "convolutional", "data_parallel": True,
+                 "train_precision": "bf16x3"}, "item 3a.2.2"),
     ("scanned", {"mode": "convolutional", "train_precision": "bf16x3"},
      "item 3a.2.2"),
 ])

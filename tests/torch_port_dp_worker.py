@@ -133,7 +133,8 @@ def case_dp_segment(family, d, batches, config, h=None, v=None):
   (k, b, n) ``batches``: K15 ('fc', ``_dp_fc_segment_runner``), K16
   ('group', ``_dp_group_segment_runner``) or K18 ('ica',
   ``ica._dp_kernel_segment_runner``; ``v`` is the inverse), their plain
-  versions on CPU tensors.  Returns the replicated state."""
+  versions on CPU tensors; config's optional 'mxu' is the fc and subspace
+  runners' tier.  Returns the replicated state."""
   mesh = parallel.make_mesh()
   shards = _t(mesh.shard(batches, dim=1))
   if family == "ica":
@@ -143,12 +144,13 @@ def case_dp_segment(family, d, batches, config, h=None, v=None):
   if family == "fc":
     runner = compiled_epoch._dp_fc_segment_runner(
         mesh, config["variant"], config["update_alg"],
-        config["upd_num_iters"], config["nonneg"], config["hard"], True)
+        config["upd_num_iters"], config["nonneg"], config["hard"], True,
+        mxu=config.get("mxu", "highest"))
   else:
     runner = compiled_epoch._dp_group_segment_runner(
         mesh, config["variant"], config["update_alg"],
         config["upd_num_iters"], False, True, config["group_assignments"],
-        config["alignment_penalty"])
+        config["alignment_penalty"], mxu=config.get("mxu", "highest"))
   return _np(runner(_t(d), _t(h), _t(v), shards, config["sw"],
                     config["n_it"], config["upd_step"]))
 
@@ -156,8 +158,9 @@ def case_dp_segment(family, d, batches, config, h=None, v=None):
 def case_dp_stop(family, d, h, v, batches, config):
   """K15 ('fc') or K16 ('group') with the early stop through its runner
   (``_dp_fc_segment_runner`` / ``_dp_group_segment_runner`` with
-  ``early_eps``) over this rank's shards of the (k, b, n) ``batches``:
-  the replicated state and the plain version's count of every step."""
+  ``early_eps``) over this rank's shards of the (k, b, n) ``batches``,
+  at config's optional tier 'mxu': the replicated state and the plain
+  version's count of every step."""
   from vtc_tpu_torch.ops import fused_dp_train, fused_group_dp_train
   mesh = parallel.make_mesh()
   shards = _t(mesh.shard(batches, dim=1))
@@ -165,13 +168,13 @@ def case_dp_stop(family, d, h, v, batches, config):
     mod = fused_dp_train
     runner = compiled_epoch._dp_fc_segment_runner(
         mesh, "fista", config["update_alg"], 1, False, False, True,
-        config["early_eps"])
+        config["early_eps"], mxu=config.get("mxu", "highest"))
   else:
     mod = fused_group_dp_train
     runner = compiled_epoch._dp_group_segment_runner(
         mesh, "fista", config["update_alg"], 1, False, True,
         config["group_assignments"], config["alignment_penalty"],
-        config["early_eps"])
+        config["early_eps"], mxu=config.get("mxu", "highest"))
   state = _np(runner(_t(d), _t(h), _t(v), shards, config["sw"],
                      config["n_it"], config["upd_step"]))
   return {"state": state, "counts": list(mod.plain_iters)}
@@ -216,6 +219,18 @@ def case_routes(family, batches, d0, params, dcn=1):
     for key, (module, name) in watched.items():
       setattr(module, name, originals[key])
   return {"dictionary": out.numpy(), "calls": calls}
+
+
+def case_refused(batches, d0, params, mesh_spec):
+  """The scanned trainer on ``parallel.make_mesh(**mesh_spec)``: the
+  message of the NotImplementedError it raises, or None."""
+  params = dict(params, data_parallel=parallel.make_mesh(**mesh_spec))
+  try:
+    compiled_epoch.train_dictionary_scanned(batches, batches[:1], d0, params,
+                                            device="cpu")
+  except NotImplementedError as err:
+    return str(err)
+  return None
 
 
 def case_cold_runner(d, h, batches, sw, n_it, upd_step, inference_alg,

@@ -1831,8 +1831,9 @@ cudaError_t launch_tier(int tier, int fista, int mode, const float* gram,
 // route: a CUDA kernel cannot wait on another process, so no resident
 // route takes it.  A tier other than kTierHighest takes fista_tier.cuh's
 // kernel whatever the shape (route kRouteAuto only, taken kRouteTier; gn
-// then holds the bf16 planes of fista_tier.cuh's tier_gn_floats, and no
-// stop across ranks).  Returns the first CUDA error.
+// then holds the bf16 planes of fista_tier.cuh's tier_gn_floats); its
+// stop, at one rank or across ranks, is the classic stop route's, whose
+// state layout it shares.  Returns the first CUDA error.
 template <bool FISTA, int MODE, bool GROUP>
 cudaError_t launch_solve(const float* gram, const float* corr,
                          const float* init, const float* eta, float lam,
@@ -1843,7 +1844,8 @@ cudaError_t launch_solve(const float* gram, const float* corr,
                          const SolveStop* stop = nullptr,
                          int tier = kTierHighest) {
   if (tier != kTierHighest) {
-    if (route != kRouteAuto || (stop != nullptr && stop->local != nullptr))
+    if (route != kRouteAuto ||
+        (stop != nullptr && stop->local != nullptr && stop->hook == nullptr))
       return cudaErrorInvalidValue;
     if (taken != nullptr) *taken = kRouteTier;
     return launch_tier<GROUP>(tier, FISTA, MODE, gram, corr, init, eta, lam,

@@ -1,8 +1,8 @@
 // The ISTA/FISTA solve at the precision tiers of K1, K4 and the solves of
-// K2 and K6, for Hopper (sm_90a): fista_tier_kernel, a bf16 tensor-core
-// kernel, with its fold kernel and launcher.  Included by fused_fista.cu
-// and fused_group_fista.cu after fista_core.cuh, whose launch_solve takes
-// a tier other than kTierHighest here.
+// K2, K3, K6, K7, K15 and K16, for Hopper (sm_90a): fista_tier_kernel, a
+// bf16 tensor-core kernel, with its fold kernel and launcher.  Included by
+// fused_fista.cu and fused_group_fista.cu after fista_core.cuh, whose
+// launch_solve takes a tier other than kTierHighest here.
 //
 // Replaces the tiers of the TPU kernels K1 (vtc_tpu/ops/pallas_fista.py,
 // _make_kernel :44-56), K4 (pallas_group_fista.py :54-66), K2 and K6
@@ -44,7 +44,9 @@
 // c; (4, 16, sk) floats) lives in shared memory when it fits beside the z
 // terms, else in global scratch; with the stop it is global and the
 // classic stop route (drive_classic_stop) launches the kernel once per
-// iteration, so the state layout and the stop words are fista_kernel's.
+// iteration, so the state layout and the stop words are fista_kernel's,
+// and across ranks (K15, K16) the rank's share goes to the host hook as
+// fista_kernel's does.
 // K1's variant (FISTA or ISTA) and shrink are run-time arguments: they
 // act only in the epilogue, one branch a column block after the products,
 // so 6 builds serve K1's 8 variants at 3 tiers with and without the

@@ -123,7 +123,7 @@ int vtc_fista_wide_slots(int cluster_size) { return wide_slots(cluster_size); }
 // vtc_fista_tier_gn_floats floats, state_scratch null only where
 // vtc_fista_tier_state_in_smem, the stop on the classic stop route (its
 // words: vtc_fista_stop_words's classic count, kStopCtlWords +
-// ceil(b / rows)), no stop across ranks.
+// ceil(b / rows)), across ranks too (stop_local and stop_hook as above).
 // Returns the CUDA error code of the launches (0 on success;
 // cudaErrorUnknown when stop_hook failed).
 int vtc_fused_fista(const float* gram, const float* corr, const float* init,

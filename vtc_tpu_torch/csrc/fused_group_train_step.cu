@@ -76,7 +76,10 @@
 // K17's layout; no hook at a world of one.  Bound as K7 is, by the group
 // solve.  Its early stop (vtc_tpu :189-229) is K15's, on the grouped
 // codes: K6's stop route at a world of one, the classic route with a host
-// hook an iteration above one.
+// hook an iteration above one.  K7 and K16 take K6's tiers, but for the
+// unpack at 'bf16': K7's is a bf16 product with no identity shortcut
+// (pallas_train_step.py:1074), so it rounds every code slot on the
+// identity layout too, where K16, as K6, keeps the solve's codes.
 #include "train_core.cuh"
 
 extern "C" int vtc_fused_group_fista(const float* gram, const float* corr,
@@ -147,7 +150,11 @@ __global__ void sum_slots_kernel(const float* __restrict__ gcodes,
 // Those land in codes, or stay in gcodes when sum_idx is null.  tier: the
 // group solve's (vtc_fused_group_fista's); at 'bf16' c is one bf16 pass
 // through round_scratch ((b + gm) n floats) and the unpack rounds each
-// slot, as K2's.  Returns the first CUDA error code (0 on success).
+// slot, as K2's.  The identity layout has no unpack, so its codes stay
+// unrounded (K6's and K16's gsel_identity shortcut), unless round_identity
+// (K7's unpack, a bf16 product with no shortcut, pallas_train_step.py
+// :1074): then codes receives bf16(gcodes).  Returns the first CUDA error
+// code (0 on success).
 int group_refresh_and_solve(const float* d, float* v, const float* xs, int b,
                             int s, int n, int gm, int group_size,
                             const int* sel, const int* sum_idx, int sum_width,
@@ -159,7 +166,8 @@ int group_refresh_and_solve(const float* d, float* v, const float* xs, int b,
                             void* stream_ptr,
                             const SegmentStop& stop = {},
                             int step = 0, int tier = 0,
-                            float* round_scratch = nullptr) {
+                            float* round_scratch = nullptr,
+                            bool round_identity = false) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool identity = sel == nullptr;
   const int dim = gm > n ? n : gm;
@@ -201,6 +209,9 @@ int group_refresh_and_solve(const float* d, float* v, const float* xs, int b,
                        0, stream>>>(gcodes, sum_idx, codes, b, s, gm,
                                     sum_width, bf16_pass);
     VTC_CHECK(cudaGetLastError());
+  } else if (bf16_pass && round_identity) {
+    if (codes == nullptr) return cudaErrorInvalidValue;
+    VTC_CHECK(round_bf16(gcodes, codes, static_cast<int64_t>(b) * s, stream));
   }
   return 0;
 }
@@ -311,17 +322,24 @@ int vtc_group_train_segment(
 // the replicated dictionary after the caller has summed the statistics
 // over the shards.  d is read only; v (dim,) is refreshed in place and
 // eta (1,) receives the stepsize; the group structure and the scratch are
-// vtc_group_train_segment's.  The summed codes are in codes, or in gcodes
-// when sum_idx is null.  Returns the first CUDA error code.
+// vtc_group_train_segment's.  tier and round_scratch as there: the group
+// solve at the tier, at 'bf16' c as one bf16 pass and every code slot
+// rounded to bf16 by the unpack, the identity layout's too (into codes,
+// then required); C, B and stat fp32 in every tier.  The summed codes are
+// in codes, or in gcodes when sum_idx is null and they are not rounded.
+// Returns the first CUDA error code.
 int vtc_group_solve_stats(
     const float* d, float* v, const float* x, int b, int s, int n, int gm,
     int group_size, const int* sel, const int* sum_idx, int sum_width,
     float lam, int num_iters, int fista, int hard, int power_iters,
     float* dg, float* gram, float* pgram, float* corr, float* gcodes,
     float* codes, float* cmat, float* bmat, float* stat, float* eta, int sk,
-    int sc, float* gn_scratch, float* state_scratch, void* stream_ptr) {
+    int sc, float* gn_scratch, float* state_scratch, int tier,
+    float* round_scratch, void* stream_ptr) {
+  const bool rounded = tier == kTierBf16;
   if (!group_args_ok(b, s, n, gm, num_iters, power_iters, sel, sum_idx,
-                     sum_width, dg, pgram, codes))
+                     sum_width, dg, pgram, codes) ||
+      (rounded && (round_scratch == nullptr || codes == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = power_setup(gm > n ? n : gm);
@@ -329,10 +347,11 @@ int vtc_group_solve_stats(
   const int solve_err = group_refresh_and_solve(
       d, v, x, b, s, n, gm, group_size, sel, sum_idx, sum_width, lam,
       num_iters, fista, hard, power_iters, dg, gram, pgram, corr, gcodes,
-      codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr);
+      codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr, {}, 0, tier,
+      round_scratch, true);
   if (solve_err != 0) return solve_err;
-  VTC_CHECK(gram_form_stats(sel == nullptr ? gcodes : codes, x, cmat, bmat,
-                            stat, b, s, n, stream));
+  VTC_CHECK(gram_form_stats(sel == nullptr && !rounded ? gcodes : codes, x,
+                            cmat, bmat, stat, b, s, n, stream));
   return 0;
 }
 
@@ -346,9 +365,12 @@ int vtc_group_solve_stats(
 // grad (s, n).  The last step's summed codes of the shard are in codes, or
 // in gcodes when sum_idx is null.  The early stop of every step's group
 // solve: eps, inv_count = 1 / (global_b gm), stop_words, iters (k,),
-// stop_local and stop_hook as vtc_dp_train_segment's.  Returns the first
-// CUDA error code (0 on success; cudaErrorUnknown for a failed
-// stop_hook), or kSumHookFailed for a failed sum_hook.
+// stop_local and stop_hook as vtc_dp_train_segment's.  tier and
+// round_scratch as vtc_group_train_segment's: the identity layout keeps
+// its unrounded codes at 'bf16' (vtc_tpu's K16, pallas_group_dp_train.py
+// :230-231), where K7 rounds them.  Returns the first CUDA error code (0
+// on success; cudaErrorUnknown for a failed stop_hook), or kSumHookFailed
+// for a failed sum_hook.
 int vtc_group_dp_train_segment(
     float* d, float* h, float* v, const float* x, int k, int b, int s,
     int n, int gm, int group_size, const int* sel, const int* sum_idx,
@@ -360,8 +382,9 @@ int vtc_group_dp_train_segment(
     float* sd, float* eta, int sk, int sc, float* gn_scratch,
     float* state_scratch, float* comm, SumHook sum_hook, float eps,
     float inv_count, void* stop_words, int* iters, float* stop_local,
-    SumHook stop_hook, void* stream_ptr) {
+    SumHook stop_hook, int tier, float* round_scratch, void* stream_ptr) {
   if (k < 0 || upd_num_iters < 0 || !(global_b >= 1.0f) ||
+      (tier == kTierBf16 && round_scratch == nullptr) ||
       !group_args_ok(b, s, n, gm, num_iters, power_iters, sel, sum_idx,
                      sum_width, dg, pgram, codes) ||
       (comem != nullptr &&
@@ -388,7 +411,7 @@ int vtc_group_dp_train_segment(
         d, v, xs, b, s, n, gm, group_size, sel, sum_idx, sum_width, lam,
         num_iters, fista, hard, power_iters, dg, gram, pgram, corr, gcodes,
         codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr, stop,
-        step);
+        step, tier, round_scratch);
     if (solve_err != 0) return solve_err;
     VTC_CHECK(gram_form_stats(step_codes, xs, cmat, bmat, stat, b, s, n,
                               stream));

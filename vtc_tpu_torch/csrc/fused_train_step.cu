@@ -83,6 +83,10 @@
 // every step's solve takes K2's stop route (the cluster kernel's stop
 // warp at b 250); above one the classic route with a host hook an
 // iteration (fista_core.cuh, "The early stop"), every rank at one count.
+// K3 and K15 take vtc_tpu's tiers as K2 does (pallas_train_step.py:854-925,
+// pallas_dp_train.py:129-190): the solve on fista_tier.cuh's kernel, at
+// 'bf16' c as one bf16 pass; the statistics and the update stay fp32.  A
+// tier's stop runs on the classic route at every world size.
 #include "train_core.cuh"
 
 extern "C" int vtc_fused_fista(const float* gram, const float* corr,
@@ -216,22 +220,28 @@ int vtc_train_segment(float* d, float* h, float* v, const float* x, int k,
 // stat = sum_b codes^2 (s,).  No update: the caller sums the statistics
 // over the shards and updates the replicated dictionary.  d is read only;
 // v (dim,) is refreshed in place and eta (1,) receives the stepsize;
-// scratch as vtc_train_segment's.  Returns the first CUDA error code.
+// scratch, tier and round_scratch as vtc_train_segment's: the solve at the
+// tier and at 'bf16' c as one bf16 pass, the statistics fp32 in every
+// tier (they feed the cancelling C D' - B; pallas_train_step.py:859-865).
+// Returns the first CUDA error code.
 int vtc_solve_stats(const float* d, float* v, const float* x, int b, int s,
                     int n, float lam, int num_iters, int fista, int mode,
                     int power_iters, float* gram, float* pgram, float* corr,
                     float* codes, float* cmat, float* bmat, float* stat,
                     float* eta, int sk, int sc, float* gn_scratch,
-                    float* state_scratch, void* stream_ptr) {
+                    float* state_scratch, int tier, float* round_scratch,
+                    void* stream_ptr) {
   if (b <= 0 || s <= 0 || n <= 0 || num_iters < 0 || power_iters < 0 ||
-      (s > n && pgram == nullptr))
+      (s > n && pgram == nullptr) ||
+      (tier == kTierBf16 && round_scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = power_setup(s > n ? n : s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int solve_err = refresh_and_solve(
       d, v, x, b, s, n, lam, num_iters, fista, mode, power_iters, gram, pgram,
-      corr, codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr);
+      corr, codes, eta, sk, sc, gn_scratch, state_scratch, stream_ptr, {}, 0,
+      tier, round_scratch);
   if (solve_err != 0) return solve_err;
   VTC_CHECK(gram_form_stats(codes, x, cmat, bmat, stat, b, s, n, stream));
   return 0;
@@ -249,8 +259,12 @@ int vtc_solve_stats(const float* d, float* v, const float* x, int b, int s,
 // world of one (no stop_hook) the stop_words of vtc_fista_stop_words and
 // K2's stop route, else the classic route's words, stop_local (1,) and
 // stop_hook(iteration), which sums stop_local over the ranks
-// (vtc_fused_fista's; state_scratch required).  Returns the first CUDA
-// error code (0 on success; cudaErrorUnknown for a failed stop_hook), or
+// (vtc_fused_fista's; state_scratch required).  tier and round_scratch:
+// the solves' tier and at 'bf16' c as one bf16 pass, as vtc_train_segment's;
+// the statistics and the update stay fp32 (pallas_dp_train.py:256-258); a
+// tier's stop, at one rank too, is the classic route's (stop_words of
+// its count, state_scratch required).  Returns the first CUDA error code
+// (0 on success; cudaErrorUnknown for a failed stop_hook), or
 // kSumHookFailed for a failed sum_hook.
 int vtc_dp_train_segment(float* d, float* h, float* v, const float* x, int k,
                          int b, int s, int n, float lam, int num_iters,
@@ -262,11 +276,12 @@ int vtc_dp_train_segment(float* d, float* h, float* v, const float* x, int k,
                          float* state_scratch, float* comm, SumHook sum_hook,
                          float eps, float inv_count, void* stop_words,
                          int* iters, float* stop_local, SumHook stop_hook,
-                         void* stream_ptr) {
+                         int tier, float* round_scratch, void* stream_ptr) {
   if (k < 0 || b <= 0 || s <= 0 || n <= 0 || num_iters < 0 ||
       upd_num_iters < 0 || power_iters < 0 || !(global_b >= 1.0f) ||
       (s > n && pgram == nullptr) ||
       (eps >= 0.0f && (stop_words == nullptr || iters == nullptr)) ||
+      (tier == kTierBf16 && round_scratch == nullptr) ||
       (stop_hook != nullptr && (stop_local == nullptr ||
                                 state_scratch == nullptr || !(eps >= 0.0f))))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -286,7 +301,7 @@ int vtc_dp_train_segment(float* d, float* h, float* v, const float* x, int k,
     const int solve_err = refresh_and_solve(
         d, v, xs, b, s, n, lam, num_iters, fista, mode, power_iters, gram,
         pgram, corr, codes, eta, sk, sc, gn_scratch, state_scratch,
-        stream_ptr, stop, step);
+        stream_ptr, stop, step, tier, round_scratch);
     if (solve_err != 0) return solve_err;
     VTC_CHECK(gram_form_stats(codes, xs, cmat, bmat, stat, b, s, n, stream));
     if (sum_hook != nullptr && sum_hook(step) != 0) return kSumHookFailed;

@@ -39,7 +39,8 @@ so every rank returns all of them.
 ``mxu_precision`` runs vtc_tpu's tiers (bf16x5, bf16x3, 'default' or
 'bf16') in fully-connected and subspace mode: the 'pallas' formulation
 (K1, K4 on the card, their tier kernel) takes them, 'gram' and 'direct'
-keep full precision.  Conv mode and ``data_parallel`` refuse a tier.
+keep full precision, and with ``data_parallel`` every rank's shard
+solves at the tier (vtc_tpu/encode.py:54-75).  Conv mode refuses a tier.
 """
 import numpy as np
 import torch
@@ -120,9 +121,9 @@ class _CudaChunks:
     dest[...] = self.pinned_out[slot][:len(codes)].numpy()
 
 
-def _check_scope(mode, mxu_precision, data_parallel):
+def _check_scope(mode, mxu_precision):
   """The tier the solves run ('bf16' is 'default', vtc_tpu's encode.py
-  :160-161); the tiers of the conv and data-parallel paths wait."""
+  :160-161); the conv tiers wait, with data parallelism or not."""
   if mode not in ("fully-connected", "convolutional"):
     raise ValueError("mode must be 'fully-connected' or 'convolutional'")
   tier = resolve_tier(mxu_precision)
@@ -130,10 +131,6 @@ def _check_scope(mode, mxu_precision, data_parallel):
     raise NotImplementedError(
         "mxu_precision=%r in convolutional mode: the conv tiers wait, "
         "ROADMAP.md §1 item 3a.2.2" % (mxu_precision,))
-  if tier != "highest" and data_parallel is not None:
-    raise NotImplementedError(
-        "mxu_precision=%r with data_parallel: the data-parallel tiers wait, "
-        "ROADMAP.md §1 item 3a.2.1" % (mxu_precision,))
   return tier
 
 
@@ -171,15 +168,15 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
     lipschitz_method: 'eigvalsh' (exact, default) or 'power'.
     mxu_precision: the fc and subspace solves' tier, 'highest',
       'bf16x5', 'bf16x3' or 'default'/'bf16', applied by the 'pallas'
-      formulation (K1, K4) as in vtc_tpu; conv mode and data_parallel
-      take 'highest' only.
+      formulation (K1, K4) as in vtc_tpu, on each rank's shards with
+      data_parallel; conv mode takes 'highest' only.
     device: where to solve; defaults to the dictionary's device when it
       is a tensor, else the CUDA device (raising without one).
 
   Returns:
     (D, s) float32 numpy codes, or (D, s, sh, sw) in conv mode.
   """
-  mxu_precision = _check_scope(mode, mxu_precision, data_parallel)
+  mxu_precision = _check_scope(mode, mxu_precision)
   if nonnegative_only and group_assignments is not None:
     raise ValueError(
         "nonnegative_only is not defined for group-sparse inference "

@@ -145,13 +145,14 @@ def load_library():
   lib.vtc_train_segment.restype = i32
   lib.vtc_solve_stats.argtypes = (
       [ptr] * 3 + [i32] * 3 + [f32] + [i32] * 4 + [ptr] * 8 + [i32, i32]
-      + [ptr] * 3)
+      + [ptr] * 2 + [i32, ptr, ptr])
   lib.vtc_solve_stats.restype = i32
   # the stop across ranks: the rank's one-float share and its stop hook
   rank_stop = stop[:4] + [ptr, ptr]
   lib.vtc_dp_train_segment.argtypes = (
       [ptr] * 4 + [i32] * 4 + [f32, i32, f32, i32, f32] + [i32] * 5 + [f32]
-      + [ptr] * 6 + [i32, i32] + [ptr] * 3 + [ptr] + rank_stop + [ptr])
+      + [ptr] * 6 + [i32, i32] + [ptr] * 3 + [ptr] + rank_stop
+      + [i32, ptr, ptr])
   lib.vtc_dp_train_segment.restype = i32
   lib.vtc_fused_group_fista.argtypes = [
       ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32, i32,
@@ -165,12 +166,12 @@ def load_library():
   lib.vtc_group_train_segment.restype = i32
   lib.vtc_group_solve_stats.argtypes = (
       [ptr] * 3 + [i32] * 5 + [ptr, ptr, i32, f32] + [i32] * 4 + [ptr] * 10
-      + [i32, i32] + [ptr] * 3)
+      + [i32, i32] + [ptr] * 2 + [i32, ptr, ptr])
   lib.vtc_group_solve_stats.restype = i32
   lib.vtc_group_dp_train_segment.argtypes = (
       [ptr] * 4 + [i32] * 6 + [ptr, ptr, i32, ptr, f32, f32, i32, f32, i32,
                                 f32] + [i32] * 5 + [f32] + [ptr] * 11
-      + [i32, i32] + [ptr] * 3 + [ptr] + rank_stop + [ptr])
+      + [i32, i32] + [ptr] * 3 + [ptr] + rank_stop + [i32, ptr, ptr])
   lib.vtc_group_dp_train_segment.restype = i32
   # the conv solves' early stop: eps, inv_count, the words, the counts
   conv_stop = [f32, f32, ptr, ptr]

@@ -43,20 +43,27 @@ over the ranks before a one-thread kernel decides
 (csrc/fista_core.cuh, "The early stop").  The plain version takes the
 same test: each rank's sum, ``Mesh.sum``, then the scale.  ``last_iters``
 (a private test hook) is the int32 device tensor (k,) of the last stopped
-segment's counts, ``plain_iters`` the plain version's list of them.  Left
-out: the ``mxu`` tiers other than 'highest' raise NotImplementedError
-(ROADMAP.md §1 item 3a.2.1).  ``launches`` counts the train steps the
-kernel ran.
+segment's counts, ``plain_iters`` the plain version's list of them.
+
+``mxu`` is vtc_tpu's training tier (pallas_dp_train.py:129-190): every
+step's solve runs it (K1's tier kernel, csrc/fista_tier.cuh, and at 'bf16'
+c as one bf16 pass), the Gram, the refresh, the statistics and the update
+stay fp32.  At a tier the stop takes the classic stop route at a world of
+one too, an iteration a launch, above one with the same hook.
+``launches`` counts the train steps the kernel ran, ``tier_launches``
+those at a tier other than 'highest'.
 """
 import ctypes
 
 import torch
 
 from vtc_tpu_torch.ops import fused_fista, fused_train_step, solver
+from vtc_tpu_torch.ops.precision import TIER_CODES, resolve_tier
 from vtc_tpu_torch.ops.sum_hook import StopHook, SumHook
 from vtc_tpu_torch.parallel import data_parallel
 
 launches = 0
+tier_launches = 0  # the steps above at a tier other than 'highest'
 last_iters = None  # int32 device tensor (k,): the last stopped segment's
 plain_iters = None  # the plain version's counts of its last stopped segment
 
@@ -76,14 +83,14 @@ def fused_dp_train_plain(dictionary, hessian, eigvec, batches,
                          upd_num_iters=1, nonneg=False, hard=False,
                          renormalize=True, power_iters=12,
                          lowest_code_val=0.001, precision=None,
-                         early_stopping_epsilon=None):
+                         early_stopping_epsilon=None, mxu="highest"):
   """The plain PyTorch version of the segment, on any device and in the
   inputs' own float type (float64 inputs give the oracle): per batch K3's
   plain version, the sum over ``mesh`` and the replicated update.
   ``precision`` is the matmul precision of the solve (default 'highest');
   ``early_stopping_epsilon`` the kernel's stop test, each iteration's sum
   of |codes - old| summed over ``mesh`` (``Mesh.sum``) and scaled by
-  1 / (global_b s)."""
+  1 / (global_b s); ``mxu`` the solve's tier (K3's plain version's)."""
   global plain_iters
   d, h, v = dictionary, hessian, eigvec
   codes = None
@@ -93,7 +100,8 @@ def fused_dp_train_plain(dictionary, hessian, eigvec, batches,
         d, v, batch, sparsity_weight, inf_num_iters, variant=variant,
         nonneg=nonneg, hard=hard, power_iters=power_iters,
         precision=precision, early_stopping_epsilon=early_stopping_epsilon,
-        psum_axes=mesh, stop_count=batch.shape[0] * mesh.size * d.shape[0])
+        psum_axes=mesh, stop_count=batch.shape[0] * mesh.size * d.shape[0],
+        mxu=mxu)
     counts.append(solver.last_iters)
     cmat, bmat, stat = mesh.sum(cmat, bmat, stat)
     d, h = data_parallel._replicated_update(
@@ -129,8 +137,7 @@ def fused_dp_train_segment(dictionary, hessian, eigvec, batches,
     mesh: the ``parallel.Mesh`` the ranks share.
     variant / update_alg / upd_num_iters / nonneg / hard / renormalize /
       power_iters / lowest_code_val: as in vtc_tpu.
-    mxu: 'highest' only (NotImplementedError otherwise, ROADMAP.md §1
-      item 3a.2.1).
+    mxu: the training tier, 'highest', 'bf16x5', 'bf16x3' or 'bf16'.
     early_stopping_epsilon: optional; each step's solve stops after the
       first iteration j > 0 whose mean |codes_j - codes_{j-1}| / eta over
       the global batch is below it, on every rank at the same count.
@@ -145,10 +152,7 @@ def fused_dp_train_segment(dictionary, hessian, eigvec, batches,
   if update_alg not in fused_train_step.UPDATE_ALGS:
     raise ValueError("update_alg must be one of %s"
                      % (fused_train_step.UPDATE_ALGS,))
-  if mxu != "highest":
-    raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.1"
-        % (mxu,))
+  mxu = resolve_tier(mxu)
 
   def require(cond, message):
     if not cond:
@@ -168,7 +172,7 @@ def fused_dp_train_segment(dictionary, hessian, eigvec, batches,
                upd_num_iters=int(upd_num_iters), nonneg=bool(nonneg),
                hard=bool(hard), renormalize=bool(renormalize),
                power_iters=int(power_iters),
-               lowest_code_val=float(lowest_code_val))
+               lowest_code_val=float(lowest_code_val), mxu=mxu)
   if batches.device.type == "cpu":
     return fused_dp_train_plain(
         dictionary, hessian, eigvec, batches, float(sparsity_weight),
@@ -196,29 +200,29 @@ def fused_dp_train_segment(dictionary, hessian, eigvec, batches,
 
 def _launch(d, h, v, batches, mesh, lam, num_iters, upd_step, *, variant,
             update_alg, upd_num_iters, nonneg, hard, renormalize,
-            power_iters, lowest_code_val, eps=None):
+            power_iters, lowest_code_val, mxu, eps=None):
   """Allocate the scratch and the packed statistics, and enqueue the k
   steps on the current stream, the sum over the ranks between each step's
-  statistics and its update; eps the solves' early stop (None: none)."""
-  global launches, last_iters
+  statistics and its update; eps the solves' early stop (None: none), mxu
+  their tier."""
+  global launches, last_iters, tier_launches
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
   s = d.shape[0]
   device = batches.device
-  rows = lib.vtc_fista_rows()
-  sk, sc, state_in_smem = fused_fista.solve_layout(lib, s)
   eps, words, iters, local, classic = fused_fista.segment_stop_scratch(
-      lib, b, s, 1, eps, device, k, mesh.size)
+      lib, b, s, 1, eps, device, k, mesh.size, mxu=mxu)
 
   def empty(*shape):
     return torch.empty(shape, dtype=torch.float32, device=device)
 
   gram, corr, codes = empty(s, s), empty(b, s), empty(b, s)
   pgram = empty(n, n) if s > n else None
-  grad, eta, gn = empty(s, n), empty(1), empty(sk, sc)
-  state = (None if state_in_smem and not classic
-           else empty(-(-b // rows), 4, rows, sk))
+  grad, eta = empty(s, n), empty(1)
+  sk, sc, gn, state = fused_fista.solve_scratch(lib, b, s, mxu, classic,
+                                                device)
+  rounded = empty((b + s) * n) if mxu == "bf16" else None
   comm = empty(s * s + s * n + s)  # [C | B | stat], summed by one all-reduce
   hook = SumHook(mesh, comm)
   stop_hook = StopHook(mesh, local) if local is not None else None
@@ -240,13 +244,16 @@ def _launch(d, h, v, batches, mesh, lam, num_iters, upd_step, *, variant,
         codes.data_ptr(), grad.data_ptr(), eta.data_ptr(), sk, sc,
         gn.data_ptr(), ptr(state), comm.data_ptr(), hook.pointer, f32(eps),
         f32(1.0 / (b * mesh.size * s)), ptr(words), ptr(iters), ptr(local),
-        None if stop_hook is None else stop_hook.pointer, stream)
-  what = "data-parallel fc segment launch (k=%d, b=%d, s=%d, n=%d%s)" % (
-      k, b, s, n, "" if words is None else ", early stop")
+        None if stop_hook is None else stop_hook.pointer, TIER_CODES[mxu],
+        ptr(rounded), stream)
+  what = ("data-parallel fc segment launch (k=%d, b=%d, s=%d, n=%d, tier "
+          "%s%s)" % (k, b, s, n, mxu, "" if words is None else ", early stop"))
   if stop_hook is not None:
     stop_hook.check(0, what)  # the stop hook's own error first
   hook.check(err, what)
   launches += k
+  if mxu != "highest":
+    tier_launches += k
   if iters is not None:
     last_iters = iters
   return d, h, v, codes

@@ -482,16 +482,19 @@ def stop_scratch(lib, b, s, group_size, route, eps, device, steps=1,
           taken == ROUTES["classic"])
 
 
-def segment_stop_scratch(lib, b, s, group_size, eps, device, steps, world):
+def segment_stop_scratch(lib, b, s, group_size, eps, device, steps, world,
+                         mxu="highest"):
   """The early stop's arguments of a data-parallel segment's solves (K15,
-  K16): (eps, the words, the counts (steps,), the rank's one-float share or
-  None, whether the route is the classic one).  At a world of one
-  ``stop_scratch``'s (the shape's stop route, no share); above one the
-  classic route's words and a share, which the C entry's stop hook sums
-  over the ranks.  eps None: (-1.0, None, None, None, False)."""
+  K16) at tier mxu: (eps, the words, the counts (steps,), the rank's
+  one-float share or None, whether the route is the classic one).  At a
+  world of one ``stop_scratch``'s (the shape's stop route, or at a tier
+  the classic one; no share); above one the classic route's words and a
+  share, which the C entry's stop hook sums over the ranks.  eps None:
+  (-1.0, None, None, None, False)."""
   if world == 1 or eps is None:
     eps, words, iters, classic = stop_scratch(lib, b, s, group_size, "auto",
-                                              eps, device, steps=steps)
+                                              eps, device, steps=steps,
+                                              mxu=mxu)
     return eps, words, iters, None, classic
   eps = float(eps)
   if not eps >= 0.0:  # a negative or NaN eps never stops, as 0.0 does

@@ -47,9 +47,14 @@ at a world of one and the classic route with ``ops/sum_hook.StopHook``
 above one, every rank at the same count; the plain version takes the
 same test.  ``last_iters`` (a private test hook) is the int32 device
 tensor (k,) of the last stopped segment's counts, ``plain_iters`` the
-plain version's list of them.  Left out: the ``mxu``
-tiers other than 'highest' raise NotImplementedError (ROADMAP.md §1 item
-3a.2).  ``launches`` counts the train steps the kernel ran.
+plain version's list of them.
+
+``mxu`` is vtc_tpu's training tier (pallas_group_dp_train.py:94-231), K15's
+rule with K6's group prox and unpack: at 'bf16' the unpack adds
+bf16-rounded slots where the groups are not the identity layout, which
+keeps its codes unrounded (vtc_tpu's ``gsel_identity`` shortcut, :230-231,
+where K7 rounds them).  ``launches`` counts the train steps the kernel
+ran, ``tier_launches`` those at a tier other than 'highest'.
 """
 import ctypes
 
@@ -61,10 +66,12 @@ from vtc_tpu_torch.dict_update_rules.fully_connected._subspace_common import (
     alignment_regularization_gradients)
 from vtc_tpu_torch.ops import (fused_fista, fused_group_train_step,
                                solver)
+from vtc_tpu_torch.ops.precision import TIER_CODES, resolve_tier
 from vtc_tpu_torch.ops.sum_hook import StopHook, SumHook
 from vtc_tpu_torch.parallel import data_parallel
 
 launches = 0
+tier_launches = 0  # the steps above at a tier other than 'highest'
 last_iters = None  # int32 device tensor (k,): the last stopped segment's
 plain_iters = None  # the plain version's counts of its last stopped segment
 
@@ -86,14 +93,16 @@ def fused_group_dp_train_plain(
     upd_stepsize, *, group_assignments, mesh, variant="fista",
     update_alg="subspace_sc_cheap_quadratic_descent", upd_num_iters=1,
     hard=False, renormalize=True, power_iters=12, lowest_code_val=0.001,
-    alignment_penalty=0.0, precision=None, early_stopping_epsilon=None):
+    alignment_penalty=0.0, precision=None, early_stopping_epsilon=None,
+    mxu="highest"):
   """The plain PyTorch version of the segment, on any device and in the
   inputs' own float type (float64 inputs give the oracle): per batch K7's
   plain version, the sum over ``mesh`` and the replicated update.
   ``precision`` is the matmul precision of the solve (default 'highest');
   ``early_stopping_epsilon`` the kernel's stop test on the grouped codes,
   each iteration's sum summed over ``mesh`` and scaled by
-  1 / (global_b G M)."""
+  1 / (global_b G M); ``mxu`` the group solve's tier, the identity
+  layout's codes unrounded at 'bf16'."""
   global plain_iters
   d, h, v = dictionary, hessian, eigvec
   penalty = float(alignment_penalty)
@@ -113,7 +122,8 @@ def fused_group_dp_train_plain(
             group_assignments=group_assignments, variant=variant, hard=hard,
             power_iters=power_iters, precision=precision,
             early_stopping_epsilon=early_stopping_epsilon, psum_axes=mesh,
-            stop_count=batch.shape[0] * mesh.size * gm))
+            stop_count=batch.shape[0] * mesh.size * gm, mxu=mxu,
+            round_identity=False))
     counts.append(solver.last_iters)
     cmat, bmat, stat = mesh.sum(cmat, bmat, stat)
     d, h = data_parallel._replicated_update(
@@ -151,8 +161,7 @@ def fused_group_dp_train_segment(
     variant / update_alg / upd_num_iters / hard / renormalize /
       power_iters / lowest_code_val / alignment_penalty: as in vtc_tpu; a
       nonzero penalty needs renormalize (the unit-norm form).
-    mxu: 'highest' only (NotImplementedError otherwise, ROADMAP.md §1
-      item 3a.2.1).
+    mxu: the training tier, 'highest', 'bf16x5', 'bf16x3' or 'bf16'.
     early_stopping_epsilon: optional; each step's group solve stops after
       the first iteration j > 0 whose mean |codes_j - codes_{j-1}| / eta
       over the global batch's G*M packed codes is below it, on every rank
@@ -168,10 +177,7 @@ def fused_group_dp_train_segment(
   if update_alg not in fused_group_train_step.UPDATE_ALGS:
     raise ValueError("update_alg must be one of %s"
                      % (fused_group_train_step.UPDATE_ALGS,))
-  if mxu != "highest":
-    raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.1"
-        % (mxu,))
+  mxu = resolve_tier(mxu)
 
   def require(cond, message):
     if not cond:
@@ -197,7 +203,7 @@ def fused_group_dp_train_segment(
                upd_num_iters=int(upd_num_iters), hard=bool(hard),
                renormalize=bool(renormalize), power_iters=int(power_iters),
                lowest_code_val=float(lowest_code_val),
-               alignment_penalty=float(alignment_penalty))
+               alignment_penalty=float(alignment_penalty), mxu=mxu)
   if batches.device.type == "cpu":
     return fused_group_dp_train_plain(
         dictionary, hessian, eigvec, batches, float(sparsity_weight),
@@ -226,12 +232,12 @@ def fused_group_dp_train_segment(
 
 def _launch(d, h, v, batches, groups, mesh, lam, num_iters, upd_step, *,
             variant, update_alg, upd_num_iters, hard, renormalize,
-            power_iters, lowest_code_val, alignment_penalty, eps=None):
+            power_iters, lowest_code_val, alignment_penalty, mxu, eps=None):
   """Allocate the scratch and the packed statistics, and enqueue the k
   steps on the current stream, the sum over the ranks between each step's
   statistics and its update; eps the group solves' early stop (None:
-  none)."""
-  global launches, last_iters
+  none), mxu their tier."""
+  global launches, last_iters, tier_launches
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
@@ -241,10 +247,8 @@ def _launch(d, h, v, batches, groups, mesh, lam, num_iters, upd_step, *,
   gm = len(groups) * m
   sel, sum_idx = fused_group_train_step._device_group_index(groups, s,
                                                             device)
-  rows = lib.vtc_fista_rows()
-  sk, sc, state_in_smem = fused_fista.solve_layout(lib, gm)
   eps, words, iters, local, classic = fused_fista.segment_stop_scratch(
-      lib, b, gm, m, eps, device, k, mesh.size)
+      lib, b, gm, m, eps, device, k, mesh.size, mxu=mxu)
 
   def empty(*shape):
     return torch.empty(shape, dtype=torch.float32, device=device)
@@ -262,9 +266,10 @@ def _launch(d, h, v, batches, groups, mesh, lam, num_iters, upd_step, *,
     ddt, smat, sdm = empty(s, s), empty(s, s), empty(s, n)
   gram, corr, gcodes = empty(gm, gm), empty(b, gm), empty(b, gm)
   pgram = empty(n, n) if gm > n else None
-  grad, eta, gn = empty(s, n), empty(1), empty(sk, sc)
-  state = (None if state_in_smem and not classic
-           else empty(-(-b // rows), 4, rows, sk))
+  grad, eta = empty(s, n), empty(1)
+  sk, sc, gn, state = fused_fista.solve_scratch(lib, b, gm, mxu, classic,
+                                                device)
+  rounded = empty((b + gm) * n) if mxu == "bf16" else None
   comm = empty(s * s + s * n + s)  # [C | B | stat], summed by one all-reduce
   hook = SumHook(mesh, comm)
   stop_hook = StopHook(mesh, local) if local is not None else None
@@ -284,14 +289,17 @@ def _launch(d, h, v, batches, groups, mesh, lam, num_iters, upd_step, *,
         eta.data_ptr(), sk, sc, gn.data_ptr(), ptr(state), comm.data_ptr(),
         hook.pointer, f32(eps), f32(1.0 / (b * mesh.size * gm)), ptr(words),
         ptr(iters), ptr(local),
-        None if stop_hook is None else stop_hook.pointer, stream)
+        None if stop_hook is None else stop_hook.pointer, TIER_CODES[mxu],
+        ptr(rounded), stream)
   what = ("data-parallel subspace segment launch (k=%d, b=%d, s=%d, n=%d, "
-          "G*M=%d%s)" % (k, b, s, n, gm,
-                         "" if words is None else ", early stop"))
+          "G*M=%d, tier %s%s)" % (k, b, s, n, gm, mxu,
+                                  "" if words is None else ", early stop"))
   if stop_hook is not None:
     stop_hook.check(0, what)  # the stop hook's own error first
   hook.check(err, what)
   launches += k
+  if mxu != "highest":
+    tier_launches += k
   if iters is not None:
     last_iters = iters
   return d, h, v, gcodes if sel is None else codes

@@ -54,8 +54,13 @@ grouped refresh, group solve and duplicate-summed codes on the shard,
 then the shard's unaveraged statistics C = codes^T codes, B = codes^T X
 and stat = sum_b codes^2 over the summed (b, s) codes instead of the
 update.  A CUDA tensor runs ``vtc_group_solve_stats`` of the same source
-or raises; a CPU tensor runs ``fused_group_solve_stats_plain``.
-``stats_launches`` counts the steps that kernel ran;
+or raises; a CPU tensor runs ``fused_group_solve_stats_plain``.  ``mxu``
+is K7's tier (pallas_train_step.py:1010-1080), K6's rule but for the
+unpack: at 'bf16' K7 rounds every code slot to bf16 before C, B and
+stat, the identity layout's too, since its unpack is a bf16 product with
+no identity shortcut (:1074), where K6 and K16 keep that layout's codes
+unrounded.  ``stats_launches`` counts the steps that kernel ran,
+``stats_tier_launches`` those at a tier other than 'highest';
 ``fused_group_solve_stats_supported`` is the gate of the scanned trainer.
 """
 import ctypes
@@ -81,6 +86,7 @@ from vtc_tpu_torch.ops.precision import (TIER_CODES, matmul_precision,
 launches = 0
 tier_launches = 0  # the launches above at a tier other than 'highest'
 stats_launches = 0
+stats_tier_launches = 0  # the stats launches at a tier other than 'highest'
 
 INFERENCE_ALGS = ("subspace_ista", "subspace_fista")
 UPDATE_ALGS = ("subspace_sc_steepest_descent",
@@ -126,6 +132,13 @@ def group_selection_index(group_assignments):
   return sel.reshape(-1)
 
 
+def _is_identity(group_assignments, code_size):
+  """Whether the groups tile range(code_size) in order: vtc_tpu's
+  ``gsel_identity``, where K6 and K16 skip the unpack."""
+  sel = group_selection_index(group_assignments)
+  return sel.size == code_size and np.array_equal(sel, np.arange(code_size))
+
+
 def comembership_counts(group_assignments, code_size):
   """(s, s) zero-diagonal co-membership counts: pairs that share several
   groups count once per group (pallas_train_step.py:1360-1367)."""
@@ -160,9 +173,7 @@ def fused_group_train_segment_plain(
   s = d.shape[0]
   gather, mask, index = sub.group_layout(group_assignments, s, d.device)
   m = gather.shape[1]
-  sel = group_selection_index(group_assignments)
-  round_unpack = mxu == "bf16" and not (
-      sel.size == s and np.array_equal(sel, np.arange(s)))
+  round_unpack = mxu == "bf16" and not _is_identity(group_assignments, s)
   codes = eta = None
   for batch in batches:
     grouped = sub.build_grouped_dictionary(d, gather, mask)
@@ -305,7 +316,7 @@ def _launch(dictionary, hessian, eigvec, batches, groups, lam, num_iters,
   m = max(len(g) for g in groups)
   sel_np = group_selection_index(groups)
   gm = sel_np.size
-  identity = gm == s and np.array_equal(sel_np, np.arange(s))
+  identity = _is_identity(groups, s)
   eps, words, iters, classic = fused_fista.stop_scratch(
       lib, b, gm, m, "auto", eps, device, steps=k, mxu=mxu)
   use_reg = alignment_penalty != 0.0
@@ -386,14 +397,20 @@ def fused_group_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
                                   variant="fista", hard=False,
                                   power_iters=12, precision=None,
                                   early_stopping_epsilon=None,
-                                  psum_axes=None, stop_count=None):
+                                  psum_axes=None, stop_count=None,
+                                  mxu="highest", round_identity=True):
   """The plain PyTorch version of ``fused_group_solve_stats``, on any
   device and in the inputs' own float type: ``build_grouped_dictionary``
   -> ``lipschitz.power_iterate`` -> the 'gram' group solve ->
   ``unpack_codes_summed`` -> the three statistics.  ``precision`` is the
   matmul precision of the solve; the refresh and the statistics stay at
   'highest' (pallas_train_step.py:1021-1024).  The group solve's early
-  stop over ``psum_axes`` and ``stop_count`` is K16's."""
+  stop over ``psum_axes`` and ``stop_count`` is K16's.  ``mxu``: the group
+  solve's tier; at 'bf16' c is one bf16 pass and the unpack adds
+  bf16-rounded slots, on the identity layout too unless
+  ``round_identity`` is False (K16's shortcut, which its plain version
+  takes)."""
+  mxu = resolve_tier(mxu)
   s = dictionary.shape[0]
   gather, mask, index = sub.group_layout(group_assignments, s,
                                          dictionary.device)
@@ -404,7 +421,10 @@ def fused_group_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
       batch, grouped, gather.shape[1], sparsity_weight, inf_num_iters, eta,
       variant=variant, hard=hard, precision=precision,
       early_stopping_epsilon=early_stopping_epsilon, psum_axes=psum_axes,
-      stop_count=stop_count)
+      stop_count=stop_count, mxu=mxu, bf16_corr=mxu == "bf16")
+  if mxu == "bf16" and (round_identity
+                        or not _is_identity(group_assignments, s)):
+    flat = flat.to(torch.bfloat16).to(flat.dtype)
   codes = sub.unpack_codes_summed(flat, gather, mask, s, index)
   with matmul_precision():
     cmat = codes.T @ codes
@@ -417,10 +437,9 @@ def _device_group_index(groups, code_size, device):
   """(sel, sum_idx) int32 tensors on ``device`` for a group structure, or
   (None, None) when the groups tile range(code_size) in order; built and
   copied once per structure, so a step copies nothing to the device."""
-  sel_np = group_selection_index(groups)
-  if sel_np.size == code_size and np.array_equal(sel_np,
-                                                 np.arange(code_size)):
+  if _is_identity(groups, code_size):
     return None, None
+  sel_np = group_selection_index(groups)
   gather, mask = sub.pack_group_indices(groups, code_size)
   index = sub.unpack_index(gather, mask, code_size).numpy().astype(np.int32)
   return (torch.from_numpy(sel_np).to(device),
@@ -440,7 +459,8 @@ def fused_group_solve_stats(dictionary, eigvec, batch, sparsity_weight,
     sparsity_weight, inf_num_iters: Python scalars.
     group_assignments: list of index lists (ragged, may overlap).
     variant / hard / power_iters: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2.1).
+    mxu: the group solve's tier, 'highest', 'bf16x5', 'bf16x3' or 'bf16'
+      (at 'bf16' every code slot is rounded, the identity layout's too).
 
   Returns:
     (codes (b, s) summed, cmat (s, s), bmat (s, n), stat (s,), new_eigvec,
@@ -448,12 +468,9 @@ def fused_group_solve_stats(dictionary, eigvec, batch, sparsity_weight,
   """
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
-  if mxu != "highest":
-    raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.1"
-        % (mxu,))
   groups = tuple(tuple(int(i) for i in g) for g in group_assignments)
-  flags = dict(variant=variant, hard=bool(hard), power_iters=int(power_iters))
+  flags = dict(variant=variant, hard=bool(hard), power_iters=int(power_iters),
+               mxu=resolve_tier(mxu))
   if batch.device.type == "cpu":
     return fused_group_solve_stats_plain(
         dictionary, eigvec, batch, float(sparsity_weight), int(inf_num_iters),
@@ -492,10 +509,10 @@ def fused_group_solve_stats(dictionary, eigvec, batch, sparsity_weight,
 
 
 def _launch_stats(dictionary, eigvec, batch, groups, lam, num_iters, *,
-                  variant, hard, power_iters):
+                  variant, hard, power_iters, mxu):
   """Allocate the outputs and scratch, enqueue the step on the current
   stream."""
-  global stats_launches
+  global stats_launches, stats_tier_launches
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   (b, n), s = batch.shape, dictionary.shape[0]
@@ -503,8 +520,6 @@ def _launch_stats(dictionary, eigvec, batch, groups, lam, num_iters, *,
   m = max(len(g) for g in groups)
   gm = len(groups) * m
   sel, sum_idx = _device_group_index(groups, s, device)
-  rows = lib.vtc_fista_rows()
-  sk, sc, state_in_smem = fused_fista.solve_layout(lib, gm)
 
   def empty(*shape):
     return torch.empty(shape, dtype=torch.float32, device=device)
@@ -515,12 +530,15 @@ def _launch_stats(dictionary, eigvec, batch, groups, lam, num_iters, *,
   v = eigvec.contiguous().clone()
   dg = codes = None
   if sel is not None:
-    dg, codes = empty(gm, n), empty(b, s)
+    dg = empty(gm, n)
+  if sel is not None or mxu == "bf16":  # K7 rounds the identity's codes
+    codes = empty(b, s)
   gram, corr, gcodes = empty(gm, gm), empty(b, gm), empty(b, gm)
   pgram = empty(n, n) if gm > n else None
   cmat, bmat, stat, eta = empty(s, s), empty(s, n), empty(s), empty(1)
-  gn = empty(sk, sc)
-  state = None if state_in_smem else empty(-(-b // rows), 4, rows, sk)
+  sk, sc, gn, state = fused_fista.solve_scratch(lib, b, gm, mxu, False,
+                                                device)
+  rounded = empty((b + gm) * n) if mxu == "bf16" else None
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.vtc_group_solve_stats(
@@ -530,11 +548,14 @@ def _launch_stats(dictionary, eigvec, batch, groups, lam, num_iters, *,
         num_iters, int(variant == "fista"), int(hard), power_iters, ptr(dg),
         gram.data_ptr(), ptr(pgram), corr.data_ptr(), gcodes.data_ptr(),
         ptr(codes), cmat.data_ptr(), bmat.data_ptr(), stat.data_ptr(),
-        eta.data_ptr(), sk, sc, gn.data_ptr(), ptr(state), stream)
+        eta.data_ptr(), sk, sc, gn.data_ptr(), ptr(state), TIER_CODES[mxu],
+        ptr(rounded), stream)
   if err != 0:
     raise RuntimeError(
         "fused group solve+stats launch failed with CUDA error %d (b=%d, "
-        "s=%d, n=%d, G*M=%d)" % (err, b, s, n, gm))
+        "s=%d, n=%d, G*M=%d, tier %s)" % (err, b, s, n, gm, mxu))
   stats_launches += 1
-  return (gcodes if sel is None else codes, cmat, bmat, stat, v,
+  if mxu != "highest":
+    stats_tier_launches += 1
+  return (gcodes if codes is None else codes, cmat, bmat, stat, v,
           eta.reshape(()))

@@ -46,9 +46,12 @@ solve of a K2 step on the shard, then the shard's unaveraged update
 statistics C = codes^T codes, B = codes^T X and stat = sum_b codes^2
 instead of the update.  A CUDA tensor runs ``vtc_solve_stats`` of the
 same source (K2's refresh and solve, the fixed-order statistics) or
-raises; a CPU tensor runs ``fused_solve_stats_plain``.
-``stats_launches`` counts the steps that kernel ran.
-``fused_solve_stats_supported`` is the gate of the scanned trainer.
+raises; a CPU tensor runs ``fused_solve_stats_plain``.  ``mxu`` is K3's
+tier (pallas_train_step.py:854-925), K2's rule: the solve at the tier,
+at 'bf16' c as one bf16 pass, the refresh and the statistics fp32.
+``stats_launches`` counts the steps that kernel ran, ``stats_tier_launches``
+those at a tier other than 'highest'.  ``fused_solve_stats_supported`` is
+the gate of the scanned trainer.
 """
 import ctypes
 
@@ -65,6 +68,7 @@ from vtc_tpu_torch.ops.precision import (TIER_CODES, matmul_precision,
 launches = 0
 tier_launches = 0  # the launches above at a tier other than 'highest'
 stats_launches = 0
+stats_tier_launches = 0  # the stats launches at a tier other than 'highest'
 last_iters = None
 
 UPDATE_ALGS = ("sc_steepest_descent", "sc_cheap_quadratic_descent")
@@ -268,7 +272,7 @@ def fused_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
                             inf_num_iters, *, variant="fista", nonneg=False,
                             hard=False, power_iters=12, precision=None,
                             early_stopping_epsilon=None, psum_axes=None,
-                            stop_count=None):
+                            stop_count=None, mxu="highest"):
   """The plain PyTorch version of ``fused_solve_stats``, on any device and
   in the inputs' own float type: ``lipschitz.power_iterate`` ->
   ``fused_fista_plain`` -> the three statistics.  ``precision`` is the
@@ -276,14 +280,16 @@ def fused_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
   would cost); the refresh and the statistics stay at 'highest', as in
   every tier of the TPU kernel (pallas_train_step.py:862-865).  The solve's
   early stop over ``psum_axes`` and ``stop_count`` is K15's (the
-  data-parallel segment's plain version passes them)."""
+  data-parallel segment's plain version passes them).  ``mxu``: the
+  solve's tier, and at 'bf16' c as one bf16 pass."""
+  mxu = resolve_tier(mxu)
   eigval, v = lipschitz.power_iterate(dictionary, eigvec, int(power_iters))
   eta = 1.0 / eigval
   codes = fused_fista.fused_fista_plain(
       batch, dictionary, sparsity_weight, inf_num_iters, eta,
       variant=variant, nonneg=nonneg, hard=hard, precision=precision,
       early_stopping_epsilon=early_stopping_epsilon, psum_axes=psum_axes,
-      stop_count=stop_count)
+      stop_count=stop_count, mxu=mxu, bf16_corr=mxu == "bf16")
   with matmul_precision():
     cmat = codes.T @ codes
     bmat = codes.T @ batch
@@ -301,7 +307,7 @@ def fused_solve_stats(dictionary, eigvec, batch, sparsity_weight,
     batch: (b, n) float32, this shard of the batch.
     sparsity_weight, inf_num_iters: Python scalars.
     variant / nonneg / hard / power_iters: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2.1).
+    mxu: the solve's tier, 'highest', 'bf16x5', 'bf16x3' or 'bf16'.
 
   Returns:
     (codes (b, s), cmat (s, s), bmat (s, n), stat (s,), new_eigvec, eta):
@@ -310,12 +316,8 @@ def fused_solve_stats(dictionary, eigvec, batch, sparsity_weight,
   """
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
-  if mxu != "highest":
-    raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.1"
-        % (mxu,))
   flags = dict(variant=variant, nonneg=bool(nonneg), hard=bool(hard),
-               power_iters=int(power_iters))
+               power_iters=int(power_iters), mxu=resolve_tier(mxu))
   if batch.device.type == "cpu":
     return fused_solve_stats_plain(dictionary, eigvec, batch,
                                    float(sparsity_weight), int(inf_num_iters),
@@ -350,16 +352,14 @@ def fused_solve_stats(dictionary, eigvec, batch, sparsity_weight,
 
 
 def _launch_stats(dictionary, eigvec, batch, lam, num_iters, *, variant,
-                  nonneg, hard, power_iters):
+                  nonneg, hard, power_iters, mxu):
   """Allocate the outputs and scratch, enqueue the step on the current
   stream."""
-  global stats_launches
+  global stats_launches, stats_tier_launches
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   (b, n), s = batch.shape, dictionary.shape[0]
   device = batch.device
-  rows = lib.vtc_fista_rows()
-  sk, sc, state_in_smem = fused_fista.solve_layout(lib, s)
 
   def empty(*shape):
     return torch.empty(shape, dtype=torch.float32, device=device)
@@ -368,8 +368,9 @@ def _launch_stats(dictionary, eigvec, batch, lam, num_iters, *, variant,
   gram, corr, codes = empty(s, s), empty(b, s), empty(b, s)
   pgram = empty(n, n) if s > n else None
   cmat, bmat, stat, eta = empty(s, s), empty(s, n), empty(s), empty(1)
-  gn = empty(sk, sc)
-  state = None if state_in_smem else empty(-(-b // rows), 4, rows, sk)
+  sk, sc, gn, state = fused_fista.solve_scratch(lib, b, s, mxu, False,
+                                                device)
+  rounded = empty((b + s) * n) if mxu == "bf16" else None
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.vtc_solve_stats(
@@ -379,10 +380,13 @@ def _launch_stats(dictionary, eigvec, batch, lam, num_iters, *, variant,
         None if pgram is None else pgram.data_ptr(), corr.data_ptr(),
         codes.data_ptr(), cmat.data_ptr(), bmat.data_ptr(), stat.data_ptr(),
         eta.data_ptr(), sk, sc, gn.data_ptr(),
-        None if state is None else state.data_ptr(), stream)
+        None if state is None else state.data_ptr(), TIER_CODES[mxu],
+        None if rounded is None else rounded.data_ptr(), stream)
   if err != 0:
     raise RuntimeError(
         "fused solve+stats launch failed with CUDA error %d (b=%d, s=%d, "
-        "n=%d)" % (err, b, s, n))
+        "n=%d, tier %s)" % (err, b, s, n, mxu))
   stats_launches += 1
+  if mxu != "highest":
+    stats_tier_launches += 1
   return codes, cmat, bmat, stat, v, eta.reshape(())

@@ -113,16 +113,19 @@ same dictionary.
   metrics; reset/prune takes rank 0's draw on every rank.
 
 'train_precision' ('highest', 'bf16x5', 'bf16x3', 'bf16') is the tier of
-the single-device fused fc and subspace runners (K2, K6; vtc_tpu :453-470):
-their solves run it, the Gram, refresh and update stay fp32.  As in
-vtc_tpu, a configuration that resolves to a per-step runner keeps full
-precision; on the CPU the fused runners' plain versions run a tier where
-'fc_formulation' is 'pallas' and the power is warm.
+the fused fc and subspace runners (vtc_tpu :453-474): the single-device
+K2 and K6, and with 'data_parallel' the whole-segment K15 and K16 and the
+'dcn' mesh's composition of K3 and K7.  Their solves run it, the Gram,
+refresh, statistics and update stay fp32.  As in vtc_tpu, a configuration
+that resolves to a per-step runner (the psum-per-op step among them)
+keeps full precision; on the CPU the fused runners' plain versions run a
+tier where 'fc_formulation' is 'pallas' and the power is warm.  The
+code-sharded runner's K19 refuses a tier (ROADMAP.md §1 item 3a.2.4).
 
 Raise NotImplementedError, each naming its ROADMAP.md §1 item:
 'hbm_chunk_steps' streaming (item 8), and 'train_precision' other than
-'highest' in convolutional mode (item 3a.2.2) or with 'data_parallel'
-(item 3a.2.1).  Every segment kernel stops its solves on the
+'highest' in convolutional mode (item 3a.2.2), with data parallelism or
+not.  Every segment kernel stops its solves on the
 device with 'early_stopping_epsilon': the single-device K2, K6 and K12
 (and K1 or K10 in the per-step route), the data-parallel K15, K16 and K17
 and the code-sharded K19, the last four over the global batch.
@@ -294,19 +297,20 @@ def _dp_conv_segment_runner(mesh, variant, update_alg, upd_niters, nonneg,
 
 
 def _dp_fc_segment_runner(mesh, variant, update_alg, upd_niters, nonneg,
-                          hard, renormalize, early_eps=None):
+                          hard, renormalize, early_eps=None, mxu="highest"):
   """vtc_tpu's ``_dp_rdma_segment_runner``: this rank's shards of the whole
   segment through the data-parallel fc segment kernels (K15), the
   statistics summed over ``mesh`` once per step, warm tracking at
   power_iters=2; ``early_eps`` each solve's stop test over the global
-  batch, its share summed over ``mesh`` once per iteration."""
+  batch, its share summed over ``mesh`` once per iteration; ``mxu`` the
+  solves' tier."""
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
     dictionary, hessian, eigvec, _ = fused_dp_train.fused_dp_train_segment(
         dictionary, hessian, eigvec, batches, sw, n_it, upd_step, mesh=mesh,
         variant=variant, update_alg=update_alg, upd_num_iters=upd_niters,
         nonneg=nonneg, hard=hard, renormalize=renormalize, power_iters=2,
-        early_stopping_epsilon=early_eps)
+        mxu=mxu, early_stopping_epsilon=early_eps)
     return dictionary, hessian, eigvec
 
   return run
@@ -314,11 +318,12 @@ def _dp_fc_segment_runner(mesh, variant, update_alg, upd_niters, nonneg,
 
 def _dp_group_segment_runner(mesh, variant, update_alg, upd_niters, hard,
                              renormalize, group_assignments,
-                             alignment_penalty, early_eps=None):
+                             alignment_penalty, early_eps=None,
+                             mxu="highest"):
   """vtc_tpu's ``_dp_rdma_group_segment_runner``: the subspace counterpart
   of ``_dp_fc_segment_runner`` (K16), the anti-alignment regularizer on the
   replicated dictionary inside; ``early_eps`` each group solve's stop test
-  over the global batch."""
+  over the global batch; ``mxu`` the group solves' tier."""
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
     dictionary, hessian, eigvec, _ = (
@@ -327,7 +332,7 @@ def _dp_group_segment_runner(mesh, variant, update_alg, upd_niters, hard,
             group_assignments=group_assignments, mesh=mesh, variant=variant,
             update_alg=update_alg, upd_num_iters=upd_niters, hard=hard,
             renormalize=renormalize, power_iters=2,
-            alignment_penalty=alignment_penalty,
+            alignment_penalty=alignment_penalty, mxu=mxu,
             early_stopping_epsilon=early_eps))
     return dictionary, hessian, eigvec
 
@@ -351,7 +356,9 @@ def _dp_fused_segment_runner(local_step):
 def _dp_segment_runner(local_step):
   """The psum-per-op data-parallel step (``parallel.build_dp_local_step``)
   over this rank's shards of a segment; the eigenvector passes through
-  untouched, for one signature with the other runners."""
+  untouched, for one signature with the other runners.  It runs full
+  precision whatever ``train_precision`` says, as vtc_tpu's XLA step does
+  (vtc_tpu/training/compiled_epoch.py:466-468)."""
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
     d, h = dictionary, hessian
@@ -398,10 +405,6 @@ def train_dictionary_scanned(training_batches, validation_batches,
     raise NotImplementedError(
         "train_precision=%r in convolutional mode: the conv tiers wait, "
         "ROADMAP.md §1 item 3a.2.2" % (train_precision,))
-  if train_precision != "highest" and all_params.get("data_parallel"):
-    raise NotImplementedError(
-        "train_precision=%r with data_parallel: the data-parallel tiers "
-        "wait, ROADMAP.md §1 item 3a.2.1" % (train_precision,))
   if all_params.get("hbm_chunk_steps") is not None:
     raise NotImplementedError(
         "hbm_chunk_steps (streaming an epoch larger than device memory) "
@@ -550,8 +553,8 @@ def train_dictionary_scanned(training_batches, validation_batches,
           (inference_alg[9:] if group_assignments is not None
            else inference_alg), update_alg, upd_niters, nonneg, hard,
           renormalize, group_arrays=arrays,
-          alignment_penalty=alignment_penalty, early_eps=early_eps,
-          stop_count=stop_count), True
+          alignment_penalty=alignment_penalty, mxu=train_precision,
+          early_eps=early_eps, stop_count=stop_count), True
     if dp_fused_now():
       # the whole-segment kernels where vtc_tpu takes them (:656-659): every
       # axis other than 'data' of size 1 (no 'dcn' axis, 'code' 1)
@@ -562,7 +565,7 @@ def train_dictionary_scanned(training_batches, validation_batches,
       if whole_mesh and group_assignments is None:
         return _dp_fc_segment_runner(
             dp_mesh, inference_alg, update_alg, upd_niters, nonneg, hard,
-            renormalize, early_eps), True
+            renormalize, early_eps, mxu=train_precision), True
       if whole_mesh and fused_group_dp_train.fused_group_dp_segment_supported(
           training_batches.shape[1], dictionary.shape[0],
           training_batches.shape[-1], group_assignments,
@@ -570,9 +573,10 @@ def train_dictionary_scanned(training_batches, validation_batches,
         return _dp_group_segment_runner(
             dp_mesh, inference_alg[9:], update_alg, upd_niters, hard,
             renormalize, group_assignments, alignment_penalty,
-            early_eps), True
+            early_eps, mxu=train_precision), True
       common = dict(hard_threshold=hard, renormalize=renormalize,
-                    upd_num_iters=upd_niters, power_iters=2)
+                    upd_num_iters=upd_niters, power_iters=2,
+                    mxu=train_precision)
       if mode == "convolutional":
         local = parallel.build_dp_conv_fused_local_step(
             dp_mesh, inference_alg, update_alg, kernel_stride=kernel_stride,
