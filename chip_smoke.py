@@ -594,6 +594,41 @@ each test marked cuda to the phases that make its check here.
    version's, the bound (the solve's passes at 989 TFLOP/s beside the fp32
    products at 67) and the library time (the step's solve passes as
    products of bf16 operands, the median of 7 turns).
+48. The precision tiers of the conv family K10, K12, K13 and K17
+   (csrc/conv_gemm_tier.cuh: the gathered GEMM on the bf16 tensor cores
+   for corr, the synthesis and the analysis, the weights split once a
+   solve or step; the mask, prox, momentum, stop, Gram, refresh,
+   statistics and update fp32).  (a) Each kernel at each tier against its
+   plain version at the tier under phase 46's three rules (the spread
+   under five one-ulp nudges of the input; at bf16 the bound's floor is
+   2^-7 of the largest code, CONV_TIER_FLOOR says why): K10 at b 40 FISTA 100
+   (windowed kernels) and b 5 ISTA 25 (random kernels), one K12 and one
+   K17 step at measure_conv(40, 25) from phase 19's start, K13 on a shard
+   of 20 in the gradient and the gram form; each call one tier launch, a
+   'highest' call none.  (b) The kernel's result at each other tier and at
+   'highest', planted in each tier's place, must fail.  (c) The stop at
+   each tier, K10 at b 5, a K12 and a K17 step, a mid-run eps: the plain
+   version's count, bitwise the tier kernel without the stop at that
+   count; K10 at b 40 (beyond vtc_tpu's one tile) refuses a tier with the
+   stop.  (d) A world of 2, two processes of this script sharing the card
+   over gloo: the scanned conv trainer with data_parallel=True at bf16x3
+   and bf16 for 10 steps (K17 on shards of 20) without and with a mid-run
+   stop, and on make_mesh(dcn=2) at bf16x3 (K13's composition): both ranks
+   bitwise equal with the same counts, 10 tier steps a rank, the counts of
+   the world of 1, within the larger of DP_FLOOR, the tier's floor and the
+   world of 1's spread.  (e) The main path at each tier and at 'highest',
+   its tier counts zeroed before and read after: the conv encode_dataset
+   of phase 15 (8 K10 tier launches), one 200-step segment of phase 19's
+   scanned trainer (200 K12 tier steps) and with data_parallel=True (200
+   K17), the 'dcn' composition for 20 steps (20 K13); the kernels finite
+   and unit norm within 1e-4, the held-out conv LASSO falling, printed
+   beside 'highest''s; the images/s of each.  (f) In turns, each row's ms
+   against 'highest' on the same inputs, the plain version's, the bound
+   (the solve's passes at 989 TFLOP/s beside the fp32 work at 67, the
+   inputs read and outputs written once at 3.35 TB/s) and the library time
+   (the same solve with each pass one product of bf16 operands on the
+   materialized stack; at 'highest' each product one cuDNN call; the
+   median of 7 turns).
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -643,7 +678,7 @@ CUDA_TESTS = {
     "test_torch_port_code_shard_persistent.py::"
     "test_cuda_code_shard_persistent_matches_steps_bitwise": (41,),
     "test_torch_port_conv.py::test_cuda_wrappers_raise_and_match_plain": (
-        13, 14, 44),
+        13, 14, 44, 48),
     "test_torch_port_conv_early_stop.py::test_cuda_conv_stop_matches_plain": (
         44,),
     "test_torch_port_conv_parallel.py::test_cuda_conv_dp_runs_k13_and_k17": (
@@ -694,6 +729,7 @@ CUDA_TESTS = {
         26, 47),
     "test_torch_port_dp_tiers.py::test_cuda_dp_segment_tiers_match_plain": (
         33, 47),
+    "test_torch_port_conv_tiers.py::test_cuda_conv_tiers_match_plain": (48,),
 }
 
 
@@ -2562,11 +2598,14 @@ def conv_stats_kernel_cases(torch, K12, parallel, conv_ops, lipschitz,
     print("control: K13 plain with TF32 products, %-10s max|d| fp64 %.3e, "
           "limit %.3e" % (what, err, lim))
   check(max(ratios) > 1.0, "the limit does not tell TF32 products from fp32")
+  # the tiers run (phase 48 holds them to the rules)
+  check_tier_runs(torch, "K13 mxu='bf16x3'", lambda xx, mxu: (
+      K12.conv_solve_stats(d, v, xx, CONV_LAM, 5, mxu=mxu, **kw)),
+                  lambda xx, mxu: K12.conv_solve_stats_plain(
+                      d, v, xx, CONV_LAM, 5, mxu=mxu, **kw), x[:2].contiguous(),
+                  K12, "stats_tier_launches", "bf16x3")
   # the refusals: no launch
   for label, call, kind, item in (
-      ("K13 mxu='bf16x3'", lambda: K12.conv_solve_stats(
-          d, v, x[:2], CONV_LAM, 5, mxu="bf16x3", **kw), NotImplementedError,
-       "item 3a"),
       ("K13 early_stopping_epsilon (none in vtc_tpu's K13 either)",
        lambda: K12.conv_solve_stats(
            d, v, x[:2], CONV_LAM, 5, early_stopping_epsilon=1e-3, **kw),
@@ -2679,25 +2718,29 @@ def conv_dp_kernel_cases(torch, K17, K12, parallel, compiled_epoch, conv_ops,
       K17.fused_conv_dp_train_segment(d, h, v, x2[:, :2], CONV_LAM, 5,
                                       SEG_STEP, early_stopping_epsilon=1e-3,
                                       **kw)), K17)
-  for label, call, kind, item in (
-      ("K17 mxu='bf16x3'", lambda: K17.fused_conv_dp_train_segment(
-          d, h, v, x2[:, :2], CONV_LAM, 5, SEG_STEP, mxu="bf16x3", **kw),
-       NotImplementedError, "item 3a"),
-      ("K17 gram form at padding 2, stride 4",
-       lambda: K17.fused_conv_dp_train_segment(
-           d3, six, six, x3, 0.05, 5, 0.05, mesh=mesh1, kernel_stride=(4, 4),
-           padding=((2, 2), (2, 2)), upd_num_iters=3), ValueError,
-       "conv_solve_stats_supported")):
-    before = K17.launches
-    try:
-      call()
-    except kind as err:
-      check(item in str(err), "%s: the refusal names no %s: %s" % (
-          label, item, err))
-    else:
-      raise RuntimeError("chip_smoke: %s was not refused" % label)
-    check(K17.launches == before, label + " launched K17")
-    print("refused on the card: %s (%s)" % (label, item))
+  # the tiers run (phase 48 holds them to the rules)
+  check_tier_runs(torch, "K17 mxu='bf16x3'", lambda xx, mxu: (
+      K17.fused_conv_dp_train_segment(d, h, v, xx, CONV_LAM, 5, SEG_STEP,
+                                      mxu=mxu, **kw)),
+                  lambda xx, mxu: K17.fused_conv_dp_train_plain(
+                      d, h, v, xx, CONV_LAM, 5, SEG_STEP, mxu=mxu, **kw),
+                  x2[:, :2].contiguous(), K17, "tier_launches", "bf16x3",
+                  steps=2)
+  # the refusal: no launch
+  label, item = "K17 gram form at padding 2, stride 4", (
+      "conv_solve_stats_supported")
+  before = K17.launches
+  try:
+    K17.fused_conv_dp_train_segment(
+        d3, six, six, x3, 0.05, 5, 0.05, mesh=mesh1, kernel_stride=(4, 4),
+        padding=((2, 2), (2, 2)), upd_num_iters=3)
+  except ValueError as err:
+    check(item in str(err), "%s: the refusal names no %s: %s" % (
+        label, item, err))
+  else:
+    raise RuntimeError("chip_smoke: %s was not refused" % label)
+  check(K17.launches == before, label + " launched K17")
+  print("refused on the card: %s (%s)" % (label, item))
   return worst
 
 
@@ -5092,7 +5135,7 @@ def one_ulp_nudge(x, seed):
                      torch.nextafter(x, torch.full_like(x, -np.inf)))
 
 
-def tier_verdict(torch, got, got_full, plains, nudged, tier):
+def tier_verdict(torch, got, got_full, plains, nudged, tier, floor=None):
   """How a solve or step at a tier (got) stands against the plain version:
   plains {tier: plain's result} at every tier and 'highest', nudged plain
   at the tier on five nudged inputs, got_full the kernel at 'highest'.
@@ -5105,7 +5148,8 @@ def tier_verdict(torch, got, got_full, plains, nudged, tier):
   moving it within 2x of plain's (the tier's split turns the kernel's and
   plain's last-bit differences into up to 2^-17 of a value, so bf16x3
   steps sit 1-2 noises apart); 'identity', no plain tier nearer the
-  kernel (Frobenius) than plain at its own tier."""
+  kernel (Frobenius) than plain at its own tier.  ``floor`` replaces
+  TIER_FLOOR[tier] (phase 48's CONV_TIER_FLOOR)."""
   def f64(t):
     return t.double().reshape(-1)
   got, got_full = f64(got), f64(got_full)
@@ -5115,8 +5159,9 @@ def tier_verdict(torch, got, got_full, plains, nudged, tier):
   spread = max(float(m.abs().max()) for m in moved)
   noise = max(max(float(torch.linalg.vector_norm(m)) for m in moved),
               float(torch.linalg.vector_norm(got_full - full)))
-  v = dict(bound=max(TIER_FLOOR[tier] * max(1.0, float(want.abs().max())),
-                     spread),
+  if floor is None:
+    floor = TIER_FLOOR[tier]
+  v = dict(bound=max(floor * max(1.0, float(want.abs().max())), spread),
            err=float((got - want).abs().max()),
            dist=float(torch.linalg.vector_norm(got - want)),
            control=float(torch.linalg.vector_norm(want - full)),
@@ -5134,9 +5179,10 @@ def tier_verdict(torch, got, got_full, plains, nudged, tier):
   return v
 
 
-def tier_check(torch, label, got, got_full, plains, nudged, tier):
+def tier_check(torch, label, got, got_full, plains, nudged, tier,
+               floor=None):
   """tier_verdict's three rules must hold.  Returns the verdict."""
-  v = tier_verdict(torch, got, got_full, plains, nudged, tier)
+  v = tier_verdict(torch, got, got_full, plains, nudged, tier, floor)
   print("tier %s %s: max|d| %.3e (bound %.3e); %.3e from plain at the tier, "
         "which is %.3e from 'highest' (noise %.3e, rule %s; the kernel's "
         "tier moves it %.3e); nearest plain tier %s" % (
@@ -5787,7 +5833,8 @@ def flat_cat(torch, out):
 def check_tier_runs(torch, label, run, plain, x, mod, counter, tier,
                     steps=1):
   """A tier one of K3, K7, K15 and K16 refused before phase 47 (phases 26
-  and 33): run(x, mxu) launches its kernel at the tier, ``steps`` more on
+  and 33), or one of K10, K13 and K17 before phase 48 (phases 13 and 30):
+  run(x, mxu) launches its kernel at the tier, ``steps`` more on
   mod.<counter>, and stands within tier_verdict's bound of plain(x, mxu),
   the larger of the tier's floor and the plain version's spread under five
   one-ulp nudges of x."""
@@ -6296,6 +6343,610 @@ def dp_tier_phase(torch, dev, card, train_patches, gtrain, data):
               mods=dict(K3=K3, K7=K7, K15=K15, K16=K16))
 
 
+# ---------------------------------------------------------------------------
+# phase 48: the precision tiers of the conv family (K10, K12, K13, K17;
+# csrc/conv_gemm_tier.cuh)
+# ---------------------------------------------------------------------------
+CONV_TIER_SHARD = 20        # K13's shard, and each rank's at a world of 2
+CONV_TIER_DP_STEPS = 10     # the world-of-2 runs, with and without the stop
+CONV_TIER_DCN_STEPS = 20    # the 'dcn' composition on the main path (K13)
+CONV_TIER_TIME_STEPS = 10   # the steps of each timed K12 / K17 segment
+CONV_TIER_WORLD = ("bf16x3", "bf16")  # the tiers of the world of 2
+CONV_TIER_CHILD_TIMEOUT = 600  # seconds a rank of phase 48 may take
+# phase 48's floors of tier_verdict's bound.  At bf16 a conv solve's codes
+# differ from any other rounding of its arithmetic by flips of bf16
+# values, whatever the perturbation: over FISTA 100 at the flagship the
+# plain version against itself under five one-ulp nudges of its input
+# reached 2.6-3.4e-3 of the largest code, of its input and dictionary
+# 2.6-3.7e-3, the card's kernel 2.1-3.6e-3 (8 image seeds,
+# tools/conv_tier_rounding.py), past phase 46's 2e-3 (about 2^-9) in all
+# three, so the kernel against five nudges was a draw; the bound at bf16
+# is two bf16 unit roundoffs of the largest code, 2^-7.  The other tiers
+# keep phase 46's floors.
+CONV_TIER_FLOOR = dict(TIER_FLOOR, bf16=2.0 ** -7)
+
+
+def conv_tier_bound(geo, b, iters, tier, fp32_flops, nbytes):
+  """A conv solve at a tier: corr and iters x (synthesis + analysis), each
+  2 * s * R * cpx per position, the tier's passes at the bf16 tensor-core
+  rate, beside ``fp32_flops`` (the Gram, the refresh, the update, the
+  statistics) at the fp32 rate, the two units' least times overlapped;
+  against ``nbytes`` at the HBM rate."""
+  depth = 2.0 * geo["s"] * geo["r"] * geo["cpx"]
+  blocks, codes = geo["bh"] * geo["bw"], geo["code_h"] * geo["code_w"]
+  solve = (b * depth * (codes + iters * (blocks + codes))
+           * TIER_PASSES[tier] / BF16_PEAK)
+  t_ops, t_bytes = max(solve, fp32_flops / FP32_PEAK), nbytes / HBM_RATE
+  return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+
+def conv_tier_bounds(geo, tier):
+  """{row: (bound_ms, bound_by)} of phase 48's timed rows at a tier: K10 b
+  40 FISTA 100 and b 5 ISTA 25 (the images read, the codes written), a
+  K12 and a K17 step at b 40 (the refresh and the update fp32; a
+  segment's kernels read and written once, conv_dp_bound's bytes), K13 on
+  the shard (its statistics fp32, conv_stats_bound's bytes)."""
+  depth = 2.0 * geo["s"] * geo["r"] * geo["cpx"]
+  blocks, codes = geo["bh"] * geo["bw"], geo["code_h"] * geo["code_w"]
+  refresh = depth * geo["s"] + 4.0 * geo["s"] ** 2
+
+  def k10(b, iters):
+    return conv_tier_bound(geo, b, iters, tier, 0.0, 4.0 * (
+        b * geo["cpx"] * blocks + geo["s"] * geo["r"] * geo["cpx"]
+        + b * geo["s"] * codes))
+
+  def stats_fp32(b):
+    return refresh + b * 2 * depth * blocks
+
+  kernel = geo["c"] * geo["kh"] * geo["kw"]
+  images = geo["c"] * geo["sv"] * geo["sh"] * blocks
+  # conv_dp_bound's and conv_stats_bound's bytes
+  step_bytes = 4.0 * (SEG_BATCH * images + (
+      2 * kernel * geo["s"] + SEG_BATCH * geo["s"] * codes)
+                      / CONV_TIER_TIME_STEPS)
+  shard_bytes = 4.0 * (CONV_TIER_SHARD * images + kernel * geo["s"]
+                       + CONV_TIER_SHARD * geo["s"] * codes
+                       + geo["cpx"] * geo["r"] * geo["s"] + geo["s"])
+  return {
+      "K10 b40": k10(CONV_BATCH, CONV_ITERS),
+      "K10 b5": k10(CONV_TRAIN_BATCH, CONV_TRAIN_ITERS),
+      "K12 step": conv_tier_bound(geo, SEG_BATCH, SEG_ITERS, tier,
+                                  stats_fp32(SEG_BATCH), step_bytes),
+      "K13 shard": conv_tier_bound(geo, CONV_TIER_SHARD, SEG_ITERS, tier,
+                                   stats_fp32(CONV_TIER_SHARD),
+                                   shard_bytes),
+      "K17 step": conv_tier_bound(geo, SEG_BATCH, SEG_ITERS, tier,
+                                  stats_fp32(SEG_BATCH), step_bytes)}
+
+
+def conv_tier_families(torch, mods, parallel, lipschitz, inputs):
+  """{label: (module, tier counter, steps a call, run(x, mxu, eps=None,
+  iters=None), plain(x, mxu, eps=None), input x)} of phase 48's kernel
+  cases: K10 at the flagship (b 40 FISTA 100, windowed kernels) and the
+  trainer's b 5 ISTA 25 (random kernels), one K12 step and one K17 step at
+  measure_conv(40, 25) from the trainer's exact seed, K13 on a shard of
+  20 in the gradient and the gram form."""
+  K10, K12, K17 = mods
+  x40, d40, eta40, x5, d5, eta5, seg, sd0 = inputs
+  mesh1 = parallel.make_mesh()
+  kw = dict(kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=((8, 8),
+                                                               (8, 8)))
+  h0 = torch.zeros(CONV_S, device=x40.device)
+  v0 = lipschitz.top_gram_eigenpair(sd0.reshape(CONV_S, -1))[1].contiguous()
+  step = dict(kw, power_iters=2)
+
+  def k10(x, d, eta, iters, variant):
+    def run(xx, mxu, eps=None, n=None):
+      return K10.fused_conv_direct_solve(
+          xx, d, CONV_LAM, iters if n is None else n, eta, variant=variant,
+          mxu=mxu, early_stopping_epsilon=eps, **kw)
+
+    def plain(xx, mxu, eps=None):
+      return K10.fused_conv_direct_plain(
+          xx, d, CONV_LAM, iters, eta, variant=variant, mxu=mxu,
+          early_stopping_epsilon=eps, **kw)
+    return run, plain
+
+  def k12(xx, mxu, eps=None, n=None):
+    return K12.fused_conv_train_segment(
+        sd0, h0, v0, xx, CONV_LAM, SEG_ITERS if n is None else n, SEG_STEP,
+        mxu=mxu, early_stopping_epsilon=eps, **step)
+
+  def k17(xx, mxu, eps=None, n=None):
+    return K17.fused_conv_dp_train_segment(
+        sd0, h0, v0, xx, CONV_LAM, SEG_ITERS if n is None else n, SEG_STEP,
+        mesh=mesh1, mxu=mxu, early_stopping_epsilon=eps, **step)
+
+  def k13(gram):
+    def run(xx, mxu, eps=None, n=None):
+      return K12.conv_solve_stats(sd0, v0, xx, CONV_LAM, SEG_ITERS,
+                                  gram_stats=gram, mxu=mxu, **step)
+
+    def plain(xx, mxu, eps=None):
+      return K12.conv_solve_stats_plain(sd0, v0, xx, CONV_LAM, SEG_ITERS,
+                                        gram_stats=gram, mxu=mxu, **step)
+    return run, plain
+
+  r40, p40 = k10(x40, d40, eta40, CONV_ITERS, "fista")
+  r5, p5 = k10(x5, d5, eta5, CONV_TRAIN_ITERS, "ista")
+  shard = seg[0, :CONV_TIER_SHARD].contiguous()
+  fam = {
+      "K10 b40 fista100": (K10, "tier_launches", 1, r40, p40, x40),
+      "K10 b5 ista25": (K10, "tier_launches", 1, r5, p5, x5),
+      "K12 step": (K12, "tier_launches", 1, k12,
+                   lambda xx, mxu, eps=None: K12.fused_conv_train_plain(
+                       sd0, h0, v0, xx, CONV_LAM, SEG_ITERS, SEG_STEP,
+                       mxu=mxu, early_stopping_epsilon=eps, **step),
+                   seg[:1]),
+      "K17 step": (K17, "tier_launches", 1, k17,
+                   lambda xx, mxu, eps=None: K17.fused_conv_dp_train_plain(
+                       sd0, h0, v0, xx, CONV_LAM, SEG_ITERS, SEG_STEP,
+                       mesh=mesh1, mxu=mxu, early_stopping_epsilon=eps,
+                       **step), seg[:1])}
+  for gram in (False, True):
+    run, plain = k13(gram)
+    fam["K13 shard b20 %s" % ("gram" if gram else "gradient")] = (
+        K12, "stats_tier_launches", 1, run, plain, shard)
+  return fam
+
+
+def conv_tier_one_step(torch, families):
+  """(a) Each case at each tier against its plain version at the tier
+  under tier_verdict's three rules (the spread under five one-ulp nudges
+  of the input; the floor CONV_TIER_FLOOR), each call one tier launch, a
+  'highest' call none; then
+  (b) the kernel's result at each other tier and at 'highest' planted in
+  each tier's place, which must fail.  Returns ({(case, tier): err},
+  [(case, tier, planted tier, rules failed)])."""
+  errs, planted = {}, []
+  for name, (mod, counter, steps, run, plain, x) in families.items():
+    outs = {}
+    for mxu in ("highest",) + TIER_NAMES:
+      before = getattr(mod, counter)
+      outs[mxu] = flat_cat(torch, run(x, mxu))
+      want = 0 if mxu == "highest" else steps
+      check(getattr(mod, counter) == before + want, "%s at %s: %d tier "
+            "launches, expected %d" % (name, mxu, getattr(mod, counter)
+                                       - before, want))
+    plains = {mxu: flat_cat(torch, plain(x, mxu))
+              for mxu in ("highest",) + TIER_NAMES}
+    for tier in TIER_NAMES:
+      nudged = [flat_cat(torch, plain(one_ulp_nudge(x, seed), tier))
+                for seed in range(5)]
+      errs[name, tier] = tier_check(torch, name, outs[tier], outs["highest"],
+                                    plains, nudged, tier,
+                                    CONV_TIER_FLOOR[tier])["err"]
+      for wrong in ("highest",) + TIER_NAMES:
+        if wrong == tier:
+          continue
+        v = tier_verdict(torch, outs[wrong], outs["highest"], plains, nudged,
+                         tier, CONV_TIER_FLOOR[tier])
+        failed = [rule for rule, ok in v["ok"].items() if not ok]
+        planted.append((name, tier, wrong, failed))
+        print("tier planted %s: %s in place of %s fails %s" % (
+            name, wrong, tier, ", ".join(failed) or "NOTHING"))
+        check(failed, "tier %s: the kernel at %s passes every rule held for "
+              "%s" % (name, wrong, tier))
+  return errs, planted
+
+
+def conv_tier_stop_cases(torch, families):
+  """(c) The stop at each tier: K10 at b 5 (ISTA 25, inside vtc_tpu's one
+  tile), one K12 step and one K17 step at b 40, a mid-run eps from the
+  plain version's means at the tier: the plain version's count (a case
+  whose plain mean lies within 1e-3 relative of eps reported apart),
+  bitwise the tier kernel without the stop at that count; K10 at b 40, a
+  batch beyond vtc_tpu's tile, refuses a tier with the stop, launching
+  nothing.  Returns ({(case, tier): (count, max|d| from plain)}, near)."""
+  out, near = {}, []
+  for name in ("K10 b5 ista25", "K12 step", "K17 step"):
+    mod, _, _, run, plain, x = families[name]
+    for tier in TIER_NAMES:
+      plain(x, tier, 0.0)
+      eps = stop_eps(solver_state()[1], "mid")
+      got = run(x, tier, eps)
+      it = int(mod.last_iters.reshape(-1)[0].item())
+      ref = run(x, tier, None, it)
+      want = plain(x, tier, eps)
+      plain_it, plain_avgs = solver_state()
+      label = "%s %s eps %.4g" % (name, tier, eps)
+      check(torch.equal(flat_cat(torch, got), flat_cat(torch, ref)),
+            "%s: the stopped run (%d it) differs from the tier kernel's "
+            "without the stop at that count" % (label, it))
+      if any(abs(a - eps) <= 1e-3 * eps for a in plain_avgs):
+        near.append("%s: kernel %d it, plain %d" % (label, it, plain_it))
+      else:
+        check(it == plain_it, "%s: the kernel ran %d iterations, the plain "
+              "version %d" % (label, it, plain_it))
+      err = float((flat_cat(torch, got) - flat_cat(torch, want)).abs().max())
+      out[name, tier] = (it, err)
+      print("tier stop %s: %d of %d it, the plain version's; bitwise the "
+            "tier kernel without the stop at the count; max|d| %.3e from "
+            "plain" % (label, it, CONV_ITERS if name.startswith("K10 b40")
+                       else CONV_TRAIN_ITERS if name.startswith("K10")
+                       else SEG_ITERS, err))
+  mod, counter, _, run, _, x = families["K10 b40 fista100"]
+  before = getattr(mod, counter)
+  try:
+    run(x, "bf16x3", 1e-3)
+  except ValueError as err:
+    check("early_stop_supported" in str(err), "K10 b 40 with a tier and "
+          "the stop: the refusal names no early_stop_supported: %s" % err)
+  else:
+    raise RuntimeError("chip_smoke: K10 at b 40 took a tier with the stop, "
+                       "beyond vtc_tpu's one tile")
+  check(getattr(mod, counter) == before, "the refused K10 launched")
+  print("refused on the card: K10 b 40 at bf16x3 with the stop (beyond "
+        "vtc_tpu's one K10 tile, early_stop_supported)")
+  return out, near
+
+
+def conv_tier_dcn_runner(parallel, compiled_epoch, mesh, tier):
+  """The composition the scanned conv trainer runs on a mesh with a 'dcn'
+  axis (compiled_epoch._dp_fused_segment_runner of
+  build_dp_conv_fused_local_step: K13 a step) on ``mesh``, at the tier."""
+  return compiled_epoch._dp_fused_segment_runner(
+      parallel.build_dp_conv_fused_local_step(
+          mesh, "fista", "sc_cheap_quadratic_descent",
+          kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=((8, 8), (8, 8)),
+          power_iters=2, mxu=tier))
+
+
+def conv_tier_world_runs():
+  """(key, tier, with the stop, dcn) of the world of 2's runs."""
+  runs = [("%s%s" % (tier, " stop" if stop else ""), tier, stop, 1)
+          for tier in CONV_TIER_WORLD for stop in (False, True)]
+  return runs + [("bf16x3 dcn=2", "bf16x3", False, 2)]
+
+
+def conv_tier_rank_main(rank, world, workdir):
+  """The hidden sub-command: one rank of phase 48's world of 2.  Joins the
+  gloo group over the file store in ``workdir`` and runs the scanned conv
+  trainer with data_parallel=True (K17 on shards of 20) for
+  CONV_TIER_DP_STEPS steps at each tier of CONV_TIER_WORLD, without and
+  with the stop at the eps of inputs.npz, then on a mesh of two slices
+  (make_mesh(dcn=2): K13's composition) at bf16x3; saves each
+  dictionary, the counts and the tier launches to ``workdir``."""
+  import os
+  import torch
+  import torch.distributed as dist
+  from vtc_tpu_torch import parallel
+  from vtc_tpu_torch.ops import fused_conv_dp_train as K17
+  from vtc_tpu_torch.ops import fused_conv_train as K12
+  from vtc_tpu_torch.training import compiled_epoch
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device", file=sys.stderr)
+    return 1
+  dev = torch.device("cuda", 0)
+  data = dict(np.load(os.path.join(workdir, "inputs.npz")))
+  x = torch.tensor(data["x"], device=dev)
+  dist.init_process_group("gloo", init_method="file://" + os.path.join(
+      workdir, "store"), rank=rank, world_size=world)
+  try:
+    out = {}
+    for key, tier, stop, dcn in conv_tier_world_runs():
+      mod, counter = ((K12, "stats_tier_launches") if dcn > 1
+                      else (K17, "tier_launches"))
+      params = dict(conv_segment_params(CONV_TIER_DP_STEPS, SEG_STEP),
+                    train_precision=tier,
+                    data_parallel=(True if dcn == 1
+                                   else parallel.make_mesh(dcn=dcn)))
+      if stop:
+        params["early_stopping_epsilon"] = float(data["eps " + tier])
+      setattr(mod, counter, 0)
+      got = compiled_epoch.train_dictionary_scanned(x, x[:1], data["d"],
+                                                    params, device=dev)
+      torch.cuda.synchronize()
+      out[key + " dictionary"] = got.cpu().numpy()
+      out[key + " launches"] = np.array(getattr(mod, counter))
+      if stop:
+        out[key + " counts"] = K17.last_iters.cpu().numpy()
+    np.savez(os.path.join(workdir, "rank%d.npz" % rank), **out)
+  finally:
+    dist.destroy_process_group()
+  return 0
+
+
+def conv_tier_world_of_two(torch, compiled_epoch, parallel, lipschitz, K17,
+                           seg, sd0):
+  """(d) The world of 2 (conv_tier_rank_main in two processes of this
+  script sharing the card over gloo, phase 45's launcher) against the
+  same trainer at a world of 1 on the whole batches: both ranks bitwise
+  equal with the same counts; CONV_TIER_DP_STEPS tier steps a rank; the
+  counts of the world of 1 (a near eps reported apart); every dictionary
+  within the larger of DP_FLOOR, the tier's floor and the world of 1's
+  spread under five one-ulp nudges of its batches and start; the 'dcn'
+  run against K13's composition on a mesh of one.  Returns ({key: (max|d|
+  from the world of 1, bound)}, seconds)."""
+  import os
+  import tempfile
+  mesh1 = parallel.make_mesh()
+  xs = seg[:CONV_TIER_DP_STEPS].contiguous()
+  data = {"d": sd0.cpu().numpy(), "x": xs.cpu().numpy()}
+  h0 = torch.zeros(CONV_S, device=sd0.device)
+  v0 = lipschitz.top_gram_eigenpair(sd0.reshape(CONV_S, -1))[1].contiguous()
+  kw = dict(kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=((8, 8), (8, 8)),
+            power_iters=2, mesh=mesh1)
+  for tier in CONV_TIER_WORLD:
+    K17.fused_conv_dp_train_plain(sd0, h0, v0, xs[:1], CONV_LAM, SEG_ITERS,
+                                  SEG_STEP, mxu=tier,
+                                  early_stopping_epsilon=0.0, **kw)
+    data["eps " + tier] = np.array(stop_eps(solver_state()[1], "mid"))
+  t0 = time.perf_counter()
+  with tempfile.TemporaryDirectory() as workdir:
+    np.savez(os.path.join(workdir, "inputs.npz"), **data)
+    codes, dt = spawn_ranks("--conv-tier-rank", 2, workdir,
+                            CONV_TIER_CHILD_TIMEOUT)
+    check(codes == [0, 0], "a rank of phase 48's world of 2 failed: exit "
+          "codes %s" % codes)
+    ranks = [dict(np.load(os.path.join(workdir, "rank%d.npz" % r)))
+             for r in range(2)]
+  print("phase 48: 2 processes sharing one card over gloo done in %.1f s"
+        % dt)
+  results = {}
+  for key, tier, stop, dcn in conv_tier_world_runs():
+    for what in ("dictionary", "counts"):
+      if key + " " + what in ranks[0]:
+        check(np.array_equal(ranks[0][key + " " + what],
+                             ranks[1][key + " " + what]),
+              "phase 48 world of 2 %s: the ranks' %s differ" % (key, what))
+    launches = [int(r[key + " launches"]) for r in ranks]
+    check(launches == [CONV_TIER_DP_STEPS] * 2, "phase 48 world of 2 %s: "
+          "tier launches %s, expected %d a rank" % (key, launches,
+                                                    CONV_TIER_DP_STEPS))
+    params = dict(conv_segment_params(CONV_TIER_DP_STEPS, SEG_STEP),
+                  train_precision=tier, data_parallel=True)
+    if stop:
+      params["early_stopping_epsilon"] = float(data["eps " + tier])
+    if dcn > 1:
+      runner = conv_tier_dcn_runner(parallel, compiled_epoch, mesh1, tier)
+
+      def one(x, dd):
+        return runner(dd, torch.zeros(CONV_S, device=dd.device),
+                      lipschitz.top_gram_eigenpair(
+                          dd.reshape(CONV_S, -1))[1].contiguous(),
+                      x, CONV_LAM, SEG_ITERS, SEG_STEP)[0]
+    else:
+
+      def one(x, dd):
+        return compiled_epoch.train_dictionary_scanned(x, x[:1], dd, params)
+    want = one(xs, sd0)
+    single_counts = K17.last_iters.tolist() if stop else None
+    moved = max(float((one(one_ulp_nudge(xs, seed),
+                           one_ulp_nudge(sd0, seed + 5)) - want).abs().max())
+                for seed in range(5))
+    bound = max(DP_FLOOR, TIER_FLOOR[tier] * max(
+        1.0, float(want.abs().max())), moved)
+    err = float(np.abs(ranks[0][key + " dictionary"]
+                       - want.cpu().numpy()).max())
+    results[key] = (err, bound)
+    note = ""
+    if stop:
+      counts = ranks[0][key + " counts"].tolist()
+      note = "; counts %s (world of 1: %s)" % (counts, single_counts)
+      check(counts == single_counts, "phase 48 world of 2 %s: counts %s, "
+            "the world of 1's %s" % (key, counts, single_counts))
+      check(min(counts) < SEG_ITERS, "phase 48 world of 2 %s: no solve "
+            "stopped early" % key)
+    print("conv world of 2 %s: ranks bitwise equal, %d tier steps a rank%s;"
+          " max|d| %.3e from the world of 1 (bound %.3e)" % (
+              key, CONV_TIER_DP_STEPS, note, err, bound))
+    check(np.isfinite(ranks[0][key + " dictionary"]).all() and err <= bound,
+          "phase 48 world of 2 %s differs from the world of 1 by %.3e > %.3e"
+          % (key, err, bound))
+  return results, time.perf_counter() - t0
+
+
+def conv_tier_main_path(torch, mods, compiled_epoch, parallel,
+                        encode_dataset, conv_ista_fista, sparse_coding,
+                        cimages, conv_d, cpad, seg, held, sd0, card):
+  """(e) The main path at each tier and at 'highest', the tier counts
+  zeroed just before and read just after: the conv encode_dataset of
+  phase 15 (320 images in batches of 40, FISTA 100: 8 K10 tier launches);
+  the scanned conv trainer at measure_conv(40, 25), one SEG_STEPS-step
+  segment from phase 19's start (SEG_STEPS K12 tier steps), and with
+  data_parallel=True at a world of 1 (SEG_STEPS K17 tier steps); the
+  'dcn' composition for CONV_TIER_DCN_STEPS steps (K13).  Every
+  dictionary finite, its kernels unit norm within 1e-4, its held-out conv
+  LASSO falling; printed beside 'highest''s.  Returns ({(module name,
+  tier): tier launches}, {(entry, tier): images/s})."""
+  K10, K12, K17 = mods
+  counters = (("K10", K10, "tier_launches"), ("K12", K12, "tier_launches"),
+              ("K13", K12, "stats_tier_launches"),
+              ("K17", K17, "tier_launches"))
+  want = {"K10": CONV_IMAGES // CONV_BATCH, "K12": SEG_STEPS,
+          "K13": CONV_TIER_DCN_STEPS, "K17": SEG_STEPS}
+  mesh1 = parallel.make_mesh()
+  conv_kw = dict(mode="convolutional", kernel_stride=(CONV_STRIDE,
+                                                      CONV_STRIDE),
+                 padding=cpad, batch_size=CONV_BATCH, chunk_batches=4)
+  loss0 = held_out_fista_conv_loss(conv_ista_fista, sparse_coding, held, sd0)
+  # one untimed encode first: the first call's set-up is no tier's cost
+  encode_dataset(cimages[:CONV_BATCH], conv_d, CONV_LAM, CONV_ITERS,
+                 **conv_kw)
+  counts, rates, losses = {}, {}, {}
+  for tier in ("highest",) + TIER_NAMES:
+    for _, mod, counter in counters:
+      setattr(mod, counter, 0)
+    t0 = time.perf_counter()
+    codes = encode_dataset(cimages, conv_d, CONV_LAM, CONV_ITERS,
+                           mxu_precision=tier, **conv_kw)
+    rates["encode", tier] = cimages.shape[0] / (time.perf_counter() - t0)
+    check(codes.shape == (CONV_IMAGES, CONV_S, 33, 33)
+          and bool(np.isfinite(codes).all()), "conv encode at %s: codes of "
+          "shape %s, finite %s" % (tier, codes.shape,
+                                   np.isfinite(codes).all()))
+    for dp in (False, True):
+      params = dict(conv_segment_params(SEG_STEPS, SEG_STEP),
+                    train_precision=tier)
+      if dp:
+        params["data_parallel"] = True
+      t0 = time.perf_counter()
+      trained = compiled_epoch.train_dictionary_scanned(seg, held[None], sd0,
+                                                        params)
+      torch.cuda.synchronize()
+      kind = "data-parallel trainer" if dp else "trainer"
+      rates[kind, tier] = SEG_STEPS * SEG_BATCH / (time.perf_counter() - t0)
+      norm_err = float((torch.linalg.vector_norm(
+          trained.reshape(CONV_S, -1), dim=1) - 1).abs().max())
+      loss = held_out_fista_conv_loss(conv_ista_fista, sparse_coding, held,
+                                      trained)
+      losses[kind, tier] = (loss, norm_err)
+      check(bool(torch.isfinite(trained).all()) and norm_err <= 1e-4,
+            "conv %s at %s: non-finite or kernels not unit norm (%.3e)" % (
+                kind, tier, norm_err))
+      check(np.isfinite(loss) and loss < loss0, "conv %s at %s: the "
+            "held-out conv LASSO did not fall: %.6f -> %.6f" % (
+                kind, tier, loss0, loss))
+    runner = conv_tier_dcn_runner(parallel, compiled_epoch, mesh1, tier)
+    runner(sd0, torch.zeros(CONV_S, device=sd0.device),
+           dp_tier_seed(sd0.reshape(CONV_S, -1)),
+           seg[:CONV_TIER_DCN_STEPS].contiguous(), CONV_LAM, SEG_ITERS,
+           SEG_STEP)
+    torch.cuda.synchronize()
+    for name, mod, counter in counters:
+      counts[name, tier] = getattr(mod, counter)
+    print("conv tier main path %s: tier launches K10 %d, K12 %d, K13 %d, "
+          "K17 %d" % (tier, *(counts[n, tier] for n, _, _ in counters)))
+    for name, _, _ in counters:
+      expected = 0 if tier == "highest" else want[name]
+      check(counts[name, tier] == expected, "conv main path at %s: %d tier "
+            "launches of %s, expected %d" % (tier, counts[name, tier], name,
+                                             expected))
+  for tier in TIER_NAMES:
+    for kind in ("trainer", "data-parallel trainer"):
+      loss, norm_err = losses[kind, tier]
+      ref = losses[kind, "highest"][0]
+      print("conv tier %s %s: kernels unit norm within %.2e; held-out conv "
+            "LASSO %.6f -> %.6f ('highest' %.6f, %+.4f%%)" % (
+                kind, tier, norm_err, loss0, loss, ref,
+                100.0 * (loss - ref) / ref))
+  for kind in ("encode", "trainer", "data-parallel trainer"):
+    print("conv tier %s: images/s %s; 'highest' %.2f [%s]" % (
+        kind, ", ".join("%s %.2f" % (t, rates[kind, t]) for t in TIER_NAMES),
+        rates[kind, "highest"], card))
+  return counts, rates
+
+
+def conv_library_ms(torch, fn):
+  """The library time of fn, one call a turn: one warm call, then
+  TIER_LIB_TURNS turns; (median, least, most) ms."""
+  fn()
+  readings = sorted(time_ms(torch, fn, 1) for _ in range(TIER_LIB_TURNS))
+  return readings[len(readings) // 2], readings[0], readings[-1]
+
+
+def conv_tier_timing(torch, K10, families, inputs, geo, card):
+  """(f) In turns ('highest', tier, tier, 'highest'): K10 at b 40 FISTA 100
+  and b 5 ISTA 25, K13 on the shard (gradient form), and a K12 and a K17
+  step of a CONV_TIER_TIME_STEPS-step segment at b 40; the plain version
+  at the tier (K12 and K17: one step); the bound (conv_tier_bounds); the
+  library time: the same solve with each pass one product of bf16
+  operands with a float32 result on the materialized stack
+  (fused_conv_direct_library(mxu=)), for K12, K13 and K17 their step's
+  solve, and at 'highest' each product one cuDNN call, the median of 7
+  turns.  Returns {(row, tier): (ms, plain_ms, bound, library_ms)} with
+  'highest' rows too."""
+  x40, d40, eta40, x5, d5, eta5, seg, sd0 = inputs
+  how, mm = mm_f32_out(torch)
+  print("conv tier library time: %s" % how)
+  kw = dict(kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=((8, 8),
+                                                               (8, 8)))
+  eta_seg = 1.0 / float(torch.linalg.eigvalsh(
+      (sd0.reshape(CONV_S, -1) @ sd0.reshape(CONV_S, -1).T).double()).max())
+  segx = seg[:CONV_TIER_TIME_STEPS].contiguous()
+  shard = seg[0, :CONV_TIER_SHARD].contiguous()
+  rows = {
+      "K10 b40": ("K10 b40 fista100", x40, 1,
+                  lambda m: K10.fused_conv_direct_library(
+                      x40, d40, CONV_LAM, CONV_ITERS, eta40, mxu=m, mm=mm,
+                      **kw)),
+      "K10 b5": ("K10 b5 ista25", x5, 1,
+                 lambda m: K10.fused_conv_direct_library(
+                     x5, d5, CONV_LAM, CONV_TRAIN_ITERS, eta5,
+                     variant="ista", mxu=m, mm=mm, **kw)),
+      "K13 shard": ("K13 shard b20 gradient", shard, 1,
+                    lambda m: K10.fused_conv_direct_library(
+                        shard, sd0, CONV_LAM, SEG_ITERS, eta_seg, mxu=m,
+                        mm=mm, **kw)),
+      "K12 step": ("K12 step", segx, CONV_TIER_TIME_STEPS,
+                   lambda m: K10.fused_conv_direct_library(
+                       segx[0], sd0, CONV_LAM, SEG_ITERS, eta_seg, mxu=m,
+                       mm=mm, **kw)),
+      "K17 step": ("K17 step", segx, CONV_TIER_TIME_STEPS,
+                   lambda m: K10.fused_conv_direct_library(
+                       segx[0], sd0, CONV_LAM, SEG_ITERS, eta_seg, mxu=m,
+                       mm=mm, **kw))}
+  out = {}
+  with torch.no_grad():
+    for row, (family, xt, per, library) in rows.items():
+      _, _, _, run, plain, x = families[family]
+      reps = 3 if per == 1 else 1
+      hi_lib = conv_library_ms(torch, lambda: library("highest"))
+      for tier in TIER_NAMES:
+        run(xt, tier)  # warm
+        turns = [time_ms(torch, lambda: run(xt, "highest"), reps),
+                 time_ms(torch, lambda: run(xt, tier), reps),
+                 time_ms(torch, lambda: run(xt, tier), reps),
+                 time_ms(torch, lambda: run(xt, "highest"), reps)]
+        ms = (turns[1] + turns[2]) / 2 / per
+        hi_ms = (turns[0] + turns[3]) / 2 / per
+        p_ms = time_ms(torch, lambda: plain(x, tier), 1)
+        lib = conv_library_ms(torch, lambda: library(tier))
+        bnd = conv_tier_bounds(geo, tier)[row]
+        out[row, tier] = (ms, p_ms, bnd, lib[0])
+        out[row, "highest"] = (hi_ms, None, None, hi_lib[0])
+        print("conv tier %s %s: %.4f ms against 'highest' %.4f in turns "
+              "(%.4f, %.4f, %.4f, %.4f); plain %.4f; bound %.4f (%s); "
+              "library median %.4f (%d turns %.4f-%.4f; 'highest', cuDNN's "
+              "products: %.4f) [%s]" % (
+                  row, tier, ms, hi_ms, *turns, p_ms, bnd[0], bnd[1], lib[0],
+                  TIER_LIB_TURNS, lib[1], lib[2], hi_lib[0], card))
+  return out
+
+
+def conv_tier_phase(torch, dev, card, mods, cimages, conv_d, cpad, x5, d5,
+                    eta5, sd0, conv_gen):
+  """Phase 48: (a)-(f) above; 'highest' is bitwise what it was: its
+  kernels are conv_gemm.cuh's, unchanged, which phases 13-19, 30-32 and
+  44 hold to their plain versions, and a 'highest' call launches no tier
+  kernel ((a), (e))."""
+  from vtc_tpu_torch import parallel
+  from vtc_tpu_torch.analysis_transforms.convolutional import (
+      ista_fista as conv_ista_fista)
+  from vtc_tpu_torch.encode import encode_dataset
+  from vtc_tpu_torch.ops import convolutions as conv_ops
+  from vtc_tpu_torch.ops import lipschitz
+  from vtc_tpu_torch.training import compiled_epoch, sparse_coding
+  K10, K12, K17 = mods
+  t0 = time.perf_counter()
+  images = conv_segment_images(torch, conv_ops, dev, SEG_STEPS + 1, conv_gen,
+                               seed=19)  # phase 19's
+  seg, held = images[:SEG_STEPS], images[SEG_STEPS]
+  x40 = torch.tensor(cimages[:CONV_BATCH], device=dev)
+  eta40 = lipschitz.fista_stepsize(conv_d.reshape(CONV_S, -1))
+  inputs = (x40, conv_d, eta40, x5, d5, eta5, seg, sd0)
+  families = conv_tier_families(torch, mods, parallel, lipschitz, inputs)
+  errs, planted = conv_tier_one_step(torch, families)
+  stops, near = conv_tier_stop_cases(torch, families)
+  print("conv tier stop: %d cases at the plain version's counts, bitwise "
+        "the kernel without the stop at the count; near eps (reported "
+        "apart): %s" % (len(stops), near or "none"))
+  world2, world2_s = conv_tier_world_of_two(torch, compiled_epoch, parallel,
+                                            lipschitz, K17, seg, sd0)
+  counts, rates = conv_tier_main_path(
+      torch, mods, compiled_epoch, parallel, encode_dataset, conv_ista_fista,
+      sparse_coding, cimages, conv_d, cpad, seg, held, sd0, card)
+  geo = K10.geometry(x40.shape, conv_d.shape, (CONV_STRIDE, CONV_STRIDE))
+  times = conv_tier_timing(torch, K10, families, inputs, geo, card)
+  del images, seg, held
+  print("phase 48: %.1f s (its ranks %.1f s); %d planted wrong-tier results "
+        "failed" % (time.perf_counter() - t0, world2_s, len(planted)))
+  return dict(errs=errs, planted=planted, stops=stops, counts=counts,
+              times=times, world2=world2, rates=rates)
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -6674,10 +7325,15 @@ def main():
   check_runs("K10 early_stopping_epsilon", lambda: (
       K10.fused_conv_direct_solve(rcx, rck, CONV_LAM, 5, 0.1,
                                   early_stopping_epsilon=1e-3, **rckw)), K10)
-  check_refuses("conv run('pallas') mxu_precision='bf16'", lambda: (
-      conv_ista_fista.run(rcx, rck, (CONV_STRIDE, CONV_STRIDE), cpad,
-                          CONV_LAM, 5, formulation="pallas",
-                          mxu_precision="bf16")), "3", K10)
+  rceta = lipschitz.fista_stepsize(rck.reshape(CONV_S, -1))
+  check_tier_runs(torch, "conv run('pallas') mxu_precision='default'",
+                  lambda xx, mxu: conv_ista_fista.run(
+                      xx, rck, (CONV_STRIDE, CONV_STRIDE), cpad, CONV_LAM, 5,
+                      formulation="pallas", stepsize=rceta,
+                      mxu_precision="default" if mxu == "bf16" else mxu),
+                  lambda xx, mxu: K10.fused_conv_direct_plain(
+                      xx, rck, CONV_LAM, 5, rceta, mxu=mxu, **rckw),
+                  rcx, K10, "tier_launches", "bf16")
 
   # phase 14: K11 against plain and K10, and the serving path K10's gate
   # turns away
@@ -8390,6 +9046,10 @@ def main():
   dp_tiers = dp_tier_phase(torch, dev, card, train_patches, gtrain,
                            tier_data)
 
+  # phase 48: the tiers of K10, K12, K13 and K17 (conv_tier_phase)
+  conv_tiers = conv_tier_phase(torch, dev, card, (K10, K12, K17), cimages,
+                               conv_d, cpad, xt5, cd0, eta5, sd0, conv_gen)
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -8577,6 +9237,33 @@ def main():
                       dp_tiers["counts"][dp_tiers["mods"][key], tier],
                       dp_tiers["errs"][key, tier], ms_t, p_t, bnd_t))
       tier_library[name] = lib_t
+  # the conv tier kernel (phase 48): launches on its main path, the error of
+  # the flagship solve or step at the tier, its time (a step) beside the
+  # plain version at the tier, its bound and the library time of the same
+  # solve with each pass one product of bf16 operands
+  conv_tier_rows = {
+      "K10 b40": ("K10", "fused_conv_direct.cu",
+                  "vtc_tpu/ops/pallas_conv_train.py:240-267 (_make_deep_dot's "
+                  "tier in the kernel of vtc_tpu/ops/pallas_conv_direct.py:"
+                  "416)", "K10 b40 fista100"),
+      "K12 step": ("K12", "fused_conv_train_step.cu",
+                   "vtc_tpu/ops/pallas_conv_train.py:240-300 (the tile "
+                   "solver's tier in the kernel of :692)", "K12 step"),
+      "K13 shard": ("K13", "fused_conv_train_step.cu",
+                    "vtc_tpu/ops/pallas_conv_train.py:240-300 (the tile "
+                    "solver's tier in the kernel of :922)",
+                    "K13 shard b20 gradient"),
+      "K17 step": ("K17", "fused_conv_train_step.cu",
+                   "vtc_tpu/ops/pallas_conv_dp_train.py:129-134 (the tile "
+                   "solver's tier in the kernel of :399)", "K17 step")}
+  for row, (key, source, replaces, case) in conv_tier_rows.items():
+    for tier in TIER_NAMES:
+      ms_t, p_t, bnd_t, lib_t = conv_tiers["times"][row, tier]
+      name = "gather_gemm_tier (%s at %s, via %s)" % (key, tier, source)
+      kernels.append((name, "conv_gemm_tier.cuh", replaces,
+                      conv_tiers["counts"][key, tier],
+                      conv_tiers["errs"][case, tier], ms_t, p_t, bnd_t))
+      tier_library[name] = lib_t
   # K10's library time is its own loop with each product one cuDNN call
   # (phase 17), K11's the same loop on K11's timed inputs (the same
   # function), and with the stop that loop at the iterations the stopped
@@ -8629,4 +9316,8 @@ if __name__ == "__main__":
     # one rank of phase 47's world of 2, started by main()
     sys.exit(dp_tier_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                sys.argv[4]))
+  if len(sys.argv) == 5 and sys.argv[1] == "--conv-tier-rank":
+    # one rank of phase 48's world of 2, started by main()
+    sys.exit(conv_tier_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                 sys.argv[4]))
   sys.exit(main())

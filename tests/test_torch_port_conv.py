@@ -29,7 +29,7 @@ from vtc_tpu_torch import convert
 from vtc_tpu_torch.analysis_transforms.convolutional import ista_fista
 from vtc_tpu_torch.encode import encode_dataset
 from vtc_tpu_torch.ops import (conv_gram, conv_shapes, fused_conv_direct,
-                               fused_conv_fista, solver)
+                               fused_conv_fista, lipschitz, solver)
 from vtc_tpu_torch.ops import convolutions as conv_ops
 
 ATOL = 1e-4
@@ -417,9 +417,18 @@ def test_wrappers_refuse_what_they_do_not_run(rng):
     # neither CPU nor CUDA: no silent plain path
     with pytest.raises(ValueError, match="CPU or a CUDA device"):
       solve(x.to("meta"), d.to("meta"), 0.1, 5, 0.1, **kw)
-  with pytest.raises(NotImplementedError, match="item 3"):
-    ista_fista.run(x, d, (2, 2), padding, 0.1, 5, formulation="pallas",
-                   mxu_precision="bf16x3")
+  # the tiers run (K10's, since its tier kernel: tests/test_torch_port_
+  # conv_tiers.py holds them to vtc_tpu): on a CPU tensor the plain version
+  # at the tier, near the fp32 codes and not on them; 'gram' refuses a tier
+  full = ista_fista.run(x, d, (2, 2), padding, 0.1, 5, formulation="pallas")
+  tier = ista_fista.run(x, d, (2, 2), padding, 0.1, 5, formulation="pallas",
+                        mxu_precision="bf16x3")
+  assert torch.equal(tier, fused_conv_direct.fused_conv_direct_plain(
+      x, d, 0.1, 5, lipschitz.fista_stepsize(d.reshape(6, -1)), mxu="bf16x3",
+      **kw))
+  assert 0.0 < float((tier - full).abs().max()) < 1e-3
+  with pytest.raises(ValueError, match="'pallas' formulation only"):
+    ista_fista.run(x, d, (2, 2), padding, 0.1, 5, mxu_precision="bf16x3")
   # 'pallas' on a tensor that is neither on the CPU nor on the card
   # reaches a kernel wrapper, which refuses it: never the plain route
   for c, k, stride in ((1, 4, 2), (3, 16, 16)):     # K10, then K11
@@ -465,6 +474,9 @@ def test_cuda_wrappers_raise_and_match_plain(rng):
     assert counter.launches == before + 1
     want = plain(x.to(dev), d.to(dev), 0.05, 20, 0.1, **kw)
     assert_close(got, want.cpu().numpy(), solve.__name__)
-  with pytest.raises(NotImplementedError, match="item 3"):
-    ista_fista.run(x.to(dev), d.to(dev), (4, 4), padding, 0.05, 5,
-                   formulation="pallas", mxu_precision="bf16")
+  # a tier runs K10's tier kernel (chip_smoke.py phase 48 holds it to its
+  # plain version at the flagship)
+  before = fused_conv_direct.tier_launches
+  ista_fista.run(x.to(dev), d.to(dev), (4, 4), padding, 0.05, 5,
+                 formulation="pallas", mxu_precision="bf16")
+  assert fused_conv_direct.tier_launches == before + 1

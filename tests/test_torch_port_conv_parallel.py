@@ -208,13 +208,19 @@ def test_the_gates_match_vtc_tpu_and_refuse_the_gram_form_off_them():
     fused_conv_train.conv_solve_stats(d, v, x, SW, 5, kernel_stride=(2, 2),
                                       padding=((1, 1), (1, 1)),
                                       gram_stats=True)
-  # the tiers wait (item 3a.2); vtc_tpu's K13 has no stop test, and the
-  # refusal names the kernel that has the data-parallel conv stop
-  for kw, match in (({"mxu": "bf16x3"}, "3a"),
-                    ({"early_stopping_epsilon": 1e-3}, "conv stop is K17's")):
-    with pytest.raises(NotImplementedError, match=match):
-      fused_conv_train.conv_solve_stats(d, v, x, SW, 5, kernel_stride=(2, 2),
-                                        padding=((1, 1), (1, 1)), **kw)
+  # vtc_tpu's K13 has no stop test, and the refusal names the kernel that
+  # has the data-parallel conv stop
+  with pytest.raises(NotImplementedError, match="conv stop is K17's"):
+    fused_conv_train.conv_solve_stats(d, v, x, SW, 5, kernel_stride=(2, 2),
+                                      padding=((1, 1), (1, 1)),
+                                      early_stopping_epsilon=1e-3)
+  # the tiers run (tests/test_torch_port_conv_tiers.py holds them to
+  # vtc_tpu): a CPU tensor takes the plain version at the tier
+  kw = dict(kernel_stride=(2, 2), padding=((1, 1), (1, 1)), mxu="bf16x3")
+  for got, want in zip(
+      fused_conv_train.conv_solve_stats(d, v, x, SW, 5, **kw),
+      fused_conv_train.conv_solve_stats_plain(d, v, x, SW, 5, **kw)):
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -420,9 +426,14 @@ def test_k17_refuses_what_waits():
   args = (_t(p["d"]), _t(p["h"]), _t(p["v"]), _t(p["x"]), SW, N_IT, UPD_STEP)
   kw = dict(mesh=parallel.make_mesh(), kernel_stride=p["stride"],
             padding=p["padding"])
-  with pytest.raises(NotImplementedError, match="item 3a"):
-    fused_conv_dp_train.fused_conv_dp_train_segment(*args, **kw,
-                                                    mxu="bf16x3")
+  # the tiers run (tests/test_torch_port_conv_tiers.py holds them to
+  # vtc_tpu): a CPU tensor takes the plain version at the tier
+  for got, want in zip(
+      fused_conv_dp_train.fused_conv_dp_train_segment(*args, **kw,
+                                                      mxu="bf16x3"),
+      fused_conv_dp_train.fused_conv_dp_train_plain(*args, **kw,
+                                                    mxu="bf16x3")):
+    assert torch.equal(got, want)
   # the early stop runs (since K17 took it): a CPU tensor takes the plain
   # version with the stop test over the mesh
   calls = fused_conv_dp_train.launches

@@ -189,11 +189,14 @@ def test_return_stepsize_is_the_last_refresh(rng):
       padding=padding, power_iters=2)[0]
   eig, _ = lipschitz.power_iterate(d1.reshape(8, -1), out[2], 0)
   assert abs(float(out[4]) * float(eig) - 1.0) < 1e-5
-  with pytest.raises(NotImplementedError, match="item 3"):
-    fused_conv_train.fused_conv_train_segment(
-        torch.from_numpy(d), torch.from_numpy(h), torch.from_numpy(v),
-        torch.from_numpy(x), 0.05, 8, 0.1, kernel_stride=strides,
-        padding=padding, mxu="bf16x3")
+  # the tiers run (tests/test_torch_port_conv_tiers.py holds them to
+  # vtc_tpu): a CPU tensor takes the plain version at the tier
+  args = [torch.from_numpy(a) for a in (d, h, v, x)]
+  kw = dict(kernel_stride=strides, padding=padding, mxu="bf16x3")
+  for got, want in zip(
+      fused_conv_train.fused_conv_train_segment(*args, 0.05, 8, 0.1, **kw),
+      fused_conv_train.fused_conv_train_plain(*args, 0.05, 8, 0.1, **kw)):
+    assert torch.equal(got, want)
 
 
 # (img_shape, dict_shape, stride, inference, update, upd_iters, padding)

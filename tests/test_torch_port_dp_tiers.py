@@ -27,8 +27,11 @@ in interpret mode and the port's plain versions:
   resolves to the psum-per-op step ('gram') bitwise its 'highest' run;
 * ``encode_dataset(data_parallel=...)`` fc and subspace at each tier
   against vtc_tpu's encode on its one-device mesh;
-* the refusals that stay: conv with data parallelism (item 3a.2.2), ICA
-  (item 3a.2.3) and the code-sharded K19 (item 3a.2.4).
+* the refusals that stay: ICA (item 3a.2.3) and the code-sharded K19
+  (item 3a.2.4); conv with data parallelism runs its tiers since K10's
+  tier kernel (tests/test_torch_port_conv_tiers.py), and the conv encode
+  refuses one only where vtc_tpu asserts (a formulation other than
+  'pallas').
 
 The worlds of 2 and 4 run in tests/test_torch_port_dp_segments.py's spawn.
 
@@ -366,10 +369,16 @@ def test_refusals_that_stay():
   kernels /= np.sqrt((kernels ** 2).sum(axis=(1, 2, 3), keepdims=True))
   conv = dict(_trainer_params("bf16x3", None), mode="convolutional",
               strides=(2, 2), padding=((2, 2), (2, 2)), data_parallel=True)
-  with pytest.raises(NotImplementedError, match=r"item 3a\.2\.2"):
-    compiled_epoch.train_dictionary_scanned(images, images[:1], kernels,
-                                            conv, device="cpu")
-  with pytest.raises(NotImplementedError, match=r"item 3a\.2\.2"):
+  # conv with data parallelism runs its tiers (item 3a.2.2 is done): K17's
+  # plain version at the tier, near the 'highest' run and not on it
+  got = compiled_epoch.train_dictionary_scanned(images, images[:1], kernels,
+                                                conv, device="cpu")
+  full = compiled_epoch.train_dictionary_scanned(
+      images, images[:1], kernels, dict(conv, train_precision="highest"),
+      device="cpu")
+  assert 0.0 < float((got - full).abs().max()) < 1e-3
+  # the encode's CPU default 'gram' refuses a tier, where vtc_tpu asserts
+  with pytest.raises(ValueError, match="'pallas' formulation only"):
     encode_dataset(images[0], kernels, SW, 5, mode="convolutional",
                    kernel_stride=(2, 2), batch_size=2, mxu_precision="bf16",
                    data_parallel=True, device="cpu")

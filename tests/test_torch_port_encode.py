@@ -161,9 +161,10 @@ def test_encode_dataset_rejects_unported_options(problem):
       encode_dataset(images, kernels, LAM, 5, device="cpu", data_parallel=True,
                      **conv),
       encode_dataset(images, kernels, LAM, 5, device="cpu", **conv))
-  # a tier in conv mode still waits; in fc mode the CPU's default 'gram'
+  # a tier in conv mode needs 'pallas' (K10): the CPU's default 'gram'
+  # refuses it, as vtc_tpu's asserts; in fc mode the CPU's default 'gram'
   # formulation keeps full precision, as vtc_tpu's does
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
+  with pytest.raises(ValueError, match="'pallas' formulation only"):
     encode_dataset(images, kernels, LAM, 5, device="cpu",
                    mxu_precision="bf16", **conv)
   assert np.array_equal(

@@ -118,12 +118,12 @@ def case_conv_dp_runner(d, h, v, batches, sw, n_it, upd_step, inference_alg,
                         update_alg, config):
   """``_dp_conv_segment_runner`` (K17, its plain version on CPU tensors)
   over this rank's shards of (k, b, c, H, W); config's optional
-  'early_eps' is its stop test."""
+  'early_eps' is its stop test, its optional 'mxu' the solves' tier."""
   mesh = parallel.make_mesh()
   runner = compiled_epoch._dp_conv_segment_runner(
       mesh, inference_alg, update_alg, config["upd_num_iters"], False, False,
       True, config["kernel_stride"], config["padding"],
-      config.get("early_eps"))
+      config.get("early_eps"), mxu=config.get("mxu", "highest"))
   shards = _t(mesh.shard(batches, dim=1))
   return _np(runner(_t(d), _t(h), _t(v), shards, sw, n_it, upd_step))
 

@@ -19,8 +19,12 @@ data-parallel stop test of the psum-per-op step):
 
 Padded images must be stride-exact ((H - kh) % sv == 0): vtc_tpu fails
 on other geometries in every formulation, and the port raises ValueError
-(ops/conv_shapes.require_stride_exact).  Only ``mxu_precision='highest'``
-exists: the reduced-precision tiers wait (ROADMAP.md §1 item 3a.2.2).
+(ops/conv_shapes.require_stride_exact).  ``mxu_precision`` 'bf16x5',
+'bf16x3' or 'bf16' ('default') is K10's tier (vtc_tpu :121-162): the
+'pallas' formulation only, where K10's gate holds, and with an early stop
+only on a batch inside vtc_tpu's one tile
+(``fused_conv_direct.early_stop_supported``); elsewhere the port refuses
+it with ValueError, where vtc_tpu asserts.
 """
 from typing import Optional
 
@@ -31,6 +35,7 @@ from vtc_tpu_torch.ops import fused_conv_fista
 from vtc_tpu_torch.ops import convolutions as conv_ops
 from vtc_tpu_torch.ops import lipschitz as lipschitz_ops
 from vtc_tpu_torch.ops import thresholds
+from vtc_tpu_torch.ops.precision import resolve_tier
 from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 
@@ -96,7 +101,10 @@ def run(images_padded, dictionary, kernel_stride, padding_dims,
     stepsize: optional precomputed 1/L of the flattened kernels.
     lipschitz_method: 'eigvalsh' (exact) or 'power'.
     formulation: 'gram' | 'direct' | 'pallas' (the CUDA kernels).
-    mxu_precision: 'highest' only.
+    mxu_precision: 'highest' (IEEE fp32, the default) | 'bf16x5' |
+      'bf16x3' | 'bf16' ('default'): the tier of K10's products, for the
+      'pallas' formulation where K10's gate holds (ValueError elsewhere:
+      the XLA formulations and K11 have none, as in vtc_tpu).
 
   Returns:
     (b, s, sh, sw) float32 codes on the dictionary's device.
@@ -105,10 +113,12 @@ def run(images_padded, dictionary, kernel_stride, padding_dims,
     raise ValueError("variant must be 'ista' or 'fista'")
   if formulation not in ("gram", "direct", "pallas"):
     raise ValueError("formulation must be 'gram', 'direct' or 'pallas'")
-  if mxu_precision != "highest":
-    raise NotImplementedError(
-        "mxu_precision=%r: the conv tiers wait, ROADMAP.md §1 item 3a.2.2"
-        % (mxu_precision,))
+  tier = resolve_tier(mxu_precision)
+  if tier != "highest" and formulation != "pallas":
+    raise ValueError(
+        "mxu_precision tiers apply to the 'pallas' formulation only; got "
+        "%r with formulation=%r (vtc_tpu asserts the same)"
+        % (mxu_precision, formulation))
   dictionary = torch.as_tensor(dictionary, dtype=torch.float32)
   device = dictionary.device
   images_padded = torch.as_tensor(images_padded, dtype=torch.float32,
@@ -138,6 +148,25 @@ def run(images_padded, dictionary, kernel_stride, padding_dims,
   direct_gate = fused_conv_direct.supported(
       images_padded.shape, dictionary.shape, kernel_stride)
   if formulation == "pallas":
+    if tier != "highest":
+      # vtc_tpu :133-162: a tier runs K10 only, and with a stop only on one
+      # batch tile; it asserts otherwise
+      if not direct_gate:
+        raise ValueError(
+            "mxu_precision=%r needs K10's geometry (fused_conv_direct."
+            "supported()); K11, which takes this geometry, has no tier, as "
+            "in vtc_tpu" % (mxu_precision,))
+      if (early_stopping_epsilon is not None
+          and not fused_conv_direct.early_stop_supported(
+              images_padded.shape, dictionary.shape, kernel_stride)):
+        raise ValueError(
+            "mxu_precision=%r with early_stopping_epsilon needs the batch in "
+            "vtc_tpu's one K10 tile (fused_conv_direct.early_stop_supported"
+            "()); vtc_tpu solves such a batch at full precision only"
+            % (mxu_precision,))
+      return fused_conv_direct.fused_conv_direct_solve(
+          images_padded, dictionary, lam, num_iters, stepsize,
+          early_stopping_epsilon=early_stopping_epsilon, mxu=tier, **flags)
     # K10 where its gate holds, else K11 (vtc_tpu runs its XLA gram loop
     # there with a stop, :163-176: K11 computes the same function); both
     # take the stop test in the kernel on the card

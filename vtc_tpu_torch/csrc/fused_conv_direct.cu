@@ -48,9 +48,17 @@
 // launch of each iteration decides on the device, and the launches after
 // a stop return at entry, leaving the codes of the last iteration run in
 // old and the count in *iters.
-// tests/test_torch_port_conv.py holds the plain version of this layout to
-// vtc_tpu's kernel; chip_smoke.py holds this kernel to it.
+// The precision tiers (vtc_tpu's mxu_precision, :263-269): at a tier
+// other than 'highest' the weights are split into bf16 planes once per
+// solve and the three products (corr, the synthesis and the analysis) run
+// conv_gemm_tier.cuh's bf16 tensor-core GEMM with the same epilogues and
+// early stop; the mask, the prox, the momentum and the stop test stay
+// float32.
+// tests/test_torch_port_conv.py and tests/test_torch_port_conv_tiers.py
+// hold the plain version of this layout to vtc_tpu's kernel;
+// chip_smoke.py holds this kernel to it.
 #include "conv_gemm.cuh"
+#include "conv_gemm_tier.cuh"
 
 extern "C" {
 
@@ -61,7 +69,9 @@ extern "C" {
 // the codes on return.  stop_words: null for the loop without the stop,
 // else the zeroed conv_stop_words() array of the early stop at eps over
 // a mean of inv_count (1 / (b s code_h code_w)), with iters (1,)
-// receiving the count.  Returns the CUDA error of the
+// receiving the count.  tier: 'highest' (kTierHighest) or a tier of
+// tier_codes.cuh, with tier_scratch the vtc_conv_tier_words() words of
+// the split weights (null at 'highest').  Returns the CUDA error of the
 // launches.
 int vtc_conv_direct(const float* dstk, const float* dall, const float* mblk,
                     const float* xblk, const float* eta, float lam,
@@ -69,11 +79,12 @@ int vtc_conv_direct(const float* dstk, const float* dall, const float* mblk,
                     int bh, int bw, int fista, int mode, float* img,
                     float* corr, float* z, float* old, float eps,
                     float inv_count, unsigned long long* stop_words,
-                    int* iters,
+                    int* iters, int tier, void* tier_scratch,
                     void* stream_ptr) {
   const int code_h = bh - (ay - 1), code_w = bw - (ax - 1);
   if (b < 1 || s < 1 || cpx < 1 || ay < 1 || ax < 1 || code_h < 1 ||
-      code_w < 1 || num_iters < 0 || mode < 0 || mode > 3)
+      code_w < 1 || num_iters < 0 || mode < 0 || mode > 3 || tier < 0 ||
+      tier > kTierBf16x5 || (tier != kTierHighest && tier_scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int r = ay * ax;
@@ -110,12 +121,18 @@ int vtc_conv_direct(const float* dstk, const float* dall, const float* mblk,
   anal.out_w = code_w;
   anal.lines = kAll;
 
+  // at a tier, the weights' planes, once per solve
+  const ConvTierWeights planes(tier, tier_scratch, s, cpx, r);
+  cudaError_t err = planes.fold(dstk, dall, s, cpx, r, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
   // corr = A(mask * X), once per solve
   GemmArgs corr_args = anal;
   corr_args.src = xblk;
   corr_args.epilogue = kStore;
   corr_args.out = corr;
-  cudaError_t err = launch_gather_gemm(corr_args, 1, code_h * code_w, stream);
+  err = launch_conv_product(tier, corr_args, planes.all, code_h * code_w,
+                            false, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   anal.src = img;
@@ -140,9 +157,10 @@ int vtc_conv_direct(const float* dstk, const float* dall, const float* mblk,
   for (int it = 0; it < num_iters; ++it) {
     anal.beta = fista ? fista_beta(&t) : 0.0f;
     anal.stop.it = it;
-    err = launch_gather_gemm_stop(synth, 1, bh * bw, stop, stream);
+    err = launch_conv_product(tier, synth, planes.stk, bh * bw, stop, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch_gather_gemm_stop(anal, 1, code_h * code_w, stop, stream);
+    err = launch_conv_product(tier, anal, planes.all, code_h * code_w, stop,
+                              stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
@@ -153,5 +171,14 @@ int vtc_conv_direct(const float* dstk, const float* dall, const float* mblk,
 long long vtc_conv_stop_words(int s, long long positions) {
   return conv_stop_words(s, positions);
 }
+
+// The 32-bit words of a conv solve's split weights at a tier (0 at
+// 'highest'): dstk's (cpx x R*s) planes and dall's (s x R*cpx).
+long long vtc_conv_tier_words(int tier, int s, int cpx, int r) {
+  return conv_tier_words(tier, cpx, r * s) + conv_tier_words(tier, s, r * cpx);
+}
+
+// The largest K (R*s or R*cpx) the tier kernel takes: its offset table's.
+int vtc_conv_tier_max_k() { return kTableMaxK; }
 
 }  // extern "C"

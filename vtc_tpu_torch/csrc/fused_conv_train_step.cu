@@ -98,7 +98,17 @@
 // and conv_stop_decide_kernel decides: every rank stops at the same
 // count, vtc_tpu's one slot all-reduce an iteration (:190-213).  K13 has
 // no stop, as vtc_tpu's.
+//
+// The precision tiers of K12, K13 and K17 (vtc_tpu's mxu, the tile
+// solver's _make_deep_dot, pallas_conv_train.py:240-300): at a tier other
+// than 'highest' refresh_and_solve splits dstk and dall into bf16 planes
+// once per step, after dall_from_dstk, and runs the solve's three products
+// (corr, the synthesis, the analysis) on conv_gemm_tier.cuh's bf16
+// tensor-core GEMM.  The flat-kernel Gram and the power refresh, the
+// update residual, the block gradient, K13's statistics and the update
+// stay fp32 at every tier, as vtc_tpu's (:96-103, :518, :830).
 #include "conv_gemm.cuh"
+#include "conv_gemm_tier.cuh"
 #include "train_core.cuh"
 
 namespace {
@@ -371,19 +381,24 @@ struct ConvStep {
   const float* dstk;
   float *v, *dall, *gram, *eta, *z, *old, *partial;
   GemmArgs synth, resid, anal, corr;
+  ConvTierWeights planes;  // the solve's tier and its split weights
 };
 
 // Fill *st; cudaErrorInvalidValue for sizes the kernels do not take.
+// tier and tier_scratch: the solve's tier and the vtc_conv_tier_words()
+// words of its split weights (null at 'highest').
 cudaError_t conv_step_setup(ConvStep* st, const float* dstk, float* v,
                             const float* mblk, int b, int s, int cpx, int ay,
                             int ax, int bh, int bw, float lam, int num_iters,
                             int fista, int mode, int power_iters, float* dall,
                             float* gram, float* eta, float* img, float* corr,
-                            float* z, float* old, float* partial) {
+                            float* z, float* old, float* partial, int tier,
+                            void* tier_scratch) {
   const int code_h = bh - (ay - 1), code_w = bw - (ax - 1);
   if (b < 1 || s < 1 || s > kMaxKernels || cpx < 1 || ay < 1 || ax < 1 ||
       code_h < 1 || code_w < 1 || num_iters < 0 || power_iters < 0 ||
-      mode < 0 || mode > 3)
+      mode < 0 || mode > 3 || tier < 0 || tier > kTierBf16x5 ||
+      (tier != kTierHighest && tier_scratch == nullptr))
     return cudaErrorInvalidValue;
   ConvStep& t = *st;
   t.b = b;
@@ -412,6 +427,7 @@ cudaError_t conv_step_setup(ConvStep* st, const float* dstk, float* v,
   t.z = z;
   t.old = old;
   t.partial = partial;
+  t.planes = ConvTierWeights(tier, tier_scratch, s, cpx, t.r);
 
   t.synth = GemmArgs{};
   t.synth.a = dstk;
@@ -505,9 +521,12 @@ cudaError_t refresh_and_solve(const ConvStep& st, const float* xs,
                               st.r * st.cpx, stream));
   VTC_CHECK(power_refresh(st.gram, st.v, st.eta, st.s, st.power_iters,
                           stream));
+  VTC_CHECK(st.planes.fold(st.dstk, st.dall, st.s, st.cpx, st.r, stream));
+  const int tier = st.planes.tier;
   GemmArgs corr = st.corr;
   corr.src = xs;
-  VTC_CHECK(launch_gather_gemm(corr, 1, st.chw, stream));
+  VTC_CHECK(launch_conv_product(tier, corr, st.planes.all, st.chw, false,
+                                stream));
   VTC_CHECK(cudaMemsetAsync(st.z, 0, st.code_bytes, stream));
   VTC_CHECK(cudaMemsetAsync(st.old, 0, st.code_bytes, stream));
   GemmArgs anal = st.anal, synth = st.synth;
@@ -517,8 +536,10 @@ cudaError_t refresh_and_solve(const ConvStep& st, const float* xs,
   for (int it = 0; it < st.num_iters; ++it) {
     anal.beta = st.fista ? fista_beta(&t) : 0.0f;
     anal.stop.it = it;
-    VTC_CHECK(launch_gather_gemm_stop(synth, 1, st.blocks, stopping, stream));
-    VTC_CHECK(launch_gather_gemm_stop(anal, 1, st.chw, stopping, stream));
+    VTC_CHECK(launch_conv_product(tier, synth, st.planes.stk, st.blocks,
+                                  stopping, stream));
+    VTC_CHECK(launch_conv_product(tier, anal, st.planes.all, st.chw, stopping,
+                                  stream));
     if (stopping && anal.stop.local != nullptr) {
       if (stop->hook(it) != 0) {
         stop->hook_failed = true;
@@ -601,7 +622,9 @@ int vtc_conv_train_chunk() { return kGradChunk; }
 // quadratic.  stop_words: null for solves without the stop, else the
 // zeroed vtc_conv_stop_words() array of the early stop at eps over a mean
 // of inv_count (1 / (b s code_h code_w)), iters (k,) receiving each
-// step's count.  Returns the first CUDA error code (0 on success).
+// step's count.  tier / tier_scratch: the solves' tier and the
+// vtc_conv_tier_words() words of the split weights (null at 'highest').
+// Returns the first CUDA error code (0 on success).
 int vtc_conv_train_segment(float* dstk, float* h, float* v, const float* xblk,
                            const float* mblk, const float* supp, int k, int b,
                            int s, int cpx, int ay, int ax, int bh, int bw,
@@ -612,7 +635,7 @@ int vtc_conv_train_segment(float* dstk, float* h, float* v, const float* xblk,
                            float* corr, float* z, float* old, float* partial,
                            float* grad, float eps, float inv_count,
                            unsigned long long* stop_words, int* iters,
-                           void* stream_ptr) {
+                           int tier, void* tier_scratch, void* stream_ptr) {
   if (k < 0 || upd_num_iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   StepStop stop;
@@ -624,7 +647,8 @@ int vtc_conv_train_segment(float* dstk, float* h, float* v, const float* xblk,
   ConvStep st;
   cudaError_t err = conv_step_setup(
       &st, dstk, v, mblk, b, s, cpx, ay, ax, bh, bw, lam, num_iters, fista,
-      mode, power_iters, dall, gram, eta, img, corr, z, old, partial);
+      mode, power_iters, dall, gram, eta, img, corr, z, old, partial, tier,
+      tier_scratch);
   if (err != cudaSuccess) return static_cast<int>(err);
   GemmArgs resid = st.resid;
   const int64_t step_floats = static_cast<int64_t>(b) * cpx * st.blocks;
@@ -666,20 +690,23 @@ int vtc_conv_train_segment(float* dstk, float* h, float* v, const float* xblk,
 //   masked code Gram; the caller guarantees a stride-block-uniform mask.
 // stat (s,) receives sum_{b, positions} codes^2.  Scratch as
 // vtc_conv_train_segment's; partial holds (splits, max(cpx, R*s), R*s)
-// in the gram form.  Returns the first CUDA error code (0 on success).
+// in the gram form.  tier / tier_scratch: the solve's tier and the
+// vtc_conv_tier_words() words of the split weights (null at 'highest').
+// Returns the first CUDA error code (0 on success).
 int vtc_conv_solve_stats(const float* dstk, float* v, const float* xblk,
                          const float* mblk, int b, int s, int cpx, int ay,
                          int ax, int bh, int bw, float lam, int num_iters,
                          int fista, int mode, int power_iters, int gram_stats,
                          float* dall, float* gram, float* eta, float* img,
                          float* corr, float* z, float* old, float* partial,
-                         float* out, float* cm, float* stat,
-                         void* stream_ptr) {
+                         float* out, float* cm, float* stat, int tier,
+                         void* tier_scratch, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   ConvStep st;
   cudaError_t err = conv_step_setup(
       &st, dstk, v, mblk, b, s, cpx, ay, ax, bh, bw, lam, num_iters, fista,
-      mode, power_iters, dall, gram, eta, img, corr, z, old, partial);
+      mode, power_iters, dall, gram, eta, img, corr, z, old, partial, tier,
+      tier_scratch);
   if (err == cudaSuccess) err = refresh_and_solve(st, xblk, stream);
   if (err == cudaSuccess)
     err = shard_stats(st, xblk, mblk, gram_stats, img, out, cm, stat, stream);
@@ -707,6 +734,8 @@ int vtc_conv_solve_stats(const float* dstk, float* v, const float* xblk,
 // above one stop_local (1,) takes the rank's sum of |codes - old| each
 // iteration and stop_hook(it) sums it over the ranks in place (a null
 // hook: a world of one, where the kernel decides on its own sum).
+// tier / tier_scratch: the solves' tier and the vtc_conv_tier_words()
+// words of the split weights (null at 'highest').
 // Returns the first CUDA error code (0 on success), or kSumHookFailed.
 int vtc_conv_dp_train_segment(
     float* dstk, float* h, float* v, const float* xblk, const float* mblk,
@@ -717,7 +746,8 @@ int vtc_conv_dp_train_segment(
     float* eta, float* img, float* corr, float* z, float* old,
     float* partial, float* grad, float* comm, SumHook sum_hook, float eps,
     float inv_count, unsigned long long* stop_words, int* iters,
-    float* stop_local, SumHook stop_hook, void* stream_ptr) {
+    float* stop_local, SumHook stop_hook, int tier, void* tier_scratch,
+    void* stream_ptr) {
   if (k < 0 || upd_num_iters < 0 || !(global_b >= 1.0f))
     return static_cast<int>(cudaErrorInvalidValue);
   StepStop stop;
@@ -731,7 +761,8 @@ int vtc_conv_dp_train_segment(
   ConvStep st;
   cudaError_t err = conv_step_setup(
       &st, dstk, v, mblk, b, s, cpx, ay, ax, bh, bw, lam, num_iters, fista,
-      mode, power_iters, dall, gram_mat, eta, img, corr, z, old, partial);
+      mode, power_iters, dall, gram_mat, eta, img, corr, z, old, partial,
+      tier, tier_scratch);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rs = st.r * s;
   float* cm = gram ? comm : nullptr;

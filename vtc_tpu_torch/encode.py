@@ -123,15 +123,10 @@ class _CudaChunks:
 
 def _check_scope(mode, mxu_precision):
   """The tier the solves run ('bf16' is 'default', vtc_tpu's encode.py
-  :160-161); the conv tiers wait, with data parallelism or not."""
+  :160-161), in every mode, with data parallelism or not."""
   if mode not in ("fully-connected", "convolutional"):
     raise ValueError("mode must be 'fully-connected' or 'convolutional'")
-  tier = resolve_tier(mxu_precision)
-  if tier != "highest" and mode == "convolutional":
-    raise NotImplementedError(
-        "mxu_precision=%r in convolutional mode: the conv tiers wait, "
-        "ROADMAP.md §1 item 3a.2.2" % (mxu_precision,))
-  return tier
+  return resolve_tier(mxu_precision)
 
 
 def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
@@ -166,10 +161,12 @@ def encode_dataset(data, dictionary, sparsity_weight, num_iters, *,
       (conv: where K10's gate holds), 'gram' elsewhere; or force 'gram' /
       'direct' / 'pallas'.
     lipschitz_method: 'eigvalsh' (exact, default) or 'power'.
-    mxu_precision: the fc and subspace solves' tier, 'highest',
-      'bf16x5', 'bf16x3' or 'default'/'bf16', applied by the 'pallas'
-      formulation (K1, K4) as in vtc_tpu, on each rank's shards with
-      data_parallel; conv mode takes 'highest' only.
+    mxu_precision: the solves' tier, 'highest', 'bf16x5', 'bf16x3' or
+      'default'/'bf16', applied by the 'pallas' formulation (K1, K4, K10)
+      as in vtc_tpu, on each rank's shards with data_parallel; the conv
+      tiers need K10's geometry, and a conv formulation that resolves to
+      'gram' (the CPU's default, or outside K10's gate) refuses a tier
+      with ValueError, where vtc_tpu asserts.
     device: where to solve; defaults to the dictionary's device when it
       is a tensor, else the CUDA device (raising without one).
 

@@ -175,12 +175,18 @@ def load_library():
   lib.vtc_group_dp_train_segment.restype = i32
   # the conv solves' early stop: eps, inv_count, the words, the counts
   conv_stop = [f32, f32, ptr, ptr]
+  # ... and the conv solves' tier and the words of its split weights
+  conv_tier = [i32, ptr]
   lib.vtc_conv_direct.argtypes = [
       ptr, ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32, i32,
-      i32, i32, ptr, ptr, ptr, ptr] + conv_stop + [ptr]
+      i32, i32, ptr, ptr, ptr, ptr] + conv_stop + conv_tier + [ptr]
   lib.vtc_conv_direct.restype = i32
   lib.vtc_conv_stop_words.argtypes = [i32, ctypes.c_int64]
   lib.vtc_conv_stop_words.restype = ctypes.c_int64
+  lib.vtc_conv_tier_words.argtypes = [i32, i32, i32, i32]
+  lib.vtc_conv_tier_words.restype = ctypes.c_int64
+  lib.vtc_conv_tier_max_k.argtypes = []
+  lib.vtc_conv_tier_max_k.restype = i32
   lib.vtc_conv_fista.argtypes = [
       ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, f32, i32, i32,
       i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr] + conv_stop + [
@@ -190,14 +196,15 @@ def load_library():
   lib.vtc_conv_train_chunk.restype = i32
   lib.vtc_conv_train_segment.argtypes = (
       [ptr] * 6 + [i32] * 8 + [f32, i32, f32, i32, f32] + [i32] * 5
-      + [ptr] * 9 + conv_stop + [ptr])
+      + [ptr] * 9 + conv_stop + conv_tier + [ptr])
   lib.vtc_conv_train_segment.restype = i32
   lib.vtc_conv_solve_stats.argtypes = (
-      [ptr] * 4 + [i32] * 7 + [f32] + [i32] * 5 + [ptr] * 11 + [ptr])
+      [ptr] * 4 + [i32] * 7 + [f32] + [i32] * 5 + [ptr] * 11 + conv_tier
+      + [ptr])
   lib.vtc_conv_solve_stats.restype = i32
   lib.vtc_conv_dp_train_segment.argtypes = (
       [ptr] * 6 + [i32] * 8 + [f32, i32, f32, i32, f32] + [i32] * 6 + [f32]
-      + [ptr] * 10 + [ptr] + conv_stop + [ptr, ptr, ptr])
+      + [ptr] * 10 + [ptr] + conv_stop + [ptr, ptr] + conv_tier + [ptr])
   lib.vtc_conv_dp_train_segment.restype = i32
   lib.vtc_ica_train_segment.argtypes = (
       [ptr] * 6 + [i32, i32, i32, f32, i32, i32, i32, f32] + [ptr] * 8

@@ -26,8 +26,10 @@ outside the kernel, as the JAX function does with XLA (:383-391).  Then:
   vtc_tpu's kernel and ``chip_smoke.py`` holds the kernel against.
 
 ``fused_conv_direct_library`` is the same iteration with each product
-as one library convolution (cuDNN on the card, TF32 off): the yardstick
-``chip_smoke.py`` times beside the kernel.  The main path never calls it.
+as one library convolution (cuDNN on the card, TF32 off), or at a tier
+each pass as one library product of bf16 operands on the materialized
+stack: the yardstick ``chip_smoke.py`` times beside the kernel.  The main
+path never calls it.
 
 ``supported`` is the JAX gate (:98-112).  ``build_block_update_stats``
 and ``dictionary_gradient_from_block_stats`` (:212-252) are the conv
@@ -41,8 +43,19 @@ early stop"); the host never reads the mean.  ``last_iters`` (a private
 test hook) is the int32 device tensor of the last stopped launch's
 count; ``stop_scratch`` sizes the stop's device words.
 
-Scope: only the 'highest' (IEEE fp32) tier (ROADMAP.md §1 item 3a.2.2).
-``launches`` counts solves launched on the card.
+``mxu`` is vtc_tpu's ``mxu_precision`` (:263-269, ``_make_deep_dot``,
+pallas_conv_train.py:240-267): at 'bf16x5', 'bf16x3' or 'bf16' ('default')
+the three products of the solve (corr = A(mask * X), the synthesis, the
+analysis) sum single-pass bf16 products in float32, the weights split once
+per solve and the stacked source per use, the weights on the left: on the
+card conv_gemm_tier.cuh's bf16 tensor-core GEMM, in the plain version
+``conv_deep_dot``.  The mask, the prox, the momentum and the stop test stay
+float32.  The tier kernel takes K = R*s and R*cpx up to its offset table's
+``vtc_conv_tier_max_k`` (4,096) and refuses more by name (``tier_scratch``);
+vtc_tpu's K10 takes the stop on one batch tile only
+(``early_stop_supported``), and at a tier so does the port.
+``launches`` counts solves launched on the card, ``tier_launches`` those
+at a tier.
 """
 import ctypes
 
@@ -50,10 +63,13 @@ import torch
 import torch.nn.functional as F
 
 from vtc_tpu_torch.ops import conv_shapes, thresholds
-from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.precision import (TIER_CODES, _bf16, matmul_precision,
+                                         resolve_tier, split3, split_hi_lo,
+                                         tier_operand)
 from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 launches = 0
+tier_launches = 0
 last_iters = None  # int32 device tensor: the last stopped launch's count
 
 # the kernel's shrink modes, indexed by (nonneg, hard)
@@ -91,6 +107,62 @@ def supported(img_shape, dict_shape, kernel_stride):
     return False
   geo = geometry(img_shape, dict_shape, kernel_stride)
   return geo["code_h"] >= 1 and geo["code_w"] >= 1
+
+
+# vtc_tpu's K10 batch tile (pallas_conv_direct.py:64, :115-124 and
+# pallas_common.py:33-46): its VMEM limit, lanes and largest tile
+_TPU_VMEM_LIMIT, _TPU_LANES, _TPU_MAX_TILE = 100 * 1024 * 1024, 128, 32
+
+
+def _tpu_batch_tile(b, geo):
+  """vtc_tpu's ``_pick_batch_tile``: the largest batch tile whose VMEM
+  working set on its lane canvas fits, preferring divisors of b unless the
+  best divisor is under half the best tile; None when one image does not
+  fit."""
+  s, cpx, r = geo["s"], geo["cpx"], geo["r"]
+  rows = 5 * s + 2 * cpx + r * max(s, cpx)
+  ell = (geo["bh"] + geo["ay"] - 1) * (geo["bw"] + geo["ax"] - 1)
+  ells = -(-ell // _TPU_LANES) * _TPU_LANES
+  best_div = best_any = None
+  for t in range(1, min(b, _TPU_MAX_TILE) + 1):
+    if 4 * rows * t * ells <= int(_TPU_VMEM_LIMIT * 0.6):
+      best_any = t
+      if b % t == 0:
+        best_div = t
+  if best_div is not None and best_div >= max(1, (best_any or 1) // 2):
+    return best_div
+  return best_any
+
+
+def early_stop_supported(img_shape, dict_shape, kernel_stride):
+  """vtc_tpu's ``early_stop_supported`` (pallas_conv_direct.py:339-347):
+  whether its K10 takes the early stop, the whole batch in one VMEM tile.
+  The port's K10 stops on any batch at 'highest'; with a tier the port
+  refuses a stop where this fails, as vtc_tpu does."""
+  kernel_stride = tuple(int(x) for x in kernel_stride)
+  if not supported(img_shape, dict_shape, kernel_stride):
+    return False
+  tile = _tpu_batch_tile(img_shape[0],
+                         geometry(img_shape, dict_shape, kernel_stride))
+  return tile is not None and tile >= img_shape[0]
+
+
+def tier_scratch(lib, mxu, geo, device, what):
+  """The C entries' tier arguments for the resolved tier ``mxu``: (its
+  code, the int32 words of the split weights, or None at 'highest').
+  ValueError, naming ``what``, where the tier kernel's offset table cannot
+  take the products' depths R*s and R*cpx (``vtc_conv_tier_max_k``)."""
+  code = TIER_CODES[mxu]
+  if code == 0:
+    return 0, None
+  if geo["r"] * max(geo["s"], geo["cpx"]) > lib.vtc_conv_tier_max_k():
+    raise ValueError(
+        "%s: mxu=%r needs the tier kernel, whose offset table takes K up to "
+        "%d, and this geometry's depth R*max(s, cpx) is %d" % (
+            what, mxu, lib.vtc_conv_tier_max_k(),
+            geo["r"] * max(geo["s"], geo["cpx"])))
+  words = lib.vtc_conv_tier_words(code, geo["s"], geo["cpx"], geo["r"])
+  return code, torch.empty(int(words), dtype=torch.int32, device=device)
 
 
 def kernel_parts(dictionary, geo):
@@ -166,13 +238,69 @@ def _product(weights, stack):
   return (weights @ stack.reshape(b, k, h * w)).reshape(b, -1, h, w)
 
 
+# the depth of one tensor-core product (mma.sync m16n8k16)
+_MMA_DEPTH = 16
+
+
+def _hi_pass(weights, stack):
+  """The hi x hi pass as the card's tier kernel sums it: in 16-deep
+  chunks, each chunk's exact sum rounded toward zero to float32 (the
+  tensor cores' rounding of one m16n8k16 product), the chunks added in
+  float32 in order, rounding to nearest."""
+  b, k, h, w = stack.shape
+  q = -(-k // _MMA_DEPTH)
+  pad = q * _MMA_DEPTH - k
+  wq = F.pad(weights.double(), (0, pad)).reshape(-1, q, _MMA_DEPTH)
+  sq = F.pad(stack.double().reshape(b, k, h * w), (0, 0, 0, pad)).reshape(
+      b, q, _MMA_DEPTH, h * w)
+  exact = torch.einsum("mqk,bqkn->qbmn", wq, sq)
+  parts = exact.to(stack.dtype)
+  parts = torch.where(parts.double().abs() > exact.abs(),
+                      torch.nextafter(parts, torch.zeros_like(parts)), parts)
+  acc = parts[0]
+  for part in parts[1:]:
+    acc = acc + part
+  return acc.reshape(b, -1, h, w)
+
+
+def conv_deep_dot(weights, stack, mxu):
+  """vtc_tpu's ``deep_dot`` of ``_make_deep_dot(mxu)``: the (m, K) weights,
+  as ``tier_operand`` splits them once per solve, times the (b, K, h, w)
+  stack, split here per use, the weights always on the left: bf16, w b;
+  bf16x3, w_hi b_hi + w_lo b_hi + w_hi b_lo; bf16x5, w_hi b_hi + w_mid
+  b_hi + w_hi b_mid + w_lo b_hi + w_hi b_lo.  The products of bf16 values
+  are exact; the sums are the card's tier kernel's (vtc_tpu's matrix unit
+  sums in its own order): the hi x hi pass by ``_hi_pass``, the smaller
+  passes together in float64, rounded once and added to it
+  (tools/conv_tier_rounding.py counts the kernel's bits that agree).  At
+  the flagship K10 at bf16x5 the kernel sat 8.3e-5 (Frobenius) from a
+  plain version of float32 chains in vtc_tpu's order, where phase 46's
+  control asks within 7.0e-5, a fifth of the tier's effect; summed as the
+  kernel sums, 2.3e-5 (chip_smoke.py phase 48).  (Not
+  ``precision.tier_dot``, whose second pass is the per-use operand's lo
+  times the constant's hi.)"""
+  tier = resolve_tier(mxu)
+  with matmul_precision("highest"):
+    if tier == "highest":
+      return _product(weights[0], stack)
+    if tier == "bf16":
+      return _hi_pass(weights[0], _bf16(stack))
+    terms = split_hi_lo(stack) if tier == "bf16x3" else split3(stack)
+    pairs = (((1, 0), (0, 1)) if tier == "bf16x3"
+             else ((1, 0), (0, 1), (2, 0), (0, 2)))
+    lo = sum(_product(weights[i].double(), terms[j].double())
+             for i, j in pairs)
+    return _hi_pass(weights[0], terms[0]) + lo.to(stack.dtype)
+
+
 def _block_solve(products, images, dictionary, sparsity_weight, num_iters,
                  stepsize, kernel_stride, padding, initial_codes, variant,
                  nonneg, hard, early_stopping_epsilon, precision,
                  psum_axes=None):
   """K10's iteration in the inputs' own float type, with the block-space
   products that ``products(dictionary, geo)`` returns as (synthesize,
-  analyze): img = mblk * synthesize(z), grad = analyze(img) - corr."""
+  analyze): img = mblk * synthesize(z), grad = analyze(img) - corr (corr =
+  analyze(mask * X))."""
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
   dtype, device = images.dtype, images.device
@@ -200,11 +328,44 @@ def _block_solve(products, images, dictionary, sparsity_weight, num_iters,
         early_stopping_epsilon=early_stopping_epsilon, psum_axes=psum_axes)
 
 
-def _stack_products(dictionary, geo):
-  """The kernel's products: the packed weights times the shifted stacks."""
+def _stack_products(dictionary, geo, mxu="highest"):
+  """The kernel's products: the packed weights times the shifted stacks,
+  at the tier ``mxu`` (``conv_deep_dot``; the weights split once)."""
   dstk, dall = pack_weights(dictionary, geo)
-  return (lambda z: _product(dstk, code_stack(z, geo)),
-          lambda img: _product(dall, block_stack(img, geo)))
+  if resolve_tier(mxu) == "highest":
+    return (lambda z: _product(dstk, code_stack(z, geo)),
+            lambda img: _product(dall, block_stack(img, geo)))
+  stk, all_ = tier_operand(dstk, mxu), tier_operand(dall, mxu)
+  return (lambda z: conv_deep_dot(stk, code_stack(z, geo), mxu),
+          lambda img: conv_deep_dot(all_, block_stack(img, geo), mxu))
+
+
+def _library_tier_products(dictionary, geo, mxu, mm):
+  """The products at a tier with each pass one library product ``mm(a,
+  b)`` of bf16 operands with a float32 result (cuBLAS on the card), on
+  the stack materialized as a (K, b*h*w) matrix, the passes added in
+  vtc_tpu's order."""
+  dstk, dall = pack_weights(dictionary, geo)
+  tier = resolve_tier(mxu)
+  pairs = {"bf16": ((0, 0),), "bf16x3": ((0, 0), (1, 0), (0, 1)),
+           "bf16x5": ((0, 0), (1, 0), (0, 1), (2, 0), (0, 2))}[tier]
+  split = {"bf16": lambda x: (_bf16(x),), "bf16x3": split_hi_lo,
+           "bf16x5": split3}[tier]
+
+  def product(terms, stack):
+    b, k, h, w = stack.shape
+    cols = split(stack.transpose(0, 1).reshape(k, b * h * w))
+    cols = [c.to(torch.bfloat16) for c in cols]
+    out = None
+    for i, j in pairs:
+      term = mm(terms[i], cols[j])
+      out = term if out is None else out + term
+    return out.reshape(-1, b, h, w).transpose(0, 1)
+
+  stk = [t.to(torch.bfloat16) for t in tier_operand(dstk, mxu)]
+  all_ = [t.to(torch.bfloat16) for t in tier_operand(dall, mxu)]
+  return (lambda z: product(stk, code_stack(z, geo)),
+          lambda img: product(all_, block_stack(img, geo)))
 
 
 def _library_products(dictionary, geo):
@@ -222,7 +383,7 @@ def fused_conv_direct_plain(images, dictionary, sparsity_weight, num_iters,
                             initial_codes=None, variant="fista",
                             nonneg=False, hard=False,
                             early_stopping_epsilon=None, precision=None,
-                            psum_axes=None):
+                            psum_axes=None, mxu="highest"):
   """The plain PyTorch version of K10, on any device and in the inputs'
   own float type (float64 inputs give the float64 oracle): the same
   block-space products, mask and update as the kernel.
@@ -230,23 +391,32 @@ def fused_conv_direct_plain(images, dictionary, sparsity_weight, num_iters,
   the ranks of the ``parallel.Mesh`` ``psum_axes`` where one is given
   (ops/solver.py); ``precision`` the matmul precision of
   ``ops/precision`` (default 'highest'), 'tensorfloat32' showing what
-  TF32 products would cost."""
-  return _block_solve(_stack_products, images, dictionary, sparsity_weight,
-                      num_iters, stepsize, kernel_stride, padding,
-                      initial_codes, variant, nonneg, hard,
-                      early_stopping_epsilon, precision, psum_axes)
+  TF32 products would cost; ``mxu`` the products' tier
+  (``conv_deep_dot``; float32 inputs)."""
+  return _block_solve(
+      lambda d, geo: _stack_products(d, geo, mxu), images, dictionary,
+      sparsity_weight, num_iters, stepsize, kernel_stride, padding,
+      initial_codes, variant, nonneg, hard, early_stopping_epsilon,
+      precision, psum_axes)
 
 
 def fused_conv_direct_library(images, dictionary, sparsity_weight, num_iters,
                               stepsize, *, kernel_stride, padding,
-                              variant="fista", nonneg=False, hard=False):
+                              variant="fista", nonneg=False, hard=False,
+                              mxu="highest", mm=None):
   """K10's solve with each product as one library call (cuDNN on the
-  card) under ``ops/precision``'s IEEE fp32 pins: the yardstick that
-  chip_smoke.py times beside the kernel.  Nothing on the main path calls
-  it."""
-  return _block_solve(_library_products, images, dictionary,
-                      sparsity_weight, num_iters, stepsize, kernel_stride,
-                      padding, None, variant, nonneg, hard, None, None)
+  card) under ``ops/precision``'s IEEE fp32 pins, or at a tier each pass
+  one call ``mm(a, b)`` of bf16 operands with a float32 result (chip_smoke
+  passes ``torch.mm(..., out_dtype=torch.float32)``) on the materialized
+  stack: the yardstick that chip_smoke.py times beside the kernel.
+  Nothing on the main path calls it."""
+  if resolve_tier(mxu) == "highest":
+    products = _library_products
+  else:
+    products = lambda d, geo: _library_tier_products(d, geo, mxu, mm)
+  return _block_solve(products, images, dictionary, sparsity_weight,
+                      num_iters, stepsize, kernel_stride, padding, None,
+                      variant, nonneg, hard, None, None)
 
 
 def build_block_update_stats(images_padded, codes, dict_shape,
@@ -290,7 +460,7 @@ def fused_conv_direct_solve(images, dictionary, sparsity_weight, num_iters,
                             stepsize, *, kernel_stride, padding,
                             initial_codes=None, variant="fista",
                             nonneg=False, hard=False,
-                            early_stopping_epsilon=None):
+                            early_stopping_epsilon=None, mxu="highest"):
   """Conv LASSO codes through the K10 kernel.
 
   Args:
@@ -305,21 +475,31 @@ def fused_conv_direct_solve(images, dictionary, sparsity_weight, num_iters,
     variant / nonneg / hard: 'ista' | 'fista', threshold flags.
     early_stopping_epsilon: optional; stop after the first iteration k > 0
       whose mean |codes_k - codes_{k-1}| / stepsize is below it, and
-      return codes_k (the batch-global test, decided on the device).
+      return codes_k (the batch-global test, decided on the device).  At
+      a tier only where ``early_stop_supported`` holds, as in vtc_tpu
+      (ValueError otherwise).
+    mxu: 'highest' (IEEE fp32), 'bf16x5', 'bf16x3' or 'bf16' ('default'):
+      the tier of the solve's products.
 
   Returns:
     (b, s, code_h, code_w) codes on the inputs' device.
   """
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
+  mxu = resolve_tier(mxu)
   kernel_stride = tuple(int(x) for x in kernel_stride)
   padding = conv_shapes.normalize_padding(padding)
+  _require(mxu == "highest" or early_stopping_epsilon is None
+           or early_stop_supported(images.shape, dictionary.shape,
+                                   kernel_stride),
+           "mxu=%r with early_stopping_epsilon needs the batch in vtc_tpu's "
+           "one tile (early_stop_supported()), as vtc_tpu's K10 does" % mxu)
   if images.device.type == "cpu":
     return fused_conv_direct_plain(
         images, dictionary, sparsity_weight, num_iters, stepsize,
         kernel_stride=kernel_stride, padding=padding,
         initial_codes=initial_codes, variant=variant, nonneg=nonneg,
-        hard=hard, early_stopping_epsilon=early_stopping_epsilon)
+        hard=hard, early_stopping_epsilon=early_stopping_epsilon, mxu=mxu)
   _require(images.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(images.device))
@@ -360,7 +540,7 @@ def fused_conv_direct_solve(images, dictionary, sparsity_weight, num_iters,
   return _launch(dstk, dall, mblk, xblk, eta, float(sparsity_weight),
                  num_iters, variant == "fista",
                  _MODES[(bool(nonneg), bool(hard))], geo, z,
-                 eps=early_stopping_epsilon)
+                 eps=early_stopping_epsilon, mxu=mxu)
 
 
 def stop_scratch(lib, s, positions, eps, device, steps=1):
@@ -382,14 +562,17 @@ def ptr(t):
 
 
 def _launch(dstk, dall, mblk, xblk, eta, lam, num_iters, fista, mode, geo,
-            z, eps=None):
+            z, eps=None, mxu="highest"):
   """Allocate the kernel's scratch and enqueue the solve on the current
-  stream; eps the early stop's threshold (None: none)."""
-  global launches, last_iters
+  stream; eps the early stop's threshold (None: none), mxu the resolved
+  tier."""
+  global launches, tier_launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   device = z.device
   b = z.shape[0]
+  tier, planes = tier_scratch(lib, mxu, geo, device,
+                              "fused_conv_direct_solve")
   positions = b * geo["code_h"] * geo["code_w"]
   eps, words, iters = stop_scratch(lib, geo["s"], positions, eps, device)
   img = torch.empty_like(xblk)
@@ -403,13 +586,15 @@ def _launch(dstk, dall, mblk, xblk, eta, lam, num_iters, fista, mode, geo,
         geo["cpx"], geo["ay"], geo["ax"], geo["bh"], geo["bw"], int(fista),
         mode, img.data_ptr(), corr.data_ptr(), z.data_ptr(), old.data_ptr(),
         ctypes.c_float(eps), ctypes.c_float(1.0 / (positions * geo["s"])),
-        ptr(words), ptr(iters), stream)
+        ptr(words), ptr(iters), tier, ptr(planes), stream)
   if err != 0:
     raise RuntimeError(
         "conv direct kernel launch failed with CUDA error %d (b=%d, s=%d, "
-        "cpx=%d, R=%d%s)" % (err, b, geo["s"], geo["cpx"], geo["r"],
-                             "" if words is None else ", early stop"))
+        "cpx=%d, R=%d, mxu=%s%s)" % (err, b, geo["s"], geo["cpx"], geo["r"],
+                                     mxu, "" if words is None
+                                     else ", early stop"))
   launches += 1
+  tier_launches += tier != 0
   if iters is not None:
     last_iters = iters
   return old

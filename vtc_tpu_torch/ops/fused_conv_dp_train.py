@@ -42,19 +42,25 @@ once per iteration, which sums the rank's one-float share with
 decides, so every rank stops at the same count, as vtc_tpu's one slot
 all-reduce an iteration.  At a world of one there is no hook.
 ``last_iters`` (a private test hook) is the int32 device tensor of the
-last stopped segment's counts, one a step.  The ``mxu`` tiers other than
-'highest' raise NotImplementedError (ROADMAP.md §1 item 3a.2.2).
-``launches`` counts the train steps the kernel ran.
+last stopped segment's counts, one a step.  ``mxu`` is the solves' tier
+(vtc_tpu's, :129-134, the tile solver of K12 and K13): each step's corr,
+synthesis and analysis at the tier on conv_gemm_tier.cuh's bf16
+tensor-core GEMM, the weights split once a step; the statistics, their
+sum over the ranks, the stop's share and the update stay fp32.
+``launches`` counts the train steps the kernel ran, ``tier_launches``
+those at a tier.
 """
 import ctypes
 
 import torch
 
 from vtc_tpu_torch.ops import conv_shapes, fused_conv_direct, fused_conv_train
+from vtc_tpu_torch.ops.precision import resolve_tier
 from vtc_tpu_torch.ops.sum_hook import StopHook, SumHook
 from vtc_tpu_torch.parallel import data_parallel
 
 launches = 0
+tier_launches = 0
 last_iters = None  # int32 device tensor (k,): the last stopped segment's
 
 
@@ -65,12 +71,12 @@ def fused_conv_dp_train_plain(dictionary, hessian, eigvec, batches,
                               upd_num_iters=1, nonneg=False, hard=False,
                               renormalize=True, power_iters=12,
                               lowest_code_val=0.001, precision=None,
-                              early_stopping_epsilon=None):
+                              early_stopping_epsilon=None, mxu="highest"):
   """The plain PyTorch version of the segment, on any device and in the
   inputs' own float type (float64 inputs give the oracle): per batch K13's
   plain version, the sum over ``mesh`` and the replicated update.
-  ``precision`` is the matmul precision of the solve (default 'highest');
-  ``early_stopping_epsilon`` the solve's stop test on the mean over the
+  ``precision`` is the matmul precision of the solve (default 'highest'),
+  ``mxu`` its tier; ``early_stopping_epsilon`` the solve's stop test on the mean over the
   ranks (ops/solver.py with ``psum_axes=mesh``: with the equal shards
   every rank takes, the global batch's mean), so every rank stops at the
   same iteration."""
@@ -83,7 +89,7 @@ def fused_conv_dp_train_plain(dictionary, hessian, eigvec, batches,
         kernel_stride=kernel_stride, padding=padding, variant=variant,
         nonneg=nonneg, hard=hard, power_iters=power_iters, gram_stats=gram,
         precision=precision, early_stopping_epsilon=early_stopping_epsilon,
-        psum_axes=mesh)
+        psum_axes=mesh, mxu=mxu)
     codes, stats, v = out[0], out[1:-2], out[-2]
     d, h = data_parallel.conv_replicated_update(
         mesh, d, h, stats, batch.shape, upd_stepsize, upd_num_iters,
@@ -123,8 +129,8 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
       ``upd_num_iters`` (ValueError otherwise, on any device).
     variant / update_alg / upd_num_iters / nonneg / hard / renormalize /
       power_iters / lowest_code_val: as in vtc_tpu.
-    mxu: 'highest' only (NotImplementedError otherwise, ROADMAP.md §1
-      item 3a.2.2).
+    mxu: the solves' tier, 'highest' (IEEE fp32), 'bf16x5', 'bf16x3' or
+      'bf16' ('default').
     early_stopping_epsilon: optional; each step's solve stops after the
       first iteration k > 0 whose mean |codes_k - codes_{k-1}| / eta over
       the global batch is below it, on every rank at the same count.
@@ -139,10 +145,7 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
   if update_alg not in fused_conv_train.UPDATE_ALGS:
     raise ValueError("update_alg must be one of %s"
                      % (fused_conv_train.UPDATE_ALGS,))
-  if mxu != "highest":
-    raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.2"
-        % (mxu,))
+  mxu = resolve_tier(mxu)
 
   def require(cond, message):
     if not cond:
@@ -169,7 +172,7 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
     return fused_conv_dp_train_plain(
         dictionary, hessian, eigvec, batches, float(sparsity_weight),
         int(inf_num_iters), float(upd_stepsize), mesh=mesh,
-        early_stopping_epsilon=early_stopping_epsilon, **flags)
+        early_stopping_epsilon=early_stopping_epsilon, mxu=mxu, **flags)
   require(batches.device.type == "cuda",
           "tensors must be on the CPU or a CUDA device, got "
           + str(batches.device))
@@ -193,7 +196,7 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
       dstk.clone(), hessian.contiguous().clone(), eigvec.contiguous().clone(),
       xblk, mblk, supp, geo, k, mesh, float(sparsity_weight),
       int(inf_num_iters), float(upd_stepsize), eps=early_stopping_epsilon,
-      **{key: flags[key] for key in (
+      mxu=mxu, **{key: flags[key] for key in (
           "variant", "update_alg", "upd_num_iters", "nonneg", "hard",
           "renormalize", "power_iters", "lowest_code_val")})
   kernels = fused_conv_direct.unpack_dstk(d, geo, dictionary.shape)
@@ -202,15 +205,19 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
 
 def _launch(dstk, h, v, xblk, mblk, supp, geo, k, mesh, lam, num_iters,
             upd_step, *, variant, update_alg, upd_num_iters, nonneg, hard,
-            renormalize, power_iters, lowest_code_val, eps=None):
+            renormalize, power_iters, lowest_code_val, eps=None,
+            mxu="highest"):
   """Allocate the scratch and the packed statistics, and enqueue the k
   steps on the current stream, the sum over the ranks between each step's
   statistics and its update; eps the early stop's threshold (None:
-  none), its share summed over the ranks once per solver iteration."""
-  global launches, last_iters
+  none), its share summed over the ranks once per solver iteration; mxu
+  the resolved tier."""
+  global launches, tier_launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   device = dstk.device
+  tier, planes = fused_conv_direct.tier_scratch(
+      lib, mxu, geo, device, "fused_conv_dp_train_segment")
   b = xblk.shape[0] // k
   s, cpx, r = geo["s"], geo["cpx"], geo["r"]
   rs = r * s
@@ -250,14 +257,18 @@ def _launch(dstk, h, v, xblk, mblk, supp, geo, k, mesh, lam, num_iters,
         f32(1.0 / (b * mesh.size * s * ch * cw)),
         fused_conv_direct.ptr(words), fused_conv_direct.ptr(iters),
         fused_conv_direct.ptr(local),
-        None if stop_hook is None else stop_hook.pointer, stream)
+        None if stop_hook is None else stop_hook.pointer, tier,
+        fused_conv_direct.ptr(planes), stream)
   what = ("data-parallel conv segment launch (k=%d, b=%d, s=%d, cpx=%d, "
-          "R=%d, gram form %s%s)" % (k, b, s, cpx, r, gram,
-                                    "" if words is None else ", early stop"))
+          "R=%d, gram form %s, mxu=%s%s)" % (
+              k, b, s, cpx, r, gram, mxu,
+              "" if words is None else ", early stop"))
   if stop_hook is not None:
     stop_hook.check(0, what)
   hook.check(err, what)
   launches += k
+  if tier:
+    tier_launches += k
   if iters is not None:
     last_iters = iters
   return dstk, h, v, old

@@ -22,9 +22,10 @@ gate turns away.  ``early_stopping_epsilon`` runs the batch-global stop
 test on the card as K10 does (csrc/conv_gemm.cuh, "The early stop"): the
 interior launch decides on the device and every launch after a stop
 returns at entry; ``last_iters`` (a private test hook) is the int32 device
-tensor of the last stopped launch's count.  Scope: only the 'highest'
-tier (ROADMAP.md §1 item 3a.2.2).  ``launches`` counts solves launched on
-the card.
+tensor of the last stopped launch's count.  K11 has no precision tier, as
+vtc_tpu's has none: ``mxu`` other than 'highest' raises ValueError (the
+tiers run on K10's geometry, ops/fused_conv_direct).  ``launches`` counts
+solves launched on the card.
 """
 import ctypes
 
@@ -111,12 +112,17 @@ def _require(cond, message):
 def fused_conv_fista_solve(images, dictionary, sparsity_weight, num_iters,
                            stepsize, *, kernel_stride, padding,
                            initial_codes=None, variant="fista", nonneg=False,
-                           hard=False, early_stopping_epsilon=None):
+                           hard=False, early_stopping_epsilon=None,
+                           mxu="highest"):
   """Conv LASSO codes through the K11 kernel; the arguments and result
   are those of ``fused_conv_direct.fused_conv_direct_solve``, for any
-  stride-exact geometry."""
+  stride-exact geometry, at 'highest' only (``mxu``: K11 has no tier, as
+  vtc_tpu's has none; ValueError otherwise)."""
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
+  _require(mxu == "highest",
+           "mxu=%r: K11, the gram-form conv kernel, has no precision tier, "
+           "as vtc_tpu's has none; the tiers run on K10's geometry" % (mxu,))
   kernel_stride = tuple(int(x) for x in kernel_stride)
   padding = conv_shapes.normalize_padding(padding)
   if images.device.type == "cpu":

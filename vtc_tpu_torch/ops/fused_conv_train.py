@@ -33,10 +33,14 @@ counterpart.  ``early_stopping_epsilon`` runs each step's solve with
 vtc_tpu's batch-global stop test (:320-344) on the card, decided on the
 device (csrc/conv_gemm.cuh, "The early stop"); ``last_iters`` (a private
 test hook) is the int32 device tensor of the last stopped segment's
-counts, one a step.  Left out: the TPU knobs ``batch_tile`` and
-``interpret``; the ``mxu`` tiers other than 'highest' raise
-NotImplementedError (ROADMAP.md §1 item 3a.2.2).  ``launches`` counts the
-train steps the kernels ran.
+counts, one a step.  ``mxu`` is vtc_tpu's tier of the tile solver's
+products (``_make_deep_dot``, :240-300): at 'bf16x5', 'bf16x3' or 'bf16'
+each step's corr, synthesis and analysis run at the tier (on the card
+conv_gemm_tier.cuh's bf16 tensor-core GEMM, the weights split once a
+step; in the plain version ``fused_conv_direct.conv_deep_dot``); the Gram,
+the power refresh, the Hessian EMA and the update stay fp32.  Left out:
+the TPU knobs ``batch_tile`` and ``interpret``.  ``launches`` counts the
+train steps the kernels ran, ``tier_launches`` those at a tier.
 
 Also here, the port of TPU kernel K13, ``conv_solve_stats_pallas``
 (pallas_conv_train.py:840-971, kernel ``_make_stats_kernel`` :776): one
@@ -47,9 +51,11 @@ sum and the Hessian statistic, or with ``gram_stats`` the packed pair
 (bx, cm) from which the gradient at any dictionary follows.  A CUDA tensor
 runs ``vtc_conv_solve_stats`` of the same ``.cu`` file (whose first half
 is K12's own) or raises; a CPU tensor runs ``conv_solve_stats_plain``.
-``stats_launches`` counts the steps that kernel ran;
-``conv_solve_stats_supported`` is the data-parallel trainer's gate, for
-K13's composition and K17 (ops/fused_conv_dp_train) alike.
+K13's ``mxu`` is K12's: the solve at the tier, the statistics fp32
+(vtc_tpu :829-833).  ``stats_launches`` counts the steps that kernel ran,
+``stats_tier_launches`` those at a tier; ``conv_solve_stats_supported``
+is the data-parallel trainer's gate, for K13's composition and K17
+(ops/fused_conv_dp_train) alike.
 """
 import ctypes
 
@@ -60,10 +66,12 @@ from vtc_tpu_torch.dict_update_rules.convolutional import (
 from vtc_tpu_torch.dict_update_rules.convolutional import (
     sc_steepest_descent as conv_sd)
 from vtc_tpu_torch.ops import conv_shapes, fused_conv_direct, lipschitz
-from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.precision import matmul_precision, resolve_tier
 
 launches = 0
+tier_launches = 0
 stats_launches = 0
+stats_tier_launches = 0
 last_iters = None  # int32 device tensor (k,): the last stopped segment's
 
 UPDATE_ALGS = ("sc_steepest_descent", "sc_cheap_quadratic_descent")
@@ -141,14 +149,14 @@ def fused_conv_train_plain(dictionary, hessian, eigvec, batches,
                            renormalize=True, power_iters=12,
                            lowest_code_val=0.001,
                            early_stopping_epsilon=None, precision=None,
-                           return_stepsize=False):
+                           return_stepsize=False, mxu="highest"):
   """The plain PyTorch version of the fused conv segment, on any device
   and in the inputs' own float type (float64 inputs give the oracle).
 
   ``precision`` is the matmul precision of the solve and the update
   (default 'highest'); 'tensorfloat32' shows what TF32 products would
-  cost.  The power refresh always runs at 'highest', as in every tier of
-  the TPU kernel.
+  cost.  ``mxu`` is the solve's tier (float32 inputs).  The power refresh
+  always runs at 'highest', as in every tier of the TPU kernel.
   """
   kernel_stride = tuple(int(x) for x in kernel_stride)
   padding = conv_shapes.normalize_padding(padding)
@@ -163,7 +171,8 @@ def fused_conv_train_plain(dictionary, hessian, eigvec, batches,
         batch, d, sparsity_weight, inf_num_iters, eta,
         kernel_stride=kernel_stride, padding=padding, variant=variant,
         nonneg=nonneg, hard=hard,
-        early_stopping_epsilon=early_stopping_epsilon, precision=precision)
+        early_stopping_epsilon=early_stopping_epsilon, precision=precision,
+        mxu=mxu)
     mask = conv_shapes.create_mask(batch.shape, padding, batch.dtype,
                                    batch.device)
     if update_alg == "sc_cheap_quadratic_descent":
@@ -210,7 +219,8 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
     variant / update_alg / upd_num_iters / nonneg / hard / renormalize /
       power_iters / lowest_code_val: as in vtc_tpu (power_iters 12 is the
       robust default; the trainer passes 2 from an exact seed).
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2.2).
+    mxu: the solves' tier, 'highest' (IEEE fp32), 'bf16x5', 'bf16x3' or
+      'bf16' ('default').
     early_stopping_epsilon: optional; each step's solve stops after the
       first iteration k > 0 whose mean |codes_k - codes_{k-1}| / eta is
       below it (the batch-global test, decided on the device).
@@ -226,10 +236,7 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
     raise ValueError("variant must be 'ista' or 'fista'")
   if update_alg not in UPDATE_ALGS:
     raise ValueError("update_alg must be one of %s" % (UPDATE_ALGS,))
-  if mxu != "highest":
-    raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.2"
-        % (mxu,))
+  mxu = resolve_tier(mxu)
   _require(batches.dim() == 5 and batches.shape[0] >= 1,
            "batches must be (k, b, c, H, W) with k >= 1, got %s"
            % (tuple(batches.shape),))
@@ -245,7 +252,7 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
         dictionary, hessian, eigvec, batches, float(sparsity_weight),
         int(inf_num_iters), float(upd_stepsize),
         early_stopping_epsilon=early_stopping_epsilon,
-        return_stepsize=return_stepsize, **flags)
+        return_stepsize=return_stepsize, mxu=mxu, **flags)
   _require(batches.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(batches.device))
@@ -277,7 +284,7 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
       dstk.clone(), hessian.contiguous().clone(),
       eigvec.contiguous().clone(), xblk, mblk, supp, geo, k,
       float(sparsity_weight), int(inf_num_iters), float(upd_stepsize),
-      eps=early_stopping_epsilon,
+      eps=early_stopping_epsilon, mxu=mxu,
       **{key: flags[key] for key in (
           "variant", "update_alg", "upd_num_iters", "nonneg", "hard",
           "renormalize", "power_iters", "lowest_code_val")})
@@ -307,13 +314,15 @@ def segment_inputs(dictionary, batches, padding, geo):
 
 def _launch(dstk, h, v, xblk, mblk, supp, geo, k, lam, num_iters, upd_step,
             *, variant, update_alg, upd_num_iters, nonneg, hard, renormalize,
-            power_iters, lowest_code_val, eps=None):
+            power_iters, lowest_code_val, eps=None, mxu="highest"):
   """Allocate the scratch and enqueue the k steps on the current stream;
-  eps the early stop's threshold (None: none)."""
-  global launches, last_iters
+  eps the early stop's threshold (None: none), mxu the resolved tier."""
+  global launches, tier_launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   device = dstk.device
+  tier, planes = fused_conv_direct.tier_scratch(
+      lib, mxu, geo, device, "fused_conv_train_segment")
   b = xblk.shape[0] // k
   s, cpx, r = geo["s"], geo["cpx"], geo["r"]
   bh, bw, ch, cw = geo["bh"], geo["bw"], geo["code_h"], geo["code_w"]
@@ -343,13 +352,17 @@ def _launch(dstk, h, v, xblk, mblk, supp, geo, k, lam, num_iters, upd_step,
         img.data_ptr(), corr.data_ptr(), z.data_ptr(), old.data_ptr(),
         partial.data_ptr(), grad.data_ptr(), f32(eps),
         f32(1.0 / (b * s * ch * cw)), fused_conv_direct.ptr(words),
-        fused_conv_direct.ptr(iters), stream)
+        fused_conv_direct.ptr(iters), tier, fused_conv_direct.ptr(planes),
+        stream)
   if err != 0:
     raise RuntimeError(
         "fused conv train step launch failed with CUDA error %d (k=%d, "
-        "b=%d, s=%d, cpx=%d, R=%d%s)" % (
-            err, k, b, s, cpx, r, "" if words is None else ", early stop"))
+        "b=%d, s=%d, cpx=%d, R=%d, mxu=%s%s)" % (
+            err, k, b, s, cpx, r, mxu,
+            "" if words is None else ", early stop"))
   launches += k
+  if tier:
+    tier_launches += k
   if iters is not None:
     last_iters = iters
   return dstk, h, v, old, eta
@@ -359,15 +372,16 @@ def conv_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
                            inf_num_iters, *, kernel_stride, padding,
                            variant="fista", nonneg=False, hard=False,
                            power_iters=12, gram_stats=False, precision=None,
-                           early_stopping_epsilon=None, psum_axes=None):
+                           early_stopping_epsilon=None, psum_axes=None,
+                           mxu="highest"):
   """The plain PyTorch version of ``conv_solve_stats``, on any device and
   in the inputs' own float type: ``lipschitz.power_iterate`` on the flat
   kernels -> ``fused_conv_direct_plain`` -> the block statistics of
   ``fused_conv_direct.build_block_update_stats`` (the composition of
   vtc_tpu's tests/test_pallas_conv_train.py:180-215).  ``precision`` is
   the matmul precision of the solve ('tensorfloat32' shows what TF32
-  products would cost); the refresh and the statistics stay at
-  'highest', as in every tier of the TPU kernel (:829-833).
+  products would cost), ``mxu`` its tier; the refresh and the statistics
+  stay at 'highest', as in every tier of the TPU kernel (:829-833).
   ``early_stopping_epsilon`` and ``psum_axes`` are the solve's stop test
   over the ranks, which K17's plain version takes through this function
   (K13 itself has none)."""
@@ -381,7 +395,8 @@ def conv_solve_stats_plain(dictionary, eigvec, batch, sparsity_weight,
       batch, dictionary, sparsity_weight, inf_num_iters, eta,
       kernel_stride=kernel_stride, padding=padding, variant=variant,
       nonneg=nonneg, hard=hard, precision=precision,
-      early_stopping_epsilon=early_stopping_epsilon, psum_axes=psum_axes)
+      early_stopping_epsilon=early_stopping_epsilon, psum_axes=psum_axes,
+      mxu=mxu)
   stats = fused_conv_direct.build_block_update_stats(
       batch, codes, dictionary.shape, kernel_stride, padding)
   stat = torch.sum(codes * codes, dim=(0, 2, 3))
@@ -418,9 +433,10 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
       ``conv_solve_stats_supported``, and with ``gram_stats`` also
       ``gram_stats_supported`` (ValueError otherwise, on any device).
     variant / nonneg / hard / power_iters: as in vtc_tpu.
-    mxu: 'highest' only (ROADMAP.md §1 item 3a.2.2); early_stopping_epsilon:
-      None only (vtc_tpu's kernel has no stop test; vtc_tpu's
-      data-parallel stop is K17's).  Both raise NotImplementedError.
+    mxu: the solve's tier, 'highest' (IEEE fp32), 'bf16x5', 'bf16x3' or
+      'bf16' ('default'); the statistics stay fp32.
+    early_stopping_epsilon: None only (vtc_tpu's kernel has no stop test;
+      vtc_tpu's data-parallel stop is K17's): NotImplementedError.
 
   Returns:
     gram_stats False: (codes (b, s, ch, cw), grad_sum (s, c, kh, kw), stat
@@ -434,10 +450,7 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
   """
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
-  if mxu != "highest":
-    raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.2"
-        % (mxu,))
+  mxu = resolve_tier(mxu)
   if early_stopping_epsilon is not None:
     raise NotImplementedError(
         "conv_solve_stats has no early stop, as vtc_tpu's K13 has none; "
@@ -462,7 +475,7 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
         dictionary, eigvec, batch, float(sparsity_weight), int(inf_num_iters),
         kernel_stride=kernel_stride, padding=padding, variant=variant,
         nonneg=bool(nonneg), hard=bool(hard), power_iters=int(power_iters),
-        gram_stats=bool(gram_stats))
+        gram_stats=bool(gram_stats), mxu=mxu)
   require(batch.device.type == "cuda",
           "tensors must be on the CPU or a CUDA device, got "
           + str(batch.device))
@@ -490,7 +503,7 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
       dstk, eigvec.contiguous().clone(), xblk, mblk, geo,
       float(sparsity_weight), int(inf_num_iters), variant=variant,
       nonneg=bool(nonneg), hard=bool(hard), power_iters=int(power_iters),
-      gram_stats=bool(gram_stats))
+      gram_stats=bool(gram_stats), mxu=mxu)
   if gram_stats:
     return codes, out, cm, stat, v, eta
   grad_sum = fused_conv_direct.unpack_dstk(out, geo, dictionary.shape)
@@ -498,13 +511,15 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
 
 
 def _launch_stats(dstk, v, xblk, mblk, geo, lam, num_iters, *, variant,
-                  nonneg, hard, power_iters, gram_stats):
+                  nonneg, hard, power_iters, gram_stats, mxu="highest"):
   """Allocate the scratch and enqueue one shard's step on the current
-  stream."""
-  global stats_launches
+  stream; mxu the resolved tier."""
+  global stats_launches, stats_tier_launches
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   device = dstk.device
+  tier, planes = fused_conv_direct.tier_scratch(lib, mxu, geo, device,
+                                                "conv_solve_stats")
   b = xblk.shape[0]
   s, cpx, r = geo["s"], geo["cpx"], geo["r"]
   bh, bw, ch, cw = geo["bh"], geo["bw"], geo["code_h"], geo["code_w"]
@@ -529,10 +544,13 @@ def _launch_stats(dstk, v, xblk, mblk, geo, lam, num_iters, *, variant,
         power_iters, int(gram_stats), dall.data_ptr(), gram.data_ptr(),
         eta.data_ptr(), img.data_ptr(), corr.data_ptr(), z.data_ptr(),
         old.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        None if cm is None else cm.data_ptr(), stat.data_ptr(), stream)
+        None if cm is None else cm.data_ptr(), stat.data_ptr(), tier,
+        fused_conv_direct.ptr(planes), stream)
   if err != 0:
     raise RuntimeError(
         "conv solve+stats launch failed with CUDA error %d (b=%d, s=%d, "
-        "cpx=%d, R=%d, gram_stats=%s)" % (err, b, s, cpx, r, gram_stats))
+        "cpx=%d, R=%d, gram_stats=%s, mxu=%s)" % (err, b, s, cpx, r,
+                                                 gram_stats, mxu))
   stats_launches += 1
+  stats_tier_launches += tier != 0
   return old, out, cm, stat, v, eta.reshape(())

@@ -113,19 +113,17 @@ same dictionary.
   metrics; reset/prune takes rank 0's draw on every rank.
 
 'train_precision' ('highest', 'bf16x5', 'bf16x3', 'bf16') is the tier of
-the fused fc and subspace runners (vtc_tpu :453-474): the single-device
-K2 and K6, and with 'data_parallel' the whole-segment K15 and K16 and the
-'dcn' mesh's composition of K3 and K7.  Their solves run it, the Gram,
+the fused runners (vtc_tpu :453-474): the single-device K2, K6 and K12,
+and with 'data_parallel' the whole-segment K15, K16 and K17 and the 'dcn'
+mesh's composition of K3, K7 and K13.  Their solves run it, the Gram,
 refresh, statistics and update stay fp32.  As in vtc_tpu, a configuration
 that resolves to a per-step runner (the psum-per-op step among them)
 keeps full precision; on the CPU the fused runners' plain versions run a
 tier where 'fc_formulation' is 'pallas' and the power is warm.  The
 code-sharded runner's K19 refuses a tier (ROADMAP.md §1 item 3a.2.4).
 
-Raise NotImplementedError, each naming its ROADMAP.md §1 item:
-'hbm_chunk_steps' streaming (item 8), and 'train_precision' other than
-'highest' in convolutional mode (item 3a.2.2), with data parallelism or
-not.  Every segment kernel stops its solves on the
+Raise NotImplementedError naming its ROADMAP.md §1 item: 'hbm_chunk_steps'
+streaming (item 8).  Every segment kernel stops its solves on the
 device with 'early_stopping_epsilon': the single-device K2, K6 and K12
 (and K1 or K10 in the per-step route), the data-parallel K15, K16 and K17
 and the code-sharded K19, the last four over the global batch.
@@ -208,11 +206,12 @@ def _fused_group_segment_runner(variant, update_alg, upd_niters, hard,
 
 def _fused_conv_segment_runner(variant, update_alg, upd_niters, nonneg,
                                hard, renormalize, kernel_stride, padding,
-                               early_eps=None):
+                               early_eps=None, mxu="highest"):
   """The conv counterpart of ``_fused_segment_runner``: the whole segment
   through the fused conv train kernels in stride-block space, warm
   tracking at power_iters=2; ``early_eps`` each solve's batch-global stop
-  test, in the kernels (vtc_tpu :835-841)."""
+  test, in the kernels (vtc_tpu :835-841); ``mxu`` the solves' tier
+  (vtc_tpu :1235-1243)."""
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
     dictionary, hessian, eigvec, _ = fused_conv_train.fused_conv_train_segment(
@@ -220,7 +219,7 @@ def _fused_conv_segment_runner(variant, update_alg, upd_niters, nonneg,
         kernel_stride=kernel_stride, padding=padding, variant=variant,
         update_alg=update_alg, upd_num_iters=upd_niters, nonneg=nonneg,
         hard=hard, renormalize=renormalize, power_iters=2,
-        early_stopping_epsilon=early_eps)
+        early_stopping_epsilon=early_eps, mxu=mxu)
     return dictionary, hessian, eigvec
 
   return run
@@ -276,12 +275,13 @@ def _code_shard_segment_runner(mesh, cs_size, data_size, variant,
 
 def _dp_conv_segment_runner(mesh, variant, update_alg, upd_niters, nonneg,
                             hard, renormalize, kernel_stride, padding,
-                            early_eps=None):
+                            early_eps=None, mxu="highest"):
   """vtc_tpu's ``_dp_rdma_conv_segment_runner``: this rank's shards of the
   whole segment through the data-parallel conv segment kernels (K17), the
   statistics summed over ``mesh`` once per step, warm tracking at
   power_iters=2; ``early_eps`` each solve's stop test over the global
-  batch, its share summed over ``mesh`` once per iteration."""
+  batch, its share summed over ``mesh`` once per iteration; ``mxu`` the
+  solves' tier (vtc_tpu :1160-1162)."""
 
   def run(dictionary, hessian, eigvec, batches, sw, n_it, upd_step):
     dictionary, hessian, eigvec, _ = (
@@ -290,7 +290,7 @@ def _dp_conv_segment_runner(mesh, variant, update_alg, upd_niters, nonneg,
             mesh=mesh, kernel_stride=kernel_stride, padding=padding,
             variant=variant, update_alg=update_alg, upd_num_iters=upd_niters,
             nonneg=nonneg, hard=hard, renormalize=renormalize,
-            power_iters=2, early_stopping_epsilon=early_eps))
+            power_iters=2, early_stopping_epsilon=early_eps, mxu=mxu))
     return dictionary, hessian, eigvec
 
   return run
@@ -401,10 +401,6 @@ def train_dictionary_scanned(training_batches, validation_batches,
   if train_precision not in TIERS:
     raise ValueError("train_precision must be one of %s, got %r"
                      % (TIERS, train_precision))
-  if train_precision != "highest" and mode == "convolutional":
-    raise NotImplementedError(
-        "train_precision=%r in convolutional mode: the conv tiers wait, "
-        "ROADMAP.md §1 item 3a.2.2" % (train_precision,))
   if all_params.get("hbm_chunk_steps") is not None:
     raise NotImplementedError(
         "hbm_chunk_steps (streaming an epoch larger than device memory) "
@@ -459,7 +455,7 @@ def train_dictionary_scanned(training_batches, validation_batches,
   kernels_route = (conv_formulation in ("auto", "pallas")
                    if mode == "convolutional"
                    else resolved_formulation == "pallas")
-  # the tier runs in the fused segment runners (K2, K6), as vtc_tpu's
+  # the tier runs in the fused segment runners (K2, K6, K12), as vtc_tpu's
   # runs in its fused kernels only; on the CPU their plain versions take
   # a tier where a card would run the kernels
   use_fused = ((device.type == "cuda" or train_precision != "highest")
@@ -561,7 +557,8 @@ def train_dictionary_scanned(training_batches, validation_batches,
       if whole_mesh and mode == "convolutional":
         return _dp_conv_segment_runner(
             dp_mesh, inference_alg, update_alg, upd_niters, nonneg, hard,
-            renormalize, kernel_stride, padding, early_eps), True
+            renormalize, kernel_stride, padding, early_eps,
+            mxu=train_precision), True
       if whole_mesh and group_assignments is None:
         return _dp_fc_segment_runner(
             dp_mesh, inference_alg, update_alg, upd_niters, nonneg, hard,
@@ -626,7 +623,8 @@ def train_dictionary_scanned(training_batches, validation_batches,
         return _fused_conv_segment_runner(inference_alg, update_alg,
                                           upd_niters, nonneg, hard,
                                           renormalize, kernel_stride,
-                                          padding, early_eps)
+                                          padding, early_eps,
+                                          mxu=train_precision)
       return _segment_runner(raw_step, upd_niters, warm_power, lip_matrix)
     if use_fused and group_assignments is None:
       return _fused_segment_runner(inference_alg, update_alg, upd_niters,
