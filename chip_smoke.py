@@ -77,8 +77,8 @@ caught.
 The phases that check a refusal (a tier the kernels do not have yet, or
 K13's early stop, which vtc_tpu's K13 lacks too) require
 NotImplementedError and no launch of the kernel; phases 26 and 33 hold
-the tiers K3, K7, K15 and K16 refused before phase 47 to their plain
-versions instead.  CUDA_TESTS below maps
+the tiers K3, K7, K15 and K16 refused before phase 47, and K9 and K18
+refused before phase 49, to their plain versions instead.  CUDA_TESTS below maps
 each test marked cuda to the phases that make its check here.
 
 1. Device and build: requires CUDA (there is no CPU path), prints the
@@ -244,8 +244,9 @@ each test marked cuda to the phases that make its check here.
    plain version must fail the limit.  One identity each: the replicated
    update from K3's own statistics, (C D - B) / b, is K2's one-step
    output; K7's is K6's (also with the anti-alignment penalty 0.4); K9's
-   is K8's.  The tiers and the data-parallel early stop on the kernel
-   route must be refused.
+   is K8's.  A tier runs on each (K3 at bf16x3, K7 at bf16, K9 at
+   bf16x3) within the bound of its plain version at the tier (phases 47
+   and 49 hold the tiers to all three rules).
 27. A world of 1 through the normal entry points.  First a probe: whether
    torch.distributed has NCCL and a one-rank NCCL group initialises and
    reduces a device tensor (printed; with one, data_parallel=True inside
@@ -335,8 +336,9 @@ each test marked cuda to the phases that make its check here.
    125 at three update iterations, and a stale 1.35 X seed that fires the
    boost.  Every output at phase 2's limit, K18's residual at 1e-5; each
    wrapper must count one launch per step.  A TF32 control of each plain
-   version must fail the limit; the tiers and the early stop must be
-   refused with no launch.
+   version must fail the limit; a tier runs on each within the bound of
+   its plain version at the tier (phases 47 and 49 hold them to all three
+   rules).
 34. A world of 1 through the entry points: train_dictionary_scanned(
    data_parallel=True), fc and subspace, 1,000 steps each: 1,000 K15 / K16
    launches and no K3 / K7 or K2 / K6 launch, unit rows, the held-out loss
@@ -611,15 +613,18 @@ each test marked cuda to the phases that make its check here.
    version's count, bitwise the tier kernel without the stop at that
    count; K10 at b 40 (beyond vtc_tpu's one tile) refuses a tier with the
    stop.  (d) A world of 2, two processes of this script sharing the card
-   over gloo: the scanned conv trainer with data_parallel=True at bf16x3
-   and bf16 for 10 steps (K17 on shards of 20) without and with a mid-run
-   stop, and on make_mesh(dcn=2) at bf16x3 (K13's composition): both ranks
-   bitwise equal with the same counts, 10 tier steps a rank, the counts of
-   the world of 1, within the larger of DP_FLOOR, the tier's floor and the
-   world of 1's spread.  (e) The main path at each tier and at 'highest',
-   its tier counts zeroed before and read after: the conv encode_dataset
-   of phase 15 (8 K10 tier launches), one 200-step segment of phase 19's
-   scanned trainer (200 K12 tier steps) and with data_parallel=True (200
+   over gloo: K17 through the data-parallel conv trainer's runner at
+   bf16x3 and bf16 for 10 steps (shards of 20) without and with a mid-run
+   stop, and the scanned conv trainer on make_mesh(dcn=2) at bf16x3 (K13's
+   composition): both ranks bitwise equal with the same counts, 10 tier
+   steps a rank, the counts of the world of 1, within the larger of
+   DP_FLOOR, the tier's floor and the world of 1's spread.  (e) The main
+   path at each tier and at 'highest', its tier counts zeroed before and
+   read after: the conv encode_dataset of phase 15 (8 K10 tier launches),
+   one 200-step segment of phase 19's scanned trainer (200 K12 tier steps)
+   and with data_parallel=True, which runs K17 at 'highest' whatever the
+   tier, as vtc_tpu's trainer does (bitwise its 'highest' run), the
+   trainer's K17 runner called directly at the tier for 200 steps (200
    K17), the 'dcn' composition for 20 steps (20 K13); the kernels finite
    and unit norm within 1e-4, the held-out conv LASSO falling, printed
    beside 'highest''s; the images/s of each.  (f) In turns, each row's ms
@@ -629,6 +634,42 @@ each test marked cuda to the phases that make its check here.
    (the same solve with each pass one product of bf16 operands on the
    materialized stack; at 'highest' each product one cuDNN call; the
    median of 7 turns).
+49. The precision tiers of the ICA kernels K8, K9 and K18
+   (csrc/ica_segment.cuh's tier tile on the bf16 tensor cores: the
+   Newton-Schulz refreshes, the boost's and the codes at the tier, both
+   operands split per product; the guard residual, statistic and update
+   fp32), each call at the tier's boost tolerance (training/ica._TIERS).
+   (a) Three steps from the exact inverse at the flagship (n 256, b 250,
+   refine 3; phase 20's gapped mixtures of an orthogonal matrix, so no
+   code meets sign()'s discontinuity) of K8 on each route, forced, K9 on
+   a shard of 125 and K18 at a world of 1, each at each tier against its
+   plain version at the tier under phase 46's three rules (the spread
+   under five one-ulp nudges of both the batches and the dictionary, the
+   seed following the dictionary; phase 46's floors); the persistent
+   route bitwise the steps route at every tier; each call its tier
+   launches, a 'highest' call none.  (b) Planted: the kernel's result at
+   each other tier and at 'highest', and the plain version with TF32
+   products, in each tier's place, must fail.  (c) The boost: a stale seed
+   at each tier (1.35, 1.6, 1.9 times the inverse) takes the residual
+   above the tier's boost tolerance; the kernel and the plain version take
+   the same decision and the boosted residual falls below it.  (d) A world
+   of 2, two processes sharing the card over gloo: K18 at each tier for 10
+   steps, shards of 125: both ranks bitwise equal, 10 tier steps a rank,
+   within the larger of DP_FLOOR, the tier's floor and the world of 1's
+   spread of the world of 1.  (e) The main path at each tier and at
+   'highest', its tier counts zeroed before and read after: the scanned
+   ICA trainer at measure_ica(250, 2000) (phase 21's data and start:
+   2,000 K8 tier steps in one launch) and with data_parallel=True (2,000
+   K18), the 'dcn' composition for 50 steps (50 K9): no guard rollback at
+   bf16x5 and bf16x3, the held-out Laplace NLL falling at every tier, the
+   patches/s against 'highest'; a stepsize-40 run at each tier rolls back
+   onto the per-step path at the tier, bitwise its use_fused=False run.
+   (f) In turns, a K8 and a K18 step of a 100-step segment and a K9 shard
+   step at each tier against 'highest', the plain version's, the bound
+   (the tier's passes at 989 TFLOP/s beside the fp32 residual, statistic
+   and update at 67) and the library time (the step's passes, each one
+   torch.mm of bf16 operands with a float32 result; the median of 7
+   turns).
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -730,6 +771,8 @@ CUDA_TESTS = {
     "test_torch_port_dp_tiers.py::test_cuda_dp_segment_tiers_match_plain": (
         33, 47),
     "test_torch_port_conv_tiers.py::test_cuda_conv_tiers_match_plain": (48,),
+    "test_torch_port_ica_tiers.py::"
+    "test_cuda_ica_tiers_match_plain_on_both_routes": (49,),
 }
 
 
@@ -2158,8 +2201,8 @@ def dp_kernel_cases(torch, parallel, K2, K6, K8, ica, sub, lipschitz,
         torch, "K9 update == K8 step, upd %d" % upd,
         ("dictionary", "inverse", "residual"), dp, k8,
         [t.double() for t in k8], ilimits))
-  # the tiers on a CUDA tensor: K3 and K7 run them (phase 47 holds them
-  # to their plain versions at the flagship); K9's still wait
+  # the tiers on a CUDA tensor: K3, K7 and K9 run them (phases 47 and 49
+  # hold them to their plain versions at the flagship)
   xt = torch.tensor(train_patches[:TRAIN_BATCH // 2], device=dev)
   dt = torch.tensor(flag_d, device=dev)
   vt = lipschitz.top_gram_eigenpair(dt)[1].contiguous()
@@ -2174,8 +2217,11 @@ def dp_kernel_cases(torch, parallel, K2, K6, K8, ica, sub, lipschitz,
                   lambda xx, mxu: K6.fused_group_solve_stats_plain(
                       dt, vt, xx, LAM, 5, group_assignments=flag_g,
                       mxu=mxu), xt, K6, "stats_tier_launches", "bf16")
-  check_refuses("K9 mxu='bf16x3'", lambda: K8.ica_solve_stats(
-      d0, x0, xb, mxu="bf16x3"), "3a")
+  check_tier_runs(torch, "K9 mxu='bf16x3'", lambda xx, mxu: (
+      K8.ica_solve_stats(d0, x0, xx, mxu=mxu)),
+                  lambda xx, mxu: K8.ica_solve_stats_plain(d0, x0, xx,
+                                                           mxu=mxu),
+                  xb, K8, "stats_tier_launches", "bf16x3")
   return k3_err, k7_err, k9_err
 
 
@@ -2907,10 +2953,13 @@ def dp_segment_kernel_cases(torch, parallel, K15, K16, K8, sub, lipschitz,
   tf32_control(torch, "K18 plain", inames[:2], K8.fused_ica_dp_train_plain(
       mixing, x0, xi_, ICA_STEP, precision="tensorfloat32", **ikw)[:2],
                want64[:2])
-  before = K8.dp_launches
-  check_refuses("K18 mxu='bf16x3'", lambda: K8.fused_ica_dp_train_segment(
-      mixing, x0, xi_[:2], ICA_STEP, mxu="bf16x3", **ikw), "3a")
-  check(K8.dp_launches == before, "K18 mxu='bf16x3' launched K18")
+  check_tier_runs(torch, "K18 mxu='bf16x3'", lambda xx, mxu: (
+      K8.fused_ica_dp_train_segment(mixing, x0, xx, ICA_STEP, mxu=mxu,
+                                    **ikw)),
+                  lambda xx, mxu: K8.fused_ica_dp_train_plain(
+                      mixing, x0, xx, ICA_STEP, mxu=mxu, **ikw),
+                  xi_[:2].contiguous(), K8, "dp_tier_launches", "bf16x3",
+                  steps=2)
   return k15_err, k16_err, k18_err
 
 
@@ -5833,7 +5882,8 @@ def flat_cat(torch, out):
 def check_tier_runs(torch, label, run, plain, x, mod, counter, tier,
                     steps=1):
   """A tier one of K3, K7, K15 and K16 refused before phase 47 (phases 26
-  and 33), or one of K10, K13 and K17 before phase 48 (phases 13 and 30):
+  and 33), one of K10, K13 and K17 before phase 48 (phases 13 and 30), or
+  one of K9 and K18 before phase 49 (phases 26 and 33):
   run(x, mxu) launches its kernel at the tier, ``steps`` more on
   mod.<counter>, and stands within tier_verdict's bound of plain(x, mxu),
   the larger of the tier's floor and the plain version's spread under five
@@ -6593,6 +6643,24 @@ def conv_tier_dcn_runner(parallel, compiled_epoch, mesh, tier):
           power_iters=2, mxu=tier))
 
 
+def conv_tier_k17_runner(compiled_epoch, mesh, tier, eps=None):
+  """K17 at the tier through the data-parallel conv trainer's runner,
+  called directly (the trainer runs K17 at 'highest' whatever the tier,
+  as vtc_tpu's runs its psum-per-op step there): measure_conv(40, 25)'s
+  solve and cheap-quad update, the stop at ``eps``."""
+  return compiled_epoch._dp_conv_segment_runner(
+      mesh, "fista", "sc_cheap_quadratic_descent", 1, False, False, True,
+      (CONV_STRIDE, CONV_STRIDE), ((8, 8), (8, 8)), eps, mxu=tier)
+
+
+def conv_k17_seed(torch, d):
+  """(h, v): the runner's start, a zero Hessian and the exact eigenvector
+  seed of the flat kernels' Gram, as the trainer seeds them."""
+  from vtc_tpu_torch.ops import lipschitz
+  return (torch.zeros(CONV_S, device=d.device), lipschitz.top_gram_eigenpair(
+      d.reshape(CONV_S, -1))[1].contiguous())
+
+
 def conv_tier_world_runs():
   """(key, tier, with the stop, dcn) of the world of 2's runs."""
   runs = [("%s%s" % (tier, " stop" if stop else ""), tier, stop, 1)
@@ -6602,12 +6670,13 @@ def conv_tier_world_runs():
 
 def conv_tier_rank_main(rank, world, workdir):
   """The hidden sub-command: one rank of phase 48's world of 2.  Joins the
-  gloo group over the file store in ``workdir`` and runs the scanned conv
-  trainer with data_parallel=True (K17 on shards of 20) for
-  CONV_TIER_DP_STEPS steps at each tier of CONV_TIER_WORLD, without and
-  with the stop at the eps of inputs.npz, then on a mesh of two slices
-  (make_mesh(dcn=2): K13's composition) at bf16x3; saves each
-  dictionary, the counts and the tier launches to ``workdir``."""
+  gloo group over the file store in ``workdir`` and runs K17 on shards of
+  20 through the data-parallel conv trainer's runner
+  (conv_tier_k17_runner) for CONV_TIER_DP_STEPS steps at each tier of
+  CONV_TIER_WORLD, without and with the stop at the eps of inputs.npz,
+  then the scanned conv trainer on a mesh of two slices (make_mesh(dcn=2):
+  K13's composition) at bf16x3; saves each dictionary, the counts and the
+  tier launches to ``workdir``."""
   import os
   import torch
   import torch.distributed as dist
@@ -6632,11 +6701,17 @@ def conv_tier_rank_main(rank, world, workdir):
                     train_precision=tier,
                     data_parallel=(True if dcn == 1
                                    else parallel.make_mesh(dcn=dcn)))
-      if stop:
-        params["early_stopping_epsilon"] = float(data["eps " + tier])
+      eps = float(data["eps " + tier]) if stop else None
       setattr(mod, counter, 0)
-      got = compiled_epoch.train_dictionary_scanned(x, x[:1], data["d"],
-                                                    params, device=dev)
+      if dcn > 1:
+        got = compiled_epoch.train_dictionary_scanned(x, x[:1], data["d"],
+                                                      params, device=dev)
+      else:
+        mesh = parallel.make_mesh()
+        d = torch.tensor(data["d"], device=dev)
+        got = conv_tier_k17_runner(compiled_epoch, mesh, tier, eps)(
+            d, *conv_k17_seed(torch, d), mesh.shard(x, dim=1).contiguous(),
+            CONV_LAM, SEG_ITERS, SEG_STEP)[0]
       torch.cuda.synchronize()
       out[key + " dictionary"] = got.cpu().numpy()
       out[key + " launches"] = np.array(getattr(mod, counter))
@@ -6652,7 +6727,8 @@ def conv_tier_world_of_two(torch, compiled_epoch, parallel, lipschitz, K17,
                            seg, sd0):
   """(d) The world of 2 (conv_tier_rank_main in two processes of this
   script sharing the card over gloo, phase 45's launcher) against the
-  same trainer at a world of 1 on the whole batches: both ranks bitwise
+  same runner or trainer at a world of 1 on the whole batches: both ranks
+  bitwise
   equal with the same counts; CONV_TIER_DP_STEPS tier steps a rank; the
   counts of the world of 1 (a near eps reported apart); every dictionary
   within the larger of DP_FLOOR, the tier's floor and the world of 1's
@@ -6710,7 +6786,10 @@ def conv_tier_world_of_two(torch, compiled_epoch, parallel, lipschitz, K17,
     else:
 
       def one(x, dd):
-        return compiled_epoch.train_dictionary_scanned(x, x[:1], dd, params)
+        return conv_tier_k17_runner(
+            compiled_epoch, mesh1, tier, params.get("early_stopping_epsilon"))(
+                dd, *conv_k17_seed(torch, dd), x, CONV_LAM, SEG_ITERS,
+                SEG_STEP)[0]
     want = one(xs, sd0)
     single_counts = K17.last_iters.tolist() if stop else None
     moved = max(float((one(one_ulp_nudge(xs, seed),
@@ -6746,11 +6825,14 @@ def conv_tier_main_path(torch, mods, compiled_epoch, parallel,
   phase 15 (320 images in batches of 40, FISTA 100: 8 K10 tier launches);
   the scanned conv trainer at measure_conv(40, 25), one SEG_STEPS-step
   segment from phase 19's start (SEG_STEPS K12 tier steps), and with
-  data_parallel=True at a world of 1 (SEG_STEPS K17 tier steps); the
-  'dcn' composition for CONV_TIER_DCN_STEPS steps (K13).  Every
-  dictionary finite, its kernels unit norm within 1e-4, its held-out conv
-  LASSO falling; printed beside 'highest''s.  Returns ({(module name,
-  tier): tier launches}, {(entry, tier): images/s})."""
+  data_parallel=True at a world of 1, which runs K17 at 'highest' at every
+  tier as vtc_tpu's trainer does (no K17 tier launch; bitwise its
+  'highest' run); the trainer's K17 runner called directly at the tier
+  for SEG_STEPS steps (SEG_STEPS K17 tier steps); the 'dcn' composition
+  for CONV_TIER_DCN_STEPS steps (K13).  Every dictionary finite, its
+  kernels unit norm within 1e-4, its held-out conv LASSO falling; printed
+  beside 'highest''s.  Returns ({(module name, tier): tier launches},
+  {(entry, tier): images/s})."""
   K10, K12, K17 = mods
   counters = (("K10", K10, "tier_launches"), ("K12", K12, "tier_launches"),
               ("K13", K12, "stats_tier_launches"),
@@ -6765,7 +6847,7 @@ def conv_tier_main_path(torch, mods, compiled_epoch, parallel,
   # one untimed encode first: the first call's set-up is no tier's cost
   encode_dataset(cimages[:CONV_BATCH], conv_d, CONV_LAM, CONV_ITERS,
                  **conv_kw)
-  counts, rates, losses = {}, {}, {}
+  counts, rates, losses, dp_runs = {}, {}, {}, {}
   for tier in ("highest",) + TIER_NAMES:
     for _, mod, counter in counters:
       setattr(mod, counter, 0)
@@ -6786,6 +6868,11 @@ def conv_tier_main_path(torch, mods, compiled_epoch, parallel,
       trained = compiled_epoch.train_dictionary_scanned(seg, held[None], sd0,
                                                         params)
       torch.cuda.synchronize()
+      if dp:
+        dp_runs[tier] = trained
+        check(torch.equal(trained, dp_runs["highest"]), "the data-parallel "
+              "conv trainer at %s differs from its 'highest' run: K17 runs "
+              "'highest' at every tier" % tier)
       kind = "data-parallel trainer" if dp else "trainer"
       rates[kind, tier] = SEG_STEPS * SEG_BATCH / (time.perf_counter() - t0)
       norm_err = float((torch.linalg.vector_norm(
@@ -6804,7 +6891,11 @@ def conv_tier_main_path(torch, mods, compiled_epoch, parallel,
            dp_tier_seed(sd0.reshape(CONV_S, -1)),
            seg[:CONV_TIER_DCN_STEPS].contiguous(), CONV_LAM, SEG_ITERS,
            SEG_STEP)
+    k17 = conv_tier_k17_runner(compiled_epoch, mesh1, tier)(
+        sd0, *conv_k17_seed(torch, sd0), seg, CONV_LAM, SEG_ITERS, SEG_STEP)[0]
     torch.cuda.synchronize()
+    check(bool(torch.isfinite(k17).all()), "K17's runner at %s: non-finite "
+          "kernels" % tier)
     for name, mod, counter in counters:
       counts[name, tier] = getattr(mod, counter)
     print("conv tier main path %s: tier launches K10 %d, K12 %d, K13 %d, "
@@ -6945,6 +7036,509 @@ def conv_tier_phase(torch, dev, card, mods, cimages, conv_d, cpad, x5, d5,
         "failed" % (time.perf_counter() - t0, world2_s, len(planted)))
   return dict(errs=errs, planted=planted, stops=stops, counts=counts,
               times=times, world2=world2, rates=rates)
+
+
+# ---------------------------------------------------------------------------
+# phase 49: the precision tiers of the ICA kernels (K8, K9, K18;
+# csrc/ica_segment.cuh's tier tile)
+# ---------------------------------------------------------------------------
+ICA_TIER_STEPS = 3          # the steps of each kernel case
+ICA_TIER_SHARD = 125        # K9's shard, and each rank's at a world of 2
+ICA_TIER_DP_STEPS = 10      # the world-of-2 runs
+ICA_TIER_K9_STEPS = 50      # the 'dcn' composition on the main path (K9)
+ICA_TIER_WRECK_STEPS = 3    # the stepsize-40 runs
+ICA_TIER_TIME_STEPS = 100   # the steps of each timed K8 / K18 segment
+ICA_TIER_CHILD_TIMEOUT = 600  # seconds a rank of phase 49 may take
+# stale seeds c X whose residual after three refreshes, (c - 1)^8 (2.3e-4,
+# 1.7e-2, 0.43), is 2-6x above each tier's boost tolerance (1e-4, 3e-3,
+# 0.25), and after the boost's two more, (c - 1)^32, below it
+ICA_TIER_STALE = {"bf16x5": 1.35, "bf16x3": 1.6, "bf16": 1.9}
+# phase 49's floors of tier_verdict's bound: phase 46's.  A case's values
+# (D and X of an orthogonal n 256 dictionary, entries about 0.06, at most
+# about 0.3; K9's statistic, sums over 125 codes) put max(1, |largest|)
+# at 1 for K8 and K18, so the floor is an absolute 2e-3 / 2e-5 / 1e-5: at
+# bf16 ten bf16 unit roundoffs (2^-9) of a 0.06 entry, the flip a one-ulp
+# rounding difference of a refresh's E makes in X E (conv's 2^-7 floor
+# covered flips of the largest code, which these entries are far below);
+# at bf16x3 and bf16x5 the tier's own precision (2^-17, 2^-24) of the
+# largest entry, times the three refreshes and codes a step compound.
+ICA_TIER_FLOOR = TIER_FLOOR
+
+
+def ica_tier_bound(n, b, tier, refine=ICA_REFINE, upd_iters=1):
+  """K8 or K18 (upd_iters 1) or K9 (upd_iters 0) one step at a tier: the
+  refreshes' 2 refine n^3-products and the codes' b n^2-product, each the
+  tier's passes at the bf16 tensor-core rate, beside the residual, the
+  statistic and upd_iters updates at the fp32 rate, the two units' least
+  times overlapped; reading the batch, D and X, writing D and X (or X and
+  the statistic)."""
+  passes = (4.0 * refine * n ** 3 + 2.0 * b * n * n) * TIER_PASSES[tier]
+  fp32 = 2.0 * n ** 3 + 2.0 * b * n * n + 2.0 * upd_iters * n ** 3
+  t_ops = max(passes / BF16_PEAK, fp32 / FP32_PEAK)
+  t_bytes = 4.0 * (b * n + 4 * n * n) / HBM_RATE
+  return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+
+def ica_tier_seed(torch, d, stale=1.0):
+  """stale x D^-1 in float32 (from float64), the seed following d."""
+  return (stale * torch.linalg.inv(d.double())).float().contiguous()
+
+
+def ica_tier_tols():
+  """{tier: (guard tolerance, boost tolerance)}: training/ica's _TIERS,
+  vtc_tpu's (vtc_tpu/training/ica.py:143-153)."""
+  from vtc_tpu_torch.training import ica
+  return {tier: ica._TIERS[tier][1:] for tier in ("highest",) + TIER_NAMES}
+
+
+def ica_tier_families(torch, K8, mesh1):
+  """{label: (tier counter, steps a call, run(x, d, mxu, tol), plain(x, d,
+  mxu, tol, precision=None))} of phase 49's kernel cases: K8 forced on
+  each route, K9 on a shard, K18 at a world of 1; each from the exact
+  inverse of its d, the boost at ``tol``."""
+  kw = dict(refine_iters=ICA_REFINE)
+
+  def k8(route):
+    def run(x, d, mxu, tol):
+      return K8._launch(d.clone(), ica_tier_seed(torch, d), x, ICA_STEP,
+                        ICA_REFINE, 1, tol, mxu, route=route)
+    return run
+
+  def k8_plain(x, d, mxu, tol, precision=None):
+    return K8.fused_ica_train_plain(d, ica_tier_seed(torch, d), x, ICA_STEP,
+                                    boost_tol=tol, mxu=mxu,
+                                    precision=precision, **kw)
+
+  def k9(x, d, mxu, tol):
+    return K8.ica_solve_stats(d, ica_tier_seed(torch, d),
+                              x[0, :ICA_TIER_SHARD].contiguous(), mxu=mxu,
+                              boost_tol=tol, **kw)
+
+  def k9_plain(x, d, mxu, tol, precision=None):
+    return K8.ica_solve_stats_plain(d, ica_tier_seed(torch, d),
+                                    x[0, :ICA_TIER_SHARD], boost_tol=tol,
+                                    mxu=mxu, precision=precision, **kw)
+
+  def k18(x, d, mxu, tol):
+    return K8.fused_ica_dp_train_segment(d, ica_tier_seed(torch, d), x,
+                                         ICA_STEP, mesh=mesh1, mxu=mxu,
+                                         boost_tol=tol, **kw)
+
+  def k18_plain(x, d, mxu, tol, precision=None):
+    return K8.fused_ica_dp_train_plain(d, ica_tier_seed(torch, d), x,
+                                       ICA_STEP, mesh=mesh1, boost_tol=tol,
+                                       mxu=mxu, precision=precision, **kw)
+
+  return {
+      "K8 persistent": ("tier_launches", ICA_TIER_STEPS, k8("persistent"),
+                        k8_plain),
+      "K8 steps": ("tier_launches", ICA_TIER_STEPS, k8("steps"), k8_plain),
+      "K9 shard b125": ("stats_tier_launches", 1, k9, k9_plain),
+      "K18 world 1": ("dp_tier_launches", ICA_TIER_STEPS, k18, k18_plain)}
+
+
+def ica_tier_kernel_cases(torch, K8, families, x, d):
+  """(a) and (b): each case at each tier against its plain version at the
+  tier under tier_verdict's three rules (five one-ulp nudges of both x and
+  d), every call at that tier's boost tolerance; the persistent route
+  bitwise the steps route at every tier and 'highest'; each call's tier
+  launches; then the kernel's result at each other tier and at 'highest',
+  and the plain version with TF32 products, planted in each tier's place,
+  which must fail.  Returns ({(case, tier): err}, [(case, tier, planted,
+  rules failed)], equal route comparisons)."""
+  tols = ica_tier_tols()
+  errs, planted, outs_by = {}, [], {}
+  for tier in TIER_NAMES:
+    tol = tols[tier][1]
+    for name, (counter, steps, run, plain) in families.items():
+      outs = {}
+      for mxu in ("highest",) + TIER_NAMES:
+        before = getattr(K8, counter)
+        outs[mxu] = run(x, d, mxu, tol)
+        want = 0 if mxu == "highest" else steps
+        check(getattr(K8, counter) == before + want, "%s at %s: %d tier "
+              "launches, expected %d" % (name, mxu, getattr(K8, counter)
+                                         - before, want))
+      outs_by[name, tier] = outs
+      flat = {mxu: flat_cat(torch, o) for mxu, o in outs.items()}
+      plains = {mxu: flat_cat(torch, plain(x, d, mxu, tol))
+                for mxu in ("highest",) + TIER_NAMES}
+      nudged = [flat_cat(torch, plain(one_ulp_nudge(x, seed),
+                                      one_ulp_nudge(d, seed + 5), tier, tol))
+                for seed in range(5)]
+      errs[name, tier] = tier_check(torch, name, flat[tier], flat["highest"],
+                                    plains, nudged, tier,
+                                    ICA_TIER_FLOOR[tier])["err"]
+      tf32 = flat_cat(torch, plain(x, d, "highest", tol, "tensorfloat32"))
+      wrongs = [(w, flat[w]) for w in ("highest",) + TIER_NAMES if w != tier]
+      for wrong, got in wrongs + [("TF32", tf32)]:
+        v = tier_verdict(torch, got, flat["highest"], plains, nudged, tier,
+                         ICA_TIER_FLOOR[tier])
+        failed = [rule for rule, ok in v["ok"].items() if not ok]
+        planted.append((name, tier, wrong, failed))
+        print("tier planted %s: %s in place of %s fails %s" % (
+            name, wrong, tier, ", ".join(failed) or "NOTHING"))
+        check(failed, "tier %s: %s passes every rule held for %s" % (
+            name, wrong, tier))
+  equal = 0
+  for tier in TIER_NAMES:
+    for mxu in ("highest",) + TIER_NAMES:
+      got = outs_by["K8 persistent", tier][mxu]
+      want = outs_by["K8 steps", tier][mxu]
+      same = [bits_equal(torch, g, w) for g, w in zip(got, want)]
+      check(all(same), "K8 at %s (boost %g): the persistent route differs "
+            "from the steps route: D, X, r_max equal %s" % (
+                mxu, tols[tier][1], same))
+      equal += 1
+  print("phase 49 (a): K8's persistent route bitwise its steps route in %d "
+        "runs (every tier and 'highest' at each tier's boost)" % equal)
+  return errs, planted, equal
+
+
+def ica_tier_boost_cases(torch, K8, x, d):
+  """(c) One K8 step on each route from the stale seed at each tier:
+  without the boost the residual is above the tier's boost tolerance in
+  the kernel and the plain version; with it both fire and the boosted
+  residual is below.  Returns {tier: (kernel residual, plain residual,
+  unboosted kernel, unboosted plain)}."""
+  tols = ica_tier_tols()
+  out = {}
+  for tier in TIER_NAMES:
+    tol, stale = tols[tier][1], ICA_TIER_STALE[tier]
+    xi = ica_tier_seed(torch, d, stale)
+    res = {}
+    for boost in (None, tol):
+      for route in ("persistent", "steps"):
+        res[route, boost] = float(K8._launch(
+            d.clone(), xi.clone(), x[:1], ICA_STEP, ICA_REFINE, 1, boost,
+            tier, route=route)[2])
+      res["plain", boost] = float(K8.fused_ica_train_plain(
+          d, xi, x[:1], ICA_STEP, refine_iters=ICA_REFINE, boost_tol=boost,
+          mxu=tier)[2])
+    fired = {who: res[who, None] > tol for who in ("persistent", "steps",
+                                                   "plain")}
+    print("tier boost %s (stale %.2f X, boost tol %g): residual without the "
+          "boost kernel %.3e / %.3e (routes), plain %.3e; with it kernel "
+          "%.3e / %.3e, plain %.3e; fired: kernel %s, plain %s" % (
+              tier, stale, tol, res["persistent", None], res["steps", None],
+              res["plain", None], res["persistent", tol], res["steps", tol],
+              res["plain", tol], fired["persistent"], fired["plain"]))
+    check(all(fired.values()), "the stale seed at %s did not take the "
+          "residual above the boost tolerance: %s" % (tier, res))
+    check(all(res[who, tol] < tol for who in ("persistent", "steps",
+                                              "plain")),
+          "the boost at %s did not bring the residual below %g: %s" % (
+              tier, tol, res))
+    out[tier] = (res["persistent", tol], res["plain", tol],
+                 res["persistent", None], res["plain", None])
+  return out
+
+
+def ica_tier_rank_main(rank, world, workdir):
+  """The hidden sub-command: one rank of phase 49's world of 2.  Joins the
+  gloo group over the file store in ``workdir`` and runs K18
+  (fused_ica_dp_train_segment) on its shards of 125 of the
+  ICA_TIER_DP_STEPS batches of inputs.npz at each tier and at 'highest',
+  each at its tier's boost; saves D, X, the residual and the tier launches
+  to ``workdir``."""
+  import os
+  import torch
+  import torch.distributed as dist
+  from vtc_tpu_torch import parallel
+  from vtc_tpu_torch.ops import fused_ica_train as K8
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device", file=sys.stderr)
+    return 1
+  dev = torch.device("cuda", 0)
+  data = dict(np.load(os.path.join(workdir, "inputs.npz")))
+  x = torch.tensor(data["x"], device=dev)
+  d = torch.tensor(data["d"], device=dev)
+  dist.init_process_group("gloo", init_method="file://" + os.path.join(
+      workdir, "store"), rank=rank, world_size=world)
+  try:
+    out = {}
+    mesh = parallel.make_mesh()
+    tols = ica_tier_tols()
+    for tier in ("highest",) + TIER_NAMES:
+      K8.dp_tier_launches = 0
+      got = K8.fused_ica_dp_train_segment(
+          d, ica_tier_seed(torch, d), mesh.shard(x, dim=1).contiguous(),
+          ICA_STEP, mesh=mesh, refine_iters=ICA_REFINE, mxu=tier,
+          boost_tol=tols[tier][1])
+      torch.cuda.synchronize()
+      for what, t in zip(("dictionary", "inverse", "residual"), got):
+        out["%s %s" % (tier, what)] = t.cpu().numpy()
+      out[tier + " launches"] = np.array(K8.dp_tier_launches)
+    np.savez(os.path.join(workdir, "rank%d.npz" % rank), **out)
+  finally:
+    dist.destroy_process_group()
+  return 0
+
+
+def ica_tier_world_of_two(torch, K8, mesh1, x, d):
+  """(d) The world of 2 (ica_tier_rank_main in two processes of this
+  script sharing the card over gloo) against K18 at a world of 1 on the
+  whole batches: both ranks bitwise equal, ICA_TIER_DP_STEPS tier steps a
+  rank (none at 'highest'), within the larger of DP_FLOOR, the tier's
+  floor and the world of 1's spread under five one-ulp nudges of its
+  batches and dictionary.  Returns ({tier: (max|d|, bound)}, seconds)."""
+  import os
+  import tempfile
+  tols = ica_tier_tols()
+  xs = x[:ICA_TIER_DP_STEPS].contiguous()
+  t0 = time.perf_counter()
+  with tempfile.TemporaryDirectory() as workdir:
+    np.savez(os.path.join(workdir, "inputs.npz"), x=xs.cpu().numpy(),
+             d=d.cpu().numpy())
+    codes, dt = spawn_ranks("--ica-tier-rank", 2, workdir,
+                            ICA_TIER_CHILD_TIMEOUT)
+    check(codes == [0, 0], "a rank of phase 49's world of 2 failed: exit "
+          "codes %s" % codes)
+    ranks = [dict(np.load(os.path.join(workdir, "rank%d.npz" % r)))
+             for r in range(2)]
+  print("phase 49: 2 processes sharing one card over gloo done in %.1f s"
+        % dt)
+  results = {}
+  for tier in ("highest",) + TIER_NAMES:
+    for key in ranks[0]:
+      if key.startswith(tier + " "):
+        check(np.array_equal(ranks[0][key], ranks[1][key]), "phase 49 world "
+              "of 2 %s: the ranks differ" % key)
+    launches = [int(r[tier + " launches"]) for r in ranks]
+    expected = 0 if tier == "highest" else ICA_TIER_DP_STEPS
+    check(launches == [expected] * 2, "phase 49 world of 2 at %s: tier "
+          "launches %s, expected %d a rank" % (tier, launches, expected))
+
+    def one(xx, dd):
+      return flat_cat(torch, K8.fused_ica_dp_train_segment(
+          dd, ica_tier_seed(torch, dd), xx, ICA_STEP, mesh=mesh1,
+          refine_iters=ICA_REFINE, mxu=tier, boost_tol=tols[tier][1]))
+    want = one(xs, d)
+    moved = max(float((one(one_ulp_nudge(xs, seed),
+                           one_ulp_nudge(d, seed + 5)) - want).abs().max())
+                for seed in range(5))
+    floor = ICA_TIER_FLOOR.get(tier, 0.0)
+    bound = max(DP_FLOOR, floor * max(1.0, float(want.abs().max())), moved)
+    got = np.concatenate([ranks[0]["%s %s" % (tier, w)].ravel() for w in
+                          ("dictionary", "inverse", "residual")])
+    err = float(np.abs(got - want.cpu().numpy()).max())
+    results[tier] = (err, bound)
+    print("ICA world of 2 %s: ranks bitwise equal, %d tier steps a rank; "
+          "max|d| %.3e from the world of 1 (bound %.3e)" % (
+              tier, launches[0], err, bound))
+    check(np.isfinite(got).all() and err <= bound, "phase 49 world of 2 %s "
+          "differs from the world of 1 by %.3e > %.3e" % (tier, err, bound))
+  return results, time.perf_counter() - t0
+
+
+def ica_tier_main_path(torch, K8, ica, parallel, ica_batches, ica_held, id0,
+                       card):
+  """(e) The main path at each tier and at 'highest', the tier counts
+  zeroed just before and read just after: the scanned ICA trainer at
+  measure_ica(250, 2000) from phase 21's start (ICA_STEPS K8 tier steps),
+  and with data_parallel=True at a world of 1 (ICA_STEPS K18), the 'dcn'
+  composition (ica._segment_runner_dp(fused=True), K9 a step) for
+  ICA_TIER_K9_STEPS steps; no rollback at bf16x5 and bf16x3; every
+  dictionary finite and its held-out Laplace NLL falling; then the
+  stepsize-40 run at each tier: a rollback onto the per-step path at the
+  tier, bitwise its use_fused=False run.  Returns ({(module, tier):
+  launches}, {(entry, tier): patches/s}, {(entry, tier): (nll, rollbacks)},
+  nll0)."""
+  mesh1 = parallel.make_mesh()
+  counters = (("K8", "tier_launches"), ("K18", "dp_tier_launches"),
+              ("K9", "stats_tier_launches"))
+  want = {"K8": ICA_STEPS, "K18": ICA_STEPS, "K9": ICA_TIER_K9_STEPS}
+  nll0 = ica_nll(torch, ica_held, id0)
+  ix0 = ica_tier_seed(torch, id0)
+  counts, rates, quality = {}, {}, {}
+  for tier in ("highest",) + TIER_NAMES:
+    for _, counter in counters:
+      setattr(K8, counter, 0)
+    for kind, extra in (("trainer", {}),
+                        ("data-parallel trainer", {"data_parallel": True})):
+      params = dict(ica_params(ICA_STEPS, ICA_STEP), train_precision=tier,
+                    **extra)
+      rollbacks0 = ica.rollbacks
+      t0 = time.perf_counter()
+      trained = ica.train_dictionary_scanned(ica_batches, id0, params)
+      torch.cuda.synchronize()
+      rates[kind, tier] = ICA_STEPS * ICA_BATCH / (time.perf_counter() - t0)
+      rolled = ica.rollbacks - rollbacks0
+      nll = ica_nll(torch, ica_held, trained)
+      quality[kind, tier] = (nll, rolled)
+      check(bool(torch.isfinite(trained).all()) and np.isfinite(nll)
+            and nll < nll0, "ICA %s at %s: the held-out Laplace NLL did not "
+            "fall: %.4f -> %.4f" % (kind, tier, nll0, nll))
+      if tier != "bf16":
+        check(rolled == 0, "ICA %s at %s: %d guard rollbacks" % (
+            kind, tier, rolled))
+    ica._segment_runner_dp(1, mesh1, True, refine_iters=ICA_REFINE,
+                           mxu=tier, fused=True)(
+                               id0, ix0, ica_batches[:ICA_TIER_K9_STEPS],
+                               ICA_STEP)
+    torch.cuda.synchronize()
+    for name, counter in counters:
+      counts[name, tier] = getattr(K8, counter)
+    print("ICA tier main path %s: tier launches K8 %d, K18 %d, K9 %d" % (
+        tier, *(counts[n, tier] for n, _ in counters)))
+    for name, _ in counters:
+      expected = 0 if tier == "highest" else want[name]
+      check(counts[name, tier] == expected, "ICA main path at %s: %d tier "
+            "launches of %s, expected %d" % (tier, counts[name, tier], name,
+                                             expected))
+  for tier in TIER_NAMES:
+    for kind in ("trainer", "data-parallel trainer"):
+      nll, rolled = quality[kind, tier]
+      ref = quality[kind, "highest"][0]
+      print("ICA tier %s %s: %d guard rollbacks; held-out Laplace NLL %.4f "
+            "-> %.4f ('highest' %.4f, %+.4f%%)" % (
+                kind, tier, rolled, nll0, nll, ref, 100.0 * (nll - ref) / ref))
+  for kind in ("trainer", "data-parallel trainer"):
+    print("ICA tier %s: patches/s %s; 'highest' %.1f [%s]" % (
+        kind, ", ".join("%s %.1f" % (t, rates[kind, t]) for t in TIER_NAMES),
+        rates[kind, "highest"], card))
+  # the divergence guard at each tier: rolled back onto the tier's per-step
+  # path (its XLA precision with the TPU's meaning)
+  wreck = ica_batches[:ICA_TIER_WRECK_STEPS]
+  for tier in TIER_NAMES:
+    params = dict(ica_params(ICA_TIER_WRECK_STEPS, 40.0),
+                  train_precision=tier)
+    rollbacks0 = ica.rollbacks
+    fused = ica.train_dictionary_scanned(wreck, id0, params)
+    rolled = ica.rollbacks - rollbacks0
+    stepped = ica.train_dictionary_scanned(wreck, id0,
+                                           dict(params, use_fused=False))
+    torch.cuda.synchronize()
+    print("ICA tier %s at stepsize 40: %d guard rollbacks; bitwise the "
+          "per-step path at the tier: %s" % (tier, rolled,
+                                             bits_equal(torch, fused,
+                                                        stepped)))
+    check(rolled == 1 and bits_equal(torch, fused, stepped), "ICA at %s, "
+          "stepsize 40: %d rollbacks, or the result is not the per-step "
+          "path's" % (tier, rolled))
+  return counts, rates, quality, nll0
+
+
+def ica_library_step(torch, mm, d, x, batch, tier, refine=ICA_REFINE):
+  """A step's tier passes (the refreshes and the codes) each one product
+  ``mm`` of bf16 operands with a float32 result, both operands split per
+  product as ns_dot splits them, the passes added in vtc_tpu's order."""
+  from vtc_tpu_torch.ops import precision
+  split = {"bf16": lambda a: (a,), "bf16x3": precision.split_hi_lo,
+           "bf16x5": precision.split3}[tier]
+  pairs = ((0, 0),) + precision.TIER_PAIRS.get(tier, ())
+
+  def dot(a, b):
+    ta = [t.to(torch.bfloat16) for t in split(a)]
+    tb = [t.to(torch.bfloat16) for t in split(b)]
+    out = None
+    for i, j in pairs:
+      term = mm(ta[i], tb[j])
+      out = term if out is None else out + term
+    return out
+
+  eye2 = 2.0 * torch.eye(d.shape[0], device=d.device)
+  for _ in range(refine):
+    x = dot(x, eye2 - dot(d, x))
+  return dot(batch, x)
+
+
+def ica_tier_timing(torch, K8, mesh1, ica_batches, id0, card):
+  """(f) In turns ('highest', tier, tier, 'highest'): a K8 and a K18 step of
+  an ICA_TIER_TIME_STEPS-step segment (phase 22's), a K9 shard step; the
+  plain version at the tier (one step); the bound (ica_tier_bound); the
+  library time (ica_library_step, the median of 7 turns).  Returns
+  {(row, tier): (ms, plain_ms, bound, library_ms)}, 'highest' rows too."""
+  how, mm = mm_f32_out(torch)
+  print("ICA tier library time: %s" % how)
+  tols = ica_tier_tols()
+  seg = ica_batches[:ICA_TIER_TIME_STEPS]
+  shard = ica_batches[0, :ICA_TIER_SHARD].contiguous()
+  ix0 = ica_tier_seed(torch, id0)
+
+  def k8(mxu):
+    return K8.fused_ica_train_segment(id0, ix0, seg, ICA_STEP,
+                                      refine_iters=ICA_REFINE, mxu=mxu,
+                                      boost_tol=tols[mxu][1])
+
+  def k18(mxu):
+    return K8.fused_ica_dp_train_segment(id0, ix0, seg, ICA_STEP, mesh=mesh1,
+                                         refine_iters=ICA_REFINE, mxu=mxu,
+                                         boost_tol=tols[mxu][1])
+
+  def k9(mxu):
+    return K8.ica_solve_stats(id0, ix0, shard, refine_iters=ICA_REFINE,
+                              mxu=mxu, boost_tol=tols[mxu][1])
+
+  rows = {
+      "K8 step": (k8, ICA_TIER_TIME_STEPS, 3, ICA_BATCH, 1,
+                  lambda mxu: K8.fused_ica_train_plain(
+                      id0, ix0, seg[:1], ICA_STEP, refine_iters=ICA_REFINE,
+                      boost_tol=tols[mxu][1], mxu=mxu), ica_batches[0]),
+      "K18 step": (k18, ICA_TIER_TIME_STEPS, 3, ICA_BATCH, 1,
+                   lambda mxu: K8.fused_ica_dp_train_plain(
+                       id0, ix0, seg[:1], ICA_STEP, mesh=mesh1,
+                       refine_iters=ICA_REFINE, boost_tol=tols[mxu][1],
+                       mxu=mxu), ica_batches[0]),
+      "K9 shard": (k9, 1, 20, ICA_TIER_SHARD, 0,
+                   lambda mxu: K8.ica_solve_stats_plain(
+                       id0, ix0, shard, refine_iters=ICA_REFINE,
+                       boost_tol=tols[mxu][1], mxu=mxu), shard)}
+  out = {}
+  with torch.no_grad():
+    for row, (run, per, reps, b, upd, plain, batch) in rows.items():
+      for tier in TIER_NAMES:
+        run(tier)  # warm
+        turns = [time_ms(torch, lambda: run("highest"), reps),
+                 time_ms(torch, lambda: run(tier), reps),
+                 time_ms(torch, lambda: run(tier), reps),
+                 time_ms(torch, lambda: run("highest"), reps)]
+        ms = (turns[1] + turns[2]) / 2 / per
+        hi_ms = (turns[0] + turns[3]) / 2 / per
+        p_ms = time_ms(torch, lambda: plain(tier), 1)
+        lib = library_turns(torch, lambda: ica_library_step(
+            torch, mm, id0, ix0, batch, tier))
+        bnd = ica_tier_bound(ICA_N, b, tier, upd_iters=upd)
+        out[row, tier] = (ms, p_ms, bnd, lib[0])
+        out[row, "highest"] = (hi_ms, None, None, None)
+        print("ICA tier %s %s: %.4f ms against 'highest' %.4f in turns "
+              "(%.4f, %.4f, %.4f, %.4f); plain %.4f; bound %.4f (%s); "
+              "library median %.4f (%d turns %.4f-%.4f) [%s]" % (
+                  row, tier, ms, hi_ms, *[t / per for t in turns], p_ms,
+                  bnd[0], bnd[1], lib[0], TIER_LIB_TURNS, lib[1], lib[2],
+                  card))
+  return out
+
+
+def ica_tier_phase(torch, dev, card, K8, ica_batches, ica_held, id0):
+  """Phase 49: (a)-(f) above; 'highest' is bitwise what it was: its
+  kernels are the fp32 code of ica_segment.cuh and train_core.cuh,
+  unchanged, which phases 20-22, 33-35 and 40 hold to their plain versions
+  and each other, and a 'highest' call launches no tier build ((a),
+  (e))."""
+  from vtc_tpu_torch import parallel
+  from vtc_tpu_torch.training import ica
+  t0 = time.perf_counter()
+  mesh1 = parallel.make_mesh()
+  mixing = torch.tensor(random_orthogonal(ICA_N, 11), device=dev)
+  g = torch.Generator(device=dev).manual_seed(49)
+  x = gapped_mixtures(torch, dev, max(ICA_TIER_STEPS, ICA_TIER_DP_STEPS)
+                      * ICA_BATCH, mixing, g).reshape(-1, ICA_BATCH, ICA_N)
+  d = mixing.contiguous()
+  families = ica_tier_families(torch, K8, mesh1)
+  errs, planted, equal = ica_tier_kernel_cases(
+      torch, K8, families, x[:ICA_TIER_STEPS].contiguous(), d)
+  boosts = ica_tier_boost_cases(torch, K8, x, d)
+  world2, world2_s = ica_tier_world_of_two(torch, K8, mesh1, x, d)
+  counts, rates, quality, nll0 = ica_tier_main_path(
+      torch, K8, ica, parallel, ica_batches, ica_held, id0, card)
+  times = ica_tier_timing(torch, K8, mesh1, ica_batches, id0, card)
+  print("phase 49: %.1f s (its ranks %.1f s); %d planted wrong-tier and "
+        "TF32 results failed; %d route comparisons bitwise equal" % (
+            time.perf_counter() - t0, world2_s, len(planted), equal))
+  return dict(errs=errs, planted=planted, counts=counts, rates=rates,
+              quality=quality, times=times, world2=world2, boosts=boosts)
 
 
 def main():
@@ -9050,6 +9644,9 @@ def main():
   conv_tiers = conv_tier_phase(torch, dev, card, (K10, K12, K17), cimages,
                                conv_d, cpad, xt5, cd0, eta5, sd0, conv_gen)
 
+  # phase 49: the tiers of K8, K9 and K18 (ica_tier_phase)
+  ica_tiers = ica_tier_phase(torch, dev, card, K8, ica_batches, ica_held, id0)
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -9264,6 +9861,30 @@ def main():
                       conv_tiers["counts"][key, tier],
                       conv_tiers["errs"][case, tier], ms_t, p_t, bnd_t))
       tier_library[name] = lib_t
+  # the ICA tier tile (phase 49): launches on its main path, the error of
+  # the kernel case at the tier (K8's persistent route), its time a step
+  # beside the plain version at the tier, its bound and the library time
+  # of the step's passes as products of bf16 operands
+  ica_tier_rows = {
+      "K8 step": ("K8", "K8 persistent",
+                  "vtc_tpu/ops/pallas_ica_train.py:57-83 (_make_ns_dot's "
+                  "tier in _make_ica_kernel :112, the kernel of :311)"),
+      "K9 shard": ("K9", "K9 shard b125",
+                   "vtc_tpu/ops/pallas_ica_train.py:57-83 (_make_ns_dot's "
+                   "tier in _make_ica_stats_kernel :193, the kernel of "
+                   ":250)"),
+      "K18 step": ("K18", "K18 world 1",
+                   "vtc_tpu/ops/pallas_ica_train.py:57-83 (_make_ns_dot's "
+                   "tier in _make_ica_kernel :112, the kernel of :394)")}
+  for row, (key, case, replaces) in ica_tier_rows.items():
+    for tier in TIER_NAMES:
+      ms_t, p_t, bnd_t, lib_t = ica_tiers["times"][row, tier]
+      name = "ica_segment.cuh tier tile (%s at %s, via %s)" % (
+          key, tier, "fused_ica_train_step.cu")
+      kernels.append((name, "ica_segment.cuh", replaces,
+                      ica_tiers["counts"][key, tier],
+                      ica_tiers["errs"][case, tier], ms_t, p_t, bnd_t))
+      tier_library[name] = lib_t
   # K10's library time is its own loop with each product one cuDNN call
   # (phase 17), K11's the same loop on K11's timed inputs (the same
   # function), and with the stop that loop at the iterations the stopped
@@ -9316,6 +9937,10 @@ if __name__ == "__main__":
     # one rank of phase 47's world of 2, started by main()
     sys.exit(dp_tier_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                sys.argv[4]))
+  if len(sys.argv) == 5 and sys.argv[1] == "--ica-tier-rank":
+    # one rank of phase 49's world of 2, started by main()
+    sys.exit(ica_tier_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4]))
   if len(sys.argv) == 5 and sys.argv[1] == "--conv-tier-rank":
     # one rank of phase 48's world of 2, started by main()
     sys.exit(conv_tier_rank_main(int(sys.argv[2]), int(sys.argv[3]),

@@ -457,18 +457,50 @@ def test_scanned_trainer_matches_vtc_tpu(monkeypatch, tier):
   assert tier in seen and set(seen) <= {tier, "highest"}
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_dp_trainer(tier):
+  """vtc_tpu's scanned conv trainer with data_parallel on a 'data' axis of
+  4 of its 8 CPU devices at the tier (off a TPU its whole-segment K17
+  route needs a spare device, compiled_epoch.py:711-719): two steps of the
+  problem's 8 images, a shard of two each.  Returns (the batches, its
+  dictionary, the tiers its K17 runner was built with)."""
+  x, d, _, _ = _problem()
+  x8 = x.reshape(8, *x.shape[2:])
+  x8 = np.stack([x8, x8[::-1]])
+  built = []
+  original = jax_ce._dp_rdma_conv_segment_runner
+
+  def spy(*args, **kw):
+    built.append(kw.get("mxu"))
+    return original(*args, **kw)
+
+  jax_ce._dp_rdma_conv_segment_runner = spy
+  try:
+    got = np.asarray(jax_ce.train_dictionary_scanned(
+        x8, x8[0, :1], d.copy(), _trainer_params(
+            tier, data_parallel=jax_parallel.make_mesh(data=4))))
+  finally:
+    jax_ce._dp_rdma_conv_segment_runner = original
+  return x8, got, tuple(built)
+
+
 @pytest.mark.parametrize("tier", TIERS)
 def test_dp_scanned_trainer_matches_vtc_tpu_k17(monkeypatch, tier):
-  """With data_parallel the port's mesh of one takes K17 at the tier (its
-  plain version): the kernels of vtc_tpu's two-step K17 segment on a
-  one-device axis from the exact seed.  (vtc_tpu's own trainer creates
-  that K17 runner at the tier and then replaces it with its psum-per-op
-  runner: the last branch of vtc_tpu/training/compiled_epoch.py:1160-1232
-  does not exclude dp_rdma_conv, so there its data-parallel conv trainer
-  runs full precision at every tier; the port keeps the K17 route it
-  selects first.)"""
-  x, d, _, _ = _problem()
-  want, full, moved = _k17_reference(tier, kernels_only=True)
+  """vtc_tpu's data-parallel conv trainer builds its K17 runner at the tier
+  and then replaces it with its psum-per-op runner (the last branch of
+  vtc_tpu/training/compiled_epoch.py:1160-1232 does not exclude
+  dp_rdma_conv), so it runs full precision at every tier: its 'bf16' run
+  on a 'data' axis of 4 of its CPU devices is its 'highest' run.  The
+  port's trainer runs K17
+  at 'highest' whatever the tier (bitwise its own 'highest' run, within
+  test_torch_port_conv_parallel.py's relative 2e-5 of vtc_tpu's trainer at
+  the tier), and K17 keeps its tiers: ``_dp_conv_segment_runner`` called
+  directly at the tier is held to the kernels of vtc_tpu's two-step K17
+  segment on a one-device axis from the exact seed."""
+  x8, jax_bf16, built = _jax_dp_trainer("bf16")
+  assert built == ("bf16",)  # K17's runner, built at the tier, then replaced
+  assert np.array_equal(jax_bf16, _jax_dp_trainer("highest")[1])
+  x, d, _, v0 = _problem()
   seen = []
   original = fused_conv_dp_train.fused_conv_dp_train_segment
 
@@ -478,11 +510,23 @@ def test_dp_scanned_trainer_matches_vtc_tpu_k17(monkeypatch, tier):
 
   monkeypatch.setattr(fused_conv_dp_train, "fused_conv_dp_train_segment",
                       spy)
-  check_tier(lambda mxu: compiled_epoch.train_dictionary_scanned(
-      x, x[:1], _t(d), _trainer_params(mxu, data_parallel=True),
-      device="cpu").numpy(), want.reshape(d.shape), full.reshape(d.shape),
-             moved, tier, "DP scanned conv trainer")
-  assert tier in seen and set(seen) <= {tier, "highest"}
+  runs = {mxu: compiled_epoch.train_dictionary_scanned(
+      x8, x8[0, :1], _t(d), _trainer_params(mxu, data_parallel=True),
+      device="cpu") for mxu in (tier, "highest")}
+  assert seen and set(seen) == {"highest"}
+  assert torch.equal(runs[tier], runs["highest"])
+  want = _jax_dp_trainer(tier)[1]
+  err = float(np.abs(runs[tier].numpy() - want).max())
+  print("DP conv trainer at %s: max|d| %.3e from vtc_tpu's trainer" % (
+      tier, err))
+  assert err <= 2e-5 * max(1.0, float(np.abs(want).max()))
+  monkeypatch.undo()
+  want, full, moved = _k17_reference(tier, kernels_only=True)
+  check_tier(lambda mxu: compiled_epoch._dp_conv_segment_runner(
+      parallel.make_mesh(), "fista", CQ, 1, False, False, True, STRIDE,
+      PADDING, mxu=mxu)(_t(d), torch.zeros(6), _t(v0), _t(x), LAM, ITERS,
+                        UPD)[0].numpy(), want.reshape(d.shape),
+             full.reshape(d.shape), moved, tier, "K17 runner")
 
 
 def test_scanned_trainer_off_the_k12_gate_runs_highest():

@@ -369,14 +369,17 @@ def test_refusals_that_stay():
   kernels /= np.sqrt((kernels ** 2).sum(axis=(1, 2, 3), keepdims=True))
   conv = dict(_trainer_params("bf16x3", None), mode="convolutional",
               strides=(2, 2), padding=((2, 2), (2, 2)), data_parallel=True)
-  # conv with data parallelism runs its tiers (item 3a.2.2 is done): K17's
-  # plain version at the tier, near the 'highest' run and not on it
+  # the conv trainer with data parallelism runs K17 at 'highest' whatever
+  # the tier, as vtc_tpu's trainer does (its K17 runner is replaced by the
+  # psum-per-op one; tests/test_torch_port_conv_tiers.py pins both): the
+  # tier's run is bitwise the 'highest' run
   got = compiled_epoch.train_dictionary_scanned(images, images[:1], kernels,
                                                 conv, device="cpu")
   full = compiled_epoch.train_dictionary_scanned(
       images, images[:1], kernels, dict(conv, train_precision="highest"),
       device="cpu")
-  assert 0.0 < float((got - full).abs().max()) < 1e-3
+  assert torch.equal(got, full)
+  assert float((full - torch.from_numpy(kernels)).abs().max()) > 1e-4
   # the encode's CPU default 'gram' refuses a tier, where vtc_tpu asserts
   with pytest.raises(ValueError, match="'pallas' formulation only"):
     encode_dataset(images[0], kernels, SW, 5, mode="convolutional",
@@ -388,9 +391,15 @@ def test_refusals_that_stay():
                     0: {"stepsize": 0.01, "num_iters": 1}},
                 "use_fused": True, "train_precision": "bf16x3",
                 "data_parallel": True, "stdout_print_interval": 10**9}
-  with pytest.raises(NotImplementedError, match=r"item 3a\.2\.3"):
-    ica.train_dictionary_scanned(rng.randn(2, 8, 16).astype(np.float32),
-                                 mixing, ica_params, device="cpu")
+  # the ICA trainer with data parallelism runs its tiers since item 3a.2.3
+  # (K18's plain version; tests/test_torch_port_ica_tiers.py holds it)
+  ica_x = rng.randn(2, 8, 16).astype(np.float32)
+  tiered = ica.train_dictionary_scanned(ica_x, mixing, ica_params,
+                                        device="cpu")
+  full = ica.train_dictionary_scanned(
+      ica_x, mixing, dict(ica_params, train_precision="highest"),
+      device="cpu")
+  assert 0.0 < float((tiered - full).abs().max()) < 1e-2
   # the code-sharded route: the trainer hands the tier to K19's runner,
   # whose wrapper refuses it (a 'code' axis above 1 needs ranks:
   # tests/test_torch_port_dp_segments.py holds the trainer there)

@@ -258,11 +258,20 @@ def test_per_batch_trainer_matches_jax(rng, tmp_path):
 
 
 def test_trainers_refuse_what_waits(rng):
+  """Nothing waits any more: the tiers run since item 3a.2.3
+  (tests/test_torch_port_ica_tiers.py holds them to vtc_tpu): the
+  per-batch trainer reads no 'train_precision' (bitwise its own run
+  without it), the scanned one trains at it; data_parallel runs; what
+  stays refused is what vtc_tpu refuses."""
   d0, batches, stepsize = _problem(rng, k=2, n=16)
-  for trainer in (ica.train_dictionary, ica.train_dictionary_scanned):
-    with pytest.raises(NotImplementedError, match="item 3"):
-      trainer(batches, d0, _params(stepsize, train_precision="bf16x3"),
-              device="cpu")
+  plain = ica.train_dictionary(batches, d0, _params(stepsize), device="cpu")
+  assert torch.equal(ica.train_dictionary(
+      batches, d0, _params(stepsize, train_precision="bf16x3"),
+      device="cpu"), plain)
+  tiered = ica.train_dictionary_scanned(
+      batches, d0, _params(stepsize, train_precision="bf16x3"), device="cpu")
+  assert bool(torch.isfinite(tiered).all())
+  assert float((tiered - _t(d0)).abs().max()) > 1e-4  # it trained
   # data_parallel no longer waits (item 9's layer): the scanned trainer and
   # PCA run it, True without a process group being a mesh of one rank
   # (tests/test_torch_port_parallel_train.py holds worlds of 2 and 4)
@@ -282,9 +291,9 @@ def test_trainers_refuse_what_waits(rng):
   with pytest.raises(ValueError, match="no data-parallel mode"):
     ica.train_dictionary(batches, d0, _params(stepsize, data_parallel=True),
                          device="cpu")
-  with pytest.raises(NotImplementedError, match="item 3"):
+  with pytest.raises(ValueError, match="unknown MXU tier"):
     fused_ica_train.fused_ica_train_segment(_t(d0), _t(d0), _t(batches), 0.1,
-                                            mxu="bf16")
+                                            mxu="bf32")
 
 
 def test_gate_keeps_square_drops_tpu_rules():

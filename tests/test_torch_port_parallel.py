@@ -173,9 +173,10 @@ def test_gates_drop_the_vmem_rule():
 
 
 def test_wrappers_refuse_the_tiers(rng):
-  """K3 and K7 run the tiers (held to vtc_tpu in
-  tests/test_torch_port_dp_tiers.py): a CPU tensor takes the plain version
-  at the tier, which the tier moves off 'highest'; K9's tiers still wait."""
+  """K3, K7 and K9 run the tiers (held to vtc_tpu in
+  tests/test_torch_port_dp_tiers.py and test_torch_port_ica_tiers.py): a
+  CPU tensor takes the plain version at the tier, which the tier moves off
+  'highest'; what stays refused is what vtc_tpu refuses."""
   d, batch = _unit_rows(rng, 16, 16), rng.randn(8, 16).astype(np.float32)
   v = np.ones(16, np.float32)
   args = (_t(d), _t(v), _t(batch), SW, 5)
@@ -190,8 +191,15 @@ def test_wrappers_refuse_the_tiers(rng):
       assert torch.equal(g, w)
     full = wrapper(*args, **dict(kw, mxu="highest"))
     assert not torch.equal(got[0], full[0])
-  with pytest.raises(NotImplementedError, match="item 3a"):
-    fused_ica_train.ica_solve_stats(_t(d), _t(d), _t(batch), mxu="bf16")
+  sq = _t(np.linalg.qr(rng.randn(16, 16))[0])
+  got = fused_ica_train.ica_solve_stats(sq, sq.T, _t(batch), mxu="bf16")
+  for g, w in zip(got, fused_ica_train.ica_solve_stats_plain(
+      sq, sq.T, _t(batch), mxu="bf16")):
+    assert torch.equal(g, w)
+  full = fused_ica_train.ica_solve_stats(sq, sq.T, _t(batch))
+  assert not torch.equal(got[0], full[0])
+  with pytest.raises(ValueError, match="unknown MXU tier"):
+    fused_ica_train.ica_solve_stats(sq, sq.T, _t(batch), mxu="bf32")
   with pytest.raises(ValueError, match="square"):
     fused_ica_train.ica_solve_stats(_t(d[:8]), _t(d), _t(batch))
 

@@ -354,14 +354,20 @@ def test_trainers_refuse_what_waits(rng, trainer, change, item):
     d0 /= np.sqrt((d0 ** 2).sum(axis=(1, 2, 3), keepdims=True))
     change = dict(change, strides=(2, 2), padding=((2, 2), (2, 2)))
     if "train_precision" in change:
-      # the conv tiers run: K12 (K17 with data_parallel) at the tier, their
-      # plain versions on the CPU, near the 'highest' run and not on it
+      # the conv tiers run: K12 at the tier, its plain version on the CPU,
+      # near the 'highest' run and not on it; with data_parallel the
+      # trainer runs K17 at 'highest' whatever the tier, as vtc_tpu's
+      # trainer does (tests/test_torch_port_conv_tiers.py pins both), so
+      # bitwise the 'highest' run
       got = fn(data, data[:1], d0, _params(**change), device="cpu")
       full = dict(change)
       del full["train_precision"]
       want = fn(data, data[:1], d0, _params(**full), device="cpu")
       assert bool(torch.isfinite(got).all())
-      assert 0.0 < float((got - want).abs().max()) < 1e-3
+      if change.get("data_parallel"):
+        assert torch.equal(got, want)
+      else:
+        assert 0.0 < float((got - want).abs().max()) < 1e-3
       return
     got = fn(data, data[:1], d0, _params(**change), device="cpu")
     assert got.shape == d0.shape and bool(torch.isfinite(got).all())

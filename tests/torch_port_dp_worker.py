@@ -133,13 +133,14 @@ def case_dp_segment(family, d, batches, config, h=None, v=None):
   (k, b, n) ``batches``: K15 ('fc', ``_dp_fc_segment_runner``), K16
   ('group', ``_dp_group_segment_runner``) or K18 ('ica',
   ``ica._dp_kernel_segment_runner``; ``v`` is the inverse), their plain
-  versions on CPU tensors; config's optional 'mxu' is the fc and subspace
-  runners' tier.  Returns the replicated state."""
+  versions on CPU tensors; config's optional 'mxu' is the runners' tier.
+  Returns the replicated state."""
   mesh = parallel.make_mesh()
   shards = _t(mesh.shard(batches, dim=1))
   if family == "ica":
     runner = ica._dp_kernel_segment_runner(
-        config["upd_num_iters"], mesh, refine_iters=config["refine_iters"])
+        config["upd_num_iters"], mesh, refine_iters=config["refine_iters"],
+        mxu=config.get("mxu", "highest"))
     return _np(runner(_t(d), _t(v), shards, config["stepsize"]))
   if family == "fc":
     runner = compiled_epoch._dp_fc_segment_runner(

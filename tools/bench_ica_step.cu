@@ -132,11 +132,12 @@ int run(const Buffers& b, int route, int k, int refine, int grid = 0,
     return vtc_ica_train_segment(b.d, b.x, b.r_max, b.batches, b.eye, b.eye2,
                                  k, kB, kN, kStep, refine, upd, boost,
                                  kBoostTol, b.x_alt, b.e, b.codes, b.sgn,
-                                 b.stat, b.m, b.p, b.boost, nullptr);
+                                 b.stat, b.m, b.p, b.boost, kTierHighest,
+                                 nullptr);
   return vtc_ica_persistent_segment(
       b.d, b.x, b.r_max, b.batches, k, kB, kN, kStep, refine, upd, boost,
       kBoostTol, static_cast<float>(kB), b.d_alt, b.x_alt, b.e, b.codes,
-      b.stat, b.partials, b.barrier, grid, nullptr, nullptr);
+      b.stat, b.partials, b.barrier, grid, nullptr, kTierHighest, nullptr);
 }
 
 // ms of one segment of k steps, the best of reps after a warm-up.

@@ -7,10 +7,18 @@ ICA trainers track the inverse warm with Newton-Schulz refinements
 (``newton_refine_inverse``) under a residual guard with an LU fallback
 (``refine_inverse_guarded``).  A singular dictionary gives non-finite
 values here, as it does in vtc_tpu, instead of raising.
+
+The refinements' ``precision`` is vtc_tpu's XLA spelling with the TPU's
+meaning (vtc_tpu/training/ica.py:126-128): 'tensorfloat32' is the 3-pass
+bf16x3 product and 'bfloat16' the single bf16 pass, both computed as
+``ops/precision.ns_dot`` computes them, never as torch's TF32.  On the
+CPU vtc_tpu's XLA runs every precision in float32, so the CPU tests hold
+these passes to vtc_tpu's fused ICA kernel at the same tier, which runs
+the same passes.
 """
 import torch
 
-from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.precision import matmul_precision, ns_dot, xla_tier
 
 
 def _solve_nonortho(images, dictionary):
@@ -34,14 +42,24 @@ def newton_refine_inverse(dictionary, inverse_estimate, num_iters=5,
                           precision=None):
   """Warm inverse tracking: ``X <- X (2I - D X)`` num_iters times, which
   squares the residual ``I - D X`` each time.  ``precision`` is the
-  matmul precision of the refinements (default 'highest')."""
-  with matmul_precision(precision):
-    x = inverse_estimate
-    eye2 = 2.0 * torch.eye(dictionary.shape[0], dtype=x.dtype,
-                           device=x.device)
-    for _ in range(int(num_iters)):
-      x = x @ (eye2 - dictionary @ x)
-    return x
+  refinements' XLA precision (default 'highest'; see the module
+  docstring)."""
+  return newton_refine_tier(dictionary, inverse_estimate, num_iters,
+                            xla_tier(precision))
+
+
+def newton_refine_tier(dictionary, inverse_estimate, num_iters, mxu,
+                       precision=None):
+  """``newton_refine_inverse`` with each product at the tier ``mxu``
+  (``ns_dot``, vtc_tpu's fused ICA kernel's ``ns_body``,
+  pallas_ica_train.py:142-143); at 'highest' the products run at the
+  matmul ``precision`` (torch's meaning, default 'highest')."""
+  x = inverse_estimate
+  eye2 = 2.0 * torch.eye(dictionary.shape[0], dtype=x.dtype, device=x.device)
+  for _ in range(int(num_iters)):
+    x = ns_dot(x, eye2 - ns_dot(dictionary, x, mxu, precision), mxu,
+               precision)
+  return x
 
 
 def inverse_residual(dictionary, inverse_estimate):

@@ -83,6 +83,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "bf16_terms.cuh"
 #include "conv_gemm.cuh"
 #include "tier_codes.cuh"
 
@@ -102,27 +103,6 @@ __host__ __device__ constexpr int conv_tier_terms(int tier) {
 inline long long conv_tier_plane_words(int m, int k) {
   return static_cast<long long>((m + kBM - 1) / kBM * kBM) *
          ((k + 15) / 16 * 16) / 2;
-}
-
-__device__ __forceinline__ uint16_t conv_bf16_bits(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float conv_bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// The terms of v: hi; then lo = bf16(v - hi) (bf16x3) or mid and lo of the
-// exact split (bf16x5), each residual in float32.
-template <int TERMS>
-__device__ __forceinline__ void conv_split_bits(float v, uint16_t (&t)[TERMS]) {
-  t[0] = conv_bf16_bits(v);
-  if constexpr (TERMS >= 2) {
-    const float r = __fsub_rn(v, conv_bf16_round(v));
-    t[1] = conv_bf16_bits(r);
-    if constexpr (TERMS == 3)
-      t[2] = conv_bf16_bits(__fsub_rn(r, conv_bf16_round(r)));
-  }
 }
 
 // A (m x k, row-major fp32) split into TERMS planes of plane_words words
@@ -152,22 +132,13 @@ __global__ void conv_tier_fold_kernel(const float* __restrict__ a, int m,
                          ? a[static_cast<long long>(row) * k + kk + 1]
                          : 0.0f;
     uint16_t t0[TERMS], t1[TERMS];
-    conv_split_bits<TERMS>(v0, t0);
-    conv_split_bits<TERMS>(v1, t1);
+    split_bits<TERMS>(v0, t0);
+    split_bits<TERMS>(v1, t1);
 #pragma unroll
     for (int p = 0; p < TERMS; ++p)
       planes[p * plane_words + w] =
           static_cast<uint32_t>(t0[p]) | (static_cast<uint32_t>(t1[p]) << 16);
   }
-}
-
-// c += a b over one m16n8k16 tile: bf16 operands, float32 accumulation.
-__device__ __forceinline__ void conv_mma_bf16(float (&c)[4], const uint4& a,
-                                              const uint2& b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y));
 }
 
 // A 16-byte cp.async (the planes are whole 16-byte pieces).
@@ -375,10 +346,10 @@ __global__ void __launch_bounds__(tier_threads(BN))
     for (int j = 0; j < 4; ++j) {
       const float* bcol = bs_s + nb + j * 8;
       uint16_t t0[kTerms], t1[kTerms], t2[kTerms], t3[kTerms];
-      conv_split_bits<kTerms>(bcol[kb * kBS], t0);
-      conv_split_bits<kTerms>(bcol[(kb + 1) * kBS], t1);
-      conv_split_bits<kTerms>(bcol[(kb + 8) * kBS], t2);
-      conv_split_bits<kTerms>(bcol[(kb + 9) * kBS], t3);
+      split_bits<kTerms>(bcol[kb * kBS], t0);
+      split_bits<kTerms>(bcol[(kb + 1) * kBS], t1);
+      split_bits<kTerms>(bcol[(kb + 8) * kBS], t2);
+      split_bits<kTerms>(bcol[(kb + 9) * kBS], t3);
       uint2 bt[kTerms];
 #pragma unroll
       for (int t = 0; t < kTerms; ++t) {
@@ -391,13 +362,13 @@ __global__ void __launch_bounds__(tier_threads(BN))
       for (int i = 0; i < 2; ++i) {
         // hi x hi of this step from zero, then one round-to-nearest add
         float hh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        conv_mma_bf16(hh, a[i][0], bt[0]);
+        mma_bf16(hh, a[i][0], bt[0]);
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           acc[i][j][c] = __fadd_rn(acc[i][j][c], hh[c]);
 #pragma unroll
         for (int r = 0; r < kSmall; ++r)
-          conv_mma_bf16(acc_lo[i][j], a[i][kPassA[r]], bt[kPassB[r]]);
+          mma_bf16(acc_lo[i][j], a[i][kPassA[r]], bt[kPassB[r]]);
       }
     }
     __syncthreads();

@@ -84,6 +84,7 @@
 
 #include <cuda_bf16.h>
 
+#include "bf16_terms.cuh"
 #include "fista_core.cuh"
 
 namespace {
@@ -93,11 +94,6 @@ constexpr int kTierTiles = kColBlock / 8 / kTierWarps;  // n8 tiles a warp
 static_assert(kRows == 16, "a block's rows are one m16 tile");
 static_assert(kTierTiles == 4, "a warp owns 32 columns of a column block");
 static_assert(kChunk % 16 == 0, "sk is whole k16 steps");
-
-// bf16 terms of one operand at a tier: 1 at bf16, 2 at bf16x3, 3 at bf16x5.
-__host__ __device__ constexpr int tier_terms(int tier) {
-  return tier == kTierBf16 ? 1 : tier == kTierBf16x3 ? 2 : 3;
-}
 
 // Floats of gn scratch the tier's planes take for a padded (sk, sc) -eta G:
 // tier_terms bf16 planes of sk x sc, at least the classic route's sk x sc.
@@ -120,26 +116,6 @@ __host__ __device__ inline int tier_smem(int tier, int sk, bool state_smem) {
 // Whether the block's state fits its shared memory beside the z terms.
 __host__ __device__ inline bool tier_state_in_smem(int tier, int sk) {
   return tier_smem(tier, sk, true) <= kSmemPerBlock;
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ uint16_t bf16_bits(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-
-// The terms of v: hi; then lo = bf16(v - hi) (bf16x3) or mid and lo of the
-// exact split (bf16x5), each residual in float32.
-template <int TERMS>
-__device__ __forceinline__ void split_bits(float v, uint16_t (&t)[TERMS]) {
-  t[0] = bf16_bits(v);
-  if constexpr (TERMS >= 2) {
-    const float r = __fsub_rn(v, bf16_round(v));
-    t[1] = bf16_bits(r);
-    if constexpr (TERMS == 3) t[2] = bf16_bits(__fsub_rn(r, bf16_round(r)));
-  }
 }
 
 // -eta G (float32, padded with zeros to (sk, sc)), split into the tier's
@@ -199,15 +175,6 @@ __device__ __forceinline__ void split_rows(const float* z, int sk,
       terms[p * words + w] =
           static_cast<uint32_t>(lo[p]) | (static_cast<uint32_t>(hi[p]) << 16);
   }
-}
-
-// c += a b over one m16n8k16 tile: bf16 operands, float32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a,
-                                         const uint2& b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y));
 }
 
 // The variant as a run-time argument (fista_core.cuh's templates do the

@@ -83,7 +83,17 @@
 // steps route keeps one C loop per segment, K17's layout.  The residual
 // depends on the replicated D and X alone, so r_max is the same on every
 // rank.
+//
+// The tiers.  Every C entry takes the tier of the refreshes and the codes
+// (tier_codes.cuh; vtc_tpu's _make_ns_dot, ica_segment.cuh says what each
+// computes): the persistent route launches the segment kernel's build for
+// it, and refine_and_stat launches ica_segment.cuh's tier tile for the
+// refreshes and the codes (ica_tier_gemm), one CTA a tile, in place of
+// train_core.cuh's float32 gemm; the residual, the statistic and the
+// update stay float32 on both routes.  So the two routes give the same
+// bits at every tier.
 #include "ica_segment.cuh"
+#include "tier_codes.cuh"
 #include "train_core.cuh"
 
 namespace {
@@ -161,26 +171,39 @@ struct InverseBuffers {
   float* other;
 };
 
+// A tier code the entries take.
+bool valid_tier(int tier) {
+  return tier == kTierHighest || tier == kTierBf16 || tier == kTierBf16x3 ||
+         tier == kTierBf16x5;
+}
+
 // The first half of a step, which K8 and K9 share: refine_iters
 // Newton-Schulz refreshes of X, the residual max |D X - I| into r_max
 // (with the device-decided boost of two more refreshes and a second
 // residual when has_boost), codes = batch X, sgn = sign(codes) and
-// stat = codes^T sgn, unaveraged.  The boost's two refreshes leave X in
-// the buffer it was in.  Returns the first CUDA error code (0 on success).
+// stat = codes^T sgn, unaveraged; the refreshes and the codes at the
+// tier.  The boost's two refreshes leave X in the buffer it was in.
+// Returns the first CUDA error code (0 on success).
 int refine_and_stat(const float* d, InverseBuffers* x, float* r_max,
                     const float* xs, const float* eye, const float* eye2,
                     int b, int n, int refine_iters, int has_boost,
                     float boost_tol, float* e, float* codes, float* sgn,
-                    float* stat, int* boost, cudaStream_t stream) {
+                    float* stat, int* boost, int tier, cudaStream_t stream) {
   const int nn = n * n;
+  const bool tiered = tier != kTierHighest;
   cudaError_t err;
   // one refresh, X <- X (2I - D X), optionally conditional on *run_if
   auto refresh = [&](const int* run_if) -> cudaError_t {
-    cudaError_t e1 = gemm<false, false, true>(d, x->cur, eye2, e, n, n, n,
-                                              stream, run_if);
+    cudaError_t e1 =
+        tiered ? ica_tier_gemm(tier, true, d, x->cur, e, n, n, n, run_if,
+                               stream)
+               : gemm<false, false, true>(d, x->cur, eye2, e, n, n, n, stream,
+                                          run_if);
     if (e1 != cudaSuccess) return e1;
-    e1 = gemm<false, false>(x->cur, e, nullptr, x->other, n, n, n, stream,
-                            run_if);
+    e1 = tiered ? ica_tier_gemm(tier, false, x->cur, e, x->other, n, n, n,
+                                run_if, stream)
+                : gemm<false, false>(x->cur, e, nullptr, x->other, n, n, n,
+                                     stream, run_if);
     float* t = x->cur;
     x->cur = x->other;
     x->other = t;
@@ -199,7 +222,10 @@ int refine_and_stat(const float* d, InverseBuffers* x, float* r_max,
                                                       0.0f, boost);
     VTC_CHECK(cudaGetLastError());
   }
-  VTC_CHECK(gemm<false, false>(xs, x->cur, nullptr, codes, b, n, n, stream));
+  VTC_CHECK(tiered ? ica_tier_gemm(tier, false, xs, x->cur, codes, b, n, n,
+                                   nullptr, stream)
+                   : gemm<false, false>(xs, x->cur, nullptr, codes, b, n, n,
+                                        stream));
   sign_kernel<<<(b * n + 255) / 256, 256, 0, stream>>>(codes, sgn, b * n);
   VTC_CHECK(cudaGetLastError());
   VTC_CHECK(gemm<true, false>(codes, sgn, nullptr, stat, n, n, b, stream));
@@ -217,16 +243,18 @@ extern "C" {
 // residual maximum (the caller zeroes it).  batches (k, b, n); eye and
 // eye2 (n, n) hold I and 2I.  Scratch: x_alt and e (n, n), codes and sgn
 // (b, n), stat, m and p (n, n), boost (1,) int.  has_boost: run the
-// residual-adaptive boost at boost_tol.  Returns the first CUDA error code
-// (0 on success).
+// residual-adaptive boost at boost_tol.  tier: of the refreshes and the
+// codes.  Returns the first CUDA error code (0 on success).
 int vtc_ica_train_segment(float* d, float* x, float* r_max,
                           const float* batches, const float* eye,
                           const float* eye2, int k, int b, int n,
                           float stepsize, int refine_iters, int upd_num_iters,
                           int has_boost, float boost_tol, float* x_alt,
                           float* e, float* codes, float* sgn, float* stat,
-                          float* m, float* p, int* boost, void* stream_ptr) {
-  if (k < 0 || b < 1 || n < 1 || refine_iters < 0 || upd_num_iters < 0)
+                          float* m, float* p, int* boost, int tier,
+                          void* stream_ptr) {
+  if (k < 0 || b < 1 || n < 1 || refine_iters < 0 || upd_num_iters < 0 ||
+      !valid_tier(tier))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int nn = n * n;
@@ -237,7 +265,7 @@ int vtc_ica_train_segment(float* d, float* x, float* r_max,
     const float* xs = batches + static_cast<int64_t>(step) * b * n;
     const int front_err = refine_and_stat(
         d, &inv, r_max, xs, eye, eye2, b, n, refine_iters, has_boost,
-        boost_tol, e, codes, sgn, stat, boost, stream);
+        boost_tol, e, codes, sgn, stat, boost, tier, stream);
     if (front_err != 0) return front_err;
     natural_gradient_kernel<<<(nn + 255) / 256, 256, 0, stream>>>(stat, m, n,
                                                                   fb);
@@ -261,21 +289,21 @@ int vtc_ica_train_segment(float* d, float* x, float* r_max,
 // dictionary.  d is read only; x (n, n) is refreshed in place; res (1,),
 // zeroed by the caller, receives the post-refinement residual (NaN kept).
 // Scratch: x_alt and e (n, n), codes and sgn (b, n), boost (1,) int.
-// Returns the first CUDA error code.
+// tier: of the refreshes and the codes.  Returns the first CUDA error code.
 int vtc_ica_solve_stats(const float* d, float* x, float* res,
                         const float* batch, const float* eye,
                         const float* eye2, int b, int n, int refine_iters,
                         int has_boost, float boost_tol, float* x_alt,
                         float* e, float* codes, float* sgn, float* stat,
-                        int* boost, void* stream_ptr) {
-  if (b < 1 || n < 1 || refine_iters < 0)
+                        int* boost, int tier, void* stream_ptr) {
+  if (b < 1 || n < 1 || refine_iters < 0 || !valid_tier(tier))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   InverseBuffers inv{x, x_alt};
   cudaError_t err;
   const int front_err = refine_and_stat(
       d, &inv, res, batch, eye, eye2, b, n, refine_iters, has_boost,
-      boost_tol, e, codes, sgn, stat, boost, stream);
+      boost_tol, e, codes, sgn, stat, boost, tier, stream);
   if (front_err != 0) return front_err;
   if (inv.cur != x)
     VTC_CHECK(cudaMemcpyAsync(x, inv.cur, sizeof(float) * n * n,
@@ -288,8 +316,8 @@ int vtc_ica_solve_stats(const float* d, float* x, float* res,
 // tracked inverse, r_max (1,) the running residual maximum (the caller
 // zeroes it), all replicated.  comm (n, n) receives each step's unaveraged statistic,
 // summed over the ranks by sum_hook (when given) before the update;
-// global_b is the batch over all ranks.  eye, eye2 and the scratch as
-// vtc_ica_train_segment's.  Returns the first CUDA error code (0 on
+// global_b is the batch over all ranks.  eye, eye2, the scratch and tier
+// as vtc_ica_train_segment's.  Returns the first CUDA error code (0 on
 // success), or kSumHookFailed.
 int vtc_ica_dp_train_segment(float* d, float* x, float* r_max,
                              const float* batches, const float* eye,
@@ -299,9 +327,9 @@ int vtc_ica_dp_train_segment(float* d, float* x, float* r_max,
                              float boost_tol, float global_b, float* x_alt,
                              float* e, float* codes, float* sgn, float* m,
                              float* p, int* boost, float* comm,
-                             SumHook sum_hook, void* stream_ptr) {
+                             SumHook sum_hook, int tier, void* stream_ptr) {
   if (k < 0 || b < 1 || n < 1 || refine_iters < 0 || upd_num_iters < 0 ||
-      !(global_b >= 1.0f))
+      !(global_b >= 1.0f) || !valid_tier(tier))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int nn = n * n;
@@ -311,7 +339,7 @@ int vtc_ica_dp_train_segment(float* d, float* x, float* r_max,
     const float* xs = batches + static_cast<int64_t>(step) * b * n;
     const int front_err = refine_and_stat(
         d, &inv, r_max, xs, eye, eye2, b, n, refine_iters, has_boost,
-        boost_tol, e, codes, sgn, comm, boost, stream);
+        boost_tol, e, codes, sgn, comm, boost, tier, stream);
     if (front_err != 0) return front_err;
     if (sum_hook != nullptr && sum_hook(step) != 0) return kSumHookFailed;
     natural_gradient_kernel<<<(nn + 255) / 256, 256, 0, stream>>>(
@@ -361,9 +389,10 @@ int vtc_ica_segment_grid(int n, int b) {
 // vtc_ica_segment_grid(n, b) (another count is for checks and tools).
 // Without sum_hook the segment is one launch; with it each step is a front
 // launch (to the statistic), sum_hook(step), then a back launch (the
-// update).  Returns the first CUDA error code (0 on success; a grid the
-// card cannot hold at once is refused, cudaErrorCooperativeLaunchTooLarge),
-// or kSumHookFailed.
+// update).  tier: the build of the kernel (its refreshes and codes).
+// Returns the first CUDA error code (0 on success; a grid the card cannot
+// hold at once is refused, cudaErrorCooperativeLaunchTooLarge), or
+// kSumHookFailed.
 int vtc_ica_persistent_segment(float* d, float* x, float* r_max,
                                const float* batches, int k, int b, int n,
                                float stepsize, int refine_iters,
@@ -372,10 +401,10 @@ int vtc_ica_persistent_segment(float* d, float* x, float* r_max,
                                float* x_alt, float* e, float* codes,
                                float* stat, float* partials,
                                unsigned* barrier, int grid,
-                               SumHook sum_hook, void* stream_ptr) {
+                               SumHook sum_hook, int tier, void* stream_ptr) {
   if (k < 0 || b < 1 || n < 1 || refine_iters < 0 || upd_num_iters < 0 ||
       grid < 0 || !(stat_div >= 1.0f) ||
-      (sum_hook != nullptr && stat == nullptr))
+      (sum_hook != nullptr && stat == nullptr) || !valid_tier(tier))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (grid == 0) grid = vtc_ica_segment_grid(n, b);
@@ -399,18 +428,18 @@ int vtc_ica_persistent_segment(float* d, float* x, float* r_max,
   };
   cudaError_t err;
   if (sum_hook == nullptr) {
-    if (k > 0) VTC_CHECK(launch_ica_segment(a, grid, stream));
+    if (k > 0) VTC_CHECK(launch_ica_segment(a, grid, tier, stream));
     advance(k, a.parts);
   } else {
     a.steps = 1;
     for (int step = 0; step < k; ++step) {
       a.batches = batches + static_cast<int64_t>(step) * b * n;
       a.parts = kSegFront;
-      VTC_CHECK(launch_ica_segment(a, grid, stream));
+      VTC_CHECK(launch_ica_segment(a, grid, tier, stream));
       advance(1, a.parts);
       if (sum_hook(step) != 0) return kSumHookFailed;
       a.parts = kSegBack;
-      VTC_CHECK(launch_ica_segment(a, grid, stream));
+      VTC_CHECK(launch_ica_segment(a, grid, tier, stream));
       advance(1, a.parts);
     }
   }

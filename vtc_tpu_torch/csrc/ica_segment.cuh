@@ -70,11 +70,47 @@
 // The grid barrier is grid_sync.cuh's seg_grid_sync, its arrival counter
 // zeroed by the host before each launch; the cp.async helpers are that
 // header's too.
+//
+// The tiers.  K8, K9 and K18 at bf16x5, bf16x3 and bf16 build their
+// refreshes (the boost's too) and the codes with vtc_tpu's _make_ns_dot
+// (pallas_ica_train.py:57-83): both operands of each product split into
+// bf16 terms (bf16_terms.cuh), the single-pass products summed in
+// float32: bf16, a b; bf16x3, a_hi b_hi + a_lo b_hi + a_hi b_lo; bf16x5,
+// a1 b1 + a2 b1 + a1 b2 + a3 b1 + a1 b3.  The guard residual D X - I,
+// the statistic and the update stay float32.  The tier is a template
+// parameter of the kernel (a run-time tier made ptxas spill the solve's
+// tier kernel, fista_tier.cuh), so 'highest' is the float32 code above,
+// unchanged.  The tier tile (seg_tier_tile_product):
+//  * The same 32 x 16 output tiles, ring and copies as the float32 tile:
+//    32-deep float32 slices of A and B land in shared memory by cp.async.
+//  * Each of the CTA's 4 warps owns one m16n8 tile of the output (rows
+//    16 (w >> 1).., columns 8 (w & 1)..) and, per 16-deep step, reads its
+//    A and B fragments from the slice, splits each element into its bf16
+//    terms as it builds them and issues the tier's mma.sync m16n8k16
+//    passes: the hi x hi pass of each step from zero, added to its
+//    accumulator with a round-to-nearest add (the tensor cores round an
+//    accumulation toward zero, tools/conv_tier_rounding.py), the smaller
+//    passes into a second accumulator, the two added at the end
+//    (conv_gemm_tier.cuh's order, which ops/precision.ns_dot follows).
+//  * The residual and codes phase keeps its tiles and its one barrier,
+//    but not their pairing: tile t's rows of D X go through the float32
+//    tile (the residual epilogue alone), then its rows of batch X
+//    through the tier tile.  So seg_step_phases and the grid are the same
+//    at every tier.
+//  * The per-step route (fused_ica_train_step.cu) launches the same tier
+//    tile, one CTA a tile (ica_tier_gemm), so the two routes give the
+//    same bits at every tier, as at 'highest'.
+// What bounds it: a tier's passes at the bf16 tensor-core rate take
+// (3 refreshes x 2 + codes) x 2 n^2 (n or b) x passes FLOP, 0.2-1 us a
+// step at n 256, b 250; the phases' barriers and the operand builds
+// (8-byte shared reads, a split per element) bound it, as the fp32 tile's
+// shared-memory pipe bounds 'highest'.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_terms.cuh"
 #include "grid_sync.cuh"
 
 namespace {
@@ -104,6 +140,7 @@ enum SegEpilogue {
   kSegResidualCodes = 3,  // r = nan_max(r, |acc - I|) for the first A
                           // source, out = acc (the codes) for the second
   kSegNatGrad = 4,   // out = acc / div - I, the natural gradient's M
+  kSegResidual = 5,  // r = nan_max(r, |acc - I|) (the tiers' residual)
 };
 
 // Tiles of an (m, n) output.
@@ -484,7 +521,7 @@ __device__ __forceinline__ void seg_tile(SegSmem& sm, int t, const SegA& A,
         out[at] = acc[rr][c];
       } else if (kEpi == kSegTwoIMinus) {
         out[at] = (i == j ? 2.0f : 0.0f) - acc[rr][c];
-      } else if (kEpi == kSegResidualCodes) {
+      } else if (kEpi == kSegResidualCodes || kEpi == kSegResidual) {
         r = seg_nan_max(r, fabsf(acc[rr][c] - (i == j ? 1.0f : 0.0f)));
       } else if (kEpi == kSegNatGrad) {
         out[at] = __fsub_rn(acc[rr][c] / div, i == j ? 1.0f : 0.0f);
@@ -519,34 +556,199 @@ __device__ __forceinline__ void seg_phase(SegSmem& sm, int tiles,
     seg_tile<kA, kB, kEpi>(sm, t, A, B, N, K, div, out, old, eta, r);
 }
 
-// One refresh, X' = X (2I - D X): two phases.  Swaps x and x_alt.
+// A warp's A and B fragments of one 16-deep step (depth kk of ring stage
+// st), each element split into its TERMS bf16 terms: a[p] register r
+// holds term p of rows row + 8 (r & 1), depths kk + 2 (l & 3) + 8 (r >>
+// 1) + {0, 1}; b[p] register e of depths kk + 2 (l & 3) + 8 e + {0, 1} of
+// column col (the lower depth in the low half; mma.sync m16n8k16's .row
+// .col layouts).
+template <int TERMS>
+__device__ __forceinline__ void seg_tier_fragments(const SegSmem& sm, int st,
+                                                   int kk, int row, int col,
+                                                   uint4 (&a)[TERMS],
+                                                   uint2 (&b)[TERMS]) {
+  const int k = kk + 2 * (threadIdx.x & 3);
+  uint32_t aw[TERMS][4], bw[TERMS][2];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float2 v = *reinterpret_cast<const float2*>(
+        &sm.a[st][row + 8 * (r & 1)][k + 8 * (r >> 1)]);
+    uint16_t lo[TERMS], hi[TERMS];
+    split_bits<TERMS>(v.x, lo);
+    split_bits<TERMS>(v.y, hi);
+#pragma unroll
+    for (int p = 0; p < TERMS; ++p)
+      aw[p][r] = static_cast<uint32_t>(lo[p]) |
+                 (static_cast<uint32_t>(hi[p]) << 16);
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    uint16_t lo[TERMS], hi[TERMS];
+    split_bits<TERMS>(sm.b[st][k + 8 * e][col], lo);
+    split_bits<TERMS>(sm.b[st][k + 8 * e + 1][col], hi);
+#pragma unroll
+    for (int p = 0; p < TERMS; ++p)
+      bw[p][e] = static_cast<uint32_t>(lo[p]) |
+                 (static_cast<uint32_t>(hi[p]) << 16);
+  }
+#pragma unroll
+  for (int p = 0; p < TERMS; ++p) {
+    a[p] = make_uint4(aw[p][0], aw[p][1], aw[p][2], aw[p][3]);
+    b[p] = make_uint2(bw[p][0], bw[p][1]);
+  }
+}
+
+// c = the tier's product of A (M, K) and B (K, N) over this warp's m16n8
+// tile of the 32 x 16 output tile at (i0, j0): c[2 h + e] is row i0 + 16
+// (w >> 1) + (l >> 2) + 8 h, column j0 + 8 (w & 1) + 2 (l & 3) + e.  The
+// 16-deep steps run from k = 0 in order and stop at K (the last one
+// zero-filled past it); each step's hi x hi pass is one mma from zero,
+// the first taken as it is and the others added round-to-nearest, the
+// smaller passes accumulate in lo, and c = hi + lo.  Every thread of the
+// CTA must call it.
+template <int TIER>
+__device__ __forceinline__ void seg_tier_tile_product(
+    SegSmem& sm, const float* __restrict__ A, int M,
+    const float* __restrict__ B, int N, int K, int i0, int j0,
+    float (&c)[4]) {
+  constexpr int kTerms = tier_terms(TIER);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = 16 * (warp >> 1) + (lane >> 2);
+  const int col = 8 * (warp & 1) + (lane >> 2);
+  float hi[4] = {0.0f, 0.0f, 0.0f, 0.0f}, lo[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const SegA sa{A, A, M, 0};
+  const SegCopy mode = seg_copy_mode<kSegA>(sa, B, N, K);
+  const int slices = (K + kSegSlice - 1) / kSegSlice;
+  auto issue = [&](int s) {
+    seg_load_a<kSegA, false>(sm, mode, s % kSegStages, sa, K, i0,
+                             s * kSegSlice);
+    seg_load_b(sm, mode, s % kSegStages, B, N, K, j0, s * kSegSlice);
+  };
+#pragma unroll 1
+  for (int s = 0; s < kSegStages - 1; ++s) {
+    if (s < slices) issue(s);
+    seg_cp_async_commit();
+  }
+#pragma unroll 1
+  for (int s = 0; s < slices; ++s) {
+    const int st = s % kSegStages;
+    if (s + kSegStages - 1 < slices) issue(s + kSegStages - 1);
+    seg_cp_async_commit();
+    seg_cp_async_wait<kSegStages - 1>();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kSegSlice; kk += 16) {
+      if (s * kSegSlice + kk >= K) break;
+      uint4 a[kTerms];
+      uint2 b[kTerms];
+      seg_tier_fragments<kTerms>(sm, st, kk, row, col, a, b);
+      float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_bf16(t, a[0], b[0]);
+      const bool first = s == 0 && kk == 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) hi[q] = first ? t[q] : __fadd_rn(hi[q], t[q]);
+      if constexpr (kTerms >= 2) {
+        mma_bf16(lo, a[1], b[0]);
+        mma_bf16(lo, a[0], b[1]);
+      }
+      if constexpr (kTerms == 3) {
+        mma_bf16(lo, a[2], b[0]);
+        mma_bf16(lo, a[0], b[2]);
+      }
+    }
+    // the stage is copied into again only when the ring wraps
+    if (slices > kSegStages) __syncthreads();
+  }
+  __syncthreads();  // the next tile's copies reuse the ring
+#pragma unroll
+  for (int q = 0; q < 4; ++q) c[q] = kTerms == 1 ? hi[q] : __fadd_rn(hi[q], lo[q]);
+}
+
+// Tile t of an (M, N) output at the tier, K deep, into out: stored
+// (kSegStore) or 2I - the product (kSegTwoIMinus), the float32 tile's
+// epilogue expressions.
+template <int TIER, int kEpi>
+__device__ __forceinline__ void seg_tier_tile(SegSmem& sm, int t,
+                                              const float* A, int M,
+                                              const float* B, int N, int K,
+                                              float* __restrict__ out) {
+  static_assert(kEpi == kSegStore || kEpi == kSegTwoIMinus, "epilogue");
+  const int tiles_n = (N + kSegTileN - 1) / kSegTileN;
+  const int i0 = (t / tiles_n) * kSegTileM;
+  const int j0 = (t % tiles_n) * kSegTileN;
+  float c[4];
+  seg_tier_tile_product<TIER>(sm, A, M, B, N, K, i0, j0, c);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + 16 * (warp >> 1) + (lane >> 2) + 8 * h;
+    if (i >= M) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = j0 + 8 * (warp & 1) + 2 * (lane & 3) + e;
+      if (j >= N) continue;
+      const float v = c[2 * h + e];
+      out[static_cast<int64_t>(i) * N + j] =
+          kEpi == kSegTwoIMinus ? (i == j ? 2.0f : 0.0f) - v : v;
+    }
+  }
+}
+
+// One refresh, X' = X (2I - D X): two phases, at the tier.  Swaps x and
+// x_alt.
+template <int TIER>
 __device__ __forceinline__ void seg_refresh(SegSmem& sm,
                                             const SegmentArgs& p,
                                             const float* d, float*& x,
                                             float*& x_alt, unsigned& target) {
   const int n = p.n, tiles = seg_tiles(n, n);
-  float unused = 0.0f;
-  seg_phase<kSegA, kSegB, kSegTwoIMinus>(sm, tiles, SegA{d, d, n, 0}, x, n,
-                                         n, 1.0f, p.e, nullptr, 0.0f, unused);
-  seg_grid_sync(p.barrier, target);
-  seg_phase<kSegA, kSegB, kSegStore>(sm, tiles, SegA{x, x, n, 0}, p.e, n, n,
-                                     1.0f, x_alt, nullptr, 0.0f, unused);
-  seg_grid_sync(p.barrier, target);
+  if constexpr (TIER == kTierHighest) {
+    float unused = 0.0f;
+    seg_phase<kSegA, kSegB, kSegTwoIMinus>(sm, tiles, SegA{d, d, n, 0}, x, n,
+                                           n, 1.0f, p.e, nullptr, 0.0f,
+                                           unused);
+    seg_grid_sync(p.barrier, target);
+    seg_phase<kSegA, kSegB, kSegStore>(sm, tiles, SegA{x, x, n, 0}, p.e, n,
+                                       n, 1.0f, x_alt, nullptr, 0.0f, unused);
+    seg_grid_sync(p.barrier, target);
+  } else {
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+      seg_tier_tile<TIER, kSegTwoIMinus>(sm, t, d, n, x, n, n, p.e);
+    seg_grid_sync(p.barrier, target);
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+      seg_tier_tile<TIER, kSegStore>(sm, t, x, n, p.e, n, n, x_alt);
+    seg_grid_sync(p.barrier, target);
+  }
   float* tmp = x;
   x = x_alt;
   x_alt = tmp;
 }
 
 // The residual max |D X - I| (returned, the same in every CTA) and codes
-// = batch X, one phase of paired tiles.
+// = batch X, one phase: at 'highest' of paired tiles; at a tier tile t's
+// rows of D X in float32, then its rows of batch X at the tier.
+template <int TIER>
 __device__ __forceinline__ float seg_residual_and_codes(
     SegSmem& sm, const SegmentArgs& p, const float* d, const float* x,
     const float* xs, unsigned& target) {
   const int n = p.n;
   float r = 0.0f;
-  seg_phase<kSegA, kSegB, kSegResidualCodes>(
-      sm, seg_pair_tiles(n, p.b), SegA{d, xs, n, p.b}, x, n, n, 1.0f,
-      p.codes, nullptr, 0.0f, r);
+  if constexpr (TIER == kTierHighest) {
+    seg_phase<kSegA, kSegB, kSegResidualCodes>(
+        sm, seg_pair_tiles(n, p.b), SegA{d, xs, n, p.b}, x, n, n, 1.0f,
+        p.codes, nullptr, 0.0f, r);
+  } else {
+    const int tiles_n = (n + kSegTileN - 1) / kSegTileN;
+    for (int t = blockIdx.x; t < seg_pair_tiles(n, p.b); t += gridDim.x) {
+      const int i0 = (t / tiles_n) * kSegTileM;
+      if (i0 < n)
+        seg_tile<kSegA, kSegB, kSegResidual>(sm, t, SegA{d, d, n, 0}, x, n,
+                                             n, 1.0f, nullptr, nullptr, 0.0f,
+                                             r);
+      if (i0 < p.b)
+        seg_tier_tile<TIER, kSegStore>(sm, t, xs, p.b, x, n, n, p.codes);
+    }
+  }
   r = seg_block_max(r, sm);
   if (threadIdx.x == 0) p.partials[blockIdx.x] = r;
   seg_grid_sync(p.barrier, target);
@@ -557,6 +759,7 @@ __device__ __forceinline__ float seg_residual_and_codes(
   return seg_block_max(r, sm);
 }
 
+template <int TIER>
 __global__ void __launch_bounds__(kSegThreads, 1)
     ica_segment_kernel(SegmentArgs p) {
   extern __shared__ __align__(16) unsigned char seg_smem[];
@@ -573,13 +776,13 @@ __global__ void __launch_bounds__(kSegThreads, 1)
     if (p.parts & kSegFront) {
       const float* xs = p.batches + static_cast<int64_t>(step) * p.b * n;
       for (int it = 0; it < p.refine_iters; ++it)
-        seg_refresh(sm, p, d, x, x_alt, target);
-      const float r = seg_residual_and_codes(sm, p, d, x, xs, target);
+        seg_refresh<TIER>(sm, p, d, x, x_alt, target);
+      const float r = seg_residual_and_codes<TIER>(sm, p, d, x, xs, target);
       if (p.has_boost && r > p.boost_tol) {  // NaN > tol is false
-        seg_refresh(sm, p, d, x, x_alt, target);
-        seg_refresh(sm, p, d, x, x_alt, target);
-        r_max = seg_nan_max(r_max,
-                            seg_residual_and_codes(sm, p, d, x, xs, target));
+        seg_refresh<TIER>(sm, p, d, x, x_alt, target);
+        seg_refresh<TIER>(sm, p, d, x, x_alt, target);
+        r_max = seg_nan_max(
+            r_max, seg_residual_and_codes<TIER>(sm, p, d, x, xs, target));
       } else {
         r_max = seg_nan_max(r_max, r);
       }
@@ -623,8 +826,22 @@ __global__ void __launch_bounds__(kSegThreads, 1)
     *p.r_max = r_max;
 }
 
+// A kernel of the segment kernel's shape with its dynamic shared memory
+// opted in: its resident CTAs per SM into v.
+template <typename Kernel>
+inline cudaError_t seg_occupancy(Kernel kernel, int& v) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(SegSmem)));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &v, kernel, kSegThreads, sizeof(SegSmem));
+  return err;
+}
+
 // The current device's SM count and the segment kernel's resident CTAs
-// per SM (with its dynamic shared memory opted in), read once per device.
+// per SM (the least over its tier builds, so that every tier launches the
+// same grid; their dynamic shared memory opted in), read once per device.
 inline int seg_device_value(int which) {
   static int values[2][64] = {};
   int dev = 0;
@@ -635,12 +852,16 @@ inline int seg_device_value(int which) {
     if (which == 0) {
       err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
     } else {
-      err = cudaFuncSetAttribute(ica_segment_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(sizeof(SegSmem)));
+      int each[4] = {0, 0, 0, 0};
+      err = seg_occupancy(ica_segment_kernel<kTierHighest>, each[0]);
       if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &v, ica_segment_kernel, kSegThreads, sizeof(SegSmem));
+        err = seg_occupancy(ica_segment_kernel<kTierBf16>, each[1]);
+      if (err == cudaSuccess)
+        err = seg_occupancy(ica_segment_kernel<kTierBf16x3>, each[2]);
+      if (err == cudaSuccess)
+        err = seg_occupancy(ica_segment_kernel<kTierBf16x5>, each[3]);
+      v = each[0];
+      for (int t = 1; t < 4; ++t) v = each[t] < v ? each[t] : v;
     }
     if (err != cudaSuccess) v = 0;
   }
@@ -650,24 +871,94 @@ inline int seg_device_value(int which) {
 inline int seg_sm_count() { return seg_device_value(0); }
 inline int seg_blocks_per_sm() { return seg_device_value(1); }
 
-// Launch the segment kernel cooperatively on grid CTAs, its barrier
-// counter zeroed first.  A grid the card cannot hold at once is refused
-// by the launch (cudaErrorCooperativeLaunchTooLarge), never run; the
-// error is returned, and taken off the runtime's last error so that a
-// later launch check does not report it again.
-inline cudaError_t launch_ica_segment(SegmentArgs args, int grid,
+// Launch the segment kernel's build for the tier cooperatively on grid
+// CTAs, its barrier counter zeroed first.  A grid the card cannot hold at
+// once is refused by the launch (cudaErrorCooperativeLaunchTooLarge),
+// never run; the error is returned, and taken off the runtime's last
+// error so that a later launch check does not report it again.
+inline cudaError_t launch_ica_segment(SegmentArgs args, int grid, int tier,
                                       cudaStream_t stream) {
   if (grid < 1 || seg_blocks_per_sm() < 1)
     return cudaErrorInvalidConfiguration;
+  const void* kernel =
+      tier == kTierHighest ? reinterpret_cast<const void*>(
+                                 ica_segment_kernel<kTierHighest>)
+      : tier == kTierBf16  ? reinterpret_cast<const void*>(
+                                ica_segment_kernel<kTierBf16>)
+      : tier == kTierBf16x3
+          ? reinterpret_cast<const void*>(ica_segment_kernel<kTierBf16x3>)
+          : reinterpret_cast<const void*>(ica_segment_kernel<kTierBf16x5>);
   cudaError_t err = cudaMemsetAsync(args.barrier, 0, sizeof(unsigned),
                                     stream);
   if (err != cudaSuccess) return err;
   void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(ica_segment_kernel), dim3(grid),
-      dim3(kSegThreads), params, sizeof(SegSmem), stream);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kSegThreads),
+                                    params, sizeof(SegSmem), stream);
   if (err != cudaSuccess) cudaGetLastError();
   return err;
+}
+
+// The per-step route's tier product: one CTA a 32 x 16 tile of the (M, N)
+// output of A (M, K) and B (K, N), the segment kernel's tier tile and
+// epilogue (so the same bits); nothing unless *run_if when it is given (a
+// branch decided on the device, the boost).
+template <int TIER, int kEpi>
+__global__ void __launch_bounds__(kSegThreads)
+    ica_tier_gemm_kernel(const float* __restrict__ A,
+                         const float* __restrict__ B, float* __restrict__ out,
+                         int M, int N, int K, const int* __restrict__ run_if) {
+  if (run_if != nullptr && *run_if == 0) return;
+  extern __shared__ __align__(16) unsigned char seg_smem[];
+  SegSmem& sm = *reinterpret_cast<SegSmem*>(seg_smem);
+  seg_tier_tile<TIER, kEpi>(sm, blockIdx.x, A, M, B, N, K, out);
+}
+
+template <int TIER, int kEpi>
+inline cudaError_t ica_tier_gemm_at(const float* A, const float* B,
+                                    float* out, int M, int N, int K,
+                                    const int* run_if, cudaStream_t stream) {
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(ica_tier_gemm_kernel<TIER, kEpi>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(sizeof(SegSmem)));
+    if (err != cudaSuccess) return err;
+    opted[dev] = true;
+  }
+  ica_tier_gemm_kernel<TIER, kEpi><<<seg_tiles(M, N), kSegThreads,
+                                     sizeof(SegSmem), stream>>>(
+      A, B, out, M, N, K, run_if);
+  return cudaGetLastError();
+}
+
+// out (M, N) = A (M, K) B (K, N) at the tier (kTierBf16, kTierBf16x3 or
+// kTierBf16x5), stored, or 2I - the product with two_i_minus.
+inline cudaError_t ica_tier_gemm(int tier, bool two_i_minus, const float* A,
+                                 const float* B, float* out, int M, int N,
+                                 int K, const int* run_if,
+                                 cudaStream_t stream) {
+  if (two_i_minus) {
+    if (tier == kTierBf16)
+      return ica_tier_gemm_at<kTierBf16, kSegTwoIMinus>(A, B, out, M, N, K,
+                                                        run_if, stream);
+    if (tier == kTierBf16x3)
+      return ica_tier_gemm_at<kTierBf16x3, kSegTwoIMinus>(A, B, out, M, N, K,
+                                                          run_if, stream);
+    return ica_tier_gemm_at<kTierBf16x5, kSegTwoIMinus>(A, B, out, M, N, K,
+                                                        run_if, stream);
+  }
+  if (tier == kTierBf16)
+    return ica_tier_gemm_at<kTierBf16, kSegStore>(A, B, out, M, N, K, run_if,
+                                                  stream);
+  if (tier == kTierBf16x3)
+    return ica_tier_gemm_at<kTierBf16x3, kSegStore>(A, B, out, M, N, K,
+                                                    run_if, stream);
+  return ica_tier_gemm_at<kTierBf16x5, kSegStore>(A, B, out, M, N, K, run_if,
+                                                  stream);
 }
 
 }  // namespace

@@ -206,16 +206,18 @@ def load_library():
       [ptr] * 6 + [i32] * 8 + [f32, i32, f32, i32, f32] + [i32] * 6 + [f32]
       + [ptr] * 10 + [ptr] + conv_stop + [ptr, ptr] + conv_tier + [ptr])
   lib.vtc_conv_dp_train_segment.restype = i32
+  # the ICA entries take the tier of their refreshes and codes before the
+  # stream
   lib.vtc_ica_train_segment.argtypes = (
       [ptr] * 6 + [i32, i32, i32, f32, i32, i32, i32, f32] + [ptr] * 8
-      + [ptr])
+      + [i32, ptr])
   lib.vtc_ica_train_segment.restype = i32
   lib.vtc_ica_solve_stats.argtypes = (
-      [ptr] * 6 + [i32, i32, i32, i32, f32] + [ptr] * 6 + [ptr])
+      [ptr] * 6 + [i32, i32, i32, i32, f32] + [ptr] * 6 + [i32, ptr])
   lib.vtc_ica_solve_stats.restype = i32
   lib.vtc_ica_dp_train_segment.argtypes = (
       [ptr] * 6 + [i32] * 3 + [f32] + [i32] * 3 + [f32, f32] + [ptr] * 8
-      + [ptr, ptr])
+      + [ptr, i32, ptr])
   lib.vtc_ica_dp_train_segment.restype = i32
   lib.vtc_ica_segment_layout.argtypes = [i32p]
   lib.vtc_ica_segment_layout.restype = None
@@ -226,7 +228,7 @@ def load_library():
   lib.vtc_ica_segment_grid.restype = i32
   lib.vtc_ica_persistent_segment.argtypes = (
       [ptr] * 4 + [i32] * 3 + [f32] + [i32] * 3 + [f32, f32] + [ptr] * 7
-      + [i32, ptr, ptr])
+      + [i32, ptr, i32, ptr])
   lib.vtc_ica_persistent_segment.restype = i32
   lib.vtc_code_shard_split_k.argtypes = []
   lib.vtc_code_shard_split_k.restype = i32

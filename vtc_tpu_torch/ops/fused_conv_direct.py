@@ -63,9 +63,10 @@ import torch
 import torch.nn.functional as F
 
 from vtc_tpu_torch.ops import conv_shapes, thresholds
-from vtc_tpu_torch.ops.precision import (TIER_CODES, _bf16, matmul_precision,
+from vtc_tpu_torch.ops.precision import (TIER_CODES, TIER_PAIRS, _bf16,
+                                         matmul_precision, mma_pass,
                                          resolve_tier, split3, split_hi_lo,
-                                         tier_operand)
+                                         tier_operand, tier_pass_sum)
 from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 launches = 0
@@ -238,31 +239,6 @@ def _product(weights, stack):
   return (weights @ stack.reshape(b, k, h * w)).reshape(b, -1, h, w)
 
 
-# the depth of one tensor-core product (mma.sync m16n8k16)
-_MMA_DEPTH = 16
-
-
-def _hi_pass(weights, stack):
-  """The hi x hi pass as the card's tier kernel sums it: in 16-deep
-  chunks, each chunk's exact sum rounded toward zero to float32 (the
-  tensor cores' rounding of one m16n8k16 product), the chunks added in
-  float32 in order, rounding to nearest."""
-  b, k, h, w = stack.shape
-  q = -(-k // _MMA_DEPTH)
-  pad = q * _MMA_DEPTH - k
-  wq = F.pad(weights.double(), (0, pad)).reshape(-1, q, _MMA_DEPTH)
-  sq = F.pad(stack.double().reshape(b, k, h * w), (0, 0, 0, pad)).reshape(
-      b, q, _MMA_DEPTH, h * w)
-  exact = torch.einsum("mqk,bqkn->qbmn", wq, sq)
-  parts = exact.to(stack.dtype)
-  parts = torch.where(parts.double().abs() > exact.abs(),
-                      torch.nextafter(parts, torch.zeros_like(parts)), parts)
-  acc = parts[0]
-  for part in parts[1:]:
-    acc = acc + part
-  return acc.reshape(b, -1, h, w)
-
-
 def conv_deep_dot(weights, stack, mxu):
   """vtc_tpu's ``deep_dot`` of ``_make_deep_dot(mxu)``: the (m, K) weights,
   as ``tier_operand`` splits them once per solve, times the (b, K, h, w)
@@ -270,9 +246,10 @@ def conv_deep_dot(weights, stack, mxu):
   bf16x3, w_hi b_hi + w_lo b_hi + w_hi b_lo; bf16x5, w_hi b_hi + w_mid
   b_hi + w_hi b_mid + w_lo b_hi + w_hi b_lo.  The products of bf16 values
   are exact; the sums are the card's tier kernel's (vtc_tpu's matrix unit
-  sums in its own order): the hi x hi pass by ``_hi_pass``, the smaller
-  passes together in float64, rounded once and added to it
-  (tools/conv_tier_rounding.py counts the kernel's bits that agree).  At
+  sums in its own order): the hi x hi pass by ``precision.mma_pass``, the
+  smaller passes together in float64, rounded once and added to it
+  (``precision.tier_pass_sum``; tools/conv_tier_rounding.py counts the
+  kernel's bits that agree).  At
   the flagship K10 at bf16x5 the kernel sat 8.3e-5 (Frobenius) from a
   plain version of float32 chains in vtc_tpu's order, where phase 46's
   control asks within 7.0e-5, a fifth of the tier's effect; summed as the
@@ -283,14 +260,14 @@ def conv_deep_dot(weights, stack, mxu):
   with matmul_precision("highest"):
     if tier == "highest":
       return _product(weights[0], stack)
+    b, k, h, w = stack.shape
+    flat = stack.reshape(b, k, h * w)
     if tier == "bf16":
-      return _hi_pass(weights[0], _bf16(stack))
-    terms = split_hi_lo(stack) if tier == "bf16x3" else split3(stack)
-    pairs = (((1, 0), (0, 1)) if tier == "bf16x3"
-             else ((1, 0), (0, 1), (2, 0), (0, 2)))
-    lo = sum(_product(weights[i].double(), terms[j].double())
-             for i, j in pairs)
-    return _hi_pass(weights[0], terms[0]) + lo.to(stack.dtype)
+      out = mma_pass(weights[0], _bf16(flat))
+    else:
+      terms = split_hi_lo(flat) if tier == "bf16x3" else split3(flat)
+      out = tier_pass_sum(weights, terms, TIER_PAIRS[tier], stack.dtype)
+    return out.reshape(b, -1, h, w)
 
 
 def _block_solve(products, images, dictionary, sparsity_weight, num_iters,

@@ -26,10 +26,18 @@ reads it (training/ica.py).
 
 ``fused_ica_segment_supported`` keeps vtc_tpu's "square" and drops its
 TPU rules, the 128-lane alignment of n and the VMEM budget (:86-98): the
-card's kernels take any n and batch.  Left out: the ``mxu`` tiers other
-than 'highest' raise NotImplementedError (ROADMAP.md §1 item 3a.2.3), and the
-TPU's ``interpret`` has no counterpart.  ``launches`` counts the train
-steps the kernels ran.
+card's kernels take any n and batch.  Left out: the TPU's ``interpret``,
+which has no counterpart.  ``launches`` counts the train steps the kernels
+ran, ``tier_launches`` those at a tier.
+
+The tiers.  ``mxu`` 'bf16x5', 'bf16x3' and 'bf16' ('default' is 'bf16')
+are vtc_tpu's ``_make_ns_dot`` (:57-83): the Newton-Schulz refreshes (the
+boost's too) and the codes product split both operands into bf16 terms
+per product and sum single-pass bf16 products (``ops/precision.ns_dot``,
+the plain versions' product); the guard residual max|D X - I|, the
+statistic and the update stay float32.  A CUDA tensor runs them on the
+card's bf16 tensor cores (``csrc/ica_segment.cuh``'s tier tile, on both
+routes, or raises); a CPU tensor the plain version at the tier.
 
 Two routes give the same bits: 'persistent', the segment kernel, and
 'steps', the per-step kernels enqueued from one C loop (about 20 launches
@@ -64,7 +72,9 @@ hook (``ops/sum_hook``) between the front (to the statistic) and the back
 The largest residual stays on the device, NaN kept, for the trainer's lazy
 guard, as K8's does.  ``fused_ica_dp_segment_supported`` is K8's and K9's
 gate: vtc_tpu's comm slots and VMEM budget (:343-352) have no counterpart.
-``dp_launches`` counts the train steps that kernel ran.
+``dp_launches`` counts the train steps that kernel ran.  K9 and K18 take
+K8's tiers; ``stats_tier_launches`` and ``dp_tier_launches`` count their
+steps at a tier.
 """
 import ctypes
 import functools
@@ -75,12 +85,16 @@ from vtc_tpu_torch.analysis_transforms.fully_connected import (
     invertible_linear)
 from vtc_tpu_torch.dict_update_rules.fully_connected import (
     ica_natural_gradient)
-from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.precision import (TIER_CODES, matmul_precision,
+                                         ns_dot, resolve_tier)
 from vtc_tpu_torch.ops.sum_hook import SumHook
 
 launches = 0
 stats_launches = 0
 dp_launches = 0
+tier_launches = 0  # the steps of ``launches`` at a tier other than 'highest'
+stats_tier_launches = 0  # ... of ``stats_launches``
+dp_tier_launches = 0  # ... of ``dp_launches``
 last_route = None  # 'persistent' or 'steps': the route of the last launch
 
 ROUTES = ("auto", "steps", "persistent")
@@ -123,30 +137,36 @@ def fused_ica_segment_supported(n, batch_size, num_atoms=None):
           and (num_atoms is None or int(num_atoms) == int(n)))
 
 
+def _refine_boosted(d, x, refine_iters, boost_tol, mxu, precision):
+  """A step's refreshes at the tier, the residual and the boost (selected
+  with ``torch.where``, so the host never waits): (X, residual)."""
+  x = invertible_linear.newton_refine_tier(d, x, refine_iters, mxu,
+                                           precision)
+  res = invertible_linear.inverse_residual(d, x)
+  if boost_tol is not None:
+    x_b = invertible_linear.newton_refine_tier(d, x, 2, mxu, precision)
+    res_b = invertible_linear.inverse_residual(d, x_b)
+    boosted = res > boost_tol  # NaN > tol is False: no boost
+    x = torch.where(boosted, x_b, x)
+    res = torch.where(boosted, res_b, res)
+  return x, res
+
+
 def fused_ica_train_plain(dictionary, inverse_estimate, batches, stepsize, *,
                           refine_iters=5, upd_num_iters=1, boost_tol=None,
-                          precision=None):
+                          precision=None, mxu="highest"):
   """The plain PyTorch version of the fused ICA segment, on any device and
-  in the inputs' own float type.  ``precision`` is the matmul precision of
-  the refreshes and the codes product (default 'highest'), as vtc_tpu's
-  tiers; the residual, the statistic and the update stay at 'highest'.
-  The boost is selected with ``torch.where``, so the host never waits."""
+  in the inputs' own float type.  ``mxu`` is the tier of the refreshes and
+  the codes product (``ns_dot``; float32 inputs); at 'highest' they run at
+  the matmul ``precision`` (default 'highest'; 'tensorfloat32' shows what
+  TF32 products would cost).  The residual, the statistic and the update
+  stay at 'highest'."""
   d, x = dictionary, inverse_estimate
   r_max = torch.zeros((), dtype=d.dtype, device=d.device)
   for batch in batches:
-    x = invertible_linear.newton_refine_inverse(d, x, refine_iters,
-                                                precision=precision)
-    res = invertible_linear.inverse_residual(d, x)
-    if boost_tol is not None:
-      x_b = invertible_linear.newton_refine_inverse(d, x, 2,
-                                                    precision=precision)
-      res_b = invertible_linear.inverse_residual(d, x_b)
-      boosted = res > boost_tol  # NaN > tol is False: no boost
-      x = torch.where(boosted, x_b, x)
-      res = torch.where(boosted, res_b, res)
+    x, res = _refine_boosted(d, x, refine_iters, boost_tol, mxu, precision)
     r_max = torch.maximum(r_max, res)  # keeps NaN
-    with matmul_precision(precision):
-      codes = batch @ x
+    codes = ns_dot(batch, x, mxu, precision)
     d = ica_natural_gradient._update(d, codes, stepsize, upd_num_iters)
   return d, x, r_max
 
@@ -166,16 +186,13 @@ def fused_ica_train_segment(dictionary, inverse_estimate, batches, stepsize,
     batches: (k, b, n) float32, k >= 1.
     stepsize: the ascent stepsize, a Python float.
     refine_iters / upd_num_iters / boost_tol: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2.3).
+    mxu: the tier of the refreshes and the codes (module docstring).
 
   Returns:
     (dictionary, inverse, max_residual): new tensors, the inputs are not
     modified; max_residual is 0-d.
   """
-  if mxu != "highest":
-    raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.3"
-        % (mxu,))
+  tier = resolve_tier(mxu)
   _require(batches.dim() == 3 and batches.shape[0] >= 1,
            "batches must be (k, b, n) with k >= 1, got %s"
            % (tuple(batches.shape),))
@@ -188,7 +205,7 @@ def fused_ica_train_segment(dictionary, inverse_estimate, batches, stepsize,
     return fused_ica_train_plain(
         dictionary, inverse_estimate, batches, float(stepsize),
         refine_iters=int(refine_iters), upd_num_iters=int(upd_num_iters),
-        boost_tol=None if boost_tol is None else float(boost_tol))
+        boost_tol=None if boost_tol is None else float(boost_tol), mxu=tier)
   _require(batches.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(batches.device))
@@ -205,15 +222,16 @@ def fused_ica_train_segment(dictionary, inverse_estimate, batches, stepsize,
   return _launch(dictionary.contiguous().clone(),
                  inverse_estimate.contiguous().clone(), batches.contiguous(),
                  float(stepsize), int(refine_iters), int(upd_num_iters),
-                 boost_tol)
+                 boost_tol, tier)
 
 
 def _launch(d, x, batches, stepsize, refine_iters, upd_num_iters,
-            boost_tol, route="auto", grid=0):
-  """Allocate the scratch and enqueue the k steps on the current stream.
-  route 'steps' or 'persistent' forces a route and grid a persistent
-  launch's CTA count (for checks and tools; 0: the shape's own)."""
-  global launches, last_route
+            boost_tol, tier="highest", route="auto", grid=0):
+  """Allocate the scratch and enqueue the k steps on the current stream at
+  the tier.  route 'steps' or 'persistent' forces a route and grid a
+  persistent launch's CTA count (for checks and tools; 0: the shape's
+  own)."""
+  global launches, last_route, tier_launches
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
@@ -222,7 +240,8 @@ def _launch(d, x, batches, stepsize, refine_iters, upd_num_iters,
   r_max = torch.zeros((), dtype=torch.float32, device=device)
   if route == "persistent":
     err = _persistent(lib, d, x, r_max, batches, stepsize, refine_iters,
-                      upd_num_iters, boost_tol, float(b), None, None, grid)
+                      upd_num_iters, boost_tol, float(b), None, None, grid,
+                      tier)
   else:
     eye, eye2 = _identities(n, device)
     x_alt, e, stat, m, p = (_empty(device, n, n) for _ in range(5))
@@ -237,12 +256,14 @@ def _launch(d, x, batches, stepsize, refine_iters, upd_num_iters,
           ctypes.c_float(0.0 if boost_tol is None else boost_tol),
           x_alt.data_ptr(), e.data_ptr(), codes.data_ptr(), sgn.data_ptr(),
           stat.data_ptr(), m.data_ptr(), p.data_ptr(), boost.data_ptr(),
-          stream)
+          TIER_CODES[tier], stream)
   if err != 0:
     raise RuntimeError(
         "fused ICA train step launch failed with CUDA error %d (k=%d, b=%d, "
-        "n=%d, route %s)" % (err, k, b, n, route))
+        "n=%d, route %s, tier %s)" % (err, k, b, n, route, tier))
   launches += k
+  if tier != "highest":
+    tier_launches += k
   last_route = route
   return d, x, r_max
 
@@ -258,11 +279,12 @@ def _empty(device, *shape):
 
 
 def _persistent(lib, d, x, r_max, batches, stepsize, refine_iters,
-                upd_num_iters, boost_tol, stat_div, stat, hook_pointer, grid):
+                upd_num_iters, boost_tol, stat_div, stat, hook_pointer, grid,
+                tier):
   """Enqueue a segment on the persistent route (vtc_ica_persistent_segment)
-  on the current stream: d, x and r_max in place, stat (n, n) the raw
-  statistic that a front launch leaves for the hook (K18's comm; None
-  without a hook, where every launch also updates), grid CTAs (0: the
+  on the current stream at the tier: d, x and r_max in place, stat (n, n)
+  the raw statistic that a front launch leaves for the hook (K18's comm;
+  None without a hook, where every launch also updates), grid CTAs (0: the
   shape's own); returns the C entry's error code."""
   k, b, n = batches.shape
   device = batches.device
@@ -280,30 +302,21 @@ def _persistent(lib, d, x, r_max, batches, stepsize, refine_iters,
         ctypes.c_float(stat_div), d_alt.data_ptr(), x_alt.data_ptr(),
         e.data_ptr(), codes.data_ptr(),
         None if stat is None else stat.data_ptr(), partials.data_ptr(),
-        barrier.data_ptr(), grid, hook_pointer, stream)
+        barrier.data_ptr(), grid, hook_pointer, TIER_CODES[tier], stream)
 
 
 def ica_solve_stats_plain(dictionary, inverse_estimate, batch, *,
-                          refine_iters=5, boost_tol=None, precision=None):
+                          refine_iters=5, boost_tol=None, precision=None,
+                          mxu="highest"):
   """The plain PyTorch version of ``ica_solve_stats``, on any device and in
-  the inputs' own float type: ``newton_refine_inverse`` -> the residual
-  (the boost selected with ``torch.where``) -> codes -> the statistic.
-  ``precision`` is the matmul precision of the refreshes and the codes
-  product; the residual and the statistic stay at 'highest'."""
+  the inputs' own float type: the refreshes -> the residual (the boost
+  selected with ``torch.where``) -> codes -> the statistic.  ``mxu`` and
+  ``precision`` as ``fused_ica_train_plain``'s; the residual and the
+  statistic stay at 'highest'."""
   d = dictionary
-  x = invertible_linear.newton_refine_inverse(d, inverse_estimate,
-                                              refine_iters,
-                                              precision=precision)
-  res = invertible_linear.inverse_residual(d, x)
-  if boost_tol is not None:
-    x_b = invertible_linear.newton_refine_inverse(d, x, 2,
-                                                  precision=precision)
-    res_b = invertible_linear.inverse_residual(d, x_b)
-    boosted = res > boost_tol  # NaN > tol is False: no boost
-    x = torch.where(boosted, x_b, x)
-    res = torch.where(boosted, res_b, res)
-  with matmul_precision(precision):
-    codes = batch @ x
+  x, res = _refine_boosted(d, inverse_estimate, refine_iters, boost_tol, mxu,
+                           precision)
+  codes = ns_dot(batch, x, mxu, precision)
   with matmul_precision():
     stat = codes.T @ torch.sign(codes)
   return x, stat, res
@@ -318,7 +331,7 @@ def ica_solve_stats(dictionary, inverse_estimate, batch, *, refine_iters=5,
     dictionary, inverse_estimate: (n, n) float32 tensors (replicated).
     batch: (b, n) float32, this shard of the batch.
     refine_iters / boost_tol: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2.3).
+    mxu: the tier of the refreshes and the codes, as K8's.
 
   Returns:
     (new_inverse (n, n), stat_sum (n, n), residual 0-d): new tensors.  The
@@ -326,10 +339,7 @@ def ica_solve_stats(dictionary, inverse_estimate, batch, *, refine_iters=5,
     batch-mean statistic; the inverse and the residual depend on the
     replicated dictionary alone and are the same on every shard.
   """
-  if mxu != "highest":
-    raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.3"
-        % (mxu,))
+  tier = resolve_tier(mxu)
 
   def require(cond, message):
     if not cond:
@@ -346,7 +356,7 @@ def ica_solve_stats(dictionary, inverse_estimate, batch, *, refine_iters=5,
   if batch.device.type == "cpu":
     return ica_solve_stats_plain(dictionary, inverse_estimate, batch,
                                  refine_iters=int(refine_iters),
-                                 boost_tol=boost_tol)
+                                 boost_tol=boost_tol, mxu=tier)
   require(batch.device.type == "cuda",
           "tensors must be on the CPU or a CUDA device, got "
           + str(batch.device))
@@ -361,7 +371,7 @@ def ica_solve_stats(dictionary, inverse_estimate, batch, *, refine_iters=5,
   require(int(refine_iters) >= 0, "refine_iters must be >= 0")
   return _launch_stats(dictionary.contiguous(),
                        inverse_estimate.contiguous().clone(),
-                       batch.contiguous(), int(refine_iters), boost_tol)
+                       batch.contiguous(), int(refine_iters), boost_tol, tier)
 
 
 @functools.lru_cache(maxsize=4)
@@ -371,10 +381,10 @@ def _identities(n, device):
   return eye, 2.0 * eye
 
 
-def _launch_stats(d, x, batch, refine_iters, boost_tol):
+def _launch_stats(d, x, batch, refine_iters, boost_tol, tier):
   """Allocate the outputs and scratch, enqueue the step on the current
-  stream."""
-  global stats_launches
+  stream at the tier."""
+  global stats_launches, stats_tier_launches
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   b, n = batch.shape
@@ -392,12 +402,14 @@ def _launch_stats(d, x, batch, refine_iters, boost_tol):
         int(boost_tol is not None),
         ctypes.c_float(0.0 if boost_tol is None else boost_tol),
         x_alt.data_ptr(), e.data_ptr(), codes.data_ptr(), sgn.data_ptr(),
-        stat.data_ptr(), boost.data_ptr(), stream)
+        stat.data_ptr(), boost.data_ptr(), TIER_CODES[tier], stream)
   if err != 0:
     raise RuntimeError(
-        "ICA solve+stats launch failed with CUDA error %d (b=%d, n=%d)"
-        % (err, b, n))
+        "ICA solve+stats launch failed with CUDA error %d (b=%d, n=%d, tier "
+        "%s)" % (err, b, n, tier))
   stats_launches += 1
+  if tier != "highest":
+    stats_tier_launches += 1
   return x, stat, res
 
 
@@ -411,18 +423,18 @@ def fused_ica_dp_segment_supported(n, batch_shard_size, num_atoms=None):
 def fused_ica_dp_train_plain(dictionary, inverse_estimate, batches,
                              stepsize, *, mesh, refine_iters=5,
                              upd_num_iters=1, boost_tol=None,
-                             precision=None):
+                             precision=None, mxu="highest"):
   """The plain PyTorch version of the data-parallel segment, on any device
   and in the inputs' own float type: per batch K9's plain version, the sum
   of the statistic over ``mesh`` and the replicated update; the running
-  residual maximum keeps NaN.  ``precision`` is the matmul precision of
-  the refreshes and the codes product (default 'highest')."""
+  residual maximum keeps NaN.  ``mxu`` and ``precision`` as
+  ``fused_ica_train_plain``'s."""
   d, x = dictionary, inverse_estimate
   r_max = torch.zeros((), dtype=d.dtype, device=d.device)
   for batch in batches:
     x, stat, res = ica_solve_stats_plain(
         d, x, batch, refine_iters=refine_iters, boost_tol=boost_tol,
-        precision=precision)
+        precision=precision, mxu=mxu)
     stat = mesh.sum(stat) / (batch.shape[0] * mesh.size)
     d = ica_natural_gradient._update_from_stat(d, stat, stepsize,
                                                upd_num_iters)
@@ -445,16 +457,13 @@ def fused_ica_dp_train_segment(dictionary, inverse_estimate, batches,
     stepsize: the ascent stepsize, a Python float.
     mesh: the ``parallel.Mesh`` the ranks share.
     refine_iters / upd_num_iters / boost_tol: as in vtc_tpu.
-    mxu: 'highest' only (the tiers wait, ROADMAP.md §1 item 3a.2.3).
+    mxu: the tier of the refreshes and the codes, as K8's.
 
   Returns:
     (dictionary, inverse, max_residual): new tensors, replicated; the
     inputs are not modified; max_residual is 0-d, the same on every rank.
   """
-  if mxu != "highest":
-    raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.3"
-        % (mxu,))
+  tier = resolve_tier(mxu)
 
   def require(cond, message):
     if not cond:
@@ -473,7 +482,7 @@ def fused_ica_dp_train_segment(dictionary, inverse_estimate, batches,
     return fused_ica_dp_train_plain(
         dictionary, inverse_estimate, batches, float(stepsize), mesh=mesh,
         refine_iters=int(refine_iters), upd_num_iters=int(upd_num_iters),
-        boost_tol=boost_tol)
+        boost_tol=boost_tol, mxu=tier)
   require(batches.device.type == "cuda",
           "tensors must be on the CPU or a CUDA device, got "
           + str(batches.device))
@@ -490,15 +499,16 @@ def fused_ica_dp_train_segment(dictionary, inverse_estimate, batches,
   return _launch_dp(dictionary.contiguous().clone(),
                     inverse_estimate.contiguous().clone(),
                     batches.contiguous(), mesh, float(stepsize),
-                    int(refine_iters), int(upd_num_iters), boost_tol)
+                    int(refine_iters), int(upd_num_iters), boost_tol, tier)
 
 
 def _launch_dp(d, x, batches, mesh, stepsize, refine_iters, upd_num_iters,
-               boost_tol, route="auto", grid=0):
+               boost_tol, tier="highest", route="auto", grid=0):
   """Allocate the scratch and the statistic's buffer, and enqueue the k
-  steps on the current stream, the sum over the ranks between each step's
-  statistic and its update.  route and grid as ``_launch``'s."""
-  global dp_launches, last_route
+  steps on the current stream at the tier, the sum over the ranks between
+  each step's statistic and its update.  route and grid as
+  ``_launch``'s."""
+  global dp_launches, last_route, dp_tier_launches
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   k, b, n = batches.shape
@@ -510,7 +520,7 @@ def _launch_dp(d, x, batches, mesh, stepsize, refine_iters, upd_num_iters,
   if route == "persistent":
     err = _persistent(lib, d, x, r_max, batches, stepsize, refine_iters,
                       upd_num_iters, boost_tol, float(b * mesh.size), comm,
-                      hook.pointer, grid)
+                      hook.pointer, grid, tier)
   else:
     eye, eye2 = _identities(n, device)
     x_alt, e, m, p = (_empty(device, n, n) for _ in range(4))
@@ -525,9 +535,12 @@ def _launch_dp(d, x, batches, mesh, stepsize, refine_iters, upd_num_iters,
           ctypes.c_float(0.0 if boost_tol is None else boost_tol),
           ctypes.c_float(b * mesh.size), x_alt.data_ptr(), e.data_ptr(),
           codes.data_ptr(), sgn.data_ptr(), m.data_ptr(), p.data_ptr(),
-          boost.data_ptr(), comm.data_ptr(), hook.pointer, stream)
+          boost.data_ptr(), comm.data_ptr(), hook.pointer, TIER_CODES[tier],
+          stream)
   hook.check(err, "data-parallel ICA segment launch (k=%d, b=%d, n=%d, "
-             "route %s)" % (k, b, n, route))
+             "route %s, tier %s)" % (k, b, n, route, tier))
   dp_launches += k
+  if tier != "highest":
+    dp_tier_launches += k
   last_route = route
   return d, x, r_max

@@ -17,6 +17,7 @@ import contextlib
 import os
 
 import torch
+import torch.nn.functional as F
 
 # JAX precision spelling -> torch.set_float32_matmul_precision value
 _SPELLINGS = {
@@ -103,6 +104,92 @@ def split3(x):
   r = x - hi
   mid = _bf16(r)
   return hi, mid, _bf16(r - mid)
+
+
+# vtc_tpu's XLA spellings of a matmul precision and the tier of bf16 passes
+# the TPU computes for each (vtc_tpu/training/ica.py:126-128: the scanned
+# ICA trainer's per-step path tiers its refreshes and codes this way):
+# 'tensorfloat32' is the 3-pass bf16x3 product and 'bfloat16' the single
+# pass.  XLA has no 5-pass precision.  Not torch's meaning of the same
+# names above: TF32 is a product that vtc_tpu never computes.
+XLA_TIERS = {"highest": "highest", "float32": "highest",
+             "tensorfloat32": "bf16x3", "bfloat16": "bf16"}
+
+
+def xla_tier(precision):
+  """The tier of passes that the TPU runs for vtc_tpu's XLA ``precision``
+  (None: 'highest')."""
+  precision = "highest" if precision is None else precision
+  if precision not in XLA_TIERS:
+    raise ValueError("unknown matmul precision %r; expected one of %s"
+                     % (precision, sorted(XLA_TIERS)))
+  return XLA_TIERS[precision]
+
+
+# the depth of one tensor-core product (mma.sync m16n8k16)
+_MMA_DEPTH = 16
+
+
+def mma_pass(a, b):
+  """a @ b (a (..., M, K), b (..., K, N), batch dims broadcast) of bf16
+  values as the card's tensor cores sum one pass: in 16-deep chunks from k
+  = 0, each chunk's exact sum rounded toward zero to a's float type (the
+  rounding of one m16n8k16 product, tools/conv_tier_rounding.py), the
+  chunks added in that type in order, rounding to nearest."""
+  batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+  a = a.expand(*batch, *a.shape[-2:])
+  b = b.expand(*batch, *b.shape[-2:])
+  k = a.shape[-1]
+  q = -(-k // _MMA_DEPTH)
+  pad = q * _MMA_DEPTH - k
+  aq = F.pad(a.double(), (0, pad)).unflatten(-1, (q, _MMA_DEPTH)).movedim(
+      -2, 0)
+  bq = F.pad(b.double(), (0, 0, 0, pad)).unflatten(
+      -2, (q, _MMA_DEPTH)).movedim(-3, 0)
+  exact = aq @ bq
+  parts = exact.to(a.dtype)
+  parts = torch.where(parts.double().abs() > exact.abs(),
+                      torch.nextafter(parts, torch.zeros_like(parts)), parts)
+  acc = parts[0]
+  for part in parts[1:]:
+    acc = acc + part
+  return acc
+
+
+def tier_pass_sum(a_terms, b_terms, pairs, dtype):
+  """The passes of a tier product: the hi x hi pass by ``mma_pass`` plus
+  the smaller passes ``pairs`` ((i, j): a_terms[i] b_terms[j]) summed
+  together in float64 and rounded once to ``dtype``.  The card's tier
+  kernels keep the hi x hi pass in one accumulator and the smaller passes
+  in a second, added at the end; summed so, the plain version agrees with
+  them where float32 chains in vtc_tpu's order did not (PERF.md §6, PR
+  22)."""
+  lo = sum(a_terms[i].double() @ b_terms[j].double() for i, j in pairs)
+  return mma_pass(a_terms[0], b_terms[0]) + lo.to(dtype)
+
+
+# the smaller passes (i, j) of a tier, after hi x hi, in vtc_tpu's order
+TIER_PAIRS = {"bf16x3": ((1, 0), (0, 1)),
+              "bf16x5": ((1, 0), (0, 1), (2, 0), (0, 2))}
+
+
+def ns_dot(a, b, mxu, precision=None):
+  """a @ b at the tier ``mxu``, both operands split per product (vtc_tpu
+  ``_make_ns_dot``, pallas_ica_train.py:57-83): bf16, bf16(a) bf16(b);
+  bf16x3, a_hi b_hi + a_lo b_hi + a_hi b_lo; bf16x5, a1 b1 + a2 b1 + a1 b2
+  + a3 b1 + a1 b3 (the exact split).  The sums are the card's
+  (``tier_pass_sum``).  At 'highest' one float32 product at the matmul
+  ``precision`` (default 'highest'; 'tensorfloat32' shows what TF32
+  products would cost)."""
+  tier = resolve_tier(mxu)
+  if tier == "highest":
+    with matmul_precision(precision):
+      return a @ b
+  with matmul_precision("highest"):
+    if tier == "bf16":
+      return mma_pass(_bf16(a), _bf16(b))
+    split = split_hi_lo if tier == "bf16x3" else split3
+    return tier_pass_sum(split(a), split(b), TIER_PAIRS[tier], a.dtype)
 
 
 def tier_operand(g, mxu):

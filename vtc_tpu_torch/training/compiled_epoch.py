@@ -114,11 +114,13 @@ same dictionary.
 
 'train_precision' ('highest', 'bf16x5', 'bf16x3', 'bf16') is the tier of
 the fused runners (vtc_tpu :453-474): the single-device K2, K6 and K12,
-and with 'data_parallel' the whole-segment K15, K16 and K17 and the 'dcn'
+and with 'data_parallel' the whole-segment K15 and K16 and the 'dcn'
 mesh's composition of K3, K7 and K13.  Their solves run it, the Gram,
 refresh, statistics and update stay fp32.  As in vtc_tpu, a configuration
 that resolves to a per-step runner (the psum-per-op step among them)
-keeps full precision; on the CPU the fused runners' plain versions run a
+keeps full precision, and so does the whole-segment conv K17, where
+vtc_tpu's trainer replaces its K17 runner with the psum-per-op one
+(:1160-1170, :1228-1232); on the CPU the fused runners' plain versions run a
 tier where 'fc_formulation' is 'pallas' and the power is warm.  The
 code-sharded runner's K19 refuses a tier (ROADMAP.md §1 item 3a.2.4).
 
@@ -555,10 +557,14 @@ def train_dictionary_scanned(training_batches, validation_batches,
       # the whole-segment kernels where vtc_tpu takes them (:656-659): every
       # axis other than 'data' of size 1 (no 'dcn' axis, 'code' 1)
       if whole_mesh and mode == "convolutional":
+        # K17 at full precision whatever the tier, as vtc_tpu's trainer
+        # runs: it builds its K17 runner at the tier and then replaces it
+        # with the psum-per-op runner, whose step keeps full precision
+        # (vtc_tpu/training/compiled_epoch.py:1160-1170, :1228-1232)
         return _dp_conv_segment_runner(
             dp_mesh, inference_alg, update_alg, upd_niters, nonneg, hard,
             renormalize, kernel_stride, padding, early_eps,
-            mxu=train_precision), True
+            mxu="highest"), True
       if whole_mesh and group_assignments is None:
         return _dp_fc_segment_runner(
             dp_mesh, inference_alg, update_alg, upd_niters, nonneg, hard,

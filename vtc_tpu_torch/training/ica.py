@@ -44,10 +44,21 @@ no counterpart here.  Rank 0 writes checkpoints and figures.
 
 The tensors live on ``device``: the keyword argument, else that of the
 first tensor among the data and the initial dictionary, else the CUDA
-device (raising without one).  Raise NotImplementedError naming its
-ROADMAP.md §1 item: 'train_precision' other than 'highest' (item
-3a.2.3).  The per-batch trainer has no data-parallel mode, in vtc_tpu or
-here.
+device (raising without one).  The per-batch trainer has no data-parallel
+mode, in vtc_tpu or here.
+
+``all_params['train_precision']`` ('highest' default, 'bf16x5', 'bf16x3',
+'bf16') tiers the scanned trainer's Newton-Schulz refreshes and codes, as
+vtc_tpu's does (:143-153, :414-426; it needs warm_inverse): the fused
+kernels take the tier (``ops/fused_ica_train``, vtc_tpu's
+``_make_ns_dot``), the guard and boost tolerances are the tier's
+(``_TIERS``), and the per-step path of the fallback and of
+``use_fused=False`` runs the tier's XLA precision with the TPU's meaning
+(``invertible_linear``'s module docstring): bf16x3 and bf16 their passes,
+bf16x5 'highest', since XLA has no 5-pass precision.  The statistic and
+the update stay float32.  The per-batch ``train_dictionary`` reads no
+'train_precision', as vtc_tpu's reads none: it runs the exact solve at
+full precision whatever the key says.
 """
 import time
 import warnings
@@ -63,17 +74,23 @@ from vtc_tpu_torch.device import resolve_device
 from vtc_tpu_torch.dict_update_rules.fully_connected import (
     ica_natural_gradient)
 from vtc_tpu_torch.ops import fused_ica_train
-from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.precision import matmul_precision, ns_dot, xla_tier
 from vtc_tpu_torch.training import sparse_coding as sc
 from vtc_tpu_torch.utils import checkpoint as ckpt_util
 
 rollbacks = 0
 
-# training tier -> (matmul precision of the refreshes and the codes, the
-# guard's residual tolerance, the boost tolerance), vtc_tpu :143-153; the
-# port runs the parity tier only (the others wait, ROADMAP.md §1 item
-# 3a.2.3)
-_TIERS = {"highest": ("highest", 1e-3, 1e-6)}
+# training tier -> (the XLA matmul precision of the per-step path's
+# refreshes and codes, the guard's residual tolerance, the boost
+# tolerance), vtc_tpu :143-153.  Each tier's guard sits above its residual
+# floor, and its boost just above it; bf16x5's per-step path runs
+# 'highest' (XLA has no 5-pass precision).
+_TIERS = {
+    "highest": ("highest", 1e-3, 1e-6),
+    "bf16x5": ("highest", 3e-3, 1e-4),
+    "bf16x3": ("tensorfloat32", 1e-2, 3e-3),
+    "bf16": ("bfloat16", 0.3, 0.25),
+}
 
 
 def _check_common(init_dictionary, all_params):
@@ -81,11 +98,6 @@ def _check_common(init_dictionary, all_params):
   assert all_params["dictionary_update_algorithm"] == "ica_natural_gradient"
   assert np.shape(init_dictionary)[0] == np.shape(init_dictionary)[1], (
       "ICA requires a square (critically sampled) dictionary")
-  tier = str(all_params.get("train_precision", "highest"))
-  if tier != "highest":
-    raise NotImplementedError(
-        "train_precision=%r: the reduced-precision tiers wait, ROADMAP.md "
-        "§1 item 3a.2.3" % (tier,))
 
 
 def _open_logging(all_params, dump_params):
@@ -191,8 +203,7 @@ def _segment_runner_tracked(upd_num_iters, refine_iters=3, mxu="highest"):
       x = invertible_linear.refine_inverse_guarded(
           d, x, refine_iters, residual_tol=guard_tol, precision=precision,
           boost_tol=boost_tol)
-      with matmul_precision(precision):
-        codes = batch @ x
+      codes = ns_dot(batch, x, xla_tier(precision))
       d = ica_natural_gradient._update(d, codes, stepsize, upd_num_iters)
     return d, x
 
@@ -274,8 +285,7 @@ def _segment_runner_dp(upd_num_iters, mesh, warm_inverse, refine_iters=3,
         x = invertible_linear.refine_inverse_guarded(
             d, x, refine_iters, residual_tol=guard_tol, precision=precision,
             boost_tol=boost_tol)
-        with matmul_precision(precision):
-          codes = batch_shard @ x
+        codes = ns_dot(batch_shard, x, xla_tier(precision))
       else:
         codes = invertible_linear._solve_nonortho(batch_shard, d)
       with matmul_precision():
@@ -293,10 +303,20 @@ def train_dictionary_scanned(training_batches, init_dictionary, all_params,
   (default True), 'refine_iters' (Newton-Schulz refreshes per step,
   default 3) and 'use_fused': None (default) runs the fused kernels on a
   CUDA device, True runs the fused path on any device (the plain version
-  on CPU tensors), False the per-step path.  ``training_batches`` is a
-  stacked (k, b, n) array or tensor.  Returns the final dictionary, a
-  float32 tensor on the training device."""
+  on CPU tensors), False the per-step path; 'train_precision' (module
+  docstring).  ``training_batches`` is a stacked (k, b, n) array or
+  tensor.  Returns the final dictionary, a float32 tensor on the training
+  device.  ValueError where vtc_tpu asserts (:420-426): an unknown
+  'train_precision', or a tier with warm_inverse off."""
   _check_common(init_dictionary, all_params)
+  warm_inverse = bool(all_params.get("warm_inverse", True))
+  mxu = str(all_params.get("train_precision", "highest"))
+  if mxu not in _TIERS:
+    raise ValueError("train_precision must be 'highest', 'bf16x5', "
+                     "'bf16x3', or 'bf16', got %r" % (mxu,))
+  if mxu != "highest" and not warm_inverse:
+    raise ValueError("train_precision tiers require warm_inverse=True (the "
+                     "exact per-batch LU solve has no hot matmul to tier)")
   schedule = all_params["dict_update_param_schedule"]
   ckpt_sched = all_params.get("checkpoint_schedule") or set()
   vis_sched = all_params.get("training_visualization_schedule") or set()
@@ -320,13 +340,11 @@ def train_dictionary_scanned(training_batches, init_dictionary, all_params,
                       | {e * k for e in range(all_params["num_epochs"] + 1)})
   boundaries = [x for x in boundaries if 0 <= x <= total_iters]
 
-  warm_inverse = bool(all_params.get("warm_inverse", True))
   dinv = invertible_linear.exact_inverse(dictionary) if warm_inverse else None
   if dp_mesh is not None and dinv is None:
     # the data-parallel runner carries the inverse either way; unused with
     # warm_inverse off, where the codes come from the shard's LU solve
     dinv = torch.zeros_like(dictionary)
-  mxu = "highest"
   guard_tol = _TIERS[mxu][1]
   refine = int(all_params.get("refine_iters", 3))
   use_fused = all_params.get("use_fused")
