@@ -74,12 +74,13 @@ caught.
   across devices, each rank's segment from one C loop with the sums over
   the ranks as calls of its host hook.
 
-The phases that check a refusal (a tier the kernels do not have yet, or
-K13's early stop, which vtc_tpu's K13 lacks too) require
-NotImplementedError and no launch of the kernel; phases 26 and 33 hold
-the tiers K3, K7, K15 and K16 refused before phase 47, and K9 and K18
-refused before phase 49, to their plain versions instead.  CUDA_TESTS below maps
-each test marked cuda to the phases that make its check here.
+The phases that check a refusal (K13's early stop, which vtc_tpu's K13
+lacks too) require NotImplementedError and no launch of the kernel;
+phases 26 and 33 hold the tiers K3, K7, K15 and K16 refused before phase
+47, and K9 and K18 refused before phase 49, to their plain versions
+instead, and phases 23 and 36 run K19's tier, refused before phase 50.
+CUDA_TESTS below maps each test marked cuda to the phases that make its
+check here.
 
 1. Device and build: requires CUDA (there is no CPU path), prints the
    card's name and power limit, builds the kernels from
@@ -670,6 +671,41 @@ each test marked cuda to the phases that make its check here.
    and update at 67) and the library time (the step's passes, each one
    torch.mm of bf16 operands with a float32 result; the median of 7
    turns).
+50. The precision tiers of K19 (csrc/code_shard_solve.cuh's tier tile on
+   the bf16 tensor cores for the reconstruction's partials z D and the
+   gradient r D^T, D split into bf16 planes once a step, z and r as the
+   fragments are built; the split sum, prox, momentum, stop, Gram,
+   refresh and update fp32; the member-table prox rounded as vtc_tpu's
+   membership products round it), the persistent route at a code axis of
+   1 and the per-step route (the same tile), across ranks the per-step
+   route.  (a) One step at measure_bigdict's geometry (s 2048, n 256, b
+   128, FISTA 25, lambda 0.008, cheap-quad 0.1, warm power 2), fc and 512
+   contiguous groups of 4, and at s 512 a ragged member table, each route
+   forced at each tier and at 'highest': the routes bitwise equal, each
+   call one tier launch (none at 'highest'), against the plain version at
+   the tier under phase 46's three rules (five one-ulp nudges of both the
+   batch and the dictionary).  (b) Planted: the kernel's result at each
+   other tier and at 'highest', and the plain version with TF32 products,
+   in each tier's place, must fail.  (c) The stop at each tier on both
+   routes, eps at k = 1, mid-run and never: the plain version's count,
+   bitwise the tier build without the stop at that count.  (d) Worlds of
+   2 (code 2) and 4 (data 2 x code 2), processes of this script sharing
+   the card over gloo, one spawn each: the scanned fc and grouped trainers
+   on the mesh at bf16x3 and bf16 for 10 steps without and with a mid-run
+   stop; the ranks bitwise equal with the same counts, 10 tier steps a
+   rank, within the larger of DP_FLOOR, the tier's floor and the spread
+   of the world of 1 (K19's runner at code 1 on the global batches).  (e)
+   The main path at each tier and at 'highest', its counts zeroed before
+   and read after: one 200-step segment of the big-dictionary runner at
+   code 1 (phase 24's data), fc and grouped (200 K19 steps, 200 tier
+   steps): finite, unit norm within 1e-4, the held-out loss falling,
+   printed beside 'highest''s; patches/s.  (f) In turns, a K19 step of a
+   20-step fc segment at each tier against 'highest', the plain
+   version's, the bound (the two tier products at 989 TFLOP/s plus the
+   fp32 remainder at 67) and the library time (the step's solve passes,
+   each one torch.mm of bf16 operands with a float32 result; the median
+   of 7 turns); and the library time of a rank's step across devices at
+   code 2 (float32 torch.matmul).
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -773,6 +809,8 @@ CUDA_TESTS = {
     "test_torch_port_conv_tiers.py::test_cuda_conv_tiers_match_plain": (48,),
     "test_torch_port_ica_tiers.py::"
     "test_cuda_ica_tiers_match_plain_on_both_routes": (49,),
+    "test_torch_port_code_shard_tiers.py::"
+    "test_cuda_k19_tiers_match_plain_on_both_routes": (50,),
 }
 
 
@@ -1971,13 +2009,14 @@ def code_shard_kernel_cases(torch, cs, lipschitz, gen, dev):
       print("control: K19 plain step with TF32 products, %-10s max|d| fp64 "
             "%.3e, limit %.3e" % (what, err, limit(w)))
   check(max(ratios) > 1.0, "the limit does not tell TF32 products from fp32")
-  # the early stop runs (phase 45 holds it to plain); the tiers are refused
+  # the early stop (phase 45 holds it to plain) and the tiers (phase 50)
+  # run
   step = (d, h, v, x_fc) + args
   check_runs("K19 early_stopping_epsilon", lambda: (
       cs.fused_code_sharded_train_segment(*step,
                                           early_stopping_epsilon=1e-3)), cs)
-  check_refuses("K19 mxu='bf16x3'", lambda: (
-      cs.fused_code_sharded_train_segment(*step, mxu="bf16x3")), "3a", cs)
+  check_runs("K19 mxu='bf16x3'", lambda: (
+      cs.fused_code_sharded_train_segment(*step, mxu="bf16x3")), cs)
   return worst
 
 
@@ -3115,10 +3154,9 @@ def cs_rank_main(rank, world, workdir):
     check_runs("K19 across devices early_stopping_epsilon", lambda: (
         K19.fused_code_sharded_train_segment(
             *step, mesh=mesh, early_stopping_epsilon=1e-3, **axes)), K19)
-    check_refuses("K19 across devices mxu='bf16x3'", lambda: (
+    check_runs("K19 across devices mxu='bf16x3'", lambda: (
         K19.fused_code_sharded_train_segment(*step, mesh=mesh,
-                                             mxu="bf16x3", **axes)), "3a",
-                  K19)
+                                             mxu="bf16x3", **axes)), K19)
     # phase 37: the scanned trainer on the mesh, counts set to 0 just
     # before each run and read just after
     for label, w, grouped, steps in CS_TRAIN:
@@ -7541,6 +7579,577 @@ def ica_tier_phase(torch, dev, card, K8, ica_batches, ica_held, id0):
               quality=quality, times=times, world2=world2, boosts=boosts)
 
 
+# ---------------------------------------------------------------------------
+# phase 50: the precision tiers of K19
+# ---------------------------------------------------------------------------
+CS_TIER_DP_STEPS = 10     # the trainers across ranks, with and without the stop
+CS_TIER_TIME_STEPS = 20   # the steps of each timed segment
+CS_TIER_WORLD = ("bf16x3", "bf16")  # the tiers across ranks
+CS_TIER_MESHES = {2: dict(data=1, code=2), 4: dict(data=2, code=2)}
+CS_TIER_CHILD_TIMEOUT = 600  # seconds a rank of phase 50 may take
+# phase 50's floors of tier_verdict's bound: phase 46's.  A step's values
+# (unit rows of D, codes of mixtures with N(0, 0.05^2) amplitudes) put
+# max(1, |largest|) at 1, so the floor is an absolute 2e-3 / 2e-5 / 1e-5.
+CS_TIER_FLOOR = TIER_FLOOR
+
+
+def cs_tier_bound(b, s, n, iters, tier, power_iters=2, upd_iters=1):
+  """A K19 step at a tier: the solve's two tier products an iteration,
+  2 b s n FLOPs each times the tier's passes, at the bf16 tensor-core rate,
+  plus the float32 remainder of code_shard_step_bound (the refresh's
+  matvecs, the update's residual and gradient) at the fp32 rate; reading X
+  and D, writing D."""
+  passes = 4.0 * b * s * n * iters * TIER_PASSES[tier]
+  rest = 4.0 * b * s * n * upd_iters + 4.0 * (power_iters + 1) * s * n
+  t_ops = passes / BF16_PEAK + rest / FP32_PEAK
+  t_bytes = 4.0 * (b * n + 2 * s * n) / HBM_RATE
+  return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+
+def cs_tier_families(torch, dev):
+  """{label: (d, h, v, x, groups, flags)} of phase 50's kernel cases, one
+  step each at measure_bigdict's geometry (s 2048, n 256, b 128): fc, 512
+  contiguous groups of 4 (vtc_tpu's rotate window, a float32 prox at every
+  tier), and at s 512 a ragged partition (the member table, its prox
+  rounded at the tier)."""
+  sub_cq = "subspace_sc_cheap_quadratic_descent"
+  out = {}
+  for seed, (label, s, groups, flags) in enumerate((
+      ("bench fc", BIG_S, None, {}),
+      ("bench 512x4", BIG_S, contiguous_groups(BIG_S, 4),
+       {"update_alg": sub_cq}),
+      ("s512 ragged", BIG_SMALL_S, ragged_partition(BIG_SMALL_S, 50),
+       {"update_alg": sub_cq}))):
+    d, h, v, x = cs_cpu_problem(torch, s, 256, BIG_B, 1, 500 + seed, dev)
+    out[label] = (d, h, v, x, groups, flags)
+  return out
+
+
+def cs_tier_args(K19, case, mxu):
+  """(table, window, rounds, plain's group keywords, flags) of a case at
+  the tier: prox_plan's form with vtc_tpu's rotate window."""
+  d, _, _, _, groups, flags = case
+  kw = dict(variant="fista", update_alg="sc_cheap_quadratic_descent",
+            upd_num_iters=1, nonneg=False, hard=False, renormalize=True,
+            power_iters=2, lowest_code_val=0.001, alignment_penalty=0.0)
+  kw.update(flags)
+  if groups is None:
+    return None, None, False, {}, kw
+  arrays = K19.code_shard_group_arrays(groups, d.shape[0], 1)
+  roll = K19.roll_window_from_expand_arrays(arrays[0])
+  table, window, rounds = K19.prox_plan(arrays[0][0], mxu, roll)
+  return table, window, rounds, dict(expand_local=arrays[0][0],
+                                     roll_window=roll), kw
+
+
+def cs_tier_run(K19, case, mxu, route, eps=None, iters=TRAIN_ITERS):
+  """K19 forced onto a route at the tier: (D, h, v, codes, eta)."""
+  d, h, v, x = case[:4]
+  table, window, rounds, _, kw = cs_tier_args(K19, case, mxu)
+  return K19._launch(d, h, v, x, table, window, None, None, LAM, iters,
+                     BIG_STEP, route=route, mxu=mxu, prox_round=rounds,
+                     eps=eps, stop_count=x.shape[1] * d.shape[0], **kw)
+
+
+def cs_tier_plain(K19, case, mxu, x=None, d=None, eps=None, precision=None):
+  """The plain version of a case at the tier (on nudged x or d where
+  given): (D, h, v, codes, eta)."""
+  d0, h, v, x0 = case[:4]
+  _, _, _, pk, kw = cs_tier_args(K19, case, mxu)
+  d, x = d0 if d is None else d, x0 if x is None else x
+  return K19.fused_code_sharded_train_segment_plain(
+      d, h, v, x, LAM, TRAIN_ITERS, BIG_STEP, mxu=mxu, precision=precision,
+      early_stopping_epsilon=eps, return_stepsize=True, **pk, **kw)
+
+
+def cs_tier_kernel_cases(torch, K19, families):
+  """(a) and (b): each case at each tier on each route, forced: the
+  persistent route bitwise the steps route at every tier and 'highest',
+  each call one tier launch (none at 'highest'); the persistent result
+  against the plain version at the tier under tier_verdict's three rules
+  (five one-ulp nudges of both the batch and the dictionary); then the
+  kernel's result at each other tier and at 'highest', and the plain
+  version with TF32 products, planted in each tier's place, must fail.
+  Returns ({(case, tier): max|d|}, planted failures, bitwise cases)."""
+  errs, planted, equal = {}, 0, 0
+  for label, case in families.items():
+    d, x = case[0], case[3]
+    got = {}
+    for mxu in ("highest",) + TIER_NAMES:
+      runs = {}
+      for route in ("steps", "persistent"):
+        before = K19.tier_launches
+        runs[route] = cs_tier_run(K19, case, mxu, route)
+        torch.cuda.synchronize()
+        launched = K19.tier_launches - before
+        check(launched == (0 if mxu == "highest" else 1), "K19 %s %s %s: "
+              "%d tier launches" % (label, mxu, route, launched))
+      same = [bits_equal(torch, a, b) for a, b in zip(runs["steps"],
+                                                      runs["persistent"])]
+      check(all(same), "K19 %s at %s: the routes differ (D, h, v, codes, "
+            "eta bitwise equal: %s)" % (label, mxu, same))
+      equal += 1
+      got[mxu] = flat_cat(torch, runs["persistent"])
+    plains = {m: flat_cat(torch, cs_tier_plain(K19, case, m))
+              for m in ("highest",) + TIER_NAMES}
+    tf32 = flat_cat(torch, cs_tier_plain(K19, case, "highest",
+                                         precision="tensorfloat32"))
+    for tier in TIER_NAMES:
+      nudged = [flat_cat(torch, cs_tier_plain(
+          K19, case, tier, x=one_ulp_nudge(x, seed),
+          d=one_ulp_nudge(d, seed + 5))) for seed in range(5)]
+      v = tier_check(torch, "K19 " + label, got[tier], got["highest"],
+                     plains, nudged, tier, CS_TIER_FLOOR[tier])
+      errs[label, tier] = v["err"]
+      wrongs = [("the kernel at " + m, got[m])
+                for m in ("highest",) + TIER_NAMES if m != tier]
+      for what, wrong in wrongs + [("plain with TF32 products", tf32)]:
+        pv = tier_verdict(torch, wrong, got["highest"], plains, nudged,
+                          tier, CS_TIER_FLOOR[tier])
+        failed = [r for r, ok in pv["ok"].items() if not ok]
+        check(bool(failed), "planted at K19 %s %s: %s passed every rule"
+              % (label, tier, what))
+        planted += 1
+    print("phase 50 (a) K19 %s: both routes bitwise equal at every tier; "
+          "max|d| from plain %s" % (label, ", ".join(
+              "%s %.3e" % (t, errs[label, t]) for t in TIER_NAMES)))
+  return errs, planted, equal
+
+
+def cs_tier_stop_cases(torch, K19, families):
+  """(c) The stop at each tier on both routes (bench's fc step), eps at
+  k = 1, mid-run and never: the plain version's count, and bitwise the
+  tier build without the stop at that count.  Returns the largest
+  difference from the plain version's stopped step."""
+  case = families["bench fc"]
+  worst = 0.0
+  for tier in TIER_NAMES:
+    cs_tier_plain(K19, case, tier, eps=0.0)
+    avgs = list(K19.plain_avgs)
+    for which in ("early", "mid", "never"):
+      eps = stop_eps(avgs, which)
+      want = flat_cat(torch, cs_tier_plain(K19, case, tier, eps=eps))
+      count = int(K19.plain_iters[0])
+      for route in ("steps", "persistent"):
+        got = cs_tier_run(K19, case, tier, route, eps=eps)
+        torch.cuda.synchronize()
+        iters = [int(i) for i in K19.last_iters.tolist()]
+        ref = cs_tier_run(K19, case, tier, route, iters=count)
+        torch.cuda.synchronize()
+        same = all(bits_equal(torch, a, b) for a, b in zip(got, ref))
+        err = float((flat_cat(torch, got) - want).abs().max())
+        worst = max(worst, err)
+        print("phase 50 (c) K19 stop at %s, %s eps %.4g, %s route: %s "
+              "iterations (plain %d); bitwise the build without the stop at "
+              "that count: %s; max|d| from plain %.3e" % (
+                  tier, which, eps, route, iters, count, same, err))
+        check(iters == [count] and same, "K19 stop at %s %s %s: counts %s, "
+              "plain %d, bitwise %s" % (tier, which, route, iters, count,
+                                        same))
+        check(err <= CS_TIER_FLOOR[tier] * max(1.0, float(
+            want.abs().max())), "K19 stop at %s %s %s: %.3e from plain" % (
+                tier, which, route, err))
+  return worst
+
+
+def cs_tier_world_runs():
+  """(label, grouped, tier, stop) of each trainer run of (d)."""
+  return [("%s at %s%s" % ("grouped 512x4" if grouped else "fc", tier,
+                           " with the stop" if stop else ""), grouped, tier,
+           stop)
+          for grouped in (False, True) for tier in CS_TIER_WORLD
+          for stop in (False, True)]
+
+
+def cs_tier_rank_main(rank, world, workdir):
+  """The hidden sub-command: one rank of phase 50's worlds of 2 (code 2)
+  and 4 (data 2 x code 2).  Joins the gloo group over the file store in
+  ``workdir`` and runs the scanned fc and grouped trainers on the mesh
+  (data_parallel, K19 across devices) at each of CS_TIER_WORLD for
+  CS_TIER_DP_STEPS steps without and with the stop at inputs.npz's eps;
+  saves the dictionary, the tier launches and the stop's counts."""
+  import os
+  import torch
+  import torch.distributed as dist
+  from vtc_tpu_torch import parallel
+  from vtc_tpu_torch.ops import fused_code_shard_train as K19
+  from vtc_tpu_torch.training import compiled_epoch
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA device", file=sys.stderr)
+    return 1
+  dev = torch.device("cuda", 0)
+  data = dict(np.load(os.path.join(workdir, "inputs.npz")))
+  dist.init_process_group("gloo", init_method="file://" + os.path.join(
+      workdir, "store"), rank=rank, world_size=world)
+  try:
+    mesh = parallel.make_mesh(**CS_TIER_MESHES[world])
+    out = {}
+    for label, grouped, tier, stop in cs_tier_world_runs():
+      x = data["train_g" if grouped else "train_fc"]
+      params = dict(bigdict_params(CS_TIER_DP_STEPS, grouped),
+                    train_precision=tier, data_parallel=mesh)
+      if stop:
+        params["early_stopping_epsilon"] = float(data["eps|" + label])
+      K19.tier_launches = 0
+      K19.last_iters = None
+      trained = compiled_epoch.train_dictionary_scanned(x, x[:1], data["d"],
+                                                        params, device=dev)
+      torch.cuda.synchronize()
+      out[label + "|dictionary"] = trained.cpu().numpy()
+      out[label + "|launches"] = np.array(K19.tier_launches)
+      out[label + "|iters"] = (K19.last_iters.cpu().numpy() if stop
+                               else np.zeros(0, np.int32))
+    np.savez(os.path.join(workdir, "rank%d.npz" % rank), **out)
+  finally:
+    dist.destroy_process_group()
+  return 0
+
+
+def cs_tier_world(torch, K19, compiled_epoch, lipschitz, gen, dev):
+  """(d) Worlds of 2 (code 2) and 4 (data 2 x code 2), processes of this
+  script sharing the card over gloo, one spawn a world, the two at once:
+  the scanned fc and
+  grouped trainers at bf16x3 and bf16 for CS_TIER_DP_STEPS steps, without
+  and with a mid-run stop.  Every rank bitwise equal with the same counts,
+  CS_TIER_DP_STEPS tier steps a rank, each within the larger of DP_FLOOR,
+  the tier's floor and the spread of the world of 1 (K19's runner at code
+  1 on the global batches, from the same start) under five one-ulp nudges
+  of both the batches and the dictionary.  Returns ({(world, label):
+  (max|d|, bound)}, seconds)."""
+  import os
+  import tempfile
+  d = unit_rows(np.random.RandomState(2), BIG_S, 256)
+  data = {"d": d}
+  for key, grouped in (("train_fc", False), ("train_g", True)):
+    data[key] = bigdict_mixtures(
+        torch, dev, CS_TIER_DP_STEPS * BIG_B, gen, 4 if grouped else 1,
+        seed=505 + grouped).reshape(CS_TIER_DP_STEPS, BIG_B,
+                                    256).cpu().numpy()
+  d0 = torch.tensor(d, device=dev)
+  big_arrays = K19.code_shard_group_arrays(contiguous_groups(BIG_S, 4),
+                                           BIG_S, 1)
+
+  def one(grouped, tier, x, dd, eps=None):
+    """The world of 1: the runner at code 1 on the global batches."""
+    runner = compiled_epoch._code_shard_segment_runner(
+        None, 1, 1, "fista",
+        ("subspace_sc_cheap_quadratic_descent" if grouped
+         else "sc_cheap_quadratic_descent"), 1, False, False, True,
+        group_arrays=big_arrays if grouped else None, mxu=tier,
+        early_eps=eps)
+    return runner(dd, torch.zeros(BIG_S, device=dev),
+                  lipschitz.top_gram_eigenpair(dd)[1].contiguous(), x, LAM,
+                  TRAIN_ITERS, BIG_STEP)[0]
+
+  for label, grouped, tier, stop in cs_tier_world_runs():
+    if stop:  # a mid-run eps from the plain version's first step
+      x = torch.tensor(data["train_g" if grouped else "train_fc"][:1],
+                       device=dev)
+      pk = dict(expand_local=big_arrays[0][0], roll_window=4,
+                update_alg="subspace_sc_cheap_quadratic_descent"
+                ) if grouped else {}
+      K19.fused_code_sharded_train_segment_plain(
+          d0, torch.zeros(BIG_S, device=dev),
+          lipschitz.top_gram_eigenpair(d0)[1].contiguous(), x, LAM,
+          TRAIN_ITERS, BIG_STEP, power_iters=2, mxu=tier,
+          early_stopping_epsilon=0.0, **pk)
+      data["eps|" + label] = np.array(stop_eps(list(K19.plain_avgs), "mid"))
+  t0 = time.perf_counter()
+  results, ranks = {}, {}
+  with tempfile.TemporaryDirectory() as workdir:
+    # both worlds at once (their own stores): their start-up overlaps
+    subs = {world: os.path.join(workdir, "w%d" % world)
+            for world in CS_TIER_MESHES}
+    procs = {}
+    for world, sub in subs.items():
+      os.makedirs(sub)
+      np.savez(os.path.join(sub, "inputs.npz"), **data)
+      procs[world] = [subprocess.Popen(
+          [sys.executable, os.path.abspath(__file__), "--cs-tier-rank",
+           str(rank), str(world), sub]) for rank in range(world)]
+    try:
+      codes = {world: [proc.wait(timeout=CS_TIER_CHILD_TIMEOUT)
+                       for proc in ps] for world, ps in procs.items()}
+    finally:
+      for ps in procs.values():
+        for proc in ps:
+          if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for world, sub in subs.items():
+      check(codes[world] == [0] * world, "a rank of phase 50's world of %d "
+            "failed: exit codes %s" % (world, codes[world]))
+      ranks[world] = [dict(np.load(os.path.join(sub, "rank%d.npz" % r)))
+                      for r in range(world)]
+    print("phase 50: worlds of 2 and 4, 6 processes sharing one card over "
+          "gloo, done in %.1f s" % (time.perf_counter() - t0))
+  for label, grouped, tier, stop in cs_tier_world_runs():
+    x = torch.tensor(data["train_g" if grouped else "train_fc"], device=dev)
+    eps = float(data["eps|" + label]) if stop else None
+    want = one(grouped, tier, x, d0, eps).double()
+    counts1 = K19.last_iters.tolist() if stop else []
+    moved = max(float((one(grouped, tier, one_ulp_nudge(x, seed),
+                           one_ulp_nudge(d0, seed + 5), eps).double()
+                       - want).abs().max()) for seed in range(5))
+    bound = max(DP_FLOOR, CS_TIER_FLOOR[tier] * max(
+        1.0, float(want.abs().max())), moved)
+    for world, rs in ranks.items():
+      for key in (label + "|dictionary", label + "|iters"):
+        check(all(np.array_equal(r[key], rs[0][key]) for r in rs),
+              "phase 50 world of %d %s: the ranks differ in %s" % (
+                  world, label, key))
+      launches = [int(r[label + "|launches"]) for r in rs]
+      check(launches == [CS_TIER_DP_STEPS] * world, "phase 50 world of %d "
+            "%s: tier launches %s" % (world, label, launches))
+      got = rs[0][label + "|dictionary"]
+      err = float(np.abs(got - want.cpu().numpy()).max())
+      results[world, label] = (err, bound)
+      print("phase 50 (d) K19 world of %d %s: ranks bitwise equal, %d tier "
+            "steps a rank%s; max|d| %.3e from the world of 1 (bound %.3e)" % (
+                world, label, launches[0],
+                "; counts %s (world of 1 %s)" % (
+                    rs[0][label + "|iters"].tolist(), counts1)
+                if stop else "", err, bound))
+      check(np.isfinite(got).all() and err <= bound, "phase 50 world of %d "
+            "%s: %.3e from the world of 1 > %.3e" % (world, label, err,
+                                                     bound))
+  return results, time.perf_counter() - t0
+
+
+def cs_tier_main_path(torch, K19, compiled_epoch, lipschitz, fc_solve, sub,
+                      sparse_coding, gen, dev, card):
+  """(e) The main path at each tier and at 'highest': one BIG_STEPS-step
+  segment of the big-dictionary runner at code axis 1, fc and 512 groups
+  of 4 (phase 24's data), its counts zeroed just before and read just
+  after: BIG_STEPS K19 steps, as many persistent solves and (at a tier)
+  tier steps; every dictionary finite and unit norm within 1e-4, the
+  held-out loss falling, printed beside 'highest''s; the patches/s.
+  Returns ({(label, tier): tier launches}, {(label, tier): patches/s},
+  {(label, tier): loss})."""
+  d0 = torch.tensor(unit_rows(np.random.RandomState(2), BIG_S, 256),
+                    device=dev)
+  v0 = lipschitz.top_gram_eigenpair(d0)[1].contiguous()
+  groups = contiguous_groups(BIG_S, 4)
+  arrays = K19.code_shard_group_arrays(groups, BIG_S, 1)
+  counts, rates, losses = {}, {}, {}
+  for grouped in (False, True):
+    label = "grouped 512x4" if grouped else "fc"
+    bx = bigdict_mixtures(torch, dev, BIG_STEPS * BIG_B + BIG_HELD, gen,
+                          4 if grouped else 1, seed=24 + grouped)
+    held, batches = bx[-BIG_HELD:], bx[:-BIG_HELD].reshape(BIG_STEPS, BIG_B,
+                                                           256)
+
+    def loss(d):
+      if grouped:
+        codes = sub.run(held, d, groups, LAM, TRAIN_ITERS,
+                        formulation="gram")
+      else:
+        codes = fc_solve.run(held, d, LAM, TRAIN_ITERS, formulation="gram")
+      return sparse_coding.compute_metrics(
+          held, codes, d, d, mode="fully-connected", sparsity_weight=LAM,
+          group_assignments=groups if grouped else None,
+          is_subspace=grouped)["Average LASSO Loss"]
+
+    loss0 = loss(d0)
+    for tier in ("highest",) + TIER_NAMES:
+      runner = compiled_epoch._code_shard_segment_runner(
+          None, 1, 1, "fista",
+          ("subspace_sc_cheap_quadratic_descent" if grouped
+           else "sc_cheap_quadratic_descent"), 1, False, False, True,
+          group_arrays=arrays if grouped else None, mxu=tier)
+      runner(d0, torch.zeros(BIG_S, device=dev), v0, batches[:2], LAM,
+             TRAIN_ITERS, BIG_STEP)  # warm
+      torch.cuda.synchronize()
+      K19.launches = K19.solve_launches = K19.tier_launches = 0
+      t0 = time.perf_counter()
+      trained, _, _ = runner(d0, torch.zeros(BIG_S, device=dev), v0,
+                             batches, LAM, TRAIN_ITERS, BIG_STEP)
+      torch.cuda.synchronize()
+      rates[label, tier] = BIG_STEPS * BIG_B / (time.perf_counter() - t0)
+      counts[label, tier] = K19.tier_launches
+      check(K19.launches == BIG_STEPS and K19.solve_launches == BIG_STEPS
+            and K19.tier_launches == (0 if tier == "highest" else BIG_STEPS),
+            "phase 50 (e) %s at %s: %d K19 steps, %d persistent solves, %d "
+            "tier steps" % (label, tier, K19.launches, K19.solve_launches,
+                            K19.tier_launches))
+      unit = float((torch.linalg.vector_norm(trained, dim=1) - 1).abs().max())
+      losses[label, tier] = loss(trained)
+      check(bool(torch.isfinite(trained).all()) and unit <= 1e-4
+            and np.isfinite(losses[label, tier])
+            and losses[label, tier] < loss0, "phase 50 (e) %s at %s: rows "
+            "unit within %.3e, held-out loss %.6f -> %.6f" % (
+                label, tier, unit, loss0, losses[label, tier]))
+    for tier in ("highest",) + TIER_NAMES:
+      print("phase 50 (e) K19 runner %s at %s: %d K19 steps (%d at the "
+            "tier), held-out loss %.6f -> %.6f ('highest' %.6f); %.1f "
+            "patches/s ('highest' %.1f) [%s]" % (
+                label, tier, BIG_STEPS, counts[label, tier], loss0,
+                losses[label, tier], losses[label, "highest"],
+                rates[label, tier], rates[label, "highest"], card))
+    del bx, held, batches
+  return counts, rates, losses
+
+
+def cs_library_step(torch, mm, d, z, r, tier, iters=TRAIN_ITERS):
+  """A step's solve passes as PyTorch products: D split once, then each
+  iteration z D and r D^T, z and r split per product, each pass one ``mm``
+  of bf16 operands (at 'highest' one float32 torch.matmul each)."""
+  from vtc_tpu_torch.ops import precision
+  if tier == "highest":
+    dt = d.t().contiguous()
+    for _ in range(iters):
+      torch.matmul(z, d)
+      torch.matmul(r, dt)
+    return None
+  split = {"bf16": lambda a: (a,), "bf16x3": precision.split_hi_lo,
+           "bf16x5": precision.split3}[tier]
+  pairs = ((0, 0),) + precision.TIER_PAIRS.get(tier, ())
+  dts = [t.to(torch.bfloat16) for t in split(d)]
+  dtt = [t.t().contiguous() for t in dts]
+  for _ in range(iters):
+    for a, bs in ((z, dts), (r, dtt)):
+      ta = [t.to(torch.bfloat16) for t in split(a)]
+      out = None
+      for i, j in pairs:
+        term = mm(ta[i], bs[j])
+        out = term if out is None else out + term
+  return None
+
+
+def cs_tier_timing(torch, K19, families, card):
+  """(f) In turns ('highest', tier, tier, 'highest'): a K19 step of a
+  CS_TIER_TIME_STEPS-step segment at bench's fc width (the persistent route,
+  and the per-step route printed beside it); the plain version at the tier
+  (one step); the bound (cs_tier_bound); the library time (cs_library_step,
+  the median of 7 turns). Returns {tier: (ms, plain_ms, bound, library_ms)},
+  'highest''s too."""
+  how, mm = mm_f32_out(torch)
+  print("K19 tier library time: %s" % how)
+  d, h, v, _, _, _ = families["bench fc"]
+  gen = torch.Generator(device=d.device).manual_seed(50)
+  x = bigdict_mixtures(torch, d.device, CS_TIER_TIME_STEPS * BIG_B, d, 1,
+                       seed=506).reshape(CS_TIER_TIME_STEPS, BIG_B, 256)
+  case = (d, h, v, x, None, {})
+  z = torch.randn(BIG_B, BIG_S, generator=gen, device=d.device) * 0.01
+  r = torch.randn(BIG_B, 256, generator=gen, device=d.device) * 0.01
+
+  def run(mxu, route="persistent"):
+    return cs_tier_run(K19, case, mxu, route)
+
+  out = {}
+  per = CS_TIER_TIME_STEPS
+  with torch.no_grad():
+    hi_turns = []
+    for tier in TIER_NAMES:
+      run(tier)  # warm
+      run(tier, "steps")
+      turns = [time_ms(torch, lambda: run("highest"), 3),
+               time_ms(torch, lambda: run(tier), 3),
+               time_ms(torch, lambda: run(tier), 3),
+               time_ms(torch, lambda: run("highest"), 3)]
+      steps = [time_ms(torch, lambda: run("highest", "steps"), 2),
+               time_ms(torch, lambda: run(tier, "steps"), 2),
+               time_ms(torch, lambda: run(tier, "steps"), 2),
+               time_ms(torch, lambda: run("highest", "steps"), 2)]
+      ms = (turns[1] + turns[2]) / 2 / per
+      hi_ms = (turns[0] + turns[3]) / 2 / per
+      hi_turns += [turns[0] / per, turns[3] / per]
+      print("phase 50 (f) K19 step at %s on the per-step route: %.4f ms "
+            "against 'highest' %.4f in turns (%.4f, %.4f, %.4f, %.4f) [%s]"
+            % (tier, (steps[1] + steps[2]) / 2 / per,
+               (steps[0] + steps[3]) / 2 / per, *[s / per for s in steps],
+               card))
+      one = (d, h, v, x[:1], None, {})
+      p_ms = time_ms(torch, lambda: cs_tier_plain(K19, one, tier), 1)
+      lib = library_turns(torch, lambda: cs_library_step(torch, mm, d, z, r,
+                                                         tier))
+      bnd = cs_tier_bound(BIG_B, BIG_S, 256, TRAIN_ITERS, tier)
+      out[tier] = (ms, p_ms, bnd, lib[0])
+      print("phase 50 (f) K19 step at %s: %.4f ms against 'highest' %.4f in "
+            "turns (%.4f, %.4f, %.4f, %.4f); plain %.4f; bound %.4f (%s); "
+            "library median %.4f (%d turns %.4f-%.4f) [%s]" % (
+                tier, ms, hi_ms, *[t / per for t in turns], p_ms, bnd[0],
+                bnd[1], lib[0], TIER_LIB_TURNS, lib[1], lib[2], card))
+    lib = library_turns(torch, lambda: cs_library_step(torch, mm, d, z, r,
+                                                       "highest"))
+    out["highest"] = (sum(hi_turns) / len(hi_turns), None,
+                      code_shard_step_bound(BIG_B, BIG_S, 256, TRAIN_ITERS),
+                      lib[0])
+    print("phase 50 (f) K19 step at highest: %.4f ms; library (the solve's "
+          "products as float32 torch.matmul) median %.4f [%s]" % (
+              out["highest"][0], lib[0], card))
+  return out
+
+
+def cs_rank_library_ms(torch, dev, world):
+  """The library time of a step of K19 across devices on one rank at a
+  'code' axis of ``world``: the step's products (z_l D_l and r D_l^T an
+  iteration, the update's codes_l D_l and codes_l^T resid) at the rank's
+  shard shape (b 128, s_l = BIG_S / world, n 256), each one float32
+  torch.matmul; the median of 7 turns."""
+  g = torch.Generator(device=dev).manual_seed(51)
+  s_l = BIG_S // world
+  d = torch.randn(s_l, 256, generator=g, device=dev)
+  dt = d.t().contiguous()
+  z = torch.randn(BIG_B, s_l, generator=g, device=dev)
+  zt = z.t().contiguous()
+  r = torch.randn(BIG_B, 256, generator=g, device=dev)
+
+  def step():
+    for _ in range(TRAIN_ITERS):
+      torch.matmul(z, d)
+      torch.matmul(r, dt)
+    torch.matmul(z, d)
+    torch.matmul(zt, r)
+
+  return library_turns(torch, step)
+
+
+def cs_tier_phase(torch, dev, card, K19, compiled_epoch, lipschitz, fc_solve,
+                  sub, sparse_coding, gen):
+  """Phase 50: (a)-(f) above; 'highest' is bitwise what it was: its
+  kernels are the fp32 code of code_shard_solve.cuh and
+  fused_code_shard_train_step.cu, unchanged (tools/compare_code_shard_
+  kernels.py holds them to the parent's), and a 'highest' call launches
+  no tier build ((a), (e))."""
+  from vtc_tpu_torch.ops import _build
+  t0 = time.perf_counter()
+  lib = _build.load_library()
+  smem = [lib.vtc_code_shard_smem(t) for t in range(4)]
+  limit_ = lib.vtc_code_shard_smem_limit()
+  want = [K19.SOLVE_SMEM[t] for t in ("highest", "bf16", "bf16x3",
+                                      "bf16x5")]
+  print("phase 50: the solve kernel's shared memory a CTA at highest / bf16 "
+        "/ bf16x3 / bf16x5: %s bytes of %d; %d CTA an SM; grid %d at b %d s "
+        "%d n 256" % (smem, limit_, lib.vtc_code_shard_blocks_per_sm(),
+                      lib.vtc_code_shard_grid(BIG_B, BIG_S, 256), BIG_B,
+                      BIG_S))
+  check(smem == want and max(smem) <= limit_, "the library's shared memory "
+        "%s differs from solve_plan's %s or exceeds %d" % (smem, want,
+                                                          limit_))
+  families = cs_tier_families(torch, dev)
+  errs, planted, equal = cs_tier_kernel_cases(torch, K19, families)
+  stop_err = cs_tier_stop_cases(torch, K19, families)
+  world, world_s = cs_tier_world(torch, K19, compiled_epoch, lipschitz, gen,
+                                 dev)
+  counts, rates, losses = cs_tier_main_path(
+      torch, K19, compiled_epoch, lipschitz, fc_solve, sub, sparse_coding,
+      gen, dev, card)
+  times = cs_tier_timing(torch, K19, families, card)
+  rank_lib = cs_rank_library_ms(torch, dev, 2)
+  print("phase 50 K19 across devices library (a rank's step products at "
+        "code 2 as float32 torch.matmul): median %.4f ms (%d turns "
+        "%.4f-%.4f) [%s]" % (rank_lib[0], TIER_LIB_TURNS, rank_lib[1],
+                             rank_lib[2], card))
+  print("phase 50: %.1f s (its ranks %.1f s); %d planted wrong-tier and "
+        "TF32 results failed; %d route comparisons bitwise equal" % (
+            time.perf_counter() - t0, world_s, planted, equal))
+  return dict(errs=errs, planted=planted, stop_err=stop_err, world=world,
+              counts=counts, rates=rates, losses=losses, times=times,
+              rank_lib=rank_lib[0])
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -9647,6 +10256,10 @@ def main():
   # phase 49: the tiers of K8, K9 and K18 (ica_tier_phase)
   ica_tiers = ica_tier_phase(torch, dev, card, K8, ica_batches, ica_held, id0)
 
+  # phase 50: the tiers of K19 (cs_tier_phase)
+  cs_tiers = cs_tier_phase(torch, dev, card, K19, compiled_epoch, lipschitz,
+                           fc_solve, sub, sparse_coding, big_gen)
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -9885,14 +10498,33 @@ def main():
                       ica_tiers["counts"][key, tier],
                       ica_tiers["errs"][case, tier], ms_t, p_t, bnd_t))
       tier_library[name] = lib_t
+  # the K19 tier tile (phase 50): launches on its main path (the runner's
+  # fc and grouped segments), the worst error of its kernel cases at the
+  # tier, its time a step of bench's fc segment beside the plain version
+  # at the tier, its bound and the library time of the step's solve passes
+  # as products of bf16 operands
+  for tier in TIER_NAMES:
+    ms_t, p_t, bnd_t, lib_t = cs_tiers["times"][tier]
+    name = ("code_shard_solve.cuh tier tile (K19 at %s, via "
+            "fused_code_shard_train_step.cu)" % tier)
+    kernels.append((
+        name, "code_shard_solve.cuh",
+        "vtc_tpu/ops/pallas_code_shard_train.py:88-117 (_make_tier_dots' "
+        "tier at :372-373, the group prox's at :241, in the kernel of :616)",
+        sum(n for (_, t), n in cs_tiers["counts"].items() if t == tier),
+        max(e for (_, t), e in cs_tiers["errs"].items() if t == tier), ms_t,
+        p_t, bnd_t))
+    tier_library[name] = lib_t
   # K10's library time is its own loop with each product one cuDNN call
   # (phase 17), K11's the same loop on K11's timed inputs (the same
   # function), and with the stop that loop at the iterations the stopped
   # solve took (phase 44); K1's and K4's the 100 iteration products of
   # their timed solve, each one torch.matmul in fp32 without the prox
   # (phase 42), and with the stop those of the iterations the stopped solve
-  # took; no PyTorch call computes any other kernel's solve or step, so
-  # theirs are null
+  # took; K19 across devices the products of a rank's step at code 2, each
+  # one float32 torch.matmul (phase 50); the tier rows the passes of their
+  # products as products of bf16 operands; no PyTorch call computes any
+  # other kernel's solve or step, so theirs are null
   library_ms = {"fused_conv_direct": k10_lib, "fused_conv_fista": k10_lib,
                 "fused_conv_direct (early stop)": cstop_times["K10"][2],
                 "fused_conv_fista (early stop)": cstop_times["K11"][2],
@@ -9901,7 +10533,9 @@ def main():
                 "fused_fista (early stop)":
                     solve_lib_ms / ITERS * k1_stop_it,
                 "fused_group_fista (early stop)":
-                    solve_lib_ms / ITERS * k4_stop_it, **tier_library}
+                    solve_lib_ms / ITERS * k4_stop_it,
+                "fused_code_shard_train across devices": cs_tiers["rank_lib"],
+                **tier_library}
   print(json.dumps({"kernels": [{
       "name": name,
       "route": "cuda",
@@ -9941,6 +10575,10 @@ if __name__ == "__main__":
     # one rank of phase 49's world of 2, started by main()
     sys.exit(ica_tier_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                 sys.argv[4]))
+  if len(sys.argv) == 5 and sys.argv[1] == "--cs-tier-rank":
+    # one rank of phase 50's worlds of 2 and 4, started by main()
+    sys.exit(cs_tier_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4]))
   if len(sys.argv) == 5 and sys.argv[1] == "--conv-tier-rank":
     # one rank of phase 48's world of 2, started by main()
     sys.exit(conv_tier_rank_main(int(sys.argv[2]), int(sys.argv[3]),

@@ -272,12 +272,30 @@ def test_refusals(rng):
       compiled_epoch._code_shard_segment_runner(
           None, *sizes, "fista", "sc_steepest_descent", 1, False, False,
           True)
-  with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 3a"):
-    cs.fused_code_sharded_train_segment(*args, mxu="bf16x3")
-  with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 3a"):
-    compiled_epoch._code_shard_segment_runner(
-        None, 1, 1, "fista", "sc_steepest_descent", 1, False, False, True,
-        mxu="bf16x3")(d, h, v, x, 0.1, 5, 0.05)
+  # the tiers run (since item 3a.2.4), the wrapper and the runner alike,
+  # within the tier's floor of vtc_tpu's K19 at the tier
+  # (tests/test_torch_port_code_shard_tiers.py holds every case, with
+  # vtc_tpu's spread); an unknown tier raises
+  want = _pallas(*(a.numpy() for a in args[:4]), *args[4:], mxu="bf16x3",
+                 update_alg="sc_steepest_descent")
+  runner = compiled_epoch._code_shard_segment_runner(
+      None, 1, 1, "fista", "sc_steepest_descent", 1, False, False, True,
+      mxu="bf16x3")
+  for label, got in (
+      ("wrapper", cs.fused_code_sharded_train_segment(
+          *args, mxu="bf16x3", update_alg="sc_steepest_descent",
+          power_iters=2)),
+      ("runner", runner(d, h, v, x, 0.1, 5, 0.05))):
+    for g, w, name in zip(got, want, NAMES):
+      assert_close(g.numpy(), w, "%s at bf16x3 %s" % (label, name),
+                   2e-5 * max(1.0, float(np.abs(w).max())))
+  for mxu in ("default", "tf32"):
+    with pytest.raises(ValueError, match="unknown MXU tier"):
+      cs.fused_code_sharded_train_segment(*args, mxu=mxu)
+    with pytest.raises(ValueError, match="unknown MXU tier"):
+      compiled_epoch._code_shard_segment_runner(
+          None, 1, 1, "fista", "sc_steepest_descent", 1, False, False, True,
+          mxu=mxu)(d, h, v, x, 0.1, 5, 0.05)
   for kw in (dict(interpret=True), dict(code_stride=2),
              dict(data_stride=3)):
     with pytest.raises(ValueError, match="row-major strides"):

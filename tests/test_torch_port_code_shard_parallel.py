@@ -21,6 +21,14 @@ tests/test_pallas_code_shard_group.py:33-70 runs it.
   s_l <= n with the global s > n, and the in-kernel stop test at (2, 2)).
   The ranks must hold bitwise the same eigenvector and stepsize, and the
   gathered shards must match vtc_tpu.
+* The tiers across ranks: the cheap-quadratic segment and the stop's
+  problem at bf16x3 and bf16 on (1, 2) and (2, 2), against vtc_tpu's K19
+  at the tier on a mesh of the same shape; the stopped ranks agree on
+  their counts, which are below the iteration count.  Tolerance:
+  tests/test_torch_port_code_shard_tiers.py's bound, the larger of the
+  tier's floor (tests/test_torch_port_tiers.py's FLOOR, times the largest
+  value) and vtc_tpu's spread under five one-ulp nudges of both the
+  batches and the dictionary, taken only where the floor does not hold.
 
 Inputs come from numpy seeds: k 1 to 2, a global batch of 16, s 64 (32 for
 the s_l <= n case), n 16.  Tolerance: rtol and atol 3e-5, vtc_tpu's own
@@ -41,6 +49,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 import torch_port_dp_worker as worker
+from test_torch_port_tiers import FLOOR, nudged
 from vtc_tpu.ops import pallas_code_shard_train as jcs
 from vtc_tpu.parallel import make_mesh as jax_make_mesh
 from vtc_tpu_torch import parallel
@@ -166,6 +175,38 @@ def _key(spec):
   return "x".join("%s%d" % (a, spec[a]) for a in sorted(spec))
 
 
+# the tiers across ranks: a segment and the stop's problem at each tier
+WORLD_TIERS = ("bf16x3", "bf16")
+TIER_SEGMENT = "cheap-quad upd 1"
+
+
+def _tier_case(stop, tier):
+  """(d, h, v, x, sw, n_it, upd, flags) of the segment (stop False) or
+  the stop's problem at the tier."""
+  if stop:
+    seed, sizes, flags, sw, n_it, upd = STOP
+    return (*_problem(seed, **sizes), sw, n_it, upd, dict(flags, mxu=tier))
+  (d, h, v, x), flags, _ = _segment_inputs(TIER_SEGMENT)
+  return d, h, v, x, SW, N_IT, UPD, dict(flags, mxu=tier)
+
+
+def _tier_key(stop, tier, spec):
+  return "%s at %s %s" % ("stop" if stop else TIER_SEGMENT, tier,
+                          _key(spec))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tier(stop, tier, data, code, seed=None):
+  """vtc_tpu's K19 at the tier on a (data, code) mesh, flattened; with
+  seed, on the batches and dictionary nudged by seed and seed + 5."""
+  d, h, v, x, sw, n_it, upd, flags = _tier_case(stop, tier)
+  if seed is not None:
+    d, x = nudged(d, seed + 5), nudged(x, seed)
+  return np.concatenate([np.asarray(a, np.float64).ravel() for a in
+                         _jax_segment(data, code, d, h, v, x, sw, n_it, upd,
+                                      **flags)])
+
+
 @functools.lru_cache(maxsize=None)
 def rank_results(world):
   """Every case of the file at this world size, in one spawn."""
@@ -180,6 +221,12 @@ def rank_results(world):
       cases.append(("%s %s" % (name, _key(spec)), "cs_segment", dict(
           mesh_spec=spec, d=d, h=h, v=v, batches=x, sw=SW, n_it=N_IT,
           upd_step=UPD, kw=flags, groups=groups)))
+    for stop in (False, True):
+      for tier in WORLD_TIERS:
+        d, h, v, x, sw, n_it, upd, flags = _tier_case(stop, tier)
+        cases.append((_tier_key(stop, tier, spec), "cs_segment", dict(
+            mesh_spec=spec, d=d, h=h, v=v, batches=x, sw=sw, n_it=n_it,
+            upd_step=upd, kw=flags)))
     if spec == dict(data=2, code=2):
       seed, sizes, flags, sw, n_it, upd = STOP
       d, h, v, x = _problem(seed, **sizes)
@@ -324,6 +371,33 @@ def test_stop_test_matches_the_pallas_kernel():
   full = cs.fused_code_sharded_train_segment_plain(
       *map(torch.from_numpy, (d, h, v, x)), sw, n_it, upd, power_iters=2)
   assert np.abs(full[0].numpy() - got[0]).max() > 1e-6
+
+
+@pytest.mark.parametrize("stop", [False, True])
+@pytest.mark.parametrize("tier", WORLD_TIERS)
+@pytest.mark.parametrize("world", [2, 4])
+def test_plain_segment_at_a_tier_matches_the_pallas_kernel(world, tier,
+                                                           stop):
+  spec = MESHES[world][0]
+  key = _tier_key(stop, tier, spec)
+  ranks = rank_results(world)
+  _same_on_every_rank(ranks, key)
+  data, code = spec["data"], spec["code"]
+  want = jax_tier(stop, tier, data, code)
+  got = np.concatenate([np.asarray(a, np.float64).ravel()
+                        for a in ranks[0][key]["state"]])
+  bound = FLOOR[tier] * max(1.0, float(np.abs(want).max()))
+  err = float(np.abs(got - want).max())
+  if err > bound:  # vtc_tpu's own spread, where the floor does not hold
+    bound = max(bound, max(float(np.abs(jax_tier(stop, tier, data, code,
+                                                 seed) - want).max())
+                           for seed in range(5)))
+  print("%s: max|d| %.3e (bound %.3e)" % (key, err, bound))
+  assert err <= bound
+  if stop:
+    counts = [r[key]["iters"] for r in ranks]
+    assert all(c == counts[0] for c in counts), counts
+    assert min(counts[0]) < STOP[4], counts[0]  # it stopped
 
 
 def test_shard_below_n_was_refused_before():

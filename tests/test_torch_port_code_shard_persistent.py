@@ -21,7 +21,13 @@ CPU:
   first) from lanes, then a thread's own columns;
 * the route 'auto' takes is pinned: the persistent solve at a mesh of one
   rank, the per-step route on any axis above 1; and the grid and the
-  resident D slices of the persistent launch;
+  resident D slices of the persistent launch, the same at every tier;
+* the tier build's layout: its shared memory at each tier (the float32
+  staging and two D slices' bf16 planes, 32 KB a term a slice) fits the
+  232,448 bytes an H100 CTA may opt into, once an SM; the planes' XOR
+  swizzle gives a warp's B-fragment reads 32 banks; the mma fragments
+  give every output of a 32 x 64 tile to exactly one (warp, lane, entry);
+  and the tier tile's in-warp window sum covers exactly each group;
 * the plain version, which stands for both routes here, holds vtc_tpu's
   Pallas kernel (interpret mode) at a ragged shape the Pallas gate
   accepts (b 13, s 200, n 40, fc and groups of 4), within
@@ -256,6 +262,10 @@ def test_the_auto_route_is_pinned(code, data, route):
   assert cs.auto_route(code, data) == route
 
 
+TIERS = ("highest", "bf16x5", "bf16x3", "bf16")
+
+
+@pytest.mark.parametrize("mxu", TIERS)
 @pytest.mark.parametrize("b,s,n,blocks_per_sm,grid,tiles,resident", [
     (128, 2048, 256, 1, 128, (128, 128), (True, True)),
     (128, 512, 256, 1, 32, (32, 32), (True, True)),
@@ -264,8 +274,9 @@ def test_the_auto_route_is_pinned(code, data, route):
     (128, 4096, 256, 1, 132, (256, 256), (False, False)),
     (128, 2048, 512, 1, 132, (256, 128), (False, False)),
     (250, 2048, 256, 1, 132, (256, 256), (False, False))])
-def test_the_grid_is_pinned(b, s, n, blocks_per_sm, grid, tiles, resident):
-  plan = cs.solve_plan(b, s, n, H100_SMS, blocks_per_sm)
+def test_the_grid_is_pinned(b, s, n, blocks_per_sm, grid, tiles, resident,
+                            mxu):
+  plan = cs.solve_plan(b, s, n, H100_SMS, blocks_per_sm, mxu)
   assert plan["grid"] == grid
   assert (plan["tiles"]["A"], plan["tiles"]["B"]) == tiles
   assert (plan["resident"]["A"], plan["resident"]["B"]) == resident
@@ -281,6 +292,104 @@ def test_the_grid_fits_the_card_and_the_larger_phase(b, s, n, sms):
   assert plan["grid"] == min(sms, max(tiles["A"], tiles["B"]))
   if plan["resident"]["B"]:
     assert n <= cs.SOLVE_DEPTH
+
+
+H100_SM_SMEM = 233472  # the shared memory of an H100 SM, bytes
+RESERVED = 1024  # a CTA's reserved shared memory
+
+
+@pytest.mark.parametrize("mxu,smem", [
+    ("highest", 166400), ("bf16", 99840), ("bf16x3", 164352),
+    ("bf16x5", 229888)])
+def test_the_shared_memory_fits_at_each_tier(mxu, smem):
+  """The solve kernel's dynamic shared memory (the library's
+  vtc_code_shard_smem, which chip_smoke.py phase 50 holds to this): it
+  fits a CTA at every tier; 'highest''s fits one an SM and not two, and
+  the grid takes the least count over the builds, so every tier runs the
+  grid of one CTA an SM."""
+  plan = cs.solve_plan(128, 2048, 256, H100_SMS, 1, mxu)
+  assert plan["smem"] == smem == cs.SOLVE_SMEM[mxu]
+  assert smem <= cs.H100_SMEM_OPTIN and smem + RESERVED <= H100_SM_SMEM
+  highest = cs.SOLVE_SMEM["highest"] + RESERVED
+  assert highest <= H100_SM_SMEM < 2 * highest
+  assert plan["grid"] == 128 and plan["resident"] == {"A": True, "B": True}
+  if mxu != "highest":
+    terms = {"bf16": 1, "bf16x3": 2, "bf16x5": 3}[mxu]
+    staging = 4 * cs.SOLVE_TILE_M * (cs.SOLVE_DEPTH + 4)
+    planes = 2 * terms * (cs.SOLVE_TILE_N * cs.SOLVE_DEPTH // 2) * 4
+    assert smem == staging + max(planes, 4 * cs.SOLVE_TILE_N
+                                 * (cs.SOLVE_DEPTH + 4))
+  with pytest.raises(ValueError, match="unknown MXU tier"):
+    cs.solve_plan(128, 2048, 256, H100_SMS, 1, "default")
+
+
+def _plane_word(j, kw):
+  """cs_plane_word: row j's words XOR-swizzled by (j & 7) << 2."""
+  return j * (cs.SOLVE_DEPTH // 2) + (kw ^ ((j & 7) << 2))
+
+
+def test_the_planes_swizzle_is_conflict_free_and_a_bijection():
+  text = HEADER.read_text()
+  assert "constexpr int kCsRowWords = kCsDepth / 2;" in text
+  assert "constexpr int kCsPlaneWords = kCsTileN * kCsRowWords;" in text
+  assert "return j * kCsRowWords + (kw ^ ((j & 7) << 2));" in text
+  words = {_plane_word(j, kw) for j in range(cs.SOLVE_TILE_N)
+           for kw in range(cs.SOLVE_DEPTH // 2)}
+  assert words == set(range(cs.SOLVE_TILE_N * cs.SOLVE_DEPTH // 2))
+  lane = np.arange(32)
+  g, t = lane >> 2, lane & 3
+  for warp_col in (0, 32):
+    for q in range(4):
+      for k0 in range(0, cs.SOLVE_DEPTH, 16):
+        for half in (0, 4):  # the fragment's two words
+          banks = {_plane_word(warp_col + 8 * q + gg, k0 // 2 + tt + half)
+                   % 32 for gg, tt in zip(g, t)}
+          assert len(banks) == 32
+
+
+def test_the_tier_fragments_own_every_output_once():
+  """cs_tier_row / cs_tier_col: warp w rows 16 (w >> 1) + lane / 4 + 8
+  (e >> 1), columns 32 (w & 1) + 8 q + 2 (lane & 3) + (e & 1)."""
+  owned = np.zeros((cs.SOLVE_TILE_M, cs.SOLVE_TILE_N), int)
+  for tid in range(cs.SOLVE_THREADS):
+    for q in range(4):
+      for e in range(4):
+        row = 16 * (tid >> 6) + ((tid & 31) >> 2) + 8 * (e >> 1)
+        col = 32 * ((tid >> 5) & 1) + 8 * q + 2 * (tid & 3) + (e & 1)
+        owned[row, col] += 1
+  assert (owned == 1).all()
+
+
+def _tier_window(values, window):
+  """cs_tier_b_tile's window sum over one warp row's 32 columns, column c
+  at q = c // 8, lane t = (c % 8) // 2, entry e = c % 2; returns each
+  column's sum as a tree."""
+  held = {c: values[c] for c in range(32)}
+  if window >= 2:
+    for c in range(0, 32, 2):
+      held[c] = held[c + 1] = ("+", held[c], held[c + 1])
+  for off in (1, 2):
+    if window >= 4 * off:
+      held = {c: ("+", held[c], held[c ^ (2 * off)]) for c in range(32)}
+  if window >= 16:
+    for c in range(8):
+      lo = ("+", held[c], held[c + 8])
+      hi = ("+", held[c + 16], held[c + 24])
+      if window == 16:
+        held[c] = held[c + 8] = lo
+        held[c + 16] = held[c + 24] = hi
+      else:
+        held[c] = held[c + 8] = held[c + 16] = held[c + 24] = ("+", lo, hi)
+  return [held[c] for c in range(32)]
+
+
+@pytest.mark.parametrize("window", [1, 2, 4, 8, 16, 32])
+def test_the_tier_window_sum_covers_each_group(window):
+  got = _tier_window(["u%d^2" % c for c in range(32)], window)
+  for c in range(32):
+    leaves = re.findall(r"u(\d+)", str(got[c]))
+    assert sorted(map(int, leaves)) == list(
+        range(c // window * window, c // window * window + window))
 
 
 class _TwoCodeRanks:

@@ -27,9 +27,11 @@ in interpret mode and the port's plain versions:
   resolves to the psum-per-op step ('gram') bitwise its 'highest' run;
 * ``encode_dataset(data_parallel=...)`` fc and subspace at each tier
   against vtc_tpu's encode on its one-device mesh;
-* the refusals that stay: ICA (item 3a.2.3) and the code-sharded K19
-  (item 3a.2.4); conv with data parallelism runs its tiers since K10's
-  tier kernel (tests/test_torch_port_conv_tiers.py), and the conv encode
+* what the refusals became: the ICA trainer with data parallelism runs
+  its tiers (item 3a.2.3), and the code-sharded runner runs K19's (item
+  3a.2.4), held to vtc_tpu's runner at bf16x3 with an unknown tier
+  raising; conv with data parallelism runs its tiers since K10's tier
+  kernel (tests/test_torch_port_conv_tiers.py), and the conv encode
   refuses one only where vtc_tpu asserts (a formulation other than
   'pallas').
 
@@ -401,14 +403,29 @@ def test_refusals_that_stay():
       device="cpu")
   assert 0.0 < float((tiered - full).abs().max()) < 1e-2
   # the code-sharded route: the trainer hands the tier to K19's runner,
-  # whose wrapper refuses it (a 'code' axis above 1 needs ranks:
-  # tests/test_torch_port_dp_segments.py holds the trainer there)
+  # which runs it (since item 3a.2.4) within the tier's bound of vtc_tpu's
+  # runner on a 1 x 1 mesh; an unknown tier raises (a 'code' axis above 1
+  # needs ranks: tests/test_torch_port_dp_segments.py holds the trainer
+  # there)
   d, h, batches = _segment_problem(s=32)
-  runner = compiled_epoch._code_shard_segment_runner(
-      None, 1, 1, "fista", CQ, 1, False, False, True, mxu="bf16x3")
-  with pytest.raises(NotImplementedError, match=r"item 3a\.2\.4"):
-    runner(_t(d), _t(h), _t(np.ones(16, np.float32)), _t(batches), SW,
-           SEG_ITERS, UPD)
+
+  def port_runner(mxu):
+    return flat(compiled_epoch._code_shard_segment_runner(
+        None, 1, 1, "fista", CQ, 1, False, False, True, mxu=mxu)(
+            _t(d), _t(h), _t(_v0()), _t(batches), SW, SEG_ITERS, UPD))
+
+  def jax_runner(x, dd, mxu):
+    return flat(jax_ce._code_shard_segment_runner(
+        jax_parallel.make_mesh(data=1, code=1), 1, 1, "fista", CQ, 1, False,
+        False, True, mxu=mxu)(dd, h, _v0(), x, np.float32(SW),
+                              np.int32(SEG_ITERS), np.float32(UPD)))
+
+  want = jax_runner(batches, d, "bf16x3")
+  check_tier(port_runner, want, jax_runner(batches, d, "highest"),
+             spread(lambda xx, dd: jax_runner(xx, dd, "bf16x3"), batches, d,
+                    want), "bf16x3", "the code-sharded runner")
+  with pytest.raises(ValueError, match="unknown MXU tier"):
+    port_runner("default")
 
 
 def _c_kinds(params):

@@ -222,18 +222,6 @@ def case_routes(family, batches, d0, params, dcn=1):
   return {"dictionary": out.numpy(), "calls": calls}
 
 
-def case_refused(batches, d0, params, mesh_spec):
-  """The scanned trainer on ``parallel.make_mesh(**mesh_spec)``: the
-  message of the NotImplementedError it raises, or None."""
-  params = dict(params, data_parallel=parallel.make_mesh(**mesh_spec))
-  try:
-    compiled_epoch.train_dictionary_scanned(batches, batches[:1], d0, params,
-                                            device="cpu")
-  except NotImplementedError as err:
-    return str(err)
-  return None
-
-
 def case_cold_runner(d, h, batches, sw, n_it, upd_step, inference_alg,
                      update_alg, config):
   """``_dp_segment_runner`` (the psum-per-op step) over this rank's
@@ -382,7 +370,7 @@ def case_cs_segment(mesh_spec, d, h, v, batches, sw, n_it, upd_step, kw,
   of ``d`` and ``h``, the replicated ``v`` and its batch shard; with
   ``groups`` the rank's slice of code_shard_group_arrays.  Returns the
   rows, codes and eigenvector gathered into the global arrays, the
-  stepsize, and the rank's own eigenvector."""
+  stepsize, the rank's own eigenvector and, with the stop, its counts."""
   from vtc_tpu_torch import convert
   from vtc_tpu_torch.ops import fused_code_shard_train as cs
   mesh = parallel.make_mesh(**mesh_spec)
@@ -399,7 +387,9 @@ def case_cs_segment(mesh_spec, d, h, v, batches, sw, n_it, upd_step, kw,
   dg, hg, vg = convert.code_shard_state_to_numpy(mesh, d1, h1, v1)
   codes = mesh.all_gather(mesh.all_gather_code(codes, dim=1))
   return {"state": (dg, hg, vg, codes.numpy()), "eta": eta.numpy(),
-          "eigvec": v1.numpy()}
+          "eigvec": v1.numpy(),
+          "iters": (list(cs.plain_iters) if kw.get("early_stopping_epsilon")
+                    is not None else None)}
 
 
 def case_cs_cuda(mesh_spec, d, h, v, batches, sw, n_it, upd_step):

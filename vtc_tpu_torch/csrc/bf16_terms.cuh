@@ -2,7 +2,8 @@
 // the precision tiers are built from, for Hopper (sm_90a).  Shared by the
 // solve's tier kernel (fista_tier.cuh: K1, K2, K4, K6 and the
 // data-parallel kernels), the conv tier GEMM (conv_gemm_tier.cuh: K10,
-// K12, K13, K17) and the ICA tier tile (ica_segment.cuh: K8, K9, K18).
+// K12, K13, K17), the ICA tier tile (ica_segment.cuh: K8, K9, K18) and
+// K19's tier tile (code_shard_solve.cuh).
 //
 // vtc_tpu splits a float32 operand into bf16 terms, each rounded to
 // nearest even: hi = bf16(x); at bf16x3 lo = bf16(x - hi)
@@ -42,6 +43,17 @@ __device__ __forceinline__ void split_bits(float v, uint16_t (&t)[TERMS]) {
     const float r = __fsub_rn(v, bf16_round(v));
     t[1] = bf16_bits(r);
     if constexpr (TERMS == 3) t[2] = bf16_bits(__fsub_rn(r, bf16_round(r)));
+  }
+}
+
+// split_bits' terms as float values.
+template <int TERMS>
+__device__ __forceinline__ void split_terms(float v, float (&t)[TERMS]) {
+  t[0] = bf16_round(v);
+  if constexpr (TERMS >= 2) {
+    const float r = __fsub_rn(v, t[0]);
+    t[1] = bf16_round(r);
+    if constexpr (TERMS == 3) t[2] = bf16_round(__fsub_rn(r, t[1]));
   }
 }
 

@@ -102,12 +102,59 @@
 // iteration that tests (b 128, s 2048, n 256; NVIDIA H100 80GB HBM3, 700
 // W; chip_smoke.py phase 45), against 1.25 when every CTA summed the
 // slots right after the barrier.
+//
+// The tiers (vtc_tpu _make_tier_dots, pallas_code_shard_train.py:88-117,
+// used at :372-373).  At bf16x5, bf16x3 and bf16 the two products of an
+// iteration, the reconstruction's partials z D (phase A) and the gradient
+// r D^T (phase B), take both operands split into bf16 terms (bf16_terms.cuh)
+// and the tier's single-pass products: bf16, a b; bf16x3, a_hi b_hi + a_lo
+// b_hi + a_hi b_lo; bf16x5, a1 b1 + a2 b1 + a1 b2 + a3 b1 + a1 b3.  The
+// split sum, the prox, the momentum, the stop and the update's first
+// residual stay float32, and so do the per-step launches of the Gram, the
+// power refresh and the update.  The tier is a template parameter of the
+// kernel (a run-time tier made ptxas spill the fc solve's tier kernel,
+// fista_tier.cuh), so 'highest' is the float32 code above, unchanged.  The
+// tier tile (cs_tier_block, cs_tier_step):
+//  * The same tiles, phases, barriers and grid as 'highest': each of the
+//    CTA's 4 warps owns a 16 x 32 part of the 32 x 64 output tile (four
+//    m16n8 tiles) and issues mma.sync m16n8k16 bf16 with float32
+//    accumulation; each 16-deep step's hi x hi pass from zero, added to its
+//    accumulator round-to-nearest, the smaller passes in a second one, the
+//    two added at the end (ops/precision.ns_dot's sum).  A phase-A tile is
+//    one kSplitK chunk's product from zero, and phase S adds the chunks in
+//    order, so the plain version takes the tier product chunk by chunk
+//    (precision.split_k_dot).
+//  * D is constant for the whole solve, so it is split once a step: the
+//    prologue splits the CTA's two resident slices into bf16 planes in
+//    shared memory, TERMS planes a slice (32 KB each; kCsRowWords words a
+//    row, XOR-swizzled so that the B fragments' reads are conflict-free),
+//    where the float32 build copies them.  z and r change every iteration
+//    and arrive as the float32 build's staging (a[32][kCsLd], cp.async),
+//    each element split as the A fragments are built from it.
+//  * Shared memory: the staging (33,280 B) and two slices' planes: 64 KB
+//    at bf16, 128 KB at bf16x3, 192 KB at bf16x5, so 99,840 / 164,352 /
+//    229,888 B of the 232,448 a CTA may opt into; one CTA an SM at every
+//    tier, so the grid is 'highest''s.  The update's first residual stays a
+//    float32 phase A, whose D slice (da, 66,560 B) reuses the planes' space
+//    once the solve is done.
+//  * z and old are read and written in global memory every iteration (no
+//    entries held in registers); the in-warp window sum follows the mma
+//    fragments' layout (cs_tier_b_tile).
+//  * The member-table prox rounds as vtc_tpu's membership products do where
+//    SolveArgs::prox_round (CsMemberSum); vtc_tpu's rotate window stays
+//    float32 (the in-warp window, or a table wider than 32 exactly).
+//  * The per-step route's tier kernels (fused_code_shard_train_step.cu) run
+//    the same tile functions on a tile a CTA, so the routes give the same
+//    bits at every tier, as at 'highest'.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "grid_sync.cuh"  // the grid barrier and the cp.async helpers
+#include <type_traits>
+
+#include "bf16_terms.cuh"  // the tiers' bf16 terms and mma.sync product
+#include "grid_sync.cuh"   // the grid barrier and the cp.async helpers
 
 namespace {
 
@@ -212,6 +259,8 @@ struct SolveArgs {
   float lam;
   int fista, mode, window, groups, width;
   int b, s, n, num_iters, resid;
+  int prox_round;        // a tier build: the member-table prox rounds its
+                         // sums and scale at the tier (cs_member_sum)
   // STOP: the stop test's eps and 1 / count, the CTAs' shares (2, grid)
   // by parity, and iters (1,), which receives the step's count
   float eps, inv_count;
@@ -307,8 +356,10 @@ __device__ __forceinline__ float cs_f4(const float4& v, int q) {
   return q == 0 ? v.x : (q == 1 ? v.y : (q == 2 ? v.z : v.w));
 }
 
-// acc[r][c] += the products of k values k .. k + 3, in k order.
-__device__ __forceinline__ void cs_fma4(const SolveSmem& sm,
+// acc[r][c] += the products of k values k .. k + 3, in k order.  Smem is
+// SolveSmem, or a tier build's CsTierSmem (its update residual).
+template <class Smem>
+__device__ __forceinline__ void cs_fma4(const Smem& sm,
                                         const float (*bs)[kCsLd], int k,
                                         float acc[4][4]) {
   float4 av[4], bv[4];
@@ -329,7 +380,8 @@ __device__ __forceinline__ void cs_fma4(const SolveSmem& sm,
 
 // acc += the products of the kn (<= 32) k values from k0 of the buffers,
 // stopping at kn as gemm_tile does.
-__device__ __forceinline__ void cs_slice_fma(const SolveSmem& sm,
+template <class Smem>
+__device__ __forceinline__ void cs_slice_fma(const Smem& sm,
                                              const float (*bs)[kCsLd], int k0,
                                              int kn, float acc[4][4]) {
   if (kn == kCsSlice) {
@@ -354,8 +406,8 @@ __device__ __forceinline__ void cs_slice_fma(const SolveSmem& sm,
 // where load_b, the tile's D operand (TRANSPOSED: phase A's columns of D,
 // j0 its first column; else phase B's rows of D, j0 its first row), which
 // is otherwise already in bs.
-template <bool TRANSPOSED>
-__device__ __forceinline__ void cs_issue(SolveSmem& sm, float (*bs)[kCsLd],
+template <bool TRANSPOSED, class Smem>
+__device__ __forceinline__ void cs_issue(Smem& sm, float (*bs)[kCsLd],
                                          const float* a, int lda, int M,
                                          int i0, bool vec_a, const float* d,
                                          int s, int n, int j0, bool load_b,
@@ -375,7 +427,8 @@ __device__ __forceinline__ void cs_issue(SolveSmem& sm, float (*bs)[kCsLd],
 
 // acc += the products of the k block cs_issue copied, each slice once it
 // has landed.  Every thread of the CTA must call both.
-__device__ __forceinline__ void cs_compute(SolveSmem& sm,
+template <class Smem>
+__device__ __forceinline__ void cs_compute(Smem& sm,
                                            const float (*bs)[kCsLd], int kb,
                                            int k_end, float acc[4][4]) {
   const int slices = cs_cdiv(k_end - kb, kCsSlice);
@@ -389,8 +442,8 @@ __device__ __forceinline__ void cs_compute(SolveSmem& sm,
   __syncthreads();  // the next block's copies reuse the buffers
 }
 
-template <bool TRANSPOSED>
-__device__ __forceinline__ void cs_block(SolveSmem& sm, float (*bs)[kCsLd],
+template <bool TRANSPOSED, class Smem>
+__device__ __forceinline__ void cs_block(Smem& sm, float (*bs)[kCsLd],
                                          const float* a, int lda, int M,
                                          int i0, bool vec_a, const float* d,
                                          int s, int n, int j0, bool load_b,
@@ -518,7 +571,8 @@ __device__ __forceinline__ void cs_sum_phase(const SolveArgs& p,
 
 // Phase-A tile t with src (z, or old for the update's residual) as A: its
 // chunk's partial.  key_a names the D slice in da.
-__device__ __forceinline__ void cs_phase_a_tile(SolveSmem& sm,
+template <class Smem>
+__device__ __forceinline__ void cs_phase_a_tile(Smem& sm,
                                                 const SolveArgs& p,
                                                 SolveCopy mode,
                                                 const float* src, int t,
@@ -669,9 +723,46 @@ __device__ __forceinline__ void cs_phase_b_tile(SolveSmem& sm,
   }
 }
 
+// A member-table group's sum of squares, at a tier's rounding where PT
+// (its terms) > 0: each of the PT bf16 terms of u^2 summed over the members
+// in order, then the terms' sums added in order (vtc_tpu's membership
+// products, _make_prox_dots; ops/precision.prox_sums); PT 0 is the float32
+// sum.  scale() is the group's scale as its members receive it at the tier
+// (precision.prox_scale): bf16(scale), hi + lo, or itself.
+template <int PT>
+struct CsMemberSum {
+  float acc[PT > 0 ? PT : 1] = {};
+  __device__ __forceinline__ void add(float u) {
+    const float uu = __fmul_rn(u, u);
+    if constexpr (PT == 0) {
+      acc[0] = __fadd_rn(acc[0], uu);
+    } else {
+      float t[PT];
+      split_terms<PT>(uu, t);
+#pragma unroll
+      for (int q = 0; q < PT; ++q) acc[q] = __fadd_rn(acc[q], t[q]);
+    }
+  }
+  __device__ __forceinline__ float total() const {
+    float sum = acc[0];
+#pragma unroll
+    for (int q = 1; q < (PT > 0 ? PT : 1); ++q) sum = __fadd_rn(sum, acc[q]);
+    return sum;
+  }
+  static __device__ __forceinline__ float scale(float v) {
+    if constexpr (PT == 1) return bf16_round(v);
+    if constexpr (PT == 2) {
+      const float hi = bf16_round(v);
+      return __fadd_rn(hi, bf16_round(__fsub_rn(v, hi)));
+    }
+    return v;
+  }
+};
+
 // Phase G: the group prox of a member table, one thread per (row, group),
-// group_prox_kernel's pass over the grid; share and delta as
-// cs_phase_b_tile's.
+// group_prox_kernel's pass over the grid (PT: CsMemberSum's rounding);
+// share and delta as cs_phase_b_tile's.
+template <int PT = 0>
 __device__ __forceinline__ void cs_group_phase(const SolveArgs& p,
                                                float lam_eta, float beta,
                                                bool share, float& delta) {
@@ -682,12 +773,11 @@ __device__ __forceinline__ void cs_group_phase(const SolveArgs& p,
     const int64_t row = idx / p.groups;
     const int* list = p.members + (idx - row * p.groups) * p.width;
     const int64_t base = row * p.s;
-    float sq = 0.0f;
-    for (int m = 0; m < p.width && list[m] >= 0; ++m) {
-      const float u = __ldcg(p.pre + base + list[m]);
-      sq = __fadd_rn(sq, __fmul_rn(u, u));
-    }
-    const float scale = cs_group_scale(p.mode, sqrtf(sq), lam_eta);
+    CsMemberSum<PT> sq;
+    for (int m = 0; m < p.width && list[m] >= 0; ++m)
+      sq.add(__ldcg(p.pre + base + list[m]));
+    const float scale = CsMemberSum<PT>::scale(
+        cs_group_scale(p.mode, sqrtf(sq.total()), lam_eta));
     for (int m = 0; m < p.width && list[m] >= 0; ++m) {
       // momentum_at's expressions, the share beside them
       const int64_t at = base + list[m];
@@ -773,11 +863,359 @@ __device__ __forceinline__ bool cs_stop_test(const SolveArgs& p,
   return __fdiv_rn(__fmul_rn(acc, p.inv_count), eta) < p.eps;
 }
 
-template <bool STOP = false>
+// ---------------------------------------------------------------------------
+// The tiers (see "The tiers" above): the tier tile of phases A and B, which
+// the per-step route's tier kernels (fused_code_shard_train_step.cu) run too.
+// ---------------------------------------------------------------------------
+
+// A D slice's bf16 plane: kCsTileN rows (phase A's columns of D, phase B's
+// rows) of kCsDepth k values, two to a 32-bit word (the lower k in the low
+// half), the words of row j XOR-swizzled by (j & 7) << 2 so that a warp's
+// B-fragment reads (rows g = lane / 4, words kw + lane % 4) hit 32 banks.
+constexpr int kCsRowWords = kCsDepth / 2;
+constexpr int kCsPlaneWords = kCsTileN * kCsRowWords;
+
+__device__ __forceinline__ int cs_plane_word(int j, int kw) {
+  return j * kCsRowWords + (kw ^ ((j & 7) << 2));
+}
+
+// A tier build's shared memory: the float32 staging of A's rows (as
+// SolveSmem's), and the bf16 planes of SLICES D slices (phase A's, then
+// phase B's), which the update residual's float32 phase-A slice reuses
+// once the solve is done.
+template <int TERMS, int SLICES>
+struct CsTierSmem {
+  float a[kCsTileM][kCsLd];
+  union {
+    uint32_t planes[SLICES][TERMS][kCsPlaneWords];
+    float da[kCsTileN][kCsLd];
+  };
+};
+
+// The shared memory of the solve kernel's build for the tier.
+template <int TIER>
+using CsSolveSmem =
+    std::conditional_t<TIER == kTierHighest, SolveSmem,
+                       CsTierSmem<tier_terms(TIER), 2>>;
+
+// Split a D slice into its TERMS bf16 planes: element (j, k) is D[kb + k,
+// j0 + j] (TRANSPOSED: phase A's chunk, j0 + j < n) or D[j0 + j, kb + k]
+// (phase B's rows, j0 + j < s), k < k_end - kb; zeros past either edge, up
+// to the last 16-deep step.  Every thread of the CTA calls it.
+template <int TERMS, bool TRANSPOSED>
+__device__ __forceinline__ void cs_split_slice(
+    uint32_t (*planes)[kCsPlaneWords], const float* __restrict__ d, int s,
+    int n, int j0, int kb, int k_end) {
+  const int kwn = 8 * cs_cdiv(k_end - kb, 16);  // words up to the last step
+  for (int idx = threadIdx.x; idx < kCsTileN * kwn; idx += kCsThreads) {
+    const int j = TRANSPOSED ? idx % kCsTileN : idx / kwn;
+    const int kw = TRANSPOSED ? idx / kCsTileN : idx % kwn;
+    const int k = kb + 2 * kw;
+    float v0 = 0.0f, v1 = 0.0f;
+    if (TRANSPOSED) {
+      const int col = j0 + j;
+      if (col < n) {
+        if (k < k_end) v0 = __ldg(d + static_cast<int64_t>(k) * n + col);
+        if (k + 1 < k_end)
+          v1 = __ldg(d + static_cast<int64_t>(k + 1) * n + col);
+      }
+    } else if (j0 + j < s) {
+      const float* row = d + static_cast<int64_t>(j0 + j) * n;
+      if (k < k_end) v0 = __ldg(row + k);
+      if (k + 1 < k_end) v1 = __ldg(row + k + 1);
+    }
+    uint16_t lo[TERMS], hi[TERMS];
+    split_bits<TERMS>(v0, lo);
+    split_bits<TERMS>(v1, hi);
+    const int w = cs_plane_word(j, kw);
+#pragma unroll
+    for (int q = 0; q < TERMS; ++q)
+      planes[q][w] = static_cast<uint32_t>(lo[q]) |
+                     (static_cast<uint32_t>(hi[q]) << 16);
+  }
+}
+
+// One 16-deep step (k values k0 .. k0 + 15 of the staged block) of the
+// tier product over this warp's 16 x 32 part of the 32 x 64 tile: warp w
+// rows 16 (w >> 1).., columns 32 (w & 1).., four m16n8 tiles q.  A's
+// fragments come from the float32 staging, each element split into its
+// bf16 terms as they are built; B's from the planes.  The hi x hi pass is
+// one mma from zero, added to hi round-to-nearest (the tensor cores round
+// an accumulation toward zero, tools/conv_tier_rounding.py); the smaller
+// passes accumulate in lo, in ops/precision.TIER_PAIRS' order.
+// hi[q][e] / lo[q][e]: row 16 (w >> 1) + lane / 4 + 8 (e >> 1), column
+// 32 (w & 1) + 8 q + 2 (lane & 3) + (e & 1).
+template <int TERMS>
+__device__ __forceinline__ void cs_tier_step(
+    const float (*a)[kCsLd], const uint32_t (*planes)[kCsPlaneWords], int k0,
+    float (&hi)[4][4], float (&lo)[4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = 16 * (warp >> 1) + g;
+  const int k = k0 + 2 * t;
+  uint4 af[TERMS];
+  {
+    uint32_t aw[TERMS][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float2 v = *reinterpret_cast<const float2*>(
+          &a[row + 8 * (r & 1)][k + 8 * (r >> 1)]);
+      uint16_t lo_bits[TERMS], hi_bits[TERMS];
+      split_bits<TERMS>(v.x, lo_bits);
+      split_bits<TERMS>(v.y, hi_bits);
+#pragma unroll
+      for (int q = 0; q < TERMS; ++q)
+        aw[q][r] = static_cast<uint32_t>(lo_bits[q]) |
+                   (static_cast<uint32_t>(hi_bits[q]) << 16);
+    }
+#pragma unroll
+    for (int q = 0; q < TERMS; ++q)
+      af[q] = make_uint4(aw[q][0], aw[q][1], aw[q][2], aw[q][3]);
+  }
+  const int kw = (k0 >> 1) + t;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = 32 * (warp & 1) + 8 * q + g;
+    uint2 bf[TERMS];
+#pragma unroll
+    for (int p = 0; p < TERMS; ++p)
+      bf[p] = make_uint2(planes[p][cs_plane_word(j, kw)],
+                         planes[p][cs_plane_word(j, kw + 4)]);
+    float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    mma_bf16(c, af[0], bf[0]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hi[q][e] = __fadd_rn(hi[q][e], c[e]);
+    if constexpr (TERMS >= 2) {
+      mma_bf16(lo[q], af[1], bf[0]);
+      mma_bf16(lo[q], af[0], bf[1]);
+    }
+    if constexpr (TERMS == 3) {
+      mma_bf16(lo[q], af[2], bf[0]);
+      mma_bf16(lo[q], af[0], bf[2]);
+    }
+  }
+}
+
+// hi, lo += the tier product of the k block [kb, k_end) (at most kCsDepth)
+// of A's rows i0.. (src, row length lda, M rows) and the planes: A's
+// copies issued (one group a 32-deep slice), then where split the D slice
+// split into the planes (split_fn), then each slice computed once it has
+// landed.  Every thread of the CTA must call it.
+template <int TERMS, class Smem, class Split>
+__device__ __forceinline__ void cs_tier_block(
+    Smem& sm, const uint32_t (*planes)[kCsPlaneWords], const float* src,
+    int lda, int M, int i0, bool vec_a, int kb, int k_end, bool split,
+    Split&& split_fn, float (&hi)[4][4], float (&lo)[4][4]) {
+  const int slices = cs_cdiv(k_end - kb, kCsSlice);
+  for (int st = 0; st < slices; ++st) {
+    cs_load_rows<kCsTileM>(sm.a, src, lda, M, i0, kb, st, k_end, vec_a);
+    seg_cp_async_commit();
+  }
+  if (split) split_fn();
+  for (int st = 0; st < slices; ++st) {
+    cs_wait(slices - 1 - st);
+    __syncthreads();
+    const int k0 = st * kCsSlice;
+    const int kn = k_end - kb - k0 < kCsSlice ? k_end - kb - k0 : kCsSlice;
+    for (int kk = 0; kk < kn; kk += 16)
+      cs_tier_step<TERMS>(sm.a, planes, k0 + kk, hi, lo);
+  }
+  __syncthreads();  // the next block's copies reuse the buffers
+}
+
+// The value of output (q, e) of a tier tile: hi, plus lo where the tier has
+// smaller passes.
+template <int TERMS>
+__device__ __forceinline__ float cs_tier_value(const float (&hi)[4][4],
+                                               const float (&lo)[4][4], int q,
+                                               int e) {
+  return TERMS == 1 ? hi[q][e] : __fadd_rn(hi[q][e], lo[q][e]);
+}
+
+// Tile row and column of output (q, e) of a thread's tier fragments.
+__device__ __forceinline__ int cs_tier_row(int e) {
+  return 16 * (threadIdx.x >> 6) + ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int cs_tier_col(int q, int e) {
+  return 32 * ((threadIdx.x >> 5) & 1) + 8 * q + 2 * (threadIdx.x & 3) +
+         (e & 1);
+}
+
+// Phase-A tile t at the tier with src (z) as A: its chunk's partial, the
+// chunk's product from zero.  key names the D slice in the planes.
+template <int TERMS, class Smem>
+__device__ __forceinline__ void cs_tier_a_tile(
+    Smem& sm, uint32_t (*planes)[kCsPlaneWords], const SolveArgs& p,
+    SolveCopy mode, const float* src, int t, int& key) {
+  const int per = cs_out_tiles(p.b, p.n), ctn = cs_cdiv(p.n, kCsTileN);
+  const int c = t / per, o = t % per;
+  const int i0 = (o / ctn) * kCsTileM, j0 = (o % ctn) * kCsTileN;
+  const int kb = c * kSplitK;
+  const int k_end = p.s - kb < kSplitK ? p.s : kb + kSplitK;
+  const int slice = cs_key_a(p, t);
+  const bool split = slice != key;
+  key = slice;
+  float hi[4][4] = {}, lo[4][4] = {};
+  cs_tier_block<TERMS>(
+      sm, planes, src, p.s, p.b, i0, mode.codes, kb, k_end, split,
+      [&] {
+        cs_split_slice<TERMS, true>(planes, p.d, p.s, p.n, j0, kb, k_end);
+      },
+      hi, lo);
+  float* part = p.partial + static_cast<int64_t>(c) * p.b * p.n;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + cs_tier_row(e), j = j0 + cs_tier_col(q, e);
+      if (i < p.b && j < p.n)
+        part[static_cast<int64_t>(i) * p.n + j] =
+            cs_tier_value<TERMS>(hi, lo, q, e);
+    }
+}
+
+// Phase-B tile t at the tier: u = z - eta (r D^T), then the epilogue of
+// cs_phase_b_tile with z and old read past the L1 (no entries held in
+// registers): the prox (elementwise, the in-warp window sum, or pre = u
+// for a member table) and the momentum.  A window of w columns sums its
+// squares over a thread's own pair, then lanes xor 1 and 2 (windows of 4
+// and 8), then the thread's m16n8 tiles (16: q, q ^ 1; 32: all four, lower
+// pair first).  key, share and delta as cs_phase_b_tile's.
+template <int TERMS, class Smem>
+__device__ __forceinline__ void cs_tier_b_tile(
+    Smem& sm, uint32_t (*planes)[kCsPlaneWords], const SolveArgs& p,
+    SolveCopy mode, int t, float eta, float lam_eta, float beta, int& key,
+    bool share, float& delta) {
+  const int i0 = cs_row_block(p, t) * kCsTileM;
+  const int j0 = cs_col_block(p, t) * kCsTileN;
+  const int w = p.members != nullptr ? -1 : p.window;
+  float hi[4][4] = {}, lo[4][4] = {};
+  const int blocks = cs_cdiv(p.n, kCsDepth);
+  for (int kb_i = 0; kb_i < blocks; ++kb_i) {
+    const int kb = kb_i * kCsDepth;
+    const int k_end = p.n - kb < kCsDepth ? p.n : kb + kCsDepth;
+    const int slice = cs_key_b(p, t, kb_i);
+    const bool split = slice != key;
+    key = slice;
+    cs_tier_block<TERMS>(
+        sm, planes, p.r, p.n, p.b, i0, mode.r, kb, k_end, split,
+        [&] {
+          cs_split_slice<TERMS, false>(planes, p.d, p.s, p.n, j0, kb, k_end);
+        },
+        hi, lo);
+  }
+  float u[4][4];
+  bool inside[4][4];
+  int64_t at[4][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + cs_tier_row(e), j = j0 + cs_tier_col(q, e);
+      inside[q][e] = i < p.b && j < p.s;
+      at[q][e] = static_cast<int64_t>(i) * p.s + j;
+      u[q][e] = inside[q][e]
+                    ? __fsub_rn(__ldcg(p.z + at[q][e]),
+                                __fmul_rn(eta, cs_tier_value<TERMS>(hi, lo,
+                                                                    q, e)))
+                    : 0.0f;
+    }
+  if (w < 0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (inside[q][e]) p.pre[at[q][e]] = u[q][e];
+    return;
+  }
+  float code[4][4];
+  if (w == 0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        code[q][e] = cs_threshold(p.mode, u[q][e], lam_eta);
+  } else {
+    // every lane takes part: outside entries add zeros
+    float sq[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sq[q][e] = __fmul_rn(u[q][e], u[q][e]);
+    if (w >= 2) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int h = 0; h < 4; h += 2)
+          sq[q][h] = sq[q][h + 1] = __fadd_rn(sq[q][h], sq[q][h + 1]);
+    }
+    for (int off = 1; off <= 2 && w >= 4 * off; off <<= 1)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sq[q][e] = __fadd_rn(sq[q][e],
+                               __shfl_xor_sync(0xffffffffu, sq[q][e], off));
+    if (w >= 16) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lo_pair = __fadd_rn(sq[0][e], sq[1][e]);
+        const float hi_pair = __fadd_rn(sq[2][e], sq[3][e]);
+        if (w == 16) {
+          sq[0][e] = sq[1][e] = lo_pair;
+          sq[2][e] = sq[3][e] = hi_pair;
+        } else {
+          sq[0][e] = sq[1][e] = sq[2][e] = sq[3][e] =
+              __fadd_rn(lo_pair, hi_pair);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        code[q][e] = __fmul_rn(
+            u[q][e], cs_group_scale(p.mode, sqrtf(sq[q][e]), lam_eta));
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!inside[q][e]) continue;
+      const float prev = __ldcg(p.old + at[q][e]);
+      if (share)
+        delta = __fadd_rn(delta, fabsf(__fsub_rn(code[q][e], prev)));
+      p.z[at[q][e]] = momentum_z(code[q][e], prev, beta, p.fista);
+      p.old[at[q][e]] = code[q][e];
+    }
+}
+
+// The prologue's split of the CTA's resident slices (cs_prefetch_a's and
+// cs_prefetch_b's tiles) into its planes.
+template <int TERMS, class Smem>
+__device__ __forceinline__ void cs_tier_prefetch_a(Smem& sm,
+                                                   const SolveArgs& p, int t) {
+  const int per = cs_out_tiles(p.b, p.n), ctn = cs_cdiv(p.n, kCsTileN);
+  const int c = t / per, j0 = ((t % per) % ctn) * kCsTileN;
+  const int kb = c * kSplitK;
+  const int k_end = p.s - kb < kSplitK ? p.s : kb + kSplitK;
+  cs_split_slice<TERMS, true>(sm.planes[0], p.d, p.s, p.n, j0, kb, k_end);
+}
+
+template <int TERMS, class Smem>
+__device__ __forceinline__ void cs_tier_prefetch_b(Smem& sm,
+                                                   const SolveArgs& p, int t) {
+  cs_split_slice<TERMS, false>(sm.planes[1], p.d, p.s, p.n,
+                               cs_col_block(p, t) * kCsTileN, 0, p.n);
+}
+
+template <bool STOP = false, int TIER = kTierHighest>
 __global__ void __launch_bounds__(kCsThreads, 1)
     code_shard_solve_kernel(SolveArgs p) {
+  constexpr bool kTier = TIER != kTierHighest;
+  constexpr int kTerms = tier_terms(TIER);
   extern __shared__ __align__(16) unsigned char cs_smem[];
-  SolveSmem& sm = *reinterpret_cast<SolveSmem*>(cs_smem);
+  auto& sm = *reinterpret_cast<CsSolveSmem<TIER>*>(cs_smem);
   const SolveCopy mode = cs_copy_mode(p);
   const int tiles_a = cs_tiles_a(p.b, p.s, p.n);
   const int tiles_b = cs_tiles_b(p.b, p.s);
@@ -786,17 +1224,24 @@ __global__ void __launch_bounds__(kCsThreads, 1)
   unsigned target = STOP ? __ldcg(p.barrier + 1) : p.barrier_base;
   // the prologue: a CTA with one tile of a phase keeps its D slice for
   // the whole solve (n <= kCsDepth for phase B), copies in flight now
+  // (a tier build splits them into its bf16 planes instead)
   int key_a = -1, key_b = -1;
   const int t0 = static_cast<int>(blockIdx.x);
   if (grid >= tiles_a && t0 < tiles_a) {
-    cs_prefetch_a(sm, p, t0);
+    if constexpr (kTier)
+      cs_tier_prefetch_a<kTerms>(sm, p, t0);
+    else
+      cs_prefetch_a(sm, p, t0);
     key_a = cs_key_a(p, t0);
   }
   if (grid >= tiles_b && p.n <= kCsDepth && t0 < tiles_b) {
-    cs_prefetch_b(sm, p, mode.d, t0);
+    if constexpr (kTier)
+      cs_tier_prefetch_b<kTerms>(sm, p, t0);
+    else
+      cs_prefetch_b(sm, p, mode.d, t0);
     key_b = cs_key_b(p, t0, 0);
   }
-  seg_cp_async_commit();
+  if constexpr (!kTier) seg_cp_async_commit();
   for (int t = t0; t < tiles_b; t += grid) {
     const int i0 = cs_row_block(p, t) * kCsTileM;
     const int j0 = cs_col_block(p, t) * kCsTileN;
@@ -812,8 +1257,9 @@ __global__ void __launch_bounds__(kCsThreads, 1)
   const float eta = *p.eta;
   const float lam_eta = __fmul_rn(p.lam, eta);
   // a CTA with one phase-B tile and no member table holds its entries of
-  // z and old in registers for the whole solve (zero, as stored above)
-  const bool held = grid >= tiles_b && p.members == nullptr;
+  // z and old in registers for the whole solve (zero, as stored above);
+  // a tier build reads them each iteration
+  const bool held = !kTier && grid >= tiles_b && p.members == nullptr;
   float zv[4][4] = {}, ov[4][4] = {};
   seg_grid_sync(p.barrier, target);
   int count = p.num_iters;  // STOP: the iterations run
@@ -823,8 +1269,12 @@ __global__ void __launch_bounds__(kCsThreads, 1)
   float sv[kCsStopLaneSlots];
   int pending = -1;
   for (int it = 0; it < p.num_iters; ++it) {
-    for (int t = t0; t < tiles_a; t += grid)
-      cs_phase_a_tile(sm, p, mode, p.z, t, key_a);
+    for (int t = t0; t < tiles_a; t += grid) {
+      if constexpr (kTier)
+        cs_tier_a_tile<kTerms>(sm, sm.planes[0], p, mode, p.z, t, key_a);
+      else
+        cs_phase_a_tile(sm, p, mode, p.z, t, key_a);
+    }
     seg_grid_sync(p.barrier, target);
     if (STOP && pending >= 0) {
       if (cs_stop_test(p, sv, eta)) {
@@ -839,12 +1289,21 @@ __global__ void __launch_bounds__(kCsThreads, 1)
     // STOP: this iteration's share of |codes - old|, from phase B or G
     const bool turn = STOP && cs_stop_turn(it, p.num_iters);
     float delta = 0.0f;
-    for (int t = t0; t < tiles_b; t += grid)
-      cs_phase_b_tile(sm, p, mode, t, eta, lam_eta, beta, key_b, held, zv,
-                      ov, turn && p.members == nullptr, delta);
+    for (int t = t0; t < tiles_b; t += grid) {
+      if constexpr (kTier)
+        cs_tier_b_tile<kTerms>(sm, sm.planes[1], p, mode, t, eta, lam_eta,
+                               beta, key_b, turn && p.members == nullptr,
+                               delta);
+      else
+        cs_phase_b_tile(sm, p, mode, t, eta, lam_eta, beta, key_b, held, zv,
+                        ov, turn && p.members == nullptr, delta);
+    }
     if (p.members != nullptr) {
       seg_grid_sync(p.barrier, target);
-      cs_group_phase(p, lam_eta, beta, turn, delta);
+      if (kTier && p.prox_round)
+        cs_group_phase<kTier ? kTerms : 0>(p, lam_eta, beta, turn, delta);
+      else
+        cs_group_phase(p, lam_eta, beta, turn, delta);
     }
     if (turn) {
       cs_grid_sync_share(p, target, it, delta);
@@ -855,6 +1314,9 @@ __global__ void __launch_bounds__(kCsThreads, 1)
     }
   }
   if (p.resid) {
+    // float32 at every tier: a tier build copies D's slices afresh into
+    // its planes' space
+    if constexpr (kTier) key_a = -1;
     for (int t = t0; t < tiles_a; t += grid)
       cs_phase_a_tile(sm, p, mode, p.old, t, key_a);
     seg_grid_sync(p.barrier, target);
@@ -867,29 +1329,61 @@ __global__ void __launch_bounds__(kCsThreads, 1)
   }
 }
 
+// The solve kernel's build for stop and tier, and its dynamic shared
+// memory.
+inline const void* cs_solve_kernel(bool stop, int tier) {
+#define VTC_CS_BUILD(T)                                               \
+  if (tier == T)                                                      \
+    return stop ? reinterpret_cast<const void*>(                      \
+                      code_shard_solve_kernel<true, T>)               \
+                : reinterpret_cast<const void*>(                      \
+                      code_shard_solve_kernel<false, T>);
+  VTC_CS_BUILD(kTierBf16)
+  VTC_CS_BUILD(kTierBf16x3)
+  VTC_CS_BUILD(kTierBf16x5)
+#undef VTC_CS_BUILD
+  return stop ? reinterpret_cast<const void*>(code_shard_solve_kernel<true>)
+              : reinterpret_cast<const void*>(code_shard_solve_kernel<>);
+}
+
+inline int cs_solve_smem(int tier) {
+  return static_cast<int>(
+      tier == kTierBf16     ? sizeof(CsSolveSmem<kTierBf16>)
+      : tier == kTierBf16x3 ? sizeof(CsSolveSmem<kTierBf16x3>)
+      : tier == kTierBf16x5 ? sizeof(CsSolveSmem<kTierBf16x5>)
+                            : sizeof(CsSolveSmem<kTierHighest>));
+}
+
 // The current device's SM count and the solve kernel's resident CTAs per
-// SM (its dynamic shared memory opted in), read once per device.
+// SM (the least over its builds, each with its dynamic shared memory opted
+// in, so that every tier and the stop launch the same grid), read once
+// per device.
 inline int cs_device_value(int which) {
-  static int values[3][64] = {};
+  static int values[2][64] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   int& v = values[which][dev];
   if (v == 0) {
-    cudaError_t err;
+    cudaError_t err = cudaSuccess;
     if (which == 0) {
       err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
     } else {
-      // 1: the kernel, 2: its STOP build (opted in by the same call)
-      const void* kernel =
-          which == 1 ? reinterpret_cast<const void*>(code_shard_solve_kernel<>)
-                     : reinterpret_cast<const void*>(
-                           code_shard_solve_kernel<true>);
-      err = cudaFuncSetAttribute(kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(sizeof(SolveSmem)));
-      if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &v, kernel, kCsThreads, sizeof(SolveSmem));
+      int least = 0;
+      for (int tier = kTierHighest; tier <= kTierBf16x5 && err == cudaSuccess;
+           ++tier)
+        for (int stop = 0; stop < 2 && err == cudaSuccess; ++stop) {
+          const void* kernel = cs_solve_kernel(stop != 0, tier);
+          int each = 0;
+          err = cudaFuncSetAttribute(
+              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+              cs_solve_smem(tier));
+          if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &each, kernel, kCsThreads, cs_solve_smem(tier));
+          if (err == cudaSuccess && (least == 0 || each < least))
+            least = each;
+        }
+      v = least;
     }
     if (err != cudaSuccess) v = 0;
   }
@@ -899,20 +1393,20 @@ inline int cs_device_value(int which) {
 inline int cs_sm_count() { return cs_device_value(0); }
 inline int cs_blocks_per_sm() { return cs_device_value(1); }
 
-// Launch the solve kernel cooperatively on grid CTAs, its STOP build where
-// stop.  A grid the card cannot hold at once is refused by the launch
-// (cudaErrorCooperativeLaunchTooLarge), never run; the error is returned
-// and taken off the runtime's last error.
+// Launch the solve kernel's build for the tier cooperatively on grid CTAs,
+// its STOP build where stop.  A grid the card cannot hold at once is
+// refused by the launch (cudaErrorCooperativeLaunchTooLarge), never run;
+// the error is returned and taken off the runtime's last error.
 inline cudaError_t launch_code_shard_solve(SolveArgs args, int grid,
                                            cudaStream_t stream,
-                                           bool stop = false) {
-  if (grid < 1 || cs_device_value(stop ? 2 : 1) < 1)
+                                           bool stop = false,
+                                           int tier = kTierHighest) {
+  if (grid < 1 || cs_blocks_per_sm() < 1)
     return cudaErrorInvalidConfiguration;
   void* params[] = {&args};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      stop ? reinterpret_cast<const void*>(code_shard_solve_kernel<true>)
-           : reinterpret_cast<const void*>(code_shard_solve_kernel<>),
-      dim3(grid), dim3(kCsThreads), params, sizeof(SolveSmem), stream);
+      cs_solve_kernel(stop, tier), dim3(grid), dim3(kCsThreads), params,
+      cs_solve_smem(tier), stream);
   if (err != cudaSuccess) cudaGetLastError();
   return err;
 }

@@ -60,10 +60,19 @@
 //    Any other partition takes a member table: the epilogue writes the
 //    pre-prox values, and one pass over (row, group) pairs takes each
 //    group's norm in member order, scales its entries and moves them.
-//  * Every product is IEEE fp32 FMA on the CUDA cores (train_core.cuh's
-//    tile): no TF32, no tensor cores, no library call.  The epilogue's
-//    arithmetic is explicitly rounded (__fmul_rn, __fsub_rn, ...), so no
-//    FMA contraction changes it against the plain version.
+//  * At 'highest' every product is IEEE fp32 FMA on the CUDA cores
+//    (train_core.cuh's tile): no TF32, no tensor cores, no library call.
+//    The epilogue's arithmetic is explicitly rounded (__fmul_rn,
+//    __fsub_rn, ...), so no FMA contraction changes it against the plain
+//    version.
+//  * At a tier (bf16x5, bf16x3, bf16; vtc_tpu _make_tier_dots, :88-117)
+//    z D and r D^T run code_shard_solve.cuh's tier tile on the bf16 tensor
+//    cores, one CTA a 32 x 64 tile (cs_tier_recon_kernel,
+//    cs_tier_grad_kernel), so this route stays the persistent route's
+//    bitwise reference; the split sum, the prox, the Gram, the refresh
+//    and the update stay fp32, and the member-table prox rounds its sums
+//    and scale at the tier where vtc_tpu's membership products do
+//    (prox_round, group_prox_kernel's PT).
 //
 // Across ranks (vtc_tpu's 'code' axis above 1, optionally with a 'data'
 // axis): each rank holds s rows of the dictionary (its row shard, of a
@@ -380,9 +389,11 @@ __global__ void __launch_bounds__(kGemmThreads)
 }
 
 // The group prox of any partition: one thread per (row, group); members
-// (groups, width) lists each group's rows ascending, padded with -1.
-// With the stop the block's |code - old| goes to cs_stop_share.
-template <int MODE>
+// (groups, width) lists each group's rows ascending, padded with -1.  PT >
+// 0: the sums and the scale rounded at a tier as vtc_tpu's membership
+// products round them (code_shard_solve.cuh's CsMemberSum).  With the stop
+// the block's |code - old| goes to cs_stop_share.
+template <int MODE, int PT = 0>
 __global__ void group_prox_kernel(IterArgs p, const int* __restrict__ members,
                                   int groups, int width, CsStop st) {
   if (cs_stopped(st)) return;
@@ -397,12 +408,11 @@ __global__ void group_prox_kernel(IterArgs p, const int* __restrict__ members,
     const int64_t row = idx / groups;
     const int* list = members + (idx - row * groups) * width;
     const int64_t base = row * p.s;
-    float sq = 0.0f;
-    for (int m = 0; m < width && list[m] >= 0; ++m) {
-      const float u = p.pre[base + list[m]];
-      sq = __fadd_rn(sq, __fmul_rn(u, u));
-    }
-    const float scale = group_scale<MODE>(sqrtf(sq), lam_eta);
+    CsMemberSum<PT> sq;
+    for (int m = 0; m < width && list[m] >= 0; ++m)
+      sq.add(p.pre[base + list[m]]);
+    const float scale =
+        CsMemberSum<PT>::scale(group_scale<MODE>(sqrtf(sq.total()), lam_eta));
     for (int m = 0; m < width && list[m] >= 0; ++m) {
       const float moved = momentum(
           p, base + list[m], __fmul_rn(p.pre[base + list[m]], scale));
@@ -460,6 +470,117 @@ cudaError_t launch_iteration(const IterArgs& p, int mode, int window,
   return cudaGetLastError();
 }
 
+// The per-step route at a tier: the persistent solve's tier tiles
+// (code_shard_solve.cuh), one CTA a tile, so both routes give the same
+// bits.  cs_tier_recon_kernel: phase-A tile blockIdx.x, the partials of z
+// D; cs_tier_grad_kernel: phase-B tile blockIdx.x, u = z - eta (r D^T) and
+// its epilogue (a member table: pre = u, for group_prox_kernel), with STOP
+// the block's share to cs_stop_share.  Each splits its D slice afresh.
+template <int TIER>
+using CsStepSmem = CsTierSmem<tier_terms(TIER), 1>;
+
+template <int TIER>
+__global__ void __launch_bounds__(kCsThreads)
+    cs_tier_recon_kernel(SolveArgs p, CsStop st) {
+  if (cs_stopped(st)) return;
+  extern __shared__ __align__(16) unsigned char cs_step_smem[];
+  auto& sm = *reinterpret_cast<CsStepSmem<TIER>*>(cs_step_smem);
+  int key = -1;
+  cs_tier_a_tile<tier_terms(TIER)>(sm, sm.planes[0], p, cs_copy_mode(p), p.z,
+                                   blockIdx.x, key);
+}
+
+template <int TIER, bool STOP>
+__global__ void __launch_bounds__(kCsThreads)
+    cs_tier_grad_kernel(SolveArgs p, float beta, CsStop st) {
+  if (STOP && cs_stopped(st)) return;
+  extern __shared__ __align__(16) unsigned char cs_step_smem[];
+  auto& sm = *reinterpret_cast<CsStepSmem<TIER>*>(cs_step_smem);
+  const bool share = STOP && p.members == nullptr;
+  const float eta = *p.eta;
+  float delta = 0.0f;
+  int key = -1;
+  cs_tier_b_tile<tier_terms(TIER)>(sm, sm.planes[0], p, cs_copy_mode(p),
+                                   blockIdx.x, eta, __fmul_rn(p.lam, eta),
+                                   beta, key, share, delta);
+  if (share) cs_stop_share(st, delta, eta);
+}
+
+// Launch KERNEL on blocks CTAs with the per-step tier smem of TIER, its
+// dynamic shared memory opted in once a device.
+template <int TIER, auto KERNEL, class... Args>
+cudaError_t cs_tier_launch(int blocks, cudaStream_t stream, Args... args) {
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  constexpr int smem = static_cast<int>(sizeof(CsStepSmem<TIER>));
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(
+        KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    opted[dev] = true;
+  }
+  KERNEL<<<blocks, kCsThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+template <int TIER>
+cudaError_t cs_tier_iteration_at(const SolveArgs& sa, const IterArgs& p,
+                                 int mode, int prox_round, const int* members,
+                                 int groups, int width, cudaStream_t stream,
+                                 const CsStop& st, bool recon) {
+  if (recon)
+    return cs_tier_launch<TIER, cs_tier_recon_kernel<TIER>>(
+        cs_tiles_a(sa.b, sa.s, sa.n), stream, sa, st);
+  const int blocks = cs_tiles_b(sa.b, sa.s);
+  cudaError_t err =
+      st.words != nullptr
+          ? cs_tier_launch<TIER, cs_tier_grad_kernel<TIER, true>>(
+                blocks, stream, sa, p.beta, st)
+          : cs_tier_launch<TIER, cs_tier_grad_kernel<TIER, false>>(
+                blocks, stream, sa, p.beta, st);
+  if (err != cudaSuccess || members == nullptr) return err;
+  const unsigned pass = pass_grid(static_cast<int64_t>(p.b) * groups);
+  constexpr int kPt = tier_terms(TIER);
+  if (mode == kHard) {
+    if (prox_round)
+      group_prox_kernel<kHard, kPt><<<pass, kPassThreads, 0, stream>>>(
+          p, members, groups, width, st);
+    else
+      group_prox_kernel<kHard><<<pass, kPassThreads, 0, stream>>>(
+          p, members, groups, width, st);
+  } else if (prox_round) {
+    group_prox_kernel<kSoft, kPt><<<pass, kPassThreads, 0, stream>>>(
+        p, members, groups, width, st);
+  } else {
+    group_prox_kernel<kSoft><<<pass, kPassThreads, 0, stream>>>(
+        p, members, groups, width, st);
+  }
+  return cudaGetLastError();
+}
+
+// One launch of the per-step route at the tier: with recon the partials of
+// z D (cs_tier_recon_kernel), else the iteration's prox launches after r is
+// formed (cs_tier_grad_kernel, then group_prox_kernel with a member table,
+// its sums rounded where prox_round).
+cudaError_t cs_tier_iteration(int tier, const SolveArgs& sa,
+                              const IterArgs& p, int mode, int prox_round,
+                              const int* members, int groups, int width,
+                              cudaStream_t stream, const CsStop& st,
+                              bool recon) {
+  if (tier == kTierBf16)
+    return cs_tier_iteration_at<kTierBf16>(sa, p, mode, prox_round, members,
+                                           groups, width, stream, st, recon);
+  if (tier == kTierBf16x3)
+    return cs_tier_iteration_at<kTierBf16x3>(sa, p, mode, prox_round,
+                                             members, groups, width, stream,
+                                             st, recon);
+  return cs_tier_iteration_at<kTierBf16x5>(sa, p, mode, prox_round, members,
+                                           groups, width, stream, st, recon);
+}
+
 }  // namespace
 
 extern "C" {
@@ -481,6 +602,18 @@ void vtc_code_shard_layout(int* out) {
 
 int vtc_code_shard_sm_count() { return cs_sm_count(); }
 int vtc_code_shard_blocks_per_sm() { return cs_blocks_per_sm(); }
+
+// The persistent solve's dynamic shared memory at the tier (bytes), and
+// the most a CTA of the current device may opt into.
+int vtc_code_shard_smem(int tier) { return cs_solve_smem(tier); }
+int vtc_code_shard_smem_limit() {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return limit;
+}
 
 // The persistent solve's CTAs at (b, s, n) on the current device (0 for
 // an empty shape).
@@ -536,6 +669,11 @@ int64_t vtc_code_shard_stop_words(int b, int s, int groups) {
 // persistent route takes stop_slots (2 * grid floats), the per-step route
 // the zeroed stop_words of vtc_code_shard_stop_words and, across ranks,
 // stop_local (1,), which the hook sums as kSumStopCode and kSumStopData.
+// tier (tier_codes.cuh) is the tier of the solve's two products on both
+// routes (kTierHighest: the float32 kernels); prox_round (a tier with a
+// member table only) rounds the member-table prox's sums and scale at the
+// tier, as vtc_tpu's membership products do (its rotate window, and a
+// table that stands for it, stays float32).
 // Returns the first CUDA error code (0 on success; a grid the card cannot
 // hold at once is refused, cudaErrorCooperativeLaunchTooLarge), or
 // kSumHookFailed.
@@ -550,7 +688,7 @@ int vtc_code_shard_train_segment(
     int code_ranks, int data_ranks, float* stat, AxisSumHook hook,
     int persistent, int grid, float* betas, unsigned* barrier, float eps,
     float inv_count, void* stop_words, int* iters, float* stop_slots,
-    float* stop_local, void* stream_ptr) {
+    float* stop_local, int tier, int prox_round, void* stream_ptr) {
   const bool code_sum = code_ranks > 1;
   const bool data_sum = data_ranks > 1;
   const bool stopping = eps >= 0.0f;
@@ -570,7 +708,9 @@ int vtc_code_shard_train_segment(
       (stopping &&
        (iters == nullptr || (persistent && stop_slots == nullptr) ||
         (!persistent && stop_words == nullptr) ||
-        ((code_sum || data_sum) && stop_local == nullptr))))
+        ((code_sum || data_sum) && stop_local == nullptr))) ||
+      tier < kTierHighest || tier > kTierBf16x5 ||
+      (prox_round && (tier == kTierHighest || members == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int splits = (s + kSplitK - 1) / kSplitK;
@@ -611,6 +751,8 @@ int vtc_code_shard_train_segment(
   it.b = b;
   it.s = s;
   it.n = n;
+  // the solve's arguments: the persistent launch's, and the per-step
+  // route's tier kernels'
   SolveArgs sa = {};
   unsigned barrier_base = 0;
   if (persistent && k > 0) {
@@ -622,6 +764,8 @@ int vtc_code_shard_train_segment(
                                 sizeof(float) * num_iters,
                                 cudaMemcpyHostToDevice, stream));
     VTC_CHECK(cudaMemsetAsync(barrier, 0, 2 * sizeof(unsigned), stream));
+  }
+  {
     sa.d = d;
     sa.z = z;
     sa.old = old;
@@ -646,6 +790,7 @@ int vtc_code_shard_train_segment(
     sa.eps = eps;
     sa.inv_count = inv_count;
     sa.slots = stop_slots;
+    sa.prox_round = prox_round;
   }
   CsStop stop = {};  // the per-step route's early stop
   if (stopping && !persistent) {
@@ -672,7 +817,7 @@ int vtc_code_shard_train_segment(
       sa.iters = stopping ? iters + step : nullptr;
       // with the stop the kernel carries the base on the device: a
       // stopped step passes fewer barriers than cs_step_barriers counts
-      VTC_CHECK(launch_code_shard_solve(sa, grid, stream, stopping));
+      VTC_CHECK(launch_code_shard_solve(sa, grid, stream, stopping, tier));
       barrier_base += static_cast<unsigned>(
           cs_step_barriers(num_iters, members != nullptr, sa.resid) * grid);
     } else {
@@ -686,9 +831,16 @@ int vtc_code_shard_train_segment(
       for (int iter = 0; iter < num_iters; ++iter) {
         it.beta = beta_of[iter];
         stop.it = iter;
-        recon_partial_kernel<<<bn_grid, kGemmThreads, 0, stream>>>(
-            z, d, partial, b, s, n, stop);
-        VTC_LAUNCHED();
+        if (tier != kTierHighest) {
+          sa.x = xs;
+          VTC_CHECK(cs_tier_iteration(tier, sa, it, mode, prox_round,
+                                      members, groups, width, stream, stop,
+                                      true));
+        } else {
+          recon_partial_kernel<<<bn_grid, kGemmThreads, 0, stream>>>(
+              z, d, partial, b, s, n, stop);
+          VTC_LAUNCHED();
+        }
         recon_sum_kernel<<<pass_grid(bn), kPassThreads, 0, stream>>>(
             partial, code_sum ? nullptr : xs, rbuf, splits, bn, stop);
         VTC_LAUNCHED();
@@ -698,8 +850,13 @@ int vtc_code_shard_train_segment(
               rbuf, xs, bn, stop);
           VTC_LAUNCHED();
         }
-        VTC_CHECK(launch_iteration(it, mode, window, members, groups, width,
-                                   stream, stop));
+        if (tier != kTierHighest)
+          VTC_CHECK(cs_tier_iteration(tier, sa, it, mode, prox_round,
+                                      members, groups, width, stream, stop,
+                                      false));
+        else
+          VTC_CHECK(launch_iteration(it, mode, window, members, groups,
+                                     width, stream, stop));
         if (stop.local != nullptr) {
           // the rank's share over 'code', then over 'data', then decided
           if (code_sum) VTC_SUM(kSumStopCode);

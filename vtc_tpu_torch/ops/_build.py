@@ -236,8 +236,12 @@ def load_library():
       [ptr] * 4 + [i32] * 5 + [ptr, i32, i32, ptr, f32, f32, i32, f32, i32,
                                 f32] + [i32] * 5 + [f32] + [ptr] * 11
       + [i32, i32, ptr, ptr] + [i32, i32, ptr, ptr] + stop[:4]
-      + [ptr, ptr] + [ptr])
+      + [ptr, ptr] + [i32, i32] + [ptr])
   lib.vtc_code_shard_train_segment.restype = i32
+  lib.vtc_code_shard_smem.argtypes = [i32]
+  lib.vtc_code_shard_smem.restype = i32
+  lib.vtc_code_shard_smem_limit.argtypes = []
+  lib.vtc_code_shard_smem_limit.restype = i32
   lib.vtc_code_shard_layout.argtypes = [i32p]
   lib.vtc_code_shard_layout.restype = None
   for name in ("vtc_code_shard_sm_count", "vtc_code_shard_blocks_per_sm"):

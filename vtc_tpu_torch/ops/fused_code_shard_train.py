@@ -65,13 +65,25 @@ device tensor (k,) of the last stopped segment's counts, ``plain_iters``
 the plain version's list of them and ``plain_avgs`` the means its last
 step's solve tested (after iteration j at index j - 1).
 
-Refused, naming its ROADMAP.md item: on any device the ``mxu`` tiers
-other than 'highest' (item 3a.2.4).  ``axis_size``, ``data_axis_size``,
-``code_stride`` and
+``mxu`` is the tier of the solve's two products (vtc_tpu
+``_make_tier_dots``, :88-117, used at :372-373): 'highest', or 'bf16x5',
+'bf16x3' and 'bf16', where both operands of z D and r D^T are split into
+bf16 terms and the tier's single-pass products summed
+(``ops/precision.ns_dot``; z D a kSplitK chunk at a time, the chunks added
+in order, ``precision.split_k_dot``, as the kernels' split sum adds
+them).  The Gram, the power refresh, the update (its residual too), the
+regularizer and the stop stay float32, as vtc_tpu keeps them at every
+tier.  The group prox at a tier follows vtc_tpu's ``_make_group_prox``:
+where ``roll_window`` names vtc_tpu's rotate window (contiguous groups of a
+power-of-two M in column order, ``roll_window_from_expand_arrays``) its
+sums stay float32; otherwise vtc_tpu's membership products round the
+window sums and the scale at the tier (``precision.prox_sums``,
+``prox_scale``), and so does the port (``prox_plan``).  An unknown tier
+raises ValueError.  ``axis_size``, ``data_axis_size``, ``code_stride`` and
 ``data_stride`` must be the mesh's; ``interpret`` is a TPU knob, accepted
 at False only.  ``launches`` counts the train steps the kernels ran,
 ``solve_launches`` the launches of the persistent solve kernel (one a step
-on that route).
+on that route), ``tier_launches`` the steps run at a tier.
 
 Two routes give the same bits: 'persistent', a step's solve and the
 update's first residual as one launch of the solve kernel (one rank
@@ -80,8 +92,8 @@ loop, kept as its bitwise reference and as the route across ranks, where
 the hook runs between launches.  The private ``route=`` of ``_launch``
 forces one ('auto': ``auto_route``; no public entry point takes a route)
 and ``last_route`` names the route of the last launch.  ``solve_plan``
-and ``solve_barriers`` mirror the solve kernel's grid, tiles and
-barriers, so the CPU tests can pin them.
+and ``solve_barriers`` mirror the solve kernel's grid, tiles, shared
+memory and barriers, so the CPU tests can pin them.
 """
 import ctypes
 
@@ -89,11 +101,14 @@ import numpy as np
 import torch
 
 from vtc_tpu_torch.ops import fused_fista, fused_group_train_step, lipschitz
-from vtc_tpu_torch.ops.precision import matmul_precision
+from vtc_tpu_torch.ops.precision import (TIER_CODES, TIERS, matmul_precision,
+                                         ns_dot, prox_scale, prox_sums,
+                                         split_k_dot)
 from vtc_tpu_torch.ops.sum_hook import AxisSumHook
 
 launches = 0
 solve_launches = 0  # launches of the persistent solve kernel
+tier_launches = 0  # steps run at a tier other than 'highest'
 last_route = None  # 'persistent' or 'steps': the route of the last launch
 last_iters = None  # int32 device tensor (k,): the last stopped segment's
 plain_iters = None  # the plain version's counts of its last stopped segment
@@ -104,6 +119,19 @@ ROUTES = ("auto", "steps", "persistent")
 # kCsThreads, kSplitK); chip_smoke.py checks them against the library's
 SOLVE_TILE_M, SOLVE_TILE_N, SOLVE_DEPTH, SOLVE_SLICE = 32, 64, 256, 32
 SOLVE_THREADS, SPLIT_K = 128, 256
+# the solve kernel's dynamic shared memory at each tier (cs_solve_smem):
+# 'highest' the float32 staging and two float32 D slices; a tier the
+# staging and two slices' bf16 planes, 32 KB a term a slice (the update
+# residual's float32 slice reuses their space); and the most a CTA of an
+# H100 may opt into
+_STAGING = 4 * SOLVE_TILE_M * (SOLVE_DEPTH + 4)
+_F32_SLICE = 4 * SOLVE_TILE_N * (SOLVE_DEPTH + 4)
+_PLANE = 2 * SOLVE_TILE_N * SOLVE_DEPTH
+SOLVE_SMEM = {"highest": _STAGING + 2 * _F32_SLICE}
+SOLVE_SMEM.update({tier: _STAGING + max(2 * terms * _PLANE, _F32_SLICE)
+                   for tier, terms in (("bf16", 1), ("bf16x3", 2),
+                                       ("bf16x5", 3))})
+H100_SMEM_OPTIN = 232448
 
 UPDATE_ALGS = ("sc_steepest_descent", "sc_cheap_quadratic_descent",
                "subspace_sc_steepest_descent",
@@ -133,18 +161,30 @@ def solve_barriers(num_iters, members, resid):
   return 1 + int(num_iters) * (4 if members else 3) + (1 if resid else 0)
 
 
-def solve_plan(b, s, n, sm_count, blocks_per_sm):
-  """The persistent launch at (b, s, n) on a card of sm_count SMs that
-  holds blocks_per_sm solve CTAs an SM: its grid (every CTA the card holds
-  at once, but no more than the larger phase has tiles), the tiles, and
-  which D slices stay resident in shared memory for the whole solve (a
-  phase whose tiles the grid covers; phase B also needs n <= the depth of
-  one slice)."""
+def solve_plan(b, s, n, sm_count, blocks_per_sm, mxu="highest"):
+  """The persistent launch at (b, s, n) and the tier ``mxu`` on a card
+  of sm_count SMs that holds blocks_per_sm solve CTAs an SM (the least over
+  the kernel's builds, so every tier takes the same grid): its grid (every
+  CTA the card holds at once, but no more than the larger phase has
+  tiles), the tiles, which D slices stay resident in shared memory for the
+  whole solve (a phase whose tiles the grid covers; phase B also needs n
+  <= the depth of one slice; a tier holds them as bf16 planes) and the
+  CTA's dynamic shared memory at the tier."""
   tiles = solve_tiles(b, s, n)
   grid = min(sm_count * blocks_per_sm, max(tiles["A"], tiles["B"]))
   return {"grid": grid, "tiles": tiles,
           "resident": {"A": grid >= tiles["A"],
-                       "B": grid >= tiles["B"] and n <= SOLVE_DEPTH}}
+                       "B": grid >= tiles["B"] and n <= SOLVE_DEPTH},
+          "smem": SOLVE_SMEM[_tier(mxu)]}
+
+
+def _tier(mxu):
+  """mxu, one of TIERS (vtc_tpu's K19 takes no 'default');
+  ValueError otherwise."""
+  if mxu not in TIERS:
+    raise ValueError("fused_code_sharded_train_segment: unknown MXU tier %r;"
+                     " expected one of %s" % (mxu, TIERS))
+  return mxu
 
 
 def auto_route(code_size, data_size):
@@ -261,9 +301,30 @@ def group_members(expand_local):
   return table, window
 
 
-def _prox_fn(table, hard, nonneg):
+def prox_plan(expand_local, mxu="highest", roll_window=None):
+  """(table, window, rounds): how the group prox of the partition
+  expand_local runs at the tier mxu.  table and window are
+  ``group_members``'; rounds says that the member table's window sums and
+  scale round at the tier.  At 'highest' every form sums in float32.  At a
+  tier vtc_tpu's prox sums in float32 only on its rotate window, which its
+  caller names in ``roll_window`` (contiguous groups of a power-of-two M in
+  column order, ``roll_window_from_expand_arrays``; any M), and rounds on
+  its membership products otherwise (``_make_group_prox``).  So at a tier
+  without roll_window the port drops its own window (contiguous groups in
+  another column order keep the membership products in vtc_tpu) and rounds
+  the member table's sums; with it a window wider than the in-warp 32 sums
+  its member table in float32."""
+  table, window = group_members(expand_local)
+  if _tier(mxu) == "highest" or roll_window is not None:
+    return table, window, False
+  return table, None, True
+
+
+def _prox_fn(table, hard, nonneg, tier=None):
   """prox(u, t): the elementwise shrinkage, or the group-norm shrinkage of
-  the member table (norm 0 guarded as in vtc_tpu's prox)."""
+  the member table (norm 0 guarded as in vtc_tpu's prox), its window sums
+  and scale rounded at ``tier`` (precision.prox_sums, prox_scale) unless
+  None."""
   if table is None:
     def prox(u, t):
       if hard:
@@ -280,12 +341,18 @@ def _prox_fn(table, hard, nonneg):
 
   def prox(u, t):
     sq = torch.nn.functional.pad(u * u, (0, 1))  # column s: zero padding
-    norms = torch.sqrt(sq[:, index.to(u.device)].sum(dim=-1))
+    members = sq[:, index.to(u.device)]
+    if tier is None:
+      norms = torch.sqrt(members.sum(dim=-1))
+    else:
+      norms = torch.sqrt(prox_sums(members, tier)[..., 0])
     if hard:
       scale = torch.where(norms < t, 0.0, 1.0)
     else:
       safe = torch.where(norms == 0.0, 1.0, norms)
       scale = torch.clamp(1.0 - t / safe, min=0.0)
+    if tier is not None:
+      scale = prox_scale(scale, tier)
     return u * scale.to(u.dtype)[:, gid.to(u.device)]
   return prox
 
@@ -310,7 +377,7 @@ def fused_code_sharded_train_segment_plain(
     update_alg="sc_cheap_quadratic_descent", upd_num_iters=1, nonneg=False,
     hard=False, renormalize=True, power_iters=12, lowest_code_val=0.001,
     early_stopping_epsilon=None, stop_count=None, precision=None,
-    return_stepsize=False):
+    mxu="highest", roll_window=None, return_stepsize=False):
   """The plain PyTorch version of the segment, on any device and in the
   inputs' own float type (float64 inputs give the oracle).
 
@@ -324,7 +391,10 @@ def fused_code_sharded_train_segment_plain(
   ``precision`` is the matmul precision of the solve and the update
   (default 'highest'); 'tensorfloat32' shows what TF32 products would
   cost.  The power refresh always runs at 'highest', as in every tier of
-  the TPU kernel.
+  the TPU kernel.  ``mxu`` is the solve's tier and ``roll_window`` vtc_tpu's
+  prox hint (``prox_plan``): at a tier z D is taken a kSplitK chunk at a
+  time (``precision.split_k_dot``) and r D^T whole, both at the tier
+  (``precision.ns_dot``), summed over ranks as at 'highest'.
   """
   d, h, v = dictionary, hessian, eigvec
   b = batches.shape[1]
@@ -333,8 +403,11 @@ def fused_code_sharded_train_segment_plain(
   if s * code <= n:
     raise ValueError("the residual form's eigenvector is the n x n Gram's: "
                      "it needs s > n, got s=%d, n=%d" % (s * code, n))
-  table = None if expand_local is None else group_members(expand_local)[0]
-  prox = _prox_fn(table, hard, nonneg)
+  tier = _tier(mxu)
+  table = rounds = None
+  if expand_local is not None:
+    table, _, rounds = prox_plan(expand_local, tier, roll_window)
+  prox = _prox_fn(table, hard, nonneg, tier if rounds else None)
   use_fista = variant == "fista"
   cheap = update_alg.endswith("cheap_quadratic_descent")
   penalty = float(alignment_penalty)
@@ -357,8 +430,12 @@ def fused_code_sharded_train_segment_plain(
       t = np.float32(1.0)
       avgs = []
       for j in range(int(inf_num_iters)):
-        recon = _code_sum(mesh, z @ d) - x
-        codes = prox(z - eta * (recon @ d.T), lam_eta)
+        if tier == "highest":
+          recon = _code_sum(mesh, z @ d) - x
+          codes = prox(z - eta * (recon @ d.T), lam_eta)
+        else:
+          recon = _code_sum(mesh, split_k_dot(z, d, tier, SPLIT_K)) - x
+          codes = prox(z - eta * ns_dot(recon, d.T, tier), lam_eta)
         if use_fista:
           t_next = (np.float32(1.0) + np.sqrt(np.float32(1.0)
                                               + np.float32(4.0) * t * t)
@@ -448,11 +525,14 @@ def fused_code_sharded_train_segment(
     update_alg: the two fc update rules or their subspace names.
     upd_num_iters / nonneg (fc only) / hard / renormalize / power_iters /
       lowest_code_val: as in vtc_tpu.
-    mxu: 'highest' only (ROADMAP.md §1 item 3a.2.4).
+    mxu: the solve's tier, 'highest', 'bf16x5', 'bf16x3' or 'bf16' (see
+      the module's docstring); any other raises ValueError.
     early_stopping_epsilon, stop_count: the stop test, the mean over
       stop_count elements (default the global b * s), on every rank at
       the same count.
-    roll_window: vtc_tpu's prox hint; None or the window of expand_local.
+    roll_window: vtc_tpu's prox hint, None or vtc_tpu's rotate window of
+      expand_local (``roll_window_from_expand_arrays``); at a tier it picks
+      the prox's rounding (``prox_plan``).
     mesh: the ``parallel.Mesh`` the ranks share, without a 'dcn' axis;
       None is a mesh of one rank.  Every rank of it calls this together.
     return_stepsize: also return the final step's stepsize 1/eigval.
@@ -471,10 +551,7 @@ def fused_code_sharded_train_segment(
            "axis_size=%d and data_axis_size=%d must be the mesh's 'code' "
            "and data-axes sizes, %d and %d"
            % (int(axis_size), int(data_axis_size), code, data))
-  if mxu != "highest":
-    raise NotImplementedError(
-        "mxu=%r: the reduced-precision tiers wait, ROADMAP.md §1 item 3a.2.4"
-        % (mxu,))
+  tier = _tier(mxu)
   _require(int(code_stride) == 1
            and int(data_stride) in ((0, code) if data == 1 else (code,))
            and not interpret,
@@ -495,12 +572,17 @@ def fused_code_sharded_train_segment(
            "needed for the global dictionary, got s=%d, n=%d" % (s * code, n))
   use_reg = float(alignment_penalty) != 0.0
   table = window = None
+  rounds = False
   if expand_local is not None:
     _require(tuple(expand_local.shape)[0] == s,
              "expand_local must have %d rows" % s)
-    table, window = group_members(expand_local)
+    table, window, rounds = prox_plan(expand_local, tier, roll_window)
     _require(not nonneg, "nonneg applies to the fc variant only")
-    _require(roll_window is None or roll_window == window,
+    expand = (expand_local.detach().cpu().numpy()
+              if isinstance(expand_local, torch.Tensor)
+              else np.asarray(expand_local))
+    _require(roll_window is None
+             or roll_window == roll_window_from_expand_arrays(expand[None]),
              "roll_window=%r does not match expand_local's groups"
              % (roll_window,))
   _require(not use_reg or (table is not None and comem_local is not None),
@@ -520,7 +602,8 @@ def fused_code_sharded_train_segment(
         int(inf_num_iters), float(upd_stepsize), mesh=mesh,
         expand_local=expand_local, comem_local=comem_local,
         early_stopping_epsilon=early_stopping_epsilon, stop_count=stop_count,
-        return_stepsize=return_stepsize, **flags)
+        mxu=tier, roll_window=roll_window, return_stepsize=return_stepsize,
+        **flags)
   _require(batches.device.type == "cuda",
            "tensors must be on the CPU or a CUDA device, got "
            + str(batches.device))
@@ -546,7 +629,7 @@ def fused_code_sharded_train_segment(
                 table, window, comem_local if use_reg else None, mesh,
                 float(sparsity_weight), int(inf_num_iters),
                 float(upd_stepsize), eps=early_stopping_epsilon,
-                stop_count=stop_elems, **flags)
+                stop_count=stop_elems, mxu=tier, prox_round=rounds, **flags)
   return out if return_stepsize else out[:4]
 
 
@@ -554,14 +637,20 @@ def _launch(dictionary, hessian, eigvec, batches, table, window, comem, mesh,
             lam, num_iters, upd_step, *, variant, update_alg, upd_num_iters,
             nonneg, hard, renormalize, power_iters, lowest_code_val,
             alignment_penalty, route="auto", grid=0, eps=None,
-            stop_count=None):
+            stop_count=None, mxu="highest", prox_round=False):
   """Allocate state and scratch, copy the group table and co-membership
   counts to the device, and enqueue the k steps on the current stream,
   the sums over ranks as calls of the hook.  route 'steps' or
   'persistent' forces a route and grid a persistent launch's CTA count
   (for checks and tools; 0: the shape's own); eps the solves' early stop
-  over stop_count elements (None: none)."""
-  global launches, solve_launches, last_route, last_iters
+  over stop_count elements (None: none); mxu the solve's tier and
+  prox_round that the member table's prox rounds at it (``prox_plan``; the
+  caller passes its window as None then)."""
+  global launches, solve_launches, tier_launches, last_route, last_iters
+  tier = _tier(mxu)
+  _require(not prox_round or (tier != "highest" and table is not None
+                              and window is None),
+           "prox_round needs a tier and a member table")
   code, data = (1, 1) if mesh is None else (mesh.code_size, mesh.size)
   if route not in ROUTES:
     raise ValueError("route must be one of %s, got %r" % (ROUTES, route))
@@ -648,14 +737,17 @@ def _launch(dictionary, hessian, eigvec, batches, table, window, comem, mesh,
         int(persistent), int(grid), ptr(betas), ptr(barrier),
         f32(-1.0 if eps is None else eps),
         f32(0.0 if eps is None else 1.0 / stop_count), ptr(words),
-        ptr(iters), ptr(slots), ptr(local), stream)
+        ptr(iters), ptr(slots), ptr(local), TIER_CODES[tier],
+        int(bool(prox_round)), stream)
   hook.check(err, "residual-form train step launch (k=%d, b=%d, s=%d, n=%d, "
-             "code %d, data %d, route %s%s)" % (
+             "code %d, data %d, route %s%s, tier %s)" % (
                  k, b, s, n, code, data, route,
-                 "" if eps is None else ", early stop"))
+                 "" if eps is None else ", early stop", tier))
   launches += k
   if persistent:
     solve_launches += k
+  if tier != "highest":
+    tier_launches += k
   if iters is not None:
     last_iters = iters
   last_route = route

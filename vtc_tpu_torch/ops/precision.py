@@ -192,6 +192,19 @@ def ns_dot(a, b, mxu, precision=None):
     return tier_pass_sum(split(a), split(b), TIER_PAIRS[tier], a.dtype)
 
 
+def split_k_dot(a, b, mxu, chunk):
+  """a @ b at the tier ``mxu`` taken ``chunk`` values of k at a time, each
+  chunk's product ``ns_dot``'s from zero, the chunks' products added in
+  order: K19's split-K reconstruction z D on the card (a kSplitK chunk a
+  partial, csrc/code_shard_solve.cuh's phase A, the partials added in
+  chunk order by its phase S)."""
+  out = None
+  for k0 in range(0, a.shape[-1], int(chunk)):
+    part = ns_dot(a[..., k0:k0 + chunk], b[..., k0:k0 + chunk, :], mxu)
+    out = part if out is None else out + part
+  return out
+
+
 def tier_operand(g, mxu):
   """The iteration operand of ``tier_dot`` for the (s, s) -eta G, formed
   once per solve (vtc_tpu ``prep_gram`` of ``_make_iter_dot``, :129-169):

@@ -122,7 +122,9 @@ keeps full precision, and so does the whole-segment conv K17, where
 vtc_tpu's trainer replaces its K17 runner with the psum-per-op one
 (:1160-1170, :1228-1232); on the CPU the fused runners' plain versions run a
 tier where 'fc_formulation' is 'pallas' and the power is warm.  The
-code-sharded runner's K19 refuses a tier (ROADMAP.md §1 item 3a.2.4).
+code-sharded runner hands it to K19, whose solve products run it as
+vtc_tpu's K19 does (:1116-1133; its last branch, :1228, leaves the
+code-sharded runner in place), on the card and in the plain version.
 
 Raise NotImplementedError naming its ROADMAP.md §1 item: 'hbm_chunk_steps'
 streaming (item 8).  Every segment kernel stops its solves on the
@@ -245,7 +247,10 @@ def _code_shard_segment_runner(mesh, cs_size, data_size, variant,
   takes its rows on entry and all-gathers them over 'code' at the end, so
   every rank returns the same global state.  ``group_arrays`` (from
   code_shard_group_arrays with ``cs_size`` shards) selects the grouped
-  variant; the rank takes the arrays of its code position (:361-370)."""
+  variant; the rank takes the arrays of its code position (:361-370), and
+  vtc_tpu's rotate window of all of them (roll_window_from_expand_arrays,
+  :350-353), which picks the group prox's rounding at a tier.  ``mxu`` is
+  K19's tier."""
   if mesh is None:
     mesh = parallel.Mesh(1)
   if (int(cs_size), int(data_size)) != (mesh.code_size, mesh.size):
@@ -255,6 +260,8 @@ def _code_shard_segment_runner(mesh, cs_size, data_size, variant,
   kw = {}
   if group_arrays is not None:
     kw["expand_local"] = group_arrays[0][mesh.code_index]
+    kw["roll_window"] = fused_code_shard_train.roll_window_from_expand_arrays(
+        group_arrays[0])
     if alignment_penalty != 0.0:
       kw["comem_local"] = group_arrays[1][mesh.code_index]
     kw["alignment_penalty"] = alignment_penalty
