@@ -154,15 +154,19 @@ check here.
    with hard and nonnegative thresholds at a small size, and a ragged
    geometry for the tiled GEMM (s 40, c 3, 6x6 at stride 2: M of 12 and
    40, K of 108 and 360, 2,001 blocks and 1,701 code positions, FISTA
-   and ISTA).  TF32 controls of the plain version at the flagship and
-   the ragged geometry must fail the limit.
-14. K11 against plain and against K10 at the flagship geometry (the
+   and ISTA), and K above 4,096 (480 kernels of 12x12 at stride 4, b 4,
+   FISTA 20: R * s = 4,320), whose profile must show the synthesis on
+   gather_gemm once an iteration and the rest on the tiled GEMM.  TF32
+   controls of the plain version at the flagship and the ragged geometry
+   must fail the limit.
+14. K11 (one gram_class_gemm launch an iteration, csrc/conv_gram_tiles.
+   cuh) against plain and against K10 at the flagship geometry (the
    wrapper called directly), at a small geometry with kernel % stride
    != 0 and asymmetric padding, and, as a serving path, encode_dataset
    (formulation='pallas') over 3x256x256 images padded to 288x288 with 64
    kernels of 3x32x32 at stride 16: c*sv*sh = 768 > 512, so K10's gate
    sends 'pallas' to K11 (2 launches, none of K10).  A TF32 control must
-   fail the limit.
+   fail the limit.  Phase 51 times K11 at that geometry and at s > 512.
 15. The conv serving slice: encode_dataset(mode='convolutional') over
    320 images in batches of 40; K10 must count 8 launches, the codes
    must be finite and one batch must match the plain version.
@@ -175,9 +179,10 @@ check here.
    products (K10's library time), K10 at the trainer's batch, conv
    encode images/s, conv trainer images/s and the stepsize's eigvalsh
    ms.  A profile of one K10 and one K11 flagship solve counts the
-   gathered GEMM's launches: every K10 product and K11's interior go to
-   the tiled kernel, only K11's rows, columns and corners to the line
-   kernel.
+   gathered GEMMs' launches: every K10 product goes to the tiled kernel,
+   and K11 launches gram_class_gemm once an iteration (its interior and
+   border classes in one launch) and no gather_gemm_tiled or
+   gather_gemm.
 18. K12 against plain, in float32 and float64: one step at the flagship
    (b 40, FISTA 25, windowed kernels, exact eigenvector seed), b 5 with
    ISTA 25, 12x12 kernels at stride 8 (zero-extended, 268x268), steepest
@@ -471,8 +476,9 @@ check here.
 44. The conv family's early stop (csrc/conv_gemm.cuh, "The early stop";
    phases 13, 14, 16 and 30 run each conv route with an eps once).  (a)
    K10 at the flagship (b 40 FISTA 100), the trainer's b 5 ISTA 25, the
-   12x12/8 zero-extended geometry and c = 3 nonneg FISTA / hard ISTA, and
-   K11 at the flagship, each with an eps that stops at k = 1, one picked
+   12x12/8 zero-extended geometry, c = 3 nonneg FISTA / hard ISTA and
+   phase 13's K above 4,096 (gather_gemm's stop build), and K11 at the
+   flagship, each with an eps that stops at k = 1, one picked
    from the plain version's means to stop mid-run, and 0 (never): the
    stopped codes bitwise those of the same kernel without the stop run to
    the count it reports, the count the fp32 plain version's (a case whose
@@ -706,6 +712,22 @@ check here.
    each one torch.mm of bf16 operands with a float32 result; the median
    of 7 turns); and the library time of a rank's step across devices at
    code 2 (float32 torch.matmul).
+51. K11 at its own geometries (csrc/conv_gram_tiles.cuh's
+   gram_class_gemm, one launch an iteration over the code positions
+   grouped by border class; phases 14, 17 and 44 run it at the flagship):
+   (b) the serving geometry of phase 14 (3x288x288 images, 64 kernels of
+   3x32x32 at stride 16, b 40, FISTA 100) and (c) s > 512 (576 kernels of
+   16x16 at stride 8 on phase 13's images, b 8, FISTA 25, half the
+   flattened kernels' stepsize): the kernel against the fp32 and fp64
+   plain versions at phase 2's limit, a TF32 control of the plain version
+   that must fail it, a profile of one solve (one gram_class_gemm launch
+   an iteration, no gather_gemm_tiled or gather_gemm), the kernel's ms
+   beside the plain version's, the bound and K10's loop with cuDNN's
+   products on the same inputs (TF32 off); the main path at s 576, its
+   counts zeroed before and read after: encode_dataset(formulation=
+   'pallas') over one batch of 8 (1 K11 launch, no K10: K10's gate turns
+   s > 512 away), finite and within the limit of plain; the plan's tiles
+   a class and work items at the flagship and at (b) and (c).
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -1377,6 +1399,35 @@ def conv_compare(torch, name, solve, plain, x, d, lam, iters, eta, **kw):
   return got, err32
 
 
+# K10 with K above csrc/conv_gemm.cuh's kTableMaxK (4,096), where its
+# synthesis runs on gather_gemm: 480 kernels of 12x12 at stride 4 (3 x 3
+# parts) give R * s = 4,320; b 4, FISTA 20 (phases 13 and 44).  Its
+# images' pixel spread is about 0.7 (480 kernels' overlapping maps), so
+# lambda 0.5 keeps the codes about as sparse (8%) as the flagship's
+WIDE_K_S, WIDE_K_KERNEL, WIDE_K_STRIDE = 480, 12, 4
+WIDE_K_BATCH, WIDE_K_ITERS, WIDE_K_LAM = 4, 20, 0.5
+
+
+def wide_k_problem(torch, K10, conv_ops, lipschitz, dev):
+  """(x, d, eta, kwargs) of K10 at K above 4,096: windowed kernels, conv
+  images made as phase 13's, a quarter of the flattened kernels'
+  stepsize (their conv operator's L is about twice the flattened Gram's
+  here)."""
+  gen = windowed_kernels(np.random.RandomState(13), WIDE_K_S, 1,
+                         WIDE_K_KERNEL)
+  x, pad = conv_images(torch, conv_ops, dev, WIDE_K_BATCH, gen,
+                       WIDE_K_STRIDE, CONV_IMG, seed=13)
+  stride = (WIDE_K_STRIDE, WIDE_K_STRIDE)
+  geo = K10.geometry(x.shape, gen.shape, stride)
+  check(K10.supported(x.shape, gen.shape, stride)
+        and geo["r"] * WIDE_K_S > 4096,
+        "K10 should take %s at K %d" % (x.shape, geo["r"] * WIDE_K_S))
+  d = torch.tensor(gen, device=dev)
+  eta = 0.25 * lipschitz.fista_stepsize(d.reshape(WIDE_K_S, -1))
+  return (torch.tensor(x, device=dev), d, eta,
+          dict(kernel_stride=stride, padding=pad))
+
+
 def conv_kernel_cases(torch, K10, conv_ops, lipschitz, x_flag, flag_d,
                       padding, dev):
   """Phase 13: K10 against its plain versions."""
@@ -1460,6 +1511,22 @@ def conv_kernel_cases(torch, K10, conv_ops, lipschitz, x_flag, flag_d,
                           K10.fused_conv_direct_plain, xr, dr, 0.05, 20,
                           etar, variant=variant, **rkw)
     worst = max(worst, err)
+  # K above 4,096: the synthesis on gather_gemm, counted in a profile
+  xw, dw, etaw, wkw = wide_k_problem(torch, K10, conv_ops, lipschitz, dev)
+  name = "K10 12x12/4 s480 b4 fista20 (K 4,320)"
+  _, err = conv_compare(torch, name, K10.fused_conv_direct_solve,
+                        K10.fused_conv_direct_plain, xw, dw, WIDE_K_LAM,
+                        WIDE_K_ITERS, etaw, **wkw)
+  worst = max(worst, err)
+  got = gemm_profile(torch, lambda: K10.fused_conv_direct_solve(
+      xw, dw, WIDE_K_LAM, WIDE_K_ITERS, etaw, **wkw))
+  print("%s profiled: %d gather_gemm (%.4f ms), %d gather_gemm_tiled" % (
+      name, got["line"][0], got["line"][1], got["tiled"][0]))
+  check(got["line"][0] == WIDE_K_ITERS
+        and got["tiled"][0] == WIDE_K_ITERS + 1 and got["gram"][0] == 0,
+        "%s: expected the synthesis on gather_gemm (%d) and the analysis "
+        "and corr on the tiled GEMM (%d), profiled %s" % (
+            name, WIDE_K_ITERS, WIDE_K_ITERS + 1, got))
   want64 = K10.fused_conv_direct_plain(xr.double(), dr.double(), 0.05, 20,
                                        etar.double(), **rkw)
   tf32 = K10.fused_conv_direct_plain(xr, dr, 0.05, 20, etar,
@@ -3663,15 +3730,18 @@ def time_ms(torch, fn, reps):
 
 
 def gemm_profile(torch, fn):
-  """{'tiled': [launches, device ms], 'line': [...]}: the gathered GEMM's
-  two kernels (csrc/conv_gemm.cuh) in one call of fn, from
+  """{'tiled': [launches, device ms], 'line': [...], 'gram': [...]}: the
+  gathered GEMMs (csrc/conv_gemm.cuh's gather_gemm_tiled and gather_gemm,
+  conv_gram_tiles.cuh's gram_class_gemm) in one call of fn, from
   torch.profiler's device events."""
-  out = {"tiled": [0, 0.0], "line": [0, 0.0]}
+  out = {"tiled": [0, 0.0], "line": [0, 0.0], "gram": [0, 0.0]}
   for e in device_events(torch, fn):
-    if "gather_gemm" in e.name:
-      slot = out["tiled" if "gather_gemm_tiled" in e.name else "line"]
-      slot[0] += 1
-      slot[1] += (e.time_range.end - e.time_range.start) / 1e3
+    for key, name in (("tiled", "gather_gemm_tiled"), ("line", "gather_gemm"),
+                      ("gram", "gram_class_gemm")):
+      if name in e.name:
+        out[key][0] += 1
+        out[key][1] += (e.time_range.end - e.time_range.start) / 1e3
+        break
   return out
 
 
@@ -4105,8 +4175,8 @@ def solver_state():
 def conv_stop_solve_cases(torch, K10, K11, conv_ops, lipschitz, x_flag,
                           flag_d, padding, dev):
   """Phase 44 (a): K10 at the flagship (b 40 FISTA 100), the trainer's b 5
-  ISTA 25, the 12x12/8 zero-extended geometry and c = 3 nonneg / hard;
-  K11 at phase 14's flagship; each with an eps stopping at k 1, one
+  ISTA 25, the 12x12/8 zero-extended geometry, c = 3 nonneg / hard and K
+  above 4,096 (gather_gemm); K11 at phase 14's flagship; each with an eps stopping at k 1, one
   stopping mid-run and 0 (never).  Returns (cases, {label: counts},
   {module: the largest difference against plain}, the near cases,
   {label: the mid eps})."""
@@ -4127,6 +4197,7 @@ def conv_stop_solve_cases(torch, K10, K11, conv_ops, lipschitz, x_flag,
                                np.float32), device=dev)
   d3 = torch.tensor(unit_kernels(rng, 6, 3, 4), device=dev)
   kw3 = dict(kernel_stride=(2, 2), padding=((2, 2), (2, 2)))
+  xw, dw, etaw, wkw = wide_k_problem(torch, K10, conv_ops, lipschitz, dev)
   # (label, module, x, d, lambda, iters, eta, flags)
   cases = [
       ("K10 flagship b40 fista100", K10, x, d, CONV_LAM, CONV_ITERS, eta,
@@ -4144,6 +4215,8 @@ def conv_stop_solve_cases(torch, K10, K11, conv_ops, lipschitz, x_flag,
       ("K10 c3 4x4/2 ista hard", K10, x3, d3, 0.05, 20,
        0.5 * lipschitz.fista_stepsize(d3.reshape(6, -1)),
        dict(kw3, variant="ista", hard=True)),
+      ("K10 12x12/4 s480 b4 fista20 (gather_gemm)", K10, xw, dw,
+       WIDE_K_LAM, WIDE_K_ITERS, etaw, wkw),
       ("K11 flagship b40 fista100", K11, x, d, CONV_LAM, CONV_ITERS, eta,
        kw),
   ]
@@ -8150,6 +8223,150 @@ def cs_tier_phase(torch, dev, card, K19, compiled_epoch, lipschitz, fc_solve,
               rank_lib=rank_lib[0])
 
 
+
+# ---------------------------------------------------------------------------
+# phase 51: K11's class-tiled launch at its own geometries
+# (csrc/conv_gram_tiles.cuh)
+# ---------------------------------------------------------------------------
+GRAM_S576_BATCH, GRAM_S576_ITERS = 8, 25  # K11 at s > 512
+
+
+def gram_class_tiles(K11, op, b):
+  """{class: tiles} of K11's plan for op's geometry at batch b, and the
+  work items (several passes, all)."""
+  code_h, code_w = op["code_hw"]
+  _, words, items, multi = K11.class_plan(op["spec_py"], op["spec_px"], b,
+                                          code_h, code_w)
+  kinds = (words & 3).tolist()
+  return ({"corners": kinds.count(3), "rows": kinds.count(1),
+           "columns": kinds.count(2), "interior": kinds.count(0)},
+          multi, items.numel())
+
+
+def gram_profile_check(torch, name, fn, iters):
+  """One K11 solve under torch.profiler: the gram_class_gemm launches
+  (one an iteration) and their device ms; no gathered GEMM of
+  conv_gemm.cuh may run."""
+  got = gemm_profile(torch, fn)
+  print("%s profiled: %d gram_class_gemm launches (%.4f ms), %d "
+        "gather_gemm_tiled, %d gather_gemm" % (
+            name, got["gram"][0], got["gram"][1], got["tiled"][0],
+            got["line"][0]))
+  check(got["gram"][0] == iters and got["tiled"][0] == 0
+        and got["line"][0] == 0,
+        "%s: expected %d gram_class_gemm launches and no gathered GEMM, "
+        "profiled %s" % (name, iters, got))
+  return got["gram"][1]
+
+
+def gram_tiles_phase(torch, dev, card, K10, K11, conv_ops, lipschitz,
+                     encode_dataset, convert, x_flag, padding, flag_op):
+  """Phase 51: K11 at (b) the serving geometry (3x288x288, 64 kernels of
+  3x32x32 at stride 16, b 40, FISTA 100) and (c) s > 512 (576 kernels of
+  16x16 at stride 8 on the flagship images, b 8, FISTA 25, half the
+  flattened kernels' stepsize): against the fp32 and fp64 plain versions
+  at phase 2's limit with a TF32 control of the plain version that must
+  fail it; a profile of one solve (one gram_class_gemm launch an
+  iteration, no gathered GEMM); the main path at (c), its counts zeroed
+  before and read after (encode_dataset formulation='pallas' at s 576: 1
+  K11 launch, no K10); the plan's tiles at (a)-(c); the kernel's ms beside
+  the plain version's, the bound and K10's loop with cuDNN's products on
+  the same inputs (TF32 off)."""
+  t0 = time.perf_counter()
+  gen3 = windowed_kernels(np.random.RandomState(7), CONV_S, 3, 32)
+  x3, pad3 = conv_images(torch, conv_ops, dev, CONV_BATCH, gen3, 16, CONV_IMG,
+                         seed=51)
+  gen576 = windowed_kernels(np.random.RandomState(51), 576, 1, CONV_K)
+  d576 = torch.tensor(gen576, device=dev)
+  geos = {
+      "b": ("K11 serving 3x32x32/16 b40 fista100", torch.tensor(x3, device=dev),
+            torch.tensor(gen3, device=dev), CONV_ITERS, 1.0,
+            dict(kernel_stride=(16, 16), padding=pad3)),
+      "c": ("K11 s576 b8 fista25",
+            torch.tensor(x_flag[:GRAM_S576_BATCH], device=dev), d576,
+            GRAM_S576_ITERS, 0.5,
+            dict(kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=padding)),
+  }
+  tiles = {"a": gram_class_tiles(K11, flag_op, CONV_BATCH)}
+  out = {}
+  with torch.no_grad():
+    for key, (name, x, d, iters, scale, kw) in geos.items():
+      eta = scale * lipschitz.fista_stepsize(d.reshape(d.shape[0], -1))
+      solve = lambda: K11.fused_conv_fista_solve(x, d, CONV_LAM, iters, eta,
+                                                 **kw)
+      plain = lambda: K11.fused_conv_fista_plain(x, d, CONV_LAM, iters, eta,
+                                                 **kw)
+      got, err = conv_compare(torch, name, K11.fused_conv_fista_solve,
+                              K11.fused_conv_fista_plain, x, d, CONV_LAM,
+                              iters, eta, **kw)
+      want64 = K11.fused_conv_fista_plain(x.double(), d.double(), CONV_LAM,
+                                          iters, eta.double(), **kw)
+      tf32 = K11.fused_conv_fista_plain(x, d, CONV_LAM, iters, eta,
+                                        precision="tensorfloat32", **kw)
+      terr = float((tf32.double() - want64).abs().max())
+      print("control: K11 plain with TF32 products, %s: max|d| fp64 %.3e, "
+            "limit %.3e (must fail it)" % (name, terr, limit(want64)))
+      check(terr > limit(want64),
+            "the limit does not tell TF32 products from fp32 at " + name)
+      del want64, tf32
+      prof_ms = gram_profile_check(torch, name, solve, iters)
+      library = lambda: K10.fused_conv_direct_library(
+          x, d, CONV_LAM, iters, eta, **kw)
+      solve()
+      library()
+      ms = [time_ms(torch, solve, 3), time_ms(torch, solve, 3)]
+      plain_ms = time_ms(torch, plain, 2)
+      lib_ms = time_ms(torch, library, 2)
+      op, _ = K11.operator_and_corr(x, d, kw["kernel_stride"], kw["padding"])
+      bnd = conv_gram_bound(op, x.shape[0], iters)
+      tiles[key] = gram_class_tiles(K11, op, x.shape[0])
+      lib_err = float((library() - got).abs().max())
+      print("%s: K11 %.4f ms (runs %.4f, %.4f; gram_class_gemm %.4f ms "
+            "profiled), %.2f TFLOP/s; plain %.4f; K10's loop with cuDNN's "
+            "products %.4f (max|d| from K11 %.3e); bound %.4f (%s) [%s]" % (
+                name, sum(ms) / 2, *ms, prof_ms,
+                bnd[0] * 1e-3 * FP32_PEAK / (sum(ms) / 2) / 1e9, plain_ms,
+                lib_ms, lib_err, bnd[0], bnd[1], card))
+      out[key] = dict(err=err, ms=sum(ms) / 2, plain_ms=plain_ms,
+                      lib_ms=lib_ms, bound=bnd)
+    # the main path at s > 512: K10's gate turns 576 kernels away
+    x576 = x_flag[:GRAM_S576_BATCH]
+    check(not K10.supported(x576.shape, gen576.shape,
+                            (CONV_STRIDE, CONV_STRIDE)),
+          "K10's gate should turn 576 kernels away")
+    d576c = convert.dictionary_from_numpy(gen576, dev)
+    K10.launches = K11.launches = 0
+    codes = encode_dataset(x576, d576c, CONV_LAM, GRAM_S576_ITERS,
+                           mode="convolutional",
+                           kernel_stride=(CONV_STRIDE, CONV_STRIDE),
+                           padding=padding, batch_size=GRAM_S576_BATCH,
+                           formulation="pallas")
+    launches = K11.launches
+    eta = lipschitz.fista_stepsize(d576c.reshape(576, -1))
+    want = K11.fused_conv_fista_plain(
+        torch.tensor(x576, device=dev), d576c, CONV_LAM, GRAM_S576_ITERS,
+        eta, kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=padding)
+    err = float(np.abs(codes - want.cpu().numpy()).max())
+    print("K11 main path at s 576: %d K11 and %d K10 launches for one batch "
+          "of %d; vs plain max|d| %.3e, limit %.3e" % (
+              launches, K10.launches, GRAM_S576_BATCH, err, limit(want)))
+    check(launches == 1 and K10.launches == 0,
+          "expected 1 K11 launch and no K10 at s 576, counted %d and %d" % (
+              launches, K10.launches))
+    check(codes.shape == (GRAM_S576_BATCH, 576, 33, 33)
+          and bool(np.isfinite(codes).all()) and err <= limit(want),
+          "K11's s 576 encode differs from plain by %.3e" % err)
+  for key, label in (("a", "flagship b40"), ("b", "serving b40"),
+                     ("c", "s576 b8")):
+    print("K11's plan at %s: tiles %s, %d work items (%d of tiles of "
+          "several passes)" % (label, tiles[key][0], tiles[key][2],
+                               tiles[key][1]))
+  out["c_launches"] = launches
+  out["c_err"] = max(out["c"]["err"], err)
+  print("phase 51 took %.1f s" % (time.perf_counter() - t0))
+  return out
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -8714,17 +8931,18 @@ def main():
   k10_gemm = gemm_profile(torch, k10_run)
   k11_gemm = gemm_profile(torch, k11_run)
   print("gathered GEMM launches (profiled): K10 flagship solve %d tiled "
-        "(%.4f ms), %d line; K11 flagship solve %d tiled (its interior, "
-        "%.4f ms), %d line (rows, columns, corners, %.4f ms) [%s]" % (
+        "(%.4f ms), %d gather_gemm; K11 flagship solve %d gram_class_gemm "
+        "(%.4f ms), %d tiled, %d gather_gemm [%s]" % (
             k10_gemm["tiled"][0], k10_gemm["tiled"][1], k10_gemm["line"][0],
-            k11_gemm["tiled"][0], k11_gemm["tiled"][1], k11_gemm["line"][0],
-            k11_gemm["line"][1], card))
+            k11_gemm["gram"][0], k11_gemm["gram"][1], k11_gemm["tiled"][0],
+            k11_gemm["line"][0], card))
   check(k10_gemm["tiled"][0] == 2 * CONV_ITERS + 1
-        and k10_gemm["line"][0] == 0,
+        and k10_gemm["line"][0] == 0 and k10_gemm["gram"][0] == 0,
         "K10's products did not all take the tiled GEMM: %s" % (k10_gemm,))
-  check(k11_gemm["tiled"][0] == CONV_ITERS and k11_gemm["line"][0] > 0,
-        "K11's interior should take the tiled GEMM, its lines the line "
-        "kernel: %s" % (k11_gemm,))
+  check(k11_gemm["gram"][0] == CONV_ITERS and k11_gemm["tiled"][0] == 0
+        and k11_gemm["line"][0] == 0,
+        "K11 should launch gram_class_gemm once an iteration and no other "
+        "gathered GEMM: %s" % (k11_gemm,))
   print("K11 ms per flagship batch (b=40 1x272x272, 64 16x16/8, fista 100): "
         "%.4f (runs %.4f, %.4f); plain %.4f (runs %.4f, %.4f); bound %.4f "
         "(%s) [%s]" % (k11_ms, *k11_ms_runs, k11_p_ms, *k11_plain_ms,
@@ -10260,6 +10478,10 @@ def main():
   cs_tiers = cs_tier_phase(torch, dev, card, K19, compiled_epoch, lipschitz,
                            fc_solve, sub, sparse_coding, big_gen)
 
+  # phase 51: K11 at its own geometries (gram_tiles_phase)
+  gram = gram_tiles_phase(torch, dev, card, K10, K11, conv_ops, lipschitz,
+                          encode_dataset, convert, cimages, cpad, op)
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -10288,6 +10510,16 @@ def main():
       ("fused_conv_fista", "fused_conv_fista.cu",
        "vtc_tpu/ops/pallas_conv_fista.py:329", k11_launches, conv_err_gram,
        k11_ms, k11_p_ms, (k11_bound, k11_by)),
+      # K11 at its own geometries (phase 51): the serving geometry's
+      # launches are phase 14's serving path, s 576's phase 51's encode
+      ("fused_conv_fista (serving geometry, 3x32x32/16, b 40)",
+       "fused_conv_fista.cu", "vtc_tpu/ops/pallas_conv_fista.py:329",
+       k11_launches, gram["b"]["err"], gram["b"]["ms"],
+       gram["b"]["plain_ms"], gram["b"]["bound"]),
+      ("fused_conv_fista (s > 512: 576 kernels, b 8, FISTA 25)",
+       "fused_conv_fista.cu", "vtc_tpu/ops/pallas_conv_fista.py:329",
+       gram["c_launches"], gram["c_err"], gram["c"]["ms"],
+       gram["c"]["plain_ms"], gram["c"]["bound"]),
       ("fused_conv_train", "fused_conv_train_step.cu",
        "vtc_tpu/ops/pallas_conv_train.py:692", k12_launches, k12_err,
        k12_ms, k12_p_ms, k12_bound),
@@ -10526,6 +10758,10 @@ def main():
   # products as products of bf16 operands; no PyTorch call computes any
   # other kernel's solve or step, so theirs are null
   library_ms = {"fused_conv_direct": k10_lib, "fused_conv_fista": k10_lib,
+                "fused_conv_fista (serving geometry, 3x32x32/16, b 40)":
+                    gram["b"]["lib_ms"],
+                "fused_conv_fista (s > 512: 576 kernels, b 8, FISTA 25)":
+                    gram["c"]["lib_ms"],
                 "fused_conv_direct (early stop)": cstop_times["K10"][2],
                 "fused_conv_fista (early stop)": cstop_times["K11"][2],
                 "fused_fista": solve_lib_ms,

@@ -1,16 +1,23 @@
-// Times the conv family's two gathered GEMM kernels alone
-// (vtc_tpu_torch/csrc/conv_gemm.cuh) at K10's flagship shapes: 64 kernels
-// of 16x16 at stride 8 on 272x272 images (2 x 2 kernel parts, 34 x 34
-// image blocks, 33 x 33 codes), at batches 40 and 5.  For each batch it
-// runs the synthesis (mask epilogue) and the analysis (shrink and FISTA
-// momentum epilogue) through launch_gather_gemm, which picks the tiled
-// kernel, and through the line kernel gather_gemm launched directly, and
-// prints the mean ms per launch over 50 launches and the achieved
-// TFLOP/s.  Built and run by tools/bench_conv_gemm.py.
+// Times the conv family's gathered GEMM kernels alone
+// (vtc_tpu_torch/csrc/conv_gemm.cuh, conv_gram_tiles.cuh).  At K10's
+// flagship shapes, 64 kernels of 16x16 at stride 8 on 272x272 images (2 x
+// 2 kernel parts, 34 x 34 image blocks, 33 x 33 codes), at batches 40 and
+// 5, it runs the synthesis (mask epilogue) and the analysis (shrink and
+// FISTA momentum epilogue) through launch_gather_gemm, which picks the
+// tiled kernel, and through gather_gemm (the kernel of K above 4,096)
+// launched directly.  Then K11's gram_class_gemm, one launch of a solve's
+// iteration, at the flagship (b 40, s 64, 33 x 33 codes), at the serving
+// geometry of 64 kernels of 3x32x32 at stride 16 (b 40, s 64, 17 x 17
+// codes) and at s 576 (b 8, 33 x 33 codes): 9 offsets (K 9 s), special
+// rows and columns the first and last, in the plans that
+// ops/fused_conv_fista.class_plan makes, which tools/bench_conv_gemm.py
+// writes to the file named by the first argument.  It prints the mean ms
+// per launch over 50 launches and the achieved TFLOP/s.  Built and run by
+// tools/bench_conv_gemm.py.
 #include <cstdio>
 #include <vector>
 
-#include "conv_gemm.cuh"
+#include "conv_gram_tiles.cuh"
 
 namespace {
 
@@ -26,9 +33,28 @@ float* device_random(size_t n, unsigned seed) {
   return d;
 }
 
+int* device_ints(const std::vector<int>& h) {
+  int* d = nullptr;
+  cudaMalloc(&d, h.size() * sizeof(int));
+  cudaMemcpy(d, h.data(), h.size() * sizeof(int), cudaMemcpyHostToDevice);
+  return d;
+}
+
+// The int32 values of a file, as tools/bench_conv_gemm.py writes K11's
+// plans (empty where it cannot be read).
+std::vector<int> read_ints(const char* path) {
+  std::vector<int> v;
+  if (FILE* f = std::fopen(path, "rb")) {
+    int x;
+    while (std::fread(&x, sizeof(int), 1, f) == 1) v.push_back(x);
+    std::fclose(f);
+  }
+  return v;
+}
+
 }  // namespace
 
-int main() {
+int main(int argc, char** argv) {
   const int b = 40, s = 64, cpx = 64, ax = 2, r = 4, bh = 34, bw = 34;
   const int ch = bh - 1, cw = bw - 1, reps = 50;
   GemmArgs synth = {};
@@ -43,7 +69,6 @@ int main() {
   synth.sign = -1;
   synth.out_h = bh;
   synth.out_w = bw;
-  synth.lines = kAll;
   synth.epilogue = kMaskStore;
   synth.out = device_random(static_cast<size_t>(b) * cpx * bh * bw, 3);
   synth.mask = device_random(static_cast<size_t>(cpx) * bh * bw, 4);
@@ -59,7 +84,6 @@ int main() {
   anal.sign = 1;
   anal.out_h = ch;
   anal.out_w = cw;
-  anal.lines = kAll;
   anal.epilogue = kProx;
   anal.out = const_cast<float*>(synth.src);
   anal.z_cur = synth.src;
@@ -86,7 +110,7 @@ int main() {
           if (line)
             gather_gemm<<<grid, kThreads>>>(*p);
           else
-            launch_gather_gemm(*p, 1, len, 0);
+            launch_gather_gemm(*p, len, 0);
         }
         cudaEventRecord(stop);
         cudaEventSynchronize(stop);
@@ -96,14 +120,103 @@ int main() {
       const double flops = 2.0 * p->m * p->k * positions;
       const cudaError_t err = cudaGetLastError();
       std::printf(
-          "b %2d %-9s M %d K %d N %lld: tiled %.4f ms (%.2f TFLOP/s), line "
-          "kernel %.4f ms (%.2f TFLOP/s)%s%s\n",
+          "b %2d %-9s M %d K %d N %lld: tiled %.4f ms (%.2f TFLOP/s), "
+          "gather_gemm %.4f ms (%.2f TFLOP/s)%s%s\n",
           batch, p == &synth ? "synthesis" : "analysis", p->m, p->k,
           positions, ms[0], flops / ms[0] / 1e9, ms[1], flops / ms[1] / 1e9,
           err == cudaSuccess ? "" : " CUDA error: ",
           err == cudaSuccess ? "" : cudaGetErrorString(err));
       if (err != cudaSuccess) return 1;
     }
+  }
+  // K11's iteration: 9 offsets, the plans of argv[1]: per geometry b, s,
+  // n (n x n codes), tiles, items, multi_items, then the slots, class
+  // words and work items
+  const int offsets = 9;
+  const std::vector<int> plans = argc > 1 ? read_ints(argv[1])
+                                          : std::vector<int>();
+  if (argc > 1 && plans.empty()) {
+    std::fprintf(stderr, "cannot read the plans of %s\n", argv[1]);
+    return 1;
+  }
+  for (size_t at = 0; at < plans.size();) {
+    const int gb = plans[at], gs = plans[at + 1], n = plans[at + 2];
+    const int n_tiles = plans[at + 3], n_items = plans[at + 4];
+    const int multi = plans[at + 5];
+    at += 6;
+    const std::vector<int> slots(plans.begin() + at,
+                                 plans.begin() + at + n_tiles * kGramBN);
+    at += slots.size();
+    const std::vector<int> words(plans.begin() + at,
+                                 plans.begin() + at + n_tiles);
+    at += n_tiles;
+    const std::vector<int> items(plans.begin() + at,
+                                 plans.begin() + at + n_items);
+    at += n_items;
+    const int m_tiles = (gs + kBM - 1) / kBM;
+    const size_t mat = static_cast<size_t>(gs) * offsets * gs;
+    const size_t codes = static_cast<size_t>(gb) * gs * n * n;
+    const size_t n_tickets = words.size() * m_tiles;
+    unsigned* tickets = nullptr;
+    cudaMalloc(&tickets, n_tickets * sizeof(unsigned));
+    cudaMemset(tickets, 0, n_tickets * sizeof(unsigned));
+    const GramTiles g = {device_random(mat, 11),
+                         device_random(2 * mat, 12),
+                         device_random(2 * mat, 13),
+                         device_random(4 * mat, 14),
+                         device_ints(slots),
+                         device_ints(words),
+                         device_ints(items),
+                         device_random(static_cast<size_t>(m_tiles) * multi *
+                                           kBM * kGramBN, 19),
+                         tickets,
+                         static_cast<int>(words.size()),
+                         multi,
+                         2,
+                         2,
+                         offsets};
+    GemmArgs p = {};
+    p.m = gs;
+    p.k = offsets * gs;
+    p.src = device_random(codes, 15);
+    p.src_c = gs;
+    p.src_h = p.src_w = p.out_h = p.out_w = n;
+    p.off_w = 3;
+    p.sign = 1;
+    p.off_y0 = p.off_x0 = -1;
+    p.nb = gb;
+    p.epilogue = kProx;
+    p.out = device_random(codes, 16);
+    p.z_cur = p.src;
+    p.corr = device_random(codes, 17);
+    p.old = device_random(codes, 18);
+    p.eta = eta;
+    p.lam = 0.05f;
+    p.beta = 0.3f;
+    p.fista = 1;
+    cudaError_t err = cudaSuccess;
+    for (int i = 0; i <= reps && err == cudaSuccess; ++i) {
+      if (i == 1) cudaEventRecord(start);
+      err = launch_gram_class_gemm(p, g, n_items, false, 0);
+    }
+    cudaEventRecord(stop);
+    cudaEventSynchronize(stop);
+    float ms = 0.f;
+    cudaEventElapsedTime(&ms, start, stop);
+    ms /= reps;
+    if (err == cudaSuccess) err = cudaGetLastError();
+    // the operator's work: G_int at every position, a correction a
+    // position of the special rows and columns, the corners once more
+    const double flops = 2.0 * offsets * gs * gs * gb *
+                         (n * n + 2 * n + 2 * n + 4);
+    std::printf(
+        "gram_class_gemm b %d s %d K %d codes %dx%d, %d tiles of %d, %d "
+        "items: %.4f ms (%.2f TFLOP/s)%s%s\n",
+        gb, gs, p.k, n, n, n_tiles, kGramBN, n_items, ms,
+        flops / ms / 1e9,
+        err == cudaSuccess ? "" : " CUDA error: ",
+        err == cudaSuccess ? "" : cudaGetErrorString(err));
+    if (err != cudaSuccess) return 1;
   }
   return 0;
 }

@@ -3,11 +3,14 @@
   python3 tools/bench_conv_gemm.py [--out report.txt]
 
 Compiles tools/bench_conv_gemm.cu against vtc_tpu_torch/csrc/
-conv_gemm.cuh with nvcc (for sm_90a, with ptxas's register report) into
-vtc_tpu_torch/_build/, runs it, and prints the registers and spills of
-the GEMM kernels, then ms per launch and TFLOP/s of the tiled and the
-line kernel for K10's flagship synthesis and analysis at batches 40 and
-5, and the card's name and power limit.  Every line is printed, and
+conv_gemm.cuh and conv_gram_tiles.cuh with nvcc (for sm_90a, with ptxas's
+register report) into vtc_tpu_torch/_build/, runs it, and prints the
+registers and spills of the GEMM kernels, then ms per launch and TFLOP/s
+of the tiled kernel and gather_gemm for K10's flagship synthesis and
+analysis at batches 40 and 5, of K11's gram_class_gemm for one iteration
+at the flagship, at the serving geometry (3x32x32 kernels at stride 16)
+and at 576 kernels, in the plans of ops/fused_conv_fista.class_plan, and
+the card's name and power limit.  Every line is printed, and
 written to --out when given.  Needs nvcc and a CUDA device.
 """
 import argparse
@@ -19,7 +22,26 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import chip_smoke  # noqa: E402  (the card's line)
-from vtc_tpu_torch.ops import _build  # noqa: E402
+from vtc_tpu_torch.ops import _build, fused_conv_fista  # noqa: E402
+
+# K11 at the flagship, the serving geometry and s 576: (b, s, n), n x n
+# codes whose first and last rows and columns are special
+GRAM_GEOMETRIES = ((40, 64, 33), (40, 64, 17), (8, 576, 33))
+
+
+def write_plans(path):
+  """K11's plans at GRAM_GEOMETRIES as the int32 values that
+  bench_conv_gemm.cu reads: per geometry b, s, n, tiles, work items and
+  those of tiles of several passes, then the slots, class words and work
+  items."""
+  import torch
+  values = []
+  for b, s, n in GRAM_GEOMETRIES:
+    slots, words, items, multi = fused_conv_fista.class_plan(
+        (0, n - 1), (0, n - 1), b, n, n)
+    values += [torch.tensor([b, s, n, words.numel(), items.numel(), multi],
+                            dtype=torch.int32), slots, words, items]
+  torch.cat(values).numpy().tofile(path)
 
 
 def main():
@@ -43,10 +65,13 @@ def main():
   lines, kernel = [], None
   for line in (built.stdout + built.stderr).splitlines():
     if "Compiling entry function" in line:
-      kernel = line.split("'")[1] if "gather_gemm" in line else None
+      kernel = line.split("'")[1] if ("gather_gemm" in line
+                                      or "gram_class_gemm" in line) else None
     elif kernel and ("registers" in line or "spill" in line):
       lines.append("%s: %s" % (kernel, line.split(":", 1)[-1].strip()))
-  run = subprocess.run([binary], capture_output=True, text=True,
+  plans = str(_build.BUILD_DIR / "bench_conv_gemm_plans.bin")
+  write_plans(plans)
+  run = subprocess.run([binary, plans], capture_output=True, text=True,
                        check=False, timeout=300)
   lines += run.stdout.splitlines() + [chip_smoke.card_line()]
   print("\n".join(lines))

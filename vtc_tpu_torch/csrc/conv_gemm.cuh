@@ -9,34 +9,38 @@
 // n a code or image-block position (b, Y, X) and k = o * C + ch running
 // over the offsets o of a tile's neighbourhood and the channels ch of the
 // source.  Reads outside the source are zeros.  K10's synthesis, its
-// analysis and its corr = A(mask * X), K12's residual, and K11's interior
-// operator and its border corrections are all instances: they differ in
-// A, in the offset decode of k, in which positions n run (all of them,
-// one code row, one code column or one corner per grid z) and in the
-// epilogue, one __device__ function both kernels below call.
+// analysis and its corr = A(mask * X), K12's residual, and K11's Gram
+// operator are all instances: they differ in A, in the offset decode of
+// k, in which positions n run and in the epilogue, one __device__
+// function every kernel calls.
 //
-// Two implicit GEMMs, no materialized shifted stack, plain fp32 FMA on
-// the SIMT units (no tensor cores, no TF32, no library):
+// Implicit GEMMs, no materialized shifted stack, plain fp32 FMA on the
+// SIMT units (no tensor cores, no TF32, no library):
 //
-// * gather_gemm_tiled, for every position (lines == kAll) and K up to
-//   kTableMaxK: a 64 x BN tile of C per block of 128 threads, BN = 128
-//   (8 x 8 outputs a thread, as two 4-wide groups in m and in n, so a
-//   k step is 4 conflict-free float4 shared reads for 64 FMAs) or, when
-//   128-wide tiles would not give every SM two blocks, BN = 64 (4 x 8 a
-//   thread).  16-deep slices of A and of the gathered source pass
-//   through a two-stage cp.async ring: slice k+1 is copied while slice k
-//   is computed.  Every gathered element is one 4-byte cp.async whose
-//   source size is 0 where the position lies outside the source, n >= N
-//   or k >= K (a zero fill, no branch around the copy).  The offset
-//   decode of k (source offset of (channel, dy, dx), and dy, dx for the
-//   bounds test) is a table in shared memory, built once per block.
-// * gather_gemm, for K11's row, column and corner lines (one code row or
-//   column long, where a large tile would idle) and for larger K: a
-//   64 x 64 tile (256 threads, 4 x 4 each), synchronous 16-deep slices.
+// * gather_gemm_tiled, for K up to kTableMaxK: a 64 x BN tile of C per
+//   block of 128 threads, BN = 128 (8 x 8 outputs a thread, as two
+//   4-wide groups in m and in n, so a k step is 4 conflict-free float4
+//   shared reads for 64 FMAs) or, when 128-wide tiles would not give
+//   every SM two blocks, BN = 64 (4 x 8 a thread).  16-deep slices of A
+//   and of the gathered source pass through a two-stage cp.async ring:
+//   slice k+1 is copied while slice k is computed.  Every gathered
+//   element is one 4-byte cp.async whose source size is 0 where the
+//   position lies outside the source, n >= N or k >= K (a zero fill, no
+//   branch around the copy).  The offset decode of k (source offset of
+//   (channel, dy, dx), and dy, dx for the bounds test) is a table in
+//   shared memory, built once per block.
+// * gather_gemm, for larger K (K10's and K12's products where R * s or
+//   R * c*sv*sh exceeds kTableMaxK): a 64 x 64 tile (256 threads, 4 x 4
+//   each), synchronous 16-deep slices.  No configuration of the repo
+//   reaches it; chip_smoke.py phases 13 and 44 run K10 at K = 4,320 (480
+//   kernels of 12x12 at stride 4) to hold it to the plain version.
+// * gram_class_gemm (conv_gram_tiles.cuh), K11's operator: the tiled
+//   kernel's tile and ring over a plan of positions grouped by border
+//   class, one to four passes a tile, any K.
 //
-// Both sum each output over k in increasing order with one fmaf chain
+// Each sums every output over k in increasing order with one fmaf chain
 // from 0, so for the same inputs they give the same bits.
-// launch_gather_gemm picks between them.
+// launch_gather_gemm picks between the first two.
 //
 // The early stop (STOP, vtc_tpu's pallas_conv_direct.py:307-334 and
 // pallas_conv_train.py:320-344).  After iteration k (from 0) a solve
@@ -51,8 +55,8 @@
 //    and writes the solve's stop word (its tag, the count k + 1
 //    and the stop bit) and the count.  No float atomics: every run takes
 //    the same decision from the same bits;
-//  * every STOP launch of the solve (synthesis, analysis, K11's row,
-//    column and corner lines) reads the word on entry and, once the word
+//  * every STOP launch of the solve (synthesis, analysis, K11's one
+//    launch) reads the word on entry and, once the word
 //    carries the solve's tag and the stop bit, returns before it reads or
 //    writes any state (the read's latency hides behind the block's
 //    set-up).  old then holds codes_k.
@@ -83,19 +87,8 @@ constexpr int kTableMaxK = 4096;
 enum Epilogue {
   kStore = 0,          // out = acc
   kMaskStore = 1,      // out = acc * mask[m, Y, X]
-  kNegStore = 2,       // out = -acc
-  kNegStoreKeepRows = 3,  // out = (row_flag[Y] ? out : 0) - acc
-  kAdd = 4,            // out += acc
   kProx = 5,           // the ISTA/FISTA update, see below
   kMaskResid = 6,      // out = acc * mask[m, Y, X] - extra[idx] (K12)
-};
-
-// which output positions a grid z index runs over
-enum Lines {
-  kAll = 0,    // every (Y, X) of the output
-  kRow = 1,    // Y = line_y[z], every X
-  kCol = 2,    // X = line_x[z], every Y
-  kPoint = 3,  // (line_y[z / lines_q], line_x[z % lines_q])
 };
 
 // shrink modes, as ops/thresholds.select (nonneg, hard)
@@ -117,29 +110,24 @@ struct ConvStop {
 constexpr int kStopCtlWords = 2;  // the stop word and the ticket
 
 struct GemmArgs {
-  // A of grid z: a + z * a_line_stride, (m x k) row-major
+  // A, (m x k) row-major
   const float* a;
-  long long a_line_stride;
   int m, k;
   // gathered source (nb, src_c, src_h, src_w); offset o = k / src_c sits
   // at (sign * (o / off_w) + off_y0, sign * (o % off_w) + off_x0)
   const float* src;
   int src_c, src_h, src_w;
   int off_w, sign, off_y0, off_x0;
-  // output (nb, m, out_h, out_w) and the positions of each grid z
+  // output (nb, m, out_h, out_w), every position
   int nb, out_h, out_w;
-  int lines, lines_q;
-  const int* line_y;
-  const int* line_x;
   int epilogue;
   float* out;
   const float* mask;    // kMaskStore: (m, out_h, out_w)
-  const int* row_flag;  // kNegStoreKeepRows: (out_h,)
-  // kProx: out receives the next z; g = acc (+ extra) - corr,
+  // kProx: out receives the next z; g = acc - corr,
   // codes = shrink(z_cur - eta * g, lam * eta), written to old
   const float* z_cur;
   const float* corr;
-  const float* extra;   // or null; kMaskResid: the subtrahend
+  const float* extra;   // kMaskResid: the subtrahend
   float* old;
   const float* eta;
   float lam, beta;
@@ -159,54 +147,35 @@ __device__ __forceinline__ float shrink_value(float x, float t, int mode) {
   }
 }
 
-// Positions of grid z: their count and the fixed row / column.
-__device__ __forceinline__ int line_length(const GemmArgs& p, int line,
-                                           int* ly, int* lx) {
-  switch (p.lines) {
-    case kRow: *ly = p.line_y[line]; *lx = 0; return p.out_w;
-    case kCol: *ly = 0; *lx = p.line_x[line]; return p.out_h;
-    case kPoint:
-      *ly = p.line_y[line / p.lines_q];
-      *lx = p.line_x[line % p.lines_q];
-      return 1;
-    default: *ly = 0; *lx = 0; return p.out_h * p.out_w;
-  }
-}
-
+// Position n of the output, (b, y, x) with n = (b * out_h + y) * out_w
+// + x, or false past the last one.
 __device__ __forceinline__ bool decode_position(const GemmArgs& p,
-                                                long long n, int len, int ly,
-                                                int lx, int* b, int* y,
-                                                int* x) {
+                                                long long n, int len, int* b,
+                                                int* y, int* x) {
   if (n >= static_cast<long long>(p.nb) * len) return false;
   *b = static_cast<int>(n / len);
   const int t = static_cast<int>(n - static_cast<long long>(*b) * len);
-  switch (p.lines) {
-    case kRow: *y = ly; *x = t; break;
-    case kCol: *y = t; *x = lx; break;
-    case kPoint: *y = ly; *x = lx; break;
-    default: *y = t / p.out_w; *x = t - *y * p.out_w; break;
-  }
+  *y = t / p.out_w;
+  *x = t - *y * p.out_w;
   return true;
 }
 
-// The epilogue, one function pair both kernels call.  epilogue_load reads
-// what the epilogue needs at output index idx (mask index midx, output
-// row y); epilogue_store combines it with v = C[m, n] and writes.  A
+// The epilogue, one function pair every kernel calls.  epilogue_load
+// reads what the epilogue needs at output index idx (mask index midx);
+// epilogue_store combines it with v = C[m, n] and writes.  A
 // kernel may load several outputs' inputs before storing any: outputs
 // never share an index.  eta and thresh = lam * eta are read once per
 // block (kProx).
 struct EpiIn {
-  float v0, v1, v2, v3;
+  float v0, v1, v2;
 };
 
 __device__ __forceinline__ EpiIn epilogue_load(const GemmArgs& p,
-                                               long long idx, long long midx,
-                                               int y) {
-  EpiIn in = {0.f, 0.f, 0.f, 0.f};
+                                               long long idx,
+                                               long long midx) {
+  EpiIn in = {0.f, 0.f, 0.f};
   switch (p.epilogue) {
     case kMaskStore: in.v0 = p.mask[midx]; break;
-    case kNegStoreKeepRows: in.v0 = p.row_flag[y] ? p.out[idx] : 0.f; break;
-    case kAdd: in.v0 = p.out[idx]; break;
     case kMaskResid:
       in.v0 = p.mask[midx];
       in.v1 = p.extra[idx];
@@ -215,7 +184,6 @@ __device__ __forceinline__ EpiIn epilogue_load(const GemmArgs& p,
       in.v0 = p.z_cur[idx];
       in.v1 = p.corr[idx];
       in.v2 = p.old[idx];
-      if (p.extra) in.v3 = p.extra[idx];
       break;
     default: break;
   }
@@ -232,13 +200,9 @@ __device__ __forceinline__ void epilogue_store(const GemmArgs& p,
   switch (p.epilogue) {
     case kStore: p.out[idx] = v; break;
     case kMaskStore: p.out[idx] = v * in.v0; break;
-    case kNegStore: p.out[idx] = -v; break;
-    case kNegStoreKeepRows: p.out[idx] = __fsub_rn(in.v0, v); break;
-    case kAdd: p.out[idx] = __fadd_rn(in.v0, v); break;
     case kMaskResid: p.out[idx] = __fsub_rn(__fmul_rn(v, in.v0), in.v1); break;
     default: {
-      float g = p.extra ? __fadd_rn(v, in.v3) : v;
-      g = __fsub_rn(g, in.v1);
+      const float g = __fsub_rn(v, in.v1);
       const float codes =
           shrink_value(__fsub_rn(in.v0, __fmul_rn(eta, g)), thresh, p.shrink);
       const float next =
@@ -290,13 +254,16 @@ __device__ __forceinline__ void conv_stop_decide(const ConvStop& st,
 }
 
 // A kProx STOP launch's end, in every thread of the block: the block's
-// share (its warps' sums in warp order) to its tile's slot, then the last
+// share (its warps' sums in warp order) to slot `slot` of the shares and
+// zeros to the count - 1 slots after it (count 0: no slot), then the last
 // block to arrive sums the slots (thread t the slots t, t + blockDim.x,
 // ... in turn, then its warps in warp order) and decides (or, with
 // st.local, leaves the rank's sum there).  The ticket is reset for the
-// next launch by that block.
-__device__ __forceinline__ void conv_stop_share(const ConvStop& st,
-                                                float delta, float eta) {
+// next launch by that block.  The slots of a launch, one a block, are
+// each written by one block.
+__device__ __forceinline__ void conv_stop_post(const ConvStop& st,
+                                               float delta, float eta,
+                                               long long slot, int count) {
   __shared__ float warp_shares[32];
   __shared__ bool last;
   unsigned* const ticket = reinterpret_cast<unsigned*>(st.words + 1);
@@ -310,8 +277,7 @@ __device__ __forceinline__ void conv_stop_share(const ConvStop& st,
     float share = 0.0f;
     for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w)
       share = __fadd_rn(share, warp_shares[w]);
-    shares[(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] =
-        share;
+    for (int q = 0; q < count; ++q) shares[slot + q] = q ? 0.0f : share;
     // release: the share before the ticket; acquire: the last block sees
     // every share, and passes them on to its threads at the barrier
     cuda::atomic_ref<unsigned, cuda::thread_scope_device> arrivals(*ticket);
@@ -337,6 +303,15 @@ __device__ __forceinline__ void conv_stop_share(const ConvStop& st,
   }
 }
 
+// conv_stop_post of a block of a tiled grid, to its own slot.
+__device__ __forceinline__ void conv_stop_share(const ConvStop& st,
+                                                float delta, float eta) {
+  conv_stop_post(st, delta, eta,
+                 (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+                     blockIdx.x,
+                 1);
+}
+
 // K17 at a world above one: the decision of iteration st.it on the sum
 // over the ranks in *st.local, one thread; nothing once the solve stopped.
 __global__ void conv_stop_decide_kernel(ConvStop st, const float* eta) {
@@ -351,17 +326,15 @@ __global__ void __launch_bounds__(kThreads) gather_gemm(GemmArgs p) {
   __shared__ __align__(16) float as[kBK][kBM + 4];
   __shared__ __align__(16) float bs[kBK][kBN + 4];
   const int tid = threadIdx.x;
-  const int line = blockIdx.z;
   const int m0 = blockIdx.y * kBM;
   const long long n0 = static_cast<long long>(blockIdx.x) * kBN;
-  int ly, lx;
-  const int len = line_length(p, line, &ly, &lx);
-  const float* a = p.a + line * p.a_line_stride;
+  const int len = p.out_h * p.out_w;
+  const float* a = p.a;
 
   // the source position this thread gathers, fixed for the whole K loop
   const int bn = tid % kBN;
   int gb = 0, gy = 0, gx = 0;
-  const bool gvalid = decode_position(p, n0 + bn, len, ly, lx, &gb, &gy, &gx);
+  const bool gvalid = decode_position(p, n0 + bn, len, &gb, &gy, &gx);
   const float* src_b =
       p.src + static_cast<long long>(gb) * p.src_c * p.src_h * p.src_w;
 
@@ -439,7 +412,7 @@ __global__ void __launch_bounds__(kThreads) gather_gemm(GemmArgs p) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     int b, y, x;
-    if (!decode_position(p, n0 + tx * 4 + j, len, ly, lx, &b, &y, &x))
+    if (!decode_position(p, n0 + tx * 4 + j, len, &b, &y, &x))
       continue;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -449,7 +422,7 @@ __global__ void __launch_bounds__(kThreads) gather_gemm(GemmArgs p) {
                                  p.out_w + x;
       const long long idx =
           ((static_cast<long long>(b) * p.m + m) * p.out_h + y) * p.out_w + x;
-      epilogue_store<STOP>(p, idx, acc[i][j], epilogue_load(p, idx, midx, y),
+      epilogue_store<STOP>(p, idx, acc[i][j], epilogue_load(p, idx, midx),
                            eta, thresh, &delta);
     }
   }
@@ -494,7 +467,7 @@ inline size_t tile_smem_bytes(int bn, int k) {
   return ring + table > tile ? ring + table : tile;
 }
 
-// The lines == kAll GEMM: a kBM x BN tile of C per block, each of the
+// The tiled GEMM: a kBM x BN tile of C per block, each of the
 // 128 threads holding 4 * TM rows (TM groups of 4, kBM / TM apart) by 8
 // columns (2 groups of 4, BN / 2 apart).  BN = 128 takes TM = 2, BN = 64
 // TM = 1.
@@ -664,7 +637,7 @@ __global__ void __launch_bounds__(kTileThreads) gather_gemm_tiled(GemmArgs p) {
         if (m < p.m && cvalid[q])
           in[r][q] = epilogue_load(
               p, cbase[q] + static_cast<long long>(m) * len,
-              static_cast<long long>(m) * len + ct[q], ct[q] / p.out_w);
+              static_cast<long long>(m) * len + ct[q]);
     }
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
@@ -719,45 +692,45 @@ inline bool tile_table_fits(const GemmArgs& p) {
          static_cast<long long>(p.src_c) * p.src_h * p.src_w < (1LL << 31);
 }
 
-// Launch one gathered GEMM over `lines` grid z indices of `len`
-// positions each; returns the launch's CUDA error.  Every position at
-// once (kAll) takes the tiled kernel where its offset table fits, 128
-// positions a block where that gives every SM two blocks, else 64;
-// K11's lines and larger K take gather_gemm.  STOP: the kernels' stop
+// Launch one gathered GEMM over every position of p (nb * len); returns
+// the launch's CUDA error.  The tiled kernel takes it where its offset
+// table fits, 128 positions a block where that gives every SM two
+// blocks, else 64; larger K takes gather_gemm.  STOP: the kernels' stop
 // builds with p.stop (see "The early stop").
 template <bool STOP = false>
-cudaError_t launch_gather_gemm(const GemmArgs& p, int lines, int len,
+cudaError_t launch_gather_gemm(const GemmArgs& p, int len,
                                cudaStream_t stream) {
   const long long positions = static_cast<long long>(p.nb) * len;
-  if (p.lines == kAll && tile_table_fits(p)) {
+  if (tile_table_fits(p)) {
     return (positions + 127) / 128 >= 2LL * gemm_sm_count()
                ? launch_tiled<128, 2, STOP>(p, positions, stream)
                : launch_tiled<64, 1, STOP>(p, positions, stream);
   }
   const dim3 grid(static_cast<unsigned>((positions + kBN - 1) / kBN),
-                  static_cast<unsigned>((p.m + kBM - 1) / kBM),
-                  static_cast<unsigned>(lines));
+                  static_cast<unsigned>((p.m + kBM - 1) / kBM), 1);
   gather_gemm<STOP><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-// The 64-bit words of a stop's device array for a kProx product of m
-// rows over `positions` positions: the control words and one share for
-// each tile of the smallest tiles either kernel takes (64 x 64), two to
-// a word.
-inline long long conv_stop_words(int m, long long positions) {
-  const long long tiles =
-      (positions + kBN - 1) / kBN * ((m + kBM - 1) / kBM);
+// The 64-bit words of a stop's device array for a kProx product over
+// `tiles` blocks: the control words and one share a block, two to a word.
+inline long long conv_stop_words_for(long long tiles) {
   return kStopCtlWords + (tiles + 1) / 2;
+}
+
+// The same for a product of m rows over `positions` positions, at the
+// smallest tiles either kernel takes (64 x 64).
+inline long long conv_stop_words(int m, long long positions) {
+  return conv_stop_words_for((positions + kBN - 1) / kBN *
+                             ((m + kBM - 1) / kBM));
 }
 
 // A gathered GEMM with or without its stop build: the stop build where
 // stop is true.
-inline cudaError_t launch_gather_gemm_stop(const GemmArgs& p, int lines,
-                                           int len, bool stop,
-                                           cudaStream_t stream) {
-  return stop ? launch_gather_gemm<true>(p, lines, len, stream)
-              : launch_gather_gemm<false>(p, lines, len, stream);
+inline cudaError_t launch_gather_gemm_stop(const GemmArgs& p, int len,
+                                           bool stop, cudaStream_t stream) {
+  return stop ? launch_gather_gemm<true>(p, len, stream)
+              : launch_gather_gemm<false>(p, len, stream);
 }
 
 // FISTA momentum of iteration with t_k = *t, in float32 as the plain

@@ -30,7 +30,7 @@
 // update's residual and every statistic stay fp32 (conv_gemm.cuh).
 //
 // Contract: gather_gemm_tiled's, C[m, n] = sum_k A[m, k] src[gather(n,
-// k)] over every position (lines == kAll) and K up to kTableMaxK, the
+// k)] over every position and K up to kTableMaxK, the
 // same epilogues (epilogue_load / epilogue_store, through shared memory in
 // tile_epilogue, that kernel's epilogue lines) and the same
 // early stop: the STOP build reads the stop word on entry and its kProx
@@ -149,11 +149,10 @@ __device__ __forceinline__ void gemm_cp_async16(void* smem, const void* gmem) {
 }
 
 // The epilogue of a kBM x BN tile of C staged in shared memory cs (row
-// stride BN + 4), the tile at rows m0 and positions n0 of every position
-// (lines == kAll), in a block of THREADS threads: each warp writes whole
-// rows of C, lane l at columns l + 32 q, in coalesced runs, 4 outputs'
-// inputs loaded before their stores; STOP: the kProx launch's share of the
-// early stop.  These are conv_gemm.cuh's gather_gemm_tiled's epilogue
+// stride BN + 4), the tile at rows m0 and positions n0, in a block of
+// THREADS threads: each warp writes whole rows of C, lane l at columns
+// l + 32 q, in coalesced runs, 4 outputs' inputs loaded before their
+// stores; STOP: the kProx launch's share of the early stop.  These are conv_gemm.cuh's gather_gemm_tiled's epilogue
 // lines, which keep their own copy there: calling this function from that
 // kernel made ptxas spill 8 bytes in its BN = 64 build.
 template <int BN, int THREADS, bool STOP>
@@ -190,7 +189,7 @@ __device__ __forceinline__ void tile_epilogue(const GemmArgs& p,
         if (m < p.m && cvalid[q])
           in[r][q] = epilogue_load(
               p, cbase[q] + static_cast<long long>(m) * len,
-              static_cast<long long>(m) * len + ct[q], ct[q] / p.out_w);
+              static_cast<long long>(m) * len + ct[q]);
     }
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
@@ -397,10 +396,10 @@ __global__ void __launch_bounds__(tier_threads(BN))
   tile_epilogue<BN, kThreadsT, STOP>(p, cs, m0, n0, len, npos);
 }
 
-// Whether the tier kernel takes the product: every position, and the
-// tiled kernel's offset table.
+// Whether the tier kernel takes the product: where the tiled kernel's
+// offset table holds it.
 inline bool tier_gemm_fits(const GemmArgs& p) {
-  return p.lines == kAll && tile_table_fits(p);
+  return tile_table_fits(p);
 }
 
 template <int BN, int TIER, bool STOP>
@@ -516,7 +515,7 @@ inline cudaError_t launch_conv_product(int tier, const GemmArgs& p,
                                        const uint32_t* planes, int len,
                                        bool stop, cudaStream_t stream) {
   if (tier == kTierHighest)
-    return launch_gather_gemm_stop(p, 1, len, stop, stream);
+    return launch_gather_gemm_stop(p, len, stop, stream);
   return launch_gather_gemm_tier_stop(tier, p, planes, stop, stream);
 }
 

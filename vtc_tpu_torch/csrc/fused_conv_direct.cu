@@ -102,7 +102,6 @@ int vtc_conv_direct(const float* dstk, const float* dall, const float* mblk,
   synth.nb = b;
   synth.out_h = bh;
   synth.out_w = bw;
-  synth.lines = kAll;
   synth.epilogue = kMaskStore;
   synth.out = img;
   synth.mask = mblk;
@@ -119,7 +118,6 @@ int vtc_conv_direct(const float* dstk, const float* dall, const float* mblk,
   anal.nb = b;
   anal.out_h = code_h;
   anal.out_w = code_w;
-  anal.lines = kAll;
 
   // at a tier, the weights' planes, once per solve
   const ConvTierWeights planes(tier, tier_scratch, s, cpx, r);

@@ -442,7 +442,6 @@ cudaError_t conv_step_setup(ConvStep* st, const float* dstk, float* v,
   t.synth.nb = b;
   t.synth.out_h = bh;
   t.synth.out_w = bw;
-  t.synth.lines = kAll;
   t.synth.epilogue = kMaskStore;
   t.synth.out = img;
   t.synth.mask = mblk;
@@ -463,7 +462,6 @@ cudaError_t conv_step_setup(ConvStep* st, const float* dstk, float* v,
   t.anal.nb = b;
   t.anal.out_h = code_h;
   t.anal.out_w = code_w;
-  t.anal.lines = kAll;
   t.anal.src = img;
   t.anal.epilogue = kProx;
   t.anal.out = z;
@@ -591,7 +589,7 @@ cudaError_t shard_stats(const ConvStep& st, const float* xs, const float* mblk,
   } else {
     GemmArgs resid = st.resid;
     resid.extra = xs;
-    VTC_CHECK(launch_gather_gemm(resid, 1, st.blocks, stream));
+    VTC_CHECK(launch_gather_gemm(resid, st.blocks, stream));
     VTC_CHECK(block_gradient(st, img, out, 1.0f, stream));
   }
   VTC_CHECK(cudaGetLastError());
@@ -664,7 +662,7 @@ int vtc_conv_train_segment(float* dstk, float* h, float* v, const float* xblk,
     }
     resid.extra = xs;
     for (int u = 0; u < upd_num_iters; ++u) {
-      err = launch_gather_gemm(resid, 1, st.blocks, stream);
+      err = launch_gather_gemm(resid, st.blocks, stream);
       if (err == cudaSuccess)
         err = block_gradient(st, img, grad, static_cast<float>(b), stream);
       if (err == cudaSuccess) {

@@ -187,11 +187,12 @@ def load_library():
   lib.vtc_conv_tier_words.restype = ctypes.c_int64
   lib.vtc_conv_tier_max_k.argtypes = []
   lib.vtc_conv_tier_max_k.restype = i32
-  lib.vtc_conv_fista.argtypes = [
-      ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, f32, i32, i32,
-      i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr] + conv_stop + [
-          ptr]
+  lib.vtc_conv_fista.argtypes = (
+      [ptr] * 9 + [i32] * 5 + [ptr, ptr, f32] + [i32] * 9 + [ptr] * 3
+      + conv_stop + [ptr])
   lib.vtc_conv_fista.restype = i32
+  lib.vtc_conv_gram_stop_words.argtypes = [i32, ctypes.c_int64]
+  lib.vtc_conv_gram_stop_words.restype = ctypes.c_int64
   lib.vtc_conv_train_chunk.argtypes = []
   lib.vtc_conv_train_chunk.restype = i32
   lib.vtc_conv_train_segment.argtypes = (

@@ -71,14 +71,11 @@ def build_dict_gradient_stats(images_padded, codes, kernel_shape,
     (lead_v, trail_v), (lead_h, trail_h) = (0, 0), (0, 0)
   else:
     (lead_v, trail_v), (lead_h, trail_h) = padding
-  spec_py, mrow = _special_positions(code_h, sv, kh, lead_v, trail_v,
-                                     height)
-  spec_px, mcol = _special_positions(code_w, sh_, kw, lead_h, trail_h,
-                                     width)
   dtype, device = codes.dtype, codes.device
-
-  def tensor(a):
-    return torch.as_tensor(np.stack(a), dtype=dtype, device=device)
+  spec_py, mrow = _special_positions(code_h, sv, kh, lead_v, trail_v,
+                                     height, dtype, device)
+  spec_px, mcol = _special_positions(code_w, sh_, kw, lead_h, trail_h,
+                                     width, dtype, device)
 
   with matmul_precision():
     shifted = _shifted_stack(codes, ry, rx)
@@ -87,18 +84,18 @@ def build_dict_gradient_stats(images_padded, codes, kernel_shape,
     if spec_py:
       c_rows = torch.einsum("bipq,objpq->poij", codes[:, :, spec_py, :],
                             shifted[:, :, :, spec_py, :]) / b
-      cw_rows = torch.einsum("pr,poij->orij", tensor(mrow), c_rows)
+      cw_rows = torch.einsum("pr,poij->orij", torch.stack(mrow), c_rows)
     if spec_px:
       c_cols = torch.einsum("bipq,objpq->qoij", codes[:, :, :, spec_px],
                             shifted[:, :, :, :, spec_px]) / b
-      cw_cols = torch.einsum("qw,qoij->owij", tensor(mcol), c_cols)
+      cw_cols = torch.einsum("qw,qoij->owij", torch.stack(mcol), c_cols)
     if spec_py and spec_px:
       py = torch.as_tensor(spec_py, device=device)[:, None]
       px = torch.as_tensor(spec_px, device=device)[None, :]
       c_corners = torch.einsum("bipq,objpq->pqoij", codes[:, :, py, px],
                                shifted[:, :, :, py, px]) / b
-      cw_corners = torch.einsum("pr,qw,pqoij->orwij", tensor(mrow),
-                                tensor(mcol), c_corners)
+      cw_corners = torch.einsum("pr,qw,pqoij->orwij", torch.stack(mrow),
+                                torch.stack(mcol), c_corners)
     # the image term: unfold(mask * X) once and one product
     masked = images_padded
     if padding is not None:

@@ -14,7 +14,6 @@ code rows and columns whose tiles touch the masked border.  The K11
 kernel (ops/fused_conv_fista.py) runs this operator; ``apply_gram`` is
 its plain PyTorch version and the 'gram' formulation's.
 """
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -27,20 +26,19 @@ def _overlap_range(k, shift):
   return max(0, shift), min(k, k + shift)
 
 
-def _special_positions(num_positions, stride, kernel, lead, trail, size):
-  """Code positions whose tiles touch the masked border, with the
-  in-tile masked-pixel indicator of each."""
-  specials, masks = [], []
-  for p in range(num_positions):
-    start = p * stride
-    m = np.zeros(kernel, np.float32)
-    for r in range(kernel):
-      pix = start + r
-      if pix < lead or pix >= size - trail:
-        m[r] = 1.0
-    if m.any():
-      specials.append(p)
-      masks.append(m)
+def _special_positions(num_positions, stride, kernel, lead, trail, size,
+                       dtype, device):
+  """Code positions whose tiles touch the masked border (a first pixel
+  before ``lead`` or a last one at or past ``size - trail``), with the
+  in-tile masked-pixel indicator of each, (kernel,) of ``dtype`` made on
+  ``device``: a copy from the host would wait for the device's queued
+  work."""
+  specials = [p for p in range(num_positions)
+              if p * stride < lead or p * stride + kernel > size - trail]
+  masks = []
+  for p in specials:
+    pix = torch.arange(p * stride, p * stride + kernel, device=device)
+    masks.append(((pix < lead) | (pix >= size - trail)).to(dtype))
   return specials, masks
 
 
@@ -69,46 +67,53 @@ def build_gram_operator(dictionary, kernel_stride, padding, padded_hw,
     (lead_v, trail_v), (lead_h, trail_h) = (0, 0), (0, 0)
   else:
     (lead_v, trail_v), (lead_h, trail_h) = padding
-  spec_py, mrow = _special_positions(code_h, sv, kh, lead_v, trail_v,
-                                     height)
-  spec_px, mcol = _special_positions(code_w, sh_, kw, lead_h, trail_h,
-                                     width)
   dtype, device = dictionary.dtype, dictionary.device
+  spec_py, mrow = _special_positions(code_h, sv, kh, lead_v, trail_v,
+                                     height, dtype, device)
+  spec_px, mcol = _special_positions(code_w, sh_, kw, lead_h, trail_h,
+                                     width, dtype, device)
 
-  def weights(m):
-    return torch.as_tensor(m, dtype=dtype, device=device)
+  # each offset's overlapping kernel slices, the right-hand side
+  # reshaped once for the 1 + P + Q + P*Q matrices that share it
+  parts = []
+  for dy in range(-ry, ry + 1):
+    r0, r1 = _overlap_range(kh, dy * sv)
+    for dx in range(-rx, rx + 1):
+      c0, c1 = _overlap_range(kw, dx * sh_)
+      if r0 >= r1 or c0 >= c1:
+        parts.append(None)
+        continue
+      b = dictionary[:, :, r0 - dy * sv:r1 - dy * sv,
+                     c0 - dx * sh_:c1 - dx * sh_]
+      parts.append((r0, r1, c0, c1, dictionary[:, :, r0:r1, c0:c1],
+                    b.reshape(s, -1).T))
 
   def gram(weight_rows, weight_cols):
     """(O, s, s): Result[o][i, j] = sum_{r,c,ch} w_r[r] w_c[c]
     D[i,ch,r,c] D[j,ch,r - dy*sv, c - dx*sh]."""
     mats = []
-    for dy in range(-ry, ry + 1):
-      r0, r1 = _overlap_range(kh, dy * sv)
-      for dx in range(-rx, rx + 1):
-        c0, c1 = _overlap_range(kw, dx * sh_)
-        if r0 >= r1 or c0 >= c1:
-          mats.append(torch.zeros((s, s), dtype=dtype, device=device))
-          continue
-        a = dictionary[:, :, r0:r1, c0:c1]
-        if weight_rows is not None:
-          a = a * weight_rows[r0:r1][None, None, :, None]
-        if weight_cols is not None:
-          a = a * weight_cols[c0:c1][None, None, None, :]
-        b = dictionary[:, :, r0 - dy * sv:r1 - dy * sv,
-                       c0 - dx * sh_:c1 - dx * sh_]
-        mats.append(a.reshape(s, -1) @ b.reshape(s, -1).T)
+    for part in parts:
+      if part is None:
+        mats.append(torch.zeros((s, s), dtype=dtype, device=device))
+        continue
+      r0, r1, c0, c1, a, bt = part
+      if weight_rows is not None:
+        a = a * weight_rows[r0:r1][None, None, :, None]
+      if weight_cols is not None:
+        a = a * weight_cols[c0:c1][None, None, None, :]
+      mats.append(a.reshape(s, -1) @ bt)
     return torch.stack(mats)
 
   with matmul_precision(precision):
     g_int = gram(None, None)
     empty = torch.zeros((0,) + tuple(g_int.shape), dtype=dtype,
                         device=device)
-    g_rows = (torch.stack([gram(weights(m), None) for m in mrow])
+    g_rows = (torch.stack([gram(m, None) for m in mrow])
               if spec_py else empty)
-    g_cols = (torch.stack([gram(None, weights(m)) for m in mcol])
+    g_cols = (torch.stack([gram(None, m) for m in mcol])
               if spec_px else empty)
     g_corners = (torch.stack([
-        torch.stack([gram(weights(mr), weights(mc)) for mc in mcol])
+        torch.stack([gram(mr, mc) for mc in mcol])
         for mr in mrow]) if spec_py and spec_px else
                  empty.reshape((0, 0) + tuple(g_int.shape)))
   return {"g_int": g_int, "g_rows": g_rows, "g_cols": g_cols,

@@ -520,15 +520,17 @@ def fused_conv_direct_solve(images, dictionary, sparsity_weight, num_iters,
                  eps=early_stopping_epsilon, mxu=mxu)
 
 
-def stop_scratch(lib, s, positions, eps, device, steps=1):
+def stop_scratch(lib, s, positions, eps, device, steps=1, words=None):
   """The conv C entries' early-stop arguments for ``steps`` solves in a
   row of s codes at ``positions`` code positions (b * code_h * code_w):
-  (eps, the zeroed words of ``vtc_conv_stop_words``, the counts (steps,)
-  int32).  eps None is the build without the stop: (-1.0, None, None).
-  A negative or NaN eps never stops, as in the plain loop."""
+  (eps, the zeroed words of ``vtc_conv_stop_words``, or ``words`` of
+  them where given, the counts (steps,) int32).  eps None is the build
+  without the stop: (-1.0, None, None).  A negative or NaN eps never
+  stops, as in the plain loop."""
   if eps is None:
     return -1.0, None, None
-  words = lib.vtc_conv_stop_words(s, positions)
+  if words is None:
+    words = lib.vtc_conv_stop_words(s, positions)
   return (float(eps), torch.zeros(words, dtype=torch.int64, device=device),
           torch.zeros(steps, dtype=torch.int32, device=device))
 
