@@ -728,6 +728,34 @@ check here.
    'pallas') over one batch of 8 (1 K11 launch, no K10: K10's gate turns
    s > 512 away), finite and within the limit of plain; the plan's tiles
    a class and work items at the flagship and at (b) and (c).
+52. The tier routes of the fc/subspace solve (csrc/fista_tier.cuh's
+   fista_tier_cluster_kernel: -eta G's bf16 planes resident in shared
+   memory, z's terms pushed over distributed shared memory, one cluster
+   barrier an iteration, the stop's warp in the same launch; the tier
+   cluster route at the trainers' b 250 and the shards' b 125, the tier
+   wide route at the encodes' b 2048): (a) at each caller's batch and
+   tier, K1's eight variants and shrinks and K4's four at M 1, 2 and 4,
+   the route against fista_tier_kernel forced ('tier') on the same inputs,
+   bitwise, without the stop and with it at eps for a stop at k = 1,
+   mid-run and never (the same count and codes); a warm start, and ragged
+   s 48 and 96 at b 37 and 1500; (b) planted: the route's codes at each
+   tier against fista_tier_kernel's at every other tier must differ; (c)
+   the main path's routes, counted by the library's route counts in
+   phases 46 and 47's main paths (zeroed before each tier's runs): 16 K1
+   and 16 K4 encode solves on the tier wide route, 1,000 K2, K6, K15 and
+   K16 steps (and 20 K3 and K7 'dcn' steps) on the tier cluster route,
+   none on fista_tier_kernel; (d) in TIER_ROUTE_TURNS turns, K1 and K4 at
+   each caller's batch: the route, fista_tier_kernel forced and 'highest'
+   (medians), the library time (the passes as products of bf16 operands)
+   and the bound; the stop at b 250 in one launch against
+   fista_tier_kernel's one an iteration.  Also the library times of the
+   'highest' fc, subspace and ICA step rows (a step's products as fp32
+   torch.matmul, median of 7 turns).
+53. The plain train segments' norm floors (ROADMAP.md §3.1): K2, K6, K15
+   and K16 with a zero dictionary row, K12 and K17 on blank batches and
+   with a zero kernel, each CUDA kernel against its plain version: every
+   output finite and within phase 2's limit, the zero row or kernel still
+   zero.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -833,6 +861,10 @@ CUDA_TESTS = {
     "test_cuda_ica_tiers_match_plain_on_both_routes": (49,),
     "test_torch_port_code_shard_tiers.py::"
     "test_cuda_k19_tiers_match_plain_on_both_routes": (50,),
+    "test_torch_port_fista_tier_layout.py::"
+    "test_cuda_tier_routes_match_fista_tier_kernel_bitwise": (52,),
+    "test_torch_port_fista_tier_layout.py::"
+    "test_cuda_trainers_launch_the_tier_routes": (46, 47, 52),
 }
 
 
@@ -5404,7 +5436,7 @@ def tier_one_iteration(torch, K1, K4, K2, K6, sub, lipschitz, patches,
          rag_eta, rag_z, "K1 13x37 ista nonneg-hard")):
       got = K1.fused_fista_solve(xx, dd, LAM, 1, ee, initial_codes=zz,
                                  mxu=tier, **kw)
-      check(K1.last_route == "tier", "K1 at %s took route %s" % (
+      check(K1.last_route in K1.TIER_ROUTES, "K1 at %s took route %s" % (
           tier, K1.last_route))
       held("%s %s" % (name, tier), got, K1.fused_fista_plain(
           xx, dd, LAM, 1, ee, initial_codes=zz, mxu=tier, **kw))
@@ -5415,7 +5447,7 @@ def tier_one_iteration(torch, K1, K4, K2, K6, sub, lipschitz, patches,
       got = K4.fused_group_fista_solve(xx, dg, m, LAM, 1, ee,
                                        initial_grouped=zz.contiguous(),
                                        hard=hard, mxu=tier)
-      check(K4.last_route == "tier", "K4 at %s took route %s" % (
+      check(K4.last_route in K1.TIER_ROUTES, "K4 at %s took route %s" % (
           tier, K4.last_route))
       held("%s %s" % (name, tier), got, K4.fused_group_fista_plain(
           xx, dg, m, LAM, 1, ee, initial_grouped=zz.contiguous(), hard=hard,
@@ -5587,7 +5619,7 @@ def tier_stop_cases(torch, K1, K4, K2, K6, solver, lipschitz, patches,
         got = run(TRAIN_ITERS, tier, eps)
         it = count()
         route = getattr(mod, "last_route", "tier")
-        check(route == "tier", "%s %s with the stop took %s" % (
+        check(route in K1.TIER_ROUTES, "%s %s with the stop took %s" % (
             label, tier, route))
         again = run(TRAIN_ITERS, tier, eps)
         it2 = count()
@@ -5675,12 +5707,15 @@ def tier_main_path(torch, K1, K4, K2, K6, compiled_epoch, encode_dataset,
   at each tier, every tier count zeroed before each tier's runs and read
   after; the trainers' quality, bf16x3's held-out loss against phases 6
   and 11's 'highest' runs.  Returns ({(module, tier): tier launches},
-  {('fc' or 'subspace', tier): patches/s})."""
+  {('fc' or 'subspace', tier): patches/s}, {('fc' or 'subspace', tier):
+  the solves by route, fused_fista.route_launches}), the route counts
+  zeroed with the tier counts."""
   mods = (K1, K4, K2, K6)
-  rates, trained, counts = {}, {}, {}
+  rates, trained, counts, routes = {}, {}, {}, {}
   for tier in TIER_NAMES:
     for mod in mods:
       mod.tier_launches = 0
+    K1.reset_route_launches()
     for kind, groups in (("fc", None), ("subspace", data["groups"])):
       t0 = time.perf_counter()
       codes = encode_dataset(data["patches"], data["dictionary"], LAM, ITERS,
@@ -5698,6 +5733,8 @@ def tier_main_path(torch, K1, K4, K2, K6, compiled_epoch, encode_dataset,
     torch.cuda.synchronize()
     for mod in mods:
       counts[mod, tier] = mod.tier_launches
+    routes["fc", tier] = K1.route_launches()
+    routes["subspace", tier] = K4.route_launches()
     print("tier main path %s: tier launches K1 %d, K4 %d, K2 %d, K6 %d" % (
         tier, *(counts[m, tier] for m in mods)))
     check(counts[K1, tier] == counts[K4, tier] == NUM_BATCHES,
@@ -5733,7 +5770,7 @@ def tier_main_path(torch, K1, K4, K2, K6, compiled_epoch, encode_dataset,
       check(abs(loss - ref) <= TIER_TRAIN_TOL * ref,
             "tier trainer %s bf16x3: held-out loss %.6f, 'highest' %.6f" % (
                 kind, loss, ref))
-  return counts, rates
+  return counts, rates, routes
 
 
 def mm_f32_out(torch):
@@ -5930,9 +5967,10 @@ def tier_phase(torch, dev, card, patches, train_patches, data):
                        lipschitz.fista_stepsize(data["dictionary"]))
   check(K1.last_route == "wide", "a 'highest' flagship solve took the %s "
         "route" % K1.last_route)
-  counts, rates = tier_main_path(torch, K1, K4, K2, K6, compiled_epoch,
-                                 encode_dataset, ista_fista, sub,
-                                 sparse_coding, data)
+  counts, rates, routes = tier_main_path(torch, K1, K4, K2, K6,
+                                         compiled_epoch, encode_dataset,
+                                         ista_fista, sub, sparse_coding,
+                                         data)
   stop_counts, stop_its = tier_stop_main_path(
       torch, K1, K4, K2, K6, compiled_epoch, ista_fista, sub, solver,
       lipschitz, data)
@@ -5951,7 +5989,8 @@ def tier_phase(torch, dev, card, patches, train_patches, data):
       card)
   print("phase 46: %.1f s" % (time.perf_counter() - t0))
   return dict(one_err=one_err, full_errs=full_errs, counts=counts,
-              times=times, highest=highest, mods=(K1, K4, K2, K6),
+              routes=routes, times=times, highest=highest,
+              mods=(K1, K4, K2, K6),
               planted=planted, stops=stops, stop_counts=stop_counts,
               stop_its=stop_its, stop_times=stop_times)
 
@@ -6354,7 +6393,8 @@ def dp_tier_main_path(torch, mods, compiled_epoch, parallel, encode_dataset,
   encode_dataset(data_parallel=True) of phases 3 and 9 (16 K1 and 16 K4
   tier launches).  Every dictionary finite and unit norm within 1e-4, its
   held-out loss falling, and at bf16x3 within 10% of phases 6 and 11's
-  'highest' runs.  Returns {(module, tier): tier launches}."""
+  'highest' runs.  Returns ({(module, tier): tier launches}, {('fc' or
+  'subspace', tier): the solves by route, fused_fista.route_launches})."""
   K1, K4, K3, K7, K15, K16 = mods
   counters = ((K1, "tier_launches"), (K4, "tier_launches"),
               (K3, "stats_tier_launches"), (K7, "stats_tier_launches"),
@@ -6362,9 +6402,11 @@ def dp_tier_main_path(torch, mods, compiled_epoch, parallel, encode_dataset,
   counts, trained = {}, {}
   want = {K1: NUM_BATCHES, K4: NUM_BATCHES, K3: DP_TIER_DCN_STEPS,
           K7: DP_TIER_DCN_STEPS, K15: TRAIN_STEPS, K16: TRAIN_STEPS}
+  routes = {}
   for tier in TIER_NAMES:
     for mod, counter in counters:
       setattr(mod, counter, 0)
+    K1.reset_route_launches()
     for groups in (None, data["groups"]):
       codes = encode_dataset(data["patches"], data["dictionary"], LAM, ITERS,
                              batch_size=BATCH, chunk_batches=4,
@@ -6390,6 +6432,8 @@ def dp_tier_main_path(torch, mods, compiled_epoch, parallel, encode_dataset,
     torch.cuda.synchronize()
     for mod, counter in counters:
       counts[mod, tier] = getattr(mod, counter)
+    routes["fc", tier] = K1.route_launches()
+    routes["subspace", tier] = K4.route_launches()
     print("tier data-parallel main path %s: tier launches K1 %d, K4 %d, K3 "
           "%d, K7 %d, K15 %d, K16 %d" % (
               tier, *(counts[m, tier] for m, _ in counters)))
@@ -6421,7 +6465,7 @@ def dp_tier_main_path(torch, mods, compiled_epoch, parallel, encode_dataset,
       check(abs(loss - ref) <= TIER_TRAIN_TOL * ref,
             "tier data-parallel trainer %s bf16x3: held-out loss %.6f, "
             "'highest' %.6f" % (kind, loss, ref))
-  return counts
+  return counts, routes
 
 
 def dp_tier_timing(torch, families, inputs, card):
@@ -6493,14 +6537,14 @@ def dp_tier_phase(torch, dev, card, train_patches, gtrain, data):
         "(reported apart): %s" % (stop_cases, near or "none"))
   world2, world2_s = dp_tier_world_of_two(torch, compiled_epoch, parallel,
                                           mesh1, families, inputs)
-  counts = dp_tier_main_path(torch, (K1, K4, K3, K7, K15, K16),
-                             compiled_epoch, parallel, encode_dataset,
-                             ista_fista, sub, sparse_coding, mesh1, data)
+  counts, routes = dp_tier_main_path(
+      torch, (K1, K4, K3, K7, K15, K16), compiled_epoch, parallel,
+      encode_dataset, ista_fista, sub, sparse_coding, mesh1, data)
   times = dp_tier_timing(torch, families, inputs, card)
   print("phase 47: %.1f s (its ranks %.1f s)" % (time.perf_counter() - t0,
                                                  world2_s))
   return dict(errs=errs, planted=planted, stops=stops, counts=counts,
-              times=times, world2=world2,
+              routes=routes, times=times, world2=world2,
               mods=dict(K3=K3, K7=K7, K15=K15, K16=K16))
 
 
@@ -8367,6 +8411,434 @@ def gram_tiles_phase(torch, dev, card, K10, K11, conv_ops, lipschitz,
   return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 52: the tier routes of the fc/subspace solve (csrc/fista_tier.cuh's
+# fista_tier_cluster_kernel on the tier cluster and tier wide routes)
+# ---------------------------------------------------------------------------
+# the callers' batches: the encodes' b 2048 (FISTA 100), the trainers' b 250
+# and the shards' b 125 (FISTA 25)
+TIER_ROUTE_BATCHES = ((BATCH, ITERS), (TRAIN_BATCH, TRAIN_ITERS),
+                      (TRAIN_BATCH // 2, TRAIN_ITERS))
+TIER_ROUTE_TURNS = 7      # turns of each timing (median)
+TIER_ROUTE_SHAPES = ((48, 1), (96, 4))  # ragged: s a multiple of 16 only
+TIER_ONE_BUFFER_BATCH = 1100  # bf16x5 in one wave with one z buffer
+
+
+def tier_route_families(K1, K4):
+  """{label: (module, launch(gram, corr, init, eta, iters, route, eps,
+  mxu), M)}: K1's eight variants and shrinks, K4's four at M 1, 2, 4."""
+  fams = {}
+  for fista in (True, False):
+    for mode, shrink in enumerate(("soft", "nonneg-soft", "hard",
+                                   "nonneg-hard")):
+      fams["K1 %s %s" % ("fista" if fista else "ista", shrink)] = (
+          K1, lambda g, c, z, e, it, route, eps, mxu, f=fista, m=mode: (
+              K1._launch(g, c, z, e, LAM, it, f, m, route=route, eps=eps,
+                         mxu=mxu)), 1)
+  for m in (1, 2, 4):
+    for fista in (True, False):
+      for hard in (False, True):
+        fams["K4 M%d %s %s" % (m, "fista" if fista else "ista",
+                               "hard" if hard else "soft")] = (
+            K4, lambda g, c, z, e, it, route, eps, mxu, m=m, f=fista,
+            h=hard: K4._launch(g, c, z, e, LAM, it, m, f, h, route=route,
+                               eps=eps, mxu=mxu), m)
+  return fams
+
+
+def tier_route_bitwise(torch, K1, K4, solver, lipschitz, patches, dev):
+  """(a) At each caller's batch and tier, every K1 variant and shrink and
+  every K4 variant at M 1, 2 and 4: the route 'auto' takes (tier_wide at b
+  2048, tier_cluster at b 250 and 125) gives bitwise fista_tier_kernel's
+  codes (route 'tier' forced), without the stop and with it at eps for a
+  stop at k = 1, mid-run (from the plain version's means of the family's
+  FISTA soft case) and never: the same count and codes.  One z buffer
+  (bf16x5 at b 1100, with the stop), a warm start at b 250 and the ragged
+  shapes (s 48 and 96, padded columns) too.  (b) The
+  planted: the route's codes at each tier against fista_tier_kernel's at
+  every other tier must differ.  Returns (cases, stop cases, planted)."""
+  rng = np.random.RandomState(52)
+  d = torch.tensor(unit_rows(rng, 256, 256), device=dev)
+  x = torch.tensor(patches[:BATCH], device=dev)
+  eta = lipschitz.fista_stepsize(d)
+  gram, corr = (d @ d.T).contiguous(), (x @ d.T).contiguous()
+  fams = tier_route_families(K1, K4)
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  cases = stops = planted = 0
+  outs = {}  # (b, tier): ({label: the route's codes}, {label: forced})
+  for b, iters in TIER_ROUTE_BATCHES:
+    c = corr[:b].contiguous()
+    want_route = K1.tier_route(b, 256, 1, "bf16", lib.vtc_fista_sm_count())
+    eps_for = {}
+    for tier in TIER_NAMES:
+      for kind, m in (("K1", 1), ("K4", 1), ("K4", 2), ("K4", 4)):
+        if kind == "K1":
+          K1.fused_fista_plain(x[:b], d, LAM, iters, eta,
+                               early_stopping_epsilon=0.0, mxu=tier)
+        else:
+          K4.fused_group_fista_plain(x[:b], d, m, LAM, iters, eta,
+                                     early_stopping_epsilon=0.0, mxu=tier)
+        avgs = list(solver.last_avgs)
+        eps_for[kind, m, tier] = {w: stop_eps(avgs, w)
+                                  for w in ("early", "mid", "never")}
+    for tier in TIER_NAMES:
+      new_outs, old_outs = {}, {}
+      for label, (mod, launch, m) in fams.items():
+        kind = "K1" if mod is K1 else "K4"
+        got = launch(gram, c, None, eta, iters, "auto", None, tier)
+        route = mod.last_route
+        check(route == want_route, "%s b %d %s took %s, not %s" % (
+            label, b, tier, route, want_route))
+        ref = launch(gram, c, None, eta, iters, "tier", None, tier)
+        check(mod.last_route == "tier", "forced 'tier' took %s"
+              % mod.last_route)
+        check(torch.equal(got, ref), "%s b %d %s: %s differs from "
+              "fista_tier_kernel at %d of %d codes" % (
+                  label, b, tier, route, int((got != ref).sum()),
+                  got.numel()))
+        check(bool(torch.isfinite(got).all()) and bool((got != 0).any()),
+              "%s b %d %s: codes not finite or all zero" % (label, b, tier))
+        cases += 1
+        if label in ("K1 fista soft", "K4 M4 fista soft"):
+          new_outs[label], old_outs[label] = got, ref
+        plan = K1.device_tier_plan(lib, b, 256, m, tier, stop=True)
+        for which, eps in eps_for[kind, m, tier].items():
+          got = launch(gram, c, None, eta, iters, "auto", eps, tier)
+          it_new, route = int(mod.last_iters.item()), mod.last_route
+          check(route == plan[0], "%s b %d %s stop took %s, not %s" % (
+              label, b, tier, route, plan[0]))
+          ref = launch(gram, c, None, eta, iters, "tier", eps, tier)
+          it_old = int(mod.last_iters.item())
+          check(it_new == it_old and torch.equal(got, ref),
+                "%s b %d %s stop %s (eps %.4g) on %s: %d it against "
+                "fista_tier_kernel's %d, %d of %d codes differ" % (
+                    label, b, tier, which, eps, route, it_new, it_old,
+                    int((got != ref).sum()), got.numel()))
+          stops += 1
+      outs[b, tier] = (new_outs, old_outs)
+    print("tier route b %d: %d cases a tier on %s bitwise fista_tier_kernel,"
+          " with the stop at k = 1, mid-run and never on %s" % (
+              b, len(fams), want_route, ", ".join(
+                  "%s %s" % (t, K1.device_tier_plan(lib, b, 256, 1, t,
+                                                    stop=True)[0])
+                  for t in TIER_NAMES)))
+    for tier in TIER_NAMES:
+      for wrong in TIER_NAMES:
+        if wrong == tier:
+          continue
+        for label, got in outs[b, tier][0].items():
+          check(not torch.equal(got, outs[b, wrong][1][label]),
+                "planted: %s b %d at %s equals fista_tier_kernel at %s" % (
+                    label, b, tier, wrong))
+          planted += 1
+  # one z buffer (a second cluster barrier an iteration, in the stop warp's
+  # loop too): bf16x5 at b 1100 takes it in one wave of clusters of 4
+  b = TIER_ONE_BUFFER_BATCH
+  c = corr[:b].contiguous()
+  plan = K1.device_tier_plan(lib, b, 256, 1, "bf16x5", stop=True)
+  check(plan[3] == 1 and plan[0] == "tier_wide", "bf16x5 at b %d: plan %s, "
+        "not the wide route with one z buffer" % (b, plan))
+  for label in ("K1 fista soft", "K1 ista nonneg-hard", "K4 M4 fista soft",
+                "K4 M1 ista hard"):
+    mod, launch, m = fams[label]
+    kind = "K1" if mod is K1 else "K4"
+    for eps in (None,) + tuple(eps_for[kind, m, "bf16x5"].values()):
+      got = launch(gram, c, None, eta, TRAIN_ITERS, "auto", eps, "bf16x5")
+      it_new = int(mod.last_iters.item()) if eps is not None else 0
+      check(mod.last_route == "tier_wide", "%s b %d took %s" % (
+          label, b, mod.last_route))
+      ref = launch(gram, c, None, eta, TRAIN_ITERS, "tier", eps, "bf16x5")
+      it_old = int(mod.last_iters.item()) if eps is not None else 0
+      check(it_new == it_old and torch.equal(got, ref), "%s b %d bf16x5 "
+            "(one z buffer, eps %s): %d it against %d, %d codes differ" % (
+                label, b, eps, it_new, it_old, int((got != ref).sum())))
+      cases += 1
+  print("tier route b %d bf16x5: one z buffer (plan %s), bitwise "
+        "fista_tier_kernel with and without the stop" % (b, plan))
+  # a warm start, and the ragged shapes (s a multiple of 16, padded columns)
+  z0 = torch.tensor((rng.randn(TRAIN_BATCH, 256) * 0.05).astype(np.float32),
+                    device=dev)
+  for tier in TIER_NAMES:
+    for label in ("K1 fista soft", "K4 M4 fista soft"):
+      mod, launch, _ = fams[label]
+      got = launch(gram, corr[:TRAIN_BATCH].contiguous(), z0, eta,
+                   TRAIN_ITERS, "auto", None, tier)
+      check(mod.last_route == "tier_cluster", "warm start took %s"
+            % mod.last_route)
+      ref = launch(gram, corr[:TRAIN_BATCH].contiguous(), z0, eta,
+                   TRAIN_ITERS, "tier", None, tier)
+      check(torch.equal(got, ref), "%s warm start %s differs" % (label,
+                                                                 tier))
+      cases += 1
+    for s, m in TIER_ROUTE_SHAPES:
+      dr = torch.tensor(unit_rows(rng, s, 256), device=dev)
+      er = lipschitz.fista_stepsize(dr)
+      gr = (dr @ dr.T).contiguous()
+      for b in (37, 1500):
+        cr = (x[:b] @ dr.T).contiguous()
+        for mod, run in (
+            (K1, lambda route, eps=None: K1._launch(
+                gr, cr, None, er, LAM, TRAIN_ITERS, True, 0, route=route,
+                eps=eps, mxu=tier)),
+            (K4, lambda route, eps=None: K4._launch(
+                gr, cr, None, er, LAM, TRAIN_ITERS, m, True, False,
+                route=route, eps=eps, mxu=tier))):
+          for eps in (None, 0.0):
+            got = run("auto", eps)
+            route = mod.last_route
+            check(route in ("tier_cluster", "tier_wide"), "ragged s %d b %d"
+                  " took %s" % (s, b, route))
+            it_new = int(mod.last_iters.item()) if eps is not None else 0
+            ref = run("tier", eps)
+            it_old = int(mod.last_iters.item()) if eps is not None else 0
+            check(it_new == it_old and torch.equal(got, ref),
+                  "ragged s %d b %d M %d %s %s: differs from "
+                  "fista_tier_kernel" % (s, b, m, tier, route))
+            cases += 1
+  print("tier route: %d cases and %d stop cases bitwise fista_tier_kernel; "
+        "%d planted wrong-tier results all differ" % (cases, stops, planted))
+  return cases, stops, planted
+
+
+
+def tier_route_timing(torch, K1, K4, solver, lipschitz, patches, dev, card):
+  """(d) In TIER_ROUTE_TURNS turns of (the route 'auto' takes,
+  fista_tier_kernel forced, 'highest'), TIER_REPS calls each: K1 and K4 (M
+  4) at each caller's batch, the median of each; the library time (the
+  solve's passes as products of bf16 operands, library_turns); the bound
+  (tier_solve_bound); K1 and K4 at b 250 and 125 are the solves inside
+  K2 and K6, K3 and K7 (their steps on the route are phases 46 and 47's
+  timings).  Then the stop at b 250 with a mid-run eps: the route's one
+  launch against fista_tier_kernel's one an iteration.  Returns {(row,
+  tier): dict(ms, old_ms, highest_ms, library_ms, bound, route)}."""
+  rng = np.random.RandomState(53)
+  d = torch.tensor(unit_rows(rng, 256, 256), device=dev)
+  x = torch.tensor(patches[:BATCH], device=dev)
+  eta = lipschitz.fista_stepsize(d)
+  gram, corr = (d @ d.T).contiguous(), (x @ d.T).contiguous()
+  how, mm = mm_f32_out(torch)
+  gb = (-eta * gram).to(torch.bfloat16)
+  out = {}
+
+  def turns(fns):
+    for fn in fns:
+      fn()  # warm
+    readings = [[time_ms(torch, fn, TIER_REPS) for fn in fns]
+                for _ in range(TIER_ROUTE_TURNS)]
+    return [sorted(r[i] for r in readings)[len(readings) // 2]
+            for i in range(len(fns))]
+
+  with torch.no_grad():
+    for b, iters in TIER_ROUTE_BATCHES:
+      c = corr[:b].contiguous()
+      zb = x[:b].to(torch.bfloat16)
+      for key, run in (
+          ("K1", lambda route, mxu: K1._launch(gram, c, None, eta, LAM, iters,
+                                               True, 0, route=route,
+                                               mxu=mxu)),
+          ("K4", lambda route, mxu: K4._launch(gram, c, None, eta, LAM, iters,
+                                               GROUP_SIZE, True, False,
+                                               route=route, mxu=mxu))):
+        for tier in TIER_NAMES:
+          run("auto", tier)
+          mod = K1 if key == "K1" else K4
+          route = mod.last_route
+          ms, old_ms, hi_ms = turns([lambda: run("auto", tier),
+                                     lambda: run("tier", tier),
+                                     lambda: run("auto", "highest")])
+          lib = library_turns(torch, lambda: [
+              mm(zb, gb) for _ in range(TIER_PASSES[tier] * iters)])
+          bnd = tier_solve_bound(b, 256, iters, tier)
+          out["%s b %d" % (key, b), tier] = dict(
+              ms=ms, old_ms=old_ms, highest_ms=hi_ms, library_ms=lib[0],
+              bound=bnd, route=route)
+          print("tier route %s b %d %s: %s %.4f ms, fista_tier_kernel %.4f "
+                "(%.2fx), 'highest' %.4f; library median %.4f; bound %.4f "
+                "(%s); medians of %d turns [%s]" % (
+                    key, b, tier, route, ms, old_ms, old_ms / ms, hi_ms,
+                    lib[0], bnd[0], bnd[1], TIER_ROUTE_TURNS, card))
+    # the stop at b 250: the route's one launch against the classic route
+    xs = x[:TRAIN_BATCH].contiguous()
+    c = corr[:TRAIN_BATCH].contiguous()
+    for tier in TIER_NAMES:
+      K1.fused_fista_plain(xs, d, LAM, TRAIN_ITERS, eta,
+                           early_stopping_epsilon=0.0, mxu=tier)
+      eps = stop_eps(solver.last_avgs, "mid")
+      run = lambda route: K1._launch(gram, c, None, eta, LAM, TRAIN_ITERS,
+                                     True, 0, route=route, eps=eps, mxu=tier)
+      run("auto")
+      its, route = int(K1.last_iters.item()), K1.last_route
+      ms, old_ms = turns([lambda: run("auto"), lambda: run("tier")])
+      out["K1 b 250 stop", tier] = dict(ms=ms, old_ms=old_ms, its=its,
+                                         route=route)
+      print("tier route K1 b 250 %s with the stop (eps %.4g, %d of %d it): "
+            "%s %.4f ms in one launch, fista_tier_kernel %.4f in %d launches "
+            "[%s]" % (tier, eps, its, TRAIN_ITERS, route, ms, old_ms, its,
+                      card))
+  return out
+
+
+def tier_route_phase(torch, dev, card, patches, tiers, dp_tiers):
+  """Phase 52: (a) and (b) of tier_route_bitwise; (c) the main path's
+  routes, counted in phases 46 and 47's main paths (every route count
+  zeroed before each tier's runs, read after): the encodes' 16 K1 and 16
+  K4 solves on the tier wide route, the trainers' 1,000 K2, K6, K15 and
+  K16 solves and the 'dcn' composition's K3 and K7 solves on the tier
+  cluster route, none on fista_tier_kernel; (d) tier_route_timing."""
+  from vtc_tpu_torch.ops import fused_fista as K1
+  from vtc_tpu_torch.ops import fused_group_fista as K4
+  from vtc_tpu_torch.ops import lipschitz, solver
+  t0 = time.perf_counter()
+  cases, stops, planted = tier_route_bitwise(torch, K1, K4, solver,
+                                             lipschitz, patches, dev)
+  for where, routes, want in (
+      ("phase 46", tiers["routes"], dict(tier_wide=NUM_BATCHES,
+                                         tier_cluster=TRAIN_STEPS)),
+      ("phase 47", dp_tiers["routes"], dict(
+          tier_wide=NUM_BATCHES, tier_cluster=TRAIN_STEPS
+          + DP_TIER_DCN_STEPS))):
+    for (family, tier), got in routes.items():
+      taken = {k: v for k, v in got.items() if v}
+      print("tier route main path (%s) %s %s: %s" % (where, family, tier,
+                                                     taken))
+      check(taken == want, "%s's main path, %s at %s: solves by route %s, "
+            "expected %s" % (where, family, tier, taken, want))
+  times = tier_route_timing(torch, K1, K4, solver, lipschitz, patches, dev,
+                            card)
+  print("phase 52: %.1f s" % (time.perf_counter() - t0))
+  return dict(cases=cases, stops=stops, planted=planted, times=times)
+
+
+def highest_step_library(torch, dev, card):
+  """{kernel row: ms}: the library time of the 'highest' fc, subspace and
+  ICA step rows, a step's products each one fp32 torch.matmul (cuBLAS,
+  TF32 off; library_turns' median of TIER_LIB_TURNS turns): K2, K3, K6,
+  K7, K15 and K16 the solve's TRAIN_ITERS (250 x 256) @ (256 x 256)
+  products; K8 and K18 the step's ICA_REFINE refinements (two n^3
+  products each), its residual and update (n^3 each), codes and
+  statistic (b n^2 each), at n 256, b 250; K9 the same without the
+  update."""
+  from vtc_tpu_torch.ops.precision import matmul_precision
+  gen = torch.Generator(device=dev).manual_seed(54)
+  z = torch.randn((TRAIN_BATCH, 256), generator=gen, device=dev)
+  g = torch.randn((256, 256), generator=gen, device=dev)
+  sq = [(g, g)] * (2 * ICA_REFINE + 1)
+  rows = [(z, g), (g, z.T.contiguous())]
+  out = {}
+  with matmul_precision():
+    solve = library_turns(torch, lambda: [torch.matmul(z, g)
+                                          for _ in range(TRAIN_ITERS)])
+    ica = library_turns(torch, lambda: [torch.matmul(a, b)
+                                        for a, b in sq + [(g, g)] + rows])
+    stats = library_turns(torch, lambda: [torch.matmul(a, b)
+                                          for a, b in sq + rows])
+  for name in ("fused_train_step", "fused_group_train_step",
+               "fused_solve_stats", "fused_group_solve_stats",
+               "fused_dp_train", "fused_group_dp_train"):
+    out[name] = solve[0]
+  out["fused_ica_train"] = out["fused_ica_dp_train"] = ica[0]
+  out["ica_solve_stats"] = stats[0]
+  print("library at 'highest' (fp32 torch.matmul, TF32 off, median of %d "
+        "turns): a fc/subspace step's %d solve products %.4f ms (%.4f-%.4f); "
+        "an ICA step's products %.4f (%.4f-%.4f), K9's %.4f (%.4f-%.4f) "
+        "[%s]" % (TIER_LIB_TURNS, TRAIN_ITERS, *solve, *ica, *stats, card))
+  return out
+
+
+# ---------------------------------------------------------------------------
+# phase 53: the plain train segments floor their norms (ROADMAP.md §3.1)
+# ---------------------------------------------------------------------------
+def norm_floor_phase(torch, dev, card):
+  """Each train kernel against its plain version on the inputs where an
+  unfloored norm divides by zero: K2, K6, K15 and K16 (a world of 1) with
+  row 5 of D zero (n 16, s 24, b 12, two steps), K12 and K17 (a world of
+  1) on two blank batches and with one kernel zero (8 kernels of 4 x 4 at
+  stride 2 on 12 x 12 images, under a 0.8-pixel window: unwindowed random
+  kernels leave FISTA ill-conditioned, module docstring).  Everything
+  finite, the zero row or kernel still zero, every output within phase
+  2's limit of the plain version (one step where a kernel is zero: its
+  FISTA codes from a moved dictionary flip thresholds).  Returns the
+  worst max|d|."""
+  from vtc_tpu_torch import parallel
+  from vtc_tpu_torch.ops import fused_conv_dp_train as K17
+  from vtc_tpu_torch.ops import fused_conv_train as K12
+  from vtc_tpu_torch.ops import fused_dp_train as K15
+  from vtc_tpu_torch.ops import fused_group_dp_train as K16
+  from vtc_tpu_torch.ops import fused_group_train_step as K6
+  from vtc_tpu_torch.ops import fused_train_step as K2
+  t0 = time.perf_counter()
+  mesh1 = parallel.make_mesh()
+  rng = np.random.RandomState(53)
+  s, n, b = 24, 16, 12
+  d = rng.randn(s, n).astype(np.float32)
+  d /= np.linalg.norm(d, axis=1, keepdims=True)
+  d[5] = 0.0
+  fc = [torch.tensor(a, device=dev) for a in (
+      d, np.abs(rng.rand(s)).astype(np.float32) * 0.01,
+      rng.randn(n).astype(np.float32), rng.randn(2, b, n).astype(np.float32))]
+  groups = [list(range(i, i + 4)) for i in range(0, s, 4)]
+  img, k, pad = 12, 4, (2, 2)
+  cd = windowed_kernels(rng, 8, 1, k, sigma=0.8)
+  x = np.zeros((2, 3, 1, img + 4, img + 4), np.float32)
+  x[:, :, :, 2:-2, 2:-2] = 0.3 * rng.randn(2, 3, 1, img, img)
+  zero_kernel = cd.copy()
+  zero_kernel[3] = 0.0
+  conv = dict(kernel_stride=(2, 2), padding=(pad, pad), power_iters=2)
+  cstate = lambda dd: [torch.tensor(a, device=dev) for a in (
+      dd, np.abs(rng.rand(8)).astype(np.float32) * 0.01,
+      rng.randn(8).astype(np.float32))]
+  cases = {
+      "K2 zero row": (K2.fused_train_segment, K2.fused_train_segment_plain,
+                      fc, dict(power_iters=2), 5),
+      "K6 zero row": (K6.fused_group_train_segment,
+                      K6.fused_group_train_segment_plain, fc,
+                      dict(power_iters=2, group_assignments=groups), 5),
+      "K15 zero row": (K15.fused_dp_train_segment,
+                       K15.fused_dp_train_plain, fc,
+                       dict(power_iters=2, mesh=mesh1), 5),
+      "K16 zero row": (K16.fused_group_dp_train_segment,
+                       K16.fused_group_dp_train_plain, fc,
+                       dict(power_iters=2, mesh=mesh1,
+                            group_assignments=groups), 5)}
+  for label, dd, xx, alg in (
+      ("blank batches", cd, np.zeros_like(x), "sc_cheap_quadratic_descent"),
+      ("zero kernel", zero_kernel, x[:1], "sc_steepest_descent")):
+    state = cstate(dd) + [torch.tensor(xx, device=dev)]
+    cases["K12 " + label] = (K12.fused_conv_train_segment,
+                             K12.fused_conv_train_plain, state,
+                             dict(conv, update_alg=alg), 3)
+    cases["K17 " + label] = (K17.fused_conv_dp_train_segment,
+                             K17.fused_conv_dp_train_plain, state,
+                             dict(conv, update_alg=alg, mesh=mesh1), 3)
+  worst = 0.0
+  for label, (kernel, plain, args, kw, zero) in cases.items():
+    got = kernel(*args, 0.05, 12, 0.1, **kw)
+    want = plain(*args, 0.05, 12, 0.1, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dictionary", "hessian", "eigvec", "codes"), got,
+                          want):
+      check(bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all()),
+            "norm floor %s: the %s is not finite (kernel %s, plain %s)" % (
+                label, name, bool(torch.isfinite(g).all()),
+                bool(torch.isfinite(w).all())))
+      err, lim = float((g - w).abs().max()), limit(w)
+      worst = max(worst, err)
+      check(err <= lim, "norm floor %s %s: max|d| %.3e > %.3e" % (
+          label, name, err, lim))
+    if "zero row" in label:
+      check(not bool(got[0][zero].any()), "%s: the zero row moved" % label)
+    elif "zero kernel" in label:
+      check(not bool(got[0][zero].any()), "%s: the zero kernel moved"
+            % label)
+    print("norm floor %s: finite, within phase 2's limit of the plain "
+          "version" % label)
+  print("phase 53: %d cases, worst max|d| %.3e (%.1f s)" % (
+      len(cases), worst, time.perf_counter() - t0))
+  return worst
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -8947,9 +9419,16 @@ def main():
         "%.4f (runs %.4f, %.4f); plain %.4f (runs %.4f, %.4f); bound %.4f "
         "(%s) [%s]" % (k11_ms, *k11_ms_runs, k11_p_ms, *k11_plain_ms,
                        k11_bound, k11_by, card))
+  # the b-5 row's library time: K10's loop with cuDNN's products under
+  # the precision pins, median of TIER_LIB_TURNS turns
+  with torch.no_grad():
+    b5_lib = library_turns(torch, lambda: K10.fused_conv_direct_library(
+        xt5, cd0, CONV_LAM, CONV_TRAIN_ITERS, eta5, variant="ista", **ckw))
   print("K10 ms per trainer batch (b=5, ista 25): %.4f (runs %.4f, %.4f); "
-        "plain %.4f (runs %.4f, %.4f); bound %.4f [%s]" % (
-            b5_ms, *b5_ms_runs, b5_p_ms, *b5_plain_ms, b5_bound, card))
+        "plain %.4f (runs %.4f, %.4f); bound %.4f; library (cuDNN's "
+        "products) median %.4f (%d turns %.4f-%.4f) [%s]" % (
+            b5_ms, *b5_ms_runs, b5_p_ms, *b5_plain_ms, b5_bound, b5_lib[0],
+            TIER_LIB_TURNS, b5_lib[1], b5_lib[2], card))
   print("stepsize eigvalsh ms (64 x 256 flattened kernels): %.4f [%s]" % (
       eig_ms, card))
   for formulation in ("pallas", "gram"):
@@ -9559,6 +10038,16 @@ def main():
   check(K17.launches == 100 and bool(torch.isfinite(b5_trained).all())
         and b5_norm <= 1e-4, "the b-5 conv DP row did not run 100 K17 steps "
         "to finite unit-norm kernels")
+  # the b-5 row's library time: a step's solve (FISTA SEG_ITERS) with
+  # cuDNN's products under the precision pins, median of TIER_LIB_TURNS
+  b5_eta = lipschitz.fista_stepsize(sd0.reshape(CONV_S, -1))
+  with torch.no_grad():
+    b5_dp_lib = library_turns(torch, lambda: K10.fused_conv_direct_library(
+        b5_batches[0], sd0, CONV_LAM, SEG_ITERS, b5_eta,
+        kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=((8, 8), (8, 8))))
+  print("world of 1, conv scanned b5: the library time of a step's solve "
+        "(cuDNN's products) median %.4f ms (%d turns %.4f-%.4f) [%s]" % (
+            b5_dp_lib[0], TIER_LIB_TURNS, b5_dp_lib[1], b5_dp_lib[2], card))
   # 20 steps at three update iterations: the gram form
   gparams = conv_segment_params(20, SEG_STEP)
   gparams["dict_update_param_schedule"] = {
@@ -10482,6 +10971,17 @@ def main():
   gram = gram_tiles_phase(torch, dev, card, K10, K11, conv_ops, lipschitz,
                           encode_dataset, convert, cimages, cpad, op)
 
+  # phase 52: the tier routes of the fc/subspace solve (tier_route_phase)
+  tier_routes = tier_route_phase(torch, dev, card, patches, tiers, dp_tiers)
+
+  # phase 53: the plain train segments' norm floors (norm_floor_phase)
+  norm_floor_phase(torch, dev, card)
+
+  # the library times of the 'highest' fc, subspace and ICA steps: a
+  # step's products, each one fp32 torch.matmul (TF32 off), median of
+  # TIER_LIB_TURNS turns
+  step_library = highest_step_library(torch, dev, card)
+
   check(not [m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vtc_tpu")],
         "the smoke run imported JAX or the JAX package")
@@ -10636,10 +11136,21 @@ def main():
                       "tier of :1402)")}
   tier_mods = dict(zip(("K1", "K4", "K2", "K6"), tiers["mods"]))
   tier_library = {}
+  # the tier rows name the route phase 52 saw at each caller's batch
+  solve_batch = dict(K1=BATCH, K4=BATCH, K2=TRAIN_BATCH, K6=TRAIN_BATCH,
+                     K3=TRAIN_BATCH // 2, K7=TRAIN_BATCH // 2,
+                     K15=TRAIN_BATCH, K16=TRAIN_BATCH)
+
+  def tier_kernel(key, tier):
+    route = tier_routes["times"]["K1 b %d" % solve_batch[key], tier]["route"]
+    return ("fista_tier_kernel" if route == "tier" else
+            "fista_tier_cluster_kernel, %s route" % route)
+
   for key, (source, replaces) in tier_rows.items():
     for tier in TIER_NAMES:
       ms_t, p_t, bnd_t, lib_t = tiers["times"][key, tier]
-      name = "fista_tier_kernel (%s at %s, via %s)" % (key, tier, source)
+      name = "%s (%s at %s, via %s)" % (tier_kernel(key, tier), key, tier,
+                                        source)
       kernels.append((name, "fista_tier.cuh", replaces,
                       tiers["counts"][tier_mods[key], tier],
                       tiers["full_errs"][key, tier], ms_t, p_t, bnd_t))
@@ -10647,8 +11158,10 @@ def main():
     # the STOP build at bf16x3: launches on the main path with the stop,
     # the worst error of its stop cases, its time at a mid-run eps
     ms_s, p_s, bnd_s, lib_s, _ = tiers["stop_times"][key]
-    name = "fista_tier_kernel (%s at bf16x3, early stop, via %s)" % (
-        key, source)
+    stop_route = tier_routes["times"]["K1 b 250 stop", "bf16x3"]["route"]
+    name = "%s (%s at bf16x3, early stop, via %s)" % (
+        "fista_tier_kernel" if stop_route == "tier" else
+        "fista_tier_cluster_kernel, %s route" % stop_route, key, source)
     family = {"K1": "K1 fista", "K4": "K4 M4", "K2": "K2 step",
               "K6": "K6 step"}[key]
     kernels.append((name, "fista_tier.cuh", replaces,
@@ -10673,8 +11186,8 @@ def main():
   for key, (wrapper, source, replaces) in dp_tier_rows.items():
     for tier in TIER_NAMES:
       ms_t, p_t, bnd_t, lib_t = dp_tiers["times"][key, tier]
-      name = "fista_tier_kernel (%s, %s at %s, via %s)" % (key, wrapper,
-                                                          tier, source)
+      name = "%s (%s, %s at %s, via %s)" % (tier_kernel(key, tier), key,
+                                            wrapper, tier, source)
       kernels.append((name, "fista_tier.cuh", replaces,
                       dp_tiers["counts"][dp_tiers["mods"][key], tier],
                       dp_tiers["errs"][key, tier], ms_t, p_t, bnd_t))
@@ -10771,7 +11284,7 @@ def main():
                 "fused_group_fista (early stop)":
                     solve_lib_ms / ITERS * k4_stop_it,
                 "fused_code_shard_train across devices": cs_tiers["rank_lib"],
-                **tier_library}
+                **step_library, **tier_library}
   print(json.dumps({"kernels": [{
       "name": name,
       "route": "cuda",

@@ -24,6 +24,15 @@
 //                  share and gathers all the launch's (stop_gather), then
 //                  the block synchronises: what the stop warp does while
 //                  the compute warps form the product.
+// With the argument "tier" it times the tier layouts instead
+// (fista_tier.cuh): at each tier, b 125, 250 and 2048, elementwise and
+// with groups of 4, FISTA, fista_tier_kernel (its fold included) and
+// fista_tier_cluster_kernel in each candidate layout of clusters of 1, 2,
+// 4 or 8 CTAs, 16, 32 or 64 rows a cluster and one or two buffers of z
+// terms that fits (one buffer only where two do not), with its waves on
+// this card: ms at 25 and 125 iterations, µs per iteration, and whether
+// the codes are bitwise fista_tier_kernel's; the layout tier_shape picks
+// is marked.
 // Built and run by tools/bench_fista_solve.py.
 #include <cmath>
 #include <cstdio>
@@ -247,7 +256,12 @@ unsigned lcg(unsigned& seed) {
 
 }  // namespace
 
-int main() {
+int tier_main(const float* gram_d, const float* corr_d, const float* eta_d,
+              float lam, int s, int sk, int sc, float* gn, float* out_a,
+              float* out_b, std::vector<float>& ha, std::vector<float>& hb,
+              int reps);
+
+int main(int argc, char** argv) {
   const int s = kS, n = 256, bmax = 4096, reps = 20;
   const int sk = (s + kChunk - 1) / kChunk * kChunk;
   const int sc = (s + kColBlock - 1) / kColBlock * kColBlock;
@@ -303,7 +317,9 @@ int main() {
   float* corr_d = to_device(corr);
   float* eta_d = to_device(std::vector<float>(1, eta_h));
   float *gn, *out_a, *out_b, *sink;
-  cudaMalloc(&gn, static_cast<size_t>(sk) * sc * sizeof(float));
+  // the classic route's -eta G, or the tier planes (tier_gn_floats)
+  cudaMalloc(&gn, static_cast<size_t>(tier_gn_floats(kTierBf16x5, sk, sc)) *
+                      sizeof(float));
   cudaMalloc(&out_a, static_cast<size_t>(bmax) * s * sizeof(float));
   cudaMalloc(&out_b, static_cast<size_t>(bmax) * s * sizeof(float));
   cudaMalloc(&sink, static_cast<size_t>(bmax) * kCluster * sizeof(float));
@@ -320,6 +336,9 @@ int main() {
                            kRows * sk * sizeof(float));
   std::vector<float> ha(static_cast<size_t>(bmax) * s),
       hb(static_cast<size_t>(bmax) * s);
+  if (argc > 1 && std::strcmp(argv[1], "tier") == 0)
+    return tier_main(gram_d, corr_d, eta_d, lam, s, sk, sc, gn, out_a, out_b,
+                     ha, hb, reps);
   const int slots = cluster_slots();
   std::printf("s %d: sk %d, clusters of %d CTAs, w %d; %d SMs, %d cluster "
               "slots (clusters resident at one CTA per SM)\n",
@@ -523,6 +542,105 @@ int main() {
         (parts[1][1] - parts[1][0]) * 10.0f,
         (parts[2][1] - parts[2][0]) * 10.0f, parts[0][0], parts[0][1],
         parts[1][0], parts[1][1], parts[2][0], parts[2][1]);
+  }
+  return ok ? 0 : 2;
+}
+
+// The tier layouts' candidates (see the header comment).
+int tier_main(const float* gram_d, const float* corr_d, const float* eta_d,
+              float lam, int s, int sk, int sc, float* gn, float* out_a,
+              float* out_b, std::vector<float>& ha, std::vector<float>& hb,
+              int reps) {
+  bool ok = true;
+  const char* names[] = {"", "bf16", "bf16x3", "bf16x5"};
+  for (int tier = kTierBf16; tier <= kTierBf16x5; ++tier) {
+    for (int b : {125, 250, 2048}) {
+      TierPlan plan;
+      if (device_tier_plan(b, s, sk, 1, tier, kRouteAuto, false, false,
+                           &plan) != cudaSuccess)
+        return 1;
+      for (int group : {1, 4}) {
+        // fista_tier_kernel through launch_tier, forced
+        auto classic = [&](int iters) {
+          return group == 1
+                     ? launch_tier<false>(tier, 1, kSoft, gram_d, corr_d,
+                                          nullptr, eta_d, lam, iters, b, s,
+                                          sk, sc, 1, gn, nullptr, out_a,
+                                          kRouteTier, nullptr, 0, nullptr)
+                     : launch_tier<true>(tier, 1, kSoft, gram_d, corr_d,
+                                         nullptr, eta_d, lam, iters, b, s,
+                                         sk, sc, group, gn, nullptr, out_a,
+                                         kRouteTier, nullptr, 0, nullptr);
+        };
+        float base[2];
+        for (int which = 0; which < 2; ++which) {
+          const int iters = which ? 125 : 25;
+          base[which] = time_ms([&]() { return classic(iters); }, reps);
+        }
+        cudaMemcpy(ha.data(), out_a, static_cast<size_t>(b) * s * 4,
+                   cudaMemcpyDeviceToHost);
+        std::printf("%s b %4d M %d fista_tier_kernel: %.4f ms at 25 it, "
+                    "%.4f at 125, %.3f us/it\n",
+                    names[tier], b, group, base[0], base[1],
+                    (base[1] - base[0]) * 10.0f);
+        for (int cluster : {1, 2, 4, 8}) {
+          const int slots = wide_slots(cluster);
+          for (int rows : {16, 32, 64}) {
+            for (int bufs : {2, 1}) {
+              const int most = tier_max_rows(tier, sk, group, cluster, bufs);
+              const int clusters = (b + rows - 1) / rows;
+              if (rows > most || slots < 1) continue;
+              const int waves = (clusters + slots - 1) / slots;
+              if (bufs == 1 && rows <= tier_max_rows(tier, sk, group,
+                                                     cluster, 2))
+                continue;  // one buffer only where two do not fit
+              auto resident = [&](int iters) {
+#define VTC_RES(T)                                                          \
+  (group == 1 ? launch_tier_resident<false, T, -1>(                         \
+                    1, kSoft, gram_d, corr_d, nullptr, eta_d, lam, iters, b, \
+                    s, sk, 1, cluster, rows, bufs, out_b, 0, nullptr)       \
+              : launch_tier_resident<true, T, 4 + kSoft>(                   \
+                    1, kSoft, gram_d, corr_d, nullptr, eta_d, lam, iters, b, \
+                    s, sk, group, cluster, rows, bufs, out_b, 0, nullptr))
+                return tier == kTierBf16     ? VTC_RES(kTierBf16)
+                       : tier == kTierBf16x3 ? VTC_RES(kTierBf16x3)
+                                             : VTC_RES(kTierBf16x5);
+#undef VTC_RES
+              };
+              float ms[2];
+              for (int which = 0; which < 2; ++which) {
+                const int iters = which ? 125 : 25;
+                ms[which] = time_ms([&]() { return resident(iters); }, reps);
+              }
+              const cudaError_t err = cudaGetLastError();
+              if (err != cudaSuccess) {
+                std::printf("CUDA error: %s\n", cudaGetErrorString(err));
+                return 1;
+              }
+              cudaMemcpy(hb.data(), out_b, static_cast<size_t>(b) * s * 4,
+                         cudaMemcpyDeviceToHost);
+              int differ = 0;
+              for (size_t i = 0; i < static_cast<size_t>(b) * s; ++i)
+                differ += std::memcmp(&ha[i], &hb[i], 4) != 0;
+              ok = ok && differ == 0;
+              const bool picked = plan.route != kRouteTier &&
+                                  plan.cluster == cluster &&
+                                  plan.rows == rows && plan.bufs == bufs;
+              std::printf(
+                  "%s b %4d M %d resident P %d rows %2d bufs %d (%d "
+                  "clusters in %d waves, %d warps, %d B): %.4f ms at 25 it, "
+                  "%.4f at 125, %.3f us/it; codes %s%s\n",
+                  names[tier], b, group, cluster, rows, bufs, clusters, waves,
+                  tier_layout(tier, sk, cluster, rows, bufs).warps,
+                  tier_layout(tier, sk, cluster, rows, bufs).smem, ms[0],
+                  ms[1], (ms[1] - ms[0]) * 10.0f,
+                  differ ? "DIFFER" : "bitwise equal",
+                  picked ? "  <- tier_route's plan" : "");
+            }
+          }
+        }
+      }
+    }
   }
   return ok ? 0 : 2;
 }

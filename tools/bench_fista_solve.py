@@ -1,6 +1,6 @@
 """Time the fc/subspace solve kernels alone, on one CUDA device.
 
-  python3 tools/bench_fista_solve.py [--out report.txt]
+  python3 tools/bench_fista_solve.py [--out report.txt] [--tier]
 
 Compiles tools/bench_fista_solve.cu against vtc_tpu_torch/csrc/
 fista_core.cuh with nvcc (for sm_90a, with ptxas's register report) into
@@ -18,7 +18,10 @@ per iteration on the route the stop takes with eps 0 (it never stops, so
 every iteration does the stop's work) beside the same route without it,
 their codes bitwise equal, and the stop's exchange alone on the cluster
 and wide grids.  Every line is printed, and written to --out when given.
-Exits non-zero when two kernels' codes differ.
+Exits non-zero when two kernels' codes differ.  With --tier it times the
+tier layouts instead (fista_tier_kernel against each candidate layout of
+fista_tier_cluster_kernel, bitwise; the header of bench_fista_solve.cu
+says which).
 Needs nvcc and a CUDA device.
 """
 import argparse
@@ -33,7 +36,8 @@ import chip_smoke  # noqa: E402  (the card's line)
 from vtc_tpu_torch.ops import _build  # noqa: E402
 
 KERNELS = ("fista_cluster_kernel", "fista_wide_kernel", "fista_kernel",
-           "exchange_kernel", "product_kernel")  # and the stop builds
+           "exchange_kernel", "product_kernel", "fista_tier_kernel",
+           "fista_tier_cluster_kernel")  # and the stop builds
 
 
 def library_lines():
@@ -63,6 +67,8 @@ def library_lines():
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--out", help="also write the report here")
+  parser.add_argument("--tier", action="store_true",
+                      help="time the tier layouts (fista_tier.cuh)")
   args = parser.parse_args()
   nvcc = _build.find_nvcc()
   if nvcc is None:
@@ -85,9 +91,10 @@ def main():
       kernel = name if any(k in name for k in KERNELS) else None
     elif kernel and ("registers" in line or "spill" in line):
       lines.append("%s: %s" % (kernel, line.split(":", 1)[-1].strip()))
-  run = subprocess.run([binary], capture_output=True, text=True,
-                       check=False, timeout=600)
-  lines += run.stdout.splitlines() + library_lines()
+  run = subprocess.run([binary] + (["tier"] if args.tier else []),
+                       capture_output=True, text=True, check=False,
+                       timeout=600)
+  lines += run.stdout.splitlines() + ([] if args.tier else library_lines())
   lines.append(chip_smoke.card_line())
   print("\n".join(lines))
   if args.out:

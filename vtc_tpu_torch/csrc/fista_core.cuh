@@ -202,8 +202,13 @@ enum Route {
   kRouteClassic = 1,
   kRouteCluster = 2,
   kRouteWide = 3,
-  kRouteTier = 4  // taken, never given: fista_tier.cuh's kernel, which
-                  // every tier but 'highest' takes
+  // the tiers other than 'highest' (fista_tier.cuh): fista_tier_kernel,
+  // then its resident layouts for small batches and for batches that fill
+  // the card; at a tier 0 picks one by tier_route, and 4-6 force one (for
+  // checks and tools)
+  kRouteTier = 4,
+  kRouteTierCluster = 5,
+  kRouteTierWide = 6
 };
 
 enum Shrink { kSoft = 0, kSoftNonneg = 1, kHard = 2, kHardNonneg = 3 };
@@ -482,15 +487,23 @@ __device__ __forceinline__ bool stop_turn(int it, int num_iters) {
 // every CTA's share (stop_gather) and writes the decision for the next
 // iteration, and waits at the barrier.  (The sums alternate by parity:
 // the compute threads write the next iteration's while it reads these.)
-// It leaves where the compute threads break: after a stop.
+// It leaves where the compute threads break: after a stop.  pre_barrier:
+// the compute threads meet at one more cluster barrier an iteration,
+// before their push (fista_tier.cuh's one-buffer layout), which the stop
+// warp passes first.
 __device__ __forceinline__ void stop_warp_loop(int num_iters,
                                                const float* deltas, int nt,
                                                float eta,
                                                const SolveStop& stop,
-                                               volatile int* word) {
+                                               volatile int* word,
+                                               bool pre_barrier = false) {
   const int lane = threadIdx.x & 31;
   bool stopping = false;
   for (int it = 0; it < num_iters && !stopping; ++it) {
+    if (pre_barrier) {
+      cluster_arrive();
+      cluster_wait();
+    }
     if (!stop_turn(it, num_iters)) {
       cluster_arrive();
       cluster_wait();
@@ -1810,16 +1823,18 @@ cudaError_t launch_classic_stop(const float* gn, const float* corr,
 }
 
 // The solve at a tier other than 'highest' (fista_tier.cuh, which every
-// file that instantiates launch_solve includes): fold_tier_kernel, then
-// fista_tier_kernel in one launch, or with stop on the classic stop route.
-// fista and mode are run-time arguments there: one build a tier serves
-// every variant and shrink.
+// file that instantiates launch_solve includes) on the tier route given
+// (kRouteAuto: tier_route's, or with stop its stop route), the route
+// taken in *taken unless it is null: the resident cluster or wide layout
+// in one launch, or fold_tier_kernel and fista_tier_kernel in one launch,
+// or with stop on the classic stop route.
 template <bool GROUP>
 cudaError_t launch_tier(int tier, int fista, int mode, const float* gram,
                         const float* corr, const float* init,
                         const float* eta, float lam, int num_iters, int b,
                         int s, int sk, int sc, int group_size, float* gn,
-                        float* state_global, float* out, cudaStream_t stream,
+                        float* state_global, float* out, int route,
+                        int* taken, cudaStream_t stream,
                         const SolveStop* stop);
 
 // Launch the solve on the route given (kRouteAuto: solve_route's, or with
@@ -1830,10 +1845,11 @@ cudaError_t launch_tier(int tier, int fista, int mode, const float* gram,
 // flag-off build.  A stop across ranks (stop->local) takes the classic
 // route: a CUDA kernel cannot wait on another process, so no resident
 // route takes it.  A tier other than kTierHighest takes fista_tier.cuh's
-// kernel whatever the shape (route kRouteAuto only, taken kRouteTier; gn
-// then holds the bf16 planes of fista_tier.cuh's tier_gn_floats); its
-// stop, at one rank or across ranks, is the classic stop route's, whose
-// state layout it shares.  Returns the first CUDA error.
+// routes (route kRouteAuto or one of kRouteTier, kRouteTierCluster and
+// kRouteTierWide; gn then holds the bf16 planes of fista_tier.cuh's
+// tier_gn_floats where fista_tier_kernel runs); across ranks its stop
+// is the classic stop route's, whose state layout fista_tier_kernel
+// shares.  Returns the first CUDA error.
 template <bool FISTA, int MODE, bool GROUP>
 cudaError_t launch_solve(const float* gram, const float* corr,
                          const float* init, const float* eta, float lam,
@@ -1844,14 +1860,14 @@ cudaError_t launch_solve(const float* gram, const float* corr,
                          const SolveStop* stop = nullptr,
                          int tier = kTierHighest) {
   if (tier != kTierHighest) {
-    if (route != kRouteAuto ||
+    if ((route != kRouteAuto && route < kRouteTier) ||
         (stop != nullptr && stop->local != nullptr && stop->hook == nullptr))
       return cudaErrorInvalidValue;
-    if (taken != nullptr) *taken = kRouteTier;
     return launch_tier<GROUP>(tier, FISTA, MODE, gram, corr, init, eta, lam,
                               num_iters, b, s, sk, sc, group_size, gn,
-                              state_global, out, stream, stop);
+                              state_global, out, route, taken, stream, stop);
   }
+  if (route > kRouteWide) return cudaErrorInvalidValue;
   if (stop != nullptr && stop->local != nullptr) {
     if (stop->hook == nullptr ||
         (route != kRouteAuto && route != kRouteClassic))
@@ -1900,10 +1916,17 @@ cudaError_t launch_solve(const float* gram, const float* corr,
   return cudaGetLastError();
 }
 
-// The argument checks both entry points share.
-inline bool solve_args_ok(int b, int s, int num_iters, int sk, int sc) {
+// The argument checks both entry points share: the shape, and the route
+// (0-3 at 'highest', 0 or 4-6 at another tier) and the tier.
+inline bool solve_args_ok(int b, int s, int num_iters, int sk, int sc,
+                          int route, int tier) {
   return b > 0 && s > 0 && num_iters >= 0 && sk >= s && sc >= s &&
-         sk % kChunk == 0 && sc % kColBlock == 0;
+         sk % kChunk == 0 && sc % kColBlock == 0 && tier >= kTierHighest &&
+         tier <= kTierBf16x5 && route >= kRouteAuto &&
+         (tier == kTierHighest ? route <= kRouteWide
+                               : route == kRouteAuto ||
+                                     (route >= kRouteTier &&
+                                      route <= kRouteTierWide));
 }
 
 // The early stop of a C entry's arguments: null (the flag-off build)

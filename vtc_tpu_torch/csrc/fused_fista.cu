@@ -78,6 +78,30 @@ int vtc_fista_tier_state_in_smem(int s, int tier) {
   return tier_state_in_smem(tier, (s + kChunk - 1) / kChunk * kChunk) ? 1 : 0;
 }
 
+// The plan of a solve at tier (1 bf16, 2 bf16x3, 3 bf16x5) of b rows of s
+// codes in groups of group_size on this device, for route (0: the shape's
+// own, tier_route's, or with stop its stop route; 4-6 forced) with the
+// stop or not (stop) and across ranks or not (ranks): plan[0] the route
+// (4 fista_tier_kernel, 5 the tier cluster route, 6 the tier wide route),
+// then on a resident route the CTAs a cluster, the rows a cluster, its
+// buffers of z terms and the card's slots for clusters of that size.  Returns 0 or the CUDA error
+// (cudaErrorInvalidValue for a forced route that does not fit).
+int vtc_fista_tier_plan(int b, int s, int group_size, int tier, int route,
+                        int stop, int ranks, int* plan) {
+  if (b <= 0 || s <= 0 || tier < kTierBf16 || tier > kTierBf16x5)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TierPlan got;
+  const cudaError_t err = device_tier_plan(
+      b, s, (s + kChunk - 1) / kChunk * kChunk, group_size, tier, route,
+      stop != 0, ranks != 0, &got);
+  plan[0] = got.route;
+  plan[1] = got.cluster;
+  plan[2] = got.rows;
+  plan[3] = got.bufs;
+  plan[4] = got.slots;
+  return static_cast<int>(err);
+}
+
 // cudaOccupancyMaxActiveClusters of the (FISTA, soft) cluster kernel for
 // s codes at rows rows per cluster, or minus the CUDA error.
 int vtc_fista_cluster_occupancy(int s, int rows) {
@@ -100,6 +124,16 @@ int vtc_fista_wide_rows(int b, int s, int group_size) {
 // CTA per SM, or minus the CUDA error.
 int vtc_fista_wide_slots(int cluster_size) { return wide_slots(cluster_size); }
 
+// The solves vtc_fused_fista has launched on each route (0-6) since the
+// last reset: every caller's, K2's, K3's and K15's steps among them.
+static long long route_launches[kRouteTierWide + 1];
+long long vtc_fista_route_launches(int route) {
+  return route >= 0 && route <= kRouteTierWide ? route_launches[route] : -1;
+}
+void vtc_fista_reset_route_launches() {
+  for (long long& count : route_launches) count = 0;
+}
+
 // gram (s, s), corr (b, s), init (b, s) or null, eta (1,) on the device.
 // gn_scratch (sk, sc); state_scratch (ceil(b / rows), 4, rows, sk) or
 // null to keep the state in shared memory (both used by the classic
@@ -119,13 +153,15 @@ int vtc_fista_wide_slots(int cluster_size) { return wide_slots(cluster_size); }
 // is then over the global batch and stop_words the classic route's
 // (the first launch of a solve clears the flag).  Both null at one rank.
 // tier: 0 'highest' (the routes above), 1 bf16, 2 bf16x3, 3 bf16x5: the
-// tier kernel (route 0 only, taken 4), gn_scratch then of
+// tier routes (route 0, the shape's own, or 4-6, forced: taken 4
+// fista_tier_kernel, 5 the tier cluster route, 6 the tier wide route;
+// vtc_fista_tier_plan gives the route and its stop words, kStopCtlWords +
+// ceil(b / rows) on route 4, two a CTA on 5 and 6); gn_scratch then of
 // vtc_fista_tier_gn_floats floats, state_scratch null only where
-// vtc_fista_tier_state_in_smem, the stop on the classic stop route (its
-// words: vtc_fista_stop_words's classic count, kStopCtlWords +
-// ceil(b / rows)), across ranks too (stop_local and stop_hook as above).
-// Returns the CUDA error code of the launches (0 on success;
-// cudaErrorUnknown when stop_hook failed).
+// vtc_fista_tier_state_in_smem (both used by route 4 only); across ranks
+// the stop takes route 4 (stop_local and stop_hook as above).  Every
+// launch adds one to route_launches[taken].  Returns the CUDA error code
+// of the launches (0 on success; cudaErrorUnknown when stop_hook failed).
 int vtc_fused_fista(const float* gram, const float* corr, const float* init,
                     const float* eta, float lam, int num_iters, int b, int s,
                     int sk, int sc, int fista, int mode, float* gn_scratch,
@@ -133,9 +169,8 @@ int vtc_fused_fista(const float* gram, const float* corr, const float* init,
                     float eps, float inv_count, void* stop_words, int* iters,
                     unsigned tag, float* stop_local, RankHook stop_hook,
                     int tier, void* stream_ptr) {
-  if (!solve_args_ok(b, s, num_iters, sk, sc) || mode < 0 || mode > 3 ||
-      route < kRouteAuto || route > kRouteWide || tier < kTierHighest ||
-      tier > kTierBf16x5 ||
+  if (!solve_args_ok(b, s, num_iters, sk, sc, route, tier) || mode < 0 ||
+      mode > 3 ||
       (eps >= 0.0f && (stop_words == nullptr || iters == nullptr ||
                        tag == 0)) ||
       ((stop_local == nullptr) != (stop_hook == nullptr)) ||
@@ -146,10 +181,11 @@ int vtc_fused_fista(const float* gram, const float* corr, const float* init,
   const SolveStop* stop = solve_stop(&stop_args, eps, inv_count, stop_words,
                                      iters, tag, stop_local, stop_hook);
   cudaError_t err;
+  int route_taken = kRouteAuto;
 #define VTC_LAUNCH(F, M)                                                     \
   launch_solve<F, M, false>(gram, corr, init, eta, lam, num_iters, b, s, sk, \
                             sc, 1, gn_scratch, state_scratch, out, route,    \
-                            taken, stream, stop, tier)
+                            &route_taken, stream, stop, tier)
   if (fista) {
     switch (mode) {
       case kSoft: err = VTC_LAUNCH(true, kSoft); break;
@@ -166,6 +202,8 @@ int vtc_fused_fista(const float* gram, const float* corr, const float* init,
     }
   }
 #undef VTC_LAUNCH
+  if (err == cudaSuccess) ++route_launches[route_taken];
+  if (taken != nullptr) *taken = route_taken;
   return static_cast<int>(err);
 }
 

@@ -39,6 +39,16 @@
 
 extern "C" {
 
+// The solves vtc_fused_group_fista has launched on each route (0-6)
+// since the last reset: K4's, K6's, K7's and K16's among them.
+static long long route_launches[kRouteTierWide + 1];
+long long vtc_group_fista_route_launches(int route) {
+  return route >= 0 && route <= kRouteTierWide ? route_launches[route] : -1;
+}
+void vtc_group_fista_reset_route_launches() {
+  for (long long& count : route_launches) count = 0;
+}
+
 // gram (gm, gm), corr (b, gm), init (b, gm) or null, eta (1,) on the
 // device, gm = groups * group_size.  gn_scratch (sk, sc); state_scratch
 // (ceil(b / rows), 4, rows, sk) or null to keep the state in shared
@@ -56,9 +66,8 @@ int vtc_fused_group_fista(const float* gram, const float* corr,
                           void* stop_words, int* iters, unsigned tag,
                           float* stop_local, RankHook stop_hook, int tier,
                           void* stream_ptr) {
-  if (!solve_args_ok(b, gm, num_iters, sk, sc) || group_size < 1 ||
-      gm % group_size != 0 || route < kRouteAuto || route > kRouteWide ||
-      tier < kTierHighest || tier > kTierBf16x5 ||
+  if (!solve_args_ok(b, gm, num_iters, sk, sc, route, tier) ||
+      group_size < 1 || gm % group_size != 0 ||
       (eps >= 0.0f && (stop_words == nullptr || iters == nullptr ||
                        tag == 0)) ||
       ((stop_local == nullptr) != (stop_hook == nullptr)) ||
@@ -69,15 +78,18 @@ int vtc_fused_group_fista(const float* gram, const float* corr,
   const SolveStop* stop = solve_stop(&stop_args, eps, inv_count, stop_words,
                                      iters, tag, stop_local, stop_hook);
   cudaError_t err;
+  int route_taken = kRouteAuto;
 #define VTC_LAUNCH(F, M)                                                    \
   launch_solve<F, M, true>(gram, corr, init, eta, lam, num_iters, b, gm, sk, \
                            sc, group_size, gn_scratch, state_scratch, out,  \
-                           route, taken, stream, stop, tier)
+                           route, &route_taken, stream, stop, tier)
   if (fista)
     err = hard ? VTC_LAUNCH(true, kHard) : VTC_LAUNCH(true, kSoft);
   else
     err = hard ? VTC_LAUNCH(false, kHard) : VTC_LAUNCH(false, kSoft);
 #undef VTC_LAUNCH
+  if (err == cudaSuccess) ++route_launches[route_taken];
+  if (taken != nullptr) *taken = route_taken;
   return static_cast<int>(err);
 }
 

@@ -86,7 +86,8 @@
 // K3 and K15 take vtc_tpu's tiers as K2 does (pallas_train_step.py:854-925,
 // pallas_dp_train.py:129-190): the solve on fista_tier.cuh's kernel, at
 // 'bf16' c as one bf16 pass; the statistics and the update stay fp32.  A
-// tier's stop runs on the classic route at every world size.
+// tier's stop takes the tier plan's route at a world of one (one launch
+// on the resident layout at b 250) and the classic route above it.
 #include "train_core.cuh"
 
 extern "C" int vtc_fused_fista(const float* gram, const float* corr,
@@ -262,8 +263,8 @@ int vtc_solve_stats(const float* d, float* v, const float* x, int b, int s,
 // (vtc_fused_fista's; state_scratch required).  tier and round_scratch:
 // the solves' tier and at 'bf16' c as one bf16 pass, as vtc_train_segment's;
 // the statistics and the update stay fp32 (pallas_dp_train.py:256-258); a
-// tier's stop, at one rank too, is the classic route's (stop_words of
-// its count, state_scratch required).  Returns the first CUDA error code
+// tier's stop at one rank takes the tier plan's route (stop_words of
+// vtc_fista_tier_plan's route), across ranks the classic route's.  Returns the first CUDA error code
 // (0 on success; cudaErrorUnknown for a failed stop_hook), or
 // kSumHookFailed for a failed sum_hook.
 int vtc_dp_train_segment(float* d, float* h, float* v, const float* x, int k,

@@ -20,7 +20,7 @@ from vtc_tpu_torch.ops.precision import matmul_precision
 def _update(images_padded, dictionary, codes, hessian_diagonal, mask,
             kernel_stride, stepsize, num_iters, lowest_code_val,
             normalize_dictionary, padding=None, formulation="direct",
-            precision=None):
+            precision=None, norm_floor=False):
   scale = (hessian_diagonal + lowest_code_val)[:, None, None, None]
   grad_fn = conv_sd.gradient_fn(images_padded, codes, dictionary.shape,
                                 mask, kernel_stride, padding, formulation,
@@ -28,12 +28,10 @@ def _update(images_padded, dictionary, codes, hessian_diagonal, mask,
   d = dictionary
   with matmul_precision():
     for _ in range(int(num_iters)):
-      grad = grad_fn(d) / scale
-      grad = grad * (torch.linalg.vector_norm(d) /
-                     torch.linalg.vector_norm(grad))
+      grad = conv_sd.rescale_gradient(grad_fn(d) / scale, d, norm_floor)
       d = d - stepsize * grad
       if normalize_dictionary:
-        d = conv_sd.renormalize_kernels(d)
+        d = conv_sd.renormalize_kernels(d, norm_floor)
   return d
 
 

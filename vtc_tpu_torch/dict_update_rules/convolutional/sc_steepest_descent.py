@@ -56,26 +56,38 @@ def gradient_fn(images_padded, codes, dictionary_shape, mask, kernel_stride,
                                                 kernel_stride, mask)
 
 
-def renormalize_kernels(dictionary):
-  norms = torch.sqrt(torch.sum(dictionary ** 2, dim=(1, 2, 3), keepdim=True))
-  return dictionary / norms
+def renormalize_kernels(dictionary, norm_floor=False):
+  """Each kernel to unit l2.  ``norm_floor`` floors the squared norm at
+  1e-30, as vtc_tpu's fused kernels do (pallas_conv_train.py:495), so a
+  zero kernel stays zero."""
+  sq = torch.sum(dictionary ** 2, dim=(1, 2, 3), keepdim=True)
+  if norm_floor:
+    sq = torch.clamp(sq, min=1e-30)
+  return dictionary / torch.sqrt(sq)
+
+
+def rescale_gradient(grad, dictionary, norm_floor=False):
+  """The dimensionless step's gradient: grad scaled to the Frobenius norm
+  of the dictionary, its own norm floored at 1e-30 with ``norm_floor``
+  (pallas_conv_train.py:490)."""
+  grad_norm = torch.linalg.vector_norm(grad)
+  if norm_floor:
+    grad_norm = torch.clamp(grad_norm, min=1e-30)
+  return grad * (torch.linalg.vector_norm(dictionary) / grad_norm)
 
 
 def _update(images_padded, dictionary, codes, mask, kernel_stride, stepsize,
             num_iters, normalize_dictionary, padding=None,
-            formulation="direct", precision=None):
+            formulation="direct", precision=None, norm_floor=False):
   grad_fn = gradient_fn(images_padded, codes, dictionary.shape, mask,
                         kernel_stride, padding, formulation, precision)
   d = dictionary
   with matmul_precision():
     for _ in range(int(num_iters)):
-      grad = grad_fn(d)
-      # dimensionless stepsize: the gradient scaled to the F-norm of d
-      grad = grad * (torch.linalg.vector_norm(d) /
-                     torch.linalg.vector_norm(grad))
+      grad = rescale_gradient(grad_fn(d), d, norm_floor)
       d = d - stepsize * grad
       if normalize_dictionary:
-        d = renormalize_kernels(d)
+        d = renormalize_kernels(d, norm_floor)
   return d
 
 

@@ -11,12 +11,14 @@ cheap-quadratic half of the fused train step's plain version
 """
 import torch
 
+from vtc_tpu_torch.dict_update_rules.fully_connected import (
+    sc_steepest_descent)
 from vtc_tpu_torch.ops.precision import matmul_precision
 
 
 def _update(images, dictionary, codes, hessian_diagonal, stepsize,
             num_iters, lowest_code_val, normalize_dictionary,
-            precision=None):
+            precision=None, norm_floor=False):
   batch = codes.shape[0]
   scale = (hessian_diagonal + lowest_code_val)[:, None]
   d = dictionary
@@ -25,7 +27,7 @@ def _update(images, dictionary, codes, hessian_diagonal, stepsize,
       grad = codes.T @ (codes @ d - images) / batch
       d = d - stepsize * grad / scale
       if normalize_dictionary:
-        d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+        d = sc_steepest_descent.renormalize_rows(d, norm_floor)
   return d
 
 

@@ -6,20 +6,26 @@ vtc_tpu/dict_update_rules/fully_connected/sc_steepest_descent.py:19-60.
 repeated ``num_iters`` times, in the inputs' own float type, under the
 precision pins.  Pure: returns the new dictionary.  ``_update`` is also
 the steepest half of the fused train step's plain version
-(ops/fused_train_step.fused_train_segment_plain).
+(ops/fused_train_step.fused_train_segment_plain), which passes
+``norm_floor`` (the fused kernels' floored renorm).
 """
 import torch
 
 from vtc_tpu_torch.ops.precision import matmul_precision
 
 
-def _renormalize_rows(dictionary):
-  return dictionary / torch.linalg.vector_norm(dictionary, dim=1,
-                                               keepdim=True)
+def renormalize_rows(dictionary, norm_floor=False):
+  """Rows to unit l2.  ``norm_floor`` divides by max(|row|, 1e-30), as
+  vtc_tpu's fused kernels do (pallas_train_step.py:530), so a zero row
+  stays zero; its per-batch rules divide by the norm itself."""
+  norms = torch.linalg.vector_norm(dictionary, dim=1, keepdim=True)
+  if norm_floor:
+    norms = torch.clamp(norms, min=1e-30)
+  return dictionary / norms
 
 
 def _update(images, dictionary, codes, stepsize, num_iters,
-            normalize_dictionary, precision=None):
+            normalize_dictionary, precision=None, norm_floor=False):
   batch = codes.shape[0]
   d = dictionary
   with matmul_precision(precision):
@@ -27,7 +33,7 @@ def _update(images, dictionary, codes, stepsize, num_iters,
       grad = codes.T @ (codes @ d - images) / batch
       d = d - stepsize * grad
       if normalize_dictionary:
-        d = _renormalize_rows(d)
+        d = renormalize_rows(d, norm_floor)
   return d
 
 

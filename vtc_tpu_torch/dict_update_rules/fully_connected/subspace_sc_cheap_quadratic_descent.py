@@ -11,7 +11,7 @@ import torch
 from vtc_tpu_torch.analysis_transforms.fully_connected import (
     subspace_ista_fista)
 from vtc_tpu_torch.dict_update_rules.fully_connected import (
-    sc_cheap_quadratic_descent)
+    sc_cheap_quadratic_descent, sc_steepest_descent)
 from vtc_tpu_torch.dict_update_rules.fully_connected._subspace_common import (
     alignment_regularization_gradients)
 from vtc_tpu_torch.ops.precision import matmul_precision
@@ -20,7 +20,7 @@ from vtc_tpu_torch.ops.precision import matmul_precision
 def _update_with_reg(images, dictionary, codes, gather_inds, valid_mask,
                      hessian_diagonal, alignment_penalty, stepsize,
                      num_iters, lowest_code_val, normalize_dictionary,
-                     precision=None):
+                     precision=None, norm_floor=False):
   batch = codes.shape[0]
   scale = (hessian_diagonal + lowest_code_val)[:, None]
   d = dictionary
@@ -32,7 +32,7 @@ def _update_with_reg(images, dictionary, codes, gather_inds, valid_mask,
               + alignment_penalty * reg)
       d = d - stepsize * grad / scale
       if normalize_dictionary:
-        d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+        d = sc_steepest_descent.renormalize_rows(d, norm_floor)
   return d
 
 

@@ -19,7 +19,7 @@ from vtc_tpu_torch.ops.precision import matmul_precision
 
 def _update_with_reg(images, dictionary, codes, gather_inds, valid_mask,
                      alignment_penalty, stepsize, num_iters,
-                     normalize_dictionary, precision=None):
+                     normalize_dictionary, precision=None, norm_floor=False):
   batch = codes.shape[0]
   d = dictionary
   with matmul_precision(precision):
@@ -30,7 +30,7 @@ def _update_with_reg(images, dictionary, codes, gather_inds, valid_mask,
               + alignment_penalty * reg)
       d = d - stepsize * grad
       if normalize_dictionary:
-        d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+        d = sc_steepest_descent.renormalize_rows(d, norm_floor)
   return d
 
 

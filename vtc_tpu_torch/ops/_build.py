@@ -136,6 +136,14 @@ def load_library():
   lib.vtc_fista_tier_gn_floats.restype = ctypes.c_int64
   lib.vtc_fista_tier_state_in_smem.argtypes = [i32, i32]
   lib.vtc_fista_tier_state_in_smem.restype = i32
+  lib.vtc_fista_tier_plan.argtypes = [i32] * 7 + [i32p]
+  lib.vtc_fista_tier_plan.restype = i32
+  # the solves each C solve entry launched on each route since its reset
+  for name in ("vtc_fista", "vtc_group_fista"):
+    getattr(lib, name + "_route_launches").argtypes = [i32]
+    getattr(lib, name + "_route_launches").restype = ctypes.c_longlong
+    getattr(lib, name + "_reset_route_launches").argtypes = []
+    getattr(lib, name + "_reset_route_launches").restype = None
   lib.vtc_power_smem_bytes.argtypes = [i32]
   lib.vtc_power_smem_bytes.restype = i32
   lib.vtc_train_segment.argtypes = [

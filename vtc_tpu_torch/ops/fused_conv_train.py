@@ -156,7 +156,9 @@ def fused_conv_train_plain(dictionary, hessian, eigvec, batches,
   ``precision`` is the matmul precision of the solve and the update
   (default 'highest'); 'tensorfloat32' shows what TF32 products would
   cost.  ``mxu`` is the solve's tier (float32 inputs).  The power refresh
-  always runs at 'highest', as in every tier of the TPU kernel.
+  always runs at 'highest', as in every tier of the TPU kernel.  The
+  update floors |grad| and each kernel's squared norm at 1e-30, as the
+  kernel does (pallas_conv_train.py:490, :495).
   """
   kernel_stride = tuple(int(x) for x in kernel_stride)
   padding = conv_shapes.normalize_padding(padding)
@@ -179,11 +181,12 @@ def fused_conv_train_plain(dictionary, hessian, eigvec, batches,
       h = conv_cqd.hessian_diagonal_ema(h, codes)
       d = conv_cqd._update(batch, d, codes, h, mask, kernel_stride,
                            upd_stepsize, upd_num_iters, lowest_code_val,
-                           renormalize, padding, "block", precision)
+                           renormalize, padding, "block", precision,
+                           norm_floor=True)
     else:
       d = conv_sd._update(batch, d, codes, mask, kernel_stride, upd_stepsize,
                           upd_num_iters, renormalize, padding, "block",
-                          precision)
+                          precision, norm_floor=True)
   if return_stepsize:
     return d, h, v, codes, eta.reshape(1)
   return d, h, v, codes

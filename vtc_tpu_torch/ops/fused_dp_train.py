@@ -46,10 +46,11 @@ same test: each rank's sum, ``Mesh.sum``, then the scale.  ``last_iters``
 segment's counts, ``plain_iters`` the plain version's list of them.
 
 ``mxu`` is vtc_tpu's training tier (pallas_dp_train.py:129-190): every
-step's solve runs it (K1's tier kernel, csrc/fista_tier.cuh, and at 'bf16'
-c as one bf16 pass), the Gram, the refresh, the statistics and the update
-stay fp32.  At a tier the stop takes the classic stop route at a world of
-one too, an iteration a launch, above one with the same hook.
+step's solve runs it (K1's tier routes, csrc/fista_tier.cuh, and at
+'bf16' c as one bf16 pass), the Gram, the refresh, the statistics and the
+update stay fp32.  At a tier the stop takes the tier plan's route at a
+world of one (the resident layout in one launch at b 250), above one the
+classic stop route, an iteration a launch, with the same hook.
 ``launches`` counts the train steps the kernel ran, ``tier_launches``
 those at a tier other than 'highest'.
 """
@@ -90,7 +91,9 @@ def fused_dp_train_plain(dictionary, hessian, eigvec, batches,
   ``precision`` is the matmul precision of the solve (default 'highest');
   ``early_stopping_epsilon`` the kernel's stop test, each iteration's sum
   of |codes - old| summed over ``mesh`` (``Mesh.sum``) and scaled by
-  1 / (global_b s); ``mxu`` the solve's tier (K3's plain version's)."""
+  1 / (global_b s); ``mxu`` the solve's tier (K3's plain version's).  The
+  row renorm floors the norms at 1e-30, as the kernel does
+  (pallas_dp_train.py:301)."""
   global plain_iters
   d, h, v = dictionary, hessian, eigvec
   codes = None
@@ -107,7 +110,8 @@ def fused_dp_train_plain(dictionary, hessian, eigvec, batches,
     d, h = data_parallel._replicated_update(
         d, h, stat, upd_stepsize, upd_num_iters, batch.shape[0] * mesh.size,
         update_alg == "sc_cheap_quadratic_descent", renormalize,
-        lowest_code_val, lambda dd, cmat=cmat, bmat=bmat: cmat @ dd - bmat)
+        lowest_code_val, lambda dd, cmat=cmat, bmat=bmat: cmat @ dd - bmat,
+        norm_floor=True)
   if early_stopping_epsilon is not None:
     plain_iters = counts
   return d, h, v, codes

@@ -36,14 +36,22 @@ iterations the last stopped launch ran.
 
 ``mxu`` is vtc_tpu's tier of the iteration product ('highest', 'bf16x5',
 'bf16x3', 'bf16' or its spelling 'default'; pallas_fista.py:44-56).
-'highest' takes the three fp32 kernels above.  Every other tier takes
-``fista_tier_kernel`` (csrc/fista_tier.cuh): the bf16 terms of z and of
--eta G on the tensor cores, whatever the batch size, with the early stop
-on the classic stop route (an iteration a launch); ``last_route`` is then
-'tier'.  On the CPU ``fused_fista_plain`` computes the same passes
+'highest' takes the three fp32 kernels above.  Every other tier takes one
+of three bf16 tensor-core routes with the same bits (csrc/fista_tier.cuh):
+'tier_cluster' and 'tier_wide', the resident layout (-eta G's bf16 planes
+in shared memory, z's terms pushed over distributed shared memory, one
+cluster barrier an iteration, the stop in the same launch) for small
+batches and for batches that fill the card, where s is a multiple of 16
+and the group size is 1, 2 or 4; else 'tier', ``fista_tier_kernel``
+(one CTA per 16 rows, the planes streamed from L2, the stop on the
+classic stop route, an iteration a launch), which is also the route of
+a stop across ranks.  ``tier_route`` and ``tier_plan`` mirror the rule
+and the layout (``tier_layout``, ``tier_max_rows``, ``tier_shape``).  On
+the CPU ``fused_fista_plain`` computes the same passes
 (``precision.tier_dot``); ``solve_scratch`` sizes the tier kernel's
 scratch from the library's own rule.  ``launches`` counts kernel
-launches.
+launches; ``route_launches`` reads the library's count of the solves each
+route took, the trainers' among them.
 """
 import ctypes
 
@@ -57,7 +65,7 @@ from vtc_tpu_torch.ops.solver import proximal_gradient_loop
 
 launches = 0
 tier_launches = 0  # the launches above at a tier other than 'highest'
-last_route = None  # the last launch's: 'classic', 'cluster', 'wide', 'tier'
+last_route = None  # the last launch's route: a name of ROUTES
 last_iters = None  # int32 device tensor: the last stopped launch's count
 
 # shared memory a block may opt into on Hopper (sm_90): 227 KB
@@ -73,12 +81,16 @@ ROWS, CHUNK, CLUSTER, CLUSTER_MAX_ROWS, CLUSTER_MAX_THREADS = (
  WIDE_MAX_CLUSTER) = (8, 256, 128, 8)
 # fista_core.cuh's early-stop constants (kStopLaneWords, kStopCtlWords)
 STOP_LANE_WORDS, STOP_CTL_WORDS = 8, 3
-# the C entries' route argument, and the route names of their taken value
+# the C entries' route argument at 'highest' and at the other tiers, and
+# the route names of their taken value (fista_core.cuh's Route); a route
+# other than 'auto' forces one, for checks and tools
 ROUTES = {"auto": 0, "classic": 1, "cluster": 2, "wide": 3}
-# the taken value of a tier other than 'highest' (fista_core.cuh's
-# kRouteTier), which 'auto' picks by the tier; a forced route at a tier
-# raises
-ROUTE_NAMES = {v: k for k, v in ROUTES.items() if v} | {4: "tier"}
+TIER_ROUTE_CODES = {"tier": 4, "tier_cluster": 5, "tier_wide": 6}
+ROUTE_NAMES = {v: k for k, v in (ROUTES | TIER_ROUTE_CODES).items() if v}
+TIER_ROUTES = tuple(TIER_ROUTE_CODES)
+# fista_tier.cuh's resident layout constants (kTierUnit, kTierMaxWarps,
+# kTierMaxCluster)
+TIER_UNIT, TIER_MAX_WARPS, TIER_MAX_CLUSTER = 16, 16, 8
 # the kernel's shrink modes, indexed by (nonneg, hard)
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2,
           (True, True): 3}
@@ -451,27 +463,194 @@ def stop_words(route, b, s, group_size, cluster_slots, wide_slots):
   return STOP_CTL_WORDS + -(-b // ROWS)
 
 
+def tier_terms(mxu):
+  """bf16 terms of an operand at a tier (bf16_terms.cuh's tier_terms)."""
+  return {"bf16": 1, "bf16x3": 2, "bf16x5": 3}[mxu]
+
+
+def tier_layout(mxu, s, cluster, rows, bufs=2):
+  """The resident tier layout of clusters of ``cluster`` CTAs at rows
+  batch rows for s codes with bufs buffers of z terms, as fista_tier.cuh's
+  tier_layout: the padded depth sk, w columns a CTA, its compute warps and
+  threads, and its dynamic shared memory in bytes (the tier's bf16 planes
+  of the (sk, w) slice and the buffers of the rows' z terms)."""
+  sk = -(-s // CHUNK) * CHUNK
+  w = sk // cluster
+  warps = rows // ROWS * (w // TIER_UNIT)
+  return dict(sk=sk, w=w, warps=warps, threads=32 * warps,
+              smem=2 * tier_terms(mxu) * (sk * w + bufs * rows * sk))
+
+
+def tier_max_rows(mxu, s, group_size, cluster, bufs=2):
+  """The most rows (a multiple of ROWS) a resident cluster takes within a
+  block's warps and shared memory, or 0 where M is not 1, 2 or 4, the
+  slices are not whole units of TIER_UNIT columns, or no m16 tile fits
+  (fista_tier.cuh's tier_max_rows)."""
+  sk = -(-s // CHUNK) * CHUNK
+  if group_size < 1 or 4 % group_size or cluster < 1 or sk % (
+      TIER_UNIT * cluster):
+    return 0
+  most, rows = 0, ROWS
+  while True:
+    lay = tier_layout(mxu, s, cluster, rows, bufs)
+    if lay["warps"] > TIER_MAX_WARPS or lay["smem"] > _SMEM_PER_BLOCK:
+      return most
+    most, rows = rows, rows + ROWS
+
+
+def tier_shape(b, s, group_size, mxu, slots):
+  """(CTAs a cluster, rows a cluster, buffers of z terms, waves) of the
+  resident layout for b rows, as fista_tier.cuh's tier_shape: over
+  clusters of 1, 2, 4 and 8 CTAs (``slots(cluster)`` of them resident at
+  one CTA an SM) and two or one z buffers, the fewest waves at each
+  layout's most rows, then the least work a CTA (rows x w), then the fewer
+  CTAs and two buffers; rows the batch spread evenly over the waves, in
+  whole m16 tiles.  (0, 0, 0, 0) where no layout fits."""
+  sk = -(-s // CHUNK) * CHUNK
+  best, best_key = (0, 0, 0, 0), None
+  for cluster in (1, 2, 4, TIER_MAX_CLUSTER):
+    for bufs in (2, 1):
+      most = tier_max_rows(mxu, s, group_size, cluster, bufs)
+      if most < ROWS or slots(cluster) < 1:
+        continue
+      waves = -(-b // (slots(cluster) * most))
+      rows = -(-(-(-b // (slots(cluster) * waves))) // ROWS) * ROWS
+      key = (waves, rows * (sk // cluster))
+      if best_key is None or key < best_key:
+        best, best_key = (cluster, rows, bufs, waves), key
+  return best
+
+
+def tier_resident_fits(mxu, s, group_size):
+  """Whether some resident layout holds one m16 tile: s a multiple of
+  TIER_UNIT, M in {1, 2, 4}, and a cluster of at most TIER_MAX_CLUSTER
+  CTAs with room for one buffer of 16 rows (fista_tier.cuh's
+  tier_resident_fits)."""
+  return s % TIER_UNIT == 0 and any(
+      tier_max_rows(mxu, s, group_size, cluster, 1) >= ROWS
+      for cluster in (1, 2, 4, TIER_MAX_CLUSTER))
+
+
+def tier_route(b, s, group_size, mxu, sm_count):
+  """'tier_cluster', 'tier_wide' or 'tier': the route fista_tier.cuh's
+  tier_route picks at tier mxu for b rows of s codes in groups of
+  group_size on a card of sm_count SMs.  Where a resident layout fits,
+  the cluster route where the classic grid of ceil(b / 16) blocks would
+  fill at most half of the SMs, the wide route above (both on
+  tier_shape's layout); fista_tier_kernel otherwise."""
+  if not tier_resident_fits(mxu, s, group_size):
+    return "tier"
+  return "tier_cluster" if 2 * -(-b // ROWS) <= sm_count else "tier_wide"
+
+
+def tier_stop_fits(b, s, mxu, cluster, rows, bufs, slots):
+  """Whether a resident launch of clusters of ``cluster`` CTAs at rows rows
+  takes the stop warp: one resident wave of at most 32 STOP_LANE_WORDS
+  CTAs, with room for the stop's shared memory (fista_tier.cuh's
+  tier_stop_fits)."""
+  if cluster < 1 or rows < ROWS or slots < 1:
+    return False
+  clusters = -(-b // rows)
+  lay = tier_layout(mxu, s, cluster, rows, bufs)
+  return (clusters <= slots and clusters * cluster <= 32 * STOP_LANE_WORDS
+          and lay["smem"] + stop_smem(lay["threads"]) <= _SMEM_PER_BLOCK)
+
+
+def tier_plan(b, s, group_size, mxu, sm_count, slots, stop=False,
+              world=1):
+  """(route, CTAs a cluster, rows a cluster, buffers of z terms) of a
+  solve at tier mxu, as
+  fista_tier.cuh's device_tier_plan picks them under route 'auto':
+  ``slots(cluster)`` the card's clusters of that size at one CTA per SM.
+  With ``stop`` a resident route whose launch is not one resident wave
+  takes 'tier'; a stop across ranks (world above one) takes 'tier'."""
+  if stop and world > 1:
+    return "tier", 0, 0, 0
+  route = tier_route(b, s, group_size, mxu, sm_count)
+  if route == "tier":
+    return route, 0, 0, 0
+  cluster, rows, bufs, _ = tier_shape(b, s, group_size, mxu, slots)
+  if stop and not tier_stop_fits(b, s, mxu, cluster, rows, bufs,
+                                 slots(cluster)):
+    return "tier", 0, 0, 0
+  return route, cluster, rows, bufs
+
+
+def tier_stop_words(route, b, cluster, rows):
+  """The 64-bit words of a tier solve's stop array: two slots a CTA of a
+  resident launch, or the classic route's (fista_tier.cuh's
+  tier_stop_words)."""
+  if route == "tier":
+    return STOP_CTL_WORDS + -(-b // ROWS)
+  return 2 * -(-b // rows) * cluster
+
+
+def device_tier_plan(lib, b, s, group_size, mxu, route="auto", stop=False,
+                     world=1):
+  """The library's plan on the current device: (route name, CTAs a
+  cluster, rows a cluster, buffers of z terms, the card's slots for
+  clusters of that size); raises
+  ValueError for a forced route that does not fit and RuntimeError on
+  another CUDA error."""
+  plan = (ctypes.c_int * 5)()
+  err = lib.vtc_fista_tier_plan(b, s, group_size, TIER_CODES[mxu],
+                                route_code(route), int(stop),
+                                int(world > 1), plan)
+  if err == 1:  # cudaErrorInvalidValue
+    raise ValueError("the tier route %r does not take b=%d, s=%d, M=%d at "
+                     "%s%s" % (route, b, s, group_size, mxu,
+                               " with the stop" if stop else ""))
+  if err:
+    raise RuntimeError("reading the tier route's plan failed with CUDA "
+                       "error %d" % err)
+  return ROUTE_NAMES[plan[0]], plan[1], plan[2], plan[3], plan[4]
+
+
+def route_launches():
+  """{route name: solves launched} of the library's fc solve entry (K1's,
+  which K2, K3 and K15 call for their solves) since the last
+  ``reset_route_launches`` (fused_group_fista.route_launches: K4's)."""
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  return {name: int(lib.vtc_fista_route_launches(code))
+          for code, name in ROUTE_NAMES.items()}
+
+
+def reset_route_launches():
+  """Set the route counts of both solve entries (``route_launches`` and
+  fused_group_fista.route_launches) to 0."""
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  lib.vtc_fista_reset_route_launches()
+  lib.vtc_group_fista_reset_route_launches()
+
+
 def stop_scratch(lib, b, s, group_size, route, eps, device, steps=1,
                  mxu="highest"):
   """The C entries' early-stop arguments for ``steps`` solves in a row of
   b rows of s codes in groups of group_size: (eps, the words, the counts
-  (steps,) int32, whether stop_route takes the classic route, which keeps
+  (steps,) int32, whether the stop takes a classic route, which keeps
   its state in global memory).  eps None is the build without the stop:
   (-1.0, None, None, False).  A negative or NaN eps never stops, as 0.0
-  does.  The stop takes its own route: ``route`` must be 'auto'.  A tier
-  other than 'highest' stops on the classic stop route."""
+  does.  The stop takes its own route (stop_route's, or at a tier other
+  than 'highest' the tier plan's): ``route`` must be 'auto', or at a tier
+  one of TIER_ROUTES (for checks and tools)."""
   if eps is None:
     return -1.0, None, None, False
-  if route != "auto":
+  if route != "auto" and (mxu == "highest" or route not in TIER_ROUTES):
     raise ValueError("the early stop takes stop_route's route, not %r"
                      % (route,))
   eps = float(eps)
   if not eps >= 0.0:
     eps = 0.0
   if mxu != "highest":
-    return (eps, torch.zeros(stop_words("classic", b, s, group_size, 0, 0),
+    taken, cluster, rows, _, _ = device_tier_plan(lib, b, s, group_size,
+                                                  mxu, route, stop=True)
+    return (eps, torch.zeros(tier_stop_words(taken, b, cluster, rows),
                              dtype=torch.int64, device=device),
-            torch.zeros(steps, dtype=torch.int32, device=device), True)
+            torch.zeros(steps, dtype=torch.int32, device=device),
+            taken == "tier")
+
   taken = lib.vtc_fista_stop_route(b, s, group_size)
   words = lib.vtc_fista_stop_words(b, s, group_size)
   if taken < 0 or words < 0:
@@ -505,17 +684,35 @@ def segment_stop_scratch(lib, b, s, group_size, eps, device, steps, world,
           torch.zeros(1, dtype=torch.float32, device=device), True)
 
 
+def route_code(route):
+  """The C entries' code of a route name (ROUTES, TIER_ROUTE_CODES)."""
+  return (ROUTES | TIER_ROUTE_CODES)[route]
+
+
+def check_route(route, mxu):
+  """Raise ValueError unless ``route`` is 'auto' or a route of the tier
+  mxu: 'classic', 'cluster' or 'wide' at 'highest', one of TIER_ROUTES at
+  the others."""
+  if route == "auto":
+    return
+  if mxu == "highest" and route not in ("classic", "cluster", "wide"):
+    raise ValueError("route must be 'auto', 'classic', 'cluster' or 'wide' "
+                     "at 'highest', not %r" % (route,))
+  if mxu != "highest" and route not in TIER_ROUTES:
+    raise ValueError("a tier other than 'highest' takes the tier routes: "
+                     "route must be 'auto' (or one of %s), not %r"
+                     % (", ".join(TIER_ROUTES), route))
+
+
 def _launch(gram, corr, init, eta, lam, num_iters, fista, mode,
             route="auto", eps=None, mxu="highest"):
   """Allocate the kernel's scratch and launch it on the current stream.
-  route 'classic', 'cluster' or 'wide' forces a kernel (for checks and
-  tools); eps the early stop's threshold (None: none); mxu the tier (one
-  other than 'highest' takes the tier kernel, route 'auto')."""
+  route 'classic', 'cluster' or 'wide' (at 'highest') or one of
+  TIER_ROUTES (at another tier) forces a kernel, for checks and tools; eps
+  the early stop's threshold (None: none); mxu the tier."""
   global launches, last_route, last_iters, tier_launches
   from vtc_tpu_torch.ops._build import load_library
-  if mxu != "highest" and route != "auto":
-    raise ValueError("a tier other than 'highest' takes the tier kernel: "
-                     "route must be 'auto', not %r" % (route,))
+  check_route(route, mxu)
   lib = load_library()
   b, s = corr.shape
   device = corr.device
@@ -531,7 +728,7 @@ def _launch(gram, corr, init, eta, lam, num_iters, fista, mode,
         None if init is None else init.data_ptr(), eta.data_ptr(),
         ctypes.c_float(lam), num_iters, b, s, sk, sc, int(fista), mode,
         gn.data_ptr(), None if state is None else state.data_ptr(),
-        out.data_ptr(), ROUTES[route], ctypes.byref(taken),
+        out.data_ptr(), route_code(route), ctypes.byref(taken),
         ctypes.c_float(eps), ctypes.c_float(1.0 / (b * s)),
         None if words is None else words.data_ptr(),
         None if iters is None else iters.data_ptr(), 1, None, None,

@@ -102,7 +102,8 @@ def fused_group_dp_train_plain(
   ``early_stopping_epsilon`` the kernel's stop test on the grouped codes,
   each iteration's sum summed over ``mesh`` and scaled by
   1 / (global_b G M); ``mxu`` the group solve's tier, the identity
-  layout's codes unrounded at 'bf16'."""
+  layout's codes unrounded at 'bf16'.  The row renorm floors the norms at
+  1e-30, as the kernel does (pallas_group_dp_train.py:288)."""
   global plain_iters
   d, h, v = dictionary, hessian, eigvec
   penalty = float(alignment_penalty)
@@ -130,7 +131,7 @@ def fused_group_dp_train_plain(
         d, h, stat, upd_stepsize, upd_num_iters, batch.shape[0] * mesh.size,
         update_alg == "subspace_sc_cheap_quadratic_descent", renormalize,
         lowest_code_val, lambda dd, cmat=cmat, bmat=bmat: cmat @ dd - bmat,
-        reg_fn)
+        reg_fn, norm_floor=True)
   if early_stopping_epsilon is not None:
     plain_iters = counts
   return d, h, v, codes

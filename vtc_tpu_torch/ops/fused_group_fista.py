@@ -32,8 +32,10 @@ inside the kernels, on K1's stop routes (``fused_fista.stop_route``);
 iterations the last stopped launch ran.
 
 ``mxu`` is vtc_tpu's tier (pallas_group_fista.py:54-66), as in
-``fused_fista``: a tier other than 'highest' takes the tier kernel
-(csrc/fista_tier.cuh) at every M.  Its group prox sums the windows in
+``fused_fista``: a tier other than 'highest' takes ``fused_fista``'s tier
+routes (csrc/fista_tier.cuh): the resident 'tier_cluster' or 'tier_wide'
+layout at M in {1, 2, 4} (the group prox in registers), else
+``fista_tier_kernel`` ('tier').  Its group prox sums the windows in
 float32 where M is a power of two (vtc_tpu's rotate-and-add prox) or the
 tier is 'bf16x5'; at other M, 'bf16x3' and 'bf16' round the window sums
 and the scale as vtc_tpu's ``_make_prox_dots`` (``precision.prox_sums``,
@@ -233,17 +235,25 @@ def fused_group_fista_solve(images, grouped_dictionary, group_size,
                  eps=early_stopping_epsilon, mxu=mxu)
 
 
+def route_launches():
+  """{route name: solves launched} of the library's group solve entry
+  (K4's, which K6, K7 and K16 call for their solves) since the last
+  fused_fista.reset_route_launches."""
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  return {name: int(lib.vtc_group_fista_route_launches(code))
+          for code, name in fused_fista.ROUTE_NAMES.items()}
+
+
 def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard,
             route="auto", eps=None, mxu="highest"):
   """Allocate the kernel's scratch and launch it on the current stream.
-  route 'classic', 'cluster' or 'wide' forces a kernel
-  (fused_fista.solve_route is the rule 'auto' follows, stop_route with
-  the early stop); eps the stop's threshold (None: none); mxu the tier (one
-  other than 'highest' takes the tier kernel, route 'auto')."""
+  route 'classic', 'cluster' or 'wide' (at 'highest') or one of
+  fused_fista.TIER_ROUTES (at another tier) forces a kernel, for checks
+  and tools (fused_fista.solve_route and tier_route are the rules 'auto'
+  follows); eps the stop's threshold (None: none); mxu the tier."""
   global launches, last_route, last_iters, tier_launches
-  if mxu != "highest" and route != "auto":
-    raise ValueError("a tier other than 'highest' takes the tier kernel: "
-                     "route must be 'auto', not %r" % (route,))
+  fused_fista.check_route(route, mxu)
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
   b, gm = corr.shape
@@ -262,7 +272,7 @@ def _launch(gram, corr, init, eta, lam, num_iters, group_size, fista, hard,
         ctypes.c_float(lam), num_iters, b, gm, group_size, sk, sc,
         int(fista), int(hard), gn.data_ptr(),
         None if state is None else state.data_ptr(), out.data_ptr(),
-        fused_fista.ROUTES[route], ctypes.byref(taken), ctypes.c_float(eps),
+        fused_fista.route_code(route), ctypes.byref(taken), ctypes.c_float(eps),
         ctypes.c_float(1.0 / (b * gm)),
         None if words is None else words.data_ptr(),
         None if iters is None else iters.data_ptr(), 1, None, None,

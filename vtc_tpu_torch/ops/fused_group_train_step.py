@@ -37,7 +37,7 @@ the Hessian EMA and the update take the stopped codes; ``last_iters`` (a
 private test hook) is the int32 device tensor (k,) of each step's count.
 
 ``mxu`` is vtc_tpu's training tier (pallas_train_step.py:541-588): every
-step's group solve runs it (K4's tier kernel, csrc/fista_tier.cuh), and at
+step's group solve runs it (K4's tier routes, csrc/fista_tier.cuh), and at
 'bf16' c = X Dg^T is one bf16 pass and, where the groups are not the
 identity layout, the summed unpack adds bf16-rounded slots (:691); the
 grouped build, its Gram, the refresh, the update and the regularizer stay
@@ -166,7 +166,8 @@ def fused_group_train_segment_plain(
   cost.  The power refresh always runs at 'highest', as in every tier of
   the TPU kernel.  ``mxu``: the group solve's tier; at 'bf16' c is one
   bf16 pass and the unpack adds bf16-rounded slots unless the groups are
-  the identity layout.
+  the identity layout.  The row renorm divides by max(|row|, 1e-30), as
+  the kernel does (pallas_train_step.py:719, :845).
   """
   mxu = resolve_tier(mxu)
   d, h, v = dictionary, hessian, eigvec
@@ -192,18 +193,20 @@ def fused_group_train_segment_plain(
       h = cqd.hessian_diagonal_ema(h, codes)
     if alignment_penalty == 0:
       d = (cqd._update(batch, d, codes, h, upd_stepsize, upd_num_iters,
-                       lowest_code_val, renormalize, precision=precision)
+                       lowest_code_val, renormalize, precision=precision,
+                       norm_floor=True)
            if cheap else
            sd._update(batch, d, codes, upd_stepsize, upd_num_iters,
-                      renormalize, precision=precision))
+                      renormalize, precision=precision, norm_floor=True))
     elif cheap:
       d = sub_cqd._update_with_reg(
           batch, d, codes, gather, mask, h, alignment_penalty, upd_stepsize,
-          upd_num_iters, lowest_code_val, renormalize, precision=precision)
+          upd_num_iters, lowest_code_val, renormalize, precision=precision,
+          norm_floor=True)
     else:
       d = sub_sd._update_with_reg(
           batch, d, codes, gather, mask, alignment_penalty, upd_stepsize,
-          upd_num_iters, renormalize, precision=precision)
+          upd_num_iters, renormalize, precision=precision, norm_floor=True)
   if return_stepsize:
     return d, h, v, codes, eta.reshape(1)
   return d, h, v, codes

@@ -27,8 +27,8 @@ host wait.  ``last_iters`` (a private test hook) is the int32 device
 tensor (k,) of the iterations each step's solve ran.
 
 ``mxu`` is vtc_tpu's training tier (pallas_train_step.py:398-411): every
-step's solve runs it (K1's tier kernel, csrc/fista_tier.cuh, its stop on
-the classic stop route), and at 'bf16' c = X D^T is one bf16 pass (both
+step's solve runs it (K1's tier routes, csrc/fista_tier.cuh: the tier
+cluster route at b 250, its stop in the same launch), and at 'bf16' c = X D^T is one bf16 pass (both
 operands rounded to bf16, then the fp32 product); the Gram, the power
 refresh and the update stay fp32 in every tier.
 
@@ -90,7 +90,9 @@ def fused_train_segment_plain(dictionary, hessian, eigvec, batches,
   (default 'highest'); 'tensorfloat32' shows what TF32 products would
   cost.  The power refresh always runs at 'highest', as in every tier of
   the TPU kernel.  ``mxu``: the solve's tier, and at 'bf16' c as one bf16
-  pass (``fused_fista_plain``'s ``bf16_corr``).
+  pass (``fused_fista_plain``'s ``bf16_corr``).  The row renorm divides
+  by max(|row|, 1e-30), as the kernel does (pallas_train_step.py:530), so
+  a zero row stays zero.
   """
   mxu = resolve_tier(mxu)
   d, h, v = dictionary, hessian, eigvec
@@ -106,10 +108,11 @@ def fused_train_segment_plain(dictionary, hessian, eigvec, batches,
     if update_alg == "sc_cheap_quadratic_descent":
       h = cqd.hessian_diagonal_ema(h, codes)
       d = cqd._update(batch, d, codes, h, upd_stepsize, upd_num_iters,
-                      lowest_code_val, renormalize, precision=precision)
+                      lowest_code_val, renormalize, precision=precision,
+                      norm_floor=True)
     else:
       d = sd._update(batch, d, codes, upd_stepsize, upd_num_iters,
-                     renormalize, precision=precision)
+                     renormalize, precision=precision, norm_floor=True)
   if return_stepsize:
     return d, h, v, codes, eta.reshape(1)
   return d, h, v, codes

@@ -73,6 +73,10 @@ from vtc_tpu_torch.analysis_transforms.convolutional import (
 from vtc_tpu_torch.analysis_transforms.fully_connected import ista_fista
 from vtc_tpu_torch.analysis_transforms.fully_connected import (
     subspace_ista_fista)
+from vtc_tpu_torch.dict_update_rules.convolutional import (
+    sc_steepest_descent as conv_sd)
+from vtc_tpu_torch.dict_update_rules.fully_connected import (
+    sc_steepest_descent as fc_sd)
 from vtc_tpu_torch.dict_update_rules.fully_connected._subspace_common import (
     alignment_regularization_gradients)
 from vtc_tpu_torch.ops import conv_dict_gram, conv_shapes, fused_conv_direct
@@ -105,10 +109,13 @@ def build_pjit_train_step(mesh, mode, inference_alg, update_alg, *,
 
 def _replicated_update(dictionary, hessian, stat, upd_stepsize,
                        upd_num_iters, global_b, uses_hessian, renormalize,
-                       lowest_code_val, grad_fn, reg_fn=None):
+                       lowest_code_val, grad_fn, reg_fn=None,
+                       norm_floor=False):
   """The Hessian EMA from the reduced statistic and ``upd_num_iters``
   update iterations on the replicated dictionary; ``grad_fn(d)`` is the
-  reduced gradient sum at d, ``reg_fn(d)`` the regularizer's gradient."""
+  reduced gradient sum at d, ``reg_fn(d)`` the regularizer's gradient.
+  ``norm_floor`` floors the row norms at 1e-30, as the whole-segment
+  kernels do (pallas_dp_train.py:301); vtc_tpu's per-op steps do not."""
   with matmul_precision():
     if uses_hessian:
       hessian = 0.99 * hessian + (stat / global_b) / 100.0
@@ -122,7 +129,7 @@ def _replicated_update(dictionary, hessian, stat, upd_stepsize,
         grad = grad / scale
       d = d - upd_stepsize * grad
       if renormalize:
-        d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+        d = fc_sd.renormalize_rows(d, norm_floor)
   return d, hessian
 
 
@@ -134,7 +141,8 @@ def _replicated_conv_update(dictionary, hessian, stat, upd_stepsize,
   (dict_update_rules/convolutional/*._update): the Hessian scaling, then
   the rescale of the gradient to the dictionary's Frobenius norm (its norm
   floored at 1e-30 with ``norm_floor``, the fused form's), the step and the
-  per-kernel renorm.  ``grad_fn(d)`` is the reduced, batch-averaged kernel
+  per-kernel renorm (each kernel's squared norm floored at 1e-30 with
+  ``norm_floor``, as K17 does at pallas_conv_dp_train.py:291).  ``grad_fn(d)`` is the reduced, batch-averaged kernel
   gradient at d."""
   with matmul_precision():
     if uses_hessian:
@@ -145,13 +153,10 @@ def _replicated_conv_update(dictionary, hessian, stat, upd_stepsize,
       grad = grad_fn(d)
       if uses_hessian:
         grad = grad / scale
-      grad_norm = torch.linalg.vector_norm(grad.reshape(-1))
-      if norm_floor:
-        grad_norm = torch.clamp(grad_norm, min=1e-30)
-      grad = grad * (torch.linalg.vector_norm(d.reshape(-1)) / grad_norm)
+      grad = conv_sd.rescale_gradient(grad, d, norm_floor)
       d = d - upd_stepsize * grad
       if renormalize:
-        d = d / torch.sqrt(torch.sum(d ** 2, dim=(1, 2, 3), keepdim=True))
+        d = conv_sd.renormalize_kernels(d, norm_floor)
   return d, hessian
 
 
