@@ -756,6 +756,25 @@ check here.
    with a zero kernel, each CUDA kernel against its plain version: every
    output finite and within phase 2's limit, the zero row or kernel still
    zero.
+54. The conv tier GEMM's window route (csrc/conv_gemm_tier.cuh's
+   conv_window_gemm, on the main path of every conv tier product the
+   window holds): (a) every product (corr, the synthesis,
+   K12's residual, the analysis under FISTA and ISTA at each shrink mode)
+   at each tier on seven geometries (the flagship at b 40 and b 5,
+   bench.py's k12s8 and s128, a ragged batch, 2 x 1 kernel parts, codes
+   128 wide), the window route forced against gather_gemm_tier forced:
+   bitwise, with and without the stop (the same count and stop word, a
+   launch after the stop writing nothing); a forced window launch the
+   plan refuses fails; then K10 at b 40 and b 5, one step of K12, K13
+   (both forms) and K17, and the conv encode, bitwise on both routes,
+   with the stop at the same count; (b) planted results (the other route
+   at another tier, one output one ulp off) fail; (c) the route table of
+   the library against ops/fused_conv_direct.conv_tier_plan, phase 48's
+   main path all on the window route, gather_gemm_tier's main path (the
+   encode with 512 kernels, and with 128 at bf16x5); (d) times in turns
+   (gather_gemm_tier, window, window, gather_gemm_tier) of each product and
+   of K10, K12, K13 and K17 beside 'highest', the library time, both
+   bounds and the window kernel's registers, spill and CTAs an SM.
 
 The data are made here from a seed: sparse mixtures of a random
 unit-norm generating dictionary plus noise, at the pixel scale of
@@ -865,6 +884,8 @@ CUDA_TESTS = {
     "test_cuda_tier_routes_match_fista_tier_kernel_bitwise": (52,),
     "test_torch_port_fista_tier_layout.py::"
     "test_cuda_trainers_launch_the_tier_routes": (46, 47, 52),
+    "test_torch_port_conv_tier_window.py::"
+    "test_cuda_window_route_matches_gather_bitwise": (54,),
 }
 
 
@@ -6627,11 +6648,12 @@ def conv_tier_bounds(geo, tier):
 
 def conv_tier_families(torch, mods, parallel, lipschitz, inputs):
   """{label: (module, tier counter, steps a call, run(x, mxu, eps=None,
-  iters=None), plain(x, mxu, eps=None), input x)} of phase 48's kernel
-  cases: K10 at the flagship (b 40 FISTA 100, windowed kernels) and the
-  trainer's b 5 ISTA 25 (random kernels), one K12 step and one K17 step at
-  measure_conv(40, 25) from the trainer's exact seed, K13 on a shard of
-  20 in the gradient and the gram form."""
+  iters=None, route='auto'), plain(x, mxu, eps=None), input x)} of phase
+  48's kernel cases: K10 at the flagship (b 40 FISTA 100, windowed
+  kernels) and the trainer's b 5 ISTA 25 (random kernels), one K12 step
+  and one K17 step at measure_conv(40, 25) from the trainer's exact seed,
+  K13 on a shard of 20 in the gradient and the gram form; ``route`` the
+  tier products' (phase 54 forces each)."""
   K10, K12, K17 = mods
   x40, d40, eta40, x5, d5, eta5, seg, sd0 = inputs
   mesh1 = parallel.make_mesh()
@@ -6642,10 +6664,10 @@ def conv_tier_families(torch, mods, parallel, lipschitz, inputs):
   step = dict(kw, power_iters=2)
 
   def k10(x, d, eta, iters, variant):
-    def run(xx, mxu, eps=None, n=None):
+    def run(xx, mxu, eps=None, n=None, route="auto"):
       return K10.fused_conv_direct_solve(
           xx, d, CONV_LAM, iters if n is None else n, eta, variant=variant,
-          mxu=mxu, early_stopping_epsilon=eps, **kw)
+          mxu=mxu, early_stopping_epsilon=eps, route=route, **kw)
 
     def plain(xx, mxu, eps=None):
       return K10.fused_conv_direct_plain(
@@ -6653,20 +6675,22 @@ def conv_tier_families(torch, mods, parallel, lipschitz, inputs):
           early_stopping_epsilon=eps, **kw)
     return run, plain
 
-  def k12(xx, mxu, eps=None, n=None):
+  def k12(xx, mxu, eps=None, n=None, route="auto"):
     return K12.fused_conv_train_segment(
         sd0, h0, v0, xx, CONV_LAM, SEG_ITERS if n is None else n, SEG_STEP,
-        mxu=mxu, early_stopping_epsilon=eps, **step)
+        mxu=mxu, early_stopping_epsilon=eps, route=route, **step)
 
-  def k17(xx, mxu, eps=None, n=None):
+  def k17(xx, mxu, eps=None, n=None, route="auto"):
     return K17.fused_conv_dp_train_segment(
         sd0, h0, v0, xx, CONV_LAM, SEG_ITERS if n is None else n, SEG_STEP,
-        mesh=mesh1, mxu=mxu, early_stopping_epsilon=eps, **step)
+        mesh=mesh1, mxu=mxu, early_stopping_epsilon=eps, route=route,
+        **step)
 
   def k13(gram):
-    def run(xx, mxu, eps=None, n=None):
+    def run(xx, mxu, eps=None, n=None, route="auto"):
       return K12.conv_solve_stats(sd0, v0, xx, CONV_LAM, SEG_ITERS,
-                                  gram_stats=gram, mxu=mxu, **step)
+                                  gram_stats=gram, mxu=mxu, route=route,
+                                  **step)
 
     def plain(xx, mxu, eps=None):
       return K12.conv_solve_stats_plain(sd0, v0, xx, CONV_LAM, SEG_ITERS,
@@ -6986,8 +7010,10 @@ def conv_tier_main_path(torch, mods, compiled_epoch, parallel,
   for SEG_STEPS steps (SEG_STEPS K17 tier steps); the 'dcn' composition
   for CONV_TIER_DCN_STEPS steps (K13).  Every dictionary finite, its
   kernels unit norm within 1e-4, its held-out conv LASSO falling; printed
-  beside 'highest''s.  Returns ({(module name, tier): tier launches},
-  {(entry, tier): images/s})."""
+  beside 'highest''s.  The library's count of tier products by route is
+  zeroed before each entry and read after it (phase 54 (c) checks it).
+  Returns ({(module name, tier): tier launches}, {(entry, tier):
+  images/s}, {(entry, tier): {route: tier products}})."""
   K10, K12, K17 = mods
   counters = (("K10", K10, "tier_launches"), ("K12", K12, "tier_launches"),
               ("K13", K12, "stats_tier_launches"),
@@ -7002,14 +7028,21 @@ def conv_tier_main_path(torch, mods, compiled_epoch, parallel,
   # one untimed encode first: the first call's set-up is no tier's cost
   encode_dataset(cimages[:CONV_BATCH], conv_d, CONV_LAM, CONV_ITERS,
                  **conv_kw)
-  counts, rates, losses, dp_runs = {}, {}, {}, {}
+  counts, rates, losses, dp_runs, routes = {}, {}, {}, {}, {}
+
+  def products_by_route(entry, tier):
+    routes[entry, tier] = K10.tier_route_launches()
+    K10.reset_tier_route_launches()
+
   for tier in ("highest",) + TIER_NAMES:
     for _, mod, counter in counters:
       setattr(mod, counter, 0)
+    K10.reset_tier_route_launches()
     t0 = time.perf_counter()
     codes = encode_dataset(cimages, conv_d, CONV_LAM, CONV_ITERS,
                            mxu_precision=tier, **conv_kw)
     rates["encode", tier] = cimages.shape[0] / (time.perf_counter() - t0)
+    products_by_route("encode", tier)
     check(codes.shape == (CONV_IMAGES, CONV_S, 33, 33)
           and bool(np.isfinite(codes).all()), "conv encode at %s: codes of "
           "shape %s, finite %s" % (tier, codes.shape,
@@ -7030,6 +7063,7 @@ def conv_tier_main_path(torch, mods, compiled_epoch, parallel,
               "'highest' at every tier" % tier)
       kind = "data-parallel trainer" if dp else "trainer"
       rates[kind, tier] = SEG_STEPS * SEG_BATCH / (time.perf_counter() - t0)
+      products_by_route(kind, tier)
       norm_err = float((torch.linalg.vector_norm(
           trained.reshape(CONV_S, -1), dim=1) - 1).abs().max())
       loss = held_out_fista_conv_loss(conv_ista_fista, sparse_coding, held,
@@ -7046,9 +7080,11 @@ def conv_tier_main_path(torch, mods, compiled_epoch, parallel,
            dp_tier_seed(sd0.reshape(CONV_S, -1)),
            seg[:CONV_TIER_DCN_STEPS].contiguous(), CONV_LAM, SEG_ITERS,
            SEG_STEP)
+    products_by_route("dcn composition", tier)
     k17 = conv_tier_k17_runner(compiled_epoch, mesh1, tier)(
         sd0, *conv_k17_seed(torch, sd0), seg, CONV_LAM, SEG_ITERS, SEG_STEP)[0]
     torch.cuda.synchronize()
+    products_by_route("K17 runner", tier)
     check(bool(torch.isfinite(k17).all()), "K17's runner at %s: non-finite "
           "kernels" % tier)
     for name, mod, counter in counters:
@@ -7072,7 +7108,7 @@ def conv_tier_main_path(torch, mods, compiled_epoch, parallel,
     print("conv tier %s: images/s %s; 'highest' %.2f [%s]" % (
         kind, ", ".join("%s %.2f" % (t, rates[kind, t]) for t in TIER_NAMES),
         rates[kind, "highest"], card))
-  return counts, rates
+  return counts, rates, routes
 
 
 def conv_library_ms(torch, fn):
@@ -7181,7 +7217,7 @@ def conv_tier_phase(torch, dev, card, mods, cimages, conv_d, cpad, x5, d5,
         "apart): %s" % (len(stops), near or "none"))
   world2, world2_s = conv_tier_world_of_two(torch, compiled_epoch, parallel,
                                             lipschitz, K17, seg, sd0)
-  counts, rates = conv_tier_main_path(
+  counts, rates, routes = conv_tier_main_path(
       torch, mods, compiled_epoch, parallel, encode_dataset, conv_ista_fista,
       sparse_coding, cimages, conv_d, cpad, seg, held, sd0, card)
   geo = K10.geometry(x40.shape, conv_d.shape, (CONV_STRIDE, CONV_STRIDE))
@@ -7190,7 +7226,7 @@ def conv_tier_phase(torch, dev, card, mods, cimages, conv_d, cpad, x5, d5,
   print("phase 48: %.1f s (its ranks %.1f s); %d planted wrong-tier results "
         "failed" % (time.perf_counter() - t0, world2_s, len(planted)))
   return dict(errs=errs, planted=planted, stops=stops, counts=counts,
-              times=times, world2=world2, rates=rates)
+              times=times, world2=world2, rates=rates, routes=routes)
 
 
 # ---------------------------------------------------------------------------
@@ -8714,9 +8750,10 @@ def tier_route_phase(torch, dev, card, patches, tiers, dp_tiers):
 def highest_step_library(torch, dev, card):
   """{kernel row: ms}: the library time of the 'highest' fc, subspace and
   ICA step rows, a step's products each one fp32 torch.matmul (cuBLAS,
-  TF32 off; library_turns' median of TIER_LIB_TURNS turns): K2, K3, K6,
-  K7, K15 and K16 the solve's TRAIN_ITERS (250 x 256) @ (256 x 256)
-  products; K8 and K18 the step's ICA_REFINE refinements (two n^3
+  TF32 off; library_turns' median of TIER_LIB_TURNS turns): K2, K6, K15
+  and K16 the solve's TRAIN_ITERS (250 x 256) @ (256 x 256) products, K3
+  and K7 those of their timed shard, (125 x 256) @ (256 x 256); K8 and
+  K18 the step's ICA_REFINE refinements (two n^3
   products each), its residual and update (n^3 each), codes and
   statistic (b n^2 each), at n 256, b 250; K9 the same without the
   update."""
@@ -8730,20 +8767,25 @@ def highest_step_library(torch, dev, card):
   with matmul_precision():
     solve = library_turns(torch, lambda: [torch.matmul(z, g)
                                           for _ in range(TRAIN_ITERS)])
+    shard = z[:TRAIN_BATCH // 2].contiguous()
+    solve_shard = library_turns(torch, lambda: [torch.matmul(shard, g)
+                                                for _ in range(TRAIN_ITERS)])
     ica = library_turns(torch, lambda: [torch.matmul(a, b)
                                         for a, b in sq + [(g, g)] + rows])
     stats = library_turns(torch, lambda: [torch.matmul(a, b)
                                           for a, b in sq + rows])
   for name in ("fused_train_step", "fused_group_train_step",
-               "fused_solve_stats", "fused_group_solve_stats",
                "fused_dp_train", "fused_group_dp_train"):
     out[name] = solve[0]
+  out["fused_solve_stats"] = out["fused_group_solve_stats"] = solve_shard[0]
   out["fused_ica_train"] = out["fused_ica_dp_train"] = ica[0]
   out["ica_solve_stats"] = stats[0]
   print("library at 'highest' (fp32 torch.matmul, TF32 off, median of %d "
-        "turns): a fc/subspace step's %d solve products %.4f ms (%.4f-%.4f); "
-        "an ICA step's products %.4f (%.4f-%.4f), K9's %.4f (%.4f-%.4f) "
-        "[%s]" % (TIER_LIB_TURNS, TRAIN_ITERS, *solve, *ica, *stats, card))
+        "turns): a fc/subspace step's %d solve products %.4f ms (%.4f-%.4f), "
+        "at K3's and K7's shard of %d %.4f (%.4f-%.4f); an ICA step's "
+        "products %.4f (%.4f-%.4f), K9's %.4f (%.4f-%.4f) [%s]" % (
+            TIER_LIB_TURNS, TRAIN_ITERS, *solve, TRAIN_BATCH // 2,
+            *solve_shard, *ica, *stats, card))
   return out
 
 
@@ -8837,6 +8879,527 @@ def norm_floor_phase(torch, dev, card):
   print("phase 53: %d cases, worst max|d| %.3e (%.1f s)" % (
       len(cases), worst, time.perf_counter() - t0))
   return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 54: the conv tier GEMM's window route (conv_window_gemm,
+# csrc/conv_gemm_tier.cuh)
+# ---------------------------------------------------------------------------
+# (label, images (b, c, H, W), kernels (s, c, kh, kw), stride) of (a): the
+# flagship at b 40 and b 5, bench.py's conv_nonmultiple_k12s8_batch40 and
+# conv_s128_batch40 geometries (bench.py:766-785), a ragged batch, parts of
+# 2 x 1 (ay != ax), and the window's limit: codes 128 wide (its widest row
+# a tile; the synthesis's 129-wide rows go to gather_gemm_tier)
+WINDOW_GEOMETRIES = (
+    ("flagship b40", (40, 1, 272, 272), (64, 1, 16, 16), 8),
+    ("flagship b5", (5, 1, 272, 272), (64, 1, 16, 16), 8),
+    ("k12s8 b40", (40, 1, 268, 268), (64, 1, 12, 12), 8),
+    ("s128 b40", (40, 1, 272, 272), (128, 1, 16, 16), 8),
+    ("ragged b3", (3, 1, 272, 272), (64, 1, 16, 16), 8),
+    ("2x1 parts b4", (4, 1, 272, 272), (64, 1, 16, 8), 8),
+    ("128-wide codes b2", (2, 1, 516, 516), (16, 1, 8, 8), 4))
+WINDOW_REPS = 3           # calls a timed turn of a solve or step row
+WINDOW_PRODUCT_REPS = 20  # calls a timed turn of a product
+WINDOW_MAIN_ITERS = 25    # FISTA iterations of (c)'s s128 / s512 encodes
+
+
+def window_inputs(torch, K10, geo, b, seed, dev):
+  """Random inputs of a geometry's tier products on b images: packed
+  weights (dstk, dall) of N(0, 0.1^2) kernels, codes, image blocks, a
+  mask, the residual's subtrahend, corr, old and eta."""
+  rng = np.random.RandomState(seed)
+
+  def t(*shape, scale=1.0):
+    return torch.tensor((scale * rng.randn(*shape)).astype(np.float32),
+                        device=dev)
+  d = t(geo["s"], geo["c"], geo["kh"], geo["kw"], scale=0.1)
+  dstk, dall = K10.pack_weights(d, geo)
+  codes = (b, geo["s"], geo["code_h"], geo["code_w"])
+  blocks = (b, geo["cpx"], geo["bh"], geo["bw"])
+  return dict(dstk=dstk, dall=dall, z=t(*codes), img=t(*blocks),
+              mask=torch.tensor(rng.rand(*blocks[1:]).astype(np.float32),
+                                device=dev),
+              xblk=t(*blocks), corr=t(*codes), old=t(*codes),
+              eta=torch.tensor([0.05], device=dev))
+
+
+def window_variants(geo, inp):
+  """(name, weights, source, sign, offsets a row, output (h, w),
+  tier_product keywords) of
+  a geometry's products: corr (kStore), the synthesis (kMaskStore), K12's
+  update residual (kMaskResid) and the analysis (kProx) under FISTA and
+  ISTA at each shrink mode."""
+  codes_hw, blocks_hw = (geo["code_h"], geo["code_w"]), (geo["bh"], geo["bw"])
+  ax = geo["ax"]
+  out = [("corr", inp["dall"], inp["img"], 1, ax, codes_hw,
+          dict(epilogue="store")),
+         ("synthesis", inp["dstk"], inp["z"], -1, ax, blocks_hw,
+          dict(epilogue="mask_store", mask=inp["mask"])),
+         ("residual", inp["dstk"], inp["z"], -1, ax, blocks_hw,
+          dict(epilogue="mask_resid", mask=inp["mask"], extra=inp["xblk"]))]
+  for fista in (True, False):
+    for shrink in range(4):
+      out.append(("analysis %s shrink %d" % ("fista" if fista else "ista",
+                                             shrink),
+                  inp["dall"], inp["img"], 1, ax, codes_hw,
+                  dict(epilogue="prox", z=inp["z"], corr=inp["corr"],
+                       eta=inp["eta"], lam=0.02, beta=0.3, fista=fista,
+                       shrink=shrink)))
+  return out
+
+
+def window_product_runs(torch, K10, lib, variant, tier, route, inp):
+  """One product on a forced route: {name: tensor} of its outputs (out;
+  under kProx old too), then under kProx the STOP build at iteration 1
+  with an eps that stops it (its outputs, the count and the stop word) and
+  a STOP launch at iteration 2 after the stop, which must leave old as it
+  was.  Raises on the launch's CUDA error."""
+  name, a, src, sign, off_w, hw, kw = variant
+  prox = kw["epilogue"] == "prox"
+  kw = dict(kw)
+  if prox:
+    kw["old"] = inp["old"].clone()
+  out = {"out": K10.tier_product(a, src, hw, off_w, sign, tier, route=route,
+                                 **kw)}
+  if not prox:
+    return out
+  out["old"] = kw["old"]
+  m = a.shape[0]
+  positions = src.shape[0] * hw[0] * hw[1]
+  words = torch.zeros(int(lib.vtc_conv_stop_words(m, positions)),
+                      dtype=torch.int64, device=a.device)
+  iters = torch.zeros(1, dtype=torch.int32, device=a.device)
+  kw["old"] = inp["old"].clone()
+  stop = (words, iters, 1e30, 1.0 / (positions * m))
+  out["stop out"] = K10.tier_product(a, src, hw, off_w, sign, tier,
+                                     route=route, stop=stop + (1,), **kw)
+  out["stop old"] = kw["old"].clone()
+  out["stop count"] = iters.clone()
+  out["stop word"] = words[:1].clone()
+  K10.tier_product(a, src, hw, off_w, sign, tier, route=route,
+                   stop=stop + (2,), **kw)
+  out["old after the stop"] = kw["old"]
+  return out
+
+
+def window_bitwise_products(torch, K10, lib, dev):
+  """(a) Every product of every WINDOW_GEOMETRIES geometry at each tier on
+  both routes, forced: the window route's outputs bitwise gather_gemm_tier's
+  (under kProx old too, and the STOP build: its outputs bitwise the build
+  without the stop, the same count and stop word on both routes, and a
+  launch after the stop leaving old as it was).  Where conv_tier_plan
+  sends the product to gather_gemm_tier, the forced window route must
+  fail with the launch's error, never run another kernel.  (b) Planted:
+  at the flagship b 5 at each tier, the analysis's window output against
+  gather_gemm_tier's at each other tier, and with one output one ulp off,
+  must differ.  Returns (products compared, refused, planted failed)."""
+  compared, refused, planted = 0, [], 0
+  sms = lib.vtc_fista_sm_count()
+  for gi, (label, images, kernels, stride) in enumerate(WINDOW_GEOMETRIES):
+    geo = K10.geometry(images, kernels, (stride, stride))
+    b = images[0]
+    inp = window_inputs(torch, K10, geo, b, 540 + gi, dev)
+    shapes = K10.solve_products(geo, b)
+    for variant in window_variants(geo, inp):
+      name = variant[0]
+      shape = shapes["synthesis" if variant[3] < 0 else "analysis"]
+      for tier in TIER_NAMES:
+        want = window_product_runs(torch, K10, lib, variant, tier, "gather",
+                                   inp)
+        if K10.conv_tier_route(*shape[:-1], shape[-1], tier, sms) == "gather":
+          before = K10.tier_route_launches()["window"]
+          try:
+            window_product_runs(torch, K10, lib, variant, tier, "window", inp)
+          except RuntimeError as err:
+            check("CUDA error" in str(err), "%s %s %s: the refusal names no "
+                  "CUDA error: %s" % (label, name, tier, err))
+          else:
+            raise RuntimeError("chip_smoke: %s %s at %s: the window route "
+                               "ran a product its plan refuses" % (
+                                   label, name, tier))
+          refused.append("%s %s %s" % (label, name, tier))
+          continue
+        got = window_product_runs(torch, K10, lib, variant, tier, "window",
+                                  inp)
+        for key in want:
+          check(bits_equal(torch, got[key], want[key]), "%s %s at %s: the "
+                "window route's %s differs from gather_gemm_tier's" % (
+                    label, name, tier, key))
+        if "stop out" in got:
+          check(bits_equal(torch, got["stop out"], got["out"])
+                and bits_equal(torch, got["stop old"], got["old"]), "%s %s "
+                "at %s: the STOP build's outputs differ from the build "
+                "without the stop" % (label, name, tier))
+          check(int(got["stop count"].item()) == 2
+                and int(got["stop word"].item()) & 1, "%s %s at %s: the "
+                "stop at iteration 1 wrote count %d, word %#x" % (
+                    label, name, tier, int(got["stop count"].item()),
+                    int(got["stop word"].item())))
+          check(bits_equal(torch, got["old after the stop"], got["stop old"]),
+                "%s %s at %s: a launch after the stop wrote old" % (
+                    label, name, tier))
+        compared += 1
+    print("window route %s (%s): every product bitwise gather_gemm_tier's at "
+          "every tier, with and without the stop" % (label, ", ".join(
+              "%s %dx%d" % (k, v[4], v[5]) for k, v in shapes.items()
+              if k != "corr")))
+    del inp
+  # (b) planted: the flagship b 5's FISTA analysis
+  geo = K10.geometry(WINDOW_GEOMETRIES[1][1], WINDOW_GEOMETRIES[1][2], (8, 8))
+  inp = window_inputs(torch, K10, geo, 5, 541, dev)
+  variant = [v for v in window_variants(geo, inp)
+             if v[0] == "analysis fista shrink 0"][0]
+  outs = {(route, tier): window_product_runs(torch, K10, lib, variant, tier,
+                                             route, inp)["out"]
+          for route in ("gather", "window") for tier in TIER_NAMES}
+  for tier in TIER_NAMES:
+    for other in TIER_NAMES:
+      if other != tier:
+        check(not bits_equal(torch, outs["window", tier],
+                             outs["gather", other]),
+              "planted: the window route at %s equals gather_gemm_tier at %s"
+              % (tier, other))
+        planted += 1
+    nudged = outs["window", tier].clone().reshape(-1)
+    nudged[nudged.numel() // 3] = torch.nextafter(
+        nudged[nudged.numel() // 3], torch.tensor(float("inf"), device=dev))
+    check(not bits_equal(torch, nudged.reshape(outs["gather", tier].shape),
+                         outs["gather", tier]),
+          "planted: one output one ulp off passes at %s" % tier)
+    planted += 1
+  print("window route planted: %d results (gather_gemm_tier at another tier, "
+        "one output one ulp off) fail the bitwise check" % planted)
+  print("window route refused (its plan sends them to gather_gemm_tier; the "
+        "forced window launch failed with its CUDA error): %s" % (
+            "; ".join(refused) or "none"))
+  return compared, refused, planted
+
+
+def window_solve_cases(torch, K10, families, cimages, conv_d, eta40, cpad,
+                       encode_dataset, dev):
+  """(a) The solves and steps on both routes, each forced by its call's
+  route: K10 at b 40 (FISTA 100) and b 5 (ISTA 25), one K12 step, one K17
+  step, K13 on a shard of 20 in both forms: bitwise at each tier; with
+  the stop (K10 b 5, K12, K17) at phase 48's mid-run eps, the same codes
+  and the same count.  Then the conv encode of 80 images (its route the
+  plan's: every product on the window route, counted) bitwise K10's
+  solves of its two batches with gather_gemm_tier forced.  Returns the
+  number of comparisons."""
+  n = 0
+  for name, (mod, _, _, run, plain, x) in families.items():
+    for tier in TIER_NAMES:
+      outs = {route: run(x, tier, route=route)
+              for route in ("gather", "window")}
+      a = outs["gather"] if isinstance(outs["gather"], (tuple, list)) else (
+          outs["gather"],)
+      c = outs["window"] if isinstance(outs["window"], (tuple, list)) else (
+          outs["window"],)
+      check(len(a) == len(c) and all(bits_equal(torch, u, v)
+                                     for u, v in zip(a, c)),
+            "%s at %s: the window route differs from gather_gemm_tier" % (
+                name, tier))
+      n += 1
+      if name in ("K10 b5 ista25", "K12 step", "K17 step"):
+        plain(x, tier, 0.0)
+        eps = stop_eps(solver_state()[1], "mid")
+        its = {}
+        for route in ("gather", "window"):
+          outs[route] = flat_cat(torch, run(x, tier, eps, route=route))
+          its[route] = int(mod.last_iters.reshape(-1)[0].item())
+        check(torch.equal(outs["gather"], outs["window"])
+              and its["gather"] == its["window"], "%s at %s with the stop "
+              "(eps %.4g): the routes differ (counts %s)" % (name, tier, eps,
+                                                           its))
+        print("window route %s %s with the stop: %d iterations on both "
+              "routes, bitwise" % (name, tier, its["window"]))
+        n += 1
+  conv_kw = dict(mode="convolutional", kernel_stride=(CONV_STRIDE,
+                                                      CONV_STRIDE),
+                 padding=cpad, batch_size=CONV_BATCH, chunk_batches=4)
+  for tier in TIER_NAMES:
+    K10.reset_tier_route_launches()
+    codes = encode_dataset(cimages[:2 * CONV_BATCH], conv_d, CONV_LAM,
+                           CONV_ITERS, mxu_precision=tier, **conv_kw)
+    got = K10.tier_route_launches()
+    want_routes = dict(gather=0, window=2 * (1 + 2 * CONV_ITERS))
+    check(got == want_routes, "the conv encode at %s: tier products by "
+          "route %s, expected %s" % (tier, got, want_routes))
+    want = torch.cat([K10.fused_conv_direct_solve(
+        torch.tensor(cimages[i * CONV_BATCH:(i + 1) * CONV_BATCH],
+                     device=dev), conv_d, CONV_LAM, CONV_ITERS, eta40,
+        kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=cpad, mxu=tier,
+        route="gather") for i in range(2)]).cpu().numpy()
+    check(np.array_equal(codes.reshape(want.shape).view(np.int32),
+                         want.view(np.int32)),
+          "the conv encode at %s (window route) differs from K10's solves "
+          "of its batches on gather_gemm_tier" % tier)
+    n += 1
+  print("window route: K10 b40 / b5, K12, K17, K13 (both forms) and the "
+        "conv encode bitwise on both routes at every tier (%d comparisons)"
+        % n)
+  return n
+
+
+def window_route_table(K10, lib, conv_tiers, card):
+  """(c) The route table: every WINDOW_GEOMETRIES product, K13's shard of
+  20 and the gate's edge (s and cpx 512) at each tier, the library's plan
+  against the Python mirror's (fused_conv_direct.conv_tier_plan), with the
+  window kernel's registers, spill and CTAs an SM at the plan's shared
+  memory; phase 48's main path, every tier product on the window route
+  (the encode's 8 solves of 201 products, the trainer's and the K17
+  runner's SEG_STEPS steps and the 'dcn' composition's
+  CONV_TIER_DCN_STEPS steps of 1 + 2 SEG_ITERS; none at 'highest' and
+  none from the data-parallel trainer, which runs K17 at 'highest'); and
+  gather_gemm_tier's main path is window_gather_main's.  Returns {tier:
+  (regs, local bytes, CTAs an SM) of the flagship analysis's window
+  kernel}."""
+  sms = lib.vtc_fista_sm_count()
+  shapes = []
+  for label, images, kernels, stride in WINDOW_GEOMETRIES + (
+      ("K13 shard b20", (CONV_TIER_SHARD, 1, 272, 272), (64, 1, 16, 16), 8),
+      ("512 kernels b40", (40, 1, 272, 272), (512, 1, 16, 16), 8),
+      ("cpx 512 b40", (40, 8, 272, 272), (64, 8, 16, 16), 8)):
+    geo = K10.geometry(images, kernels, (stride, stride))
+    for name, shape in K10.solve_products(geo, images[0]).items():
+      if name != "corr":
+        shapes.append(("%s %s" % (label, name), shape))
+  import ctypes
+  from vtc_tpu_torch.ops.precision import TIER_CODES
+  attrs, table = {}, []
+  for tier in TIER_NAMES:
+    for label, shape in shapes:
+      mine = K10.conv_tier_plan(*shape, tier, sms)
+      card_plan = K10.card_tier_plan(*shape, tier)
+      check(mine == card_plan, "route table %s at %s: the library's plan %s, "
+            "the mirror's %s" % (label, tier, card_plan, mine))
+      table.append("%s %s: %s" % (label, tier, mine["route"] if
+                                  mine["route"] == "gather" else
+                                  "window %d rows" % mine["rows"]))
+      if mine["route"] == "window":
+        out = (ctypes.c_int * 3)()
+        err = lib.vtc_conv_window_attrs(TIER_CODES[tier], 0, mine["smem"],
+                                        out)
+        check(err == 0 and out[2] >= 1, "the window kernel at %s and %d "
+              "bytes: CUDA error %d, %d CTAs an SM" % (
+                  tier, mine["smem"], err, out[2]))
+        if label == "flagship b40 analysis":
+          attrs[tier] = tuple(out)
+  print("window route table (library plan == Python mirror, %d SMs): %s" % (
+      sms, "; ".join(table)))
+  for tier in TIER_NAMES:
+    print("window kernel at %s (flagship analysis): %d registers, %d bytes "
+          "local, %d CTA an SM [%s]" % (tier, *attrs[tier], card))
+  per_solve, per_step = 1 + 2 * CONV_ITERS, 1 + 2 * SEG_ITERS
+  want = {"encode": CONV_IMAGES // CONV_BATCH * per_solve,
+          "trainer": SEG_STEPS * per_step, "data-parallel trainer": 0,
+          "dcn composition": CONV_TIER_DCN_STEPS * per_step,
+          "K17 runner": SEG_STEPS * per_step}
+  for (entry, tier), got in sorted(conv_tiers["routes"].items()):
+    expected = dict(gather=0, window=0 if tier == "highest" else want[entry])
+    print("window route main path (phase 48) %s %s: tier products %s" % (
+        entry, tier, got))
+    check(got == expected, "phase 48's main path, %s at %s: tier products by "
+          "route %s, expected %s" % (entry, tier, got, expected))
+  return attrs
+
+
+def window_gather_main(torch, K10, lipschitz, encode_dataset, cimages, cpad,
+                       dev):
+  """(c) The main path of gather_gemm_tier: encode_dataset of CONV_BATCH
+  images with 512 kernels (whose synthesis the window cannot hold) and
+  with bench.py's 128 kernels (whose synthesis at bf16x5 it cannot), FISTA
+  WINDOW_MAIN_ITERS, at 'highest' and each tier, the route counts zeroed
+  before and read after each encode.  Where an encode ran
+  gather_gemm_tier, its codes against the plain version at the tier
+  (fused_conv_direct_plain on the same images, kernels and eta) under
+  tier_verdict's three rules (five one-ulp nudges of the images, the
+  floor CONV_TIER_FLOOR); then the encode at each other tier and at
+  'highest' planted in the tier's place, which must fail.  Returns
+  ({tier: gather_gemm_tier's products}, {tier: worst max|d| from plain},
+  planted results failed)."""
+  conv_kw = dict(mode="convolutional", kernel_stride=(CONV_STRIDE,
+                                                      CONV_STRIDE),
+                 padding=cpad, batch_size=CONV_BATCH, chunk_batches=1)
+  flags = dict(kernel_stride=(CONV_STRIDE, CONV_STRIDE), padding=cpad,
+               variant="fista")
+  rng = np.random.RandomState(542)
+  x = torch.tensor(cimages[:CONV_BATCH], device=dev)
+  products = 1 + 2 * WINDOW_MAIN_ITERS
+  counts = {tier: 0 for tier in TIER_NAMES}
+  errs = {tier: 0.0 for tier in TIER_NAMES}
+  planted = 0
+  for s in (512, 128):
+    d = torch.tensor(windowed_kernels(rng, s, 1, CONV_K), device=dev)
+    eta = lipschitz.fista_stepsize(d.reshape(s, -1))
+    outs = {}
+    for mxu in ("highest",) + TIER_NAMES:
+      K10.reset_tier_route_launches()
+      codes = encode_dataset(cimages[:CONV_BATCH], d, CONV_LAM,
+                             WINDOW_MAIN_ITERS, mxu_precision=mxu, **conv_kw)
+      got = K10.tier_route_launches()
+      check(bool(np.isfinite(codes).all()), "the %d-kernel encode at %s: "
+            "non-finite codes" % (s, mxu))
+      on_gather = mxu != "highest" and (s == 512 or mxu == "bf16x5")
+      expected = (dict(gather=0, window=0) if mxu == "highest" else
+                  dict(gather=WINDOW_MAIN_ITERS,
+                       window=products - WINDOW_MAIN_ITERS) if on_gather
+                  else dict(gather=0, window=products))
+      print("gather_gemm_tier main path: encode of %d images with %d kernels "
+            "at %s: tier products %s" % (CONV_BATCH, s, mxu, got))
+      check(got == expected, "the %d-kernel encode at %s: tier products by "
+            "route %s, expected %s" % (s, mxu, got, expected))
+      if mxu != "highest":
+        counts[mxu] += got["gather"]
+      outs[mxu] = torch.tensor(codes, device=dev).reshape(-1)
+    plains = {mxu: K10.fused_conv_direct_plain(
+        x, d, CONV_LAM, WINDOW_MAIN_ITERS, eta, mxu=mxu, **flags).reshape(-1)
+              for mxu in ("highest",) + TIER_NAMES}
+    for tier in TIER_NAMES:
+      if not (s == 512 or tier == "bf16x5"):
+        continue
+      nudged = [K10.fused_conv_direct_plain(
+          one_ulp_nudge(x, seed), d, CONV_LAM, WINDOW_MAIN_ITERS, eta,
+          mxu=tier, **flags).reshape(-1) for seed in range(5)]
+      name = "gather_gemm_tier %d-kernel encode" % s
+      errs[tier] = max(errs[tier], tier_check(
+          torch, name, outs[tier], outs["highest"], plains, nudged, tier,
+          CONV_TIER_FLOOR[tier])["err"])
+      for wrong in ("highest",) + TIER_NAMES:
+        if wrong == tier:
+          continue
+        v = tier_verdict(torch, outs[wrong], outs["highest"], plains, nudged,
+                         tier, CONV_TIER_FLOOR[tier])
+        failed = [rule for rule, ok in v["ok"].items() if not ok]
+        print("tier planted %s: the encode at %s in place of %s fails %s" % (
+            name, wrong, tier, ", ".join(failed) or "NOTHING"))
+        check(failed, "tier %s: the encode at %s passes every rule held for "
+              "%s" % (name, wrong, tier))
+        planted += 1
+    del plains, outs
+  return counts, errs, planted
+
+
+def window_bounds(geo, b, iters, tier):
+  """Both bounds of a conv solve's products at a tier, ms: the passes at
+  the bf16 tensor-core rate, and the state the products must move at the
+  HBM rate (corr: the image blocks read, corr written; an iteration: the
+  synthesis reads z and writes the image blocks, the analysis reads them
+  and z, corr and old and writes z and old: 4 b (2 cpx blocks + 6 s
+  codes) bytes, conv_gemm_tier.cuh's reckoning)."""
+  depth = 2.0 * geo["s"] * geo["r"] * geo["cpx"]
+  blocks, codes = geo["bh"] * geo["bw"], geo["code_h"] * geo["code_w"]
+  passes = (b * depth * (codes + iters * (blocks + codes))
+            * TIER_PASSES[tier] / BF16_PEAK)
+  state = 4.0 * b * ((geo["cpx"] * blocks + geo["s"] * codes) + iters * (
+      2 * geo["cpx"] * blocks + 6 * geo["s"] * codes)) / HBM_RATE
+  return 1e3 * passes, 1e3 * state
+
+
+def window_timing(torch, K10, families, conv_tiers, attrs, geo, card):
+  """(d) In turns (gather_gemm_tier, window, window, gather_gemm_tier), both
+  forced: the flagship's three products at b 40 and b 5 (each call one
+  tier_product: the weights' fold, then the product), and K10 at b 40
+  FISTA 100 (3 solves a turn) and b 5 ISTA 25, a K12 and a K17 step of a
+  10-step segment and K13 on its shard (10 a turn); printed beside phase 48's 'highest' and library times
+  (fused_conv_direct_library(mxu=), median of 7), both bounds
+  (window_bounds: the passes at 989 TFLOP/s, the state at 3.35 TB/s) and
+  the window kernel's registers, spill and CTAs an SM.  Returns {(row,
+  tier): (window ms, gather_gemm_tier ms)}."""
+  out = {}
+  with torch.no_grad():
+    for b in (CONV_BATCH, CONV_TRAIN_BATCH):
+      inp = window_inputs(torch, K10, geo, b, 543, torch.device("cuda", 0))
+      for variant in window_variants(geo, inp)[:2] + [
+          v for v in window_variants(geo, inp)
+          if v[0] == "analysis fista shrink 0"]:
+        name, a, src, sign, off_w, hw, kw = variant
+        kw = dict(kw, old=inp["old"].clone()) if "z" in kw else kw
+        for tier in TIER_NAMES:
+          def call(route):
+            return lambda: K10.tier_product(a, src, hw, off_w, sign, tier,
+                                            route=route, **kw)
+          call("window")()
+          turns = [time_ms(torch, call(r), WINDOW_PRODUCT_REPS)
+                   for r in ("gather", "window", "window", "gather")]
+          ms, old_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+          row = "b %d %s" % (b, name.split()[0])
+          out[row, tier] = (ms, old_ms)
+          print("window product %s %s: %.4f ms, gather_gemm_tier %.4f "
+                "(%.2fx) in turns (%s) [%s]" % (
+                    row, tier, ms, old_ms, old_ms / ms,
+                    ", ".join("%.4f" % t for t in turns), card))
+      del inp
+    rows = {"K10 b40": ("K10 b40 fista100", CONV_BATCH, CONV_ITERS, 1),
+            "K10 b5": ("K10 b5 ista25", CONV_TRAIN_BATCH, CONV_TRAIN_ITERS, 1),
+            "K12 step": ("K12 step", SEG_BATCH, SEG_ITERS,
+                         CONV_TIER_TIME_STEPS),
+            "K17 step": ("K17 step", SEG_BATCH, SEG_ITERS,
+                         CONV_TIER_TIME_STEPS),
+            "K13 shard": ("K13 shard b20 gradient", CONV_TIER_SHARD,
+                          SEG_ITERS, 1)}
+    for row, (family, b, iters, per) in rows.items():
+      _, _, _, run, _, x = families[family]
+      xt = x if per == 1 else families["timing segment"]
+      # a K10 b 40 solve takes 9-16 ms, the b 5 solve and K13 1-3 ms
+      reps = 1 if per > 1 else 3 if b == CONV_BATCH else 10
+      for tier in TIER_NAMES:
+        def call(route):
+          return lambda: run(xt, tier, route=route)
+        call("window")()
+        turns = [time_ms(torch, call(r), reps) / per
+                 for r in ("gather", "window", "window", "gather")]
+        ms, old_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        hi_ms = conv_tiers["times"][row, "highest"][0]
+        lib_ms = conv_tiers["times"][row, tier][3]
+        passes, state = window_bounds(geo, b, iters, tier)
+        out[row, tier] = (ms, old_ms)
+        print("window %s %s: %.4f ms, gather_gemm_tier %.4f (%.2fx) in turns "
+              "(%s); 'highest' %.4f; library %.4f; bounds: passes %.4f, "
+              "state %.4f (the products' alone); window kernel %d registers, "
+              "%d bytes local, %d CTA an SM [%s]" % (
+                  row, tier, ms, old_ms, old_ms / ms,
+                  ", ".join("%.4f" % t for t in turns), hi_ms, lib_ms, passes,
+                  state, *attrs[tier], card))
+  return out
+
+
+def window_phase(torch, dev, card, mods, cimages, conv_d, cpad, x5, d5, eta5,
+                 sd0, conv_gen, conv_tiers):
+  """Phase 54: (a) and (b) window_bitwise_products and window_solve_cases;
+  (c) window_route_table; (d) window_timing.  Nothing of it runs on the
+  CPU or gives way to the other route: a forced window launch the plan
+  refuses must fail."""
+  from vtc_tpu_torch import parallel
+  from vtc_tpu_torch.encode import encode_dataset
+  from vtc_tpu_torch.ops import convolutions as conv_ops
+  from vtc_tpu_torch.ops import lipschitz
+  from vtc_tpu_torch.ops._build import load_library
+  K10 = mods[0]
+  lib = load_library()
+  t0 = time.perf_counter()
+  compared, refused, planted = window_bitwise_products(torch, K10, lib, dev)
+  images = conv_segment_images(torch, conv_ops, dev, 1, conv_gen, seed=54)
+  x40 = torch.tensor(cimages[:CONV_BATCH], device=dev)
+  eta40 = lipschitz.fista_stepsize(conv_d.reshape(CONV_S, -1))
+  inputs = (x40, conv_d, eta40, x5, d5, eta5, images, sd0)
+  families = conv_tier_families(torch, mods, parallel, lipschitz, inputs)
+  solves = window_solve_cases(torch, K10, families, cimages, conv_d, eta40,
+                              cpad, encode_dataset, dev)
+  attrs = window_route_table(K10, lib, conv_tiers, card)
+  gather_main, gather_errs, gather_planted = window_gather_main(
+      torch, K10, lipschitz, encode_dataset, cimages, cpad, dev)
+  families["timing segment"] = images[0:1].expand(
+      CONV_TIER_TIME_STEPS, *images.shape[1:]).contiguous()
+  geo = K10.geometry(x40.shape, conv_d.shape, (CONV_STRIDE, CONV_STRIDE))
+  times = window_timing(torch, K10, families, conv_tiers, attrs, geo, card)
+  del images, families
+  print("phase 54: %.1f s; %d products and %d solves or steps bitwise on "
+        "both routes, %d refused by the window's plan, %d planted results "
+        "failed (%d of them in place of gather_gemm_tier's main-path "
+        "encodes)" % (time.perf_counter() - t0, compared, solves,
+                      len(refused), planted + gather_planted, gather_planted))
+  return dict(times=times, gather_main=gather_main, gather_errs=gather_errs,
+              attrs=attrs)
 
 
 def main():
@@ -10977,6 +11540,10 @@ def main():
   # phase 53: the plain train segments' norm floors (norm_floor_phase)
   norm_floor_phase(torch, dev, card)
 
+  # phase 54: the conv tier GEMM's window route (window_phase)
+  window = window_phase(torch, dev, card, (K10, K12, K17), cimages, conv_d,
+                        cpad, xt5, cd0, eta5, sd0, conv_gen, conv_tiers)
+
   # the library times of the 'highest' fc, subspace and ICA steps: a
   # step's products, each one fp32 torch.matmul (TF32 off), median of
   # TIER_LIB_TURNS turns
@@ -11192,10 +11759,17 @@ def main():
                       dp_tiers["counts"][dp_tiers["mods"][key], tier],
                       dp_tiers["errs"][key, tier], ms_t, p_t, bnd_t))
       tier_library[name] = lib_t
-  # the conv tier kernel (phase 48): launches on its main path, the error of
-  # the flagship solve or step at the tier, its time (a step) beside the
+  # the conv tier GEMM (phases 48 and 54): the window route's product
+  # launches on phase 48's main path, the error of the flagship solve or
+  # step at the tier, its time (a step) in phase 54's turns beside the
   # plain version at the tier, its bound and the library time of the same
-  # solve with each pass one product of bf16 operands
+  # solve with each pass one product of bf16 operands (phase 48); and
+  # gather_gemm_tier, on the main path for the products the window cannot
+  # hold (phase 54 (c): the encodes with 512 and 128 kernels, whose worst
+  # error from the plain version at the tier is its row's), timed forced
+  # at the flagship K10 in the same turns
+  entry_of = {"K10": "encode", "K12": "trainer", "K13": "dcn composition",
+              "K17": "K17 runner"}
   conv_tier_rows = {
       "K10 b40": ("K10", "fused_conv_direct.cu",
                   "vtc_tpu/ops/pallas_conv_train.py:240-267 (_make_deep_dot's "
@@ -11213,12 +11787,21 @@ def main():
                    "solver's tier in the kernel of :399)", "K17 step")}
   for row, (key, source, replaces, case) in conv_tier_rows.items():
     for tier in TIER_NAMES:
-      ms_t, p_t, bnd_t, lib_t = conv_tiers["times"][row, tier]
-      name = "gather_gemm_tier (%s at %s, via %s)" % (key, tier, source)
+      _, p_t, bnd_t, lib_t = conv_tiers["times"][row, tier]
+      ms_w, ms_g = window["times"][row, tier]
+      name = "conv_window_gemm (%s at %s, via %s)" % (key, tier, source)
       kernels.append((name, "conv_gemm_tier.cuh", replaces,
-                      conv_tiers["counts"][key, tier],
-                      conv_tiers["errs"][case, tier], ms_t, p_t, bnd_t))
+                      conv_tiers["routes"][entry_of[key], tier]["window"],
+                      conv_tiers["errs"][case, tier], ms_w, p_t, bnd_t))
       tier_library[name] = lib_t
+      if key == "K10":
+        name = ("gather_gemm_tier (K10 at %s, via %s: the products the "
+                "window route cannot hold, its error that of the 512- and "
+                "128-kernel encodes; timed forced at b 40)" % (tier, source))
+        kernels.append((name, "conv_gemm_tier.cuh", replaces,
+                        window["gather_main"][tier],
+                        window["gather_errs"][tier], ms_g, p_t, bnd_t))
+        tier_library[name] = lib_t
   # the ICA tier tile (phase 49): launches on its main path, the error of
   # the kernel case at the tier (K8's persistent route), its time a step
   # beside the plain version at the tier, its bound and the library time

@@ -14,9 +14,20 @@
 // writes to the file named by the first argument.  It prints the mean ms
 // per launch over 50 launches and the achieved TFLOP/s.  Built and run by
 // tools/bench_conv_gemm.py.
+// With --tier as the first argument it times the tier GEMM's routes
+// instead (conv_gemm_tier.cuh): gather_gemm_tier and the window route,
+// each forced, at the flagship's three products (corr = A(mask * X), the
+// synthesis, the analysis), b 40, b 20 (K13's shard) and b 5 (the full
+// build: b 5 to 40 in steps of 5), at bf16, bf16x3 and bf16x5, with each
+// kernel's registers, spill and CTAs an SM.  Built once per
+// VTC_CONV_TIER_PARTS (1 the copies, 2 and the split, 3 and the mma
+// passes, 4 and the epilogue; 5 the window route's math warps alone) by
+// tools/bench_conv_gemm.py --tier.
 #include <cstdio>
+#include <cstring>
 #include <vector>
 
+#include "conv_gemm_tier.cuh"
 #include "conv_gram_tiles.cuh"
 
 namespace {
@@ -52,9 +63,219 @@ std::vector<int> read_ints(const char* path) {
   return v;
 }
 
+const char* const kTierNames[] = {"highest", "bf16", "bf16x3", "bf16x5"};
+// build 5 times the window route alone (gather_gemm_tier's is its build 4)
+constexpr bool kConvParts5 = kConvTierParts == 5;
+
+// registers, local (spill) bytes and CTAs an SM of one kernel
+template <typename Kernel>
+void print_kernel(const char* name, Kernel kernel, int threads, size_t smem) {
+  cudaFuncAttributes attr = {};
+  cudaFuncGetAttributes(&attr, kernel);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  int ctas = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads, smem);
+  std::printf("%s: %d registers, %zu bytes local, %zu bytes shared, %d "
+              "CTAs an SM at %d threads\n", name, attr.numRegs,
+              static_cast<size_t>(attr.localSizeBytes), smem, ctas, threads);
+}
+
+template <int TIER>
+void print_tier_kernels() {
+  // the window kernel at the flagship analysis's plan
+  constexpr int kTerms = conv_tier_terms(TIER);
+  const ConvTierPlan win = conv_tier_plan(64, 256, 64, 2, 33, 33, 40, TIER,
+                                          gemm_sm_count());
+  char wname[128];
+  std::snprintf(wname, sizeof(wname), "conv_window_gemm<%s>",
+                kTierNames[TIER]);
+  print_kernel(wname, conv_window_gemm<TIER, false>, kWinThreads,
+               static_cast<size_t>(win.smem));
+  char name[128];
+  std::snprintf(name, sizeof(name), "gather_gemm_tier<128, %s>",
+                kTierNames[TIER]);
+  print_kernel(name, gather_gemm_tier<128, TIER, false>, tier_threads(128),
+               tier_smem_bytes(128, kTerms, 256));
+  std::snprintf(name, sizeof(name), "gather_gemm_tier<64, %s>",
+                kTierNames[TIER]);
+  print_kernel(name, gather_gemm_tier<64, TIER, false>, tier_threads(64),
+               tier_smem_bytes(64, kTerms, 256));
+}
+
+// The words in which the window route's outputs (out, and old under
+// kProx) differ from gather_gemm_tier's, from the same inputs.
+int tier_bitwise(int tier, const GemmArgs& p, const uint32_t* planes,
+                 cudaError_t* err) {
+  const size_t n = static_cast<size_t>(p.nb) * p.m * p.out_h * p.out_w;
+  const bool prox = p.epilogue == kProx;
+  std::vector<float> old_in(prox ? n : 0), want(n), want_old(prox ? n : 0),
+      got(n), got_old(prox ? n : 0);
+  if (prox)
+    cudaMemcpy(old_in.data(), p.old, n * 4, cudaMemcpyDeviceToHost);
+  for (int route : {kConvRouteGather, kConvRouteWindow}) {
+    if (prox)
+      cudaMemcpy(p.old, old_in.data(), n * 4, cudaMemcpyHostToDevice);
+    if (*err == cudaSuccess)
+      *err = launch_conv_tier_route(route, tier, p, planes, false, 0);
+    if (*err == cudaSuccess) *err = cudaDeviceSynchronize();
+    std::vector<float>& out = route == kConvRouteGather ? want : got;
+    cudaMemcpy(out.data(), p.out, n * 4, cudaMemcpyDeviceToHost);
+    if (prox)
+      cudaMemcpy((route == kConvRouteGather ? want_old : got_old).data(),
+                 p.old, n * 4, cudaMemcpyDeviceToHost);
+  }
+  if (prox) cudaMemcpy(p.old, old_in.data(), n * 4, cudaMemcpyHostToDevice);
+  int differ = 0;
+  for (size_t i = 0; i < n; ++i) {
+    const bool d = std::memcmp(&want[i], &got[i], 4) != 0;
+    const bool d_old = prox && std::memcmp(&want_old[i], &got_old[i], 4) != 0;
+    if ((d || d_old) && differ < 3)
+      std::printf("  differs at %zu (b %zu, m %zu, position %zu): %.9g / "
+                  "%.9g%s\n", i, i / (n / p.nb), i % (n / p.nb) /
+                  (p.out_h * p.out_w), i % (p.out_h * p.out_w), want[i],
+                  got[i], d_old ? " (old too)" : "");
+    differ += d + d_old;
+  }
+  return *err == cudaSuccess ? differ : -1;
+}
+
+// The tier routes' times (see above): mean ms a launch over `reps`.
+int tier_main(int reps) {
+  const int s = 64, cpx = 64, ax = 2, r = 4, bh = 34, bw = 34;
+  const int ch = bh - 1, cw = bw - 1, bmax = 40;
+  print_tier_kernels<kTierBf16>();
+  print_tier_kernels<kTierBf16x3>();
+  print_tier_kernels<kTierBf16x5>();
+  const float* dstk = device_random(static_cast<size_t>(cpx) * r * s, 1);
+  const float* dall = device_random(static_cast<size_t>(s) * r * cpx, 5);
+  uint32_t* planes = nullptr;
+  cudaMalloc(&planes, sizeof(uint32_t) *
+                          (conv_tier_words(kTierBf16x5, cpx, r * s) +
+                           conv_tier_words(kTierBf16x5, s, r * cpx)));
+  GemmArgs synth = {};
+  synth.a = dstk;
+  synth.m = cpx;
+  synth.k = r * s;
+  synth.src = device_random(static_cast<size_t>(bmax) * s * ch * cw, 2);
+  synth.src_c = s;
+  synth.src_h = ch;
+  synth.src_w = cw;
+  synth.off_w = ax;
+  synth.sign = -1;
+  synth.out_h = bh;
+  synth.out_w = bw;
+  synth.epilogue = kMaskStore;
+  synth.out = device_random(static_cast<size_t>(bmax) * cpx * bh * bw, 3);
+  synth.mask = device_random(static_cast<size_t>(cpx) * bh * bw, 4);
+  GemmArgs anal = {};
+  anal.a = dall;
+  anal.m = s;
+  anal.k = r * cpx;
+  anal.src = synth.out;
+  anal.src_c = cpx;
+  anal.src_h = bh;
+  anal.src_w = bw;
+  anal.off_w = ax;
+  anal.sign = 1;
+  anal.out_h = ch;
+  anal.out_w = cw;
+  anal.epilogue = kProx;
+  anal.out = device_random(static_cast<size_t>(bmax) * s * ch * cw, 9);
+  anal.z_cur = synth.src;
+  anal.corr = device_random(static_cast<size_t>(bmax) * s * ch * cw, 6);
+  anal.old = device_random(static_cast<size_t>(bmax) * s * ch * cw, 7);
+  anal.eta = device_random(1, 8);
+  anal.lam = 0.05f;
+  anal.beta = 0.3f;
+  anal.fista = 1;
+  GemmArgs corr = anal;
+  corr.src = device_random(static_cast<size_t>(bmax) * cpx * bh * bw, 10);
+  corr.epilogue = kStore;
+  corr.out = device_random(static_cast<size_t>(bmax) * s * ch * cw, 11);
+  cudaEvent_t start, stop;
+  cudaEventCreate(&start);
+  cudaEventCreate(&stop);
+  // a route's mean ms a launch over reps: the plan's (route 1 or 2), or
+  // the window route on another layout (route 0 with `alt`)
+  auto time_route = [&](int route, int tier, const GemmArgs& p,
+                        const uint32_t* pl, const ConvTierPlan* alt,
+                        cudaError_t* err) {
+    float ms = 0.f;
+    for (int i = 0; i <= reps && *err == cudaSuccess; ++i) {
+      if (i == 1) cudaEventRecord(start);
+      *err = alt ? launch_conv_window_stop(tier, p, pl, *alt, false, 0)
+                 : launch_conv_tier_route(route, tier, p, pl, false, 0);
+    }
+    cudaEventRecord(stop);
+    cudaEventSynchronize(stop);
+    cudaEventElapsedTime(&ms, start, stop);
+    if (*err == cudaSuccess) *err = cudaGetLastError();
+    return ms / reps;
+  };
+  bool bad = false;  // a route differed from the other
+  for (int tier = kTierBf16; tier <= kTierBf16x5; ++tier) {
+    const ConvTierWeights w(tier, kConvRouteAuto, planes, s, cpx, r);
+    cudaError_t err = w.fold(dstk, dall, s, cpx, r, 0);
+    const std::vector<int> batches =
+        kConvTierParts == 4 ? std::vector<int>{40, 35, 30, 25, 20, 15, 10, 5}
+                            : std::vector<int>{40, 20, 5};
+    for (int batch : batches) {
+      for (GemmArgs* p : {&corr, &synth, &anal}) {
+        p->nb = batch;
+        const uint32_t* pl = p == &synth ? w.stk : w.all;
+        const int len = p->out_h * p->out_w;
+        const double flops = 2.0 * p->m * p->k * batch * len;
+        const char* what = p == &corr ? "corr" : p == &synth ? "synthesis"
+                                                             : "analysis";
+        const ConvTierPlan plan = conv_tier_plan_of(*p, tier);
+        if (kConvTierParts == 4 && err == cudaSuccess) {
+          const int differ = tier_bitwise(tier, *p, pl, &err);
+          std::printf("%-6s b %2d %-9s: the window route's outputs differ "
+                      "from gather_gemm_tier's in %d words\n",
+                      kTierNames[tier], batch, what, differ);
+          bad = bad || differ != 0;
+        }
+        for (int route = kConvParts5 ? kConvRouteWindow : kConvRouteGather;
+             route <= kConvRouteWindow; ++route) {
+          const float ms = time_route(route, tier, *p, pl, nullptr, &err);
+          std::printf("parts %d %-6s b %2d %-9s M %d K %d N %d: %-16s %.4f "
+                      "ms (%.2f TFLOP/s a pass)", kConvTierParts,
+                      kTierNames[tier], batch, what, p->m, p->k, batch * len,
+                      route == kConvRouteGather ? "gather_gemm_tier"
+                                                : "window",
+                      ms, flops / ms / 1e9);
+          if (route == kConvRouteWindow)
+            std::printf(" [plan: %d rows, %lld tiles, grid %d, %lld B]",
+                        plan.rows, plan.tiles, plan.grid, plan.smem);
+          std::printf("\n");
+        }
+        // the window route's other layouts: 1 to 3 rows a tile
+        for (int rows = 1; rows <= kWinMaxN / p->out_w && kConvTierParts == 4;
+             ++rows) {
+          const ConvTierPlan alt = window_plan_at(
+              p->m, p->k, p->src_c, p->off_w, p->out_h, p->out_w, batch, tier,
+              gemm_sm_count(), rows);
+          if (alt.smem > kWinSmem || rows == plan.rows) continue;
+          const float ms = time_route(0, tier, *p, pl, &alt, &err);
+          std::printf("parts 4 %-6s b %2d %-9s window at %d rows (grid %d, "
+                      "%lld tiles): %.4f ms\n", kTierNames[tier], batch, what,
+                      rows, alt.grid, alt.tiles, ms);
+        }
+      }
+    }
+    if (err != cudaSuccess) {
+      std::printf("CUDA error: %s\n", cudaGetErrorString(err));
+      return 1;
+    }
+  }
+  return bad ? 1 : 0;
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
+  if (argc > 1 && std::strcmp(argv[1], "--tier") == 0) return tier_main(50);
   const int b = 40, s = 64, cpx = 64, ax = 2, r = 4, bh = 34, bw = 34;
   const int ch = bh - 1, cw = bw - 1, reps = 50;
   GemmArgs synth = {};

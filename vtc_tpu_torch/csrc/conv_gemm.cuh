@@ -82,6 +82,9 @@ constexpr int kThreads = 256;
 // table (8 bytes an entry) takes
 constexpr int kTileThreads = 128;
 constexpr int kTableMaxK = 4096;
+// the narrowest output row the tier GEMM's window route takes (a tile is
+// one or more whole rows), which sizes the stop's shares
+constexpr int kWindowMinOutW = 16;
 
 // epilogues: what a block does with its tile of C at output index idx
 enum Epilogue {
@@ -719,10 +722,12 @@ inline long long conv_stop_words_for(long long tiles) {
 }
 
 // The same for a product of m rows over `positions` positions, at the
-// smallest tiles either kernel takes (64 x 64).
+// smallest tiles any route takes: 64 x 64 here, one output row of at least
+// kWindowMinOutW positions on the tier GEMM's window route
+// (conv_gemm_tier.cuh).
 inline long long conv_stop_words(int m, long long positions) {
-  return conv_stop_words_for((positions + kBN - 1) / kBN *
-                             ((m + kBM - 1) / kBM));
+  return conv_stop_words_for((positions + kWindowMinOutW - 1) /
+                             kWindowMinOutW * ((m + kBM - 1) / kBM));
 }
 
 // A gathered GEMM with or without its stop build: the stop build where

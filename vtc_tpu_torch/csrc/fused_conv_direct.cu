@@ -52,8 +52,9 @@
 // other than 'highest' the weights are split into bf16 planes once per
 // solve and the three products (corr, the synthesis and the analysis) run
 // conv_gemm_tier.cuh's bf16 tensor-core GEMM with the same epilogues and
-// early stop; the mask, the prox, the momentum and the stop test stay
-// float32.
+// early stop, on the window route where conv_tier_plan sends them (the
+// flagship's every product), else gather_gemm_tier, bitwise alike; the
+// mask, the prox, the momentum and the stop test stay float32.
 // tests/test_torch_port_conv.py and tests/test_torch_port_conv_tiers.py
 // hold the plain version of this layout to vtc_tpu's kernel;
 // chip_smoke.py holds this kernel to it.
@@ -71,20 +72,23 @@ extern "C" {
 // a mean of inv_count (1 / (b s code_h code_w)), with iters (1,)
 // receiving the count.  tier: 'highest' (kTierHighest) or a tier of
 // tier_codes.cuh, with tier_scratch the vtc_conv_tier_words() words of
-// the split weights (null at 'highest').  Returns the CUDA error of the
-// launches.
+// the split weights (null at 'highest'); route: the tier products' route
+// (0 the plan's; 1 gather_gemm_tier or 2 the window route forced, for
+// checks, a product the forced route cannot take failing).  Returns the
+// CUDA error of the launches.
 int vtc_conv_direct(const float* dstk, const float* dall, const float* mblk,
                     const float* xblk, const float* eta, float lam,
                     int num_iters, int b, int s, int cpx, int ay, int ax,
                     int bh, int bw, int fista, int mode, float* img,
                     float* corr, float* z, float* old, float eps,
                     float inv_count, unsigned long long* stop_words,
-                    int* iters, int tier, void* tier_scratch,
+                    int* iters, int tier, void* tier_scratch, int route,
                     void* stream_ptr) {
   const int code_h = bh - (ay - 1), code_w = bw - (ax - 1);
   if (b < 1 || s < 1 || cpx < 1 || ay < 1 || ax < 1 || code_h < 1 ||
       code_w < 1 || num_iters < 0 || mode < 0 || mode > 3 || tier < 0 ||
-      tier > kTierBf16x5 || (tier != kTierHighest && tier_scratch == nullptr))
+      tier > kTierBf16x5 || (tier != kTierHighest && tier_scratch == nullptr) ||
+      route < kConvRouteAuto || route > kConvRouteWindow)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int r = ay * ax;
@@ -120,7 +124,7 @@ int vtc_conv_direct(const float* dstk, const float* dall, const float* mblk,
   anal.out_w = code_w;
 
   // at a tier, the weights' planes, once per solve
-  const ConvTierWeights planes(tier, tier_scratch, s, cpx, r);
+  const ConvTierWeights planes(tier, route, tier_scratch, s, cpx, r);
   cudaError_t err = planes.fold(dstk, dall, s, cpx, r, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -129,7 +133,7 @@ int vtc_conv_direct(const float* dstk, const float* dall, const float* mblk,
   corr_args.src = xblk;
   corr_args.epilogue = kStore;
   corr_args.out = corr;
-  err = launch_conv_product(tier, corr_args, planes.all, code_h * code_w,
+  err = launch_conv_product(planes, corr_args, planes.all, code_h * code_w,
                             false, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -155,9 +159,10 @@ int vtc_conv_direct(const float* dstk, const float* dall, const float* mblk,
   for (int it = 0; it < num_iters; ++it) {
     anal.beta = fista ? fista_beta(&t) : 0.0f;
     anal.stop.it = it;
-    err = launch_conv_product(tier, synth, planes.stk, bh * bw, stop, stream);
+    err = launch_conv_product(planes, synth, planes.stk, bh * bw, stop,
+                              stream);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch_conv_product(tier, anal, planes.all, code_h * code_w, stop,
+    err = launch_conv_product(planes, anal, planes.all, code_h * code_w, stop,
                               stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -178,5 +183,131 @@ long long vtc_conv_tier_words(int tier, int s, int cpx, int r) {
 
 // The largest K (R*s or R*cpx) the tier kernel takes: its offset table's.
 int vtc_conv_tier_max_k() { return kTableMaxK; }
+
+// The tier GEMM's plan (conv_gemm_tier.cuh's conv_tier_plan) of a product
+// of m rows, depth k over src_c channels, off_w offsets a row, nb images
+// of out_h x out_w positions at tier on sm_count SMs (0: this card's): out
+// receives the route (1 gather_gemm_tier, 2 window), rows a tile,
+// m-blocks, tiles, grid and shared memory a CTA.
+void vtc_conv_tier_plan(int m, int k, int src_c, int off_w, int out_h,
+                        int out_w, int nb, int tier, int sm_count,
+                        long long* out) {
+  const ConvTierPlan plan =
+      conv_tier_plan(m, k, src_c, off_w, out_h, out_w, nb, tier,
+                     sm_count > 0 ? sm_count : gemm_sm_count());
+  const long long values[6] = {plan.route, plan.rows, plan.mblocks,
+                               plan.tiles, plan.grid, plan.smem};
+  for (int i = 0; i < 6; ++i) out[i] = values[i];
+}
+
+// The window kernel's registers, local (spill) bytes a thread and CTAs an
+// SM (the occupancy API) at `smem` bytes of dynamic shared memory, into
+// out[0..2]; returns the CUDA error of the queries.
+int vtc_conv_window_attrs(int tier, int stop, int64_t smem, int* out) {
+  cudaFuncAttributes attr = {};
+  const void* fn = nullptr;
+#define VTC_FN(T)                                                         \
+  fn = stop ? reinterpret_cast<const void*>(conv_window_gemm<T, true>)    \
+            : reinterpret_cast<const void*>(conv_window_gemm<T, false>)
+  switch (tier) {
+    case kTierBf16: VTC_FN(kTierBf16); break;
+    case kTierBf16x3: VTC_FN(kTierBf16x3); break;
+    case kTierBf16x5: VTC_FN(kTierBf16x5); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef VTC_FN
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kWinSmem));
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas, fn, kWinThreads, static_cast<size_t>(smem));
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = ctas;
+  return static_cast<int>(err);
+}
+
+// The tier products launched on each route (1, 2) since the last reset,
+// by every conv entry of the library; and the reset.
+long long vtc_conv_tier_route_launches(int route) {
+  return route >= 1 && route <= 2 ? vtc_conv_tier_route_count[route] : -1;
+}
+void vtc_conv_tier_reset_route_launches() {
+  for (long long& count : vtc_conv_tier_route_count) count = 0;
+}
+
+// One tier GEMM over every position, for checks and tools: a (m x k fp32)
+// split at tier into planes (vtc_conv_tier_product_words(tier, m, k)
+// words), then C = a src[gather] on `route` (0 the plan's, 1, 2) with the
+// epilogue and its inputs as GemmArgs names them; stop_words non-null:
+// the STOP build at iteration `it` (tag 1, eps over inv_count, the count
+// into iters).  Returns the CUDA error of the launches.
+int vtc_conv_tier_product(int route, int tier, const float* a, int m, int k,
+                          const float* src, int src_c, int src_h, int src_w,
+                          int off_w, int sign, int off_y0, int off_x0, int nb,
+                          int out_h, int out_w, int epilogue, float* out,
+                          const float* mask, const float* z_cur,
+                          const float* corr, const float* extra, float* old,
+                          const float* eta, float lam, float beta, int fista,
+                          int shrink, void* planes,
+                          unsigned long long* stop_words, int* iters,
+                          float eps, float inv_count, int it,
+                          void* stream_ptr) {
+  if (tier < kTierBf16 || tier > kTierBf16x5 || planes == nullptr ||
+      m < 1 || k < 1 || src_c < 1 || k % src_c != 0 || off_w < 1 ||
+      nb < 1 || out_h < 1 || out_w < 1 ||
+      (stop_words != nullptr && (iters == nullptr || epilogue != kProx)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  uint32_t* words = static_cast<uint32_t*>(planes);
+  cudaError_t err = fold_conv_tier(tier, a, m, k, words, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  GemmArgs p = {};
+  p.a = a;
+  p.m = m;
+  p.k = k;
+  p.src = src;
+  p.src_c = src_c;
+  p.src_h = src_h;
+  p.src_w = src_w;
+  p.off_w = off_w;
+  p.sign = sign;
+  p.off_y0 = off_y0;
+  p.off_x0 = off_x0;
+  p.nb = nb;
+  p.out_h = out_h;
+  p.out_w = out_w;
+  p.epilogue = epilogue;
+  p.out = out;
+  p.mask = mask;
+  p.z_cur = z_cur;
+  p.corr = corr;
+  p.extra = extra;
+  p.old = old;
+  p.eta = eta;
+  p.lam = lam;
+  p.beta = beta;
+  p.fista = fista;
+  p.shrink = shrink;
+  if (stop_words != nullptr) {
+    p.stop.words = stop_words;
+    p.stop.iters = iters;
+    p.stop.eps = eps;
+    p.stop.inv_count = inv_count;
+    p.stop.tag = 1u;
+    p.stop.it = it;
+  }
+  if (!tier_gemm_fits(p)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_conv_tier_route(
+      route, tier, p, words, stop_words != nullptr, stream));
+}
+
+// The 32-bit words of one product's split weights (m x k) at a tier.
+long long vtc_conv_tier_product_words(int tier, int m, int k) {
+  return conv_tier_words(tier, m, k);
+}
 
 }  // extern "C"

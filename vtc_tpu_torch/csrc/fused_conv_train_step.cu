@@ -386,19 +386,21 @@ struct ConvStep {
 
 // Fill *st; cudaErrorInvalidValue for sizes the kernels do not take.
 // tier and tier_scratch: the solve's tier and the vtc_conv_tier_words()
-// words of its split weights (null at 'highest').
+// words of its split weights (null at 'highest'); route: its tier
+// products' route (vtc_conv_direct's).
 cudaError_t conv_step_setup(ConvStep* st, const float* dstk, float* v,
                             const float* mblk, int b, int s, int cpx, int ay,
                             int ax, int bh, int bw, float lam, int num_iters,
                             int fista, int mode, int power_iters, float* dall,
                             float* gram, float* eta, float* img, float* corr,
                             float* z, float* old, float* partial, int tier,
-                            void* tier_scratch) {
+                            void* tier_scratch, int route) {
   const int code_h = bh - (ay - 1), code_w = bw - (ax - 1);
   if (b < 1 || s < 1 || s > kMaxKernels || cpx < 1 || ay < 1 || ax < 1 ||
       code_h < 1 || code_w < 1 || num_iters < 0 || power_iters < 0 ||
       mode < 0 || mode > 3 || tier < 0 || tier > kTierBf16x5 ||
-      (tier != kTierHighest && tier_scratch == nullptr))
+      (tier != kTierHighest && tier_scratch == nullptr) ||
+      route < kConvRouteAuto || route > kConvRouteWindow)
     return cudaErrorInvalidValue;
   ConvStep& t = *st;
   t.b = b;
@@ -427,7 +429,7 @@ cudaError_t conv_step_setup(ConvStep* st, const float* dstk, float* v,
   t.z = z;
   t.old = old;
   t.partial = partial;
-  t.planes = ConvTierWeights(tier, tier_scratch, s, cpx, t.r);
+  t.planes = ConvTierWeights(tier, route, tier_scratch, s, cpx, t.r);
 
   t.synth = GemmArgs{};
   t.synth.a = dstk;
@@ -520,10 +522,9 @@ cudaError_t refresh_and_solve(const ConvStep& st, const float* xs,
   VTC_CHECK(power_refresh(st.gram, st.v, st.eta, st.s, st.power_iters,
                           stream));
   VTC_CHECK(st.planes.fold(st.dstk, st.dall, st.s, st.cpx, st.r, stream));
-  const int tier = st.planes.tier;
   GemmArgs corr = st.corr;
   corr.src = xs;
-  VTC_CHECK(launch_conv_product(tier, corr, st.planes.all, st.chw, false,
+  VTC_CHECK(launch_conv_product(st.planes, corr, st.planes.all, st.chw, false,
                                 stream));
   VTC_CHECK(cudaMemsetAsync(st.z, 0, st.code_bytes, stream));
   VTC_CHECK(cudaMemsetAsync(st.old, 0, st.code_bytes, stream));
@@ -534,10 +535,10 @@ cudaError_t refresh_and_solve(const ConvStep& st, const float* xs,
   for (int it = 0; it < st.num_iters; ++it) {
     anal.beta = st.fista ? fista_beta(&t) : 0.0f;
     anal.stop.it = it;
-    VTC_CHECK(launch_conv_product(tier, synth, st.planes.stk, st.blocks,
+    VTC_CHECK(launch_conv_product(st.planes, synth, st.planes.stk, st.blocks,
                                   stopping, stream));
-    VTC_CHECK(launch_conv_product(tier, anal, st.planes.all, st.chw, stopping,
-                                  stream));
+    VTC_CHECK(launch_conv_product(st.planes, anal, st.planes.all, st.chw,
+                                  stopping, stream));
     if (stopping && anal.stop.local != nullptr) {
       if (stop->hook(it) != 0) {
         stop->hook_failed = true;
@@ -620,8 +621,9 @@ int vtc_conv_train_chunk() { return kGradChunk; }
 // quadratic.  stop_words: null for solves without the stop, else the
 // zeroed vtc_conv_stop_words() array of the early stop at eps over a mean
 // of inv_count (1 / (b s code_h code_w)), iters (k,) receiving each
-// step's count.  tier / tier_scratch: the solves' tier and the
-// vtc_conv_tier_words() words of the split weights (null at 'highest').
+// step's count.  tier / tier_scratch / route: the solves' tier, the
+// vtc_conv_tier_words() words of the split weights (null at 'highest')
+// and the route of their tier products (vtc_conv_direct's).
 // Returns the first CUDA error code (0 on success).
 int vtc_conv_train_segment(float* dstk, float* h, float* v, const float* xblk,
                            const float* mblk, const float* supp, int k, int b,
@@ -633,7 +635,8 @@ int vtc_conv_train_segment(float* dstk, float* h, float* v, const float* xblk,
                            float* corr, float* z, float* old, float* partial,
                            float* grad, float eps, float inv_count,
                            unsigned long long* stop_words, int* iters,
-                           int tier, void* tier_scratch, void* stream_ptr) {
+                           int tier, void* tier_scratch, int route,
+                           void* stream_ptr) {
   if (k < 0 || upd_num_iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   StepStop stop;
@@ -646,7 +649,7 @@ int vtc_conv_train_segment(float* dstk, float* h, float* v, const float* xblk,
   cudaError_t err = conv_step_setup(
       &st, dstk, v, mblk, b, s, cpx, ay, ax, bh, bw, lam, num_iters, fista,
       mode, power_iters, dall, gram, eta, img, corr, z, old, partial, tier,
-      tier_scratch);
+      tier_scratch, route);
   if (err != cudaSuccess) return static_cast<int>(err);
   GemmArgs resid = st.resid;
   const int64_t step_floats = static_cast<int64_t>(b) * cpx * st.blocks;
@@ -688,8 +691,9 @@ int vtc_conv_train_segment(float* dstk, float* h, float* v, const float* xblk,
 //   masked code Gram; the caller guarantees a stride-block-uniform mask.
 // stat (s,) receives sum_{b, positions} codes^2.  Scratch as
 // vtc_conv_train_segment's; partial holds (splits, max(cpx, R*s), R*s)
-// in the gram form.  tier / tier_scratch: the solve's tier and the
-// vtc_conv_tier_words() words of the split weights (null at 'highest').
+// in the gram form.  tier / tier_scratch / route: the solve's tier, the
+// vtc_conv_tier_words() words of the split weights (null at 'highest')
+// and the route of its tier products (vtc_conv_direct's).
 // Returns the first CUDA error code (0 on success).
 int vtc_conv_solve_stats(const float* dstk, float* v, const float* xblk,
                          const float* mblk, int b, int s, int cpx, int ay,
@@ -698,13 +702,13 @@ int vtc_conv_solve_stats(const float* dstk, float* v, const float* xblk,
                          float* dall, float* gram, float* eta, float* img,
                          float* corr, float* z, float* old, float* partial,
                          float* out, float* cm, float* stat, int tier,
-                         void* tier_scratch, void* stream_ptr) {
+                         void* tier_scratch, int route, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   ConvStep st;
   cudaError_t err = conv_step_setup(
       &st, dstk, v, mblk, b, s, cpx, ay, ax, bh, bw, lam, num_iters, fista,
       mode, power_iters, dall, gram, eta, img, corr, z, old, partial, tier,
-      tier_scratch);
+      tier_scratch, route);
   if (err == cudaSuccess) err = refresh_and_solve(st, xblk, stream);
   if (err == cudaSuccess)
     err = shard_stats(st, xblk, mblk, gram_stats, img, out, cm, stat, stream);
@@ -732,8 +736,9 @@ int vtc_conv_solve_stats(const float* dstk, float* v, const float* xblk,
 // above one stop_local (1,) takes the rank's sum of |codes - old| each
 // iteration and stop_hook(it) sums it over the ranks in place (a null
 // hook: a world of one, where the kernel decides on its own sum).
-// tier / tier_scratch: the solves' tier and the vtc_conv_tier_words()
-// words of the split weights (null at 'highest').
+// tier / tier_scratch / route: the solves' tier, the vtc_conv_tier_words()
+// words of the split weights (null at 'highest') and the route of their
+// tier products (vtc_conv_direct's).
 // Returns the first CUDA error code (0 on success), or kSumHookFailed.
 int vtc_conv_dp_train_segment(
     float* dstk, float* h, float* v, const float* xblk, const float* mblk,
@@ -745,7 +750,7 @@ int vtc_conv_dp_train_segment(
     float* partial, float* grad, float* comm, SumHook sum_hook, float eps,
     float inv_count, unsigned long long* stop_words, int* iters,
     float* stop_local, SumHook stop_hook, int tier, void* tier_scratch,
-    void* stream_ptr) {
+    int route, void* stream_ptr) {
   if (k < 0 || upd_num_iters < 0 || !(global_b >= 1.0f))
     return static_cast<int>(cudaErrorInvalidValue);
   StepStop stop;
@@ -760,7 +765,7 @@ int vtc_conv_dp_train_segment(
   cudaError_t err = conv_step_setup(
       &st, dstk, v, mblk, b, s, cpx, ay, ax, bh, bw, lam, num_iters, fista,
       mode, power_iters, dall, gram_mat, eta, img, corr, z, old, partial,
-      tier, tier_scratch);
+      tier, tier_scratch, route);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rs = st.r * s;
   float* cm = gram ? comm : nullptr;

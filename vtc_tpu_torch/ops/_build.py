@@ -183,8 +183,9 @@ def load_library():
   lib.vtc_group_dp_train_segment.restype = i32
   # the conv solves' early stop: eps, inv_count, the words, the counts
   conv_stop = [f32, f32, ptr, ptr]
-  # ... and the conv solves' tier and the words of its split weights
-  conv_tier = [i32, ptr]
+  # ... and the conv solves' tier, the words of its split weights and the
+  # route of its tier products
+  conv_tier = [i32, ptr, i32]
   lib.vtc_conv_direct.argtypes = [
       ptr, ptr, ptr, ptr, ptr, f32, i32, i32, i32, i32, i32, i32, i32, i32,
       i32, i32, ptr, ptr, ptr, ptr] + conv_stop + conv_tier + [ptr]
@@ -195,6 +196,23 @@ def load_library():
   lib.vtc_conv_tier_words.restype = ctypes.c_int64
   lib.vtc_conv_tier_max_k.argtypes = []
   lib.vtc_conv_tier_max_k.restype = i32
+  # the tier GEMM's routes: the plan, the window kernel's attributes, the
+  # route counts and one product on a route
+  i64 = ctypes.c_int64
+  lib.vtc_conv_tier_plan.argtypes = [i32] * 9 + [ctypes.POINTER(i64)]
+  lib.vtc_conv_tier_plan.restype = None
+  lib.vtc_conv_window_attrs.argtypes = [i32, i32, i64, i32p]
+  lib.vtc_conv_window_attrs.restype = i32
+  lib.vtc_conv_tier_route_launches.argtypes = [i32]
+  lib.vtc_conv_tier_route_launches.restype = ctypes.c_longlong
+  lib.vtc_conv_tier_reset_route_launches.argtypes = []
+  lib.vtc_conv_tier_reset_route_launches.restype = None
+  lib.vtc_conv_tier_product.argtypes = (
+      [i32, i32, ptr, i32, i32, ptr] + [i32] * 11 + [ptr] * 7
+      + [f32, f32, i32, i32, ptr, ptr, ptr, f32, f32, i32, ptr])
+  lib.vtc_conv_tier_product.restype = i32
+  lib.vtc_conv_tier_product_words.argtypes = [i32, i32, i32]
+  lib.vtc_conv_tier_product_words.restype = i64
   lib.vtc_conv_fista.argtypes = (
       [ptr] * 9 + [i32] * 5 + [ptr, ptr, f32] + [i32] * 9 + [ptr] * 3
       + conv_stop + [ptr])

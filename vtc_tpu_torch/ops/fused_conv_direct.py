@@ -56,6 +56,15 @@ vtc_tpu's K10 takes the stop on one batch tile only
 (``early_stop_supported``), and at a tier so does the port.
 ``launches`` counts solves launched on the card, ``tier_launches`` those
 at a tier.
+
+A tier product takes one of two routes of conv_gemm_tier.cuh, bitwise
+alike: ``gather_gemm_tier`` or the window route (``conv_window_gemm``: a
+persistent grid, the weights' planes resident a launch, each tile's
+source window copied once and split once).  ``conv_tier_plan`` mirrors
+the library's rule and layout, ``conv_stop_words`` the stop's sizing;
+a solve's ``route`` (checks and tools only) forces its tier products
+onto one route, ``tier_route_launches`` reads the library's count of
+tier products by route, ``tier_product`` runs one product on a route.
 """
 import ctypes
 
@@ -164,6 +173,107 @@ def tier_scratch(lib, mxu, geo, device, what):
             geo["r"] * max(geo["s"], geo["cpx"])))
   words = lib.vtc_conv_tier_words(code, geo["s"], geo["cpx"], geo["r"])
   return code, torch.empty(int(words), dtype=torch.int32, device=device)
+
+
+# The tier GEMM's window route (csrc/conv_gemm_tier.cuh): threads a CTA (8
+# math warps, 8 memory warps), positions a tile at most, the narrowest
+# output row it takes, a CTA's dynamic shared memory; conv_gemm.cuh's
+# 64-row blocks and K cap.
+WIN_THREADS = 512
+WIN_MAX_N = 128
+WIN_MIN_OUT_W = 16
+WIN_SMEM = 232448 - 1024
+BM = 64
+TABLE_MAX_K = 4096
+TIER_ROUTES = {"auto": 0, "gather": 1, "window": 2}
+_ROUTE_NAMES = {1: "gather", 2: "window"}
+_TERMS = {"bf16": 1, "bf16x3": 2, "bf16x5": 3}
+
+
+def window_smem_bytes(terms, k, src_c, off_w, off_h, out_w, rows):
+  """A window CTA's dynamic shared memory: the m-block's A planes, two
+  windows' term planes, two tiles of C, the step table (conv_gemm_tier.cuh's
+  window_smem_bytes)."""
+  nks = k // 16
+  wr, wc = rows + off_h - 1, out_w + off_w - 1
+  a = terms * (BM // 16) * nks * 512
+  planes = 2 * terms * wr * wc * (src_c + 8)
+  ctile = 4 * BM * (8 * -(-(rows * out_w) // 8) + 4)
+  return a + 2 * planes + 2 * ctile + 4 * nks
+
+
+def _window_plan_at(m, k, src_c, off_w, out_h, out_w, nb, mxu, sm_count,
+                    rows):
+  mblocks = -(-m // BM)
+  row_tiles = nb * -(-out_h // rows)
+  grid = min(row_tiles, sm_count // mblocks) * mblocks
+  return dict(route="window", rows=rows, mblocks=mblocks,
+              tiles=mblocks * row_tiles, grid=grid,
+              smem=window_smem_bytes(
+                  _TERMS[mxu], k, src_c, off_w, (k // src_c - 1) // off_w + 1,
+                  out_w, rows))
+
+
+def conv_tier_plan(m, k, src_c, off_w, out_h, out_w, nb, mxu, sm_count):
+  """The library's ``conv_tier_plan``: the route and layout of a tier
+  product of m rows and depth k over src_c channels (off_w offsets a
+  row), nb images of out_h x out_w positions, at tier mxu on sm_count SMs.
+  A dict of route ('window' or 'gather'), rows a tile, mblocks, tiles, grid
+  and smem (bytes a CTA); the gather route's other values are 0.  Of the
+  rows a tile that fit, the one whose CTA does the least work: its rounds
+  of tiles and one (the pipeline's fill) times a tile's window rows, the
+  most rows of equals."""
+  gather = dict(route="gather", rows=0, mblocks=0, tiles=0, grid=0, smem=0)
+  terms = _TERMS.get(resolve_tier(mxu), 0)
+  mblocks = -(-m // BM)
+  if (terms == 0 or m < 1 or k < 16 or src_c < 16 or src_c % 16
+      or k % src_c or k > TABLE_MAX_K or off_w < 1
+      or not WIN_MIN_OUT_W <= out_w <= WIN_MAX_N or out_h < 1 or nb < 1
+      or sm_count < mblocks):
+    return gather
+  off_h = (k // src_c - 1) // off_w + 1
+  fit = WIN_MAX_N // out_w
+  while fit > 0 and window_smem_bytes(terms, k, src_c, off_w, off_h, out_w,
+                                      fit) > WIN_SMEM:
+    fit -= 1
+  if fit == 0:
+    return gather
+  slots = sm_count // mblocks
+
+  def work(rows):
+    return (-(-(nb * -(-out_h // rows)) // slots) + 1) * (rows + off_h - 1)
+  rows = fit
+  for r in range(fit - 1, 0, -1):
+    if work(r) < work(rows):
+      rows = r
+  return _window_plan_at(m, k, src_c, off_w, out_h, out_w, nb,
+                         resolve_tier(mxu), sm_count, rows)
+
+
+def conv_tier_route(m, k, src_c, off_w, out_h, out_w, nb, mxu, sm_count):
+  """'window' or 'gather': the route ``conv_tier_plan`` gives."""
+  return conv_tier_plan(m, k, src_c, off_w, out_h, out_w, nb, mxu,
+                        sm_count)["route"]
+
+
+def solve_products(geo, b):
+  """{name: (m, k, src_c, off_w, out_h, out_w, nb)} of a conv solve's
+  tier products on b images: corr and the analysis (the same shape) and
+  the synthesis."""
+  anal = (geo["s"], geo["r"] * geo["cpx"], geo["cpx"], geo["ax"],
+          geo["code_h"], geo["code_w"], b)
+  synth = (geo["cpx"], geo["r"] * geo["s"], geo["s"], geo["ax"], geo["bh"],
+           geo["bw"], b)
+  return {"corr": anal, "synthesis": synth, "analysis": anal}
+
+
+def conv_stop_words(m, positions):
+  """conv_gemm.cuh's conv_stop_words: the 64-bit words of a stop's
+  device array for a kProx product of m rows over ``positions``
+  positions, a share for each of its smallest tiles (one output row of
+  at least WIN_MIN_OUT_W positions) after the two control words."""
+  tiles = -(-positions // WIN_MIN_OUT_W) * -(-m // BM)
+  return 2 + (tiles + 1) // 2
 
 
 def kernel_parts(dictionary, geo):
@@ -437,7 +547,8 @@ def fused_conv_direct_solve(images, dictionary, sparsity_weight, num_iters,
                             stepsize, *, kernel_stride, padding,
                             initial_codes=None, variant="fista",
                             nonneg=False, hard=False,
-                            early_stopping_epsilon=None, mxu="highest"):
+                            early_stopping_epsilon=None, mxu="highest",
+                            route="auto"):
   """Conv LASSO codes through the K10 kernel.
 
   Args:
@@ -457,6 +568,9 @@ def fused_conv_direct_solve(images, dictionary, sparsity_weight, num_iters,
       (ValueError otherwise).
     mxu: 'highest' (IEEE fp32), 'bf16x5', 'bf16x3' or 'bf16' ('default'):
       the tier of the solve's products.
+    route: the route of the tier products on the card (``route_code``):
+      'auto', or one forced for checks and tools; unused on the CPU and
+      at 'highest'.
 
   Returns:
     (b, s, code_h, code_w) codes on the inputs' device.
@@ -464,6 +578,7 @@ def fused_conv_direct_solve(images, dictionary, sparsity_weight, num_iters,
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
   mxu = resolve_tier(mxu)
+  route = route_code(route)
   kernel_stride = tuple(int(x) for x in kernel_stride)
   padding = conv_shapes.normalize_padding(padding)
   _require(mxu == "highest" or early_stopping_epsilon is None
@@ -517,7 +632,7 @@ def fused_conv_direct_solve(images, dictionary, sparsity_weight, num_iters,
   return _launch(dstk, dall, mblk, xblk, eta, float(sparsity_weight),
                  num_iters, variant == "fista",
                  _MODES[(bool(nonneg), bool(hard))], geo, z,
-                 eps=early_stopping_epsilon, mxu=mxu)
+                 eps=early_stopping_epsilon, mxu=mxu, route=route)
 
 
 def stop_scratch(lib, s, positions, eps, device, steps=1, words=None):
@@ -540,11 +655,96 @@ def ptr(t):
   return None if t is None else t.data_ptr()
 
 
+def route_code(route):
+  """The C entries' code of a tier products' route: 'auto' (the plan's),
+  or 'gather' / 'window' forced, for checks and tools (a product the
+  forced route cannot take fails with its CUDA error: no route gives way
+  to another).  ValueError for another name."""
+  if route not in TIER_ROUTES:
+    raise ValueError("route must be one of %s, got %r" % (
+        tuple(TIER_ROUTES), route))
+  return TIER_ROUTES[route]
+
+
+def tier_route_launches():
+  """{'gather': n, 'window': n}: the tier products every conv entry of the
+  library launched on each route since ``reset_tier_route_launches``."""
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  return {name: int(lib.vtc_conv_tier_route_launches(code))
+          for code, name in _ROUTE_NAMES.items()}
+
+
+def reset_tier_route_launches():
+  from vtc_tpu_torch.ops._build import load_library
+  load_library().vtc_conv_tier_reset_route_launches()
+
+
+def card_tier_plan(m, k, src_c, off_w, out_h, out_w, nb, mxu, sm_count=0):
+  """The library's ``conv_tier_plan`` (sm_count 0: this card's), as
+  ``conv_tier_plan`` gives it."""
+  from vtc_tpu_torch.ops._build import load_library
+  out = (ctypes.c_int64 * 6)()
+  load_library().vtc_conv_tier_plan(m, k, src_c, off_w, out_h, out_w, nb,
+                                    TIER_CODES[resolve_tier(mxu)], sm_count,
+                                    out)
+  keys = ("route", "rows", "mblocks", "tiles", "grid", "smem")
+  plan = dict(zip(keys, (int(v) for v in out)))
+  plan["route"] = _ROUTE_NAMES[plan["route"]]
+  return plan
+
+
+_EPILOGUES = {"store": 0, "mask_store": 1, "prox": 5, "mask_resid": 6}
+
+
+def tier_product(a, src, out_hw, off_w, sign, mxu, route="auto",
+                 epilogue="store", off=(0, 0), mask=None, z=None, corr=None,
+                 extra=None, old=None, eta=None, lam=0.0, beta=0.0,
+                 fista=False, shrink=0, stop=None):
+  """One tier GEMM on the card, for checks and tools: C[b, m, y, x] =
+  sum_k a[m, k] src[b, k % c, sign (o // off_w) + off[0] + y, sign (o %
+  off_w) + off[1] + x] (o = k // c, zeros outside src) at tier mxu on
+  ``route``, with the epilogue ('store', 'mask_store', 'prox',
+  'mask_resid') of conv_gemm.cuh and its inputs: mask (m, out_h, out_w),
+  z (the codes read; 'prox' writes the next ones into the returned
+  tensor), corr, extra, old (read and written in place), eta (1,) on the
+  device, lam, beta, fista, shrink.  stop: (words, iters, eps, inv_count,
+  it) for the STOP build of a 'prox' product.  Returns the output (nb, m,
+  out_h, out_w); raises on the launch's CUDA error."""
+  from vtc_tpu_torch.ops._build import load_library
+  lib = load_library()
+  _require(a.is_cuda and src.is_cuda, "tier_product runs on the card")
+  m, k = a.shape
+  nb, c, hh, ww = src.shape
+  out_h, out_w = out_hw
+  tier = TIER_CODES[resolve_tier(mxu)]
+  planes = torch.empty(int(lib.vtc_conv_tier_product_words(tier, m, k)),
+                       dtype=torch.int32, device=a.device)
+  out = torch.empty((nb, m, out_h, out_w), dtype=torch.float32,
+                    device=a.device)
+  words, iters, eps, inv_count, it = stop or (None, None, -1.0, 0.0, 0)
+  with torch.cuda.device(a.device):
+    err = lib.vtc_conv_tier_product(
+        route_code(route), tier, a.data_ptr(), m, k, src.data_ptr(), c, hh,
+        ww, off_w, sign, off[0], off[1], nb, out_h, out_w,
+        _EPILOGUES[epilogue], out.data_ptr(), ptr(mask), ptr(z), ptr(corr),
+        ptr(extra), ptr(old), ptr(eta), ctypes.c_float(lam),
+        ctypes.c_float(beta), int(fista), int(shrink), planes.data_ptr(),
+        ptr(words), ptr(iters), ctypes.c_float(eps),
+        ctypes.c_float(inv_count), int(it),
+        torch.cuda.current_stream(a.device).cuda_stream)
+  if err != 0:
+    raise RuntimeError("tier product on route %r failed with CUDA error %d "
+                       "(m=%d, k=%d, c=%d, %dx%d, mxu=%s)" % (
+                           route, err, m, k, c, out_h, out_w, mxu))
+  return out
+
+
 def _launch(dstk, dall, mblk, xblk, eta, lam, num_iters, fista, mode, geo,
-            z, eps=None, mxu="highest"):
+            z, eps=None, mxu="highest", route=0):
   """Allocate the kernel's scratch and enqueue the solve on the current
   stream; eps the early stop's threshold (None: none), mxu the resolved
-  tier."""
+  tier, route its products' ``route_code``."""
   global launches, tier_launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
@@ -565,7 +765,7 @@ def _launch(dstk, dall, mblk, xblk, eta, lam, num_iters, fista, mode, geo,
         geo["cpx"], geo["ay"], geo["ax"], geo["bh"], geo["bw"], int(fista),
         mode, img.data_ptr(), corr.data_ptr(), z.data_ptr(), old.data_ptr(),
         ctypes.c_float(eps), ctypes.c_float(1.0 / (positions * geo["s"])),
-        ptr(words), ptr(iters), tier, ptr(planes), stream)
+        ptr(words), ptr(iters), tier, ptr(planes), route, stream)
   if err != 0:
     raise RuntimeError(
         "conv direct kernel launch failed with CUDA error %d (b=%d, s=%d, "

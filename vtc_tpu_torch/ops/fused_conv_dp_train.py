@@ -107,7 +107,7 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
                                 upd_num_iters=1, nonneg=False, hard=False,
                                 renormalize=True, power_iters=12,
                                 lowest_code_val=0.001, mxu="highest",
-                                early_stopping_epsilon=None):
+                                early_stopping_epsilon=None, route="auto"):
   """Run ``batches.shape[0]`` data-parallel conv train steps on this rank.
 
   Every rank of ``mesh`` calls it in step, with the same replicated state
@@ -134,6 +134,9 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
     early_stopping_epsilon: optional; each step's solve stops after the
       first iteration k > 0 whose mean |codes_k - codes_{k-1}| / eta over
       the global batch is below it, on every rank at the same count.
+    route: the solves' tier products' route on the card
+      (``fused_conv_direct.route_code``): 'auto', or one forced for
+      checks and tools.
 
   Returns:
     (kernels, hessian, eigvec, last_codes): new tensors, replicated but for
@@ -146,6 +149,7 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
     raise ValueError("update_alg must be one of %s"
                      % (fused_conv_train.UPDATE_ALGS,))
   mxu = resolve_tier(mxu)
+  route = fused_conv_direct.route_code(route)
 
   def require(cond, message):
     if not cond:
@@ -196,7 +200,7 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
       dstk.clone(), hessian.contiguous().clone(), eigvec.contiguous().clone(),
       xblk, mblk, supp, geo, k, mesh, float(sparsity_weight),
       int(inf_num_iters), float(upd_stepsize), eps=early_stopping_epsilon,
-      mxu=mxu, **{key: flags[key] for key in (
+      mxu=mxu, route=route, **{key: flags[key] for key in (
           "variant", "update_alg", "upd_num_iters", "nonneg", "hard",
           "renormalize", "power_iters", "lowest_code_val")})
   kernels = fused_conv_direct.unpack_dstk(d, geo, dictionary.shape)
@@ -206,12 +210,13 @@ def fused_conv_dp_train_segment(dictionary, hessian, eigvec, batches,
 def _launch(dstk, h, v, xblk, mblk, supp, geo, k, mesh, lam, num_iters,
             upd_step, *, variant, update_alg, upd_num_iters, nonneg, hard,
             renormalize, power_iters, lowest_code_val, eps=None,
-            mxu="highest"):
+            mxu="highest", route=0):
   """Allocate the scratch and the packed statistics, and enqueue the k
   steps on the current stream, the sum over the ranks between each step's
   statistics and its update; eps the early stop's threshold (None:
   none), its share summed over the ranks once per solver iteration; mxu
-  the resolved tier."""
+  the resolved tier, route its products'
+  ``fused_conv_direct.route_code``."""
   global launches, tier_launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
@@ -258,7 +263,7 @@ def _launch(dstk, h, v, xblk, mblk, supp, geo, k, mesh, lam, num_iters,
         fused_conv_direct.ptr(words), fused_conv_direct.ptr(iters),
         fused_conv_direct.ptr(local),
         None if stop_hook is None else stop_hook.pointer, tier,
-        fused_conv_direct.ptr(planes), stream)
+        fused_conv_direct.ptr(planes), route, stream)
   what = ("data-parallel conv segment launch (k=%d, b=%d, s=%d, cpx=%d, "
           "R=%d, gram form %s, mxu=%s%s)" % (
               k, b, s, cpx, r, gram, mxu,

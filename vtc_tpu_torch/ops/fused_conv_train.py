@@ -37,7 +37,9 @@ counts, one a step.  ``mxu`` is vtc_tpu's tier of the tile solver's
 products (``_make_deep_dot``, :240-300): at 'bf16x5', 'bf16x3' or 'bf16'
 each step's corr, synthesis and analysis run at the tier (on the card
 conv_gemm_tier.cuh's bf16 tensor-core GEMM, the weights split once a
-step; in the plain version ``fused_conv_direct.conv_deep_dot``); the Gram,
+step, on the route ``fused_conv_direct.conv_tier_plan`` gives, its
+window route at the flagship; in the plain version
+``fused_conv_direct.conv_deep_dot``); the Gram,
 the power refresh, the Hessian EMA and the update stay fp32.  Left out:
 the TPU knobs ``batch_tile`` and ``interpret``.  ``launches`` counts the
 train steps the kernels ran, ``tier_launches`` those at a tier.
@@ -205,7 +207,7 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
                              renormalize=True, power_iters=12,
                              lowest_code_val=0.001, mxu="highest",
                              early_stopping_epsilon=None,
-                             return_stepsize=False):
+                             return_stepsize=False, route="auto"):
   """Run ``batches.shape[0]`` fused conv train steps.
 
   Args:
@@ -229,6 +231,9 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
       below it (the batch-global test, decided on the device).
     return_stepsize: also return the final step's stepsize 1/eigval, a
       one-element tensor.
+    route: the solves' tier products' route on the card
+      (``fused_conv_direct.route_code``): 'auto', or one forced for
+      checks and tools.
 
   Returns:
     (kernels, hessian, eigvec, last_codes[, stepsize]): new tensors; the
@@ -240,6 +245,7 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
   if update_alg not in UPDATE_ALGS:
     raise ValueError("update_alg must be one of %s" % (UPDATE_ALGS,))
   mxu = resolve_tier(mxu)
+  route = fused_conv_direct.route_code(route)
   _require(batches.dim() == 5 and batches.shape[0] >= 1,
            "batches must be (k, b, c, H, W) with k >= 1, got %s"
            % (tuple(batches.shape),))
@@ -287,7 +293,7 @@ def fused_conv_train_segment(dictionary, hessian, eigvec, batches,
       dstk.clone(), hessian.contiguous().clone(),
       eigvec.contiguous().clone(), xblk, mblk, supp, geo, k,
       float(sparsity_weight), int(inf_num_iters), float(upd_stepsize),
-      eps=early_stopping_epsilon, mxu=mxu,
+      eps=early_stopping_epsilon, mxu=mxu, route=route,
       **{key: flags[key] for key in (
           "variant", "update_alg", "upd_num_iters", "nonneg", "hard",
           "renormalize", "power_iters", "lowest_code_val")})
@@ -317,9 +323,10 @@ def segment_inputs(dictionary, batches, padding, geo):
 
 def _launch(dstk, h, v, xblk, mblk, supp, geo, k, lam, num_iters, upd_step,
             *, variant, update_alg, upd_num_iters, nonneg, hard, renormalize,
-            power_iters, lowest_code_val, eps=None, mxu="highest"):
+            power_iters, lowest_code_val, eps=None, mxu="highest", route=0):
   """Allocate the scratch and enqueue the k steps on the current stream;
-  eps the early stop's threshold (None: none), mxu the resolved tier."""
+  eps the early stop's threshold (None: none), mxu the resolved tier,
+  route its products' ``fused_conv_direct.route_code``."""
   global launches, tier_launches, last_iters
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
@@ -356,7 +363,7 @@ def _launch(dstk, h, v, xblk, mblk, supp, geo, k, lam, num_iters, upd_step,
         partial.data_ptr(), grad.data_ptr(), f32(eps),
         f32(1.0 / (b * s * ch * cw)), fused_conv_direct.ptr(words),
         fused_conv_direct.ptr(iters), tier, fused_conv_direct.ptr(planes),
-        stream)
+        route, stream)
   if err != 0:
     raise RuntimeError(
         "fused conv train step launch failed with CUDA error %d (k=%d, "
@@ -423,7 +430,7 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
                      inf_num_iters, *, kernel_stride, padding, variant="fista",
                      nonneg=False, hard=False, power_iters=12,
                      gram_stats=False, mxu="highest",
-                     early_stopping_epsilon=None):
+                     early_stopping_epsilon=None, route="auto"):
   """One data-parallel shard's conv solve+stats step.
 
   Args:
@@ -440,6 +447,9 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
       'bf16' ('default'); the statistics stay fp32.
     early_stopping_epsilon: None only (vtc_tpu's kernel has no stop test;
       vtc_tpu's data-parallel stop is K17's): NotImplementedError.
+    route: the solve's tier products' route on the card
+      (``fused_conv_direct.route_code``): 'auto', or one forced for
+      checks and tools.
 
   Returns:
     gram_stats False: (codes (b, s, ch, cw), grad_sum (s, c, kh, kw), stat
@@ -454,6 +464,7 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
   if variant not in ("ista", "fista"):
     raise ValueError("variant must be 'ista' or 'fista'")
   mxu = resolve_tier(mxu)
+  route = fused_conv_direct.route_code(route)
   if early_stopping_epsilon is not None:
     raise NotImplementedError(
         "conv_solve_stats has no early stop, as vtc_tpu's K13 has none; "
@@ -506,7 +517,7 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
       dstk, eigvec.contiguous().clone(), xblk, mblk, geo,
       float(sparsity_weight), int(inf_num_iters), variant=variant,
       nonneg=bool(nonneg), hard=bool(hard), power_iters=int(power_iters),
-      gram_stats=bool(gram_stats), mxu=mxu)
+      gram_stats=bool(gram_stats), mxu=mxu, route=route)
   if gram_stats:
     return codes, out, cm, stat, v, eta
   grad_sum = fused_conv_direct.unpack_dstk(out, geo, dictionary.shape)
@@ -514,9 +525,11 @@ def conv_solve_stats(dictionary, eigvec, batch, sparsity_weight,
 
 
 def _launch_stats(dstk, v, xblk, mblk, geo, lam, num_iters, *, variant,
-                  nonneg, hard, power_iters, gram_stats, mxu="highest"):
+                  nonneg, hard, power_iters, gram_stats, mxu="highest",
+                  route=0):
   """Allocate the scratch and enqueue one shard's step on the current
-  stream; mxu the resolved tier."""
+  stream; mxu the resolved tier, route its products'
+  ``fused_conv_direct.route_code``."""
   global stats_launches, stats_tier_launches
   from vtc_tpu_torch.ops._build import load_library
   lib = load_library()
@@ -548,7 +561,7 @@ def _launch_stats(dstk, v, xblk, mblk, geo, lam, num_iters, *, variant,
         eta.data_ptr(), img.data_ptr(), corr.data_ptr(), z.data_ptr(),
         old.data_ptr(), partial.data_ptr(), out.data_ptr(),
         None if cm is None else cm.data_ptr(), stat.data_ptr(), tier,
-        fused_conv_direct.ptr(planes), stream)
+        fused_conv_direct.ptr(planes), route, stream)
   if err != 0:
     raise RuntimeError(
         "conv solve+stats launch failed with CUDA error %d (b=%d, s=%d, "
